@@ -5,21 +5,32 @@
 
 Phases (any failed check raises, so the script exits non-zero):
 
-1. Device: require CUDA, print the card's name and power limit, turn TF32
-   off for the f32 checks.
+1. Device: require CUDA, print the card's name and power limit, set the
+   port's TF32 switch for float32 and say what it found.
 2. Build: compile every CUDA kernel from `emoasr_tpu_torch/csrc/`, one nvcc
    per source, all at once.
-3. Kernels against their plain PyTorch versions on the card (top-k exact;
-   attention f32 within 1e-5, bf16 within 2e-2), then timed at the shapes of
-   the main path beside the plain version and one library call.
-4. Main path at the full width of the L1 CTC(Transformer) model (12 x 256,
-   4 heads, FF 2048, V = 10000) with random weights from `--seed`: a
-   synthetic corpus over the L1 buckets is decoded through the port's eval
-   CLI with `--beam_width 8`, then greedily, with `enc_fused_attn: true`.
-   The launch counts prove that the path went through both kernels; one
-   batch's encoder output on the card is held against the CPU's plain path.
-5. One JSON line describing each kernel, the `nvidia-smi` line, and last the
-   `{"ok": true, "device": ...}` line.
+3. Kernels against their plain PyTorch versions on the card, forward and
+   backward, each with its stated tolerance (top-k exact; attention forward
+   f32 1e-5, bf16 2e-2; attention backward, CTC head and CTC lattice: see
+   the constants beside their checks).
+4. Training at the full width of the L1 CTC(Transformer) model (12 x 256,
+   4 heads, FF 2048, V = 10000, SpecAugment and dropout on,
+   `enc_fused_attn: true`, random initial weights from `--seed`): one epoch
+   of 11 micro-steps over the five L1 buckets through the port's train CLI.
+   Finite losses, no skipped step, the noam LR, changed weights, and the
+   launch counts of every training kernel are checked; then one micro-step's
+   loss and gradients on the card are held against the CPU's plain path,
+   and one micro-step's phases are timed.
+5. Learning on the card: a small corpus is overfitted through the train CLI
+   and decoded by the eval CLI (WER < 15).
+6. Decoding: a synthetic test corpus over the L1 buckets is decoded with the
+   `model.ep1` the trainer wrote, through the port's eval CLI with
+   `--beam_width 8`, then greedily; the launch counts prove that the path
+   went through the kernels; one batch's encoder output on the card is held
+   against the CPU's plain path.
+7. Every kernel timed at the largest bucket beside its plain version and
+   one library call; one JSON line describing each kernel, the `nvidia-smi`
+   line, and last the `{"ok": true, "device": ...}` line.
 
 Scratch files go to `build/chip_smoke/` and are removed at the end.
 """
@@ -201,22 +212,420 @@ def time_attention(dev, gen, B: int, T: int, H: int, D: int, lens: torch.Tensor)
     }
 
 
-# ---------------------------------------------------------------- main path
+def _bound(bytes_moved: float, ops: float, dtype=torch.float32) -> dict:
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def write_corpus(root: str, n_utts: int, vocab_size: int, feat_dim: int, seed: int):
-    """Synthetic test set: lengths spread over 200..1600 frames, token ids
-    over the whole vocabulary, utt ids carrying start/end times (ms)."""
+def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a.double() - b.double()).abs().max().item()
+
+
+def _require_close(name: str, got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float) -> float:
+    """max |got - want| <= atol + rtol max |want|; returns the largest error."""
+    require(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    require(bool(torch.isfinite(got).all()), f"{name}: non-finite values")
+    err, tol = _max_err(got, want), atol + rtol * want.abs().max().item()
+    require(err <= tol, f"{name}: max |kernel - plain| = {err} > {tol} (atol {atol} + rtol {rtol} of the largest)")
+    return err
+
+
+def _require_close_by_column(name: str, got: torch.Tensor, want: torch.Tensor, dim: int, atol: float,
+                             rtol: float) -> tuple:
+    """Every index v along `dim` on its own: max |got[v] - want[v]| <= atol +
+    rtol max |want[v]|.  A gradient to the output layer has a few vocabulary
+    columns (blank, eos, the labels) thousands of times larger than the rest:
+    a tolerance scaled by the largest entry of the whole tensor would not see
+    the rest at all.  Returns the largest error and the largest error as a
+    share of its own column's largest entry."""
+    require(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    require(bool(torch.isfinite(got).all()), f"{name}: non-finite values")
+    other = [d for d in range(want.dim()) if d != dim % want.dim()]
+    err = (got.double() - want.double()).abs().amax(other)
+    scale = want.double().abs().amax(other)
+    over = err - (atol + rtol * scale)
+    v = int(over.argmax())
+    require(over[v].item() <= 0, f"{name}: column {v}: max |kernel - plain| = {err[v].item()} > atol {atol} + "
+            f"rtol {rtol} of the column's largest entry {scale[v].item()}")
+    return err.max().item(), (err / scale.clamp_min(1e-30)).max().item()
+
+
+def _require_close_by_group(name: str, got: torch.Tensor, want: torch.Tensor, groups: dict, atol: float,
+                            rtol: float) -> float:
+    """A vector over the vocabulary, held group by group (entries on a CTC
+    path, entries on none): each group to atol + rtol of its own largest
+    entry.  Single entries can cancel to nothing, so they carry no scale of
+    their own.  Returns the largest error as a share of its group's scale."""
+    worst = 0.0
+    for gname, idx in groups.items():
+        if idx.numel():
+            _require_close(f"{name} ({gname})", got[idx], want[idx], atol, rtol)
+            worst = max(worst, _max_err(got[idx], want[idx]) / max(want[idx].abs().max().item(), 1e-30))
+    return worst
+
+
+def _vocab_groups(V: int, on_path: torch.Tensor) -> dict:
+    """Vocabulary entries that lie on some CTC path of the batch, and the rest."""
+    is_path = torch.zeros(V, dtype=torch.bool, device=on_path.device)
+    is_path[on_path.reshape(-1).long()] = True
+    return {"path columns": is_path.nonzero()[:, 0], "other columns": (~is_path).nonzero()[:, 0]}
+
+
+# K2: the CTC lattice, held against its plain version run in float64.  ll
+# is a sum of up to T log-probabilities (magnitudes in the thousands): atol
+# 1e-3 + rtol 1e-5 of the largest feasible |ll|.  The gradient is
+# g exp(alpha + beta - ll): alpha, beta and ll are each rounded to f32 at a
+# magnitude of about |ll|, so with |ll| near 1650 (T = 399) the exponent
+# carries an error of some 1e-3 and so does the posterior: atol 1e-4 + rtol
+# 3e-3 of the largest |gradient|.  (The plain version's autograd, a chain of
+# local softmax derivatives, is some 20 times closer to float64.)
+LATTICE_TOL = {"ll": (1e-3, 1e-5), "grad": (1e-4, 3e-3)}
+
+
+def lattice_case(dev, gen, B: int, T: int, U: int, V: int):
+    """Path emissions from random log-probabilities: ragged xlens, repeated
+    labels, one utterance without labels and one without a feasible path."""
+    from emoasr_tpu_torch.ops.ctc import _path_masks
+
+    lp = torch.log_softmax(torch.randn(B, T, V, generator=gen, device=dev), -1)
+    labels = torch.randint(1, V, (B, U), generator=gen, device=dev)
+    labels[:, 1::3] = labels[:, 0::3][:, : labels[:, 1::3].shape[1]]  # repeats
+    ylens = torch.randint(1, U + 1, (B,), generator=gen, device=dev)
+    xlens = torch.randint(2 * U + 1, T + 1, (B,), generator=gen, device=dev) if T > 2 * U else \
+        torch.full((B,), T, device=dev)
+    xlens[0], ylens[0] = T, U
+    ylens[1] = 0                      # no labels: blank all the way
+    xlens[2], ylens[2] = max(U // 2, 1), U  # too short for its labels: infeasible
+    z, allow2f, initf, finalf = _path_masks(labels, ylens, 0)
+    lp_path = torch.gather(lp, 2, z[:, None, :].expand(-1, T, -1)).transpose(0, 1)
+    return lp_path, allow2f, initf, finalf, xlens
+
+
+def check_ctc_lattice(dev, gen) -> dict:
+    from emoasr_tpu_torch.ops.common import LOG_0
+    from emoasr_tpu_torch.ops.ctc_lattice import ctc_ll_from_path, ctc_ll_plain
+
+    worst = {"ll": 0.0, "grad": 0.0}
+    for name, (B, T, U, V) in (("(399,18,257)", (18, 399, 128, 64)), ("(50,5,21)", (5, 50, 10, 7)),
+                               ("(9,4,1)", (4, 9, 0, 5))):
+        lp_path, allow2f, initf, finalf, xlens = lattice_case(dev, gen, B, T, max(U, 1), V)
+        if U == 0:  # S = 1: blank only
+            lp_path, allow2f, initf, finalf = (x[..., :1].contiguous() for x in (lp_path, allow2f, initf, finalf))
+            finalf.fill_(1.0)
+        g = torch.randn(B, generator=gen, device=dev)
+        outs = []
+        for fn, x in ((ctc_ll_from_path, lp_path), (ctc_ll_plain, lp_path.clone()),
+                      (ctc_ll_plain, lp_path.double())):
+            x = x.detach().requires_grad_(True)
+            ll = fn(x, allow2f, initf, finalf, xlens)
+            (grad,) = torch.autograd.grad(ll, x, g.to(ll.dtype))
+            outs.append((ll.detach(), grad))
+        torch.cuda.synchronize()
+        (ll1, g1), (ll32, g32), (ll0, g0) = outs
+        ok = ll0 > LOG_0 / 2  # rows with a feasible alignment
+        require(torch.equal(ok, ll1 > LOG_0 / 2), f"lattice {name}: feasible rows differ from the plain version's")
+        if U > 0:
+            require(not ok[2], f"lattice {name}: the infeasible row has ll {ll1[2].item()}")
+            require(not g1[:, 2].any(), f"lattice {name}: gradient of the infeasible row is not exactly 0")
+        past = torch.arange(T, device=dev)[:, None] >= xlens[None, :]
+        require(not g1[past].any(), f"lattice {name}: gradient past xlens is not exactly 0")
+        e_ll = _require_close(f"lattice {name} ll", ll1[ok], ll0[ok], *LATTICE_TOL["ll"])
+        e_g = _require_close(f"lattice {name} grad", g1, g0, *LATTICE_TOL["grad"])
+        worst = {"ll": max(worst["ll"], e_ll), "grad": max(worst["grad"], e_g)}
+        print(f"  ctc lattice {name}: ll err {e_ll:.3e}, grad err {e_g:.3e} against the float64 plain version "
+              f"(its float32 run: {_max_err(ll32[ok], ll0[ok]):.3e}, {_max_err(g32, g0):.3e})")
+    return worst
+
+
+# K1: the fused head.  Sums of H = 256 products of O(1) values in another
+# order than cuBLAS: lse, xs and d e within atol 1e-4 + rtol 1e-4 of the
+# largest entry.  The gradients to w and the bias add up B T = 7182 rows, and
+# their columns differ by orders of magnitude: with independent cotangents
+# the path columns (blank at every even s, eos padding) reach thousands while
+# the other ~9900 columns hold only the softmax term g_lse p, about 0.01.  So
+# d w is held vocabulary column by column, each to rtol 1e-4 of its own
+# largest entry + atol 1e-6, and d b in two groups (path columns, others).
+# A second cotangent, g_lse = -sum_s g_xs, is what the CTC loss sends: there
+# the two terms of d logits cancel in the sum over the vocabulary.
+HEAD_TOL = (1e-4, 1e-4)
+HEAD_COLUMN_TOL = (1e-6, 1e-4)
+
+
+def head_case(dev, gen, B: int, T: int, H: int, V: int, U: int):
+    from emoasr_tpu_torch.ops.ctc import _extend_with_blanks
+
+    e = torch.randn(B, T, H, generator=gen, device=dev)
+    weight = torch.randn(V, H, generator=gen, device=dev) / H ** 0.5  # a linear layer's (V, H)
+    bias = 0.1 * torch.randn(V, generator=gen, device=dev)
+    labels = torch.randint(1, V, (B, U), generator=gen, device=dev)
+    labels[:, U // 2:] = 2  # eos padding: one label many times over
+    labels[:, 1::4] = labels[:, 0::4][:, : labels[:, 1::4].shape[1]]
+    z = _extend_with_blanks(labels, 0)
+    elens = torch.randint(T // 2, T + 1, (B,), generator=gen, device=dev)
+    elens[0] = T
+    valid = (torch.arange(T, device=dev)[None, :] < elens[:, None]).float()
+    g_lse = torch.randn(B, T, generator=gen, device=dev) * valid
+    g_xs = torch.randn(B, T, z.shape[1], generator=gen, device=dev) * valid[:, :, None]
+    return e, weight, bias, z, g_lse, g_xs, valid
+
+
+def check_ctc_head(dev, gen) -> dict:
+    """Largest errors by kernel: forward (lse, xs), grad-e (d e), grad-w (d w, d b)."""
+    from emoasr_tpu_torch.ops.ctc_head import ctc_head_plain, fused_ctc_head
+
+    worst = {"fwd": 0.0, "grad_e": 0.0, "grad_w": 0.0, "grad_w_rel": 0.0}
+    for name, shape, transposed in (
+        ("(18,399,256)x(256,10000) S=257, w as weight.t()", (18, 399, 256, 10000, 128), True),
+        ("(18,399,256)x(256,10000) S=257, w contiguous", (18, 399, 256, 10000, 128), False),
+        ("(3,70,96)x(96,37) S=9", (3, 70, 96, 37, 4), True),
+        ("(2,65,40)x(40,129) S=3", (2, 65, 40, 129, 1), False),
+    ):
+        e, weight, bias, z, g_lse, g_xs, valid = head_case(dev, gen, *shape)
+        groups = _vocab_groups(shape[3], z)
+        for cot, g_lse_ in (("independent cotangents", g_lse), ("g_lse = -sum g_xs", -g_xs.sum(-1))):
+            res = []
+            for fn in (fused_ctc_head, ctc_head_plain):
+                e_, b_ = e.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+                w_ = (weight.clone() if transposed else weight.t().contiguous()).requires_grad_(True)
+                lse, xs = fn(e_, w_.t() if transposed else w_, b_, z)
+                grads = torch.autograd.grad((lse, xs), (e_, w_, b_), (g_lse_, g_xs))
+                res.append((lse.detach(), xs.detach(), *grads))
+            torch.cuda.synchronize()
+            tag = f"ctc head {name}, {cot},"
+            errs = [_require_close(f"{tag} {what}", a, b, *HEAD_TOL)
+                    for what, a, b in zip(("lse", "xs", "d e"), res[0], res[1])]
+            e_w, rel_w = _require_close_by_column(f"{tag} d w", res[0][3], res[1][3], 0 if transposed else 1,
+                                                  *HEAD_COLUMN_TOL)
+            rel_b = _require_close_by_group(f"{tag} d b", res[0][4], res[1][4], groups, *HEAD_COLUMN_TOL)
+            e_b = _max_err(res[0][4], res[1][4])
+            require(not res[0][2][valid == 0].any(), f"{tag} d e past the lengths is not exactly 0")
+            worst = {"fwd": max(worst["fwd"], errs[0], errs[1]), "grad_e": max(worst["grad_e"], errs[2]),
+                     "grad_w": max(worst["grad_w"], e_w, e_b),
+                     "grad_w_rel": max(worst["grad_w_rel"], rel_w, rel_b)}
+            print(f"  {tag} lse {errs[0]:.2e} xs {errs[1]:.2e} d e {errs[2]:.2e} d w {e_w:.2e} d b {e_b:.2e}; "
+                  f"d w by column {rel_w:.2e} of the column's largest entry, d b by group {rel_b:.2e} "
+                  f"(tol {HEAD_COLUMN_TOL[1]})")
+    return worst
+
+
+# K4 backward: sums over up to 399 keys (dQ) or queries (dK, dV) of O(1)
+# terms in f32, in another order than the plain version: atol 1e-4.
+ATTN_BWD_TOL = 1e-4
+DROPOUT_RATE = 0.1
+
+
+def check_attention_backward(dev, gen) -> float:
+    """Forward with dropout and backward, kernel against the plain version
+    under autograd, the plain version taking the kernel's own keep mask."""
+    from emoasr_tpu_torch.ops.attention import attention_plain, dropout_keep_mask, fused_self_attention
+
+    worst = 0.0
+    lens18 = torch.randint(1, 400, (18,), generator=gen, device=dev)
+    lens18[0], lens18[1], lens18[2] = 399, 0, 1
+    for name, (B, T, H, D), lens, rate in (
+        ("(18,399,4,64) no dropout", (18, 399, 4, 64), lens18, 0.0),
+        ("(18,399,4,64) dropout 0.1", (18, 399, 4, 64), lens18, DROPOUT_RATE),
+        ("(5,37,4,64) dropout 0.3", (5, 37, 4, 64), torch.tensor([37, 1, 0, 20, 36], device=dev), 0.3),
+        ("(3,50,2,128) dropout 0.1", (3, 50, 2, 128), torch.tensor([50, 17, 3], device=dev), DROPOUT_RATE),
+        ("(2,70,3,40) no dropout", (2, 70, 3, 40), torch.tensor([70, 33], device=dev), 0.0),
+    ):
+        q, k, v, d_out = (torch.randn(B, T, H, D, generator=gen, device=dev) for _ in range(4))
+        scale, seed = 1.0 / D ** 0.5, 1234567 + T
+        mask = dropout_keep_mask(B, T, H, rate, seed, dev) if rate > 0 else None
+        res = []
+        for kernel in (True, False):
+            q_, k_, v_ = (x.clone().requires_grad_(True) for x in (q, k, v))
+            if kernel:
+                out = fused_self_attention(q_, k_, v_, lens, scale=scale, dropout_rate=rate,
+                                           deterministic=False, seed=seed)
+            else:
+                out = attention_plain(q_, k_, v_, lens, scale, rate, dropout_mask=mask)
+            res.append((out.detach(), *torch.autograd.grad(out, (q_, k_, v_), d_out)))
+        torch.cuda.synchronize()
+        errs = []
+        for what, a, b in zip(("out", "dq", "dk", "dv"), res[0], res[1]):
+            err = _max_err(a, b)
+            require(bool(torch.isfinite(a).all()) and err <= ATTN_BWD_TOL,
+                    f"attention {name} {what}: max |kernel - plain| = {err} > {ATTN_BWD_TOL}")
+            errs.append(err)
+        past = torch.arange(T, device=dev)[None, :] >= lens[:, None]
+        require(not res[0][2][past].any() and not res[0][3][past].any(),
+                f"attention {name}: dk/dv at masked keys are not exactly 0")
+        worst = max(worst, *errs)
+        print(f"  attention fwd+bwd {name}: out {errs[0]:.2e} dq {errs[1]:.2e} dk {errs[2]:.2e} "
+              f"dv {errs[3]:.2e} (tol {ATTN_BWD_TOL})")
+    # the dropout bits: kept share and dependence on the seed
+    m1 = dropout_keep_mask(18, 399, 4, DROPOUT_RATE, 1, dev)
+    m2 = dropout_keep_mask(18, 399, 4, DROPOUT_RATE, 2, dev)
+    share = m1.float().mean().item()
+    require(abs(share - (1 - DROPOUT_RATE)) < 1e-3, f"dropout keeps {share}, want {1 - DROPOUT_RATE}")
+    differ = (m1 != m2).float().mean().item()
+    require(abs(differ - 2 * DROPOUT_RATE * (1 - DROPOUT_RATE)) < 2e-3,
+            f"two seeds differ at a share of {differ} of the elements")
+    print(f"  dropout bits: kept share {share:.5f} at rate {DROPOUT_RATE}; two seeds differ at {differ:.4f}")
+    return worst
+
+
+def _grad_timer(outs, inputs, cots):
+    """A closure that runs the backward from `outs` to `inputs` once."""
+    return lambda: torch.autograd.grad(outs, inputs, cots, retain_graph=True)
+
+
+def time_ctc_head(dev, gen, B: int, T: int, H: int, V: int, U: int) -> dict:
+    """The three head kernels at the training shapes, beside the plain
+    version and the library route (F.linear + logsumexp + gather)."""
+    import torch.nn.functional as F
+
+    from emoasr_tpu_torch.ops.ctc_head import ctc_head_plain, fused_ctc_head
+
+    e, weight, bias, z, g_lse, g_xs, _ = head_case(dev, gen, B, T, H, V, U)
+    S, N = z.shape[1], B * T
+    idx = z.long()[:, None, :].expand(-1, T, -1)
+
+    def library(e_, w_, b_):
+        logits = F.linear(e_, w_, b_)
+        return torch.logsumexp(logits, -1), torch.gather(logits, 2, idx)
+
+    routes = {"ms": lambda e_, w_, b_: fused_ctc_head(e_, w_.t(), b_, z),
+              "plain_ms": lambda e_, w_, b_: ctc_head_plain(e_, w_.t(), b_, z),
+              "library_ms": library}
+    rows = {"ctc_head_fwd": {}, "ctc_head_grad_e": {}, "ctc_head_grad_w": {}}
+    for key, fn in routes.items():
+        with torch.no_grad():
+            rows["ctc_head_fwd"][key] = cuda_time_ms(lambda: fn(e, weight, bias), iters=10, warmup=2)
+        # a graph in which only e needs a gradient runs grad-e alone, and
+        # one in which only the weights do runs grad-w alone
+        e_ = e.clone().requires_grad_(True)
+        rows["ctc_head_grad_e"][key] = cuda_time_ms(
+            _grad_timer(fn(e_, weight, bias), (e_,), (g_lse, g_xs)), iters=10, warmup=2)
+        w_, b_ = weight.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+        rows["ctc_head_grad_w"][key] = cuda_time_ms(
+            _grad_timer(fn(e, w_, b_), (w_, b_), (g_lse, g_xs)), iters=10, warmup=2)
+    io = 4 * (N * H + H * V + V + B * S)  # e, w, bias, z
+    product, path = 2.0 * N * H * V, 2.0 * N * H * S
+    rows["ctc_head_fwd"].update(_bound(io + 4 * (N + N * S), product + path))
+    rows["ctc_head_grad_e"].update(_bound(io + 4 * (2 * N + N * S + N * H), 2 * product + path))
+    rows["ctc_head_grad_w"].update(_bound(io + 4 * (2 * N + N * S + H * V + V), 2 * product + path))
+    for r in rows.values():
+        r["shape"] = f"({B},{T},{H})x({H},{V}) S={S} float32"
+    return rows
+
+
+def time_ctc_lattice(dev, gen, B: int, T: int, U: int, V: int) -> dict:
+    """alpha and beta kernels at the training shapes, beside the plain loop
+    and `F.ctc_loss` (which takes dense (T, B, V) log-probabilities: another
+    interface, timed as a yardstick only)."""
+    import torch.nn.functional as F
+
+    from emoasr_tpu_torch.ops.ctc_lattice import ctc_ll_from_path, ctc_ll_plain
+
+    lp = torch.log_softmax(torch.randn(T, B, V, generator=gen, device=dev), -1)
+    labels = torch.randint(1, V, (B, U), generator=gen, device=dev)
+    ylens = torch.randint(U // 4, U + 1, (B,), generator=gen, device=dev)
+    xlens = torch.randint(2 * U + 1, T + 1, (B,), generator=gen, device=dev)
+    xlens[0] = T
+    from emoasr_tpu_torch.ops.ctc import _path_masks
+    z, allow2f, initf, finalf = _path_masks(labels, ylens, 0)
+    S = z.shape[1]
+    lp_path = torch.gather(lp, 2, z[None].expand(T, -1, -1)).contiguous()
+    g = torch.ones(B, device=dev)
+
+    def library(x):
+        return F.ctc_loss(x, labels, xlens, ylens, blank=0, reduction="none", zero_infinity=True)
+
+    rows = {"ctc_alpha": {}, "ctc_beta_grad": {}}
+    for key, fn, x in (("ms", lambda x: ctc_ll_from_path(x, allow2f, initf, finalf, xlens), lp_path),
+                       ("plain_ms", lambda x: ctc_ll_plain(x, allow2f, initf, finalf, xlens), lp_path),
+                       ("library_ms", library, lp)):
+        iters = 3 if key == "plain_ms" else 20
+        with torch.no_grad():
+            rows["ctc_alpha"][key] = cuda_time_ms(lambda: fn(x), iters=iters, warmup=1)
+        x_ = x.clone().requires_grad_(True)
+        rows["ctc_beta_grad"][key] = cuda_time_ms(_grad_timer(fn(x_), (x_,), g), iters=iters, warmup=1)
+    steps = int(xlens.sum().item())  # live (t, b) pairs: the loops end at xlens
+    rows["ctc_alpha"].update(_bound(4 * (2 * steps * S + 3 * B * S + 2 * B), 12.0 * steps * S))
+    rows["ctc_beta_grad"].update(_bound(4 * (2 * steps * S + T * B * S + 2 * B * S + 3 * B), 14.0 * steps * S))
+    for r in rows.values():
+        r["shape"] = f"({T},{B},{S}) float32, {T - 1} dependent steps"
+    return rows
+
+
+def time_attention_backward(dev, gen, B: int, T: int, H: int, D: int, lens: torch.Tensor) -> dict:
+    """Both backward passes with dropout 0.1, beside the plain version and
+    SDPA's backward under autograd."""
+    import torch.nn.functional as F
+
+    from emoasr_tpu_torch.ops.attention import attention_plain, dropout_keep_mask, fused_self_attention
+
+    q, k, v, d_out = (torch.randn(B, T, H, D, generator=gen, device=dev) for _ in range(4))
+    scale, seed = 1.0 / D ** 0.5, 99
+    mask = dropout_keep_mask(B, T, H, DROPOUT_RATE, seed, dev)
+    key_mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    q_, k_, v_ = (x.clone().requires_grad_(True) for x in (q, k, v))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q_, k_, v_))
+    graphs = {
+        "ms": fused_self_attention(q_, k_, v_, lens, scale=scale, dropout_rate=DROPOUT_RATE,
+                                   deterministic=False, seed=seed),
+        "plain_ms": attention_plain(q_, k_, v_, lens, scale, DROPOUT_RATE, dropout_mask=mask),
+        "library_ms": F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=key_mask, dropout_p=DROPOUT_RATE, scale=scale).transpose(1, 2),
+    }
+    row = {key: cuda_time_ms(_grad_timer(out, (q_, k_, v_), d_out), iters=20, warmup=2)
+           for key, out in graphs.items()}
+    pairs = T * int(lens.clamp(max=T).sum().item())  # (query, valid key) pairs per head
+    row.update(_bound(4 * (8 * B * T * H * D + B * H * T + B), 10.0 * H * D * pairs))
+    row["shape"] = f"({B},{T},{H},{D}) float32, dropout {DROPOUT_RATE}"
+    return row
+
+
+# ---------------------------------------------------------------- main paths
+
+# the kernels' launchers, by the name each has on the `kernels` line
+def launch_counts() -> dict:
+    from emoasr_tpu_torch.ops import attention, ctc_head, ctc_lattice, topk
+
+    return {
+        "topk": topk.KERNEL.launches,
+        "attention_fwd": attention.KERNEL.counts["emo_attention_fwd_f32"]
+        + attention.KERNEL.counts["emo_attention_fwd_bf16"],
+        "attention_bwd": attention.KERNEL.counts["emo_attention_bwd_f32"],
+        "ctc_head_fwd": ctc_head.KERNEL.counts["emo_ctc_head_fwd_f32"],
+        "ctc_head_grad_e": ctc_head.KERNEL.counts["emo_ctc_head_grad_e_f32"],
+        "ctc_head_grad_w": ctc_head.KERNEL.counts["emo_ctc_head_grad_w_f32"],
+        "ctc_alpha": ctc_lattice.KERNEL.counts["emo_ctc_alpha_f32"],
+        "ctc_beta_grad": ctc_lattice.KERNEL.counts["emo_ctc_beta_grad_f32"],
+    }
+
+
+def reset_launch_counts() -> None:
+    from emoasr_tpu_torch.ops import attention, ctc_head, ctc_lattice, topk
+
+    for mod in (attention, ctc_head, ctc_lattice, topk):
+        mod.KERNEL.reset_counts()
+
+
+def write_vocab(root: str, vocab_size: int) -> str:
+    vocab = os.path.join(root, "vocab.txt")
+    with open(vocab, "w", encoding="utf-8") as f:
+        f.write("\n".join(["<blank> 0", "<unk> 1", "<eos> 2"]
+                          + [f"▁w{i} {i}" for i in range(3, vocab_size)]) + "\n")
+    return vocab
+
+
+def write_corpus(root: str, name: str, lengths, vocab_size: int, feat_dim: int, seed: int):
+    """Synthetic manifest `<name>.tsv`: one utterance of random features per
+    entry of `lengths` (frames), 5-40 random token ids over the whole
+    vocabulary, utt ids carrying start/end times (ms)."""
     import pandas as pd
 
     rng = np.random.default_rng(seed)
-    os.makedirs(os.path.join(root, "feats"))
+    os.makedirs(os.path.join(root, f"feats_{name}"))
     rows, frames = [], 0
-    for i in range(n_utts):
-        T = 200 + (1400 * i) // max(n_utts - 1, 1)
+    for i, T in enumerate(lengths):
         U = int(rng.integers(5, 40))
-        path = os.path.join(root, "feats", f"utt{i}.npy")
-        np.save(path, rng.normal(size=(T, feat_dim)).astype(np.float32))
+        path = os.path.join(root, f"feats_{name}", f"utt{i}.npy")
+        np.save(path, rng.standard_normal(size=(T, feat_dim), dtype=np.float32))
         toks = rng.integers(3, vocab_size, size=U)
         start = i * 100000
         rows.append(dict(
@@ -225,29 +634,302 @@ def write_corpus(root: str, n_utts: int, vocab_size: int, feat_dim: int, seed: i
             xlen=T, ylen=U,
         ))
         frames += T
-    tsv = os.path.join(root, "test.tsv")
+    tsv = os.path.join(root, f"{name}.tsv")
     pd.DataFrame(rows).to_csv(tsv, sep="\t", index=False)
-    vocab = os.path.join(root, "vocab.txt")
-    with open(vocab, "w", encoding="utf-8") as f:
-        f.write("\n".join(["<blank> 0", "<unk> 1", "<eos> 2"]
-                          + [f"▁w{i} {i}" for i in range(3, vocab_size)]) + "\n")
-    return tsv, vocab, frames * 0.010
+    return tsv, frames * 0.010
 
 
-def run_cli(conf: str, beam: int, counters, n_utts: int, wav_s: float, card: str) -> dict:
+def train_lengths(cfg, batches_per_bucket):
+    """Utterance lengths, sorted, that fill `batches_per_bucket[i]` whole
+    batches of the i-th bucket (shortest first), spread over 200..1600."""
+    from emoasr_tpu_torch.data.batching import derive_buckets
+
+    buckets = derive_buckets(cfg.buckets, cfg.max_xlens_batch, cfg.max_ylens_batch, cfg.batch_size)
+    lengths, lo = [], 199
+    for b, n_batches in zip(buckets, batches_per_bucket):
+        n = b.batch_size * n_batches
+        lengths += [lo + 1 + ((b.max_xlen - lo - 1) * j) // max(n - 1, 1) for j in range(n)]
+        lo = b.max_xlen
+    return lengths, buckets
+
+
+def read_train_log(conf_path: str):
+    """(per-step loss_total, per-step lr, epoch seconds) from the trainer's log."""
+    import re
+
+    losses, lrs, epoch_s = [], [], []
+    with open(os.path.join(os.path.splitext(conf_path)[0], "log", "train.log")) as f:
+        for line in f:
+            m = re.search(r"step \d+/\d+ .*loss_total: (\S+) lr: (\S+)", line)
+            if m:
+                losses.append(float(m.group(1)))
+                lrs.append(float(m.group(2)))
+            m = re.search(r"epoch \d+ done in ([0-9.]+)s", line)
+            if m:
+                epoch_s.append(float(m.group(1)))
+    return losses, lrs, epoch_s
+
+
+def train_full_width(args, root: str, card: str) -> dict:
+    """Train the L1 model at full width through the port's train CLI:
+    SpecAugment and dropout on, one epoch of 11 micro-steps over all five
+    buckets (two optimizer updates at accum_grad 5 and one open micro-step)."""
+    import yaml
+
+    from emoasr_tpu_torch.config import load_config
+    from emoasr_tpu_torch.models.asr import ASR
+    from emoasr_tpu_torch.train import loop
+    from emoasr_tpu_torch.train.checkpoint import load_state_dict
+    from emoasr_tpu_torch.train.optim import make_lr_fn
+
+    with open(L1_CONF) as f:
+        conf = yaml.safe_load(f)
+    cfg0 = load_config(L1_CONF)
+    per_bucket = [2, 2, 2, 2, 3]
+    lengths, buckets = train_lengths(cfg0, per_bucket)
+    train_tsv, _ = write_corpus(root, "train", lengths, conf["vocab_size"], conf["feat_dim"], args.seed + 1)
+    n_test = args.n_utts
+    test_tsv, wav_s = write_corpus(
+        root, "test", [200 + (1400 * i) // max(n_test - 1, 1) for i in range(n_test)],
+        conf["vocab_size"], conf["feat_dim"], args.seed)
+    conf.update(vocab_path=write_vocab(root, conf["vocab_size"]), train_path=train_tsv,
+                test_path=test_tsv, dev_path=None, enc_fused_attn=True, num_epochs=1,
+                save_step=1, log_step=1, seed=args.seed)
+    conf_path = os.path.join(root, "l1_ctc_transformer.yaml")
+    with open(conf_path, "w") as f:
+        yaml.safe_dump(conf, f)
+    cfg = load_config(conf_path)
+    require((cfg.enc_num_layers, cfg.enc_hidden_size, cfg.enc_num_attention_heads,
+             cfg.enc_intermediate_size, cfg.vocab_size, cfg.accum_grad, cfg.spec_augment,
+             cfg.dropout_enc_rate, cfg.dropout_attn_rate) == (12, 256, 4, 2048, 10000, 5, True, 0.1, 0.1),
+            "the L1 config is not at full width with SpecAugment and dropout on")
+    n_steps, n_utts = sum(per_bucket), len(lengths)
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = loop.main(["-conf", conf_path])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+
+    losses, lrs, epoch_s = read_train_log(conf_path)
+    require(state.step == n_steps and len(losses) == n_steps,
+            f"training took {state.step} micro-steps and logged {len(losses)}, want {n_steps}")
+    require(all(np.isfinite(losses)), f"a training loss is not finite: {losses}")
+    require(state.skipped == 0, f"{state.skipped} micro-steps were skipped")
+    require(state.mini_step == n_steps % cfg.accum_grad, f"open accumulation holds {state.mini_step} micro-steps")
+    lr_fn = make_lr_fn(cfg)
+    want_lr = lr_fn(n_steps // cfg.accum_grad)
+    got_lr = state.optimizer.param_groups[0]["lr"]
+    require(abs(got_lr - want_lr) <= 1e-12 * want_lr + 1e-30, f"optimizer LR {got_lr}, noam gives {want_lr}")
+    require(abs(lrs[-1] - lr_fn((n_steps + cfg.accum_grad - 1) // cfg.accum_grad)) < 1e-6, "logged LR is not the noam value")
+    want = {"ctc_head_fwd": n_steps, "ctc_head_grad_e": n_steps, "ctc_head_grad_w": n_steps,
+            "ctc_alpha": n_steps, "ctc_beta_grad": n_steps,
+            "attention_fwd": cfg.enc_num_layers * n_steps, "attention_bwd": cfg.enc_num_layers * n_steps,
+            "topk": 0}
+    require(launches == want, f"training launches {launches}, want {want}")
+
+    ckpt = os.path.join(os.path.splitext(conf_path)[0], "checkpoints", "model.ep1")
+    require(os.path.exists(ckpt) and os.path.exists(ckpt.replace("model.", "optim.")),
+            "the trainer wrote no model.ep1 / optim.ep1")
+    torch.manual_seed(cfg.seed)
+    init, trained = ASR(cfg).state_dict(), load_state_dict(ckpt)
+    changed = [k for k in init if not torch.equal(init[k], trained[k])]
+    require(len(changed) >= 0.9 * len(init) and "decoder.output.weight" in changed
+            and "encoder.conv.conv.0.weight" in changed,
+            f"only {len(changed)} of {len(init)} parameter tensors changed in training")
+    for k, v in trained.items():
+        require(bool(torch.isfinite(v).all()), f"trained parameter {k} is not finite")
+    epoch = epoch_s[0] if epoch_s else float("nan")
+    print(f"  trained {n_steps} micro-steps ({n_utts} utts, buckets x{per_bucket}) in {dt:.2f} s "
+          f"(the epoch loop {epoch:.2f} s: {n_steps / epoch:.2f} micro-steps/s, {n_utts / epoch:.1f} utt/s, "
+          f"first call, warm-up included) on {card}")
+    print(f"  loss {losses[0]:.2f} -> {losses[-1]:.2f}, skipped 0, LR {got_lr:.4e} (noam), "
+          f"{len(changed)}/{len(init)} tensors changed; launches {launches}")
+    return {"conf_path": conf_path, "cfg": cfg, "ckpt": ckpt, "test_tsv": test_tsv, "train_tsv": train_tsv,
+            "wav_s": wav_s, "launches": launches, "seconds": dt, "epoch_seconds": epoch,
+            "micro_steps": n_steps, "micro_steps_per_s": n_steps / epoch, "utt_per_s": n_utts / epoch,
+            "losses": losses, "buckets": buckets}
+
+
+# one micro-step, card against CPU: loss rtol 1e-4; each gradient tensor
+# within 5e-3 of its largest CPU entry (12 layers of f32 sums in other
+# orders, the lattice's posterior at 1e-3; see LATTICE_TOL) plus 1e-5 of the
+# largest gradient entry of the whole model (the key biases' true gradient
+# is zero, softmax being invariant to a per-query constant: what they hold
+# is rounding noise).  The output layer's gradient is held more closely: its
+# blank and label columns are orders of magnitude larger than the columns on
+# no path, which hold only the softmax term, so the weight is compared
+# vocabulary column by column (5e-3 of the column's own largest entry + 1e-7)
+# and the bias in two groups (columns on a path of this batch, the others).
+STEP_TOL = {"loss": 1e-4, "grad": 5e-3, "grad_floor": 1e-5, "column_atol": 1e-7}
+
+
+def check_micro_step(tr: dict, dev) -> dict:
+    """Loss and gradients of one micro-step at full width, 4 rows of the
+    400-frame bucket, dropout and SpecAugment off: the card (kernels)
+    against the CPU (plain versions), on the trainer's checkpoint."""
+    from emoasr_tpu_torch.data.asr_dataset import ASRDataset
+    from emoasr_tpu_torch.eval.test_asr import load_asr_model
+
+    cfg = tr["cfg"]
+    ds = ASRDataset(cfg, tr["train_tsv"], phase="train")
+    batcher = ds.make_batcher(shuffle=False)
+    bi, idx = next(b for b in batcher if batcher.buckets[b[0]].max_xlen == 400)
+    batch = ds.collate(idx[:4], 400, batcher.buckets[bi].max_ylen)
+    res = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        model = load_asr_model(tr["ckpt"], cfg).to(d).eval()
+        t = {k: torch.from_numpy(v).to(d) for k, v in batch.items() if isinstance(v, np.ndarray)}
+        before = launch_counts()
+        loss, _ = model(t["xs"], t["xlens"], t["ys"], t["ylens"])
+        params = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss, list(params.values()))
+        used = {k: launch_counts()[k] - before[k] for k in before}
+        if name == "cuda":
+            require(used["ctc_head_fwd"] == used["ctc_head_grad_e"] == used["ctc_head_grad_w"] == 1
+                    and used["ctc_alpha"] == used["ctc_beta_grad"] == 1
+                    and used["attention_fwd"] == used["attention_bwd"] == cfg.enc_num_layers,
+                    f"the micro-step check did not go through the kernels: {used}")
+        res[name] = (loss.item(), {k: g.cpu() for k, g in zip(params, grads)})
+    (l1, g1), (l0, g0) = res["cuda"], res["cpu"]
+    require(np.isfinite(l1) and abs(l1 - l0) <= STEP_TOL["loss"] * abs(l0),
+            f"micro-step loss: card {l1}, CPU {l0}")
+    worst, worst_name = 0.0, ""
+    floor = STEP_TOL["grad_floor"] * max(g.abs().max().item() for g in g0.values())
+    for k in g0:
+        scale = g0[k].abs().max().item()
+        rel = max(_max_err(g1[k], g0[k]) - floor, 0.0) / max(scale, 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, k
+        require(rel <= STEP_TOL["grad"], f"micro-step gradient of {k}: card vs CPU {rel:.3e} of its largest entry")
+    _, rel_w = _require_close_by_column("micro-step gradient of decoder.output.weight", g1["decoder.output.weight"],
+                                        g0["decoder.output.weight"], 0, STEP_TOL["column_atol"], STEP_TOL["grad"])
+    on_path = torch.cat([torch.from_numpy(batch["ys"][:4]).reshape(-1), torch.tensor([cfg.blank_id])])
+    rel_b = _require_close_by_group("micro-step gradient of decoder.output.bias", g1["decoder.output.bias"],
+                                    g0["decoder.output.bias"], _vocab_groups(cfg.vocab_size, on_path),
+                                    STEP_TOL["column_atol"], STEP_TOL["grad"])
+    print(f"  one micro-step {tuple(batch['xs'].shape)} card vs CPU plain: loss {l1:.4f} vs {l0:.4f}, "
+          f"worst gradient {worst:.2e} of its largest entry ({worst_name}; tol {STEP_TOL['grad']}); the output "
+          f"layer's weight by vocabulary column {rel_w:.2e} of the column's largest entry, its bias by group "
+          f"{rel_b:.2e}")
+    return {"loss_card": l1, "loss_cpu": l0, "worst_grad_rel_err": worst, "output_weight_column_rel_err": rel_w,
+            "output_bias_group_rel_err": rel_b}
+
+
+def time_micro_step(tr: dict, dev, card: str) -> dict:
+    """Where one micro-step of the largest bucket spends its time (host
+    clock around synchronised phases, dropout on; the last of three)."""
+    from emoasr_tpu_torch.data.asr_dataset import ASRDataset
+    from emoasr_tpu_torch.eval.test_asr import load_asr_model
+    from emoasr_tpu_torch.train.optim import build_optimizer, clip_by_global_norm_
+
+    cfg = tr["cfg"]
+    big = max(tr["buckets"], key=lambda b: b.max_xlen)
+    ds = ASRDataset(cfg, tr["train_tsv"], phase="train")
+    bi, idx = next(b for b in ds.make_batcher(shuffle=False) if b[0] == len(tr["buckets"]) - 1)
+    batch = ds.collate(idx, big.max_xlen, big.max_ylen)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in batch.items() if isinstance(v, np.ndarray)}
+    model = load_asr_model(tr["ckpt"], cfg).to(dev).train()
+    params = list(model.parameters())
+    opt = build_optimizer(cfg, params)
+    for g in opt.param_groups:
+        g["lr"] = 1e-7
+
+    def tick():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    for _ in range(3):
+        t0 = tick()
+        eouts, elens, inter = model.encoder(t["xs"], t["xlens"])
+        t1 = tick()
+        loss, _, _ = model.decoder(eouts, elens, inter, t["ys"], t["ylens"])
+        t2 = tick()
+        grads = torch.autograd.grad(loss, params)
+        t3 = tick()
+        clip_by_global_norm_(grads, cfg.clip_grad_norm)
+        for p, g in zip(params, grads):
+            p.grad = g
+        opt.step()
+        t4 = tick()
+    split = {"batch": list(t["xs"].shape), "encoder_fwd_ms": (t1 - t0) * 1e3, "ctc_fwd_ms": (t2 - t1) * 1e3,
+             "backward_ms": (t3 - t2) * 1e3, "clip_adam_ms": (t4 - t3) * 1e3}
+    print(f"  one {tuple(t['xs'].shape)} micro-step on {card}: encoder forward {split['encoder_fwd_ms']:.2f} ms, "
+          f"CTC head + lattice forward {split['ctc_fwd_ms']:.2f} ms, backward {split['backward_ms']:.2f} ms, "
+          f"clip + Adam {split['clip_adam_ms']:.2f} ms")
+    return split
+
+
+def overfit_on_card(args, root: str) -> dict:
+    """Learning on the card: a small corpus whose features carry the label
+    identity, trained through the port's train CLI with `enc_fused_attn`
+    and decoded by the port's eval CLI; WER must fall below 15."""
+    import pandas as pd
+    import yaml
+
+    from emoasr_tpu_torch.eval import test_asr
+    from emoasr_tpu_torch.train import loop
+
+    root = os.path.join(root, "overfit")
+    os.makedirs(os.path.join(root, "feats"))
+    rng = np.random.default_rng(0)
+    V, F, seg, rows = 12, 16, 6, []
+    for i in range(32):
+        U = int(rng.integers(2, 5))
+        toks = rng.integers(3, V, size=U)
+        x = np.zeros((U * seg, F), np.float32)
+        for u, tok in enumerate(toks):
+            x[u * seg:(u + 1) * seg, tok % F] = 2.0  # one active channel per segment
+        x += rng.normal(size=x.shape).astype(np.float32) * 0.05
+        path = os.path.join(root, "feats", f"u{i}.npy")
+        np.save(path, x)
+        rows.append(dict(feat_path=path, utt_id=f"spk-u{i}-{i * 1000}-{i * 1000 + U * seg * 10}",
+                         token_id=" ".join(map(str, toks)), text=" ".join(f"w{t}" for t in toks),
+                         xlen=U * seg, ylen=U))
+    tsv = os.path.join(root, "train.tsv")
+    pd.DataFrame(rows).to_csv(tsv, sep="\t", index=False)
+    conf = dict(
+        encoder_type="transformer", decoder_type="ctc", input_layer="linear", feat_dim=F,
+        enc_hidden_size=32, enc_num_attention_heads=2, enc_num_layers=1, enc_intermediate_size=64,
+        enc_fused_attn=True, vocab_size=V, vocab_path=write_vocab(root, V), train_path=tsv,
+        dev_path=tsv, test_path=tsv, buckets=[[32, 8]], batch_size=8, max_xlens_batch=512,
+        max_ylens_batch=64, num_epochs=60, learning_rate=5.0, lr_schedule_type="noam",
+        num_warmup_steps=60, dropout_enc_rate=0.0, dropout_attn_rate=0.0, spec_augment=False,
+        clip_grad_norm=5.0, log_step=50, save_step=60, seed=0,
+    )
+    conf_path = os.path.join(root, "overfit.yaml")
+    with open(conf_path, "w") as f:
+        yaml.safe_dump(conf, f)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state = loop.main(["-conf", conf_path])
+    out = test_asr.main(["-conf", conf_path, "-ep", "60", "--beam_width", "0"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    require(state.step == 240 and state.skipped == 0, f"overfit run: {state.step} steps, {state.skipped} skipped")
+    require(launches["ctc_head_grad_w"] == 240 and launches["ctc_beta_grad"] == 240
+            and launches["attention_bwd"] == 240, f"overfit run did not train through the kernels: {launches}")
+    require(out is not None and out[2] < 15.0, f"overfit on the card: {out}")
+    print(f"  overfit corpus (32 utts, 60 epochs, 240 micro-steps) on the card: {out[3]} in {dt:.1f} s")
+    return {"wer": out[2], "seconds": dt}
+
+
+def run_cli(conf: str, beam: int, n_utts: int, wav_s: float, card: str) -> dict:
     """Decode the corpus through the port's CLI; count launches; check rows."""
     import pandas as pd
 
     from emoasr_tpu_torch.eval import test_asr
 
-    for c in counters.values():
-        c.launches = 0
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = test_asr.main(["-conf", conf, "-ep", "1", "--beam_width", str(beam)])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in counters.items()}
+    launches = launch_counts()
     require(out is not None and out[3].startswith("WER:"), f"beam {beam}: CLI returned {out}")
     res_dir = os.path.join(os.path.splitext(conf)[0], "results")
     path = os.path.join(res_dir, f"result_test_beam{beam}_len0.0_ctc0.0_lm0.00_ep1.tsv")
@@ -257,188 +939,209 @@ def run_cli(conf: str, beam: int, counters, n_utts: int, wav_s: float, card: str
     require(len(df) == n_utts and df["utt_id"].nunique() == n_utts,
             f"beam {beam}: {len(df)} result rows for {n_utts} utterances")
     print(f"  beam {beam}: {out[3]}; {n_utts} utts in {dt:.3f} s = {n_utts / dt:.2f} utt/s, "
-          f"RTF {dt / wav_s:.5f} (first call, warm-up included) on {card}; launches {launches}")
+          f"RTF {dt / wav_s:.5f} (first call, warm-up included) on {card}; "
+          f"launches topk {launches['topk']}, attention_fwd {launches['attention_fwd']}")
     return {"launches": launches, "seconds": dt, "utt_per_s": n_utts / dt, "rtf": dt / wav_s}
 
 
-def main_path(args, dev, card: str) -> dict:
-    import yaml
-
-    from emoasr_tpu_torch.config import load_config
+def decode_path(args, tr: dict, dev, card: str) -> dict:
+    """Decode the test corpus with the checkpoint the trainer wrote: beam 8
+    and greedy through the eval CLI, then the encoder card-vs-CPU check."""
     from emoasr_tpu_torch.data.asr_dataset import ASRDataset
     from emoasr_tpu_torch.eval.decode import build_decode_fn
     from emoasr_tpu_torch.eval.test_asr import load_asr_model
-    from emoasr_tpu_torch.models.asr import ASR
-    from emoasr_tpu_torch.ops import attention, topk
     from emoasr_tpu_torch.search.ctc_beam import ctc_beam_search
-    from emoasr_tpu_torch.train.checkpoint import save_state_dict
 
-    counters = {"topk": topk.KERNEL, "attention": attention.KERNEL}
-    scratch_root = os.path.join(REPO, "build", "chip_smoke")
-    os.makedirs(scratch_root, exist_ok=True)
-    root = tempfile.mkdtemp(dir=scratch_root)
-    try:
-        with open(L1_CONF) as f:
-            conf = yaml.safe_load(f)
-        tsv, vocab, wav_s = write_corpus(root, args.n_utts, conf["vocab_size"], conf["feat_dim"], args.seed)
-        conf.update(vocab_path=vocab, test_path=tsv, enc_fused_attn=True)
-        conf_path = os.path.join(root, "l1_ctc_transformer.yaml")
-        with open(conf_path, "w") as f:
-            yaml.safe_dump(conf, f)
-        cfg = load_config(conf_path)
-        require((cfg.enc_num_layers, cfg.enc_hidden_size, cfg.enc_num_attention_heads,
-                 cfg.enc_intermediate_size, cfg.vocab_size) == (12, 256, 4, 2048, 10000),
-                "the L1 config is not at full width")
-        torch.manual_seed(args.seed)
-        ckpt = os.path.join(root, "l1_ctc_transformer", "checkpoints", "model.ep1")
-        save_state_dict(ASR(cfg).state_dict(), ckpt)
+    cfg, conf_path, ckpt, wav_s = tr["cfg"], tr["conf_path"], tr["ckpt"], tr["wav_s"]
+    ds = ASRDataset(cfg, tr["test_tsv"], phase="test")
+    batcher = ds.make_batcher()
+    batches, buckets = list(batcher), batcher.buckets
+    enc_frames = [((buckets[bi].max_xlen - 1) // 2 - 1) // 2 for bi, _ in batches]
+    print(f"  corpus: {args.n_utts} utts, {wav_s:.1f} s of audio, {len(batches)} batches, "
+          f"encoder frames per batch {enc_frames}")
 
-        ds = ASRDataset(cfg, tsv)
-        batcher = ds.make_batcher()
-        batches, buckets = list(batcher), batcher.buckets
-        enc_frames = [((buckets[bi].max_xlen - 1) // 2 - 1) // 2 for bi, _ in batches]
-        print(f"  corpus: {args.n_utts} utts, {wav_s:.1f} s of audio, {len(batches)} batches, "
-              f"encoder frames per batch {enc_frames}")
+    runs = {}
+    for beam in (8, 0):
+        r = run_cli(conf_path, beam, args.n_utts, wav_s, card)
+        n_attn = r["launches"]["attention_fwd"]
+        require(n_attn == cfg.enc_num_layers * len(batches),
+                f"beam {beam}: {n_attn} attention launches, want {cfg.enc_num_layers} x {len(batches)} batches")
+        if beam > 1:
+            require(r["launches"]["topk"] >= sum(enc_frames),
+                    f"beam {beam}: {r['launches']['topk']} top-k launches < {sum(enc_frames)} encoder frames")
+        runs[beam] = r
 
-        runs = {}
-        for beam in (8, 0):
-            r = run_cli(conf_path, beam, counters, args.n_utts, wav_s, card)
-            n_attn = r["launches"]["attention"]
-            require(n_attn == cfg.enc_num_layers * len(batches),
-                    f"beam {beam}: {n_attn} attention launches, want {cfg.enc_num_layers} x {len(batches)} batches")
-            if beam > 1:
-                require(r["launches"]["topk"] >= sum(enc_frames),
-                        f"beam {beam}: {r['launches']['topk']} top-k launches < {sum(enc_frames)} encoder frames")
-            runs[beam] = r
+    # one batch: encoder on the card (kernel) against the CPU (plain path)
+    bi, idx = batches[-1]
+    batch = ds.collate(idx[:4], buckets[bi].max_xlen, buckets[bi].max_ylen)
+    xs, xlens = torch.from_numpy(batch["xs"]), torch.from_numpy(batch["xlens"]).long()
+    with torch.no_grad():
+        gpu = load_asr_model(ckpt, cfg).to(dev).eval()
+        cpu = load_asr_model(ckpt, cfg).eval()
+        before = launch_counts()["attention_fwd"]
+        e1, l1, _ = gpu.encode(xs.to(dev), xlens.to(dev))
+        require(launch_counts()["attention_fwd"] - before == cfg.enc_num_layers, "encoder check did not use the kernel")
+        e0, l0, _ = cpu.encode(xs, xlens)
+    require(torch.equal(l1.cpu(), l0), "encoder lengths differ between card and CPU")
+    enc_err = max((e1[b, :n].cpu() - e0[b, :n]).abs().max().item() for b, n in enumerate(l0.tolist()))
+    require(enc_err <= ENC_TOL, f"encoder card vs CPU: max abs err {enc_err} > {ENC_TOL}")
+    print(f"  encoder ({cfg.enc_num_layers} layers, {tuple(xs.shape)}) card vs CPU plain: max abs err {enc_err:.3e} (tol {ENC_TOL})")
 
-        # one batch: encoder on the card (kernel) against the CPU (plain path)
-        bi, idx = batches[-1]
-        batch = ds.collate(idx[:4], buckets[bi].max_xlen, buckets[bi].max_ylen)
-        xs, xlens = torch.from_numpy(batch["xs"]), torch.from_numpy(batch["xlens"]).long()
-        with torch.no_grad():
-            gpu = load_asr_model(ckpt, cfg).to(dev).eval()
-            cpu = load_asr_model(ckpt, cfg).eval()
-            launches0 = attention.KERNEL.launches
-            e1, l1, _ = gpu.encode(xs.to(dev), xlens.to(dev))
-            require(attention.KERNEL.launches - launches0 == cfg.enc_num_layers, "encoder check did not use the kernel")
-            e0, l0, _ = cpu.encode(xs, xlens)
-        require(torch.equal(l1.cpu(), l0), "encoder lengths differ between card and CPU")
-        enc_err = max((e1[b, :n].cpu() - e0[b, :n]).abs().max().item() for b, n in enumerate(l0.tolist()))
-        require(enc_err <= ENC_TOL, f"encoder card vs CPU: max abs err {enc_err} > {ENC_TOL}")
-        print(f"  encoder ({cfg.enc_num_layers} layers, {tuple(xs.shape)}) card vs CPU plain: max abs err {enc_err:.3e} (tol {ENC_TOL})")
+    # beam hypotheses, card vs CPU, on the first batch of 4 or more
+    # utterances (reported only)
+    bi, idx = next(b for b in batches if len(b[1]) >= 4)
+    idx = idx[:8]
+    batch = ds.collate(idx, buckets[bi].max_xlen, buckets[bi].max_ylen)
+    hyp = {}
+    for name, model, d in (("cuda", gpu, dev), ("cpu", cpu, "cpu")):
+        fn = build_decode_fn(model, cfg, beam_width=8, device=d)
+        h, hl, _ = fn(batch["xs"], batch["xlens"])
+        hyp[name] = [h[b, 0, : hl[b, 0]].tolist() for b in range(len(idx))]
+    same = sum(a == b for a, b in zip(hyp["cuda"], hyp["cpu"])) / len(hyp["cpu"])
+    print(f"  beam-8 best hypotheses identical card vs CPU: {same:.2f} of {len(hyp['cpu'])}")
+    # where one full batch of the largest bucket spends its decode time:
+    # encoder + CTC head, then the beam loop (host clock around
+    # synchronised work; the second of two passes is kept)
+    big = max(buckets, key=lambda b: b.max_xlen)
+    bi, idx = next(b for b in batches if buckets[b[0]] == big)
+    batch = ds.collate(idx, big.max_xlen, big.max_ylen, pad_to_batch=big.batch_size)
+    xs = torch.from_numpy(batch["xs"]).to(dev)
+    xlens = torch.from_numpy(batch["xlens"]).long().to(dev)
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eouts, elens, _ = gpu.encode(xs, xlens)
+            lp = torch.log_softmax(gpu.decoder.logits(eouts).float(), dim=-1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ctc_beam_search(lp, elens, 8, cfg.blank_id, cfg.eos_id)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+    split = {"batch": list(xs.shape), "frames": int(lp.shape[1]),
+             "encoder_head_ms": (t1 - t0) * 1e3, "beam_ms": (t2 - t1) * 1e3,
+             "beam_ms_per_frame": (t2 - t1) * 1e3 / lp.shape[1]}
+    print(f"  one {tuple(xs.shape)} batch: encoder + CTC head {split['encoder_head_ms']:.2f} ms, "
+          f"beam-8 loop {split['beam_ms']:.2f} ms over {split['frames']} frames on {card}")
+    return {"runs": runs, "enc_err": enc_err, "same_hyps": same, "bucket": big,
+            "batches": len(batches), "split": split}
 
-        # beam hypotheses, card vs CPU, on the first batch of 4 or more
-        # utterances (reported only)
-        bi, idx = next(b for b in batches if len(b[1]) >= 4)
-        idx = idx[:8]
-        batch = ds.collate(idx, buckets[bi].max_xlen, buckets[bi].max_ylen)
-        hyp = {}
-        for name, model, d in (("cuda", gpu, dev), ("cpu", cpu, "cpu")):
-            fn = build_decode_fn(model, cfg, beam_width=8, device=d)
-            h, hl, _ = fn(batch["xs"], batch["xlens"])
-            hyp[name] = [h[b, 0, : hl[b, 0]].tolist() for b in range(len(idx))]
-        same = sum(a == b for a, b in zip(hyp["cuda"], hyp["cpu"])) / len(hyp["cpu"])
-        print(f"  beam-8 best hypotheses identical card vs CPU: {same:.2f} of {len(hyp['cpu'])}")
-        # where one full batch of the largest bucket spends its decode time:
-        # encoder + CTC head, then the beam loop (host clock around
-        # synchronised work; the second of two passes is kept)
-        big = max(buckets, key=lambda b: b.max_xlen)
-        bi, idx = next(b for b in batches if buckets[b[0]] == big)
-        batch = ds.collate(idx, big.max_xlen, big.max_ylen, pad_to_batch=big.batch_size)
-        xs = torch.from_numpy(batch["xs"]).to(dev)
-        xlens = torch.from_numpy(batch["xlens"]).long().to(dev)
-        with torch.no_grad():
-            for _ in range(2):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                eouts, elens, _ = gpu.encode(xs, xlens)
-                lp = torch.log_softmax(gpu.decoder.logits(eouts).float(), dim=-1)
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                ctc_beam_search(lp, elens, 8, cfg.blank_id, cfg.eos_id)
-                torch.cuda.synchronize()
-                t2 = time.perf_counter()
-        split = {"batch": list(xs.shape), "frames": int(lp.shape[1]),
-                 "encoder_head_ms": (t1 - t0) * 1e3, "beam_ms": (t2 - t1) * 1e3,
-                 "beam_ms_per_frame": (t2 - t1) * 1e3 / lp.shape[1]}
-        print(f"  one {tuple(xs.shape)} batch: encoder + CTC head {split['encoder_head_ms']:.2f} ms, "
-              f"beam-8 loop {split['beam_ms']:.2f} ms over {split['frames']} frames on {card}")
-        return {"runs": runs, "enc_err": enc_err, "same_hyps": same, "bucket": big,
-                "batches": len(batches), "split": split}
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+
+KERNEL_ROWS = (
+    # name, source, file:line of the TPU kernel it replaces
+    ("topk", "emoasr_tpu_torch/csrc/topk.cu", "emoasr_tpu/ops/topk_pallas.py:64"),
+    ("attention_fwd", "emoasr_tpu_torch/csrc/attention.cu", "emoasr_tpu/ops/attention_pallas.py:76"),
+    ("attention_bwd", "emoasr_tpu_torch/csrc/attention.cu", "emoasr_tpu/ops/attention_pallas.py:111"),
+    ("ctc_head_fwd", "emoasr_tpu_torch/csrc/ctc_head.cu", "emoasr_tpu/ops/ctc_head_pallas.py:48"),
+    ("ctc_head_grad_e", "emoasr_tpu_torch/csrc/ctc_head.cu", "emoasr_tpu/ops/ctc_head_pallas.py:100"),
+    ("ctc_head_grad_w", "emoasr_tpu_torch/csrc/ctc_head.cu", "emoasr_tpu/ops/ctc_head_pallas.py:144"),
+    ("ctc_alpha", "emoasr_tpu_torch/csrc/ctc_lattice.cu", "emoasr_tpu/ops/ctc_pallas.py:59"),
+    ("ctc_beta_grad", "emoasr_tpu_torch/csrc/ctc_lattice.cu", "emoasr_tpu/ops/ctc_pallas.py:107"),
+)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--n_utts", type=int, default=80)
+    ap.add_argument("--n_utts", type=int, default=80, help="utterances of the decode corpus")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from emoasr_tpu_torch.ops import attention, topk
+    from emoasr_tpu_torch.ops import attention, ctc_head, ctc_lattice, topk
     from emoasr_tpu_torch.ops.cuda_lib import build_all
+    from emoasr_tpu_torch.utils.device import set_matmul_precision
 
     # 1. device
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
-    print(f"[1/5] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    print(f"[1/7] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    found = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    set_matmul_precision("float32")
+    print(f"  TF32 found (matmul, cudnn) = {found}; the port's switch for float32 sets "
+          f"({torch.backends.cuda.matmul.allow_tf32}, {torch.backends.cudnn.allow_tf32}), "
+          f"and its entry points set it again themselves")
 
     # 2. build
     t0 = time.perf_counter()
-    build_all([topk.KERNEL, attention.KERNEL])
-    print(f"[2/5] built {topk.KERNEL.source}, {attention.KERNEL.source} in {time.perf_counter() - t0:.1f} s")
+    kernels = [topk.KERNEL, attention.KERNEL, ctc_head.KERNEL, ctc_lattice.KERNEL]
+    build_all(kernels)
+    print(f"[2/7] built {', '.join(k.source for k in kernels)} in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernels against their plain versions
-    print("[3/5] kernels against their plain versions on the card")
+    print("[3/7] kernels against their plain versions on the card, forward and backward")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
-    topk_err = check_topk(dev, gen)
-    attn_err = check_attention(dev, gen)
+    errs = {"topk": check_topk(dev, gen), "attention_fwd": check_attention(dev, gen),
+            "attention_bwd": check_attention_backward(dev, gen)}
+    lat = check_ctc_lattice(dev, gen)
+    errs.update(ctc_alpha=lat["ll"], ctc_beta_grad=lat["grad"])
+    head = check_ctc_head(dev, gen)
+    errs.update(ctc_head_fwd=head["fwd"], ctc_head_grad_e=head["grad_e"], ctc_head_grad_w=head["grad_w"])
 
-    # 4. main path
-    print("[4/5] main path: L1 CTC(Transformer) decode through the eval CLI")
-    mp = main_path(args, dev, card)
+    scratch_root = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(scratch_root, exist_ok=True)
+    root = tempfile.mkdtemp(dir=scratch_root)
+    try:
+        # 4. training at full width, then one micro-step against the CPU
+        print("[4/7] main path: L1 CTC(Transformer) training through the train CLI")
+        tr = train_full_width(args, root, card)
+        step_check = check_micro_step(tr, dev)
+        step_split = time_micro_step(tr, dev, card)
 
-    # timings at the main path's largest bucket
-    B, T2 = mp["bucket"].batch_size, ((mp["bucket"].max_xlen - 1) // 2 - 1) // 2
+        # 5. learning on the card
+        print("[5/7] learning on the card: the small overfit corpus, train CLI then eval CLI")
+        overfit = overfit_on_card(args, root)
+
+        # 6. decode the trainer's checkpoint
+        print("[6/7] main path: decode of the trainer's model.ep1 through the eval CLI")
+        mp = decode_path(args, tr, dev, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (False, False),
+            "an entry point left TF32 on for a float32 model")
+
+    # 7. timings at the largest bucket, then the result lines
+    big = mp["bucket"]
+    B, T2 = big.batch_size, ((big.max_xlen - 1) // 2 - 1) // 2
     lens = torch.linspace(T2 // 4, T2, B, device=dev).round().int()
-    t_topk = time_topk(dev, gen, B, 10000, 8)
-    t_attn = time_attention(dev, gen, B, T2, 4, 64, lens)
-    print(f"  timed at {t_topk['shape']} and {t_attn['shape']} on {smi}")
+    times = {"topk": time_topk(dev, gen, B, 10000, 8),
+             "attention_fwd": time_attention(dev, gen, B, T2, 4, 64, lens),
+             "attention_bwd": time_attention_backward(dev, gen, B, T2, 4, 64, lens)}
+    times.update(time_ctc_head(dev, gen, B, T2, 256, 10000, big.max_ylen))
+    times.update(time_ctc_lattice(dev, gen, B, T2, big.max_ylen, 10000))
+    print(f"[7/7] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}) on {smi}")
 
-    # 5. result lines
     runs = mp["runs"]
-    kernels = []
-    for name, src, rep, kern, err, t in (
-        ("topk", "emoasr_tpu_torch/csrc/topk.cu", "emoasr_tpu/ops/topk_pallas.py:64",
-         topk.KERNEL, topk_err, t_topk),
-        ("attention_fwd", "emoasr_tpu_torch/csrc/attention.cu", "emoasr_tpu/ops/attention_pallas.py:327",
-         attention.KERNEL, attn_err, t_attn),
-    ):
-        key = "topk" if name == "topk" else "attention"
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": sum(r["launches"][key] for r in runs.values()),
-            "max_abs_err": err, "ms": t["ms"], "kernel_ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "shape": t["shape"],
+    rows = []
+    for name, src, rep in KERNEL_ROWS:
+        t = times[name]
+        launches = tr["launches"][name] + sum(r["launches"][name] for r in runs.values())
+        require(launches > 0, f"kernel {name} was launched no time on the main paths")
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches,
+            "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": t["shape"],
         })
+        print(f"  {name}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} by {t['bound_by']}, plain "
+              f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}), {launches} launches")
     print(json.dumps({
-        "main_path": {
+        "train": {k: tr[k] for k in ("micro_steps", "seconds", "epoch_seconds", "micro_steps_per_s",
+                                     "utt_per_s", "launches", "losses")},
+        "micro_step": {**step_split, **step_check}, "overfit": overfit,
+        "decode": {
             f"beam{b}": {k: r[k] for k in ("seconds", "utt_per_s", "rtf", "launches")}
             for b, r in runs.items()
         },
         "n_utts": args.n_utts, "batches": mp["batches"], "one_batch": mp["split"],
-        "encoder_max_abs_err": mp["enc_err"],
-        "same_beam_hyps": mp["same_hyps"], "card": smi,
+        "encoder_max_abs_err": mp["enc_err"], "same_beam_hyps": mp["same_hyps"], "card": smi,
+        "total_seconds": time.perf_counter() - t_start,
     }))
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

@@ -1,12 +1,13 @@
-"""ASR dataset, test phase: TSV manifests + .npy features -> static-shape
-numpy batches.
+"""ASR dataset: TSV manifests + .npy features -> static-shape numpy batches.
 
-Copy of the test-phase part of `emoasr_tpu/data/asr_dataset.py` (the port
-keeps its own copies of the JAX package's JAX-free modules).  Same manifest
-contract (columns `feat_path, utt_id, token_id, text, xlen, ylen`), same
-bucket batching (batching.py).  The training-only parts (label framing,
-phone targets, KD soft labels) come with the training slice; features load
-with numpy (the JAX package's optional C++ batch loader is not carried).
+Copy of `emoasr_tpu/data/asr_dataset.py` (the port keeps its own copies of
+the JAX package's JAX-free modules).  Same manifest contract (columns
+`feat_path, utt_id, token_id, text, xlen, ylen[, phone_token_id,
+phone_text]`), <sos>/<eos> framing in collate (ys_in/ys_out padded with
+eos), same bucket batching (batching.py).  SpecAugment is not applied here:
+it runs on the device in the train step.  Not carried: the distillation
+soft labels (they come with the distillation slice) and the JAX package's
+optional C++ batch loader (features load with numpy).
 """
 
 from __future__ import annotations
@@ -26,9 +27,13 @@ from emoasr_tpu_torch.utils.converters import str2ints
 
 
 class ASRDataset:
-    def __init__(self, cfg: ExpConfig, data_path: str):
+    def __init__(self, cfg: ExpConfig, data_path: str, phase: str = "train"):
         self.cfg = cfg
+        self.phase = phase
+        self.use_phone = phase == "train" and cfg.mtl_phone_ctc_weight > 0
         cols = ["feat_path", "utt_id", "token_id", "text", "xlen", "ylen"]
+        if self.use_phone:
+            cols += ["phone_token_id", "phone_text"]
         self.data = pd.read_table(data_path)[cols]
 
     def __len__(self) -> int:
@@ -40,7 +45,7 @@ class ASRDataset:
         x = np.load(row["feat_path"])[:, : cfg.feat_dim].astype(np.float32)
         # frame stacking happens after collate (train/step.py::preprocess)
         y = np.asarray(str2ints(row["token_id"]), np.int32)
-        return {
+        ex = {
             "utt_id": row["utt_id"],
             "text": row["text"],
             "x": x,
@@ -48,11 +53,19 @@ class ASRDataset:
             "y": y,
             "ylen": len(y),
         }
+        if self.use_phone:
+            p = np.asarray(str2ints(row["phone_token_id"]), np.int32)
+            ex["p"] = p
+            ex["plen"] = len(p)
+            ex["ptext"] = row["phone_text"]
+        return ex
 
     # ---- batching ----
 
-    def make_batcher(self) -> BucketBatcher:
-        """Buckets in manifest order, no shuffling, tail groups kept."""
+    def make_batcher(self, shuffle: Optional[bool] = None, seed: int = 0,
+                     drop_tail: Optional[bool] = None) -> BucketBatcher:
+        """By default the train phase shuffles (`cfg.train_data_shuffle`)
+        and drops undersized tail groups; other phases do neither."""
         cfg = self.cfg
         n = cfg.num_framestacks
         # manifest xlen is the RAW frame count; bucket caps are converted
@@ -63,7 +76,14 @@ class ASRDataset:
             cfg.max_ylens_batch,
             cfg.batch_size,
         )
-        return BucketBatcher(self.data["xlen"].values, self.data["ylen"].values, buckets)
+        if shuffle is None:
+            shuffle = self.phase == "train" and cfg.train_data_shuffle
+        if drop_tail is None:
+            drop_tail = self.phase == "train"
+        return BucketBatcher(
+            self.data["xlen"].values, self.data["ylen"].values, buckets,
+            shuffle=shuffle, seed=seed, drop_tail=drop_tail,
+        )
 
     def collate(
         self,
@@ -82,17 +102,40 @@ class ASRDataset:
         n_valid = len(indices)
         if pad_to_batch is not None and n_valid < pad_to_batch:
             indices = list(indices) + [indices[0]] * (pad_to_batch - n_valid)
+        cfg = self.cfg
         exs = [self[i] for i in indices]
-        return {
+        B, eos = len(exs), cfg.eos_id
+        # <sos>/<eos> framing (datasets.py:158-176)
+        ys_in = np.full((B, max_ylen + 1), eos, np.int32)
+        ys_out = np.full((B, max_ylen + 1), eos, np.int32)
+        for b, e in enumerate(exs):
+            n = e["ylen"]
+            ys_in[b, 1 : 1 + n] = e["y"][:n]
+            ys_out[b, :n] = e["y"][:n]
+        batch = {
             "utt_ids": [e["utt_id"] for e in exs[:n_valid]],
             "texts": [e["text"] for e in exs[:n_valid]],
             "n_valid": n_valid,
             "xs": pad_to([e["x"] for e in exs], max_xlen, 0.0),
             "xlens": np.asarray([e["xlen"] for e in exs], np.int32),
+            "ys": pad_to([e["y"] for e in exs], max_ylen, eos).astype(np.int32),
+            "ylens": np.asarray([e["ylen"] for e in exs], np.int32),
+            "ys_in": ys_in,
+            "ys_out": ys_out,
         }
+        if self.use_phone:
+            peos = cfg.phone_eos_id if cfg.phone_eos_id is not None else eos
+            # phone sequences are much longer than token sequences: pad to
+            # the batch's own phone length rounded up to a multiple of 32
+            max_plen = ((max(int(e["plen"]) for e in exs) + 31) // 32) * 32
+            batch["ps"] = pad_to([e["p"] for e in exs], max_plen, peos).astype(np.int32)
+            batch["plens"] = np.asarray([e["plen"] for e in exs], np.int32)
+            batch["ptexts"] = [e["ptext"] for e in exs]
+        return batch
 
-    def batches(self) -> Iterator[Dict]:
-        batcher = self.make_batcher()
+    def batches(self, batcher: Optional[BucketBatcher] = None, seed: int = 0) -> Iterator[Dict]:
+        if batcher is None:
+            batcher = self.make_batcher(seed=seed)
         for bi, indices in batcher:
             b = batcher.buckets[bi]
             yield self.collate(

@@ -1,11 +1,12 @@
-"""Static-shape bucketed batching (copy of the decode-side part of
-`emoasr_tpu/data/batching.py`).
+"""Static-shape bucketed batching (copy of `emoasr_tpu/data/batching.py`).
 
 Batches are padded up to a small fixed set of (T, U) buckets, with the
 batch size per bucket derived from the reference's frame and token budgets
 (`asr/datasets.py:189-245`).  Utterances are grouped in manifest order
-(corpora are length-sorted); a bucket's undersized last group is kept (the
-collate pads it).  Shuffling and tail dropping come with training.
+(corpora are length-sorted).  Training shuffles the batch order per epoch
+(`np.random.default_rng(seed).shuffle`, so a seed gives the JAX package's
+order) and skips a bucket's undersized last group; decoding keeps manifest
+order and the last group (the collate pads it).
 """
 
 from __future__ import annotations
@@ -49,8 +50,19 @@ def pick_bucket(buckets: List[Bucket], xlen: int, ylen: int) -> Optional[int]:
 class BucketBatcher:
     """Assign examples to buckets and yield fixed-shape index batches."""
 
-    def __init__(self, xlens: np.ndarray, ylens: np.ndarray, buckets: List[Bucket]):
+    def __init__(
+        self,
+        xlens: np.ndarray,
+        ylens: np.ndarray,
+        buckets: List[Bucket],
+        shuffle: bool = False,
+        seed: int = 0,
+        drop_tail: bool = False,
+    ):
         self.buckets = buckets
+        self.shuffle = shuffle
+        self.rng = np.random.default_rng(seed)
+        self.drop_tail = drop_tail
 
         per_bucket: List[List[int]] = [[] for _ in buckets]
         n_oversize = 0
@@ -66,16 +78,30 @@ class BucketBatcher:
             )
 
         self.batches: List[Tuple[int, List[int]]] = []
+        n_tail_dropped = 0
         for bi, idxs in enumerate(per_bucket):
             B = buckets[bi].batch_size
             for s in range(0, len(idxs), B):
-                self.batches.append((bi, idxs[s : s + B]))
+                group = idxs[s : s + B]
+                if len(group) < B and drop_tail:
+                    n_tail_dropped += len(group)
+                    continue
+                self.batches.append((bi, group))
+        if n_tail_dropped:
+            logging.warning(
+                f"{n_tail_dropped} tail utterances skipped (undersized "
+                f"final groups; cf. min_batch_size skip in the reference)"
+            )
 
     def __len__(self) -> int:
         return len(self.batches)
 
     def __iter__(self) -> Iterator[Tuple[int, List[int]]]:
-        return iter(self.batches)
+        order = np.arange(len(self.batches))
+        if self.shuffle:
+            self.rng.shuffle(order)  # per-epoch batch shuffling
+        for i in order:
+            yield self.batches[i]
 
 
 def pad_to(arr_list: Sequence[np.ndarray], length: int, value) -> np.ndarray:

@@ -35,7 +35,7 @@ from emoasr_tpu_torch.eval.wer import compute_wers_df, wer_info_line
 from emoasr_tpu_torch.models.asr import ASR
 from emoasr_tpu_torch.train import checkpoint as ckpt
 from emoasr_tpu_torch.utils.converters import ints2str
-from emoasr_tpu_torch.utils.device import resolve_device
+from emoasr_tpu_torch.utils.device import resolve_device, set_matmul_precision
 from emoasr_tpu_torch.utils.log import insert_comment, setup_logging
 from emoasr_tpu_torch.utils.paths import (
     REPO_ROOT,
@@ -201,6 +201,7 @@ def decode_dataset(
 def test_main(args, lm_weight=None, len_weight=None):
     cfg = load_config(args.conf)
     device = resolve_device("cpu" if args.cpu else None)
+    set_matmul_precision(cfg.compute_dtype)
     beam_width = args.beam_width if args.beam_width is not None else cfg.beam_width
     if len_weight is None:
         len_weight = (
@@ -239,7 +240,7 @@ def test_main(args, lm_weight=None, len_weight=None):
     if data_path is None:
         data_path = cfg.test_path
     logging.info(f"test data: {data_path}")
-    dataset = ASRDataset(cfg, rel_to_abs_path(data_path))
+    dataset = ASRDataset(cfg, rel_to_abs_path(data_path), phase="test")
     vocab = Vocab(rel_to_abs_path(cfg.vocab_path))
 
     if args.runtime:

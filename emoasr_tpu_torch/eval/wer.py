@@ -89,6 +89,18 @@ def compute_wer(hyp: List, ref: List, cer: bool = False) -> Tuple[float, Dict]:
     }
 
 
+def compute_wers(hyps: List[List], refs: List[List], cer: bool = False):
+    """Corpus WER: aggregate S/I/D over utterances (metrics.py:108-135)."""
+    tot = {"n_sub": 0, "n_ins": 0, "n_del": 0, "n_ref": 0}
+    for hyp, ref in zip(hyps, refs):
+        _, wd = compute_wer(hyp, ref, cer=cer)
+        for k in tot:
+            tot[k] += wd[k]
+    wer = (tot["n_sub"] + tot["n_ins"] + tot["n_del"]) / tot["n_ref"] * 100
+    tot["wer"] = wer
+    return wer, tot
+
+
 def compute_wers_df(dfhyp, dfref=None, cer: bool = False):
     """WER over a pandas results table (metrics.py:138-175).
 

@@ -1,18 +1,22 @@
 """End-to-end ASR facade: encoder + decoder in one module (PyTorch port of
-the decode side of `emoasr_tpu/models/asr.py`).
+`emoasr_tpu/models/asr.py`).
 
-Parity target: emoASR `asr/modeling/asr.py:21-101`; the submodule
-names `encoder` and `decoder` are the reference checkpoint's prefixes.  This
-slice ports the Transformer encoder with the CTC decoder.
+Parity target: emoASR `asr/modeling/asr.py:21-101`: `forward` (loss),
+greedy `decode`, `forced_align`; the submodule names `encoder` and
+`decoder` are the reference checkpoint's prefixes.  Ported so far: the
+Transformer encoder with the CTC decoder.  Dropout is on in `train()` mode
+and off in `eval()` mode (the JAX package's `deterministic` flag).
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from emoasr_tpu_torch.config import ExpConfig
 from emoasr_tpu_torch.models.decoders.ctc import CTCDecoder
 from emoasr_tpu_torch.models.encoders import TransformerEncoder
+from emoasr_tpu_torch.ops.ctc import ctc_forced_align
 
 
 class ASR(nn.Module):
@@ -28,6 +32,22 @@ class ASR(nn.Module):
         self.encoder = TransformerEncoder(cfg)
         self.decoder = CTCDecoder(cfg)
 
+    def forward(self, xs, xlens, ys, ylens, ys_in=None, ys_out=None,
+                soft_labels=None, ps=None, plens=None):
+        """-> (loss, loss_dict) (`asr.py:56-74`)."""
+        eouts, elens, eouts_inter = self.encoder(xs, xlens)
+        loss, loss_dict, _ = self.decoder(
+            eouts, elens, eouts_inter, ys, ylens, ys_in, ys_out, soft_labels, ps, plens,
+        )
+        return loss, loss_dict
+
+    def set_dropout_generator(self, generator: torch.Generator) -> None:
+        """Draw the fused attention's dropout seeds from `generator` (the
+        other dropout layers keep PyTorch's global generator)."""
+        for m in self.modules():
+            if hasattr(m, "dropout_generator"):
+                m.dropout_generator = generator
+
     def encode(self, xs, xlens):
         """-> (eouts, elens, eouts_inter)."""
         return self.encoder(xs, xlens)
@@ -37,3 +57,11 @@ class ASR(nn.Module):
         (`asr.py:70-95` + `ctc.py:176-201`)."""
         eouts, elens, _ = self.encoder(xs, xlens)
         return self.decoder.greedy(eouts, elens)
+
+    @torch.no_grad()
+    def forced_align(self, xs, xlens, ys, ylens):
+        """(B, T') frame alignment of the reference labels (CTC branch of
+        `asr.py:101-116`)."""
+        eouts, elens, _ = self.encoder(xs, xlens)
+        log_probs = torch.log_softmax(self.decoder.logits(eouts).float(), dim=-1)
+        return ctc_forced_align(log_probs, elens, ys, ylens, self.cfg.blank_id)

@@ -1,19 +1,28 @@
-"""CTC decoder head and batched greedy decode (PyTorch port of the decode
-parts of `emoasr_tpu/models/decoders/ctc.py`).
+"""CTC decoder head: loss (+ MTL variants) and batched greedy decode
+(PyTorch port of `emoasr_tpu/models/decoders/ctc.py`).
 
-Parity target: emoASR `asr/modeling/decoders/ctc.py:26-201`.  The
-losses come with the training slice; the prefix beam search is in
-`emoasr_tpu_torch/search/ctc_beam.py`.
+Parity target: emoASR `asr/modeling/decoders/ctc.py:26-201`: linear head,
+CTC loss normalised by B, phone-CTC MTL (optionally hierarchical from the
+intermediate layer), inter-CTC MTL.  The alignment-distillation branches
+need soft labels that only the distillation tooling produces; they raise
+`NotImplementedError` until that slice (ROADMAP.md).  The prefix beam
+search is in `emoasr_tpu_torch/search/ctc_beam.py`.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from emoasr_tpu_torch.config import ExpConfig
+from emoasr_tpu_torch.ops.ctc import ctc_loss_fn, ctc_loss_fused_head
+
+# Route the loss through the fused head (ops/ctc_head.py: no (B, T, V)
+# logits); False takes the dense route (logits, logsumexp, gather), for
+# comparison.  The lattice is the same kernel on both routes.
+USE_FUSED_HEAD = True
 
 
 def greedy_collapse(
@@ -40,15 +49,69 @@ def greedy_collapse(
 
 
 class CTCDecoder(nn.Module):
-    """Linear head over the vocabulary (`decoder.output` in the checkpoint)."""
+    """Linear head over the vocabulary (`decoder.output` in the checkpoint,
+    `decoder.phone_output` with phone-CTC MTL) + CTC losses."""
 
     def __init__(self, cfg: ExpConfig):
         super().__init__()
         self.cfg = cfg
         self.output = nn.Linear(cfg.enc_hidden_size, cfg.vocab_size)
+        if cfg.mtl_phone_ctc_weight > 0:
+            self.phone_output = nn.Linear(cfg.enc_hidden_size, cfg.phone_vocab_size)
 
     def logits(self, eouts: torch.Tensor) -> torch.Tensor:
         return self.output(eouts)
+
+    def _ctc(self, head: nn.Linear, eouts, labels, elens, label_lens) -> torch.Tensor:
+        if USE_FUSED_HEAD:
+            return ctc_loss_fused_head(
+                eouts, head.weight.t(), head.bias, labels, elens, label_lens, self.cfg.blank_id
+            )
+        return ctc_loss_fn(head(eouts), labels, elens, label_lens, self.cfg.blank_id)
+
+    def forward(
+        self,
+        eouts: torch.Tensor,
+        elens: torch.Tensor,
+        eouts_inter: Optional[torch.Tensor] = None,
+        ys: Optional[torch.Tensor] = None,
+        ylens: Optional[torch.Tensor] = None,
+        ys_in=None,  # unused (API parity with other decoders)
+        ys_out=None,  # unused
+        soft_labels: Optional[torch.Tensor] = None,
+        ps: Optional[torch.Tensor] = None,
+        plens: Optional[torch.Tensor] = None,
+    ):
+        """Without `ys`: the logits.  With `ys`: (loss, loss_dict, logits),
+        `logits` None since no route of the ported losses keeps them."""
+        cfg = self.cfg
+        if ys is None:
+            return self.output(eouts)
+        if (cfg.kd_weight > 0 or cfg.inter_kd_weight > 0) and soft_labels is not None:
+            raise NotImplementedError(
+                "CTC alignment distillation (kd_weight / inter_kd_weight with soft "
+                "labels) comes with the distillation slice (ROADMAP.md §1, slice 7)"
+            )
+
+        loss_dict = {}
+        loss_ctc = self._ctc(self.output, eouts, ys, elens, ylens)
+        loss = loss_ctc
+        loss_dict["loss_ctc"] = loss_ctc
+
+        if cfg.mtl_phone_ctc_weight > 0:
+            src = eouts_inter if cfg.hie_mtl_phone else eouts
+            loss_phone = self._ctc(self.phone_output, src, ps, elens, plens)
+            loss = loss + cfg.mtl_phone_ctc_weight * loss_phone
+            key = "loss_phone_ctc(inter)" if cfg.hie_mtl_phone else "loss_phone_ctc"
+            loss_dict[key] = loss_phone
+
+        if cfg.mtl_inter_ctc_weight > 0:
+            loss_inter = self._ctc(self.output, eouts_inter, ys, elens, ylens)
+            loss_dict["loss_inter_ctc"] = loss_inter
+            loss = loss + cfg.mtl_inter_ctc_weight * loss_inter
+
+        loss_dict["loss_total"] = loss
+        return loss, loss_dict, None
 
     def greedy(self, eouts: torch.Tensor, elens: torch.Tensor):
         """Batched greedy decode: returns (hyps, hyp_lens, logits, aligns).

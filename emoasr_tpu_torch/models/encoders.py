@@ -2,7 +2,7 @@
 `emoasr_tpu/models/encoders.py`).
 
 Parity target: emoASR `asr/modeling/encoders/transformer.py:16-113`:
-conv2d input layer, absolute positional encoding, N pre-norm encoder
+conv2d or linear input layer, absolute positional encoding, N pre-norm encoder
 layers, final LayerNorm eps=1e-12, optional intermediate tap for
 inter-CTC / hierarchical phone CTC.  `cfg.enc_fused_attn` sends every
 layer's attention through the fused kernel (ops/attention.py).
@@ -29,13 +29,16 @@ class TransformerEncoder(nn.Module):
                 f"encoder_type={cfg.encoder_type!r}: the Conformer and RNN "
                 "encoders come in later slices (ROADMAP.md §1)"
             )
-        if cfg.input_layer != "conv2d":
-            raise NotImplementedError(
-                f"input_layer={cfg.input_layer!r}: only conv2d is ported "
-                "(ROADMAP.md §1)"
-            )
         self.cfg = cfg
-        self.conv = Conv2dSubsampler(cfg.input_size, cfg.enc_hidden_size)
+        if cfg.input_layer == "conv2d":
+            self.conv = Conv2dSubsampler(cfg.input_size, cfg.enc_hidden_size)
+        elif cfg.input_layer == "linear":
+            self.linear = nn.Linear(cfg.input_size, cfg.enc_hidden_size)
+        else:
+            raise NotImplementedError(
+                f"input_layer={cfg.input_layer!r}: conv2d and linear are ported; "
+                "embed comes with the LM slices (ROADMAP.md §1)"
+            )
         self.pe = PositionalEncoder(cfg.enc_hidden_size, cfg.dropout_enc_rate)
         self.transformers = nn.ModuleList(
             TransformerEncoderLayer(
@@ -53,7 +56,10 @@ class TransformerEncoder(nn.Module):
     def forward(self, xs, xlens):
         """(B, T, F), (B,) -> (eouts (B, T', D), elens (B,), eouts_inter)."""
         cfg = self.cfg
-        xs, elens = self.conv(xs, xlens)
+        if cfg.input_layer == "conv2d":
+            xs, elens = self.conv(xs, xlens)
+        else:
+            xs, elens = self.linear(xs), xlens
         mask = make_pad_mask(elens, xs.shape[1])[:, None, None, :]  # (B,1,1,T)
         xs = self.pe(xs)
         inter_layer_id = cfg.inter_ctc_layer_id if (

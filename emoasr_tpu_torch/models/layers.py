@@ -62,7 +62,8 @@ class MultiHeadAttention(nn.Module):
     mask: bool, broadcastable to (B, 1, Tq, Tk); True = attend.  With
     `fused` and `lens` given, the score pipeline runs in the fused kernel
     (ops/attention.py), masking keys by `lens` (which must agree with
-    `mask`)."""
+    `mask`); in training it draws one fresh dropout seed per call from
+    `dropout_generator` (PyTorch's global CPU generator when None)."""
 
     def __init__(self, num_heads: int, hidden_size: int, dropout_rate: float = 0.0,
                  fused: bool = False):
@@ -77,6 +78,7 @@ class MultiHeadAttention(nn.Module):
         self.linear_v = nn.Linear(hidden_size, hidden_size)
         self.linear_out = nn.Linear(hidden_size, hidden_size)
         self.attn_drop = nn.Dropout(dropout_rate)
+        self.dropout_generator: Optional[torch.Generator] = None
 
     def _qkv(self, q_in, k_in, v_in):
         B = q_in.shape[0]
@@ -107,6 +109,7 @@ class MultiHeadAttention(nn.Module):
                 scale=1.0 / math.sqrt(self.d_k),
                 dropout_rate=self.dropout_rate,
                 deterministic=not self.training,
+                generator=self.dropout_generator,
             )
             B, Tq = out.shape[0], out.shape[1]
             return self.linear_out(out.reshape(B, Tq, self.hidden_size))

@@ -1,33 +1,45 @@
-"""Fused masked self-attention: CUDA kernel (forward) and plain version.
+"""Fused masked self-attention: CUDA kernels (forward, backward, dropout)
+and plain version.
 
 Port of `emoasr_tpu/ops/attention_pallas.py::fused_self_attention`.  The
 public function keeps the JAX layout: q/k/v (B, T, H, D), `lens` (B,) valid
 key counts, output (B, T, H, D) in v.dtype.  Semantics are those of the
 dense path (`models/layers.py::MultiHeadAttention._attend`): -1e9 key-pad
-fill before an f32 softmax, zeroing after it, P cast to v.dtype before the
-AV product.
+fill before an f32 softmax, zeroing after it, dropout on the normalised
+probabilities, P cast to v.dtype before the AV product.
 
 For a CUDA tensor `fused_self_attention` launches `csrc/attention.cu`; for
-a CPU tensor it takes `attention_plain`.  The kernel covers the decode
-path only: the additive score `bias` (Conformer rel-pos) and dropout raise
-`NotImplementedError` on the card and are covered by the plain version.
+a CPU tensor it takes `attention_plain` (differentiated by autograd).  On
+the card the forward takes float32 and bfloat16, the backward float32 only
+(a bfloat16 input that needs a gradient raises `TypeError`); the additive
+score `bias` (Conformer rel-pos) raises `NotImplementedError` and is
+covered by the plain version.
+
+Dropout on the card draws its bits from a Philox generator inside the
+kernel, keyed by one 64-bit seed per call; the backward regenerates them.
+The seed comes from `seed=` or is drawn from `generator`.  The bits are not
+those of any other framework: `dropout_keep_mask` exports them so that the
+kernel can be held against the plain version with the same mask.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from emoasr_tpu_torch.ops.cuda_lib import F, I, P, CudaKernel
+from emoasr_tpu_torch.ops.cuda_lib import F, I, P, U, CudaKernel
 
 NEG_INF = -1e9  # matches models/layers.py
 
+_FWD_SIG = [P, P, P, P, P, P, I, I, I, I, F, U, U, U, F, P]
 KERNEL = CudaKernel(
     "attention.cu",
     {
-        "emo_attention_fwd_f32": [P, P, P, P, P, I, I, I, I, F, P],
-        "emo_attention_fwd_bf16": [P, P, P, P, P, I, I, I, I, F, P],
+        "emo_attention_fwd_f32": _FWD_SIG,
+        "emo_attention_fwd_bf16": _FWD_SIG,
+        "emo_attention_bwd_f32": [P] * 11 + [I, I, I, I, F, U, U, U, F, P],
+        "emo_attention_keep_mask": [P, I, I, I, U, U, U, P],
     },
 )
 
@@ -74,6 +86,83 @@ def attention_plain(
     return out.to(v.dtype)
 
 
+def _dropout_args(rate: float, seed: int) -> Tuple[int, int, int, float]:
+    """(seed_lo, seed_hi, threshold, 1/(1 - rate)) as the launchers take
+    them; keep where a 32-bit word >= threshold = rate * 2^32."""
+    if rate <= 0.0:
+        return 0, 0, 0, 1.0
+    if rate >= 1.0:
+        raise ValueError(f"attention kernel: dropout rate {rate} must be below 1")
+    threshold = min(int(rate * 2 ** 32), 2 ** 32 - 1)
+    return seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF, threshold, 1.0 / (1.0 - rate)
+
+
+def draw_seed(generator: Optional[torch.Generator] = None) -> int:
+    """One fresh 62-bit dropout seed from `generator` (PyTorch's global CPU
+    generator when None)."""
+    dev = generator.device if generator is not None else "cpu"
+    return int(torch.randint(0, 2 ** 62, (1,), generator=generator, device=dev).item())
+
+
+def dropout_keep_mask(B: int, T: int, H: int, rate: float, seed: int,
+                      device: torch.device) -> torch.Tensor:
+    """The keep mask (B, H, T, T) bool that the kernels apply for `seed`."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("dropout_keep_mask: the kernel's bits exist on the card only")
+    lo, hi, threshold, _ = _dropout_args(rate, seed)
+    out = torch.empty((B, H, T, T), dtype=torch.uint8, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        KERNEL.launch("emo_attention_keep_mask", out.data_ptr(), B, T, H, lo, hi, threshold, stream)
+    return out.bool()
+
+
+def _launch_fwd(q, k, v, lens32, scale, rate, seed, want_lse):
+    B, T, H, D = q.shape
+    out = torch.empty_like(v)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if want_lse else None
+    lo, hi, threshold, inv_keep = _dropout_args(rate, seed)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        KERNEL.launch(
+            _LAUNCHERS[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            lens32.data_ptr(), out.data_ptr(), lse.data_ptr() if want_lse else None,
+            B, T, H, D, float(scale), lo, hi, threshold, inv_keep, stream,
+        )
+    return out, lse
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Forward and backward kernels; saves q, k, v, the output and the
+    rows' log-sum-exp, and regenerates the dropout bits from the seed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lens32, scale, rate, seed):
+        out, lse = _launch_fwd(q, k, v, lens32, scale, rate, seed, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, lens32)
+        ctx.scale, ctx.rate, ctx.seed = scale, rate, seed
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out, lse, lens32 = ctx.saved_tensors
+        B, T, H, D = q.shape
+        d_out = d_out.contiguous()
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        delta = torch.empty_like(lse)
+        lo, hi, threshold, inv_keep = _dropout_args(ctx.rate, ctx.seed)
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            KERNEL.launch(
+                "emo_attention_bwd_f32", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), d_out.data_ptr(), lens32.data_ptr(), lse.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+                B, T, H, D, float(ctx.scale), lo, hi, threshold, inv_keep, stream,
+            )
+        return dq, dk, dv, None, None, None, None
+
+
 def fused_self_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -86,8 +175,13 @@ def fused_self_attention(
     bias: Optional[torch.Tensor] = None,
     dropout_mask: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    seed: Optional[int] = None,
 ) -> torch.Tensor:
-    """Masked self-attention, (B, T, H, D) -> (B, T, H, D) in v.dtype."""
+    """Masked self-attention, (B, T, H, D) -> (B, T, H, D) in v.dtype.
+
+    With dropout on, a CPU tensor takes `dropout_mask` or draws one from
+    `generator`; a CUDA tensor takes `seed` or draws one from `generator`
+    (see `draw_seed`) and refuses a `dropout_mask`."""
     rate = 0.0 if deterministic else float(dropout_rate)
     if q.device.type == "cpu":
         return attention_plain(
@@ -96,16 +190,13 @@ def fused_self_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"attention kernel: unsupported device {q.device}")
-    if rate > 0.0:
-        raise NotImplementedError(
-            "attention kernel: dropout comes with the training slice "
-            "(ROADMAP.md, K4 backward)"
-        )
     if bias is not None:
         raise NotImplementedError(
             "attention kernel: the rel-pos score bias comes with the "
             "Conformer slice (ROADMAP.md, K4 bias)"
         )
+    if rate > 0.0 and dropout_mask is not None:
+        raise ValueError("attention kernel: it draws its own dropout bits; pass `seed`, not a mask")
     if q.dtype not in _LAUNCHERS:
         raise TypeError(f"attention kernel takes float32 or bfloat16, not {q.dtype}")
     if not (q.dtype == k.dtype == v.dtype):
@@ -117,19 +208,20 @@ def fused_self_attention(
         raise ValueError(f"attention kernel: d_k={D} > {MAX_D}")
     if lens.shape != (B,):
         raise ValueError(f"attention kernel: lens must be ({B},), got {tuple(lens.shape)}")
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if needs_grad and q.dtype != torch.float32:
+        raise TypeError(f"attention kernel: the backward takes float32 only, not {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"attention kernel: {name} must be contiguous")
         if t.device != q.device:
             raise ValueError(f"attention kernel: {name} on {t.device}, q on {q.device}")
     lens32 = lens.to(device=q.device, dtype=torch.int32).contiguous()
-    out = torch.empty_like(v)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        KERNEL.launch(
-            _LAUNCHERS[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            lens32.data_ptr(), out.data_ptr(), B, T, H, D, float(scale), stream,
-        )
-    return out
+    if v.numel() == 0:
+        return torch.empty_like(v)
+    if rate > 0.0 and seed is None:
+        seed = draw_seed(generator)
+    seed = int(seed or 0)
+    if needs_grad:
+        return _FusedAttention.apply(q, k, v, lens32, float(scale), rate, seed)
+    return _launch_fwd(q, k, v, lens32, scale, rate, seed, want_lse=False)[0]

@@ -32,9 +32,12 @@ NVCC_FLAGS = [
 ]
 
 # ctypes argument types of the launchers: pointers (and the stream) as
-# c_void_p, ints as c_int, floats as c_float
+# c_void_p, ints as c_int, strides as c_int64, 32-bit unsigned words as
+# c_uint32, floats as c_float
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_int64
+U = ctypes.c_uint32
 F = ctypes.c_float
 
 
@@ -56,13 +59,15 @@ class CudaKernel:
     `signatures` maps each exported C function to its ctypes argument types;
     every exported launcher returns the `cudaError_t` of
     `cudaGetLastError()` after its launch.  `launches` counts the launches
-    made through `launch`; callers may reset it to 0.
+    made through `launch` and `counts` the same by launcher name;
+    `reset_counts` sets both to 0.
     """
 
     def __init__(self, source: str, signatures: Dict[str, List]):
         self.source = source
         self.signatures = signatures
         self.launches = 0
+        self.counts: Dict[str, int] = {name: 0 for name in signatures}
         self._lib = None
         self._lock = threading.Lock()
 
@@ -122,6 +127,12 @@ class CudaKernel:
             msg = lib.emo_error_string(err).decode()
             raise RuntimeError(f"{self.source}:{name} launch failed: {msg} (cudaError {err})")
         self.launches += 1
+        self.counts[name] += 1
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        for name in self.counts:
+            self.counts[name] = 0
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> None:

@@ -1,10 +1,16 @@
-"""Checkpoint files and epoch averaging (PyTorch port of
-`emoasr_tpu/train/checkpoint.py::parse_epochs` and `_model_average_torch`).
+"""Checkpoint save / resume / epoch averaging (PyTorch port of
+`emoasr_tpu/train/checkpoint.py`).
 
-A checkpoint is a reference-layout `model.ep{N}` file: a flat
-`state_dict` of CPU float32 tensors saved with `torch.save`, which both the
-port and the JAX package's torch importer read.  Saving during training
-comes with the training slice (ROADMAP.md §1).
+- per-epoch `model.ep{N}` + `optim.ep{N}` under `<run>/checkpoints`
+  (`asr/train_asr.py:290-303`).  `model.ep{N}` is a reference-layout file: a
+  flat `state_dict` of CPU float32 tensors saved with `torch.save`, which
+  both the port and the JAX package's torch importer read.  `optim.ep{N}`
+  holds the optimizer's `state_dict`, the step counters, the epdecay factor
+  and the open gradient accumulation.
+- `--resume` finds the latest epoch pair (`utils/paths.py`); warm start from
+  `model_path` loads a `model.ep{N}`.
+- post-hoc weight averaging over epoch ranges "91-100" or lists "1+2+5"
+  (`utils/average_checkpoints.py:16-52`), triggered lazily at test time.
 """
 
 from __future__ import annotations
@@ -43,6 +49,44 @@ def save_state_dict(state_dict: Dict[str, torch.Tensor], path: str) -> None:
 
 def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def save_model(path: str, model: torch.nn.Module) -> None:
+    save_state_dict(model.state_dict(), path)
+
+
+def load_model(path: str, model: torch.nn.Module) -> None:
+    """Load a `model.ep{N}` into `model`, wherever its parameters lie."""
+    model.load_state_dict(load_state_dict(path))
+
+
+def save_optim(path: str, state) -> None:
+    """Write what `load_optim` needs to go on from `state` (a
+    `train.step.TrainState`) exactly: moments, counters, open accumulation."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(
+        {
+            "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step),
+            "epoch_scale": float(state.epoch_scale),
+            "skipped": int(state.skipped),
+            "mini_step": int(state.mini_step),
+            "acc_grads": [g.detach().cpu() for g in state.acc_grads],
+        },
+        path,
+    )
+
+
+def load_optim(path: str, state) -> None:
+    """Restore `state`'s optimizer, counters and open accumulation in place;
+    tensors go to the device of the parameters they belong to."""
+    tree = torch.load(path, map_location="cpu", weights_only=True)
+    state.optimizer.load_state_dict(tree["optimizer"])
+    state.step = int(tree["step"])
+    state.epoch_scale = float(tree["epoch_scale"])
+    state.skipped = int(tree["skipped"])
+    state.mini_step = int(tree["mini_step"])
+    state.acc_grads = [g.to(p.device) for g, p in zip(tree["acc_grads"], state.params)]
 
 
 def model_average(conf_path: str, ep: str) -> Optional[str]:

@@ -1,0 +1,263 @@
+"""ASR training loop + CLI (PyTorch port of `emoasr_tpu/train/loop.py`).
+
+Parity target: emoASR `asr/train_asr.py`: epoch loop with grad-accum,
+clip + NaN skip, per-`log_step` averaged loss logging with LR, per-epoch
+greedy-WER validation, `model.ep{N}`/`optim.ep{N}` checkpointing,
+`--resume`, warm start via `model_path`, epoch wall-clock + ETA logging.
+
+Usage: `python -m emoasr_tpu_torch.train.loop -conf exp.yaml [--resume] [--cpu]`
+
+It runs on the GPU unless `--cpu` is given.  A profiler switch and
+multi-device training are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import queue
+import threading
+import time
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from emoasr_tpu_torch.config import ExpConfig, load_config
+from emoasr_tpu_torch.data.asr_dataset import ASRDataset
+from emoasr_tpu_torch.eval.wer import compute_wers
+from emoasr_tpu_torch.models.asr import ASR
+from emoasr_tpu_torch.train import checkpoint as ckpt
+from emoasr_tpu_torch.train.optim import build_optimizer
+from emoasr_tpu_torch.train.step import TrainState, make_train_step, preprocess
+from emoasr_tpu_torch.utils.device import resolve_device, set_matmul_precision
+from emoasr_tpu_torch.utils.log import setup_logging
+from emoasr_tpu_torch.utils.paths import get_log_save_paths, get_resume_paths
+from emoasr_tpu_torch.utils.vocab import Vocab
+
+
+def array_only(batch: Dict) -> Dict:
+    return {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+
+
+def prefetch_to_device(batch_iter, device: torch.device, depth: int = 3) -> Iterator[Dict]:
+    """Producer-thread pipeline: collate and the host-to-device copy run
+    ahead of the training step.
+
+    The reference gets this from DataLoader(num_workers=2)
+    (`asr/train_asr.py:248-257`); here a thread collates (numpy and file
+    IO release the GIL) and, on the card, copies from pinned memory on a
+    stream of its own with `non_blocking=True`; the consumer's stream waits
+    for the copy's event before it touches the batch."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    err: list = []
+    on_card = device.type == "cuda"
+    copy_stream = torch.cuda.Stream(device) if on_card else None
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def to_device(batch: Dict):
+        host = {k: torch.from_numpy(v) for k, v in array_only(batch).items()}
+        if not on_card:
+            return host, None, None
+        host = {k: v.pin_memory() for k, v in host.items()}
+        with torch.cuda.stream(copy_stream):
+            dev = {k: v.to(device, non_blocking=True) for k, v in host.items()}
+            done = torch.cuda.Event()
+            done.record(copy_stream)
+        return dev, done, host  # `host` stays alive until the copy is done
+
+    def producer():
+        try:
+            for batch in batch_iter:
+                if not put(to_device(batch)):
+                    return
+        except Exception as e:  # noqa: BLE001 - re-raised in the consumer
+            err.append(e)
+        finally:
+            put(None)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                if err:
+                    raise err[0]
+                break
+            batch, done, _host = item
+            if done is not None:
+                cur = torch.cuda.current_stream(device)
+                cur.wait_event(done)
+                for t in batch.values():
+                    t.record_stream(cur)
+            yield batch
+    finally:
+        stop.set()
+        thread.join(timeout=10)
+
+
+@torch.no_grad()
+def greedy_valid_wer(cfg: ExpConfig, model: ASR, dataset: ASRDataset, vocab=None) -> float:
+    """Per-epoch greedy WER on the dev set (train_asr.py:146-184); the
+    model is switched to `eval()` and back."""
+    device = next(model.parameters()).device
+    was_training = model.training
+    model.eval()
+    hyps_all, refs_all = [], []
+    try:
+        for batch in dataset.batches():
+            xs = torch.from_numpy(batch["xs"]).to(device)
+            xlens = torch.from_numpy(batch["xlens"]).to(device, torch.int64)
+            hyps, hyp_lens, _, _ = model.decode_greedy(*preprocess(cfg, xs, xlens))
+            hyps, hyp_lens = hyps.cpu().numpy(), hyp_lens.cpu().numpy()
+            for b in range(len(batch["utt_ids"])):
+                hyp_ids = hyps[b, : hyp_lens[b]].tolist()
+                ref_ids = batch["ys"][b, : batch["ylens"][b]].tolist()
+                if vocab is not None:
+                    hyps_all.append(vocab.ids2words(hyp_ids))
+                    refs_all.append(vocab.ids2words(ref_ids))
+                else:
+                    hyps_all.append(list(map(str, hyp_ids)))
+                    refs_all.append(list(map(str, ref_ids)))
+    finally:
+        model.train(was_training)
+    wer, _ = compute_wers(hyps_all, refs_all)
+    return wer
+
+
+def train(conf_path: str, resume: bool = False, cfg: Optional[ExpConfig] = None,
+          max_steps: Optional[int] = None, device=None) -> TrainState:
+    """Run the training loop on `device` (the card when None; "cpu" must be
+    asked for); `max_steps` bounds the run in micro-steps (a checkpoint is
+    saved on early stop), for bounded demo runs."""
+    cfg = cfg or load_config(conf_path)
+    device = resolve_device(device)
+    set_matmul_precision(cfg.compute_dtype)
+    log_dir, save_fmt, optim_save_fmt = get_log_save_paths(conf_path)
+    setup_logging(os.path.join(log_dir, "train.log"))
+    logging.info(f"config: {conf_path} on {device}")
+
+    dataset = ASRDataset(cfg, cfg.train_path, phase="train")
+    dev_dataset = ASRDataset(cfg, cfg.dev_path, phase="valid") if cfg.dev_path else None
+    vocab = Vocab(cfg.vocab_path) if cfg.vocab_path and os.path.exists(cfg.vocab_path) else None
+
+    steps_per_epoch = len(dataset.make_batcher(seed=cfg.seed))
+    num_total_steps = None
+    if cfg.lr_schedule_type == "lindecay" or cfg.warmup_proportion is not None:
+        num_total_steps = steps_per_epoch * cfg.num_epochs // cfg.accum_grad
+
+    # one seed for everything random: the initial weights and `nn.Dropout`
+    # draw from PyTorch's global generators; SpecAugment and the fused
+    # attention's dropout seeds from explicit generators
+    torch.manual_seed(cfg.seed)
+    model = ASR(cfg).to(device)
+    sa_gen = torch.Generator(device=device)
+    sa_gen.manual_seed(cfg.seed)
+    do_gen = torch.Generator()
+    do_gen.manual_seed(cfg.seed)
+    model.set_dropout_generator(do_gen)
+    num_params = sum(p.numel() for p in model.parameters())
+    logging.info(f"ASR model #parameters: {num_params}")
+
+    state = TrainState(model=model, optimizer=build_optimizer(cfg, model.parameters()))
+
+    # resume / warm start (paths.py:81-129, train_asr.py:215-227)
+    model_path, optim_path, start_epoch = cfg.model_path, cfg.optim_path, cfg.startep
+    if resume:
+        r_model, r_optim, r_ep = get_resume_paths(conf_path)
+        model_path, optim_path, start_epoch = (
+            r_model or model_path, r_optim or optim_path, r_ep or start_epoch
+        )
+    if model_path:
+        ckpt.load_model(model_path, model)
+        logging.info(f"model loaded: {model_path}")
+    if optim_path:
+        ckpt.load_optim(optim_path, state)
+        logging.info(f"optim loaded: {optim_path}")
+
+    train_step = make_train_step(cfg, num_total_steps)
+
+    stopped_early = False
+    for epoch in range(start_epoch, cfg.num_epochs):
+        t0 = time.time()
+        batcher = dataset.make_batcher(seed=cfg.seed + epoch)
+        accum: Dict[str, torch.Tensor] = {}
+        n_acc = 0
+        lr = 0.0
+        for i, batch in enumerate(prefetch_to_device(dataset.batches(batcher), device)):
+            if max_steps is not None and state.step >= max_steps:
+                stopped_early = True
+                break
+            metrics = train_step(state, batch, sa_gen)
+            lr = metrics.pop("lr")
+            metrics.pop("grad_finite")
+            # the loss sums stay on the device between log steps
+            for k, v in metrics.items():
+                accum[k] = accum[k] + v if k in accum else v
+            n_acc += 1
+            if (i + 1) % cfg.log_step == 0:
+                loss_str = " ".join(f"{k}: {float(v) / n_acc:.3f}" for k, v in accum.items())
+                logging.info(
+                    f"epoch {epoch + 1} step {i + 1}/{steps_per_epoch} {loss_str} lr: {lr:.6f}"
+                )
+                accum, n_acc = {}, 0
+
+        # epdecay epoch update (optimizers.py:88-97)
+        if (
+            cfg.lr_schedule_type == "epdecay"
+            and cfg.lr_decay_start_epoch is not None
+            and (epoch + 1) >= cfg.lr_decay_start_epoch
+        ):
+            state.epoch_scale *= cfg.lr_decay_rate
+            logging.info(f"learning rate decayed: scale={state.epoch_scale:.6f}")
+
+        elapsed = time.time() - t0
+        eta = elapsed * (cfg.num_epochs - epoch - 1)
+        logging.info(
+            f"epoch {epoch + 1} done in {elapsed:.1f}s (ETA {eta / 3600:.2f}h), "
+            f"skipped steps: {state.skipped}"
+        )
+
+        # per-epoch greedy WER validation (train_asr.py:146-184)
+        if dev_dataset is not None:
+            wer = greedy_valid_wer(cfg, model, dev_dataset, vocab)
+            logging.info(f"epoch {epoch + 1} dev WER (greedy): {wer:.2f}")
+
+        if (epoch + 1) % cfg.save_step == 0 or stopped_early:
+            ckpt.save_model(save_fmt.format(epoch + 1), model)
+            ckpt.save_optim(optim_save_fmt.format(epoch + 1), state)
+            logging.info(f"checkpoint saved: {save_fmt.format(epoch + 1)}")
+        if stopped_early:
+            logging.info(f"stopping at max_steps={max_steps}")
+            break
+
+    return state
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-conf", type=str, required=True)
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--cpu", action="store_true",
+                        help="run on the CPU (the default is the GPU)")
+    return parser
+
+
+def main(argv=None) -> TrainState:
+    args = build_argparser().parse_args(argv)
+    return train(args.conf, resume=args.resume, device="cpu" if args.cpu else None)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,112 @@
+"""Optimizer and LR schedules (PyTorch port of `emoasr_tpu/train/optim.py`).
+
+Parity target: emoASR `asr/optimizers.py`:
+- `noam`: lr = base * d_model^-0.5 * min(step^-0.5, step * warmup^-1.5)
+  (optimizers.py:57-63)
+- `epdecay`: linear warmup to base, then constant; multiplied by
+  `lr_decay_rate` at each epoch >= `lr_decay_start_epoch` (:52-56, 88-97)
+- `lindecay`: linear warmup then linear decay to 0 over total steps (:65-77)
+- ASR uses torch Adam with *coupled* L2 weight_decay.  (The LM path's AdamW
+  with bias/LayerNorm excluded from decay comes with the LM slices.)
+- NaN/inf grads skip the step (train_asr.py:83-90); grad clipping by global
+  norm; gradient accumulation (`accum_grad`) are in `train/step.py`.
+
+The LR is a pure function of (step, epoch_scale), computed on the host and
+set on the optimizer at each update.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable, Optional
+
+import torch
+
+from emoasr_tpu_torch.config import ExpConfig
+
+
+def resolve_warmup(cfg: ExpConfig, num_total_steps: Optional[int]) -> int:
+    """`num_warmup_steps` xor `warmup_proportion` (optimizers.py:18-28)."""
+    if (cfg.num_warmup_steps is None) == (cfg.warmup_proportion is None):
+        raise ValueError("exactly one of num_warmup_steps / warmup_proportion must be set")
+    if cfg.warmup_proportion is not None:
+        if num_total_steps is None:
+            raise ValueError("warmup_proportion needs the total number of optimizer steps")
+        return int(num_total_steps * cfg.warmup_proportion)
+    return cfg.num_warmup_steps
+
+
+def make_lr_fn(cfg: ExpConfig, num_total_steps: Optional[int] = None) -> Callable[..., float]:
+    """Returns lr(step, epoch_scale) -> float.
+
+    `step` counts optimizer updates starting at 1; `epoch_scale` carries the
+    cumulative epdecay factor (1.0 otherwise)."""
+    warmup = resolve_warmup(cfg, num_total_steps)
+    base = cfg.learning_rate
+    sched = cfg.lr_schedule_type
+
+    if sched == "noam":
+        d_model = cfg.enc_hidden_size if cfg.encoder_type else cfg.hidden_size
+
+        def lr(step, epoch_scale=1.0):
+            s = max(float(step), 1.0)
+            return base * d_model ** -0.5 * min(s ** -0.5, s * warmup ** -1.5)
+
+    elif sched == "epdecay":
+
+        def lr(step, epoch_scale=1.0):
+            s = float(step)
+            warm = base / max(1.0, warmup) * s
+            return (warm if s <= warmup else base) * epoch_scale
+
+    elif sched == "lindecay":
+        if num_total_steps is None:
+            raise ValueError("lindecay needs the total number of optimizer steps")
+
+        def lr(step, epoch_scale=1.0):
+            s = float(step)
+            if s <= warmup:
+                return base / max(1.0, warmup) * s
+            return base * max(0.0, (num_total_steps - s) / max(1.0, num_total_steps - warmup))
+
+    else:
+        raise ValueError(sched)
+
+    return lr
+
+
+def build_optimizer(cfg: ExpConfig, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
+    """torch Adam (b1 0.9, b2 0.999, eps 1e-8) with coupled L2: the decay
+    term joins the gradient before the moment updates, after the clip
+    (`train/step.py` clips the accumulated gradient first).  Its `lr` is set
+    at every update from `make_lr_fn`."""
+    return torch.optim.Adam(
+        list(params), lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=float(cfg.weight_decay or 0.0),
+    )
+
+
+def grads_finite(grads) -> torch.Tensor:
+    """0-dim bool tensor: every gradient is finite.  Decided on the sum of
+    squares, which a NaN or an inf anywhere turns non-finite."""
+    norms = torch._foreach_norm(list(grads))
+    return torch.isfinite(torch.stack(norms).square().sum())
+
+
+def finite_or_zero(grads):
+    """Zero the whole gradient list if any entry is non-finite; returns
+    (grads, was_finite).  Mirrors the reference's NaN-step skip."""
+    grads = list(grads)
+    finite = grads_finite(grads)
+    return [torch.where(finite, g, torch.zeros_like(g)) for g in grads], finite
+
+
+def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+    """Scale `grads` in place so that their global L2 norm is at most
+    `max_norm` (g * max_norm / norm when the norm is not below it); returns
+    the norm before clipping."""
+    grads = list(grads)
+    norm = torch.stack(torch._foreach_norm(grads)).norm()
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    for g in grads:
+        g.mul_(scale)
+    return norm

@@ -1,22 +1,158 @@
-"""Batch preprocessing (PyTorch port of the eval branch of
-`emoasr_tpu/train/step.py::preprocess`).
+"""Train / valid steps (PyTorch port of `emoasr_tpu/train/step.py`).
 
-The train step (SpecAugment, loss, optimizer) comes with the training
-slice (ROADMAP.md §1).
+Replaces the reference's `train_step` (`asr/train_asr.py:35-98`): forward,
+backward, gradient accumulation, clip, NaN-skip, scheduled LR, optimizer
+step.  SpecAugment and frame stacking run on the device (`preprocess`),
+keeping the host path IO-only.
+
+`TrainState` holds what a step changes besides the weights and moments:
+the micro-step counter, the cumulative epdecay factor, the count of skipped
+micro-steps, and the open gradient accumulation.  The model's parameters
+and the optimizer's moments are updated in place.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
+
 import torch
 
 from emoasr_tpu_torch.config import ExpConfig
+from emoasr_tpu_torch.ops.specaug import spec_augment
+from emoasr_tpu_torch.train.optim import clip_by_global_norm_, grads_finite, make_lr_fn
+from emoasr_tpu_torch.utils.precision import is_half
 
 
-def preprocess(cfg: ExpConfig, xs: torch.Tensor, xlens: torch.Tensor):
-    """Frame stacking for decoding, no SpecAugment (datasets.py:94-101)."""
+@dataclass
+class TrainState:
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0  # micro-steps taken, skipped ones included
+    epoch_scale: float = 1.0  # cumulative epdecay factor
+    skipped: int = 0  # micro-steps skipped for non-finite gradients
+    mini_step: int = 0  # micro-gradients in the open accumulation
+    acc_grads: List[torch.Tensor] = field(default_factory=list)  # their sum
+
+    @property
+    def params(self) -> List[torch.nn.Parameter]:
+        return [p for p in self.model.parameters() if p.requires_grad]
+
+
+def preprocess(cfg: ExpConfig, xs: torch.Tensor, xlens: torch.Tensor,
+               generator: Optional[torch.Generator] = None, train: bool = False):
+    """SpecAugment (training only) then frame stacking, on the device
+    (reference order: spec_augment.py before _stack_frames,
+    datasets.py:94-101)."""
+    if train and cfg.spec_augment:
+        xs = spec_augment(
+            generator, xs, xlens,
+            max_mask_freq=cfg.max_mask_freq,
+            num_masks_freq=cfg.num_masks_freq,
+            max_mask_time=cfg.max_mask_time,
+            num_masks_time=cfg.num_masks_time,
+            max_mask_time_ratio=cfg.max_mask_time_ratio,
+            num_masks_time_ratio=cfg.num_masks_time_ratio,
+            replace_with_zero=cfg.replace_with_zero,
+        )
     n = cfg.num_framestacks
     if n > 1:
         B, T, F = xs.shape
         xs = xs[:, : (T // n) * n].reshape(B, T // n, F * n)
         xlens = torch.div(xlens, n, rounding_mode="floor")
     return xs, xlens
+
+
+def _forward(model, cfg: ExpConfig, batch: Dict, generator, train: bool):
+    xs, xlens = preprocess(cfg, batch["xs"], batch["xlens"], generator, train)
+    return model(
+        xs, xlens, batch["ys"], batch["ylens"], batch.get("ys_in"), batch.get("ys_out"),
+        batch.get("soft_labels"), batch.get("ps"), batch.get("plens"),
+    )
+
+
+def make_train_step(cfg: ExpConfig, num_total_steps: Optional[int] = None) -> Callable:
+    """Build the train step.
+
+    Returns step_fn(state, batch, generator=None) -> metrics.  `batch`:
+    dict of tensors on the model's device with xs/xlens/ys/ylens (+ys_in,
+    ys_out, ps, plens); `generator` draws the SpecAugment masks.  Metrics
+    are the loss terms (0-dim tensors on the device, detached), `lr`
+    (float) and `grad_finite` (bool).
+
+    One call is one micro-step.  `accum_grad` finite micro-gradients are
+    averaged, the average is clipped by its global norm, and one Adam
+    update is made at the LR of optimizer step
+    `(step + accum_grad - 1) // accum_grad`.  A micro-step whose gradient
+    is not finite leaves the parameters, the moments and the open
+    accumulation as they were and counts as skipped; the micro-step counter
+    advances all the same (`train_asr.py:83-121`).  The finiteness test
+    reads one scalar back from the device, once per micro-step."""
+    if is_half(cfg):
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r}: the port trains in float32; "
+            "mixed-precision training waits (ROADMAP.md §2)"
+        )
+    lr_fn = make_lr_fn(cfg, num_total_steps)
+    accum = max(int(cfg.accum_grad), 1)
+
+    def step_fn(state: TrainState, batch: Dict, generator=None) -> Dict:
+        model, params = state.model, state.params
+        model.train()
+        loss, loss_dict = _forward(model, cfg, batch, generator, True)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+        finite = bool(grads_finite(grads))
+
+        state.step += 1
+        # the scheduler counts optimizer updates, one per accum_grad micro-steps
+        opt_step = (state.step + accum - 1) // accum
+        lr = lr_fn(opt_step, state.epoch_scale)
+
+        if finite:
+            if not state.acc_grads:
+                state.acc_grads = [torch.zeros_like(p) for p in params]
+            torch._foreach_add_(state.acc_grads, grads)
+            state.mini_step += 1
+            if state.mini_step == accum:
+                if accum > 1:
+                    torch._foreach_div_(state.acc_grads, float(accum))
+                if cfg.clip_grad_norm and cfg.clip_grad_norm > 0:
+                    clip_by_global_norm_(state.acc_grads, float(cfg.clip_grad_norm))
+                for p, g in zip(params, state.acc_grads):
+                    p.grad = g
+                for group in state.optimizer.param_groups:
+                    group["lr"] = lr
+                state.optimizer.step()
+                for p in params:
+                    p.grad = None
+                torch._foreach_zero_(state.acc_grads)
+                state.mini_step = 0
+        else:
+            state.skipped += 1
+
+        metrics = {k: v.detach() for k, v in loss_dict.items()}
+        metrics["lr"] = lr
+        metrics["grad_finite"] = finite
+        return metrics
+
+    return step_fn
+
+
+def make_eval_loss_step(cfg: ExpConfig) -> Callable:
+    """Validation loss (no SpecAugment, dropout off): step_fn(state, batch)
+    -> loss_dict.
+
+    Batches built with `pad_to_batch` repeat the first utterance into the
+    tail rows; the loss is a whole-batch mean, so callers that aggregate
+    over utterances weight by `batch["n_valid"]`."""
+
+    @torch.no_grad()
+    def step_fn(state: TrainState, batch: Dict) -> Dict:
+        was_training = state.model.training
+        state.model.eval()
+        _, loss_dict = _forward(state.model, cfg, batch, None, False)
+        state.model.train(was_training)
+        return loss_dict
+
+    return step_fn

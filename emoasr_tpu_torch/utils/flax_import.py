@@ -1,10 +1,12 @@
 """Carry the JAX package's flax parameters into the port's `state_dict`.
 
 `asr_state_dict(params, cfg)` is the inverse of
-`emoasr_tpu/utils/torch_import.py::asr_model` for the models this slice
-ports (Transformer encoder with the conv2d input layer, CTC decoder).  It
-takes the flax parameter tree as nested dicts of numpy arrays and needs
-neither JAX nor flax:
+`emoasr_tpu/utils/torch_import.py::asr_model` for the models ported so far
+(Transformer encoder with the conv2d or linear input layer, CTC decoder
+with its optional phone head).  It takes the flax parameter tree as nested
+dicts of numpy arrays and needs neither JAX nor flax.  A flax gradient tree
+has the parameters' structure, so it maps the same way and gradients can be
+compared name by name:
 
 - a Dense `kernel` (in, out) becomes `weight` = kernel.T;
 - a Conv `kernel` (kh, kw, in, out) becomes `weight` (out, in, kh, kw);
@@ -42,10 +44,13 @@ def _layer_norm(sd: SD, p: str, tree: Mapping) -> None:
 
 def transformer_encoder_state_dict(enc: Mapping, num_layers: int, prefix: str = "") -> SD:
     sd: SD = {}
-    conv = enc["conv"]
-    _conv2d(sd, f"{prefix}conv.conv.0", conv["conv1"])
-    _conv2d(sd, f"{prefix}conv.conv.2", conv["conv2"])
-    _dense(sd, f"{prefix}conv.output", conv["output"])
+    if "conv" in enc:
+        conv = enc["conv"]
+        _conv2d(sd, f"{prefix}conv.conv.0", conv["conv1"])
+        _conv2d(sd, f"{prefix}conv.conv.2", conv["conv2"])
+        _dense(sd, f"{prefix}conv.output", conv["output"])
+    else:
+        _dense(sd, f"{prefix}linear", enc["linear"])
     for i in range(num_layers):
         lp, layer = f"{prefix}transformers.{i}", enc[f"layers_{i}"]
         _layer_norm(sd, f"{lp}.norm1", layer["norm1"])
@@ -60,7 +65,7 @@ def transformer_encoder_state_dict(enc: Mapping, num_layers: int, prefix: str = 
 
 def asr_state_dict(params: Mapping, cfg) -> SD:
     """flax `{"encoder": ..., "decoder": ...}` -> port `state_dict`."""
-    if cfg.encoder_type != "transformer" or cfg.input_layer != "conv2d":
+    if cfg.encoder_type != "transformer" or cfg.input_layer not in ("conv2d", "linear"):
         raise NotImplementedError(
             f"encoder {cfg.encoder_type}/{cfg.input_layer} is not ported yet (ROADMAP.md §1)"
         )
@@ -70,4 +75,6 @@ def asr_state_dict(params: Mapping, cfg) -> SD:
         )
     sd = transformer_encoder_state_dict(params["encoder"], cfg.enc_num_layers, "encoder.")
     _dense(sd, "decoder.output", params["decoder"]["output"])
+    if "phone_output" in params["decoder"]:
+        _dense(sd, "decoder.phone_output", params["decoder"]["phone_output"])
     return sd

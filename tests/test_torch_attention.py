@@ -107,3 +107,65 @@ def test_dropout_from_generator_keeps_expected_share():
     )
     # rows of P sum to 1; kept entries are doubled, so the mean stays ~1
     assert abs(out.mean().item() - 1.0) < 0.05
+
+
+def _grads_both(q, k, v, jq, jk, jv, lens, d_out, scale, rate=0.0, seed=0, keep=None):
+    """(out, dq, dk, dv) of the port and of `jax.vjp` through the JAX function."""
+    jlens, jseed = jnp.asarray(lens), jnp.asarray(seed, jnp.int32)
+    jout, jvjp = jax.vjp(
+        lambda a, b, c: jax_fsa(a, b, c, jlens, jseed, scale=scale, dropout_rate=rate,
+                                deterministic=rate == 0.0),
+        jq, jk, jv,
+    )
+    ref = (jout, *jvjp(jnp.asarray(d_out)))
+    q, k, v = (x.clone().requires_grad_(True) for x in (q, k, v))
+    out = fused_self_attention(
+        q, k, v, torch.from_numpy(lens), scale=scale, dropout_rate=rate,
+        deterministic=rate == 0.0, dropout_mask=keep,
+    )
+    got = (out.detach(), *torch.autograd.grad(out, (q, k, v), torch.from_numpy(d_out)))
+    return got, ref
+
+
+def test_gradients_match_jax_kernel():
+    """dq, dk, dv against `jax.grad` through the Pallas backward kernel
+    (interpret mode), f32, ragged lens with a `lens == 0` row.  atol 1e-5:
+    sums over up to 37 keys or queries in two orders."""
+    B, T, H, D = 4, 37, 4, 16
+    (q, k, v), (jq, jk, jv) = _inputs(5, B, T, H, D, "float32")
+    lens = np.array([37, 20, 0, 1], np.int32)
+    d_out = np.random.default_rng(6).normal(size=(B, T, H, D)).astype(np.float32)
+    got, ref = _grads_both(q, k, v, jq, jk, jv, lens, d_out, 1.0 / math.sqrt(D))
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=TOL["float32"], rtol=0, err_msg=name)
+    assert not got[1][2].any() and not got[2][2].any() and not got[3][2].any()  # lens == 0
+    assert not got[2][1, 20:].any() and not got[3][1, 20:].any()  # dk, dv at masked keys
+    assert attention.KERNEL.launches == 0
+
+
+def test_dropout_gradients_same_mask_match_jax():
+    """Forward and backward with dropout, one keep mask on both sides (the
+    JAX side goes through `_fallback`'s arithmetic with the mask it draws)."""
+    B, T, H, D = 2, 23, 2, 8
+    (q, k, v), (jq, jk, jv) = _inputs(7, B, T, H, D, "float32")
+    lens = np.array([23, 9], np.int32)
+    d_out = np.random.default_rng(8).normal(size=(B, T, H, D)).astype(np.float32)
+    rate, seed = 0.3, 4321
+    keep = jax.random.bernoulli(
+        jax.random.PRNGKey(jnp.asarray(seed, jnp.int32).astype(jnp.uint32)), 1.0 - rate, (B, H, T, T))
+    got, ref = _grads_both(q, k, v, jq, jk, jv, lens, d_out, 1.0 / math.sqrt(D), rate, seed,
+                           torch.from_numpy(np.array(keep)))
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=TOL["float32"], rtol=0, err_msg=name)
+
+
+def test_dropout_seed_is_drawn_from_the_generator():
+    """One fresh seed per call: two calls draw two seeds, and a generator
+    seeded alike draws them again."""
+    g1, g2 = torch.Generator().manual_seed(3), torch.Generator().manual_seed(3)
+    a, b = attention.draw_seed(g1), attention.draw_seed(g1)
+    assert a != b and 0 <= a < 2 ** 62
+    assert (attention.draw_seed(g2), attention.draw_seed(g2)) == (a, b)
+    lo, hi, threshold, inv = attention._dropout_args(0.1, (5 << 32) | 7)
+    assert (lo, hi, threshold) == (7, 5, int(0.1 * 2 ** 32)) and inv == pytest.approx(1 / 0.9)
+    assert attention._dropout_args(0.0, 99) == (0, 0, 0, 1.0)

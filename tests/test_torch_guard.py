@@ -47,7 +47,11 @@ def test_imports_no_jax_and_nothing_of_the_jax_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for mod in ("emoasr_tpu_torch.eval.test_asr", "emoasr_tpu_torch.ops.topk",
-                "emoasr_tpu_torch.ops.attention", "emoasr_tpu_torch.search.ctc_beam"):
+                "emoasr_tpu_torch.ops.attention", "emoasr_tpu_torch.search.ctc_beam",
+                "emoasr_tpu_torch.ops.ctc", "emoasr_tpu_torch.ops.ctc_head",
+                "emoasr_tpu_torch.ops.ctc_lattice", "emoasr_tpu_torch.ops.specaug",
+                "emoasr_tpu_torch.train.loop", "emoasr_tpu_torch.train.optim",
+                "emoasr_tpu_torch.train.step", "emoasr_tpu_torch.train.checkpoint"):
         assert mod in res["modules"]
 
 
@@ -92,6 +96,44 @@ def test_entry_points_raise_without_cuda(tmp_path):
     conf.write_text("feat_dim: 20\n")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         test_asr.main(["-conf", str(conf), "-ep", "1"])
+    from emoasr_tpu_torch.train import loop
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        loop.main(["-conf", str(conf)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        loop.train(str(conf))
+    assert not os.path.exists(tmp_path / "exp")  # it raised before it wrote anything
+
+
+def test_every_entry_point_sets_the_tf32_switches(tmp_path, monkeypatch):
+    """One function sets both switches (off for float32, on for a half
+    compute dtype), and the eval CLI and the train CLI call it before they
+    build a model."""
+    from emoasr_tpu_torch.eval import test_asr
+    from emoasr_tpu_torch.train import loop
+    from emoasr_tpu_torch.utils import device
+
+    try:
+        assert device.set_matmul_precision("bfloat16") is True
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+        assert device.set_matmul_precision("float32") is False
+        assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    finally:
+        device.set_matmul_precision("float32")
+
+    class Called(Exception):
+        pass
+
+    def spy(compute_dtype="float32"):
+        raise Called(compute_dtype)
+
+    conf = tmp_path / "exp.yaml"
+    conf.write_text("feat_dim: 20\ncompute_dtype: float32\n")
+    for mod, argv in ((test_asr, ["-conf", str(conf), "-ep", "1", "--cpu"]),
+                      (loop, ["-conf", str(conf), "--cpu"])):
+        monkeypatch.setattr(mod, "set_matmul_precision", spy)
+        with pytest.raises(Called, match="float32"):
+            mod.main(argv)
 
 
 def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):
@@ -124,3 +166,29 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(o, attention.attention_plain(q, q, q, torch.tensor([4]), 0.5))
     assert topk.KERNEL.launches == 0 and attention.KERNEL.launches == 0
     assert topk.KERNEL._lib is None and attention.KERNEL._lib is None  # nothing built
+
+    # the training kernels: forward and backward on the CPU are the plain versions'
+    from emoasr_tpu_torch.ops import ctc_head, ctc_lattice
+
+    rng = np.random.default_rng(1)
+    e = torch.from_numpy(rng.normal(size=(2, 5, 8)).astype(np.float32)).requires_grad_(True)
+    w = torch.from_numpy(rng.normal(size=(8, 7)).astype(np.float32))
+    b = torch.zeros(7)
+    z = torch.tensor([[0, 3, 0], [0, 6, 0]])
+    lse, xs = ctc_head.fused_ctc_head(e, w, b, z)
+    lse0, xs0 = ctc_head.ctc_head_plain(e, w, b, z)
+    assert torch.equal(lse, lse0) and torch.equal(xs, xs0)
+    lp = (xs - lse[:, :, None]).transpose(0, 1)
+    ones = torch.ones(2, 3)
+    xlens = torch.tensor([5, 4])
+    ll = ctc_lattice.ctc_ll_from_path(lp, ones, ones, ones, xlens)
+    assert torch.equal(ll, ctc_lattice.ctc_ll_plain(lp, ones, ones, ones, xlens))
+    (g,) = torch.autograd.grad(ll.sum(), e)
+    assert torch.isfinite(g).all() and g.abs().sum() > 0
+    qg = torch.randn(1, 6, 2, 8, requires_grad=True)
+    attention.fused_self_attention(qg, qg, qg, torch.tensor([4]), scale=0.5).sum().backward()
+    assert qg.grad is not None
+    for k in (ctc_head.KERNEL, ctc_lattice.KERNEL, attention.KERNEL):
+        assert k.launches == 0 and not any(k.counts.values()) and k._lib is None
+    with pytest.raises(ValueError, match="card only"):
+        attention.dropout_keep_mask(1, 4, 2, 0.1, 0, torch.device("cpu"))
