@@ -11,7 +11,8 @@ Phases (any failed check raises, so the script exits non-zero):
    per source, all at once.
 3. Kernels against their plain PyTorch versions on the card, forward and
    backward, each with its stated tolerance (top-k exact; attention forward
-   f32 1e-5, bf16 2e-2; attention backward, CTC head and CTC lattice: see
+   f32 1e-5, bf16 2e-2, with and without the score bias; attention backward,
+   CTC head, CTC lattice and the decoder layer step, direct and indirect: see
    the constants beside their checks).
 4. Training at the full width of the L1 CTC(Transformer) model (12 x 256,
    4 heads, FF 2048, V = 10000, SpecAugment and dropout on,
@@ -28,7 +29,20 @@ Phases (any failed check raises, so the script exits non-zero):
    `--beam_width 8`, then greedily; the launch counts prove that the path
    went through the kernels; one batch's encoder output on the card is held
    against the CPU's plain path.
-7. Every kernel timed at the largest bucket beside its plain version and
+7. The L2 CTC(Conformer) model at full width: two micro-steps (the smallest
+   and the largest bucket) through the train CLI with `enc_fused_attn: true`,
+   which sends the attention through the kernel with its score bias, forward
+   and backward.
+8. The L3-1 model (Conformer encoder 12 x 256, Transformer decoder 6 x 256,
+   FF 2048, V = 10000, `enc_fused_attn: true`, weights from `--seed`): the
+   decode corpus through the eval CLI with beam 10, joint CTC 0.3, once with
+   `dec_step_mode: fused_indirect` and once with `fused`; launch counts of
+   the top-k, attention and decoder-step kernels; the count of hypotheses
+   force-finalized at their step budget (seed weights seldom emit eos); one
+   batch on the card against the CPU's plain path (encoder output, one
+   decoder step's logits, top-1 hypotheses); where one large batch's time
+   goes.
+9. Every kernel timed at the largest bucket beside its plain version and
    one library call; one JSON line describing each kernel, the `nvidia-smi`
    line, and last the `{"ok": true, "device": ...}` line.
 
@@ -51,6 +65,8 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 L1_CONF = os.path.join(REPO, "configs", "libri", "l1_ctc_transformer.yaml")
+L2_CONF = os.path.join(REPO, "configs", "libri", "l2_ctc_conformer.yaml")
+L3_1_CONF = os.path.join(REPO, "configs", "libri", "l3_1_ctc_joint.yaml")
 
 # published peaks of one H100 SXM (NVIDIA data sheet; dense, 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -77,12 +93,24 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+_HEAD_START = {}
+
+
 def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean time of one call, by CUDA events around `iters` calls."""
+    """Mean time of one call on the device, by CUDA events around `iters`
+    calls.  A matrix product of some 20 ms is queued first, so that the
+    host is `iters` calls ahead when the card reaches the first event: the
+    events then bracket the device's work, not the host's pace of issuing it
+    (for a call of many small launches that outlasts the head start, the
+    host's pace still shows)."""
     for _ in range(warmup):
         fn()
+    dev = torch.cuda.current_device()
+    if dev not in _HEAD_START:
+        _HEAD_START[dev] = torch.randn(8192, 8192, device=f"cuda:{dev}")
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.mm(_HEAD_START[dev], _HEAD_START[dev])
     start.record()
     for _ in range(iters):
         fn()
@@ -108,6 +136,8 @@ def topk_cases(dev, gen):
         ("f32 (128,10000) k=8", randn(128, 10000), 8),
         ("f32 (7,1000) k=10", randn(7, 1000), 10),
         ("bf16 (3,10,10000) k=15", randn(3, 10, 10000, dtype=torch.bfloat16), 15),
+        # the attention beam's pre-selection: (B, W, V) float32 scores, k = 1.5 W
+        ("f32 (18,10,10000) k=15", torch.log_softmax(randn(18, 10, 10000), -1), 15),
         ("f32 (640,512) k=32", randn(640, 512), 32),
         ("f32 ties (64,10000) k=16", ties, 16),
         ("bf16 ties (64,10000) k=8", ties.to(torch.bfloat16), 8),
@@ -169,16 +199,18 @@ def check_attention(dev, gen) -> float:
     return worst_f32
 
 
-def time_topk(dev, gen, rows: int, V: int, k: int) -> dict:
+def time_topk(dev, gen, shape: tuple, k: int) -> dict:
+    """K3 over the last axis of float32 log-probabilities of `shape`."""
     from emoasr_tpu_torch.ops.topk import topk_lastdim_kernel, topk_plain
 
-    x = torch.log_softmax(torch.randn(rows, V, generator=gen, device=dev), -1)
-    esize = x.element_size()
+    x = torch.log_softmax(torch.randn(*shape, generator=gen, device=dev), -1)
+    esize, V = x.element_size(), shape[-1]
+    rows = x.numel() // V
     bytes_moved = rows * V * esize + rows * k * (esize + 4)
     ops = rows * V * k  # one compare per entry per round
     t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_FLOPS[x.dtype]
     return {
-        "shape": f"({rows},{V}) k={k} {x.dtype}",
+        "shape": f"({','.join(map(str, shape))}) k={k} {x.dtype}",
         "ms": cuda_time_ms(lambda: topk_lastdim_kernel(x, k)),
         "plain_ms": cuda_time_ms(lambda: topk_plain(x, k)),
         "library_ms": cuda_time_ms(lambda: torch.topk(x, k, dim=-1)),
@@ -467,6 +499,249 @@ def check_attention_backward(dev, gen) -> float:
     return worst
 
 
+# K4 with the score bias: the tolerances of the checks without it (forward
+# f32 1e-5, bf16 2e-2; backward 1e-4, d bias included: it is the dS tile the
+# first backward pass already holds).  The bias is scaled so that it weighs
+# as much as q k^T in the score.
+def check_attention_bias(dev, gen) -> dict:
+    """Forward (f32, bf16) and backward (f32; out, dQ, dK, dV, d bias; with
+    and without dropout, the plain version taking the kernel's keep mask),
+    ragged lens, T not a multiple of any tile."""
+    from emoasr_tpu_torch.ops.attention import attention_plain, dropout_keep_mask, fused_self_attention
+
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    lens18 = torch.randint(1, 400, (18,), generator=gen, device=dev)
+    lens18[0], lens18[1], lens18[2] = 399, 0, 1
+    cases = (
+        ("(18,399,4,64)", (18, 399, 4, 64), lens18),
+        ("(5,37,4,64)", (5, 37, 4, 64), torch.tensor([37, 1, 0, 20, 36], device=dev)),
+        ("(2,70,3,40)", (2, 70, 3, 40), torch.tensor([70, 33], device=dev)),
+    )
+    for name, (B, T, H, D), lens in cases:
+        q, k, v, d_out = (torch.randn(B, T, H, D, generator=gen, device=dev) for _ in range(4))
+        bias = torch.randn(B, H, T, T, generator=gen, device=dev) * D ** 0.5
+        scale = 1.0 / D ** 0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            args = [x.to(dtype) for x in (q, k, v)]
+            o1 = fused_self_attention(*args, lens, scale=scale, bias=bias.to(dtype))
+            o0 = attention_plain(*args, lens, scale, bias=bias.to(dtype))
+            torch.cuda.synchronize()
+            err, tol = _max_err(o1, o0), ATTN_TOL[dtype]
+            require(o1.dtype == dtype and bool(torch.isfinite(o1).all()) and err <= tol,
+                    f"attention+bias {name} {dtype}: max |kernel - plain| = {err} > {tol}")
+            if dtype == torch.float32:
+                worst["fwd"] = max(worst["fwd"], err)
+            print(f"  attention+bias fwd {name} {dtype}: max abs err {err:.3e} (tol {tol})")
+        for rate in (0.0, DROPOUT_RATE):
+            seed = 7654321 + T
+            mask = dropout_keep_mask(B, T, H, rate, seed, dev) if rate > 0 else None
+            res = []
+            for kernel in (True, False):
+                q_, k_, v_, b_ = (x.clone().requires_grad_(True) for x in (q, k, v, bias))
+                if kernel:
+                    out = fused_self_attention(q_, k_, v_, lens, scale=scale, dropout_rate=rate,
+                                               deterministic=rate == 0.0, seed=seed, bias=b_)
+                else:
+                    out = attention_plain(q_, k_, v_, lens, scale, rate, bias=b_, dropout_mask=mask)
+                res.append((out.detach(), *torch.autograd.grad(out, (q_, k_, v_, b_), d_out)))
+            torch.cuda.synchronize()
+            errs = []
+            for what, a, b in zip(("out", "dq", "dk", "dv", "dbias"), res[0], res[1]):
+                err = _max_err(a, b)
+                require(a.shape == b.shape and bool(torch.isfinite(a).all()) and err <= ATTN_BWD_TOL,
+                        f"attention+bias {name} dropout {rate} {what}: max |kernel - plain| = {err} > {ATTN_BWD_TOL}")
+                errs.append(err)
+            past = (torch.arange(T, device=dev)[None, :] >= lens[:, None])[:, None, None, :].expand(B, H, T, T)
+            require(not res[0][4][past].any(), f"attention+bias {name}: d bias at masked keys is not exactly 0")
+            worst["bwd"] = max(worst["bwd"], *errs)
+            print(f"  attention+bias fwd+bwd {name} dropout {rate}: out {errs[0]:.2e} dq {errs[1]:.2e} "
+                  f"dk {errs[2]:.2e} dv {errs[3]:.2e} dbias {errs[4]:.2e} (tol {ATTN_BWD_TOL})")
+    return worst
+
+
+# K5: a layer step is some twenty sums of 256 to 2048 f32 products of O(1)
+# values, taken in another order than cuBLAS takes them: atol 1e-4 at
+# outputs of magnitude O(1) to O(10).
+DEC_STEP_TOL = 1e-4
+
+
+def decoder_step_case(dev, gen, Bu: int, W: int, L: int, T: int, H: int = 4, D: int = 256, F: int = 2048,
+                      pos=None):
+    """Random layer weights and one step's inputs: `pos` from 0 to L - 1
+    mixed within the batch, ragged `elens`, and an ancestor table composed
+    from L random beam selections as the search composes it."""
+    dk, N = D // H, Bu * W
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    lin = {"wq": (D, D), "wk": (D, D), "wv": (D, D), "wo": (D, D), "cwq": (D, D), "cwo": (D, D),
+           "w1": (F, D), "w2": (D, F)}
+    wt = {}
+    for n, (o, i) in lin.items():
+        wt[n] = (randn(o, i) / i ** 0.5).t()  # an nn.Linear weight's (in, out) view
+        wt["b" + n[1:] if n[0] == "w" else "cb" + n[2:]] = 0.1 * randn(o)
+    for n in ("ln1", "ln2", "ln3"):
+        wt[n + "_s"], wt[n + "_b"] = 1.0 + 0.1 * randn(D), 0.1 * randn(D)
+    if pos is None:
+        pos = torch.randint(0, L, (Bu, W), generator=gen, device=dev)
+        pos.view(-1)[0], pos.view(-1)[-1] = 0, L - 1
+    else:
+        pos = torch.full((Bu, W), pos, device=dev)
+    elens = torch.randint(1, T + 1, (Bu,), generator=gen, device=dev)
+    elens[0] = T
+    if Bu > 2:
+        elens[1], elens[2] = 1, 0
+    anc = torch.arange(W, device=dev)[None, :, None].repeat(Bu, 1, L)
+    for step in range(1, L):
+        parent = torch.randint(0, W, (Bu, W), generator=gen, device=dev)
+        anc[:, :, :step] = torch.gather(anc[:, :, :step], 1, parent[:, :, None].expand(-1, -1, step))
+    return dict(h=randn(N, D), cache_k=randn(Bu, W, L, H, dk), cache_v=randn(Bu, W, L, H, dk), pos=pos,
+                anc=anc, cross_k=randn(Bu, T, H, dk), cross_v=randn(Bu, T, H, dk), elens=elens, weights=wt)
+
+
+def check_decoder_step(dev, gen) -> dict:
+    """K5 and K5 indirect against their plain versions (y, k_new, v_new),
+    and K5 indirect against K5 on caches gathered by `anc`."""
+    from emoasr_tpu_torch.ops import decoder_step as ds
+
+    worst = {"direct": 0.0, "indirect": 0.0}
+    for name, (Bu, W, L, T, H, D, F) in (
+        ("Bu=18 W=10 L=258 T=399 D=256 F=2048", (18, 10, 258, 399, 4, 256, 2048)),
+        ("Bu=5 W=1 L=20 T=37 D=256 F=2048", (5, 1, 20, 37, 4, 256, 2048)),
+        ("Bu=3 W=10 L=9 T=50 D=64 F=96 H=2", (3, 10, 9, 50, 2, 64, 96)),
+        ("Bu=140 W=3 L=16 T=21 D=128 F=256 H=8", (140, 3, 16, 21, 8, 128, 256)),
+    ):
+        c = decoder_step_case(dev, gen, Bu, W, L, T, H, D, F)
+        dk = D // H
+        flat = lambda x: x.reshape(Bu * W, L, H, dk)
+        idx = c["anc"][:, :, :, None, None].expand(Bu, W, L, H, dk)
+        gk, gv = torch.gather(c["cache_k"], 1, idx), torch.gather(c["cache_v"], 1, idx)
+        tail = (c["cross_k"], c["cross_v"], c["elens"], c["weights"])
+        out = {
+            "direct": ds.fused_decoder_layer_step(c["h"], flat(c["cache_k"]), flat(c["cache_v"]),
+                                                  c["pos"].reshape(-1), *tail, beam_width=W),
+            "direct plain": ds.decoder_layer_step_plain(c["h"], flat(c["cache_k"]), flat(c["cache_v"]),
+                                                        c["pos"].reshape(-1), *tail, W),
+            "indirect": ds.fused_decoder_layer_step_indirect(c["h"], c["cache_k"], c["cache_v"], c["pos"],
+                                                             c["anc"], *tail, beam_width=W),
+            "indirect plain": ds.decoder_layer_step_indirect_plain(c["h"], c["cache_k"], c["cache_v"],
+                                                                   c["pos"], c["anc"], *tail, W),
+            "direct on gathered caches": ds.fused_decoder_layer_step(
+                c["h"], flat(gk).contiguous(), flat(gv).contiguous(), c["pos"].reshape(-1), *tail, beam_width=W),
+        }
+        torch.cuda.synchronize()
+        for kind, other in (("direct", "direct plain"), ("indirect", "indirect plain"),
+                            ("indirect", "direct on gathered caches")):
+            errs = [_require_close(f"decoder step {name} {kind} vs {other}: {what}", a, b, DEC_STEP_TOL, 0.0)
+                    for what, a, b in zip(("y", "k_new", "v_new"), out[kind], out[other])]
+            worst[kind] = max(worst[kind], *errs)
+            print(f"  decoder step {name}: {kind} vs {other}: y {errs[0]:.2e} k_new {errs[1]:.2e} "
+                  f"v_new {errs[2]:.2e} (tol {DEC_STEP_TOL})")
+    return worst
+
+
+def time_attention_bias(dev, gen, B: int, T: int, H: int, D: int, lens: torch.Tensor) -> dict:
+    """K4 with its bias, forward and backward (dropout 0.1), beside the
+    plain version and SDPA with the bias folded into its additive mask."""
+    import torch.nn.functional as F
+
+    from emoasr_tpu_torch.ops.attention import attention_plain, dropout_keep_mask, fused_self_attention
+
+    q, k, v, d_out = (torch.randn(B, T, H, D, generator=gen, device=dev) for _ in range(4))
+    bias = torch.randn(B, H, T, T, generator=gen, device=dev) * D ** 0.5
+    scale, seed = 1.0 / D ** 0.5, 99
+    key_mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    valid = int(lens.clamp(max=T).sum().item())
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    # SDPA adds its mask after the scale, so the bias goes in scaled, with the
+    # key mask folded in; it is built once here, outside what is timed
+    add_mask = (bias * scale).masked_fill(~key_mask, float("-inf"))
+
+    live_bias = 4 * H * T * valid  # bias bytes at the keys a row can see
+    fwd = {
+        "ms": cuda_time_ms(lambda: fused_self_attention(q, k, v, lens, scale=scale, bias=bias)),
+        "plain_ms": cuda_time_ms(lambda: attention_plain(q, k, v, lens, scale, bias=bias)),
+        "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=add_mask, scale=scale)),
+        "shape": f"({B},{T},{H},{D}) float32, bias ({B},{H},{T},{T})",
+    }
+    fwd.update(_bound(4 * 4 * B * T * H * D + live_bias + B * 4, 4.0 * H * T * D * valid))
+
+    mask = dropout_keep_mask(B, T, H, DROPOUT_RATE, seed, dev)
+    q_, k_, v_, b_ = (x.clone().requires_grad_(True) for x in (q, k, v, bias))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q_, k_, v_))
+    # SDPA's backward is taken to its additive mask as a leaf (d bias / scale),
+    # so that no pass over the bias outside the call is timed with it
+    m_ = add_mask.clone().requires_grad_(True)
+    graphs = {
+        "ms": fused_self_attention(q_, k_, v_, lens, scale=scale, dropout_rate=DROPOUT_RATE,
+                                   deterministic=False, seed=seed, bias=b_),
+        "plain_ms": attention_plain(q_, k_, v_, lens, scale, DROPOUT_RATE, bias=b_, dropout_mask=mask),
+        "library_ms": F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=m_, dropout_p=DROPOUT_RATE, scale=scale).transpose(1, 2),
+    }
+    bwd = {key: cuda_time_ms(_grad_timer(out, (q_, k_, v_, m_ if key == "library_ms" else b_), d_out),
+                             iters=20, warmup=2)
+           for key, out in graphs.items()}
+    # inputs read once (q, k, v, o, dO, lse, the live bias), outputs written
+    # once (dQ, dK, dV and all of d bias, zeros included)
+    bwd.update(_bound(4 * (8 * B * T * H * D + B * H * T + B) + live_bias + 4 * B * H * T * T,
+                      10.0 * H * D * T * valid))
+    bwd["shape"] = f"({B},{T},{H},{D}) float32, bias ({B},{H},{T},{T}), dropout {DROPOUT_RATE}"
+    return {"attention_bias_fwd": fwd, "attention_bias_bwd": bwd}
+
+
+def time_decoder_step(dev, gen, Bu: int, W: int, L: int, T: int, pos: int, lens: torch.Tensor) -> dict:
+    """K5 and K5 indirect at the decode shapes beside their plain versions
+    and the port's dense route of the same step (`decode_step`,
+    `decode_step_indirect`: some twenty-five PyTorch calls; no single
+    PyTorch call computes the step, so `library_ms` is null)."""
+    from emoasr_tpu_torch.models.layers import TransformerDecoderLayer, make_pad_mask
+    from emoasr_tpu_torch.ops import decoder_step as ds
+
+    H, D, F = 4, 256, 2048
+    dk, N = D // H, Bu * W
+    c = decoder_step_case(dev, gen, Bu, W, L, T, H, D, F, pos=pos)
+    c["elens"] = lens.to(dev)
+    layer = TransformerDecoderLayer(H, D, F).to(dev).eval()
+    wt = layer._decode_step_weights()
+    flat = lambda x: x.reshape(N, L, H, dk)
+    tail = (c["cross_k"], c["cross_v"], c["elens"], wt)
+    h3 = c["h"][:, None]
+    memory_mask = make_pad_mask(c["elens"], T)[:, None, None, :]
+    flat_pos = c["pos"].reshape(-1)
+    self_mask = (torch.arange(L, device=dev)[None, :] <= flat_pos[:, None])[:, None, None, :]
+    cross_kv = (c["cross_k"], c["cross_v"])
+    ck, cv = flat(c["cache_k"]).clone(), flat(c["cache_v"]).clone()
+    ick, icv = c["cache_k"].clone(), c["cache_v"].clone()
+    with torch.no_grad():
+        direct = {
+            "ms": cuda_time_ms(lambda: ds.fused_decoder_layer_step(c["h"], ck, cv, flat_pos, *tail, beam_width=W)),
+            "plain_ms": cuda_time_ms(lambda: ds.decoder_layer_step_plain(c["h"], ck, cv, flat_pos, *tail, W)),
+            "dense_route_ms": cuda_time_ms(lambda: layer.decode_step(
+                h3, ck, cv, flat_pos, self_mask, memory_mask, cross_kv, beam_width=W)),
+        }
+        indirect = {
+            "ms": cuda_time_ms(lambda: ds.fused_decoder_layer_step_indirect(
+                c["h"], ick, icv, c["pos"], c["anc"], *tail, beam_width=W)),
+            "plain_ms": cuda_time_ms(lambda: ds.decoder_layer_step_indirect_plain(
+                c["h"], ick, icv, c["pos"], c["anc"], *tail, W)),
+            "dense_route_ms": cuda_time_ms(lambda: layer.decode_step_indirect(
+                h3, ick, icv, c["pos"], c["anc"], memory_mask, cross_kv, W)),
+        }
+    frames, past = int(c["elens"].sum().item()), int(flat_pos.sum().item())
+    n_weights = 6 * D * D + 2 * D * F + 9 * D + F
+    io = 4 * (n_weights + 4 * N * D + 2 * frames * D + 2 * past * D + N + Bu)
+    ops = 2.0 * N * (6 * D * D + 2 * D * F) + 4.0 * D * (past + N) + 4.0 * W * D * frames
+    for row, extra in ((direct, 0), (indirect, 4 * past)):
+        row.update(_bound(io + extra, ops))
+        row["library_ms"] = None
+        row["shape"] = f"h ({N},{D}), caches ({Bu},{W},{L},{H},{dk}) at pos {pos}, encoder K/V ({Bu},{T},{H},{dk}), F {F}, float32"
+    return {"decoder_step": direct, "decoder_step_indirect": indirect}
+
+
 def _grad_timer(outs, inputs, cots):
     """A closure that runs the backward from `outs` to `inputs` once."""
     return lambda: torch.autograd.grad(outs, inputs, cots, retain_graph=True)
@@ -583,9 +858,13 @@ def time_attention_backward(dev, gen, B: int, T: int, H: int, D: int, lens: torc
 
 # the kernels' launchers, by the name each has on the `kernels` line
 def launch_counts() -> dict:
-    from emoasr_tpu_torch.ops import attention, ctc_head, ctc_lattice, topk
+    from emoasr_tpu_torch.ops import attention, ctc_head, ctc_lattice, decoder_step, topk
 
     return {
+        "attention_bias_fwd": attention.KERNEL.counts["bias_fwd"],
+        "attention_bias_bwd": attention.KERNEL.counts["bias_bwd"],
+        "decoder_step": decoder_step.KERNEL.counts["emo_decoder_step_f32"],
+        "decoder_step_indirect": decoder_step.KERNEL_INDIRECT.counts["emo_decoder_step_indirect_f32"],
         "topk": topk.KERNEL.launches,
         "attention_fwd": attention.KERNEL.counts["emo_attention_fwd_f32"]
         + attention.KERNEL.counts["emo_attention_fwd_bf16"],
@@ -598,11 +877,16 @@ def launch_counts() -> dict:
     }
 
 
-def reset_launch_counts() -> None:
-    from emoasr_tpu_torch.ops import attention, ctc_head, ctc_lattice, topk
+def all_kernels() -> list:
+    from emoasr_tpu_torch.ops import attention, ctc_head, ctc_lattice, decoder_step, topk
 
-    for mod in (attention, ctc_head, ctc_lattice, topk):
-        mod.KERNEL.reset_counts()
+    return [topk.KERNEL, attention.KERNEL, ctc_head.KERNEL, ctc_lattice.KERNEL,
+            decoder_step.KERNEL, decoder_step.KERNEL_INDIRECT]
+
+
+def reset_launch_counts() -> None:
+    for kernel in all_kernels():
+        kernel.reset_counts()
 
 
 def write_vocab(root: str, vocab_size: int) -> str:
@@ -727,7 +1011,8 @@ def train_full_width(args, root: str, card: str) -> dict:
     want = {"ctc_head_fwd": n_steps, "ctc_head_grad_e": n_steps, "ctc_head_grad_w": n_steps,
             "ctc_alpha": n_steps, "ctc_beta_grad": n_steps,
             "attention_fwd": cfg.enc_num_layers * n_steps, "attention_bwd": cfg.enc_num_layers * n_steps,
-            "topk": 0}
+            "topk": 0, "attention_bias_fwd": 0, "attention_bias_bwd": 0, "decoder_step": 0,
+            "decoder_step_indirect": 0}
     require(launches == want, f"training launches {launches}, want {want}")
 
     ckpt = os.path.join(os.path.splitext(conf_path)[0], "checkpoints", "model.ep1")
@@ -1027,6 +1312,294 @@ def decode_path(args, tr: dict, dev, card: str) -> dict:
             "batches": len(batches), "split": split}
 
 
+def train_conformer_steps(args, root: str, card: str) -> dict:
+    """The L2 CTC(Conformer) model at full width through the train CLI: two
+    micro-steps, one batch of the smallest and one of the largest bucket,
+    SpecAugment and dropout on, `enc_fused_attn: true`: every layer's
+    attention runs in the kernel with its score bias, forward and backward."""
+    import yaml
+
+    from emoasr_tpu_torch.config import load_config
+    from emoasr_tpu_torch.train import loop
+
+    with open(L2_CONF) as f:
+        conf = yaml.safe_load(f)
+    lengths, _ = train_lengths(load_config(L2_CONF), [1, 0, 0, 0, 1])
+    sub = os.path.join(root, "l2")
+    os.makedirs(sub)
+    train_tsv, _ = write_corpus(sub, "train", lengths, conf["vocab_size"], conf["feat_dim"], args.seed + 2)
+    conf.update(vocab_path=write_vocab(sub, conf["vocab_size"]), train_path=train_tsv, test_path=train_tsv,
+                dev_path=None, enc_fused_attn=True, num_epochs=1, save_step=1, log_step=1, seed=args.seed)
+    conf_path = os.path.join(sub, "l2_ctc_conformer.yaml")
+    with open(conf_path, "w") as f:
+        yaml.safe_dump(conf, f)
+    cfg = load_config(conf_path)
+    require((cfg.encoder_type, cfg.pos_encode_type, cfg.enc_num_layers, cfg.enc_hidden_size,
+             cfg.enc_intermediate_size, cfg.conv_kernel_size, cfg.dropout_attn_rate)
+            == ("conformer", "rel", 12, 256, 1024, 31, 0.1), "the L2 config is not at full width")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = loop.main(["-conf", conf_path])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    losses, _, _ = read_train_log(conf_path)
+    require(state.step == 2 and state.skipped == 0 and len(losses) == 2 and all(np.isfinite(losses)),
+            f"Conformer training: {state.step} micro-steps, {state.skipped} skipped, losses {losses}")
+    n = cfg.enc_num_layers * 2
+    require(launches["attention_bias_fwd"] == launches["attention_fwd"] == n
+            and launches["attention_bias_bwd"] == launches["attention_bwd"] == n,
+            f"Conformer training did not go through the attention kernel with its bias: {launches}")
+    print(f"  trained 2 micro-steps ({len(lengths)} utts, smallest and largest bucket) in {dt:.2f} s on {card}: "
+          f"losses {losses[0]:.2f}, {losses[1]:.2f}; attention with bias fwd {launches['attention_bias_fwd']}, "
+          f"bwd {launches['attention_bias_bwd']} launches")
+    return {"launches": launches, "seconds": dt, "losses": losses}
+
+
+class _LogCapture:
+    """Collects the root logger's messages that contain `needle` (as a
+    filter: the CLIs replace the root logger's handlers when they start)."""
+
+    def __init__(self, needle: str):
+        self.needle, self.lines = needle, []
+
+    def filter(self, record) -> bool:
+        if self.needle in record.getMessage():
+            self.lines.append(record.getMessage())
+        return True
+
+    def __enter__(self):
+        import logging
+
+        logging.getLogger().addFilter(self)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        logging.getLogger().removeFilter(self)
+
+
+# L3-1 on the card against the CPU's plain path: the encoder as ENC_TOL; one
+# decoder step's logits (six layers of f32 sums in other orders) 1e-3.  The
+# beam's top-1 hypotheses are compared token for token: seed weights give
+# nearly flat scores, where a rounding difference can turn a beam, so the
+# share of equal hypotheses is reported and must reach HYP_SHARE.
+STEP_LOGITS_TOL = 1e-3
+HYP_SHARE = 0.5
+
+
+def decode_l3_1(args, root: str, test_tsv: str, wav_s: float, dev, card: str) -> dict:
+    """The slice's path: L3-1 at full width through the eval CLI, beam 10
+    with joint CTC 0.3, `fused_indirect` then `fused`; then one batch card
+    against CPU, and where one large batch's time goes."""
+    import pandas as pd
+    import yaml
+
+    from emoasr_tpu_torch.config import load_config
+    from emoasr_tpu_torch.data.asr_dataset import ASRDataset
+    from emoasr_tpu_torch.eval import test_asr
+    from emoasr_tpu_torch.eval.decode import build_decode_fn, ctc_len_caps
+    from emoasr_tpu_torch.eval.test_asr import load_asr_model
+    from emoasr_tpu_torch.models.asr import ASR
+    from emoasr_tpu_torch.models.layers import make_pad_mask
+    from emoasr_tpu_torch.search.attention_beam import attention_beam_search
+    from emoasr_tpu_torch.search.common import topk_lastdim
+    from emoasr_tpu_torch.search.ctc_prefix_score import (
+        ctc_prefix_initial_state, ctc_prefix_score_psi, ctc_prefix_state_update)
+    from emoasr_tpu_torch.train.checkpoint import save_state_dict
+
+    with open(L3_1_CONF) as f:
+        base = yaml.safe_load(f)
+    sub = os.path.join(root, "l3_1")
+    os.makedirs(sub)
+    base.update(vocab_path=write_vocab(sub, base["vocab_size"]), test_path=test_tsv, enc_fused_attn=True,
+                seed=args.seed)
+    torch.manual_seed(args.seed)
+    confs, state = {}, None
+    for mode in ("fused_indirect", "fused"):
+        confs[mode] = os.path.join(sub, f"l3_1_{mode}.yaml")
+        with open(confs[mode], "w") as f:
+            yaml.safe_dump(dict(base, dec_step_mode=mode), f)
+        cfg = load_config(confs[mode])
+        if state is None:
+            state = ASR(cfg).state_dict()  # weights from the seed
+        save_state_dict(state, os.path.join(os.path.splitext(confs[mode])[0], "checkpoints", "model.ep1"))
+    require((cfg.encoder_type, cfg.enc_num_layers, cfg.enc_hidden_size, cfg.enc_num_attention_heads,
+             cfg.enc_intermediate_size, cfg.conv_kernel_size, cfg.decoder_type, cfg.dec_num_layers,
+             cfg.dec_hidden_size, cfg.dec_intermediate_size, cfg.vocab_size, cfg.beam_width,
+             cfg.decode_ctc_weight, cfg.len_weight, cfg.compute_dtype)
+            == ("conformer", 12, 256, 4, 1024, 31, "transformer", 6, 256, 2048, 10000, 10, 0.3, 2, "float32"),
+            "the L3-1 config is not at full width")
+    ds_ = ASRDataset(cfg, test_tsv, phase="test")
+    batcher = ds_.make_batcher()
+    batches, buckets = list(batcher), batcher.buckets
+    n_utts = sum(len(idx) for _, idx in batches)
+
+    runs = {}
+    for mode, conf in confs.items():
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _LogCapture("force-finalized") as cap:
+            out = test_asr.main(["-conf", conf, "-ep", "1"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = launch_counts()
+        require(out is not None and out[3].startswith("WER:"), f"L3-1 {mode}: CLI returned {out}")
+        path = os.path.join(os.path.splitext(conf)[0], "results", "result_test_beam10_len2.0_ctc0.3_lm0.00_ep1.tsv")
+        df = pd.read_table(path, comment="#")
+        require(len(df) == n_utts and df["utt_id"].nunique() == n_utts, f"L3-1 {mode}: {len(df)} rows for {n_utts} utts")
+        decoded = int(df["token_id"].notna().sum())
+        require(decoded == n_utts, f"L3-1 {mode}: {n_utts - decoded} utterances were not decoded")
+        forced = int(cap.lines[0].split()[0]) if cap.lines else 0
+        step_kernel = "decoder_step_indirect" if mode == "fused_indirect" else "decoder_step"
+        other = "decoder_step" if mode == "fused_indirect" else "decoder_step_indirect"
+        steps = launches[step_kernel] // cfg.dec_num_layers
+        n_attn = cfg.enc_num_layers * len(batches)
+        require(launches["attention_fwd"] == launches["attention_bias_fwd"] == n_attn,
+                f"L3-1 {mode}: attention launches {launches}, want {n_attn} with the bias")
+        require(steps >= len(batches) and launches[step_kernel] == steps * cfg.dec_num_layers
+                and launches[other] == 0 and launches["topk"] == steps,
+                f"L3-1 {mode}: launches {launches}")
+        print(f"  {mode}: {out[3]}; {n_utts} utts in {dt:.3f} s = {n_utts / dt:.2f} utt/s, RTF {dt / wav_s:.5f} "
+              f"(first call, warm-up included) on {card}; {steps} beam steps in {len(batches)} batches, "
+              f"{forced} of {n_utts} hypotheses force-finalized at their step budget; launches topk "
+              f"{launches['topk']}, attention with bias {launches['attention_bias_fwd']}, {step_kernel} "
+              f"{launches[step_kernel]}")
+        runs[mode] = {"launches": launches, "seconds": dt, "utt_per_s": n_utts / dt, "rtf": dt / wav_s,
+                      "beam_steps": steps, "forced_finalisations": forced}
+    require(runs["fused"]["beam_steps"] == runs["fused_indirect"]["beam_steps"],
+            "the two step modes took different numbers of beam steps")
+    a, b = (pd.read_table(os.path.join(os.path.splitext(c)[0], "results",
+                                       "result_test_beam10_len2.0_ctc0.3_lm0.00_ep1.tsv"), comment="#")
+            for c in confs.values())
+    same_modes = float((a.sort_values("utt_id")["token_id"].values == b.sort_values("utt_id")["token_id"].values).mean())
+    print(f"  fused_indirect and fused write the same hypothesis for {same_modes:.3f} of the utterances")
+
+    # one batch, card (kernels) against CPU (plain versions)
+    cfg = load_config(confs["fused_indirect"])
+    ckpt = os.path.join(os.path.splitext(confs["fused_indirect"])[0], "checkpoints", "model.ep1")
+    bi, idx = next(b for b in batches if buckets[b[0]].max_xlen == 400)
+    batch = ds_.collate(idx[:4], 400, buckets[bi].max_ylen)
+    xs, xlens = torch.from_numpy(batch["xs"]), torch.from_numpy(batch["xlens"]).long()
+    W = cfg.beam_width
+    with torch.no_grad():
+        gpu, cpu = load_asr_model(ckpt, cfg).to(dev).eval(), load_asr_model(ckpt, cfg).eval()
+        before = launch_counts()
+        e1, l1, _ = gpu.encode(xs.to(dev), xlens.to(dev))
+        e0, l0, _ = cpu.encode(xs, xlens)
+        require(torch.equal(l1.cpu(), l0), "L3-1 encoder lengths differ between card and CPU")
+        enc_err = max((e1[b, :n].cpu() - e0[b, :n]).abs().max().item() for b, n in enumerate(l0.tolist()))
+        require(enc_err <= ENC_TOL, f"L3-1 encoder card vs CPU: max abs err {enc_err} > {ENC_TOL}")
+        # one decoder step at position 3 of every beam, on the CPU's encoder output
+        B, T = e0.shape[0], e0.shape[1]
+        g = torch.Generator().manual_seed(args.seed)
+        toks = torch.randint(3, cfg.vocab_size, (B * W,), generator=g)
+        pos = torch.full((B, W), 3)
+        logits = {}
+        for name, model, d in (("cuda", gpu, dev), ("cpu", cpu, torch.device("cpu"))):
+            dec, eo, el = model.decoder, e0.to(d), l0.to(d)
+            cross = dec.precompute_cross_kv(eo)
+            caches = [tuple(torch.randn(B, W, 8, 4, 64, generator=torch.Generator().manual_seed(i)).to(d)
+                            for i in (2 * j, 2 * j + 1)) for j in range(cfg.dec_num_layers)]
+            anc = torch.randint(0, W, (B, W, 8), generator=torch.Generator().manual_seed(99)).to(d, torch.int32)
+            anc[:, :, 3] = torch.arange(W, dtype=torch.int32, device=d)[None, :]
+            logits[name], _ = dec.decode_step_cached_indirect(
+                toks.to(d), pos.to(d), caches, anc, cross, make_pad_mask(el, T)[:, None, None, :],
+                beam_width=W, step_mode="fused_indirect", elens=el)
+        used = {k: launch_counts()[k] - before[k] for k in before}
+        require(used["attention_bias_fwd"] == cfg.enc_num_layers and used["decoder_step_indirect"] == cfg.dec_num_layers,
+                f"the L3-1 card-vs-CPU check did not go through the kernels: {used}")
+        step_err = _max_err(logits["cuda"].cpu(), logits["cpu"])
+        require(step_err <= STEP_LOGITS_TOL, f"L3-1 decoder step card vs CPU: max abs err {step_err} > {STEP_LOGITS_TOL}")
+        hyp = {}
+        for name, model, d in (("cuda", gpu, dev), ("cpu", cpu, "cpu")):
+            fn = build_decode_fn(model, cfg, W, cfg.len_weight, cfg.decode_ctc_weight, top1=True, device=d)
+            h, hl, _ = fn(batch["xs"], batch["xlens"])
+            hyp[name] = [h[b, 0, : hl[b, 0]].tolist() for b in range(len(batch["utt_ids"]))]
+    same = sum(x == y for x, y in zip(hyp["cuda"], hyp["cpu"])) / len(hyp["cpu"])
+    lens_ = [len(x) for x in hyp["cpu"]]
+    require(same >= HYP_SHARE, f"L3-1 top-1 hypotheses card vs CPU: only {same:.2f} agree (want {HYP_SHARE})")
+    print(f"  one (4,400,80) batch card vs CPU plain: encoder max abs err {enc_err:.3e} (tol {ENC_TOL}), one "
+          f"decoder step's logits {step_err:.3e} (tol {STEP_LOGITS_TOL}), top-1 hypotheses equal for {same:.2f} "
+          f"of 4 (lengths {lens_}; required {HYP_SHARE})")
+
+    # where one full batch of the largest bucket spends its time (host clock
+    # around synchronised work, second of two passes), and the parts of one
+    # beam step timed alone by CUDA events at pos 64
+    big = max(buckets, key=lambda b: b.max_xlen)
+    bi, idx = next(b for b in batches if buckets[b[0]] == big)
+    batch = ds_.collate(idx, big.max_xlen, big.max_ylen, pad_to_batch=big.batch_size)
+    xs = torch.from_numpy(batch["xs"]).to(dev)
+    xlens = torch.from_numpy(batch["xlens"]).long().to(dev)
+    dec = gpu.decoder
+
+    def tick():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    with torch.no_grad():
+        for _ in range(2):
+            t0 = tick()
+            eouts, elens, _ = gpu.encode(xs, xlens)
+            t1 = tick()
+            cross = dec.precompute_cross_kv(eouts)
+            lp = torch.log_softmax(dec.ctc.logits(eouts).float(), dim=-1)
+            caps = ctc_len_caps(cfg, lp, elens)
+            t2 = tick()
+            B, T = eouts.shape[0], eouts.shape[1]
+            emask = make_pad_mask(elens, T)[:, None, None, :]
+            before = launch_counts()["decoder_step_indirect"]
+            attention_beam_search(
+                eouts, elens, None, vocab_size=cfg.vocab_size, beam_width=W, eos_id=cfg.eos_id,
+                blank_id=cfg.blank_id, len_weight=cfg.len_weight, decode_ctc_weight=cfg.decode_ctc_weight,
+                ctc_log_probs=lp, max_decode_ylen=cfg.max_decode_ylen, row_caps=caps, need_results=1,
+                cached_step=(
+                    lambda n, L: dec.init_cache(n, L),
+                    None,
+                    lambda t, p, c, a: dec.decode_step_cached_indirect(
+                        t, p, c, a, cross, emask, beam_width=W, step_mode="fused_indirect", elens=elens),
+                ))
+            t3 = tick()
+            n_steps = (launch_counts()["decoder_step_indirect"] - before) // cfg.dec_num_layers
+        L, p64 = 130, 64
+        caches = [tuple(torch.randn(B, W, L, 4, 64, device=dev) for _ in range(2)) for _ in range(cfg.dec_num_layers)]
+        anc = torch.randint(0, W, (B, W, L), device=dev, dtype=torch.int32)
+        toks = torch.randint(3, cfg.vocab_size, (B * W,), device=dev)
+        pos = torch.full((B, W), p64, device=dev)
+        step_ms = cuda_time_ms(lambda: dec.decode_step_cached_indirect(
+            toks, pos, caches, anc, cross, emask, beam_width=W, step_mode="fused_indirect", elens=elens), iters=20)
+        dense_ms = cuda_time_ms(lambda: dec.decode_step_cached_indirect(
+            toks, pos, caches, anc, cross, emask, beam_width=W, step_mode="indirect", elens=elens), iters=20)
+        scores = torch.log_softmax(torch.randn(B, W, cfg.vocab_size, device=dev), -1)
+        topk_ms = cuda_time_ms(lambda: topk_lastdim(scores, 15), iters=20)
+        lp_T = lp.transpose(1, 2).contiguous()
+        r = ctc_prefix_initial_state(lp, elens, cfg.blank_id, W)
+        hyps = torch.randint(3, cfg.vocab_size, (B, W, cfg.max_decode_ylen + 2), device=dev)
+        lens_w = torch.full((B, W), p64 + 1, device=dev)
+        cs = torch.randint(3, cfg.vocab_size, (B, W, 15), device=dev)
+        psi_ms = cuda_time_ms(lambda: ctc_prefix_score_psi(lp_T, elens, hyps, lens_w, cs, r, cfg.blank_id, cfg.eos_id), iters=20)
+        upd_ms = cuda_time_ms(lambda: ctc_prefix_state_update(lp_T, elens, hyps, lens_w, cs[:, :, 0], r, cfg.blank_id), iters=20)
+    beam_ms = (t3 - t2) * 1e3
+    split = {"batch": list(xs.shape), "frames": int(T), "encoder_ms": (t1 - t0) * 1e3,
+             "cross_kv_ctc_caps_ms": (t2 - t1) * 1e3, "beam_ms": beam_ms, "beam_steps": int(n_steps),
+             "ms_per_beam_step": beam_ms / max(n_steps, 1), "decoder_step_6_layers_ms": step_ms,
+             "decoder_step_6_layers_dense_route_ms": dense_ms, "topk_ms": topk_ms,
+             "ctc_prefix_psi_ms": psi_ms, "ctc_prefix_state_update_ms": upd_ms,
+             "row_caps": [int(c) for c in caps.tolist()]}
+    rest = split["ms_per_beam_step"] - step_ms - topk_ms - psi_ms - upd_ms
+    print(f"  one {tuple(xs.shape)} batch on {card}: encoder {split['encoder_ms']:.2f} ms, cross K/V + CTC head + caps "
+          f"{split['cross_kv_ctc_caps_ms']:.2f} ms, beam loop {beam_ms:.1f} ms over {n_steps} steps = "
+          f"{split['ms_per_beam_step']:.3f} ms a step; alone, by CUDA events at pos {p64}: decoder step (embed, "
+          f"6 x K5 indirect, output layer) {step_ms:.3f} ms (the dense route {dense_ms:.3f}), top-k (K3) "
+          f"{topk_ms:.3f}, prefix scores {psi_ms:.3f}, lattice update {upd_ms:.3f}; the rest of a step "
+          f"(selection, bookkeeping, the host) {rest:.3f} ms")
+    return {"runs": runs, "enc_err": enc_err, "step_err": step_err, "same_hyps": same, "same_modes": same_modes,
+            "split": split, "batches": len(batches), "n_utts": n_utts, "bucket": big}
+
+
 KERNEL_ROWS = (
     # name, source, file:line of the TPU kernel it replaces
     ("topk", "emoasr_tpu_torch/csrc/topk.cu", "emoasr_tpu/ops/topk_pallas.py:64"),
@@ -1037,6 +1610,10 @@ KERNEL_ROWS = (
     ("ctc_head_grad_w", "emoasr_tpu_torch/csrc/ctc_head.cu", "emoasr_tpu/ops/ctc_head_pallas.py:144"),
     ("ctc_alpha", "emoasr_tpu_torch/csrc/ctc_lattice.cu", "emoasr_tpu/ops/ctc_pallas.py:59"),
     ("ctc_beta_grad", "emoasr_tpu_torch/csrc/ctc_lattice.cu", "emoasr_tpu/ops/ctc_pallas.py:107"),
+    ("attention_bias_fwd", "emoasr_tpu_torch/csrc/attention.cu", "emoasr_tpu/ops/attention_pallas.py:93"),
+    ("attention_bias_bwd", "emoasr_tpu_torch/csrc/attention.cu", "emoasr_tpu/ops/attention_pallas.py:131"),
+    ("decoder_step", "emoasr_tpu_torch/csrc/decoder_step.cu", "emoasr_tpu/ops/decoder_step_pallas.py:86"),
+    ("decoder_step_indirect", "emoasr_tpu_torch/csrc/decoder_step.cu", "emoasr_tpu/ops/decoder_step_pallas.py:347"),
 )
 
 
@@ -1049,7 +1626,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from emoasr_tpu_torch.ops import attention, ctc_head, ctc_lattice, topk
     from emoasr_tpu_torch.ops.cuda_lib import build_all
     from emoasr_tpu_torch.utils.device import set_matmul_precision
 
@@ -1058,7 +1634,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
-    print(f"[1/7] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    print(f"[1/9] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     found = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     set_matmul_precision("float32")
     print(f"  TF32 found (matmul, cudnn) = {found}; the port's switch for float32 sets "
@@ -1067,12 +1643,13 @@ def main(argv=None) -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    kernels = [topk.KERNEL, attention.KERNEL, ctc_head.KERNEL, ctc_lattice.KERNEL]
+    kernels = all_kernels()
     build_all(kernels)
-    print(f"[2/7] built {', '.join(k.source for k in kernels)} in {time.perf_counter() - t0:.1f} s")
+    print(f"[2/9] built {', '.join(k.name for k in kernels)} from "
+          f"{', '.join(sorted({k.source for k in kernels}))} in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernels against their plain versions
-    print("[3/7] kernels against their plain versions on the card, forward and backward")
+    print("[3/9] kernels against their plain versions on the card, forward and backward")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     errs = {"topk": check_topk(dev, gen), "attention_fwd": check_attention(dev, gen),
@@ -1081,65 +1658,90 @@ def main(argv=None) -> int:
     errs.update(ctc_alpha=lat["ll"], ctc_beta_grad=lat["grad"])
     head = check_ctc_head(dev, gen)
     errs.update(ctc_head_fwd=head["fwd"], ctc_head_grad_e=head["grad_e"], ctc_head_grad_w=head["grad_w"])
+    bias = check_attention_bias(dev, gen)
+    errs.update(attention_bias_fwd=bias["fwd"], attention_bias_bwd=bias["bwd"])
+    step = check_decoder_step(dev, gen)
+    errs.update(decoder_step=step["direct"], decoder_step_indirect=step["indirect"])
 
     scratch_root = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(scratch_root, exist_ok=True)
     root = tempfile.mkdtemp(dir=scratch_root)
     try:
         # 4. training at full width, then one micro-step against the CPU
-        print("[4/7] main path: L1 CTC(Transformer) training through the train CLI")
+        print("[4/9] main path: L1 CTC(Transformer) training through the train CLI")
         tr = train_full_width(args, root, card)
         step_check = check_micro_step(tr, dev)
         step_split = time_micro_step(tr, dev, card)
 
         # 5. learning on the card
-        print("[5/7] learning on the card: the small overfit corpus, train CLI then eval CLI")
+        print("[5/9] learning on the card: the small overfit corpus, train CLI then eval CLI")
         overfit = overfit_on_card(args, root)
 
         # 6. decode the trainer's checkpoint
-        print("[6/7] main path: decode of the trainer's model.ep1 through the eval CLI")
+        print("[6/9] main path: decode of the trainer's model.ep1 through the eval CLI")
         mp = decode_path(args, tr, dev, card)
+
+        # 7. the Conformer's attention with its bias, forward and backward
+        print("[7/9] main path: L2 CTC(Conformer) training, two micro-steps through the train CLI")
+        l2 = train_conformer_steps(args, root, card)
+
+        # 8. the slice's path: L3-1 joint-CTC beam decode
+        print("[8/9] main path: L3-1 Conformer + attention decoder, beam 10 with joint CTC, through the eval CLI")
+        l3 = decode_l3_1(args, root, tr["test_tsv"], tr["wav_s"], dev, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     require((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (False, False),
             "an entry point left TF32 on for a float32 model")
 
-    # 7. timings at the largest bucket, then the result lines
+    # 9. timings at the largest bucket, then the result lines
     big = mp["bucket"]
     B, T2 = big.batch_size, ((big.max_xlen - 1) // 2 - 1) // 2
     lens = torch.linspace(T2 // 4, T2, B, device=dev).round().int()
-    times = {"topk": time_topk(dev, gen, B, 10000, 8),
+    # K3 at the attention beam's pre-selection (B, W, V) with k = 1.5 W, and
+    # beside it at the CTC beam's (B, V) with k = 8
+    times = {"topk": {**time_topk(dev, gen, (B, 10, 10000), 15),
+                      "ctc_beam_shape": time_topk(dev, gen, (B, 10000), 8)},
              "attention_fwd": time_attention(dev, gen, B, T2, 4, 64, lens),
              "attention_bwd": time_attention_backward(dev, gen, B, T2, 4, 64, lens)}
     times.update(time_ctc_head(dev, gen, B, T2, 256, 10000, big.max_ylen))
     times.update(time_ctc_lattice(dev, gen, B, T2, big.max_ylen, 10000))
-    print(f"[7/7] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}) on {smi}")
+    times.update(time_attention_bias(dev, gen, B, T2, 4, 64, lens))
+    times.update(time_decoder_step(dev, gen, B, 10, 258, T2, 64, lens))
+    print(f"[9/9] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
+          f"decoder step W = 10, pos = 64) on {smi}")
 
-    runs = mp["runs"]
+    paths = [tr["launches"], l2["launches"]] + [r["launches"] for r in (*mp["runs"].values(), *l3["runs"].values())]
+    ms = lambda x: "none" if x is None else f"{x:.4f}"
     rows = []
     for name, src, rep in KERNEL_ROWS:
         t = times[name]
-        launches = tr["launches"][name] + sum(r["launches"][name] for r in runs.values())
+        launches = sum(p[name] for p in paths)
         require(launches > 0, f"kernel {name} was launched no time on the main paths")
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches,
             "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"],
+            **{k: t[k] for k in ("dense_route_ms", "ctc_beam_shape") if k in t},
         })
+        extra = f", the dense route {t['dense_route_ms']:.4f}" if "dense_route_ms" in t else ""
         print(f"  {name}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} by {t['bound_by']}, plain "
-              f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}), {launches} launches")
+              f"{t['plain_ms']:.4f}, library {ms(t['library_ms'])}{extra}), {launches} launches")
     print(json.dumps({
         "train": {k: tr[k] for k in ("micro_steps", "seconds", "epoch_seconds", "micro_steps_per_s",
                                      "utt_per_s", "launches", "losses")},
         "micro_step": {**step_split, **step_check}, "overfit": overfit,
         "decode": {
             f"beam{b}": {k: r[k] for k in ("seconds", "utt_per_s", "rtf", "launches")}
-            for b, r in runs.items()
+            for b, r in mp["runs"].items()
         },
         "n_utts": args.n_utts, "batches": mp["batches"], "one_batch": mp["split"],
-        "encoder_max_abs_err": mp["enc_err"], "same_beam_hyps": mp["same_hyps"], "card": smi,
-        "total_seconds": time.perf_counter() - t_start,
+        "encoder_max_abs_err": mp["enc_err"], "same_beam_hyps": mp["same_hyps"],
+        "l2_conformer_train": l2,
+        "l3_1_decode": {**l3["runs"], "one_batch": l3["split"], "encoder_max_abs_err": l3["enc_err"],
+                        "decoder_step_logits_max_abs_err": l3["step_err"], "same_top1_hyps_card_vs_cpu": l3["same_hyps"],
+                        "same_hyps_fused_vs_fused_indirect": l3["same_modes"]},
+        "card": smi, "total_seconds": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": rows}))
     print(smi)

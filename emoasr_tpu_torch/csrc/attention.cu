@@ -2,12 +2,14 @@
 // Hopper (sm_90a).
 //
 // Replaces: emoasr_tpu/ops/attention_pallas.py::fused_self_attention,
-// kernels `_fwd_kernel` and `_bwd_kernel` with `_drop_mask` (no bias): the
-// encoder self-attention of every Transformer layer when `enc_fused_attn`
-// is on, in decoding and in training.
+// kernels `_fwd_kernel` and `_bwd_kernel` with `_drop_mask` and the
+// `has_bias` branches: the encoder self-attention of every Transformer and
+// Conformer layer when `enc_fused_attn` is on, in decoding and in training.
 //
 // Semantics (models/layers.py::MultiHeadAttention._attend): per (b, h),
-// S = (Q K^T) * scale, keys at or beyond lens[b] filled with -1e9 before an
+// S = (Q K^T + bias) * scale (`bias` optional, (B, H, T, T), the Conformer's
+// shifted relative-position term, read in its own dtype, f32 or bf16), keys
+// at or beyond lens[b] filled with -1e9 before an
 // f32 softmax and zeroed after it, P cast to v.dtype, O = P V accumulated in
 // f32, written in v.dtype.  The -1e9 fill gives a masked key the weight
 // exp(-1e9 - max) = 0 in f32, so skipping masked keys is the same function;
@@ -61,6 +63,15 @@
 // delta, the second by key block (16 keys; lanes are queries) writes dK and
 // dV.  About 2.5 times the forward's product work plus the two recomputed
 // score products; the product work bounds it.
+//
+// With a bias the score tile is the largest operand by far (T^2 against
+// T d_k elements per head), so the forward is bound by the bytes of the bias
+// and the backward by those of the bias and of d bias.  The bias is read
+// straight from device memory, a lane per key (rows are T elements apart and
+// need no alignment); the second backward pass reads it a lane per query,
+// four consecutive keys each.  d bias = dS, after the multiplication by
+// `scale`, is written by the first backward pass from the tile it already
+// holds, f32, zero at masked keys.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -127,6 +138,13 @@ __device__ __forceinline__ uint4 dropout_words(uint32_t seed_lo, uint32_t seed_h
 
 __device__ __forceinline__ uint32_t word_of(const uint4& w, int i) {
   return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
+}
+
+// bias element `idx`, read in the bias's own dtype: kind 1 f32, 2 bf16
+enum { kBiasNone = 0, kBiasF32 = 1, kBiasBF16 = 2 };
+__device__ __forceinline__ float load_bias(const void* __restrict__ bias, int kind, size_t idx) {
+  return kind == kBiasF32 ? static_cast<const float*>(bias)[idx]
+                          : __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[idx]);
 }
 
 // Shared-memory geometry, common to the three kernels.  A block holds 16
@@ -223,7 +241,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ lens,
-                     T* __restrict__ out, float* __restrict__ lse_out, int T_len, int H, int D,
+                     T* __restrict__ out, float* __restrict__ lse_out,
+                     const void* __restrict__ bias, int bias_kind, int T_len, int H, int D,
                      float scale, uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold,
                      float inv_keep) {
   // f32 rounds P to f32 (no-op), so it takes the one-pass online softmax;
@@ -244,6 +263,11 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t row_stride = static_cast<size_t>(H) * D;  // between time steps
   const size_t base = static_cast<size_t>(b) * T_len * row_stride + static_cast<size_t>(h) * D;
   const int len = min(max(lens[b], 0), T_len);
+  // bias rows of the warp's four queries: element (b, h, t, key) at
+  // bias_row + i * T_len + key
+  const size_t bias_row =
+      ((static_cast<size_t>(b) * H + h) * T_len + q0 + warp * kRowsPerWarp) * T_len;
+  const int rows_ok = min(max(T_len - (q0 + warp * kRowsPerWarp), 0), kRowsPerWarp);
 
   if (len == 0) {
     for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
@@ -276,6 +300,14 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
   };
 
+  // s[i] += bias[b, h, query i, key k0 + lane], before the scale
+  auto add_bias = [&](float s[kRowsPerWarp], int k0, bool key_ok) {
+    if (bias_kind == kBiasNone || !key_ok) return;
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i)
+      if (i < rows_ok) s[i] += load_bias(bias, bias_kind, bias_row + static_cast<size_t>(i) * T_len + k0 + lane);
+  };
+
   if (kNormFirst) {
     // first pass: each row's max and sum, so the probabilities can be
     // normalised before rounding to T
@@ -284,6 +316,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool key_ok = k0 + lane < len;
       float s[kRowsPerWarp];
       dots(qs_w, ks + lane * g.LK, g.DP, s);
+      add_bias(s, k0, key_ok);
 #pragma unroll
       for (int i = 0; i < kRowsPerWarp; ++i) {
         const float sc = key_ok ? s[i] * scale : -INFINITY;
@@ -302,6 +335,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       words = dropout_words(seed_lo, seed_hi, b * H + h, (q0 >> 2) + warp, k0 + lane);
     float s[kRowsPerWarp], p[kRowsPerWarp];
     dots(qs_w, ks + lane * g.LK, g.DP, s);
+    add_bias(s, k0, key_ok);
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
       const float sc = key_ok ? s[i] * scale : -INFINITY;
@@ -357,7 +391,8 @@ attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
                         const float* __restrict__ v, const float* __restrict__ o,
                         const float* __restrict__ d_o, const int* __restrict__ lens,
                         const float* __restrict__ lse, float* __restrict__ dq,
-                        float* __restrict__ delta, int T_len, int H, int D, float scale,
+                        float* __restrict__ delta, const void* __restrict__ bias, int bias_kind,
+                        float* __restrict__ d_bias, int T_len, int H, int D, float scale,
                         uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep) {
   extern __shared__ __align__(16) float smem[];
   const Geo g(D);
@@ -372,6 +407,15 @@ attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
   const size_t base = static_cast<size_t>(b) * T_len * row_stride + static_cast<size_t>(h) * D;
   const size_t stat = (static_cast<size_t>(b) * H + h) * T_len;
   const int len = min(max(lens[b], 0), T_len);
+  const size_t bias_row = (stat + q0 + warp * kRowsPerWarp) * T_len;
+  const int rows_ok = min(max(T_len - (q0 + warp * kRowsPerWarp), 0), kRowsPerWarp);
+
+  // d bias is zero at the keys no tile visits: from the first tile boundary
+  // at or beyond len (all keys when len == 0) to T
+  if (d_bias != nullptr)
+    for (int i = 0; i < rows_ok; ++i)
+      for (int key = (len + kBK - 1) / kBK * kBK + lane; key < T_len; key += 32)
+        d_bias[bias_row + static_cast<size_t>(i) * T_len + key] = 0.f;
 
   if (len == 0) {
     for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
@@ -417,11 +461,15 @@ attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
     float s[kRowsPerWarp], dpd[kRowsPerWarp], ds[kRowsPerWarp];
     dots(qs_w, ks + lane * g.LK, g.DP, s);
     dots(dos_w, vs + lane * g.LK, g.DP, dpd);
+    const int key = k0 + lane;
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
+      const size_t at = bias_row + static_cast<size_t>(i) * T_len + key;
+      if (bias_kind != kBiasNone && key_ok && i < rows_ok) s[i] += load_bias(bias, bias_kind, at);
       const float p = key_ok ? expf(s[i] * scale - lse_r[i]) : 0.f;
       const float dp = word_of(words, i) >= threshold ? dpd[i] * inv_keep : 0.f;
       ds[i] = p * (dp - delta_r[i]) * scale;
+      if (d_bias != nullptr && i < rows_ok && key < T_len) d_bias[at] = ds[i];
     }
     ws_w[lane] = make_float4(ds[0], ds[1], ds[2], ds[3]);
     __syncwarp();
@@ -447,7 +495,8 @@ attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
                          const float* __restrict__ v, const float* __restrict__ d_o,
                          const int* __restrict__ lens, const float* __restrict__ lse,
                          const float* __restrict__ delta, float* __restrict__ dk,
-                         float* __restrict__ dv, int T_len, int H, int D, float scale,
+                         float* __restrict__ dv, const void* __restrict__ bias, int bias_kind,
+                         int T_len, int H, int D, float scale,
                          uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep) {
   extern __shared__ __align__(16) float smem[];
   const Geo g(D);
@@ -511,6 +560,8 @@ attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
       bool keep = true;
       if (threshold != 0u)
         keep = word_of(dropout_words(seed_lo, seed_hi, b * H + h, tq >> 2, key), tq & 3) >= threshold;
+      if (bias_kind != kBiasNone && q_ok && key < len)
+        s[i] += load_bias(bias, bias_kind, (stat + tq) * T_len + key);
       const float p = (q_ok && key < len) ? expf(s[i] * scale - lse_s[lane]) : 0.f;
       pd[i] = keep ? p * inv_keep : 0.f;
       ds[i] = p * ((keep ? dpd[i] * inv_keep : 0.f) - delta_s[lane]) * scale;
@@ -560,9 +611,11 @@ __global__ void attention_keep_mask_kernel(uint8_t* __restrict__ out, int BH, in
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* lens, void* out, void* lse,
-           int B, int T_len, int H, int D, float scale, uint32_t seed_lo, uint32_t seed_hi,
-           uint32_t threshold, float inv_keep, void* stream) {
-  if (D > kDMax || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+           const void* bias, int bias_kind, int B, int T_len, int H, int D, float scale,
+           uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep, void* stream) {
+  if (D > kDMax || D < 1 || bias_kind < kBiasNone || bias_kind > kBiasBF16
+      || (bias_kind != kBiasNone && bias == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = fwd_smem_floats(Geo(D)) * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
       attention_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -570,8 +623,8 @@ int launch(const void* q, const void* k, const void* v, const void* lens, void* 
   const dim3 grid((T_len + kBQ - 1) / kBQ, H, B);
   attention_fwd_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(lens), static_cast<T*>(out), static_cast<float*>(lse), T_len, H,
-      D, scale, seed_lo, seed_hi, threshold, inv_keep);
+      static_cast<const int*>(lens), static_cast<T*>(out), static_cast<float*>(lse), bias,
+      bias_kind, T_len, H, D, scale, seed_lo, seed_hi, threshold, inv_keep);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -579,30 +632,35 @@ int launch(const void* q, const void* k, const void* v, const void* lens, void* 
 
 extern "C" {
 
-// `lse` may be null (decoding); threshold 0 means no dropout
+// `lse` may be null (decoding); threshold 0 means no dropout; `bias` is
+// (B, H, T, T) contiguous of `bias_kind` (0 none, 1 f32, 2 bf16)
 int emo_attention_fwd_f32(const void* q, const void* k, const void* v, const void* lens,
-                          void* out, void* lse, int B, int T, int H, int D, float scale,
-                          uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold,
-                          float inv_keep, void* stream) {
-  return launch<float>(q, k, v, lens, out, lse, B, T, H, D, scale, seed_lo, seed_hi, threshold,
-                       inv_keep, stream);
+                          void* out, void* lse, const void* bias, int bias_kind, int B, int T,
+                          int H, int D, float scale, uint32_t seed_lo, uint32_t seed_hi,
+                          uint32_t threshold, float inv_keep, void* stream) {
+  return launch<float>(q, k, v, lens, out, lse, bias, bias_kind, B, T, H, D, scale, seed_lo,
+                       seed_hi, threshold, inv_keep, stream);
 }
 
 int emo_attention_fwd_bf16(const void* q, const void* k, const void* v, const void* lens,
-                           void* out, void* lse, int B, int T, int H, int D, float scale,
-                           uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold,
-                           float inv_keep, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, lens, out, lse, B, T, H, D, scale, seed_lo, seed_hi,
-                               threshold, inv_keep, stream);
+                           void* out, void* lse, const void* bias, int bias_kind, int B, int T,
+                           int H, int D, float scale, uint32_t seed_lo, uint32_t seed_hi,
+                           uint32_t threshold, float inv_keep, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, lens, out, lse, bias, bias_kind, B, T, H, D, scale,
+                               seed_lo, seed_hi, threshold, inv_keep, stream);
 }
 
-// both backward passes; `delta` is (B, H, T) f32 scratch
+// both backward passes; `delta` is (B, H, T) f32 scratch; `d_bias` is
+// (B, H, T, T) f32 or null (no bias, or a bias that needs no gradient)
 int emo_attention_bwd_f32(const void* q, const void* k, const void* v, const void* o,
                           const void* d_o, const void* lens, const void* lse, void* dq, void* dk,
-                          void* dv, void* delta, int B, int T, int H, int D, float scale,
+                          void* dv, void* delta, const void* bias, int bias_kind, void* d_bias,
+                          int B, int T, int H, int D, float scale,
                           uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold,
                           float inv_keep, void* stream) {
-  if (D > kDMax || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (D > kDMax || D < 1 || bias_kind < kBiasNone || bias_kind > kBiasBF16
+      || (bias_kind != kBiasNone && bias == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = bwd_smem_floats(Geo(D)) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -618,14 +676,16 @@ int emo_attention_bwd_f32(const void* q, const void* k, const void* v, const voi
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(o), static_cast<const float*>(d_o),
       static_cast<const int*>(lens), static_cast<const float*>(lse), static_cast<float*>(dq),
-      static_cast<float*>(delta), T, H, D, scale, seed_lo, seed_hi, threshold, inv_keep);
+      static_cast<float*>(delta), bias, bias_kind, static_cast<float*>(d_bias), T, H, D, scale,
+      seed_lo, seed_hi, threshold, inv_keep);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   attention_bwd_dkv_kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(d_o), static_cast<const int*>(lens),
       static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<float*>(dk),
-      static_cast<float*>(dv), T, H, D, scale, seed_lo, seed_hi, threshold, inv_keep);
+      static_cast<float*>(dv), bias, bias_kind, T, H, D, scale, seed_lo, seed_hi, threshold,
+      inv_keep);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,8 @@
 """ASR evaluation CLI: batched decoding -> result TSV + WER (+ RTF mode).
 
-PyTorch port of `emoasr_tpu/eval/test_asr.py` for CTC models (parity target
-emoASR `asr/test_asr.py`): same flags, result-file naming
+PyTorch port of `emoasr_tpu/eval/test_asr.py` for CTC models and for models
+with the attention (Transformer) decoder (parity target emoASR
+`asr/test_asr.py`): same flags, result-file naming
 (`result_{data}_beam{W}_len{L}_ctc{C}_lm{M}{tag}_ep{E}.tsv`), WER comment
 stamped into the TSV, `test_main` returning
 (lm_weight, len_weight, wer, wer_info), `--runtime` RTF mode using
@@ -30,7 +31,7 @@ import pandas as pd
 
 from emoasr_tpu_torch.config import ExpConfig, load_config
 from emoasr_tpu_torch.data.asr_dataset import ASRDataset
-from emoasr_tpu_torch.eval.decode import build_decode_fn
+from emoasr_tpu_torch.eval.decode import LM_FUSION_MESSAGE, build_decode_fn
 from emoasr_tpu_torch.eval.wer import compute_wers_df, wer_info_line
 from emoasr_tpu_torch.models.asr import ASR
 from emoasr_tpu_torch.train import checkpoint as ckpt
@@ -89,9 +90,15 @@ def _postproc_batch(
     `batch["utt_ids"][b]`; the padding rows after `n_valid` are never read.
 
     Only the selected hypothesis per utterance is detokenized in
-    non-nbest mode; nbest mode keeps all surviving candidates."""
+    non-nbest mode; nbest mode keeps all surviving candidates.  The third
+    result counts the selected hypotheses of an attention decoder's beam
+    that carry no trailing eos: they were force-finalized at their row's
+    step budget (search/attention_beam.py `row_caps`).  A CTC beam's
+    hypotheses never end in eos and are not counted."""
     rows = []
     n_utts = 0
+    n_forced = 0
+    count_forced = cfg.decoder_type == "transformer"
     eos = cfg.eos_id
     texts = batch["texts"]
     multi = hyps.ndim == 3  # beam outputs (B, W, L)
@@ -125,11 +132,13 @@ def _postproc_batch(
             continue
         if multi:
             h_raw = hyps[b, first_valid[b], : hyp_lens[b, first_valid[b]]]
+            if count_forced and hyps.shape[1] > 1 and len(h_raw) and h_raw[-1] != eos:
+                n_forced += 1
         else:
             h_raw = hyps[b, : hyp_lens[b]]
         h = h_raw[h_raw != eos].tolist()
         rows.append([utt_id, ints2str(h), vocab.ids2text(h), reftext])
-    return rows, n_utts
+    return rows, n_utts, n_forced
 
 
 def decode_dataset(
@@ -146,8 +155,10 @@ def decode_dataset(
     A collate thread loads and pads the next batch (numpy, file IO) while
     the main thread decodes the current one; each batch's outputs are
     paired with that batch's own `utt_ids`.  `num_samples > 0` stops after
-    that many utterances."""
+    that many utterances.  The count of force-finalized hypotheses is
+    logged."""
     rows: List[list] = []
+    n_forced_total = 0
     q: "queue.Queue" = queue.Queue(maxsize=2)
     stop = threading.Event()
     err: list = []
@@ -184,17 +195,25 @@ def decode_dataset(
             hyps, hyp_lens, scores = (
                 t.cpu().numpy() for t in decode_fn(batch["xs"], batch["xlens"])
             )
-            new, n_utts = _postproc_batch(
+            new, n_utts, n_forced = _postproc_batch(
                 cfg, batch, hyps, hyp_lens, scores, vocab, nbest, sample_utt_id,
                 max_utts=(num_samples - n_done) if num_samples > 0 else -1,
             )
             rows.extend(new)
             n_done += n_utts
+            n_forced_total += n_forced
             if num_samples > 0 and sample_utt_id is None and n_done >= num_samples:
                 break
     finally:
         stop.set()
         thread.join(timeout=10)
+    if n_forced_total:
+        logging.info(
+            f"{n_forced_total} hypotheses force-finalized at their "
+            "row step budget (no natural eos before the CTC-length cap "
+            "— best-effort, possibly truncated; decode_len_cap: off "
+            "restores reference semantics)"
+        )
     return rows
 
 
@@ -215,9 +234,10 @@ def test_main(args, lm_weight=None, len_weight=None):
     if lm_weight is None:
         lm_weight = args.lm_weight if args.lm_weight is not None else cfg.lm_weight
     if lm_weight > 0:
-        raise NotImplementedError(
-            "LM shallow fusion (lm_weight > 0) comes with slice 3 (ROADMAP.md §1)"
-        )
+        raise NotImplementedError(LM_FUSION_MESSAGE)
+    # top-1 decoding everywhere except --nbest: the attention beam may stop
+    # a row once its stored best is provably unbeatable
+    top1 = not args.nbest
 
     setup_logging(None, logging.DEBUG if args.debug else logging.INFO)
     logging.info(f"***** {' '.join(sys.argv)}")
@@ -227,9 +247,11 @@ def test_main(args, lm_weight=None, len_weight=None):
         ckpt.model_average(args.conf, args.ep)
     logging.info(f"ASR: {model_path} on {device}")
     model = load_asr_model(model_path, cfg)
-    # decode_ctc_weight only names the result file: a CTC model has no
-    # second score to weigh
-    decode_fn = build_decode_fn(model, cfg, beam_width, len_weight, device=device)
+    # for a CTC model decode_ctc_weight only names the result file: it has
+    # no second score to weigh
+    decode_fn = build_decode_fn(
+        model, cfg, beam_width, len_weight, decode_ctc_weight, top1=top1, device=device
+    )
 
     data_path = get_eval_path(args.data)
     data_tag = (

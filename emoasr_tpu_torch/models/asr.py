@@ -4,8 +4,10 @@
 Parity target: emoASR `asr/modeling/asr.py:21-101`: `forward` (loss),
 greedy `decode`, `forced_align`; the submodule names `encoder` and
 `decoder` are the reference checkpoint's prefixes.  Ported so far: the
-Transformer encoder with the CTC decoder.  Dropout is on in `train()` mode
-and off in `eval()` mode (the JAX package's `deterministic` flag).
+Transformer and Conformer encoders with the CTC decoder (training and
+decoding) and with the attention decoder (decoding only: its losses come
+with the slice that trains it).  Dropout is on in `train()` mode and off in
+`eval()` mode (the JAX package's `deterministic` flag).
 """
 
 from __future__ import annotations
@@ -15,26 +17,34 @@ from torch import nn
 
 from emoasr_tpu_torch.config import ExpConfig
 from emoasr_tpu_torch.models.decoders.ctc import CTCDecoder
-from emoasr_tpu_torch.models.encoders import TransformerEncoder
+from emoasr_tpu_torch.models.decoders.transformer import TransformerDecoder
+from emoasr_tpu_torch.models.encoders import build_encoder
 from emoasr_tpu_torch.ops.ctc import ctc_forced_align
 
 
 class ASR(nn.Module):
     def __init__(self, cfg: ExpConfig):
         super().__init__()
-        if cfg.decoder_type != "ctc":
-            raise NotImplementedError(
-                f"decoder_type={cfg.decoder_type!r}: the attention decoder "
-                "comes with slice 3 (L3-3 decode), the RNN-T decoder with "
-                "slice 4 and LAS with slice 5 (ROADMAP.md §1)"
-            )
         self.cfg = cfg
-        self.encoder = TransformerEncoder(cfg)
-        self.decoder = CTCDecoder(cfg)
+        self.encoder = build_encoder(cfg)
+        if cfg.decoder_type == "ctc":
+            self.decoder = CTCDecoder(cfg)
+        elif cfg.decoder_type == "transformer":
+            self.decoder = TransformerDecoder(cfg)
+        else:
+            raise NotImplementedError(
+                f"decoder_type={cfg.decoder_type!r}: the RNN-T decoder comes "
+                "with slice 4 and LAS with slice 5 (ROADMAP.md §1)"
+            )
 
     def forward(self, xs, xlens, ys, ylens, ys_in=None, ys_out=None,
                 soft_labels=None, ps=None, plens=None):
         """-> (loss, loss_dict) (`asr.py:56-74`)."""
+        if self.cfg.decoder_type == "transformer":
+            raise NotImplementedError(
+                "training the attention decoder (its label-smoothing loss, "
+                "models/criteria.py) comes with slice 3c (ROADMAP.md §1)"
+            )
         eouts, elens, eouts_inter = self.encoder(xs, xlens)
         loss, loss_dict, _ = self.decoder(
             eouts, elens, eouts_inter, ys, ylens, ys_in, ys_out, soft_labels, ps, plens,
@@ -55,6 +65,10 @@ class ASR(nn.Module):
     def decode_greedy(self, xs, xlens):
         """Batched greedy decode -> (hyps, hyp_lens, logits, aligns)
         (`asr.py:70-95` + `ctc.py:176-201`)."""
+        if self.cfg.decoder_type != "ctc":
+            raise NotImplementedError(
+                f"greedy decode for {self.cfg.decoder_type}; use emoasr_tpu_torch.search"
+            )
         eouts, elens, _ = self.encoder(xs, xlens)
         return self.decoder.greedy(eouts, elens)
 
@@ -62,6 +76,8 @@ class ASR(nn.Module):
     def forced_align(self, xs, xlens, ys, ylens):
         """(B, T') frame alignment of the reference labels (CTC branch of
         `asr.py:101-116`)."""
+        if self.cfg.decoder_type != "ctc":
+            raise NotImplementedError(f"forced_align for decoder_type={self.cfg.decoder_type}")
         eouts, elens, _ = self.encoder(xs, xlens)
         log_probs = torch.log_softmax(self.decoder.logits(eouts).float(), dim=-1)
         return ctc_forced_align(log_probs, elens, ys, ylens, self.cfg.blank_id)

@@ -11,9 +11,10 @@ probabilities, P cast to v.dtype before the AV product.
 For a CUDA tensor `fused_self_attention` launches `csrc/attention.cu`; for
 a CPU tensor it takes `attention_plain` (differentiated by autograd).  On
 the card the forward takes float32 and bfloat16, the backward float32 only
-(a bfloat16 input that needs a gradient raises `TypeError`); the additive
-score `bias` (Conformer rel-pos) raises `NotImplementedError` and is
-covered by the plain version.
+(a bfloat16 input that needs a gradient raises `TypeError`).  The additive
+score `bias` (the Conformer's shifted relative-position term), (B, H, T, T)
+float32 or bfloat16, enters before the scale, `(q k^T + bias) * scale`; the
+backward returns its gradient too.
 
 Dropout on the card draws its bits from a Philox generator inside the
 kernel, keyed by one 64-bit seed per call; the backward regenerates them.
@@ -32,22 +33,27 @@ from emoasr_tpu_torch.ops.cuda_lib import F, I, P, U, CudaKernel
 
 NEG_INF = -1e9  # matches models/layers.py
 
-_FWD_SIG = [P, P, P, P, P, P, I, I, I, I, F, U, U, U, F, P]
+_FWD_SIG = [P, P, P, P, P, P, P, I, I, I, I, I, F, U, U, U, F, P]
 KERNEL = CudaKernel(
     "attention.cu",
     {
         "emo_attention_fwd_f32": _FWD_SIG,
         "emo_attention_fwd_bf16": _FWD_SIG,
-        "emo_attention_bwd_f32": [P] * 11 + [I, I, I, I, F, U, U, U, F, P],
+        "emo_attention_bwd_f32": [P] * 12 + [I, P, I, I, I, I, F, U, U, U, F, P],
         "emo_attention_keep_mask": [P, I, I, I, U, U, U, P],
     },
 )
+
+# launches that carried a score bias, counted beside the launchers' own
+# counts (the launchers are the same with and without a bias)
+KERNEL.counts.update(bias_fwd=0, bias_bwd=0)
 
 MAX_D = 128
 _LAUNCHERS = {
     torch.float32: "emo_attention_fwd_f32",
     torch.bfloat16: "emo_attention_fwd_bf16",
 }
+_BIAS_KINDS = {torch.float32: 1, torch.bfloat16: 2}  # 0: no bias
 
 
 def attention_plain(
@@ -118,7 +124,11 @@ def dropout_keep_mask(B: int, T: int, H: int, rate: float, seed: int,
     return out.bool()
 
 
-def _launch_fwd(q, k, v, lens32, scale, rate, seed, want_lse):
+def _bias_args(bias: Optional[torch.Tensor]) -> Tuple[Optional[int], int]:
+    return (None, 0) if bias is None else (bias.data_ptr(), _BIAS_KINDS[bias.dtype])
+
+
+def _launch_fwd(q, k, v, lens32, scale, rate, seed, want_lse, bias=None):
     B, T, H, D = q.shape
     out = torch.empty_like(v)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if want_lse else None
@@ -128,29 +138,33 @@ def _launch_fwd(q, k, v, lens32, scale, rate, seed, want_lse):
         KERNEL.launch(
             _LAUNCHERS[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             lens32.data_ptr(), out.data_ptr(), lse.data_ptr() if want_lse else None,
-            B, T, H, D, float(scale), lo, hi, threshold, inv_keep, stream,
+            *_bias_args(bias), B, T, H, D, float(scale), lo, hi, threshold, inv_keep, stream,
         )
+        KERNEL.counts["bias_fwd"] += bias is not None
     return out, lse
 
 
 class _FusedAttention(torch.autograd.Function):
-    """Forward and backward kernels; saves q, k, v, the output and the
-    rows' log-sum-exp, and regenerates the dropout bits from the seed."""
+    """Forward and backward kernels; saves q, k, v, the bias, the output and
+    the rows' log-sum-exp, and regenerates the dropout bits from the seed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, lens32, scale, rate, seed):
-        out, lse = _launch_fwd(q, k, v, lens32, scale, rate, seed, want_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse, lens32)
+    def forward(ctx, q, k, v, lens32, scale, rate, seed, bias):
+        out, lse = _launch_fwd(q, k, v, lens32, scale, rate, seed, want_lse=True, bias=bias)
+        ctx.save_for_backward(q, k, v, out, lse, lens32, bias)
         ctx.scale, ctx.rate, ctx.seed = scale, rate, seed
         return out
 
     @staticmethod
     def backward(ctx, d_out):
-        q, k, v, out, lse, lens32 = ctx.saved_tensors
+        q, k, v, out, lse, lens32, bias = ctx.saved_tensors
         B, T, H, D = q.shape
         d_out = d_out.contiguous()
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         delta = torch.empty_like(lse)
+        d_bias = None
+        if bias is not None and ctx.needs_input_grad[7]:
+            d_bias = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
         lo, hi, threshold, inv_keep = _dropout_args(ctx.rate, ctx.seed)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -158,9 +172,13 @@ class _FusedAttention(torch.autograd.Function):
                 "emo_attention_bwd_f32", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), d_out.data_ptr(), lens32.data_ptr(), lse.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+                *_bias_args(bias), None if d_bias is None else d_bias.data_ptr(),
                 B, T, H, D, float(ctx.scale), lo, hi, threshold, inv_keep, stream,
             )
-        return dq, dk, dv, None, None, None, None
+            KERNEL.counts["bias_bwd"] += bias is not None
+        if d_bias is not None:
+            d_bias = d_bias.to(bias.dtype)
+        return dq, dk, dv, None, None, None, None, d_bias
 
 
 def fused_self_attention(
@@ -190,11 +208,6 @@ def fused_self_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"attention kernel: unsupported device {q.device}")
-    if bias is not None:
-        raise NotImplementedError(
-            "attention kernel: the rel-pos score bias comes with the "
-            "Conformer slice (ROADMAP.md, K4 bias)"
-        )
     if rate > 0.0 and dropout_mask is not None:
         raise ValueError("attention kernel: it draws its own dropout bits; pass `seed`, not a mask")
     if q.dtype not in _LAUNCHERS:
@@ -208,7 +221,17 @@ def fused_self_attention(
         raise ValueError(f"attention kernel: d_k={D} > {MAX_D}")
     if lens.shape != (B,):
         raise ValueError(f"attention kernel: lens must be ({B},), got {tuple(lens.shape)}")
-    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if bias is not None:
+        if bias.dtype not in _BIAS_KINDS:
+            raise TypeError(f"attention kernel: bias must be float32 or bfloat16, not {bias.dtype}")
+        if bias.shape != (B, H, T, T):
+            raise ValueError(f"attention kernel: bias must be ({B}, {H}, {T}, {T}), got {tuple(bias.shape)}")
+        if bias.device != q.device:
+            raise ValueError(f"attention kernel: bias on {bias.device}, q on {q.device}")
+        bias = bias.contiguous()  # the shifted view of the rel-pos term is strided
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, bias)
+    )
     if needs_grad and q.dtype != torch.float32:
         raise TypeError(f"attention kernel: the backward takes float32 only, not {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -223,5 +246,5 @@ def fused_self_attention(
         seed = draw_seed(generator)
     seed = int(seed or 0)
     if needs_grad:
-        return _FusedAttention.apply(q, k, v, lens32, float(scale), rate, seed)
-    return _launch_fwd(q, k, v, lens32, scale, rate, seed, want_lse=False)[0]
+        return _FusedAttention.apply(q, k, v, lens32, float(scale), rate, seed, bias)
+    return _launch_fwd(q, k, v, lens32, scale, rate, seed, want_lse=False, bias=bias)[0]

@@ -20,7 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 REPO_ROOT = os.path.dirname(os.path.dirname(CSRC_DIR))
@@ -60,12 +60,17 @@ class CudaKernel:
     every exported launcher returns the `cudaError_t` of
     `cudaGetLastError()` after its launch.  `launches` counts the launches
     made through `launch` and `counts` the same by launcher name;
-    `reset_counts` sets both to 0.
+    `reset_counts` sets both to 0.  `defines` are preprocessor definitions
+    (`NAME=VALUE`) for a source that builds into more than one library, each
+    under its own `name`, so that nvcc compiles the variants side by side.
     """
 
-    def __init__(self, source: str, signatures: Dict[str, List]):
+    def __init__(self, source: str, signatures: Dict[str, List], defines: Sequence[str] = (),
+                 name: str = ""):
         self.source = source
         self.signatures = signatures
+        self.defines = tuple(defines)
+        self.name = name or os.path.splitext(source)[0]
         self.launches = 0
         self.counts: Dict[str, int] = {name: 0 for name in signatures}
         self._lib = None
@@ -77,16 +82,15 @@ class CudaKernel:
 
     def lib_path(self) -> str:
         with open(self.src_path, "rb") as f:
-            digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        stem = os.path.splitext(self.source)[0]
-        return os.path.join(BUILD_DIR, f"lib{stem}-{digest[:12]}.so")
+            digest = hashlib.sha1(f.read() + " ".join([*NVCC_FLAGS, *self.defines]).encode()).hexdigest()
+        return os.path.join(BUILD_DIR, f"lib{self.name}-{digest[:12]}.so")
 
     def _start_build(self) -> Tuple[subprocess.Popen, str, str]:
         out = self.lib_path()
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
         proc = subprocess.Popen(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, self.src_path],
+            [find_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in self.defines), "-o", tmp, self.src_path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         return proc, tmp, out
@@ -115,7 +119,7 @@ class CudaKernel:
                 if self._lib is None:
                     path = self.lib_path()
                     if not os.path.exists(path):
-                        self._finish_build(*self._start_build(), self.source)
+                        self._finish_build(*self._start_build(), self.name)
                     self._load(path)
         return self._lib
 
@@ -125,7 +129,7 @@ class CudaKernel:
         err = getattr(lib, name)(*args)
         if err != 0:
             msg = lib.emo_error_string(err).decode()
-            raise RuntimeError(f"{self.source}:{name} launch failed: {msg} (cudaError {err})")
+            raise RuntimeError(f"{self.name}:{name} launch failed: {msg} (cudaError {err})")
         self.launches += 1
         self.counts[name] += 1
 
@@ -146,7 +150,7 @@ def build_all(kernels: Iterable[CudaKernel]) -> None:
     errors = []
     for k, proc, tmp, out in jobs:
         try:
-            CudaKernel._finish_build(proc, tmp, out, k.source)
+            CudaKernel._finish_build(proc, tmp, out, k.name)
         except RuntimeError as e:
             errors.append(str(e))
     if errors:

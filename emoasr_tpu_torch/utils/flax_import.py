@@ -1,21 +1,27 @@
 """Carry the JAX package's flax parameters into the port's `state_dict`.
 
-`asr_state_dict(params, cfg)` is the inverse of
+`asr_state_dict(params, cfg, batch_stats)` is the inverse of
 `emoasr_tpu/utils/torch_import.py::asr_model` for the models ported so far
-(Transformer encoder with the conv2d or linear input layer, CTC decoder
-with its optional phone head).  It takes the flax parameter tree as nested
-dicts of numpy arrays and needs neither JAX nor flax.  A flax gradient tree
-has the parameters' structure, so it maps the same way and gradients can be
+(Transformer or Conformer encoder with the conv2d or linear input layer;
+CTC decoder with its optional phone head, or Transformer decoder with its
+optional auxiliary CTC head).  It takes the flax parameter tree (and, for a
+Conformer, the flax `batch_stats` collection) as nested dicts of numpy
+arrays and needs neither JAX nor flax.  A flax gradient tree has the
+parameters' structure, so it maps the same way and gradients can be
 compared name by name:
 
 - a Dense `kernel` (in, out) becomes `weight` = kernel.T;
-- a Conv `kernel` (kh, kw, in, out) becomes `weight` (out, in, kh, kw);
-- a LayerNorm `scale`/`bias` becomes `weight`/`bias`.
+- a 2-D Conv `kernel` (kh, kw, in, out) becomes `weight` (out, in, kh, kw);
+- a 1-D Conv `kernel` (k, in/groups, out) becomes `weight` (out, in/groups, k);
+- a LayerNorm or BatchNorm `scale`/`bias` becomes `weight`/`bias`, and the
+  `batch_stats` `mean`/`var` become `running_mean`/`running_var`
+  (`num_batches_tracked`, which flax does not keep, is written as 0);
+- an Embed `embedding` becomes `weight`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -29,6 +35,12 @@ def _t(a) -> torch.Tensor:
 
 def _dense(sd: SD, p: str, tree: Mapping) -> None:
     sd[f"{p}.weight"] = _t(np.asarray(tree["kernel"]).T)
+    if "bias" in tree:
+        sd[f"{p}.bias"] = _t(tree["bias"])
+
+
+def _conv1d(sd: SD, p: str, tree: Mapping) -> None:
+    sd[f"{p}.weight"] = _t(np.asarray(tree["kernel"]).transpose(2, 1, 0))
     sd[f"{p}.bias"] = _t(tree["bias"])
 
 
@@ -42,7 +54,41 @@ def _layer_norm(sd: SD, p: str, tree: Mapping) -> None:
     sd[f"{p}.bias"] = _t(tree["bias"])
 
 
-def transformer_encoder_state_dict(enc: Mapping, num_layers: int, prefix: str = "") -> SD:
+def _mha(sd: SD, p: str, tree: Mapping) -> None:
+    for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
+        _dense(sd, f"{p}.{name}", tree[name])
+    if "linear_pos" in tree:  # relative positions
+        _dense(sd, f"{p}.linear_pos", tree["linear_pos"])
+        sd[f"{p}.pos_bias_u"] = _t(tree["pos_bias_u"])
+        sd[f"{p}.pos_bias_v"] = _t(tree["pos_bias_v"])
+
+
+def _feed_forward(sd: SD, p: str, tree: Mapping) -> None:
+    _dense(sd, f"{p}.w1", tree["w1"])
+    _dense(sd, f"{p}.w2", tree["w2"])
+
+
+def _conformer_layer(sd: SD, p: str, layer: Mapping, stats: Optional[Mapping]) -> None:
+    for name in ("norm_ff_macaron", "norm_self_attn", "norm_conv", "norm_ff", "norm_final"):
+        _layer_norm(sd, f"{p}.{name}", layer[name])
+    _feed_forward(sd, f"{p}.feed_forward_macaron", layer["feed_forward_macaron"])
+    _feed_forward(sd, f"{p}.feed_forward", layer["feed_forward"])
+    _mha(sd, f"{p}.self_attn", layer["self_attn"])
+    conv = layer["conv"]
+    for name in ("pointwise_conv1", "depthwise_conv", "pointwise_conv2"):
+        _conv1d(sd, f"{p}.conv.{name}", conv[name])
+    _layer_norm(sd, f"{p}.conv.batch_norm", conv["batch_norm"])
+    if stats is not None:  # a gradient tree has no statistics
+        bn = stats["conv"]["batch_norm"]
+        sd[f"{p}.conv.batch_norm.running_mean"] = _t(bn["mean"])
+        sd[f"{p}.conv.batch_norm.running_var"] = _t(bn["var"])
+        sd[f"{p}.conv.batch_norm.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
+def transformer_encoder_state_dict(enc: Mapping, num_layers: int, prefix: str = "",
+                                   batch_stats: Optional[Mapping] = None) -> SD:
+    """A Transformer encoder's tree, or a Conformer's (told by its layers'
+    names) with its `batch_stats` subtree."""
     sd: SD = {}
     if "conv" in enc:
         conv = enc["conv"]
@@ -53,28 +99,59 @@ def transformer_encoder_state_dict(enc: Mapping, num_layers: int, prefix: str = 
         _dense(sd, f"{prefix}linear", enc["linear"])
     for i in range(num_layers):
         lp, layer = f"{prefix}transformers.{i}", enc[f"layers_{i}"]
+        if "norm_final" in layer:
+            _conformer_layer(sd, lp, layer,
+                             None if batch_stats is None else batch_stats[f"layers_{i}"])
+            continue
         _layer_norm(sd, f"{lp}.norm1", layer["norm1"])
         _layer_norm(sd, f"{lp}.norm2", layer["norm2"])
-        for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
-            _dense(sd, f"{lp}.self_attn.{name}", layer["self_attn"][name])
-        _dense(sd, f"{lp}.feed_forward.w1", layer["feed_forward"]["w1"])
-        _dense(sd, f"{lp}.feed_forward.w2", layer["feed_forward"]["w2"])
+        _mha(sd, f"{lp}.self_attn", layer["self_attn"])
+        _feed_forward(sd, f"{lp}.feed_forward", layer["feed_forward"])
     _layer_norm(sd, f"{prefix}norm", enc["norm"])
     return sd
 
 
-def asr_state_dict(params: Mapping, cfg) -> SD:
-    """flax `{"encoder": ..., "decoder": ...}` -> port `state_dict`."""
-    if cfg.encoder_type != "transformer" or cfg.input_layer not in ("conv2d", "linear"):
+def ctc_decoder_state_dict(dec: Mapping, prefix: str) -> SD:
+    sd: SD = {}
+    _dense(sd, f"{prefix}output", dec["output"])
+    if "phone_output" in dec:
+        _dense(sd, f"{prefix}phone_output", dec["phone_output"])
+    return sd
+
+
+def transformer_decoder_state_dict(dec: Mapping, num_layers: int, prefix: str = "") -> SD:
+    sd: SD = {f"{prefix}embed.weight": _t(dec["embed"]["embedding"])}
+    for i in range(num_layers):
+        lp, layer = f"{prefix}transformers.{i}", dec[f"layers_{i}"]
+        for name in ("norm1", "norm2", "norm3"):
+            _layer_norm(sd, f"{lp}.{name}", layer[name])
+        _mha(sd, f"{lp}.self_attn", layer["self_attn"])
+        _mha(sd, f"{lp}.src_attn", layer["src_attn"])
+        _feed_forward(sd, f"{lp}.feed_forward", layer["feed_forward"])
+    _layer_norm(sd, f"{prefix}norm", dec["norm"])
+    _dense(sd, f"{prefix}output", dec["output"])
+    if "ctc" in dec:
+        sd.update(ctc_decoder_state_dict(dec["ctc"], f"{prefix}ctc."))
+    return sd
+
+
+def asr_state_dict(params: Mapping, cfg, batch_stats: Optional[Mapping] = None) -> SD:
+    """flax `{"encoder": ..., "decoder": ...}` (+ the `batch_stats`
+    collection of a Conformer) -> port `state_dict`."""
+    if cfg.encoder_type not in ("transformer", "conformer") or cfg.input_layer not in ("conv2d", "linear"):
         raise NotImplementedError(
             f"encoder {cfg.encoder_type}/{cfg.input_layer} is not ported yet (ROADMAP.md §1)"
         )
-    if cfg.decoder_type != "ctc":
+    sd = transformer_encoder_state_dict(
+        params["encoder"], cfg.enc_num_layers, "encoder.",
+        None if batch_stats is None else batch_stats.get("encoder"),
+    )
+    if cfg.decoder_type == "ctc":
+        sd.update(ctc_decoder_state_dict(params["decoder"], "decoder."))
+    elif cfg.decoder_type == "transformer":
+        sd.update(transformer_decoder_state_dict(params["decoder"], cfg.dec_num_layers, "decoder."))
+    else:
         raise NotImplementedError(
             f"decoder_type={cfg.decoder_type!r} is not ported yet (ROADMAP.md §1)"
         )
-    sd = transformer_encoder_state_dict(params["encoder"], cfg.enc_num_layers, "encoder.")
-    _dense(sd, "decoder.output", params["decoder"]["output"])
-    if "phone_output" in params["decoder"]:
-        _dense(sd, "decoder.phone_output", params["decoder"]["phone_output"])
     return sd

@@ -12,6 +12,10 @@ imports through utils/torch_import.py).
   utterance ids.
 - The port's WER equals the JAX `compute_wers_df`; epoch averaging gives
   the same weights as the JAX package's.
+- A tiny L3-1 model (Conformer encoder, Transformer decoder, joint CTC 0.3,
+  length weight 2, beam 3, one layer each, d=32, V=50): the two CLIs write the
+  same TSV, top-1 and `--nbest`, with `dec_step_mode` auto and fused_indirect;
+  LM fusion still raises, naming its slice.
 
 Sizes: 2 layers, d=32, 4 heads, F=20, V=300; weights and features from
 numpy seeds.  Tolerance: exact (token ids, text, WER line), except n-best
@@ -40,6 +44,7 @@ from emoasr_tpu_torch.eval.wer import compute_wers_df, wer_info_line
 from emoasr_tpu_torch.ops import attention, topk
 from emoasr_tpu_torch.train import checkpoint as port_ckpt
 from emoasr_tpu_torch.utils.flax_import import asr_state_dict
+from test_torch_conformer import L3_SMALL, random_l3_params
 from test_torch_encoder import SMALL, random_flax_params
 
 V, F = 300, 20
@@ -67,14 +72,14 @@ def _corpus(root, lengths, seed=0):
     return tsv, vocab
 
 
-def _experiment(root, name, tsv, vocab, params, **over):
-    conf = dict(SMALL, vocab_path=vocab, test_path=tsv, batch_size=4,
+def _experiment(root, name, tsv, vocab, params, base=SMALL, batch_stats=None, **over):
+    conf = dict(base, vocab_path=vocab, test_path=tsv, batch_size=4,
                 max_xlens_batch=4000, max_ylens_batch=400)
     conf.update(over)
     path = os.path.join(root, f"{name}.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(conf, f)
-    sd = asr_state_dict(params, config_from_dict(conf))
+    sd = asr_state_dict(params, config_from_dict(conf), batch_stats)
     port_ckpt.save_state_dict(sd, os.path.join(root, name, "checkpoints", "model.ep1"))
     return path
 
@@ -204,3 +209,40 @@ def test_epoch_average_matches_jax(tmp_path):
     assert port_ckpt.parse_epochs("91-100") == list(range(91, 101))
     assert port_ckpt.parse_epochs("1+2+5") == [1, 2, 5]
     assert port_ckpt.parse_epochs("7") is None
+
+
+@pytest.mark.parametrize("mode", ["auto", "fused_indirect"])
+def test_l3_1_cli_matches_jax_cli(tmp_path, mode):
+    """Conformer + Transformer decoder with joint CTC: top-1 rows equal (the
+    `top1` early stop on both sides), then `--nbest` (scores atol 1e-4)."""
+    base = dict(L3_SMALL, enc_num_layers=1, dec_num_layers=1, beam_width=3, len_weight=2.0,
+                decode_ctc_weight=0.3, max_decode_ylen=10)
+    l3_params, l3_stats = random_l3_params(base, seed=11)
+    l3_params["decoder"]["output"]["bias"][2] += 3.0  # beams do end
+    tsv, vocab = _corpus(str(tmp_path), [60, 75, 90, 101, 120])  # one bucket
+    conf = _experiment(str(tmp_path), "l3", tsv, vocab, l3_params, base=base, batch_stats=l3_stats,
+                       dec_step_mode=mode, enc_fused_attn=True, buckets=[[128, 16]], batch_size=8)
+    argv = ["-conf", conf, "-ep", "1"]
+    jax_cli.test_main(jax_cli.build_argparser().parse_args(argv + ["--save_dir", "jax"]))
+    out = port_cli.main(argv + ["--cpu", "--save_dir", "torch"])
+    res = os.path.join(os.path.splitext(conf)[0], "results")
+    name = "result_test_beam3_len2.0_ctc0.3_lm0.00_ep1.tsv"
+    ref = pd.read_table(os.path.join(res, "jax", name), comment="#")
+    got = pd.read_table(os.path.join(res, "torch", name), comment="#")
+    assert len(got) == 5 and got["token_id"].notna().all()
+    pd.testing.assert_frame_equal(got, ref)
+    with open(os.path.join(res, "torch", name)) as f, open(os.path.join(res, "jax", name)) as g:
+        assert f.readline() == g.readline() == "# " + out[3] + "\n"
+
+    argv += ["--nbest", "--decode_ctc_weight", "0.3", "--beam_width", "3"]
+    jax_cli.test_main(jax_cli.build_argparser().parse_args(argv + ["--save_dir", "jax"]))
+    assert port_cli.main(argv + ["--cpu", "--save_dir", "torch"]) is None
+    name = name.replace(".tsv", "_nbest.tsv")
+    ref = pd.read_table(os.path.join(res, "jax", name))
+    got = pd.read_table(os.path.join(res, "torch", name))
+    assert len(got) > 5 and list(got.columns) == list(ref.columns)
+    pd.testing.assert_frame_equal(got.drop(columns="score_asr"), ref.drop(columns="score_asr"))
+    np.testing.assert_allclose(got["score_asr"], ref["score_asr"], atol=1e-4, rtol=0)
+
+    with pytest.raises(NotImplementedError, match="slice 3b"):
+        port_cli.main(["-conf", conf, "-ep", "1", "--cpu", "--lm_weight", "0.5"])

@@ -51,7 +51,10 @@ def test_imports_no_jax_and_nothing_of_the_jax_package():
                 "emoasr_tpu_torch.ops.ctc", "emoasr_tpu_torch.ops.ctc_head",
                 "emoasr_tpu_torch.ops.ctc_lattice", "emoasr_tpu_torch.ops.specaug",
                 "emoasr_tpu_torch.train.loop", "emoasr_tpu_torch.train.optim",
-                "emoasr_tpu_torch.train.step", "emoasr_tpu_torch.train.checkpoint"):
+                "emoasr_tpu_torch.train.step", "emoasr_tpu_torch.train.checkpoint",
+                "emoasr_tpu_torch.ops.decoder_step", "emoasr_tpu_torch.models.decoders.transformer",
+                "emoasr_tpu_torch.search.ctc_prefix_score", "emoasr_tpu_torch.search.attention_beam",
+                "emoasr_tpu_torch.eval.decode", "emoasr_tpu_torch.utils.flax_import"):
         assert mod in res["modules"]
 
 
@@ -92,6 +95,19 @@ def test_entry_points_raise_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+    l3 = config_from_dict(dict(
+        encoder_type="conformer", decoder_type="transformer", pos_encode_type="rel",
+        feat_dim=20, enc_hidden_size=16, enc_num_attention_heads=2, enc_num_layers=1,
+        enc_intermediate_size=32, conv_kernel_size=3, dec_hidden_size=16, dec_num_attention_heads=2,
+        dec_num_layers=1, dec_intermediate_size=32, vocab_size=10, mtl_ctc_weight=0.3,
+        dec_step_mode="fused_indirect", enc_fused_attn=True,
+    ))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_decode_fn(ASR(l3), l3, beam_width=3, decode_ctc_weight=0.3)
+    l3_conf = tmp_path / "l3.yaml"
+    l3_conf.write_text("encoder_type: conformer\ndecoder_type: transformer\nfeat_dim: 20\n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        test_asr.main(["-conf", str(l3_conf), "-ep", "1", "--beam_width", "3"])
     conf = tmp_path / "exp.yaml"
     conf.write_text("feat_dim: 20\n")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -103,6 +119,30 @@ def test_entry_points_raise_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         loop.train(str(conf))
     assert not os.path.exists(tmp_path / "exp")  # it raised before it wrote anything
+
+
+def test_lm_fusion_raises_and_names_its_slice(tmp_path):
+    """Shallow fusion is slice 3b: the CLI and `with_weights` say so."""
+    from emoasr_tpu_torch.config import config_from_dict
+    from emoasr_tpu_torch.eval import test_asr
+    from emoasr_tpu_torch.eval.decode import build_decode_fn
+    from emoasr_tpu_torch.models.asr import ASR
+
+    cfg = config_from_dict(dict(
+        feat_dim=20, enc_hidden_size=16, enc_num_attention_heads=2,
+        enc_num_layers=1, enc_intermediate_size=32, vocab_size=10,
+    ))
+    fn = build_decode_fn(ASR(cfg), cfg, beam_width=2, device="cpu")
+    assert callable(fn.with_weights(None, 0.5)) and callable(fn.with_weights(0.0, None))
+    with pytest.raises(NotImplementedError, match="slice 3b"):
+        fn.with_weights(0.3, None)
+    conf = tmp_path / "exp.yaml"
+    conf.write_text("feat_dim: 20\nlm_weight: 0.3\n")
+    with pytest.raises(NotImplementedError, match="slice 3b"):
+        test_asr.main(["-conf", str(conf), "-ep", "1", "--cpu"])
+    with pytest.raises(ValueError, match="dec_step_mode"):
+        bad = config_from_dict(dict(feat_dim=20, vocab_size=10, dec_step_mode="quick"))
+        build_decode_fn(ASR(bad), bad, device="cpu")
 
 
 def test_every_entry_point_sets_the_tf32_switches(tmp_path, monkeypatch):
@@ -192,3 +232,31 @@ def test_cpu_tensors_take_the_plain_versions():
         assert k.launches == 0 and not any(k.counts.values()) and k._lib is None
     with pytest.raises(ValueError, match="card only"):
         attention.dropout_keep_mask(1, 4, 2, 0.1, 0, torch.device("cpu"))
+
+    # the score bias and the decoder step: plain versions too, nothing built
+    from emoasr_tpu_torch.models.layers import TransformerDecoderLayer
+    from emoasr_tpu_torch.ops import decoder_step
+
+    bias = torch.randn(1, 2, 6, 6, requires_grad=True)
+    ob = attention.fused_self_attention(qg, qg, qg, torch.tensor([4]), scale=0.5, bias=bias)
+    assert torch.equal(ob, attention.attention_plain(qg, qg, qg, torch.tensor([4]), 0.5, bias=bias))
+    ob.sum().backward()
+    assert bias.grad is not None and bias.grad[..., 4:].abs().sum() == 0
+    layer = TransformerDecoderLayer(2, 16, 32).eval()
+    Bu, W, L, T = 2, 3, 5, 7
+    with torch.no_grad():
+        h = torch.randn(Bu * W, 16)
+        ck, cv = torch.randn(Bu, W, L, 2, 8), torch.randn(Bu, W, L, 2, 8)
+        cross = layer.compute_cross_kv(torch.randn(Bu, T, 16))
+        pos, anc = torch.randint(0, L, (Bu, W)), torch.randint(0, W, (Bu, W, L))
+        elens, wt = torch.tensor([7, 4]), layer._decode_step_weights()
+        a = decoder_step.fused_decoder_layer_step(
+            h, ck.reshape(Bu * W, L, 2, 8), cv.reshape(Bu * W, L, 2, 8), pos.reshape(-1), *cross, elens, wt,
+            beam_width=W)
+        b = decoder_step.decoder_layer_step_plain(
+            h, ck.reshape(Bu * W, L, 2, 8), cv.reshape(Bu * W, L, 2, 8), pos.reshape(-1), *cross, elens, wt, W)
+        c = decoder_step.fused_decoder_layer_step_indirect(h, ck, cv, pos, anc, *cross, elens, wt, beam_width=W)
+        d = decoder_step.decoder_layer_step_indirect_plain(h, ck, cv, pos, anc, *cross, elens, wt, W)
+    assert all(torch.equal(x, y) for x, y in zip(a, b)) and all(torch.equal(x, y) for x, y in zip(c, d))
+    for k in (decoder_step.KERNEL, decoder_step.KERNEL_INDIRECT, attention.KERNEL):
+        assert k.launches == 0 and not any(k.counts.values()) and k._lib is None

@@ -6,8 +6,9 @@ card, run them without the JAX test configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 The cases and tolerances are those of `chip_smoke.py` (top-k exact;
-attention forward f32 within 1e-5, bf16 within 2e-2; attention backward,
-CTC head and CTC lattice: the constants beside their checks there).
+attention forward f32 within 1e-5, bf16 within 2e-2, with and without the
+score bias; attention backward, CTC head, CTC lattice and the decoder layer
+step: the constants beside their checks there).
 """
 
 import pytest
@@ -47,7 +48,9 @@ def test_attention_kernel_matches_plain(cuda_dev):
 
 
 def test_attention_kernel_rejects_training_options(cuda_dev):
-    """Only the score bias is refused now; dropout runs in the kernel."""
+    """Dropout and the score bias run in the kernel (a zero bias changes
+    nothing, a bias of another shape or dtype is refused); a bfloat16
+    backward is still refused."""
     from emoasr_tpu_torch.ops.attention import fused_self_attention
 
     dev, _ = cuda_dev
@@ -55,11 +58,65 @@ def test_attention_kernel_rejects_training_options(cuda_dev):
     lens = torch.tensor([8], device=dev)
     out = fused_self_attention(q, q, q, lens, scale=0.25, dropout_rate=0.1, deterministic=False, seed=1)
     assert out.shape == q.shape and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError):
-        fused_self_attention(q, q, q, lens, scale=0.25, bias=torch.zeros(1, 2, 8, 8, device=dev))
+    plain = fused_self_attention(q, q, q, lens, scale=0.25)
+    biased = fused_self_attention(q, q, q, lens, scale=0.25, bias=torch.zeros(1, 2, 8, 8, device=dev))
+    assert torch.equal(biased, plain)
+    with pytest.raises(ValueError):
+        fused_self_attention(q, q, q, lens, scale=0.25, bias=torch.zeros(1, 2, 8, 7, device=dev))
+    with pytest.raises(TypeError):
+        fused_self_attention(q, q, q, lens, scale=0.25, bias=torch.zeros(1, 2, 8, 8, device=dev).half())
     with pytest.raises(TypeError):  # the backward takes float32 only
         qb = q.bfloat16().requires_grad_(True)
         fused_self_attention(qb, qb, qb, lens, scale=0.25)
+
+
+def test_attention_bias_matches_plain(cuda_dev):
+    from emoasr_tpu_torch.ops import attention
+
+    before = dict(attention.KERNEL.counts)
+    chip_smoke.check_attention_bias(*cuda_dev)
+    used = {k: attention.KERNEL.counts[k] - before[k] for k in before}
+    # three shapes: one forward per dtype, and a forward + backward with and without dropout
+    assert used["emo_attention_fwd_f32"] == 9 and used["emo_attention_fwd_bf16"] == 3
+    assert used["emo_attention_bwd_f32"] == 6
+
+
+def test_decoder_step_kernels_match_plain(cuda_dev):
+    from emoasr_tpu_torch.ops import decoder_step
+
+    before = (decoder_step.KERNEL.launches, decoder_step.KERNEL_INDIRECT.launches)
+    chip_smoke.check_decoder_step(*cuda_dev)
+    assert decoder_step.KERNEL.launches - before[0] == 8  # four cases: direct, and direct on gathered caches
+    assert decoder_step.KERNEL_INDIRECT.launches - before[1] == 4
+
+
+def test_decoder_step_rejects_what_it_does_not_take(cuda_dev):
+    from emoasr_tpu_torch.ops import decoder_step as ds
+
+    dev, gen = cuda_dev
+    c = chip_smoke.decoder_step_case(dev, gen, 2, 3, 6, 9, 2, 32, 64)
+    args = lambda **over: {**dict(
+        h=c["h"], cache_k=c["cache_k"].reshape(6, 6, 2, 16), cache_v=c["cache_v"].reshape(6, 6, 2, 16),
+        pos=c["pos"].reshape(-1), cross_k=c["cross_k"], cross_v=c["cross_v"], elens=c["elens"],
+        weights=c["weights"]), **over}
+    y, k_new, v_new = ds.fused_decoder_layer_step(**args(), beam_width=3)
+    assert y.shape == (6, 32) and k_new.shape == v_new.shape == (6, 2, 16)
+    with pytest.raises(TypeError):  # float32 only
+        ds.fused_decoder_layer_step(**args(h=c["h"].bfloat16()), beam_width=3)
+    with pytest.raises(ValueError):  # rows do not split into beams of 4
+        ds.fused_decoder_layer_step(**args(), beam_width=4)
+    with pytest.raises(ValueError):  # a strided cache
+        ds.fused_decoder_layer_step(**args(cache_k=c["cache_k"].reshape(6, 6, 2, 16).transpose(1, 2)), beam_width=3)
+    wide = chip_smoke.decoder_step_case(dev, gen, 1, 17, 4, 5, 2, 32, 64)
+    with pytest.raises(ValueError):  # W > 16
+        ds.fused_decoder_layer_step_indirect(
+            wide["h"], wide["cache_k"], wide["cache_v"], wide["pos"], wide["anc"], wide["cross_k"],
+            wide["cross_v"], wide["elens"], wide["weights"], beam_width=17)
+    big = chip_smoke.decoder_step_case(dev, gen, 1, 16, 4, 5, 4, 512, 4096)
+    with pytest.raises(ValueError, match="shared memory"):
+        ds.fused_decoder_layer_step_indirect(
+            big["h"], big["cache_k"], big["cache_v"], big["pos"], big["anc"], big["cross_k"],
+            big["cross_v"], big["elens"], big["weights"], beam_width=16)
 
 
 def test_attention_backward_and_dropout_match_plain(cuda_dev):
