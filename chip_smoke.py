@@ -12,8 +12,8 @@ Phases (any failed check raises, so the script exits non-zero):
 3. Kernels against their plain PyTorch versions on the card, forward and
    backward, each with its stated tolerance (top-k exact; attention forward
    f32 1e-5, bf16 2e-2, with and without the score bias; attention backward,
-   CTC head, CTC lattice and the decoder layer step, direct and indirect: see
-   the constants beside their checks).
+   CTC head, CTC lattice, the decoder layer step, direct and indirect, and
+   the LM layer step: see the constants beside their checks).
 4. Training at the full width of the L1 CTC(Transformer) model (12 x 256,
    4 heads, FF 2048, V = 10000, SpecAugment and dropout on,
    `enc_fused_attn: true`, random initial weights from `--seed`): one epoch
@@ -42,7 +42,18 @@ Phases (any failed check raises, so the script exits non-zero):
    batch on the card against the CPU's plain path (encoder output, one
    decoder step's logits, top-1 hypotheses); where one large batch's time
    goes.
-9. Every kernel timed at the largest bucket beside its plain version and
+9. The L3-3 model (L3-1's, `dec_step_mode: fused_indirect`, with the
+   Transformer LM of `configs/lm/libri_transformer.yaml` fused at 0.5: 4 x
+   512, 8 heads, FF 2048, V = 10000; both models' weights from `--seed`,
+   written as `state_dict`s): the decode corpus through the eval CLI with
+   the LM's layer step by K6 (`FUSED_INDIRECT_STEP = True`) and then by the
+   dense route, then again in the other order; K6 launches = 4 x beam
+   steps in the K6 runs and 0 in the others, the two routes' hypotheses
+   agree on 95%; one batch on the card against the CPU (one step's fused
+   scores, top-1 hypotheses); where one large batch's time goes without
+   the LM and with either route, and the device's busy share of it; one
+   CTC beam-8 decode of the L1 `model.ep1` with the LM in `cached` mode.
+10. Every kernel timed at the largest bucket beside its plain version and
    one library call; one JSON line describing each kernel, the `nvidia-smi`
    line, and last the `{"ok": true, "device": ...}` line.
 
@@ -67,6 +78,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 L1_CONF = os.path.join(REPO, "configs", "libri", "l1_ctc_transformer.yaml")
 L2_CONF = os.path.join(REPO, "configs", "libri", "l2_ctc_conformer.yaml")
 L3_1_CONF = os.path.join(REPO, "configs", "libri", "l3_1_ctc_joint.yaml")
+L3_3_CONF = os.path.join(REPO, "configs", "libri", "l3_transformer_conformer.yaml")
+LM_CONF = os.path.join(REPO, "configs", "lm", "libri_transformer.yaml")
 
 # published peaks of one H100 SXM (NVIDIA data sheet; dense, 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -742,6 +755,116 @@ def time_decoder_step(dev, gen, Bu: int, W: int, L: int, T: int, pos: int, lens:
     return {"decoder_step": direct, "decoder_step_indirect": indirect}
 
 
+# K6: a layer step is some ten sums of 64 to 2048 f32 products of O(1)
+# values, in another order than cuBLAS takes them, and two LayerNorms that
+# bring the outputs back to O(1): atol 1e-4.  Against the same kernel on
+# caches gathered by `anc` (identity table): the same numbers in the same
+# order, so 0; LM_GATHER_TOL allows for a different reduction order.
+LM_STEP_TOL = 1e-4
+LM_GATHER_TOL = 1e-5
+
+
+def lm_step_case(dev, gen, Bu: int, W: int, L: int, H: int = 8, D: int = 512, F: int = 2048, pos=None):
+    """Random post-norm layer weights and one step's inputs: `pos` per row
+    from 0 to L - 1 with a 0 and an L - 1 (or `pos` everywhere), and an
+    ancestor table composed from random beam selections, with
+    anc[u, w, pos] = w as the search sets it before the step."""
+    dk = D // H
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    lin = {"wq": (D, D), "wk": (D, D), "wv": (D, D), "wo": (D, D), "wi": (F, D), "wo2": (D, F)}
+    wt = {}
+    for n, (o, i) in lin.items():
+        wt[n] = (randn(o, i) / i ** 0.5).t()  # an nn.Linear weight's (in, out) view
+        wt["b" + n[1:]] = 0.1 * randn(o)
+    for n in ("ln1", "ln2"):
+        wt[n + "_s"], wt[n + "_b"] = 1.0 + 0.1 * randn(D), 0.1 * randn(D)
+    if pos is None:
+        pos = torch.randint(0, L, (Bu, W), generator=gen, device=dev)
+        pos.view(-1)[0], pos.view(-1)[-1] = 0, L - 1
+    else:
+        pos = torch.full((Bu, W), pos, device=dev)
+    anc = torch.arange(W, device=dev)[None, :, None].repeat(Bu, 1, L)
+    for step in range(1, L):
+        parent = torch.randint(0, W, (Bu, W), generator=gen, device=dev)
+        anc[:, :, :step] = torch.gather(anc[:, :, :step], 1, parent[:, :, None].expand(-1, -1, step))
+    anc.scatter_(2, pos[:, :, None], torch.arange(W, device=dev)[None, :, None].expand(Bu, W, 1))
+    return dict(h=randn(Bu, W, D), cache_k=randn(Bu, W, L, H, dk), cache_v=randn(Bu, W, L, H, dk),
+                pos=pos, anc=anc, weights=wt)
+
+
+def check_lm_step(dev, gen) -> float:
+    """K6 against its plain version (y, k_new, v_new), and against itself on
+    caches gathered by `anc` under the identity table."""
+    from emoasr_tpu_torch.ops import lm_step
+
+    worst = 0.0
+    for name, (Bu, W, L, H, D, F) in (
+        ("Bu=18 W=10 L=256 D=512 F=2048 H=8", (18, 10, 256, 8, 512, 2048)),
+        ("Bu=5 W=3 L=20 D=512 F=2048 H=8", (5, 3, 20, 8, 512, 2048)),
+        ("Bu=3 W=1 L=7 D=512 F=2048 H=8", (3, 1, 7, 8, 512, 2048)),
+        ("Bu=7 W=16 L=9 D=64 F=96 H=2", (7, 16, 9, 2, 64, 96)),
+    ):
+        c = lm_step_case(dev, gen, Bu, W, L, H, D, F)
+        dk = D // H
+        idx = c["anc"][:, :, :, None, None].expand(Bu, W, L, H, dk)
+        gk, gv = torch.gather(c["cache_k"], 1, idx), torch.gather(c["cache_v"], 1, idx)
+        ident = torch.arange(W, device=dev)[None, :, None].expand(Bu, W, L).contiguous()
+        args = (c["h"], c["cache_k"], c["cache_v"], c["pos"], c["anc"], c["weights"])
+        out = {
+            "kernel": lm_step.fused_bert_layer_step_indirect(*args),
+            "plain": lm_step.bert_layer_step_indirect_plain(*args),
+            "kernel on gathered caches": lm_step.fused_bert_layer_step_indirect(
+                c["h"], gk.contiguous(), gv.contiguous(), c["pos"], ident, c["weights"]),
+        }
+        torch.cuda.synchronize()
+        for other, tol in (("plain", LM_STEP_TOL), ("kernel on gathered caches", LM_GATHER_TOL)):
+            errs = [_require_close(f"LM step {name} kernel vs {other}: {what}", a, b, tol, 0.0)
+                    for what, a, b in zip(("y", "k_new", "v_new"), out["kernel"], out[other])]
+            if other == "plain":
+                worst = max(worst, *errs)
+            print(f"  LM step {name}: kernel vs {other}: y {errs[0]:.2e} k_new {errs[1]:.2e} "
+                  f"v_new {errs[2]:.2e} (tol {tol})")
+    return worst
+
+
+def time_lm_step(dev, gen, Bu: int, W: int, L: int, pos: int) -> dict:
+    """K6 at the L3-3 shapes beside its plain version and the port's dense
+    route of the same step (`BertLayer.step_indirect(fused=False)`: some
+    twenty PyTorch calls and the two cache writes; no single PyTorch call
+    computes the step, so `library_ms` is null)."""
+    from emoasr_tpu_torch.models.lm.bert import BertLayer
+    from emoasr_tpu_torch.ops import lm_step
+
+    H, D, F = 8, 512, 2048
+    dk, N = D // H, Bu * W
+    c = lm_step_case(dev, gen, Bu, W, L, H, D, F, pos=pos)
+    layer = BertLayer(H, D, F).to(dev).eval()
+    pack = layer._packed_step_weights()
+    ck, cv = c["cache_k"].clone(), c["cache_v"].clone()
+    pos32 = c["pos"].to(torch.int32)
+    with torch.no_grad():
+        row = {
+            "ms": cuda_time_ms(lambda: lm_step.fused_bert_layer_step_indirect(c["h"], ck, cv, pos32, c["anc"], pack)),
+            "plain_ms": cuda_time_ms(lambda: lm_step.bert_layer_step_indirect_plain(
+                c["h"], ck, cv, pos32, c["anc"], pack)),
+            "dense_route_ms": cuda_time_ms(lambda: layer.step_indirect(
+                c["h"], ck, cv, c["pos"], c["anc"], fused=False)),
+        }
+    past = int(c["pos"].sum().item())  # live cache columns over all rows
+    n_weights = 4 * D * D + 2 * D * F + 9 * D + F
+    # weights, each row's live K and V columns, h in, y / k_new / v_new out,
+    # pos and its anc row
+    io = 4 * (n_weights + 2 * past * D + 4 * N * D + N + past)
+    ops = 2.0 * N * (4 * D * D + 2 * D * F) + 4.0 * D * (past + N)
+    row.update(_bound(io, ops))
+    row["library_ms"] = None
+    row["shape"] = f"h ({Bu},{W},{D}), caches ({Bu},{W},{L},{H},{dk}) at pos {pos}, F {F}, float32"
+    return {"lm_step_indirect": row}
+
+
 def _grad_timer(outs, inputs, cots):
     """A closure that runs the backward from `outs` to `inputs` once."""
     return lambda: torch.autograd.grad(outs, inputs, cots, retain_graph=True)
@@ -858,9 +981,10 @@ def time_attention_backward(dev, gen, B: int, T: int, H: int, D: int, lens: torc
 
 # the kernels' launchers, by the name each has on the `kernels` line
 def launch_counts() -> dict:
-    from emoasr_tpu_torch.ops import attention, ctc_head, ctc_lattice, decoder_step, topk
+    from emoasr_tpu_torch.ops import attention, ctc_head, ctc_lattice, decoder_step, lm_step, topk
 
     return {
+        "lm_step_indirect": lm_step.KERNEL.counts["emo_lm_step_indirect_f32"],
         "attention_bias_fwd": attention.KERNEL.counts["bias_fwd"],
         "attention_bias_bwd": attention.KERNEL.counts["bias_bwd"],
         "decoder_step": decoder_step.KERNEL.counts["emo_decoder_step_f32"],
@@ -878,10 +1002,10 @@ def launch_counts() -> dict:
 
 
 def all_kernels() -> list:
-    from emoasr_tpu_torch.ops import attention, ctc_head, ctc_lattice, decoder_step, topk
+    from emoasr_tpu_torch.ops import attention, ctc_head, ctc_lattice, decoder_step, lm_step, topk
 
     return [topk.KERNEL, attention.KERNEL, ctc_head.KERNEL, ctc_lattice.KERNEL,
-            decoder_step.KERNEL, decoder_step.KERNEL_INDIRECT]
+            decoder_step.KERNEL, decoder_step.KERNEL_INDIRECT, lm_step.KERNEL]
 
 
 def reset_launch_counts() -> None:
@@ -1012,7 +1136,7 @@ def train_full_width(args, root: str, card: str) -> dict:
             "ctc_alpha": n_steps, "ctc_beta_grad": n_steps,
             "attention_fwd": cfg.enc_num_layers * n_steps, "attention_bwd": cfg.enc_num_layers * n_steps,
             "topk": 0, "attention_bias_fwd": 0, "attention_bias_bwd": 0, "decoder_step": 0,
-            "decoder_step_indirect": 0}
+            "decoder_step_indirect": 0, "lm_step_indirect": 0}
     require(launches == want, f"training launches {launches}, want {want}")
 
     ckpt = os.path.join(os.path.splitext(conf_path)[0], "checkpoints", "model.ep1")
@@ -1600,6 +1724,301 @@ def decode_l3_1(args, root: str, test_tsv: str, wav_s: float, dev, card: str) ->
             "split": split, "batches": len(batches), "n_utts": n_utts, "bucket": big}
 
 
+# L3-3 on the card against the CPU's plain path: one step's fused scores
+# (decoder log-softmax + 0.5 x LM log-softmax: six and four layers of f32
+# sums in other orders) 1e-3, as one decoder step's logits in L3-1; top-1
+# hypotheses equal for HYP_SHARE of one batch.  The two routes of the LM
+# step through the CLI: the same hypothesis for LM_ROUTES_SHARE of the
+# corpus (seed weights give nearly flat scores, where a rounding difference
+# can turn a beam).
+FUSED_SCORES_TOL = 1e-3
+LM_ROUTES_SHARE = 0.95
+
+
+def decode_l3_3(args, root: str, tr: dict, dev, card: str) -> dict:
+    """The slice's path: L3-3 (L3-1's model with Transformer-LM shallow
+    fusion 0.5) at full width through the eval CLI, beam 10 with joint CTC
+    0.3, `fused_indirect` decoder steps, the LM step by K6 and then by the
+    dense route; one batch card against CPU; where one large batch's time
+    goes; one CTC beam-8 decode of the L1 model with the LM in `cached`
+    mode."""
+    import pandas as pd
+    import yaml
+    from torch.profiler import ProfilerActivity, profile
+
+    from emoasr_tpu_torch.config import load_config
+    from emoasr_tpu_torch.data.asr_dataset import ASRDataset
+    from emoasr_tpu_torch.eval import test_asr
+    from emoasr_tpu_torch.eval.decode import build_decode_fn, ctc_len_caps
+    from emoasr_tpu_torch.eval.test_asr import load_asr_model, load_lm
+    from emoasr_tpu_torch.models.asr import ASR
+    from emoasr_tpu_torch.models.layers import make_pad_mask
+    from emoasr_tpu_torch.models.lm import bert as bert_mod
+    from emoasr_tpu_torch.models.lm.lm import LM
+    from emoasr_tpu_torch.search.attention_beam import attention_beam_search
+    from emoasr_tpu_torch.search.common import make_lm_fusion
+    from emoasr_tpu_torch.train.checkpoint import save_state_dict
+
+    sub = os.path.join(root, "l3_3")
+    os.makedirs(sub)
+    vocab = write_vocab(sub, 10000)
+    with open(LM_CONF) as f:
+        lm_base = yaml.safe_load(f)
+    lm_conf = os.path.join(sub, "lm.yaml")
+    with open(lm_conf, "w") as f:
+        yaml.safe_dump(dict(lm_base, vocab_path=vocab), f)
+    lm_cfg = load_config(lm_conf)
+    require((lm_cfg.lm_type, lm_cfg.num_layers, lm_cfg.hidden_size, lm_cfg.num_attention_heads,
+             lm_cfg.intermediate_size, lm_cfg.vocab_size, lm_cfg.max_seq_len)
+            == ("transformer", 4, 512, 8, 2048, 10000, 256), "the LM config is not at full width")
+    lm_path = os.path.join(sub, "lm", "checkpoints", "model.ep1")
+    torch.manual_seed(args.seed + 1)
+    save_state_dict(LM(lm_cfg).state_dict(), lm_path)  # weights from the seed
+    with open(L3_3_CONF) as f:
+        base = yaml.safe_load(f)
+    conf = os.path.join(sub, "l3_3.yaml")
+    with open(conf, "w") as f:
+        yaml.safe_dump(dict(base, vocab_path=vocab, test_path=tr["test_tsv"], enc_fused_attn=True,
+                            dec_step_mode="fused_indirect", seed=args.seed, lm_conf=lm_conf,
+                            lm_path=lm_path), f)
+    cfg = load_config(conf)
+    require((cfg.encoder_type, cfg.enc_num_layers, cfg.enc_hidden_size, cfg.decoder_type, cfg.dec_num_layers,
+             cfg.dec_hidden_size, cfg.vocab_size, cfg.beam_width, cfg.decode_ctc_weight, cfg.len_weight,
+             cfg.lm_weight, cfg.compute_dtype)
+            == ("conformer", 12, 256, "transformer", 6, 256, 10000, 10, 0.3, 2, 0.5, "float32"),
+            "the L3-3 config is not at full width")
+    ckpt = os.path.join(os.path.splitext(conf)[0], "checkpoints", "model.ep1")
+    torch.manual_seed(args.seed)
+    save_state_dict(ASR(cfg).state_dict(), ckpt)  # weights from the seed
+    ds_ = ASRDataset(cfg, tr["test_tsv"], phase="test")
+    batcher = ds_.make_batcher()
+    batches, buckets = list(batcher), batcher.buckets
+    n_utts, wav_s = sum(len(idx) for _, idx in batches), tr["wav_s"]
+    result = "result_test_beam10_len2.0_ctc0.3_lm0.50transformer_ep1.tsv"
+
+    # k6, dense, then dense, k6 again: the host's pace drifts within a call,
+    # so each route's wall time is the mean of a run early and a run late.
+    # The kernels line counts the first pair's launches.
+    runs, repeat, tables = {}, {}, {}
+    for i, (route, fused) in enumerate((("k6", True), ("dense", False), ("dense", False), ("k6", True))):
+        test_asr._SETUP_CACHE.clear()  # each run loads its models, as the first did
+        bert_mod.FUSED_INDIRECT_STEP = fused
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with _LogCapture("force-finalized") as cap:
+                out = test_asr.main(["-conf", conf, "-ep", "1", "--save_dir", route])
+            torch.cuda.synchronize()
+        finally:
+            bert_mod.FUSED_INDIRECT_STEP = None
+        dt = time.perf_counter() - t0
+        launches = launch_counts()
+        require(out is not None and out[3].startswith("WER:") and out[0] == 0.5, f"L3-3 {route}: CLI returned {out}")
+        df = pd.read_table(os.path.join(os.path.splitext(conf)[0], "results", route, result), comment="#")
+        require(len(df) == n_utts and int(df["token_id"].notna().sum()) == n_utts,
+                f"L3-3 {route}: {len(df)} rows, {int(df['token_id'].notna().sum())} decoded of {n_utts}")
+        hyps = df.sort_values("utt_id")["token_id"].values
+        require(route not in tables or (tables[route] == hyps).all(),
+                f"L3-3 {route}: the repeated run wrote other hypotheses than the first")
+        tables[route] = hyps
+        forced = int(cap.lines[0].split()[0]) if cap.lines else 0
+        steps = launches["decoder_step_indirect"] // cfg.dec_num_layers
+        n_attn = cfg.enc_num_layers * len(batches)
+        require(launches["attention_fwd"] == launches["attention_bias_fwd"] == n_attn,
+                f"L3-3 {route}: attention launches {launches}, want {n_attn} with the bias")
+        require(steps >= len(batches) and launches["decoder_step_indirect"] == steps * cfg.dec_num_layers
+                and launches["decoder_step"] == 0 and launches["topk"] == steps
+                and launches["lm_step_indirect"] == (lm_cfg.num_layers * steps if fused else 0),
+                f"L3-3 {route}: launches {launches}")
+        print(f"  LM step by {route}: {out[3]}; {n_utts} utts in {dt:.3f} s = {n_utts / dt:.2f} utt/s, RTF "
+              f"{dt / wav_s:.5f} (first call, models loaded, warm-up included) on {card}; {steps} beam steps in "
+              f"{len(batches)} batches, {forced} of {n_utts} hypotheses force-finalized; launches topk "
+              f"{launches['topk']}, attention with bias {launches['attention_bias_fwd']}, decoder_step_indirect "
+              f"{launches['decoder_step_indirect']}, lm_step_indirect {launches['lm_step_indirect']}")
+        (runs if i < 2 else repeat)[route] = {
+            "launches": launches, "seconds": dt, "utt_per_s": n_utts / dt, "rtf": dt / wav_s,
+            "beam_steps": steps, "forced_finalisations": forced}
+    test_asr._SETUP_CACHE.clear()
+    for route in runs:
+        runs[route]["mean_rtf_of_both_runs"] = (runs[route]["rtf"] + repeat[route]["rtf"]) / 2
+    print(f"  mean RTF of the early and the late run: K6 {runs['k6']['mean_rtf_of_both_runs']:.5f}, "
+          f"the dense route {runs['dense']['mean_rtf_of_both_runs']:.5f}")
+    same_routes = float((tables["k6"] == tables["dense"]).mean())
+    require(same_routes >= LM_ROUTES_SHARE,
+            f"L3-3: the K6 and dense LM routes agree on {same_routes:.3f} of the hypotheses (want {LM_ROUTES_SHARE})")
+    print(f"  K6 and the dense LM route write the same hypothesis for {same_routes:.3f} of the utterances")
+
+    # one batch, card (kernels) against CPU (plain versions)
+    bi, idx = next(b for b in batches if buckets[b[0]].max_xlen == 400)
+    batch = ds_.collate(idx[:4], 400, buckets[bi].max_ylen)
+    xs, xlens = torch.from_numpy(batch["xs"]), torch.from_numpy(batch["xlens"]).long()
+    W, V = cfg.beam_width, cfg.vocab_size
+    bert_mod.FUSED_INDIRECT_STEP = True
+    try:
+        with torch.no_grad():
+            gpu, cpu = load_asr_model(ckpt, cfg).to(dev).eval(), load_asr_model(ckpt, cfg).eval()
+            lm_gpu, lm_cpu = load_lm(lm_conf, lm_path)[0].to(dev), load_lm(lm_conf, lm_path)[0]
+            e0, l0, _ = cpu.encode(xs, xlens)
+            B, T = e0.shape[0], e0.shape[1]
+            g = torch.Generator().manual_seed(args.seed)
+            toks = torch.randint(3, V, (B, W), generator=g)
+            pos = torch.full((B, W), 3)
+            heads = {"dec": (cfg.dec_num_layers, cfg.dec_num_attention_heads, cfg.dec_hidden_size),
+                     "lm": (lm_cfg.num_layers, lm_cfg.num_attention_heads, lm_cfg.hidden_size)}
+            dec_caches, lm_caches = ([tuple(torch.randn(B, W, 8, H, D // H, generator=g) for _ in range(2))
+                                      for _ in range(n)] for n, H, D in heads.values())
+            anc = torch.randint(0, W, (B, W, 8), generator=g, dtype=torch.int32)
+            anc[:, :, 3] = torch.arange(W, dtype=torch.int32)[None, :]
+            fused_scores = {}
+            before = launch_counts()
+            for name, model, lm, d in (("cuda", gpu, lm_gpu, dev), ("cpu", cpu, lm_cpu, torch.device("cpu"))):
+                dec, el = model.decoder, l0.to(d)
+                cross = dec.precompute_cross_kv(e0.to(d))
+                logits, _ = dec.decode_step_cached_indirect(
+                    toks.reshape(-1).to(d), pos.to(d), [tuple(x.to(d) for x in kv) for kv in dec_caches],
+                    anc.to(d), cross, make_pad_mask(el, T)[:, None, None, :], beam_width=W,
+                    step_mode="fused_indirect", elens=el)
+                lm_logp, _ = lm.predict_step_indirect(
+                    toks.to(d), pos.to(d), [tuple(x.to(d) for x in kv) for kv in lm_caches], anc.to(d))
+                fused_scores[name] = (torch.log_softmax(logits.float(), -1).reshape(B, W, V)
+                                      + cfg.lm_weight * lm_logp).cpu()
+            used = {k: launch_counts()[k] - before[k] for k in before}
+            require(used["decoder_step_indirect"] == cfg.dec_num_layers and used["lm_step_indirect"] == lm_cfg.num_layers,
+                    f"the L3-3 card-vs-CPU step did not go through the kernels: {used}")
+            score_err = _max_err(fused_scores["cuda"], fused_scores["cpu"])
+            require(score_err <= FUSED_SCORES_TOL,
+                    f"L3-3 fused scores card vs CPU: max abs err {score_err} > {FUSED_SCORES_TOL}")
+            hyp = {}
+            for name, model, lm, d in (("cuda", gpu, lm_gpu, dev), ("cpu", cpu, lm_cpu, "cpu")):
+                fn = build_decode_fn(model, cfg, W, cfg.len_weight, cfg.decode_ctc_weight,
+                                     lm=make_lm_fusion(lm, cfg.lm_weight), top1=True, device=d)
+                h, hl, _ = fn(batch["xs"], batch["xlens"])
+                hyp[name] = [h[b, 0, : hl[b, 0]].tolist() for b in range(len(batch["utt_ids"]))]
+    finally:
+        bert_mod.FUSED_INDIRECT_STEP = None
+    same = sum(x == y for x, y in zip(hyp["cuda"], hyp["cpu"])) / len(hyp["cpu"])
+    require(same >= HYP_SHARE, f"L3-3 top-1 hypotheses card vs CPU: only {same:.2f} agree (want {HYP_SHARE})")
+    print(f"  one (4,400,80) batch card vs CPU plain: one step's fused scores (att + {cfg.lm_weight} LM) max abs "
+          f"err {score_err:.3e} (tol {FUSED_SCORES_TOL}), top-1 hypotheses equal for {same:.2f} of 4 (lengths "
+          f"{[len(x) for x in hyp['cpu']]}; required {HYP_SHARE})")
+
+    # where one full batch of the largest bucket spends its time: the beam
+    # loop without the LM, with the LM step by K6 and by the dense route
+    # (host clock around synchronised work; a warm-up pass each, then the
+    # order none, k6, dense, dense, k6, none and the mean of each route's two
+    # passes), and the LM step alone by CUDA events
+    big = max(buckets, key=lambda b: b.max_xlen)
+    bi, idx = next(b for b in batches if buckets[b[0]] == big)
+    batch = ds_.collate(idx, big.max_xlen, big.max_ylen, pad_to_batch=big.batch_size)
+    xs = torch.from_numpy(batch["xs"]).to(dev)
+    xlens = torch.from_numpy(batch["xlens"]).long().to(dev)
+    dec = gpu.decoder
+    fusion = make_lm_fusion(lm_gpu, cfg.lm_weight)
+    routes = {"none": None, "k6": True, "dense": False}
+    split = {"batch": list(xs.shape), **{r: {"beam_ms": []} for r in routes}}
+    with torch.no_grad():
+        eouts, elens, _ = gpu.encode(xs, xlens)
+        cross = dec.precompute_cross_kv(eouts)
+        lp = torch.log_softmax(dec.ctc.logits(eouts).float(), dim=-1)
+        caps = ctc_len_caps(cfg, lp, elens)
+        B, T = eouts.shape[0], eouts.shape[1]
+        emask = make_pad_mask(elens, T)[:, None, None, :]
+
+        def beam_loop(route: str) -> tuple:
+            bert_mod.FUSED_INDIRECT_STEP = routes[route]
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                before = launch_counts()["decoder_step_indirect"]
+                attention_beam_search(
+                    eouts, elens, None, vocab_size=V, beam_width=W, eos_id=cfg.eos_id, blank_id=cfg.blank_id,
+                    len_weight=cfg.len_weight, lm=None if route == "none" else fusion,
+                    decode_ctc_weight=cfg.decode_ctc_weight, ctc_log_probs=lp, max_decode_ylen=cfg.max_decode_ylen,
+                    row_caps=caps, need_results=1,
+                    cached_step=(
+                        lambda n, L: dec.init_cache(n, L), None,
+                        lambda t, p, c, a: dec.decode_step_cached_indirect(
+                            t, p, c, a, cross, emask, beam_width=W, step_mode="fused_indirect", elens=elens),
+                    ))
+                torch.cuda.synchronize()
+            finally:
+                bert_mod.FUSED_INDIRECT_STEP = None
+            return (time.perf_counter() - t0) * 1e3, (launch_counts()["decoder_step_indirect"] - before) // cfg.dec_num_layers
+
+        for route in routes:  # warm-up
+            beam_loop(route)
+        for route in ("none", "k6", "dense", "dense", "k6", "none"):
+            beam_ms, n_steps = beam_loop(route)
+            split[route]["beam_ms"].append(beam_ms)
+            split[route]["beam_steps"] = int(n_steps)
+        # a traced pass each, after the timed ones (tracing costs the host
+        # time of its own): the device's busy time
+        for route in routes:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                beam_loop(route)
+            split[route]["device_busy_ms"] = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+        Lc, p64 = 256, 64
+        toks = torch.randint(3, V, (B, W, Lc), device=dev)
+        lens_w = torch.full((B, W), p64 + 1, device=dev)
+        for route in ("k6", "dense"):
+            bert_mod.FUSED_INDIRECT_STEP = routes[route]
+            try:
+                states = fusion.indirect.init_states(B, W, Lc)
+                split[route]["lm_step_ms"] = cuda_time_ms(
+                    lambda: fusion.indirect.predict_beams(toks, lens_w, states), iters=20)
+            finally:
+                bert_mod.FUSED_INDIRECT_STEP = None
+    for route in routes:
+        s = split[route]
+        s["ms_per_beam_step"] = sum(s["beam_ms"]) / len(s["beam_ms"]) / max(s["beam_steps"], 1)
+        # the share of the untraced loop's wall time the device had no work
+        s["device_idle_share"] = 1 - s["device_busy_ms"] / (sum(s["beam_ms"]) / len(s["beam_ms"]))
+    for route in ("k6", "dense"):
+        s = split[route]
+        s["lm_share_of_step"] = s["lm_step_ms"] / s["ms_per_beam_step"]
+        s["step_minus_no_lm_ms"] = s["ms_per_beam_step"] - split["none"]["ms_per_beam_step"]
+    per = {r: ", ".join(f"{x:.1f}" for x in split[r]["beam_ms"]) for r in routes}
+    print(f"  one {tuple(xs.shape)} batch on {card}, beam loop over {split['k6']['beam_steps']} steps (ms, two passes): "
+          f"no LM {per['none']} = {split['none']['ms_per_beam_step']:.3f} ms a step; the LM step by K6 {per['k6']} = "
+          f"{split['k6']['ms_per_beam_step']:.3f} ms a step (+{split['k6']['step_minus_no_lm_ms']:.3f}); by the dense "
+          f"route {per['dense']} = {split['dense']['ms_per_beam_step']:.3f} ms a step "
+          f"(+{split['dense']['step_minus_no_lm_ms']:.3f}); the LM step alone (embed, 4 layers, head, log-softmax; "
+          f"CUDA events at pos 64, Lc 256) {split['k6']['lm_step_ms']:.3f} ms by K6 "
+          f"({split['k6']['lm_share_of_step']:.2f} of a step), {split['dense']['lm_step_ms']:.3f} ms by the dense "
+          f"route ({split['dense']['lm_share_of_step']:.2f}); device busy (torch.profiler, a traced pass after "
+          f"the timed ones) "
+          + ", ".join(f"{r} {split[r]['device_busy_ms']:.1f} ms, idle {split[r]['device_idle_share']:.2f}"
+                      for r in routes))
+
+    # the CTC prefix beam's LM branch on the card: one batch of the L1 model
+    # the trainer wrote, beam 8, the LM in `cached` mode (no kernel of its own)
+    l1cfg = tr["cfg"]
+    l1_ds = ASRDataset(l1cfg, tr["test_tsv"], phase="test")
+    l1_batcher = l1_ds.make_batcher()
+    bi, idx = next(iter(l1_batcher))
+    b1 = l1_ds.collate(idx, l1_batcher.buckets[bi].max_xlen, l1_batcher.buckets[bi].max_ylen)
+    l1 = load_asr_model(tr["ckpt"], l1cfg)
+    with torch.no_grad():
+        plain_fn = build_decode_fn(l1, l1cfg, beam_width=8, device=dev)
+        lm_fn = build_decode_fn(l1, l1cfg, beam_width=8, lm=make_lm_fusion(lm_gpu, 0.5, mode="cached"), device=dev)
+        h0, hl0, _ = plain_fn(b1["xs"], b1["xlens"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h1, hl1, sc1 = lm_fn(b1["xs"], b1["xlens"])
+        torch.cuda.synchronize()
+    ctc_lm_s = time.perf_counter() - t0
+    nb = len(b1["utt_ids"])
+    require(h1.shape[1] == 8 and bool(torch.isfinite(sc1[:nb, 0]).all()),
+            f"CTC beam with the LM: shapes {tuple(h1.shape)}, best scores {sc1[:nb, 0].tolist()}")
+    changed = sum(h0[b, 0, : hl0[b, 0]].tolist() != h1[b, 0, : hl1[b, 0]].tolist() for b in range(nb))
+    print(f"  CTC beam 8 + LM (cached) on one L1 batch {tuple(b1['xs'].shape)}: {ctc_lm_s:.3f} s, finite scores; "
+          f"the LM changed the best hypothesis of {changed} of {nb} utterances")
+    return {"runs": runs, "repeat": repeat, "fused_scores_err": score_err, "same_hyps": same, "same_routes": same_routes,
+            "split": split, "batches": len(batches), "n_utts": n_utts,
+            "ctc_beam_lm": {"seconds": ctc_lm_s, "batch": list(b1["xs"].shape), "best_changed": changed}}
+
+
 KERNEL_ROWS = (
     # name, source, file:line of the TPU kernel it replaces
     ("topk", "emoasr_tpu_torch/csrc/topk.cu", "emoasr_tpu/ops/topk_pallas.py:64"),
@@ -1614,6 +2033,7 @@ KERNEL_ROWS = (
     ("attention_bias_bwd", "emoasr_tpu_torch/csrc/attention.cu", "emoasr_tpu/ops/attention_pallas.py:131"),
     ("decoder_step", "emoasr_tpu_torch/csrc/decoder_step.cu", "emoasr_tpu/ops/decoder_step_pallas.py:86"),
     ("decoder_step_indirect", "emoasr_tpu_torch/csrc/decoder_step.cu", "emoasr_tpu/ops/decoder_step_pallas.py:347"),
+    ("lm_step_indirect", "emoasr_tpu_torch/csrc/lm_step.cu", "emoasr_tpu/ops/lm_step_pallas.py:85"),
 )
 
 
@@ -1634,7 +2054,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
-    print(f"[1/9] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    print(f"[1/10] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     found = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     set_matmul_precision("float32")
     print(f"  TF32 found (matmul, cudnn) = {found}; the port's switch for float32 sets "
@@ -1645,11 +2065,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels = all_kernels()
     build_all(kernels)
-    print(f"[2/9] built {', '.join(k.name for k in kernels)} from "
+    print(f"[2/10] built {', '.join(k.name for k in kernels)} from "
           f"{', '.join(sorted({k.source for k in kernels}))} in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernels against their plain versions
-    print("[3/9] kernels against their plain versions on the card, forward and backward")
+    print("[3/10] kernels against their plain versions on the card, forward and backward")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     errs = {"topk": check_topk(dev, gen), "attention_fwd": check_attention(dev, gen),
@@ -1662,32 +2082,37 @@ def main(argv=None) -> int:
     errs.update(attention_bias_fwd=bias["fwd"], attention_bias_bwd=bias["bwd"])
     step = check_decoder_step(dev, gen)
     errs.update(decoder_step=step["direct"], decoder_step_indirect=step["indirect"])
+    errs["lm_step_indirect"] = check_lm_step(dev, gen)
 
     scratch_root = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(scratch_root, exist_ok=True)
     root = tempfile.mkdtemp(dir=scratch_root)
     try:
         # 4. training at full width, then one micro-step against the CPU
-        print("[4/9] main path: L1 CTC(Transformer) training through the train CLI")
+        print("[4/10] main path: L1 CTC(Transformer) training through the train CLI")
         tr = train_full_width(args, root, card)
         step_check = check_micro_step(tr, dev)
         step_split = time_micro_step(tr, dev, card)
 
         # 5. learning on the card
-        print("[5/9] learning on the card: the small overfit corpus, train CLI then eval CLI")
+        print("[5/10] learning on the card: the small overfit corpus, train CLI then eval CLI")
         overfit = overfit_on_card(args, root)
 
         # 6. decode the trainer's checkpoint
-        print("[6/9] main path: decode of the trainer's model.ep1 through the eval CLI")
+        print("[6/10] main path: decode of the trainer's model.ep1 through the eval CLI")
         mp = decode_path(args, tr, dev, card)
 
         # 7. the Conformer's attention with its bias, forward and backward
-        print("[7/9] main path: L2 CTC(Conformer) training, two micro-steps through the train CLI")
+        print("[7/10] main path: L2 CTC(Conformer) training, two micro-steps through the train CLI")
         l2 = train_conformer_steps(args, root, card)
 
         # 8. the slice's path: L3-1 joint-CTC beam decode
-        print("[8/9] main path: L3-1 Conformer + attention decoder, beam 10 with joint CTC, through the eval CLI")
+        print("[8/10] main path: L3-1 Conformer + attention decoder, beam 10 with joint CTC, through the eval CLI")
         l3 = decode_l3_1(args, root, tr["test_tsv"], tr["wav_s"], dev, card)
+
+        # 9. the slice's path: L3-3, the same with Transformer-LM shallow fusion
+        print("[9/10] main path: L3-3, L3-1 with Transformer-LM shallow fusion 0.5, through the eval CLI")
+        l33 = decode_l3_3(args, root, tr, dev, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     require((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (False, False),
@@ -1707,10 +2132,12 @@ def main(argv=None) -> int:
     times.update(time_ctc_lattice(dev, gen, B, T2, big.max_ylen, 10000))
     times.update(time_attention_bias(dev, gen, B, T2, 4, 64, lens))
     times.update(time_decoder_step(dev, gen, B, 10, 258, T2, 64, lens))
-    print(f"[9/9] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
+    times.update(time_lm_step(dev, gen, B, 10, 256, 64))
+    print(f"[10/10] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
           f"decoder step W = 10, pos = 64) on {smi}")
 
-    paths = [tr["launches"], l2["launches"]] + [r["launches"] for r in (*mp["runs"].values(), *l3["runs"].values())]
+    paths = [tr["launches"], l2["launches"]] + [
+        r["launches"] for r in (*mp["runs"].values(), *l3["runs"].values(), *l33["runs"].values())]
     ms = lambda x: "none" if x is None else f"{x:.4f}"
     rows = []
     for name, src, rep in KERNEL_ROWS:
@@ -1741,6 +2168,9 @@ def main(argv=None) -> int:
         "l3_1_decode": {**l3["runs"], "one_batch": l3["split"], "encoder_max_abs_err": l3["enc_err"],
                         "decoder_step_logits_max_abs_err": l3["step_err"], "same_top1_hyps_card_vs_cpu": l3["same_hyps"],
                         "same_hyps_fused_vs_fused_indirect": l3["same_modes"]},
+        "l3_3_decode": {**l33["runs"], "repeat": l33["repeat"], "one_batch": l33["split"], "fused_scores_max_abs_err": l33["fused_scores_err"],
+                        "same_top1_hyps_card_vs_cpu": l33["same_hyps"], "same_hyps_k6_vs_dense": l33["same_routes"],
+                        "ctc_beam_lm": l33["ctc_beam_lm"]},
         "card": smi, "total_seconds": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": rows}))

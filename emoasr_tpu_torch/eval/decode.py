@@ -3,13 +3,14 @@ branches of `emoasr_tpu/eval/decode.py::build_decode_fn`).
 
 One call decodes a whole padded bucket batch: greedy or the CTC prefix beam
 search for a CTC model, the joint-CTC attention beam search for a
-Transformer decoder.  The JAX package's packing and coalescing helpers
+Transformer decoder; both beams take LM shallow fusion (an `LMFusion`,
+search/common.py).  The JAX package's packing and coalescing helpers
 worked around a remote transport and are not carried.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -17,6 +18,7 @@ from emoasr_tpu_torch.config import ExpConfig
 from emoasr_tpu_torch.models.asr import ASR
 from emoasr_tpu_torch.models.layers import make_pad_mask
 from emoasr_tpu_torch.search.attention_beam import attention_beam_search
+from emoasr_tpu_torch.search.common import LMFusion
 from emoasr_tpu_torch.search.ctc_beam import ctc_beam_search
 from emoasr_tpu_torch.train.step import preprocess
 from emoasr_tpu_torch.utils.device import resolve_device
@@ -24,7 +26,6 @@ from emoasr_tpu_torch.utils.precision import cast_floating, dtype_of, is_half
 
 
 DEC_STEP_MODES = ("auto", "dense", "fused", "indirect", "fused_indirect")
-LM_FUSION_MESSAGE = "LM shallow fusion (lm_weight > 0) comes with slice 3b (ROADMAP.md §1)"
 
 
 def ctc_len_caps(cfg: ExpConfig, ctc_log_probs: torch.Tensor, elens: torch.Tensor) -> torch.Tensor:
@@ -49,6 +50,7 @@ def build_decode_fn(
     beam_width: int = 0,
     len_weight: float = 0.0,
     decode_ctc_weight: float = 0.0,
+    lm: Optional[LMFusion] = None,
     top1: bool = False,
     device=None,
 ) -> Callable:
@@ -59,8 +61,11 @@ def build_decode_fn(
     for) and is put in eval mode; under a half compute dtype its floating
     parameters are cast once.  Beam hyps carry framing eos tokens (the
     caller strips them); greedy returns collapsed label sequences with
-    zero scores.  `fn.with_weights(lm_w, len_w)` returns a sibling bound
-    to another length weight (LM fusion comes with slice 3b).
+    zero scores.  `lm` fuses an LM into either beam (its states live on the
+    device of the LM's parameters: build it there).
+    `fn.with_weights(lm_w, len_w)` returns a sibling bound to another LM
+    weight and length weight (None keeps the current one; without `lm` the
+    LM weight has nothing to weigh).
 
     Transformer decoder: `cfg.dec_step_mode` picks the step route (`auto` =
     `indirect`; `fused` and `fused_indirect` send every layer step to the
@@ -88,7 +93,7 @@ def build_decode_fn(
         xs = torch.as_tensor(xs).to(dev, dtype_of(cfg) if half else torch.float32)
         return preprocess(cfg, xs, torch.as_tensor(xlens).to(dev, torch.int64))
 
-    def make(lw: float):
+    def make(lw: float, lm_t: Optional[LMFusion]):
         @torch.no_grad()
         def decode_greedy(xs, xlens):
             xs, xlens = inputs(xs, xlens)
@@ -101,7 +106,7 @@ def build_decode_fn(
             eouts, elens, _ = model.encode(xs, xlens)
             lp = torch.log_softmax(model.decoder.logits(eouts).float(), dim=-1)
             return ctc_beam_search(
-                lp, elens, beam_width, cfg.blank_id, cfg.eos_id, lw,
+                lp, elens, beam_width, cfg.blank_id, cfg.eos_id, lw, lm=lm_t,
             )
 
         @torch.no_grad()
@@ -167,6 +172,7 @@ def build_decode_fn(
                 eos_id=cfg.eos_id,
                 blank_id=cfg.blank_id,
                 len_weight=lw,
+                lm=lm_t,
                 decode_ctc_weight=decode_ctc_weight,
                 ctc_log_probs=ctc_lp,
                 max_decode_ylen=cfg.max_decode_ylen,
@@ -181,11 +187,10 @@ def build_decode_fn(
             fn = decode_greedy if beam_width <= 1 else decode_ctc_beam
 
         def with_weights(lm_w=None, len_w=None):
-            if lm_w:
-                raise NotImplementedError(LM_FUSION_MESSAGE)
-            return make(lw if len_w is None else float(len_w))
+            lm_w_t = lm_t if lm_t is None or lm_w is None else lm_t._replace(weight=float(lm_w))
+            return make(lw if len_w is None else float(len_w), lm_w_t)
 
         fn.with_weights = with_weights
         return fn
 
-    return make(float(len_weight))
+    return make(float(len_weight), lm)

@@ -7,11 +7,15 @@ with the attention (Transformer) decoder (parity target emoASR
 stamped into the TSV, `test_main` returning
 (lm_weight, len_weight, wer, wer_info), `--runtime` RTF mode using
 utt-id-embedded start/end times, `--nbest` output, checkpoint averaging for
-epoch ranges.  Checkpoints are reference-layout torch `state_dict` files.
+epoch ranges, Transformer-LM shallow fusion (`--lm_weight`, `--lm_conf`,
+`--lm_ep`, `--lm_tag`, or the yaml's `lm_weight`, `lm_conf`, `lm_path`).
+Checkpoints are reference-layout torch `state_dict` files.
 
 Runs on the card unless `--cpu` is given:
 
     python -m emoasr_tpu_torch.eval.test_asr -conf <yaml> -ep <N> --beam_width 8
+    python -m emoasr_tpu_torch.eval.test_asr -conf <l3 yaml> -ep <N> \
+        --lm_weight 0.5 --lm_conf <lm yaml> --lm_ep <M>
 """
 
 from __future__ import annotations
@@ -31,9 +35,11 @@ import pandas as pd
 
 from emoasr_tpu_torch.config import ExpConfig, load_config
 from emoasr_tpu_torch.data.asr_dataset import ASRDataset
-from emoasr_tpu_torch.eval.decode import LM_FUSION_MESSAGE, build_decode_fn
+from emoasr_tpu_torch.eval.decode import build_decode_fn
 from emoasr_tpu_torch.eval.wer import compute_wers_df, wer_info_line
 from emoasr_tpu_torch.models.asr import ASR
+from emoasr_tpu_torch.models.lm.lm import LM, load_lm_state_dict
+from emoasr_tpu_torch.search.common import make_lm_fusion
 from emoasr_tpu_torch.train import checkpoint as ckpt
 from emoasr_tpu_torch.utils.converters import ints2str
 from emoasr_tpu_torch.utils.device import resolve_device, set_matmul_precision
@@ -72,6 +78,17 @@ def load_asr_model(model_path: str, cfg: ExpConfig) -> ASR:
     model = ASR(cfg)
     model.load_state_dict(ckpt.load_state_dict(model_path))
     return model
+
+
+def load_lm(lm_conf: str, lm_path: str):
+    """(`LM` on the CPU in eval mode with the weights of the torch
+    `state_dict` file `lm_path`, its config).  The file's keys may carry the
+    facade's `lm.` prefix or not; an `lm_type` other than `transformer`
+    raises `NotImplementedError` before the file is read."""
+    lm_cfg = load_config(lm_conf)
+    lm_model = LM(lm_cfg)
+    load_lm_state_dict(lm_model, ckpt.load_state_dict(lm_path))
+    return lm_model.eval(), lm_cfg
 
 
 def _postproc_batch(
@@ -217,6 +234,11 @@ def decode_dataset(
     return rows
 
 
+# the model, LM and decode function of the last call, reused by a call with
+# the same setup (a grid over lm_weight and len_weight); at most one entry
+_SETUP_CACHE: dict = {}
+
+
 def test_main(args, lm_weight=None, len_weight=None):
     cfg = load_config(args.conf)
     device = resolve_device("cpu" if args.cpu else None)
@@ -233,8 +255,7 @@ def test_main(args, lm_weight=None, len_weight=None):
     )
     if lm_weight is None:
         lm_weight = args.lm_weight if args.lm_weight is not None else cfg.lm_weight
-    if lm_weight > 0:
-        raise NotImplementedError(LM_FUSION_MESSAGE)
+    has_lm = lm_weight > 0
     # top-1 decoding everywhere except --nbest: the attention beam may stop
     # a row once its stored best is provably unbeatable
     top1 = not args.nbest
@@ -242,16 +263,36 @@ def test_main(args, lm_weight=None, len_weight=None):
     setup_logging(None, logging.DEBUG if args.debug else logging.INFO)
     logging.info(f"***** {' '.join(sys.argv)}")
 
-    model_path = get_model_path(args.conf, args.ep)
-    if not os.path.exists(model_path):
-        ckpt.model_average(args.conf, args.ep)
-    logging.info(f"ASR: {model_path} on {device}")
-    model = load_asr_model(model_path, cfg)
-    # for a CTC model decode_ctc_weight only names the result file: it has
-    # no second score to weigh
-    decode_fn = build_decode_fn(
-        model, cfg, beam_width, len_weight, decode_ctc_weight, top1=top1, device=device
-    )
+    setup_key = (args.conf, str(args.ep), beam_width, decode_ctc_weight, args.lm_conf, args.lm_ep,
+                 has_lm, top1, str(device))
+    cached = _SETUP_CACHE.get(setup_key)
+    if cached is None:
+        lm_fusion, lm_tag = None, ""
+        if has_lm:
+            lm_conf = args.lm_conf or rel_to_abs_path(cfg.lm_conf)
+            lm_path = (get_model_path(lm_conf, args.lm_ep) if args.lm_ep is not None
+                       else rel_to_abs_path(cfg.lm_path))
+            logging.info(f"LM: {lm_path} on {device}")
+            lm_model, lm_cfg = load_lm(lm_conf, lm_path)
+            lm_fusion = make_lm_fusion(lm_model.to(device), lm_weight)
+            lm_tag = lm_cfg.lm_type if args.lm_tag is None else args.lm_tag
+
+        model_path = get_model_path(args.conf, args.ep)
+        if not os.path.exists(model_path):
+            ckpt.model_average(args.conf, args.ep)
+        logging.info(f"ASR: {model_path} on {device}")
+        model = load_asr_model(model_path, cfg)
+        # for a CTC model decode_ctc_weight only names the result file: it
+        # has no second score to weigh
+        base_decode_fn = build_decode_fn(
+            model, cfg, beam_width, len_weight, decode_ctc_weight, lm=lm_fusion, top1=top1,
+            device=device,
+        )
+        cached = (base_decode_fn, lm_tag)
+        _SETUP_CACHE.clear()  # hold at most one setup
+        _SETUP_CACHE[setup_key] = cached
+    base_decode_fn, lm_tag = cached
+    decode_fn = base_decode_fn.with_weights(lm_weight, len_weight)
 
     data_path = get_eval_path(args.data)
     data_tag = (
@@ -312,7 +353,7 @@ def test_main(args, lm_weight=None, len_weight=None):
         os.makedirs(results_dir, exist_ok=True)
     result_file = (
         f"result_{data_tag}_beam{beam_width:d}_len{len_weight:.1f}"
-        f"_ctc{decode_ctc_weight:.1f}_lm{lm_weight:.2f}_ep{args.ep}.tsv"
+        f"_ctc{decode_ctc_weight:.1f}_lm{lm_weight:.2f}{lm_tag}_ep{args.ep}.tsv"
     )
     if args.nbest:
         result_file = result_file.replace(".tsv", "_nbest.tsv")
@@ -355,6 +396,9 @@ def build_argparser():
     parser.add_argument("--len_weight", type=float, default=None)
     parser.add_argument("--decode_ctc_weight", type=float, default=None)
     parser.add_argument("--lm_weight", type=float, default=None)
+    parser.add_argument("--lm_conf", type=str, default=None)
+    parser.add_argument("--lm_ep", type=str, default=None)
+    parser.add_argument("--lm_tag", type=str, default=None)
     return parser
 
 

@@ -5,8 +5,9 @@ Each source in `emoasr_tpu_torch/csrc/` is compiled by `nvcc` for Hopper
 `ctypes`.  Nothing is built when a module is imported: a kernel builds at
 its first launch, or when `build_all` builds every kernel at once (one
 `nvcc` process per source, all started together).  The libraries go to
-`build/kernels/` at the repository root, named by a hash of their source,
-so an edited source builds anew and an unchanged one is reused.
+`build/kernels/` at the repository root, named by a hash of their source
+and of the headers beside it (`csrc/*.cuh`), so an edited source or header
+builds anew and an unchanged one is reused.
 
 A failed build raises with nvcc's output; a failed launch raises with the
 CUDA error string.  There is no fallback to the plain PyTorch version.
@@ -81,9 +82,12 @@ class CudaKernel:
         return os.path.join(CSRC_DIR, self.source)
 
     def lib_path(self) -> str:
-        with open(self.src_path, "rb") as f:
-            digest = hashlib.sha1(f.read() + " ".join([*NVCC_FLAGS, *self.defines]).encode()).hexdigest()
-        return os.path.join(BUILD_DIR, f"lib{self.name}-{digest[:12]}.so")
+        h = hashlib.sha1(" ".join([*NVCC_FLAGS, *self.defines]).encode())
+        headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+        for path in [self.src_path] + [os.path.join(CSRC_DIR, f) for f in headers]:
+            with open(path, "rb") as f:
+                h.update(f.read())
+        return os.path.join(BUILD_DIR, f"lib{self.name}-{h.hexdigest()[:12]}.so")
 
     def _start_build(self) -> Tuple[subprocess.Popen, str, str]:
         out = self.lib_path()

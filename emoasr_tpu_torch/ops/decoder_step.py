@@ -87,6 +87,30 @@ def _dense(x, w, b):
     return (x.float() @ w.float() + b.float()).to(x.dtype)
 
 
+def cached_self_attention(q, k_new, v_new, ck, cv, pos):
+    """One new position per row over per-row caches ck/cv (N, L, H, dk):
+    the columns l < pos plus (k_new, v_new) as an explicit extra column of
+    one softmax; scores in f32, probabilities rounded to the activation
+    dtype before the AV product.  q, k_new, v_new: (N, D).  Returns the
+    attention output (N, H, dk) in the activation dtype."""
+    N, L, H, dk = ck.shape
+    adt, scale = q.dtype, 1.0 / math.sqrt(dk)
+    qh = q.reshape(N, H, dk).float()
+    knh = k_new.reshape(N, H, dk).float()
+    vnh = v_new.reshape(N, H, dk).float()
+    past = (torch.arange(L, device=q.device)[None, :] < pos.reshape(N, 1))[:, None, :]  # l < pos
+    s_past = torch.einsum("nhd,nlhd->nhl", qh, ck.float()) * scale
+    s_past = torch.where(past, s_past, torch.full_like(s_past, NEG_INF))
+    s_new = (qh * knh).sum(-1, keepdim=True) * scale  # (N, H, 1)
+    m = torch.maximum(s_past.max(-1, keepdim=True).values, s_new)
+    e_past = torch.where(past, torch.exp(s_past - m), torch.zeros_like(s_past))
+    e_new = torch.exp(s_new - m)
+    denom = e_past.sum(-1, keepdim=True) + e_new
+    p_past = (e_past / denom).to(adt).float()
+    p_new = (e_new / denom).to(adt).float()
+    return (torch.einsum("nhl,nlhd->nhd", p_past, cv.float()) + p_new * vnh).to(adt)
+
+
 def _step_plain(h, ck, cv, pos, cross_k, cross_v, elens, wt, W):
     """The layer step over per-row caches ck/cv (N, L, H, dk)."""
     N, D = h.shape
@@ -100,21 +124,8 @@ def _step_plain(h, ck, cv, pos, cross_k, cross_v, elens, wt, W):
     q = _dense(hn, wt["wq"], wt["bq"])
     k_new = _dense(hn, wt["wk"], wt["bk"])
     v_new = _dense(hn, wt["wv"], wt["bv"])
-    qh = q.reshape(N, H, dk).float()
-    knh = k_new.reshape(N, H, dk).float()
-    vnh = v_new.reshape(N, H, dk).float()
-    past = (torch.arange(L, device=dev)[None, :] < pos.reshape(N, 1))[:, None, :]  # l < pos
-    s_past = torch.einsum("nhd,nlhd->nhl", qh, ck.float()) * scale
-    s_past = torch.where(past, s_past, torch.full_like(s_past, NEG_INF))
-    s_new = (qh * knh).sum(-1, keepdim=True) * scale  # (N, H, 1)
-    m = torch.maximum(s_past.max(-1, keepdim=True).values, s_new)
-    e_past = torch.where(past, torch.exp(s_past - m), torch.zeros_like(s_past))
-    e_new = torch.exp(s_new - m)
-    denom = e_past.sum(-1, keepdim=True) + e_new
-    p_past = (e_past / denom).to(adt).float()
-    p_new = (e_new / denom).to(adt).float()
-    out = torch.einsum("nhl,nlhd->nhd", p_past, cv.float()) + p_new * vnh
-    x = h + _dense(out.to(adt).reshape(N, D), wt["wo"], wt["bo"])
+    out = cached_self_attention(q, k_new, v_new, ck, cv, pos)
+    x = h + _dense(out.reshape(N, D), wt["wo"], wt["bo"])
 
     # ---- beam-shared cross-attention ----
     hn2 = _layer_norm(x, wt["ln2_s"], wt["ln2_b"])
@@ -160,23 +171,25 @@ class PackedWeights:
     (2-D ones as contiguous (out, in) rows), with the host array of their
     device pointers.  Build one per layer and pass it as `weights` where
     the step runs many times; `source` keeps the dict for the plain
-    versions."""
+    versions.  `names` orders the weights as the kernel takes them; `ff`
+    names the feed-forward's first kernel, its bias and its second kernel
+    (shapes (D, F), (F,), (F, D)); every other kernel is (D, D), every other
+    vector (D,)."""
 
-    def __init__(self, weights: Dict[str, torch.Tensor]):
-        what = "decoder-step kernel"
+    def __init__(self, weights: Dict[str, torch.Tensor], names=WEIGHT_NAMES, ff=("w1", "b1", "w2"),
+                 what: str = "decoder-step kernel"):
         self.source = weights
-        self.D, self.F = weights["w1"].shape
+        self.D, self.F = weights[ff[0]].shape
         D, F = self.D, self.F
-        self.device = weights["w1"].device
+        self.device = weights[ff[0]].device
         self.tensors = []
-        shapes = {"wq": (D, D), "wk": (D, D), "wv": (D, D), "wo": (D, D), "cwq": (D, D),
-                  "cwo": (D, D), "w1": (F, D), "w2": (D, F), "b1": (F,)}
-        for n in WEIGHT_NAMES:
+        shapes = {ff[0]: (F, D), ff[1]: (F,), ff[2]: (D, F)}
+        for n in names:
             w = weights[n].detach()
             if w.dim() == 2:
                 w = w.t()  # (out, in) rows
             w = w.contiguous()
-            if tuple(w.shape) != shapes.get(n, (D,)):
+            if tuple(w.shape) != shapes.get(n, (D, D) if w.dim() == 2 else (D,)):
                 raise ValueError(f"{what}: weight {n} is {tuple(weights[n].shape)}")
             if self.device.type == "cuda":
                 if w.dtype != torch.float32 or w.device != self.device:

@@ -1,12 +1,14 @@
 """Batched label-synchronous beam search for attention decoders, with joint
-CTC prefix scoring and length penalty (PyTorch port of
-`emoasr_tpu/search/attention_beam.py`, without LM fusion).
+CTC prefix scoring, LM shallow fusion and length penalty (PyTorch port of
+`emoasr_tpu/search/attention_beam.py`).
 
 Parity target: emoASR `TransformerDecoder.decode`
 (`asr/modeling/decoders/transformer.py:160-294`):
 - per step: one-step decoder forward, log-softmax scores
+- optional LM fusion added before candidate pre-selection
 - optional joint CTC: pre-select ctc_beam_width = 1.5x beam candidates by
-  the attention score, re-score with (1-w)*att + w*(ctc prefix delta)
+  (att + lm), re-score with (1-w)*(att + lm) + w*(ctc prefix delta) + lm:
+  the reference's effective (2 - w) LM weight, kept
 - global prune to beam_width; beams ending in <eos> are finalized with a
   `len_weight * |hyp|` bonus ("only <eos>" hyps rejected); a batch row stops
   once beam_width results exist and is frozen from then on.
@@ -14,8 +16,7 @@ Parity target: emoASR `TransformerDecoder.decode`
 The whole batch and all beams advance together; a Python loop over label
 steps takes the place of the JAX package's `lax.while_loop` and reads one
 flag back per step (whether any row still runs).  The incremental step
-functions write into the caches in place.  LM shallow fusion comes with
-slice 3b (ROADMAP.md §1).
+functions write into the caches in place.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from emoasr_tpu_torch.search.common import DEAD, gather_beams, topk_lastdim
+from emoasr_tpu_torch.search.common import DEAD, LMFusion, gather_beams, topk_lastdim, tree_map
 from emoasr_tpu_torch.search.ctc_prefix_score import (
     ctc_prefix_initial_state,
     ctc_prefix_score_psi,
@@ -45,7 +46,10 @@ STAGE_BOUNDS = None
 
 
 def _grow(x: torch.Tensor, bound: int) -> torch.Tensor:
-    """Zero-pad axis 2 (the cache length) of a (B, W, Lc, ...) tensor."""
+    """Zero-pad axis 2 (the cache length) of a (B, W, Lc, ...) tensor to
+    `bound`; a tensor that long already stays as it is."""
+    if x.shape[2] >= bound:
+        return x
     pad = [0, 0] * (x.dim() - 3) + [0, bound - x.shape[2]]
     return F.pad(x, pad)
 
@@ -59,6 +63,7 @@ def attention_beam_search(
     eos_id: int = 2,
     blank_id: int = 0,
     len_weight: float = 0.0,
+    lm: Optional[LMFusion] = None,
     decode_ctc_weight: float = 0.0,
     ctc_log_probs: Optional[torch.Tensor] = None,
     max_decode_ylen: int = 256,
@@ -76,6 +81,11 @@ def attention_beam_search(
     third entry, step(tokens, pos (B, W), caches, anc) -> (logits, caches),
     switches to ancestor-indirect caches: they stay in physical slot order
     and the beam permutations compose into the (B, W, Lc) table `anc`.
+
+    `lm`: shallow fusion through an `LMFusion` (search/common.py): its
+    `indirect` protocol where it has one, else its standard fields.  States
+    with a length axis start at the first stage bound and grow with the
+    stages up to the LM's own `state_max_len`.
     Returns (hyps (B, W, Lmax) with the leading eos kept and the trailing
     one where a beam emitted it, lens, scores), results best-first.
 
@@ -109,6 +119,7 @@ def attention_beam_search(
     ctc_lp_T = ctc_log_probs.transpose(1, 2).contiguous() if use_ctc else None
     K2 = min(V, int(W * CTC_BEAM_WIDTH_RATIO)) if use_ctc else W
     lw = float(len_weight)
+    lm_weight = float(lm.weight) if lm is not None else 0.0
 
     if STAGE_BOUNDS is None:
         cand = [max(8, Lmax // 4 // 8 * 8), max(16, Lmax // 2 // 8 * 8)]
@@ -139,6 +150,15 @@ def attention_beam_search(
     res_lens = torch.zeros((B, W), dtype=torch.int64, device=dev)
     res_scores = torch.full((B, W), DEAD, dtype=torch.float32, device=dev)
     res_count = torch.zeros((B,), dtype=torch.int64, device=dev)
+    lm_states = lm_predict = lm_gather = None
+    if lm is not None and lm.indirect is not None:
+        lm_states = lm.indirect.init_states(B, W, stage_bounds[0])
+        lm_predict, lm_gather = lm.indirect.predict_beams, lm.indirect.gather_states
+    elif lm is not None:
+        lm_states = lm.init_states(B, W, stage_bounds[0]) if lm.state_pad_axis is not None \
+            else lm.init_states(B, W)
+        lm_predict = lm.predict_beams
+        lm_gather = lambda states, parent: tree_map(lambda x: gather_beams(x, parent), states)
 
     if cached_step is None:
         eouts_rep = eouts[:, None].expand(B, W, T, E).reshape(B * W, T, E)
@@ -174,6 +194,11 @@ def attention_beam_search(
             caches = [tuple(_grow(x, Lc) for x in kv) for kv in caches]
             if anc is not None:
                 anc = _grow(anc, Lc)
+        if Lc > prev_bound and lm is not None and lm.state_pad_axis is not None:
+            # every leaf, the ancestor table too, on the LM's length axis (2),
+            # up to the LM's own bound, which the decoder's may pass
+            cap = min(Lc, lm.state_max_len)
+            lm_states = tree_map(lambda x: _grow(x, cap), lm_states)
         prev_bound = Lc
         # step cap: the cache write position (lens - 1 <= step + 1) must stay
         # inside this stage's bound
@@ -206,6 +231,10 @@ def attention_beam_search(
                 # every live prefix, so re-encoding the sliced buffer is exact
                 logits = step_fn(flat_hyps[:, :Lc], flat_lens.clamp(max=Lc), eouts_rep, elens_rep)
             scores_pre = torch.log_softmax(logits.to(torch.float32), dim=-1).reshape(B, W, V)
+            if lm is not None:
+                lm_logp, new_lm_states = lm_predict(hyps[:, :, :Lc], lens, lm_states)
+                lm_logp = lm_logp[:, :, :V]
+                scores_pre = scores_pre + lm_weight * lm_logp
 
             if row_caps is not None and step == 0:
                 # a step-0 eos candidate is always rejected ("only <eos>",
@@ -215,8 +244,7 @@ def attention_beam_search(
                 scores_pre[:, :, eos_id] += DEAD
 
             if use_ctc:
-                # pre-select K2 candidates by the attention score
-                # (transformer.py:222-232)
+                # pre-select K2 candidates by att (+ lm) (transformer.py:222-232)
                 pre_sc, v_topb = topk_lastdim(scores_pre, K2)  # (B, W, K2)
                 v_topb = v_topb.long()
                 # psi only: the lattice state advances lazily after selection
@@ -225,10 +253,17 @@ def attention_beam_search(
                 psi = ctc_prefix_score_psi(
                     ctc_lp_T, elens, hyps, lens, v_topb, ctc_state, blank_id, eos_id
                 )
+                # the reference re-scores (1-w)*scores + w*ctc_delta + lm where
+                # `scores` already holds att + lm (it aliases and mutates in
+                # place, transformer.py:220-244): an effective LM weight of
+                # (2-w)*lm_weight, reproduced as the published +CTC+SF
+                # operating points were tuned under it
                 cand_sc = (
                     (1 - decode_ctc_weight) * pre_sc
                     + decode_ctc_weight * (psi - score_ctc[:, :, None])
                 )
+                if lm is not None:
+                    cand_sc = cand_sc + lm_weight * torch.gather(lm_logp, 2, v_topb)
                 # per-parent top-W among the K2 (the reference then pools W*W)
                 sel_sc, sel_i = topk_lastdim(cand_sc, W)  # (B, W, W)
                 sel_i = sel_i.long()
@@ -319,6 +354,9 @@ def attention_beam_search(
                 anc = torch.gather(parent_anc, 1, parent[:, :, None].expand(B, W, Lc))
             elif cached_step is not None:
                 caches = [tuple(gather_beams(x, parent) for x in kv) for kv in caches]
+            if lm is not None:
+                # frozen rows take the new states too: nothing reads them again
+                lm_states = lm_gather(new_lm_states, parent)
             step += 1
 
     order = torch.argsort(-res_scores, dim=1, stable=True)

@@ -1,12 +1,18 @@
 """Batched CTC prefix beam search (PyTorch port of
-`emoasr_tpu/search/ctc_beam.py`, without LM fusion).
+`emoasr_tpu/search/ctc_beam.py`).
 
 Parity target: `CTCDecoder._beam_search`
 (emoASR `asr/modeling/decoders/ctc.py:203-344`): p_b/p_nb prefix
 bookkeeping, per-step top-k token expansion, path merging with logaddexp,
-length reward `len_weight * |hyp|`.  The whole batch advances one encoder
-frame per loop step with (B, W) beam tensors.  The LM score term comes
-with LM fusion (slice 3).
+length reward `len_weight * |hyp|`, optional LM shallow fusion through the
+standard (cached) fields of an `LMFusion`.  The whole batch advances one
+encoder frame per loop step with (B, W) beam tensors.
+
+As in the JAX package, each candidate adds exactly its own token's LM
+log-prob (emoASR accumulates across a parent's top-k candidates in place,
+ctc.py:309-310, an evident bug), and a candidate that extends its beam takes
+the LM state advanced by this frame's prediction while a kept one takes its
+parent's state from before it (ctc.py:286).
 
 Path merging: candidates are identical only when a non-extended beam j
 equals an extended beam i+[v]; identity is tested via double 32-bit rolling
@@ -21,17 +27,19 @@ maximum as `jnp.argmax` does.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from emoasr_tpu_torch.ops.common import LOG_0
 from emoasr_tpu_torch.search.common import (
     DEAD,
+    LMFusion,
     gather_beams,
     hash_extend,
     hash_init,
     topk_lastdim,
+    tree_map,
 )
 
 
@@ -46,7 +54,7 @@ def ctc_beam_search(
     blank_id: int = 0,
     eos_id: int = 2,
     len_weight: float = 0.0,
-    lm=None,
+    lm: Optional[LMFusion] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run prefix beam search over a batch.
 
@@ -54,10 +62,6 @@ def ctc_beam_search(
     Returns (hyps (B, W, Lmax) int32 incl. leading eos, hyp_lens (B, W)
     int32, scores (B, W) float32), beams sorted best-first.
     """
-    if lm is not None:
-        raise NotImplementedError(
-            "LM shallow fusion in the CTC beam comes with slice 3 (ROADMAP.md §1)"
-        )
     B, T, V = log_probs.shape
     W = beam_width
     K = min(beam_width, V)
@@ -65,6 +69,7 @@ def ctc_beam_search(
     dev = log_probs.device
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
     lw = float(len_weight)
+    lm_weight = float(lm.weight) if lm is not None else 0.0
 
     first = torch.arange(W, device=dev)[None, :] == 0  # (1, W)
     hyps = torch.full((B, W, Lmax), blank_id, dtype=i64, device=dev)
@@ -74,7 +79,9 @@ def ctc_beam_search(
     p_b = torch.where(first, 0.0, LOG_0).to(f32).expand(B, W).contiguous()
     p_nb = torch.full((B, W), LOG_0, dtype=f32, device=dev)
     score_asr = torch.where(first, 0.0, DEAD).to(f32).expand(B, W).contiguous()
+    score_lm = torch.zeros((B, W), dtype=f32, device=dev)
     score_len = torch.zeros((B, W), dtype=f32, device=dev)
+    lm_states = lm.init_states(B, W) if lm is not None else None
     n_noneos = torch.zeros((B, W), dtype=i64, device=dev)
 
     C = W * (K + 1)  # candidates per batch row, reference enumeration order
@@ -96,6 +103,8 @@ def ctc_beam_search(
         # per-step top-k candidate tokens (ctc.py:240-247)
         _, v_topk = topk_lastdim(lp_t, K)
         v_topk = v_topk.to(i64)  # (B, K)
+        if lm is not None:
+            lm_logp, new_lm_states = lm.predict_beams(hyps, lens, lm_states)  # (B, W, V)
 
         lp_blank = lp_t[:, blank_id][:, None]  # (B, 1)
         last_tok = torch.gather(hyps, 2, (lens - 1).clamp(min=0)[:, :, None])[:, :, 0]
@@ -117,11 +126,16 @@ def ctc_beam_search(
         # score_len = len_weight * (|strip_eos(hyp)| + 1) (ctc.py:308)
         c2_len = (lw * (n_noneos + 1).to(f32))[:, :, None].expand(B, W, K)
         vb = v.expand(B, W, K)
+        if lm is not None:
+            c2_lm = score_lm[:, :, None] + lm_weight * torch.gather(lm_logp, 2, vb)
+        else:
+            c2_lm = score_lm[:, :, None].expand(B, W, K)
         c2_valid = (v != blank_id) & alive[:, :, None] & (lens[:, :, None] < Lmax - 1)
 
         cand_p_b = interleave(c1_p_b, c2_p_b)
         cand_p_nb = interleave(c1_p_nb, c2_p_nb)
         cand_asr = interleave(c1_asr, c2_p_nb)
+        cand_lm = interleave(score_lm, c2_lm)
         cand_len = interleave(score_len, c2_len)
         cand_ext_tok = interleave(torch.full((B, W), -1, dtype=i64, device=dev), vb)
         is_ext = cand_ext_tok >= 0
@@ -154,7 +168,7 @@ def ctc_beam_search(
         m_p_nb = lse_merge(cand_p_nb)
         m_asr = lse_merge(cand_asr)
 
-        score = m_asr + cand_len
+        score = m_asr + cand_lm + cand_len
         score = torch.where(cand_valid & is_canon, score, torch.full_like(score, DEAD))
 
         # ---- prune to W: lax.top_k order (ties to the lowest index) ----
@@ -184,12 +198,21 @@ def ctc_beam_search(
         p_b = freeze(_take(m_p_b, top_idx), p_b)
         p_nb = freeze(_take(m_p_nb, top_idx), p_nb)
         score_asr = freeze(new_asr, score_asr)
+        score_lm = freeze(_take(cand_lm, top_idx), score_lm)
         score_len = freeze(_take(cand_len, top_idx), score_len)
         n_noneos = freeze(_take(cand_noneos, top_idx), n_noneos)
         h1 = freeze(_take(cand_h1, top_idx), h1)
         h2 = freeze(_take(cand_h2, top_idx), h2)
+        if lm is not None:
+            # an extended candidate takes the advanced state, a kept one its
+            # parent's state from before this frame
+            def keep_parent(new, old):
+                e = ext.reshape(ext.shape + (1,) * (new.dim() - 2))
+                return freeze(torch.where(e, gather_beams(new, parent), gather_beams(old, parent)), old)
 
-    total = score_asr + score_len
+            lm_states = tree_map(keep_parent, new_lm_states, lm_states)
+
+    total = score_asr + score_lm + score_len
     order = torch.argsort(-total, dim=1, stable=True)
     return (
         gather_beams(hyps, order).to(i32),

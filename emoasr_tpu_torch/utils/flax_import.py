@@ -4,9 +4,10 @@
 `emoasr_tpu/utils/torch_import.py::asr_model` for the models ported so far
 (Transformer or Conformer encoder with the conv2d or linear input layer;
 CTC decoder with its optional phone head, or Transformer decoder with its
-optional auxiliary CTC head).  It takes the flax parameter tree (and, for a
-Conformer, the flax `batch_stats` collection) as nested dicts of numpy
-arrays and needs neither JAX nor flax.  A flax gradient tree has the
+optional auxiliary CTC head), and `lm_state_dict(params, lm_cfg)` that of
+`torch_import.py::bert_masked_lm` for the Transformer LM.  It takes the flax
+parameter tree (and, for a Conformer, the flax `batch_stats` collection) as
+nested dicts of numpy arrays and needs neither JAX nor flax.  A flax gradient tree has the
 parameters' structure, so it maps the same way and gradients can be
 compared name by name:
 
@@ -154,4 +155,41 @@ def asr_state_dict(params: Mapping, cfg, batch_stats: Optional[Mapping] = None) 
         raise NotImplementedError(
             f"decoder_type={cfg.decoder_type!r} is not ported yet (ROADMAP.md §1)"
         )
+    return sd
+
+
+def _bert_layer(sd: SD, p: str, layer: Mapping) -> None:
+    for name in ("query", "key", "value"):
+        _dense(sd, f"{p}.attention.self.{name}", layer["self_attn"][name])
+    _dense(sd, f"{p}.attention.output.dense", layer["attn_output"])
+    _layer_norm(sd, f"{p}.attention.output.LayerNorm", layer["attn_norm"])
+    _dense(sd, f"{p}.intermediate.dense", layer["intermediate"])
+    _dense(sd, f"{p}.output.dense", layer["output"])
+    _layer_norm(sd, f"{p}.output.LayerNorm", layer["output_norm"])
+
+
+def lm_state_dict(params: Mapping, lm_cfg) -> SD:
+    """flax `TransformerLM` params (`{"stack": ..., "head": ...}`, or the
+    `LM` facade's `{"lm": {...}}`) -> the port's `TransformerLM` `state_dict`
+    (`transformer.bert.*`, `transformer.cls.*`; the head's bias under both
+    names the port's module gives it, `predictions.bias` and
+    `predictions.decoder.bias`)."""
+    if lm_cfg.lm_type != "transformer":
+        raise NotImplementedError(
+            f"lm_type={lm_cfg.lm_type!r} is not ported yet (ROADMAP.md §1, slice 6)"
+        )
+    params = params.get("lm", params)
+    stack, head = params["stack"], params["head"]
+    p = "transformer.bert."
+    sd: SD = {}
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        sd[f"{p}embeddings.{name}.weight"] = _t(stack[name]["embedding"])
+    _layer_norm(sd, f"{p}embeddings.LayerNorm", stack["emb_norm"])
+    for i in range(lm_cfg.num_layers):
+        _bert_layer(sd, f"{p}encoder.layer.{i}", stack[f"layers_{i}"])
+    c = "transformer.cls.predictions."
+    _dense(sd, f"{c}transform.dense", head["transform_dense"])
+    _layer_norm(sd, f"{c}transform.LayerNorm", head["transform_norm"])
+    _dense(sd, f"{c}decoder", head["decoder"])
+    sd[f"{c}bias"] = sd[f"{c}decoder.bias"]
     return sd

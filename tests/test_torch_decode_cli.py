@@ -14,8 +14,10 @@ imports through utils/torch_import.py).
   the same weights as the JAX package's.
 - A tiny L3-1 model (Conformer encoder, Transformer decoder, joint CTC 0.3,
   length weight 2, beam 3, one layer each, d=32, V=50): the two CLIs write the
-  same TSV, top-1 and `--nbest`, with `dec_step_mode` auto and fused_indirect;
-  LM fusion still raises, naming its slice.
+  same TSV, top-1 and `--nbest`, with `dec_step_mode` auto and fused_indirect.
+- The same model decoded as L3-3, with a tiny Transformer LM fused at weight
+  0.5 (`--lm_weight 0.5 --lm_conf <lm yaml> --lm_ep 1`; the port's fused LM
+  step on): the two CLIs write the same TSV under the same name.
 
 Sizes: 2 layers, d=32, 4 heads, F=20, V=300; weights and features from
 numpy seeds.  Tolerance: exact (token ids, text, WER line), except n-best
@@ -46,6 +48,7 @@ from emoasr_tpu_torch.train import checkpoint as port_ckpt
 from emoasr_tpu_torch.utils.flax_import import asr_state_dict
 from test_torch_conformer import L3_SMALL, random_l3_params
 from test_torch_encoder import SMALL, random_flax_params
+from test_torch_lm import LM_SMALL, lm_pair
 
 V, F = 300, 20
 
@@ -244,5 +247,39 @@ def test_l3_1_cli_matches_jax_cli(tmp_path, mode):
     pd.testing.assert_frame_equal(got.drop(columns="score_asr"), ref.drop(columns="score_asr"))
     np.testing.assert_allclose(got["score_asr"], ref["score_asr"], atol=1e-4, rtol=0)
 
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        port_cli.main(["-conf", conf, "-ep", "1", "--cpu", "--lm_weight", "0.5"])
+
+def test_l3_3_cli_with_lm_matches_jax_cli(tmp_path, monkeypatch):
+    """Joint CTC 0.3 and Transformer-LM shallow fusion 0.5 through both CLIs:
+    the same rows, WER line and file name (`..._lm0.50transformer_ep1.tsv`).
+    The port runs the fused decoder and LM steps (their plain versions on
+    the CPU), the JAX CLI its fused decoder step and its dense LM step."""
+    import emoasr_tpu_torch.models.lm.bert as bert_mod
+
+    base = dict(L3_SMALL, enc_num_layers=1, dec_num_layers=1, beam_width=3, len_weight=2.0,
+                decode_ctc_weight=0.3, max_decode_ylen=10)
+    l3_params, l3_stats = random_l3_params(base, seed=12)
+    l3_params["decoder"]["output"]["bias"][2] += 3.0  # beams do end
+    tsv, vocab = _corpus(str(tmp_path), [60, 75, 90, 101, 120])  # one bucket
+    conf = _experiment(str(tmp_path), "l3", tsv, vocab, l3_params, base=base, batch_stats=l3_stats,
+                       dec_step_mode="fused_indirect", enc_fused_attn=True, buckets=[[128, 16]], batch_size=8)
+    lm_conf = dict(LM_SMALL, vocab_size=50)
+    _, _, lm = lm_pair(lm_conf, seed=13)
+    lm_path = os.path.join(str(tmp_path), "lm.yaml")
+    with open(lm_path, "w") as f:
+        yaml.safe_dump(lm_conf, f)
+    port_ckpt.save_state_dict(lm.state_dict(), os.path.join(str(tmp_path), "lm", "checkpoints", "model.ep1"))
+
+    argv = ["-conf", conf, "-ep", "1", "--lm_weight", "0.5", "--lm_conf", lm_path, "--lm_ep", "1"]
+    jax_cli.test_main(jax_cli.build_argparser().parse_args(argv + ["--save_dir", "jax"]))
+    monkeypatch.setattr(bert_mod, "FUSED_INDIRECT_STEP", True)
+    out = port_cli.main(argv + ["--cpu", "--save_dir", "torch"])
+    assert out[0] == 0.5 and out[1] == 2.0
+    res = os.path.join(os.path.splitext(conf)[0], "results")
+    name = "result_test_beam3_len2.0_ctc0.3_lm0.50transformer_ep1.tsv"
+    assert os.listdir(os.path.join(res, "torch")) == os.listdir(os.path.join(res, "jax")) == [name]
+    ref = pd.read_table(os.path.join(res, "jax", name), comment="#")
+    got = pd.read_table(os.path.join(res, "torch", name), comment="#")
+    assert len(got) == 5 and got["token_id"].notna().all()
+    pd.testing.assert_frame_equal(got, ref)
+    with open(os.path.join(res, "torch", name)) as f, open(os.path.join(res, "jax", name)) as g:
+        assert f.readline() == g.readline() == "# " + out[3] + "\n"

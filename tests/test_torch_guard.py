@@ -54,7 +54,9 @@ def test_imports_no_jax_and_nothing_of_the_jax_package():
                 "emoasr_tpu_torch.train.step", "emoasr_tpu_torch.train.checkpoint",
                 "emoasr_tpu_torch.ops.decoder_step", "emoasr_tpu_torch.models.decoders.transformer",
                 "emoasr_tpu_torch.search.ctc_prefix_score", "emoasr_tpu_torch.search.attention_beam",
-                "emoasr_tpu_torch.eval.decode", "emoasr_tpu_torch.utils.flax_import"):
+                "emoasr_tpu_torch.eval.decode", "emoasr_tpu_torch.utils.flax_import",
+                "emoasr_tpu_torch.ops.lm_step", "emoasr_tpu_torch.models.lm.bert",
+                "emoasr_tpu_torch.models.lm.lm"):
         assert mod in res["modules"]
 
 
@@ -122,27 +124,50 @@ def test_entry_points_raise_without_cuda(tmp_path):
 
 
 def test_lm_fusion_raises_and_names_its_slice(tmp_path):
-    """Shallow fusion is slice 3b: the CLI and `with_weights` say so."""
+    """Shallow fusion takes the Transformer LM; every other `lm_type` waits
+    for slice 6 and says so, from the LM facade, the fusion adapter, the
+    weight importer and the CLI (before it reads any checkpoint).  Without
+    an LM, `with_weights` has no LM term to weigh."""
     from emoasr_tpu_torch.config import config_from_dict
     from emoasr_tpu_torch.eval import test_asr
     from emoasr_tpu_torch.eval.decode import build_decode_fn
     from emoasr_tpu_torch.models.asr import ASR
+    from emoasr_tpu_torch.models.lm.lm import LM
+    from emoasr_tpu_torch.search.common import make_lm_fusion
+    from emoasr_tpu_torch.utils.flax_import import lm_state_dict
 
     cfg = config_from_dict(dict(
         feat_dim=20, enc_hidden_size=16, enc_num_attention_heads=2,
         enc_num_layers=1, enc_intermediate_size=32, vocab_size=10,
     ))
     fn = build_decode_fn(ASR(cfg), cfg, beam_width=2, device="cpu")
-    assert callable(fn.with_weights(None, 0.5)) and callable(fn.with_weights(0.0, None))
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        fn.with_weights(0.3, None)
-    conf = tmp_path / "exp.yaml"
-    conf.write_text("feat_dim: 20\nlm_weight: 0.3\n")
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        test_asr.main(["-conf", str(conf), "-ep", "1", "--cpu"])
+    assert callable(fn.with_weights(None, 0.5)) and callable(fn.with_weights(0.3, None))
+    for lm_type in ("rnn", "bert"):
+        lm_cfg = config_from_dict(dict(lm_type=lm_type, vocab_size=10, hidden_size=16, num_layers=1,
+                                       num_attention_heads=2, intermediate_size=32))
+        with pytest.raises(NotImplementedError, match="slice 6"):
+            LM(lm_cfg)
+        with pytest.raises(NotImplementedError, match="slice 6"):
+            make_lm_fusion(_WithCfg(lm_cfg), 0.5)
+        with pytest.raises(NotImplementedError, match="slice 6"):
+            lm_state_dict({}, lm_cfg)
+        lm_conf = tmp_path / f"{lm_type}.yaml"
+        lm_conf.write_text(f"lm_type: {lm_type}\nvocab_size: 10\n")
+        conf = tmp_path / "exp.yaml"
+        conf.write_text(f"feat_dim: 20\nlm_weight: 0.3\nlm_conf: {lm_conf}\nlm_path: nowhere\n")
+        with pytest.raises(NotImplementedError, match="slice 6"):
+            test_asr.main(["-conf", str(conf), "-ep", "1", "--cpu"])
     with pytest.raises(ValueError, match="dec_step_mode"):
         bad = config_from_dict(dict(feat_dim=20, vocab_size=10, dec_step_mode="quick"))
         build_decode_fn(ASR(bad), bad, device="cpu")
+
+
+class _WithCfg(torch.nn.Module):
+    """A module that carries an LM config, as the LM facade does."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.cfg = cfg
 
 
 def test_every_entry_point_sets_the_tf32_switches(tmp_path, monkeypatch):

@@ -7,8 +7,8 @@ card, run them without the JAX test configuration:
 
 The cases and tolerances are those of `chip_smoke.py` (top-k exact;
 attention forward f32 within 1e-5, bf16 within 2e-2, with and without the
-score bias; attention backward, CTC head, CTC lattice and the decoder layer
-step: the constants beside their checks there).
+score bias; attention backward, CTC head, CTC lattice, the decoder layer
+step and the LM layer step: the constants beside their checks there).
 """
 
 import pytest
@@ -117,6 +117,41 @@ def test_decoder_step_rejects_what_it_does_not_take(cuda_dev):
         ds.fused_decoder_layer_step_indirect(
             big["h"], big["cache_k"], big["cache_v"], big["pos"], big["anc"], big["cross_k"],
             big["cross_v"], big["elens"], big["weights"], beam_width=16)
+
+
+def test_lm_step_kernel_matches_plain(cuda_dev):
+    from emoasr_tpu_torch.ops import lm_step
+
+    before = lm_step.KERNEL.launches
+    chip_smoke.check_lm_step(*cuda_dev)
+    assert lm_step.KERNEL.launches - before == 8  # four cases: the step, and the step on gathered caches
+
+
+def test_lm_step_rejects_what_it_does_not_take(cuda_dev):
+    from emoasr_tpu_torch.ops import lm_step
+
+    dev, gen = cuda_dev
+    c = chip_smoke.lm_step_case(dev, gen, 2, 3, 6, 2, 32, 64)
+    args = lambda **over: {**dict(h=c["h"], cache_k=c["cache_k"], cache_v=c["cache_v"], pos=c["pos"],
+                                  anc=c["anc"], weights=c["weights"]), **over}
+    y, k_new, v_new = lm_step.fused_bert_layer_step_indirect(**args())
+    assert y.shape == (2, 3, 32) and k_new.shape == v_new.shape == (2, 3, 2, 16)
+    with pytest.raises(TypeError):  # float32 only
+        lm_step.fused_bert_layer_step_indirect(**args(h=c["h"].bfloat16()))
+    with pytest.raises(TypeError):
+        lm_step.fused_bert_layer_step_indirect(**args(weights={k: v.bfloat16() for k, v in c["weights"].items()}))
+    with pytest.raises(ValueError):  # an ancestor table of the wrong length
+        lm_step.fused_bert_layer_step_indirect(**args(anc=c["anc"][:, :, :5]))
+    with pytest.raises(ValueError):  # a strided cache
+        lm_step.fused_bert_layer_step_indirect(**args(cache_k=c["cache_k"].transpose(2, 3).contiguous().transpose(2, 3)))
+    wide = chip_smoke.lm_step_case(dev, gen, 1, 17, 4, 2, 32, 64)
+    with pytest.raises(ValueError):  # W > 16
+        lm_step.fused_bert_layer_step_indirect(wide["h"], wide["cache_k"], wide["cache_v"], wide["pos"],
+                                               wide["anc"], wide["weights"])
+    big = chip_smoke.lm_step_case(dev, gen, 1, 16, 4, 8, 512, 4096)
+    with pytest.raises(ValueError, match="shared memory"):
+        lm_step.fused_bert_layer_step_indirect(big["h"], big["cache_k"], big["cache_v"], big["pos"],
+                                               big["anc"], big["weights"])
 
 
 def test_attention_backward_and_dropout_match_plain(cuda_dev):
