@@ -12,8 +12,9 @@ Phases (any failed check raises, so the script exits non-zero):
 3. Kernels against their plain PyTorch versions on the card, forward and
    backward, each with its stated tolerance (top-k exact; attention forward
    f32 1e-5, bf16 2e-2, with and without the score bias; attention backward,
-   CTC head, CTC lattice, the decoder layer step, direct and indirect, and
-   the LM layer step: see the constants beside their checks).
+   CTC head, CTC lattice, the decoder layer step, direct and indirect, the
+   LM layer step, the RNN-T joint and the LSTM recurrence: see the
+   constants beside their checks).
 4. Training at the full width of the L1 CTC(Transformer) model (12 x 256,
    4 heads, FF 2048, V = 10000, SpecAugment and dropout on,
    `enc_fused_attn: true`, random initial weights from `--seed`): one epoch
@@ -53,7 +54,18 @@ Phases (any failed check raises, so the script exits non-zero):
    scores, top-1 hypotheses); where one large batch's time goes without
    the LM and with either route, and the device's busy share of it; one
    CTC beam-8 decode of the L1 `model.ep1` with the LM in `cached` mode.
-10. Every kernel timed at the largest bucket beside its plain version and
+10. The L4 RNN-T(Conformer) model at full width (12 x 256 Conformer,
+   embedding 128, 1 x 512 LSTM prediction network, joint 512, V = 1000,
+   `rnnt_joint_mode: pallas`, `enc_fused_attn: true`, SpecAugment and
+   dropout on, weights from `--seed`): one epoch of 10 micro-steps over the
+   five L4 buckets through the train CLI, with K7 = K8 forward = K8
+   backward launches = micro-steps; one micro-step against the CPU; where
+   one largest-bucket micro-step's time goes; then the trainer's
+   `model.ep1` through the eval CLI over an 80-utterance corpus, greedy and
+   with the ALSD beam at width 10 (K8 launched no time: the prediction
+   network steps one token at a time), and one batch's greedy and top-1
+   beam hypotheses equal on the card and the CPU.
+11. Every kernel timed at the largest bucket beside its plain version and
    one library call; one JSON line describing each kernel, the `nvidia-smi`
    line, and last the `{"ok": true, "device": ...}` line.
 
@@ -80,6 +92,7 @@ L2_CONF = os.path.join(REPO, "configs", "libri", "l2_ctc_conformer.yaml")
 L3_1_CONF = os.path.join(REPO, "configs", "libri", "l3_1_ctc_joint.yaml")
 L3_3_CONF = os.path.join(REPO, "configs", "libri", "l3_transformer_conformer.yaml")
 LM_CONF = os.path.join(REPO, "configs", "lm", "libri_transformer.yaml")
+L4_CONF = os.path.join(REPO, "configs", "libri", "l4_rnnt_conformer.yaml")
 
 # published peaks of one H100 SXM (NVIDIA data sheet; dense, 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -865,6 +878,153 @@ def time_lm_step(dev, gen, Bu: int, W: int, L: int, pos: int) -> dict:
     return {"lm_step_indirect": row}
 
 
+# K7: log-probabilities (magnitudes about log V ~ 7-8) from float32 sums of
+# J = 512 products in another order than the plain version's matrix
+# product: atol 1e-4.
+RNNT_JOINT_TOL = 1e-4
+
+
+def rnnt_joint_case(dev, gen, B: int, T: int, U1: int, J: int, V: int):
+    """Joint activations, an output layer in `nn.Linear`'s (V, J) layout and
+    labels with eos padding (a valid id, as the trainer pads)."""
+    h_enc = torch.randn(B, T, J, generator=gen, device=dev)
+    h_dec = torch.randn(B, U1, J, generator=gen, device=dev)
+    weight = torch.randn(V, J, generator=gen, device=dev) / J ** 0.5
+    bias = 0.1 * torch.randn(V, generator=gen, device=dev)
+    labels = torch.randint(1, V, (B, U1 - 1), generator=gen, device=dev)
+    labels[:, (U1 - 1) // 2:] = 2
+    return h_enc, h_dec, weight, bias, labels
+
+
+def check_rnnt_joint(dev, gen) -> float:
+    """K7 forward against its plain version (the chunked dense product):
+    U+1 not a multiple of anything, V = 1000 and 4000, B not a multiple of
+    anything, T below the plain version's chunk, the weight read in place
+    as `weight.t()` and contiguous."""
+    from emoasr_tpu_torch.ops.rnnt import joint_gather_plain
+    from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather
+
+    worst = 0.0
+    for shape, transposed in (((18, 399, 129, 512, 1000), True), ((5, 23, 37, 512, 4000), True),
+                              ((3, 41, 13, 512, 1000), False), ((7, 9, 2, 96, 257), True)):
+        h_enc, h_dec, weight, bias, labels = rnnt_joint_case(dev, gen, *shape)
+        w = weight.t() if transposed else weight.t().contiguous()
+        with torch.no_grad():
+            got = fused_joint_gather(h_enc, h_dec, w, bias, labels, 0)
+            want = joint_gather_plain(h_enc, h_dec, w, bias, labels, 0)
+        torch.cuda.synchronize()
+        tag = f"rnnt joint {shape}{' weight.t()' if transposed else ''}"
+        errs = [_require_close(f"{tag} {what}", a, b, RNNT_JOINT_TOL, 0.0)
+                for what, a, b in zip(("lp_blank", "lp_label"), got, want)]
+        worst = max(worst, *errs)
+        print(f"  {tag}: lp_blank {errs[0]:.2e}, lp_label {errs[1]:.2e} (tol {RNNT_JOINT_TOL})")
+    return worst
+
+
+# K8: the forward's outputs are O(1) after up to 129 steps of float32 dot
+# products of 512 terms in another order: atol 1e-5.  The backward carries
+# d h through the same steps back and sums d w_hh over B T terms: each
+# gradient within 1e-5 + 1e-4 of its largest entry.
+LSTM_FWD_TOL = 1e-5
+LSTM_BWD_TOL = (1e-5, 1e-4)
+
+
+def lstm_case(dev, gen, B: int, T: int, H: int, zero_state: bool = False):
+    x_proj = 0.5 * torch.randn(B, T, 4 * H, generator=gen, device=dev)
+    w_hh = torch.randn(4 * H, H, generator=gen, device=dev) / H ** 0.5
+    h0 = torch.zeros(B, H, device=dev) if zero_state else 0.5 * torch.randn(B, H, generator=gen, device=dev)
+    c0 = torch.zeros(B, H, device=dev) if zero_state else 0.5 * torch.randn(B, H, generator=gen, device=dev)
+    cots = (torch.randn(B, T, H, generator=gen, device=dev), torch.randn(B, H, generator=gen, device=dev),
+            torch.randn(B, H, generator=gen, device=dev))
+    return x_proj, w_hh, h0, c0, cots
+
+
+def check_lstm(dev, gen) -> dict:
+    """K8 forward (ys, h_T, c_T) and backward (d x_proj, d w_hh, d h0, d c0)
+    against the plain versions: the prediction network's largest bucket,
+    B = 50 (the backward stages the batch in tiles), H not a multiple of
+    128, T = 8 (the threshold), and zero and nonzero initial states."""
+    from emoasr_tpu_torch.ops.lstm_scan import lstm_bwd_plain, lstm_fwd_plain, lstm_scan_fused
+
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for shape, zero in (((18, 129, 512), True), ((5, 9, 512), False), ((50, 49, 512), True),
+                        ((3, 20, 136), False), ((7, 8, 40), False)):
+        x_proj, w_hh, h0, c0, (g_ys, g_h, g_c) = lstm_case(dev, gen, *shape, zero_state=zero)
+        ins = [t.clone().requires_grad_(True) for t in (x_proj, w_hh, h0, c0)]
+        ys, (hT, cT) = lstm_scan_fused(*ins)
+        grads = torch.autograd.grad((ys, hT, cT), ins, (g_ys, g_h, g_c))
+        with torch.no_grad():
+            p_ys, p_h, p_c, gates, hcprev = lstm_fwd_plain(x_proj, w_hh, h0, c0)
+            p_grads = lstm_bwd_plain(gates, hcprev, g_ys, g_h, g_c, w_hh)
+        torch.cuda.synchronize()
+        tag = f"lstm {shape}{' zero state' if zero else ''}"
+        fwd = [_require_close(f"{tag} {what}", a, b, LSTM_FWD_TOL, 0.0)
+               for what, a, b in zip(("ys", "h_T", "c_T"), (ys, hT, cT), (p_ys, p_h, p_c))]
+        bwd = [_require_close(f"{tag} {what}", a, b, *LSTM_BWD_TOL)
+               for what, a, b in zip(("d x_proj", "d w_hh", "d h0", "d c0"), grads, p_grads)]
+        worst = {"fwd": max(worst["fwd"], *fwd), "bwd": max(worst["bwd"], *bwd)}
+        print(f"  {tag}: ys {fwd[0]:.2e} h_T {fwd[1]:.2e} c_T {fwd[2]:.2e}; d x_proj {bwd[0]:.2e} d w_hh "
+              f"{bwd[1]:.2e} d h0 {bwd[2]:.2e} d c0 {bwd[3]:.2e}")
+    return worst
+
+
+def time_rnnt_joint(dev, gen, B: int, T: int, U1: int, J: int, V: int) -> dict:
+    """K7 forward at the largest training bucket beside its plain version;
+    the library route is the chunked mode's forward (`rnnt_gathered_from_
+    joint`, 32-frame chunks of cuBLAS products): no single call computes it."""
+    from emoasr_tpu_torch.ops.rnnt import joint_gather_plain, rnnt_gathered_from_joint
+    from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather
+
+    h_enc, h_dec, weight, bias, labels = rnnt_joint_case(dev, gen, B, T, U1, J, V)
+    w = weight.t()
+    row = {}
+    with torch.no_grad():
+        for key, fn in (("ms", fused_joint_gather), ("plain_ms", joint_gather_plain),
+                        ("library_ms", rnnt_gathered_from_joint)):
+            row[key] = cuda_time_ms(lambda: fn(h_enc, h_dec, w, bias, labels, 0), iters=3, warmup=1)
+    U = U1 - 1
+    row.update(_bound(4 * (B * T * J + B * U1 * J + J * V + V + B * U + B * T * U1 + B * T * U),
+                      2.0 * B * T * U1 * J * V))
+    row["shape"] = f"h_enc ({B},{T},{J}), h_dec ({B},{U1},{J}), w ({J},{V}), float32"
+    return {"rnnt_joint": row}
+
+
+def time_lstm(dev, gen, B: int, T: int, H: int, I: int) -> dict:
+    """K8 forward and backward at the prediction network's largest bucket
+    beside the plain versions; the library route is cuDNN's `nn.LSTM` of the
+    same layer (input size I), its input projection included."""
+    from emoasr_tpu_torch.ops.lstm_scan import lstm_bwd_plain, lstm_fwd_plain, lstm_scan_fused
+
+    x_proj, w_hh, h0, c0, cots = lstm_case(dev, gen, B, T, H)
+    cudnn = torch.nn.LSTM(I, H, batch_first=True).to(dev)
+    x = torch.randn(B, T, I, generator=gen, device=dev)
+    rows = {"lstm_fwd": {}, "lstm_bwd": {}}
+    with torch.no_grad():
+        rows["lstm_fwd"]["ms"] = cuda_time_ms(lambda: lstm_scan_fused(x_proj, w_hh, h0, c0), iters=20, warmup=2)
+        rows["lstm_fwd"]["plain_ms"] = cuda_time_ms(lambda: lstm_fwd_plain(x_proj, w_hh, h0, c0), iters=5, warmup=1)
+        rows["lstm_fwd"]["library_ms"] = cuda_time_ms(lambda: cudnn(x, (h0[None], c0[None])), iters=20, warmup=2)
+        _, _, _, gates, hcprev = lstm_fwd_plain(x_proj, w_hh, h0, c0)
+    ins = [t.clone().requires_grad_(True) for t in (x_proj, w_hh, h0, c0)]
+    ys, (hT, cT) = lstm_scan_fused(*ins)
+    rows["lstm_bwd"]["ms"] = cuda_time_ms(_grad_timer((ys, hT, cT), ins, cots), iters=20, warmup=2)
+    with torch.no_grad():
+        rows["lstm_bwd"]["plain_ms"] = cuda_time_ms(lambda: lstm_bwd_plain(gates, hcprev, *cots, w_hh), iters=5,
+                                                    warmup=1)
+    x_ = x.clone().requires_grad_(True)
+    out, (hn, cn) = cudnn(x_, (h0[None], c0[None]))
+    lib_in = [x_, *cudnn.parameters()]
+    rows["lstm_bwd"]["library_ms"] = cuda_time_ms(
+        _grad_timer((out, hn, cn), lib_in, (cots[0], cots[1][None], cots[2][None])), iters=20, warmup=2)
+    H4 = 4 * H
+    fwd_io = 4 * (B * T * H4 + H4 * H + 2 * B * H + B * T * H + T * B * H4 + T * B * 2 * H + 2 * B * H)
+    bwd_io = 4 * (T * B * H4 + T * B * 2 * H + B * T * H + 2 * B * H + H4 * H + B * T * H4 + H4 * H + 2 * B * H)
+    rows["lstm_fwd"].update(_bound(fwd_io, 2.0 * B * T * H4 * H + 10.0 * B * T * H))
+    rows["lstm_bwd"].update(_bound(bwd_io, 4.0 * B * T * H4 * H + 20.0 * B * T * H))
+    for r in rows.values():
+        r["shape"] = f"x_proj ({B},{T},{H4}), w_hh ({H4},{H}) float32, {T} dependent steps"
+    return rows
+
+
 def _grad_timer(outs, inputs, cots):
     """A closure that runs the backward from `outs` to `inputs` once."""
     return lambda: torch.autograd.grad(outs, inputs, cots, retain_graph=True)
@@ -981,9 +1141,13 @@ def time_attention_backward(dev, gen, B: int, T: int, H: int, D: int, lens: torc
 
 # the kernels' launchers, by the name each has on the `kernels` line
 def launch_counts() -> dict:
-    from emoasr_tpu_torch.ops import attention, ctc_head, ctc_lattice, decoder_step, lm_step, topk
+    from emoasr_tpu_torch.ops import (attention, ctc_head, ctc_lattice, decoder_step, lm_step, lstm_scan,
+                                      rnnt_joint, topk)
 
     return {
+        "rnnt_joint": rnnt_joint.KERNEL.counts["emo_rnnt_joint_f32"],
+        "lstm_fwd": lstm_scan.KERNEL.counts["emo_lstm_fwd_f32"],
+        "lstm_bwd": lstm_scan.KERNEL.counts["emo_lstm_bwd_f32"],
         "lm_step_indirect": lm_step.KERNEL.counts["emo_lm_step_indirect_f32"],
         "attention_bias_fwd": attention.KERNEL.counts["bias_fwd"],
         "attention_bias_bwd": attention.KERNEL.counts["bias_bwd"],
@@ -1002,10 +1166,12 @@ def launch_counts() -> dict:
 
 
 def all_kernels() -> list:
-    from emoasr_tpu_torch.ops import attention, ctc_head, ctc_lattice, decoder_step, lm_step, topk
+    from emoasr_tpu_torch.ops import (attention, ctc_head, ctc_lattice, decoder_step, lm_step, lstm_scan,
+                                      rnnt_joint, topk)
 
     return [topk.KERNEL, attention.KERNEL, ctc_head.KERNEL, ctc_lattice.KERNEL,
-            decoder_step.KERNEL, decoder_step.KERNEL_INDIRECT, lm_step.KERNEL]
+            decoder_step.KERNEL, decoder_step.KERNEL_INDIRECT, lm_step.KERNEL, rnnt_joint.KERNEL,
+            lstm_scan.KERNEL]
 
 
 def reset_launch_counts() -> None:
@@ -1136,7 +1302,7 @@ def train_full_width(args, root: str, card: str) -> dict:
             "ctc_alpha": n_steps, "ctc_beta_grad": n_steps,
             "attention_fwd": cfg.enc_num_layers * n_steps, "attention_bwd": cfg.enc_num_layers * n_steps,
             "topk": 0, "attention_bias_fwd": 0, "attention_bias_bwd": 0, "decoder_step": 0,
-            "decoder_step_indirect": 0, "lm_step_indirect": 0}
+            "decoder_step_indirect": 0, "lm_step_indirect": 0, "rnnt_joint": 0, "lstm_fwd": 0, "lstm_bwd": 0}
     require(launches == want, f"training launches {launches}, want {want}")
 
     ckpt = os.path.join(os.path.splitext(conf_path)[0], "checkpoints", "model.ep1")
@@ -1172,13 +1338,17 @@ def train_full_width(args, root: str, card: str) -> dict:
 # no path, which hold only the softmax term, so the weight is compared
 # vocabulary column by column (5e-3 of the column's own largest entry + 1e-7)
 # and the bias in two groups (columns on a path of this batch, the others).
+# The L4 micro-step is held to the same: its sums differ in order in K4, K7
+# (J = 512 products), K8 (129 steps) and the chunked joint backward; its
+# lattice runs in float64 on both sides.
 STEP_TOL = {"loss": 1e-4, "grad": 5e-3, "grad_floor": 1e-5, "column_atol": 1e-7}
 
 
-def check_micro_step(tr: dict, dev) -> dict:
+def check_micro_step(tr: dict, dev, want_used: dict) -> dict:
     """Loss and gradients of one micro-step at full width, 4 rows of the
-    400-frame bucket, dropout and SpecAugment off: the card (kernels)
-    against the CPU (plain versions), on the trainer's checkpoint."""
+    400-frame bucket, dropout and SpecAugment off: the card (kernels, each
+    launched as often as `want_used` says) against the CPU (plain
+    versions), on the trainer's checkpoint."""
     from emoasr_tpu_torch.data.asr_dataset import ASRDataset
     from emoasr_tpu_torch.eval.test_asr import load_asr_model
 
@@ -1192,20 +1362,18 @@ def check_micro_step(tr: dict, dev) -> dict:
         model = load_asr_model(tr["ckpt"], cfg).to(d).eval()
         t = {k: torch.from_numpy(v).to(d) for k, v in batch.items() if isinstance(v, np.ndarray)}
         before = launch_counts()
-        loss, _ = model(t["xs"], t["xlens"], t["ys"], t["ylens"])
+        loss, _ = model(t["xs"], t["xlens"], t["ys"], t["ylens"], t["ys_in"])
         params = dict(model.named_parameters())
         grads = torch.autograd.grad(loss, list(params.values()))
         used = {k: launch_counts()[k] - before[k] for k in before}
         if name == "cuda":
-            require(used["ctc_head_fwd"] == used["ctc_head_grad_e"] == used["ctc_head_grad_w"] == 1
-                    and used["ctc_alpha"] == used["ctc_beta_grad"] == 1
-                    and used["attention_fwd"] == used["attention_bwd"] == cfg.enc_num_layers,
-                    f"the micro-step check did not go through the kernels: {used}")
+            require(all(used[k] == n for k, n in want_used.items()),
+                    f"the micro-step check did not go through the kernels: {used}, want {want_used}")
         res[name] = (loss.item(), {k: g.cpu() for k, g in zip(params, grads)})
     (l1, g1), (l0, g0) = res["cuda"], res["cpu"]
     require(np.isfinite(l1) and abs(l1 - l0) <= STEP_TOL["loss"] * abs(l0),
             f"micro-step loss: card {l1}, CPU {l0}")
-    worst, worst_name = 0.0, ""
+    worst, worst_name = 0.0, "none: every error is below the floor"
     floor = STEP_TOL["grad_floor"] * max(g.abs().max().item() for g in g0.values())
     for k in g0:
         scale = g0[k].abs().max().item()
@@ -1220,11 +1388,11 @@ def check_micro_step(tr: dict, dev) -> dict:
                                     g0["decoder.output.bias"], _vocab_groups(cfg.vocab_size, on_path),
                                     STEP_TOL["column_atol"], STEP_TOL["grad"])
     print(f"  one micro-step {tuple(batch['xs'].shape)} card vs CPU plain: loss {l1:.4f} vs {l0:.4f}, "
-          f"worst gradient {worst:.2e} of its largest entry ({worst_name}; tol {STEP_TOL['grad']}); the output "
-          f"layer's weight by vocabulary column {rel_w:.2e} of the column's largest entry, its bias by group "
-          f"{rel_b:.2e}")
-    return {"loss_card": l1, "loss_cpu": l0, "worst_grad_rel_err": worst, "output_weight_column_rel_err": rel_w,
-            "output_bias_group_rel_err": rel_b}
+          f"worst gradient {worst:.2e} of its largest entry ({worst_name}; tol {STEP_TOL['grad']}, floor {floor:.2e}); "
+          f"the output layer's weight by vocabulary column {rel_w:.2e} of the column's largest entry, its bias by "
+          f"group {rel_b:.2e}")
+    return {"loss_card": l1, "loss_cpu": l0, "worst_grad_rel_err": worst, "grad_floor": floor,
+            "output_weight_column_rel_err": rel_w, "output_bias_group_rel_err": rel_b}
 
 
 def time_micro_step(tr: dict, dev, card: str) -> dict:
@@ -2019,6 +2187,228 @@ def decode_l3_3(args, root: str, tr: dict, dev, card: str) -> dict:
             "ctc_beam_lm": {"seconds": ctc_lm_s, "batch": list(b1["xs"].shape), "best_changed": changed}}
 
 
+def train_l4(args, root: str, card: str) -> dict:
+    """The L4 RNN-T(Conformer) model at full width through the port's train
+    CLI: SpecAugment and dropout on, `enc_fused_attn: true`, one epoch of 10
+    micro-steps over the five buckets (two optimizer updates at accum_grad
+    5).  K7 (the joint), K8 (the prediction network's LSTM over U+1 tokens,
+    forward and backward) and K4 with its score bias run every micro-step."""
+    import yaml
+
+    from emoasr_tpu_torch.config import load_config
+    from emoasr_tpu_torch.models.asr import ASR
+    from emoasr_tpu_torch.train import loop
+    from emoasr_tpu_torch.train.checkpoint import load_state_dict
+
+    with open(L4_CONF) as f:
+        conf = yaml.safe_load(f)
+    sub = os.path.join(root, "l4")
+    os.makedirs(sub)
+    per_bucket = [2, 2, 2, 2, 2]
+    lengths, buckets = train_lengths(load_config(L4_CONF), per_bucket)
+    train_tsv, _ = write_corpus(sub, "train", lengths, conf["vocab_size"], conf["feat_dim"], args.seed + 3)
+    n_test = args.n_utts
+    test_tsv, wav_s = write_corpus(
+        sub, "test", [200 + (1400 * i) // max(n_test - 1, 1) for i in range(n_test)],
+        conf["vocab_size"], conf["feat_dim"], args.seed + 4)
+    conf.update(vocab_path=write_vocab(sub, conf["vocab_size"]), train_path=train_tsv, test_path=test_tsv,
+                dev_path=None, enc_fused_attn=True, num_epochs=1, save_step=1, log_step=1, seed=args.seed)
+    conf_path = os.path.join(sub, "l4_rnnt_conformer.yaml")
+    with open(conf_path, "w") as f:
+        yaml.safe_dump(conf, f)
+    cfg = load_config(conf_path)
+    require((cfg.encoder_type, cfg.pos_encode_type, cfg.enc_num_layers, cfg.enc_hidden_size,
+             cfg.enc_num_attention_heads, cfg.enc_intermediate_size, cfg.conv_kernel_size, cfg.decoder_type,
+             cfg.embedding_size, cfg.dec_hidden_size, cfg.dec_num_layers, cfg.joint_hidden_size, cfg.vocab_size,
+             cfg.accum_grad, cfg.rnnt_joint_mode, cfg.beam_width, cfg.spec_augment, cfg.dropout_enc_rate,
+             cfg.compute_dtype)
+            == ("conformer", "rel", 12, 256, 4, 1024, 31, "rnn_transducer", 128, 512, 1, 512, 1000, 5, "pallas",
+                10, True, 0.1, "float32"), "the L4 config is not at full width")
+    n_steps = sum(per_bucket)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = loop.main(["-conf", conf_path])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    losses, _, epoch_s = read_train_log(conf_path)
+    require(state.step == n_steps and len(losses) == n_steps and all(np.isfinite(losses)),
+            f"L4 training: {state.step} micro-steps, losses {losses}")
+    require(state.skipped == 0 and state.mini_step == n_steps % cfg.accum_grad,
+            f"L4 training: {state.skipped} skipped, {state.mini_step} micro-steps open")
+    n_dec, n_enc = n_steps * cfg.dec_num_layers, n_steps * cfg.enc_num_layers
+    want = {"rnnt_joint": n_steps, "lstm_fwd": n_dec, "lstm_bwd": n_dec, "attention_fwd": n_enc,
+            "attention_bwd": n_enc, "attention_bias_fwd": n_enc, "attention_bias_bwd": n_enc, "topk": 0,
+            "ctc_head_fwd": 0, "ctc_alpha": 0}
+    require(all(launches[k] == n for k, n in want.items()), f"L4 training launches {launches}, want {want}")
+    ckpt = os.path.join(os.path.splitext(conf_path)[0], "checkpoints", "model.ep1")
+    torch.manual_seed(cfg.seed)
+    init, trained = ASR(cfg).state_dict(), load_state_dict(ckpt)
+    changed = [k for k in init if not torch.equal(init[k], trained[k])]
+    require(len(changed) >= 0.9 * len(init) and all(k in changed for k in (
+        "decoder.output.weight", "decoder.rnns.0.weight_hh_l0", "decoder.embed.weight", "decoder.w_enc.weight",
+        "encoder.conv.conv.0.weight")), f"only {len(changed)} of {len(init)} parameter tensors changed in training")
+    for k, v in trained.items():
+        require(bool(torch.isfinite(v).all()), f"trained parameter {k} is not finite")
+    epoch = epoch_s[0] if epoch_s else float("nan")
+    print(f"  trained {n_steps} micro-steps ({len(lengths)} utts, buckets x{per_bucket}) in {dt:.2f} s (the epoch "
+          f"loop {epoch:.2f} s: {n_steps / epoch:.2f} micro-steps/s, first call, warm-up included) on {card}")
+    print(f"  loss {losses[0]:.2f} -> {losses[-1]:.2f}, skipped 0, {len(changed)}/{len(init)} tensors changed; "
+          f"launches rnnt_joint {launches['rnnt_joint']}, lstm_fwd {launches['lstm_fwd']}, lstm_bwd "
+          f"{launches['lstm_bwd']}, attention with bias {launches['attention_bias_fwd']}/{launches['attention_bias_bwd']}")
+    return {"conf_path": conf_path, "cfg": cfg, "ckpt": ckpt, "test_tsv": test_tsv, "train_tsv": train_tsv,
+            "wav_s": wav_s, "launches": launches, "seconds": dt, "epoch_seconds": epoch, "micro_steps": n_steps,
+            "micro_steps_per_s": n_steps / epoch, "utt_per_s": len(lengths) / epoch, "losses": losses,
+            "buckets": buckets}
+
+
+def time_l4_micro_step(tr: dict, dev, card: str) -> dict:
+    """Where one L4 micro-step of the largest bucket spends its time (host
+    clock around synchronised phases, dropout on; the last of three):
+    encoder, prediction network (K8), joint (K7), lattice, backward, clip +
+    Adam; then three parts of the backward alone (the lattice's autograd,
+    the chunked joint backward, K8's backward)."""
+    from emoasr_tpu_torch.data.asr_dataset import ASRDataset
+    from emoasr_tpu_torch.eval.test_asr import load_asr_model
+    from emoasr_tpu_torch.ops.lstm_scan import lstm_scan_fused
+    from emoasr_tpu_torch.ops.rnnt import joint_gather_backward, rnnt_alpha_rowscan
+    from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather
+    from emoasr_tpu_torch.train.optim import build_optimizer, clip_by_global_norm_
+
+    cfg = tr["cfg"]
+    big = max(tr["buckets"], key=lambda b: b.max_xlen)
+    ds = ASRDataset(cfg, tr["train_tsv"], phase="train")
+    bi, idx = next(b for b in ds.make_batcher(shuffle=False) if b[0] == len(tr["buckets"]) - 1)
+    batch = ds.collate(idx, big.max_xlen, big.max_ylen)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in batch.items() if isinstance(v, np.ndarray)}
+    model = load_asr_model(tr["ckpt"], cfg).to(dev).train()
+    dec = model.decoder
+    params = list(model.parameters())
+    opt = build_optimizer(cfg, params)
+    for g in opt.param_groups:
+        g["lr"] = 1e-7
+
+    def tick():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    for _ in range(3):
+        t0 = tick()
+        eouts, elens, _ = model.encoder(t["xs"], t["xlens"])
+        t1 = tick()
+        douts, _ = dec.recurrency(t["ys_in"])
+        t2 = tick()
+        lp_blank, lp_label = fused_joint_gather(dec.w_enc(eouts), dec.w_dec(douts), dec.output.weight.t(),
+                                                dec.output.bias, t["ys"], cfg.blank_id)
+        t3 = tick()
+        loss = -torch.mean(rnnt_alpha_rowscan(lp_blank, lp_label, elens, t["ylens"]))
+        t4 = tick()
+        grads = torch.autograd.grad(loss, params)
+        t5 = tick()
+        clip_by_global_norm_(grads, cfg.clip_grad_norm)
+        for p, g in zip(params, grads):
+            p.grad = g
+        opt.step()
+        t6 = tick()
+        # three parts of the backward, each alone: the lattice's autograd,
+        # the chunked joint backward, and K8's backward
+        lb, ll = lp_blank.detach().requires_grad_(True), lp_label.detach().requires_grad_(True)
+        lat = -torch.mean(rnnt_alpha_rowscan(lb, ll, elens, t["ylens"]))
+        t7 = tick()
+        g_blank, g_label = torch.autograd.grad(lat, (lb, ll))
+        t8 = tick()
+        joint_gather_backward(dec.w_enc(eouts).detach(), dec.w_dec(douts).detach(), dec.output.weight.t().detach(),
+                              dec.output.bias.detach(), t["ys"], g_blank, g_label, cfg.blank_id)
+        t9 = tick()
+        rnn = dec.rnns[0]
+        x_proj = torch.nn.functional.linear(dec.embed(t["ys_in"]), rnn.weight_ih_l0,
+                                            rnn.bias_ih_l0 + rnn.bias_hh_l0).detach().requires_grad_(True)
+        zeros = x_proj.new_zeros((x_proj.shape[0], rnn.hidden_size))
+        ys_k8, _ = lstm_scan_fused(x_proj, rnn.weight_hh_l0, zeros, zeros)
+        t10 = tick()
+        torch.autograd.grad(ys_k8, (x_proj, rnn.weight_hh_l0), torch.ones_like(ys_k8))
+        t11 = tick()
+    split = {"batch": list(t["xs"].shape), "labels": list(t["ys_in"].shape), "frames": int(eouts.shape[1]),
+             "encoder_fwd_ms": (t1 - t0) * 1e3, "prediction_net_ms": (t2 - t1) * 1e3,
+             "joint_ms": (t3 - t2) * 1e3, "lattice_ms": (t4 - t3) * 1e3, "backward_ms": (t5 - t4) * 1e3,
+             "clip_adam_ms": (t6 - t5) * 1e3, "lattice_backward_ms": (t8 - t7) * 1e3,
+             "joint_backward_ms": (t9 - t8) * 1e3, "lstm_backward_ms": (t11 - t10) * 1e3}
+    print(f"  one L4 {tuple(t['xs'].shape)} micro-step (U+1 = {t['ys_in'].shape[1]}, T' = {split['frames']}) on "
+          f"{card}: encoder {split['encoder_fwd_ms']:.2f} ms, prediction network {split['prediction_net_ms']:.2f}, "
+          f"joint {split['joint_ms']:.2f}, lattice {split['lattice_ms']:.2f}, backward {split['backward_ms']:.2f} "
+          f"(alone: the lattice's {split['lattice_backward_ms']:.2f}, the chunked joint's "
+          f"{split['joint_backward_ms']:.2f}, K8's {split['lstm_backward_ms']:.2f}), clip + Adam "
+          f"{split['clip_adam_ms']:.2f}")
+    return split
+
+
+def decode_l4(args, tr: dict, dev, card: str) -> dict:
+    """The trainer's L4 `model.ep1` through the eval CLI: greedy, then the
+    ALSD beam at width 10; K8 is launched no time (the prediction network
+    steps one token at a time); one batch's greedy and beam top-1
+    hypotheses on the card equal the CPU's."""
+    import pandas as pd
+
+    from emoasr_tpu_torch.data.asr_dataset import ASRDataset
+    from emoasr_tpu_torch.eval import test_asr
+    from emoasr_tpu_torch.eval.decode import build_decode_fn
+    from emoasr_tpu_torch.eval.test_asr import load_asr_model
+
+    cfg, conf_path, wav_s = tr["cfg"], tr["conf_path"], tr["wav_s"]
+    ds = ASRDataset(cfg, tr["test_tsv"], phase="test")
+    batcher = ds.make_batcher()
+    batches, buckets = list(batcher), batcher.buckets
+    n_utts = sum(len(idx) for _, idx in batches)
+    frames = sum(((buckets[bi].max_xlen - 1) // 2 - 1) // 2 for bi, _ in batches)
+    runs = {}
+    for beam in (0, cfg.beam_width):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = test_asr.main(["-conf", conf_path, "-ep", "1", "--beam_width", str(beam)])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = launch_counts()
+        require(out is not None and out[3].startswith("WER:"), f"L4 beam {beam}: CLI returned {out}")
+        path = os.path.join(os.path.splitext(conf_path)[0], "results",
+                            f"result_test_beam{beam}_len0.0_ctc0.0_lm0.00_ep1.tsv")
+        df = pd.read_table(path, comment="#")
+        require(len(df) == n_utts and df["utt_id"].nunique() == n_utts, f"L4 beam {beam}: {len(df)} rows")
+        n_enc = cfg.enc_num_layers * len(batches)
+        require(launches["lstm_fwd"] == launches["lstm_bwd"] == launches["rnnt_joint"] == 0,
+                f"L4 beam {beam}: decoding launched K7/K8: {launches}")
+        require(launches["attention_bias_fwd"] == launches["attention_fwd"] == n_enc,
+                f"L4 beam {beam}: attention launches {launches}, want {n_enc} with the bias")
+        if beam > 1:  # two label rounds a frame, up to each batch's longest utterance
+            require(0 < launches["topk"] <= 2 * frames and launches["topk"] % 2 == 0,
+                    f"L4 beam {beam}: {launches['topk']} top-k launches for {frames} encoder frames")
+        else:
+            require(launches["topk"] == 0, f"L4 greedy: {launches['topk']} top-k launches")
+        print(f"  beam {beam}: {out[3]}; {n_utts} utts in {dt:.3f} s = {n_utts / dt:.2f} utt/s, RTF {dt / wav_s:.5f} "
+              f"(first call, warm-up included) on {card}; launches topk {launches['topk']}, attention with bias "
+              f"{launches['attention_bias_fwd']}, lstm_fwd {launches['lstm_fwd']}")
+        runs[f"beam{beam}"] = {"launches": launches, "seconds": dt, "utt_per_s": n_utts / dt, "rtf": dt / wav_s}
+
+    # one batch, card (kernels) against CPU (plain versions): greedy and top-1 hypotheses
+    bi, idx = next(b for b in batches if len(b[1]) >= 4)
+    batch = ds.collate(idx[:4], buckets[bi].max_xlen, buckets[bi].max_ylen)
+    hyps = {}
+    for name, d in (("cuda", dev), ("cpu", "cpu")):
+        model = load_asr_model(tr["ckpt"], cfg)
+        for beam in (0, cfg.beam_width):
+            h, hl, _ = build_decode_fn(model, cfg, beam_width=beam, device=d)(batch["xs"], batch["xlens"])
+            h, hl = h.cpu(), hl.cpu()
+            hyps[name, beam] = [(h[b, : hl[b]] if h.dim() == 2 else h[b, 0, : hl[b, 0]]).tolist() for b in range(4)]
+    for beam in (0, cfg.beam_width):
+        require(hyps["cuda", beam] == hyps["cpu", beam],
+                f"L4 beam {beam}: card and CPU hypotheses differ: {hyps['cuda', beam]} vs {hyps['cpu', beam]}")
+    lens = [len(h) for h in hyps["cuda", cfg.beam_width]]
+    print(f"  one batch {tuple(batch['xs'].shape)}: greedy and beam-{cfg.beam_width} top-1 hypotheses identical card vs "
+          f"CPU (4 of 4; beam lengths {lens}, leading eos included)")
+    return {"runs": runs, "n_utts": n_utts, "batches": len(batches), "frames": frames}
+
+
 KERNEL_ROWS = (
     # name, source, file:line of the TPU kernel it replaces
     ("topk", "emoasr_tpu_torch/csrc/topk.cu", "emoasr_tpu/ops/topk_pallas.py:64"),
@@ -2034,6 +2424,9 @@ KERNEL_ROWS = (
     ("decoder_step", "emoasr_tpu_torch/csrc/decoder_step.cu", "emoasr_tpu/ops/decoder_step_pallas.py:86"),
     ("decoder_step_indirect", "emoasr_tpu_torch/csrc/decoder_step.cu", "emoasr_tpu/ops/decoder_step_pallas.py:347"),
     ("lm_step_indirect", "emoasr_tpu_torch/csrc/lm_step.cu", "emoasr_tpu/ops/lm_step_pallas.py:85"),
+    ("rnnt_joint", "emoasr_tpu_torch/csrc/rnnt_joint.cu", "emoasr_tpu/ops/rnnt_pallas.py:51"),
+    ("lstm_fwd", "emoasr_tpu_torch/csrc/lstm_scan.cu", "emoasr_tpu/ops/lstm_pallas.py:56"),
+    ("lstm_bwd", "emoasr_tpu_torch/csrc/lstm_scan.cu", "emoasr_tpu/ops/lstm_pallas.py:117"),
 )
 
 
@@ -2054,7 +2447,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
-    print(f"[1/10] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    print(f"[1/11] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     found = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     set_matmul_precision("float32")
     print(f"  TF32 found (matmul, cudnn) = {found}; the port's switch for float32 sets "
@@ -2065,11 +2458,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels = all_kernels()
     build_all(kernels)
-    print(f"[2/10] built {', '.join(k.name for k in kernels)} from "
+    print(f"[2/11] built {', '.join(k.name for k in kernels)} from "
           f"{', '.join(sorted({k.source for k in kernels}))} in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernels against their plain versions
-    print("[3/10] kernels against their plain versions on the card, forward and backward")
+    print("[3/11] kernels against their plain versions on the card, forward and backward")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     errs = {"topk": check_topk(dev, gen), "attention_fwd": check_attention(dev, gen),
@@ -2083,42 +2476,59 @@ def main(argv=None) -> int:
     step = check_decoder_step(dev, gen)
     errs.update(decoder_step=step["direct"], decoder_step_indirect=step["indirect"])
     errs["lm_step_indirect"] = check_lm_step(dev, gen)
+    errs["rnnt_joint"] = check_rnnt_joint(dev, gen)
+    lstm = check_lstm(dev, gen)
+    errs.update(lstm_fwd=lstm["fwd"], lstm_bwd=lstm["bwd"])
 
     scratch_root = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(scratch_root, exist_ok=True)
     root = tempfile.mkdtemp(dir=scratch_root)
     try:
         # 4. training at full width, then one micro-step against the CPU
-        print("[4/10] main path: L1 CTC(Transformer) training through the train CLI")
+        print("[4/11] main path: L1 CTC(Transformer) training through the train CLI")
         tr = train_full_width(args, root, card)
-        step_check = check_micro_step(tr, dev)
+        n_layers = tr["cfg"].enc_num_layers
+        step_check = check_micro_step(tr, dev, {
+            "ctc_head_fwd": 1, "ctc_head_grad_e": 1, "ctc_head_grad_w": 1, "ctc_alpha": 1, "ctc_beta_grad": 1,
+            "attention_fwd": n_layers, "attention_bwd": n_layers})
         step_split = time_micro_step(tr, dev, card)
 
         # 5. learning on the card
-        print("[5/10] learning on the card: the small overfit corpus, train CLI then eval CLI")
+        print("[5/11] learning on the card: the small overfit corpus, train CLI then eval CLI")
         overfit = overfit_on_card(args, root)
 
         # 6. decode the trainer's checkpoint
-        print("[6/10] main path: decode of the trainer's model.ep1 through the eval CLI")
+        print("[6/11] main path: decode of the trainer's model.ep1 through the eval CLI")
         mp = decode_path(args, tr, dev, card)
 
         # 7. the Conformer's attention with its bias, forward and backward
-        print("[7/10] main path: L2 CTC(Conformer) training, two micro-steps through the train CLI")
+        print("[7/11] main path: L2 CTC(Conformer) training, two micro-steps through the train CLI")
         l2 = train_conformer_steps(args, root, card)
 
         # 8. the slice's path: L3-1 joint-CTC beam decode
-        print("[8/10] main path: L3-1 Conformer + attention decoder, beam 10 with joint CTC, through the eval CLI")
+        print("[8/11] main path: L3-1 Conformer + attention decoder, beam 10 with joint CTC, through the eval CLI")
         l3 = decode_l3_1(args, root, tr["test_tsv"], tr["wav_s"], dev, card)
 
         # 9. the slice's path: L3-3, the same with Transformer-LM shallow fusion
-        print("[9/10] main path: L3-3, L3-1 with Transformer-LM shallow fusion 0.5, through the eval CLI")
+        print("[9/11] main path: L3-3, L3-1 with Transformer-LM shallow fusion 0.5, through the eval CLI")
         l33 = decode_l3_3(args, root, tr, dev, card)
+
+        # 10. the slice's path: L4 RNN-T(Conformer) training, then greedy and ALSD decoding
+        print("[10/11] main path: L4 RNN-T(Conformer) training through the train CLI, then its model.ep1 "
+              "greedily and with the ALSD beam through the eval CLI")
+        l4 = train_l4(args, root, card)
+        n_layers = l4["cfg"].enc_num_layers
+        l4_step = check_micro_step(l4, dev, {
+            "rnnt_joint": 1, "lstm_fwd": 1, "lstm_bwd": 1, "attention_fwd": n_layers, "attention_bwd": n_layers,
+            "attention_bias_fwd": n_layers, "attention_bias_bwd": n_layers})
+        l4_split = time_l4_micro_step(l4, dev, card)
+        l4_dec = decode_l4(args, l4, dev, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     require((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (False, False),
             "an entry point left TF32 on for a float32 model")
 
-    # 9. timings at the largest bucket, then the result lines
+    # 11. timings at the largest bucket, then the result lines
     big = mp["bucket"]
     B, T2 = big.batch_size, ((big.max_xlen - 1) // 2 - 1) // 2
     lens = torch.linspace(T2 // 4, T2, B, device=dev).round().int()
@@ -2133,11 +2543,17 @@ def main(argv=None) -> int:
     times.update(time_attention_bias(dev, gen, B, T2, 4, 64, lens))
     times.update(time_decoder_step(dev, gen, B, 10, 258, T2, 64, lens))
     times.update(time_lm_step(dev, gen, B, 10, 256, 64))
-    print(f"[10/10] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
-          f"decoder step W = 10, pos = 64) on {smi}")
+    l4_big = max(l4["buckets"], key=lambda b: b.max_xlen)
+    l4_T = ((l4_big.max_xlen - 1) // 2 - 1) // 2
+    times.update(time_rnnt_joint(dev, gen, l4_big.batch_size, l4_T, l4_big.max_ylen + 1, 512, 1000))
+    times.update(time_lstm(dev, gen, l4_big.batch_size, l4_big.max_ylen + 1, 512, 128))
+    print(f"[11/11] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
+          f"decoder step W = 10, pos = 64; L4: B = {l4_big.batch_size}, T' = {l4_T}, U+1 = {l4_big.max_ylen + 1}) "
+          f"on {smi}")
 
-    paths = [tr["launches"], l2["launches"]] + [
-        r["launches"] for r in (*mp["runs"].values(), *l3["runs"].values(), *l33["runs"].values())]
+    paths = [tr["launches"], l2["launches"], l4["launches"]] + [
+        r["launches"] for r in (*mp["runs"].values(), *l3["runs"].values(), *l33["runs"].values(),
+                                *l4_dec["runs"].values())]
     ms = lambda x: "none" if x is None else f"{x:.4f}"
     rows = []
     for name, src, rep in KERNEL_ROWS:
@@ -2171,6 +2587,10 @@ def main(argv=None) -> int:
         "l3_3_decode": {**l33["runs"], "repeat": l33["repeat"], "one_batch": l33["split"], "fused_scores_max_abs_err": l33["fused_scores_err"],
                         "same_top1_hyps_card_vs_cpu": l33["same_hyps"], "same_hyps_k6_vs_dense": l33["same_routes"],
                         "ctc_beam_lm": l33["ctc_beam_lm"]},
+        "l4_train": {k: l4[k] for k in ("micro_steps", "seconds", "epoch_seconds", "micro_steps_per_s",
+                                        "utt_per_s", "launches", "losses")},
+        "l4_micro_step": {**l4_split, **l4_step},
+        "l4_decode": {**l4_dec["runs"], "n_utts": l4_dec["n_utts"], "batches": l4_dec["batches"]},
         "card": smi, "total_seconds": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": rows}))

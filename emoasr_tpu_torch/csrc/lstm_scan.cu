@@ -1,0 +1,439 @@
+// The whole LSTM recurrence in one launch for Hopper (sm_90a): forward
+// from the input projections, and the exact reverse recurrence backward.
+//
+// Replaces: emoasr_tpu/ops/lstm_pallas.py::lstm_scan_pallas, kernels
+// `_fwd_kernel` and `_bwd_kernel`.
+//
+// Semantics (torch gate order i, f, g, o; xp (B, T, 4H) = x W_ih^T + b_ih +
+// b_hh; w (4H, H) = W_hh; h0, c0 (B, H)):
+//   forward : pre_t = xp[:, t] + h_{t-1} w^T; i, f, o = sigmoid, g = tanh;
+//             c_t = f c_{t-1} + i g; h_t = o tanh(c_t); ys[:, t] = h_t.
+//             Residuals: gates (T, B, 4H) after the activations, hcprev
+//             (T, B, 2H) = [h_{t-1}, c_{t-1}]; and (h_T, c_T).
+//   backward: from the residuals, d ys (B, T, H), d h_T, d c_T: d xp
+//             (B, T, 4H) = d pre, d w = sum_t sum_b d pre_t^T h_{t-1}
+//             (float32, a fixed order, no atomics), d h0, d c0.
+//
+// What bounds it on this card: neither bytes nor operations but the T
+// dependent steps.  At the prediction network's largest training shape
+// (B 18, T 129, H 512) the forward does 4.9 GFLOP (0.073 ms at the f32
+// peak) and moves ~56 MB (0.017 ms); the TPU kernel keeps w_hh (4 MB) in
+// VMEM for the whole recurrence.  No SM holds 4 MB, so:
+//
+// Design.  One cooperative launch of ceil(H / U) blocks, all co-resident
+// (the launcher checks it and refuses otherwise), each owning U hidden units
+// j.  A grid-wide barrier (an arrival counter with acquire loads) separates
+// the time steps, one barrier a step.
+//  * forward: a warp owns one unit j and a share of the batch rows; its
+//    lanes hold the four rows of w_hh for unit j (4H values) in registers,
+//    so w_hh is read from memory once per launch.  Each step the block
+//    stages h_{t-1} (ys[:, t-1], written by every block before the
+//    barrier; read past L1) in shared memory, batch tile by batch tile; a
+//    warp reduces the four gate dot products, and lane 0 applies the cell
+//    update, keeps c (shared memory, one owner per (b, j)) and writes ys,
+//    the gates and [h, c]_{t-1}.
+//  * backward: d h_{t-1}[:, j] needs d pre_t of every unit, so a warp
+//    holds the column w_hh[:, j] (4H values) instead.  Each step lane 0 of
+//    the owner first turns the carried d h, d c of its (b, j) into the four
+//    d pre, writes them to d xp; after the barrier the block stages d pre_t
+//    of every unit in shared memory, and each warp computes d h_{t-1}[b, j]
+//    = d pre_t[b] . w_hh[:, j] and adds d pre_t[b] h_{t-1}[b, j] into its
+//    register share of d w[:, j]; at the end the warps of a unit add their
+//    shares in warp order.
+// The barrier's latency (one to a few microseconds) times T is the
+// expected limit, not the arithmetic.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxH = 512;
+constexpr size_t kSmemBudget = 200 * 1024;
+
+__device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, off);
+  return v;
+}
+
+constexpr long long kBarrierTimeout = 20000000000LL;  // clock cycles, some 10 s
+
+// every block of the grid arrives, then all wait until `target` arrivals
+// (k barriers so far times the grid size); the grid is co-resident.  A wait
+// past kBarrierTimeout traps (a launch failure the wrapper raises) rather
+// than hanging the card.
+__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(bar, 1u);
+    const long long start = clock64();
+    unsigned v;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(bar) : "memory");
+      if (clock64() - start > kBarrierTimeout) __trap();
+    } while (v < target);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+// ------------------------------------------------------------------ forward
+
+// NC float4 chunks of a length-H row per lane (k = 4 lane + 128 c + q)
+template <int NC>
+__global__ void __launch_bounds__(kThreads)
+lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w,
+                const float* __restrict__ h0, const float* __restrict__ c0, float* ys,
+                float* __restrict__ gates, float* __restrict__ hcprev, float* __restrict__ hT,
+                float* __restrict__ cT, unsigned* bar, int B, int T, int H, int U, int BT) {
+  constexpr int Hp = 128 * NC;
+  extern __shared__ __align__(16) float smem[];
+  float* hs = smem;                                // (BT, Hp): h_{t-1} of a batch tile
+  float* cs = smem + static_cast<size_t>(BT) * Hp;  // (B, U): c of the block's units
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int u = warp % U, j = blockIdx.x * U + u;
+  const int bstep = kWarps / U, bfirst = warp / U;
+  const bool live = j < H;  // warp-uniform
+  const int H4 = 4 * H;
+
+  float4 wr[4][NC];  // rows g H + j of w, this lane's chunks
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      float e[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = 4 * lane + 128 * c + q;
+        e[q] = (live && k < H) ? w[static_cast<size_t>(g * H + j) * H + k] : 0.f;
+      }
+      wr[g][c] = make_float4(e[0], e[1], e[2], e[3]);
+    }
+  // (b, j) belongs to lane 0 of the warp with bfirst = b % bstep: only that
+  // thread reads and writes cs[b][u]
+  if (live && lane == 0)
+    for (int b = bfirst; b < B; b += bstep) cs[b * U + u] = c0[static_cast<size_t>(b) * H + j];
+
+  for (int t = 0; t < T; ++t) {
+    for (int b0 = 0; b0 < B; b0 += BT) {
+      const int nb = min(BT, B - b0);
+      __syncthreads();  // the previous tile is consumed
+      for (int i = threadIdx.x; i < nb * Hp; i += kThreads) {
+        const int r = i / Hp, k = i % Hp;
+        float v = 0.f;
+        if (k < H)
+          v = t == 0 ? h0[static_cast<size_t>(b0 + r) * H + k]
+                     : __ldcg(ys + (static_cast<size_t>(b0 + r) * T + t - 1) * H + k);
+        hs[i] = v;
+      }
+      __syncthreads();
+      if (!live) continue;  // no barrier below: the whole warp skips alike
+      for (int b = b0 + bfirst; b < b0 + nb; b += bstep) {
+        const float4* hrow = reinterpret_cast<const float4*>(hs + static_cast<size_t>(b - b0) * Hp);
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const float4 hv = hrow[lane + 32 * c];
+#pragma unroll
+          for (int g = 0; g < 4; ++g) acc[g] = dot4(wr[g][c], hv, acc[g]);
+        }
+#pragma unroll
+        for (int g = 0; g < 4; ++g) acc[g] = warp_sum(acc[g]);
+        if (lane == 0) {
+          const size_t row = static_cast<size_t>(b) * T + t;
+          const float* x = xp + row * H4;
+          const float gi = sigmoidf_(acc[0] + x[j]);
+          const float gf = sigmoidf_(acc[1] + x[H + j]);
+          const float gg = tanhf(acc[2] + x[2 * H + j]);
+          const float go = sigmoidf_(acc[3] + x[3 * H + j]);
+          const float cp = cs[b * U + u];
+          const float hp = hs[static_cast<size_t>(b - b0) * Hp + j];
+          const float cn = gf * cp + gi * gg;
+          const float hn = go * tanhf(cn);
+          cs[b * U + u] = cn;
+          ys[row * H + j] = hn;
+          float* gr = gates + (static_cast<size_t>(t) * B + b) * H4;
+          gr[j] = gi;
+          gr[H + j] = gf;
+          gr[2 * H + j] = gg;
+          gr[3 * H + j] = go;
+          float* hc = hcprev + (static_cast<size_t>(t) * B + b) * 2 * H;
+          hc[j] = hp;
+          hc[H + j] = cp;
+          if (t == T - 1) {
+            hT[static_cast<size_t>(b) * H + j] = hn;
+            cT[static_cast<size_t>(b) * H + j] = cn;
+          }
+        }
+      }
+    }
+    if (t + 1 < T) grid_sync(bar, static_cast<unsigned>(t + 1) * gridDim.x);
+  }
+}
+
+// ------------------------------------------------------------------ backward
+
+// NG float4 chunks of a length-4H column per lane (r = 4 lane + 128 c + q)
+template <int NG>
+__global__ void __launch_bounds__(kThreads)
+lstm_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ hcprev,
+                const float* __restrict__ dys, const float* __restrict__ dhT,
+                const float* __restrict__ dcT, const float* __restrict__ w, float* dxp,
+                float* __restrict__ dw, float* __restrict__ dh0, float* __restrict__ dc0,
+                unsigned* bar, int B, int T, int H, int U, int BT) {
+  constexpr int Gp = 128 * NG;
+  extern __shared__ __align__(16) float smem[];
+  const int rows = max(BT, kWarps);
+  float* ds = smem;                                   // (BT, Gp): d pre_t of a batch tile
+  float* dhs = smem + static_cast<size_t>(rows) * Gp;  // (B, U): carried d h
+  float* dcs = dhs + static_cast<size_t>(B) * U;       // (B, U): carried d c
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int u = warp % U, j = blockIdx.x * U + u;
+  const int bstep = kWarps / U, bfirst = warp / U;
+  const bool live = j < H;
+  const int H4 = 4 * H;
+
+  float4 wc[NG], acc[NG];  // column j of w, and this warp's share of d w[:, j]
+#pragma unroll
+  for (int c = 0; c < NG; ++c) {
+    float e[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = 4 * lane + 128 * c + q;
+      e[q] = (live && r < H4) ? w[static_cast<size_t>(r) * H + j] : 0.f;
+    }
+    wc[c] = make_float4(e[0], e[1], e[2], e[3]);
+    acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  if (live && lane == 0)
+    for (int b = bfirst; b < B; b += bstep) {
+      dhs[b * U + u] = dhT[static_cast<size_t>(b) * H + j];
+      dcs[b * U + u] = dcT[static_cast<size_t>(b) * H + j];
+    }
+
+  for (int t = T - 1; t >= 0; --t) {
+    // the cell's backward for the (b, j) this thread owns: d pre_t
+    if (live && lane == 0)
+      for (int b = bfirst; b < B; b += bstep) {
+        const float* gr = gates + (static_cast<size_t>(t) * B + b) * H4;
+        const float gi = gr[j], gf = gr[H + j], gg = gr[2 * H + j], go = gr[3 * H + j];
+        const float cp = hcprev[(static_cast<size_t>(t) * B + b) * 2 * H + H + j];
+        const float tc = tanhf(gf * cp + gi * gg);
+        const float dh = dys[(static_cast<size_t>(b) * T + t) * H + j] + dhs[b * U + u];
+        const float dc = dcs[b * U + u] + dh * go * (1.f - tc * tc);
+        float* d = dxp + (static_cast<size_t>(b) * T + t) * H4;
+        d[j] = dc * gg * gi * (1.f - gi);
+        d[H + j] = dc * cp * gf * (1.f - gf);
+        d[2 * H + j] = dc * gi * (1.f - gg * gg);
+        d[3 * H + j] = dh * tc * go * (1.f - go);
+        dcs[b * U + u] = dc * gf;
+      }
+    grid_sync(bar, static_cast<unsigned>(T - t) * gridDim.x);
+    // d h_{t-1}[b, j] = d pre_t[b] . w[:, j];  d w[:, j] += d pre_t[b] h_{t-1}[b, j]
+    for (int b0 = 0; b0 < B; b0 += BT) {
+      const int nb = min(BT, B - b0);
+      __syncthreads();
+      for (int i = threadIdx.x; i < nb * Gp; i += kThreads) {
+        const int r = i / Gp, k = i % Gp;
+        ds[i] = k < H4 ? __ldcg(dxp + (static_cast<size_t>(b0 + r) * T + t) * H4 + k) : 0.f;
+      }
+      __syncthreads();
+      if (!live) continue;
+      for (int b = b0 + bfirst; b < b0 + nb; b += bstep) {
+        const float hp = hcprev[(static_cast<size_t>(t) * B + b) * 2 * H + j];
+        const float4* drow = reinterpret_cast<const float4*>(ds + static_cast<size_t>(b - b0) * Gp);
+        float dot = 0.f;
+#pragma unroll
+        for (int c = 0; c < NG; ++c) {
+          const float4 d = drow[lane + 32 * c];
+          dot = dot4(d, wc[c], dot);
+          acc[c].x = fmaf(d.x, hp, acc[c].x);
+          acc[c].y = fmaf(d.y, hp, acc[c].y);
+          acc[c].z = fmaf(d.z, hp, acc[c].z);
+          acc[c].w = fmaf(d.w, hp, acc[c].w);
+        }
+        dot = warp_sum(dot);
+        if (lane == 0) dhs[b * U + u] = dot;
+      }
+    }
+  }
+  if (live && lane == 0)
+    for (int b = bfirst; b < B; b += bstep) {
+      dh0[static_cast<size_t>(b) * H + j] = dhs[b * U + u];
+      dc0[static_cast<size_t>(b) * H + j] = dcs[b * U + u];
+    }
+  // d w[:, j]: the bstep warps of unit u add their shares in warp order
+  __syncthreads();
+  float4* part = reinterpret_cast<float4*>(ds);
+#pragma unroll
+  for (int c = 0; c < NG; ++c) part[static_cast<size_t>(warp) * (Gp / 4) + lane + 32 * c] = acc[c];
+  __syncthreads();
+  if (live && bfirst == 0) {
+#pragma unroll
+    for (int c = 0; c < NG; ++c) {
+      float4 s = part[static_cast<size_t>(u) * (Gp / 4) + lane + 32 * c];
+      for (int k = 1; k < bstep; ++k) {
+        const float4 p = part[static_cast<size_t>(u + k * U) * (Gp / 4) + lane + 32 * c];
+        s.x += p.x;
+        s.y += p.y;
+        s.z += p.z;
+        s.w += p.w;
+      }
+      const float e[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = 4 * lane + 128 * c + q;
+        if (r < H4) dw[static_cast<size_t>(r) * H + j] = e[q];
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launch
+
+// batch rows staged per tile: the whole batch if it fits, else a multiple
+// of kWarps (so that the warps' batch shares stay aligned across tiles)
+int batch_tile(int B, int row_floats, size_t fixed_bytes) {
+  const size_t room = kSmemBudget - fixed_bytes;
+  const int fit = static_cast<int>(room / (static_cast<size_t>(row_floats) * sizeof(float)));
+  if (fit >= B) return B;
+  return (fit / kWarps) * kWarps;
+}
+
+// units per block: the fewest (most blocks) whose grid is co-resident
+template <typename K>
+cudaError_t plan(K kernel, int H, int B, int BT, int rows_floats, int& U, int& nblocks,
+                 size_t& smem) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  for (U = 1; U <= kWarps; U *= 2) {
+    smem = static_cast<size_t>(rows_floats) * sizeof(float) +
+           2 * static_cast<size_t>(B) * U * sizeof(float);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    if (err != cudaSuccess) return err;
+    nblocks = (H + U - 1) / U;
+    if (nblocks <= per_sm * sms) return cudaSuccess;
+  }
+  return cudaErrorCooperativeLaunchTooLarge;  // the grid cannot be co-resident
+}
+
+template <int NC>
+cudaError_t launch_fwd(const float* xp, const float* w, const float* h0, const float* c0,
+                       float* ys, float* gates, float* hcprev, float* hT, float* cT,
+                       unsigned* bar, int B, int T, int H, cudaStream_t stream) {
+  constexpr int Hp = 128 * NC;
+  int BT = batch_tile(B, Hp, 2 * static_cast<size_t>(B) * kWarps * sizeof(float));
+  if (BT < 1) return cudaErrorInvalidValue;
+  int U = 0, nblocks = 0;
+  size_t smem = 0;
+  cudaError_t err = plan(lstm_fwd_kernel<NC>, H, B, BT, BT * Hp, U, nblocks, smem);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&xp, &w, &h0, &c0, &ys, &gates, &hcprev, &hT, &cT, &bar, &B, &T, &H, &U, &BT};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(lstm_fwd_kernel<NC>), dim3(nblocks),
+                                     dim3(kThreads), args, smem, stream);
+}
+
+template <int NG>
+cudaError_t launch_bwd(const float* gates, const float* hcprev, const float* dys,
+                       const float* dhT, const float* dcT, const float* w, float* dxp, float* dw,
+                       float* dh0, float* dc0, unsigned* bar, int B, int T, int H,
+                       cudaStream_t stream) {
+  constexpr int Gp = 128 * NG;
+  int BT = batch_tile(B, Gp, 2 * static_cast<size_t>(B) * kWarps * sizeof(float));
+  if (BT < 1) return cudaErrorInvalidValue;
+  int U = 0, nblocks = 0;
+  size_t smem = 0;
+  cudaError_t err = plan(lstm_bwd_kernel<NG>, H, B, BT, (BT > kWarps ? BT : kWarps) * Gp, U,
+                         nblocks, smem);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&gates, &hcprev, &dys, &dhT, &dcT, &w, &dxp, &dw, &dh0, &dc0, &bar,
+                  &B, &T, &H, &U, &BT};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(lstm_bwd_kernel<NG>), dim3(nblocks),
+                                     dim3(kThreads), args, smem, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+int emo_lstm_fwd_f32(const void* xp, const void* w, const void* h0, const void* c0, void* ys,
+                     void* gates, void* hcprev, void* hT, void* cT, void* bar, int B, int T,
+                     int H, void* stream) {
+  if (B < 1 || T < 1 || H < 1 || H > kMaxH) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* x = static_cast<const float*>(xp);
+  const auto* ww = static_cast<const float*>(w);
+  const auto* h = static_cast<const float*>(h0);
+  const auto* c = static_cast<const float*>(c0);
+  auto* y = static_cast<float*>(ys);
+  auto* g = static_cast<float*>(gates);
+  auto* hc = static_cast<float*>(hcprev);
+  auto* hn = static_cast<float*>(hT);
+  auto* cn = static_cast<float*>(cT);
+  auto* br = static_cast<unsigned*>(bar);
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (H <= 128)
+    err = launch_fwd<1>(x, ww, h, c, y, g, hc, hn, cn, br, B, T, H, s);
+  else if (H <= 256)
+    err = launch_fwd<2>(x, ww, h, c, y, g, hc, hn, cn, br, B, T, H, s);
+  else
+    err = launch_fwd<4>(x, ww, h, c, y, g, hc, hn, cn, br, B, T, H, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int emo_lstm_bwd_f32(const void* gates, const void* hcprev, const void* dys, const void* dhT,
+                     const void* dcT, const void* w, void* dxp, void* dw, void* dh0, void* dc0,
+                     void* bar, int B, int T, int H, void* stream) {
+  if (B < 1 || T < 1 || H < 1 || H > kMaxH) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* g = static_cast<const float*>(gates);
+  const auto* hc = static_cast<const float*>(hcprev);
+  const auto* dy = static_cast<const float*>(dys);
+  const auto* dh = static_cast<const float*>(dhT);
+  const auto* dc = static_cast<const float*>(dcT);
+  const auto* ww = static_cast<const float*>(w);
+  auto* dx = static_cast<float*>(dxp);
+  auto* dww = static_cast<float*>(dw);
+  auto* dh0p = static_cast<float*>(dh0);
+  auto* dc0p = static_cast<float*>(dc0);
+  auto* br = static_cast<unsigned*>(bar);
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  const int H4 = 4 * H;
+  if (H4 <= 128)
+    err = launch_bwd<1>(g, hc, dy, dh, dc, ww, dx, dww, dh0p, dc0p, br, B, T, H, s);
+  else if (H4 <= 256)
+    err = launch_bwd<2>(g, hc, dy, dh, dc, ww, dx, dww, dh0p, dc0p, br, B, T, H, s);
+  else if (H4 <= 512)
+    err = launch_bwd<4>(g, hc, dy, dh, dc, ww, dx, dww, dh0p, dc0p, br, B, T, H, s);
+  else if (H4 <= 1024)
+    err = launch_bwd<8>(g, hc, dy, dh, dc, ww, dx, dww, dh0p, dc0p, br, B, T, H, s);
+  else
+    err = launch_bwd<16>(g, hc, dy, dh, dc, ww, dx, dww, dh0p, dc0p, br, B, T, H, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* emo_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

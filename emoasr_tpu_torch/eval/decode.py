@@ -2,10 +2,11 @@
 branches of `emoasr_tpu/eval/decode.py::build_decode_fn`).
 
 One call decodes a whole padded bucket batch: greedy or the CTC prefix beam
-search for a CTC model, the joint-CTC attention beam search for a
-Transformer decoder; both beams take LM shallow fusion (an `LMFusion`,
-search/common.py).  The JAX package's packing and coalescing helpers
-worked around a remote transport and are not carried.
+search for a CTC model, greedy or the ALSD beam search for an RNN-T model,
+the joint-CTC attention beam search for a Transformer decoder; the CTC and
+attention beams take LM shallow fusion (an `LMFusion`, search/common.py).
+The JAX package's packing and coalescing helpers worked around a remote
+transport and are not carried.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from emoasr_tpu_torch.models.layers import make_pad_mask
 from emoasr_tpu_torch.search.attention_beam import attention_beam_search
 from emoasr_tpu_torch.search.common import LMFusion
 from emoasr_tpu_torch.search.ctc_beam import ctc_beam_search
+from emoasr_tpu_torch.search.rnnt_beam import rnnt_beam_search
 from emoasr_tpu_torch.train.step import preprocess
 from emoasr_tpu_torch.utils.device import resolve_device
 from emoasr_tpu_torch.utils.precision import cast_floating, dtype_of, is_half
@@ -72,8 +74,12 @@ def build_decode_fn(
     fused kernel), `cfg.decode_len_cap` the per-utterance step budgets, and
     `top1=True` (every eval mode except --nbest) lets the beam stop a row as
     soon as its stored best is provably unbeatable (exact for the returned
-    hypothesis, see `attention_beam_search`)."""
-    if cfg.decoder_type not in ("ctc", "transformer"):
+    hypothesis, see `attention_beam_search`).
+
+    RNN-T decoder: greedy for `beam_width <= 1` or `decode_ctc_weight == 1`
+    (as the JAX package chooses), else the ALSD beam with hypotheses of at
+    most `max_decode_ylen` labels after the leading eos."""
+    if cfg.decoder_type not in ("ctc", "transformer", "rnn_transducer"):
         raise NotImplementedError(
             f"decode for decoder_type={cfg.decoder_type!r} is not ported yet (ROADMAP.md §1)"
         )
@@ -181,8 +187,33 @@ def build_decode_fn(
                 need_results=1 if top1 else None,
             )
 
+        @torch.no_grad()
+        def decode_rnnt_beam(xs, xlens):
+            xs, xlens = inputs(xs, xlens)
+            eouts, elens, _ = model.encode(xs, xlens)
+            dec = model.decoder
+
+            def rec(tok, ds):
+                d, st = dec.recurrency(tok, ds)
+                return d[:, 0], st
+
+            return rnnt_beam_search(
+                eouts, elens, rec, dec.joint_step,
+                num_layers=cfg.dec_num_layers,
+                dec_hidden=cfg.dec_hidden_size,
+                beam_width=beam_width,
+                vocab_size=cfg.vocab_size,
+                blank_id=cfg.blank_id,
+                eos_id=cfg.eos_id,
+                max_hyp_len=cfg.max_decode_ylen + 1,
+                lm=lm_t,
+            )
+
         if cfg.decoder_type == "transformer":
             fn = decode_att_beam
+        elif cfg.decoder_type == "rnn_transducer":
+            greedy = beam_width <= 1 or decode_ctc_weight == 1
+            fn = decode_greedy if greedy else decode_rnnt_beam
         else:
             fn = decode_greedy if beam_width <= 1 else decode_ctc_beam
 

@@ -1,7 +1,8 @@
 """ASR evaluation CLI: batched decoding -> result TSV + WER (+ RTF mode).
 
-PyTorch port of `emoasr_tpu/eval/test_asr.py` for CTC models and for models
-with the attention (Transformer) decoder (parity target emoASR
+PyTorch port of `emoasr_tpu/eval/test_asr.py` for CTC models, RNN-T models
+(greedy and the ALSD beam) and models with the attention (Transformer)
+decoder (parity target emoASR
 `asr/test_asr.py`): same flags, result-file naming
 (`result_{data}_beam{W}_len{L}_ctc{C}_lm{M}{tag}_ep{E}.tsv`), WER comment
 stamped into the TSV, `test_main` returning

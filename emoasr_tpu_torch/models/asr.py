@@ -4,10 +4,11 @@
 Parity target: emoASR `asr/modeling/asr.py:21-101`: `forward` (loss),
 greedy `decode`, `forced_align`; the submodule names `encoder` and
 `decoder` are the reference checkpoint's prefixes.  Ported so far: the
-Transformer and Conformer encoders with the CTC decoder (training and
-decoding) and with the attention decoder (decoding only: its losses come
-with the slice that trains it).  Dropout is on in `train()` mode and off in
-`eval()` mode (the JAX package's `deterministic` flag).
+Transformer and Conformer encoders with the CTC decoder and the RNN-T
+decoder (training and decoding), and with the attention decoder (decoding
+only: its losses come with the slice that trains it).  Dropout is on in
+`train()` mode and off in `eval()` mode (the JAX package's `deterministic`
+flag).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from torch import nn
 
 from emoasr_tpu_torch.config import ExpConfig
 from emoasr_tpu_torch.models.decoders.ctc import CTCDecoder
+from emoasr_tpu_torch.models.decoders.rnnt import RNNTDecoder
 from emoasr_tpu_torch.models.decoders.transformer import TransformerDecoder
 from emoasr_tpu_torch.models.encoders import build_encoder
 from emoasr_tpu_torch.ops.ctc import ctc_forced_align
@@ -29,17 +31,19 @@ class ASR(nn.Module):
         self.encoder = build_encoder(cfg)
         if cfg.decoder_type == "ctc":
             self.decoder = CTCDecoder(cfg)
+        elif cfg.decoder_type == "rnn_transducer":
+            self.decoder = RNNTDecoder(cfg)
         elif cfg.decoder_type == "transformer":
             self.decoder = TransformerDecoder(cfg)
         else:
             raise NotImplementedError(
-                f"decoder_type={cfg.decoder_type!r}: the RNN-T decoder comes "
-                "with slice 4 and LAS with slice 5 (ROADMAP.md §1)"
+                f"decoder_type={cfg.decoder_type!r}: LAS comes with slice 5 (ROADMAP.md §1)"
             )
 
     def forward(self, xs, xlens, ys, ylens, ys_in=None, ys_out=None,
                 soft_labels=None, ps=None, plens=None):
-        """-> (loss, loss_dict) (`asr.py:56-74`)."""
+        """-> (loss, loss_dict) (`asr.py:56-74`); the RNN-T decoder reads
+        the eos-led `ys_in`."""
         if self.cfg.decoder_type == "transformer":
             raise NotImplementedError(
                 "training the attention decoder (its label-smoothing loss, "
@@ -64,18 +68,27 @@ class ASR(nn.Module):
 
     def decode_greedy(self, xs, xlens):
         """Batched greedy decode -> (hyps, hyp_lens, logits, aligns)
-        (`asr.py:70-95` + `ctc.py:176-201`)."""
-        if self.cfg.decoder_type != "ctc":
+        (`asr.py:70-95` + `ctc.py:176-201` / `rnn_transducer.py:194-240`;
+        logits None for the RNN-T decoder)."""
+        if self.cfg.decoder_type not in ("ctc", "rnn_transducer"):
             raise NotImplementedError(
                 f"greedy decode for {self.cfg.decoder_type}; use emoasr_tpu_torch.search"
             )
         eouts, elens, _ = self.encoder(xs, xlens)
+        if self.cfg.decoder_type == "rnn_transducer":
+            hyps, hyp_lens, aligns = self.decoder.greedy(eouts, elens)
+            return hyps, hyp_lens, None, aligns
         return self.decoder.greedy(eouts, elens)
 
     @torch.no_grad()
     def forced_align(self, xs, xlens, ys, ylens):
         """(B, T') frame alignment of the reference labels (CTC branch of
         `asr.py:101-116`)."""
+        if self.cfg.decoder_type == "rnn_transducer":
+            raise NotImplementedError(
+                "RNN-T forced alignment (ops/rnnt.py::rnnt_forced_align) comes with the "
+                "distillation slice (ROADMAP.md §1, slice 7)"
+            )
         if self.cfg.decoder_type != "ctc":
             raise NotImplementedError(f"forced_align for decoder_type={self.cfg.decoder_type}")
         eouts, elens, _ = self.encoder(xs, xlens)

@@ -1,0 +1,226 @@
+"""RNN-Transducer loss (PyTorch port of `emoasr_tpu/ops/rnnt.py`).
+
+Replaces `warp_rnnt.rnnt_loss` (blank=blank_id, reduction="mean",
+average_frames=False) of emoASR's `asr/modeling/decoders/rnn_transducer.py:
+106-115`.  The (T, U+1) lattice recurrence
+
+    alpha[t, u] = LSE(alpha[t-1, u] + blank[t-1, u],
+                      alpha[t, u-1] + label[t, u-1])
+
+is solved one time row at a time (`rnnt_alpha_rowscan`).  The cross-row
+term is elementwise; the within-row term is a first-order log-linear
+recurrence x_u = LSE(b_u, a_u + x_{u-1}) with the closed form
+x_u = A_u + logcumsumexp_{s <= u}(b_s - A_s), A = cumsum(a), computed in
+float64 (`search/ctc_prefix_score.py::log_linear_scan`), where the JAX
+package runs a doubling scan: a few launches a row instead of log2(U)
+sweeps of several each.
+The label emission into column 0 is no term of any path; it is set to 0,
+not `LOG_0`, before the cumsum, so that the -1e10 takes no precision from
+the sums.  Rows at t >= xlen keep the row xlen - 1, so the last row holds
+every utterance's final cell.  Autograd through the rows gives the exact
+gradient.
+
+Only the blank column and one label column per cell are taken from the
+joint output (`gather=True` of warp_rnnt).  `rnnt_gathered_from_joint` (the
+`chunked` mode) computes them from the joint activations in time chunks of
+32 frames and never holds the (B, T, U+1, V) tensor; its backward
+recomputes each chunk and applies the analytic gradient of log-softmax and
+gather, so no V-wide residual is kept.  The fused kernel (`pallas` mode,
+ops/rnnt_joint.py) uses the same backward.
+
+`rnnt_forced_align` waits for the distillation slice (ROADMAP.md §1,
+slice 7).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from emoasr_tpu_torch.ops.common import LOG_0
+from emoasr_tpu_torch.search.ctc_prefix_score import log_linear_scan
+
+TIME_CHUNK = 32  # frames of the joint output held at once (the JAX package's)
+
+
+def _gather_blank_label(
+    log_probs: torch.Tensor, labels: torch.Tensor, blank_id: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, T, U+1, V) -> blank (B, T, U+1) and label (B, T, U) emissions."""
+    B, T = log_probs.shape[:2]
+    U = labels.shape[1]
+    lp_blank = log_probs[..., blank_id]
+    idx = labels.long()[:, None, :, None].expand(B, T, U, 1)
+    lp_label = torch.gather(log_probs[:, :, :U, :], 3, idx)[..., 0]
+    return lp_blank, lp_label
+
+
+def rnnt_alpha_rowscan(
+    lp_blank: torch.Tensor, lp_label: torch.Tensor, xlens: torch.Tensor, ylens: torch.Tensor
+) -> torch.Tensor:
+    """Per-utterance log-likelihood (B,) of the lattice, a row at a time
+    (see the module note)."""
+    lp_blank = lp_blank.float()
+    B, T, U1 = lp_blank.shape
+    dev = lp_blank.device
+    xlens = xlens.to(dev).long()
+    ylens = ylens.to(dev).long()
+    # a[:, t, u]: label emission into u (from u - 1); column 0 is no edge
+    a = torch.cat([torch.zeros((B, T, 1), dtype=torch.float64, device=dev), lp_label.double()], dim=2)
+    b = torch.full((B, U1), LOG_0, dtype=torch.float64, device=dev)
+    b[:, 0] = 0.0
+    alpha = log_linear_scan(a[:, 0], b)  # row 0: the label chain from alpha[0, 0] = 0
+    blank64 = lp_blank.double()
+    for t in range(1, T):
+        new = log_linear_scan(a[:, t], alpha + blank64[:, t - 1])
+        alpha = torch.where((t < xlens)[:, None], new, alpha)
+    final = torch.gather(alpha, 1, ylens[:, None])[:, 0]
+    last = torch.gather(lp_blank, 1, (xlens - 1)[:, None, None].expand(B, 1, U1))[:, 0]
+    term = torch.gather(last, 1, ylens[:, None])[:, 0]
+    return final.float() + term
+
+
+def _reduce(nll: torch.Tensor, reduction: str) -> torch.Tensor:
+    if reduction == "mean":
+        return nll.mean()
+    if reduction == "sum":
+        return nll.sum()
+    return nll
+
+
+def rnnt_loss_rowscan(
+    log_probs: torch.Tensor, labels: torch.Tensor, xlens: torch.Tensor, ylens: torch.Tensor,
+    blank_id: int = 0, reduction: str = "mean",
+) -> torch.Tensor:
+    """RNN-T loss of log-softmaxed joint outputs (B, T, U+1, V)."""
+    lp_blank, lp_label = _gather_blank_label(log_probs.float(), labels, blank_id)
+    return _reduce(-rnnt_alpha_rowscan(lp_blank, lp_label, xlens, ylens), reduction)
+
+
+def rnnt_loss(
+    log_probs: torch.Tensor, labels: torch.Tensor, xlens: torch.Tensor, ylens: torch.Tensor,
+    blank_id: int = 0, reduction: str = "mean",
+) -> torch.Tensor:
+    """RNN-T loss matching `warp_rnnt.rnnt_loss(average_frames=False)` (the
+    `full` mode).  The JAX package's `rnnt_loss` scans anti-diagonals; the
+    lattice is the same, so this is the row scan."""
+    return rnnt_loss_rowscan(log_probs, labels, xlens, ylens, blank_id, reduction)
+
+
+# ---------------------------------------------------------------- the joint, chunked
+
+
+def _label_rows(w_out: torch.Tensor, b_out: torch.Tensor, labels: torch.Tensor):
+    """Per-label output rows (B, U, J), biases (B, U) and a validity mask: a
+    label outside [0, V) selects nothing (its logit counts as 0), as in the
+    fused kernel."""
+    V = w_out.shape[1]
+    lab = labels.long()
+    ok = (lab >= 0) & (lab < V)
+    lab = torch.where(ok, lab, torch.zeros_like(lab))
+    return w_out.t()[lab], b_out[lab], ok
+
+
+def joint_chunk(h_enc_c, h_dec, w_out, b_out, w_lab, b_lab, ok, blank_id: int):
+    """One time chunk: (B, c, J) x (B, U+1, J) -> z (B, c, U+1, J), logits
+    (B, c, U+1, V), lse, lp_blank (B, c, U+1) and lp_label (B, c, U)."""
+    U = w_lab.shape[1]
+    z = torch.tanh(h_enc_c[:, :, None, :] + h_dec[:, None, :, :])
+    logits = torch.matmul(z, w_out) + b_out
+    lse = torch.logsumexp(logits, dim=-1)
+    lpb = logits[..., blank_id] - lse
+    lab_logit = torch.einsum("bcuj,buj->bcu", z[:, :, :U], w_lab) + b_lab[:, None, :]
+    lpl = torch.where(ok[:, None, :], lab_logit, torch.zeros_like(lab_logit)) - lse[:, :, :U]
+    return z, logits, lse, lpb, lpl
+
+
+def _chunks(T: int, time_chunk: int):
+    return [(s, min(s + time_chunk, T)) for s in range(0, T, time_chunk)]
+
+
+def joint_gather_plain(h_enc, h_dec, w_out, b_out, labels, blank_id: int = 0,
+                       time_chunk: int = TIME_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lp_blank (B, T, U+1), lp_label (B, T, U)) from the joint
+    activations, a time chunk at a time (no autograd graph is kept by the
+    callers that need one: see `rnnt_gathered_from_joint`)."""
+    w_lab, b_lab, ok = _label_rows(w_out, b_out, labels)
+    lpb, lpl = [], []
+    for s, e in _chunks(h_enc.shape[1], time_chunk):
+        _, _, _, b_c, l_c = joint_chunk(h_enc[:, s:e], h_dec, w_out, b_out, w_lab, b_lab, ok, blank_id)
+        lpb.append(b_c)
+        lpl.append(l_c)
+    return torch.cat(lpb, dim=1), torch.cat(lpl, dim=1)
+
+
+def joint_gather_backward(h_enc, h_dec, w_out, b_out, labels, g_blank, g_label, blank_id: int = 0,
+                          time_chunk: int = TIME_CHUNK):
+    """Gradients of (lp_blank, lp_label) with cotangents (g_blank, g_label)
+    to (h_enc, h_dec, w_out, b_out), a recomputed time chunk at a time.
+
+    With p = softmax(logits): d logits = g_blank onehot(blank) + g_label
+    onehot(label) - (g_blank + g_label) p; d z = d logits w^T; d pre = d z
+    (1 - z^2), summed over u for h_enc and over t for h_dec."""
+    B, T, J = h_enc.shape
+    U1, V = h_dec.shape[1], w_out.shape[1]
+    w_lab, b_lab, ok = _label_rows(w_out, b_out, labels)
+    g_blank = g_blank.float()
+    g_label = torch.where(ok[:, None, :], g_label.float(), torch.zeros_like(g_label, dtype=torch.float32))
+    lab_col = torch.cat([torch.where(ok, labels.long(), torch.zeros_like(labels, dtype=torch.long)),
+                         torch.zeros((B, 1), dtype=torch.long, device=labels.device)], dim=1)  # (B, U+1)
+    d_enc = torch.empty_like(h_enc)
+    d_dec = torch.zeros_like(h_dec)
+    d_w = torch.zeros_like(w_out)
+    d_b = torch.zeros_like(b_out)
+    for s, e in _chunks(T, time_chunk):
+        z, logits, lse, _, _ = joint_chunk(h_enc[:, s:e], h_dec, w_out, b_out, w_lab, b_lab, ok, blank_id)
+        gb = g_blank[:, s:e]
+        gl = torch.cat([g_label[:, s:e], torch.zeros_like(gb[..., :1])], dim=2)  # (B, c, U+1)
+        d_logits = torch.exp(logits - lse[..., None]).mul_(-(gb + gl)[..., None])
+        d_logits[..., blank_id] += gb
+        d_logits.scatter_add_(3, lab_col[:, None, :, None].expand(B, e - s, U1, 1), gl[..., None])
+        dz = torch.matmul(d_logits, w_out.t())
+        d_w += torch.matmul(z.reshape(-1, J).t(), d_logits.reshape(-1, V))
+        d_b += d_logits.sum(dim=(0, 1, 2))
+        d_pre = dz.mul_(1.0 - z * z)
+        d_enc[:, s:e] = d_pre.sum(dim=2)
+        d_dec += d_pre.sum(dim=1)
+    return d_enc, d_dec, d_w, d_b
+
+
+def zero_cotangents(h_enc, h_dec, g_blank, g_label):
+    """Cotangents of the two outputs, zeros for an output no loss used."""
+    B, T = h_enc.shape[:2]
+    U1 = h_dec.shape[1]
+    if g_blank is None:
+        g_blank = torch.zeros((B, T, U1), dtype=torch.float32, device=h_enc.device)
+    if g_label is None:
+        g_label = torch.zeros((B, T, U1 - 1), dtype=torch.float32, device=h_enc.device)
+    return g_blank, g_label
+
+
+class _ChunkedJointGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h_enc, h_dec, w_out, b_out, labels, blank_id, time_chunk):
+        ctx.save_for_backward(h_enc, h_dec, w_out, b_out, labels)
+        ctx.blank_id, ctx.time_chunk = blank_id, time_chunk
+        return joint_gather_plain(h_enc, h_dec, w_out, b_out, labels, blank_id, time_chunk)
+
+    @staticmethod
+    def backward(ctx, g_blank, g_label):
+        h_enc, h_dec, w_out, b_out, labels = ctx.saved_tensors
+        g_blank, g_label = zero_cotangents(h_enc, h_dec, g_blank, g_label)
+        grads = joint_gather_backward(h_enc, h_dec, w_out, b_out, labels, g_blank, g_label,
+                                      ctx.blank_id, ctx.time_chunk)
+        return (*grads, None, None, None)
+
+
+def rnnt_gathered_from_joint(
+    h_enc: torch.Tensor, h_dec: torch.Tensor, w_out: torch.Tensor, b_out: torch.Tensor,
+    labels: torch.Tensor, blank_id: int = 0, time_chunk: int = TIME_CHUNK,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blank and label log-probabilities (B, T, U+1), (B, T, U) from the
+    joint activations h_enc (B, T, J) = W_enc eouts, h_dec (B, U+1, J) =
+    W_dec douts (biases folded in), the output layer w_out (J, V), b_out
+    (V,), without the (B, T, U+1, V) tensor (the `chunked` mode)."""
+    return _ChunkedJointGather.apply(h_enc, h_dec, w_out, b_out, labels, blank_id, time_chunk)

@@ -3,11 +3,12 @@
 `asr_state_dict(params, cfg, batch_stats)` is the inverse of
 `emoasr_tpu/utils/torch_import.py::asr_model` for the models ported so far
 (Transformer or Conformer encoder with the conv2d or linear input layer;
-CTC decoder with its optional phone head, or Transformer decoder with its
-optional auxiliary CTC head), and `lm_state_dict(params, lm_cfg)` that of
-`torch_import.py::bert_masked_lm` for the Transformer LM.  It takes the flax
-parameter tree (and, for a Conformer, the flax `batch_stats` collection) as
-nested dicts of numpy arrays and needs neither JAX nor flax.  A flax gradient tree has the
+CTC decoder with its optional phone head, Transformer decoder or RNN-T
+decoder, each with its optional auxiliary CTC head), and
+`lm_state_dict(params, lm_cfg)` that of `torch_import.py::bert_masked_lm`
+for the Transformer LM.  It takes the flax parameter tree (and, for a
+Conformer, the flax `batch_stats` collection) as nested dicts of numpy
+arrays and needs neither JAX nor flax.  A flax gradient tree has the
 parameters' structure, so it maps the same way and gradients can be
 compared name by name:
 
@@ -17,7 +18,9 @@ compared name by name:
 - a LayerNorm or BatchNorm `scale`/`bias` becomes `weight`/`bias`, and the
   `batch_stats` `mean`/`var` become `running_mean`/`running_var`
   (`num_batches_tracked`, which flax does not keep, is written as 0);
-- an Embed `embedding` becomes `weight`.
+- an Embed `embedding` becomes `weight`;
+- an LSTM layer's `weight_ih`/`weight_hh`/`bias_ih`/`bias_hh` (already in
+  torch's layout) become `nn.LSTM`'s `weight_ih_l0`, ... .
 """
 
 from __future__ import annotations
@@ -136,6 +139,21 @@ def transformer_decoder_state_dict(dec: Mapping, num_layers: int, prefix: str = 
     return sd
 
 
+def rnnt_decoder_state_dict(dec: Mapping, num_layers: int, prefix: str = "") -> SD:
+    """The RNN-T decoder: `embed`, `rnns/layer{i}`, `w_enc`, `w_dec`,
+    `output` (an `ExplicitDense`, kernel (J, V)) and the optional `ctc`."""
+    sd: SD = {f"{prefix}embed.weight": _t(dec["embed"]["embedding"])}
+    for i in range(num_layers):
+        layer = dec["rnns"][f"layer{i}"]
+        for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+            sd[f"{prefix}rnns.{i}.{name}_l0"] = _t(layer[name])
+    for name in ("w_enc", "w_dec", "output"):
+        _dense(sd, f"{prefix}{name}", dec[name])
+    if "ctc" in dec:
+        sd.update(ctc_decoder_state_dict(dec["ctc"], f"{prefix}ctc."))
+    return sd
+
+
 def asr_state_dict(params: Mapping, cfg, batch_stats: Optional[Mapping] = None) -> SD:
     """flax `{"encoder": ..., "decoder": ...}` (+ the `batch_stats`
     collection of a Conformer) -> port `state_dict`."""
@@ -151,6 +169,8 @@ def asr_state_dict(params: Mapping, cfg, batch_stats: Optional[Mapping] = None) 
         sd.update(ctc_decoder_state_dict(params["decoder"], "decoder."))
     elif cfg.decoder_type == "transformer":
         sd.update(transformer_decoder_state_dict(params["decoder"], cfg.dec_num_layers, "decoder."))
+    elif cfg.decoder_type == "rnn_transducer":
+        sd.update(rnnt_decoder_state_dict(params["decoder"], cfg.dec_num_layers, "decoder."))
     else:
         raise NotImplementedError(
             f"decoder_type={cfg.decoder_type!r} is not ported yet (ROADMAP.md §1)"

@@ -283,3 +283,24 @@ def test_l3_3_cli_with_lm_matches_jax_cli(tmp_path, monkeypatch):
     pd.testing.assert_frame_equal(got, ref)
     with open(os.path.join(res, "torch", name)) as f, open(os.path.join(res, "jax", name)) as g:
         assert f.readline() == g.readline() == "# " + out[3] + "\n"
+
+
+@pytest.mark.parametrize("beam", [0, 4])
+def test_l4_rnnt_cli_matches_jax_cli(tmp_path, beam):
+    """A tiny RNN-T(Conformer) model: greedy and the ALSD beam at width 4,
+    the same TSV rows and WER line as the JAX CLI."""
+    from test_torch_rnnt import RNNT_SMALL, random_rnnt_params
+
+    base = dict(RNNT_SMALL, enc_num_layers=1, dec_num_layers=1, mtl_ctc_weight=0.0, max_decode_ylen=10)
+    params, stats = random_rnnt_params(base, seed=14)
+    tsv, vocab = _corpus(str(tmp_path), [60, 75, 90, 101, 120])  # one bucket
+    conf = _experiment(str(tmp_path), "l4", tsv, vocab, params, base=base, batch_stats=stats,
+                       enc_fused_attn=True, buckets=[[128, 16]], batch_size=8)
+    argv = ["-conf", conf, "-ep", "1", "--beam_width", str(beam)]
+    jax_cli.test_main(jax_cli.build_argparser().parse_args(argv + ["--save_dir", "jax"]))
+    out = port_cli.main(argv + ["--cpu", "--save_dir", "torch"])
+    ref, ref_comment = _tsv(conf, "jax", beam)
+    got, got_comment = _tsv(conf, "torch", beam)
+    assert len(got) == 5 and got["token_id"].notna().any()
+    pd.testing.assert_frame_equal(got, ref)
+    assert got_comment == ref_comment == "# " + out[3] + "\n"

@@ -56,7 +56,9 @@ def test_imports_no_jax_and_nothing_of_the_jax_package():
                 "emoasr_tpu_torch.search.ctc_prefix_score", "emoasr_tpu_torch.search.attention_beam",
                 "emoasr_tpu_torch.eval.decode", "emoasr_tpu_torch.utils.flax_import",
                 "emoasr_tpu_torch.ops.lm_step", "emoasr_tpu_torch.models.lm.bert",
-                "emoasr_tpu_torch.models.lm.lm"):
+                "emoasr_tpu_torch.models.lm.lm", "emoasr_tpu_torch.ops.lstm", "emoasr_tpu_torch.ops.lstm_scan",
+                "emoasr_tpu_torch.ops.rnnt", "emoasr_tpu_torch.ops.rnnt_joint",
+                "emoasr_tpu_torch.models.decoders.rnnt", "emoasr_tpu_torch.search.rnnt_beam"):
         assert mod in res["modules"]
 
 
@@ -86,6 +88,7 @@ def test_entry_points_raise_without_cuda(tmp_path):
     from emoasr_tpu_torch.eval import test_asr
     from emoasr_tpu_torch.eval.decode import build_decode_fn
     from emoasr_tpu_torch.models.asr import ASR
+    from emoasr_tpu_torch.train import loop
     from emoasr_tpu_torch.utils.device import resolve_device
 
     cfg = config_from_dict(dict(
@@ -106,6 +109,18 @@ def test_entry_points_raise_without_cuda(tmp_path):
     ))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_decode_fn(ASR(l3), l3, beam_width=3, decode_ctc_weight=0.3)
+    l4 = config_from_dict(dict(
+        encoder_type="conformer", decoder_type="rnn_transducer", pos_encode_type="rel", feat_dim=20,
+        enc_hidden_size=16, enc_num_attention_heads=2, enc_num_layers=1, enc_intermediate_size=32,
+        conv_kernel_size=3, dec_hidden_size=16, dec_num_layers=1, vocab_size=10, rnnt_joint_mode="pallas",
+    ))
+    for beam in (0, 3):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build_decode_fn(ASR(l4), l4, beam_width=beam)
+    l4_conf = tmp_path / "l4.yaml"
+    l4_conf.write_text("encoder_type: conformer\ndecoder_type: rnn_transducer\nfeat_dim: 20\n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        loop.main(["-conf", str(l4_conf)])
     l3_conf = tmp_path / "l3.yaml"
     l3_conf.write_text("encoder_type: conformer\ndecoder_type: transformer\nfeat_dim: 20\n")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -114,8 +129,6 @@ def test_entry_points_raise_without_cuda(tmp_path):
     conf.write_text("feat_dim: 20\n")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         test_asr.main(["-conf", str(conf), "-ep", "1"])
-    from emoasr_tpu_torch.train import loop
-
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         loop.main(["-conf", str(conf)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -285,3 +298,33 @@ def test_cpu_tensors_take_the_plain_versions():
     assert all(torch.equal(x, y) for x, y in zip(a, b)) and all(torch.equal(x, y) for x, y in zip(c, d))
     for k in (decoder_step.KERNEL, decoder_step.KERNEL_INDIRECT, attention.KERNEL):
         assert k.launches == 0 and not any(k.counts.values()) and k._lib is None
+
+
+def test_rnnt_kernels_stay_plain_on_the_cpu():
+    """The RNN-T joint and the LSTM recurrence: CPU tensors take the plain
+    versions, forward and backward, and nothing is built or launched; a
+    tensor on another device raises instead of falling back."""
+    from emoasr_tpu_torch.ops import lstm, lstm_scan, rnnt, rnnt_joint
+
+    rng = np.random.default_rng(2)
+    he = torch.from_numpy(rng.normal(size=(2, 9, 8)).astype(np.float32)).requires_grad_(True)
+    hd = torch.from_numpy(rng.normal(size=(2, 4, 8)).astype(np.float32))
+    w, b = torch.from_numpy(rng.normal(size=(8, 11)).astype(np.float32)), torch.zeros(11)
+    lab = torch.tensor([[3, 4, 2], [5, 2, 2]])
+    got = rnnt_joint.fused_joint_gather(he, hd, w, b, lab)
+    want = rnnt.joint_gather_plain(he, hd, w, b, lab)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    (g,) = torch.autograd.grad(got[0].sum() + got[1].sum(), he)
+    assert torch.isfinite(g).all() and g.abs().sum() > 0
+    xp = torch.from_numpy(rng.normal(size=(2, 12, 16)).astype(np.float32)).requires_grad_(True)
+    whh, z = torch.from_numpy(0.1 * rng.normal(size=(16, 4)).astype(np.float32)), torch.zeros(2, 4)
+    for fn in (lstm.lstm_scan, lstm_scan.lstm_scan_fused):
+        ys, _ = fn(xp, whh, z, z)
+        (g,) = torch.autograd.grad(ys.sum(), xp)
+        assert torch.isfinite(g).all()
+    for k in (rnnt_joint.KERNEL, lstm_scan.KERNEL):
+        assert k.launches == 0 and not any(k.counts.values()) and k._lib is None
+    with pytest.raises(ValueError, match="unsupported device"):
+        rnnt_joint.fused_joint_gather(he.detach().to("meta"), hd.to("meta"), w.to("meta"), b.to("meta"), lab)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lstm_scan.lstm_scan_fused(xp.detach().to("meta"), whh.to("meta"), z.to("meta"), z.to("meta"))

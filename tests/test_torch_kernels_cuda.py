@@ -8,7 +8,8 @@ card, run them without the JAX test configuration:
 The cases and tolerances are those of `chip_smoke.py` (top-k exact;
 attention forward f32 within 1e-5, bf16 within 2e-2, with and without the
 score bias; attention backward, CTC head, CTC lattice, the decoder layer
-step and the LM layer step: the constants beside their checks there).
+step, the LM layer step, the RNN-T joint and the LSTM recurrence forward
+and backward: the constants beside their checks there).
 """
 
 import pytest
@@ -197,3 +198,48 @@ def test_new_kernels_reject_what_they_do_not_take(cuda_dev):
         ctc_ll_from_path(lp.double(), m, m, m, torch.tensor([4], device=dev))
     with pytest.raises(ValueError):
         ctc_ll_from_path(lp[:, :, ::2], m[:, ::2], m[:, ::2], m[:, ::2], torch.tensor([4], device=dev))
+
+
+def test_rnnt_joint_kernel_matches_plain(cuda_dev):
+    from emoasr_tpu_torch.ops import rnnt_joint
+
+    before = rnnt_joint.KERNEL.launches
+    chip_smoke.check_rnnt_joint(*cuda_dev)
+    assert rnnt_joint.KERNEL.launches - before == 4  # four shapes
+
+
+def test_lstm_kernels_match_plain(cuda_dev):
+    from emoasr_tpu_torch.ops import lstm_scan
+
+    before = dict(lstm_scan.KERNEL.counts)
+    chip_smoke.check_lstm(*cuda_dev)
+    for name in ("emo_lstm_fwd_f32", "emo_lstm_bwd_f32"):
+        assert lstm_scan.KERNEL.counts[name] - before[name] == 5  # five shapes
+
+
+def test_rnnt_kernels_reject_what_they_do_not_take(cuda_dev):
+    """float32 only; K7 up to J = 768, K8 up to H = 512; the LSTM's short
+    sequences (T < 8) take the scan, as in the JAX package."""
+    from emoasr_tpu_torch.ops import lstm, lstm_scan
+    from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather
+
+    dev, gen = cuda_dev
+    he, hd, w, b, lab = chip_smoke.rnnt_joint_case(dev, gen, 2, 5, 4, 32, 40)
+    lpb, lpl = fused_joint_gather(he, hd, w.t(), b, lab)
+    assert lpb.shape == (2, 5, 4) and lpl.shape == (2, 5, 3)
+    with pytest.raises(TypeError):
+        fused_joint_gather(he.bfloat16(), hd.bfloat16(), w.t().bfloat16(), b.bfloat16(), lab)
+    wide = chip_smoke.rnnt_joint_case(dev, gen, 1, 2, 2, 800, 40)
+    with pytest.raises(ValueError):
+        fused_joint_gather(wide[0], wide[1], wide[2].t(), wide[3], wide[4])
+    x_proj, w_hh, h0, c0, _ = chip_smoke.lstm_case(dev, gen, 2, 9, 16)
+    with pytest.raises(TypeError):
+        lstm_scan.lstm_scan_fused(x_proj.double(), w_hh.double(), h0.double(), c0.double())
+    big = chip_smoke.lstm_case(dev, gen, 2, 9, 520)
+    with pytest.raises(ValueError):
+        lstm_scan.lstm_scan_fused(*big[:4])
+    before = lstm_scan.KERNEL.launches
+    lstm.lstm_scan(x_proj[:, :7], w_hh, h0, c0)
+    assert lstm_scan.KERNEL.launches == before
+    lstm.lstm_scan(x_proj, w_hh, h0, c0)
+    assert lstm_scan.KERNEL.launches == before + 1

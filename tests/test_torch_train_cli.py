@@ -127,3 +127,35 @@ def test_warm_start_from_model_path(tmp_path):
         assert torch.equal(v, saved[k]), k
     assert state.step == 0
     assert np.isfinite(sum(v.double().sum().item() for v in saved.values()))
+
+
+def test_rnnt_train_cli_then_both_eval_clis(tmp_path):
+    """A tiny RNN-T model (1 x 32 Transformer encoder, 1 x 32 LSTM
+    prediction network, joint 32, `rnnt_joint_mode: pallas`) through the
+    port's train CLI on the CPU: the greedy dev WER is logged each epoch,
+    the loss falls, and the JAX eval CLI decodes the port's `model.ep{N}`
+    to the port eval CLI's TSV, greedy and beam 3 (exact)."""
+    tsv, vocab = _make_corpus(tmp_path)
+    conf = _conf(tsv, vocab, decoder_type="rnn_transducer", dec_hidden_size=32, dec_num_layers=1,
+                 joint_hidden_size=32, embedding_size=16, rnnt_joint_mode="pallas", num_epochs=24,
+                 save_step=24, num_warmup_steps=40, dev_path=tsv, max_decode_ylen=8, dropout_dec_rate=0.0,
+                 log_step=1)
+    conf_path = tmp_path / "rnnt.yaml"
+    conf_path.write_text(yaml.safe_dump(conf))
+    state = loop.main(["-conf", str(conf_path), "--cpu"])
+    assert state.step == 24 * 4 and state.skipped == 0
+    log = (tmp_path / "rnnt" / "log" / "train.log").read_text()
+    assert "epoch 24 dev WER (greedy)" in log
+    losses = [float(line.split("loss_total: ")[1].split()[0]) for line in log.splitlines() if "loss_total: " in line]
+    assert losses[-1] < 0.5 * losses[0]
+    for beam in (0, 3):
+        argv = ["-conf", str(conf_path), "-ep", "24", "--beam_width", str(beam)]
+        out = port_cli.main(argv + ["--cpu", "--save_dir", "torch"])
+        jax_cli.test_main(jax_cli.build_argparser().parse_args(argv + ["--save_dir", "jax"]))
+        name = f"result_test_beam{beam}_len0.0_ctc0.0_lm0.00_ep24.tsv"
+        res = tmp_path / "rnnt" / "results"
+        got = pd.read_table(res / "torch" / name, comment="#")
+        ref = pd.read_table(res / "jax" / name, comment="#")
+        pd.testing.assert_frame_equal(got, ref)
+        assert (res / "torch" / name).read_text().splitlines()[0] == (res / "jax" / name).read_text().splitlines()[0]
+        assert out[3].startswith("WER:")
