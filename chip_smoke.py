@@ -14,7 +14,10 @@ Phases (any failed check raises, so the script exits non-zero):
    f32 1e-5, bf16 2e-2, with and without the score bias; attention backward,
    CTC head, CTC lattice, the decoder layer step, direct and indirect, the
    LM layer step, the RNN-T joint and the LSTM recurrence: see the
-   constants beside their checks).
+   constants beside their checks); then the bf16 parts: the CTC head in
+   bf16 (H = 256, 512, 600) and in f32 at H = 512, the attention backward in
+   bf16 with and without the bias, the RNN-T joint and the LSTM in bf16
+   (one bf16 step of each entry, see `BF16_STEP`).
 4. Training at the full width of the L1 CTC(Transformer) model (12 x 256,
    4 heads, FF 2048, V = 10000, SpecAugment and dropout on,
    `enc_fused_attn: true`, random initial weights from `--seed`): one epoch
@@ -65,9 +68,18 @@ Phases (any failed check raises, so the script exits non-zero):
    with the ALSD beam at width 10 (K8 launched no time: the prediction
    network steps one token at a time), and one batch's greedy and top-1
    beam hypotheses equal on the card and the CPU.
-11. Every kernel timed at the largest bucket beside its plain version and
-   one library call; one JSON line describing each kernel, the `nvidia-smi`
-   line, and last the `{"ok": true, "device": ...}` line.
+11. L1 trained with `compute_dtype: bfloat16` through the train CLI (5
+   micro-steps, one per bucket): K1 and K4 through their bf16 launchers,
+   float32 masters, Adam moments and checkpoint; one micro-step of the
+   trainer's checkpoint in bf16 against float32 on the same batch (loss
+   within 2 %, gradient cosine >= 0.99); the largest bucket's phases in
+   bf16; a greedy bf16 decode of its `model.ep1` through the eval CLI.
+12. The same for L4 (K4 with its bias, K7 and K8 through their bf16
+   launchers).
+13. Every kernel timed at the largest bucket beside its plain version and
+   one library call, the bf16 launchers in bf16 (bounds at the bf16 rate,
+   library calls in bf16); one JSON line describing each kernel, the
+   `nvidia-smi` line, and last the `{"ok": true, "device": ...}` line.
 
 Scratch files go to `build/chip_smoke/` and are removed at the end.
 """
@@ -75,6 +87,7 @@ Scratch files go to `build/chip_smoke/` and are removed at the end.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -204,12 +217,12 @@ def attention_cases(dev, gen):
     return out
 
 
-def check_attention(dev, gen) -> float:
+def check_attention(dev, gen) -> dict:
     """Kernel against the plain version within the dtype's tolerance;
-    returns the largest f32 error."""
+    returns the largest error by dtype."""
     from emoasr_tpu_torch.ops.attention import attention_plain, fused_self_attention
 
-    worst_f32 = 0.0
+    worst_f32 = worst_bf16 = 0.0
     for name, q, k, v, lens in attention_cases(dev, gen):
         scale = 1.0 / (q.shape[-1] ** 0.5)
         o1 = fused_self_attention(q, k, v, lens, scale=scale)
@@ -221,8 +234,10 @@ def check_attention(dev, gen) -> float:
         require(err <= tol, f"attention {name}: max |kernel - plain| = {err} > {tol}")
         if v.dtype == torch.float32:
             worst_f32 = max(worst_f32, err)
+        else:
+            worst_bf16 = max(worst_bf16, err)
         print(f"  attention {name}: max abs err {err:.3e} (tol {tol})")
-    return worst_f32
+    return {"attention_fwd": worst_f32, "attention_fwd_bf16": worst_bf16}
 
 
 def time_topk(dev, gen, shape: tuple, k: int) -> dict:
@@ -245,12 +260,12 @@ def time_topk(dev, gen, shape: tuple, k: int) -> dict:
     }
 
 
-def time_attention(dev, gen, B: int, T: int, H: int, D: int, lens: torch.Tensor) -> dict:
+def time_attention(dev, gen, B: int, T: int, H: int, D: int, lens: torch.Tensor, dtype=torch.float32) -> dict:
     import torch.nn.functional as F
 
     from emoasr_tpu_torch.ops.attention import attention_plain, fused_self_attention
 
-    q, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev) for _ in range(3))
+    q, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev).to(dtype) for _ in range(3))
     scale = 1.0 / D ** 0.5
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, T, D) views
     key_mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
@@ -535,7 +550,7 @@ def check_attention_bias(dev, gen) -> dict:
     ragged lens, T not a multiple of any tile."""
     from emoasr_tpu_torch.ops.attention import attention_plain, dropout_keep_mask, fused_self_attention
 
-    worst = {"fwd": 0.0, "bwd": 0.0}
+    worst = {"fwd": 0.0, "bwd": 0.0, "fwd_bf16": 0.0}
     lens18 = torch.randint(1, 400, (18,), generator=gen, device=dev)
     lens18[0], lens18[1], lens18[2] = 399, 0, 1
     cases = (
@@ -555,8 +570,8 @@ def check_attention_bias(dev, gen) -> dict:
             err, tol = _max_err(o1, o0), ATTN_TOL[dtype]
             require(o1.dtype == dtype and bool(torch.isfinite(o1).all()) and err <= tol,
                     f"attention+bias {name} {dtype}: max |kernel - plain| = {err} > {tol}")
-            if dtype == torch.float32:
-                worst["fwd"] = max(worst["fwd"], err)
+            key = "fwd" if dtype == torch.float32 else "fwd_bf16"
+            worst[key] = max(worst[key], err)
             print(f"  attention+bias fwd {name} {dtype}: max abs err {err:.3e} (tol {tol})")
         for rate in (0.0, DROPOUT_RATE):
             seed = 7654321 + T
@@ -667,33 +682,37 @@ def check_decoder_step(dev, gen) -> dict:
     return worst
 
 
-def time_attention_bias(dev, gen, B: int, T: int, H: int, D: int, lens: torch.Tensor) -> dict:
+def time_attention_bias(dev, gen, B: int, T: int, H: int, D: int, lens: torch.Tensor,
+                        dtype=torch.float32) -> dict:
     """K4 with its bias, forward and backward (dropout 0.1), beside the
-    plain version and SDPA with the bias folded into its additive mask."""
+    plain version and SDPA with the bias folded into its additive mask; in
+    `dtype` (rows named `..._bf16` for bf16, bound at that dtype's rate)."""
     import torch.nn.functional as F
 
-    from emoasr_tpu_torch.ops.attention import attention_plain, dropout_keep_mask, fused_self_attention
+    from emoasr_tpu_torch.ops.attention import (attention_bwd_plain, attention_plain, dropout_keep_mask,
+                                                fused_self_attention)
 
-    q, k, v, d_out = (torch.randn(B, T, H, D, generator=gen, device=dev) for _ in range(4))
-    bias = torch.randn(B, H, T, T, generator=gen, device=dev) * D ** 0.5
+    q, k, v, d_out = (torch.randn(B, T, H, D, generator=gen, device=dev).to(dtype) for _ in range(4))
+    bias = (torch.randn(B, H, T, T, generator=gen, device=dev) * D ** 0.5).to(dtype)
     scale, seed = 1.0 / D ** 0.5, 99
     key_mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
     valid = int(lens.clamp(max=T).sum().item())
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    es = q.element_size()
 
     # SDPA adds its mask after the scale, so the bias goes in scaled, with the
     # key mask folded in; it is built once here, outside what is timed
     add_mask = (bias * scale).masked_fill(~key_mask, float("-inf"))
 
-    live_bias = 4 * H * T * valid  # bias bytes at the keys a row can see
+    live_bias = es * H * T * valid  # bias bytes at the keys a row can see
     fwd = {
         "ms": cuda_time_ms(lambda: fused_self_attention(q, k, v, lens, scale=scale, bias=bias)),
         "plain_ms": cuda_time_ms(lambda: attention_plain(q, k, v, lens, scale, bias=bias)),
         "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=add_mask, scale=scale)),
-        "shape": f"({B},{T},{H},{D}) float32, bias ({B},{H},{T},{T})",
+        "shape": f"({B},{T},{H},{D}) {dtype}, bias ({B},{H},{T},{T})",
     }
-    fwd.update(_bound(4 * 4 * B * T * H * D + live_bias + B * 4, 4.0 * H * T * D * valid))
+    fwd.update(_bound(es * 4 * B * T * H * D + live_bias + B * 4, 4.0 * H * T * D * valid, dtype))
 
     mask = dropout_keep_mask(B, T, H, DROPOUT_RATE, seed, dev)
     q_, k_, v_, b_ = (x.clone().requires_grad_(True) for x in (q, k, v, bias))
@@ -704,19 +723,24 @@ def time_attention_bias(dev, gen, B: int, T: int, H: int, D: int, lens: torch.Te
     graphs = {
         "ms": fused_self_attention(q_, k_, v_, lens, scale=scale, dropout_rate=DROPOUT_RATE,
                                    deterministic=False, seed=seed, bias=b_),
-        "plain_ms": attention_plain(q_, k_, v_, lens, scale, DROPOUT_RATE, bias=b_, dropout_mask=mask),
         "library_ms": F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=m_, dropout_p=DROPOUT_RATE, scale=scale).transpose(1, 2),
     }
+    if dtype == torch.float32:
+        graphs["plain_ms"] = attention_plain(q_, k_, v_, lens, scale, DROPOUT_RATE, bias=b_, dropout_mask=mask)
     bwd = {key: cuda_time_ms(_grad_timer(out, (q_, k_, v_, m_ if key == "library_ms" else b_), d_out),
                              iters=20, warmup=2)
            for key, out in graphs.items()}
+    if dtype != torch.float32:  # the plain backward with the kernel's rounding, not autograd's
+        bwd["plain_ms"] = cuda_time_ms(lambda: attention_bwd_plain(q, k, v, d_out, lens, scale, DROPOUT_RATE,
+                                                                   bias, mask), iters=20, warmup=2)
     # inputs read once (q, k, v, o, dO, lse, the live bias), outputs written
     # once (dQ, dK, dV and all of d bias, zeros included)
-    bwd.update(_bound(4 * (8 * B * T * H * D + B * H * T + B) + live_bias + 4 * B * H * T * T,
-                      10.0 * H * D * T * valid))
-    bwd["shape"] = f"({B},{T},{H},{D}) float32, bias ({B},{H},{T},{T}), dropout {DROPOUT_RATE}"
-    return {"attention_bias_fwd": fwd, "attention_bias_bwd": bwd}
+    bwd.update(_bound(es * 8 * B * T * H * D + 4 * (B * H * T + B) + live_bias + es * B * H * T * T,
+                      10.0 * H * D * T * valid, dtype))
+    bwd["shape"] = f"({B},{T},{H},{D}) {dtype}, bias ({B},{H},{T},{T}), dropout {DROPOUT_RATE}"
+    suffix = "" if dtype == torch.float32 else "_bf16"
+    return {"attention_bias_fwd" + suffix: fwd, "attention_bias_bwd" + suffix: bwd}
 
 
 def time_decoder_step(dev, gen, Bu: int, W: int, L: int, T: int, pos: int, lens: torch.Tensor) -> dict:
@@ -968,61 +992,256 @@ def check_lstm(dev, gen) -> dict:
     return worst
 
 
-def time_rnnt_joint(dev, gen, B: int, T: int, U1: int, J: int, V: int) -> dict:
+# ---------------------------------------------------------------- bf16 parts
+#
+# A bf16 output of a kernel and of its plain version is one float32 sum of
+# the same exact products (bf16 values multiply exactly in f32) in two
+# orders, rounded once: where the two sums straddle a rounding boundary they
+# differ by one bf16 step, 2^-7 of the entry at most.  An entry whose inputs
+# went through such a step upstream (a rounded dS or Pd in K4, a rounded
+# gate in K8) differs by that step times its weight in the sum: a floor of
+# one step of the tensor's largest entry (of the column's, for
+# vocabulary-sized gradients, compared by column as in f32).  float32
+# outputs of bf16 products (K1's lse and xs, K7's log-probabilities) keep
+# their f32 tolerances.
+BF16_STEP = 2.0 ** -7
+
+
+def _require_close_bf16(name: str, got: torch.Tensor, want: torch.Tensor, floor: float = BF16_STEP,
+                        col_dim=None) -> float:
+    """|got - want| <= 2^-7 |want| + floor * (the largest |want|, or the
+    largest of its column along `col_dim`) entry by entry; returns the
+    largest |got - want|."""
+    require(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    require(got.dtype == want.dtype, f"{name}: dtype {got.dtype} != {want.dtype}")
+    require(bool(torch.isfinite(got).all()), f"{name}: non-finite values")
+    g, w = got.double(), want.double()
+    if col_dim is None:
+        scale = w.abs().max().expand_as(w)
+    else:
+        other = [d for d in range(w.dim()) if d != col_dim % w.dim()]
+        scale = w.abs().amax(other, keepdim=True).expand_as(w)
+    err = (g - w).abs()
+    over = err - (BF16_STEP * w.abs() + floor * scale)
+    i = int(over.argmax())
+    require(over.reshape(-1)[i].item() <= 0,
+            f"{name}: |kernel - plain| = {err.reshape(-1)[i].item()} at {w.reshape(-1)[i].item()} exceeds one bf16 "
+            f"step + {floor} of its scale {scale.reshape(-1)[i].item()}")
+    return err.max().item()
+
+
+def check_ctc_head_bf16(dev, gen) -> dict:
+    """K1 in bf16 at the L1 width (H = 256) and wider (H = 512, 600: the
+    kernels stream H in chunks of 256), and in f32 at H = 512; both
+    cotangents of `check_ctc_head`.  Largest errors by kernel, bf16 only."""
+    from emoasr_tpu_torch.ops.ctc_head import ctc_head_plain, fused_ctc_head
+
+    worst = {"ctc_head_fwd_bf16": 0.0, "ctc_head_grad_e_bf16": 0.0, "ctc_head_grad_w_bf16": 0.0}
+    for name, shape, dtype in (
+        ("(18,399,256)x(256,10000) S=257 bf16", (18, 399, 256, 10000, 128), torch.bfloat16),
+        ("(18,399,512)x(512,10000) S=257 bf16", (18, 399, 512, 10000, 128), torch.bfloat16),
+        ("(18,399,512)x(512,10000) S=257 f32", (18, 399, 512, 10000, 128), torch.float32),
+        ("(3,70,600)x(600,37) S=9 bf16", (3, 70, 600, 37, 4), torch.bfloat16),
+    ):
+        e, weight, bias, z, g_lse, g_xs, valid = head_case(dev, gen, *shape)
+        e, weight, bias = e.to(dtype), weight.to(dtype), bias.to(dtype)
+        groups = _vocab_groups(shape[3], z)
+        for cot, g_lse_ in (("independent cotangents", g_lse), ("g_lse = -sum g_xs", -g_xs.sum(-1))):
+            res = []
+            for fn in (fused_ctc_head, ctc_head_plain):
+                e_, w_, b_ = (x.clone().requires_grad_(True) for x in (e, weight, bias))
+                lse, xs = fn(e_, w_.t(), b_, z)
+                grads = torch.autograd.grad((lse, xs), (e_, w_, b_), (g_lse_, g_xs))
+                res.append((lse.detach(), xs.detach(), *grads))
+            torch.cuda.synchronize()
+            tag = f"ctc head {name}, {cot},"
+            fwd = [_require_close(f"{tag} {what}", a, b, *HEAD_TOL)
+                   for what, a, b in zip(("lse", "xs"), res[0], res[1])]
+            require(res[0][0].dtype == res[0][1].dtype == torch.float32, f"{tag} lse / xs are not float32")
+            if dtype == torch.float32:
+                e_e = _require_close(f"{tag} d e", res[0][2], res[1][2], *HEAD_TOL)
+                _, e_w = _require_close_by_column(f"{tag} d w", res[0][3], res[1][3], 0, *HEAD_COLUMN_TOL)
+                e_b = _require_close_by_group(f"{tag} d b", res[0][4], res[1][4], groups, *HEAD_COLUMN_TOL)
+            else:
+                e_e = _require_close_bf16(f"{tag} d e", res[0][2], res[1][2], floor=HEAD_TOL[1])
+                e_w = _require_close_bf16(f"{tag} d w", res[0][3], res[1][3], floor=HEAD_COLUMN_TOL[1], col_dim=0)
+                e_b = max(_require_close_bf16(f"{tag} d b ({g})", res[0][4][idx], res[1][4][idx],
+                                              floor=HEAD_COLUMN_TOL[1]) for g, idx in groups.items() if idx.numel())
+                worst = {"ctc_head_fwd_bf16": max(worst["ctc_head_fwd_bf16"], *fwd),
+                         "ctc_head_grad_e_bf16": max(worst["ctc_head_grad_e_bf16"], e_e),
+                         "ctc_head_grad_w_bf16": max(worst["ctc_head_grad_w_bf16"], e_w, e_b)}
+            require(not res[0][2][valid == 0].any(), f"{tag} d e past the lengths is not exactly 0")
+            print(f"  {tag} max |kernel - plain|: lse {fwd[0]:.2e} xs {fwd[1]:.2e}; d e {e_e:.2e}, d w {e_w:.2e} "
+                  f"(by column), d b {e_b:.2e} (by group)" + ("" if dtype == torch.float32 else
+                                                              "; each within one bf16 step of its entry + the floor"))
+    return worst
+
+
+def check_attention_backward_bf16(dev, gen) -> dict:
+    """K4's backward in bf16, with and without the score bias, dropout on
+    and off, against `attention_bwd_plain` with the kernel's keep mask: the
+    forward's output (the bf16 forward's tolerance) and dQ, dK, dV, d bias."""
+    from emoasr_tpu_torch.ops.attention import attention_bwd_plain, dropout_keep_mask, fused_self_attention
+
+    worst = {"attention_bwd_bf16": 0.0, "attention_bias_bwd_bf16": 0.0}
+    lens18 = torch.randint(1, 400, (18,), generator=gen, device=dev)
+    lens18[0], lens18[1], lens18[2] = 399, 0, 1
+    bf = torch.bfloat16
+    for name, (B, T, H, D), lens, rate, with_bias in (
+        ("(18,399,4,64) dropout 0.1", (18, 399, 4, 64), lens18, DROPOUT_RATE, False),
+        ("(18,399,4,64) dropout 0.1, bias", (18, 399, 4, 64), lens18, DROPOUT_RATE, True),
+        ("(5,37,4,64) no dropout, bias", (5, 37, 4, 64), torch.tensor([37, 1, 0, 20, 36], device=dev), 0.0, True),
+        ("(2,70,3,40) dropout 0.3", (2, 70, 3, 40), torch.tensor([70, 33], device=dev), 0.3, False),
+    ):
+        q, k, v, d_out = (torch.randn(B, T, H, D, generator=gen, device=dev).to(bf) for _ in range(4))
+        bias = (torch.randn(B, H, T, T, generator=gen, device=dev) * D ** 0.5).to(bf) if with_bias else None
+        scale, seed = 1.0 / D ** 0.5, 2345678 + T
+        mask = dropout_keep_mask(B, T, H, rate, seed, dev) if rate > 0 else None
+        ins = [x.clone().requires_grad_(True) for x in (q, k, v)] + ([bias.clone().requires_grad_(True)]
+                                                                      if with_bias else [])
+        out = fused_self_attention(*ins[:3], lens, scale=scale, dropout_rate=rate, deterministic=rate == 0.0,
+                                   seed=seed, bias=ins[3] if with_bias else None)
+        got = torch.autograd.grad(out, ins, d_out)
+        with torch.no_grad():
+            want = attention_bwd_plain(q, k, v, d_out, lens, scale, rate, bias, mask)
+        torch.cuda.synchronize()
+        tag = f"attention bwd bf16 {name}"
+        require(out.dtype == bf and all(g.dtype == bf for g in got), f"{tag}: the gradients are not bf16")
+        errs = [_require_close_bf16(f"{tag} {what}", a, b)
+                for what, a, b in zip(("dq", "dk", "dv", "dbias"), got, want)]
+        past = torch.arange(T, device=dev)[None, :] >= lens[:, None]
+        require(not got[1][past].any() and not got[2][past].any(), f"{tag}: dk/dv at masked keys are not exactly 0")
+        key = "attention_bias_bwd_bf16" if with_bias else "attention_bwd_bf16"
+        worst[key] = max(worst[key], *errs)
+        print(f"  {tag}: max |kernel - plain| " + ", ".join(f"{w} {e:.2e}" for w, e in zip(("dq", "dk", "dv", "dbias"), errs))
+              + " (tol one bf16 step of the entry + one of the largest)")
+    return worst
+
+
+# K7 in bf16: z is rounded to bf16 on both sides from the same f32 sum and
+# tanh, so the log-probabilities differ by the order of J products: the f32
+# tolerance, 1e-4.
+def check_rnnt_joint_bf16(dev, gen) -> float:
+    """K7 in bf16 against `rnnt_joint_plain` (z in bf16, f32 logits):
+    the shapes of `check_rnnt_joint`."""
+    from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather, rnnt_joint_plain
+
+    worst = 0.0
+    for shape in ((18, 399, 129, 512, 1000), (5, 23, 37, 512, 4000), (7, 9, 2, 96, 257)):
+        h_enc, h_dec, weight, bias, labels = (x.bfloat16() if x.is_floating_point() else x
+                                              for x in rnnt_joint_case(dev, gen, *shape))
+        with torch.no_grad():
+            got = fused_joint_gather(h_enc, h_dec, weight.t(), bias, labels, 0)
+            want = rnnt_joint_plain(h_enc, h_dec, weight.t(), bias, labels, 0)
+        torch.cuda.synchronize()
+        tag = f"rnnt joint bf16 {shape}"
+        require(got[0].dtype == got[1].dtype == torch.float32, f"{tag}: outputs are not float32")
+        errs = [_require_close(f"{tag} {what}", a, b, RNNT_JOINT_TOL, 0.0)
+                for what, a, b in zip(("lp_blank", "lp_label"), got, want)]
+        worst = max(worst, *errs)
+        print(f"  {tag}: lp_blank {errs[0]:.2e}, lp_label {errs[1]:.2e} (tol {RNNT_JOINT_TOL})")
+    return worst
+
+
+def check_lstm_bf16(dev, gen) -> dict:
+    """K8 in bf16 (x_proj, the states and what is stored bf16; w_hh and the
+    carry f32) against `lstm_fwd_plain` / `lstm_bwd_plain`, the shapes of
+    `check_lstm`: ys, h_T, c_T and d x_proj, d h0, d c0 in bf16; d w_hh is
+    f32, but a sum over B T terms each taken from stored residuals that may
+    sit one bf16 step apart on the two sides (each side's forward rounds its
+    own f32 carry), so it is held like the bf16 outputs, with a floor of a
+    quarter step of its largest entry."""
+    from emoasr_tpu_torch.ops.lstm_scan import lstm_bwd_plain, lstm_fwd_plain, lstm_scan_fused
+
+    worst = {"lstm_fwd_bf16": 0.0, "lstm_bwd_bf16": 0.0}
+    bf = torch.bfloat16
+    for shape, zero in (((18, 129, 512), True), ((50, 49, 512), True), ((3, 20, 136), False)):
+        x_proj, w_hh, h0, c0, cots = lstm_case(dev, gen, *shape, zero_state=zero)
+        x_proj, h0, c0 = x_proj.to(bf), h0.to(bf), c0.to(bf)
+        w_hh = w_hh.to(bf).float()  # the model's bf16 weight, as the kernel takes it
+        cots = [c.to(bf) for c in cots]
+        ins = [t.clone().requires_grad_(True) for t in (x_proj, w_hh, h0, c0)]
+        ys, (hT, cT) = lstm_scan_fused(*ins)
+        grads = torch.autograd.grad((ys, hT, cT), ins, cots)
+        with torch.no_grad():
+            p_ys, p_h, p_c, gates, hcprev = lstm_fwd_plain(x_proj, w_hh, h0, c0)
+            p_grads = lstm_bwd_plain(gates, hcprev, *cots, w_hh)
+        torch.cuda.synchronize()
+        tag = f"lstm bf16 {shape}{' zero state' if zero else ''}"
+        fwd = [_require_close_bf16(f"{tag} {what}", a, b)
+               for what, a, b in zip(("ys", "h_T", "c_T"), (ys, hT, cT), (p_ys, p_h, p_c))]
+        bwd = [_require_close_bf16(f"{tag} {what}", a, b)
+               for what, a, b in zip(("d x_proj", "d h0", "d c0"), (grads[0], grads[2], grads[3]),
+                                     (p_grads[0], p_grads[2], p_grads[3]))]
+        e_w = _require_close_bf16(f"{tag} d w_hh", grads[1], p_grads[1], floor=BF16_STEP / 4)
+        worst = {"lstm_fwd_bf16": max(worst["lstm_fwd_bf16"], *fwd),
+                 "lstm_bwd_bf16": max(worst["lstm_bwd_bf16"], *bwd, e_w)}
+        print(f"  {tag}: max |kernel - plain| ys {fwd[0]:.2e} h_T {fwd[1]:.2e} c_T {fwd[2]:.2e}; d x_proj {bwd[0]:.2e} "
+              f"d h0 {bwd[1]:.2e} d c0 {bwd[2]:.2e}, d w_hh {e_w:.2e} (tol one bf16 step of the entry + the floor)")
+    return worst
+
+
+def time_rnnt_joint(dev, gen, B: int, T: int, U1: int, J: int, V: int, dtype=torch.float32) -> dict:
     """K7 forward at the largest training bucket beside its plain version;
     the library route is the chunked mode's forward (`rnnt_gathered_from_
-    joint`, 32-frame chunks of cuBLAS products): no single call computes it."""
-    from emoasr_tpu_torch.ops.rnnt import joint_gather_plain, rnnt_gathered_from_joint
-    from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather
+    joint`, 32-frame chunks of cuBLAS products, in `dtype`): no single call
+    computes it."""
+    from emoasr_tpu_torch.ops.rnnt import rnnt_gathered_from_joint
+    from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather, rnnt_joint_plain
 
-    h_enc, h_dec, weight, bias, labels = rnnt_joint_case(dev, gen, B, T, U1, J, V)
+    h_enc, h_dec, weight, bias, labels = (x.to(dtype) if x.is_floating_point() else x
+                                          for x in rnnt_joint_case(dev, gen, B, T, U1, J, V))
     w = weight.t()
     row = {}
     with torch.no_grad():
-        for key, fn in (("ms", fused_joint_gather), ("plain_ms", joint_gather_plain),
+        for key, fn in (("ms", fused_joint_gather), ("plain_ms", rnnt_joint_plain),
                         ("library_ms", rnnt_gathered_from_joint)):
             row[key] = cuda_time_ms(lambda: fn(h_enc, h_dec, w, bias, labels, 0), iters=3, warmup=1)
-    U = U1 - 1
-    row.update(_bound(4 * (B * T * J + B * U1 * J + J * V + V + B * U + B * T * U1 + B * T * U),
-                      2.0 * B * T * U1 * J * V))
-    row["shape"] = f"h_enc ({B},{T},{J}), h_dec ({B},{U1},{J}), w ({J},{V}), float32"
-    return {"rnnt_joint": row}
+    U, es = U1 - 1, h_enc.element_size()
+    row.update(_bound(es * (B * T * J + B * U1 * J + J * V + V) + 4 * (B * U + B * T * U1 + B * T * U),
+                      2.0 * B * T * U1 * J * V, dtype))
+    row["shape"] = f"h_enc ({B},{T},{J}), h_dec ({B},{U1},{J}), w ({J},{V}), {dtype}"
+    return {"rnnt_joint" + ("" if dtype == torch.float32 else "_bf16"): row}
 
 
-def time_lstm(dev, gen, B: int, T: int, H: int, I: int) -> dict:
+def time_lstm(dev, gen, B: int, T: int, H: int, I: int, dtype=torch.float32) -> dict:
     """K8 forward and backward at the prediction network's largest bucket
     beside the plain versions; the library route is cuDNN's `nn.LSTM` of the
-    same layer (input size I), its input projection included."""
+    same layer (input size I, in `dtype`), its input projection included."""
     from emoasr_tpu_torch.ops.lstm_scan import lstm_bwd_plain, lstm_fwd_plain, lstm_scan_fused
 
     x_proj, w_hh, h0, c0, cots = lstm_case(dev, gen, B, T, H)
-    cudnn = torch.nn.LSTM(I, H, batch_first=True).to(dev)
-    x = torch.randn(B, T, I, generator=gen, device=dev)
-    rows = {"lstm_fwd": {}, "lstm_bwd": {}}
+    x_proj, h0, c0 = x_proj.to(dtype), h0.to(dtype), c0.to(dtype)
+    w_hh = w_hh.to(dtype).float()
+    cots = [c.to(dtype) for c in cots]
+    cudnn = torch.nn.LSTM(I, H, batch_first=True).to(dev, dtype)
+    x = torch.randn(B, T, I, generator=gen, device=dev).to(dtype)
+    sfx = "" if dtype == torch.float32 else "_bf16"
+    fwd, bwd = {}, {}
     with torch.no_grad():
-        rows["lstm_fwd"]["ms"] = cuda_time_ms(lambda: lstm_scan_fused(x_proj, w_hh, h0, c0), iters=20, warmup=2)
-        rows["lstm_fwd"]["plain_ms"] = cuda_time_ms(lambda: lstm_fwd_plain(x_proj, w_hh, h0, c0), iters=5, warmup=1)
-        rows["lstm_fwd"]["library_ms"] = cuda_time_ms(lambda: cudnn(x, (h0[None], c0[None])), iters=20, warmup=2)
+        fwd["ms"] = cuda_time_ms(lambda: lstm_scan_fused(x_proj, w_hh, h0, c0), iters=20, warmup=2)
+        fwd["plain_ms"] = cuda_time_ms(lambda: lstm_fwd_plain(x_proj, w_hh, h0, c0), iters=5, warmup=1)
+        fwd["library_ms"] = cuda_time_ms(lambda: cudnn(x, (h0[None], c0[None])), iters=20, warmup=2)
         _, _, _, gates, hcprev = lstm_fwd_plain(x_proj, w_hh, h0, c0)
     ins = [t.clone().requires_grad_(True) for t in (x_proj, w_hh, h0, c0)]
     ys, (hT, cT) = lstm_scan_fused(*ins)
-    rows["lstm_bwd"]["ms"] = cuda_time_ms(_grad_timer((ys, hT, cT), ins, cots), iters=20, warmup=2)
+    bwd["ms"] = cuda_time_ms(_grad_timer((ys, hT, cT), ins, cots), iters=20, warmup=2)
     with torch.no_grad():
-        rows["lstm_bwd"]["plain_ms"] = cuda_time_ms(lambda: lstm_bwd_plain(gates, hcprev, *cots, w_hh), iters=5,
-                                                    warmup=1)
+        bwd["plain_ms"] = cuda_time_ms(lambda: lstm_bwd_plain(gates, hcprev, *cots, w_hh), iters=5, warmup=1)
     x_ = x.clone().requires_grad_(True)
     out, (hn, cn) = cudnn(x_, (h0[None], c0[None]))
     lib_in = [x_, *cudnn.parameters()]
-    rows["lstm_bwd"]["library_ms"] = cuda_time_ms(
+    bwd["library_ms"] = cuda_time_ms(
         _grad_timer((out, hn, cn), lib_in, (cots[0], cots[1][None], cots[2][None])), iters=20, warmup=2)
-    H4 = 4 * H
-    fwd_io = 4 * (B * T * H4 + H4 * H + 2 * B * H + B * T * H + T * B * H4 + T * B * 2 * H + 2 * B * H)
-    bwd_io = 4 * (T * B * H4 + T * B * 2 * H + B * T * H + 2 * B * H + H4 * H + B * T * H4 + H4 * H + 2 * B * H)
-    rows["lstm_fwd"].update(_bound(fwd_io, 2.0 * B * T * H4 * H + 10.0 * B * T * H))
-    rows["lstm_bwd"].update(_bound(bwd_io, 4.0 * B * T * H4 * H + 20.0 * B * T * H))
-    for r in rows.values():
-        r["shape"] = f"x_proj ({B},{T},{H4}), w_hh ({H4},{H}) float32, {T} dependent steps"
-    return rows
+    H4, es = 4 * H, x_proj.element_size()
+    # stored tensors in `dtype`, w_hh and d w_hh float32
+    fwd_io = es * (B * T * H4 + 2 * B * H + B * T * H + T * B * H4 + T * B * 2 * H + 2 * B * H) + 4 * H4 * H
+    bwd_io = es * (T * B * H4 + T * B * 2 * H + B * T * H + 2 * B * H + B * T * H4 + 2 * B * H) + 8 * H4 * H
+    fwd.update(_bound(fwd_io, 2.0 * B * T * H4 * H + 10.0 * B * T * H, dtype))
+    bwd.update(_bound(bwd_io, 4.0 * B * T * H4 * H + 20.0 * B * T * H, dtype))
+    for r in (fwd, bwd):
+        r["shape"] = f"x_proj ({B},{T},{H4}) {dtype}, w_hh ({H4},{H}) float32, {T} dependent steps"
+    return {"lstm_fwd" + sfx: fwd, "lstm_bwd" + sfx: bwd}
 
 
 def _grad_timer(outs, inputs, cots):
@@ -1030,14 +1249,16 @@ def _grad_timer(outs, inputs, cots):
     return lambda: torch.autograd.grad(outs, inputs, cots, retain_graph=True)
 
 
-def time_ctc_head(dev, gen, B: int, T: int, H: int, V: int, U: int) -> dict:
+def time_ctc_head(dev, gen, B: int, T: int, H: int, V: int, U: int, dtype=torch.float32) -> dict:
     """The three head kernels at the training shapes, beside the plain
-    version and the library route (F.linear + logsumexp + gather)."""
+    version and the library route (F.linear + logsumexp + gather), with e,
+    w and b in `dtype`."""
     import torch.nn.functional as F
 
     from emoasr_tpu_torch.ops.ctc_head import ctc_head_plain, fused_ctc_head
 
     e, weight, bias, z, g_lse, g_xs, _ = head_case(dev, gen, B, T, H, V, U)
+    e, weight, bias = e.to(dtype), weight.to(dtype), bias.to(dtype)
     S, N = z.shape[1], B * T
     idx = z.long()[:, None, :].expand(-1, T, -1)
 
@@ -1048,25 +1269,28 @@ def time_ctc_head(dev, gen, B: int, T: int, H: int, V: int, U: int) -> dict:
     routes = {"ms": lambda e_, w_, b_: fused_ctc_head(e_, w_.t(), b_, z),
               "plain_ms": lambda e_, w_, b_: ctc_head_plain(e_, w_.t(), b_, z),
               "library_ms": library}
-    rows = {"ctc_head_fwd": {}, "ctc_head_grad_e": {}, "ctc_head_grad_w": {}}
+    sfx = "" if dtype == torch.float32 else "_bf16"
+    rows = {f"ctc_head_fwd{sfx}": {}, f"ctc_head_grad_e{sfx}": {}, f"ctc_head_grad_w{sfx}": {}}
+    fwd, ge, gw = rows.values()
     for key, fn in routes.items():
         with torch.no_grad():
-            rows["ctc_head_fwd"][key] = cuda_time_ms(lambda: fn(e, weight, bias), iters=10, warmup=2)
+            fwd[key] = cuda_time_ms(lambda: fn(e, weight, bias), iters=10, warmup=2)
         # a graph in which only e needs a gradient runs grad-e alone, and
         # one in which only the weights do runs grad-w alone
         e_ = e.clone().requires_grad_(True)
-        rows["ctc_head_grad_e"][key] = cuda_time_ms(
-            _grad_timer(fn(e_, weight, bias), (e_,), (g_lse, g_xs)), iters=10, warmup=2)
+        outs = fn(e_, weight, bias)
+        cots = tuple(g.to(o.dtype) for g, o in zip((g_lse, g_xs), outs))
+        ge[key] = cuda_time_ms(_grad_timer(outs, (e_,), cots), iters=10, warmup=2)
         w_, b_ = weight.clone().requires_grad_(True), bias.clone().requires_grad_(True)
-        rows["ctc_head_grad_w"][key] = cuda_time_ms(
-            _grad_timer(fn(e, w_, b_), (w_, b_), (g_lse, g_xs)), iters=10, warmup=2)
-    io = 4 * (N * H + H * V + V + B * S)  # e, w, bias, z
+        gw[key] = cuda_time_ms(_grad_timer(fn(e, w_, b_), (w_, b_), cots), iters=10, warmup=2)
+    es = e.element_size()
+    io = es * (N * H + H * V + V) + 4 * B * S  # e, w, bias, z
     product, path = 2.0 * N * H * V, 2.0 * N * H * S
-    rows["ctc_head_fwd"].update(_bound(io + 4 * (N + N * S), product + path))
-    rows["ctc_head_grad_e"].update(_bound(io + 4 * (2 * N + N * S + N * H), 2 * product + path))
-    rows["ctc_head_grad_w"].update(_bound(io + 4 * (2 * N + N * S + H * V + V), 2 * product + path))
+    fwd.update(_bound(io + 4 * (N + N * S), product + path, dtype))
+    ge.update(_bound(io + 4 * (2 * N + N * S) + es * N * H, 2 * product + path, dtype))
+    gw.update(_bound(io + 4 * (2 * N + N * S) + es * (H * V + V), 2 * product + path, dtype))
     for r in rows.values():
-        r["shape"] = f"({B},{T},{H})x({H},{V}) S={S} float32"
+        r["shape"] = f"({B},{T},{H})x({H},{V}) S={S} {dtype}"
     return rows
 
 
@@ -1109,14 +1333,17 @@ def time_ctc_lattice(dev, gen, B: int, T: int, U: int, V: int) -> dict:
     return rows
 
 
-def time_attention_backward(dev, gen, B: int, T: int, H: int, D: int, lens: torch.Tensor) -> dict:
+def time_attention_backward(dev, gen, B: int, T: int, H: int, D: int, lens: torch.Tensor,
+                            dtype=torch.float32) -> dict:
     """Both backward passes with dropout 0.1, beside the plain version and
-    SDPA's backward under autograd."""
+    SDPA's backward under autograd, in `dtype` (the bf16 plain version is
+    `attention_bwd_plain`, the kernel's rounding)."""
     import torch.nn.functional as F
 
-    from emoasr_tpu_torch.ops.attention import attention_plain, dropout_keep_mask, fused_self_attention
+    from emoasr_tpu_torch.ops.attention import (attention_bwd_plain, attention_plain, dropout_keep_mask,
+                                                fused_self_attention)
 
-    q, k, v, d_out = (torch.randn(B, T, H, D, generator=gen, device=dev) for _ in range(4))
+    q, k, v, d_out = (torch.randn(B, T, H, D, generator=gen, device=dev).to(dtype) for _ in range(4))
     scale, seed = 1.0 / D ** 0.5, 99
     mask = dropout_keep_mask(B, T, H, DROPOUT_RATE, seed, dev)
     key_mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
@@ -1125,15 +1352,19 @@ def time_attention_backward(dev, gen, B: int, T: int, H: int, D: int, lens: torc
     graphs = {
         "ms": fused_self_attention(q_, k_, v_, lens, scale=scale, dropout_rate=DROPOUT_RATE,
                                    deterministic=False, seed=seed),
-        "plain_ms": attention_plain(q_, k_, v_, lens, scale, DROPOUT_RATE, dropout_mask=mask),
         "library_ms": F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=key_mask, dropout_p=DROPOUT_RATE, scale=scale).transpose(1, 2),
     }
+    if dtype == torch.float32:
+        graphs["plain_ms"] = attention_plain(q_, k_, v_, lens, scale, DROPOUT_RATE, dropout_mask=mask)
     row = {key: cuda_time_ms(_grad_timer(out, (q_, k_, v_), d_out), iters=20, warmup=2)
            for key, out in graphs.items()}
+    if dtype != torch.float32:
+        row["plain_ms"] = cuda_time_ms(lambda: attention_bwd_plain(q, k, v, d_out, lens, scale, DROPOUT_RATE,
+                                                                   None, mask), iters=20, warmup=2)
     pairs = T * int(lens.clamp(max=T).sum().item())  # (query, valid key) pairs per head
-    row.update(_bound(4 * (8 * B * T * H * D + B * H * T + B), 10.0 * H * D * pairs))
-    row["shape"] = f"({B},{T},{H},{D}) float32, dropout {DROPOUT_RATE}"
+    row.update(_bound(q.element_size() * 8 * B * T * H * D + 4 * (B * H * T + B), 10.0 * H * D * pairs, dtype))
+    row["shape"] = f"({B},{T},{H},{D}) {dtype}, dropout {DROPOUT_RATE}"
     return row
 
 
@@ -1144,7 +1375,7 @@ def launch_counts() -> dict:
     from emoasr_tpu_torch.ops import (attention, ctc_head, ctc_lattice, decoder_step, lm_step, lstm_scan,
                                       rnnt_joint, topk)
 
-    return {
+    counts = {
         "rnnt_joint": rnnt_joint.KERNEL.counts["emo_rnnt_joint_f32"],
         "lstm_fwd": lstm_scan.KERNEL.counts["emo_lstm_fwd_f32"],
         "lstm_bwd": lstm_scan.KERNEL.counts["emo_lstm_bwd_f32"],
@@ -1154,15 +1385,31 @@ def launch_counts() -> dict:
         "decoder_step": decoder_step.KERNEL.counts["emo_decoder_step_f32"],
         "decoder_step_indirect": decoder_step.KERNEL_INDIRECT.counts["emo_decoder_step_indirect_f32"],
         "topk": topk.KERNEL.launches,
-        "attention_fwd": attention.KERNEL.counts["emo_attention_fwd_f32"]
-        + attention.KERNEL.counts["emo_attention_fwd_bf16"],
+        "attention_fwd": attention.KERNEL.counts["emo_attention_fwd_f32"],
         "attention_bwd": attention.KERNEL.counts["emo_attention_bwd_f32"],
         "ctc_head_fwd": ctc_head.KERNEL.counts["emo_ctc_head_fwd_f32"],
         "ctc_head_grad_e": ctc_head.KERNEL.counts["emo_ctc_head_grad_e_f32"],
         "ctc_head_grad_w": ctc_head.KERNEL.counts["emo_ctc_head_grad_w_f32"],
         "ctc_alpha": ctc_lattice.KERNEL.counts["emo_ctc_alpha_f32"],
         "ctc_beta_grad": ctc_lattice.KERNEL.counts["emo_ctc_beta_grad_f32"],
+        # the bf16 launchers
+        "attention_fwd_bf16": attention.KERNEL.counts["emo_attention_fwd_bf16"],
+        "attention_bwd_bf16": attention.KERNEL.counts["emo_attention_bwd_bf16"],
+        "attention_bias_fwd_bf16": attention.KERNEL.counts["bias_fwd_bf16"],
+        "attention_bias_bwd_bf16": attention.KERNEL.counts["bias_bwd_bf16"],
+        "ctc_head_fwd_bf16": ctc_head.KERNEL.counts["emo_ctc_head_fwd_bf16"],
+        "ctc_head_grad_e_bf16": ctc_head.KERNEL.counts["emo_ctc_head_grad_e_bf16"],
+        "ctc_head_grad_w_bf16": ctc_head.KERNEL.counts["emo_ctc_head_grad_w_bf16"],
+        "rnnt_joint_bf16": rnnt_joint.KERNEL.counts["emo_rnnt_joint_bf16"],
+        "lstm_fwd_bf16": lstm_scan.KERNEL.counts["emo_lstm_fwd_bf16"],
+        "lstm_bwd_bf16": lstm_scan.KERNEL.counts["emo_lstm_bwd_bf16"],
     }
+    return counts
+
+
+BF16_KEYS = ("attention_fwd_bf16", "attention_bwd_bf16", "attention_bias_fwd_bf16", "attention_bias_bwd_bf16",
+             "ctc_head_fwd_bf16", "ctc_head_grad_e_bf16", "ctc_head_grad_w_bf16", "rnnt_joint_bf16",
+             "lstm_fwd_bf16", "lstm_bwd_bf16")
 
 
 def all_kernels() -> list:
@@ -1244,10 +1491,13 @@ def read_train_log(conf_path: str):
     return losses, lrs, epoch_s
 
 
-def train_full_width(args, root: str, card: str) -> dict:
+def train_full_width(args, root: str, card: str, compute_dtype: str = "float32",
+                     per_bucket=(2, 2, 2, 2, 3)) -> dict:
     """Train the L1 model at full width through the port's train CLI:
-    SpecAugment and dropout on, one epoch of 11 micro-steps over all five
-    buckets (two optimizer updates at accum_grad 5 and one open micro-step)."""
+    SpecAugment and dropout on, one epoch over all five buckets (by
+    default 11 micro-steps: two optimizer updates at accum_grad 5 and one
+    open micro-step), in `compute_dtype` (bfloat16: the forward on a bf16
+    copy of the float32 masters, K1 and K4 through their bf16 launchers)."""
     import yaml
 
     from emoasr_tpu_torch.config import load_config
@@ -1259,7 +1509,8 @@ def train_full_width(args, root: str, card: str) -> dict:
     with open(L1_CONF) as f:
         conf = yaml.safe_load(f)
     cfg0 = load_config(L1_CONF)
-    per_bucket = [2, 2, 2, 2, 3]
+    per_bucket = list(per_bucket)
+    half = compute_dtype != "float32"
     lengths, buckets = train_lengths(cfg0, per_bucket)
     train_tsv, _ = write_corpus(root, "train", lengths, conf["vocab_size"], conf["feat_dim"], args.seed + 1)
     n_test = args.n_utts
@@ -1268,7 +1519,7 @@ def train_full_width(args, root: str, card: str) -> dict:
         conf["vocab_size"], conf["feat_dim"], args.seed)
     conf.update(vocab_path=write_vocab(root, conf["vocab_size"]), train_path=train_tsv,
                 test_path=test_tsv, dev_path=None, enc_fused_attn=True, num_epochs=1,
-                save_step=1, log_step=1, seed=args.seed)
+                save_step=1, log_step=1, seed=args.seed, compute_dtype=compute_dtype)
     conf_path = os.path.join(root, "l1_ctc_transformer.yaml")
     with open(conf_path, "w") as f:
         yaml.safe_dump(conf, f)
@@ -1302,7 +1553,11 @@ def train_full_width(args, root: str, card: str) -> dict:
             "ctc_alpha": n_steps, "ctc_beta_grad": n_steps,
             "attention_fwd": cfg.enc_num_layers * n_steps, "attention_bwd": cfg.enc_num_layers * n_steps,
             "topk": 0, "attention_bias_fwd": 0, "attention_bias_bwd": 0, "decoder_step": 0,
-            "decoder_step_indirect": 0, "lm_step_indirect": 0, "rnnt_joint": 0, "lstm_fwd": 0, "lstm_bwd": 0}
+            "decoder_step_indirect": 0, "lm_step_indirect": 0, "rnnt_joint": 0, "lstm_fwd": 0, "lstm_bwd": 0,
+            **{k: 0 for k in BF16_KEYS}}
+    if half:  # the same kernels, launched through their bf16 launchers
+        for k in ("ctc_head_fwd", "ctc_head_grad_e", "ctc_head_grad_w", "attention_fwd", "attention_bwd"):
+            want[f"{k}_bf16"], want[k] = want[k], 0
     require(launches == want, f"training launches {launches}, want {want}")
 
     ckpt = os.path.join(os.path.splitext(conf_path)[0], "checkpoints", "model.ep1")
@@ -1316,8 +1571,9 @@ def train_full_width(args, root: str, card: str) -> dict:
             f"only {len(changed)} of {len(init)} parameter tensors changed in training")
     for k, v in trained.items():
         require(bool(torch.isfinite(v).all()), f"trained parameter {k} is not finite")
+    _require_f32_masters(state, trained)
     epoch = epoch_s[0] if epoch_s else float("nan")
-    print(f"  trained {n_steps} micro-steps ({n_utts} utts, buckets x{per_bucket}) in {dt:.2f} s "
+    print(f"  trained {n_steps} {compute_dtype} micro-steps ({n_utts} utts, buckets x{per_bucket}) in {dt:.2f} s "
           f"(the epoch loop {epoch:.2f} s: {n_steps / epoch:.2f} micro-steps/s, {n_utts / epoch:.1f} utt/s, "
           f"first call, warm-up included) on {card}")
     print(f"  loss {losses[0]:.2f} -> {losses[-1]:.2f}, skipped 0, LR {got_lr:.4e} (noam), "
@@ -1326,6 +1582,17 @@ def train_full_width(args, root: str, card: str) -> dict:
             "wav_s": wav_s, "launches": launches, "seconds": dt, "epoch_seconds": epoch,
             "micro_steps": n_steps, "micro_steps_per_s": n_steps / epoch, "utt_per_s": n_utts / epoch,
             "losses": losses, "buckets": buckets}
+
+
+def _require_f32_masters(state, checkpoint: dict) -> None:
+    """The trainer's parameters and Adam moments, and the checkpoint it
+    wrote, are float32 whatever the compute dtype."""
+    require(all(p.dtype == torch.float32 for p in state.model.parameters()), "a master parameter is not float32")
+    moments = [v for st in state.optimizer.state.values() for v in st.values()
+               if torch.is_tensor(v) and v.is_floating_point() and v.dim() > 0]
+    require(moments and all(v.dtype == torch.float32 for v in moments), "an Adam moment is not float32")
+    require(all(v.dtype == torch.float32 for v in checkpoint.values() if v.is_floating_point()),
+            "the checkpoint holds a tensor that is not float32")
 
 
 # one micro-step, card against CPU: loss rtol 1e-4; each gradient tensor
@@ -1397,7 +1664,11 @@ def check_micro_step(tr: dict, dev, want_used: dict) -> dict:
 
 def time_micro_step(tr: dict, dev, card: str) -> dict:
     """Where one micro-step of the largest bucket spends its time (host
-    clock around synchronised phases, dropout on; the last of three)."""
+    clock around synchronised phases, dropout on; the last of three), in
+    the trainer's compute dtype (bf16: the casts of the masters are in the
+    encoder's phase)."""
+    from emoasr_tpu_torch.utils.precision import dtype_of
+
     from emoasr_tpu_torch.data.asr_dataset import ASRDataset
     from emoasr_tpu_torch.eval.test_asr import load_asr_model
     from emoasr_tpu_torch.train.optim import build_optimizer, clip_by_global_norm_
@@ -1418,11 +1689,14 @@ def time_micro_step(tr: dict, dev, card: str) -> dict:
         torch.cuda.synchronize()
         return time.perf_counter()
 
+    dt = dtype_of(cfg)
+    xs = t["xs"].to(dt)
     for _ in range(3):
         t0 = tick()
-        eouts, elens, inter = model.encoder(t["xs"], t["xlens"])
-        t1 = tick()
-        loss, _, _ = model.decoder(eouts, elens, inter, t["ys"], t["ylens"])
+        with compute_params(model, dt):
+            eouts, elens, inter = model.encoder(xs, t["xlens"])
+            t1 = tick()
+            loss, _, _ = model.decoder(eouts, elens, inter, t["ys"], t["ylens"])
         t2 = tick()
         grads = torch.autograd.grad(loss, params)
         t3 = tick()
@@ -1431,12 +1705,133 @@ def time_micro_step(tr: dict, dev, card: str) -> dict:
             p.grad = g
         opt.step()
         t4 = tick()
-    split = {"batch": list(t["xs"].shape), "encoder_fwd_ms": (t1 - t0) * 1e3, "ctc_fwd_ms": (t2 - t1) * 1e3,
-             "backward_ms": (t3 - t2) * 1e3, "clip_adam_ms": (t4 - t3) * 1e3}
-    print(f"  one {tuple(t['xs'].shape)} micro-step on {card}: encoder forward {split['encoder_fwd_ms']:.2f} ms, "
+    split = {"batch": list(t["xs"].shape), "compute_dtype": cfg.compute_dtype, "encoder_fwd_ms": (t1 - t0) * 1e3,
+             "ctc_fwd_ms": (t2 - t1) * 1e3, "backward_ms": (t3 - t2) * 1e3, "clip_adam_ms": (t4 - t3) * 1e3}
+    print(f"  one {tuple(t['xs'].shape)} {cfg.compute_dtype} micro-step on {card}: encoder forward "
+          f"{split['encoder_fwd_ms']:.2f} ms, "
           f"CTC head + lattice forward {split['ctc_fwd_ms']:.2f} ms, backward {split['backward_ms']:.2f} ms, "
           f"clip + Adam {split['clip_adam_ms']:.2f} ms")
     return split
+
+
+@contextlib.contextmanager
+def compute_params(model, dtype: torch.dtype):
+    """Inside, every floating parameter of `model` reads as its cast to
+    `dtype`, recorded by autograd (so gradients reach the float32 masters),
+    as the train step's forward sees them under a half `compute_dtype`;
+    float32 leaves the model as it is.  The casts are made on entry."""
+    if dtype == torch.float32:
+        yield
+        return
+    params = [(m, n, p) for m in model.modules() for n, p in list(m._parameters.items())
+              if p is not None and p.is_floating_point()]
+    casts = {id(p): p.to(dtype) for _, _, p in params}
+    try:
+        for m, n, p in params:
+            del m._parameters[n]
+            setattr(m, n, casts[id(p)])
+        yield
+    finally:
+        for m, n, p in params:
+            delattr(m, n)
+            m._parameters[n] = p
+
+
+# bf16 against f32 on the card: one micro-step of the bf16 trainer's
+# model.ep1 (float32 masters) on one batch, dropout and SpecAugment off, once
+# with compute_dtype bfloat16 and once float32.  The loss within 2 % (the
+# JAX package's own bf16 test, tests/test_bf16.py, holds its bf16 loss to 2 %
+# of its f32 loss); each gradient tensor's error is reported relative to its
+# float32 counterpart's largest entry, above a floor of one bf16 step of the
+# model's largest entry (bf16 rounds every activation, so a first layer's
+# sums over all frames carry errors of some 10 %); the whole gradient must
+# point the same way, cosine >= 0.99.
+BF16_LOSS_RTOL = 0.02
+BF16_GRAD_COSINE = 0.99
+
+
+def check_bf16_micro_step(tr: dict, dev, want_used: dict) -> dict:
+    """The bf16 trainer's checkpoint, one batch of 4 rows of the 400-frame
+    bucket: loss and gradients of the bf16 micro-step (through the bf16
+    launchers, each launched as often as `want_used` says) against the
+    float32 micro-step's on the card."""
+    import dataclasses
+
+    from emoasr_tpu_torch.data.asr_dataset import ASRDataset
+    from emoasr_tpu_torch.eval.test_asr import load_asr_model
+    from emoasr_tpu_torch.train.step import compute_loss
+    from emoasr_tpu_torch.utils.device import set_matmul_precision
+
+    cfg16 = tr["cfg"]
+    ds = ASRDataset(cfg16, tr["train_tsv"], phase="train")
+    batcher = ds.make_batcher(shuffle=False)
+    bi, idx = next(b for b in batcher if batcher.buckets[b[0]].max_xlen == 400)
+    batch = ds.collate(idx[:4], 400, batcher.buckets[bi].max_ylen)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in batch.items() if isinstance(v, np.ndarray)}
+    model = load_asr_model(tr["ckpt"], cfg16).to(dev).eval()
+    params = dict(model.named_parameters())
+    res = {}
+    for cfg in (cfg16, dataclasses.replace(cfg16, compute_dtype="float32")):
+        set_matmul_precision(cfg.compute_dtype)  # as the train CLI sets it for this dtype
+        before = launch_counts()
+        loss, _ = compute_loss(model, cfg, t, None, False)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        used = {k: launch_counts()[k] - before[k] for k in before}
+        res[cfg.compute_dtype] = (loss.item(), dict(zip(params, grads)), used)
+    (l16, g16, used16), (l32, g32, _) = res["bfloat16"], res["float32"]
+    require(all(used16[k] == n for k, n in want_used.items()),
+            f"the bf16 micro-step did not go through the bf16 kernels: {used16}, want {want_used}")
+    require(all(g.dtype == torch.float32 and bool(torch.isfinite(g).all()) for g in g16.values()),
+            "a bf16 micro-step's gradient is not finite float32")
+    rel_loss = abs(l16 - l32) / abs(l32)
+    require(np.isfinite(l16) and rel_loss <= BF16_LOSS_RTOL, f"bf16 micro-step loss {l16} vs f32 {l32}")
+    # a floor of one bf16 step of the model's largest gradient entry: the key
+    # biases' true gradient is zero (see STEP_TOL), what they hold is noise
+    floor = BF16_STEP * max(g.abs().max().item() for g in g32.values())
+    rel = {k: max(_max_err(g16[k], g32[k]) - floor, 0.0) / max(g32[k].abs().max().item(), 1e-30) for k in params}
+    flat16 = torch.cat([g.reshape(-1).double() for g in g16.values()])
+    flat32 = torch.cat([g.reshape(-1).double() for g in g32.values()])
+    cosine = (flat16 @ flat32 / (flat16.norm() * flat32.norm())).item()
+    require(cosine >= BF16_GRAD_COSINE, f"bf16 micro-step gradient: cosine {cosine} with the f32 one")
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:8]
+    errs = np.array(list(rel.values()))
+    shares = {f"below_{c}": float((errs < c).mean()) for c in (0.01, 0.05, 0.1)}
+    print(f"  one micro-step {tuple(batch['xs'].shape)} bf16 vs f32 on the card: loss {l16:.4f} vs {l32:.4f} "
+          f"({rel_loss:.2e}, tol {BF16_LOSS_RTOL}); gradient cosine {cosine:.6f} (tol {BF16_GRAD_COSINE}); each "
+          f"tensor's error above the floor {floor:.2e} as a share of its f32 largest entry: median "
+          f"{float(np.median(errs)):.2e}, "
+          + ", ".join(f"{v:.0%} of {len(errs)} tensors below {c}" for c, v in zip((0.01, 0.05, 0.1), shares.values()))
+          + "; the largest: " + ", ".join(f"{k} {v:.2e}" for k, v in worst))
+    return {"loss_bf16": l16, "loss_f32": l32, "loss_rel_err": rel_loss, "grad_cosine": cosine,
+            "grad_rel_err_median": float(np.median(errs)), "grad_rel_err_shares": shares, "grad_floor": floor,
+            "grad_rel_err_largest": dict(worst)}
+
+
+def decode_greedy_bf16(tr: dict, card: str, want_used: tuple) -> dict:
+    """The bf16 trainer's `model.ep1` greedily through the eval CLI (the
+    yaml's compute_dtype: bfloat16 decodes a bf16 cast of it), launching
+    each kernel of `want_used` through its bf16 launcher."""
+    import pandas as pd
+
+    from emoasr_tpu_torch.eval import test_asr
+
+    cfg, conf_path = tr["cfg"], tr["conf_path"]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = test_asr.main(["-conf", conf_path, "-ep", "1", "--beam_width", "0"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    require(out is not None and out[3].startswith("WER:"), f"bf16 greedy decode: CLI returned {out}")
+    df = pd.read_table(os.path.join(os.path.splitext(conf_path)[0], "results",
+                                    "result_test_beam0_len0.0_ctc0.0_lm0.00_ep1.tsv"), comment="#")
+    require(len(df) > 0 and all(launches[k] > 0 for k in want_used) and launches["attention_fwd"] == 0,
+            f"bf16 greedy decode: {len(df)} rows, launches {launches}")
+    print(f"  {cfg.compute_dtype} greedy decode of model.ep1: {out[3]}; {len(df)} utts in {dt:.3f} s = "
+          f"{len(df) / dt:.2f} utt/s, RTF {dt / tr['wav_s']:.5f} (first call) on {card}; launches "
+          f"{({k: n for k, n in launches.items() if n})}")
+    return {"launches": launches, "seconds": dt, "utt_per_s": len(df) / dt, "rtf": dt / tr["wav_s"]}
 
 
 def overfit_on_card(args, root: str) -> dict:
@@ -2187,12 +2582,14 @@ def decode_l3_3(args, root: str, tr: dict, dev, card: str) -> dict:
             "ctc_beam_lm": {"seconds": ctc_lm_s, "batch": list(b1["xs"].shape), "best_changed": changed}}
 
 
-def train_l4(args, root: str, card: str) -> dict:
+def train_l4(args, root: str, card: str, compute_dtype: str = "float32", per_bucket=(2, 2, 2, 2, 2)) -> dict:
     """The L4 RNN-T(Conformer) model at full width through the port's train
-    CLI: SpecAugment and dropout on, `enc_fused_attn: true`, one epoch of 10
-    micro-steps over the five buckets (two optimizer updates at accum_grad
-    5).  K7 (the joint), K8 (the prediction network's LSTM over U+1 tokens,
-    forward and backward) and K4 with its score bias run every micro-step."""
+    CLI: SpecAugment and dropout on, `enc_fused_attn: true`, one epoch over
+    the five buckets (by default 10 micro-steps: two optimizer updates at
+    accum_grad 5), in `compute_dtype`.  K7 (the joint), K8 (the prediction
+    network's LSTM over U+1 tokens, forward and backward) and K4 with its
+    score bias run every micro-step, through their bf16 launchers under
+    bfloat16."""
     import yaml
 
     from emoasr_tpu_torch.config import load_config
@@ -2202,9 +2599,9 @@ def train_l4(args, root: str, card: str) -> dict:
 
     with open(L4_CONF) as f:
         conf = yaml.safe_load(f)
-    sub = os.path.join(root, "l4")
+    sub = os.path.join(root, "l4" if compute_dtype == "float32" else f"l4_{compute_dtype}")
     os.makedirs(sub)
-    per_bucket = [2, 2, 2, 2, 2]
+    per_bucket = list(per_bucket)
     lengths, buckets = train_lengths(load_config(L4_CONF), per_bucket)
     train_tsv, _ = write_corpus(sub, "train", lengths, conf["vocab_size"], conf["feat_dim"], args.seed + 3)
     n_test = args.n_utts
@@ -2212,7 +2609,8 @@ def train_l4(args, root: str, card: str) -> dict:
         sub, "test", [200 + (1400 * i) // max(n_test - 1, 1) for i in range(n_test)],
         conf["vocab_size"], conf["feat_dim"], args.seed + 4)
     conf.update(vocab_path=write_vocab(sub, conf["vocab_size"]), train_path=train_tsv, test_path=test_tsv,
-                dev_path=None, enc_fused_attn=True, num_epochs=1, save_step=1, log_step=1, seed=args.seed)
+                dev_path=None, enc_fused_attn=True, num_epochs=1, save_step=1, log_step=1, seed=args.seed,
+                compute_dtype=compute_dtype)
     conf_path = os.path.join(sub, "l4_rnnt_conformer.yaml")
     with open(conf_path, "w") as f:
         yaml.safe_dump(conf, f)
@@ -2223,7 +2621,7 @@ def train_l4(args, root: str, card: str) -> dict:
              cfg.accum_grad, cfg.rnnt_joint_mode, cfg.beam_width, cfg.spec_augment, cfg.dropout_enc_rate,
              cfg.compute_dtype)
             == ("conformer", "rel", 12, 256, 4, 1024, 31, "rnn_transducer", 128, 512, 1, 512, 1000, 5, "pallas",
-                10, True, 0.1, "float32"), "the L4 config is not at full width")
+                10, True, 0.1, compute_dtype), "the L4 config is not at full width")
     n_steps = sum(per_bucket)
     reset_launch_counts()
     torch.cuda.synchronize()
@@ -2240,7 +2638,11 @@ def train_l4(args, root: str, card: str) -> dict:
     n_dec, n_enc = n_steps * cfg.dec_num_layers, n_steps * cfg.enc_num_layers
     want = {"rnnt_joint": n_steps, "lstm_fwd": n_dec, "lstm_bwd": n_dec, "attention_fwd": n_enc,
             "attention_bwd": n_enc, "attention_bias_fwd": n_enc, "attention_bias_bwd": n_enc, "topk": 0,
-            "ctc_head_fwd": 0, "ctc_alpha": 0}
+            "ctc_head_fwd": 0, "ctc_alpha": 0, **{k: 0 for k in BF16_KEYS}}
+    if compute_dtype != "float32":  # the same kernels, launched through their bf16 launchers
+        for k in ("rnnt_joint", "lstm_fwd", "lstm_bwd", "attention_fwd", "attention_bwd", "attention_bias_fwd",
+                  "attention_bias_bwd"):
+            want[f"{k}_bf16"], want[k] = want[k], 0
     require(all(launches[k] == n for k, n in want.items()), f"L4 training launches {launches}, want {want}")
     ckpt = os.path.join(os.path.splitext(conf_path)[0], "checkpoints", "model.ep1")
     torch.manual_seed(cfg.seed)
@@ -2251,12 +2653,12 @@ def train_l4(args, root: str, card: str) -> dict:
         "encoder.conv.conv.0.weight")), f"only {len(changed)} of {len(init)} parameter tensors changed in training")
     for k, v in trained.items():
         require(bool(torch.isfinite(v).all()), f"trained parameter {k} is not finite")
+    _require_f32_masters(state, trained)
     epoch = epoch_s[0] if epoch_s else float("nan")
-    print(f"  trained {n_steps} micro-steps ({len(lengths)} utts, buckets x{per_bucket}) in {dt:.2f} s (the epoch "
+    print(f"  trained {n_steps} {compute_dtype} micro-steps ({len(lengths)} utts, buckets x{per_bucket}) in {dt:.2f} s (the epoch "
           f"loop {epoch:.2f} s: {n_steps / epoch:.2f} micro-steps/s, first call, warm-up included) on {card}")
     print(f"  loss {losses[0]:.2f} -> {losses[-1]:.2f}, skipped 0, {len(changed)}/{len(init)} tensors changed; "
-          f"launches rnnt_joint {launches['rnnt_joint']}, lstm_fwd {launches['lstm_fwd']}, lstm_bwd "
-          f"{launches['lstm_bwd']}, attention with bias {launches['attention_bias_fwd']}/{launches['attention_bias_bwd']}")
+          f"launches {({k: n for k, n in launches.items() if n})}")
     return {"conf_path": conf_path, "cfg": cfg, "ckpt": ckpt, "test_tsv": test_tsv, "train_tsv": train_tsv,
             "wav_s": wav_s, "launches": launches, "seconds": dt, "epoch_seconds": epoch, "micro_steps": n_steps,
             "micro_steps_per_s": n_steps / epoch, "utt_per_s": len(lengths) / epoch, "losses": losses,
@@ -2275,6 +2677,7 @@ def time_l4_micro_step(tr: dict, dev, card: str) -> dict:
     from emoasr_tpu_torch.ops.rnnt import joint_gather_backward, rnnt_alpha_rowscan
     from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather
     from emoasr_tpu_torch.train.optim import build_optimizer, clip_by_global_norm_
+    from emoasr_tpu_torch.utils.precision import dtype_of
 
     cfg = tr["cfg"]
     big = max(tr["buckets"], key=lambda b: b.max_xlen)
@@ -2282,6 +2685,8 @@ def time_l4_micro_step(tr: dict, dev, card: str) -> dict:
     bi, idx = next(b for b in ds.make_batcher(shuffle=False) if b[0] == len(tr["buckets"]) - 1)
     batch = ds.collate(idx, big.max_xlen, big.max_ylen)
     t = {k: torch.from_numpy(v).to(dev) for k, v in batch.items() if isinstance(v, np.ndarray)}
+    dt = dtype_of(cfg)
+    t["xs"] = t["xs"].to(dt)
     model = load_asr_model(tr["ckpt"], cfg).to(dev).train()
     dec = model.decoder
     params = list(model.parameters())
@@ -2295,6 +2700,8 @@ def time_l4_micro_step(tr: dict, dev, card: str) -> dict:
 
     for _ in range(3):
         t0 = tick()
+        casts = compute_params(model, dt)
+        casts.__enter__()
         eouts, elens, _ = model.encoder(t["xs"], t["xlens"])
         t1 = tick()
         douts, _ = dec.recurrency(t["ys_in"])
@@ -2325,16 +2732,20 @@ def time_l4_micro_step(tr: dict, dev, card: str) -> dict:
         x_proj = torch.nn.functional.linear(dec.embed(t["ys_in"]), rnn.weight_ih_l0,
                                             rnn.bias_ih_l0 + rnn.bias_hh_l0).detach().requires_grad_(True)
         zeros = x_proj.new_zeros((x_proj.shape[0], rnn.hidden_size))
-        ys_k8, _ = lstm_scan_fused(x_proj, rnn.weight_hh_l0, zeros, zeros)
+        w_hh = rnn.weight_hh_l0.detach().requires_grad_(True)
+        ys_k8, _ = lstm_scan_fused(x_proj, w_hh, zeros, zeros)
         t10 = tick()
-        torch.autograd.grad(ys_k8, (x_proj, rnn.weight_hh_l0), torch.ones_like(ys_k8))
+        torch.autograd.grad(ys_k8, (x_proj, w_hh), torch.ones_like(ys_k8))
         t11 = tick()
+        casts.__exit__(None, None, None)
     split = {"batch": list(t["xs"].shape), "labels": list(t["ys_in"].shape), "frames": int(eouts.shape[1]),
+             "compute_dtype": cfg.compute_dtype,
              "encoder_fwd_ms": (t1 - t0) * 1e3, "prediction_net_ms": (t2 - t1) * 1e3,
              "joint_ms": (t3 - t2) * 1e3, "lattice_ms": (t4 - t3) * 1e3, "backward_ms": (t5 - t4) * 1e3,
              "clip_adam_ms": (t6 - t5) * 1e3, "lattice_backward_ms": (t8 - t7) * 1e3,
              "joint_backward_ms": (t9 - t8) * 1e3, "lstm_backward_ms": (t11 - t10) * 1e3}
-    print(f"  one L4 {tuple(t['xs'].shape)} micro-step (U+1 = {t['ys_in'].shape[1]}, T' = {split['frames']}) on "
+    print(f"  one L4 {tuple(t['xs'].shape)} {cfg.compute_dtype} micro-step (U+1 = {t['ys_in'].shape[1]}, "
+          f"T' = {split['frames']}) on "
           f"{card}: encoder {split['encoder_fwd_ms']:.2f} ms, prediction network {split['prediction_net_ms']:.2f}, "
           f"joint {split['joint_ms']:.2f}, lattice {split['lattice_ms']:.2f}, backward {split['backward_ms']:.2f} "
           f"(alone: the lattice's {split['lattice_backward_ms']:.2f}, the chunked joint's "
@@ -2427,6 +2838,17 @@ KERNEL_ROWS = (
     ("rnnt_joint", "emoasr_tpu_torch/csrc/rnnt_joint.cu", "emoasr_tpu/ops/rnnt_pallas.py:51"),
     ("lstm_fwd", "emoasr_tpu_torch/csrc/lstm_scan.cu", "emoasr_tpu/ops/lstm_pallas.py:56"),
     ("lstm_bwd", "emoasr_tpu_torch/csrc/lstm_scan.cu", "emoasr_tpu/ops/lstm_pallas.py:117"),
+    # the bf16 launchers, as the bf16 training paths launch them
+    ("ctc_head_fwd_bf16", "emoasr_tpu_torch/csrc/ctc_head.cu", "emoasr_tpu/ops/ctc_head_pallas.py:48"),
+    ("ctc_head_grad_e_bf16", "emoasr_tpu_torch/csrc/ctc_head.cu", "emoasr_tpu/ops/ctc_head_pallas.py:100"),
+    ("ctc_head_grad_w_bf16", "emoasr_tpu_torch/csrc/ctc_head.cu", "emoasr_tpu/ops/ctc_head_pallas.py:144"),
+    ("attention_fwd_bf16", "emoasr_tpu_torch/csrc/attention.cu", "emoasr_tpu/ops/attention_pallas.py:76"),
+    ("attention_bwd_bf16", "emoasr_tpu_torch/csrc/attention.cu", "emoasr_tpu/ops/attention_pallas.py:111"),
+    ("attention_bias_fwd_bf16", "emoasr_tpu_torch/csrc/attention.cu", "emoasr_tpu/ops/attention_pallas.py:93"),
+    ("attention_bias_bwd_bf16", "emoasr_tpu_torch/csrc/attention.cu", "emoasr_tpu/ops/attention_pallas.py:131"),
+    ("rnnt_joint_bf16", "emoasr_tpu_torch/csrc/rnnt_joint.cu", "emoasr_tpu/ops/rnnt_pallas.py:51"),
+    ("lstm_fwd_bf16", "emoasr_tpu_torch/csrc/lstm_scan.cu", "emoasr_tpu/ops/lstm_pallas.py:56"),
+    ("lstm_bwd_bf16", "emoasr_tpu_torch/csrc/lstm_scan.cu", "emoasr_tpu/ops/lstm_pallas.py:117"),
 )
 
 
@@ -2447,7 +2869,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
-    print(f"[1/11] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    print(f"[1/13] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     found = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     set_matmul_precision("float32")
     print(f"  TF32 found (matmul, cudnn) = {found}; the port's switch for float32 sets "
@@ -2458,34 +2880,39 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels = all_kernels()
     build_all(kernels)
-    print(f"[2/11] built {', '.join(k.name for k in kernels)} from "
+    print(f"[2/13] built {', '.join(k.name for k in kernels)} from "
           f"{', '.join(sorted({k.source for k in kernels}))} in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernels against their plain versions
-    print("[3/11] kernels against their plain versions on the card, forward and backward")
+    print("[3/13] kernels against their plain versions on the card, forward and backward")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
-    errs = {"topk": check_topk(dev, gen), "attention_fwd": check_attention(dev, gen),
+    errs = {"topk": check_topk(dev, gen), **check_attention(dev, gen),
             "attention_bwd": check_attention_backward(dev, gen)}
     lat = check_ctc_lattice(dev, gen)
     errs.update(ctc_alpha=lat["ll"], ctc_beta_grad=lat["grad"])
     head = check_ctc_head(dev, gen)
     errs.update(ctc_head_fwd=head["fwd"], ctc_head_grad_e=head["grad_e"], ctc_head_grad_w=head["grad_w"])
     bias = check_attention_bias(dev, gen)
-    errs.update(attention_bias_fwd=bias["fwd"], attention_bias_bwd=bias["bwd"])
+    errs.update(attention_bias_fwd=bias["fwd"], attention_bias_bwd=bias["bwd"], attention_bias_fwd_bf16=bias["fwd_bf16"])
     step = check_decoder_step(dev, gen)
     errs.update(decoder_step=step["direct"], decoder_step_indirect=step["indirect"])
     errs["lm_step_indirect"] = check_lm_step(dev, gen)
     errs["rnnt_joint"] = check_rnnt_joint(dev, gen)
     lstm = check_lstm(dev, gen)
     errs.update(lstm_fwd=lstm["fwd"], lstm_bwd=lstm["bwd"])
+    print("  the bf16 parts (and K1 at H > 256): kernels against their plain versions")
+    errs.update(check_ctc_head_bf16(dev, gen))
+    errs.update(check_attention_backward_bf16(dev, gen))
+    errs["rnnt_joint_bf16"] = check_rnnt_joint_bf16(dev, gen)
+    errs.update(check_lstm_bf16(dev, gen))
 
     scratch_root = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(scratch_root, exist_ok=True)
     root = tempfile.mkdtemp(dir=scratch_root)
     try:
         # 4. training at full width, then one micro-step against the CPU
-        print("[4/11] main path: L1 CTC(Transformer) training through the train CLI")
+        print("[4/13] main path: L1 CTC(Transformer) training through the train CLI")
         tr = train_full_width(args, root, card)
         n_layers = tr["cfg"].enc_num_layers
         step_check = check_micro_step(tr, dev, {
@@ -2494,27 +2921,27 @@ def main(argv=None) -> int:
         step_split = time_micro_step(tr, dev, card)
 
         # 5. learning on the card
-        print("[5/11] learning on the card: the small overfit corpus, train CLI then eval CLI")
+        print("[5/13] learning on the card: the small overfit corpus, train CLI then eval CLI")
         overfit = overfit_on_card(args, root)
 
         # 6. decode the trainer's checkpoint
-        print("[6/11] main path: decode of the trainer's model.ep1 through the eval CLI")
+        print("[6/13] main path: decode of the trainer's model.ep1 through the eval CLI")
         mp = decode_path(args, tr, dev, card)
 
         # 7. the Conformer's attention with its bias, forward and backward
-        print("[7/11] main path: L2 CTC(Conformer) training, two micro-steps through the train CLI")
+        print("[7/13] main path: L2 CTC(Conformer) training, two micro-steps through the train CLI")
         l2 = train_conformer_steps(args, root, card)
 
         # 8. the slice's path: L3-1 joint-CTC beam decode
-        print("[8/11] main path: L3-1 Conformer + attention decoder, beam 10 with joint CTC, through the eval CLI")
+        print("[8/13] main path: L3-1 Conformer + attention decoder, beam 10 with joint CTC, through the eval CLI")
         l3 = decode_l3_1(args, root, tr["test_tsv"], tr["wav_s"], dev, card)
 
         # 9. the slice's path: L3-3, the same with Transformer-LM shallow fusion
-        print("[9/11] main path: L3-3, L3-1 with Transformer-LM shallow fusion 0.5, through the eval CLI")
+        print("[9/13] main path: L3-3, L3-1 with Transformer-LM shallow fusion 0.5, through the eval CLI")
         l33 = decode_l3_3(args, root, tr, dev, card)
 
         # 10. the slice's path: L4 RNN-T(Conformer) training, then greedy and ALSD decoding
-        print("[10/11] main path: L4 RNN-T(Conformer) training through the train CLI, then its model.ep1 "
+        print("[10/13] main path: L4 RNN-T(Conformer) training through the train CLI, then its model.ep1 "
               "greedily and with the ALSD beam through the eval CLI")
         l4 = train_l4(args, root, card)
         n_layers = l4["cfg"].enc_num_layers
@@ -2523,10 +2950,37 @@ def main(argv=None) -> int:
             "attention_bias_fwd": n_layers, "attention_bias_bwd": n_layers})
         l4_split = time_l4_micro_step(l4, dev, card)
         l4_dec = decode_l4(args, l4, dev, card)
+        require((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (False, False),
+                "an entry point left TF32 on for a float32 model")
+
+        # 11. the slice's path: L1 trained in bf16, then its model.ep1 greedily
+        print("[11/13] main path: L1 CTC(Transformer) training with compute_dtype bfloat16 through the train CLI, "
+              "then its model.ep1 greedily through the eval CLI")
+        l1b_root = os.path.join(root, "l1_bfloat16")
+        os.makedirs(l1b_root)
+        l1b = train_full_width(args, l1b_root, card, "bfloat16", per_bucket=(1, 1, 1, 1, 1))
+        n_layers = l1b["cfg"].enc_num_layers
+        l1b_step = check_bf16_micro_step(l1b, dev, {
+            "ctc_head_fwd_bf16": 1, "ctc_head_grad_e_bf16": 1, "ctc_head_grad_w_bf16": 1, "ctc_alpha": 1,
+            "ctc_beta_grad": 1, "attention_fwd_bf16": n_layers, "attention_bwd_bf16": n_layers, "ctc_head_fwd": 0,
+            "attention_fwd": 0, "attention_bwd": 0})
+        l1b_split = time_micro_step(l1b, dev, card)
+        l1b_dec = decode_greedy_bf16(l1b, card, ("attention_fwd_bf16",))
+
+        # 12. the slice's path: L4 trained in bf16, then its model.ep1 greedily
+        print("[12/13] main path: L4 RNN-T(Conformer) training with compute_dtype bfloat16 through the train CLI, "
+              "then its model.ep1 greedily through the eval CLI")
+        l4b = train_l4(args, root, card, "bfloat16", per_bucket=(1, 1, 1, 1, 1))
+        n_layers = l4b["cfg"].enc_num_layers
+        l4b_step = check_bf16_micro_step(l4b, dev, {
+            "rnnt_joint_bf16": 1, "lstm_fwd_bf16": 1, "lstm_bwd_bf16": 1, "attention_fwd_bf16": n_layers,
+            "attention_bwd_bf16": n_layers, "attention_bias_fwd_bf16": n_layers, "attention_bias_bwd_bf16": n_layers,
+            "rnnt_joint": 0, "lstm_fwd": 0, "lstm_bwd": 0, "attention_fwd": 0, "attention_bwd": 0})
+        l4b_split = time_l4_micro_step(l4b, dev, card)
+        l4b_dec = decode_greedy_bf16(l4b, card, ("attention_fwd_bf16", "attention_bias_fwd_bf16"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    require((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (False, False),
-            "an entry point left TF32 on for a float32 model")
+    set_matmul_precision("float32")  # the bf16 entry points turned TF32 on for their float32 remainder
 
     # 11. timings at the largest bucket, then the result lines
     big = mp["bucket"]
@@ -2547,11 +3001,19 @@ def main(argv=None) -> int:
     l4_T = ((l4_big.max_xlen - 1) // 2 - 1) // 2
     times.update(time_rnnt_joint(dev, gen, l4_big.batch_size, l4_T, l4_big.max_ylen + 1, 512, 1000))
     times.update(time_lstm(dev, gen, l4_big.batch_size, l4_big.max_ylen + 1, 512, 128))
-    print(f"[11/11] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
+    bf = torch.bfloat16
+    times.update(time_ctc_head(dev, gen, B, T2, 256, 10000, big.max_ylen, bf))
+    times["attention_fwd_bf16"] = time_attention(dev, gen, B, T2, 4, 64, lens, bf)
+    times["attention_bwd_bf16"] = time_attention_backward(dev, gen, B, T2, 4, 64, lens, bf)
+    times.update(time_attention_bias(dev, gen, B, T2, 4, 64, lens, bf))
+    times.update(time_rnnt_joint(dev, gen, l4_big.batch_size, l4_T, l4_big.max_ylen + 1, 512, 1000, bf))
+    times.update(time_lstm(dev, gen, l4_big.batch_size, l4_big.max_ylen + 1, 512, 128, bf))
+    print(f"[13/13] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
           f"decoder step W = 10, pos = 64; L4: B = {l4_big.batch_size}, T' = {l4_T}, U+1 = {l4_big.max_ylen + 1}) "
           f"on {smi}")
 
-    paths = [tr["launches"], l2["launches"], l4["launches"]] + [
+    paths = [tr["launches"], l2["launches"], l4["launches"], l1b["launches"], l4b["launches"],
+             l1b_dec["launches"], l4b_dec["launches"]] + [
         r["launches"] for r in (*mp["runs"].values(), *l3["runs"].values(), *l33["runs"].values(),
                                 *l4_dec["runs"].values())]
     ms = lambda x: "none" if x is None else f"{x:.4f}"
@@ -2591,6 +3053,14 @@ def main(argv=None) -> int:
                                         "utt_per_s", "launches", "losses")},
         "l4_micro_step": {**l4_split, **l4_step},
         "l4_decode": {**l4_dec["runs"], "n_utts": l4_dec["n_utts"], "batches": l4_dec["batches"]},
+        "l1_bf16_train": {k: l1b[k] for k in ("micro_steps", "seconds", "epoch_seconds", "micro_steps_per_s",
+                                              "utt_per_s", "launches", "losses")},
+        "l1_bf16_micro_step": {**l1b_split, **l1b_step},
+        "l1_bf16_greedy_decode": l1b_dec,
+        "l4_bf16_train": {k: l4b[k] for k in ("micro_steps", "seconds", "epoch_seconds", "micro_steps_per_s",
+                                              "utt_per_s", "launches", "losses")},
+        "l4_bf16_micro_step": {**l4b_split, **l4b_step},
+        "l4_bf16_greedy_decode": l4b_dec,
         "card": smi, "total_seconds": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": rows}))

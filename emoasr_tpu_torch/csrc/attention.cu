@@ -51,10 +51,10 @@
 // lane's four elements.  `emo_attention_keep_mask` writes the same bits out
 // as bytes, for holding the kernels against the plain version.
 //
-// Backward (f32): P is recomputed from the row statistic lse = max + log
+// Backward: P is recomputed from the row statistic lse = max + log
 // sum that the forward saves, (B, H, T) f32.  With Pd the dropped, scaled P:
 //   dV = Pd^T dO,  dPd = dO V^T,  dP = keep ? dPd / (1 - rate) : 0,
-//   dS = P (dP - delta) scale,  delta = rowsum(dP P) = dO . O,
+//   dS = P (dP - delta) scale,  delta = rowsum(dP P),
 //   dQ = dS K,  dK = dS^T Q,
 // zero at keys >= lens (so dK and dV are zero there) and everywhere when
 // lens == 0.  dQ sums over keys and dK/dV over queries, so there are two
@@ -63,6 +63,13 @@
 // delta, the second by key block (16 keys; lanes are queries) writes dK and
 // dV.  About 2.5 times the forward's product work plus the two recomputed
 // score products; the product work bounds it.
+// Rounding in bf16, as the TPU kernel rounds: P stays f32; Pd is rounded to
+// v's type before dV = Pd^T dO, and dS (after the scale) to q's type before
+// dQ, dK and d bias; every product accumulates in f32, and dQ, dK, dV are
+// written in the inputs' type.  In f32 delta = rowsum(dP P) is taken as
+// dO . O, the same number; in bf16 O was rounded (and formed from the
+// rounded Pd), so the first pass sums dP P itself over an extra sweep of
+// the keys, as the TPU kernel does.
 //
 // With a bias the score tile is the largest operand by far (T^2 against
 // T d_k elements per head), so the forward is bound by the bytes of the bias
@@ -71,7 +78,7 @@
 // need no alignment); the second backward pass reads it a lane per query,
 // four consecutive keys each.  d bias = dS, after the multiplication by
 // `scale`, is written by the first backward pass from the tile it already
-// holds, f32, zero at masked keys.
+// holds, in the bias's own type, zero at masked keys.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -145,6 +152,14 @@ enum { kBiasNone = 0, kBiasF32 = 1, kBiasBF16 = 2 };
 __device__ __forceinline__ float load_bias(const void* __restrict__ bias, int kind, size_t idx) {
   return kind == kBiasF32 ? static_cast<const float*>(bias)[idx]
                           : __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[idx]);
+}
+
+// d bias element `idx`, written in the bias's dtype
+__device__ __forceinline__ void store_bias(void* __restrict__ d_bias, int kind, size_t idx, float x) {
+  if (kind == kBiasF32)
+    static_cast<float*>(d_bias)[idx] = x;
+  else
+    static_cast<__nv_bfloat16*>(d_bias)[idx] = __float2bfloat16(x);
 }
 
 // Shared-memory geometry, common to the three kernels.  A block holds 16
@@ -385,15 +400,18 @@ __host__ __device__ inline size_t bwd_smem_floats(Geo g) {
          + 2 * kWarps * kBK * 4 + 2 * kBK;
 }
 
-// pass 1, by query block: dQ and delta = dO . O
+// pass 1, by query block: dQ and delta = rowsum(dP P)
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ o,
-                        const float* __restrict__ d_o, const int* __restrict__ lens,
-                        const float* __restrict__ lse, float* __restrict__ dq,
+attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ o,
+                        const T* __restrict__ d_o, const int* __restrict__ lens,
+                        const float* __restrict__ lse, T* __restrict__ dq,
                         float* __restrict__ delta, const void* __restrict__ bias, int bias_kind,
-                        float* __restrict__ d_bias, int T_len, int H, int D, float scale,
+                        void* __restrict__ d_bias, int T_len, int H, int D, float scale,
                         uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep) {
+  // f32: delta = dO . O; a half type sums dP P over the keys (see the top)
+  constexpr bool kSumDelta = !std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
   const Geo g(D);
   float* qs = smem;                 // [kBQ][DP]
@@ -415,12 +433,12 @@ attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
   if (d_bias != nullptr)
     for (int i = 0; i < rows_ok; ++i)
       for (int key = (len + kBK - 1) / kBK * kBK + lane; key < T_len; key += 32)
-        d_bias[bias_row + static_cast<size_t>(i) * T_len + key] = 0.f;
+        store_bias(d_bias, bias_kind, bias_row + static_cast<size_t>(i) * T_len + key, 0.f);
 
   if (len == 0) {
     for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
       const int t = q0 + i / D;
-      if (t < T_len) dq[base + t * row_stride + i % D] = 0.f;
+      if (t < T_len) dq[base + t * row_stride + i % D] = from_float<T>(0.f);
     }
     for (int r = threadIdx.x; r < kBQ; r += kThreads)
       if (q0 + r < T_len) delta[stat + q0 + r] = 0.f;
@@ -438,38 +456,74 @@ attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int t = q0 + warp * kRowsPerWarp + i;
-    float part = 0.f;
-    if (t < T_len)
-      for (int d = lane; d < D; d += 32)
-        part = fmaf(dos_w[i * g.DP + d], o[base + t * row_stride + d], part);
-    delta_r[i] = warp_sum(part);
     lse_r[i] = t < T_len ? lse[stat + t] : 0.f;
-    if (lane == 0 && t < T_len) delta[stat + t] = delta_r[i];
+    delta_r[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < kDChunks; ++c) acc[i][c] = 0.f;
   }
 
-  for (int k0 = 0; k0 < len; k0 += kBK) {
+  auto load_kv = [&](int k0) {
     __syncthreads();  // the previous tile is consumed
     load_rows(ks, k, base, row_stride, k0, len, kBK, g.LK, g);
     load_rows(vs, v, base, row_stride, k0, len, kBK, g.LK, g);
     __syncthreads();
+  };
+  // p and dP of the warp's four rows against key k0 + lane
+  auto probs = [&](int k0, float p[kRowsPerWarp], float dp[kRowsPerWarp]) {
     const bool key_ok = k0 + lane < len;
     uint4 words = make_uint4(~0u, ~0u, ~0u, ~0u);
     if (threshold != 0u)
       words = dropout_words(seed_lo, seed_hi, b * H + h, (q0 >> 2) + warp, k0 + lane);
-    float s[kRowsPerWarp], dpd[kRowsPerWarp], ds[kRowsPerWarp];
+    float s[kRowsPerWarp], dpd[kRowsPerWarp];
     dots(qs_w, ks + lane * g.LK, g.DP, s);
     dots(dos_w, vs + lane * g.LK, g.DP, dpd);
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const size_t at = bias_row + static_cast<size_t>(i) * T_len + k0 + lane;
+      if (bias_kind != kBiasNone && key_ok && i < rows_ok) s[i] += load_bias(bias, bias_kind, at);
+      p[i] = key_ok ? expf(s[i] * scale - lse_r[i]) : 0.f;
+      dp[i] = word_of(words, i) >= threshold ? dpd[i] * inv_keep : 0.f;
+    }
+  };
+
+  if (kSumDelta) {
+    float part[kRowsPerWarp] = {0.f, 0.f, 0.f, 0.f};
+    for (int k0 = 0; k0 < len; k0 += kBK) {
+      load_kv(k0);
+      float p[kRowsPerWarp], dp[kRowsPerWarp];
+      probs(k0, p, dp);
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) part[i] = fmaf(dp[i], p[i], part[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) delta_r[i] = warp_sum(part[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int t = q0 + warp * kRowsPerWarp + i;
+      float part = 0.f;
+      if (t < T_len)
+        for (int d = lane; d < D; d += 32)
+          part = fmaf(dos_w[i * g.DP + d], to_float(o[base + t * row_stride + d]), part);
+      delta_r[i] = warp_sum(part);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int t = q0 + warp * kRowsPerWarp + i;
+    if (lane == 0 && t < T_len) delta[stat + t] = delta_r[i];
+  }
+
+  for (int k0 = 0; k0 < len; k0 += kBK) {
+    load_kv(k0);
+    float p[kRowsPerWarp], dp[kRowsPerWarp], ds[kRowsPerWarp];
+    probs(k0, p, dp);
     const int key = k0 + lane;
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
-      const size_t at = bias_row + static_cast<size_t>(i) * T_len + key;
-      if (bias_kind != kBiasNone && key_ok && i < rows_ok) s[i] += load_bias(bias, bias_kind, at);
-      const float p = key_ok ? expf(s[i] * scale - lse_r[i]) : 0.f;
-      const float dp = word_of(words, i) >= threshold ? dpd[i] * inv_keep : 0.f;
-      ds[i] = p * (dp - delta_r[i]) * scale;
-      if (d_bias != nullptr && i < rows_ok && key < T_len) d_bias[at] = ds[i];
+      ds[i] = round_to<T>(p[i] * (dp[i] - delta_r[i]) * scale);
+      if (d_bias != nullptr && i < rows_ok && key < T_len)
+        store_bias(d_bias, bias_kind, bias_row + static_cast<size_t>(i) * T_len + key, ds[i]);
     }
     ws_w[lane] = make_float4(ds[0], ds[1], ds[2], ds[3]);
     __syncwarp();
@@ -484,18 +538,19 @@ attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
     for (int c = 0; c < kDChunks; ++c) {
       const int d = lane + 32 * c;
-      if (d < D) dq[base + t * row_stride + d] = acc[i][c];
+      if (d < D) dq[base + t * row_stride + d] = from_float<T>(acc[i][c]);
     }
   }
 }
 
 // pass 2, by key block: dK and dV
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ d_o,
+attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ d_o,
                          const int* __restrict__ lens, const float* __restrict__ lse,
-                         const float* __restrict__ delta, float* __restrict__ dk,
-                         float* __restrict__ dv, const void* __restrict__ bias, int bias_kind,
+                         const float* __restrict__ delta, T* __restrict__ dk,
+                         T* __restrict__ dv, const void* __restrict__ bias, int bias_kind,
                          int T_len, int H, int D, float scale,
                          uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep) {
   extern __shared__ __align__(16) float smem[];
@@ -519,8 +574,8 @@ attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
     for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
       const int t = k0 + i / D;
       if (t < T_len) {
-        dk[base + t * row_stride + i % D] = 0.f;
-        dv[base + t * row_stride + i % D] = 0.f;
+        dk[base + t * row_stride + i % D] = from_float<T>(0.f);
+        dv[base + t * row_stride + i % D] = from_float<T>(0.f);
       }
     }
     return;
@@ -563,8 +618,8 @@ attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
       if (bias_kind != kBiasNone && q_ok && key < len)
         s[i] += load_bias(bias, bias_kind, (stat + tq) * T_len + key);
       const float p = (q_ok && key < len) ? expf(s[i] * scale - lse_s[lane]) : 0.f;
-      pd[i] = keep ? p * inv_keep : 0.f;
-      ds[i] = p * ((keep ? dpd[i] * inv_keep : 0.f) - delta_s[lane]) * scale;
+      pd[i] = round_to<T>(keep ? p * inv_keep : 0.f);
+      ds[i] = round_to<T>(p * ((keep ? dpd[i] * inv_keep : 0.f) - delta_s[lane]) * scale);
     }
     wp_w[lane] = make_float4(pd[0], pd[1], pd[2], pd[3]);
     wd_w[lane] = make_float4(ds[0], ds[1], ds[2], ds[3]);
@@ -582,8 +637,8 @@ attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
     for (int c = 0; c < kDChunks; ++c) {
       const int d = lane + 32 * c;
       if (d < D) {
-        dk[base + t * row_stride + d] = acc_k[i][c];
-        dv[base + t * row_stride + d] = acc_v[i][c];
+        dk[base + t * row_stride + d] = from_float<T>(acc_k[i][c]);
+        dv[base + t * row_stride + d] = from_float<T>(acc_v[i][c]);
       }
     }
   }
@@ -628,6 +683,41 @@ int launch(const void* q, const void* k, const void* v, const void* lens, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* d_o,
+               const void* lens, const void* lse, void* dq, void* dk, void* dv, void* delta,
+               const void* bias, int bias_kind, void* d_bias, int B, int T_len, int H, int D,
+               float scale, uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold,
+               float inv_keep, void* stream) {
+  if (D > kDMax || D < 1 || bias_kind < kBiasNone || bias_kind > kBiasBF16
+      || (bias_kind != kBiasNone && bias == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = bwd_smem_floats(Geo(D)) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attention_bwd_dkv_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((T_len + kBQ - 1) / kBQ, H, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  attention_bwd_dq_kernel<T><<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(o), static_cast<const T*>(d_o), static_cast<const int*>(lens),
+      static_cast<const float*>(lse), static_cast<T*>(dq), static_cast<float*>(delta), bias,
+      bias_kind, d_bias, T_len, H, D, scale, seed_lo, seed_hi, threshold, inv_keep);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attention_bwd_dkv_kernel<T><<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(d_o), static_cast<const int*>(lens), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), bias,
+      bias_kind, T_len, H, D, scale, seed_lo, seed_hi, threshold, inv_keep);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -651,42 +741,28 @@ int emo_attention_fwd_bf16(const void* q, const void* k, const void* v, const vo
 }
 
 // both backward passes; `delta` is (B, H, T) f32 scratch; `d_bias` is
-// (B, H, T, T) f32 or null (no bias, or a bias that needs no gradient)
+// (B, H, T, T) in the bias's dtype, or null (no bias, or a bias that needs
+// no gradient); `o` is read in f32 only (bf16 sums delta from dP P)
 int emo_attention_bwd_f32(const void* q, const void* k, const void* v, const void* o,
                           const void* d_o, const void* lens, const void* lse, void* dq, void* dk,
                           void* dv, void* delta, const void* bias, int bias_kind, void* d_bias,
                           int B, int T, int H, int D, float scale,
                           uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold,
                           float inv_keep, void* stream) {
-  if (D > kDMax || D < 1 || bias_kind < kBiasNone || bias_kind > kBiasBF16
-      || (bias_kind != kBiasNone && bias == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = bwd_smem_floats(Geo(D)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(attention_bwd_dkv_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + kBQ - 1) / kBQ, H, B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  attention_bwd_dq_kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(o), static_cast<const float*>(d_o),
-      static_cast<const int*>(lens), static_cast<const float*>(lse), static_cast<float*>(dq),
-      static_cast<float*>(delta), bias, bias_kind, static_cast<float*>(d_bias), T, H, D, scale,
-      seed_lo, seed_hi, threshold, inv_keep);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dkv_kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(d_o), static_cast<const int*>(lens),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<float*>(dk),
-      static_cast<float*>(dv), bias, bias_kind, T, H, D, scale, seed_lo, seed_hi, threshold,
-      inv_keep);
-  return static_cast<int>(cudaGetLastError());
+  return launch_bwd<float>(q, k, v, o, d_o, lens, lse, dq, dk, dv, delta, bias, bias_kind,
+                           d_bias, B, T, H, D, scale, seed_lo, seed_hi, threshold, inv_keep,
+                           stream);
+}
+
+int emo_attention_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
+                           const void* d_o, const void* lens, const void* lse, void* dq,
+                           void* dk, void* dv, void* delta, const void* bias, int bias_kind,
+                           void* d_bias, int B, int T, int H, int D, float scale,
+                           uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold,
+                           float inv_keep, void* stream) {
+  return launch_bwd<__nv_bfloat16>(q, k, v, o, d_o, lens, lse, dq, dk, dv, delta, bias,
+                                   bias_kind, d_bias, B, T, H, D, scale, seed_lo, seed_hi,
+                                   threshold, inv_keep, stream);
 }
 
 int emo_attention_keep_mask(void* out, int B, int T, int H, uint32_t seed_lo, uint32_t seed_hi,

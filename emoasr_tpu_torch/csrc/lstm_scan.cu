@@ -14,6 +14,17 @@
 //             (B, T, 4H) = d pre, d w = sum_t sum_b d pre_t^T h_{t-1}
 //             (float32, a fixed order, no atomics), d h0, d c0.
 //
+// Types, as in the TPU kernel: xp, h0, c0, the outputs ys, hT, cT and the
+// residuals gates and hcprev are of one storage type, float32 or bfloat16;
+// w is float32 (the wrapper casts it) and the carried h and c are float32.
+// The forward upcasts xp per step and rounds what it stores; its carry is
+// never rounded (h_{t-1} for the next step comes from an f32 ping-pong
+// buffer, not from ys).  The backward reads dys, d h_T, d c_T and the
+// rounded residuals in the storage type and recomputes from those, carries
+// d h and d c in f32, sums d w in f32 from the unrounded d pre (an f32
+// ping-pong buffer shares d pre_t between the blocks), and rounds d xp,
+// d h0 and d c0 to the storage type.
+//
 // What bounds it on this card: neither bytes nor operations but the T
 // dependent steps.  At the prediction network's largest training shape
 // (B 18, T 129, H 512) the forward does 4.9 GFLOP (0.073 ms at the f32
@@ -30,8 +41,8 @@
 //    stages h_{t-1} (ys[:, t-1], written by every block before the
 //    barrier; read past L1) in shared memory, batch tile by batch tile; a
 //    warp reduces the four gate dot products, and lane 0 applies the cell
-//    update, keeps c (shared memory, one owner per (b, j)) and writes ys,
-//    the gates and [h, c]_{t-1}.
+//    update, keeps c (shared memory, one owner per (b, j)) and writes h
+//    (f32 buffer), ys, the gates and [h, c]_{t-1}.
 //  * backward: d h_{t-1}[:, j] needs d pre_t of every unit, so a warp
 //    holds the column w_hh[:, j] (4H values) instead.  Each step lane 0 of
 //    the owner first turns the carried d h, d c of its (b, j) into the four
@@ -44,6 +55,7 @@
 // expected limit, not the arithmetic.
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -55,6 +67,15 @@ constexpr int kMaxH = 512;
 constexpr size_t kSmemBudget = 200 * 1024;
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename S> __device__ __forceinline__ S from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -90,13 +111,15 @@ __device__ __forceinline__ float dot4(const float4& a, const float4& b, float ac
 
 // ------------------------------------------------------------------ forward
 
-// NC float4 chunks of a length-H row per lane (k = 4 lane + 128 c + q)
-template <int NC>
+// NC float4 chunks of a length-H row per lane (k = 4 lane + 128 c + q);
+// hbuf (2, B, H) f32: h_t goes to slot t % 2
+template <int NC, typename S>
 __global__ void __launch_bounds__(kThreads)
-lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w,
-                const float* __restrict__ h0, const float* __restrict__ c0, float* ys,
-                float* __restrict__ gates, float* __restrict__ hcprev, float* __restrict__ hT,
-                float* __restrict__ cT, unsigned* bar, int B, int T, int H, int U, int BT) {
+lstm_fwd_kernel(const S* __restrict__ xp, const float* __restrict__ w,
+                const S* __restrict__ h0, const S* __restrict__ c0, S* __restrict__ ys,
+                S* __restrict__ gates, S* __restrict__ hcprev, S* __restrict__ hT,
+                S* __restrict__ cT, float* hbuf, unsigned* bar, int B, int T, int H, int U,
+                int BT) {
   constexpr int Hp = 128 * NC;
   extern __shared__ __align__(16) float smem[];
   float* hs = smem;                                // (BT, Hp): h_{t-1} of a batch tile
@@ -123,7 +146,7 @@ lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w,
   // (b, j) belongs to lane 0 of the warp with bfirst = b % bstep: only that
   // thread reads and writes cs[b][u]
   if (live && lane == 0)
-    for (int b = bfirst; b < B; b += bstep) cs[b * U + u] = c0[static_cast<size_t>(b) * H + j];
+    for (int b = bfirst; b < B; b += bstep) cs[b * U + u] = to_float(c0[static_cast<size_t>(b) * H + j]);
 
   for (int t = 0; t < T; ++t) {
     for (int b0 = 0; b0 < B; b0 += BT) {
@@ -133,8 +156,8 @@ lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w,
         const int r = i / Hp, k = i % Hp;
         float v = 0.f;
         if (k < H)
-          v = t == 0 ? h0[static_cast<size_t>(b0 + r) * H + k]
-                     : __ldcg(ys + (static_cast<size_t>(b0 + r) * T + t - 1) * H + k);
+          v = t == 0 ? to_float(h0[static_cast<size_t>(b0 + r) * H + k])
+                     : __ldcg(hbuf + (static_cast<size_t>((t - 1) & 1) * B + b0 + r) * H + k);
         hs[i] = v;
       }
       __syncthreads();
@@ -152,28 +175,29 @@ lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w,
         for (int g = 0; g < 4; ++g) acc[g] = warp_sum(acc[g]);
         if (lane == 0) {
           const size_t row = static_cast<size_t>(b) * T + t;
-          const float* x = xp + row * H4;
-          const float gi = sigmoidf_(acc[0] + x[j]);
-          const float gf = sigmoidf_(acc[1] + x[H + j]);
-          const float gg = tanhf(acc[2] + x[2 * H + j]);
-          const float go = sigmoidf_(acc[3] + x[3 * H + j]);
+          const S* x = xp + row * H4;
+          const float gi = sigmoidf_(acc[0] + to_float(x[j]));
+          const float gf = sigmoidf_(acc[1] + to_float(x[H + j]));
+          const float gg = tanhf(acc[2] + to_float(x[2 * H + j]));
+          const float go = sigmoidf_(acc[3] + to_float(x[3 * H + j]));
           const float cp = cs[b * U + u];
           const float hp = hs[static_cast<size_t>(b - b0) * Hp + j];
           const float cn = gf * cp + gi * gg;
           const float hn = go * tanhf(cn);
           cs[b * U + u] = cn;
-          ys[row * H + j] = hn;
-          float* gr = gates + (static_cast<size_t>(t) * B + b) * H4;
-          gr[j] = gi;
-          gr[H + j] = gf;
-          gr[2 * H + j] = gg;
-          gr[3 * H + j] = go;
-          float* hc = hcprev + (static_cast<size_t>(t) * B + b) * 2 * H;
-          hc[j] = hp;
-          hc[H + j] = cp;
+          hbuf[(static_cast<size_t>(t & 1) * B + b) * H + j] = hn;
+          ys[row * H + j] = from_float<S>(hn);
+          S* gr = gates + (static_cast<size_t>(t) * B + b) * H4;
+          gr[j] = from_float<S>(gi);
+          gr[H + j] = from_float<S>(gf);
+          gr[2 * H + j] = from_float<S>(gg);
+          gr[3 * H + j] = from_float<S>(go);
+          S* hc = hcprev + (static_cast<size_t>(t) * B + b) * 2 * H;
+          hc[j] = from_float<S>(hp);
+          hc[H + j] = from_float<S>(cp);
           if (t == T - 1) {
-            hT[static_cast<size_t>(b) * H + j] = hn;
-            cT[static_cast<size_t>(b) * H + j] = cn;
+            hT[static_cast<size_t>(b) * H + j] = from_float<S>(hn);
+            cT[static_cast<size_t>(b) * H + j] = from_float<S>(cn);
           }
         }
       }
@@ -184,13 +208,14 @@ lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w,
 
 // ------------------------------------------------------------------ backward
 
-// NG float4 chunks of a length-4H column per lane (r = 4 lane + 128 c + q)
-template <int NG>
+// NG float4 chunks of a length-4H column per lane (r = 4 lane + 128 c + q);
+// dpre (2, B, 4H) f32: d pre_t goes to slot t % 2
+template <int NG, typename S>
 __global__ void __launch_bounds__(kThreads)
-lstm_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ hcprev,
-                const float* __restrict__ dys, const float* __restrict__ dhT,
-                const float* __restrict__ dcT, const float* __restrict__ w, float* dxp,
-                float* __restrict__ dw, float* __restrict__ dh0, float* __restrict__ dc0,
+lstm_bwd_kernel(const S* __restrict__ gates, const S* __restrict__ hcprev,
+                const S* __restrict__ dys, const S* __restrict__ dhT,
+                const S* __restrict__ dcT, const float* __restrict__ w, S* __restrict__ dxp,
+                float* __restrict__ dw, S* __restrict__ dh0, S* __restrict__ dc0, float* dpre,
                 unsigned* bar, int B, int T, int H, int U, int BT) {
   constexpr int Gp = 128 * NG;
   extern __shared__ __align__(16) float smem[];
@@ -218,25 +243,30 @@ lstm_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ hcpre
   }
   if (live && lane == 0)
     for (int b = bfirst; b < B; b += bstep) {
-      dhs[b * U + u] = dhT[static_cast<size_t>(b) * H + j];
-      dcs[b * U + u] = dcT[static_cast<size_t>(b) * H + j];
+      dhs[b * U + u] = to_float(dhT[static_cast<size_t>(b) * H + j]);
+      dcs[b * U + u] = to_float(dcT[static_cast<size_t>(b) * H + j]);
     }
 
   for (int t = T - 1; t >= 0; --t) {
     // the cell's backward for the (b, j) this thread owns: d pre_t
     if (live && lane == 0)
       for (int b = bfirst; b < B; b += bstep) {
-        const float* gr = gates + (static_cast<size_t>(t) * B + b) * H4;
-        const float gi = gr[j], gf = gr[H + j], gg = gr[2 * H + j], go = gr[3 * H + j];
-        const float cp = hcprev[(static_cast<size_t>(t) * B + b) * 2 * H + H + j];
+        const S* gr = gates + (static_cast<size_t>(t) * B + b) * H4;
+        const float gi = to_float(gr[j]), gf = to_float(gr[H + j]);
+        const float gg = to_float(gr[2 * H + j]), go = to_float(gr[3 * H + j]);
+        const float cp = to_float(hcprev[(static_cast<size_t>(t) * B + b) * 2 * H + H + j]);
         const float tc = tanhf(gf * cp + gi * gg);
-        const float dh = dys[(static_cast<size_t>(b) * T + t) * H + j] + dhs[b * U + u];
+        const float dh = to_float(dys[(static_cast<size_t>(b) * T + t) * H + j]) + dhs[b * U + u];
         const float dc = dcs[b * U + u] + dh * go * (1.f - tc * tc);
-        float* d = dxp + (static_cast<size_t>(b) * T + t) * H4;
-        d[j] = dc * gg * gi * (1.f - gi);
-        d[H + j] = dc * cp * gf * (1.f - gf);
-        d[2 * H + j] = dc * gi * (1.f - gg * gg);
-        d[3 * H + j] = dh * tc * go * (1.f - go);
+        const float dg[4] = {dc * gg * gi * (1.f - gi), dc * cp * gf * (1.f - gf),
+                             dc * gi * (1.f - gg * gg), dh * tc * go * (1.f - go)};
+        S* d = dxp + (static_cast<size_t>(b) * T + t) * H4;
+        float* dp = dpre + (static_cast<size_t>(t & 1) * B + b) * H4;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          d[g * H + j] = from_float<S>(dg[g]);
+          dp[g * H + j] = dg[g];
+        }
         dcs[b * U + u] = dc * gf;
       }
     grid_sync(bar, static_cast<unsigned>(T - t) * gridDim.x);
@@ -246,12 +276,12 @@ lstm_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ hcpre
       __syncthreads();
       for (int i = threadIdx.x; i < nb * Gp; i += kThreads) {
         const int r = i / Gp, k = i % Gp;
-        ds[i] = k < H4 ? __ldcg(dxp + (static_cast<size_t>(b0 + r) * T + t) * H4 + k) : 0.f;
+        ds[i] = k < H4 ? __ldcg(dpre + (static_cast<size_t>(t & 1) * B + b0 + r) * H4 + k) : 0.f;
       }
       __syncthreads();
       if (!live) continue;
       for (int b = b0 + bfirst; b < b0 + nb; b += bstep) {
-        const float hp = hcprev[(static_cast<size_t>(t) * B + b) * 2 * H + j];
+        const float hp = to_float(hcprev[(static_cast<size_t>(t) * B + b) * 2 * H + j]);
         const float4* drow = reinterpret_cast<const float4*>(ds + static_cast<size_t>(b - b0) * Gp);
         float dot = 0.f;
 #pragma unroll
@@ -270,8 +300,8 @@ lstm_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ hcpre
   }
   if (live && lane == 0)
     for (int b = bfirst; b < B; b += bstep) {
-      dh0[static_cast<size_t>(b) * H + j] = dhs[b * U + u];
-      dc0[static_cast<size_t>(b) * H + j] = dcs[b * U + u];
+      dh0[static_cast<size_t>(b) * H + j] = from_float<S>(dhs[b * U + u]);
+      dc0[static_cast<size_t>(b) * H + j] = from_float<S>(dcs[b * U + u]);
     }
   // d w[:, j]: the bstep warps of unit u add their shares in warp order
   __syncthreads();
@@ -335,101 +365,115 @@ cudaError_t plan(K kernel, int H, int B, int BT, int rows_floats, int& U, int& n
   return cudaErrorCooperativeLaunchTooLarge;  // the grid cannot be co-resident
 }
 
-template <int NC>
-cudaError_t launch_fwd(const float* xp, const float* w, const float* h0, const float* c0,
-                       float* ys, float* gates, float* hcprev, float* hT, float* cT,
-                       unsigned* bar, int B, int T, int H, cudaStream_t stream) {
+template <int NC, typename S>
+cudaError_t launch_fwd(const void* xp, const void* w, const void* h0, const void* c0, void* ys,
+                       void* gates, void* hcprev, void* hT, void* cT, void* hbuf, void* bar,
+                       int B, int T, int H, cudaStream_t stream) {
   constexpr int Hp = 128 * NC;
   int BT = batch_tile(B, Hp, 2 * static_cast<size_t>(B) * kWarps * sizeof(float));
   if (BT < 1) return cudaErrorInvalidValue;
   int U = 0, nblocks = 0;
   size_t smem = 0;
-  cudaError_t err = plan(lstm_fwd_kernel<NC>, H, B, BT, BT * Hp, U, nblocks, smem);
+  cudaError_t err = plan(lstm_fwd_kernel<NC, S>, H, B, BT, BT * Hp, U, nblocks, smem);
   if (err != cudaSuccess) return err;
-  void* args[] = {&xp, &w, &h0, &c0, &ys, &gates, &hcprev, &hT, &cT, &bar, &B, &T, &H, &U, &BT};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(lstm_fwd_kernel<NC>), dim3(nblocks),
-                                     dim3(kThreads), args, smem, stream);
+  void* args[] = {&xp, &w, &h0, &c0, &ys, &gates, &hcprev, &hT, &cT, &hbuf, &bar,
+                  &B, &T, &H, &U, &BT};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(lstm_fwd_kernel<NC, S>),
+                                     dim3(nblocks), dim3(kThreads), args, smem, stream);
 }
 
-template <int NG>
-cudaError_t launch_bwd(const float* gates, const float* hcprev, const float* dys,
-                       const float* dhT, const float* dcT, const float* w, float* dxp, float* dw,
-                       float* dh0, float* dc0, unsigned* bar, int B, int T, int H,
-                       cudaStream_t stream) {
+template <int NG, typename S>
+cudaError_t launch_bwd(const void* gates, const void* hcprev, const void* dys, const void* dhT,
+                       const void* dcT, const void* w, void* dxp, void* dw, void* dh0, void* dc0,
+                       void* dpre, void* bar, int B, int T, int H, cudaStream_t stream) {
   constexpr int Gp = 128 * NG;
   int BT = batch_tile(B, Gp, 2 * static_cast<size_t>(B) * kWarps * sizeof(float));
   if (BT < 1) return cudaErrorInvalidValue;
   int U = 0, nblocks = 0;
   size_t smem = 0;
-  cudaError_t err = plan(lstm_bwd_kernel<NG>, H, B, BT, (BT > kWarps ? BT : kWarps) * Gp, U,
+  cudaError_t err = plan(lstm_bwd_kernel<NG, S>, H, B, BT, (BT > kWarps ? BT : kWarps) * Gp, U,
                          nblocks, smem);
   if (err != cudaSuccess) return err;
-  void* args[] = {&gates, &hcprev, &dys, &dhT, &dcT, &w, &dxp, &dw, &dh0, &dc0, &bar,
+  void* args[] = {&gates, &hcprev, &dys, &dhT, &dcT, &w, &dxp, &dw, &dh0, &dc0, &dpre, &bar,
                   &B, &T, &H, &U, &BT};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(lstm_bwd_kernel<NG>), dim3(nblocks),
-                                     dim3(kThreads), args, smem, stream);
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(lstm_bwd_kernel<NG, S>),
+                                     dim3(nblocks), dim3(kThreads), args, smem, stream);
+}
+
+// the kernel instance for H (forward: NC chunks of a row of H; backward: NG
+// chunks of a column of 4H)
+template <typename S>
+int fwd(const void* xp, const void* w, const void* h0, const void* c0, void* ys, void* gates,
+        void* hcprev, void* hT, void* cT, void* hbuf, void* bar, int B, int T, int H,
+        void* stream) {
+  if (B < 1 || T < 1 || H < 1 || H > kMaxH) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (H <= 128)
+    err = launch_fwd<1, S>(xp, w, h0, c0, ys, gates, hcprev, hT, cT, hbuf, bar, B, T, H, s);
+  else if (H <= 256)
+    err = launch_fwd<2, S>(xp, w, h0, c0, ys, gates, hcprev, hT, cT, hbuf, bar, B, T, H, s);
+  else
+    err = launch_fwd<4, S>(xp, w, h0, c0, ys, gates, hcprev, hT, cT, hbuf, bar, B, T, H, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S>
+int bwd(const void* gates, const void* hcprev, const void* dys, const void* dhT, const void* dcT,
+        const void* w, void* dxp, void* dw, void* dh0, void* dc0, void* dpre, void* bar, int B,
+        int T, int H, void* stream) {
+  if (B < 1 || T < 1 || H < 1 || H > kMaxH) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  const int H4 = 4 * H;
+  if (H4 <= 128)
+    err = launch_bwd<1, S>(gates, hcprev, dys, dhT, dcT, w, dxp, dw, dh0, dc0, dpre, bar, B, T, H, s);
+  else if (H4 <= 256)
+    err = launch_bwd<2, S>(gates, hcprev, dys, dhT, dcT, w, dxp, dw, dh0, dc0, dpre, bar, B, T, H, s);
+  else if (H4 <= 512)
+    err = launch_bwd<4, S>(gates, hcprev, dys, dhT, dcT, w, dxp, dw, dh0, dc0, dpre, bar, B, T, H, s);
+  else if (H4 <= 1024)
+    err = launch_bwd<8, S>(gates, hcprev, dys, dhT, dcT, w, dxp, dw, dh0, dc0, dpre, bar, B, T, H, s);
+  else
+    err = launch_bwd<16, S>(gates, hcprev, dys, dhT, dcT, w, dxp, dw, dh0, dc0, dpre, bar, B, T, H, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
+// xp, h0, c0 and the outputs of the storage type (f32 or bf16), w f32;
+// hbuf (2, B, H) f32 scratch; bar one zeroed unsigned
 int emo_lstm_fwd_f32(const void* xp, const void* w, const void* h0, const void* c0, void* ys,
-                     void* gates, void* hcprev, void* hT, void* cT, void* bar, int B, int T,
-                     int H, void* stream) {
-  if (B < 1 || T < 1 || H < 1 || H > kMaxH) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* x = static_cast<const float*>(xp);
-  const auto* ww = static_cast<const float*>(w);
-  const auto* h = static_cast<const float*>(h0);
-  const auto* c = static_cast<const float*>(c0);
-  auto* y = static_cast<float*>(ys);
-  auto* g = static_cast<float*>(gates);
-  auto* hc = static_cast<float*>(hcprev);
-  auto* hn = static_cast<float*>(hT);
-  auto* cn = static_cast<float*>(cT);
-  auto* br = static_cast<unsigned*>(bar);
-  auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (H <= 128)
-    err = launch_fwd<1>(x, ww, h, c, y, g, hc, hn, cn, br, B, T, H, s);
-  else if (H <= 256)
-    err = launch_fwd<2>(x, ww, h, c, y, g, hc, hn, cn, br, B, T, H, s);
-  else
-    err = launch_fwd<4>(x, ww, h, c, y, g, hc, hn, cn, br, B, T, H, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+                     void* gates, void* hcprev, void* hT, void* cT, void* hbuf, void* bar, int B,
+                     int T, int H, void* stream) {
+  return fwd<float>(xp, w, h0, c0, ys, gates, hcprev, hT, cT, hbuf, bar, B, T, H, stream);
 }
 
+int emo_lstm_fwd_bf16(const void* xp, const void* w, const void* h0, const void* c0, void* ys,
+                      void* gates, void* hcprev, void* hT, void* cT, void* hbuf, void* bar, int B,
+                      int T, int H, void* stream) {
+  return fwd<__nv_bfloat16>(xp, w, h0, c0, ys, gates, hcprev, hT, cT, hbuf, bar, B, T, H,
+                            stream);
+}
+
+// the residuals, dys, dhT, dcT and d xp, dh0, dc0 of the storage type; w
+// and dw f32; dpre (2, B, 4H) f32 scratch
 int emo_lstm_bwd_f32(const void* gates, const void* hcprev, const void* dys, const void* dhT,
                      const void* dcT, const void* w, void* dxp, void* dw, void* dh0, void* dc0,
-                     void* bar, int B, int T, int H, void* stream) {
-  if (B < 1 || T < 1 || H < 1 || H > kMaxH) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* g = static_cast<const float*>(gates);
-  const auto* hc = static_cast<const float*>(hcprev);
-  const auto* dy = static_cast<const float*>(dys);
-  const auto* dh = static_cast<const float*>(dhT);
-  const auto* dc = static_cast<const float*>(dcT);
-  const auto* ww = static_cast<const float*>(w);
-  auto* dx = static_cast<float*>(dxp);
-  auto* dww = static_cast<float*>(dw);
-  auto* dh0p = static_cast<float*>(dh0);
-  auto* dc0p = static_cast<float*>(dc0);
-  auto* br = static_cast<unsigned*>(bar);
-  auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  const int H4 = 4 * H;
-  if (H4 <= 128)
-    err = launch_bwd<1>(g, hc, dy, dh, dc, ww, dx, dww, dh0p, dc0p, br, B, T, H, s);
-  else if (H4 <= 256)
-    err = launch_bwd<2>(g, hc, dy, dh, dc, ww, dx, dww, dh0p, dc0p, br, B, T, H, s);
-  else if (H4 <= 512)
-    err = launch_bwd<4>(g, hc, dy, dh, dc, ww, dx, dww, dh0p, dc0p, br, B, T, H, s);
-  else if (H4 <= 1024)
-    err = launch_bwd<8>(g, hc, dy, dh, dc, ww, dx, dww, dh0p, dc0p, br, B, T, H, s);
-  else
-    err = launch_bwd<16>(g, hc, dy, dh, dc, ww, dx, dww, dh0p, dc0p, br, B, T, H, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+                     void* dpre, void* bar, int B, int T, int H, void* stream) {
+  return bwd<float>(gates, hcprev, dys, dhT, dcT, w, dxp, dw, dh0, dc0, dpre, bar, B, T, H,
+                    stream);
+}
+
+int emo_lstm_bwd_bf16(const void* gates, const void* hcprev, const void* dys, const void* dhT,
+                      const void* dcT, const void* w, void* dxp, void* dw, void* dh0, void* dc0,
+                      void* dpre, void* bar, int B, int T, int H, void* stream) {
+  return bwd<__nv_bfloat16>(gates, hcprev, dys, dhT, dcT, w, dxp, dw, dh0, dc0, dpre, bar, B, T,
+                            H, stream);
 }
 
 const char* emo_error_string(int err) {

@@ -17,6 +17,12 @@
 //   lp_label[b, t, u] = logits[labels[b, u]] - lse    (B, T, U), u < U only
 // A label outside [0, V) selects nothing: its logit counts as 0.
 //
+// Types: he, hd and w share one type, float32 or bfloat16 (the wrapper casts
+// hd and w to he's, as the TPU kernel does); bias is f32.  In bf16, z is
+// formed in bf16 (the sum rounded, then the tanh rounded), each product of
+// bf16 values is exact in f32 and accumulates in f32, and the lse and both
+// outputs are f32: the TPU kernel's arithmetic.
+//
 // What bounds it on this card: operations.  2 B T U1 J V flops (949 GFLOP
 // at the largest L4 training bucket, (18, 399, 129) x (512, 1000): 14.2 ms
 // at the f32 peak) against ~24 MB of inputs and outputs.  This first
@@ -36,8 +42,11 @@
 // that computed them.
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -47,6 +56,16 @@ constexpr int kBK = 32;        // rows of w per streamed slice
 constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 logits each
 constexpr int kLD = 68;        // padded leading dimension, keeps 16 B alignment
 constexpr int kJMax = 768;     // joint width the shared-memory z tile holds
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// round an f32 value to E's precision and back (identity for f32)
+template <typename E>
+__device__ __forceinline__ float round_to(float x) {
+  if (std::is_same<E, float>::value) return x;
+  return __bfloat162float(__float2bfloat16(x));
+}
 
 struct WLayout {
   long long sk, sv;
@@ -71,9 +90,10 @@ size_t smem_bytes(int J) {
          kBM * sizeof(int);
 }
 
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
-rnnt_joint_kernel(const float* __restrict__ he, const float* __restrict__ hd,
-                  const float* __restrict__ w, const float* __restrict__ bias,
+rnnt_joint_kernel(const E* __restrict__ he, const E* __restrict__ hd,
+                  const E* __restrict__ w, const float* __restrict__ bias,
                   const int* __restrict__ labels, float* __restrict__ lpb,
                   float* __restrict__ lpl, int T, int U1, int J, int V, int blank, WLayout wl) {
   extern __shared__ __align__(16) float smem[];
@@ -95,8 +115,8 @@ rnnt_joint_kernel(const float* __restrict__ he, const float* __restrict__ hd,
     float z = 0.f;
     if (m < M) {
       const int t = static_cast<int>(m / U1), u = static_cast<int>(m % U1);
-      z = tanhf(he[(static_cast<size_t>(b) * T + t) * J + k] +
-                hd[(static_cast<size_t>(b) * U1 + u) * J + k]);
+      z = round_to<E>(tanhf(round_to<E>(to_float(he[(static_cast<size_t>(b) * T + t) * J + k]) +
+                                        to_float(hd[(static_cast<size_t>(b) * U1 + u) * J + k]))));
     }
     zs[k * kLD + r] = z;
   }
@@ -138,7 +158,7 @@ rnnt_joint_kernel(const float* __restrict__ he, const float* __restrict__ hd,
           kk = i % kBK;
         }
         const int k = k0 + kk, v = v0 + c;
-        ws[kk * kLD + c] = (k < J && v < V) ? w[wl.at(k, v)] : 0.f;
+        ws[kk * kLD + c] = (k < J && v < V) ? to_float(w[wl.at(k, v)]) : 0.f;
       }
       __syncthreads();
       const int kn = min(kBK, J - k0);
@@ -199,28 +219,44 @@ rnnt_joint_kernel(const float* __restrict__ he, const float* __restrict__ hd,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-int emo_rnnt_joint_f32(const void* he, const void* hd, const void* w, const void* bias,
-                       const void* labels, void* lpb, void* lpl, int B, int T, int U1, int J,
-                       int V, int blank, long long w_sk, long long w_sv, void* stream) {
+template <typename E>
+int launch(const void* he, const void* hd, const void* w, const void* bias, const void* labels,
+           void* lpb, void* lpl, int B, int T, int U1, int J, int V, int blank, long long w_sk,
+           long long w_sv, void* stream) {
   if (B < 1 || T < 1 || U1 < 1 || J < 1 || J > kJMax || V < 1 || blank < 0 || blank >= V ||
       (w_sk != 1 && w_sv != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(J);
-  cudaError_t err = cudaFuncSetAttribute(rnnt_joint_kernel,
+  cudaError_t err = cudaFuncSetAttribute(rnnt_joint_kernel<E>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long cells = static_cast<long long>(T) * U1;
   const dim3 grid(static_cast<unsigned>((cells + kBM - 1) / kBM), B);
-  rnnt_joint_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(he), static_cast<const float*>(hd), static_cast<const float*>(w),
+  rnnt_joint_kernel<E><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const E*>(he), static_cast<const E*>(hd), static_cast<const E*>(w),
       static_cast<const float*>(bias), static_cast<const int*>(labels), static_cast<float*>(lpb),
       static_cast<float*>(lpl), T, U1, J, V, blank, WLayout{w_sk, w_sv});
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// he, hd and w of one type (f32 or bf16), bias f32; lpb and lpl f32
+int emo_rnnt_joint_f32(const void* he, const void* hd, const void* w, const void* bias,
+                       const void* labels, void* lpb, void* lpl, int B, int T, int U1, int J,
+                       int V, int blank, long long w_sk, long long w_sv, void* stream) {
+  return launch<float>(he, hd, w, bias, labels, lpb, lpl, B, T, U1, J, V, blank, w_sk, w_sv,
+                       stream);
+}
+
+int emo_rnnt_joint_bf16(const void* he, const void* hd, const void* w, const void* bias,
+                        const void* labels, void* lpb, void* lpl, int B, int T, int U1, int J,
+                        int V, int blank, long long w_sk, long long w_sv, void* stream) {
+  return launch<__nv_bfloat16>(he, hd, w, bias, labels, lpb, lpl, B, T, U1, J, V, blank, w_sk,
+                               w_sv, stream);
 }
 
 const char* emo_error_string(int err) {

@@ -465,7 +465,9 @@ class ConvModule(nn.Module):
     JAX package's do: at flax momentum 0.99 (PyTorch momentum 0.01), and the
     running variance takes the batch's biased variance (`nn.BatchNorm1d`
     would feed it the unbiased one), so that a checkpoint written after
-    training holds the statistics the JAX trainer would write."""
+    training holds the statistics the JAX trainer would write.  Under the
+    bf16 training policy the statistics stay float32 buffers: the batch's
+    are taken in float32 and the running update goes into them."""
 
     def __init__(self, channels: int, kernel_size: int = 31):
         super().__init__()
@@ -486,7 +488,13 @@ class ConvModule(nn.Module):
     def _batch_norm(self, h):
         bn = self.batch_norm
         if not bn.training:
-            return bn(h)
+            if h.dtype == bn.weight.dtype == bn.running_mean.dtype:
+                return bn(h)
+            # bf16 weights beside the float32 running statistics (the
+            # training policy's evaluation): computed in float32 and rounded
+            # once, as flax promotes x - mean to the statistics' float32
+            return F.batch_norm(h.float(), bn.running_mean.float(), bn.running_var.float(), bn.weight.float(),
+                                bn.bias.float(), False, 0.0, bn.eps).to(h.dtype)
         with torch.no_grad():
             var, mean = torch.var_mean(h.float(), dim=(0, 2), unbiased=False)
             bn.running_mean.lerp_(mean.to(bn.running_mean.dtype), bn.momentum)

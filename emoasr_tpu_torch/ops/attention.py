@@ -9,12 +9,14 @@ fill before an f32 softmax, zeroing after it, dropout on the normalised
 probabilities, P cast to v.dtype before the AV product.
 
 For a CUDA tensor `fused_self_attention` launches `csrc/attention.cu`; for
-a CPU tensor it takes `attention_plain` (differentiated by autograd).  On
-the card the forward takes float32 and bfloat16, the backward float32 only
-(a bfloat16 input that needs a gradient raises `TypeError`).  The additive
-score `bias` (the Conformer's shifted relative-position term), (B, H, T, T)
+a CPU tensor it takes `attention_plain` and, for its gradient,
+`attention_bwd_plain`.  Both directions take float32 and bfloat16.  The
+backward rounds where the TPU kernel rounds: P stays float32, the dropped
+P is rounded to v's dtype before dV, dS (scaled) to q's dtype before dQ, dK
+and d bias, and every product accumulates in float32.  The additive score
+`bias` (the Conformer's shifted relative-position term), (B, H, T, T)
 float32 or bfloat16, enters before the scale, `(q k^T + bias) * scale`; the
-backward returns its gradient too.
+backward returns its gradient too, in the bias's dtype.
 
 Dropout on the card draws its bits from a Philox generator inside the
 kernel, keyed by one 64-bit seed per call; the backward regenerates them.
@@ -34,24 +36,32 @@ from emoasr_tpu_torch.ops.cuda_lib import F, I, P, U, CudaKernel
 NEG_INF = -1e9  # matches models/layers.py
 
 _FWD_SIG = [P, P, P, P, P, P, P, I, I, I, I, I, F, U, U, U, F, P]
+_BWD_SIG = [P] * 12 + [I, P, I, I, I, I, F, U, U, U, F, P]
 KERNEL = CudaKernel(
     "attention.cu",
     {
         "emo_attention_fwd_f32": _FWD_SIG,
         "emo_attention_fwd_bf16": _FWD_SIG,
-        "emo_attention_bwd_f32": [P] * 12 + [I, P, I, I, I, I, F, U, U, U, F, P],
+        "emo_attention_bwd_f32": _BWD_SIG,
+        "emo_attention_bwd_bf16": _BWD_SIG,
         "emo_attention_keep_mask": [P, I, I, I, U, U, U, P],
     },
 )
 
-# launches that carried a score bias, counted beside the launchers' own
-# counts (the launchers are the same with and without a bias)
-KERNEL.counts.update(bias_fwd=0, bias_bwd=0)
+# launches that carried a score bias, by direction and dtype, counted
+# beside the launchers' own counts (the launchers are the same with and
+# without a bias)
+KERNEL.counts.update(bias_fwd=0, bias_bwd=0, bias_fwd_bf16=0, bias_bwd_bf16=0)
+_BIAS_COUNT = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 MAX_D = 128
 _LAUNCHERS = {
     torch.float32: "emo_attention_fwd_f32",
     torch.bfloat16: "emo_attention_fwd_bf16",
+}
+_BWD_LAUNCHERS = {
+    torch.float32: "emo_attention_bwd_f32",
+    torch.bfloat16: "emo_attention_bwd_bf16",
 }
 _BIAS_KINDS = {torch.float32: 1, torch.bfloat16: 2}  # 0: no bias
 
@@ -90,6 +100,61 @@ def attention_plain(
         p = torch.where(dropout_mask, p * (1.0 / (1.0 - dropout_rate)), torch.zeros_like(p))
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
+
+
+def attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    d_out: torch.Tensor,
+    lens: torch.Tensor,
+    scale: float,
+    dropout_rate: float = 0.0,
+    bias: Optional[torch.Tensor] = None,
+    dropout_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """(dq, dk, dv, d bias) of `attention_plain`, with the rounding of
+    `attention_pallas.py::_bwd_kernel`: P float32, Pd rounded to v's dtype
+    before dV = Pd^T dO, dS * scale rounded to q's dtype before dQ, dK and
+    d bias, every product summed in float32.  `dropout_mask` is the keep
+    mask the forward applied (needed when `dropout_rate > 0`)."""
+    T = q.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    if bias is not None:
+        s = s + bias.float()
+    s = s * scale
+    m = torch.arange(T, device=q.device)[None, None, None, :] < lens.to(q.device)[:, None, None, None]
+    p = torch.softmax(torch.where(m, s, torch.full_like(s, NEG_INF)), dim=-1)
+    p = torch.where(m, p, torch.zeros_like(p))
+    inv = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0.0 else 1.0
+    pd = torch.where(dropout_mask, p * inv, torch.zeros_like(p)) if dropout_rate > 0.0 else p
+    do = d_out.to(v.dtype).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", pd.to(v.dtype).float(), do).to(v.dtype)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v.float())
+    if dropout_rate > 0.0:
+        dp = torch.where(dropout_mask, dp * inv, torch.zeros_like(dp))
+    dp = torch.where(m, dp, torch.zeros_like(dp))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds = (ds * scale).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()).to(k.dtype)
+    return dq, dk, dv, None if bias is None else ds.to(bias.dtype)
+
+
+class _PlainAttention(torch.autograd.Function):
+    """`attention_plain` forward, `attention_bwd_plain` backward (CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lens, scale, rate, bias, mask):
+        ctx.save_for_backward(q, k, v, lens, bias, mask)
+        ctx.scale, ctx.rate = scale, rate
+        return attention_plain(q, k, v, lens, scale, rate, bias=bias, dropout_mask=mask)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, lens, bias, mask = ctx.saved_tensors
+        dq, dk, dv, d_bias = attention_bwd_plain(q, k, v, d_out, lens, ctx.scale, ctx.rate, bias, mask)
+        return dq, dk, dv, None, None, None, d_bias, None
 
 
 def _dropout_args(rate: float, seed: int) -> Tuple[int, int, int, float]:
@@ -140,7 +205,7 @@ def _launch_fwd(q, k, v, lens32, scale, rate, seed, want_lse, bias=None):
             lens32.data_ptr(), out.data_ptr(), lse.data_ptr() if want_lse else None,
             *_bias_args(bias), B, T, H, D, float(scale), lo, hi, threshold, inv_keep, stream,
         )
-        KERNEL.counts["bias_fwd"] += bias is not None
+        KERNEL.counts["bias_fwd" + _BIAS_COUNT[q.dtype]] += bias is not None
     return out, lse
 
 
@@ -159,25 +224,23 @@ class _FusedAttention(torch.autograd.Function):
     def backward(ctx, d_out):
         q, k, v, out, lse, lens32, bias = ctx.saved_tensors
         B, T, H, D = q.shape
-        d_out = d_out.contiguous()
+        d_out = d_out.to(v.dtype).contiguous()
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         delta = torch.empty_like(lse)
         d_bias = None
         if bias is not None and ctx.needs_input_grad[7]:
-            d_bias = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
+            d_bias = torch.empty_like(bias)
         lo, hi, threshold, inv_keep = _dropout_args(ctx.rate, ctx.seed)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             KERNEL.launch(
-                "emo_attention_bwd_f32", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                _BWD_LAUNCHERS[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), d_out.data_ptr(), lens32.data_ptr(), lse.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
                 *_bias_args(bias), None if d_bias is None else d_bias.data_ptr(),
                 B, T, H, D, float(ctx.scale), lo, hi, threshold, inv_keep, stream,
             )
-            KERNEL.counts["bias_bwd"] += bias is not None
-        if d_bias is not None:
-            d_bias = d_bias.to(bias.dtype)
+            KERNEL.counts["bias_bwd" + _BIAS_COUNT[q.dtype]] += bias is not None
         return dq, dk, dv, None, None, None, None, d_bias
 
 
@@ -201,11 +264,16 @@ def fused_self_attention(
     `generator`; a CUDA tensor takes `seed` or draws one from `generator`
     (see `draw_seed`) and refuses a `dropout_mask`."""
     rate = 0.0 if deterministic else float(dropout_rate)
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, bias)
+    )
     if q.device.type == "cpu":
-        return attention_plain(
-            q, k, v, lens, scale, rate, bias=bias,
-            dropout_mask=dropout_mask, generator=generator,
-        )
+        if rate > 0.0 and dropout_mask is None:
+            B, T, H = q.shape[:3]
+            dropout_mask = torch.rand((B, H, T, T), generator=generator, device=q.device) >= rate
+        if needs_grad:
+            return _PlainAttention.apply(q, k, v, lens, float(scale), rate, bias, dropout_mask)
+        return attention_plain(q, k, v, lens, scale, rate, bias=bias, dropout_mask=dropout_mask)
     if q.device.type != "cuda":
         raise ValueError(f"attention kernel: unsupported device {q.device}")
     if rate > 0.0 and dropout_mask is not None:
@@ -229,11 +297,6 @@ def fused_self_attention(
         if bias.device != q.device:
             raise ValueError(f"attention kernel: bias on {bias.device}, q on {q.device}")
         bias = bias.contiguous()  # the shifted view of the rel-pos term is strided
-    needs_grad = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (q, k, v, bias)
-    )
-    if needs_grad and q.dtype != torch.float32:
-        raise TypeError(f"attention kernel: the backward takes float32 only, not {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"attention kernel: {name} must be contiguous")

@@ -14,8 +14,12 @@ add up in one vocabulary column.
 
 For a CUDA tensor `fused_ctc_head` launches `csrc/ctc_head.cu` and the
 (B, T, V) logits never exist; for a CPU tensor it takes `ctc_head_plain`,
-the dense product with `logsumexp` and `gather`.  The kernels take float32
-and a hidden size up to `MAX_H`; other dtypes raise `TypeError`.
+the dense product with `logsumexp` and `gather`.  The kernels take any
+hidden size and `eouts`, `w` and `b` of one dtype, float32 or bfloat16
+(others raise `TypeError`).  In bfloat16 they compute what the TPU kernel
+computes: the products of bf16 values accumulate in float32, `lse` and `xs`
+are float32, and the gradients are rounded to the inputs' dtype once, at
+the end; the plain version rounds at the same points.
 """
 
 from __future__ import annotations
@@ -26,21 +30,22 @@ import torch
 
 from emoasr_tpu_torch.ops.cuda_lib import I, L, P, CudaKernel
 
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNEL = CudaKernel(
     "ctc_head.cu",
     {
-        "emo_ctc_head_fwd_f32": [P] * 6 + [I] * 5 + [L, L, P],
-        "emo_ctc_head_grad_e_f32": [P] * 8 + [I] * 5 + [L, L, P],
-        "emo_ctc_head_grad_w_f32": [P] * 9 + [I] * 5 + [L, L, P],
+        **{f"emo_ctc_head_fwd_{s}": [P] * 6 + [I] * 5 + [L, L, P] for s in _SUFFIX.values()},
+        **{f"emo_ctc_head_grad_e_{s}": [P] * 8 + [I] * 5 + [L, L, P] for s in _SUFFIX.values()},
+        **{f"emo_ctc_head_grad_w_{s}": [P] * 9 + [I] * 5 + [L, L, P] for s in _SUFFIX.values()},
     },
 )
-
-MAX_H = 256  # the kernels keep an (H, 64) tile of e and of w in shared memory
 
 
 def ctc_head_plain(eouts, w, b, z) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense logits, `logsumexp` over V, `gather` of the path columns; a
-    label outside [0, V) selects nothing (0), as a one-hot of it would."""
+    label outside [0, V) selects nothing (0), as a one-hot of it would.
+    The logits are float32 products of the inputs' values; autograd rounds
+    each gradient to its input's dtype once, after its float32 sum."""
     logits = eouts.float() @ w.float() + b.float()
     V = logits.shape[-1]
     lse = torch.logsumexp(logits, dim=-1)
@@ -61,7 +66,7 @@ class _FusedCTCHead(torch.autograd.Function):
         with torch.cuda.device(eouts.device):
             stream = torch.cuda.current_stream(eouts.device).cuda_stream
             KERNEL.launch(
-                "emo_ctc_head_fwd_f32", eouts.data_ptr(), w.data_ptr(), b.data_ptr(),
+                f"emo_ctc_head_fwd_{_SUFFIX[eouts.dtype]}", eouts.data_ptr(), w.data_ptr(), b.data_ptr(),
                 z32.data_ptr(), lse.data_ptr(), xs.data_ptr(), B, T, H, V, S, *w.stride(), stream,
             )
         ctx.save_for_backward(eouts, w, b, z32, lse)
@@ -75,18 +80,19 @@ class _FusedCTCHead(torch.autograd.Function):
         g_lse = g_lse.to(torch.float32).contiguous()
         g_xs = g_xs.to(torch.float32).contiguous()
         g_e = g_w = g_b = None
+        sfx = _SUFFIX[eouts.dtype]
         with torch.cuda.device(eouts.device):
             stream = torch.cuda.current_stream(eouts.device).cuda_stream
             common = (eouts.data_ptr(), w.data_ptr(), b.data_ptr(), z32.data_ptr(),
                       lse.data_ptr(), g_lse.data_ptr(), g_xs.data_ptr())
             if ctx.needs_input_grad[0]:
                 g_e = torch.empty_like(eouts)
-                KERNEL.launch("emo_ctc_head_grad_e_f32", *common, g_e.data_ptr(),
+                KERNEL.launch(f"emo_ctc_head_grad_e_{sfx}", *common, g_e.data_ptr(),
                               B, T, H, V, S, *w.stride(), stream)
             if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
                 g_w = torch.empty_strided(w.shape, w.stride(), dtype=w.dtype, device=w.device)
                 g_b = torch.empty_like(b)
-                KERNEL.launch("emo_ctc_head_grad_w_f32", *common, g_w.data_ptr(), g_b.data_ptr(),
+                KERNEL.launch(f"emo_ctc_head_grad_w_{sfx}", *common, g_w.data_ptr(), g_b.data_ptr(),
                               B, T, H, V, S, *w.stride(), stream)
         return g_e, g_w, g_b, None
 
@@ -97,9 +103,11 @@ def fused_ctc_head(eouts, w, b, z) -> Tuple[torch.Tensor, torch.Tensor]:
         return ctc_head_plain(eouts, w, b, z)
     if eouts.device.type != "cuda":
         raise ValueError(f"ctc head kernel: unsupported device {eouts.device}")
+    if eouts.dtype not in _SUFFIX:
+        raise TypeError(f"ctc head kernel takes float32 or bfloat16, not {eouts.dtype}")
     for name, t in (("eouts", eouts), ("w", w), ("b", b)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"ctc head kernel takes float32, {name} is {t.dtype}")
+        if t.dtype != eouts.dtype:
+            raise TypeError(f"ctc head kernel: {name} is {t.dtype}, eouts {eouts.dtype}; one dtype expected")
         if t.device != eouts.device:
             raise ValueError(f"ctc head kernel: {name} on {t.device}, eouts on {eouts.device}")
     if eouts.dim() != 3 or w.dim() != 2 or b.dim() != 1 or z.dim() != 2:
@@ -111,8 +119,6 @@ def fused_ctc_head(eouts, w, b, z) -> Tuple[torch.Tensor, torch.Tensor]:
             f"ctc head kernel: shapes disagree: eouts {tuple(eouts.shape)}, w {tuple(w.shape)}, "
             f"b {tuple(b.shape)}, z {tuple(z.shape)}"
         )
-    if H > MAX_H:
-        raise ValueError(f"ctc head kernel: hidden size {H} > {MAX_H}")
     if min(B, T, V, S) < 1:
         raise ValueError("ctc head kernel: empty input")
     if z.is_floating_point():

@@ -11,9 +11,10 @@ as they are.
 
 `lstm_scan` dispatches as the JAX package does on a TPU: a CUDA tensor
 with at least `_PALLAS_MIN_STEPS` steps goes to the fused recurrence
-kernel (`ops/lstm_scan.py`, K8: one launch forward, one backward); shorter
-sequences, the decoders' one-token steps among them, and CPU tensors take
-the plain scan, one `addmm` and the gate math a step.
+kernel (`ops/lstm_scan.py`, K8: one launch forward, one backward, in
+float32 or bfloat16); shorter sequences, the decoders' one-token steps
+among them, and CPU tensors take the plain scan, one product and the gate
+math a step, in the activations' dtype as the JAX scan computes.
 
 The bidirectional layer reverses each utterance's valid prefix (in place of
 `pack_padded_sequence`) and zeroes outputs past each length, as
@@ -41,7 +42,7 @@ def lstm_scan_plain(
     w_t = w_hh.t()
     ys = []
     for t in range(x_proj.shape[1]):
-        gates = torch.addmm(x_proj[:, t], h, w_t)  # (B, 4H)
+        gates = x_proj[:, t] + h @ w_t  # (B, 4H); two roundings in bf16, as the JAX scan
         i, f, g, o = gates.chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
@@ -87,8 +88,8 @@ def _lstm_params(module: nn.Module, input_size: int, hidden_size: int, suffix: s
 def _run(module: nn.Module, suffix: str, xs: torch.Tensor, state):
     H = module.hidden_size
     w_ih, w_hh = getattr(module, f"weight_ih{suffix}"), getattr(module, f"weight_hh{suffix}")
-    b = getattr(module, f"bias_ih{suffix}") + getattr(module, f"bias_hh{suffix}")
-    x_proj = F.linear(xs, w_ih, b)
+    # x W_ih^T + b_ih + b_hh, rounded after each term in bf16 as in the JAX package
+    x_proj = xs @ w_ih.t() + getattr(module, f"bias_ih{suffix}") + getattr(module, f"bias_hh{suffix}")
     if state is None:
         zeros = xs.new_zeros((xs.shape[0], H))
         state = (zeros, zeros)

@@ -10,10 +10,15 @@ backward is the exact reverse recurrence from them and returns d x_proj,
 d w_hh (summed in float32 over time and batch in a fixed order), d h0 and
 d c0.
 
-For CUDA tensors `lstm_scan_fused` launches `csrc/lstm_scan.cu`; for CPU
-tensors both directions take the plain versions `lstm_fwd_plain` and
+For CUDA tensors `lstm_scan_fused` launches `csrc/lstm_scan.cu`; for
+CPU tensors both directions take the plain versions `lstm_fwd_plain` and
 `lstm_bwd_plain`, which do the kernels' arithmetic a step at a time.  The
-kernels take float32 (other dtypes raise `TypeError`) and H <= `MAX_H`.
+kernels take H <= `MAX_H` and an `x_proj` of float32 or bfloat16 (others
+raise `TypeError`), which is the storage dtype: as in the TPU kernel,
+h0 and c0 are cast to it, w_hh and the carried h and c are float32, and
+ys, h_T, c_T and the residuals `gates` and `hcprev` are stored rounded to
+it; the backward recomputes from those rounded residuals, sums d w_hh in
+float32 from the unrounded d pre and rounds d x_proj, d h0 and d c0.
 """
 
 from __future__ import annotations
@@ -24,11 +29,12 @@ import torch
 
 from emoasr_tpu_torch.ops.cuda_lib import I, P, CudaKernel
 
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNEL = CudaKernel(
     "lstm_scan.cu",
     {
-        "emo_lstm_fwd_f32": [P] * 10 + [I] * 3 + [P],
-        "emo_lstm_bwd_f32": [P] * 11 + [I] * 3 + [P],
+        **{f"emo_lstm_fwd_{s}": [P] * 11 + [I] * 3 + [P] for s in _SUFFIX.values()},
+        **{f"emo_lstm_bwd_{s}": [P] * 12 + [I] * 3 + [P] for s in _SUFFIX.values()},
     },
 )
 
@@ -36,43 +42,50 @@ MAX_H = 512  # a warp keeps one gate column of w_hh (4H values) in registers
 
 
 def lstm_fwd_plain(x_proj, w_hh, h0, c0):
-    """-> ys (B, T, H), h_T, c_T, gates (T, B, 4H), hcprev (T, B, 2H)."""
-    h, c = h0, c0
-    w_t = w_hh.t()
+    """-> ys (B, T, H), h_T, c_T, gates (T, B, 4H), hcprev (T, B, 2H), each
+    stored in x_proj's dtype; w_hh, h and c are float32 (see the module
+    note)."""
+    dt = x_proj.dtype
+    h, c = h0.to(dt).float(), c0.to(dt).float()
+    w_t = w_hh.float().t()
     ys, gates, hcprev = [], [], []
     for t in range(x_proj.shape[1]):
-        hcprev.append(torch.cat([h, c], dim=-1))
-        pre = torch.addmm(x_proj[:, t], h, w_t)
+        hcprev.append(torch.cat([h, c], dim=-1).to(dt))
+        pre = torch.addmm(x_proj[:, t].float(), h, w_t)
         i, f, g, o = pre.chunk(4, dim=-1)
         i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
-        gates.append(torch.cat([i, f, g, o], dim=-1))
+        gates.append(torch.cat([i, f, g, o], dim=-1).to(dt))
         c = f * c + i * g
         h = o * torch.tanh(c)
-        ys.append(h)
-    return torch.stack(ys, dim=1), h, c, torch.stack(gates), torch.stack(hcprev)
+        ys.append(h.to(dt))
+    return torch.stack(ys, dim=1), h.to(dt), c.to(dt), torch.stack(gates), torch.stack(hcprev)
 
 
 def lstm_bwd_plain(gates, hcprev, dys, dhT, dcT, w_hh):
-    """The reverse recurrence (`_bwd_kernel`'s arithmetic) -> d x_proj
-    (B, T, 4H), d w_hh (4H, H) float32, d h0, d c0."""
+    """The reverse recurrence (`_bwd_kernel`'s arithmetic) from the stored
+    residuals -> d x_proj (B, T, 4H) in the residuals' dtype, d w_hh
+    (4H, H) float32, d h0, d c0 in the residuals' dtype."""
     T, B, H4 = gates.shape
     H = H4 // 4
-    dh_c, dc_c = dhT, dcT
-    dxp = torch.empty((B, T, H4), dtype=gates.dtype, device=gates.device)
+    dt = gates.dtype
+    dh_c, dc_c = dhT.to(dt).float(), dcT.to(dt).float()
+    w = w_hh.float()
+    dxp = torch.empty((B, T, H4), dtype=dt, device=gates.device)
     dw = torch.zeros((H4, H), dtype=torch.float32, device=gates.device)
     for t in range(T - 1, -1, -1):
-        gi, gf, gg, go = gates[t].chunk(4, dim=-1)
-        hprev, cprev = hcprev[t, :, :H], hcprev[t, :, H:]
+        gi, gf, gg, go = gates[t].float().chunk(4, dim=-1)
+        hc = hcprev[t].float()
+        hprev, cprev = hc[:, :H], hc[:, H:]
         tc = torch.tanh(gf * cprev + gi * gg)
-        dh = dys[:, t] + dh_c
+        dh = dys[:, t].to(dt).float() + dh_c
         dc = dc_c + dh * go * (1.0 - tc * tc)
         dg = torch.cat([dc * gg * gi * (1.0 - gi), dc * cprev * gf * (1.0 - gf),
                         dc * gi * (1.0 - gg * gg), dh * tc * go * (1.0 - go)], dim=-1)
-        dxp[:, t] = dg
-        dw += dg.t().float() @ hprev.float()
-        dh_c = dg @ w_hh
+        dxp[:, t] = dg.to(dt)
+        dw += dg.t() @ hprev
+        dh_c = dg @ w
         dc_c = dc * gf
-    return dxp, dw, dh_c, dc_c
+    return dxp, dw, dh_c.to(dt), dc_c.to(dt)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -86,45 +99,49 @@ class _LSTMScan(torch.autograd.Function):
             ys, hT, cT, gates, hcprev = lstm_fwd_plain(x_proj, w_hh, h0, c0)
         else:
             B, T, H4 = x_proj.shape
-            H, dev = H4 // 4, x_proj.device
-            ys = torch.empty((B, T, H), dtype=torch.float32, device=dev)
-            gates = torch.empty((T, B, H4), dtype=torch.float32, device=dev)
-            hcprev = torch.empty((T, B, 2 * H), dtype=torch.float32, device=dev)
-            hT, cT = (torch.empty((B, H), dtype=torch.float32, device=dev) for _ in range(2))
+            H, dev, dt = H4 // 4, x_proj.device, x_proj.dtype
+            ys = torch.empty((B, T, H), dtype=dt, device=dev)
+            gates = torch.empty((T, B, H4), dtype=dt, device=dev)
+            hcprev = torch.empty((T, B, 2 * H), dtype=dt, device=dev)
+            hT, cT = (torch.empty((B, H), dtype=dt, device=dev) for _ in range(2))
+            hbuf = torch.empty((2, B, H), dtype=torch.float32, device=dev)  # the f32 h carry
             bar = torch.zeros(1, dtype=torch.int32, device=dev)  # grid barrier counter
+            h0s, c0s = h0.to(dt).contiguous(), c0.to(dt).contiguous()
             with torch.cuda.device(dev):
                 KERNEL.launch(
-                    "emo_lstm_fwd_f32", x_proj.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-                    ys.data_ptr(), gates.data_ptr(), hcprev.data_ptr(), hT.data_ptr(), cT.data_ptr(),
-                    bar.data_ptr(), B, T, H, _stream(x_proj),
+                    f"emo_lstm_fwd_{_SUFFIX[dt]}", x_proj.data_ptr(), w_hh.data_ptr(), h0s.data_ptr(),
+                    c0s.data_ptr(), ys.data_ptr(), gates.data_ptr(), hcprev.data_ptr(), hT.data_ptr(),
+                    cT.data_ptr(), hbuf.data_ptr(), bar.data_ptr(), B, T, H, _stream(x_proj),
                 )
         ctx.save_for_backward(w_hh, gates, hcprev)
+        ctx.dtypes = (h0.dtype, c0.dtype)
         return ys, hT, cT
 
     @staticmethod
     def backward(ctx, dys, dhT, dcT):
         w_hh, gates, hcprev = ctx.saved_tensors
         T, B, H4 = gates.shape
-        H = H4 // 4
-        dys = torch.zeros((B, T, H), dtype=gates.dtype, device=gates.device) if dys is None else dys
-        dhT = torch.zeros((B, H), dtype=gates.dtype, device=gates.device) if dhT is None else dhT
-        dcT = torch.zeros((B, H), dtype=gates.dtype, device=gates.device) if dcT is None else dcT
-        if gates.device.type == "cpu":
+        H, dev, dt = H4 // 4, gates.device, gates.dtype
+        dys = torch.zeros((B, T, H), dtype=dt, device=dev) if dys is None else dys
+        dhT = torch.zeros((B, H), dtype=dt, device=dev) if dhT is None else dhT
+        dcT = torch.zeros((B, H), dtype=dt, device=dev) if dcT is None else dcT
+        if dev.type == "cpu":
             dxp, dw, dh0, dc0 = lstm_bwd_plain(gates, hcprev, dys, dhT, dcT, w_hh)
-            return dxp, dw.to(w_hh.dtype), dh0, dc0
-        dev = gates.device
-        dys, dhT, dcT = (g.to(torch.float32).contiguous() for g in (dys, dhT, dcT))
-        dxp = torch.empty((B, T, H4), dtype=torch.float32, device=dev)
-        dw = torch.empty((H4, H), dtype=torch.float32, device=dev)
-        dh0, dc0 = (torch.empty((B, H), dtype=torch.float32, device=dev) for _ in range(2))
-        bar = torch.zeros(1, dtype=torch.int32, device=dev)
-        with torch.cuda.device(dev):
-            KERNEL.launch(
-                "emo_lstm_bwd_f32", gates.data_ptr(), hcprev.data_ptr(), dys.data_ptr(), dhT.data_ptr(),
-                dcT.data_ptr(), w_hh.data_ptr(), dxp.data_ptr(), dw.data_ptr(), dh0.data_ptr(),
-                dc0.data_ptr(), bar.data_ptr(), B, T, H, _stream(gates),
-            )
-        return dxp, dw, dh0, dc0
+        else:
+            dys, dhT, dcT = (g.to(dt).contiguous() for g in (dys, dhT, dcT))
+            dxp = torch.empty((B, T, H4), dtype=dt, device=dev)
+            dw = torch.empty((H4, H), dtype=torch.float32, device=dev)
+            dh0, dc0 = (torch.empty((B, H), dtype=dt, device=dev) for _ in range(2))
+            dpre = torch.empty((2, B, H4), dtype=torch.float32, device=dev)  # f32 d pre, shared
+            bar = torch.zeros(1, dtype=torch.int32, device=dev)
+            with torch.cuda.device(dev):
+                KERNEL.launch(
+                    f"emo_lstm_bwd_{_SUFFIX[dt]}", gates.data_ptr(), hcprev.data_ptr(), dys.data_ptr(),
+                    dhT.data_ptr(), dcT.data_ptr(), w_hh.float().contiguous().data_ptr(), dxp.data_ptr(),
+                    dw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), dpre.data_ptr(), bar.data_ptr(),
+                    B, T, H, _stream(gates),
+                )
+        return dxp, dw.to(w_hh.dtype), dh0.to(ctx.dtypes[0]), dc0.to(ctx.dtypes[1])
 
 
 def lstm_scan_fused(
@@ -132,9 +149,11 @@ def lstm_scan_fused(
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """(ys (B, T, H), (h_T, c_T)) by one launch; see the module note."""
     if x_proj.device.type == "cuda":
+        if x_proj.dtype not in _SUFFIX:
+            raise TypeError(f"lstm kernel takes float32 or bfloat16, not {x_proj.dtype}")
         for name, t in (("x_proj", x_proj), ("w_hh", w_hh), ("h0", h0), ("c0", c0)):
-            if t.dtype != torch.float32:
-                raise TypeError(f"lstm kernel takes float32, {name} is {t.dtype}")
+            if not t.is_floating_point():
+                raise TypeError(f"lstm kernel: {name} is {t.dtype}")
             if t.device != x_proj.device:
                 raise ValueError(f"lstm kernel: {name} on {t.device}, x_proj on {x_proj.device}")
         if x_proj.dim() != 3 or x_proj.shape[-1] % 4:
@@ -148,7 +167,8 @@ def lstm_scan_fused(
             )
         if not 1 <= H <= MAX_H or min(B, T) < 1:
             raise ValueError(f"lstm kernel: B={B}, T={T}, H={H}; needs B, T >= 1 and 1 <= H <= {MAX_H}")
-        x_proj, w_hh, h0, c0 = (t.contiguous() for t in (x_proj, w_hh, h0, c0))
+        x_proj, h0, c0 = (t.contiguous() for t in (x_proj, h0, c0))
+        w_hh = w_hh.float().contiguous()
     elif x_proj.device.type != "cpu":
         raise ValueError(f"lstm kernel: unsupported device {x_proj.device}")
     ys, hT, cT = _LSTMScan.apply(x_proj, w_hh, h0, c0)

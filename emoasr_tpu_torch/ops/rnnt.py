@@ -28,6 +28,17 @@ recomputes each chunk and applies the analytic gradient of log-softmax and
 gather, so no V-wide residual is kept.  The fused kernel (`pallas` mode,
 ops/rnnt_joint.py) uses the same backward.
 
+In bfloat16 the chunked route computes in the activations' dtype, as the
+JAX package's does: z, the logits (each product summed in float32, then
+rounded, then the bias added) and the blank and label logits are bf16, the
+logsumexp float32.  Its analytic backward rounds where the VJP of that JAX
+function rounds: the float32 cotangents of the blank and label logits and
+of the logits (g_lse p) are rounded to bf16; d z is the bf16 sum of three
+bf16 products (the logits' w^T, the blank column's, the label rows');
+tanh's VJP is (d z + d z z)(1 - z) in bf16; every sum over cells
+accumulates in float32 and is rounded once; the gradients of h_dec, w and
+b add up over the time chunks in bf16.
+
 `rnnt_forced_align` waits for the distillation slice (ROADMAP.md §1,
 slice 7).
 """
@@ -124,13 +135,17 @@ def _label_rows(w_out: torch.Tensor, b_out: torch.Tensor, labels: torch.Tensor):
 
 def joint_chunk(h_enc_c, h_dec, w_out, b_out, w_lab, b_lab, ok, blank_id: int):
     """One time chunk: (B, c, J) x (B, U+1, J) -> z (B, c, U+1, J), logits
-    (B, c, U+1, V), lse, lp_blank (B, c, U+1) and lp_label (B, c, U)."""
+    (B, c, U+1, V), lse, lp_blank (B, c, U+1) and lp_label (B, c, U).  z is
+    in the activations' dtype, the logits in w_out's (float32 weights take
+    z's values exactly: the fused kernel's arithmetic); lse and the two
+    log-probabilities are float32."""
     U = w_lab.shape[1]
     z = torch.tanh(h_enc_c[:, :, None, :] + h_dec[:, None, :, :])
-    logits = torch.matmul(z, w_out) + b_out
-    lse = torch.logsumexp(logits, dim=-1)
-    lpb = logits[..., blank_id] - lse
-    lab_logit = torch.einsum("bcuj,buj->bcu", z[:, :, :U], w_lab) + b_lab[:, None, :]
+    zw = z.to(w_out.dtype)
+    logits = torch.matmul(zw, w_out) + b_out
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    lpb = logits[..., blank_id].float() - lse
+    lab_logit = (torch.einsum("bcuj,buj->bcu", zw[:, :, :U], w_lab) + b_lab[:, None, :]).float()
     lpl = torch.where(ok[:, None, :], lab_logit, torch.zeros_like(lab_logit)) - lse[:, :, :U]
     return z, logits, lse, lpb, lpl
 
@@ -156,35 +171,53 @@ def joint_gather_plain(h_enc, h_dec, w_out, b_out, labels, blank_id: int = 0,
 def joint_gather_backward(h_enc, h_dec, w_out, b_out, labels, g_blank, g_label, blank_id: int = 0,
                           time_chunk: int = TIME_CHUNK):
     """Gradients of (lp_blank, lp_label) with cotangents (g_blank, g_label)
-    to (h_enc, h_dec, w_out, b_out), a recomputed time chunk at a time.
+    to (h_enc, h_dec, w_out, b_out), a recomputed time chunk at a time, in
+    the chunked route's dtype with its rounding (see the module note).
 
-    With p = softmax(logits): d logits = g_blank onehot(blank) + g_label
-    onehot(label) - (g_blank + g_label) p; d z = d logits w^T; d pre = d z
-    (1 - z^2), summed over u for h_enc and over t for h_dec."""
+    With p = softmax(logits): the logits take -(g_blank + g_label) p, the
+    blank logit g_blank and the label logit g_label; d z = their products
+    with w^T, the blank column and the label rows; d pre = d z (1 - z^2),
+    summed over u for h_enc and over t for h_dec.  The label rows' gradient
+    goes back to its vocabulary columns by a one-hot product (a fixed sum
+    order)."""
     B, T, J = h_enc.shape
     U1, V = h_dec.shape[1], w_out.shape[1]
+    U = U1 - 1
     w_lab, b_lab, ok = _label_rows(w_out, b_out, labels)
     g_blank = g_blank.float()
     g_label = torch.where(ok[:, None, :], g_label.float(), torch.zeros_like(g_label, dtype=torch.float32))
-    lab_col = torch.cat([torch.where(ok, labels.long(), torch.zeros_like(labels, dtype=torch.long)),
-                         torch.zeros((B, 1), dtype=torch.long, device=labels.device)], dim=1)  # (B, U+1)
+    dt = w_out.dtype
+    gpb, gpl = g_blank.to(dt), g_label.to(dt)  # cotangents of the rounded blank and label logits
+    w_blank = w_out[:, blank_id]
     d_enc = torch.empty_like(h_enc)
     d_dec = torch.zeros_like(h_dec)
     d_w = torch.zeros_like(w_out)
     d_b = torch.zeros_like(b_out)
+    d_w_blank, d_b_blank = torch.zeros_like(w_blank), torch.zeros_like(b_out[blank_id])
+    d_w_lab, d_b_lab = torch.zeros_like(w_lab), torch.zeros_like(b_lab)
     for s, e in _chunks(T, time_chunk):
         z, logits, lse, _, _ = joint_chunk(h_enc[:, s:e], h_dec, w_out, b_out, w_lab, b_lab, ok, blank_id)
-        gb = g_blank[:, s:e]
-        gl = torch.cat([g_label[:, s:e], torch.zeros_like(gb[..., :1])], dim=2)  # (B, c, U+1)
-        d_logits = torch.exp(logits - lse[..., None]).mul_(-(gb + gl)[..., None])
-        d_logits[..., blank_id] += gb
-        d_logits.scatter_add_(3, lab_col[:, None, :, None].expand(B, e - s, U1, 1), gl[..., None])
-        dz = torch.matmul(d_logits, w_out.t())
-        d_w += torch.matmul(z.reshape(-1, J).t(), d_logits.reshape(-1, V))
-        d_b += d_logits.sum(dim=(0, 1, 2))
-        d_pre = dz.mul_(1.0 - z * z)
+        gb, gl = gpb[:, s:e], gpl[:, s:e]
+        g_lse = -(g_blank[:, s:e] + torch.cat([g_label[:, s:e], torch.zeros_like(g_blank[:, s:e, :1])], dim=2))
+        g_logits = torch.exp(logits.float() - lse[..., None]).mul_(g_lse[..., None]).to(dt)
+        dz = torch.matmul(g_logits, w_out.t()) + gb[..., None] * w_blank
+        dz[:, :, :U] += gl[..., None] * w_lab[:, None]
+        d_pre = (dz + dz * z) * (1.0 - z)
         d_enc[:, s:e] = d_pre.sum(dim=2)
         d_dec += d_pre.sum(dim=1)
+        zw = z.to(dt)
+        d_w += torch.matmul(zw.reshape(-1, J).t(), g_logits.reshape(-1, V))
+        d_b += g_logits.sum(dim=(0, 1, 2))
+        d_w_blank += torch.einsum("bcuj,bcu->j", zw, gb)
+        d_b_blank += gb.sum()
+        d_w_lab += torch.einsum("bcuj,bcu->buj", zw[:, :, :U], gl)
+        d_b_lab += gl.sum(dim=1)
+    d_w[:, blank_id] += d_w_blank
+    d_b[blank_id] += d_b_blank
+    onehot = torch.nn.functional.one_hot(torch.where(ok, labels.long(), torch.zeros_like(labels, dtype=torch.long)),
+                                         V).reshape(-1, V).float()  # (B U, V)
+    d_w += (d_w_lab.reshape(-1, J).float().t() @ onehot).to(dt)
+    d_b += (d_b_lab.reshape(1, -1).float() @ onehot)[0].to(dt)
     return d_enc, d_dec, d_w, d_b
 
 

@@ -9,13 +9,16 @@ int; returns `lp_blank` (B, T, U+1) and `lp_label` (B, T, U), float32,
 without ever holding the (B, T, U+1, V) joint output.
 
 For a CUDA tensor the forward launches `csrc/rnnt_joint.cu`; for a CPU
-tensor it takes `joint_gather_plain` (ops/rnnt.py: the dense product a
-time chunk at a time).  The backward is the chunked plain path's on both
-(`ops/rnnt.py::joint_gather_backward`, recomputing each chunk), as the JAX
-custom VJP hands its backward to `rnnt_gathered_from_joint`: those matrix
-products are outside the TPU kernel.  The kernel takes float32 (other
-dtypes raise `TypeError`) and J <= `MAX_J`.  A label outside [0, V)
-selects nothing (logit 0).
+tensor it takes `rnnt_joint_plain` (the dense product a time chunk at a
+time).  The backward is the chunked plain path's on both
+(`ops/rnnt.py::joint_gather_backward`, recomputing each chunk, in the
+inputs' dtype), as the JAX custom VJP hands its backward to
+`rnnt_gathered_from_joint`: those matrix products are outside the TPU
+kernel.  The kernel takes float32 or bfloat16 activations (others raise
+`TypeError`) and J <= `MAX_J`.  As the TPU kernel does, it casts h_dec and
+w to h_enc's dtype, forms z = tanh(h_enc + h_dec) in that dtype, sums the
+products z w in float32, adds the float32 bias and returns float32
+log-probabilities.  A label outside [0, V) selects nothing (logit 0).
 """
 
 from __future__ import annotations
@@ -27,29 +30,46 @@ import torch
 from emoasr_tpu_torch.ops.cuda_lib import I, L, P, CudaKernel
 from emoasr_tpu_torch.ops.rnnt import TIME_CHUNK, zero_cotangents, joint_gather_backward, joint_gather_plain
 
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNEL = CudaKernel(
     "rnnt_joint.cu",
-    {"emo_rnnt_joint_f32": [P] * 7 + [I] * 6 + [L, L, P]},
+    {f"emo_rnnt_joint_{s}": [P] * 7 + [I] * 6 + [L, L, P] for s in _SUFFIX.values()},
 )
 
 MAX_J = 768  # the kernel keeps the z of 64 cells, (J, 64) floats, in shared memory
+
+
+def rnnt_joint_plain(h_enc, h_dec, w_out, b_out, labels, blank_id: int = 0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's arithmetic, a time chunk at a time: h_dec and w cast to
+    h_enc's dtype, z in that dtype, float32 logits of z's and w's values
+    plus the float32 bias, float32 lse and log-probabilities."""
+    dt = h_enc.dtype
+    # one layout of w, so that its (J, V) and `.t()` forms give the same bits
+    w = w_out.to(dt).float().contiguous()
+    return joint_gather_plain(h_enc, h_dec.to(dt), w, b_out.float(), labels, blank_id)
 
 
 class _FusedJointGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h_enc, h_dec, w_out, b_out, labels, blank_id):
         if h_enc.device.type == "cpu":
-            lpb, lpl = joint_gather_plain(h_enc, h_dec, w_out, b_out, labels, blank_id)
+            lpb, lpl = rnnt_joint_plain(h_enc, h_dec, w_out, b_out, labels, blank_id)
         else:
             B, T, J = h_enc.shape
             U1, V = h_dec.shape[1], w_out.shape[1]
+            dt = h_enc.dtype
+            hd, w = h_dec.to(dt).contiguous(), w_out.to(dt)
+            if w.stride() not in ((V, 1), (1, J)):
+                w = w.contiguous()
+            bias = b_out.float().contiguous()
             lpb = torch.empty((B, T, U1), dtype=torch.float32, device=h_enc.device)
             lpl = torch.empty((B, T, U1 - 1), dtype=torch.float32, device=h_enc.device)
             with torch.cuda.device(h_enc.device):
                 KERNEL.launch(
-                    "emo_rnnt_joint_f32", h_enc.data_ptr(), h_dec.data_ptr(), w_out.data_ptr(),
-                    b_out.data_ptr(), labels.data_ptr(), lpb.data_ptr(), lpl.data_ptr(),
-                    B, T, U1, J, V, blank_id, *w_out.stride(),
+                    f"emo_rnnt_joint_{_SUFFIX[dt]}", h_enc.data_ptr(), hd.data_ptr(), w.data_ptr(),
+                    bias.data_ptr(), labels.data_ptr(), lpb.data_ptr(), lpl.data_ptr(),
+                    B, T, U1, J, V, blank_id, *w.stride(),
                     torch.cuda.current_stream(h_enc.device).cuda_stream,
                 )
         ctx.save_for_backward(h_enc, h_dec, w_out, b_out, labels)
@@ -90,15 +110,14 @@ def fused_joint_gather(
         return _FusedJointGather.apply(h_enc, h_dec, w_out, b_out, labels, blank_id)
     if h_enc.device.type != "cuda":
         raise ValueError(f"rnnt joint kernel: unsupported device {h_enc.device}")
+    if h_enc.dtype not in _SUFFIX:
+        raise TypeError(f"rnnt joint kernel takes float32 or bfloat16 activations, not {h_enc.dtype}")
     for name, t in (("h_enc", h_enc), ("h_dec", h_dec), ("w", w_out), ("b", b_out)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"rnnt joint kernel takes float32, {name} is {t.dtype}")
+        if not t.is_floating_point():
+            raise TypeError(f"rnnt joint kernel: {name} is {t.dtype}")
         if t.device != h_enc.device:
             raise ValueError(f"rnnt joint kernel: {name} on {t.device}, h_enc on {h_enc.device}")
     if J > MAX_J or min(B, T, U1, J, V) < 1 or not 0 <= blank_id < V:
         raise ValueError(f"rnnt joint kernel: B={B}, T={T}, U+1={U1}, J={J} (max {MAX_J}), V={V}, blank {blank_id}")
-    if w_out.stride() not in ((V, 1), (1, J)):
-        w_out = w_out.contiguous()
     labels32 = labels.to(device=h_enc.device, dtype=torch.int32).contiguous()
-    return _FusedJointGather.apply(h_enc.contiguous(), h_dec.contiguous(), w_out, b_out.contiguous(),
-                                   labels32, blank_id)
+    return _FusedJointGather.apply(h_enc.contiguous(), h_dec, w_out, b_out, labels32, blank_id)

@@ -7,13 +7,16 @@ greedy-WER validation, `model.ep{N}`/`optim.ep{N}` checkpointing,
 
 Usage: `python -m emoasr_tpu_torch.train.loop -conf exp.yaml [--resume] [--cpu]`
 
-It runs on the GPU unless `--cpu` is given.  A profiler switch and
+It runs on the GPU unless `--cpu` is given.  The yaml's `compute_dtype`
+picks the precision (`bfloat16`: the forward in bf16 on float32 masters,
+`train/step.py`); checkpoints hold the float32 masters either way.  A profiler switch and
 multi-device training are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import logging
 import os
 import queue
@@ -34,6 +37,7 @@ from emoasr_tpu_torch.train.step import TrainState, make_train_step, preprocess
 from emoasr_tpu_torch.utils.device import resolve_device, set_matmul_precision
 from emoasr_tpu_torch.utils.log import setup_logging
 from emoasr_tpu_torch.utils.paths import get_log_save_paths, get_resume_paths
+from emoasr_tpu_torch.utils.precision import cast_floating, dtype_of, is_half
 from emoasr_tpu_torch.utils.vocab import Vocab
 
 
@@ -110,16 +114,19 @@ def prefetch_to_device(batch_iter, device: torch.device, depth: int = 3) -> Iter
 @torch.no_grad()
 def greedy_valid_wer(cfg: ExpConfig, model: ASR, dataset: ASRDataset, vocab=None) -> float:
     """Per-epoch greedy WER on the dev set (train_asr.py:146-184); the
-    model is switched to `eval()` and back."""
+    model is switched to `eval()` and back.  Under a half `compute_dtype`
+    a cast copy decodes, as the JAX package's validation decodes the cast
+    variables."""
     device = next(model.parameters()).device
     was_training = model.training
     model.eval()
+    decoder = cast_floating(copy.deepcopy(model), dtype_of(cfg)) if is_half(cfg) else model
     hyps_all, refs_all = [], []
     try:
         for batch in dataset.batches():
-            xs = torch.from_numpy(batch["xs"]).to(device)
+            xs = torch.from_numpy(batch["xs"]).to(device, dtype_of(cfg))
             xlens = torch.from_numpy(batch["xlens"]).to(device, torch.int64)
-            hyps, hyp_lens, _, _ = model.decode_greedy(*preprocess(cfg, xs, xlens))
+            hyps, hyp_lens, _, _ = decoder.decode_greedy(*preprocess(cfg, xs, xlens))
             hyps, hyp_lens = hyps.cpu().numpy(), hyp_lens.cpu().numpy()
             for b in range(len(batch["utt_ids"])):
                 hyp_ids = hyps[b, : hyp_lens[b]].tolist()

@@ -9,6 +9,12 @@ keeping the host path IO-only.
 the micro-step counter, the cumulative epdecay factor, the count of skipped
 micro-steps, and the open gradient accumulation.  The model's parameters
 and the optimizer's moments are updated in place.
+
+Under a half `compute_dtype` the step follows the JAX package's policy
+(`utils/precision.py`): SpecAugment runs on the float32 features, then the
+batch is cast; the forward runs on a bf16 copy of the float32 master
+parameters through `torch.func.functional_call`, so the gradients come back
+float32; accumulation, clip, NaN-skip and Adam stay float32 on the masters.
 """
 
 from __future__ import annotations
@@ -21,7 +27,12 @@ import torch
 from emoasr_tpu_torch.config import ExpConfig
 from emoasr_tpu_torch.ops.specaug import spec_augment
 from emoasr_tpu_torch.train.optim import clip_by_global_norm_, grads_finite, make_lr_fn
-from emoasr_tpu_torch.utils.precision import is_half
+from emoasr_tpu_torch.utils.precision import (
+    cast_batch_for_compute,
+    cast_params_for_compute,
+    dtype_of,
+    is_half,
+)
 
 
 @dataclass
@@ -63,12 +74,17 @@ def preprocess(cfg: ExpConfig, xs: torch.Tensor, xlens: torch.Tensor,
     return xs, xlens
 
 
-def _forward(model, cfg: ExpConfig, batch: Dict, generator, train: bool):
+def compute_loss(model, cfg: ExpConfig, batch: Dict, generator=None, train: bool = True):
+    """(loss, loss_dict) of one batch as the step computes it: preprocess,
+    then the forward in `cfg.compute_dtype` (on a cast copy of the master
+    parameters under a half policy, so that gradients reach the masters in
+    float32)."""
     xs, xlens = preprocess(cfg, batch["xs"], batch["xlens"], generator, train)
-    return model(
-        xs, xlens, batch["ys"], batch["ylens"], batch.get("ys_in"), batch.get("ys_out"),
-        batch.get("soft_labels"), batch.get("ps"), batch.get("plens"),
-    )
+    args = (cast_batch_for_compute(cfg, xs), xlens, batch["ys"], batch["ylens"], batch.get("ys_in"),
+            batch.get("ys_out"), batch.get("soft_labels"), batch.get("ps"), batch.get("plens"))
+    if not is_half(cfg):
+        return model(*args)
+    return torch.func.functional_call(model, cast_params_for_compute(model, dtype_of(cfg)), args)
 
 
 def make_train_step(cfg: ExpConfig, num_total_steps: Optional[int] = None) -> Callable:
@@ -87,19 +103,16 @@ def make_train_step(cfg: ExpConfig, num_total_steps: Optional[int] = None) -> Ca
     is not finite leaves the parameters, the moments and the open
     accumulation as they were and counts as skipped; the micro-step counter
     advances all the same (`train_asr.py:83-121`).  The finiteness test
-    reads one scalar back from the device, once per micro-step."""
-    if is_half(cfg):
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: the port trains in float32; "
-            "mixed-precision training waits (ROADMAP.md §2)"
-        )
+    reads one scalar back from the device, once per micro-step.  Under a
+    half `compute_dtype` the forward runs in that dtype and everything from
+    the gradients on stays float32 (see the module note)."""
     lr_fn = make_lr_fn(cfg, num_total_steps)
     accum = max(int(cfg.accum_grad), 1)
 
     def step_fn(state: TrainState, batch: Dict, generator=None) -> Dict:
         model, params = state.model, state.params
         model.train()
-        loss, loss_dict = _forward(model, cfg, batch, generator, True)
+        loss, loss_dict = compute_loss(model, cfg, batch, generator, True)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
         finite = bool(grads_finite(grads))
@@ -151,7 +164,7 @@ def make_eval_loss_step(cfg: ExpConfig) -> Callable:
     def step_fn(state: TrainState, batch: Dict) -> Dict:
         was_training = state.model.training
         state.model.eval()
-        _, loss_dict = _forward(state.model, cfg, batch, None, False)
+        _, loss_dict = compute_loss(state.model, cfg, batch, None, False)
         state.model.train(was_training)
         return loss_dict
 

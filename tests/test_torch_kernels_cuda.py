@@ -9,7 +9,9 @@ The cases and tolerances are those of `chip_smoke.py` (top-k exact;
 attention forward f32 within 1e-5, bf16 within 2e-2, with and without the
 score bias; attention backward, CTC head, CTC lattice, the decoder layer
 step, the LM layer step, the RNN-T joint and the LSTM recurrence forward
-and backward: the constants beside their checks there).
+and backward: the constants beside their checks there; the bf16 parts of
+the attention backward, the CTC head (and the head at H > 256), the RNN-T
+joint and the LSTM: one bf16 step, `BF16_STEP`, beside `_require_close_bf16`).
 """
 
 import pytest
@@ -51,8 +53,9 @@ def test_attention_kernel_matches_plain(cuda_dev):
 def test_attention_kernel_rejects_training_options(cuda_dev):
     """Dropout and the score bias run in the kernel (a zero bias changes
     nothing, a bias of another shape or dtype is refused); a bfloat16
-    backward is still refused."""
-    from emoasr_tpu_torch.ops.attention import fused_self_attention
+    backward runs in the kernel and matches `attention_bwd_plain` (one bf16
+    step of each entry, plus one of the largest)."""
+    from emoasr_tpu_torch.ops.attention import attention_bwd_plain, fused_self_attention
 
     dev, _ = cuda_dev
     q = torch.randn(1, 8, 2, 16, device=dev)
@@ -66,9 +69,14 @@ def test_attention_kernel_rejects_training_options(cuda_dev):
         fused_self_attention(q, q, q, lens, scale=0.25, bias=torch.zeros(1, 2, 8, 7, device=dev))
     with pytest.raises(TypeError):
         fused_self_attention(q, q, q, lens, scale=0.25, bias=torch.zeros(1, 2, 8, 8, device=dev).half())
-    with pytest.raises(TypeError):  # the backward takes float32 only
-        qb = q.bfloat16().requires_grad_(True)
-        fused_self_attention(qb, qb, qb, lens, scale=0.25)
+    qkv = [torch.randn_like(q).bfloat16() for _ in range(3)]
+    ins = [x.clone().requires_grad_(True) for x in qkv]
+    d_out = torch.randn_like(qkv[0])
+    got = torch.autograd.grad(fused_self_attention(*ins, lens, scale=0.25), ins, d_out)
+    want = attention_bwd_plain(*qkv, d_out, lens, 0.25)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16
+        chip_smoke._require_close_bf16(f"attention bf16 {name}", a, b)
 
 
 def test_attention_bias_matches_plain(cuda_dev):
@@ -182,16 +190,24 @@ def test_ctc_head_kernels_match_plain(cuda_dev):
 
 
 def test_new_kernels_reject_what_they_do_not_take(cuda_dev):
-    from emoasr_tpu_torch.ops.ctc_head import fused_ctc_head
+    """The CTC head takes bf16 and any H (it matches its plain version
+    there, `test_ctc_head_bf16_and_wide_match_plain`), but not float16 nor
+    mixed dtypes; the lattice takes float32 and a contiguous lattice."""
+    from emoasr_tpu_torch.ops.ctc_head import ctc_head_plain, fused_ctc_head
     from emoasr_tpu_torch.ops.ctc_lattice import ctc_ll_from_path
 
     dev, _ = cuda_dev
     e, w, b = torch.zeros(1, 4, 8, device=dev), torch.zeros(8, 5, device=dev), torch.zeros(5, device=dev)
     z = torch.zeros(1, 3, dtype=torch.int64, device=dev)
     with pytest.raises(TypeError):
-        fused_ctc_head(e.bfloat16(), w.bfloat16(), b.bfloat16(), z)
-    with pytest.raises(ValueError):
-        fused_ctc_head(torch.zeros(1, 4, 512, device=dev), torch.zeros(512, 5, device=dev), b, z)
+        fused_ctc_head(e.half(), w.half(), b.half(), z)
+    with pytest.raises(TypeError):
+        fused_ctc_head(e.bfloat16(), w, b, z)
+    lse, xs = fused_ctc_head(e.bfloat16(), w.bfloat16(), b.bfloat16(), z)
+    assert lse.dtype == xs.dtype == torch.float32
+    wide = torch.randn(1, 4, 512, device=dev), torch.randn(512, 5, device=dev) / 512 ** 0.5
+    for got, want in zip(fused_ctc_head(*wide, b, z), ctc_head_plain(*wide, b, z)):
+        torch.testing.assert_close(got, want, rtol=0, atol=chip_smoke.HEAD_TOL[0] + 1e-4 * want.abs().max().item())
     lp = torch.zeros(4, 1, 3, device=dev)
     m = torch.ones(1, 3, device=dev)
     with pytest.raises(TypeError):
@@ -218,8 +234,10 @@ def test_lstm_kernels_match_plain(cuda_dev):
 
 
 def test_rnnt_kernels_reject_what_they_do_not_take(cuda_dev):
-    """float32 only; K7 up to J = 768, K8 up to H = 512; the LSTM's short
-    sequences (T < 8) take the scan, as in the JAX package."""
+    """float32 or bfloat16 (K7 in bf16 matches its plain version,
+    `test_rnnt_joint_bf16_matches_plain`; float16 is refused); K7 up to
+    J = 768, K8 up to H = 512; the LSTM's short sequences (T < 8) take the
+    scan, as in the JAX package."""
     from emoasr_tpu_torch.ops import lstm, lstm_scan
     from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather
 
@@ -228,7 +246,9 @@ def test_rnnt_kernels_reject_what_they_do_not_take(cuda_dev):
     lpb, lpl = fused_joint_gather(he, hd, w.t(), b, lab)
     assert lpb.shape == (2, 5, 4) and lpl.shape == (2, 5, 3)
     with pytest.raises(TypeError):
-        fused_joint_gather(he.bfloat16(), hd.bfloat16(), w.t().bfloat16(), b.bfloat16(), lab)
+        fused_joint_gather(he.half(), hd.half(), w.t().half(), b.half(), lab)
+    lpb16, _ = fused_joint_gather(he.bfloat16(), hd.bfloat16(), w.t().bfloat16(), b.bfloat16(), lab)
+    assert lpb16.dtype == torch.float32 and torch.isfinite(lpb16).all()
     wide = chip_smoke.rnnt_joint_case(dev, gen, 1, 2, 2, 800, 40)
     with pytest.raises(ValueError):
         fused_joint_gather(wide[0], wide[1], wide[2].t(), wide[3], wide[4])
@@ -243,3 +263,43 @@ def test_rnnt_kernels_reject_what_they_do_not_take(cuda_dev):
     assert lstm_scan.KERNEL.launches == before
     lstm.lstm_scan(x_proj, w_hh, h0, c0)
     assert lstm_scan.KERNEL.launches == before + 1
+
+
+def test_ctc_head_bf16_and_wide_match_plain(cuda_dev):
+    """K1 in bf16 at H = 256, 512 and 600, and in f32 at H = 512, against
+    `ctc_head_plain`, both cotangents."""
+    from emoasr_tpu_torch.ops import ctc_head
+
+    before = dict(ctc_head.KERNEL.counts)
+    chip_smoke.check_ctc_head_bf16(*cuda_dev)
+    used = {k: ctc_head.KERNEL.counts[k] - before[k] for k in before}
+    for stage in ("fwd", "grad_e", "grad_w"):
+        assert used[f"emo_ctc_head_{stage}_bf16"] == 6 and used[f"emo_ctc_head_{stage}_f32"] == 2
+
+
+def test_attention_backward_bf16_matches_plain(cuda_dev):
+    """K4's backward in bf16 with and without the score bias, dropout on
+    and off, against `attention_bwd_plain` with the kernel's keep mask."""
+    from emoasr_tpu_torch.ops import attention
+
+    before = dict(attention.KERNEL.counts)
+    chip_smoke.check_attention_backward_bf16(*cuda_dev)
+    used = {k: attention.KERNEL.counts[k] - before[k] for k in before}
+    assert used["emo_attention_bwd_bf16"] == 4 and used["bias_bwd_bf16"] == 2 and used["emo_attention_bwd_f32"] == 0
+
+
+def test_rnnt_joint_bf16_matches_plain(cuda_dev):
+    from emoasr_tpu_torch.ops import rnnt_joint
+
+    before = rnnt_joint.KERNEL.counts["emo_rnnt_joint_bf16"]
+    chip_smoke.check_rnnt_joint_bf16(*cuda_dev)
+    assert rnnt_joint.KERNEL.counts["emo_rnnt_joint_bf16"] - before == 3  # three shapes
+
+
+def test_lstm_bf16_matches_plain(cuda_dev):
+    from emoasr_tpu_torch.ops import lstm_scan
+
+    before = dict(lstm_scan.KERNEL.counts)
+    chip_smoke.check_lstm_bf16(*cuda_dev)
+    for name in ("emo_lstm_fwd_bf16", "emo_lstm_bwd_bf16"):
+        assert lstm_scan.KERNEL.counts[name] - before[name] == 3  # three shapes

@@ -7,6 +7,9 @@ RNN-T(Conformer) model with the same weights (through `asr_state_dict`).
 - 4 micro-steps of the train step with `accum_grad: 2` (two optimizer
   updates) against the JAX `make_train_step`: losses, LR, the moved
   BatchNorm statistics (1e-5) and the parameters.
+- One `compute_dtype: bfloat16` micro-step against the JAX step (K7 and
+  K8's bf16 plain versions on the port's side; tolerances in
+  `test_torch_train.py::assert_bf16_micro_step_matches_jax`).
 
 Sizes as in `test_torch_rnnt.py`.  Tolerances: loss rtol 1e-5 (2e-4 in the
 train step, as `test_torch_train.py`); gradients 1e-4 of each tensor's
@@ -32,6 +35,7 @@ from emoasr_tpu_torch.train import optim
 from emoasr_tpu_torch.train.step import TrainState, make_train_step
 from emoasr_tpu_torch.utils.flax_import import asr_state_dict
 from test_torch_rnnt import RNNT_SMALL, T_, _batch, _close_grads, port_model, random_rnnt_params
+from test_torch_train import assert_bf16_micro_step_matches_jax
 
 
 @pytest.fixture(scope="module")
@@ -97,3 +101,36 @@ def test_two_optimizer_updates_match_jax_train_step(weights):
     for name, buf in model.named_buffers():
         if "running" in name:
             np.testing.assert_allclose(buf.numpy(), ref[name].numpy(), rtol=0, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_bf16_micro_step_matches_jax(weights, fused):
+    """The tiny RNN-T(Conformer) with auxiliary CTC in bf16: loss,
+    gradients, one update, float32 masters, moments and statistics."""
+    params, stats = weights
+    conf = dict(RNNT_SMALL, mtl_ctc_weight=0.3, enc_fused_attn=fused)
+    assert_bf16_micro_step_matches_jax(conf, params, stats, _batch(2))
+
+
+def test_bf16_eval_loss_matches_jax(weights):
+    """The validation loss under `compute_dtype: bfloat16` (dropout off,
+    BatchNorm on its float32 running statistics with bf16 weights) against
+    the JAX `make_eval_loss_step`: rtol 5e-3, as the bf16 micro-step."""
+    from emoasr_tpu.train.step import make_eval_loss_step as jax_eval_step
+    from emoasr_tpu_torch.train.step import make_eval_loss_step
+
+    params, stats = weights
+    conf = dict(RNNT_SMALL, mtl_ctc_weight=0.3, enc_fused_attn=True, compute_dtype="bfloat16")
+    b = _batch(4)
+    jcfg = jax_config(conf)
+    tx = joptim.build_optimizer(jcfg)
+    want = jax_eval_step(JaxASR(jcfg), jcfg)(init_train_state(params, stats, tx),
+                                             {k: jnp.asarray(v) for k, v in b.items()})
+    cfg = config_from_dict(conf)
+    model = port_model(conf, params, stats)
+    state = TrainState(model=model, optimizer=optim.build_optimizer(cfg, model.parameters()))
+    got = make_eval_loss_step(cfg)(state, {k: T_(v.copy()) for k, v in b.items()})
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].item(), float(want[k]), rtol=5e-3, err_msg=k)
+    assert all(buf.dtype == torch.float32 for name, buf in model.named_buffers() if "running" in name)

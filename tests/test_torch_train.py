@@ -8,6 +8,10 @@
   `make_train_step`, with `enc_fused_attn` on and off; a NaN micro-step is
   skipped the same way on both sides.
 
+- `compute_dtype: bfloat16`: one micro-step's loss, gradients and the
+  parameters after one update against the JAX step's, masters and moments
+  float32 (`assert_bf16_micro_step_matches_jax` states its tolerances).
+
 Sizes: 2 layers, d=32, 4 heads, F=20, V=37.  Tolerances: loss rtol 1e-5;
 each gradient tensor within 1e-4 of its largest entry (+1e-6): float32 sums
 in two frameworks' orders through 2 layers and the lattice.  Parameters
@@ -32,12 +36,15 @@ from emoasr_tpu.ops import specaug as jsa
 from emoasr_tpu.train import optim as joptim
 from emoasr_tpu.train.step import init_train_state
 from emoasr_tpu.train.step import make_train_step as jax_make_train_step
+from emoasr_tpu.utils.precision import cast_batch_for_compute as jax_cast_batch
+from emoasr_tpu.utils.precision import cast_params_for_compute as jax_cast_params
 from emoasr_tpu_torch.config import config_from_dict
 from emoasr_tpu_torch.data.batching import BucketBatcher, derive_buckets
 from emoasr_tpu_torch.models.asr import ASR
 from emoasr_tpu_torch.ops import attention, ctc_head, ctc_lattice, specaug
 from emoasr_tpu_torch.train import optim
 from emoasr_tpu_torch.train.step import TrainState, make_eval_loss_step, make_train_step
+from emoasr_tpu_torch.train.step import compute_loss
 from emoasr_tpu_torch.utils.flax_import import asr_state_dict
 from test_torch_encoder import random_flax_params
 
@@ -192,10 +199,10 @@ def _to_jax(batch):
     return {k: jnp.asarray(v) for k, v in batch.items()}
 
 
-def _port_state(conf, params):
+def _port_state(conf, params, stats=None):
     cfg = config_from_dict(conf)
     model = ASR(cfg)
-    model.load_state_dict(asr_state_dict(params, cfg))
+    model.load_state_dict(asr_state_dict(params, cfg, stats) if stats else asr_state_dict(params, cfg))
     return cfg, TrainState(model=model, optimizer=optim.build_optimizer(cfg, model.parameters()))
 
 
@@ -355,6 +362,96 @@ def test_finite_or_zero_and_clip_match_optax():
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
 
 
-def test_bf16_training_is_refused():
-    with pytest.raises(NotImplementedError, match="float32"):
-        make_train_step(config_from_dict(dict(CONF, compute_dtype="bfloat16")))
+# ------------------------------------------------------------------ bf16
+
+
+def _jax_loss_and_grads(conf, params, stats, batch, cfg):
+    """The JAX step's loss and float32 gradients (`train/step.py:131-152`,
+    jitted as the step is), by port parameter name."""
+    jcfg = jax_config(conf)
+    model = JaxASR(jcfg)
+    jb = _to_jax(batch)
+
+    def loss_fn(p):
+        variables = {"params": jax_cast_params(jcfg, p)}
+        if stats:
+            variables["batch_stats"] = stats
+        out = model.apply(variables, jax_cast_batch(jcfg, jb["xs"]), jb["xlens"], jb["ys"], jb["ylens"],
+                          jb["ys_in"], jb["ys_out"], None, None, None, deterministic=False,
+                          rngs={"dropout": jax.random.PRNGKey(0)}, mutable=["batch_stats"] if stats else False)
+        return out[0][0] if stats else out[0]
+
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    return float(loss), asr_state_dict(jax.tree_util.tree_map(np.asarray, grads), cfg)
+
+
+def assert_bf16_micro_step_matches_jax(conf, params, stats, batch):
+    """One bf16 micro-step from the same float32 weights, port against JAX.
+
+    - Loss: rtol 5e-3.
+    - Gradients (float32, to the masters): bf16 rounds every activation, so
+      the JAX bf16 step's gradients themselves lie some way from its float32
+      step's (up to ~30 % of a tensor's largest entry for the first
+      convolution's weight, whose sums run over every frame).  Each tensor
+      is held within twice that distance of the JAX bf16 gradient, plus one
+      bf16 step (2^-7) of its largest entry, plus 1e-4 of the model's
+      largest entry (the key biases' true gradient is zero).
+    - After one Adam update (accum_grad 1): Adam's first step moves each
+      entry by about the LR times the sign of its gradient, so an entry
+      whose gradient is within the bf16 noise of zero may move the other
+      way: every entry within 2 LR of JAX's, and over the model at most 2 %
+      of the entries more than 2 % of the LR apart.
+    - Masters, Adam moments and BatchNorm statistics stay float32; the
+      statistics within 1e-4 of JAX's."""
+    conf16 = dict(conf, compute_dtype="bfloat16", accum_grad=1)
+    cfg = config_from_dict(conf16)
+    jl, jg = _jax_loss_and_grads(conf16, params, stats, batch, cfg)
+    _, jg32 = _jax_loss_and_grads(dict(conf16, compute_dtype="float32"), params, stats, batch, cfg)
+
+    _, state = _port_state(conf16, params, stats)
+    state.model.train()
+    loss, _ = compute_loss(state.model, cfg, _to_torch(batch))
+    names = [n for n, _ in state.model.named_parameters()]
+    grads = dict(zip(names, torch.autograd.grad(loss, list(state.model.parameters()))))
+    np.testing.assert_allclose(loss.item(), jl, rtol=5e-3)
+    floor = 1e-4 * max(np.abs(g.numpy()).max() for g in jg32.values())
+    for name, g in grads.items():
+        assert g.dtype == torch.float32, name
+        ref, ref32 = jg[name].numpy(), jg32[name].numpy()
+        noise = np.abs(ref - ref32).max()
+        tol = 2 * noise + 2.0 ** -7 * np.abs(ref32).max() + floor
+        np.testing.assert_allclose(g.numpy(), ref, rtol=0, atol=tol, err_msg=name)
+
+    jcfg = jax_config(conf16)
+    tx = joptim.build_optimizer(jcfg)
+    jstate, jm = jax_make_train_step(JaxASR(jcfg), jcfg, tx)(
+        init_train_state(params, stats or {}, tx), _to_jax(batch), jax.random.PRNGKey(0))
+    _, state = _port_state(conf16, params, stats)
+    tm = make_train_step(cfg)(state, _to_torch(batch))
+    np.testing.assert_allclose(tm["loss_total"].item(), float(jm["loss_total"]), rtol=5e-3)
+    lr = tm["lr"]
+    ref = asr_state_dict(jax.tree_util.tree_map(np.asarray, jstate.params), cfg,
+                         jax.tree_util.tree_map(np.asarray, jstate.batch_stats) if stats else None)
+    far, total = 0, 0
+    for name, p in state.model.named_parameters():
+        assert p.dtype == torch.float32, name
+        diff = np.abs(p.detach().numpy() - ref[name].numpy())
+        assert diff.max() <= 2.01 * lr, (name, diff.max(), lr)
+        far, total = far + int((diff > 0.02 * lr).sum()), total + diff.size
+    assert far <= 0.02 * total, (far, total)
+    moments = [v for st in state.optimizer.state.values() for v in st.values() if torch.is_tensor(v)]
+    assert moments and all(v.dtype == torch.float32 for v in moments if v.is_floating_point())
+    for name, buf in state.model.named_buffers():
+        if "running" in name:
+            assert buf.dtype == torch.float32, name
+            np.testing.assert_allclose(buf.numpy(), ref[name].numpy(), rtol=0, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_bf16_micro_step_matches_jax(fused):
+    """`compute_dtype: bfloat16` training of the tiny CTC(Transformer): the
+    port's micro-step against the JAX step on the same weights and batch
+    (`enc_fused_attn` on: K1 and K4 forward and backward in bf16 on both
+    sides, the JAX kernels in interpret mode)."""
+    conf = dict(CONF, enc_fused_attn=fused)
+    assert_bf16_micro_step_matches_jax(conf, random_flax_params(conf, seed=2), None, _batches(1, seed=5)[0])

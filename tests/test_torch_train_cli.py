@@ -9,6 +9,8 @@
   and LR, and ends at exactly the weights of an uninterrupted run (the CPU
   run is deterministic; dropout and SpecAugment are off), the open gradient
   accumulation included.
+- `compute_dtype: bfloat16`: the same overfit through both CLIs, the
+  trainer's masters, moments and checkpoint float32.
 """
 
 import os
@@ -73,6 +75,26 @@ def test_train_cli_then_eval_cli_overfits(tmp_path, fused):
     ref, ref_comment = _result(str(conf_path), "jax", 60)
     pd.testing.assert_frame_equal(got, ref)
     assert got_comment == ref_comment == f"# {wer_info}\n"
+
+
+def test_bf16_train_cli_then_eval_cli_overfits(tmp_path):
+    """Training in bf16 (the forward on a bf16 copy of the float32 masters)
+    learns the small corpus as float32 does; the checkpoint holds the
+    float32 masters, and the eval CLI decodes it in bf16."""
+    tsv, vocab = _make_corpus(tmp_path)
+    conf_path = tmp_path / "overfit_bf16.yaml"
+    conf_path.write_text(yaml.safe_dump(_conf(tsv, vocab, enc_fused_attn=True, dev_path=tsv,
+                                              compute_dtype="bfloat16")))
+    state = loop.main(["-conf", str(conf_path), "--cpu"])
+    assert state.step == 60 * 4 and state.skipped == 0
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())
+    moments = [v for st in state.optimizer.state.values() for v in st.values() if torch.is_tensor(v) and v.dim()]
+    assert moments and all(v.dtype == torch.float32 for v in moments)
+    ckpt = load_state_dict(str(tmp_path / "overfit_bf16" / "checkpoints" / "model.ep60"))
+    assert all(v.dtype == torch.float32 for v in ckpt.values() if v.is_floating_point())
+    out = port_cli.main(["-conf", str(conf_path), "-ep", "60", "--beam_width", "0", "--cpu"])
+    assert out is not None and out[2] < 15.0, out[3]
+    assert "epoch 60 dev WER (greedy)" in (tmp_path / "overfit_bf16" / "log" / "train.log").read_text()
 
 
 def test_resume_continues_to_the_same_weights(tmp_path):
