@@ -17,7 +17,10 @@ Phases (any failed check raises, so the script exits non-zero):
    constants beside their checks); then the bf16 parts: the CTC head in
    bf16 (H = 256, 512, 600) and in f32 at H = 512, the attention backward in
    bf16 with and without the bias, the RNN-T joint and the LSTM in bf16
-   (one bf16 step of each entry, see `BF16_STEP`).
+   (one bf16 step of each entry, see `BF16_STEP`); the decoder layer step
+   (direct and indirect) and the LM layer step in bf16; the RNN-T joint at
+   J = 1024, 1500 and 2048 and the LSTM at H = 640 and 1024, in f32 and
+   bf16.
 4. Training at the full width of the L1 CTC(Transformer) model (12 x 256,
    4 heads, FF 2048, V = 10000, SpecAugment and dropout on,
    `enc_fused_attn: true`, random initial weights from `--seed`): one epoch
@@ -76,10 +79,23 @@ Phases (any failed check raises, so the script exits non-zero):
    bf16; a greedy bf16 decode of its `model.ep1` through the eval CLI.
 12. The same for L4 (K4 with its bias, K7 and K8 through their bf16
    launchers).
-13. Every kernel timed at the largest bucket beside its plain version and
-   one library call, the bf16 launchers in bf16 (bounds at the bf16 rate,
-   library calls in bf16); one JSON line describing each kernel, the
-   `nvidia-smi` line, and last the `{"ok": true, "device": ...}` line.
+13. bf16 beam decoding of the 80-utterance corpus at full width: L1 beam 8,
+   L3-1 beam 10 with joint CTC 0.3 (`dec_step_mode: fused_indirect`, then
+   `fused`: K5's bf16 launches = 6 x beam steps; then the dense `indirect`
+   route) and L4 ALSD beam 10 through the eval CLI on bf16 copies of the
+   earlier yamls and checkpoints; L3-3 through `build_decode_fn` +
+   `decode_dataset` with the LM cast to bf16, its layer step by K6 (bf16
+   launches = 4 x beam steps) and then by the dense route (0); top-1
+   agreement with the float32 decodes and between the routes; one step of
+   one L3-1 and one L3-3 batch on the card against the CPU's plain bf16
+   path (within twice the CPU's own bf16-vs-f32 distance, plus one bf16
+   step of the largest score).
+14. Every kernel timed at the largest bucket beside its plain version and
+   one library call (for K5 and K6 the dense route), the bf16 launchers in
+   bf16 (bounds at the bf16 rate, library calls in bf16), and K7 at
+   J = 1024 and K8 at H = 1024 beside the chunked route and cuDNN; one
+   JSON line describing each kernel, the `nvidia-smi` line, and last the
+   `{"ok": true, "device": ...}` line.
 
 Scratch files go to `build/chip_smoke/` and are removed at the end.
 """
@@ -641,11 +657,25 @@ def decoder_step_case(dev, gen, Bu: int, W: int, L: int, T: int, H: int = 4, D: 
                 anc=anc, cross_k=randn(Bu, T, H, dk), cross_v=randn(Bu, T, H, dk), elens=elens, weights=wt)
 
 
-def check_decoder_step(dev, gen) -> dict:
+def _step_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """The f32 tolerance `tol`, or, for bf16 outputs, one bf16 step of each
+    entry plus one of the tensor's largest (see BF16_STEP)."""
+    if got.dtype == torch.bfloat16:
+        return _require_close_bf16(name, got, want)
+    return _require_close(name, got, want, tol, 0.0)
+
+
+def check_decoder_step(dev, gen, dtype=torch.float32) -> dict:
     """K5 and K5 indirect against their plain versions (y, k_new, v_new),
-    and K5 indirect against K5 on caches gathered by `anc`."""
+    and K5 indirect against K5 on caches gathered by `anc`, in `dtype`.  In
+    bf16 each output entry is a float32 sum of exact products rounded once,
+    as in the plain version, but upstream of it a dense product or a
+    softmax may have rounded the other way: one bf16 step of each entry
+    plus one of the largest, as the CPU tests hold the plain versions to
+    the JAX kernels."""
     from emoasr_tpu_torch.ops import decoder_step as ds
 
+    sfx = "" if dtype == torch.float32 else "_bf16"
     worst = {"direct": 0.0, "indirect": 0.0}
     for name, (Bu, W, L, T, H, D, F) in (
         ("Bu=18 W=10 L=258 T=399 D=256 F=2048", (18, 10, 258, 399, 4, 256, 2048)),
@@ -653,7 +683,7 @@ def check_decoder_step(dev, gen) -> dict:
         ("Bu=3 W=10 L=9 T=50 D=64 F=96 H=2", (3, 10, 9, 50, 2, 64, 96)),
         ("Bu=140 W=3 L=16 T=21 D=128 F=256 H=8", (140, 3, 16, 21, 8, 128, 256)),
     ):
-        c = decoder_step_case(dev, gen, Bu, W, L, T, H, D, F)
+        c = _cast_case(decoder_step_case(dev, gen, Bu, W, L, T, H, D, F), dtype)
         dk = D // H
         flat = lambda x: x.reshape(Bu * W, L, H, dk)
         idx = c["anc"][:, :, :, None, None].expand(Bu, W, L, H, dk)
@@ -674,12 +704,12 @@ def check_decoder_step(dev, gen) -> dict:
         torch.cuda.synchronize()
         for kind, other in (("direct", "direct plain"), ("indirect", "indirect plain"),
                             ("indirect", "direct on gathered caches")):
-            errs = [_require_close(f"decoder step {name} {kind} vs {other}: {what}", a, b, DEC_STEP_TOL, 0.0)
+            errs = [_step_close(f"decoder step {dtype} {name} {kind} vs {other}: {what}", a, b, DEC_STEP_TOL)
                     for what, a, b in zip(("y", "k_new", "v_new"), out[kind], out[other])]
             worst[kind] = max(worst[kind], *errs)
-            print(f"  decoder step {name}: {kind} vs {other}: y {errs[0]:.2e} k_new {errs[1]:.2e} "
-                  f"v_new {errs[2]:.2e} (tol {DEC_STEP_TOL})")
-    return worst
+            print(f"  decoder step {dtype} {name}: {kind} vs {other}: y {errs[0]:.2e} k_new {errs[1]:.2e} "
+                  f"v_new {errs[2]:.2e} (tol {DEC_STEP_TOL if dtype == torch.float32 else 'one bf16 step + one of the largest'})")
+    return {"decoder_step" + sfx: worst["direct"], "decoder_step_indirect" + sfx: worst["indirect"]}
 
 
 def time_attention_bias(dev, gen, B: int, T: int, H: int, D: int, lens: torch.Tensor,
@@ -743,19 +773,21 @@ def time_attention_bias(dev, gen, B: int, T: int, H: int, D: int, lens: torch.Te
     return {"attention_bias_fwd" + suffix: fwd, "attention_bias_bwd" + suffix: bwd}
 
 
-def time_decoder_step(dev, gen, Bu: int, W: int, L: int, T: int, pos: int, lens: torch.Tensor) -> dict:
+def time_decoder_step(dev, gen, Bu: int, W: int, L: int, T: int, pos: int, lens: torch.Tensor,
+                      dtype=torch.float32) -> dict:
     """K5 and K5 indirect at the decode shapes beside their plain versions
     and the port's dense route of the same step (`decode_step`,
     `decode_step_indirect`: some twenty-five PyTorch calls; no single
-    PyTorch call computes the step, so `library_ms` is null)."""
+    PyTorch call computes the step, so `library_ms` is null); in `dtype`
+    (rows named `..._bf16` for bf16, the bytes at its element size)."""
     from emoasr_tpu_torch.models.layers import TransformerDecoderLayer, make_pad_mask
     from emoasr_tpu_torch.ops import decoder_step as ds
 
     H, D, F = 4, 256, 2048
     dk, N = D // H, Bu * W
-    c = decoder_step_case(dev, gen, Bu, W, L, T, H, D, F, pos=pos)
+    c = _cast_case(decoder_step_case(dev, gen, Bu, W, L, T, H, D, F, pos=pos), dtype)
     c["elens"] = lens.to(dev)
-    layer = TransformerDecoderLayer(H, D, F).to(dev).eval()
+    layer = TransformerDecoderLayer(H, D, F).to(dev, dtype).eval()
     wt = layer._decode_step_weights()
     flat = lambda x: x.reshape(N, L, H, dk)
     tail = (c["cross_k"], c["cross_v"], c["elens"], wt)
@@ -783,13 +815,24 @@ def time_decoder_step(dev, gen, Bu: int, W: int, L: int, T: int, pos: int, lens:
         }
     frames, past = int(c["elens"].sum().item()), int(flat_pos.sum().item())
     n_weights = 6 * D * D + 2 * D * F + 9 * D + F
-    io = 4 * (n_weights + 4 * N * D + 2 * frames * D + 2 * past * D + N + Bu)
+    es = c["h"].element_size()
+    # weights, h in, y / k_new / v_new out, the live encoder K/V and cache
+    # columns in the storage dtype; pos and elens (and anc) int32
+    io = es * (n_weights + 4 * N * D + 2 * frames * D + 2 * past * D) + 4 * (N + Bu)
     ops = 2.0 * N * (6 * D * D + 2 * D * F) + 4.0 * D * (past + N) + 4.0 * W * D * frames
     for row, extra in ((direct, 0), (indirect, 4 * past)):
-        row.update(_bound(io + extra, ops))
+        row.update(_bound(io + extra, ops, dtype))
         row["library_ms"] = None
-        row["shape"] = f"h ({N},{D}), caches ({Bu},{W},{L},{H},{dk}) at pos {pos}, encoder K/V ({Bu},{T},{H},{dk}), F {F}, float32"
-    return {"decoder_step": direct, "decoder_step_indirect": indirect}
+        row["shape"] = (f"h ({N},{D}), caches ({Bu},{W},{L},{H},{dk}) at pos {pos}, encoder K/V "
+                        f"({Bu},{T},{H},{dk}), F {F}, {dtype}")
+    sfx = "" if dtype == torch.float32 else "_bf16"
+    return {"decoder_step" + sfx: direct, "decoder_step_indirect" + sfx: indirect}
+
+
+def _cast_case(c: dict, dtype) -> dict:
+    """A step case's floating tensors and weights in `dtype` (integers as they are)."""
+    cast = lambda v: v.to(dtype) if v.is_floating_point() else v
+    return {k: ({n: cast(w) for n, w in v.items()} if k == "weights" else cast(v)) for k, v in c.items()}
 
 
 # K6: a layer step is some ten sums of 64 to 2048 f32 products of O(1)
@@ -832,9 +875,10 @@ def lm_step_case(dev, gen, Bu: int, W: int, L: int, H: int = 8, D: int = 512, F:
                 pos=pos, anc=anc, weights=wt)
 
 
-def check_lm_step(dev, gen) -> float:
+def check_lm_step(dev, gen, dtype=torch.float32) -> float:
     """K6 against its plain version (y, k_new, v_new), and against itself on
-    caches gathered by `anc` under the identity table."""
+    caches gathered by `anc` under the identity table, in `dtype` (bf16 held
+    as `check_decoder_step` holds it)."""
     from emoasr_tpu_torch.ops import lm_step
 
     worst = 0.0
@@ -844,7 +888,7 @@ def check_lm_step(dev, gen) -> float:
         ("Bu=3 W=1 L=7 D=512 F=2048 H=8", (3, 1, 7, 8, 512, 2048)),
         ("Bu=7 W=16 L=9 D=64 F=96 H=2", (7, 16, 9, 2, 64, 96)),
     ):
-        c = lm_step_case(dev, gen, Bu, W, L, H, D, F)
+        c = _cast_case(lm_step_case(dev, gen, Bu, W, L, H, D, F), dtype)
         dk = D // H
         idx = c["anc"][:, :, :, None, None].expand(Bu, W, L, H, dk)
         gk, gv = torch.gather(c["cache_k"], 1, idx), torch.gather(c["cache_v"], 1, idx)
@@ -858,27 +902,27 @@ def check_lm_step(dev, gen) -> float:
         }
         torch.cuda.synchronize()
         for other, tol in (("plain", LM_STEP_TOL), ("kernel on gathered caches", LM_GATHER_TOL)):
-            errs = [_require_close(f"LM step {name} kernel vs {other}: {what}", a, b, tol, 0.0)
+            errs = [_step_close(f"LM step {dtype} {name} kernel vs {other}: {what}", a, b, tol)
                     for what, a, b in zip(("y", "k_new", "v_new"), out["kernel"], out[other])]
             if other == "plain":
                 worst = max(worst, *errs)
-            print(f"  LM step {name}: kernel vs {other}: y {errs[0]:.2e} k_new {errs[1]:.2e} "
-                  f"v_new {errs[2]:.2e} (tol {tol})")
+            print(f"  LM step {dtype} {name}: kernel vs {other}: y {errs[0]:.2e} k_new {errs[1]:.2e} "
+                  f"v_new {errs[2]:.2e} (tol {tol if dtype == torch.float32 else 'one bf16 step + one of the largest'})")
     return worst
 
 
-def time_lm_step(dev, gen, Bu: int, W: int, L: int, pos: int) -> dict:
+def time_lm_step(dev, gen, Bu: int, W: int, L: int, pos: int, dtype=torch.float32) -> dict:
     """K6 at the L3-3 shapes beside its plain version and the port's dense
     route of the same step (`BertLayer.step_indirect(fused=False)`: some
     twenty PyTorch calls and the two cache writes; no single PyTorch call
-    computes the step, so `library_ms` is null)."""
+    computes the step, so `library_ms` is null); in `dtype`."""
     from emoasr_tpu_torch.models.lm.bert import BertLayer
     from emoasr_tpu_torch.ops import lm_step
 
     H, D, F = 8, 512, 2048
     dk, N = D // H, Bu * W
-    c = lm_step_case(dev, gen, Bu, W, L, H, D, F, pos=pos)
-    layer = BertLayer(H, D, F).to(dev).eval()
+    c = _cast_case(lm_step_case(dev, gen, Bu, W, L, H, D, F, pos=pos), dtype)
+    layer = BertLayer(H, D, F).to(dev, dtype).eval()
     pack = layer._packed_step_weights()
     ck, cv = c["cache_k"].clone(), c["cache_v"].clone()
     pos32 = c["pos"].to(torch.int32)
@@ -892,14 +936,15 @@ def time_lm_step(dev, gen, Bu: int, W: int, L: int, pos: int) -> dict:
         }
     past = int(c["pos"].sum().item())  # live cache columns over all rows
     n_weights = 4 * D * D + 2 * D * F + 9 * D + F
-    # weights, each row's live K and V columns, h in, y / k_new / v_new out,
-    # pos and its anc row
-    io = 4 * (n_weights + 2 * past * D + 4 * N * D + N + past)
+    es = c["h"].element_size()
+    # weights, each row's live K and V columns, h in, y / k_new / v_new out
+    # in the storage dtype; pos and its anc row int32
+    io = es * (n_weights + 2 * past * D + 4 * N * D) + 4 * (N + past)
     ops = 2.0 * N * (4 * D * D + 2 * D * F) + 4.0 * D * (past + N)
-    row.update(_bound(io, ops))
+    row.update(_bound(io, ops, dtype))
     row["library_ms"] = None
-    row["shape"] = f"h ({Bu},{W},{D}), caches ({Bu},{W},{L},{H},{dk}) at pos {pos}, F {F}, float32"
-    return {"lm_step_indirect": row}
+    row["shape"] = f"h ({Bu},{W},{D}), caches ({Bu},{W},{L},{H},{dk}) at pos {pos}, F {F}, {dtype}"
+    return {"lm_step_indirect" + ("" if dtype == torch.float32 else "_bf16"): row}
 
 
 # K7: log-probabilities (magnitudes about log V ~ 7-8) from float32 sums of
@@ -1181,6 +1226,78 @@ def check_lstm_bf16(dev, gen) -> dict:
     return worst
 
 
+def check_rnnt_joint_wide(dev, gen) -> dict:
+    """K7 above the width that 64 cells' z tile fits: J = 1024 and 1500
+    (32 cells a block) and 2048 (16), float32 against `joint_gather_plain`
+    and bf16 against `rnnt_joint_plain`, both within RNNT_JOINT_TOL (the
+    outputs are float32 sums of J products in two orders)."""
+    from emoasr_tpu_torch.ops.rnnt import joint_gather_plain
+    from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather, rnnt_joint_plain
+
+    worst = {"rnnt_joint_j1024": 0.0, "rnnt_joint_j1024_bf16": 0.0}
+    for shape, transposed, dtypes in (((18, 399, 129, 1024, 1000), True, (torch.float32, torch.bfloat16)),
+                                      ((3, 41, 13, 1500, 257), False, (torch.float32,)),
+                                      ((2, 9, 5, 2048, 100), True, (torch.float32, torch.bfloat16))):
+        case = rnnt_joint_case(dev, gen, *shape)
+        for dtype in dtypes:
+            h_enc, h_dec, weight, bias, labels = (x.to(dtype) if x.is_floating_point() else x for x in case)
+            w = weight.t() if transposed else weight.t().contiguous()
+            with torch.no_grad():
+                got = fused_joint_gather(h_enc, h_dec, w, bias, labels, 0)
+                want = (joint_gather_plain if dtype == torch.float32 else rnnt_joint_plain)(
+                    h_enc, h_dec, w, bias, labels, 0)
+            torch.cuda.synchronize()
+            tag = f"rnnt joint {shape} {dtype}{' weight.t()' if transposed else ''}"
+            errs = [_require_close(f"{tag} {what}", a, b, RNNT_JOINT_TOL, 0.0)
+                    for what, a, b in zip(("lp_blank", "lp_label"), got, want)]
+            key = "rnnt_joint_j1024" + ("" if dtype == torch.float32 else "_bf16")
+            worst[key] = max(worst[key], *errs)
+            print(f"  {tag}: lp_blank {errs[0]:.2e}, lp_label {errs[1]:.2e} (tol {RNNT_JOINT_TOL})")
+    return worst
+
+
+def check_lstm_wide(dev, gen) -> dict:
+    """K8 above H = 512 (w_hh in shared memory): H = 1024 at the prediction
+    network's largest bucket and H = 640 with B = 50 (the batch staged in
+    tiles), float32 with the tolerances of `check_lstm` and bf16 with those
+    of `check_lstm_bf16`."""
+    from emoasr_tpu_torch.ops.lstm_scan import lstm_bwd_plain, lstm_fwd_plain, lstm_scan_fused
+
+    worst = {"lstm_fwd_h1024": 0.0, "lstm_bwd_h1024": 0.0, "lstm_fwd_h1024_bf16": 0.0, "lstm_bwd_h1024_bf16": 0.0}
+    for shape, zero in (((18, 129, 1024), True), ((50, 20, 640), False)):
+        case = lstm_case(dev, gen, *shape, zero_state=zero)
+        for dtype in (torch.float32, torch.bfloat16):
+            x_proj, w_hh, h0, c0 = (t.to(dtype) for t in case[:4])
+            w_hh = w_hh.float()  # the kernel's w_hh is float32 (the model's weight, cast)
+            cots = [c.to(dtype) for c in case[4]]
+            ins = [t.clone().requires_grad_(True) for t in (x_proj, w_hh, h0, c0)]
+            ys, (hT, cT) = lstm_scan_fused(*ins)
+            grads = torch.autograd.grad((ys, hT, cT), ins, cots)
+            with torch.no_grad():
+                p_ys, p_h, p_c, gates, hcprev = lstm_fwd_plain(x_proj, w_hh, h0, c0)
+                p_grads = lstm_bwd_plain(gates, hcprev, *cots, w_hh)
+            torch.cuda.synchronize()
+            tag = f"lstm {shape} {dtype}{' zero state' if zero else ''}"
+            sfx = "" if dtype == torch.float32 else "_bf16"
+            if dtype == torch.float32:
+                fwd = [_require_close(f"{tag} {what}", a, b, LSTM_FWD_TOL, 0.0)
+                       for what, a, b in zip(("ys", "h_T", "c_T"), (ys, hT, cT), (p_ys, p_h, p_c))]
+                bwd = [_require_close(f"{tag} {what}", a, b, *LSTM_BWD_TOL)
+                       for what, a, b in zip(("d x_proj", "d w_hh", "d h0", "d c0"), grads, p_grads)]
+            else:
+                fwd = [_require_close_bf16(f"{tag} {what}", a, b)
+                       for what, a, b in zip(("ys", "h_T", "c_T"), (ys, hT, cT), (p_ys, p_h, p_c))]
+                bwd = [_require_close_bf16(f"{tag} {what}", a, b)
+                       for what, a, b in zip(("d x_proj", "d h0", "d c0"), (grads[0], grads[2], grads[3]),
+                                             (p_grads[0], p_grads[2], p_grads[3]))]
+                bwd.append(_require_close_bf16(f"{tag} d w_hh", grads[1], p_grads[1], floor=BF16_STEP / 4))
+            worst["lstm_fwd_h1024" + sfx] = max(worst["lstm_fwd_h1024" + sfx], *fwd)
+            worst["lstm_bwd_h1024" + sfx] = max(worst["lstm_bwd_h1024" + sfx], *bwd)
+            print(f"  {tag}: max |kernel - plain| forward {max(fwd):.2e}, backward {max(bwd):.2e} "
+                  f"(tol as {'check_lstm' if dtype == torch.float32 else 'check_lstm_bf16'})")
+    return worst
+
+
 def time_rnnt_joint(dev, gen, B: int, T: int, U1: int, J: int, V: int, dtype=torch.float32) -> dict:
     """K7 forward at the largest training bucket beside its plain version;
     the library route is the chunked mode's forward (`rnnt_gathered_from_
@@ -1403,13 +1520,17 @@ def launch_counts() -> dict:
         "rnnt_joint_bf16": rnnt_joint.KERNEL.counts["emo_rnnt_joint_bf16"],
         "lstm_fwd_bf16": lstm_scan.KERNEL.counts["emo_lstm_fwd_bf16"],
         "lstm_bwd_bf16": lstm_scan.KERNEL.counts["emo_lstm_bwd_bf16"],
+        "decoder_step_bf16": decoder_step.KERNEL.counts["emo_decoder_step_bf16"],
+        "decoder_step_indirect_bf16": decoder_step.KERNEL_INDIRECT.counts["emo_decoder_step_indirect_bf16"],
+        "lm_step_indirect_bf16": lm_step.KERNEL.counts["emo_lm_step_indirect_bf16"],
     }
     return counts
 
 
 BF16_KEYS = ("attention_fwd_bf16", "attention_bwd_bf16", "attention_bias_fwd_bf16", "attention_bias_bwd_bf16",
              "ctc_head_fwd_bf16", "ctc_head_grad_e_bf16", "ctc_head_grad_w_bf16", "rnnt_joint_bf16",
-             "lstm_fwd_bf16", "lstm_bwd_bf16")
+             "lstm_fwd_bf16", "lstm_bwd_bf16", "decoder_step_bf16", "decoder_step_indirect_bf16",
+             "lm_step_indirect_bf16")
 
 
 def all_kernels() -> list:
@@ -2284,7 +2405,7 @@ def decode_l3_1(args, root: str, test_tsv: str, wav_s: float, dev, card: str) ->
           f"{topk_ms:.3f}, prefix scores {psi_ms:.3f}, lattice update {upd_ms:.3f}; the rest of a step "
           f"(selection, bookkeeping, the host) {rest:.3f} ms")
     return {"runs": runs, "enc_err": enc_err, "step_err": step_err, "same_hyps": same, "same_modes": same_modes,
-            "split": split, "batches": len(batches), "n_utts": n_utts, "bucket": big}
+            "split": split, "batches": len(batches), "n_utts": n_utts, "bucket": big, "confs": confs}
 
 
 # L3-3 on the card against the CPU's plain path: one step's fused scores
@@ -2578,8 +2699,273 @@ def decode_l3_3(args, root: str, tr: dict, dev, card: str) -> dict:
     print(f"  CTC beam 8 + LM (cached) on one L1 batch {tuple(b1['xs'].shape)}: {ctc_lm_s:.3f} s, finite scores; "
           f"the LM changed the best hypothesis of {changed} of {nb} utterances")
     return {"runs": runs, "repeat": repeat, "fused_scores_err": score_err, "same_hyps": same, "same_routes": same_routes,
-            "split": split, "batches": len(batches), "n_utts": n_utts,
+            "split": split, "batches": len(batches), "n_utts": n_utts, "conf": conf, "lm_conf": lm_conf,
+            "lm_path": lm_path, "tables": tables,
             "ctc_beam_lm": {"seconds": ctc_lm_s, "batch": list(b1["xs"].shape), "best_changed": changed}}
+
+
+# bf16 decoding on the card against the CPU's plain bf16 path: one step's
+# fused scores (the decoder's log-softmax, plus 0.5 x the LM's for L3-3)
+# from the same encoder output, caches and ancestor table.  bf16 rounds
+# every activation, and a product that straddles a rounding boundary on one
+# side and not on the other moves everything after it, so the card is held
+# within twice the CPU's own bf16-vs-f32 distance of the same step, plus
+# one bf16 step of the largest score (as the CPU tests hold the port's bf16
+# decode to the JAX package's).
+def _bf16_conf(conf: str, ckpt: str, sub: str, name: str, **over) -> str:
+    """A copy of the yaml `conf` with `compute_dtype: bfloat16` (and `over`)
+    as `<sub>/<name>.yaml`, whose run directory holds `ckpt` as model.ep1."""
+    import yaml
+
+    with open(conf) as f:
+        base = yaml.safe_load(f)
+    path = os.path.join(sub, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(dict(base, compute_dtype="bfloat16", **over), f)
+    dst = os.path.join(sub, name, "checkpoints", "model.ep1")
+    os.makedirs(os.path.dirname(dst))
+    os.symlink(ckpt, dst)
+    return path
+
+
+def _top1(conf: str, result: str) -> dict:
+    """{utt_id: token ids} of a result TSV the eval CLI wrote."""
+    import pandas as pd
+
+    df = pd.read_table(os.path.join(os.path.splitext(conf)[0], "results", result), comment="#")
+    return {u: str(t) for u, t in zip(df["utt_id"], df["token_id"])}
+
+
+def _share_equal(a: dict, b: dict) -> float:
+    require(set(a) == set(b), "two decodes of one corpus hold other utterances")
+    return sum(a[u] == b[u] for u in a) / len(a)
+
+
+def _shared_prefix(a: dict, b: dict) -> float:
+    """The mean share of its tokens that a hypothesis of `a` shares, from the
+    start, with the same utterance's of `b` (seed weights give flat scores:
+    once two decodes take different tokens they seldom meet again, so this
+    says how long they went together)."""
+    shares = []
+    for u in a:
+        x, y = a[u].split(), b[u].split()
+        n = next((i for i, (p, q) in enumerate(zip(x, y)) if p != q), min(len(x), len(y)))
+        shares.append(n / max(len(x), len(y), 1))
+    return sum(shares) / len(shares)
+
+
+def decode_bf16(args, root: str, tr: dict, mp: dict, l3: dict, l33: dict, l4: dict, dev, card: str) -> dict:
+    """Phase 13: the 80-utterance corpus decoded in bf16 at full width.  L1
+    beam 8, L3-1 (`fused_indirect`, `fused`, and the dense `indirect` route)
+    and L4 ALSD beam 10 through the eval CLI on bf16 copies of the earlier
+    phases' yamls and checkpoints; L3-3 through `build_decode_fn` and
+    `decode_dataset` with the LM cast to bf16 (as `bench.py` casts it; the
+    CLI keeps the LM float32), its layer step by K6 and then by the dense
+    route.  Launch counts prove the bf16 launchers ran; one step of one L3-1
+    and one L3-3 batch is held against the CPU; top-1 agreement with the
+    float32 decodes and between the routes is printed."""
+    from emoasr_tpu_torch.config import load_config
+    from emoasr_tpu_torch.data.asr_dataset import ASRDataset
+    from emoasr_tpu_torch.eval import test_asr
+    from emoasr_tpu_torch.eval.decode import build_decode_fn
+    from emoasr_tpu_torch.eval.test_asr import decode_dataset, load_asr_model, load_lm
+    from emoasr_tpu_torch.models.layers import make_pad_mask
+    from emoasr_tpu_torch.models.lm import bert as bert_mod
+    from emoasr_tpu_torch.search.common import make_lm_fusion
+    from emoasr_tpu_torch.utils.precision import cast_floating
+    from emoasr_tpu_torch.utils.vocab import Vocab
+
+    bf = torch.bfloat16
+    sub = os.path.join(root, "bf16_decode")
+    os.makedirs(sub)
+    wav_s, runs, agree, prefix = tr["wav_s"], {}, {}, {}
+
+    def cli(conf: str, what: str, beam=None, wav: float = wav_s) -> tuple:
+        test_asr._SETUP_CACHE.clear()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        argv = ["-conf", conf, "-ep", "1"] + ([] if beam is None else ["--beam_width", str(beam)])
+        with _LogCapture("force-finalized") as cap:
+            out = test_asr.main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = launch_counts()
+        require(out is not None and out[3].startswith("WER:"), f"bf16 {what}: CLI returned {out}")
+        forced = int(cap.lines[0].split()[0]) if cap.lines else 0
+        runs[what] = {"launches": launches, "seconds": dt, "utt_per_s": args.n_utts / dt, "rtf": dt / wav,
+                      "forced_finalisations": forced}
+        return out, launches
+
+    def no_f32(launches: dict, what: str) -> None:
+        used = [k for k, n in launches.items() if n and k != "topk" and not k.endswith("_bf16")
+                and k not in ("ctc_alpha", "ctc_beta_grad")]
+        require(not used, f"bf16 {what}: float32 launchers ran: {used}")
+
+    # L1 CTC(Transformer), the trainer's model.ep1, CTC prefix beam 8
+    cfg1 = tr["cfg"]
+    conf = _bf16_conf(tr["conf_path"], tr["ckpt"], sub, "l1")
+    out, launches = cli(conf, "l1_beam8", 8)
+    require(launches["attention_fwd_bf16"] == cfg1.enc_num_layers * mp["batches"] and launches["topk"] > 0,
+            f"bf16 L1 beam 8: launches {launches}")
+    no_f32(launches, "L1 beam 8")
+    result = "result_test_beam8_len0.0_ctc0.0_lm0.00_ep1.tsv"
+    pair = (_top1(conf, result), _top1(tr["conf_path"], result))
+    agree["l1_beam8_vs_f32"], prefix["l1_beam8_vs_f32"] = _share_equal(*pair), _shared_prefix(*pair)
+    print(f"  L1 beam 8: {out[3]}; RTF {runs['l1_beam8']['rtf']:.5f} (first call) on {card}; launches "
+          f"attention_fwd_bf16 {launches['attention_fwd_bf16']}, topk {launches['topk']}; the same top-1 as the "
+          f"float32 decode for {agree['l1_beam8_vs_f32']:.3f} (leading tokens shared {prefix['l1_beam8_vs_f32']:.3f})")
+
+    # L3-1, beam 10 with joint CTC 0.3: K5 in bf16 (both variants), then the dense route
+    result = "result_test_beam10_len2.0_ctc0.3_lm0.00_ep1.tsv"
+    confs = {}
+    for mode, kernel in (("fused_indirect", "decoder_step_indirect_bf16"), ("fused", "decoder_step_bf16"),
+                         ("indirect", None)):
+        src = l3["confs"]["fused" if mode == "fused" else "fused_indirect"]
+        ckpt = os.path.join(os.path.splitext(src)[0], "checkpoints", "model.ep1")
+        confs[mode] = conf = _bf16_conf(src, ckpt, sub, f"l3_1_{mode}", dec_step_mode=mode)
+        cfg = load_config(conf)
+        out, launches = cli(conf, f"l3_1_{mode}")
+        steps = launches["topk"]
+        n_attn = cfg.enc_num_layers * l3["batches"]
+        require(launches["attention_bias_fwd_bf16"] == launches["attention_fwd_bf16"] == n_attn,
+                f"bf16 L3-1 {mode}: attention launches {launches}, want {n_attn} with the bias")
+        step_launches = {k: launches[k] for k in ("decoder_step_bf16", "decoder_step_indirect_bf16")}
+        require(steps >= l3["batches"] and all(n == (cfg.dec_num_layers * steps if k == kernel else 0)
+                                               for k, n in step_launches.items()),
+                f"bf16 L3-1 {mode}: {steps} beam steps, step launches {step_launches}")
+        no_f32(launches, f"L3-1 {mode}")
+        runs[f"l3_1_{mode}"]["beam_steps"] = steps
+        used = f"{kernel} {launches[kernel]}" if kernel else "no K5"
+        print(f"  L3-1 {mode}: {out[3]}; RTF {runs[f'l3_1_{mode}']['rtf']:.5f} (first call) on {card}; {steps} beam "
+              f"steps, {runs[f'l3_1_{mode}']['forced_finalisations']} force-finalized; launches {used}, attention "
+              f"with bias (bf16) {launches['attention_bias_fwd_bf16']}")
+    tops = {m: _top1(c, result) for m, c in confs.items()}
+    for key, pair in (("l3_1_fused_indirect_vs_f32", (tops["fused_indirect"], _top1(l3["confs"]["fused_indirect"], result))),
+                      ("l3_1_fused_indirect_vs_dense_bf16", (tops["fused_indirect"], tops["indirect"])),
+                      ("l3_1_fused_vs_fused_indirect", (tops["fused"], tops["fused_indirect"]))):
+        agree[key], prefix[key] = _share_equal(*pair), _shared_prefix(*pair)
+    print(f"  L3-1 bf16 top-1 (equal; leading tokens shared): fused_indirect as float32 "
+          f"{agree['l3_1_fused_indirect_vs_f32']:.3f}; {prefix['l3_1_fused_indirect_vs_f32']:.3f}, as the dense bf16 "
+          f"route {agree['l3_1_fused_indirect_vs_dense_bf16']:.3f}; {prefix['l3_1_fused_indirect_vs_dense_bf16']:.3f}, "
+          f"fused as fused_indirect {agree['l3_1_fused_vs_fused_indirect']:.3f}; "
+          f"{prefix['l3_1_fused_vs_fused_indirect']:.3f}")
+
+    # L3-3: the LM cast to bf16, fused at 0.5, through build_decode_fn + decode_dataset
+    ckpt33 = os.path.join(os.path.splitext(l33["conf"])[0], "checkpoints", "model.ep1")
+    conf33 = _bf16_conf(l33["conf"], ckpt33, sub, "l3_3")
+    cfg33 = load_config(conf33)
+    lm16, lm_cfg = load_lm(l33["lm_conf"], l33["lm_path"])
+    lm16 = cast_floating(lm16.to(dev), bf)
+    ds33 = ASRDataset(cfg33, tr["test_tsv"], phase="test")
+    vocab = Vocab(cfg33.vocab_path)
+    fn33 = build_decode_fn(load_asr_model(ckpt33, cfg33), cfg33, cfg33.beam_width, cfg33.len_weight,
+                           cfg33.decode_ctc_weight, lm=make_lm_fusion(lm16, cfg33.lm_weight), top1=True, device=dev)
+    tables33 = {}
+    for route, fused in (("k6", True), ("dense", False)):
+        bert_mod.FUSED_INDIRECT_STEP = fused
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            rows = decode_dataset(cfg33, ds33, fn33, vocab)
+            torch.cuda.synchronize()
+        finally:
+            bert_mod.FUSED_INDIRECT_STEP = None
+        dt = time.perf_counter() - t0
+        launches = launch_counts()
+        steps = launches["topk"]
+        require(len(rows) == args.n_utts and all(r[1] is not None for r in rows), f"bf16 L3-3 {route}: {len(rows)} rows")
+        require(steps > 0 and launches["decoder_step_indirect_bf16"] == cfg33.dec_num_layers * steps
+                and launches["lm_step_indirect_bf16"] == (lm_cfg.num_layers * steps if fused else 0),
+                f"bf16 L3-3 {route}: {steps} beam steps, launches {launches}")
+        no_f32(launches, f"L3-3 {route}")
+        tables33[route] = {r[0]: str(r[1]) for r in rows}
+        runs[f"l3_3_{route}"] = {"launches": launches, "seconds": dt, "utt_per_s": args.n_utts / dt,
+                                 "rtf": dt / wav_s, "beam_steps": steps}
+        print(f"  L3-3 (LM bf16) LM step by {route}: {args.n_utts} utts in {dt:.3f} s, RTF {dt / wav_s:.5f} (models "
+              f"loaded once, first call of this route) on {card}; {steps} beam steps; launches decoder_step_indirect_bf16 "
+              f"{launches['decoder_step_indirect_bf16']}, lm_step_indirect_bf16 {launches['lm_step_indirect_bf16']}")
+    f32_k6 = dict(zip(sorted(tables33["k6"]), (str(t) for t in l33["tables"]["k6"])))
+    for key, pair in (("l3_3_k6_vs_dense_bf16", (tables33["k6"], tables33["dense"])),
+                      ("l3_3_k6_vs_f32", (tables33["k6"], f32_k6))):
+        agree[key], prefix[key] = _share_equal(*pair), _shared_prefix(*pair)
+    print(f"  L3-3 bf16 top-1 (equal; leading tokens shared): K6 as the dense bf16 route "
+          f"{agree['l3_3_k6_vs_dense_bf16']:.3f}; {prefix['l3_3_k6_vs_dense_bf16']:.3f}, as the float32 decode with "
+          f"K6 {agree['l3_3_k6_vs_f32']:.3f}; {prefix['l3_3_k6_vs_f32']:.3f}")
+
+    # L4 RNN-T(Conformer), the trainer's model.ep1, ALSD beam 10
+    cfg4 = l4["cfg"]
+    conf = _bf16_conf(l4["conf_path"], l4["ckpt"], sub, "l4")
+    out, launches = cli(conf, "l4_beam10", cfg4.beam_width, l4["wav_s"])
+    require(launches["attention_bias_fwd_bf16"] == cfg4.enc_num_layers * l4["batches"] and launches["topk"] > 0
+            and launches["lstm_fwd_bf16"] == launches["rnnt_joint_bf16"] == 0, f"bf16 L4 beam: launches {launches}")
+    no_f32(launches, "L4 beam 10")
+    result = f"result_test_beam{cfg4.beam_width}_len0.0_ctc0.0_lm0.00_ep1.tsv"
+    pair = (_top1(conf, result), _top1(l4["conf_path"], result))
+    agree["l4_beam10_vs_f32"], prefix["l4_beam10_vs_f32"] = _share_equal(*pair), _shared_prefix(*pair)
+    print(f"  L4 ALSD beam {cfg4.beam_width}: {out[3]}; RTF {runs['l4_beam10']['rtf']:.5f} (first call) on {card}; "
+          f"launches topk {launches['topk']}, attention with bias (bf16) {launches['attention_bias_fwd_bf16']}; the same "
+          f"top-1 as the float32 decode for {agree['l4_beam10_vs_f32']:.3f} (leading tokens shared "
+          f"{prefix['l4_beam10_vs_f32']:.3f})")
+
+    # one step of one L3-1 and one L3-3 batch: card (bf16 kernels) against the CPU (plain bf16, and f32)
+    ds_ = ASRDataset(cfg33, tr["test_tsv"], phase="test")
+    batcher = ds_.make_batcher()
+    bi, idx = next(b for b in batcher if batcher.buckets[b[0]].max_xlen == 400)
+    batch = ds_.collate(idx[:4], 400, batcher.buckets[bi].max_ylen)
+    xs, xlens = torch.from_numpy(batch["xs"]), torch.from_numpy(batch["xlens"]).long()
+    W, V = cfg33.beam_width, cfg33.vocab_size
+    g = torch.Generator().manual_seed(args.seed)
+    step_err = {}
+    with torch.no_grad():
+        cpu16 = cast_floating(load_asr_model(ckpt33, cfg33), bf).eval()
+        e0, l0, _ = cpu16.encode(xs.to(bf), xlens)
+        B, T = e0.shape[0], e0.shape[1]
+        toks = torch.randint(3, V, (B, W), generator=g)
+        pos = torch.full((B, W), 3)
+        rnd = lambda *shape: torch.randn(*shape, generator=g).to(bf).float()  # values bf16 holds exactly
+        dec_caches = [tuple(rnd(B, W, 8, cfg33.dec_num_attention_heads, cfg33.dec_hidden_size // cfg33.dec_num_attention_heads)
+                            for _ in range(2)) for _ in range(cfg33.dec_num_layers)]
+        lm_caches = [tuple(rnd(B, W, 8, lm_cfg.num_attention_heads, lm_cfg.hidden_size // lm_cfg.num_attention_heads)
+                           for _ in range(2)) for _ in range(lm_cfg.num_layers)]
+        anc = torch.randint(0, W, (B, W, 8), generator=g, dtype=torch.int32)
+        anc[:, :, 3] = torch.arange(W, dtype=torch.int32)[None, :]
+        sides = {"cuda": (cast_floating(load_asr_model(ckpt33, cfg33).to(dev), bf).eval(), lm16, dev, bf),
+                 "cpu": (cpu16, cast_floating(load_lm(l33["lm_conf"], l33["lm_path"])[0], bf), torch.device("cpu"), bf),
+                 "cpu f32": (load_asr_model(ckpt33, cfg33).eval(), load_lm(l33["lm_conf"], l33["lm_path"])[0],
+                             torch.device("cpu"), torch.float32)}
+        bert_mod.FUSED_INDIRECT_STEP = True
+        try:
+            scores = {}
+            before = launch_counts()
+            for name, (model, lm, d, dt) in sides.items():
+                dec, el = model.decoder, l0.to(d)
+                cross = dec.precompute_cross_kv(e0.to(d, dt))
+                logits, _ = dec.decode_step_cached_indirect(
+                    toks.reshape(-1).to(d), pos.to(d), [tuple(x.to(d, dt) for x in kv) for kv in dec_caches],
+                    anc.to(d), cross, make_pad_mask(el, T)[:, None, None, :], beam_width=W,
+                    step_mode="fused_indirect", elens=el.to(torch.int32))
+                att = torch.log_softmax(logits.float(), -1).reshape(B, W, V)
+                lm_logp, _ = lm.predict_step_indirect(
+                    toks.to(d), pos.to(d), [tuple(x.to(d, dt) for x in kv) for kv in lm_caches], anc.to(d))
+                scores[name] = {"l3_1": att.cpu(), "l3_3": (att + cfg33.lm_weight * lm_logp.float()).cpu()}
+            used = {k: launch_counts()[k] - before[k] for k in before}
+        finally:
+            bert_mod.FUSED_INDIRECT_STEP = None
+    require(used["decoder_step_indirect_bf16"] == cfg33.dec_num_layers and used["lm_step_indirect_bf16"] == lm_cfg.num_layers,
+            f"the bf16 card-vs-CPU step did not go through the bf16 kernels: {used}")
+    for what in ("l3_1", "l3_3"):
+        s16, s32, got = scores["cpu"][what], scores["cpu f32"][what], scores["cuda"][what]
+        noise = (s16 - s32).abs().max().item()
+        tol = 2 * noise + BF16_STEP * s32.abs().max().item()
+        err = _max_err(got, s16)
+        require(err <= tol, f"bf16 {what} step card vs CPU: max abs err {err} > {tol} (CPU bf16 vs f32: {noise})")
+        step_err[what] = {"max_abs_err": err, "tol": tol, "cpu_bf16_vs_f32": noise}
+        print(f"  one (4,400,80) batch, one {what.upper().replace('_', '-')} step's scores on the card (bf16 kernels) vs "
+              f"the CPU's plain bf16 path: max abs err {err:.3e} (tol {tol:.3e} = 2 x the CPU's bf16-vs-f32 "
+              f"{noise:.3e} + one bf16 step of the largest score)")
+    return {"runs": runs, "same_top1": agree, "leading_tokens_shared": prefix, "step_card_vs_cpu": step_err}
 
 
 def train_l4(args, root: str, card: str, compute_dtype: str = "float32", per_bucket=(2, 2, 2, 2, 2)) -> dict:
@@ -2849,6 +3235,25 @@ KERNEL_ROWS = (
     ("rnnt_joint_bf16", "emoasr_tpu_torch/csrc/rnnt_joint.cu", "emoasr_tpu/ops/rnnt_pallas.py:51"),
     ("lstm_fwd_bf16", "emoasr_tpu_torch/csrc/lstm_scan.cu", "emoasr_tpu/ops/lstm_pallas.py:56"),
     ("lstm_bwd_bf16", "emoasr_tpu_torch/csrc/lstm_scan.cu", "emoasr_tpu/ops/lstm_pallas.py:117"),
+    # the bf16 launchers of the beam steps, as the bf16 decoding paths launch them
+    ("decoder_step_bf16", "emoasr_tpu_torch/csrc/decoder_step.cu", "emoasr_tpu/ops/decoder_step_pallas.py:86"),
+    ("decoder_step_indirect_bf16", "emoasr_tpu_torch/csrc/decoder_step.cu",
+     "emoasr_tpu/ops/decoder_step_pallas.py:347"),
+    ("lm_step_indirect_bf16", "emoasr_tpu_torch/csrc/lm_step.cu", "emoasr_tpu/ops/lm_step_pallas.py:85"),
+)
+
+# the widths above what the kernels took before this slice: the same
+# launchers, another instance of each kernel (K7 with 32 or 16 cells a
+# block, K8 with w_hh in shared memory).  No shipped configuration is that
+# wide, so no main path launches them: they are checked and timed in phases
+# 3 and 14 and reported beside the `kernels` line.
+WIDE_ROWS = (
+    ("rnnt_joint_j1024", "emoasr_tpu_torch/csrc/rnnt_joint.cu", "emoasr_tpu/ops/rnnt_pallas.py:51"),
+    ("rnnt_joint_j1024_bf16", "emoasr_tpu_torch/csrc/rnnt_joint.cu", "emoasr_tpu/ops/rnnt_pallas.py:51"),
+    ("lstm_fwd_h1024", "emoasr_tpu_torch/csrc/lstm_scan.cu", "emoasr_tpu/ops/lstm_pallas.py:56"),
+    ("lstm_bwd_h1024", "emoasr_tpu_torch/csrc/lstm_scan.cu", "emoasr_tpu/ops/lstm_pallas.py:117"),
+    ("lstm_fwd_h1024_bf16", "emoasr_tpu_torch/csrc/lstm_scan.cu", "emoasr_tpu/ops/lstm_pallas.py:56"),
+    ("lstm_bwd_h1024_bf16", "emoasr_tpu_torch/csrc/lstm_scan.cu", "emoasr_tpu/ops/lstm_pallas.py:117"),
 )
 
 
@@ -2869,7 +3274,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
-    print(f"[1/13] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    print(f"[1/14] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     found = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     set_matmul_precision("float32")
     print(f"  TF32 found (matmul, cudnn) = {found}; the port's switch for float32 sets "
@@ -2880,11 +3285,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels = all_kernels()
     build_all(kernels)
-    print(f"[2/13] built {', '.join(k.name for k in kernels)} from "
+    print(f"[2/14] built {', '.join(k.name for k in kernels)} from "
           f"{', '.join(sorted({k.source for k in kernels}))} in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernels against their plain versions
-    print("[3/13] kernels against their plain versions on the card, forward and backward")
+    print("[3/14] kernels against their plain versions on the card, forward and backward")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     errs = {"topk": check_topk(dev, gen), **check_attention(dev, gen),
@@ -2895,8 +3300,7 @@ def main(argv=None) -> int:
     errs.update(ctc_head_fwd=head["fwd"], ctc_head_grad_e=head["grad_e"], ctc_head_grad_w=head["grad_w"])
     bias = check_attention_bias(dev, gen)
     errs.update(attention_bias_fwd=bias["fwd"], attention_bias_bwd=bias["bwd"], attention_bias_fwd_bf16=bias["fwd_bf16"])
-    step = check_decoder_step(dev, gen)
-    errs.update(decoder_step=step["direct"], decoder_step_indirect=step["indirect"])
+    errs.update(check_decoder_step(dev, gen))
     errs["lm_step_indirect"] = check_lm_step(dev, gen)
     errs["rnnt_joint"] = check_rnnt_joint(dev, gen)
     lstm = check_lstm(dev, gen)
@@ -2906,13 +3310,18 @@ def main(argv=None) -> int:
     errs.update(check_attention_backward_bf16(dev, gen))
     errs["rnnt_joint_bf16"] = check_rnnt_joint_bf16(dev, gen)
     errs.update(check_lstm_bf16(dev, gen))
+    print("  the bf16 beam steps (K5 direct and indirect, K6) and the widths above J = 819 and H = 512")
+    errs.update(check_decoder_step(dev, gen, torch.bfloat16))
+    errs["lm_step_indirect_bf16"] = check_lm_step(dev, gen, torch.bfloat16)
+    errs.update(check_rnnt_joint_wide(dev, gen))
+    errs.update(check_lstm_wide(dev, gen))
 
     scratch_root = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(scratch_root, exist_ok=True)
     root = tempfile.mkdtemp(dir=scratch_root)
     try:
         # 4. training at full width, then one micro-step against the CPU
-        print("[4/13] main path: L1 CTC(Transformer) training through the train CLI")
+        print("[4/14] main path: L1 CTC(Transformer) training through the train CLI")
         tr = train_full_width(args, root, card)
         n_layers = tr["cfg"].enc_num_layers
         step_check = check_micro_step(tr, dev, {
@@ -2921,27 +3330,27 @@ def main(argv=None) -> int:
         step_split = time_micro_step(tr, dev, card)
 
         # 5. learning on the card
-        print("[5/13] learning on the card: the small overfit corpus, train CLI then eval CLI")
+        print("[5/14] learning on the card: the small overfit corpus, train CLI then eval CLI")
         overfit = overfit_on_card(args, root)
 
         # 6. decode the trainer's checkpoint
-        print("[6/13] main path: decode of the trainer's model.ep1 through the eval CLI")
+        print("[6/14] main path: decode of the trainer's model.ep1 through the eval CLI")
         mp = decode_path(args, tr, dev, card)
 
         # 7. the Conformer's attention with its bias, forward and backward
-        print("[7/13] main path: L2 CTC(Conformer) training, two micro-steps through the train CLI")
+        print("[7/14] main path: L2 CTC(Conformer) training, two micro-steps through the train CLI")
         l2 = train_conformer_steps(args, root, card)
 
         # 8. the slice's path: L3-1 joint-CTC beam decode
-        print("[8/13] main path: L3-1 Conformer + attention decoder, beam 10 with joint CTC, through the eval CLI")
+        print("[8/14] main path: L3-1 Conformer + attention decoder, beam 10 with joint CTC, through the eval CLI")
         l3 = decode_l3_1(args, root, tr["test_tsv"], tr["wav_s"], dev, card)
 
         # 9. the slice's path: L3-3, the same with Transformer-LM shallow fusion
-        print("[9/13] main path: L3-3, L3-1 with Transformer-LM shallow fusion 0.5, through the eval CLI")
+        print("[9/14] main path: L3-3, L3-1 with Transformer-LM shallow fusion 0.5, through the eval CLI")
         l33 = decode_l3_3(args, root, tr, dev, card)
 
         # 10. the slice's path: L4 RNN-T(Conformer) training, then greedy and ALSD decoding
-        print("[10/13] main path: L4 RNN-T(Conformer) training through the train CLI, then its model.ep1 "
+        print("[10/14] main path: L4 RNN-T(Conformer) training through the train CLI, then its model.ep1 "
               "greedily and with the ALSD beam through the eval CLI")
         l4 = train_l4(args, root, card)
         n_layers = l4["cfg"].enc_num_layers
@@ -2954,7 +3363,7 @@ def main(argv=None) -> int:
                 "an entry point left TF32 on for a float32 model")
 
         # 11. the slice's path: L1 trained in bf16, then its model.ep1 greedily
-        print("[11/13] main path: L1 CTC(Transformer) training with compute_dtype bfloat16 through the train CLI, "
+        print("[11/14] main path: L1 CTC(Transformer) training with compute_dtype bfloat16 through the train CLI, "
               "then its model.ep1 greedily through the eval CLI")
         l1b_root = os.path.join(root, "l1_bfloat16")
         os.makedirs(l1b_root)
@@ -2968,7 +3377,7 @@ def main(argv=None) -> int:
         l1b_dec = decode_greedy_bf16(l1b, card, ("attention_fwd_bf16",))
 
         # 12. the slice's path: L4 trained in bf16, then its model.ep1 greedily
-        print("[12/13] main path: L4 RNN-T(Conformer) training with compute_dtype bfloat16 through the train CLI, "
+        print("[12/14] main path: L4 RNN-T(Conformer) training with compute_dtype bfloat16 through the train CLI, "
               "then its model.ep1 greedily through the eval CLI")
         l4b = train_l4(args, root, card, "bfloat16", per_bucket=(1, 1, 1, 1, 1))
         n_layers = l4b["cfg"].enc_num_layers
@@ -2978,11 +3387,16 @@ def main(argv=None) -> int:
             "rnnt_joint": 0, "lstm_fwd": 0, "lstm_bwd": 0, "attention_fwd": 0, "attention_bwd": 0})
         l4b_split = time_l4_micro_step(l4b, dev, card)
         l4b_dec = decode_greedy_bf16(l4b, card, ("attention_fwd_bf16", "attention_bias_fwd_bf16"))
+
+        # 13. the slice's path: bf16 beam decoding of L1, L3-1, L3-3 and L4
+        print("[13/14] main path: bf16 beam decoding at full width: L1 beam 8, L3-1 (K5 bf16, both variants), "
+              "L3-3 with the LM in bf16 (K6 bf16 and the dense route), L4 ALSD beam 10")
+        b16 = decode_bf16(args, root, tr, mp, l3, l33, {**l4, "batches": l4_dec["batches"]}, dev, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     set_matmul_precision("float32")  # the bf16 entry points turned TF32 on for their float32 remainder
 
-    # 11. timings at the largest bucket, then the result lines
+    # 14. timings at the largest bucket, then the result lines
     big = mp["bucket"]
     B, T2 = big.batch_size, ((big.max_xlen - 1) // 2 - 1) // 2
     lens = torch.linspace(T2 // 4, T2, B, device=dev).round().int()
@@ -3008,30 +3422,43 @@ def main(argv=None) -> int:
     times.update(time_attention_bias(dev, gen, B, T2, 4, 64, lens, bf))
     times.update(time_rnnt_joint(dev, gen, l4_big.batch_size, l4_T, l4_big.max_ylen + 1, 512, 1000, bf))
     times.update(time_lstm(dev, gen, l4_big.batch_size, l4_big.max_ylen + 1, 512, 128, bf))
-    print(f"[13/13] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
+    times.update(time_decoder_step(dev, gen, B, 10, 258, T2, 64, lens, bf))
+    times.update(time_lm_step(dev, gen, B, 10, 256, 64, bf))
+    for dt, sfx in ((torch.float32, ""), (bf, "_bf16")):  # the widths above what the kernels took before
+        r = time_rnnt_joint(dev, gen, l4_big.batch_size, l4_T, l4_big.max_ylen + 1, 1024, 1000, dt)
+        times["rnnt_joint_j1024" + sfx] = r["rnnt_joint" + sfx]
+        r = time_lstm(dev, gen, l4_big.batch_size, l4_big.max_ylen + 1, 1024, 128, dt)
+        times["lstm_fwd_h1024" + sfx], times["lstm_bwd_h1024" + sfx] = r["lstm_fwd" + sfx], r["lstm_bwd" + sfx]
+    print(f"[14/14] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
           f"decoder step W = 10, pos = 64; L4: B = {l4_big.batch_size}, T' = {l4_T}, U+1 = {l4_big.max_ylen + 1}) "
           f"on {smi}")
 
     paths = [tr["launches"], l2["launches"], l4["launches"], l1b["launches"], l4b["launches"],
              l1b_dec["launches"], l4b_dec["launches"]] + [
         r["launches"] for r in (*mp["runs"].values(), *l3["runs"].values(), *l33["runs"].values(),
-                                *l4_dec["runs"].values())]
+                                *l4_dec["runs"].values(), *b16["runs"].values())]
     ms = lambda x: "none" if x is None else f"{x:.4f}"
-    rows = []
-    for name, src, rep in KERNEL_ROWS:
+
+    def row_of(name, src, rep, launches):
         t = times[name]
-        launches = sum(p[name] for p in paths)
-        require(launches > 0, f"kernel {name} was launched no time on the main paths")
-        rows.append({
+        extra = f", the dense route {t['dense_route_ms']:.4f}" if "dense_route_ms" in t else ""
+        print(f"  {name}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} by {t['bound_by']}, plain "
+              f"{t['plain_ms']:.4f}, library {ms(t['library_ms'])}{extra}), {launches} launches")
+        return {
             "name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches,
             "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"],
             **{k: t[k] for k in ("dense_route_ms", "ctc_beam_shape") if k in t},
-        })
-        extra = f", the dense route {t['dense_route_ms']:.4f}" if "dense_route_ms" in t else ""
-        print(f"  {name}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} by {t['bound_by']}, plain "
-              f"{t['plain_ms']:.4f}, library {ms(t['library_ms'])}{extra}), {launches} launches")
+        }
+
+    rows = []
+    for name, src, rep in KERNEL_ROWS:
+        launches = sum(p[name] for p in paths)
+        require(launches > 0, f"kernel {name} was launched no time on the main paths")
+        rows.append(row_of(name, src, rep, launches))
+    print("  the same launchers at the widths above what they took before (no main path is that wide):")
+    wide = [row_of(name, src, rep, 0) for name, src, rep in WIDE_ROWS]
     print(json.dumps({
         "train": {k: tr[k] for k in ("micro_steps", "seconds", "epoch_seconds", "micro_steps_per_s",
                                      "utt_per_s", "launches", "losses")},
@@ -3061,6 +3488,8 @@ def main(argv=None) -> int:
                                               "utt_per_s", "launches", "losses")},
         "l4_bf16_micro_step": {**l4b_split, **l4b_step},
         "l4_bf16_greedy_decode": l4b_dec,
+        "bf16_beam_decode": b16,
+        "wide_widths": wide,
         "card": smi, "total_seconds": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": rows}))

@@ -19,8 +19,18 @@
 // post-softmax zeroing give a masked key the weight exp(-1e9 - max) = 0 in
 // f32, so masked keys are skipped; the W beams of an utterance attend as W
 // queries over one read of that utterance's encoder K/V, masked by `elens`
-// (elens == 0: the cross-attention term is zero).  float32 only, so the
-// rounding of the probabilities to the activation dtype is the identity.
+// (elens == 0: the cross-attention term is zero).
+//
+// Types: h, the caches, the encoder K/V, the weights and the outputs share
+// one storage type, float32 or bfloat16 (the TPU kernel's activation dtype
+// `adt`), and so do the activations in shared memory.  Every sum is f32;
+// the TPU kernel's rounding points are kept: every dense product rounds
+// once to adt after adding its f32 bias, LayerNorm statistics are f32 and
+// its output is rounded, the scores are f32 from the adt queries and keys,
+// p_past / p_new and the cross-attention's p are rounded before their AV
+// products, each head's output is rounded, and every residual add is an
+// add in adt (x = h + dense(.), x = x + dense(.), y = x + ff).  In float32
+// each rounding is the identity.
 //
 // Indirect variant: the caches stay in physical slot order (Bu, W, L, H, dk)
 // and anc[u, w, l] names the slot that holds beam w's column l.  The TPU
@@ -31,7 +41,8 @@
 // What bounds it on this card: at the decode shapes (Bu = 18, W = 10,
 // D = 256, F = 2048, T = 399, pos ~ 64) the step reads 5.8 MB of weights,
 // ~15 MB of encoder K/V and ~24 MB of live cache for ~0.6 GFLOP, so bytes
-// bound it.  This version computes on the CUDA cores in f32.
+// bound it; in bf16 each of those byte counts halves.  This version
+// computes on the CUDA cores in f32 (bf16 values widen exactly).
 //
 // Design (its helpers shared with csrc/lm_step.cu, K6, in csrc/beam_step.cuh):
 // rows of different utterances are independent, so one thread-block
@@ -55,7 +66,7 @@
 //
 // The source builds into two libraries, one per variant, so that nvcc
 // compiles them side by side: EMO_DECODER_STEP_INDIRECT=0 exports
-// emo_decoder_step_f32, =1 exports emo_decoder_step_indirect_f32.
+// emo_decoder_step_{f32,bf16}, =1 exports emo_decoder_step_indirect_{f32,bf16}.
 
 #include "beam_step.cuh"
 
@@ -73,46 +84,50 @@ enum {
   LN3_S, LN3_B, W1, B1, W2, B2, kNumWeights
 };
 
+template <typename E>
 struct Params {
-  const float* h;        // (N, D)
-  const float* cache_k;  // (N, L, D), or (Bu, W, L, D) in slot order
-  const float* cache_v;
+  const E* h;            // (N, D)
+  const E* cache_k;      // (N, L, D), or (Bu, W, L, D) in slot order
+  const E* cache_v;
   const int* pos;        // (N,)
   const int* anc;        // (Bu, W, L); indirect only
-  const float* cross_k;  // (Bu, T, D)
-  const float* cross_v;
+  const E* cross_k;      // (Bu, T, D)
+  const E* cross_v;
   const int* elens;      // (Bu,)
-  const float* w[kNumWeights];  // 2-D weights as (out, in) rows
-  float* y;              // (N, D)
-  float* k_new;          // (N, D)
-  float* v_new;          // (N, D)
+  const E* w[kNumWeights];  // 2-D weights as (out, in) rows
+  E* y;                  // (N, D)
+  E* k_new;              // (N, D)
+  E* v_new;              // (N, D)
   int W, L, T, D, F, H;
 };
 
-// shared memory, in floats: five (WP, D) activations and one scratch region
-// that holds, in turn, the warps' self-attention scores, one head's
-// cross-attention scores with the partial outputs, and the FF hidden layer
+// shared memory, in bytes: five (WP, D) activations of es bytes an element,
+// and one scratch region that holds, in turn, the warps' self-attention
+// scores (f32), one head's cross-attention scores with the partial outputs
+// (f32), and the FF hidden layer (WP, F) of es-byte elements
 struct Layout {
   int act, lp, tp, slices, scratch, total;
-  __host__ __device__ Layout(int WP, int D, int F, int H, int L, int T) {
+  __host__ __device__ Layout(int WP, int D, int F, int H, int L, int T, int es) {
     const int dk = D / H;
-    act = WP * D;
+    act = WP * D * es;
     lp = (L + 4) / 4 * 4;
     tp = (T + 3) / 4 * 4;
     const int chunks = (dk + 31) / 32;
     slices = kWarps / chunks > 0 ? kWarps / chunks : 1;
-    const int self_attn = kWarps * 2 * lp;  // scores and cache rows
-    const int cross = WP * tp + slices * WP * dk;
-    scratch = WP * F;
+    const int self_attn = kWarps * 2 * lp * 4;  // scores and cache rows
+    const int cross = (WP * tp + slices * WP * dk) * 4;
+    scratch = WP * F * es;
     if (self_attn > scratch) scratch = self_attn;
     if (cross > scratch) scratch = cross;
     total = 5 * act + scratch;
   }
 };
 
-template <int WP, bool INDIRECT>
-__global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params p) {
-  extern __shared__ __align__(16) float smem[];
+template <int WP, bool INDIRECT, typename E>
+__global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params<E> p) {
+  using V = Vec<E>;
+  using VT = typename V::T;
+  extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int csize = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -121,17 +136,17 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params 
   const int W = p.W, L = p.L, T = p.T, D = p.D, F = p.F, H = p.H;
   const int dk = D / H;
   const float scale = 1.0f / sqrtf(static_cast<float>(dk));
-  const Layout lay(WP, D, F, H, L, T);
-  float* xs = smem;              // residual stream
-  float* hn = xs + lay.act;      // LayerNorm output, then attention output
-  float* qs = hn + lay.act;      // queries (self, then cross)
-  float* kn = qs + lay.act;      // k_new
-  float* vn = kn + lay.act;      // v_new
-  float* scratch = vn + lay.act;
-  float* att = hn;
+  const Layout lay(WP, D, F, H, L, T, sizeof(E));
+  E* xs = reinterpret_cast<E*>(smem);  // residual stream
+  E* hn = xs + WP * D;                 // LayerNorm output, then attention output
+  E* qs = hn + WP * D;                 // queries (self, then cross)
+  E* kn = qs + WP * D;                 // k_new
+  E* vn = kn + WP * D;                 // v_new
+  float* scratch = reinterpret_cast<float*>(smem + 5 * lay.act);
+  E* att = hn;
 
   for (int i = threadIdx.x; i < WP * D; i += kThreads)
-    xs[i] = i < W * D ? p.h[static_cast<size_t>(u) * W * D + i] : 0.f;
+    xs[i] = i < W * D ? p.h[static_cast<size_t>(u) * W * D + i] : from_float<E>(0.f);
   __syncthreads();
 
   // ---- self-attention (cached, one new position per row) ----
@@ -141,9 +156,9 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params 
   owned(D, rank, csize, gd0, gd1);
   owned(F, rank, csize, gf0, gf1);
   const size_t row0 = static_cast<size_t>(u) * W * D;  // the utterance's rows in device memory
-  dense<WP>(hn, D, p.w[WQ], p.w[BQ], D, gd0, gd1, qs, kPlain, nullptr, nullptr, W);
-  dense<WP>(hn, D, p.w[WK], p.w[BK], D, gd0, gd1, kn, kPlain, nullptr, p.k_new + row0, W);
-  dense<WP>(hn, D, p.w[WV], p.w[BV], D, gd0, gd1, vn, kPlain, nullptr, p.v_new + row0, W);
+  dense<WP, E>(hn, D, p.w[WQ], p.w[BQ], D, gd0, gd1, qs, kPlain, nullptr, nullptr, W);
+  dense<WP, E>(hn, D, p.w[WK], p.w[BK], D, gd0, gd1, kn, kPlain, nullptr, p.k_new + row0, W);
+  dense<WP, E>(hn, D, p.w[WV], p.w[BV], D, gd0, gd1, vn, kPlain, nullptr, p.v_new + row0, W);
   __syncthreads();
   share<WP>(cluster, qs, D, rank, csize);
   share<WP>(cluster, kn, D, rank, csize);
@@ -153,7 +168,7 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params 
   cached_attention<INDIRECT>(cluster, qs, kn, vn, att, scratch, lay.lp, p.pos, p.anc, p.cache_k, p.cache_v,
                              u, W, L, D, H);
   cluster.sync();
-  dense<WP>(att, D, p.w[WO], p.w[BO], D, gd0, gd1, xs, kResidual, xs, nullptr, W);
+  dense<WP, E>(att, D, p.w[WO], p.w[BO], D, gd0, gd1, xs, kResidual, xs, nullptr, W);
   __syncthreads();
   share<WP>(cluster, xs, D, rank, csize);
   cluster.sync();
@@ -161,7 +176,7 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params 
   // ---- cross-attention: the W beams share one read of the encoder K/V ----
   layer_norm(xs, hn, p.w[LN2_S], p.w[LN2_B], D, WP, warp, kWarps);
   __syncthreads();
-  dense<WP>(hn, D, p.w[CWQ], p.w[CBQ], D, gd0, gd1, qs, kPlain, nullptr, nullptr, W);
+  dense<WP, E>(hn, D, p.w[CWQ], p.w[CBQ], D, gd0, gd1, qs, kPlain, nullptr, nullptr, W);
   __syncthreads();
   share<WP>(cluster, qs, D, rank, csize);
   cluster.sync();
@@ -175,23 +190,23 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params 
       for (int t0 = warp * 32; t0 < elen; t0 += kWarps * 32) {  // a lane per frame
         const int t = t0 + lane;
         if (t < elen) {
-          const float4* kr = reinterpret_cast<const float4*>(
+          const VT* kr = reinterpret_cast<const VT*>(
               p.cross_k + (static_cast<size_t>(u) * T + t) * D + hh * dk);
           float acc[WP];
 #pragma unroll
           for (int w = 0; w < WP; ++w) acc[w] = 0.f;
-          for (int d4 = 0; d4 < dk / 4; ++d4) {
-            const float4 kv = __ldg(kr + d4);
+          for (int dv = 0; dv < dk / V::N; ++dv) {
+            const VT kv = __ldg(kr + dv);
 #pragma unroll
             for (int w = 0; w < WP; ++w)
-              acc[w] = dot4(*reinterpret_cast<const float4*>(qs + w * D + hh * dk + 4 * d4), kv, acc[w]);
+              acc[w] = V::dot(*reinterpret_cast<const VT*>(qs + w * D + hh * dk + V::N * dv), kv, acc[w]);
           }
 #pragma unroll
           for (int w = 0; w < WP; ++w) scx[w * lay.tp + t] = acc[w] * scale;
         }
       }
       __syncthreads();
-      for (int w = warp; w < W; w += kWarps) {  // softmax, a warp per beam
+      for (int w = warp; w < W; w += kWarps) {  // softmax, a warp per beam; p rounded to E
         float* row = scx + w * lay.tp;
         float m = -INFINITY;
         for (int t = lane; t < elen; t += 32) m = fmaxf(m, row[t]);
@@ -203,7 +218,7 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params 
           den += e;
         }
         den = warp_sum(den);
-        for (int t = lane; t < elen; t += 32) row[t] = row[t] / den;
+        for (int t = lane; t < elen; t += 32) row[t] = round_to<E>(row[t] / den);
       }
       __syncthreads();
       // P V: a warp per (chunk of 32 output dims, slice of the frames)
@@ -214,9 +229,9 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params 
           float acc[WP];
 #pragma unroll
           for (int w = 0; w < WP; ++w) acc[w] = 0.f;
-          const float* vc = p.cross_v + static_cast<size_t>(u) * T * D + hh * dk + d;
+          const E* vc = p.cross_v + static_cast<size_t>(u) * T * D + hh * dk + d;
           for (int t = ta; t < tb; ++t) {
-            const float v = __ldg(vc + static_cast<size_t>(t) * D);
+            const float v = ldg(vc + static_cast<size_t>(t) * D);
 #pragma unroll
             for (int w = 0; w < WP; ++w) acc[w] = fmaf(scx[w * lay.tp + t], v, acc[w]);
           }
@@ -225,7 +240,7 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params 
         }
       }
       __syncthreads();
-      for (int i = threadIdx.x; i < W * dk; i += kThreads) {
+      for (int i = threadIdx.x; i < W * dk; i += kThreads) {  // the head's output, rounded to E
         const int w = i / dk, d = i % dk;
         float o = 0.f;
         for (int s = 0; s < lay.slices; ++s) o += part[(s * WP + w) * dk + d];
@@ -235,7 +250,7 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params 
     }
   }
   cluster.sync();
-  dense<WP>(att, D, p.w[CWO], p.w[CBO], D, gd0, gd1, xs, kResidual, xs, nullptr, W);
+  dense<WP, E>(att, D, p.w[CWO], p.w[CBO], D, gd0, gd1, xs, kResidual, xs, nullptr, W);
   __syncthreads();
   share<WP>(cluster, xs, D, rank, csize);
   cluster.sync();
@@ -243,80 +258,85 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params 
   // ---- feed-forward ----
   layer_norm(xs, hn, p.w[LN3_S], p.w[LN3_B], D, WP, warp, kWarps);
   __syncthreads();
-  float* ff = scratch;  // (WP, F)
-  dense<WP>(hn, D, p.w[W1], p.w[B1], F, gf0, gf1, ff, kRelu, nullptr, nullptr, W);
+  E* ff = reinterpret_cast<E*>(scratch);  // (WP, F)
+  dense<WP, E>(hn, D, p.w[W1], p.w[B1], F, gf0, gf1, ff, kRelu, nullptr, nullptr, W);
   __syncthreads();
   share<WP>(cluster, ff, F, rank, csize);
   cluster.sync();
-  dense<WP>(ff, F, p.w[W2], p.w[B2], D, gd0, gd1, nullptr, kResidual, xs, p.y + row0, W);
+  dense<WP, E>(ff, F, p.w[W2], p.w[B2], D, gd0, gd1, nullptr, kResidual, xs, p.y + row0, W);
   __syncthreads();
 }
 
-template <int WP, bool INDIRECT>
-int launch_wp(const Params& p, int Bu, int cluster, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(Layout(WP, p.D, p.F, p.H, p.L, p.T).total) * sizeof(float);
-  return launch_clusters(decoder_step_kernel<WP, INDIRECT>, p, Bu, cluster, smem, stream);
+template <int WP, bool INDIRECT, typename E>
+int launch_wp(const Params<E>& p, int Bu, int cluster, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(Layout(WP, p.D, p.F, p.H, p.L, p.T, sizeof(E)).total);
+  return launch_clusters(decoder_step_kernel<WP, INDIRECT, E>, p, Bu, cluster, smem, stream);
 }
 
-template <bool INDIRECT>
+template <bool INDIRECT, typename E>
 int launch(const void* h, const void* cache_k, const void* cache_v, const void* pos,
            const void* anc, const void* cross_k, const void* cross_v, const void* elens,
            const void* const* weights, void* y, void* k_new, void* v_new, int Bu, int W, int L,
            int T, int D, int F, int H, int cluster, void* stream) {
-  if (Bu < 1 || W < 1 || W > kMaxW || H < 1 || D % H != 0 || (D / H) % 4 != 0 || F % 4 != 0
+  constexpr int NV = Vec<E>::N;
+  if (Bu < 1 || W < 1 || W > kMaxW || H < 1 || D % H != 0 || (D / H) % NV != 0 || F % NV != 0
       || L < 1 || T < 1 || cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
-  p.h = static_cast<const float*>(h);
-  p.cache_k = static_cast<const float*>(cache_k);
-  p.cache_v = static_cast<const float*>(cache_v);
+  Params<E> p;
+  p.h = static_cast<const E*>(h);
+  p.cache_k = static_cast<const E*>(cache_k);
+  p.cache_v = static_cast<const E*>(cache_v);
   p.pos = static_cast<const int*>(pos);
   p.anc = static_cast<const int*>(anc);
-  p.cross_k = static_cast<const float*>(cross_k);
-  p.cross_v = static_cast<const float*>(cross_v);
+  p.cross_k = static_cast<const E*>(cross_k);
+  p.cross_v = static_cast<const E*>(cross_v);
   p.elens = static_cast<const int*>(elens);
-  for (int i = 0; i < kNumWeights; ++i) p.w[i] = static_cast<const float*>(weights[i]);
-  p.y = static_cast<float*>(y);
-  p.k_new = static_cast<float*>(k_new);
-  p.v_new = static_cast<float*>(v_new);
+  for (int i = 0; i < kNumWeights; ++i) p.w[i] = static_cast<const E*>(weights[i]);
+  p.y = static_cast<E*>(y);
+  p.k_new = static_cast<E*>(k_new);
+  p.v_new = static_cast<E*>(v_new);
   p.W = W; p.L = L; p.T = T; p.D = D; p.F = F; p.H = H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (W <= 4) return launch_wp<4, INDIRECT>(p, Bu, cluster, st);
-  if (W <= 12) return launch_wp<12, INDIRECT>(p, Bu, cluster, st);
-  return launch_wp<16, INDIRECT>(p, Bu, cluster, st);
+  if (W <= 4) return launch_wp<4, INDIRECT, E>(p, Bu, cluster, st);
+  if (W <= 12) return launch_wp<12, INDIRECT, E>(p, Bu, cluster, st);
+  return launch_wp<16, INDIRECT, E>(p, Bu, cluster, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// shared memory one block needs, in bytes (the wrapper holds it against the
-// card's limit before it launches)
-int emo_decoder_step_smem_bytes(int W, int L, int T, int D, int F, int H) {
-  return static_cast<int>(Layout(padded_width(W), D, F, H, L, T).total * sizeof(float));
+// shared memory one block needs, in bytes, for elements of `es` bytes (the
+// wrapper holds it against the card's limit before it launches)
+int emo_decoder_step_smem_bytes(int W, int L, int T, int D, int F, int H, int es) {
+  return Layout(padded_width(W), D, F, H, L, T, es).total;
 }
 
 // `weights`: host array of the 22 device pointers in WEIGHT_NAMES order, the
-// 2-D ones as contiguous (out, in) rows; `cluster`: blocks per utterance
+// 2-D ones as contiguous (out, in) rows, all of the activations' type;
+// `cluster`: blocks per utterance
 #if EMO_DECODER_STEP_INDIRECT
-int emo_decoder_step_indirect_f32(const void* h, const void* cache_k, const void* cache_v,
-                                  const void* pos, const void* anc, const void* cross_k,
-                                  const void* cross_v, const void* elens,
-                                  const void* const* weights, void* y, void* k_new, void* v_new,
-                                  int Bu, int W, int L, int T, int D, int F, int H, int cluster,
-                                  void* stream) {
-  return launch<true>(h, cache_k, cache_v, pos, anc, cross_k, cross_v, elens, weights, y, k_new,
-                      v_new, Bu, W, L, T, D, F, H, cluster, stream);
-}
+#define EMO_STEP_ARGS                                                                            \
+  const void *h, const void *cache_k, const void *cache_v, const void *pos, const void *anc,     \
+      const void *cross_k, const void *cross_v, const void *elens, const void *const *weights,   \
+      void *y, void *k_new, void *v_new, int Bu, int W, int L, int T, int D, int F, int H,        \
+      int cluster, void *stream
+#define EMO_STEP_CALL(E)                                                                         \
+  launch<true, E>(h, cache_k, cache_v, pos, anc, cross_k, cross_v, elens, weights, y, k_new,     \
+                  v_new, Bu, W, L, T, D, F, H, cluster, stream)
+int emo_decoder_step_indirect_f32(EMO_STEP_ARGS) { return EMO_STEP_CALL(float); }
+int emo_decoder_step_indirect_bf16(EMO_STEP_ARGS) { return EMO_STEP_CALL(__nv_bfloat16); }
 #else
-int emo_decoder_step_f32(const void* h, const void* cache_k, const void* cache_v,
-                         const void* pos, const void* cross_k, const void* cross_v,
-                         const void* elens, const void* const* weights, void* y, void* k_new,
-                         void* v_new, int Bu, int W, int L, int T, int D, int F, int H,
-                         int cluster, void* stream) {
-  return launch<false>(h, cache_k, cache_v, pos, nullptr, cross_k, cross_v, elens, weights, y,
-                       k_new, v_new, Bu, W, L, T, D, F, H, cluster, stream);
-}
+#define EMO_STEP_ARGS                                                                            \
+  const void *h, const void *cache_k, const void *cache_v, const void *pos,                      \
+      const void *cross_k, const void *cross_v, const void *elens, const void *const *weights,   \
+      void *y, void *k_new, void *v_new, int Bu, int W, int L, int T, int D, int F, int H,        \
+      int cluster, void *stream
+#define EMO_STEP_CALL(E)                                                                         \
+  launch<false, E>(h, cache_k, cache_v, pos, nullptr, cross_k, cross_v, elens, weights, y,       \
+                   k_new, v_new, Bu, W, L, T, D, F, H, cluster, stream)
+int emo_decoder_step_f32(EMO_STEP_ARGS) { return EMO_STEP_CALL(float); }
+int emo_decoder_step_bf16(EMO_STEP_ARGS) { return EMO_STEP_CALL(__nv_bfloat16); }
 #endif
 
 const char* emo_error_string(int err) {

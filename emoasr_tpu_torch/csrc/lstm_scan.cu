@@ -51,6 +51,14 @@
 //    = d pre_t[b] . w_hh[:, j] and adds d pre_t[b] h_{t-1}[b, j] into its
 //    register share of d w[:, j]; at the end the warps of a unit add their
 //    shares in warp order.
+// Above H = 512 a gate row (forward) or column (backward) of 4H values no
+// longer fits a warp's registers beside the rest: every block then takes
+// kWarps units (one warp each), keeps their rows (forward, 4 x Hp floats a
+// unit) or columns (backward, 4Hp floats a unit) of w_hh in shared memory,
+// 128 KB at H = 1024, and reads them from there each step; the backward's
+// warp, the only one of its unit, writes its d w_hh column itself.  The
+// grid, ceil(H / 8) blocks of one per SM, must still be co-resident: H <=
+// 1024 (8 x 132 SMs would allow 1056; the kernels are instanced for 1024).
 // The barrier's latency (one to a few microseconds) times T is the
 // expected limit, not the arithmetic.
 
@@ -63,8 +71,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxH = 512;
-constexpr size_t kSmemBudget = 200 * 1024;
+constexpr int kMaxRegH = 512;   // the widest H whose w_hh rows/columns stay in registers
+constexpr int kMaxH = 1024;     // the widest H of the shared-memory instances
+constexpr size_t kSmemBudget = 200 * 1024;  // registers variant: the batch tile's room
+constexpr size_t kSmemMax = 232448;         // what one block may use on sm_90
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -112,8 +122,9 @@ __device__ __forceinline__ float dot4(const float4& a, const float4& b, float ac
 // ------------------------------------------------------------------ forward
 
 // NC float4 chunks of a length-H row per lane (k = 4 lane + 128 c + q);
-// hbuf (2, B, H) f32: h_t goes to slot t % 2
-template <int NC, typename S>
+// hbuf (2, B, H) f32: h_t goes to slot t % 2.  WS: the rows of w_hh sit in
+// shared memory (U = kWarps units, one warp each) instead of registers.
+template <int NC, typename S, bool WS>
 __global__ void __launch_bounds__(kThreads)
 lstm_fwd_kernel(const S* __restrict__ xp, const float* __restrict__ w,
                 const S* __restrict__ h0, const S* __restrict__ c0, S* __restrict__ ys,
@@ -122,27 +133,36 @@ lstm_fwd_kernel(const S* __restrict__ xp, const float* __restrict__ w,
                 int BT) {
   constexpr int Hp = 128 * NC;
   extern __shared__ __align__(16) float smem[];
-  float* hs = smem;                                // (BT, Hp): h_{t-1} of a batch tile
-  float* cs = smem + static_cast<size_t>(BT) * Hp;  // (B, U): c of the block's units
+  float* wsm = smem;                                   // WS: (U, 4, Hp) rows g H + j of w
+  float* hs = smem + (WS ? static_cast<size_t>(U) * 4 * Hp : 0);  // (BT, Hp): h_{t-1} of a batch tile
+  float* cs = hs + static_cast<size_t>(BT) * Hp;      // (B, U): c of the block's units
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int u = warp % U, j = blockIdx.x * U + u;
   const int bstep = kWarps / U, bfirst = warp / U;
   const bool live = j < H;  // warp-uniform
   const int H4 = 4 * H;
 
-  float4 wr[4][NC];  // rows g H + j of w, this lane's chunks
+  float4 wr[4][WS ? 1 : NC];  // rows g H + j of w, this lane's chunks
+  if constexpr (WS) {
+    for (int i = threadIdx.x; i < U * 4 * Hp; i += kThreads) {
+      const int uu = i / (4 * Hp), g = (i / Hp) % 4, k = i % Hp;
+      const int jj = blockIdx.x * U + uu;
+      wsm[i] = (jj < H && k < H) ? w[static_cast<size_t>(g * H + jj) * H + k] : 0.f;
+    }  // the batch tile's barrier below orders these stores before any read
+  } else {
 #pragma unroll
-  for (int g = 0; g < 4; ++g)
+    for (int g = 0; g < 4; ++g)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      float e[4];
+      for (int c = 0; c < NC; ++c) {
+        float e[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int k = 4 * lane + 128 * c + q;
-        e[q] = (live && k < H) ? w[static_cast<size_t>(g * H + j) * H + k] : 0.f;
+        for (int q = 0; q < 4; ++q) {
+          const int k = 4 * lane + 128 * c + q;
+          e[q] = (live && k < H) ? w[static_cast<size_t>(g * H + j) * H + k] : 0.f;
+        }
+        wr[g][c] = make_float4(e[0], e[1], e[2], e[3]);
       }
-      wr[g][c] = make_float4(e[0], e[1], e[2], e[3]);
-    }
+  }
   // (b, j) belongs to lane 0 of the warp with bfirst = b % bstep: only that
   // thread reads and writes cs[b][u]
   if (live && lane == 0)
@@ -169,7 +189,14 @@ lstm_fwd_kernel(const S* __restrict__ xp, const float* __restrict__ w,
         for (int c = 0; c < NC; ++c) {
           const float4 hv = hrow[lane + 32 * c];
 #pragma unroll
-          for (int g = 0; g < 4; ++g) acc[g] = dot4(wr[g][c], hv, acc[g]);
+          for (int g = 0; g < 4; ++g) {
+            float4 wv;
+            if constexpr (WS)
+              wv = reinterpret_cast<const float4*>(wsm + (static_cast<size_t>(u) * 4 + g) * Hp)[lane + 32 * c];
+            else
+              wv = wr[g][c];
+            acc[g] = dot4(wv, hv, acc[g]);
+          }
         }
 #pragma unroll
         for (int g = 0; g < 4; ++g) acc[g] = warp_sum(acc[g]);
@@ -209,8 +236,10 @@ lstm_fwd_kernel(const S* __restrict__ xp, const float* __restrict__ w,
 // ------------------------------------------------------------------ backward
 
 // NG float4 chunks of a length-4H column per lane (r = 4 lane + 128 c + q);
-// dpre (2, B, 4H) f32: d pre_t goes to slot t % 2
-template <int NG, typename S>
+// dpre (2, B, 4H) f32: d pre_t goes to slot t % 2.  WS: the columns of w_hh
+// sit in shared memory (U = kWarps units, one warp each, so that a warp's
+// share of d w_hh[:, j] is the whole of it) instead of registers.
+template <int NG, typename S, bool WS>
 __global__ void __launch_bounds__(kThreads)
 lstm_bwd_kernel(const S* __restrict__ gates, const S* __restrict__ hcprev,
                 const S* __restrict__ dys, const S* __restrict__ dhT,
@@ -219,9 +248,10 @@ lstm_bwd_kernel(const S* __restrict__ gates, const S* __restrict__ hcprev,
                 unsigned* bar, int B, int T, int H, int U, int BT) {
   constexpr int Gp = 128 * NG;
   extern __shared__ __align__(16) float smem[];
-  const int rows = max(BT, kWarps);
-  float* ds = smem;                                   // (BT, Gp): d pre_t of a batch tile
-  float* dhs = smem + static_cast<size_t>(rows) * Gp;  // (B, U): carried d h
+  const int rows = WS ? BT : max(BT, kWarps);
+  float* wcs = smem;                                   // WS: (U, Gp) columns j of w
+  float* ds = smem + (WS ? static_cast<size_t>(U) * Gp : 0);  // (BT, Gp): d pre_t of a batch tile
+  float* dhs = ds + static_cast<size_t>(rows) * Gp;    // (B, U): carried d h
   float* dcs = dhs + static_cast<size_t>(B) * U;       // (B, U): carried d c
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int u = warp % U, j = blockIdx.x * U + u;
@@ -229,16 +259,25 @@ lstm_bwd_kernel(const S* __restrict__ gates, const S* __restrict__ hcprev,
   const bool live = j < H;
   const int H4 = 4 * H;
 
-  float4 wc[NG], acc[NG];  // column j of w, and this warp's share of d w[:, j]
+  float4 wc[WS ? 1 : NG], acc[NG];  // column j of w, and this warp's share of d w[:, j]
+  if constexpr (WS) {
+    for (int i = threadIdx.x; i < U * Gp; i += kThreads) {
+      const int r = i / U, uu = i % U;  // neighbouring threads read neighbouring columns
+      const int jj = blockIdx.x * U + uu;
+      wcs[static_cast<size_t>(uu) * Gp + r] = (jj < H && r < H4) ? w[static_cast<size_t>(r) * H + jj] : 0.f;
+    }  // the grid barrier below orders these stores before any read
+  }
 #pragma unroll
   for (int c = 0; c < NG; ++c) {
-    float e[4];
+    if constexpr (!WS) {
+      float e[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int r = 4 * lane + 128 * c + q;
-      e[q] = (live && r < H4) ? w[static_cast<size_t>(r) * H + j] : 0.f;
+      for (int q = 0; q < 4; ++q) {
+        const int r = 4 * lane + 128 * c + q;
+        e[q] = (live && r < H4) ? w[static_cast<size_t>(r) * H + j] : 0.f;
+      }
+      wc[c] = make_float4(e[0], e[1], e[2], e[3]);
     }
-    wc[c] = make_float4(e[0], e[1], e[2], e[3]);
     acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   if (live && lane == 0)
@@ -287,7 +326,12 @@ lstm_bwd_kernel(const S* __restrict__ gates, const S* __restrict__ hcprev,
 #pragma unroll
         for (int c = 0; c < NG; ++c) {
           const float4 d = drow[lane + 32 * c];
-          dot = dot4(d, wc[c], dot);
+          float4 wv;
+          if constexpr (WS)
+            wv = reinterpret_cast<const float4*>(wcs + static_cast<size_t>(u) * Gp)[lane + 32 * c];
+          else
+            wv = wc[c];
+          dot = dot4(d, wv, dot);
           acc[c].x = fmaf(d.x, hp, acc[c].x);
           acc[c].y = fmaf(d.y, hp, acc[c].y);
           acc[c].z = fmaf(d.z, hp, acc[c].z);
@@ -303,6 +347,20 @@ lstm_bwd_kernel(const S* __restrict__ gates, const S* __restrict__ hcprev,
       dh0[static_cast<size_t>(b) * H + j] = from_float<S>(dhs[b * U + u]);
       dc0[static_cast<size_t>(b) * H + j] = from_float<S>(dcs[b * U + u]);
     }
+  if constexpr (WS) {  // one warp a unit: its share is d w[:, j]
+    if (live) {
+#pragma unroll
+      for (int c = 0; c < NG; ++c) {
+        const float e[4] = {acc[c].x, acc[c].y, acc[c].z, acc[c].w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = 4 * lane + 128 * c + q;
+          if (r < H4) dw[static_cast<size_t>(r) * H + j] = e[q];
+        }
+      }
+    }
+    return;
+  }
   // d w[:, j]: the bstep warps of unit u add their shares in warp order
   __syncthreads();
   float4* part = reinterpret_cast<float4*>(ds);
@@ -332,26 +390,28 @@ lstm_bwd_kernel(const S* __restrict__ gates, const S* __restrict__ hcprev,
 
 // ------------------------------------------------------------------ launch
 
-// batch rows staged per tile: the whole batch if it fits, else a multiple
-// of kWarps (so that the warps' batch shares stay aligned across tiles)
-int batch_tile(int B, int row_floats, size_t fixed_bytes) {
-  const size_t room = kSmemBudget - fixed_bytes;
+// batch rows staged per tile: the whole batch if it fits `budget` beside
+// `fixed_bytes`, else a multiple of `align` (so that the warps' batch shares
+// stay aligned across tiles)
+int batch_tile(int B, int row_floats, size_t fixed_bytes, size_t budget, int align) {
+  const size_t room = budget - fixed_bytes;
   const int fit = static_cast<int>(room / (static_cast<size_t>(row_floats) * sizeof(float)));
   if (fit >= B) return B;
-  return (fit / kWarps) * kWarps;
+  return (fit / align) * align;
 }
 
-// units per block: the fewest (most blocks) whose grid is co-resident
+// units per block: the fewest, from u_min (most blocks), whose grid is
+// co-resident; `unit_floats` of shared memory a unit beside the batch tile
 template <typename K>
-cudaError_t plan(K kernel, int H, int B, int BT, int rows_floats, int& U, int& nblocks,
-                 size_t& smem) {
+cudaError_t plan(K kernel, int H, int B, int rows_floats, int unit_floats, int u_min, int& U,
+                 int& nblocks, size_t& smem) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  for (U = 1; U <= kWarps; U *= 2) {
-    smem = static_cast<size_t>(rows_floats) * sizeof(float) +
+  for (U = u_min; U <= kWarps; U *= 2) {
+    smem = (static_cast<size_t>(rows_floats) + static_cast<size_t>(U) * unit_floats) * sizeof(float) +
            2 * static_cast<size_t>(B) * U * sizeof(float);
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
@@ -365,43 +425,47 @@ cudaError_t plan(K kernel, int H, int B, int BT, int rows_floats, int& U, int& n
   return cudaErrorCooperativeLaunchTooLarge;  // the grid cannot be co-resident
 }
 
-template <int NC, typename S>
+template <int NC, typename S, bool WS>
 cudaError_t launch_fwd(const void* xp, const void* w, const void* h0, const void* c0, void* ys,
                        void* gates, void* hcprev, void* hT, void* cT, void* hbuf, void* bar,
                        int B, int T, int H, cudaStream_t stream) {
   constexpr int Hp = 128 * NC;
-  int BT = batch_tile(B, Hp, 2 * static_cast<size_t>(B) * kWarps * sizeof(float));
+  const int unit = WS ? 4 * Hp : 0;  // shared memory of a unit's rows of w
+  const size_t fixed = (static_cast<size_t>(kWarps) * unit + 2 * static_cast<size_t>(B) * kWarps) * sizeof(float);
+  int BT = batch_tile(B, Hp, fixed, WS ? kSmemMax : kSmemBudget, WS ? 1 : kWarps);
   if (BT < 1) return cudaErrorInvalidValue;
   int U = 0, nblocks = 0;
   size_t smem = 0;
-  cudaError_t err = plan(lstm_fwd_kernel<NC, S>, H, B, BT, BT * Hp, U, nblocks, smem);
+  cudaError_t err = plan(lstm_fwd_kernel<NC, S, WS>, H, B, BT * Hp, unit, WS ? kWarps : 1, U, nblocks, smem);
   if (err != cudaSuccess) return err;
   void* args[] = {&xp, &w, &h0, &c0, &ys, &gates, &hcprev, &hT, &cT, &hbuf, &bar,
                   &B, &T, &H, &U, &BT};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(lstm_fwd_kernel<NC, S>),
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(lstm_fwd_kernel<NC, S, WS>),
                                      dim3(nblocks), dim3(kThreads), args, smem, stream);
 }
 
-template <int NG, typename S>
+template <int NG, typename S, bool WS>
 cudaError_t launch_bwd(const void* gates, const void* hcprev, const void* dys, const void* dhT,
                        const void* dcT, const void* w, void* dxp, void* dw, void* dh0, void* dc0,
                        void* dpre, void* bar, int B, int T, int H, cudaStream_t stream) {
   constexpr int Gp = 128 * NG;
-  int BT = batch_tile(B, Gp, 2 * static_cast<size_t>(B) * kWarps * sizeof(float));
+  const int unit = WS ? Gp : 0;  // shared memory of a unit's column of w
+  const size_t fixed = (static_cast<size_t>(kWarps) * unit + 2 * static_cast<size_t>(B) * kWarps) * sizeof(float);
+  int BT = batch_tile(B, Gp, fixed, WS ? kSmemMax : kSmemBudget, WS ? 1 : kWarps);
   if (BT < 1) return cudaErrorInvalidValue;
   int U = 0, nblocks = 0;
   size_t smem = 0;
-  cudaError_t err = plan(lstm_bwd_kernel<NG, S>, H, B, BT, (BT > kWarps ? BT : kWarps) * Gp, U,
-                         nblocks, smem);
+  const int rows = WS ? BT : (BT > kWarps ? BT : kWarps);
+  cudaError_t err = plan(lstm_bwd_kernel<NG, S, WS>, H, B, rows * Gp, unit, WS ? kWarps : 1, U, nblocks, smem);
   if (err != cudaSuccess) return err;
   void* args[] = {&gates, &hcprev, &dys, &dhT, &dcT, &w, &dxp, &dw, &dh0, &dc0, &dpre, &bar,
                   &B, &T, &H, &U, &BT};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(lstm_bwd_kernel<NG, S>),
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(lstm_bwd_kernel<NG, S, WS>),
                                      dim3(nblocks), dim3(kThreads), args, smem, stream);
 }
 
 // the kernel instance for H (forward: NC chunks of a row of H; backward: NG
-// chunks of a column of 4H)
+// chunks of a column of 4H; w_hh in shared memory above kMaxRegH)
 template <typename S>
 int fwd(const void* xp, const void* w, const void* h0, const void* c0, void* ys, void* gates,
         void* hcprev, void* hT, void* cT, void* hbuf, void* bar, int B, int T, int H,
@@ -410,11 +474,13 @@ int fwd(const void* xp, const void* w, const void* h0, const void* c0, void* ys,
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (H <= 128)
-    err = launch_fwd<1, S>(xp, w, h0, c0, ys, gates, hcprev, hT, cT, hbuf, bar, B, T, H, s);
+    err = launch_fwd<1, S, false>(xp, w, h0, c0, ys, gates, hcprev, hT, cT, hbuf, bar, B, T, H, s);
   else if (H <= 256)
-    err = launch_fwd<2, S>(xp, w, h0, c0, ys, gates, hcprev, hT, cT, hbuf, bar, B, T, H, s);
+    err = launch_fwd<2, S, false>(xp, w, h0, c0, ys, gates, hcprev, hT, cT, hbuf, bar, B, T, H, s);
+  else if (H <= kMaxRegH)
+    err = launch_fwd<4, S, false>(xp, w, h0, c0, ys, gates, hcprev, hT, cT, hbuf, bar, B, T, H, s);
   else
-    err = launch_fwd<4, S>(xp, w, h0, c0, ys, gates, hcprev, hT, cT, hbuf, bar, B, T, H, s);
+    err = launch_fwd<8, S, true>(xp, w, h0, c0, ys, gates, hcprev, hT, cT, hbuf, bar, B, T, H, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -428,15 +494,17 @@ int bwd(const void* gates, const void* hcprev, const void* dys, const void* dhT,
   cudaError_t err;
   const int H4 = 4 * H;
   if (H4 <= 128)
-    err = launch_bwd<1, S>(gates, hcprev, dys, dhT, dcT, w, dxp, dw, dh0, dc0, dpre, bar, B, T, H, s);
+    err = launch_bwd<1, S, false>(gates, hcprev, dys, dhT, dcT, w, dxp, dw, dh0, dc0, dpre, bar, B, T, H, s);
   else if (H4 <= 256)
-    err = launch_bwd<2, S>(gates, hcprev, dys, dhT, dcT, w, dxp, dw, dh0, dc0, dpre, bar, B, T, H, s);
+    err = launch_bwd<2, S, false>(gates, hcprev, dys, dhT, dcT, w, dxp, dw, dh0, dc0, dpre, bar, B, T, H, s);
   else if (H4 <= 512)
-    err = launch_bwd<4, S>(gates, hcprev, dys, dhT, dcT, w, dxp, dw, dh0, dc0, dpre, bar, B, T, H, s);
+    err = launch_bwd<4, S, false>(gates, hcprev, dys, dhT, dcT, w, dxp, dw, dh0, dc0, dpre, bar, B, T, H, s);
   else if (H4 <= 1024)
-    err = launch_bwd<8, S>(gates, hcprev, dys, dhT, dcT, w, dxp, dw, dh0, dc0, dpre, bar, B, T, H, s);
+    err = launch_bwd<8, S, false>(gates, hcprev, dys, dhT, dcT, w, dxp, dw, dh0, dc0, dpre, bar, B, T, H, s);
+  else if (H <= kMaxRegH)
+    err = launch_bwd<16, S, false>(gates, hcprev, dys, dhT, dcT, w, dxp, dw, dh0, dc0, dpre, bar, B, T, H, s);
   else
-    err = launch_bwd<16, S>(gates, hcprev, dys, dhT, dcT, w, dxp, dw, dh0, dc0, dpre, bar, B, T, H, s);
+    err = launch_bwd<32, S, true>(gates, hcprev, dys, dhT, dcT, w, dxp, dw, dh0, dc0, dpre, bar, B, T, H, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

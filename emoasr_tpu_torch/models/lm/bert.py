@@ -183,8 +183,8 @@ class BertLayer(nn.Module):
 
     def _packed_step_weights(self):
         """`_step_weights`, checked and laid out once; built anew when a
-        parameter was replaced, moved or written since."""
-        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        parameter was replaced, moved, cast or written since."""
+        key = tuple((p.data_ptr(), p._version, p.dtype) for p in self.parameters())
         if getattr(self, "_pack_key", None) != key:
             self._pack, self._pack_key = pack_weights(self._step_weights()), key
         return self._pack

@@ -26,14 +26,22 @@ weight is such a kernel, and the CUDA kernel reads it in place (it wants
 layout.  `PackedWeights(weights)` does that check and layout once; a caller
 that steps many times passes it in place of the dict.
 
+Types: h, the caches, the encoder K/V and the weights share one dtype,
+float32 or bfloat16 (the activations' dtype `adt` of the JAX kernel), and
+so do the outputs.  In bf16 the step rounds where the JAX kernel rounds:
+each dense product once after its f32 bias, the LayerNorm output, p and
+each head's output, and every residual add (an add in bf16); scores,
+softmax and LayerNorm statistics are f32.
+
 For a CUDA tensor the functions launch `csrc/decoder_step.cu`; for a CPU
-tensor they take the plain versions.  On the card: float32 only
-(`TypeError` otherwise), W <= 16, D and F multiples of four, d_k a multiple
-of four, and the shared memory one block needs (five (W', D) activations
-plus the largest of the FF hidden layer (W', F), one head's cross-attention
-scores (W', T) and the warps' self-attention scratch 16 (L + 1), with W' = W
-rounded up to 4, 12 or 16) within 227 KB; anything else raises
-`ValueError`.  Decode-only: no dropout, no gradient.
+tensor they take the plain versions.  On the card: float32 or bfloat16,
+all of one dtype (`TypeError` otherwise), W <= 16, D, d_k and F multiples
+of four (eight in bfloat16), and the shared memory one block needs (five
+(W', D) activations plus the largest of the FF hidden layer (W', F), one
+head's cross-attention scores (W', T) in f32 and the warps' f32
+self-attention scratch 16 (L + 1), with W' = W rounded up to 4, 12 or 16)
+within 227 KB; anything else raises `ValueError`.  Decode-only: no
+dropout, no gradient.
 """
 
 from __future__ import annotations
@@ -58,15 +66,21 @@ WEIGHT_NAMES = (
     "w1", "b1", "w2", "b2",
 )
 
+# the launchers' suffix by storage dtype, and the elements a 16-byte word holds
+SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+VEC = {torch.float32: 4, torch.bfloat16: 8}
+
 # one source, two libraries (nvcc compiles the variants side by side)
 KERNEL = CudaKernel(
     "decoder_step.cu",
-    {"emo_decoder_step_f32": [P] * 11 + [I] * 8 + [P], "emo_decoder_step_smem_bytes": [I] * 6},
+    {**{f"emo_decoder_step_{s}": [P] * 11 + [I] * 8 + [P] for s in SUFFIX.values()},
+     "emo_decoder_step_smem_bytes": [I] * 7},
     defines=["EMO_DECODER_STEP_INDIRECT=0"],
 )
 KERNEL_INDIRECT = CudaKernel(
     "decoder_step.cu",
-    {"emo_decoder_step_indirect_f32": [P] * 12 + [I] * 8 + [P], "emo_decoder_step_smem_bytes": [I] * 6},
+    {**{f"emo_decoder_step_indirect_{s}": [P] * 12 + [I] * 8 + [P] for s in SUFFIX.values()},
+     "emo_decoder_step_smem_bytes": [I] * 7},
     defines=["EMO_DECODER_STEP_INDIRECT=1"], name="decoder_step_indirect",
 )
 
@@ -174,7 +188,8 @@ class PackedWeights:
     versions.  `names` orders the weights as the kernel takes them; `ff`
     names the feed-forward's first kernel, its bias and its second kernel
     (shapes (D, F), (F,), (F, D)); every other kernel is (D, D), every other
-    vector (D,)."""
+    vector (D,).  On the card all are of one dtype, float32 or bfloat16
+    (`dtype`), which the step's activations must share."""
 
     def __init__(self, weights: Dict[str, torch.Tensor], names=WEIGHT_NAMES, ff=("w1", "b1", "w2"),
                  what: str = "decoder-step kernel"):
@@ -182,6 +197,7 @@ class PackedWeights:
         self.D, self.F = weights[ff[0]].shape
         D, F = self.D, self.F
         self.device = weights[ff[0]].device
+        self.dtype = weights[ff[0]].dtype
         self.tensors = []
         shapes = {ff[0]: (F, D), ff[1]: (F,), ff[2]: (D, F)}
         for n in names:
@@ -192,8 +208,9 @@ class PackedWeights:
             if tuple(w.shape) != shapes.get(n, (D, D) if w.dim() == 2 else (D,)):
                 raise ValueError(f"{what}: weight {n} is {tuple(weights[n].shape)}")
             if self.device.type == "cuda":
-                if w.dtype != torch.float32 or w.device != self.device:
-                    raise TypeError(f"{what}: {n} is {w.dtype} on {w.device}, want float32 on {self.device}")
+                if self.dtype not in SUFFIX or w.dtype != self.dtype or w.device != self.device:
+                    raise TypeError(f"{what}: {n} is {w.dtype} on {w.device}, want float32 or bfloat16 "
+                                    f"(all weights of one dtype) on {self.device}")
                 if w.data_ptr() % 16:
                     raise ValueError(f"{what}: {n} must be 16-byte aligned")
             self.tensors.append(w)
@@ -220,10 +237,10 @@ def _launch(kernel, name, h, cache_k, cache_v, pos, anc, cross_k, cross_v, elens
     N, D = h.shape
     L, H, dk = cache_k.shape[-3], cache_k.shape[-2], cache_k.shape[-1]
     Bu, T = cross_k.shape[0], cross_k.shape[1]
-    dev = h.device
+    dev, dt = h.device, h.dtype
     what = "decoder-step kernel"
-    if h.dtype != torch.float32:
-        raise TypeError(f"{what} takes float32 only, not {h.dtype}")
+    if dt not in SUFFIX:
+        raise TypeError(f"{what} takes float32 or bfloat16, not {dt}")
     if torch.is_grad_enabled() and h.requires_grad:
         raise ValueError(f"{what}: decode-only, it has no backward")
     if H * dk != D or N != Bu * W or W < 1:
@@ -233,8 +250,11 @@ def _launch(kernel, name, h, cache_k, cache_v, pos, anc, cross_k, cross_v, elens
     F = pack.F
     if pack.D != D or pack.device != dev:
         raise ValueError(f"{what}: weights of width {pack.D} on {pack.device}, h of width {D} on {dev}")
-    if W > MAX_W or D % 4 or dk % 4 or F % 4:
-        raise ValueError(f"{what}: needs W <= {MAX_W} and D, d_k, F multiples of four; "
+    if pack.dtype != dt:
+        raise TypeError(f"{what}: weights are {pack.dtype}, h is {dt}")
+    vec = VEC[dt]
+    if W > MAX_W or D % vec or dk % vec or F % vec:
+        raise ValueError(f"{what}: needs W <= {MAX_W} and D, d_k, F multiples of {vec} in {dt}; "
                          f"got W={W}, D={D}, d_k={dk}, F={F}")
     want_cache = (N, L, H, dk) if anc is None else (Bu, W, L, H, dk)
     if cache_k.shape != want_cache or cache_v.shape != want_cache:
@@ -245,21 +265,21 @@ def _launch(kernel, name, h, cache_k, cache_v, pos, anc, cross_k, cross_v, elens
         raise ValueError(f"{what}: pos needs {N} entries, elens {Bu}, anc ({Bu}, {W}, {L})")
     for n, t in (("h", h), ("cache_k", cache_k), ("cache_v", cache_v), ("cross_k", cross_k),
                  ("cross_v", cross_v)):
-        if t.dtype != torch.float32 or t.device != dev:
-            raise TypeError(f"{what}: {n} is {t.dtype} on {t.device}, want float32 on {dev}")
+        if t.dtype != dt or t.device != dev:
+            raise TypeError(f"{what}: {n} is {t.dtype} on {t.device}, want {dt} on {dev}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{what}: {n} must be contiguous and 16-byte aligned")
-    shape_key = (W, L, T, D, F, H)
+    shape_key = (W, L, T, D, F, H, h.element_size())
     smem = _SMEM_BYTES.get(shape_key)
     if smem is None:
         smem = _SMEM_BYTES[shape_key] = kernel.lib().emo_decoder_step_smem_bytes(*shape_key)
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{what}: W={W}, D={D}, F={F}, T={T}, L={L} need {smem} bytes of "
+        raise ValueError(f"{what}: W={W}, D={D}, F={F}, T={T}, L={L} in {dt} need {smem} bytes of "
                          f"shared memory a block, the card allows {MAX_SMEM_BYTES}")
     # int32 inputs pass through as they are; anything else is converted
     pos32 = pos.to(device=dev, dtype=torch.int32).contiguous()
     elens32 = elens.to(device=dev, dtype=torch.int32).contiguous()
-    out = torch.empty((3, N, D), dtype=torch.float32, device=dev)
+    out = torch.empty((3, N, D), dtype=dt, device=dev)
     args = [h.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), pos32.data_ptr()]
     if anc is not None:
         anc32 = anc.to(device=dev, dtype=torch.int32).contiguous()
@@ -267,6 +287,7 @@ def _launch(kernel, name, h, cache_k, cache_v, pos, anc, cross_k, cross_v, elens
     args += [cross_k.data_ptr(), cross_v.data_ptr(), elens32.data_ptr(), pack.ptrs,
              out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
              Bu, W, L, T, D, F, H, _pick_cluster(Bu, dev)]
+    name = f"{name}_{SUFFIX[dt]}"
     if torch.cuda.current_device() == dev.index:
         kernel.launch(name, *args, torch.cuda.current_stream(dev).cuda_stream)
     else:
@@ -298,7 +319,7 @@ def fused_decoder_layer_step(
                                         _plain_weights(weights), beam_width)
     if h.device.type != "cuda":
         raise ValueError(f"decoder-step kernel: unsupported device {h.device}")
-    return _launch(KERNEL, "emo_decoder_step_f32", h, cache_k, cache_v, pos, None, cross_k, cross_v,
+    return _launch(KERNEL, "emo_decoder_step", h, cache_k, cache_v, pos, None, cross_k, cross_v,
                    elens, weights, int(beam_width))
 
 
@@ -321,5 +342,5 @@ def fused_decoder_layer_step_indirect(
                                                  elens, _plain_weights(weights), beam_width)
     if h.device.type != "cuda":
         raise ValueError(f"decoder-step kernel: unsupported device {h.device}")
-    return _launch(KERNEL_INDIRECT, "emo_decoder_step_indirect_f32", h, cache_k, cache_v, pos, anc, cross_k,
+    return _launch(KERNEL_INDIRECT, "emo_decoder_step_indirect", h, cache_k, cache_v, pos, anc, cross_k,
                    cross_v, elens, weights, int(beam_width))

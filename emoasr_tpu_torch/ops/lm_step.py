@@ -28,14 +28,22 @@ weight is such a kernel.  `PackedWeights` (`ops/decoder_step.py`) checks
 and lays them out once; a caller that steps many times passes it in place
 of the dict.
 
+Types: h, the caches and the weights share one dtype, float32 or bfloat16
+(the JAX kernel's `adt`), and so do the outputs.  In bf16 the step rounds
+where the JAX kernel rounds: each dense product once after its f32 bias,
+p and each head's output, each residual add before its LayerNorm (f32
+statistics, output rounded), and dense(x, wi) before and after the f32
+gelu (`erf_f32` stays f32).
+
 For a CUDA tensor `fused_bert_layer_step_indirect` launches
 `csrc/lm_step.cu`; for a CPU tensor it takes the plain version.  On the
-card: float32 only (`TypeError` otherwise), W <= 16, D, d_k and F multiples
-of four, and the shared memory one block needs (two (W', D) activations
-plus the larger of three (W', D) activations with the warps' attention
-scratch 8 x 2 (L + 4) and the FF hidden layer (W', F), with W' = W rounded
-up to 4, 12 or 16) within 227 KB; anything else raises `ValueError`.
-Decode-only: no dropout, no gradient.
+card: float32 or bfloat16, all of one dtype (`TypeError` otherwise),
+W <= 16, D, d_k and F multiples of four (eight in bfloat16), and the shared
+memory one block needs (two (W', D) activations plus the larger of three
+(W', D) activations with the warps' f32 attention scratch 8 x 2 (L + 4)
+and the FF hidden layer (W', F), with W' = W rounded up to 4, 12 or 16)
+within 227 KB; anything else raises `ValueError`.  Decode-only: no
+dropout, no gradient.
 """
 
 from __future__ import annotations
@@ -48,6 +56,8 @@ from emoasr_tpu_torch.ops.cuda_lib import I, P, CudaKernel
 from emoasr_tpu_torch.ops.decoder_step import (
     MAX_SMEM_BYTES,
     MAX_W,
+    SUFFIX,
+    VEC,
     PackedWeights,
     _dense,
     _layer_norm,
@@ -66,7 +76,8 @@ WHAT = "LM-step kernel"
 
 KERNEL = CudaKernel(
     "lm_step.cu",
-    {"emo_lm_step_indirect_f32": [P] * 9 + [I] * 7 + [P], "emo_lm_step_smem_bytes": [I] * 4},
+    {**{f"emo_lm_step_indirect_{s}": [P] * 9 + [I] * 7 + [P] for s in SUFFIX.values()},
+     "emo_lm_step_smem_bytes": [I] * 5},
 )
 
 # XLA's float32 erf (ErfImpl32), as `emoasr_tpu/ops/lm_step_pallas.py`
@@ -135,9 +146,9 @@ _SMEM_BYTES: Dict[Tuple[int, ...], int] = {}
 def _launch(h, cache_k, cache_v, pos, anc, weights):
     Bu, W, L, H, dk = cache_k.shape
     D, N = H * dk, Bu * W
-    dev = h.device
-    if h.dtype != torch.float32:
-        raise TypeError(f"{WHAT} takes float32 only, not {h.dtype}")
+    dev, dt = h.device, h.dtype
+    if dt not in SUFFIX:
+        raise TypeError(f"{WHAT} takes float32 or bfloat16, not {dt}")
     if torch.is_grad_enabled() and h.requires_grad:
         raise ValueError(f"{WHAT}: decode-only, it has no backward")
     if h.shape != (Bu, W, D) or cache_v.shape != cache_k.shape or L < 1:
@@ -150,33 +161,37 @@ def _launch(h, cache_k, cache_v, pos, anc, weights):
     F = pack.F
     if pack.D != D or pack.device != dev:
         raise ValueError(f"{WHAT}: weights of width {pack.D} on {pack.device}, h of width {D} on {dev}")
-    if W > MAX_W or D % 4 or dk % 4 or F % 4:
-        raise ValueError(f"{WHAT}: needs W <= {MAX_W} and D, d_k, F multiples of four; "
+    if pack.dtype != dt:
+        raise TypeError(f"{WHAT}: weights are {pack.dtype}, h is {dt}")
+    vec = VEC[dt]
+    if W > MAX_W or D % vec or dk % vec or F % vec:
+        raise ValueError(f"{WHAT}: needs W <= {MAX_W} and D, d_k, F multiples of {vec} in {dt}; "
                          f"got W={W}, D={D}, d_k={dk}, F={F}")
     for n, t in (("h", h), ("cache_k", cache_k), ("cache_v", cache_v)):
-        if t.dtype != torch.float32 or t.device != dev:
-            raise TypeError(f"{WHAT}: {n} is {t.dtype} on {t.device}, want float32 on {dev}")
+        if t.dtype != dt or t.device != dev:
+            raise TypeError(f"{WHAT}: {n} is {t.dtype} on {t.device}, want {dt} on {dev}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{WHAT}: {n} must be contiguous and 16-byte aligned")
-    shape_key = (W, L, D, F)
+    shape_key = (W, L, D, F, h.element_size())
     smem = _SMEM_BYTES.get(shape_key)
     if smem is None:
         smem = _SMEM_BYTES[shape_key] = KERNEL.lib().emo_lm_step_smem_bytes(*shape_key)
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{WHAT}: W={W}, D={D}, F={F}, L={L} need {smem} bytes of shared memory "
-                         f"a block, the card allows {MAX_SMEM_BYTES}")
+        raise ValueError(f"{WHAT}: W={W}, D={D}, F={F}, L={L} in {dt} need {smem} bytes of shared "
+                         f"memory a block, the card allows {MAX_SMEM_BYTES}")
     # int32 inputs pass through as they are; anything else is converted
     pos32 = pos.to(device=dev, dtype=torch.int32).contiguous()
     anc32 = anc.to(device=dev, dtype=torch.int32).contiguous()
-    out = torch.empty((3, N, D), dtype=torch.float32, device=dev)
+    out = torch.empty((3, N, D), dtype=dt, device=dev)
     args = [h.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), pos32.data_ptr(), anc32.data_ptr(),
             pack.ptrs, out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             Bu, W, L, D, F, H, _pick_cluster(Bu, dev)]
+    name = f"emo_lm_step_indirect_{SUFFIX[dt]}"
     if torch.cuda.current_device() == dev.index:
-        KERNEL.launch("emo_lm_step_indirect_f32", *args, torch.cuda.current_stream(dev).cuda_stream)
+        KERNEL.launch(name, *args, torch.cuda.current_stream(dev).cuda_stream)
     else:
         with torch.cuda.device(dev):
-            KERNEL.launch("emo_lm_step_indirect_f32", *args, torch.cuda.current_stream(dev).cuda_stream)
+            KERNEL.launch(name, *args, torch.cuda.current_stream(dev).cuda_stream)
     return out[0].view(Bu, W, D), out[1].view(Bu, W, H, dk), out[2].view(Bu, W, H, dk)
 
 

@@ -13,7 +13,8 @@ d c0.
 For CUDA tensors `lstm_scan_fused` launches `csrc/lstm_scan.cu`; for
 CPU tensors both directions take the plain versions `lstm_fwd_plain` and
 `lstm_bwd_plain`, which do the kernels' arithmetic a step at a time.  The
-kernels take H <= `MAX_H` and an `x_proj` of float32 or bfloat16 (others
+kernels take H <= `MAX_H` (w_hh in registers up to H = 512, in shared
+memory above) and an `x_proj` of float32 or bfloat16 (others
 raise `TypeError`), which is the storage dtype: as in the TPU kernel,
 h0 and c0 are cast to it, w_hh and the carried h and c are float32, and
 ys, h_T, c_T and the residuals `gates` and `hcprev` are stored rounded to
@@ -38,7 +39,11 @@ KERNEL = CudaKernel(
     },
 )
 
-MAX_H = 512  # a warp keeps one gate column of w_hh (4H values) in registers
+# Above H = 512 a block keeps its 8 units' rows (forward) or columns
+# (backward) of w_hh in shared memory, one block per SM; the cooperative
+# grid of ceil(H / 8) blocks must be co-resident on the card's SMs (132 on
+# the H100: H <= 1056), and the kernels are instanced up to H = 1024.
+MAX_H = 1024
 
 
 def lstm_fwd_plain(x_proj, w_hh, h0, c0):

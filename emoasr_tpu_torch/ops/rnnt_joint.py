@@ -15,7 +15,9 @@ time).  The backward is the chunked plain path's on both
 inputs' dtype), as the JAX custom VJP hands its backward to
 `rnnt_gathered_from_joint`: those matrix products are outside the TPU
 kernel.  The kernel takes float32 or bfloat16 activations (others raise
-`TypeError`) and J <= `MAX_J`.  As the TPU kernel does, it casts h_dec and
+`TypeError`) and any J whose z tile of 16 cells fits a block's shared
+memory (J <= 2794 on sm_90; it takes 64 cells a block up to J = 819, then
+32, then 16).  As the TPU kernel does, it casts h_dec and
 w to h_enc's dtype, forms z = tanh(h_enc + h_dec) in that dtype, sums the
 products z w in float32, adds the float32 bias and returns float32
 log-probabilities.  A label outside [0, V) selects nothing (logit 0).
@@ -33,10 +35,9 @@ from emoasr_tpu_torch.ops.rnnt import TIME_CHUNK, zero_cotangents, joint_gather_
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNEL = CudaKernel(
     "rnnt_joint.cu",
-    {f"emo_rnnt_joint_{s}": [P] * 7 + [I] * 6 + [L, L, P] for s in _SUFFIX.values()},
+    {**{f"emo_rnnt_joint_{s}": [P] * 7 + [I] * 6 + [L, L, P] for s in _SUFFIX.values()},
+     "emo_rnnt_joint_cells": [I]},
 )
-
-MAX_J = 768  # the kernel keeps the z of 64 cells, (J, 64) floats, in shared memory
 
 
 def rnnt_joint_plain(h_enc, h_dec, w_out, b_out, labels, blank_id: int = 0
@@ -117,7 +118,10 @@ def fused_joint_gather(
             raise TypeError(f"rnnt joint kernel: {name} is {t.dtype}")
         if t.device != h_enc.device:
             raise ValueError(f"rnnt joint kernel: {name} on {t.device}, h_enc on {h_enc.device}")
-    if J > MAX_J or min(B, T, U1, J, V) < 1 or not 0 <= blank_id < V:
-        raise ValueError(f"rnnt joint kernel: B={B}, T={T}, U+1={U1}, J={J} (max {MAX_J}), V={V}, blank {blank_id}")
+    if min(B, T, U1, J, V) < 1 or not 0 <= blank_id < V:
+        raise ValueError(f"rnnt joint kernel: B={B}, T={T}, U+1={U1}, J={J}, V={V}, blank {blank_id}")
+    if KERNEL.lib().emo_rnnt_joint_cells(J) == 0:
+        raise ValueError(f"rnnt joint kernel: J={J} is wider than the z tile of 16 cells that a block's "
+                         "shared memory holds")
     labels32 = labels.to(device=h_enc.device, dtype=torch.int32).contiguous()
     return _FusedJointGather.apply(h_enc.contiguous(), h_dec, w_out, b_out, labels32, blank_id)

@@ -11,7 +11,11 @@ score bias; attention backward, CTC head, CTC lattice, the decoder layer
 step, the LM layer step, the RNN-T joint and the LSTM recurrence forward
 and backward: the constants beside their checks there; the bf16 parts of
 the attention backward, the CTC head (and the head at H > 256), the RNN-T
-joint and the LSTM: one bf16 step, `BF16_STEP`, beside `_require_close_bf16`).
+joint and the LSTM: one bf16 step, `BF16_STEP`, beside `_require_close_bf16`;
+the decoder and LM layer steps in bf16: one bf16 step of each entry plus
+one of the largest, beside `check_decoder_step`; the RNN-T joint above
+J = 819 and the LSTM above H = 512: the tolerances of their narrower
+checks, beside `check_rnnt_joint_wide` and `check_lstm_wide`).
 """
 
 import pytest
@@ -100,22 +104,33 @@ def test_decoder_step_kernels_match_plain(cuda_dev):
 
 
 def test_decoder_step_rejects_what_it_does_not_take(cuda_dev):
+    """float32 or bfloat16, all of one dtype: a bf16 step matches the plain
+    version (one bf16 step of each entry + one of the largest); float16
+    and mixed dtypes are refused, as are shapes that do not fit."""
     from emoasr_tpu_torch.ops import decoder_step as ds
 
     dev, gen = cuda_dev
     c = chip_smoke.decoder_step_case(dev, gen, 2, 3, 6, 9, 2, 32, 64)
-    args = lambda **over: {**dict(
+    args = lambda c, **over: {**dict(
         h=c["h"], cache_k=c["cache_k"].reshape(6, 6, 2, 16), cache_v=c["cache_v"].reshape(6, 6, 2, 16),
         pos=c["pos"].reshape(-1), cross_k=c["cross_k"], cross_v=c["cross_v"], elens=c["elens"],
         weights=c["weights"]), **over}
-    y, k_new, v_new = ds.fused_decoder_layer_step(**args(), beam_width=3)
+    y, k_new, v_new = ds.fused_decoder_layer_step(**args(c), beam_width=3)
     assert y.shape == (6, 32) and k_new.shape == v_new.shape == (6, 2, 16)
-    with pytest.raises(TypeError):  # float32 only
-        ds.fused_decoder_layer_step(**args(h=c["h"].bfloat16()), beam_width=3)
+    c16 = chip_smoke._cast_case(c, torch.bfloat16)
+    got = ds.fused_decoder_layer_step(**args(c16), beam_width=3)
+    want = ds.decoder_layer_step_plain(**args(c16), beam_width=3)
+    for name, a, b in zip(("y", "k_new", "v_new"), got, want):
+        assert a.dtype == torch.bfloat16
+        chip_smoke._require_close_bf16(f"decoder step bf16 {name}", a, b)
+    with pytest.raises(TypeError):  # float16
+        ds.fused_decoder_layer_step(**args(chip_smoke._cast_case(c, torch.float16)), beam_width=3)
+    with pytest.raises(TypeError):  # bf16 activations, f32 weights
+        ds.fused_decoder_layer_step(**args(c16, weights=c["weights"]), beam_width=3)
     with pytest.raises(ValueError):  # rows do not split into beams of 4
-        ds.fused_decoder_layer_step(**args(), beam_width=4)
+        ds.fused_decoder_layer_step(**args(c), beam_width=4)
     with pytest.raises(ValueError):  # a strided cache
-        ds.fused_decoder_layer_step(**args(cache_k=c["cache_k"].reshape(6, 6, 2, 16).transpose(1, 2)), beam_width=3)
+        ds.fused_decoder_layer_step(**args(c, cache_k=c["cache_k"].reshape(6, 6, 2, 16).transpose(1, 2)), beam_width=3)
     wide = chip_smoke.decoder_step_case(dev, gen, 1, 17, 4, 5, 2, 32, 64)
     with pytest.raises(ValueError):  # W > 16
         ds.fused_decoder_layer_step_indirect(
@@ -128,6 +143,17 @@ def test_decoder_step_rejects_what_it_does_not_take(cuda_dev):
             big["cross_v"], big["elens"], big["weights"], beam_width=16)
 
 
+def test_decoder_step_bf16_kernels_match_plain(cuda_dev):
+    from emoasr_tpu_torch.ops import decoder_step
+
+    before = (dict(decoder_step.KERNEL.counts), dict(decoder_step.KERNEL_INDIRECT.counts))
+    chip_smoke.check_decoder_step(*cuda_dev, torch.bfloat16)
+    assert decoder_step.KERNEL.counts["emo_decoder_step_bf16"] - before[0]["emo_decoder_step_bf16"] == 8
+    assert (decoder_step.KERNEL_INDIRECT.counts["emo_decoder_step_indirect_bf16"]
+            - before[1]["emo_decoder_step_indirect_bf16"]) == 4
+    assert decoder_step.KERNEL.counts["emo_decoder_step_f32"] == before[0]["emo_decoder_step_f32"]
+
+
 def test_lm_step_kernel_matches_plain(cuda_dev):
     from emoasr_tpu_torch.ops import lm_step
 
@@ -137,22 +163,31 @@ def test_lm_step_kernel_matches_plain(cuda_dev):
 
 
 def test_lm_step_rejects_what_it_does_not_take(cuda_dev):
+    """float32 or bfloat16, all of one dtype: a bf16 step matches the plain
+    version; float16 and mixed dtypes are refused, as are shapes that do
+    not fit."""
     from emoasr_tpu_torch.ops import lm_step
 
     dev, gen = cuda_dev
     c = chip_smoke.lm_step_case(dev, gen, 2, 3, 6, 2, 32, 64)
-    args = lambda **over: {**dict(h=c["h"], cache_k=c["cache_k"], cache_v=c["cache_v"], pos=c["pos"],
-                                  anc=c["anc"], weights=c["weights"]), **over}
-    y, k_new, v_new = lm_step.fused_bert_layer_step_indirect(**args())
+    args = lambda c, **over: {**dict(h=c["h"], cache_k=c["cache_k"], cache_v=c["cache_v"], pos=c["pos"],
+                                     anc=c["anc"], weights=c["weights"]), **over}
+    y, k_new, v_new = lm_step.fused_bert_layer_step_indirect(**args(c))
     assert y.shape == (2, 3, 32) and k_new.shape == v_new.shape == (2, 3, 2, 16)
-    with pytest.raises(TypeError):  # float32 only
-        lm_step.fused_bert_layer_step_indirect(**args(h=c["h"].bfloat16()))
-    with pytest.raises(TypeError):
-        lm_step.fused_bert_layer_step_indirect(**args(weights={k: v.bfloat16() for k, v in c["weights"].items()}))
+    c16 = chip_smoke._cast_case(c, torch.bfloat16)
+    got = lm_step.fused_bert_layer_step_indirect(**args(c16))
+    want = lm_step.bert_layer_step_indirect_plain(**args(c16))
+    for name, a, b in zip(("y", "k_new", "v_new"), got, want):
+        assert a.dtype == torch.bfloat16
+        chip_smoke._require_close_bf16(f"LM step bf16 {name}", a, b)
+    with pytest.raises(TypeError):  # float16
+        lm_step.fused_bert_layer_step_indirect(**args(chip_smoke._cast_case(c, torch.float16)))
+    with pytest.raises(TypeError):  # f32 activations, bf16 weights
+        lm_step.fused_bert_layer_step_indirect(**args(c, weights=c16["weights"]))
     with pytest.raises(ValueError):  # an ancestor table of the wrong length
-        lm_step.fused_bert_layer_step_indirect(**args(anc=c["anc"][:, :, :5]))
+        lm_step.fused_bert_layer_step_indirect(**args(c, anc=c["anc"][:, :, :5]))
     with pytest.raises(ValueError):  # a strided cache
-        lm_step.fused_bert_layer_step_indirect(**args(cache_k=c["cache_k"].transpose(2, 3).contiguous().transpose(2, 3)))
+        lm_step.fused_bert_layer_step_indirect(**args(c, cache_k=c["cache_k"].transpose(2, 3).contiguous().transpose(2, 3)))
     wide = chip_smoke.lm_step_case(dev, gen, 1, 17, 4, 2, 32, 64)
     with pytest.raises(ValueError):  # W > 16
         lm_step.fused_bert_layer_step_indirect(wide["h"], wide["cache_k"], wide["cache_v"], wide["pos"],
@@ -161,6 +196,15 @@ def test_lm_step_rejects_what_it_does_not_take(cuda_dev):
     with pytest.raises(ValueError, match="shared memory"):
         lm_step.fused_bert_layer_step_indirect(big["h"], big["cache_k"], big["cache_v"], big["pos"],
                                                big["anc"], big["weights"])
+
+
+def test_lm_step_bf16_kernel_matches_plain(cuda_dev):
+    from emoasr_tpu_torch.ops import lm_step
+
+    before = dict(lm_step.KERNEL.counts)
+    chip_smoke.check_lm_step(*cuda_dev, torch.bfloat16)
+    assert lm_step.KERNEL.counts["emo_lm_step_indirect_bf16"] - before["emo_lm_step_indirect_bf16"] == 8
+    assert lm_step.KERNEL.counts["emo_lm_step_indirect_f32"] == before["emo_lm_step_indirect_f32"]
 
 
 def test_attention_backward_and_dropout_match_plain(cuda_dev):
@@ -235,10 +279,13 @@ def test_lstm_kernels_match_plain(cuda_dev):
 
 def test_rnnt_kernels_reject_what_they_do_not_take(cuda_dev):
     """float32 or bfloat16 (K7 in bf16 matches its plain version,
-    `test_rnnt_joint_bf16_matches_plain`; float16 is refused); K7 up to
-    J = 768, K8 up to H = 512; the LSTM's short sequences (T < 8) take the
-    scan, as in the JAX package."""
+    `test_rnnt_joint_bf16_matches_plain`; float16 is refused); K7 at
+    J = 800 and K8 at H = 520, which they refused before, match their
+    plain versions, and the widths the card cannot hold are refused (K7
+    above J = 2794, K8 above H = 1024); the LSTM's short sequences (T < 8)
+    take the scan, as in the JAX package."""
     from emoasr_tpu_torch.ops import lstm, lstm_scan
+    from emoasr_tpu_torch.ops.rnnt import joint_gather_plain
     from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather
 
     dev, gen = cuda_dev
@@ -250,12 +297,21 @@ def test_rnnt_kernels_reject_what_they_do_not_take(cuda_dev):
     lpb16, _ = fused_joint_gather(he.bfloat16(), hd.bfloat16(), w.t().bfloat16(), b.bfloat16(), lab)
     assert lpb16.dtype == torch.float32 and torch.isfinite(lpb16).all()
     wide = chip_smoke.rnnt_joint_case(dev, gen, 1, 2, 2, 800, 40)
+    for got, want in zip(fused_joint_gather(wide[0], wide[1], wide[2].t(), wide[3], wide[4]),
+                         joint_gather_plain(wide[0], wide[1], wide[2].t(), wide[3], wide[4])):
+        chip_smoke._require_close("rnnt joint J=800", got, want, chip_smoke.RNNT_JOINT_TOL, 0.0)
+    too_wide = chip_smoke.rnnt_joint_case(dev, gen, 1, 2, 2, 2800, 40)
     with pytest.raises(ValueError):
-        fused_joint_gather(wide[0], wide[1], wide[2].t(), wide[3], wide[4])
+        fused_joint_gather(too_wide[0], too_wide[1], too_wide[2].t(), too_wide[3], too_wide[4])
     x_proj, w_hh, h0, c0, _ = chip_smoke.lstm_case(dev, gen, 2, 9, 16)
     with pytest.raises(TypeError):
         lstm_scan.lstm_scan_fused(x_proj.double(), w_hh.double(), h0.double(), c0.double())
-    big = chip_smoke.lstm_case(dev, gen, 2, 9, 520)
+    mid = chip_smoke.lstm_case(dev, gen, 2, 9, 520)
+    ys, (hT, cT) = lstm_scan.lstm_scan_fused(*mid[:4])
+    p_ys, p_h, p_c, _, _ = lstm_scan.lstm_fwd_plain(*mid[:4])
+    for name, a, b in (("ys", ys, p_ys), ("h_T", hT, p_h), ("c_T", cT, p_c)):
+        chip_smoke._require_close(f"lstm H=520 {name}", a, b, chip_smoke.LSTM_FWD_TOL, 0.0)
+    big = chip_smoke.lstm_case(dev, gen, 2, 9, 1032)
     with pytest.raises(ValueError):
         lstm_scan.lstm_scan_fused(*big[:4])
     before = lstm_scan.KERNEL.launches
@@ -263,6 +319,27 @@ def test_rnnt_kernels_reject_what_they_do_not_take(cuda_dev):
     assert lstm_scan.KERNEL.launches == before
     lstm.lstm_scan(x_proj, w_hh, h0, c0)
     assert lstm_scan.KERNEL.launches == before + 1
+
+
+def test_rnnt_joint_wide_matches_plain(cuda_dev):
+    """K7 at J = 1024, 1500 and 2048 (32 and 16 cells a block), f32 and bf16."""
+    from emoasr_tpu_torch.ops import rnnt_joint
+
+    before = dict(rnnt_joint.KERNEL.counts)
+    chip_smoke.check_rnnt_joint_wide(*cuda_dev)
+    assert rnnt_joint.KERNEL.counts["emo_rnnt_joint_f32"] - before["emo_rnnt_joint_f32"] == 3
+    assert rnnt_joint.KERNEL.counts["emo_rnnt_joint_bf16"] - before["emo_rnnt_joint_bf16"] == 2
+
+
+def test_lstm_wide_matches_plain(cuda_dev):
+    """K8 at H = 1024 and 640 (w_hh in shared memory), forward and
+    backward, f32 and bf16."""
+    from emoasr_tpu_torch.ops import lstm_scan
+
+    before = dict(lstm_scan.KERNEL.counts)
+    chip_smoke.check_lstm_wide(*cuda_dev)
+    for name in ("emo_lstm_fwd_f32", "emo_lstm_bwd_f32", "emo_lstm_fwd_bf16", "emo_lstm_bwd_bf16"):
+        assert lstm_scan.KERNEL.counts[name] - before[name] == 2  # two shapes
 
 
 def test_ctc_head_bf16_and_wide_match_plain(cuda_dev):
