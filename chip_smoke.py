@@ -8,15 +8,23 @@ Phases (any failed check raises, so the script exits non-zero):
 1. Device: require CUDA, print the card's name and power limit, set the
    port's TF32 switch for float32 and say what it found.
 2. Build: compile every CUDA kernel from `emoasr_tpu_torch/csrc/`, one nvcc
-   per source, all at once.
+   per source, all at once; beside them the tensor-core sources once more
+   with `-Xptxas -v`, for each kernel's registers, spills, shared memory
+   and count of tensor-core (HMMA / HGMMA) instructions.
 3. Kernels against their plain PyTorch versions on the card, forward and
    backward, each with its stated tolerance (top-k exact; attention forward
    f32 1e-5, bf16 2e-2, with and without the score bias; attention backward,
    CTC head, CTC lattice, the decoder layer step, direct and indirect, the
    LM layer step, the RNN-T joint and the LSTM recurrence: see the
-   constants beside their checks); then the bf16 parts: the CTC head in
-   bf16 (H = 256, 512, 600) and in f32 at H = 512, the attention backward in
-   bf16 with and without the bias, the RNN-T joint and the LSTM in bf16
+   constants beside their checks); the tensor-core kernels at the shapes
+   their tiling makes risky, each launched twice with bit-identical
+   outputs: the bf16 attention forward and backward at `k4_edge_cases` (T =
+   1 to 399, lens 0 and 1, D = 8, 40, 128), with no bias, an f32 and a bf16
+   bias, dropout 0, 0.1 and 0.3, and the CTC head over V in (37, 1000,
+   10000, 10872) x H in (144, 256, 512, 600) in both dtypes; then the bf16
+   parts: the CTC head in bf16 (H = 256, 512, 600) and in f32 at H = 512,
+   the attention backward in bf16 with and without the bias (and the bf16
+   launchers' own dropout bits), the RNN-T joint and the LSTM in bf16
    (one bf16 step of each entry, see `BF16_STEP`); the decoder layer step
    (direct and indirect) and the LM layer step in bf16; the RNN-T joint at
    J = 1024, 1500 and 2048 and the LSTM at H = 640 and 1024, in f32 and
@@ -176,6 +184,81 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 # ---------------------------------------------------------------- kernels
 
+# the sources whose kernels run on the tensor cores: their registers, spills
+# and shared memory (`nvcc -Xptxas -v`) and their count of tensor-core
+# instructions (`cuobjdump -sass`) are reported in phase 2
+TENSOR_CORE_SOURCES = ("attention.cu", "ctc_head.cu")
+
+
+def start_resource_builds(out_dir: str) -> dict:
+    """One `nvcc -Xptxas -v` per tensor-core source, started (not awaited)
+    beside the kernels' own build."""
+    from emoasr_tpu_torch.ops.cuda_lib import CSRC_DIR, NVCC_FLAGS, find_nvcc
+
+    os.makedirs(out_dir, exist_ok=True)
+    jobs = {}
+    for src in TENSOR_CORE_SOURCES:
+        lib = os.path.join(out_dir, src + ".so")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", lib, os.path.join(CSRC_DIR, src)]
+        jobs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    return jobs
+
+
+def _short_kernel_name(mangled: str) -> str:
+    """`ctc_head_grad_e_kernel<bf16>`, `tc::bwd_dq_kernel<8>`, ... from a mangled name."""
+    end = mangled.find("_kernel") + len("_kernel")
+    name = mangled[:40]
+    for j in range(end - len("_kernel") - 1, 0, -1):  # the length-prefixed identifier ending there
+        digits = len(mangled[:j]) - len(mangled[:j].rstrip("0123456789"))
+        if digits and mangled[:j].endswith(str(end - j)):
+            name = mangled[j:end]
+            break
+    name = ("tc::" if "2tc" in mangled else "") + name
+    for tag, arg in (("I13__nv_bfloat16E", "bf16"), ("IfE", "f32"), ("ILi4EE", "4"), ("ILi8EE", "8")):
+        if tag in mangled:
+            return f"{name}<{arg}>"
+    return name
+
+
+def kernel_resources(jobs: dict) -> dict:
+    """Registers, spill stores and loads (bytes), static shared memory and
+    HMMA / HGMMA instructions of every kernel of the sources of `jobs`."""
+    import re
+
+    from emoasr_tpu_torch.ops.cuda_lib import find_nvcc
+
+    res = {}
+    for src, (proc, lib) in jobs.items():
+        log, _ = proc.communicate()
+        require(proc.returncode == 0, f"nvcc -Xptxas -v {src} failed:\n{log[-3000:]}")
+        cur = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = _short_kernel_name(m.group(1))
+                res[cur] = {"source": src, "registers": 0, "spill_stores": 0, "spill_loads": 0, "smem": 0,
+                            "mma_instructions": 0}
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                res[cur]["spill_stores"], res[cur]["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                res[cur]["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                res[cur]["smem"] = int(sm.group(1)) if sm else 0
+        cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+        sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True, timeout=300).stdout
+        cur = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                cur = _short_kernel_name(line.split("Function :")[1].strip())
+            elif cur in res and re.search(r"\bH(G)?MMA\b", line):
+                res[cur]["mma_instructions"] += 1
+    return res
+
 
 def topk_cases(dev, gen):
     """(name, x, k) inputs: random rows, ties, and rows of -inf."""
@@ -233,8 +316,36 @@ def attention_cases(dev, gen):
     return out
 
 
+def k4_edge_cases(dev):
+    """(name, (B, T, H, D), lens) where the bf16 launchers' tiles of 64 and
+    16-byte rows are likely to break: T = 1, 17, 63, 64, 65, 399; lens 0 and
+    1; D = 40 (zero-padded to 48) and 8; rows H D 2 bytes apart that are a
+    multiple of 16 and not of 128 (16, 240, 400)."""
+    t = lambda *x: torch.tensor(x, device=dev)
+    return [
+        ("T=1", (2, 1, 4, 64), t(1, 0)),
+        ("T=17 H=3 D=40", (3, 17, 3, 40), t(17, 1, 0)),
+        ("T=63", (2, 63, 4, 64), t(63, 1)),
+        ("T=64 H=1 D=8", (2, 64, 1, 8), t(64, 33)),
+        ("T=65 D=128", (2, 65, 2, 128), t(65, 64)),
+        ("T=399", (3, 399, 4, 64), t(399, 0, 1)),
+        ("T=399 H=5 D=40", (2, 399, 5, 40), t(399, 200)),
+    ]
+
+
+def _twice(fn):
+    """fn() run twice; the two results (a tensor or a tuple of them) must be
+    bit-identical.  Returns the first."""
+    a, b = fn(), fn()
+    a_, b_ = (a, b) if isinstance(a, (tuple, list)) else ((a,), (b,))
+    torch.cuda.synchronize()
+    require(all(torch.equal(x, y) for x, y in zip(a_, b_)), "two launches on the same inputs differ")
+    return a
+
+
 def check_attention(dev, gen) -> dict:
-    """Kernel against the plain version within the dtype's tolerance;
+    """Kernel against the plain version within the dtype's tolerance, and
+    the bf16 launcher at `k4_edge_cases`, launched twice (bit-identical);
     returns the largest error by dtype."""
     from emoasr_tpu_torch.ops.attention import attention_plain, fused_self_attention
 
@@ -253,6 +364,17 @@ def check_attention(dev, gen) -> dict:
         else:
             worst_bf16 = max(worst_bf16, err)
         print(f"  attention {name}: max abs err {err:.3e} (tol {tol})")
+    bf, tol = torch.bfloat16, ATTN_TOL[torch.bfloat16]
+    for name, (B, T, H, D), lens in k4_edge_cases(dev):
+        q, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev).to(bf) for _ in range(3))
+        scale = 1.0 / D ** 0.5
+        o1 = _twice(lambda: fused_self_attention(q, k, v, lens, scale=scale))
+        err = _max_err(o1, attention_plain(q, k, v, lens, scale))
+        require(o1.dtype == bf and bool(torch.isfinite(o1).all()) and err <= tol,
+                f"attention bf16 {name}: max |kernel - plain| = {err} > {tol}")
+        require(not o1[lens == 0].any(), f"attention bf16 {name}: rows of an utterance with lens 0 are not 0")
+        worst_bf16 = max(worst_bf16, err)
+        print(f"  attention bf16 {name}: max abs err {err:.3e} (tol {tol}); two launches bit-identical")
     return {"attention_fwd": worst_f32, "attention_fwd_bf16": worst_bf16}
 
 
@@ -459,42 +581,81 @@ def head_case(dev, gen, B: int, T: int, H: int, V: int, U: int):
     return e, weight, bias, z, g_lse, g_xs, valid
 
 
-def check_ctc_head(dev, gen) -> dict:
-    """Largest errors by kernel: forward (lse, xs), grad-e (d e), grad-w (d w, d b)."""
+# the widths the tensor-core tiling of K1 makes risky: V ragged against the
+# 64-column tile (37, 10872) or not (1000, 10000); H below one chunk (144),
+# one bf16 chunk (256), two (512), and ragged against both chunks (600)
+HEAD_SWEEP_V = (37, 1000, 10000, 10872)
+HEAD_SWEEP_H = (144, 256, 512, 600)
+
+
+def check_head_case(dev, gen, name: str, shape: tuple, dtype, transposed: bool = True) -> dict:
+    """K1 against `ctc_head_plain` at one shape (B, T, H, V, U) in `dtype`,
+    both cotangents, w as a linear layer's `.t()` (`transposed`) or as a
+    contiguous (H, V); the kernels run twice and must give bit-identical
+    outputs.  Largest errors by kernel."""
     from emoasr_tpu_torch.ops.ctc_head import ctc_head_plain, fused_ctc_head
 
+    e, weight, bias, z, g_lse, g_xs, valid = head_case(dev, gen, *shape)
+    e, weight, bias = e.to(dtype), weight.to(dtype), bias.to(dtype)
+    groups = _vocab_groups(shape[3], z)
     worst = {"fwd": 0.0, "grad_e": 0.0, "grad_w": 0.0, "grad_w_rel": 0.0}
+    col = 0 if transposed else 1
+    for cot, g_lse_ in (("independent cotangents", g_lse), ("g_lse = -sum g_xs", -g_xs.sum(-1))):
+        res = []
+        for fn in (fused_ctc_head, fused_ctc_head, ctc_head_plain):
+            e_, b_ = e.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+            w_ = (weight.clone() if transposed else weight.t().contiguous()).requires_grad_(True)
+            lse, xs = fn(e_, w_.t() if transposed else w_, b_, z)
+            grads = torch.autograd.grad((lse, xs), (e_, w_, b_), (g_lse_, g_xs))
+            res.append((lse.detach(), xs.detach(), *grads))
+        torch.cuda.synchronize()
+        tag = f"ctc head {name}, {cot},"
+        require(all(torch.equal(a, c) for a, c in zip(res[0], res[1])),
+                f"{tag} two launches on the same inputs differ")
+        require(res[0][0].dtype == res[0][1].dtype == torch.float32, f"{tag} lse / xs are not float32")
+        fwd = [_require_close(f"{tag} {what}", a, c, *HEAD_TOL) for what, a, c in zip(("lse", "xs"), res[0], res[2])]
+        if dtype == torch.float32:
+            e_e = _require_close(f"{tag} d e", res[0][2], res[2][2], *HEAD_TOL)
+            e_w, rel_w = _require_close_by_column(f"{tag} d w", res[0][3], res[2][3], col, *HEAD_COLUMN_TOL)
+            rel_b = _require_close_by_group(f"{tag} d b", res[0][4], res[2][4], groups, *HEAD_COLUMN_TOL)
+            e_b = _max_err(res[0][4], res[2][4])
+            what = (f"d w by column {rel_w:.2e} of the column's largest entry, d b by group {rel_b:.2e} "
+                    f"(tol {HEAD_COLUMN_TOL[1]})")
+        else:
+            e_e = _require_close_bf16(f"{tag} d e", res[0][2], res[2][2], floor=HEAD_TOL[1])
+            e_w = _require_close_bf16(f"{tag} d w", res[0][3], res[2][3], floor=HEAD_COLUMN_TOL[1], col_dim=col)
+            e_b = max(_require_close_bf16(f"{tag} d b ({g})", res[0][4][idx], res[2][4][idx],
+                                          floor=HEAD_COLUMN_TOL[1]) for g, idx in groups.items() if idx.numel())
+            rel_w = rel_b = 0.0
+            what = "each within one bf16 step of its entry + the floor"
+        require(not res[0][2][valid == 0].any(), f"{tag} d e past the lengths is not exactly 0")
+        worst = {"fwd": max(worst["fwd"], *fwd), "grad_e": max(worst["grad_e"], e_e),
+                 "grad_w": max(worst["grad_w"], e_w, e_b), "grad_w_rel": max(worst["grad_w_rel"], rel_w, rel_b)}
+        print(f"  {tag} max |kernel - plain|: lse {fwd[0]:.2e} xs {fwd[1]:.2e} d e {e_e:.2e} d w {e_w:.2e} "
+              f"d b {e_b:.2e}; {what}; two launches bit-identical")
+    return worst
+
+
+def _merge_worst(worst: dict, new: dict) -> dict:
+    return {k: max(worst.get(k, 0.0), v) for k, v in new.items()}
+
+
+def check_ctc_head(dev, gen) -> dict:
+    """Largest errors by kernel, f32: forward (lse, xs), grad-e (d e),
+    grad-w (d w, d b); at the L1 shape with w in both layouts, at small
+    ragged shapes, and over `HEAD_SWEEP_V` x `HEAD_SWEEP_H`."""
+    worst = {}
     for name, shape, transposed in (
         ("(18,399,256)x(256,10000) S=257, w as weight.t()", (18, 399, 256, 10000, 128), True),
         ("(18,399,256)x(256,10000) S=257, w contiguous", (18, 399, 256, 10000, 128), False),
         ("(3,70,96)x(96,37) S=9", (3, 70, 96, 37, 4), True),
         ("(2,65,40)x(40,129) S=3", (2, 65, 40, 129, 1), False),
     ):
-        e, weight, bias, z, g_lse, g_xs, valid = head_case(dev, gen, *shape)
-        groups = _vocab_groups(shape[3], z)
-        for cot, g_lse_ in (("independent cotangents", g_lse), ("g_lse = -sum g_xs", -g_xs.sum(-1))):
-            res = []
-            for fn in (fused_ctc_head, ctc_head_plain):
-                e_, b_ = e.clone().requires_grad_(True), bias.clone().requires_grad_(True)
-                w_ = (weight.clone() if transposed else weight.t().contiguous()).requires_grad_(True)
-                lse, xs = fn(e_, w_.t() if transposed else w_, b_, z)
-                grads = torch.autograd.grad((lse, xs), (e_, w_, b_), (g_lse_, g_xs))
-                res.append((lse.detach(), xs.detach(), *grads))
-            torch.cuda.synchronize()
-            tag = f"ctc head {name}, {cot},"
-            errs = [_require_close(f"{tag} {what}", a, b, *HEAD_TOL)
-                    for what, a, b in zip(("lse", "xs", "d e"), res[0], res[1])]
-            e_w, rel_w = _require_close_by_column(f"{tag} d w", res[0][3], res[1][3], 0 if transposed else 1,
-                                                  *HEAD_COLUMN_TOL)
-            rel_b = _require_close_by_group(f"{tag} d b", res[0][4], res[1][4], groups, *HEAD_COLUMN_TOL)
-            e_b = _max_err(res[0][4], res[1][4])
-            require(not res[0][2][valid == 0].any(), f"{tag} d e past the lengths is not exactly 0")
-            worst = {"fwd": max(worst["fwd"], errs[0], errs[1]), "grad_e": max(worst["grad_e"], errs[2]),
-                     "grad_w": max(worst["grad_w"], e_w, e_b),
-                     "grad_w_rel": max(worst["grad_w_rel"], rel_w, rel_b)}
-            print(f"  {tag} lse {errs[0]:.2e} xs {errs[1]:.2e} d e {errs[2]:.2e} d w {e_w:.2e} d b {e_b:.2e}; "
-                  f"d w by column {rel_w:.2e} of the column's largest entry, d b by group {rel_b:.2e} "
-                  f"(tol {HEAD_COLUMN_TOL[1]})")
+        worst = _merge_worst(worst, check_head_case(dev, gen, name, shape, torch.float32, transposed))
+    for V in HEAD_SWEEP_V:
+        for H in HEAD_SWEEP_H:
+            worst = _merge_worst(worst, check_head_case(dev, gen, f"(3,70,{H})x({H},{V}) S=17 f32",
+                                                        (3, 70, H, V, 8), torch.float32))
     return worst
 
 
@@ -502,6 +663,7 @@ def check_ctc_head(dev, gen) -> dict:
 # terms in f32, in another order than the plain version: atol 1e-4.
 ATTN_BWD_TOL = 1e-4
 DROPOUT_RATE = 0.1
+K4_EDGE_RATES = (0.0, 0.1, 0.3)
 
 
 def check_attention_backward(dev, gen) -> float:
@@ -613,6 +775,26 @@ def check_attention_bias(dev, gen) -> dict:
             worst["bwd"] = max(worst["bwd"], *errs)
             print(f"  attention+bias fwd+bwd {name} dropout {rate}: out {errs[0]:.2e} dq {errs[1]:.2e} "
                   f"dk {errs[2]:.2e} dv {errs[3]:.2e} dbias {errs[4]:.2e} (tol {ATTN_BWD_TOL})")
+    # the bf16 forward at `k4_edge_cases`, the bias in f32 and in bf16, dropout
+    # 0, 0.1 and 0.3 (the plain version taking the bf16 launchers' keep mask)
+    bf, tol = torch.bfloat16, ATTN_TOL[torch.bfloat16]
+    for name, (B, T, H, D), lens in k4_edge_cases(dev):
+        q, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev).to(bf) for _ in range(3))
+        bias = torch.randn(B, H, T, T, generator=gen, device=dev) * D ** 0.5
+        scale = 1.0 / D ** 0.5
+        for bdt in (torch.float32, bf):
+            for rate in K4_EDGE_RATES:
+                seed = 3456789 + T
+                mask = dropout_keep_mask(B, T, H, rate, seed, dev, bf) if rate > 0 else None
+                o1 = _twice(lambda: fused_self_attention(q, k, v, lens, scale=scale, dropout_rate=rate,
+                                                         deterministic=rate == 0.0, seed=seed, bias=bias.to(bdt)))
+                o0 = attention_plain(q, k, v, lens, scale, rate, bias=bias.to(bdt), dropout_mask=mask)
+                err = _max_err(o1, o0)
+                require(o1.dtype == bf and bool(torch.isfinite(o1).all()) and err <= tol,
+                        f"attention+bias bf16 {name} bias {bdt} dropout {rate}: max |kernel - plain| = {err} > {tol}")
+                worst["fwd_bf16"] = max(worst["fwd_bf16"], err)
+        print(f"  attention+bias fwd bf16 {name}, bias f32 and bf16, dropout {K4_EDGE_RATES}: max abs err "
+              f"{worst['fwd_bf16']:.3e} so far (tol {tol}); two launches bit-identical")
     return worst
 
 
@@ -744,7 +926,7 @@ def time_attention_bias(dev, gen, B: int, T: int, H: int, D: int, lens: torch.Te
     }
     fwd.update(_bound(es * 4 * B * T * H * D + live_bias + B * 4, 4.0 * H * T * D * valid, dtype))
 
-    mask = dropout_keep_mask(B, T, H, DROPOUT_RATE, seed, dev)
+    mask = dropout_keep_mask(B, T, H, DROPOUT_RATE, seed, dev, dtype)
     q_, k_, v_, b_ = (x.clone().requires_grad_(True) for x in (q, k, v, bias))
     qt, kt, vt = (x.transpose(1, 2) for x in (q_, k_, v_))
     # SDPA's backward is taken to its additive mask as a leaf (d bias / scale),
@@ -1077,56 +1259,34 @@ def _require_close_bf16(name: str, got: torch.Tensor, want: torch.Tensor, floor:
 
 def check_ctc_head_bf16(dev, gen) -> dict:
     """K1 in bf16 at the L1 width (H = 256) and wider (H = 512, 600: the
-    kernels stream H in chunks of 256), and in f32 at H = 512; both
-    cotangents of `check_ctc_head`.  Largest errors by kernel, bf16 only."""
-    from emoasr_tpu_torch.ops.ctc_head import ctc_head_plain, fused_ctc_head
-
-    worst = {"ctc_head_fwd_bf16": 0.0, "ctc_head_grad_e_bf16": 0.0, "ctc_head_grad_w_bf16": 0.0}
+    kernels stream H in chunks of 256), in f32 at H = 512, and in bf16 over
+    `HEAD_SWEEP_V` x `HEAD_SWEEP_H`; both cotangents of `check_ctc_head`.
+    Largest errors by kernel, bf16 only."""
+    bf = torch.bfloat16
+    worst = {}
     for name, shape, dtype in (
-        ("(18,399,256)x(256,10000) S=257 bf16", (18, 399, 256, 10000, 128), torch.bfloat16),
-        ("(18,399,512)x(512,10000) S=257 bf16", (18, 399, 512, 10000, 128), torch.bfloat16),
+        ("(18,399,256)x(256,10000) S=257 bf16", (18, 399, 256, 10000, 128), bf),
+        ("(18,399,512)x(512,10000) S=257 bf16", (18, 399, 512, 10000, 128), bf),
         ("(18,399,512)x(512,10000) S=257 f32", (18, 399, 512, 10000, 128), torch.float32),
-        ("(3,70,600)x(600,37) S=9 bf16", (3, 70, 600, 37, 4), torch.bfloat16),
+        ("(3,70,600)x(600,37) S=9 bf16", (3, 70, 600, 37, 4), bf),
     ):
-        e, weight, bias, z, g_lse, g_xs, valid = head_case(dev, gen, *shape)
-        e, weight, bias = e.to(dtype), weight.to(dtype), bias.to(dtype)
-        groups = _vocab_groups(shape[3], z)
-        for cot, g_lse_ in (("independent cotangents", g_lse), ("g_lse = -sum g_xs", -g_xs.sum(-1))):
-            res = []
-            for fn in (fused_ctc_head, ctc_head_plain):
-                e_, w_, b_ = (x.clone().requires_grad_(True) for x in (e, weight, bias))
-                lse, xs = fn(e_, w_.t(), b_, z)
-                grads = torch.autograd.grad((lse, xs), (e_, w_, b_), (g_lse_, g_xs))
-                res.append((lse.detach(), xs.detach(), *grads))
-            torch.cuda.synchronize()
-            tag = f"ctc head {name}, {cot},"
-            fwd = [_require_close(f"{tag} {what}", a, b, *HEAD_TOL)
-                   for what, a, b in zip(("lse", "xs"), res[0], res[1])]
-            require(res[0][0].dtype == res[0][1].dtype == torch.float32, f"{tag} lse / xs are not float32")
-            if dtype == torch.float32:
-                e_e = _require_close(f"{tag} d e", res[0][2], res[1][2], *HEAD_TOL)
-                _, e_w = _require_close_by_column(f"{tag} d w", res[0][3], res[1][3], 0, *HEAD_COLUMN_TOL)
-                e_b = _require_close_by_group(f"{tag} d b", res[0][4], res[1][4], groups, *HEAD_COLUMN_TOL)
-            else:
-                e_e = _require_close_bf16(f"{tag} d e", res[0][2], res[1][2], floor=HEAD_TOL[1])
-                e_w = _require_close_bf16(f"{tag} d w", res[0][3], res[1][3], floor=HEAD_COLUMN_TOL[1], col_dim=0)
-                e_b = max(_require_close_bf16(f"{tag} d b ({g})", res[0][4][idx], res[1][4][idx],
-                                              floor=HEAD_COLUMN_TOL[1]) for g, idx in groups.items() if idx.numel())
-                worst = {"ctc_head_fwd_bf16": max(worst["ctc_head_fwd_bf16"], *fwd),
-                         "ctc_head_grad_e_bf16": max(worst["ctc_head_grad_e_bf16"], e_e),
-                         "ctc_head_grad_w_bf16": max(worst["ctc_head_grad_w_bf16"], e_w, e_b)}
-            require(not res[0][2][valid == 0].any(), f"{tag} d e past the lengths is not exactly 0")
-            print(f"  {tag} max |kernel - plain|: lse {fwd[0]:.2e} xs {fwd[1]:.2e}; d e {e_e:.2e}, d w {e_w:.2e} "
-                  f"(by column), d b {e_b:.2e} (by group)" + ("" if dtype == torch.float32 else
-                                                              "; each within one bf16 step of its entry + the floor"))
-    return worst
+        w = check_head_case(dev, gen, name, shape, dtype)
+        if dtype == bf:
+            worst = _merge_worst(worst, w)
+    for V in HEAD_SWEEP_V:
+        for H in HEAD_SWEEP_H:
+            worst = _merge_worst(worst, check_head_case(dev, gen, f"(3,70,{H})x({H},{V}) S=17 bf16",
+                                                        (3, 70, H, V, 8), bf))
+    return {"ctc_head_fwd_bf16": worst["fwd"], "ctc_head_grad_e_bf16": worst["grad_e"],
+            "ctc_head_grad_w_bf16": worst["grad_w"]}
 
 
 def check_attention_backward_bf16(dev, gen) -> dict:
     """K4's backward in bf16, with and without the score bias, dropout on
     and off, against `attention_bwd_plain` with the kernel's keep mask: the
     forward's output (the bf16 forward's tolerance) and dQ, dK, dV, d bias."""
-    from emoasr_tpu_torch.ops.attention import attention_bwd_plain, dropout_keep_mask, fused_self_attention
+    from emoasr_tpu_torch.ops.attention import (attention_bwd_plain, attention_plain, dropout_keep_mask,
+                                                fused_self_attention)
 
     worst = {"attention_bwd_bf16": 0.0, "attention_bias_bwd_bf16": 0.0}
     lens18 = torch.randint(1, 400, (18,), generator=gen, device=dev)
@@ -1141,7 +1301,7 @@ def check_attention_backward_bf16(dev, gen) -> dict:
         q, k, v, d_out = (torch.randn(B, T, H, D, generator=gen, device=dev).to(bf) for _ in range(4))
         bias = (torch.randn(B, H, T, T, generator=gen, device=dev) * D ** 0.5).to(bf) if with_bias else None
         scale, seed = 1.0 / D ** 0.5, 2345678 + T
-        mask = dropout_keep_mask(B, T, H, rate, seed, dev) if rate > 0 else None
+        mask = dropout_keep_mask(B, T, H, rate, seed, dev, bf) if rate > 0 else None
         ins = [x.clone().requires_grad_(True) for x in (q, k, v)] + ([bias.clone().requires_grad_(True)]
                                                                       if with_bias else [])
         out = fused_self_attention(*ins[:3], lens, scale=scale, dropout_rate=rate, deterministic=rate == 0.0,
@@ -1160,6 +1320,59 @@ def check_attention_backward_bf16(dev, gen) -> dict:
         worst[key] = max(worst[key], *errs)
         print(f"  {tag}: max |kernel - plain| " + ", ".join(f"{w} {e:.2e}" for w, e in zip(("dq", "dk", "dv", "dbias"), errs))
               + " (tol one bf16 step of the entry + one of the largest)")
+    # the bf16 launchers' dropout bits: kept share, dependence on the seed,
+    # and another map of the same seed than the f32 launchers'
+    m1 = dropout_keep_mask(18, 399, 4, DROPOUT_RATE, 1, dev, bf)
+    share = m1.float().mean().item()
+    require(abs(share - (1 - DROPOUT_RATE)) < 1e-3, f"bf16 dropout keeps {share}, want {1 - DROPOUT_RATE}")
+    for other, what in ((dropout_keep_mask(18, 399, 4, DROPOUT_RATE, 2, dev, bf), "two seeds"),
+                        (dropout_keep_mask(18, 399, 4, DROPOUT_RATE, 1, dev), "the f32 and bf16 maps of one seed")):
+        differ = (m1 != other).float().mean().item()
+        require(abs(differ - 2 * DROPOUT_RATE * (1 - DROPOUT_RATE)) < 2e-3,
+                f"bf16 dropout: {what} differ at a share of {differ} of the elements")
+    print(f"  bf16 dropout bits: kept share {share:.5f} at rate {DROPOUT_RATE}; two seeds, and the f32 and bf16 "
+          f"maps, differ at ~{2 * DROPOUT_RATE * (1 - DROPOUT_RATE):.2f}")
+    # `k4_edge_cases`: no bias, a bias in f32 and one in bf16, dropout 0, 0.1
+    # and 0.3; forward and backward launched twice (bit-identical)
+    for name, (B, T, H, D), lens in k4_edge_cases(dev):
+        q, k, v, d_out = (torch.randn(B, T, H, D, generator=gen, device=dev).to(bf) for _ in range(4))
+        bias32 = torch.randn(B, H, T, T, generator=gen, device=dev) * D ** 0.5
+        scale = 1.0 / D ** 0.5
+        for bias in (None, bias32, bias32.to(bf)):
+            for rate in K4_EDGE_RATES:
+                seed = 4567890 + T
+                mask = dropout_keep_mask(B, T, H, rate, seed, dev, bf) if rate > 0 else None
+
+                def run():
+                    ins = [x.clone().requires_grad_(True) for x in (q, k, v)] + (
+                        [] if bias is None else [bias.clone().requires_grad_(True)])
+                    out = fused_self_attention(*ins[:3], lens, scale=scale, dropout_rate=rate,
+                                               deterministic=rate == 0.0, seed=seed,
+                                               bias=None if bias is None else ins[3])
+                    return (out.detach(), *torch.autograd.grad(out, ins, d_out))
+
+                got = _twice(run)
+                with torch.no_grad():
+                    want = attention_bwd_plain(q, k, v, d_out, lens, scale, rate, bias, mask)
+                    out0 = attention_plain(q, k, v, lens, scale, rate, bias=bias, dropout_mask=mask)
+                tag = (f"attention bwd bf16 {name}, bias {None if bias is None else bias.dtype}, "
+                       f"dropout {rate}")
+                err_o = _max_err(got[0], out0)
+                require(err_o <= ATTN_TOL[bf], f"{tag}: out max |kernel - plain| = {err_o} > {ATTN_TOL[bf]}")
+                require(all(g.dtype == x.dtype for g, x in zip(got[1:], (q, k, v, bias) if bias is not None
+                                                                   else (q, k, v))),
+                        f"{tag}: gradients in another dtype than their inputs")
+                errs = [_require_close_bf16(f"{tag} {what}", a, b)
+                        for what, a, b in zip(("dq", "dk", "dv"), got[1:4], want[:3])]
+                if bias is not None:
+                    errs.append(_require_close_bf16(f"{tag} dbias", got[4].to(bias.dtype), want[3]))
+                past = torch.arange(T, device=dev)[None, :] >= lens[:, None]
+                require(not got[2][past].any() and not got[3][past].any(),
+                        f"{tag}: dk/dv at masked keys are not exactly 0")
+                key = "attention_bias_bwd_bf16" if bias is not None else "attention_bwd_bf16"
+                worst[key] = max(worst[key], *errs)
+        print(f"  attention bwd bf16 {name}, no bias / f32 / bf16 bias, dropout {K4_EDGE_RATES}: within one bf16 "
+              f"step of each entry + one of the largest, out within {ATTN_TOL[bf]}; two launches bit-identical")
     return worst
 
 
@@ -1462,7 +1675,7 @@ def time_attention_backward(dev, gen, B: int, T: int, H: int, D: int, lens: torc
 
     q, k, v, d_out = (torch.randn(B, T, H, D, generator=gen, device=dev).to(dtype) for _ in range(4))
     scale, seed = 1.0 / D ** 0.5, 99
-    mask = dropout_keep_mask(B, T, H, DROPOUT_RATE, seed, dev)
+    mask = dropout_keep_mask(B, T, H, DROPOUT_RATE, seed, dev, dtype)
     key_mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
     q_, k_, v_ = (x.clone().requires_grad_(True) for x in (q, k, v))
     qt, kt, vt = (x.transpose(1, 2) for x in (q_, k_, v_))
@@ -3284,9 +3497,16 @@ def main(argv=None) -> int:
     # 2. build
     t0 = time.perf_counter()
     kernels = all_kernels()
+    jobs = start_resource_builds(os.path.join(REPO, "build", "chip_smoke_resources"))
     build_all(kernels)
+    resources = kernel_resources(jobs)
     print(f"[2/14] built {', '.join(k.name for k in kernels)} from "
           f"{', '.join(sorted({k.source for k in kernels}))} in {time.perf_counter() - t0:.1f} s")
+    print("  the tensor-core kernels (nvcc -Xptxas -v, cuobjdump -sass): registers, spill stores / loads (bytes), "
+          "static shared memory (bytes), HMMA + HGMMA instructions")
+    for name, r in resources.items():
+        print(f"    {r['source']} {name}: {r['registers']} registers, spills {r['spill_stores']} / {r['spill_loads']}, "
+              f"smem {r['smem']}, {r['mma_instructions']} HMMA")
 
     # 3. kernels against their plain versions
     print("[3/14] kernels against their plain versions on the card, forward and backward")
@@ -3490,6 +3710,7 @@ def main(argv=None) -> int:
         "l4_bf16_greedy_decode": l4b_dec,
         "bf16_beam_decode": b16,
         "wide_widths": wide,
+        "kernel_resources": resources,
         "card": smi, "total_seconds": time.perf_counter() - t_start,
     }))
     print(json.dumps({"kernels": rows}))

@@ -18,11 +18,19 @@ and d bias, and every product accumulates in float32.  The additive score
 float32 or bfloat16, enters before the scale, `(q k^T + bias) * scale`; the
 backward returns its gradient too, in the bias's dtype.
 
+The float32 launchers compute on the CUDA cores; the bfloat16 ones on the
+tensor cores (`mma.sync` with bf16 operands and float32 sums, the TPU
+kernel's own arithmetic), and take a head size D that is a multiple of 8
+(others raise `ValueError`), D <= 128 in both dtypes.
+
 Dropout on the card draws its bits from a Philox generator inside the
 kernel, keyed by one 64-bit seed per call; the backward regenerates them.
 The seed comes from `seed=` or is drawn from `generator`.  The bits are not
-those of any other framework: `dropout_keep_mask` exports them so that the
-kernel can be held against the plain version with the same mask.
+those of any other framework, and one seed draws other bits in bfloat16
+than in float32 (each launcher maps the generator's words onto the elements
+its threads hold): `dropout_keep_mask` exports the map of a dtype's
+launchers so that the kernel can be held against the plain version with the
+same mask.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from emoasr_tpu_torch.ops.cuda_lib import F, I, P, U, CudaKernel
+from emoasr_tpu_torch.ops.cuda_lib import F, I, P, U, CudaKernel, aligned16
 
 NEG_INF = -1e9  # matches models/layers.py
 
@@ -45,6 +53,7 @@ KERNEL = CudaKernel(
         "emo_attention_bwd_f32": _BWD_SIG,
         "emo_attention_bwd_bf16": _BWD_SIG,
         "emo_attention_keep_mask": [P, I, I, I, U, U, U, P],
+        "emo_attention_keep_mask_bf16": [P, I, I, I, U, U, U, P],
     },
 )
 
@@ -55,6 +64,7 @@ KERNEL.counts.update(bias_fwd=0, bias_bwd=0, bias_fwd_bf16=0, bias_bwd_bf16=0)
 _BIAS_COUNT = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 MAX_D = 128
+BF16_D_MULTIPLE = 8  # the bf16 launchers stage rows in 16-byte words
 _LAUNCHERS = {
     torch.float32: "emo_attention_fwd_f32",
     torch.bfloat16: "emo_attention_fwd_bf16",
@@ -175,9 +185,13 @@ def draw_seed(generator: Optional[torch.Generator] = None) -> int:
     return int(torch.randint(0, 2 ** 62, (1,), generator=generator, device=dev).item())
 
 
+_MASK_LAUNCHERS = {torch.float32: "emo_attention_keep_mask", torch.bfloat16: "emo_attention_keep_mask_bf16"}
+
+
 def dropout_keep_mask(B: int, T: int, H: int, rate: float, seed: int,
-                      device: torch.device) -> torch.Tensor:
-    """The keep mask (B, H, T, T) bool that the kernels apply for `seed`."""
+                      device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The keep mask (B, H, T, T) bool that the kernels of `dtype` apply
+    for `seed`."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError("dropout_keep_mask: the kernel's bits exist on the card only")
@@ -185,7 +199,7 @@ def dropout_keep_mask(B: int, T: int, H: int, rate: float, seed: int,
     out = torch.empty((B, H, T, T), dtype=torch.uint8, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        KERNEL.launch("emo_attention_keep_mask", out.data_ptr(), B, T, H, lo, hi, threshold, stream)
+        KERNEL.launch(_MASK_LAUNCHERS[dtype], out.data_ptr(), B, T, H, lo, hi, threshold, stream)
     return out.bool()
 
 
@@ -224,7 +238,7 @@ class _FusedAttention(torch.autograd.Function):
     def backward(ctx, d_out):
         q, k, v, out, lse, lens32, bias = ctx.saved_tensors
         B, T, H, D = q.shape
-        d_out = d_out.to(v.dtype).contiguous()
+        d_out = aligned16(d_out.to(v.dtype))
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         delta = torch.empty_like(lse)
         d_bias = None
@@ -287,6 +301,8 @@ def fused_self_attention(
     B, T, H, D = q.shape
     if D > MAX_D:
         raise ValueError(f"attention kernel: d_k={D} > {MAX_D}")
+    if q.dtype == torch.bfloat16 and D % BF16_D_MULTIPLE:
+        raise ValueError(f"attention kernel: bfloat16 takes d_k a multiple of {BF16_D_MULTIPLE}, not {D}")
     if lens.shape != (B,):
         raise ValueError(f"attention kernel: lens must be ({B},), got {tuple(lens.shape)}")
     if bias is not None:
@@ -303,6 +319,8 @@ def fused_self_attention(
         if t.device != q.device:
             raise ValueError(f"attention kernel: {name} on {t.device}, q on {q.device}")
     lens32 = lens.to(device=q.device, dtype=torch.int32).contiguous()
+    if q.dtype == torch.bfloat16:  # its launchers move rows as 16-byte words
+        q, k, v = aligned16(q), aligned16(k), aligned16(v)
     if v.numel() == 0:
         return torch.empty_like(v)
     if rate > 0.0 and seed is None:

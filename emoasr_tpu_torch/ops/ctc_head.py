@@ -16,29 +16,106 @@ For a CUDA tensor `fused_ctc_head` launches `csrc/ctc_head.cu` and the
 (B, T, V) logits never exist; for a CPU tensor it takes `ctc_head_plain`,
 the dense product with `logsumexp` and `gather`.  The kernels take any
 hidden size and `eouts`, `w` and `b` of one dtype, float32 or bfloat16
-(others raise `TypeError`).  In bfloat16 they compute what the TPU kernel
-computes: the products of bf16 values accumulate in float32, `lse` and `xs`
-are float32, and the gradients are rounded to the inputs' dtype once, at
-the end; the plain version rounds at the same points.
+(others raise `TypeError`), and run every product on the tensor cores.  In
+bfloat16 they compute what the TPU kernel computes: the products of bf16
+values accumulate in float32, the float32 d logits enter the backward's
+second product split into two bf16 terms, `lse` and `xs` are float32, and
+the gradients are rounded to the inputs' dtype once, at the end; the plain
+version rounds at the same points.  In float32 every operand is split into
+three bf16 terms and the six leading cross products are summed in float32
+(TF32 stays off).  The forward and grad-e split V, and grad-w the B T
+rows, between blocks (`launch_geometry`); a second launch of the same
+launcher sums the partials in a fixed order, so two calls give
+bit-identical outputs.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
-from emoasr_tpu_torch.ops.cuda_lib import I, L, P, CudaKernel
+from emoasr_tpu_torch.ops.cuda_lib import I, P, CudaKernel, aligned16
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNEL = CudaKernel(
     "ctc_head.cu",
     {
-        **{f"emo_ctc_head_fwd_{s}": [P] * 6 + [I] * 5 + [L, L, P] for s in _SUFFIX.values()},
-        **{f"emo_ctc_head_grad_e_{s}": [P] * 8 + [I] * 5 + [L, L, P] for s in _SUFFIX.values()},
-        **{f"emo_ctc_head_grad_w_{s}": [P] * 9 + [I] * 5 + [L, L, P] for s in _SUFFIX.values()},
+        **{f"emo_ctc_head_fwd_{s}": [P] * 8 + [I] * 6 + [P] for s in _SUFFIX.values()},
+        **{f"emo_ctc_head_grad_e_{s}": [P] * 10 + [I] * 6 + [P] for s in _SUFFIX.values()},
+        **{f"emo_ctc_head_grad_w_{s}": [P] * 11 + [I] * 6 + [P] for s in _SUFFIX.values()},
+        "emo_ctc_head_smem_bytes": [I, I, I, I],
     },
 )
+
+# The kernels' launch geometry (csrc/ctc_head.cu keeps the same constants):
+# tiles of 64 rows by 64 columns, eight warps (four groups of 16 rows by
+# two halves of the columns, each half with partial sums of its own); the hidden size streams in
+# chunks of CHUNK[dtype] columns, staged as TERMS[dtype] bf16 planes of 64
+# rows, CHUNK + 8 apart; with H <= RANGE the operand a block keeps (e in the
+# forward and grad-e, w in grad-w) stays whole in shared memory (rows RANGE
+# + 8 apart), and a block writes d e or d w for one RANGE of columns.
+TILE = 64
+HALVES = 2
+RANGE = 256
+CHUNK = {torch.bfloat16: 256, torch.float32: 128}
+TERMS = {torch.bfloat16: 1, torch.float32: 3}
+MAX_SMEM = 232448  # bytes of shared memory a block may take on sm_90
+H100_SMS = 132
+KINDS = ("fwd", "grad_e", "grad_w")
+
+
+def smem_bytes(kind: str, dtype: torch.dtype, H: int, S: int) -> int:
+    """Dynamic shared memory of one block of kernel `kind`: the operand it
+    keeps (e in the forward and grad-e, w in grad-w) whole and two buffers
+    of the other when H <= RANGE, else two buffers of each, plus grad-w's
+    two path lists of S ints."""
+    tile = TERMS[dtype] * TILE * (CHUNK[dtype] + 8) * 2
+    tiles = TERMS[dtype] * TILE * (RANGE + 8) * 2 + 2 * tile if H <= RANGE else 4 * tile
+    return tiles + (2 * 4 * S if kind == "grad_w" else 0)
+
+
+def _spread(base_blocks: int, most: int, n_sm: int) -> int:
+    """How many ways to split a grid of `base_blocks` for some four blocks
+    of eight warps a SM, between 1 and `most`."""
+    return max(1, min(most, math.ceil(4 * n_sm / base_blocks)))
+
+
+def launch_geometry(B: int, T: int, H: int, V: int, S: int, dtype: torch.dtype,
+                    n_sm: int = H100_SMS) -> dict:
+    """Grid, shared memory, splits and scratch of each kernel for these
+    shapes (H as the kernels see it, a multiple of 8): the forward and
+    grad-e split V between NS blocks, grad-w the B T rows between G groups;
+    each writes float32 partials that a second launch sums in a fixed
+    order.  float32 inputs are split into three bf16 planes first."""
+    N, ranges = B * math.ceil(T / TILE), math.ceil(H / RANGE)
+    v_tiles = math.ceil(V / TILE)
+    ns_fwd = _spread(N, v_tiles, n_sm)
+    ns_e = _spread(N * ranges, v_tiles, n_sm)
+    G = _spread(v_tiles * ranges, N, n_sm)
+    rows = B * T
+    planes = 3 * (rows * H + V * H) if TERMS[dtype] == 3 else 0
+    return {
+        "fwd": {"grid": (math.ceil(T / TILE), B, ns_fwd), "smem": smem_bytes("fwd", dtype, H, S),
+                "splits": ns_fwd, "scratch": HALVES * ns_fwd * rows * 2, "planes": planes},
+        "grad_e": {"grid": (math.ceil(T / TILE), B, ns_e * ranges), "smem": smem_bytes("grad_e", dtype, H, S),
+                   "splits": ns_e, "scratch": HALVES * ns_e * rows * H, "planes": planes},
+        "grad_w": {"grid": (v_tiles, G, ranges), "smem": smem_bytes("grad_w", dtype, H, S),
+                   "splits": G, "scratch": HALVES * G * (V * H + V) + rows * S + B * S, "planes": planes},
+    }
+
+
+def _scratch(geo: dict, device) -> tuple:
+    """(f32 partials, bf16 planes or None) of one kernel's geometry."""
+    part = torch.empty(geo["scratch"], dtype=torch.float32, device=device)
+    planes = torch.empty(geo["planes"], dtype=torch.bfloat16, device=device) if geo["planes"] else None
+    return part, planes
+
+
+def _n_sm(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ctc_head_plain(eouts, w, b, z) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -57,43 +134,53 @@ def ctc_head_plain(eouts, w, b, z) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 class _FusedCTCHead(torch.autograd.Function):
+    """The three kernels on e (B, T, H) and w in nn.Linear's layout, (V, H),
+    both contiguous with H a multiple of 8 and 16-byte aligned rows."""
+
     @staticmethod
-    def forward(ctx, eouts, w, b, z32):
+    def forward(ctx, eouts, wt, b, z32):
         B, T, H = eouts.shape
-        V, S = w.shape[1], z32.shape[1]
+        V, S = wt.shape[0], z32.shape[1]
         lse = torch.empty((B, T), dtype=torch.float32, device=eouts.device)
         xs = torch.empty((B, T, S), dtype=torch.float32, device=eouts.device)
+        geo = launch_geometry(B, T, H, V, S, eouts.dtype, _n_sm(eouts.device))["fwd"]
+        part, planes = _scratch(geo, eouts.device)
         with torch.cuda.device(eouts.device):
             stream = torch.cuda.current_stream(eouts.device).cuda_stream
             KERNEL.launch(
-                f"emo_ctc_head_fwd_{_SUFFIX[eouts.dtype]}", eouts.data_ptr(), w.data_ptr(), b.data_ptr(),
-                z32.data_ptr(), lse.data_ptr(), xs.data_ptr(), B, T, H, V, S, *w.stride(), stream,
+                f"emo_ctc_head_fwd_{_SUFFIX[eouts.dtype]}", eouts.data_ptr(), wt.data_ptr(), b.data_ptr(),
+                z32.data_ptr(), lse.data_ptr(), xs.data_ptr(), part.data_ptr(),
+                None if planes is None else planes.data_ptr(), geo["splits"], B, T, H, V, S, stream,
             )
-        ctx.save_for_backward(eouts, w, b, z32, lse)
+        ctx.save_for_backward(eouts, wt, b, z32, lse)
         return lse, xs
 
     @staticmethod
     def backward(ctx, g_lse, g_xs):
-        eouts, w, b, z32, lse = ctx.saved_tensors
+        eouts, wt, b, z32, lse = ctx.saved_tensors
         B, T, H = eouts.shape
-        V, S = w.shape[1], z32.shape[1]
+        V, S = wt.shape[0], z32.shape[1]
         g_lse = g_lse.to(torch.float32).contiguous()
         g_xs = g_xs.to(torch.float32).contiguous()
         g_e = g_w = g_b = None
         sfx = _SUFFIX[eouts.dtype]
+        geos = launch_geometry(B, T, H, V, S, eouts.dtype, _n_sm(eouts.device))
         with torch.cuda.device(eouts.device):
             stream = torch.cuda.current_stream(eouts.device).cuda_stream
-            common = (eouts.data_ptr(), w.data_ptr(), b.data_ptr(), z32.data_ptr(),
+            common = (eouts.data_ptr(), wt.data_ptr(), b.data_ptr(), z32.data_ptr(),
                       lse.data_ptr(), g_lse.data_ptr(), g_xs.data_ptr())
             if ctx.needs_input_grad[0]:
                 g_e = torch.empty_like(eouts)
-                KERNEL.launch(f"emo_ctc_head_grad_e_{sfx}", *common, g_e.data_ptr(),
-                              B, T, H, V, S, *w.stride(), stream)
+                part, planes = _scratch(geos["grad_e"], eouts.device)
+                KERNEL.launch(f"emo_ctc_head_grad_e_{sfx}", *common, g_e.data_ptr(), part.data_ptr(),
+                              None if planes is None else planes.data_ptr(), geos["grad_e"]["splits"],
+                              B, T, H, V, S, stream)
             if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-                g_w = torch.empty_strided(w.shape, w.stride(), dtype=w.dtype, device=w.device)
-                g_b = torch.empty_like(b)
+                g_w, g_b = torch.empty_like(wt), torch.empty_like(b)
+                part, planes = _scratch(geos["grad_w"], eouts.device)
                 KERNEL.launch(f"emo_ctc_head_grad_w_{sfx}", *common, g_w.data_ptr(), g_b.data_ptr(),
-                              B, T, H, V, S, *w.stride(), stream)
+                              part.data_ptr(), None if planes is None else planes.data_ptr(),
+                              geos["grad_w"]["splits"], B, T, H, V, S, stream)
         return g_e, g_w, g_b, None
 
 
@@ -124,6 +211,7 @@ def fused_ctc_head(eouts, w, b, z) -> Tuple[torch.Tensor, torch.Tensor]:
     if z.is_floating_point():
         raise TypeError(f"ctc head kernel: z must hold integers, not {z.dtype}")
     z32 = z.to(device=eouts.device, dtype=torch.int32).contiguous()
-    if w.stride() not in ((V, 1), (1, H)):
-        w = w.contiguous()
-    return _FusedCTCHead.apply(eouts.contiguous(), w, b.contiguous(), z32)
+    wt = w.t()  # (V, H): read in place when w is the .t() of an nn.Linear weight
+    if H % 8:  # the kernels stage rows in 16-byte words: zero columns add nothing
+        eouts, wt = F.pad(eouts, (0, 8 - H % 8)), F.pad(wt, (0, 8 - H % 8))
+    return _FusedCTCHead.apply(aligned16(eouts), aligned16(wt), b.contiguous(), z32)

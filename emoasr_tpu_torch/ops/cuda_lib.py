@@ -42,6 +42,13 @@ U = ctypes.c_uint32
 F = ctypes.c_float
 
 
+def aligned16(x):
+    """`x` contiguous in storage that starts on a 16-byte boundary (a copy
+    where it does not), for kernels that move rows as 16-byte words."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def find_nvcc() -> str:
     cands = [shutil.which("nvcc")]
     for env in ("CUDA_HOME", "CUDA_PATH"):

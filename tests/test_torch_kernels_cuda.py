@@ -7,7 +7,9 @@ card, run them without the JAX test configuration:
 
 The cases and tolerances are those of `chip_smoke.py` (top-k exact;
 attention forward f32 within 1e-5, bf16 within 2e-2, with and without the
-score bias; attention backward, CTC head, CTC lattice, the decoder layer
+score bias, and the bf16 launchers at the edge cases of their tiling
+(`k4_edge_cases`, bias f32 and bf16, dropout 0, 0.1 and 0.3), each launched
+twice with bit-identical outputs; attention backward, CTC head, CTC lattice, the decoder layer
 step, the LM layer step, the RNN-T joint and the LSTM recurrence forward
 and backward: the constants beside their checks there; the bf16 parts of
 the attention backward, the CTC head (and the head at H > 256), the RNN-T
@@ -51,7 +53,9 @@ def test_attention_kernel_matches_plain(cuda_dev):
 
     before = attention.KERNEL.launches
     chip_smoke.check_attention(*cuda_dev)
-    assert attention.KERNEL.launches - before == len(chip_smoke.attention_cases(*cuda_dev))
+    # the cases once, and the bf16 edge cases twice each (bit-identical)
+    edges = len(chip_smoke.k4_edge_cases(cuda_dev[0]))
+    assert attention.KERNEL.launches - before == len(chip_smoke.attention_cases(*cuda_dev)) + 2 * edges
 
 
 def test_attention_kernel_rejects_training_options(cuda_dev):
@@ -89,8 +93,10 @@ def test_attention_bias_matches_plain(cuda_dev):
     before = dict(attention.KERNEL.counts)
     chip_smoke.check_attention_bias(*cuda_dev)
     used = {k: attention.KERNEL.counts[k] - before[k] for k in before}
-    # three shapes: one forward per dtype, and a forward + backward with and without dropout
-    assert used["emo_attention_fwd_f32"] == 9 and used["emo_attention_fwd_bf16"] == 3
+    # three shapes: one forward per dtype, and a forward + backward with and without dropout;
+    # then the bf16 edge cases, bias f32 and bf16, three dropout rates, twice each
+    edges = len(chip_smoke.k4_edge_cases(cuda_dev[0]))
+    assert used["emo_attention_fwd_f32"] == 9 and used["emo_attention_fwd_bf16"] == 3 + 2 * 2 * 3 * edges
     assert used["emo_attention_bwd_f32"] == 6
 
 
@@ -229,8 +235,10 @@ def test_ctc_head_kernels_match_plain(cuda_dev):
 
     before = dict(ctc_head.KERNEL.counts)
     chip_smoke.check_ctc_head(*cuda_dev)
+    sweep = len(chip_smoke.HEAD_SWEEP_V) * len(chip_smoke.HEAD_SWEEP_H)
     for name in ("emo_ctc_head_fwd_f32", "emo_ctc_head_grad_e_f32", "emo_ctc_head_grad_w_f32"):
-        assert ctc_head.KERNEL.counts[name] - before[name] == 8  # four cases, two cotangents each
+        # four cases and the V x H sweep, two cotangents each, two launches each
+        assert ctc_head.KERNEL.counts[name] - before[name] == (4 + sweep) * 2 * 2
 
 
 def test_new_kernels_reject_what_they_do_not_take(cuda_dev):
@@ -350,8 +358,9 @@ def test_ctc_head_bf16_and_wide_match_plain(cuda_dev):
     before = dict(ctc_head.KERNEL.counts)
     chip_smoke.check_ctc_head_bf16(*cuda_dev)
     used = {k: ctc_head.KERNEL.counts[k] - before[k] for k in before}
-    for stage in ("fwd", "grad_e", "grad_w"):
-        assert used[f"emo_ctc_head_{stage}_bf16"] == 6 and used[f"emo_ctc_head_{stage}_f32"] == 2
+    sweep = len(chip_smoke.HEAD_SWEEP_V) * len(chip_smoke.HEAD_SWEEP_H)
+    for stage in ("fwd", "grad_e", "grad_w"):  # two cotangents, two launches each
+        assert used[f"emo_ctc_head_{stage}_bf16"] == (3 + sweep) * 4 and used[f"emo_ctc_head_{stage}_f32"] == 4
 
 
 def test_attention_backward_bf16_matches_plain(cuda_dev):
@@ -362,7 +371,41 @@ def test_attention_backward_bf16_matches_plain(cuda_dev):
     before = dict(attention.KERNEL.counts)
     chip_smoke.check_attention_backward_bf16(*cuda_dev)
     used = {k: attention.KERNEL.counts[k] - before[k] for k in before}
-    assert used["emo_attention_bwd_bf16"] == 4 and used["bias_bwd_bf16"] == 2 and used["emo_attention_bwd_f32"] == 0
+    # four cases once; the edge cases with no bias, an f32 and a bf16 bias, three rates, twice each
+    edges = len(chip_smoke.k4_edge_cases(cuda_dev[0]))
+    assert used["emo_attention_bwd_bf16"] == 4 + 2 * 3 * 3 * edges
+    assert used["bias_bwd_bf16"] == 2 + 2 * 2 * 3 * edges and used["emo_attention_bwd_f32"] == 0
+
+
+def test_attention_bf16_rejects_depth_not_multiple_of_8(cuda_dev):
+    """The bf16 launchers move rows in 16-byte words: a bf16 head size that
+    is not a multiple of 8 is refused, forward and backward; float32 takes
+    it (its launchers read element by element)."""
+    from emoasr_tpu_torch.ops.attention import fused_self_attention
+
+    dev, _ = cuda_dev
+    lens = torch.tensor([5, 3], device=dev)
+    for D in (12, 20, 36):
+        q = torch.randn(2, 5, 2, D, device=dev)
+        with pytest.raises(ValueError):
+            fused_self_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(), lens, scale=0.3)
+        qb = q.bfloat16().requires_grad_(True)
+        with pytest.raises(ValueError):
+            fused_self_attention(qb, qb, qb, lens, scale=0.3, dropout_rate=0.1, deterministic=False, seed=1)
+        assert torch.isfinite(fused_self_attention(q, q, q, lens, scale=0.3)).all()
+
+
+def test_ctc_head_geometry_matches_the_kernels(cuda_dev):
+    """The wrapper's account of each K1 kernel's shared memory
+    (`launch_geometry`, which the CPU tests hold to the card's limit) is the
+    kernels' own, for chunked and unchunked H in both dtypes."""
+    from emoasr_tpu_torch.ops import ctc_head
+
+    lib = ctc_head.KERNEL.lib()
+    for dtype, flag in ((torch.bfloat16, 1), (torch.float32, 0)):
+        for H in (40, 128, 256, 512, 600):
+            for kind_i, kind in enumerate(ctc_head.KINDS):
+                assert lib.emo_ctc_head_smem_bytes(kind_i, flag, H, 257) == ctc_head.smem_bytes(kind, dtype, H, 257)
 
 
 def test_rnnt_joint_bf16_matches_plain(cuda_dev):
