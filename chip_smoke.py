@@ -187,7 +187,7 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 # the sources whose kernels run on the tensor cores: their registers, spills
 # and shared memory (`nvcc -Xptxas -v`) and their count of tensor-core
 # instructions (`cuobjdump -sass`) are reported in phase 2
-TENSOR_CORE_SOURCES = ("attention.cu", "ctc_head.cu")
+TENSOR_CORE_SOURCES = ("attention.cu", "ctc_head.cu", "rnnt_joint.cu")
 
 
 def start_resource_builds(out_dir: str) -> dict:
@@ -204,8 +204,29 @@ def start_resource_builds(out_dir: str) -> dict:
     return jobs
 
 
+def _template_args(mangled: str) -> list:
+    """The template arguments (`f32`, `bf16`, integers) of a mangled
+    argument list `I...E`."""
+    args, i = [], 1
+    while i < len(mangled) and mangled[i] != "E":
+        if mangled[i] == "f":
+            args.append("f32")
+            i += 1
+        elif mangled.startswith("13__nv_bfloat16", i):
+            args.append("bf16")
+            i += len("13__nv_bfloat16")
+        elif mangled[i] == "L":  # a literal, L<type><value>E
+            j = mangled.index("E", i)
+            args.append(mangled[i + 2:j])
+            i = j + 1
+        else:
+            break
+    return args
+
+
 def _short_kernel_name(mangled: str) -> str:
-    """`ctc_head_grad_e_kernel<bf16>`, `tc::bwd_dq_kernel<8>`, ... from a mangled name."""
+    """`ctc_head_grad_e_kernel<bf16>`, `tc::bwd_dq_kernel<8>`,
+    `rnnt_joint_kernel<f32, 64>`, ... from a mangled name."""
     end = mangled.find("_kernel") + len("_kernel")
     name = mangled[:40]
     for j in range(end - len("_kernel") - 1, 0, -1):  # the length-prefixed identifier ending there
@@ -214,10 +235,8 @@ def _short_kernel_name(mangled: str) -> str:
             name = mangled[j:end]
             break
     name = ("tc::" if "2tc" in mangled else "") + name
-    for tag, arg in (("I13__nv_bfloat16E", "bf16"), ("IfE", "f32"), ("ILi4EE", "4"), ("ILi8EE", "8")):
-        if tag in mangled:
-            return f"{name}<{arg}>"
-    return name
+    args = _template_args(mangled[end:]) if mangled[end:end + 1] == "I" else []
+    return f"{name}<{', '.join(args)}>" if args else name
 
 
 def kernel_resources(jobs: dict) -> dict:
@@ -423,10 +442,19 @@ def time_attention(dev, gen, B: int, T: int, H: int, D: int, lens: torch.Tensor,
     }
 
 
-def _bound(bytes_moved: float, ops: float, dtype=torch.float32) -> dict:
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+def _bound(bytes_moved: float, ops: float, dtype=torch.float32, split_products: int = 0) -> dict:
+    """The least time of the work: bytes over the memory rate or operations
+    over the peak of `dtype`, the larger.  A float32 kernel that splits its
+    operands into bf16 terms runs `split_products` bf16 products on the
+    tensor cores for each float32 one (K1: 6, K7: 3): its operations take
+    the lower of the CUDA cores' time and that many times the tensor cores'.
+    `ops_at` says which peak the operations were held to."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S
+    t_ops, at = ops / PEAK_FLOPS[dtype], "bf16 tensor cores" if dtype == torch.bfloat16 else "f32 CUDA cores"
+    if split_products and split_products * ops / PEAK_FLOPS[torch.bfloat16] < t_ops:
+        t_ops, at = split_products * ops / PEAK_FLOPS[torch.bfloat16], f"{split_products} bf16 products, tensor cores"
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "ops_at": at}
 
 
 def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1131,7 +1159,8 @@ def time_lm_step(dev, gen, Bu: int, W: int, L: int, pos: int, dtype=torch.float3
 
 # K7: log-probabilities (magnitudes about log V ~ 7-8) from float32 sums of
 # J = 512 products in another order than the plain version's matrix
-# product: atol 1e-4.
+# product, in float32 of operands split into two bf16 terms each (~2^-17 of
+# each product; tests/test_torch_kernel_arith.py): atol 1e-4.
 RNNT_JOINT_TOL = 1e-4
 
 
@@ -1147,28 +1176,44 @@ def rnnt_joint_case(dev, gen, B: int, T: int, U1: int, J: int, V: int):
     return h_enc, h_dec, weight, bias, labels
 
 
-def check_rnnt_joint(dev, gen) -> float:
-    """K7 forward against its plain version (the chunked dense product):
-    U+1 not a multiple of anything, V = 1000 and 4000, B not a multiple of
-    anything, T below the plain version's chunk, the weight read in place
-    as `weight.t()` and contiguous."""
-    from emoasr_tpu_torch.ops.rnnt import joint_gather_plain
+def _check_joint(tag: str, args: tuple, want: tuple, blank: int = 0) -> float:
+    """K7 launched twice on `args` (h_enc, h_dec, w, bias, labels): the two
+    launches bit-identical, float32 outputs within RNNT_JOINT_TOL of `want`."""
     from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather
 
-    worst = 0.0
-    for shape, transposed in (((18, 399, 129, 512, 1000), True), ((5, 23, 37, 512, 4000), True),
-                              ((3, 41, 13, 512, 1000), False), ((7, 9, 2, 96, 257), True)):
+    with torch.no_grad():
+        got = fused_joint_gather(*args, blank)
+        again = fused_joint_gather(*args, blank)
+    torch.cuda.synchronize()
+    require(got[0].dtype == got[1].dtype == torch.float32, f"{tag}: outputs are not float32")
+    require(all(torch.equal(a, b) for a, b in zip(got, again)), f"{tag}: two launches differ")
+    require(got[1].shape == want[1].shape, f"{tag} lp_label: shape {tuple(got[1].shape)} != {tuple(want[1].shape)}")
+    errs = [_require_close(f"{tag} {what}", a, b, RNNT_JOINT_TOL, 0.0) if b.numel() else 0.0  # U = 0: no labels
+            for what, a, b in zip(("lp_blank", "lp_label"), got, want)]
+    print(f"  {tag}: lp_blank {errs[0]:.2e}, lp_label {errs[1]:.2e} (tol {RNNT_JOINT_TOL}), twice, bit-identical")
+    return max(errs)
+
+
+def check_rnnt_joint(dev, gen) -> dict:
+    """K7 forward against its plain version (the chunked dense product):
+    the largest L4 bucket at V = 1000 and CSJ's V = 4000, U+1 not a
+    multiple of anything, B not a multiple of anything, T below the plain
+    version's chunk, the weight read in place as `weight.t()` and
+    contiguous; each shape launched twice, bit-identical."""
+    from emoasr_tpu_torch.ops.rnnt import joint_gather_plain
+
+    worst = {"rnnt_joint": 0.0, "rnnt_joint_v4000": 0.0}
+    for shape, transposed in (((18, 399, 129, 512, 1000), True), ((18, 399, 129, 512, 4000), True),
+                              ((5, 23, 37, 512, 4000), True), ((3, 41, 13, 512, 1000), False),
+                              ((7, 9, 2, 96, 257), True)):
         h_enc, h_dec, weight, bias, labels = rnnt_joint_case(dev, gen, *shape)
         w = weight.t() if transposed else weight.t().contiguous()
         with torch.no_grad():
-            got = fused_joint_gather(h_enc, h_dec, w, bias, labels, 0)
             want = joint_gather_plain(h_enc, h_dec, w, bias, labels, 0)
-        torch.cuda.synchronize()
-        tag = f"rnnt joint {shape}{' weight.t()' if transposed else ''}"
-        errs = [_require_close(f"{tag} {what}", a, b, RNNT_JOINT_TOL, 0.0)
-                for what, a, b in zip(("lp_blank", "lp_label"), got, want)]
-        worst = max(worst, *errs)
-        print(f"  {tag}: lp_blank {errs[0]:.2e}, lp_label {errs[1]:.2e} (tol {RNNT_JOINT_TOL})")
+        err = _check_joint(f"rnnt joint {shape}{' weight.t()' if transposed else ''}",
+                           (h_enc, h_dec, w, bias, labels), want)
+        for key in ("rnnt_joint", "rnnt_joint_v4000") if shape[4] == 4000 else ("rnnt_joint",):
+            worst[key] = max(worst[key], err)
     return worst
 
 
@@ -1379,25 +1424,21 @@ def check_attention_backward_bf16(dev, gen) -> dict:
 # K7 in bf16: z is rounded to bf16 on both sides from the same f32 sum and
 # tanh, so the log-probabilities differ by the order of J products: the f32
 # tolerance, 1e-4.
-def check_rnnt_joint_bf16(dev, gen) -> float:
+def check_rnnt_joint_bf16(dev, gen) -> dict:
     """K7 in bf16 against `rnnt_joint_plain` (z in bf16, f32 logits):
-    the shapes of `check_rnnt_joint`."""
-    from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather, rnnt_joint_plain
+    the shapes of `check_rnnt_joint` with the weight read in place."""
+    from emoasr_tpu_torch.ops.rnnt_joint import rnnt_joint_plain
 
-    worst = 0.0
-    for shape in ((18, 399, 129, 512, 1000), (5, 23, 37, 512, 4000), (7, 9, 2, 96, 257)):
+    worst = {"rnnt_joint_bf16": 0.0, "rnnt_joint_v4000_bf16": 0.0}
+    for shape in ((18, 399, 129, 512, 1000), (18, 399, 129, 512, 4000), (5, 23, 37, 512, 4000),
+                  (7, 9, 2, 96, 257)):
         h_enc, h_dec, weight, bias, labels = (x.bfloat16() if x.is_floating_point() else x
                                               for x in rnnt_joint_case(dev, gen, *shape))
         with torch.no_grad():
-            got = fused_joint_gather(h_enc, h_dec, weight.t(), bias, labels, 0)
             want = rnnt_joint_plain(h_enc, h_dec, weight.t(), bias, labels, 0)
-        torch.cuda.synchronize()
-        tag = f"rnnt joint bf16 {shape}"
-        require(got[0].dtype == got[1].dtype == torch.float32, f"{tag}: outputs are not float32")
-        errs = [_require_close(f"{tag} {what}", a, b, RNNT_JOINT_TOL, 0.0)
-                for what, a, b in zip(("lp_blank", "lp_label"), got, want)]
-        worst = max(worst, *errs)
-        print(f"  {tag}: lp_blank {errs[0]:.2e}, lp_label {errs[1]:.2e} (tol {RNNT_JOINT_TOL})")
+        err = _check_joint(f"rnnt joint bf16 {shape}", (h_enc, h_dec, weight.t(), bias, labels), want)
+        for key in ("rnnt_joint_bf16", "rnnt_joint_v4000_bf16") if shape[4] == 4000 else ("rnnt_joint_bf16",):
+            worst[key] = max(worst[key], err)
     return worst
 
 
@@ -1440,12 +1481,13 @@ def check_lstm_bf16(dev, gen) -> dict:
 
 
 def check_rnnt_joint_wide(dev, gen) -> dict:
-    """K7 above the width that 64 cells' z tile fits: J = 1024 and 1500
-    (32 cells a block) and 2048 (16), float32 against `joint_gather_plain`
-    and bf16 against `rnnt_joint_plain`, both within RNNT_JOINT_TOL (the
-    outputs are float32 sums of J products in two orders)."""
+    """K7 above the width of 128 cells' z tile: J = 1024 (64 cells a block
+    in bf16, 32 in f32), 1500 (16 in f32) and 2048 (32 in bf16, 16 in
+    f32), float32 against `joint_gather_plain` and bf16 against
+    `rnnt_joint_plain`, both within RNNT_JOINT_TOL (the outputs are float32
+    sums of J products in two orders); each launched twice, bit-identical."""
     from emoasr_tpu_torch.ops.rnnt import joint_gather_plain
-    from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather, rnnt_joint_plain
+    from emoasr_tpu_torch.ops.rnnt_joint import rnnt_joint_plain
 
     worst = {"rnnt_joint_j1024": 0.0, "rnnt_joint_j1024_bf16": 0.0}
     for shape, transposed, dtypes in (((18, 399, 129, 1024, 1000), True, (torch.float32, torch.bfloat16)),
@@ -1456,17 +1498,90 @@ def check_rnnt_joint_wide(dev, gen) -> dict:
             h_enc, h_dec, weight, bias, labels = (x.to(dtype) if x.is_floating_point() else x for x in case)
             w = weight.t() if transposed else weight.t().contiguous()
             with torch.no_grad():
-                got = fused_joint_gather(h_enc, h_dec, w, bias, labels, 0)
                 want = (joint_gather_plain if dtype == torch.float32 else rnnt_joint_plain)(
                     h_enc, h_dec, w, bias, labels, 0)
-            torch.cuda.synchronize()
-            tag = f"rnnt joint {shape} {dtype}{' weight.t()' if transposed else ''}"
-            errs = [_require_close(f"{tag} {what}", a, b, RNNT_JOINT_TOL, 0.0)
-                    for what, a, b in zip(("lp_blank", "lp_label"), got, want)]
             key = "rnnt_joint_j1024" + ("" if dtype == torch.float32 else "_bf16")
-            worst[key] = max(worst[key], *errs)
-            print(f"  {tag}: lp_blank {errs[0]:.2e}, lp_label {errs[1]:.2e} (tol {RNNT_JOINT_TOL})")
+            worst[key] = max(worst[key], _check_joint(f"rnnt joint {shape} {dtype}{' weight.t()' if transposed else ''}",
+                                                      (h_enc, h_dec, w, bias, labels), want))
     return worst
+
+
+def rnnt_joint_edges() -> list:
+    """(J, dtype) on both sides of each width at which K7's cells a block
+    change (`launch_geometry`): bf16 128 | 64 | 32, f32 128 | 64 | 32 | 16."""
+    from emoasr_tpu_torch.ops.rnnt_joint import MAX_J, launch_geometry
+
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        prev = launch_geometry(1, 1, 1, 1, 1, dtype)["cells"]
+        for J in range(2, MAX_J + 1):
+            cells = launch_geometry(1, 1, 1, J, 1, dtype)["cells"]
+            if cells != prev:
+                out += [(J - 1, dtype), (J, dtype)]
+                prev = cells
+    return out
+
+
+def check_rnnt_joint_edges(dev, gen) -> dict:
+    """K7 at the edges of its tiling, each launched twice, bit-identical,
+    against the plain version of its dtype within RNNT_JOINT_TOL: both
+    sides of every change of cells a block (V = 4000 below, 257 above: a
+    ragged last V tile), 143 cells of an utterance (ragged at every cell
+    count); then a blank at V - 1 with labels outside [0, V), V = 40 (the
+    second warp column sees no valid column), one cell (T = U+1 = 1, no
+    labels), h_enc off a 16-byte boundary, J = 100 (not a multiple of 8)
+    and a contiguous (J, V) weight in bf16 (both through the copy of w)."""
+    from emoasr_tpu_torch.ops.rnnt import joint_gather_plain
+    from emoasr_tpu_torch.ops.rnnt_joint import rnnt_joint_plain
+
+    def one(tag, shape, dtype, blank=0, transposed=True, labels_edit=None, offset=False):
+        h_enc, h_dec, weight, bias, labels = (x.to(dtype) if x.is_floating_point() else x
+                                              for x in rnnt_joint_case(dev, gen, *shape))
+        if labels_edit is not None:
+            labels_edit(labels, shape[4])
+        if offset:  # the same values one element into a fresh buffer: no longer 16-byte aligned
+            buf = torch.empty(h_enc.numel() + 1, dtype=dtype, device=dev)
+            buf[1:] = h_enc.reshape(-1)
+            h_enc = buf[1:].view(h_enc.shape)
+        w = weight.t() if transposed else weight.t().contiguous()
+        with torch.no_grad():
+            want = (joint_gather_plain if dtype == torch.float32 else rnnt_joint_plain)(
+                h_enc, h_dec, w, bias, labels, blank)
+        return _check_joint(f"rnnt joint edge {tag} {shape} {dtype}", (h_enc, h_dec, w, bias, labels), want, blank)
+
+    def out_of_range(labels, V):
+        labels[0, 0], labels[-1, 1] = -3, V + 5
+
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i, (J, dtype) in enumerate(rnnt_joint_edges()):
+        worst[dtype] = max(worst[dtype], one(f"J={J}", (2, 13, 11, J, 4000 if i % 2 == 0 else 257), dtype))
+    for dtype in (torch.float32, torch.bfloat16):
+        for tag, shape, kw in (("blank V-1, labels out of range", (3, 17, 9, 512, 300),
+                                {"blank": 299, "labels_edit": out_of_range}),
+                               ("V=40", (2, 11, 7, 512, 40), {}), ("one cell", (2, 1, 1, 512, 300), {}),
+                               ("h_enc misaligned", (2, 7, 5, 512, 300), {"offset": True}),
+                               ("J % 8 = 4", (2, 7, 5, 100, 300), {}),
+                               ("w (J, V) contiguous", (2, 7, 5, 512, 300), {"transposed": False})):
+            worst[dtype] = max(worst[dtype], one(tag, shape, dtype, **kw))
+    # every cells a block at one width where all fit: the same outputs, bit for bit
+    from emoasr_tpu_torch.ops.rnnt_joint import CELLS, _launch, launch_geometry
+
+    for dtype in (torch.float32, torch.bfloat16):
+        h_enc, h_dec, weight, bias, labels = (x.to(dtype) if x.is_floating_point() else x
+                                              for x in rnnt_joint_case(dev, gen, 3, 29, 17, 200, 1000))
+        labels = labels.int()
+        outs = {}
+        for cells in CELLS[dtype]:
+            geo = {**launch_geometry(3, 29, 17, 200, 1000, dtype), "cells": cells, "stages": 2}
+            with torch.no_grad():
+                outs[cells] = _launch(h_enc, h_dec, weight.t(), bias, labels, 0, geo)
+        torch.cuda.synchronize()
+        ref = outs[CELLS[dtype][0]]
+        require(all(torch.equal(a, b) for o in outs.values() for a, b in zip(o, ref)),
+                f"rnnt joint {dtype}: the outputs depend on the cells a block")
+        print(f"  rnnt joint {dtype} (3, 29, 17, 200, 1000) at {', '.join(map(str, outs))} cells a block: "
+              "bit-identical")
+    return {"rnnt_joint_edges": worst[torch.float32], "rnnt_joint_edges_bf16": worst[torch.bfloat16]}
 
 
 def check_lstm_wide(dev, gen) -> dict:
@@ -1524,12 +1639,12 @@ def time_rnnt_joint(dev, gen, B: int, T: int, U1: int, J: int, V: int, dtype=tor
     w = weight.t()
     row = {}
     with torch.no_grad():
-        for key, fn in (("ms", fused_joint_gather), ("plain_ms", rnnt_joint_plain),
-                        ("library_ms", rnnt_gathered_from_joint)):
-            row[key] = cuda_time_ms(lambda: fn(h_enc, h_dec, w, bias, labels, 0), iters=3, warmup=1)
+        for key, fn, iters in (("ms", fused_joint_gather, 10), ("plain_ms", rnnt_joint_plain, 3),
+                               ("library_ms", rnnt_gathered_from_joint, 3)):
+            row[key] = cuda_time_ms(lambda: fn(h_enc, h_dec, w, bias, labels, 0), iters=iters, warmup=1)
     U, es = U1 - 1, h_enc.element_size()
     row.update(_bound(es * (B * T * J + B * U1 * J + J * V + V) + 4 * (B * U + B * T * U1 + B * T * U),
-                      2.0 * B * T * U1 * J * V, dtype))
+                      2.0 * B * T * U1 * J * V, dtype, 3 if dtype == torch.float32 else 0))
     row["shape"] = f"h_enc ({B},{T},{J}), h_dec ({B},{U1},{J}), w ({J},{V}), {dtype}"
     return {"rnnt_joint" + ("" if dtype == torch.float32 else "_bf16"): row}
 
@@ -1616,9 +1731,10 @@ def time_ctc_head(dev, gen, B: int, T: int, H: int, V: int, U: int, dtype=torch.
     es = e.element_size()
     io = es * (N * H + H * V + V) + 4 * B * S  # e, w, bias, z
     product, path = 2.0 * N * H * V, 2.0 * N * H * S
-    fwd.update(_bound(io + 4 * (N + N * S), product + path, dtype))
-    ge.update(_bound(io + 4 * (2 * N + N * S) + es * N * H, 2 * product + path, dtype))
-    gw.update(_bound(io + 4 * (2 * N + N * S) + es * (H * V + V), 2 * product + path, dtype))
+    split = 6 if dtype == torch.float32 else 0  # the six leading products of three bf16 terms
+    fwd.update(_bound(io + 4 * (N + N * S), product + path, dtype, split))
+    ge.update(_bound(io + 4 * (2 * N + N * S) + es * N * H, 2 * product + path, dtype, split))
+    gw.update(_bound(io + 4 * (2 * N + N * S) + es * (H * V + V), 2 * product + path, dtype, split))
     for r in rows.values():
         r["shape"] = f"({B},{T},{H})x({H},{V}) S={S} {dtype}"
     return rows
@@ -3455,14 +3571,16 @@ KERNEL_ROWS = (
     ("lm_step_indirect_bf16", "emoasr_tpu_torch/csrc/lm_step.cu", "emoasr_tpu/ops/lm_step_pallas.py:85"),
 )
 
-# the widths above what the kernels took before this slice: the same
-# launchers, another instance of each kernel (K7 with 32 or 16 cells a
-# block, K8 with w_hh in shared memory).  No shipped configuration is that
-# wide, so no main path launches them: they are checked and timed in phases
+# the same launchers at shapes no main path of this script runs: the widths
+# above what the kernels first took (K7 with fewer cells a block,
+# K8 with w_hh in shared memory; no shipped configuration is that wide) and
+# K7 at CSJ's vocabulary (V = 4000).  They are checked and timed in phases
 # 3 and 14 and reported beside the `kernels` line.
 WIDE_ROWS = (
     ("rnnt_joint_j1024", "emoasr_tpu_torch/csrc/rnnt_joint.cu", "emoasr_tpu/ops/rnnt_pallas.py:51"),
     ("rnnt_joint_j1024_bf16", "emoasr_tpu_torch/csrc/rnnt_joint.cu", "emoasr_tpu/ops/rnnt_pallas.py:51"),
+    ("rnnt_joint_v4000", "emoasr_tpu_torch/csrc/rnnt_joint.cu", "emoasr_tpu/ops/rnnt_pallas.py:51"),
+    ("rnnt_joint_v4000_bf16", "emoasr_tpu_torch/csrc/rnnt_joint.cu", "emoasr_tpu/ops/rnnt_pallas.py:51"),
     ("lstm_fwd_h1024", "emoasr_tpu_torch/csrc/lstm_scan.cu", "emoasr_tpu/ops/lstm_pallas.py:56"),
     ("lstm_bwd_h1024", "emoasr_tpu_torch/csrc/lstm_scan.cu", "emoasr_tpu/ops/lstm_pallas.py:117"),
     ("lstm_fwd_h1024_bf16", "emoasr_tpu_torch/csrc/lstm_scan.cu", "emoasr_tpu/ops/lstm_pallas.py:56"),
@@ -3522,18 +3640,19 @@ def main(argv=None) -> int:
     errs.update(attention_bias_fwd=bias["fwd"], attention_bias_bwd=bias["bwd"], attention_bias_fwd_bf16=bias["fwd_bf16"])
     errs.update(check_decoder_step(dev, gen))
     errs["lm_step_indirect"] = check_lm_step(dev, gen)
-    errs["rnnt_joint"] = check_rnnt_joint(dev, gen)
+    errs.update(check_rnnt_joint(dev, gen))
     lstm = check_lstm(dev, gen)
     errs.update(lstm_fwd=lstm["fwd"], lstm_bwd=lstm["bwd"])
     print("  the bf16 parts (and K1 at H > 256): kernels against their plain versions")
     errs.update(check_ctc_head_bf16(dev, gen))
     errs.update(check_attention_backward_bf16(dev, gen))
-    errs["rnnt_joint_bf16"] = check_rnnt_joint_bf16(dev, gen)
+    errs.update(check_rnnt_joint_bf16(dev, gen))
     errs.update(check_lstm_bf16(dev, gen))
     print("  the bf16 beam steps (K5 direct and indirect, K6) and the widths above J = 819 and H = 512")
     errs.update(check_decoder_step(dev, gen, torch.bfloat16))
     errs["lm_step_indirect_bf16"] = check_lm_step(dev, gen, torch.bfloat16)
     errs.update(check_rnnt_joint_wide(dev, gen))
+    errs.update(check_rnnt_joint_edges(dev, gen))
     errs.update(check_lstm_wide(dev, gen))
 
     scratch_root = os.path.join(REPO, "build", "chip_smoke")
@@ -3649,6 +3768,9 @@ def main(argv=None) -> int:
         times["rnnt_joint_j1024" + sfx] = r["rnnt_joint" + sfx]
         r = time_lstm(dev, gen, l4_big.batch_size, l4_big.max_ylen + 1, 1024, 128, dt)
         times["lstm_fwd_h1024" + sfx], times["lstm_bwd_h1024" + sfx] = r["lstm_fwd" + sfx], r["lstm_bwd" + sfx]
+        # CSJ's vocabulary (c5, c6: V = 4000, J = 512, the same largest bucket as L4's)
+        r = time_rnnt_joint(dev, gen, l4_big.batch_size, l4_T, l4_big.max_ylen + 1, 512, 4000, dt)
+        times["rnnt_joint_v4000" + sfx] = r["rnnt_joint" + sfx]
     print(f"[14/14] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
           f"decoder step W = 10, pos = 64; L4: B = {l4_big.batch_size}, T' = {l4_T}, U+1 = {l4_big.max_ylen + 1}) "
           f"on {smi}")
@@ -3662,14 +3784,15 @@ def main(argv=None) -> int:
     def row_of(name, src, rep, launches):
         t = times[name]
         extra = f", the dense route {t['dense_route_ms']:.4f}" if "dense_route_ms" in t else ""
-        print(f"  {name}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} by {t['bound_by']}, plain "
+        at = f" at the {t['ops_at']}" if t["bound_by"] == "operations" and "ops_at" in t else ""
+        print(f"  {name}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} by {t['bound_by']}{at}, plain "
               f"{t['plain_ms']:.4f}, library {ms(t['library_ms'])}{extra}), {launches} launches")
         return {
             "name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches,
             "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"],
-            **{k: t[k] for k in ("dense_route_ms", "ctc_beam_shape") if k in t},
+            **{k: t[k] for k in ("ops_at", "dense_route_ms", "ctc_beam_shape") if k in t},
         }
 
     rows = []
@@ -3677,7 +3800,7 @@ def main(argv=None) -> int:
         launches = sum(p[name] for p in paths)
         require(launches > 0, f"kernel {name} was launched no time on the main paths")
         rows.append(row_of(name, src, rep, launches))
-    print("  the same launchers at the widths above what they took before (no main path is that wide):")
+    print("  the same launchers at shapes no main path runs (J = 1024, H = 1024, CSJ's V = 4000):")
     wide = [row_of(name, src, rep, 0) for name, src, rep in WIDE_ROWS]
     print(json.dumps({
         "train": {k: tr[k] for k in ("micro_steps", "seconds", "epoch_seconds", "micro_steps_per_s",

@@ -15,19 +15,27 @@ time).  The backward is the chunked plain path's on both
 inputs' dtype), as the JAX custom VJP hands its backward to
 `rnnt_gathered_from_joint`: those matrix products are outside the TPU
 kernel.  The kernel takes float32 or bfloat16 activations (others raise
-`TypeError`) and any J whose z tile of 16 cells fits a block's shared
-memory (J <= 2794 on sm_90; it takes 64 cells a block up to J = 819, then
-32, then 16).  As the TPU kernel does, it casts h_dec and
-w to h_enc's dtype, forms z = tanh(h_enc + h_dec) in that dtype, sums the
-products z w in float32, adds the float32 bias and returns float32
-log-probabilities.  A label outside [0, V) selects nothing (logit 0).
+`TypeError`) and J up to 2794 (wider raises `ValueError`).  As the TPU
+kernel does, it casts h_dec and w to h_enc's dtype, forms z = tanh(h_enc +
+h_dec) in that dtype, sums the products z w in float32 on the tensor cores
+(bf16 operands; in float32, z and w each split into two bf16 terms and the
+three leading cross products summed), adds the float32 bias and returns
+float32 log-probabilities.  A label outside [0, V) selects nothing (logit
+0).  The bfloat16 kernel reads w in `nn.Linear`'s (V, J) layout: the
+`.t()` view of a linear layer's weight in place, anything else (a
+contiguous (J, V) w, J not a multiple of 8) through one copy of w in that
+layout, zero-padded to a multiple of 8 columns (V J bf16, 4 MB at J = 512,
+V = 4000).  The float32 kernel splits w, in whatever layout, into two bf16
+planes of that shape (a scratch the wrapper allocates) by a first launch.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from emoasr_tpu_torch.ops.cuda_lib import I, L, P, CudaKernel
 from emoasr_tpu_torch.ops.rnnt import TIME_CHUNK, zero_cotangents, joint_gather_backward, joint_gather_plain
@@ -35,9 +43,50 @@ from emoasr_tpu_torch.ops.rnnt import TIME_CHUNK, zero_cotangents, joint_gather_
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNEL = CudaKernel(
     "rnnt_joint.cu",
-    {**{f"emo_rnnt_joint_{s}": [P] * 7 + [I] * 6 + [L, L, P] for s in _SUFFIX.values()},
-     "emo_rnnt_joint_cells": [I]},
+    {**{f"emo_rnnt_joint_{s}": [P] * 8 + [I] * 6 + [L, L, I, I, P] for s in _SUFFIX.values()},
+     "emo_rnnt_joint_smem_bytes": [I, I, I, I]},
 )
+
+# The kernel's launch geometry (csrc/rnnt_joint.cu keeps the same
+# constants): V tiles of 256 columns, four warp columns of 64; W streamed in
+# ring stages of 64 joint columns in bf16, 32 in float32, 16 at 16 cells a
+# block (planes of 256 rows, chunk + 8 bf16 apart); z kept as TERMS bf16
+# planes of CELLS rows, J rounded up to 64 plus 8 apart.
+# A block of BM cells has one row of warps (BM <= 32) or two, each warp 16
+# MT = BM / (16 rows) cells tall; float32 takes at most 64 cells.
+TILE_V = 256
+WARP_COLUMNS = 4
+TERMS = {torch.bfloat16: 1, torch.float32: 2}
+CELLS = {torch.bfloat16: (128, 64, 32, 16), torch.float32: (64, 32, 16)}
+STAGES = (2, 4)  # the fewest and the most ring stages
+MAX_J = 2794  # the widest joint the kernel has taken since its port
+MAX_SMEM = 232448  # bytes of shared memory a block may take on sm_90
+
+
+def smem_bytes(terms: int, bm: int, stages: int, J: int) -> int:
+    """Dynamic shared memory of a block of `bm` cells: the z planes, the
+    ring of W, the warp columns' (max, sum) and each cell's blank and label
+    logit."""
+    ldz = math.ceil(J / 64) * 64 + 8
+    chunk = 16 if bm == 16 else 64 if terms == 1 else 32
+    return 2 * (terms * bm * ldz + stages * terms * TILE_V * (chunk + 8)) + 4 * (2 * WARP_COLUMNS + 2) * bm
+
+
+def launch_geometry(B: int, T: int, U1: int, J: int, V: int, dtype: torch.dtype) -> Optional[dict]:
+    """Cells a block (the widest z tile that fits with two ring stages),
+    ring stages (as many as then fit), threads, grid, shared memory and the
+    bf16 scratch of W's split (float32) for these shapes; None where J is
+    wider than MAX_J or no z tile fits."""
+    terms = TERMS[dtype]
+    if not 1 <= J <= MAX_J:
+        return None
+    for bm in CELLS[dtype]:
+        if smem_bytes(terms, bm, STAGES[0], J) <= MAX_SMEM:
+            stages = max(s for s in range(STAGES[0], STAGES[1] + 1) if smem_bytes(terms, bm, s, J) <= MAX_SMEM)
+            return {"cells": bm, "stages": stages, "threads": 32 * WARP_COLUMNS * (2 if bm >= 64 else 1),
+                    "grid": (math.ceil(T * U1 / bm), B), "smem": smem_bytes(terms, bm, stages, J),
+                    "planes": 2 * V * math.ceil(J / 8) * 8 if terms == 2 else 0}
+    return None
 
 
 def rnnt_joint_plain(h_enc, h_dec, w_out, b_out, labels, blank_id: int = 0
@@ -51,28 +100,42 @@ def rnnt_joint_plain(h_enc, h_dec, w_out, b_out, labels, blank_id: int = 0
     return joint_gather_plain(h_enc, h_dec.to(dt), w, b_out.float(), labels, blank_id)
 
 
+def _launch(h_enc, h_dec, w_out, b_out, labels32, blank_id: int, geo: dict):
+    """The kernel on CUDA tensors (h_enc contiguous, labels int32) with the
+    cells a block and ring stages of `geo`."""
+    B, T, J = h_enc.shape
+    U1, V = h_dec.shape[1], w_out.shape[1]
+    dt = h_enc.dtype
+    hd, w = h_dec.to(dt).contiguous(), w_out.to(dt)
+    planes = None
+    if dt == torch.bfloat16:  # rows of the (V, J) layout, 16-byte words
+        w = w.t()
+        if J % 8 or w.stride(1) != 1 or w.stride(0) % 8 or w.stride(0) < J or w.data_ptr() % 16:
+            w = F.pad(w, (0, -J % 8)).contiguous()  # the one copy of W
+        w_strides = (1, w.stride(0))
+    else:
+        planes = torch.empty(geo["planes"], dtype=torch.bfloat16, device=h_enc.device)
+        w_strides = w.stride()
+    bias = b_out.float().contiguous()
+    lpb = torch.empty((B, T, U1), dtype=torch.float32, device=h_enc.device)
+    lpl = torch.empty((B, T, U1 - 1), dtype=torch.float32, device=h_enc.device)
+    with torch.cuda.device(h_enc.device):
+        KERNEL.launch(
+            f"emo_rnnt_joint_{_SUFFIX[dt]}", h_enc.data_ptr(), hd.data_ptr(), w.data_ptr(),
+            bias.data_ptr(), labels32.data_ptr(), lpb.data_ptr(), lpl.data_ptr(),
+            None if planes is None else planes.data_ptr(), B, T, U1, J, V, blank_id, *w_strides,
+            geo["cells"], geo["stages"], torch.cuda.current_stream(h_enc.device).cuda_stream,
+        )
+    return lpb, lpl
+
+
 class _FusedJointGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h_enc, h_dec, w_out, b_out, labels, blank_id):
-        if h_enc.device.type == "cpu":
+    def forward(ctx, h_enc, h_dec, w_out, b_out, labels, blank_id, geo):
+        if geo is None:  # a CPU tensor
             lpb, lpl = rnnt_joint_plain(h_enc, h_dec, w_out, b_out, labels, blank_id)
         else:
-            B, T, J = h_enc.shape
-            U1, V = h_dec.shape[1], w_out.shape[1]
-            dt = h_enc.dtype
-            hd, w = h_dec.to(dt).contiguous(), w_out.to(dt)
-            if w.stride() not in ((V, 1), (1, J)):
-                w = w.contiguous()
-            bias = b_out.float().contiguous()
-            lpb = torch.empty((B, T, U1), dtype=torch.float32, device=h_enc.device)
-            lpl = torch.empty((B, T, U1 - 1), dtype=torch.float32, device=h_enc.device)
-            with torch.cuda.device(h_enc.device):
-                KERNEL.launch(
-                    f"emo_rnnt_joint_{_SUFFIX[dt]}", h_enc.data_ptr(), hd.data_ptr(), w.data_ptr(),
-                    bias.data_ptr(), labels.data_ptr(), lpb.data_ptr(), lpl.data_ptr(),
-                    B, T, U1, J, V, blank_id, *w.stride(),
-                    torch.cuda.current_stream(h_enc.device).cuda_stream,
-                )
+            lpb, lpl = _launch(h_enc, h_dec, w_out, b_out, labels, blank_id, geo)
         ctx.save_for_backward(h_enc, h_dec, w_out, b_out, labels)
         ctx.blank_id = blank_id
         return lpb, lpl
@@ -83,7 +146,7 @@ class _FusedJointGather(torch.autograd.Function):
         g_blank, g_label = zero_cotangents(h_enc, h_dec, g_blank, g_label)
         grads = joint_gather_backward(h_enc, h_dec, w_out, b_out, labels, g_blank, g_label,
                                       ctx.blank_id, TIME_CHUNK)
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
 def fused_joint_gather(
@@ -108,7 +171,7 @@ def fused_joint_gather(
     if labels.is_floating_point():
         raise TypeError(f"rnnt joint: labels must hold integers, not {labels.dtype}")
     if h_enc.device.type == "cpu":
-        return _FusedJointGather.apply(h_enc, h_dec, w_out, b_out, labels, blank_id)
+        return _FusedJointGather.apply(h_enc, h_dec, w_out, b_out, labels, blank_id, None)
     if h_enc.device.type != "cuda":
         raise ValueError(f"rnnt joint kernel: unsupported device {h_enc.device}")
     if h_enc.dtype not in _SUFFIX:
@@ -120,8 +183,8 @@ def fused_joint_gather(
             raise ValueError(f"rnnt joint kernel: {name} on {t.device}, h_enc on {h_enc.device}")
     if min(B, T, U1, J, V) < 1 or not 0 <= blank_id < V:
         raise ValueError(f"rnnt joint kernel: B={B}, T={T}, U+1={U1}, J={J}, V={V}, blank {blank_id}")
-    if KERNEL.lib().emo_rnnt_joint_cells(J) == 0:
-        raise ValueError(f"rnnt joint kernel: J={J} is wider than the z tile of 16 cells that a block's "
-                         "shared memory holds")
+    geo = launch_geometry(B, T, U1, J, V, h_enc.dtype)
+    if geo is None:
+        raise ValueError(f"rnnt joint kernel: J={J} is wider than the kernel takes ({MAX_J})")
     labels32 = labels.to(device=h_enc.device, dtype=torch.int32).contiguous()
-    return _FusedJointGather.apply(h_enc.contiguous(), h_dec, w_out, b_out, labels32, blank_id)
+    return _FusedJointGather.apply(h_enc.contiguous(), h_dec, w_out, b_out, labels32, blank_id, geo)

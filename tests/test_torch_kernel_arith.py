@@ -37,8 +37,10 @@ import torch
 import chip_smoke
 from emoasr_tpu.ops import ctc as jctc
 from emoasr_tpu.ops.ctc_head_pallas import fused_ctc_head as jax_head
+import emoasr_tpu.ops.rnnt_pallas as jrp
 from emoasr_tpu_torch.config import load_config
-from emoasr_tpu_torch.ops import ctc_head
+from emoasr_tpu_torch.data.batching import derive_buckets
+from emoasr_tpu_torch.ops import ctc_head, rnnt_joint
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DTYPES = {"bfloat16": (torch.bfloat16, jnp.bfloat16), "float32": (torch.float32, jnp.float32)}
@@ -231,3 +233,151 @@ def test_k1_launch_geometry_fits_shipped_configs(name, T2, H, V, S, dtype):
     v_tiles = math.ceil(V / ctc_head.TILE)
     assert 1 <= geo["fwd"]["splits"] <= v_tiles and 1 <= geo["grad_e"]["splits"] <= v_tiles
     assert 1 <= geo["grad_w"]["splits"] <= 18 * math.ceil(T2 / ctc_head.TILE)
+
+
+# ---------------------------------------------------------------- K7
+
+def _k7_from_z(z, w, b, labels, blank, terms):
+    """(lp_blank, lp_label) of z (B, T, U+1, J) as float32 values of the
+    kernel's dtype: z and w (J, V) as `terms` bf16 terms each, the leading
+    cross products (i + j < terms) summed in float32, the float32 bias
+    added, the logsumexp and the two columns taken in float32; a label
+    outside [0, V) selects nothing (logit 0)."""
+    Z, W = _split(z.float(), terms), _split(w.float(), terms)
+    logits = sum(a @ c for i, a in enumerate(Z) for j, c in enumerate(W) if i + j < terms) + b.float()
+    lse = torch.logsumexp(logits, -1)
+    V, U = logits.shape[-1], labels.shape[1]
+    lab = labels.long()[:, None, :, None].expand(-1, logits.shape[1], -1, 1)
+    ok = (lab >= 0) & (lab < V)
+    lab_logit = torch.where(ok, torch.gather(logits[:, :, :U], 3, lab.clamp(0, V - 1)), torch.zeros(()))[..., 0]
+    return logits[..., blank] - lse, lab_logit - lse[:, :, :U]
+
+
+def _emulate_k7(h_enc, h_dec, w, b, labels, blank=0, terms=None):
+    """(lp_blank, lp_label) as K7 computes them: h_dec and w in h_enc's
+    dtype, z = tanh(h_enc + h_dec) in that dtype (bf16: the sum rounded,
+    then the tanh), then the products of one bf16 term each (bf16) or two
+    (float32, the three products hi hi, lo hi, hi lo), `_k7_from_z`."""
+    dt = h_enc.dtype
+    z = torch.tanh(h_enc[:, :, None, :] + h_dec.to(dt)[:, None, :, :])
+    return _k7_from_z(z, w.to(dt), b, labels, blank, terms or rnnt_joint.TERMS[dt])
+
+
+def _k7_case(seed, J, V, B=2, T=5, U1=7):
+    """The shapes and scales of `chip_smoke.rnnt_joint_case`, from numpy:
+    w (J, V) as the `.t()` of a (V, J) layer, labels with eos padding, one
+    label out of range."""
+    rng = np.random.default_rng(seed)
+    h_enc = rng.normal(size=(B, T, J)).astype(np.float32)
+    h_dec = rng.normal(size=(B, U1, J)).astype(np.float32)
+    w = (rng.normal(size=(J, V)) / math.sqrt(J)).astype(np.float32)
+    b = (0.1 * rng.normal(size=(V,))).astype(np.float32)
+    labels = rng.integers(1, V, size=(B, U1 - 1)).astype(np.int32)
+    labels[:, (U1 - 1) // 2:] = 2
+    return h_enc, h_dec, w, b, labels
+
+
+def _hold_k7(got, want, name, tol=None):
+    tol = chip_smoke.RNNT_JOINT_TOL if tol is None else tol
+    return max(chip_smoke._require_close(f"{name} {what}", a.float(), c.float(), tol, 0.0)
+               for what, a, c in zip(("lp_blank", "lp_label"), got, want))
+
+
+K7_SHAPES = [(512, 1000), (512, 4000), (1024, 1000), (1024, 4000)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("J,V", K7_SHAPES)
+def test_k7_split_products_match_plain(J, V, dtype):
+    """The emulated kernel against `rnnt_joint_plain` (float32 products of
+    the inputs' values), within RNNT_JOINT_TOL; in float32 with half the
+    tolerance to spare (the two-term split is ~2^-17 of each product)."""
+    tdt = DTYPES[dtype][0]
+    h_enc, h_dec, w, b, labels = (torch.from_numpy(x) for x in _k7_case(J + V, J, V))
+    h_enc, h_dec, w = h_enc.to(tdt), h_dec.to(tdt), w.to(tdt)
+    got = _emulate_k7(h_enc, h_dec, w, b, labels)
+    want = rnnt_joint.rnnt_joint_plain(h_enc, h_dec, w, b, labels, 0)
+    err = _hold_k7(got, want, f"K7 {dtype} J={J} V={V}, emulated vs plain")
+    if dtype == "float32":
+        assert err < chip_smoke.RNNT_JOINT_TOL / 2, err
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("J,V", [(512, 4000), (1024, 1000)])
+def test_k7_split_products_match_jax(J, V, dtype):
+    """The emulated kernel against the JAX package's `fused_joint_gather_fwd`
+    (Pallas, interpret mode) on the same numpy-seeded inputs, within
+    RNNT_JOINT_TOL.  In bf16 the two frameworks' tanh may round a z to
+    neighbouring bf16 values (XLA's CPU tanh is its own approximation), which
+    moves a logit by up to ~5e-4: the products are held from XLA's own z,
+    and the two z within one bf16 step of each other in a few elements."""
+    h_enc, h_dec, w, b, labels = _k7_case(J * V + 1, J, V)
+    tdt, jdt = DTYPES[dtype]
+    jin = [jnp.asarray(x).astype(jdt) for x in (h_enc, h_dec, w)]
+    want = jrp.fused_joint_gather_fwd(*jin, jnp.asarray(b), jnp.asarray(labels), blank_id=0)
+    want = [torch.from_numpy(np.array(x)) for x in want]
+    h_enc, h_dec, w, b, labels = (torch.from_numpy(x) for x in (h_enc, h_dec, w, b, labels))
+    if dtype == "float32":
+        got = _emulate_k7(h_enc, h_dec, w, b, labels)
+    else:
+        z_jax = torch.from_numpy(np.array(jnp.tanh(jin[0][:, :, None, :] + jin[1][:, None, :, :]).astype(jnp.float32)))
+        z_port = torch.tanh(h_enc.to(tdt)[:, :, None, :] + h_dec.to(tdt)[:, None, :, :]).float()
+        step = (z_port - z_jax).abs() / z_port.abs().clamp_min(2.0 ** -126)
+        assert step.max() <= 2.0 ** -7 and (z_port != z_jax).float().mean() < 0.01
+        got = _k7_from_z(z_jax, w.to(tdt), b, labels, 0, 1)
+    _hold_k7(got, want, f"K7 {dtype} J={J} V={V}, emulated vs JAX")
+
+
+def test_k7_split_is_needed():
+    """In float32, z and w rounded once to bf16 (one term, one product)
+    miss the plain version by more than RNNT_JOINT_TOL: the second term
+    carries the float32 operand, not the tolerance."""
+    h_enc, h_dec, w, b, labels = (torch.from_numpy(x) for x in _k7_case(7, 512, 1000))
+    want = rnnt_joint.rnnt_joint_plain(h_enc, h_dec, w, b, labels, 0)
+    with pytest.raises(chip_smoke.CheckFailed):
+        _hold_k7(_emulate_k7(h_enc, h_dec, w, b, labels, terms=1), want, "K7 f32 rounded once")
+
+
+def _transducer_configs():
+    """(name, B, T', U+1, J, V) of every shipped transducer configuration
+    at its largest bucket and a full batch: T' the frames after the 4x
+    subsampling, J the joint width (`joint_hidden_size`, else the
+    prediction network's)."""
+    out = []
+    for path in sorted(glob.glob(os.path.join(REPO, "configs", "*", "*.yaml"))):
+        if os.sep + "lm" + os.sep in path:
+            continue
+        cfg = load_config(path)
+        if getattr(cfg, "decoder_type", None) != "rnn_transducer":
+            continue
+        buckets = derive_buckets(cfg.buckets, cfg.max_xlens_batch, cfg.max_ylens_batch, cfg.batch_size)
+        big = max(buckets, key=lambda x: x.max_xlen)
+        T2 = ((big.max_xlen - 1) // 2 - 1) // 2
+        J = cfg.joint_hidden_size or cfg.dec_hidden_size
+        out.append((os.path.relpath(path, REPO), big.batch_size, T2, big.max_ylen + 1, J, cfg.vocab_size))
+    return out
+
+
+TRANSDUCER_CONFIGS = _transducer_configs()
+WIDE_JOINTS = [(f"J={J}", 18, 399, 129, J, 4000) for J in (1024, 1500, 2048, 2794)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name,B,T2,U1,J,V", TRANSDUCER_CONFIGS + WIDE_JOINTS,
+                         ids=[c[0] for c in TRANSDUCER_CONFIGS + WIDE_JOINTS])
+def test_k7_launch_geometry_fits_shipped_configs(name, B, T2, U1, J, V, dtype):
+    """A block's shared memory within the 232,448 bytes of sm_90, with two
+    to four ring stages; the grid within CUDA's limits; 128 cells a block
+    at J = 512 in bf16; the f32 split's scratch; and J = 2800 refused."""
+    tdt = DTYPES[dtype][0]
+    geo = rnnt_joint.launch_geometry(B, T2, U1, J, V, tdt)
+    assert geo is not None, name
+    assert geo["smem"] == rnnt_joint.smem_bytes(rnnt_joint.TERMS[tdt], geo["cells"], geo["stages"], J)
+    assert geo["smem"] <= rnnt_joint.MAX_SMEM and 2 <= geo["stages"] <= 4
+    assert geo["cells"] in rnnt_joint.CELLS[tdt] and geo["threads"] in (128, 256)
+    assert 1 <= geo["grid"][0] < 2 ** 31 and 1 <= geo["grid"][1] < 65536
+    assert geo["grid"][0] * geo["cells"] >= T2 * U1 > (geo["grid"][0] - 1) * geo["cells"]
+    assert geo["planes"] == (2 * V * math.ceil(J / 8) * 8 if dtype == "float32" else 0)
+    if J == 512:
+        assert geo["cells"] == (128 if dtype == "bfloat16" else 64), geo
+    assert rnnt_joint.launch_geometry(B, T2, U1, 2800, V, tdt) is None

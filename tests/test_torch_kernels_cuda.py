@@ -12,12 +12,14 @@ score bias, and the bf16 launchers at the edge cases of their tiling
 twice with bit-identical outputs; attention backward, CTC head, CTC lattice, the decoder layer
 step, the LM layer step, the RNN-T joint and the LSTM recurrence forward
 and backward: the constants beside their checks there; the bf16 parts of
-the attention backward, the CTC head (and the head at H > 256), the RNN-T
-joint and the LSTM: one bf16 step, `BF16_STEP`, beside `_require_close_bf16`;
+the attention backward, the CTC head (and the head at H > 256) and the
+LSTM: one bf16 step, `BF16_STEP`, beside `_require_close_bf16`;
 the decoder and LM layer steps in bf16: one bf16 step of each entry plus
-one of the largest, beside `check_decoder_step`; the RNN-T joint above
-J = 819 and the LSTM above H = 512: the tolerances of their narrower
-checks, beside `check_rnnt_joint_wide` and `check_lstm_wide`).
+one of the largest, beside `check_decoder_step`; the RNN-T joint in both
+dtypes, at every width and at the edges of its tiling (`check_rnnt_joint_
+edges`), each launched twice with bit-identical outputs: RNNT_JOINT_TOL;
+the LSTM above H = 512: the tolerances of its narrower check, beside
+`check_lstm_wide`).
 """
 
 import pytest
@@ -273,7 +275,7 @@ def test_rnnt_joint_kernel_matches_plain(cuda_dev):
 
     before = rnnt_joint.KERNEL.launches
     chip_smoke.check_rnnt_joint(*cuda_dev)
-    assert rnnt_joint.KERNEL.launches - before == 4  # four shapes
+    assert rnnt_joint.KERNEL.launches - before == 10  # five shapes, twice each
 
 
 def test_lstm_kernels_match_plain(cuda_dev):
@@ -330,13 +332,14 @@ def test_rnnt_kernels_reject_what_they_do_not_take(cuda_dev):
 
 
 def test_rnnt_joint_wide_matches_plain(cuda_dev):
-    """K7 at J = 1024, 1500 and 2048 (32 and 16 cells a block), f32 and bf16."""
+    """K7 at J = 1024, 1500 and 2048 (64, 32 and 16 cells a block), f32 and bf16."""
     from emoasr_tpu_torch.ops import rnnt_joint
 
     before = dict(rnnt_joint.KERNEL.counts)
     chip_smoke.check_rnnt_joint_wide(*cuda_dev)
-    assert rnnt_joint.KERNEL.counts["emo_rnnt_joint_f32"] - before["emo_rnnt_joint_f32"] == 3
-    assert rnnt_joint.KERNEL.counts["emo_rnnt_joint_bf16"] - before["emo_rnnt_joint_bf16"] == 2
+    # three shapes in f32 and two in bf16, twice each
+    assert rnnt_joint.KERNEL.counts["emo_rnnt_joint_f32"] - before["emo_rnnt_joint_f32"] == 6
+    assert rnnt_joint.KERNEL.counts["emo_rnnt_joint_bf16"] - before["emo_rnnt_joint_bf16"] == 4
 
 
 def test_lstm_wide_matches_plain(cuda_dev):
@@ -413,7 +416,46 @@ def test_rnnt_joint_bf16_matches_plain(cuda_dev):
 
     before = rnnt_joint.KERNEL.counts["emo_rnnt_joint_bf16"]
     chip_smoke.check_rnnt_joint_bf16(*cuda_dev)
-    assert rnnt_joint.KERNEL.counts["emo_rnnt_joint_bf16"] - before == 3  # three shapes
+    assert rnnt_joint.KERNEL.counts["emo_rnnt_joint_bf16"] - before == 8  # four shapes, twice each
+
+
+def test_rnnt_joint_edges_match_plain(cuda_dev):
+    """K7 on both sides of every change of its cells a block, and at the
+    edges of its tiling and its interface (`check_rnnt_joint_edges`), each
+    launched twice, bit-identical; and the same outputs at every cells a
+    block."""
+    from emoasr_tpu_torch.ops import rnnt_joint
+
+    before = dict(rnnt_joint.KERNEL.counts)
+    chip_smoke.check_rnnt_joint_edges(*cuda_dev)
+    edges = chip_smoke.rnnt_joint_edges()
+    for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        n = sum(d == dtype for _, d in edges) + 6  # the edges, then six cases of the interface, twice each
+        used = rnnt_joint.KERNEL.counts[f"emo_rnnt_joint_{sfx}"] - before[f"emo_rnnt_joint_{sfx}"]
+        assert used == 2 * n + len(rnnt_joint.CELLS[dtype])  # then once at every cells a block
+
+
+def test_rnnt_joint_geometry_matches_the_kernel(cuda_dev):
+    """The wrapper's account of K7's shared memory (`launch_geometry`,
+    which the CPU tests hold to the card's limit) is the kernel's own, in
+    both dtypes at every width where its cells a block change and at the
+    widths checked; the launcher refuses cells a block that do not fit."""
+    from emoasr_tpu_torch.ops import rnnt_joint
+
+    dev, gen = cuda_dev
+    lib = rnnt_joint.KERNEL.lib()
+    widths = sorted({J for J, _ in chip_smoke.rnnt_joint_edges()} | {1, 96, 100, 512, 1024, 1500, 2048, 2794})
+    for dtype, terms in rnnt_joint.TERMS.items():
+        for J in widths:
+            geo = rnnt_joint.launch_geometry(18, 399, 129, J, 4000, dtype)
+            assert lib.emo_rnnt_joint_smem_bytes(terms, geo["cells"], geo["stages"], J) == geo["smem"], (dtype, J)
+    he, hd, w, b, lab = chip_smoke.rnnt_joint_case(dev, gen, 1, 2, 2, 2048, 40)
+    he, hd, wt = he.bfloat16(), hd.bfloat16(), w.bfloat16()  # (V, J): the layout the bf16 launcher reads
+    out = torch.empty(1, 2, 2, device=dev)
+    with pytest.raises(RuntimeError):  # 128 cells of a J = 2048 z tile do not fit
+        rnnt_joint.KERNEL.launch("emo_rnnt_joint_bf16", he.data_ptr(), hd.data_ptr(), wt.data_ptr(), b.data_ptr(),
+                                 lab.int().data_ptr(), out.data_ptr(), out.data_ptr(), None, 1, 2, 2, 2048, 40, 0,
+                                 1, 2048, 128, 2, torch.cuda.current_stream().cuda_stream)
 
 
 def test_lstm_bf16_matches_plain(cuda_dev):
