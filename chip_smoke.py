@@ -18,9 +18,11 @@ Phases (any failed check raises, so the script exits non-zero):
    LM layer step, the RNN-T joint and the LSTM recurrence: see the
    constants beside their checks); the tensor-core kernels at the shapes
    their tiling makes risky, each launched twice with bit-identical
-   outputs: the bf16 attention forward and backward at `k4_edge_cases` (T =
-   1 to 399, lens 0 and 1, D = 8, 40, 128), with no bias, an f32 and a bf16
-   bias, dropout 0, 0.1 and 0.3, and the CTC head over V in (37, 1000,
+   outputs: the attention forward and backward in both dtypes at
+   `k4_edge_cases` (T = 1 to 399, lens 0 and 1, D = 8, 40, 128; in f32
+   also D = 1, 3, 20 and a q at a storage offset of one element), with no
+   bias, an f32 and a bf16 bias, dropout 0, 0.1 and 0.3, the f32 and bf16
+   dropout maps of one seed equal, and the CTC head over V in (37, 1000,
    10000, 10872) x H in (144, 256, 512, 600) in both dtypes; then the bf16
    parts: the CTC head in bf16 (H = 256, 512, 600) and in f32 at H = 512,
    the attention backward in bf16 with and without the bias (and the bf16
@@ -100,7 +102,9 @@ Phases (any failed check raises, so the script exits non-zero):
    step of the largest score).
 14. Every kernel timed at the largest bucket beside its plain version and
    one library call (for K5 and K6 the dense route), the bf16 launchers in
-   bf16 (bounds at the bf16 rate, library calls in bf16), and K7 at
+   bf16 (bounds at the bf16 rate, library calls in bf16; an f32 launcher
+   that splits its operands into bf16 terms held to that many tensor-core
+   products), K4's forward also with dropout (training's), and K7 at
    J = 1024 and K8 at H = 1024 beside the chunked route and cuDNN; one
    JSON line describing each kernel, the `nvidia-smi` line, and last the
    `{"ok": true, "device": ...}` line.
@@ -205,12 +209,14 @@ def start_resource_builds(out_dir: str) -> dict:
 
 
 def _template_args(mangled: str) -> list:
-    """The template arguments (`f32`, `bf16`, integers) of a mangled
-    argument list `I...E`."""
+    """The template arguments (`f32`, `bf16`, `u32`, `u64`, integers, class
+    names) of a mangled argument list `I...E`."""
+    import re
+
     args, i = [], 1
     while i < len(mangled) and mangled[i] != "E":
-        if mangled[i] == "f":
-            args.append("f32")
+        if mangled[i] in "fjm":
+            args.append({"f": "f32", "j": "u32", "m": "u64"}[mangled[i]])
             i += 1
         elif mangled.startswith("13__nv_bfloat16", i):
             args.append("bf16")
@@ -219,6 +225,20 @@ def _template_args(mangled: str) -> list:
             j = mangled.index("E", i)
             args.append(mangled[i + 2:j])
             i = j + 1
+        elif mangled[i] == "N":  # a nested name, N<substitutions and <length><name>s>E: its last name
+            i, name = i + 1, None
+            while i < len(mangled) and mangled[i] != "E":
+                m = re.match(r"S[0-9A-Z]*_|(\d+)", mangled[i:])
+                if not m:
+                    return args
+                if m.group(1):
+                    n = int(m.group(1))
+                    name = mangled[i + m.end():i + m.end() + n]
+                    i += m.end() + n
+                else:
+                    i += m.end()
+            args.append(name)
+            i += 1
         else:
             break
     return args
@@ -335,13 +355,15 @@ def attention_cases(dev, gen):
     return out
 
 
-def k4_edge_cases(dev):
-    """(name, (B, T, H, D), lens) where the bf16 launchers' tiles of 64 and
+def k4_edge_cases(dev, dtype=torch.bfloat16):
+    """(name, (B, T, H, D), lens) where the launchers' tiles of 64 and
     16-byte rows are likely to break: T = 1, 17, 63, 64, 65, 399; lens 0 and
     1; D = 40 (zero-padded to 48) and 8; rows H D 2 bytes apart that are a
-    multiple of 16 and not of 128 (16, 240, 400)."""
+    multiple of 16 and not of 128 (16, 240, 400).  In float32 also D = 1, 3
+    and 20 (rows that move by 4-byte copies) and a q at a storage offset of
+    one element (`K4_OFFSET_CASE`, see `k4_edge_inputs`)."""
     t = lambda *x: torch.tensor(x, device=dev)
-    return [
+    cases = [
         ("T=1", (2, 1, 4, 64), t(1, 0)),
         ("T=17 H=3 D=40", (3, 17, 3, 40), t(17, 1, 0)),
         ("T=63", (2, 63, 4, 64), t(63, 1)),
@@ -350,6 +372,29 @@ def k4_edge_cases(dev):
         ("T=399", (3, 399, 4, 64), t(399, 0, 1)),
         ("T=399 H=5 D=40", (2, 399, 5, 40), t(399, 200)),
     ]
+    if dtype == torch.float32:
+        cases += [
+            ("T=33 H=2 D=1", (2, 33, 2, 1), t(33, 5)),
+            ("T=50 H=3 D=3", (2, 50, 3, 3), t(50, 0)),
+            ("T=70 H=3 D=20", (2, 70, 3, 20), t(70, 33)),
+            (K4_OFFSET_CASE, (2, 70, 3, 40), t(70, 33)),
+        ]
+    return cases
+
+
+K4_OFFSET_CASE = "T=70 H=3 D=40, q at a storage offset of one element"
+
+
+def k4_edge_inputs(name: str, shape: tuple, dtype, gen, dev, n: int = 3) -> list:
+    """n standard normal tensors of `shape` in `dtype` (q, k, v, d_out);
+    for `K4_OFFSET_CASE` the first (q) lies one element into its storage,
+    so its rows have no 16-byte alignment."""
+    xs = [torch.randn(*shape, generator=gen, device=dev).to(dtype) for _ in range(n)]
+    if name == K4_OFFSET_CASE:
+        buf = torch.empty(xs[0].numel() + 1, dtype=dtype, device=dev)
+        buf[1:] = xs[0].reshape(-1)
+        xs[0] = buf[1:].view(shape)
+    return xs
 
 
 def _twice(fn):
@@ -364,11 +409,11 @@ def _twice(fn):
 
 def check_attention(dev, gen) -> dict:
     """Kernel against the plain version within the dtype's tolerance, and
-    the bf16 launcher at `k4_edge_cases`, launched twice (bit-identical);
-    returns the largest error by dtype."""
+    both dtypes' launchers at `k4_edge_cases`, launched twice
+    (bit-identical); returns the largest error by dtype."""
     from emoasr_tpu_torch.ops.attention import attention_plain, fused_self_attention
 
-    worst_f32 = worst_bf16 = 0.0
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for name, q, k, v, lens in attention_cases(dev, gen):
         scale = 1.0 / (q.shape[-1] ** 0.5)
         o1 = fused_self_attention(q, k, v, lens, scale=scale)
@@ -378,23 +423,21 @@ def check_attention(dev, gen) -> dict:
         err = (o1.float() - o0.float()).abs().max().item()
         tol = ATTN_TOL[v.dtype]
         require(err <= tol, f"attention {name}: max |kernel - plain| = {err} > {tol}")
-        if v.dtype == torch.float32:
-            worst_f32 = max(worst_f32, err)
-        else:
-            worst_bf16 = max(worst_bf16, err)
+        worst[v.dtype] = max(worst[v.dtype], err)
         print(f"  attention {name}: max abs err {err:.3e} (tol {tol})")
-    bf, tol = torch.bfloat16, ATTN_TOL[torch.bfloat16]
-    for name, (B, T, H, D), lens in k4_edge_cases(dev):
-        q, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev).to(bf) for _ in range(3))
-        scale = 1.0 / D ** 0.5
-        o1 = _twice(lambda: fused_self_attention(q, k, v, lens, scale=scale))
-        err = _max_err(o1, attention_plain(q, k, v, lens, scale))
-        require(o1.dtype == bf and bool(torch.isfinite(o1).all()) and err <= tol,
-                f"attention bf16 {name}: max |kernel - plain| = {err} > {tol}")
-        require(not o1[lens == 0].any(), f"attention bf16 {name}: rows of an utterance with lens 0 are not 0")
-        worst_bf16 = max(worst_bf16, err)
-        print(f"  attention bf16 {name}: max abs err {err:.3e} (tol {tol}); two launches bit-identical")
-    return {"attention_fwd": worst_f32, "attention_fwd_bf16": worst_bf16}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = ATTN_TOL[dtype]
+        for name, (B, T, H, D), lens in k4_edge_cases(dev, dtype):
+            q, k, v = k4_edge_inputs(name, (B, T, H, D), dtype, gen, dev)
+            scale = 1.0 / D ** 0.5
+            o1 = _twice(lambda: fused_self_attention(q, k, v, lens, scale=scale))
+            err = _max_err(o1, attention_plain(q, k, v, lens, scale))
+            require(o1.dtype == dtype and bool(torch.isfinite(o1).all()) and err <= tol,
+                    f"attention {dtype} {name}: max |kernel - plain| = {err} > {tol}")
+            require(not o1[lens == 0].any(), f"attention {dtype} {name}: rows of an utterance with lens 0 are not 0")
+            worst[dtype] = max(worst[dtype], err)
+            print(f"  attention {dtype} {name}: max abs err {err:.3e} (tol {tol}); two launches bit-identical")
+    return {"attention_fwd": worst[torch.float32], "attention_fwd_bf16": worst[torch.bfloat16]}
 
 
 def time_topk(dev, gen, shape: tuple, k: int) -> dict:
@@ -418,35 +461,51 @@ def time_topk(dev, gen, shape: tuple, k: int) -> dict:
 
 
 def time_attention(dev, gen, B: int, T: int, H: int, D: int, lens: torch.Tensor, dtype=torch.float32) -> dict:
+    """K4's forward as decoding runs it (no dropout) and, beside it, as
+    training does (dropout 0.1, `dropout_ms`), with the plain version and
+    SDPA's call of each."""
     import torch.nn.functional as F
 
-    from emoasr_tpu_torch.ops.attention import attention_plain, fused_self_attention
+    from emoasr_tpu_torch.ops.attention import attention_plain, dropout_keep_mask, fused_self_attention
 
     q, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev).to(dtype) for _ in range(3))
     scale = 1.0 / D ** 0.5
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, T, D) views
     key_mask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-    esize = q.element_size()
-    bytes_moved = 4 * B * T * H * D * esize + B * 4
-    ops = 4 * H * T * D * int(lens.clamp(max=T).sum().item())  # QK^T and PV over valid keys
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_FLOPS[q.dtype]
-    return {
+    mask = dropout_keep_mask(B, T, H, DROPOUT_RATE, 99, dev, dtype)
+    row = {
         "shape": f"({B},{T},{H},{D}) {q.dtype}",
         "ms": cuda_time_ms(lambda: fused_self_attention(q, k, v, lens, scale=scale)),
         "plain_ms": cuda_time_ms(lambda: attention_plain(q, k, v, lens, scale)),
         "library_ms": cuda_time_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=key_mask, scale=scale)
         ),
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "dropout_ms": cuda_time_ms(lambda: fused_self_attention(q, k, v, lens, scale=scale, dropout_rate=DROPOUT_RATE,
+                                                                deterministic=False, seed=99)),
+        "plain_dropout_ms": cuda_time_ms(lambda: attention_plain(q, k, v, lens, scale, DROPOUT_RATE, dropout_mask=mask)),
+        "library_dropout_ms": cuda_time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=key_mask, dropout_p=DROPOUT_RATE, scale=scale)
+        ),
     }
+    # q, k, v read and the output written once, lens; Q K^T and P V over valid keys
+    row.update(_bound(4 * B * T * H * D * q.element_size() + B * 4,
+                      4.0 * H * T * D * int(lens.clamp(max=T).sum().item()), dtype, _split_products(dtype)))
+    return row
+
+
+def _split_products(dtype) -> int:
+    """bf16 tensor-core products per f32 product of K4's f32 launchers (the
+    leading cross products of TERMS bf16 terms a side), 0 in bf16."""
+    from emoasr_tpu_torch.ops.attention import TERMS
+
+    return TERMS * (TERMS + 1) // 2 if dtype == torch.float32 else 0
 
 
 def _bound(bytes_moved: float, ops: float, dtype=torch.float32, split_products: int = 0) -> dict:
     """The least time of the work: bytes over the memory rate or operations
     over the peak of `dtype`, the larger.  A float32 kernel that splits its
     operands into bf16 terms runs `split_products` bf16 products on the
-    tensor cores for each float32 one (K1: 6, K7: 3): its operations take
+    tensor cores for each float32 one (K1, K4: 6, K7: 3): its operations take
     the lower of the CUDA cores' time and that many times the tensor cores'.
     `ops_at` says which peak the operations were held to."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S
@@ -696,8 +755,10 @@ K4_EDGE_RATES = (0.0, 0.1, 0.3)
 
 def check_attention_backward(dev, gen) -> float:
     """Forward with dropout and backward, kernel against the plain version
-    under autograd, the plain version taking the kernel's own keep mask."""
-    from emoasr_tpu_torch.ops.attention import attention_plain, dropout_keep_mask, fused_self_attention
+    under autograd, the plain version taking the kernel's own keep mask;
+    the f32 launchers at `k4_edge_cases`, launched twice (bit-identical)."""
+    from emoasr_tpu_torch.ops.attention import (attention_bwd_plain, attention_plain, dropout_keep_mask,
+                                                fused_self_attention)
 
     worst = 0.0
     lens18 = torch.randint(1, 400, (18,), generator=gen, device=dev)
@@ -734,7 +795,25 @@ def check_attention_backward(dev, gen) -> float:
         worst = max(worst, *errs)
         print(f"  attention fwd+bwd {name}: out {errs[0]:.2e} dq {errs[1]:.2e} dk {errs[2]:.2e} "
               f"dv {errs[3]:.2e} (tol {ATTN_BWD_TOL})")
-    # the dropout bits: kept share and dependence on the seed
+    # `k4_edge_cases` in f32, dropout 0, 0.1 and 0.3: forward and backward
+    # launched twice (bit-identical), the forward within its own tolerance
+    f32 = torch.float32
+    for name, (B, T, H, D), lens in k4_edge_cases(dev, f32):
+        q, k, v, d_out = k4_edge_inputs(name, (B, T, H, D), f32, gen, dev, 4)
+        scale = 1.0 / D ** 0.5
+        for rate in K4_EDGE_RATES:
+            seed = 5678901 + T
+            mask = dropout_keep_mask(B, T, H, rate, seed, dev) if rate > 0 else None
+            got = _twice(lambda: _attention_grads(q, k, v, d_out, lens, scale, rate, seed))
+            want = (attention_plain(q, k, v, lens, scale, rate, dropout_mask=mask),
+                    *attention_bwd_plain(q, k, v, d_out, lens, scale, rate, None, mask)[:3])
+            tag = f"attention fwd+bwd f32 {name} dropout {rate}"
+            errs = _hold_attention_grads(tag, got, want, lens)
+            worst = max(worst, *errs[1:])
+        print(f"  attention fwd+bwd f32 {name}, dropout {K4_EDGE_RATES}: out within {ATTN_TOL[f32]}, dq dk dv within "
+              f"{ATTN_BWD_TOL} (worst so far {worst:.2e}); two launches bit-identical")
+    # the dropout bits: kept share, dependence on the seed, and one map for
+    # both dtypes
     m1 = dropout_keep_mask(18, 399, 4, DROPOUT_RATE, 1, dev)
     m2 = dropout_keep_mask(18, 399, 4, DROPOUT_RATE, 2, dev)
     share = m1.float().mean().item()
@@ -742,8 +821,46 @@ def check_attention_backward(dev, gen) -> float:
     differ = (m1 != m2).float().mean().item()
     require(abs(differ - 2 * DROPOUT_RATE * (1 - DROPOUT_RATE)) < 2e-3,
             f"two seeds differ at a share of {differ} of the elements")
-    print(f"  dropout bits: kept share {share:.5f} at rate {DROPOUT_RATE}; two seeds differ at {differ:.4f}")
+    require(torch.equal(m1, dropout_keep_mask(18, 399, 4, DROPOUT_RATE, 1, dev, torch.bfloat16)),
+            "the f32 and bf16 dropout maps of one seed differ")
+    print(f"  dropout bits: kept share {share:.5f} at rate {DROPOUT_RATE}; two seeds differ at {differ:.4f}; "
+          "the f32 and bf16 maps of one seed are equal")
     return worst
+
+
+def _attention_grads(q, k, v, d_out, lens, scale, rate, seed, bias=None):
+    """(out, dq, dk, dv[, d bias]) of the kernel under autograd; the inputs
+    are detached in place, so that a q at a storage offset keeps it."""
+    from emoasr_tpu_torch.ops.attention import fused_self_attention
+
+    ins = [x.detach().requires_grad_(True) for x in (q, k, v) + (() if bias is None else (bias,))]
+    out = fused_self_attention(*ins[:3], lens, scale=scale, dropout_rate=rate, deterministic=rate == 0.0,
+                               seed=seed, bias=None if bias is None else ins[3])
+    return (out.detach(), *torch.autograd.grad(out, ins, d_out))
+
+
+def _hold_attention_grads(tag: str, got: tuple, want: tuple, lens) -> list:
+    """The f32 launchers' (out, dq, dk, dv[, d bias]) against the plain
+    version's: out within ATTN_TOL, the gradients within ATTN_BWD_TOL (a
+    bf16 d bias: one bf16 step of each entry more, as the f32 dS is rounded
+    once on each side); dK, dV and d bias exactly 0 at masked keys.
+    Returns the largest errors."""
+    errs = []
+    for what, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+        tol = ATTN_TOL[torch.float32] if what == "out" else ATTN_BWD_TOL
+        require(a.shape == b.shape and a.dtype == b.dtype and bool(torch.isfinite(a).all()),
+                f"{tag} {what}: {a.dtype} {tuple(a.shape)} against {b.dtype} {tuple(b.shape)}")
+        err = (a.double() - b.double()).abs()
+        over = err - (tol + (BF16_STEP * b.double().abs() if a.dtype == torch.bfloat16 else 0.0))
+        require(over.max().item() <= 0, f"{tag} {what}: max |kernel - plain| = {err.max().item()} > {tol}")
+        errs.append(err.max().item())
+    T = got[0].shape[1]
+    past = torch.arange(T, device=lens.device)[None, :] >= lens[:, None]
+    require(not got[2][past].any() and not got[3][past].any(), f"{tag}: dk/dv at masked keys are not exactly 0")
+    if len(got) > 4:
+        require(not got[4][past[:, None, None, :].expand_as(got[4])].any(),
+                f"{tag}: d bias at masked keys is not exactly 0")
+    return errs
 
 
 # K4 with the score bias: the tolerances of the checks without it (forward
@@ -753,8 +870,11 @@ def check_attention_backward(dev, gen) -> float:
 def check_attention_bias(dev, gen) -> dict:
     """Forward (f32, bf16) and backward (f32; out, dQ, dK, dV, d bias; with
     and without dropout, the plain version taking the kernel's keep mask),
-    ragged lens, T not a multiple of any tile."""
-    from emoasr_tpu_torch.ops.attention import attention_plain, dropout_keep_mask, fused_self_attention
+    ragged lens, T not a multiple of any tile; then the f32 launchers
+    forward and backward and the bf16 forward at `k4_edge_cases`, each
+    launched twice (bit-identical)."""
+    from emoasr_tpu_torch.ops.attention import (attention_bwd_plain, attention_plain, dropout_keep_mask,
+                                                fused_self_attention)
 
     worst = {"fwd": 0.0, "bwd": 0.0, "fwd_bf16": 0.0}
     lens18 = torch.randint(1, 400, (18,), generator=gen, device=dev)
@@ -803,8 +923,30 @@ def check_attention_bias(dev, gen) -> dict:
             worst["bwd"] = max(worst["bwd"], *errs)
             print(f"  attention+bias fwd+bwd {name} dropout {rate}: out {errs[0]:.2e} dq {errs[1]:.2e} "
                   f"dk {errs[2]:.2e} dv {errs[3]:.2e} dbias {errs[4]:.2e} (tol {ATTN_BWD_TOL})")
+    # the f32 launchers at `k4_edge_cases`, the bias in f32 and in bf16,
+    # dropout 0, 0.1 and 0.3: forward and backward launched twice
+    # (bit-identical)
+    f32 = torch.float32
+    for name, (B, T, H, D), lens in k4_edge_cases(dev, f32):
+        q, k, v, d_out = k4_edge_inputs(name, (B, T, H, D), f32, gen, dev, 4)
+        bias32 = torch.randn(B, H, T, T, generator=gen, device=dev) * D ** 0.5
+        scale = 1.0 / D ** 0.5
+        for bias in (bias32, bias32.to(torch.bfloat16)):
+            for rate in K4_EDGE_RATES:
+                seed = 6789012 + T
+                mask = dropout_keep_mask(B, T, H, rate, seed, dev) if rate > 0 else None
+                got = _twice(lambda: _attention_grads(q, k, v, d_out, lens, scale, rate, seed, bias))
+                want = (attention_plain(q, k, v, lens, scale, rate, bias=bias, dropout_mask=mask),
+                        *attention_bwd_plain(q, k, v, d_out, lens, scale, rate, bias, mask))
+                errs = _hold_attention_grads(f"attention+bias f32 {name} bias {bias.dtype} dropout {rate}", got, want,
+                                             lens)
+                worst["fwd"] = max(worst["fwd"], errs[0])
+                worst["bwd"] = max(worst["bwd"], *errs[1:4], *errs[4:] if bias.dtype == f32 else ())
+        print(f"  attention+bias fwd+bwd f32 {name}, bias f32 and bf16, dropout {K4_EDGE_RATES}: out within "
+              f"{ATTN_TOL[f32]}, gradients within {ATTN_BWD_TOL} (a bf16 d bias one bf16 step more); two launches "
+              "bit-identical")
     # the bf16 forward at `k4_edge_cases`, the bias in f32 and in bf16, dropout
-    # 0, 0.1 and 0.3 (the plain version taking the bf16 launchers' keep mask)
+    # 0, 0.1 and 0.3 (the plain version taking the launchers' keep mask)
     bf, tol = torch.bfloat16, ATTN_TOL[torch.bfloat16]
     for name, (B, T, H, D), lens in k4_edge_cases(dev):
         q, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev).to(bf) for _ in range(3))
@@ -952,7 +1094,8 @@ def time_attention_bias(dev, gen, B: int, T: int, H: int, D: int, lens: torch.Te
             qt, kt, vt, attn_mask=add_mask, scale=scale)),
         "shape": f"({B},{T},{H},{D}) {dtype}, bias ({B},{H},{T},{T})",
     }
-    fwd.update(_bound(es * 4 * B * T * H * D + live_bias + B * 4, 4.0 * H * T * D * valid, dtype))
+    fwd.update(_bound(es * 4 * B * T * H * D + live_bias + B * 4, 4.0 * H * T * D * valid, dtype,
+                      _split_products(dtype)))
 
     mask = dropout_keep_mask(B, T, H, DROPOUT_RATE, seed, dev, dtype)
     q_, k_, v_, b_ = (x.clone().requires_grad_(True) for x in (q, k, v, bias))
@@ -977,7 +1120,7 @@ def time_attention_bias(dev, gen, B: int, T: int, H: int, D: int, lens: torch.Te
     # inputs read once (q, k, v, o, dO, lse, the live bias), outputs written
     # once (dQ, dK, dV and all of d bias, zeros included)
     bwd.update(_bound(es * 8 * B * T * H * D + 4 * (B * H * T + B) + live_bias + es * B * H * T * T,
-                      10.0 * H * D * T * valid, dtype))
+                      10.0 * H * D * T * valid, dtype, _split_products(dtype)))
     bwd["shape"] = f"({B},{T},{H},{D}) {dtype}, bias ({B},{H},{T},{T}), dropout {DROPOUT_RATE}"
     suffix = "" if dtype == torch.float32 else "_bf16"
     return {"attention_bias_fwd" + suffix: fwd, "attention_bias_bwd" + suffix: bwd}
@@ -1365,18 +1508,15 @@ def check_attention_backward_bf16(dev, gen) -> dict:
         worst[key] = max(worst[key], *errs)
         print(f"  {tag}: max |kernel - plain| " + ", ".join(f"{w} {e:.2e}" for w, e in zip(("dq", "dk", "dv", "dbias"), errs))
               + " (tol one bf16 step of the entry + one of the largest)")
-    # the bf16 launchers' dropout bits: kept share, dependence on the seed,
-    # and another map of the same seed than the f32 launchers'
+    # the bf16 launchers' dropout bits: kept share and dependence on the
+    # seed (the map is the f32 launchers', `check_attention_backward`)
     m1 = dropout_keep_mask(18, 399, 4, DROPOUT_RATE, 1, dev, bf)
     share = m1.float().mean().item()
     require(abs(share - (1 - DROPOUT_RATE)) < 1e-3, f"bf16 dropout keeps {share}, want {1 - DROPOUT_RATE}")
-    for other, what in ((dropout_keep_mask(18, 399, 4, DROPOUT_RATE, 2, dev, bf), "two seeds"),
-                        (dropout_keep_mask(18, 399, 4, DROPOUT_RATE, 1, dev), "the f32 and bf16 maps of one seed")):
-        differ = (m1 != other).float().mean().item()
-        require(abs(differ - 2 * DROPOUT_RATE * (1 - DROPOUT_RATE)) < 2e-3,
-                f"bf16 dropout: {what} differ at a share of {differ} of the elements")
-    print(f"  bf16 dropout bits: kept share {share:.5f} at rate {DROPOUT_RATE}; two seeds, and the f32 and bf16 "
-          f"maps, differ at ~{2 * DROPOUT_RATE * (1 - DROPOUT_RATE):.2f}")
+    differ = (m1 != dropout_keep_mask(18, 399, 4, DROPOUT_RATE, 2, dev, bf)).float().mean().item()
+    require(abs(differ - 2 * DROPOUT_RATE * (1 - DROPOUT_RATE)) < 2e-3,
+            f"bf16 dropout: two seeds differ at a share of {differ} of the elements")
+    print(f"  bf16 dropout bits: kept share {share:.5f} at rate {DROPOUT_RATE}; two seeds differ at {differ:.4f}")
     # `k4_edge_cases`: no bias, a bias in f32 and one in bf16, dropout 0, 0.1
     # and 0.3; forward and backward launched twice (bit-identical)
     for name, (B, T, H, D), lens in k4_edge_cases(dev):
@@ -1809,7 +1949,8 @@ def time_attention_backward(dev, gen, B: int, T: int, H: int, D: int, lens: torc
         row["plain_ms"] = cuda_time_ms(lambda: attention_bwd_plain(q, k, v, d_out, lens, scale, DROPOUT_RATE,
                                                                    None, mask), iters=20, warmup=2)
     pairs = T * int(lens.clamp(max=T).sum().item())  # (query, valid key) pairs per head
-    row.update(_bound(q.element_size() * 8 * B * T * H * D + 4 * (B * H * T + B), 10.0 * H * D * pairs, dtype))
+    row.update(_bound(q.element_size() * 8 * B * T * H * D + 4 * (B * H * T + B), 10.0 * H * D * pairs, dtype,
+                      _split_products(dtype)))
     row["shape"] = f"({B},{T},{H},{D}) {dtype}, dropout {DROPOUT_RATE}"
     return row
 
@@ -3784,6 +3925,9 @@ def main(argv=None) -> int:
     def row_of(name, src, rep, launches):
         t = times[name]
         extra = f", the dense route {t['dense_route_ms']:.4f}" if "dense_route_ms" in t else ""
+        if "dropout_ms" in t:
+            extra += (f"; with dropout {DROPOUT_RATE} {t['dropout_ms']:.4f} (plain {t['plain_dropout_ms']:.4f}, "
+                      f"library {t['library_dropout_ms']:.4f})")
         at = f" at the {t['ops_at']}" if t["bound_by"] == "operations" and "ops_at" in t else ""
         print(f"  {name}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} by {t['bound_by']}{at}, plain "
               f"{t['plain_ms']:.4f}, library {ms(t['library_ms'])}{extra}), {launches} launches")
@@ -3792,7 +3936,8 @@ def main(argv=None) -> int:
             "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"],
-            **{k: t[k] for k in ("ops_at", "dense_route_ms", "ctc_beam_shape") if k in t},
+            **{k: t[k] for k in ("ops_at", "dense_route_ms", "ctc_beam_shape", "dropout_ms", "plain_dropout_ms",
+                                 "library_dropout_ms") if k in t},
         }
 
     rows = []

@@ -1,5 +1,5 @@
-// Tensor-core building blocks shared by the redesigned K1 (csrc/ctc_head.cu)
-// and K4's bf16 launchers (csrc/attention.cu): `cp.async` copies into shared
+// Tensor-core building blocks shared by K1 (csrc/ctc_head.cu), K4
+// (csrc/attention.cu) and K7 (csrc/rnnt_joint.cu): `cp.async` copies into shared
 // memory, `ldmatrix` loads of 8x8 bf16 tiles, and `mma.sync.m16n8k16` with
 // bf16 operands and float32 accumulators, the product every Pallas kernel
 // of the JAX package computes (bf16 x bf16, summed in f32).
@@ -37,6 +37,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(pred ? 16 : 0));
+}
+// 4 bytes global -> shared (cached at all levels, the only form that takes
+// fewer than 16 bytes): for rows without 16-byte alignment
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(pred ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 // wait until at most N committed groups are still in flight
@@ -110,6 +116,19 @@ __device__ __forceinline__ void split(float x, float t[N]) {
   for (int i = 0; i < N; ++i) {
     t[i] = __bfloat162float(__float2bfloat16_rn(x));
     x -= t[i];
+  }
+}
+
+// the same for a pair (x, y), each term packed as one bf16x2 register (x in
+// the low half): the A or B fragment registers of a split f32 operand
+template <int N>
+__device__ __forceinline__ void split_pack(float x, float y, uint32_t t[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    t[i] = *reinterpret_cast<const uint32_t*>(&h);
+    x -= __low2float(h);
+    y -= __high2float(h);
   }
 }
 

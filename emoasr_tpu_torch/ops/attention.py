@@ -18,23 +18,28 @@ and d bias, and every product accumulates in float32.  The additive score
 float32 or bfloat16, enters before the scale, `(q k^T + bias) * scale`; the
 backward returns its gradient too, in the bias's dtype.
 
-The float32 launchers compute on the CUDA cores; the bfloat16 ones on the
-tensor cores (`mma.sync` with bf16 operands and float32 sums, the TPU
-kernel's own arithmetic), and take a head size D that is a multiple of 8
-(others raise `ValueError`), D <= 128 in both dtypes.
+Both dtypes run one design on the tensor cores (`mma.sync`, bf16 operands,
+float32 sums): bfloat16 on its operands as they stand, the TPU kernel's own
+arithmetic; float32 on each operand split into three bf16 terms, the six
+leading cross products summed in float32 (TF32 stays off).  D <= 128 in
+both dtypes; bfloat16 takes a head size D that is a multiple of 8 (others
+raise `ValueError`), float32 any.  The float32 launchers' geometry
+(threads, grid, shared memory and, for the backward at D <= 64, the bf16
+scratch that holds its operands' split) comes from `launch_geometry`,
+which the source mirrors (`emo_attention_smem_bytes`).
 
 Dropout on the card draws its bits from a Philox generator inside the
 kernel, keyed by one 64-bit seed per call; the backward regenerates them.
 The seed comes from `seed=` or is drawn from `generator`.  The bits are not
-those of any other framework, and one seed draws other bits in bfloat16
-than in float32 (each launcher maps the generator's words onto the elements
-its threads hold): `dropout_keep_mask` exports the map of a dtype's
-launchers so that the kernel can be held against the plain version with the
-same mask.
+those of any other framework; one seed draws the same bits in both dtypes
+(one map of the generator's words onto the elements a thread holds in a
+score accumulator), which `dropout_keep_mask` exports so that the kernel
+can be held against the plain version with the same mask.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -43,17 +48,20 @@ from emoasr_tpu_torch.ops.cuda_lib import F, I, P, U, CudaKernel, aligned16
 
 NEG_INF = -1e9  # matches models/layers.py
 
-_FWD_SIG = [P, P, P, P, P, P, P, I, I, I, I, I, F, U, U, U, F, P]
+_FWD_SIG = [P] * 7 + [I] * 5 + [F, U, U, U, F, P]
 _BWD_SIG = [P] * 12 + [I, P, I, I, I, I, F, U, U, U, F, P]
+# the float32 backward also takes a bf16 scratch for its operands' split
+# (`launch_geometry`)
+_BWD_F32_SIG = [P] * 13 + [I, P] + [I] * 4 + [F, U, U, U, F, P]
 KERNEL = CudaKernel(
     "attention.cu",
     {
         "emo_attention_fwd_f32": _FWD_SIG,
         "emo_attention_fwd_bf16": _FWD_SIG,
-        "emo_attention_bwd_f32": _BWD_SIG,
+        "emo_attention_bwd_f32": _BWD_F32_SIG,
         "emo_attention_bwd_bf16": _BWD_SIG,
         "emo_attention_keep_mask": [P, I, I, I, U, U, U, P],
-        "emo_attention_keep_mask_bf16": [P, I, I, I, U, U, U, P],
+        "emo_attention_smem_bytes": [I, I, I],
     },
 )
 
@@ -74,6 +82,56 @@ _BWD_LAUNCHERS = {
     torch.bfloat16: "emo_attention_bwd_bf16",
 }
 _BIAS_KINDS = {torch.float32: 1, torch.bfloat16: 2}  # 0: no bias
+
+# The float32 kernels' geometry (csrc/attention.cu keeps the same
+# constants): blocks of 64 queries (forward, backward pass 1) or keys (pass
+# 2), four warps of 16 rows, 128 threads.  An operand's tile of 64 rows is,
+# for D <= 64, the TERMS bf16 planes of its split (rows of D rounded up to
+# 16, + 8): split by the block in the forward, in the backward by a first
+# launch into a scratch of TERMS planes of (B, H, T, D rounded up to 16) for
+# each of q, k, v and dO; for 64 < D <= 128, its float32 rows (D rounded
+# up to 32, + 4).  A block holds its own tiles (Q; pass 1 also dO; pass 2 K
+# and V), one copy of the streamed ones (K and V; pass 2 Q and dO, and
+# their lse and delta), a 64 x BIAS_LD float32 tile of the bias, and in
+# pass 2 a warp's 64 x 16 keep bits.  The backward's own tiles at D <= 64
+# are their float32 rows (D rounded up to 32, + 8), so that two blocks share
+# an SM.
+BLOCK = 64
+WARPS = 4
+THREADS = 32 * WARPS
+TERMS = 3
+BIAS_LD = BLOCK + 8
+KINDS = ("fwd", "dq", "dkv")
+MAX_SMEM = 232448  # bytes of shared memory a block may take on sm_90
+PLANES_MAX_D = 64  # the instance that holds its operands as bf16 planes
+
+
+def tile_bytes(D: int) -> int:
+    """Shared memory of one operand's tile of BLOCK rows."""
+    if D <= PLANES_MAX_D:
+        return TERMS * BLOCK * (math.ceil(D / 16) * 16 + 8) * 2
+    return BLOCK * (math.ceil(D / 32) * 32 + 4) * 4
+
+
+def smem_bytes(kind: str, D: int, with_bias: bool) -> int:
+    """Dynamic shared memory of a float32 kernel (`KINDS`)."""
+    tile = tile_bytes(D)
+    own_rows = kind != "fwd" and D <= PLANES_MAX_D
+    own = tile if kind == "fwd" else 2 * (BLOCK * (math.ceil(D / 32) * 32 + 8) * 4 if own_rows else tile)
+    bias_tile = 4 * BLOCK * BIAS_LD if with_bias else 0
+    stats = 4 * 2 * BLOCK if kind == "dkv" else 0  # the streamed queries' lse and delta
+    masks = 2 * WARPS * BLOCK if kind == "dkv" else 0  # a warp's keep bits
+    return own + 2 * tile + bias_tile + stats + masks
+
+
+def launch_geometry(B: int, T: int, H: int, D: int, with_bias: bool) -> dict:
+    """Threads, grid and shared memory of each float32 kernel (`KINDS`) for
+    these shapes, and the bf16 scratch (elements) of the backward's planes
+    of q, k, v and dO, `planes_bwd` (0 where D > 64)."""
+    geo = {kind: {"threads": THREADS, "grid": (math.ceil(T / BLOCK), H, B), "smem": smem_bytes(kind, D, with_bias)}
+           for kind in KINDS}
+    geo["planes_bwd"] = 4 * TERMS * B * H * T * math.ceil(D / 16) * 16 if D <= PLANES_MAX_D else 0
+    return geo
 
 
 def attention_plain(
@@ -185,13 +243,10 @@ def draw_seed(generator: Optional[torch.Generator] = None) -> int:
     return int(torch.randint(0, 2 ** 62, (1,), generator=generator, device=dev).item())
 
 
-_MASK_LAUNCHERS = {torch.float32: "emo_attention_keep_mask", torch.bfloat16: "emo_attention_keep_mask_bf16"}
-
-
 def dropout_keep_mask(B: int, T: int, H: int, rate: float, seed: int,
                       device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """The keep mask (B, H, T, T) bool that the kernels of `dtype` apply
-    for `seed`."""
+    """The keep mask (B, H, T, T) bool that the kernels apply for `seed`:
+    one map for both dtypes, so `dtype` does not change it."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError("dropout_keep_mask: the kernel's bits exist on the card only")
@@ -199,7 +254,7 @@ def dropout_keep_mask(B: int, T: int, H: int, rate: float, seed: int,
     out = torch.empty((B, H, T, T), dtype=torch.uint8, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        KERNEL.launch(_MASK_LAUNCHERS[dtype], out.data_ptr(), B, T, H, lo, hi, threshold, stream)
+        KERNEL.launch("emo_attention_keep_mask", out.data_ptr(), B, T, H, lo, hi, threshold, stream)
     return out.bool()
 
 
@@ -238,7 +293,14 @@ class _FusedAttention(torch.autograd.Function):
     def backward(ctx, d_out):
         q, k, v, out, lse, lens32, bias = ctx.saved_tensors
         B, T, H, D = q.shape
-        d_out = aligned16(d_out.to(v.dtype))
+        d_out = d_out.to(v.dtype).contiguous()
+        planes = ()
+        if q.dtype == torch.float32:  # the scratch of its operands' planes
+            n = launch_geometry(B, T, H, D, bias is not None)["planes_bwd"]
+            scratch = torch.empty(n, dtype=torch.bfloat16, device=q.device) if n else None
+            planes = (scratch.data_ptr() if n else None,)
+        else:  # its launchers move rows as 16-byte words
+            d_out = aligned16(d_out)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         delta = torch.empty_like(lse)
         d_bias = None
@@ -250,7 +312,7 @@ class _FusedAttention(torch.autograd.Function):
             KERNEL.launch(
                 _BWD_LAUNCHERS[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), d_out.data_ptr(), lens32.data_ptr(), lse.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), *planes,
                 *_bias_args(bias), None if d_bias is None else d_bias.data_ptr(),
                 B, T, H, D, float(ctx.scale), lo, hi, threshold, inv_keep, stream,
             )

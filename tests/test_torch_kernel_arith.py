@@ -16,6 +16,13 @@ it), at an L1-like width (H = 256, V = 10000, small B and T), within the
 tolerances `chip_smoke.py` holds the kernels to on the card: so the split
 design is tested before any chip time.
 
+K4's float32 launchers (`csrc/attention.cu`) split every operand of the
+attention's products (q k^T, P V, dO V^T, dS K, dS^T q, Pd^T dO; P, Pd and
+dS included) into three bf16 terms and keep the six leading cross
+products, as K1 does: `_emulate_k4` holds that against the plain version
+and the JAX kernel within the card's tolerances (forward 1e-5, backward and
+d bias 1e-4), and shows that two terms miss the forward's.
+
 The launch geometry of K1 lives in Python (`ops/ctc_head.py::
 launch_geometry`: the splits of V, the row groups of grad-w, the scratch
 and the shared memory of each kernel): every shipped
@@ -37,10 +44,12 @@ import torch
 import chip_smoke
 from emoasr_tpu.ops import ctc as jctc
 from emoasr_tpu.ops.ctc_head_pallas import fused_ctc_head as jax_head
+import emoasr_tpu.ops.attention_pallas as jap
 import emoasr_tpu.ops.rnnt_pallas as jrp
 from emoasr_tpu_torch.config import load_config
 from emoasr_tpu_torch.data.batching import derive_buckets
-from emoasr_tpu_torch.ops import ctc_head, rnnt_joint
+from emoasr_tpu_torch.ops import attention, ctc_head, rnnt_joint
+from test_torch_bf16 import _hash_keep
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DTYPES = {"bfloat16": (torch.bfloat16, jnp.bfloat16), "float32": (torch.float32, jnp.float32)}
@@ -381,3 +390,187 @@ def test_k7_launch_geometry_fits_shipped_configs(name, B, T2, U1, J, V, dtype):
     if J == 512:
         assert geo["cells"] == (128 if dtype == "bfloat16" else 64), geo
     assert rnnt_joint.launch_geometry(B, T2, U1, 2800, V, tdt) is None
+
+
+# ---------------------------------------------------------------- K4
+
+def _split_einsum(eq, a, b, terms):
+    """einsum(eq, a, b) as the f32 launchers form it: a and b as `terms`
+    bf16 terms each, the leading cross products (i + j < terms) summed."""
+    A, B = _split(a, terms), _split(b, terms)
+    return sum(torch.einsum(eq, x, y) for i, x in enumerate(A) for j, y in enumerate(B) if i + j < terms)
+
+
+def _emulate_k4(q, k, v, d_out, lens, scale, rate=0.0, keep=None, bias=None, terms=attention.TERMS):
+    """(out, dq, dk, dv, d bias) as K4's f32 launchers compute them, for q,
+    k, v, d_out (B, T, H, D) float32: the scores and dPd of split products,
+    (+ bias) * scale, -inf at masked keys; P = exp(s - max) dropped and
+    scaled, split, times V's terms, over the row sum (which counts dropped
+    keys); lse = max + log sum; the backward recomputes P from lse, delta =
+    dO . O, dS = P (dP - delta) scale in float32, and dQ, dK, dV of split
+    products (dS and Pd split too)."""
+    T = q.shape[1]
+    mask = torch.arange(T)[None, None, None, :] < lens[:, None, None, None]
+    kf = torch.ones(()) if rate == 0.0 else torch.where(keep, torch.tensor(1.0 / (1.0 - rate)), torch.tensor(0.0))
+
+    def scores():
+        s = _split_einsum("bqhd,bkhd->bhqk", q, k, terms)
+        s = (s + bias if bias is not None else s) * scale
+        return torch.where(mask, s, torch.tensor(-math.inf))
+
+    s = scores()
+    mx = s.amax(-1, keepdim=True)
+    live = torch.isfinite(mx)  # lens > 0
+    e = torch.exp(s - torch.where(live, mx, torch.zeros(())))
+    row_sum = e.sum(-1, keepdim=True)
+    out = _split_einsum("bhqk,bkhd->bhqd", e * kf, v, terms) / torch.where(live, row_sum, torch.ones(()))
+    out = out.transpose(1, 2)
+    lse = torch.where(live, mx + torch.log(row_sum), torch.zeros(()))
+    p = torch.exp(scores() - lse)
+    dp = _split_einsum("bqhd,bkhd->bhqk", d_out, v, terms) * kf
+    delta = (d_out * out).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (dp - delta) * scale
+    dq = _split_einsum("bhqk,bkhd->bqhd", ds, k, terms)
+    dk = _split_einsum("bhqk,bqhd->bkhd", ds, q, terms)
+    dv = _split_einsum("bhqk,bqhd->bkhd", p * kf, d_out, terms)
+    return out, dq, dk, dv, ds
+
+
+def _k4_case(seed, B, T, H, D, with_bias, rate):
+    """numpy-seeded q, k, v, d_out, lens (full, ragged, one key), the bias
+    scaled as `chip_smoke.check_attention_bias` scales it (sqrt(D), so that
+    it weighs as much as q k^T), and a keep mask of `rate`."""
+    rng = np.random.default_rng(seed)
+    q, k, v, d_out = (rng.normal(size=(B, T, H, D)).astype(np.float32) for _ in range(4))
+    bias = (rng.normal(size=(B, H, T, T)) * D ** 0.5).astype(np.float32) if with_bias else None
+    lens = np.array([T, 1] + list(rng.integers(1, T, size=B - 2)), np.int32)[:B]
+    keep = rng.random((B, H, T, T)) >= rate if rate > 0 else None
+    return q, k, v, d_out, lens, bias, keep
+
+
+def _hold_k4(got, want, name, margin=1.0):
+    """out within ATTN_TOL (f32, 1e-5), dq, dk, dv and d bias within
+    ATTN_BWD_TOL (1e-4), each over `margin`: the largest errors."""
+    tols = [chip_smoke.ATTN_TOL[torch.float32]] + [chip_smoke.ATTN_BWD_TOL] * 4
+    return [chip_smoke._require_close(f"{name} {what}", a, b, tol / margin, 0.0)
+            for what, a, b, tol in zip(("out", "dq", "dk", "dv", "d bias"), got, want, tols) if b is not None]
+
+
+K4_SHAPES = [(2, 399, 4, 64), (2, 200, 2, 128)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("B,T,H,D", K4_SHAPES)
+def test_k4_split_products_match_plain(B, T, H, D, with_bias, rate):
+    """The emulated f32 launchers against `attention_plain` /
+    `attention_bwd_plain` with the same keep mask, within half the card's
+    tolerances (three terms leave ~1e-6)."""
+    q, k, v, d_out, lens, bias, keep = (None if x is None else torch.from_numpy(x)
+                                        for x in _k4_case(B * T + D + with_bias, B, T, H, D, with_bias, rate))
+    scale = 1.0 / math.sqrt(D)
+    got = _emulate_k4(q, k, v, d_out, lens, scale, rate, keep, bias)
+    want_out = attention.attention_plain(q, k, v, lens, scale, rate, bias=bias, dropout_mask=keep)
+    dq, dk, dv, d_bias = attention.attention_bwd_plain(q, k, v, d_out, lens, scale, rate, bias, keep)
+    _hold_k4(got, (want_out, dq, dk, dv, d_bias), f"K4 f32 {(B, T, H, D)} bias {with_bias} rate {rate}", margin=2.0)
+    past = torch.arange(T)[None, :] >= lens[:, None].long()
+    assert not got[2][past].any() and not got[3][past].any()  # dk, dv at masked keys
+
+
+def _jax_k4(monkeypatch, q, k, v, d_out, lens, bias, scale, rate):
+    """(out, dq, dk, dv, d bias) through the JAX `_fused` (Pallas, interpret
+    mode, float32) with the keep mask of `_hash_keep`."""
+    threshold = np.uint32(int(rate * 2 ** 32))
+
+    def drop_mask(seed_ref, rate_, shape):
+        from jax.experimental import pallas as pl
+
+        u32 = lambda x: jnp.asarray(x).astype(jnp.uint32)
+        i = jax.lax.broadcasted_iota(jnp.uint32, shape, 0)
+        j = jax.lax.broadcasted_iota(jnp.uint32, shape, 1)
+        return _hash_keep(u32(pl.program_id(0)), u32(pl.program_id(1)), i, j, u32(pl.num_programs(1)), threshold)
+
+    monkeypatch.setattr(jap, "_drop_mask", drop_mask)
+    bhtd = lambda x: jnp.transpose(jnp.asarray(x), (0, 2, 1, 3))
+    jb = None if bias is None else jnp.asarray(bias)
+
+    def f(q_, k_, v_, b_):
+        return jap._fused((scale, rate, True, b_ is not None), q_, k_, v_, b_, jnp.asarray(lens),
+                          jnp.zeros((), jnp.int32))
+
+    out, vjp = jax.vjp(f, bhtd(q), bhtd(k), bhtd(v), jb)
+    grads = vjp(bhtd(d_out))
+    back = lambda x: torch.from_numpy(np.transpose(np.array(x), (0, 2, 1, 3)))
+    return (back(out), back(grads[0]), back(grads[1]), back(grads[2]),
+            None if bias is None else torch.from_numpy(np.array(grads[3])))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_k4_split_products_match_jax(monkeypatch, with_bias, rate):
+    """The emulated f32 launchers against the JAX package's
+    `fused_self_attention` kernels (`_fwd_kernel`, `_bwd_kernel`, interpret
+    mode) on the same numpy-seeded inputs and keep mask, within the card's
+    tolerances."""
+    B, T, H, D = 2, 150, 2, 64
+    q, k, v, d_out, lens, bias, _ = _k4_case(11 + with_bias, B, T, H, D, with_bias, 0.0)
+    scale = 1.0 / math.sqrt(D)
+    want = _jax_k4(monkeypatch, q, k, v, d_out, lens, bias, scale, rate)
+    ii, jj = np.meshgrid(np.arange(T, dtype=np.uint32), np.arange(T, dtype=np.uint32), indexing="ij")
+    keep = np.stack([np.stack([_hash_keep(np.uint32(b), np.uint32(h), ii, jj, np.uint32(H),
+                                          np.uint32(int(rate * 2 ** 32))) for h in range(H)]) for b in range(B)])
+    t = lambda x: None if x is None else torch.from_numpy(x)
+    got = _emulate_k4(t(q), t(k), t(v), t(d_out), t(lens), scale, rate, t(keep) if rate > 0 else None, t(bias))
+    _hold_k4(got, want, f"K4 f32 bias {with_bias} rate {rate}, emulated vs JAX")
+
+
+def test_k4_split_is_needed():
+    """One term fewer (two terms, the three products of K7) misses the f32
+    forward's tolerance: the third term carries the float32 operands."""
+    q, k, v, d_out, lens, bias, keep = (None if x is None else torch.from_numpy(x)
+                                        for x in _k4_case(5, 4, 399, 4, 64, True, 0.1))
+    scale = 1.0 / 8.0
+    want = attention.attention_plain(q, k, v, lens, scale, 0.1, bias=bias, dropout_mask=keep)
+    got = _emulate_k4(q, k, v, d_out, lens, scale, 0.1, keep, bias, terms=attention.TERMS - 1)[0]
+    with pytest.raises(chip_smoke.CheckFailed):
+        chip_smoke._require_close("K4 f32 forward, two terms", got, want, chip_smoke.ATTN_TOL[torch.float32], 0.0)
+
+
+def _encoder_depths():
+    """(name, d_k) of every shipped ASR configuration's encoder attention."""
+    out = []
+    for path in sorted(glob.glob(os.path.join(REPO, "configs", "*", "*.yaml"))):
+        if os.sep + "lm" + os.sep in path:
+            continue
+        cfg = load_config(path)
+        if getattr(cfg, "enc_hidden_size", 0) and getattr(cfg, "enc_num_attention_heads", 0):
+            out.append((os.path.relpath(path, REPO), cfg.enc_hidden_size // cfg.enc_num_attention_heads))
+    return out
+
+
+ENCODER_DEPTHS = _encoder_depths()
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("instance", [64, 128])
+def test_k4_launch_geometry_fits(instance, with_bias):
+    """Every f32 kernel's shared memory within the 232,448 bytes of one
+    block on sm_90 for every D the instance takes (D <= 64: the operands as
+    bf16 planes; 64 < D <= 128: as f32 rows) and every shipped encoder's
+    d_k, with the bias and without; two blocks an SM's 228 KB at the
+    shipped d_k; the grid within CUDA's limits and the backward's scratch
+    at a full L1 batch."""
+    depths = range(1, 65) if instance == 64 else range(65, 129)
+    depths = sorted(set(depths) | {d for _, d in ENCODER_DEPTHS if (d <= 64) == (instance == 64)})
+    assert depths
+    for D in depths:
+        geo = attention.launch_geometry(18, 399, 4, D, with_bias)
+        for kind in attention.KINDS:
+            g = geo[kind]
+            assert g["smem"] == attention.smem_bytes(kind, D, with_bias) <= attention.MAX_SMEM, (D, kind)
+            assert g["threads"] == 128 and g["grid"] == (7, 4, 18)
+        assert geo["planes_bwd"] == (12 * 18 * 4 * 399 * math.ceil(D / 16) * 16 if instance == 64 else 0)
+        if D == 64:
+            for kind in attention.KINDS:
+                assert 2 * (geo[kind]["smem"] + 1024) <= 228 * 1024, (kind, geo[kind])
+    assert {d for _, d in ENCODER_DEPTHS} == {64}, ENCODER_DEPTHS

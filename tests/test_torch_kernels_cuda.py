@@ -7,9 +7,10 @@ card, run them without the JAX test configuration:
 
 The cases and tolerances are those of `chip_smoke.py` (top-k exact;
 attention forward f32 within 1e-5, bf16 within 2e-2, with and without the
-score bias, and the bf16 launchers at the edge cases of their tiling
-(`k4_edge_cases`, bias f32 and bf16, dropout 0, 0.1 and 0.3), each launched
-twice with bit-identical outputs; attention backward, CTC head, CTC lattice, the decoder layer
+score bias, and both dtypes' launchers at the edge cases of their tiling
+(`k4_edge_cases`: the f32 ones forward and backward, bias none, f32 and
+bf16, dropout 0, 0.1 and 0.3), each launched twice with bit-identical
+outputs; one dropout map for both dtypes; attention backward, CTC head, CTC lattice, the decoder layer
 step, the LM layer step, the RNN-T joint and the LSTM recurrence forward
 and backward: the constants beside their checks there; the bf16 parts of
 the attention backward, the CTC head (and the head at H > 256) and the
@@ -55,8 +56,8 @@ def test_attention_kernel_matches_plain(cuda_dev):
 
     before = attention.KERNEL.launches
     chip_smoke.check_attention(*cuda_dev)
-    # the cases once, and the bf16 edge cases twice each (bit-identical)
-    edges = len(chip_smoke.k4_edge_cases(cuda_dev[0]))
+    # the cases once, and the edge cases of both dtypes twice each (bit-identical)
+    edges = sum(len(chip_smoke.k4_edge_cases(cuda_dev[0], dt)) for dt in (torch.float32, torch.bfloat16))
     assert attention.KERNEL.launches - before == len(chip_smoke.attention_cases(*cuda_dev)) + 2 * edges
 
 
@@ -96,10 +97,13 @@ def test_attention_bias_matches_plain(cuda_dev):
     chip_smoke.check_attention_bias(*cuda_dev)
     used = {k: attention.KERNEL.counts[k] - before[k] for k in before}
     # three shapes: one forward per dtype, and a forward + backward with and without dropout;
-    # then the bf16 edge cases, bias f32 and bf16, three dropout rates, twice each
+    # then the edge cases, bias f32 and bf16, three dropout rates, twice each: the f32
+    # launchers forward and backward, the bf16 ones forward
     edges = len(chip_smoke.k4_edge_cases(cuda_dev[0]))
-    assert used["emo_attention_fwd_f32"] == 9 and used["emo_attention_fwd_bf16"] == 3 + 2 * 2 * 3 * edges
-    assert used["emo_attention_bwd_f32"] == 6
+    edges32 = len(chip_smoke.k4_edge_cases(cuda_dev[0], torch.float32))
+    assert used["emo_attention_fwd_f32"] == 9 + 2 * 2 * 3 * edges32
+    assert used["emo_attention_fwd_bf16"] == 3 + 2 * 2 * 3 * edges
+    assert used["emo_attention_bwd_f32"] == 6 + 2 * 2 * 3 * edges32
 
 
 def test_decoder_step_kernels_match_plain(cuda_dev):
@@ -220,7 +224,50 @@ def test_attention_backward_and_dropout_match_plain(cuda_dev):
 
     before = attention.KERNEL.counts["emo_attention_bwd_f32"]
     chip_smoke.check_attention_backward(*cuda_dev)
-    assert attention.KERNEL.counts["emo_attention_bwd_f32"] - before == 5
+    # five shapes, then the f32 edge cases at three dropout rates, twice each
+    edges32 = len(chip_smoke.k4_edge_cases(cuda_dev[0], torch.float32))
+    assert attention.KERNEL.counts["emo_attention_bwd_f32"] - before == 5 + 2 * 3 * edges32
+
+
+def test_dropout_keep_mask_is_one_map_for_both_dtypes(cuda_dev):
+    """`dropout_keep_mask` gives one map whatever the dtype, and the f32
+    and bf16 launchers drop the same elements for one seed: their outputs
+    agree within the bf16 forward's tolerance (two maps would differ by
+    O(1))."""
+    from emoasr_tpu_torch.ops.attention import dropout_keep_mask, fused_self_attention
+
+    dev, gen = cuda_dev
+    for B, T, H in ((2, 37, 3), (18, 399, 4)):
+        assert torch.equal(dropout_keep_mask(B, T, H, 0.3, 11, dev), dropout_keep_mask(B, T, H, 0.3, 11, dev,
+                                                                                        torch.bfloat16))
+    q, k, v = (torch.randn(2, 70, 3, 64, generator=gen, device=dev) for _ in range(3))
+    lens = torch.tensor([70, 41], device=dev)
+    outs = [fused_self_attention(q.to(dt), k.to(dt), v.to(dt), lens, scale=0.125, dropout_rate=0.3,
+                                 deterministic=False, seed=11).float() for dt in (torch.float32, torch.bfloat16)]
+    assert (outs[0] - outs[1]).abs().max().item() <= chip_smoke.ATTN_TOL[torch.bfloat16]
+
+
+def test_attention_geometry_matches_the_kernel(cuda_dev):
+    """The f32 launchers' shared memory as `ops/attention.py` accounts it
+    equals the library's own (`emo_attention_smem_bytes`) in both instances,
+    every kind, with and without the bias; the backward at D <= 64 refuses
+    to run without its scratch."""
+    from emoasr_tpu_torch.ops import attention
+
+    lib = attention.KERNEL.lib()
+    for D in (1, 3, 8, 20, 40, 64, 65, 100, 128):
+        for with_bias in (False, True):
+            for kind_i, kind in enumerate(attention.KINDS):
+                assert (lib.emo_attention_smem_bytes(kind_i, D, int(with_bias))
+                        == attention.smem_bytes(kind, D, with_bias)), (D, with_bias, kind)
+    dev, _ = cuda_dev
+    x = torch.zeros(1, 8, 1, 16, device=dev)
+    stats = torch.zeros(1, 1, 8, device=dev)
+    lens = torch.tensor([8], device=dev, dtype=torch.int32)
+    with pytest.raises(RuntimeError):  # no scratch for the planes
+        attention.KERNEL.launch("emo_attention_bwd_f32", *[x.data_ptr()] * 5, lens.data_ptr(), stats.data_ptr(),
+                                *[x.clone().data_ptr() for _ in range(3)], stats.clone().data_ptr(), None, None, 0,
+                                None, 1, 8, 1, 16, 0.25, 0, 0, 0, 1.0, torch.cuda.current_stream().cuda_stream)
 
 
 def test_ctc_lattice_kernels_match_plain(cuda_dev):
