@@ -30,7 +30,9 @@ Phases (any failed check raises, so the script exits non-zero):
    (one bf16 step of each entry, see `BF16_STEP`); the decoder layer step
    (direct and indirect) and the LM layer step in bf16; the RNN-T joint at
    J = 1024, 1500 and 2048 and the LSTM at H = 640 and 1024, in f32 and
-   bf16.
+   bf16.  Every LSTM case (T up to 256, B = 1 to 50) runs twice,
+   bit-identical; the beam steps also at W = 17 and 33, and rows 0-15 of a
+   W = 20 launch equal a W = 16 launch bit for bit, in both dtypes.
 4. Training at the full width of the L1 CTC(Transformer) model (12 x 256,
    4 heads, FF 2048, V = 10000, SpecAugment and dropout on,
    `enc_fused_attn: true`, random initial weights from `--seed`): one epoch
@@ -53,8 +55,10 @@ Phases (any failed check raises, so the script exits non-zero):
 8. The L3-1 model (Conformer encoder 12 x 256, Transformer decoder 6 x 256,
    FF 2048, V = 10000, `enc_fused_attn: true`, weights from `--seed`): the
    decode corpus through the eval CLI with beam 10, joint CTC 0.3, once with
-   `dec_step_mode: fused_indirect` and once with `fused`; launch counts of
-   the top-k, attention and decoder-step kernels; the count of hypotheses
+   `dec_step_mode: fused_indirect` and once with `fused`, then once more
+   in `fused_indirect` with `--beam_width 17` (two row groups an
+   utterance); launch counts of the top-k, attention and decoder-step
+   kernels; the count of hypotheses
    force-finalized at their step budget (seed weights seldom emit eos); one
    batch on the card against the CPU's plain path (encoder output, one
    decoder step's logits, top-1 hypotheses); where one large batch's time
@@ -104,8 +108,9 @@ Phases (any failed check raises, so the script exits non-zero):
    one library call (for K5 and K6 the dense route), the bf16 launchers in
    bf16 (bounds at the bf16 rate, library calls in bf16; an f32 launcher
    that splits its operands into bf16 terms held to that many tensor-core
-   products), K4's forward also with dropout (training's), and K7 at
-   J = 1024 and K8 at H = 1024 beside the chunked route and cuDNN; one
+   products; K8 in both storage types as three or two), K4's forward also
+   with dropout (training's), K7 at J = 1024 and K8 at H = 1024 beside the
+   chunked route and cuDNN, and K5 and K6 at W = 33; one
    JSON line describing each kernel, the `nvidia-smi` line, and last the
    `{"ok": true, "device": ...}` line.
 
@@ -191,7 +196,7 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 # the sources whose kernels run on the tensor cores: their registers, spills
 # and shared memory (`nvcc -Xptxas -v`) and their count of tensor-core
 # instructions (`cuobjdump -sass`) are reported in phase 2
-TENSOR_CORE_SOURCES = ("attention.cu", "ctc_head.cu", "rnnt_joint.cu")
+TENSOR_CORE_SOURCES = ("attention.cu", "ctc_head.cu", "rnnt_joint.cu", "lstm_scan.cu")
 
 
 def start_resource_builds(out_dir: str) -> dict:
@@ -972,6 +977,21 @@ def check_attention_bias(dev, gen) -> dict:
 # values, taken in another order than cuBLAS takes them: atol 1e-4 at
 # outputs of magnitude O(1) to O(10).
 DEC_STEP_TOL = 1e-4
+# (name, (Bu, W, L, T, H, D, F)): the L3 decode bucket, one beam, narrow
+# widths, many utterances, and beams wider than a row group of 16 (W = 17:
+# groups of 16 and 1; W = 33: three groups), among them W = 17 at the
+# largest and the smallest L3 bucket (Bu 18 and 50: on 132 SMs clusters of
+# 2 and 1 blocks a row group, as the beam-17 decode runs them)
+DEC_STEP_CASES = (
+    ("Bu=18 W=10 L=258 T=399 D=256 F=2048", (18, 10, 258, 399, 4, 256, 2048)),
+    ("Bu=18 W=17 L=258 T=399 D=256 F=2048", (18, 17, 258, 399, 4, 256, 2048)),
+    ("Bu=50 W=17 L=258 T=49 D=256 F=2048", (50, 17, 258, 49, 4, 256, 2048)),
+    ("Bu=5 W=1 L=20 T=37 D=256 F=2048", (5, 1, 20, 37, 4, 256, 2048)),
+    ("Bu=3 W=10 L=9 T=50 D=64 F=96 H=2", (3, 10, 9, 50, 2, 64, 96)),
+    ("Bu=140 W=3 L=16 T=21 D=128 F=256 H=8", (140, 3, 16, 21, 8, 128, 256)),
+    ("Bu=4 W=17 L=20 T=37 D=256 F=2048", (4, 17, 20, 37, 4, 256, 2048)),
+    ("Bu=2 W=33 L=12 T=30 D=256 F=2048", (2, 33, 12, 30, 4, 256, 2048)),
+)
 
 
 def decoder_step_case(dev, gen, Bu: int, W: int, L: int, T: int, H: int = 4, D: int = 256, F: int = 2048,
@@ -1009,6 +1029,16 @@ def decoder_step_case(dev, gen, Bu: int, W: int, L: int, T: int, H: int = 4, D: 
                 anc=anc, cross_k=randn(Bu, T, H, dk), cross_v=randn(Bu, T, H, dk), elens=elens, weights=wt)
 
 
+def _row_groups(groups: dict, key: tuple, Bu: int, W: int, dev) -> str:
+    """How a K5 / K6 launch laid out its rows: the row group the wrapper
+    chose for `key` (its `_GROUPS` cache) and the blocks a group's cluster."""
+    from emoasr_tpu_torch.ops.decoder_step import _pick_cluster
+
+    wp = groups[key][0]
+    n = Bu * -(-W // wp)
+    return f"{n} row groups of up to {wp}, clusters of {_pick_cluster(n, dev)}"
+
+
 def _step_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
     """The f32 tolerance `tol`, or, for bf16 outputs, one bf16 step of each
     entry plus one of the tensor's largest (see BF16_STEP)."""
@@ -1028,13 +1058,8 @@ def check_decoder_step(dev, gen, dtype=torch.float32) -> dict:
     from emoasr_tpu_torch.ops import decoder_step as ds
 
     sfx = "" if dtype == torch.float32 else "_bf16"
-    worst = {"direct": 0.0, "indirect": 0.0}
-    for name, (Bu, W, L, T, H, D, F) in (
-        ("Bu=18 W=10 L=258 T=399 D=256 F=2048", (18, 10, 258, 399, 4, 256, 2048)),
-        ("Bu=5 W=1 L=20 T=37 D=256 F=2048", (5, 1, 20, 37, 4, 256, 2048)),
-        ("Bu=3 W=10 L=9 T=50 D=64 F=96 H=2", (3, 10, 9, 50, 2, 64, 96)),
-        ("Bu=140 W=3 L=16 T=21 D=128 F=256 H=8", (140, 3, 16, 21, 8, 128, 256)),
-    ):
+    worst = {"direct": 0.0, "indirect": 0.0, "direct wide": 0.0, "indirect wide": 0.0}
+    for name, (Bu, W, L, T, H, D, F) in DEC_STEP_CASES:
         c = _cast_case(decoder_step_case(dev, gen, Bu, W, L, T, H, D, F), dtype)
         dk = D // H
         flat = lambda x: x.reshape(Bu * W, L, H, dk)
@@ -1054,14 +1079,64 @@ def check_decoder_step(dev, gen, dtype=torch.float32) -> dict:
                 c["h"], flat(gk).contiguous(), flat(gv).contiguous(), c["pos"].reshape(-1), *tail, beam_width=W),
         }
         torch.cuda.synchronize()
+        layout = _row_groups(ds._GROUPS, (ds.KERNEL.name, W, L, T, D, F, H, c["h"].element_size()), Bu, W, dev)
         for kind, other in (("direct", "direct plain"), ("indirect", "indirect plain"),
                             ("indirect", "direct on gathered caches")):
             errs = [_step_close(f"decoder step {dtype} {name} {kind} vs {other}: {what}", a, b, DEC_STEP_TOL)
                     for what, a, b in zip(("y", "k_new", "v_new"), out[kind], out[other])]
-            worst[kind] = max(worst[kind], *errs)
-            print(f"  decoder step {dtype} {name}: {kind} vs {other}: y {errs[0]:.2e} k_new {errs[1]:.2e} "
+            key = kind + (" wide" if W > 16 else "")
+            worst[key] = max(worst[key], *errs)
+            print(f"  decoder step {dtype} {name} ({layout}): {kind} vs {other}: y {errs[0]:.2e} k_new {errs[1]:.2e} "
                   f"v_new {errs[2]:.2e} (tol {DEC_STEP_TOL if dtype == torch.float32 else 'one bf16 step + one of the largest'})")
-    return {"decoder_step" + sfx: worst["direct"], "decoder_step_indirect" + sfx: worst["indirect"]}
+    return {"decoder_step" + sfx: worst["direct"], "decoder_step_indirect" + sfx: worst["indirect"],
+            "decoder_step_wide" + sfx: worst["direct wide"],
+            "decoder_step_indirect_wide" + sfx: worst["indirect wide"]}
+
+
+def check_beam_groups(dev, gen, dtype=torch.float32) -> None:
+    """Beams wider than a row group: K5, K5 indirect and K6 at W = 20 (two
+    row groups of 16 and 4) and at W = 16 (one group) on the same inputs
+    for beams 0-15 (ancestor slots below 16), in `dtype`: rows 0-15 of the
+    W = 20 launch equal the W = 16 launch bit for bit, so a row's result does
+    not depend on the group it lands in."""
+    from emoasr_tpu_torch.ops import decoder_step as ds
+    from emoasr_tpu_torch.ops import lm_step
+
+    Bu, W, L, T, H, D, F = 3, 20, 12, 30, 4, 256, 2048
+    c = _cast_case(decoder_step_case(dev, gen, Bu, W, L, T, H, D, F), dtype)
+    c["anc"] = c["anc"] % 16
+    dk = D // H
+    tail = (c["cross_k"], c["cross_v"], c["elens"], c["weights"])
+    narrow = lambda x: x[:, :16].contiguous()
+    rows = lambda x: x.reshape(Bu, -1, *x.shape[1:])
+    flat = lambda x, w: x.reshape(Bu * w, *x.shape[2:])
+    wide = {
+        "direct": ds.fused_decoder_layer_step(c["h"], flat(c["cache_k"], W), flat(c["cache_v"], W),
+                                              c["pos"].reshape(-1), *tail, beam_width=W),
+        "indirect": ds.fused_decoder_layer_step_indirect(c["h"], c["cache_k"], c["cache_v"], c["pos"], c["anc"],
+                                                         *tail, beam_width=W),
+    }
+    h16 = flat(narrow(rows(c["h"])), 16)
+    ck16, cv16, pos16, anc16 = (narrow(c[k]) for k in ("cache_k", "cache_v", "pos", "anc"))
+    sixteen = {
+        "direct": ds.fused_decoder_layer_step(h16, flat(ck16, 16), flat(cv16, 16), pos16.reshape(-1), *tail,
+                                              beam_width=16),
+        "indirect": ds.fused_decoder_layer_step_indirect(h16, ck16, cv16, pos16, anc16, *tail, beam_width=16),
+    }
+    for kind in ("direct", "indirect"):
+        for what, a, b in zip(("y", "k_new", "v_new"), wide[kind], sixteen[kind]):
+            require(torch.equal(narrow(rows(a)), rows(b)),
+                    f"decoder step {kind} {dtype}: {what} of beams 0-15 differs between W = 20 and W = 16")
+    lc = _cast_case(lm_step_case(dev, gen, Bu, W, L, H, D, F), dtype)
+    lc["anc"] = lc["anc"] % 16
+    got = lm_step.fused_bert_layer_step_indirect(lc["h"], lc["cache_k"], lc["cache_v"], lc["pos"], lc["anc"],
+                                                lc["weights"])
+    want = lm_step.fused_bert_layer_step_indirect(*(narrow(lc[k]) for k in ("h", "cache_k", "cache_v", "pos", "anc")),
+                                                 lc["weights"])
+    for what, a, b in zip(("y", "k_new", "v_new"), got, want):
+        require(torch.equal(narrow(a), b), f"LM step {dtype}: {what} of beams 0-15 differs between W = 20 and W = 16")
+    print(f"  decoder step (direct, indirect) and LM step {dtype}: beams 0-15 of W = 20 (groups of 16 and 4) "
+          "equal W = 16 bit for bit")
 
 
 def time_attention_bias(dev, gen, B: int, T: int, H: int, D: int, lens: torch.Tensor,
@@ -1195,6 +1270,19 @@ def _cast_case(c: dict, dtype) -> dict:
 # order, so 0; LM_GATHER_TOL allows for a different reduction order.
 LM_STEP_TOL = 1e-4
 LM_GATHER_TOL = 1e-5
+# (name, (Bu, W, L, H, D, F)): the L3-3 bucket, narrow shapes, and beams
+# wider than a row group of 16 (W = 17 and 33; W = 17 at Bu 18 and 50, as in
+# DEC_STEP_CASES)
+LM_STEP_CASES = (
+    ("Bu=18 W=10 L=256 D=512 F=2048 H=8", (18, 10, 256, 8, 512, 2048)),
+    ("Bu=18 W=17 L=256 D=512 F=2048 H=8", (18, 17, 256, 8, 512, 2048)),
+    ("Bu=50 W=17 L=256 D=512 F=2048 H=8", (50, 17, 256, 8, 512, 2048)),
+    ("Bu=5 W=3 L=20 D=512 F=2048 H=8", (5, 3, 20, 8, 512, 2048)),
+    ("Bu=3 W=1 L=7 D=512 F=2048 H=8", (3, 1, 7, 8, 512, 2048)),
+    ("Bu=7 W=16 L=9 D=64 F=96 H=2", (7, 16, 9, 2, 64, 96)),
+    ("Bu=3 W=17 L=20 D=512 F=2048 H=8", (3, 17, 20, 8, 512, 2048)),
+    ("Bu=2 W=33 L=12 D=512 F=2048 H=8", (2, 33, 12, 8, 512, 2048)),
+)
 
 
 def lm_step_case(dev, gen, Bu: int, W: int, L: int, H: int = 8, D: int = 512, F: int = 2048, pos=None):
@@ -1228,19 +1316,15 @@ def lm_step_case(dev, gen, Bu: int, W: int, L: int, H: int = 8, D: int = 512, F:
                 pos=pos, anc=anc, weights=wt)
 
 
-def check_lm_step(dev, gen, dtype=torch.float32) -> float:
+def check_lm_step(dev, gen, dtype=torch.float32) -> dict:
     """K6 against its plain version (y, k_new, v_new), and against itself on
     caches gathered by `anc` under the identity table, in `dtype` (bf16 held
-    as `check_decoder_step` holds it)."""
+    as `check_decoder_step` holds it): the largest errors at W <= 16 and at
+    W > 16."""
     from emoasr_tpu_torch.ops import lm_step
 
-    worst = 0.0
-    for name, (Bu, W, L, H, D, F) in (
-        ("Bu=18 W=10 L=256 D=512 F=2048 H=8", (18, 10, 256, 8, 512, 2048)),
-        ("Bu=5 W=3 L=20 D=512 F=2048 H=8", (5, 3, 20, 8, 512, 2048)),
-        ("Bu=3 W=1 L=7 D=512 F=2048 H=8", (3, 1, 7, 8, 512, 2048)),
-        ("Bu=7 W=16 L=9 D=64 F=96 H=2", (7, 16, 9, 2, 64, 96)),
-    ):
+    worst = {"narrow": 0.0, "wide": 0.0}
+    for name, (Bu, W, L, H, D, F) in LM_STEP_CASES:
         c = _cast_case(lm_step_case(dev, gen, Bu, W, L, H, D, F), dtype)
         dk = D // H
         idx = c["anc"][:, :, :, None, None].expand(Bu, W, L, H, dk)
@@ -1254,14 +1338,17 @@ def check_lm_step(dev, gen, dtype=torch.float32) -> float:
                 c["h"], gk.contiguous(), gv.contiguous(), c["pos"], ident, c["weights"]),
         }
         torch.cuda.synchronize()
+        layout = _row_groups(lm_step._GROUPS, (W, L, D, F, c["h"].element_size()), Bu, W, dev)
         for other, tol in (("plain", LM_STEP_TOL), ("kernel on gathered caches", LM_GATHER_TOL)):
             errs = [_step_close(f"LM step {dtype} {name} kernel vs {other}: {what}", a, b, tol)
                     for what, a, b in zip(("y", "k_new", "v_new"), out["kernel"], out[other])]
             if other == "plain":
-                worst = max(worst, *errs)
-            print(f"  LM step {dtype} {name}: kernel vs {other}: y {errs[0]:.2e} k_new {errs[1]:.2e} "
+                key = "wide" if W > 16 else "narrow"
+                worst[key] = max(worst[key], *errs)
+            print(f"  LM step {dtype} {name} ({layout}): kernel vs {other}: y {errs[0]:.2e} k_new {errs[1]:.2e} "
                   f"v_new {errs[2]:.2e} (tol {tol if dtype == torch.float32 else 'one bf16 step + one of the largest'})")
-    return worst
+    sfx = "" if dtype == torch.float32 else "_bf16"
+    return {"lm_step_indirect" + sfx: worst["narrow"], "lm_step_indirect_wide" + sfx: worst["wide"]}
 
 
 def time_lm_step(dev, gen, Bu: int, W: int, L: int, pos: int, dtype=torch.float32) -> dict:
@@ -1378,32 +1465,55 @@ def lstm_case(dev, gen, B: int, T: int, H: int, zero_state: bool = False):
     return x_proj, w_hh, h0, c0, cots
 
 
+def lstm_twice(tag: str, ins: list, cots) -> tuple:
+    """K8 forward and backward of `ins` (x_proj, w_hh, h0, c0) with the
+    cotangents `cots`, launched twice: the second run must equal the first
+    bit for bit.  Returns ((ys, h_T, c_T), (d x_proj, d w_hh, d h0, d c0))."""
+    from emoasr_tpu_torch.ops.lstm_scan import lstm_scan_fused
+
+    runs = []
+    for _ in range(2):
+        leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+        ys, (hT, cT) = lstm_scan_fused(*leaves)
+        runs.append(((ys, hT, cT), torch.autograd.grad((ys, hT, cT), leaves, cots)))
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip((*runs[0][0], *runs[0][1]), (*runs[1][0], *runs[1][1]))),
+            f"{tag}: two launches differ")
+    return runs[0]
+
+
+# the K8 shapes checked, (B, T, H) and a zero initial state: the prediction
+# network's largest bucket, a batch in two tiles (B = 50), H not a multiple
+# of 128, T = 8 (the threshold), the RNN LM's length (T = 256) and B = 1
+LSTM_CASES = (((18, 129, 512), True), ((5, 9, 512), False), ((50, 49, 512), True), ((3, 20, 136), False),
+              ((7, 8, 40), False), ((18, 256, 512), True), ((1, 129, 512), False))
+LSTM_BF16_CASES = (((18, 129, 512), True), ((50, 49, 512), True), ((3, 20, 136), False),
+                   ((18, 256, 512), True), ((1, 129, 512), False))
+LSTM_WIDE_CASES = (((18, 129, 1024), True), ((50, 20, 640), False), ((1, 256, 1024), False))
+
+
 def check_lstm(dev, gen) -> dict:
     """K8 forward (ys, h_T, c_T) and backward (d x_proj, d w_hh, d h0, d c0)
-    against the plain versions: the prediction network's largest bucket,
-    B = 50 (the backward stages the batch in tiles), H not a multiple of
-    128, T = 8 (the threshold), and zero and nonzero initial states."""
-    from emoasr_tpu_torch.ops.lstm_scan import lstm_bwd_plain, lstm_fwd_plain, lstm_scan_fused
+    against the plain versions at `LSTM_CASES`, each launched twice
+    (bit-identical)."""
+    from emoasr_tpu_torch.ops.lstm_scan import lstm_bwd_plain, lstm_fwd_plain
 
     worst = {"fwd": 0.0, "bwd": 0.0}
-    for shape, zero in (((18, 129, 512), True), ((5, 9, 512), False), ((50, 49, 512), True),
-                        ((3, 20, 136), False), ((7, 8, 40), False)):
+    for shape, zero in LSTM_CASES:
         x_proj, w_hh, h0, c0, (g_ys, g_h, g_c) = lstm_case(dev, gen, *shape, zero_state=zero)
-        ins = [t.clone().requires_grad_(True) for t in (x_proj, w_hh, h0, c0)]
-        ys, (hT, cT) = lstm_scan_fused(*ins)
-        grads = torch.autograd.grad((ys, hT, cT), ins, (g_ys, g_h, g_c))
+        tag = f"lstm {shape}{' zero state' if zero else ''}"
+        (ys, hT, cT), grads = lstm_twice(tag, [x_proj, w_hh, h0, c0], (g_ys, g_h, g_c))
         with torch.no_grad():
             p_ys, p_h, p_c, gates, hcprev = lstm_fwd_plain(x_proj, w_hh, h0, c0)
             p_grads = lstm_bwd_plain(gates, hcprev, g_ys, g_h, g_c, w_hh)
         torch.cuda.synchronize()
-        tag = f"lstm {shape}{' zero state' if zero else ''}"
         fwd = [_require_close(f"{tag} {what}", a, b, LSTM_FWD_TOL, 0.0)
                for what, a, b in zip(("ys", "h_T", "c_T"), (ys, hT, cT), (p_ys, p_h, p_c))]
         bwd = [_require_close(f"{tag} {what}", a, b, *LSTM_BWD_TOL)
                for what, a, b in zip(("d x_proj", "d w_hh", "d h0", "d c0"), grads, p_grads)]
         worst = {"fwd": max(worst["fwd"], *fwd), "bwd": max(worst["bwd"], *bwd)}
         print(f"  {tag}: ys {fwd[0]:.2e} h_T {fwd[1]:.2e} c_T {fwd[2]:.2e}; d x_proj {bwd[0]:.2e} d w_hh "
-              f"{bwd[1]:.2e} d h0 {bwd[2]:.2e} d c0 {bwd[3]:.2e}")
+              f"{bwd[1]:.2e} d h0 {bwd[2]:.2e} d c0 {bwd[3]:.2e}; twice, bit-identical")
     return worst
 
 
@@ -1583,40 +1693,39 @@ def check_rnnt_joint_bf16(dev, gen) -> dict:
 
 
 def check_lstm_bf16(dev, gen) -> dict:
-    """K8 in bf16 (x_proj, the states and what is stored bf16; w_hh and the
-    carry f32) against `lstm_fwd_plain` / `lstm_bwd_plain`, the shapes of
-    `check_lstm`: ys, h_T, c_T and d x_proj, d h0, d c0 in bf16; d w_hh is
-    f32, but a sum over B T terms each taken from stored residuals that may
-    sit one bf16 step apart on the two sides (each side's forward rounds its
-    own f32 carry), so it is held like the bf16 outputs, with a floor of a
-    quarter step of its largest entry."""
-    from emoasr_tpu_torch.ops.lstm_scan import lstm_bwd_plain, lstm_fwd_plain, lstm_scan_fused
+    """K8 in bf16 (x_proj, the states and what is stored bf16; the carry
+    f32) against `lstm_fwd_plain` / `lstm_bwd_plain` at `LSTM_BF16_CASES`,
+    w_hh the model's bf16 weight (one bf16 term on the tensor cores), each
+    launched twice (bit-identical): ys, h_T, c_T and d x_proj, d h0, d c0 in
+    bf16; d w_hh, of w_hh's dtype, is a sum over B T terms each taken from
+    stored residuals that may sit one bf16 step apart on the two sides (each
+    side's forward rounds its own f32 carry), so it is held like the bf16
+    outputs, with a floor of a quarter step of its largest entry."""
+    from emoasr_tpu_torch.ops.lstm_scan import lstm_bwd_plain, lstm_fwd_plain
 
     worst = {"lstm_fwd_bf16": 0.0, "lstm_bwd_bf16": 0.0}
     bf = torch.bfloat16
-    for shape, zero in (((18, 129, 512), True), ((50, 49, 512), True), ((3, 20, 136), False)):
+    for shape, zero in LSTM_BF16_CASES:
         x_proj, w_hh, h0, c0, cots = lstm_case(dev, gen, *shape, zero_state=zero)
-        x_proj, h0, c0 = x_proj.to(bf), h0.to(bf), c0.to(bf)
-        w_hh = w_hh.to(bf).float()  # the model's bf16 weight, as the kernel takes it
+        x_proj, w_hh, h0, c0 = x_proj.to(bf), w_hh.to(bf), h0.to(bf), c0.to(bf)
         cots = [c.to(bf) for c in cots]
-        ins = [t.clone().requires_grad_(True) for t in (x_proj, w_hh, h0, c0)]
-        ys, (hT, cT) = lstm_scan_fused(*ins)
-        grads = torch.autograd.grad((ys, hT, cT), ins, cots)
+        tag = f"lstm bf16 {shape}{' zero state' if zero else ''}"
+        (ys, hT, cT), grads = lstm_twice(tag, [x_proj, w_hh, h0, c0], cots)
         with torch.no_grad():
             p_ys, p_h, p_c, gates, hcprev = lstm_fwd_plain(x_proj, w_hh, h0, c0)
             p_grads = lstm_bwd_plain(gates, hcprev, *cots, w_hh)
         torch.cuda.synchronize()
-        tag = f"lstm bf16 {shape}{' zero state' if zero else ''}"
         fwd = [_require_close_bf16(f"{tag} {what}", a, b)
                for what, a, b in zip(("ys", "h_T", "c_T"), (ys, hT, cT), (p_ys, p_h, p_c))]
         bwd = [_require_close_bf16(f"{tag} {what}", a, b)
                for what, a, b in zip(("d x_proj", "d h0", "d c0"), (grads[0], grads[2], grads[3]),
                                      (p_grads[0], p_grads[2], p_grads[3]))]
-        e_w = _require_close_bf16(f"{tag} d w_hh", grads[1], p_grads[1], floor=BF16_STEP / 4)
+        e_w = _require_close_bf16(f"{tag} d w_hh", grads[1], p_grads[1].to(bf), floor=BF16_STEP / 4)
         worst = {"lstm_fwd_bf16": max(worst["lstm_fwd_bf16"], *fwd),
                  "lstm_bwd_bf16": max(worst["lstm_bwd_bf16"], *bwd, e_w)}
         print(f"  {tag}: max |kernel - plain| ys {fwd[0]:.2e} h_T {fwd[1]:.2e} c_T {fwd[2]:.2e}; d x_proj {bwd[0]:.2e} "
-              f"d h0 {bwd[1]:.2e} d c0 {bwd[2]:.2e}, d w_hh {e_w:.2e} (tol one bf16 step of the entry + the floor)")
+              f"d h0 {bwd[1]:.2e} d c0 {bwd[2]:.2e}, d w_hh {e_w:.2e} (tol one bf16 step of the entry + the floor); "
+              "twice, bit-identical")
     return worst
 
 
@@ -1725,27 +1834,27 @@ def check_rnnt_joint_edges(dev, gen) -> dict:
 
 
 def check_lstm_wide(dev, gen) -> dict:
-    """K8 above H = 512 (w_hh in shared memory): H = 1024 at the prediction
-    network's largest bucket and H = 640 with B = 50 (the batch staged in
-    tiles), float32 with the tolerances of `check_lstm` and bf16 with those
-    of `check_lstm_bf16`."""
-    from emoasr_tpu_torch.ops.lstm_scan import lstm_bwd_plain, lstm_fwd_plain, lstm_scan_fused
+    """K8 above H = 512 (eight units a block forward): `LSTM_WIDE_CASES`,
+    H = 1024 at the prediction network's largest bucket and at B = 1, T =
+    256, and H = 640 with B = 50 (the batch in two tiles), each launched
+    twice (bit-identical), float32 with the tolerances of `check_lstm` and
+    bf16 with those of `check_lstm_bf16`; w_hh float32 of bf16 values in
+    the bf16 runs (two terms, the second zero)."""
+    from emoasr_tpu_torch.ops.lstm_scan import lstm_bwd_plain, lstm_fwd_plain
 
     worst = {"lstm_fwd_h1024": 0.0, "lstm_bwd_h1024": 0.0, "lstm_fwd_h1024_bf16": 0.0, "lstm_bwd_h1024_bf16": 0.0}
-    for shape, zero in (((18, 129, 1024), True), ((50, 20, 640), False)):
+    for shape, zero in LSTM_WIDE_CASES:
         case = lstm_case(dev, gen, *shape, zero_state=zero)
         for dtype in (torch.float32, torch.bfloat16):
             x_proj, w_hh, h0, c0 = (t.to(dtype) for t in case[:4])
-            w_hh = w_hh.float()  # the kernel's w_hh is float32 (the model's weight, cast)
+            w_hh = w_hh.float()  # a float32 weight (of bf16 values in the bf16 runs)
             cots = [c.to(dtype) for c in case[4]]
-            ins = [t.clone().requires_grad_(True) for t in (x_proj, w_hh, h0, c0)]
-            ys, (hT, cT) = lstm_scan_fused(*ins)
-            grads = torch.autograd.grad((ys, hT, cT), ins, cots)
+            tag = f"lstm {shape} {dtype}{' zero state' if zero else ''}"
+            (ys, hT, cT), grads = lstm_twice(tag, [x_proj, w_hh, h0, c0], cots)
             with torch.no_grad():
                 p_ys, p_h, p_c, gates, hcprev = lstm_fwd_plain(x_proj, w_hh, h0, c0)
                 p_grads = lstm_bwd_plain(gates, hcprev, *cots, w_hh)
             torch.cuda.synchronize()
-            tag = f"lstm {shape} {dtype}{' zero state' if zero else ''}"
             sfx = "" if dtype == torch.float32 else "_bf16"
             if dtype == torch.float32:
                 fwd = [_require_close(f"{tag} {what}", a, b, LSTM_FWD_TOL, 0.0)
@@ -1762,7 +1871,7 @@ def check_lstm_wide(dev, gen) -> dict:
             worst["lstm_fwd_h1024" + sfx] = max(worst["lstm_fwd_h1024" + sfx], *fwd)
             worst["lstm_bwd_h1024" + sfx] = max(worst["lstm_bwd_h1024" + sfx], *bwd)
             print(f"  {tag}: max |kernel - plain| forward {max(fwd):.2e}, backward {max(bwd):.2e} "
-                  f"(tol as {'check_lstm' if dtype == torch.float32 else 'check_lstm_bf16'})")
+                  f"(tol as {'check_lstm' if dtype == torch.float32 else 'check_lstm_bf16'}); twice, bit-identical")
     return worst
 
 
@@ -1792,12 +1901,16 @@ def time_rnnt_joint(dev, gen, B: int, T: int, U1: int, J: int, V: int, dtype=tor
 def time_lstm(dev, gen, B: int, T: int, H: int, I: int, dtype=torch.float32) -> dict:
     """K8 forward and backward at the prediction network's largest bucket
     beside the plain versions; the library route is cuDNN's `nn.LSTM` of the
-    same layer (input size I, in `dtype`), its input projection included."""
+    same layer (input size I, in `dtype`), its input projection included.
+    w_hh is of `dtype`, as the training step hands it over (in bf16 one
+    bf16 term on the tensor cores).  The bound holds the operations to the
+    arithmetic K8 runs in both storage types: float32 products (the carried
+    h and d pre are float32) as `split_products` bf16 tensor-core products
+    each (`_k8_products`), or the CUDA cores' f32 peak if that is lower."""
     from emoasr_tpu_torch.ops.lstm_scan import lstm_bwd_plain, lstm_fwd_plain, lstm_scan_fused
 
     x_proj, w_hh, h0, c0, cots = lstm_case(dev, gen, B, T, H)
-    x_proj, h0, c0 = x_proj.to(dtype), h0.to(dtype), c0.to(dtype)
-    w_hh = w_hh.to(dtype).float()
+    x_proj, w_hh, h0, c0 = x_proj.to(dtype), w_hh.to(dtype), h0.to(dtype), c0.to(dtype)
     cots = [c.to(dtype) for c in cots]
     cudnn = torch.nn.LSTM(I, H, batch_first=True).to(dev, dtype)
     x = torch.randn(B, T, I, generator=gen, device=dev).to(dtype)
@@ -1819,14 +1932,25 @@ def time_lstm(dev, gen, B: int, T: int, H: int, I: int, dtype=torch.float32) -> 
     bwd["library_ms"] = cuda_time_ms(
         _grad_timer((out, hn, cn), lib_in, (cots[0], cots[1][None], cots[2][None])), iters=20, warmup=2)
     H4, es = 4 * H, x_proj.element_size()
-    # stored tensors in `dtype`, w_hh and d w_hh float32
-    fwd_io = es * (B * T * H4 + 2 * B * H + B * T * H + T * B * H4 + T * B * 2 * H + 2 * B * H) + 4 * H4 * H
-    bwd_io = es * (T * B * H4 + T * B * 2 * H + B * T * H + 2 * B * H + B * T * H4 + 2 * B * H) + 8 * H4 * H
-    fwd.update(_bound(fwd_io, 2.0 * B * T * H4 * H + 10.0 * B * T * H, dtype))
-    bwd.update(_bound(bwd_io, 4.0 * B * T * H4 * H + 20.0 * B * T * H, dtype))
+    # stored tensors, w_hh and d w_hh in `dtype`
+    fwd_io = es * (B * T * H4 + 2 * B * H + B * T * H + T * B * H4 + T * B * 2 * H + 2 * B * H + H4 * H)
+    bwd_io = es * (T * B * H4 + T * B * 2 * H + B * T * H + 2 * B * H + B * T * H4 + 2 * B * H + 2 * H4 * H)
+    n = _k8_products(dtype)
+    fwd.update(_bound(fwd_io, 2.0 * B * T * H4 * H + 10.0 * B * T * H, torch.float32, n))
+    bwd.update(_bound(bwd_io, 4.0 * B * T * H4 * H + 20.0 * B * T * H, torch.float32, n))
     for r in (fwd, bwd):
-        r["shape"] = f"x_proj ({B},{T},{H4}) {dtype}, w_hh ({H4},{H}) float32, {T} dependent steps"
+        r["shape"] = f"x_proj ({B},{T},{H4}) {dtype}, w_hh ({H4},{H}) {w_hh.dtype}, {T} dependent steps"
     return {"lstm_fwd" + sfx: fwd, "lstm_bwd" + sfx: bwd}
+
+
+def _k8_products(dtype) -> int:
+    """bf16 tensor-core products K8 runs per float32 product: the f32
+    operand (h_{t-1}, d pre) in two bf16 terms times w_hh (and h_{t-1} in
+    d w_hh) in two terms in float32 (the three leading cross products), in
+    one in bf16 (two products)."""
+    from emoasr_tpu_torch.ops.lstm_scan import launch_geometry
+
+    return 3 if launch_geometry(1, 1, 1, dtype)["w_terms"] == 2 else 2
 
 
 def _grad_timer(outs, inputs, cots):
@@ -2683,7 +2807,7 @@ def decode_l3_1(args, root: str, test_tsv: str, wav_s: float, dev, card: str) ->
     from emoasr_tpu_torch.models.asr import ASR
     from emoasr_tpu_torch.models.layers import make_pad_mask
     from emoasr_tpu_torch.search.attention_beam import attention_beam_search
-    from emoasr_tpu_torch.search.common import topk_lastdim
+    from emoasr_tpu_torch.search.common import TOPK_KERNEL_MIN_V, topk_lastdim
     from emoasr_tpu_torch.search.ctc_prefix_score import (
         ctc_prefix_initial_state, ctc_prefix_score_psi, ctc_prefix_state_update)
     from emoasr_tpu_torch.train.checkpoint import save_state_dict
@@ -2750,6 +2874,29 @@ def decode_l3_1(args, root: str, test_tsv: str, wav_s: float, dev, card: str) ->
                       "beam_steps": steps, "forced_finalisations": forced}
     require(runs["fused"]["beam_steps"] == runs["fused_indirect"]["beam_steps"],
             "the two step modes took different numbers of beam steps")
+    # a beam wider than K5's row group of 16 (two groups an utterance), which
+    # the JAX CLI decodes and the port refused before
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = test_asr.main(["-conf", confs["fused_indirect"], "-ep", "1", "--beam_width", "17"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    require(out is not None and out[3].startswith("WER:"), f"L3-1 beam 17: CLI returned {out}")
+    df = pd.read_table(os.path.join(os.path.splitext(confs["fused_indirect"])[0], "results",
+                                    "result_test_beam17_len2.0_ctc0.3_lm0.00_ep1.tsv"), comment="#")
+    require(len(df) == n_utts and int(df["token_id"].notna().sum()) == n_utts,
+            f"L3-1 beam 17: {len(df)} rows, {int(df['token_id'].notna().sum())} decoded, for {n_utts} utts")
+    steps = launches["decoder_step_indirect"] // cfg.dec_num_layers
+    # K3 pre-selects a step's candidates; at W = 17 the pool of W x W = 289 scores goes to it too
+    topk_a_step = 1 + int(17 * 17 >= TOPK_KERNEL_MIN_V)
+    require(steps >= len(batches) and launches["decoder_step"] == 0 and launches["topk"] == topk_a_step * steps,
+            f"L3-1 beam 17: launches {launches}")
+    print(f"  fused_indirect, --beam_width 17: {out[3]}; {n_utts} utts in {dt:.3f} s, RTF {dt / wav_s:.5f} (first "
+          f"call) on {card}; {steps} beam steps, decoder_step_indirect {launches['decoder_step_indirect']} launches")
+    runs["fused_indirect_beam17"] = {"launches": launches, "seconds": dt, "utt_per_s": n_utts / dt,
+                                     "rtf": dt / wav_s, "beam_steps": steps}
     a, b = (pd.read_table(os.path.join(os.path.splitext(c)[0], "results",
                                        "result_test_beam10_len2.0_ctc0.3_lm0.00_ep1.tsv"), comment="#")
             for c in confs.values())
@@ -2771,38 +2918,50 @@ def decode_l3_1(args, root: str, test_tsv: str, wav_s: float, dev, card: str) ->
         require(torch.equal(l1.cpu(), l0), "L3-1 encoder lengths differ between card and CPU")
         enc_err = max((e1[b, :n].cpu() - e0[b, :n]).abs().max().item() for b, n in enumerate(l0.tolist()))
         require(enc_err <= ENC_TOL, f"L3-1 encoder card vs CPU: max abs err {enc_err} > {ENC_TOL}")
-        # one decoder step at position 3 of every beam, on the CPU's encoder output
+        # one decoder step at position 3 of every beam, on the CPU's encoder
+        # output, at the yaml's beam and at 17 (two row groups an utterance)
         B, T = e0.shape[0], e0.shape[1]
-        g = torch.Generator().manual_seed(args.seed)
-        toks = torch.randint(3, cfg.vocab_size, (B * W,), generator=g)
-        pos = torch.full((B, W), 3)
-        logits = {}
-        for name, model, d in (("cuda", gpu, dev), ("cpu", cpu, torch.device("cpu"))):
-            dec, eo, el = model.decoder, e0.to(d), l0.to(d)
-            cross = dec.precompute_cross_kv(eo)
-            caches = [tuple(torch.randn(B, W, 8, 4, 64, generator=torch.Generator().manual_seed(i)).to(d)
-                            for i in (2 * j, 2 * j + 1)) for j in range(cfg.dec_num_layers)]
-            anc = torch.randint(0, W, (B, W, 8), generator=torch.Generator().manual_seed(99)).to(d, torch.int32)
-            anc[:, :, 3] = torch.arange(W, dtype=torch.int32, device=d)[None, :]
-            logits[name], _ = dec.decode_step_cached_indirect(
-                toks.to(d), pos.to(d), caches, anc, cross, make_pad_mask(el, T)[:, None, None, :],
-                beam_width=W, step_mode="fused_indirect", elens=el)
+        widths = (cfg.beam_width, 17)
+        step_err = {}
+        for W in widths:
+            g = torch.Generator().manual_seed(args.seed)
+            toks = torch.randint(3, cfg.vocab_size, (B * W,), generator=g)
+            pos = torch.full((B, W), 3)
+            logits = {}
+            for name, model, d in (("cuda", gpu, dev), ("cpu", cpu, torch.device("cpu"))):
+                dec, eo, el = model.decoder, e0.to(d), l0.to(d)
+                cross = dec.precompute_cross_kv(eo)
+                caches = [tuple(torch.randn(B, W, 8, 4, 64, generator=torch.Generator().manual_seed(i)).to(d)
+                                for i in (2 * j, 2 * j + 1)) for j in range(cfg.dec_num_layers)]
+                anc = torch.randint(0, W, (B, W, 8), generator=torch.Generator().manual_seed(99)).to(d, torch.int32)
+                anc[:, :, 3] = torch.arange(W, dtype=torch.int32, device=d)[None, :]
+                logits[name], _ = dec.decode_step_cached_indirect(
+                    toks.to(d), pos.to(d), caches, anc, cross, make_pad_mask(el, T)[:, None, None, :],
+                    beam_width=W, step_mode="fused_indirect", elens=el)
+            step_err[W] = _max_err(logits["cuda"].cpu(), logits["cpu"])
+            require(step_err[W] <= STEP_LOGITS_TOL,
+                    f"L3-1 decoder step (beam {W}) card vs CPU: max abs err {step_err[W]} > {STEP_LOGITS_TOL}")
         used = {k: launch_counts()[k] - before[k] for k in before}
-        require(used["attention_bias_fwd"] == cfg.enc_num_layers and used["decoder_step_indirect"] == cfg.dec_num_layers,
+        require(used["attention_bias_fwd"] == cfg.enc_num_layers
+                and used["decoder_step_indirect"] == len(widths) * cfg.dec_num_layers,
                 f"the L3-1 card-vs-CPU check did not go through the kernels: {used}")
-        step_err = _max_err(logits["cuda"].cpu(), logits["cpu"])
-        require(step_err <= STEP_LOGITS_TOL, f"L3-1 decoder step card vs CPU: max abs err {step_err} > {STEP_LOGITS_TOL}")
         hyp = {}
-        for name, model, d in (("cuda", gpu, dev), ("cpu", cpu, "cpu")):
-            fn = build_decode_fn(model, cfg, W, cfg.len_weight, cfg.decode_ctc_weight, top1=True, device=d)
-            h, hl, _ = fn(batch["xs"], batch["xlens"])
-            hyp[name] = [h[b, 0, : hl[b, 0]].tolist() for b in range(len(batch["utt_ids"]))]
-    same = sum(x == y for x, y in zip(hyp["cuda"], hyp["cpu"])) / len(hyp["cpu"])
-    lens_ = [len(x) for x in hyp["cpu"]]
-    require(same >= HYP_SHARE, f"L3-1 top-1 hypotheses card vs CPU: only {same:.2f} agree (want {HYP_SHARE})")
-    print(f"  one (4,400,80) batch card vs CPU plain: encoder max abs err {enc_err:.3e} (tol {ENC_TOL}), one "
-          f"decoder step's logits {step_err:.3e} (tol {STEP_LOGITS_TOL}), top-1 hypotheses equal for {same:.2f} "
-          f"of 4 (lengths {lens_}; required {HYP_SHARE})")
+        for W in widths:
+            for name, model, d in (("cuda", gpu, dev), ("cpu", cpu, "cpu")):
+                fn = build_decode_fn(model, cfg, W, cfg.len_weight, cfg.decode_ctc_weight, top1=True, device=d)
+                h, hl, _ = fn(batch["xs"], batch["xlens"])
+                hyp[name, W] = [h[b, 0, : hl[b, 0]].tolist() for b in range(len(batch["utt_ids"]))]
+    same, lens_ = {}, {}
+    for W in widths:
+        same[W] = sum(x == y for x, y in zip(hyp["cuda", W], hyp["cpu", W])) / len(hyp["cpu", W])
+        lens_[W] = [len(x) for x in hyp["cpu", W]]
+        require(same[W] >= HYP_SHARE,
+                f"L3-1 beam {W} top-1 hypotheses card vs CPU: only {same[W]:.2f} agree (want {HYP_SHARE})")
+    print(f"  one (4,400,80) batch card vs CPU plain: encoder max abs err {enc_err:.3e} (tol {ENC_TOL}); "
+          + "; ".join(f"beam {W}: one decoder step's logits {step_err[W]:.3e} (tol {STEP_LOGITS_TOL}), top-1 "
+                      f"hypotheses equal for {same[W]:.2f} of 4 (lengths {lens_[W]}; required {HYP_SHARE})"
+                      for W in widths))
+    W = cfg.beam_width
 
     # where one full batch of the largest bucket spends its time (host clock
     # around synchronised work, second of two passes), and the parts of one
@@ -2874,7 +3033,8 @@ def decode_l3_1(args, root: str, test_tsv: str, wav_s: float, dev, card: str) ->
           f"6 x K5 indirect, output layer) {step_ms:.3f} ms (the dense route {dense_ms:.3f}), top-k (K3) "
           f"{topk_ms:.3f}, prefix scores {psi_ms:.3f}, lattice update {upd_ms:.3f}; the rest of a step "
           f"(selection, bookkeeping, the host) {rest:.3f} ms")
-    return {"runs": runs, "enc_err": enc_err, "step_err": step_err, "same_hyps": same, "same_modes": same_modes,
+    return {"runs": runs, "enc_err": enc_err, "step_err": step_err[W], "same_hyps": same[W],
+            "step_err_beam17": step_err[17], "same_hyps_beam17": same[17], "same_modes": same_modes,
             "split": split, "batches": len(batches), "n_utts": n_utts, "bucket": big, "confs": confs}
 
 
@@ -3713,10 +3873,10 @@ KERNEL_ROWS = (
 )
 
 # the same launchers at shapes no main path of this script runs: the widths
-# above what the kernels first took (K7 with fewer cells a block,
-# K8 with w_hh in shared memory; no shipped configuration is that wide) and
-# K7 at CSJ's vocabulary (V = 4000).  They are checked and timed in phases
-# 3 and 14 and reported beside the `kernels` line.
+# above what the kernels first took (K7 with fewer cells a block, K8 with
+# eight units a block; no shipped configuration is that wide), K7 at CSJ's
+# vocabulary (V = 4000) and K5 and K6 at W = 33.  They are checked and timed
+# in phases 3 and 14 and reported beside the `kernels` line.
 WIDE_ROWS = (
     ("rnnt_joint_j1024", "emoasr_tpu_torch/csrc/rnnt_joint.cu", "emoasr_tpu/ops/rnnt_pallas.py:51"),
     ("rnnt_joint_j1024_bf16", "emoasr_tpu_torch/csrc/rnnt_joint.cu", "emoasr_tpu/ops/rnnt_pallas.py:51"),
@@ -3726,6 +3886,15 @@ WIDE_ROWS = (
     ("lstm_bwd_h1024", "emoasr_tpu_torch/csrc/lstm_scan.cu", "emoasr_tpu/ops/lstm_pallas.py:117"),
     ("lstm_fwd_h1024_bf16", "emoasr_tpu_torch/csrc/lstm_scan.cu", "emoasr_tpu/ops/lstm_pallas.py:56"),
     ("lstm_bwd_h1024_bf16", "emoasr_tpu_torch/csrc/lstm_scan.cu", "emoasr_tpu/ops/lstm_pallas.py:117"),
+    # beams wider than a row group of 16 (W = 33: three groups an utterance)
+    ("decoder_step_w33", "emoasr_tpu_torch/csrc/decoder_step.cu", "emoasr_tpu/ops/decoder_step_pallas.py:86"),
+    ("decoder_step_indirect_w33", "emoasr_tpu_torch/csrc/decoder_step.cu",
+     "emoasr_tpu/ops/decoder_step_pallas.py:347"),
+    ("lm_step_indirect_w33", "emoasr_tpu_torch/csrc/lm_step.cu", "emoasr_tpu/ops/lm_step_pallas.py:85"),
+    ("decoder_step_w33_bf16", "emoasr_tpu_torch/csrc/decoder_step.cu", "emoasr_tpu/ops/decoder_step_pallas.py:86"),
+    ("decoder_step_indirect_w33_bf16", "emoasr_tpu_torch/csrc/decoder_step.cu",
+     "emoasr_tpu/ops/decoder_step_pallas.py:347"),
+    ("lm_step_indirect_w33_bf16", "emoasr_tpu_torch/csrc/lm_step.cu", "emoasr_tpu/ops/lm_step_pallas.py:85"),
 )
 
 
@@ -3780,7 +3949,8 @@ def main(argv=None) -> int:
     bias = check_attention_bias(dev, gen)
     errs.update(attention_bias_fwd=bias["fwd"], attention_bias_bwd=bias["bwd"], attention_bias_fwd_bf16=bias["fwd_bf16"])
     errs.update(check_decoder_step(dev, gen))
-    errs["lm_step_indirect"] = check_lm_step(dev, gen)
+    errs.update(check_lm_step(dev, gen))
+    check_beam_groups(dev, gen)
     errs.update(check_rnnt_joint(dev, gen))
     lstm = check_lstm(dev, gen)
     errs.update(lstm_fwd=lstm["fwd"], lstm_bwd=lstm["bwd"])
@@ -3791,7 +3961,8 @@ def main(argv=None) -> int:
     errs.update(check_lstm_bf16(dev, gen))
     print("  the bf16 beam steps (K5 direct and indirect, K6) and the widths above J = 819 and H = 512")
     errs.update(check_decoder_step(dev, gen, torch.bfloat16))
-    errs["lm_step_indirect_bf16"] = check_lm_step(dev, gen, torch.bfloat16)
+    errs.update(check_lm_step(dev, gen, torch.bfloat16))
+    check_beam_groups(dev, gen, torch.bfloat16)
     errs.update(check_rnnt_joint_wide(dev, gen))
     errs.update(check_rnnt_joint_edges(dev, gen))
     errs.update(check_lstm_wide(dev, gen))
@@ -3912,6 +4083,13 @@ def main(argv=None) -> int:
         # CSJ's vocabulary (c5, c6: V = 4000, J = 512, the same largest bucket as L4's)
         r = time_rnnt_joint(dev, gen, l4_big.batch_size, l4_T, l4_big.max_ylen + 1, 512, 4000, dt)
         times["rnnt_joint_v4000" + sfx] = r["rnnt_joint" + sfx]
+        # K5 and K6 at W = 33, the L3 shapes otherwise (the errors: their checks' W > 16 cases)
+        r = time_decoder_step(dev, gen, B, 33, 258, T2, 64, lens, dt)
+        times["decoder_step_w33" + sfx] = r["decoder_step" + sfx]
+        times["decoder_step_indirect_w33" + sfx] = r["decoder_step_indirect" + sfx]
+        times["lm_step_indirect_w33" + sfx] = time_lm_step(dev, gen, B, 33, 256, 64, dt)["lm_step_indirect" + sfx]
+        for k in ("decoder_step", "decoder_step_indirect", "lm_step_indirect"):
+            errs[f"{k}_w33{sfx}"] = errs[f"{k}_wide{sfx}"]
     print(f"[14/14] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
           f"decoder step W = 10, pos = 64; L4: B = {l4_big.batch_size}, T' = {l4_T}, U+1 = {l4_big.max_ylen + 1}) "
           f"on {smi}")
@@ -3945,7 +4123,7 @@ def main(argv=None) -> int:
         launches = sum(p[name] for p in paths)
         require(launches > 0, f"kernel {name} was launched no time on the main paths")
         rows.append(row_of(name, src, rep, launches))
-    print("  the same launchers at shapes no main path runs (J = 1024, H = 1024, CSJ's V = 4000):")
+    print("  the same launchers at shapes no main path runs (J = 1024, H = 1024, CSJ's V = 4000, W = 33):")
     wide = [row_of(name, src, rep, 0) for name, src, rep in WIDE_ROWS]
     print(json.dumps({
         "train": {k: tr[k] for k in ("micro_steps", "seconds", "epoch_seconds", "micro_steps_per_s",
@@ -3960,6 +4138,8 @@ def main(argv=None) -> int:
         "l2_conformer_train": l2,
         "l3_1_decode": {**l3["runs"], "one_batch": l3["split"], "encoder_max_abs_err": l3["enc_err"],
                         "decoder_step_logits_max_abs_err": l3["step_err"], "same_top1_hyps_card_vs_cpu": l3["same_hyps"],
+                        "beam17_decoder_step_logits_max_abs_err": l3["step_err_beam17"],
+                        "beam17_same_top1_hyps_card_vs_cpu": l3["same_hyps_beam17"],
                         "same_hyps_fused_vs_fused_indirect": l3["same_modes"]},
         "l3_3_decode": {**l33["runs"], "repeat": l33["repeat"], "one_batch": l33["split"], "fused_scores_max_abs_err": l33["fused_scores_err"],
                         "same_top1_hyps_card_vs_cpu": l33["same_hyps"], "same_hyps_k6_vs_dense": l33["same_routes"],

@@ -1,7 +1,9 @@
 // What the fused layer steps of beam decoding share (csrc/decoder_step.cu,
 // K5, and csrc/lm_step.cu, K6): a thread-block cluster of C blocks (C in 1,
-// 2, 4, 8) owns one utterance; every block keeps the utterance's W rows
-// (padded to WP) of each activation in its own shared memory; a phase splits
+// 2, 4, 8) owns one row group of one utterance, at most WP (4, 12 or 16) of
+// its W beam rows (`RowGroup`: an utterance of W > WP rows takes ceil(W /
+// WP) clusters); every block keeps the group's rows (padded to WP) of each
+// activation in its own shared memory; a phase splits
 // its work over the cluster's blocks and each block writes what it computed
 // into the same place of every block's shared memory (distributed shared
 // memory) before a cluster barrier ends the phase.  The weights stream from
@@ -26,7 +28,6 @@ namespace beam_step {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxW = 16;
 constexpr int kMaxCluster = 8;
 constexpr float kLnEps = 1e-12f;
 
@@ -121,6 +122,25 @@ __device__ __forceinline__ void layer_norm(const E* x, E* out, const E* __restri
 
 enum { kPlain = 0, kRelu = 1, kResidual = 2 };
 constexpr int kGroup = 16;  // output columns a warp takes at a time
+
+// The beam rows a cluster owns: utterance u, rows w0 .. w0 + n - 1 of its W
+// (groups of WP rows, the last one shorter).  Beam rows do not interact
+// within a layer step: each reads its own cache rows, or its ancestors'
+// (l < pos, which no launch writes: the caller writes k_new, v_new at pos
+// after the step), and the utterance's encoder K/V; a cluster writes only
+// its own rows of y, k_new and v_new.  So the groups run independently, and
+// a row's sums do not depend on the group it lands in.
+struct RowGroup {
+  int u, w0, n;
+  __device__ RowGroup(int cluster_id, int W, int WP) {
+    const int groups = (W + WP - 1) / WP;
+    u = cluster_id / groups;
+    w0 = (cluster_id % groups) * WP;
+    n = min(WP, W - w0);
+  }
+  // the group's first row of the (Bu W) rows
+  __device__ size_t row0(int W) const { return static_cast<size_t>(u) * W + w0; }
+};
 
 // The groups of kGroup output columns that block `rank` of `csize` owns
 __device__ __forceinline__ void owned(int N, int rank, int csize, int& g0, int& g1) {
@@ -239,16 +259,18 @@ __device__ __forceinline__ void bcast(cg::cluster_group& cluster, E* buf, int id
 // probabilities rounded to E before the AV product and each head's output
 // rounded to E (the TPU kernel's roundings).  qs, kn, vn, att: (WP, D) in
 // shared memory, qs/kn/vn complete in every block; the output goes to att
-// in every block.  Caches: (N, L, D) rows of beam w at row (u W + w) L + l,
-// or, INDIRECT, the slot anc[u, w, l] in place of w.  scratch: kWarps x 2 lp
-// floats (lp >= L).  d_k is a multiple of Vec<E>::N.
+// in every block.  The rows are those of group `rg` (row w of the buffers is
+// beam rg.w0 + w of utterance rg.u).  Caches: (N, L, D) rows of beam w at
+// row (u W + w) L + l, or, INDIRECT, the slot anc[u, w, l] in place of w,
+// any of the utterance's W slots.  scratch: kWarps x 2 lp floats (lp >= L).
+// d_k is a multiple of Vec<E>::N.
 template <bool INDIRECT, typename E>
 __device__ __forceinline__ void cached_attention(cg::cluster_group& cluster, const E* qs, const E* kn,
                                                  const E* vn, E* att, float* scratch, int lp,
                                                  const int* __restrict__ pos, const int* __restrict__ anc,
                                                  const E* __restrict__ cache_k,
-                                                 const E* __restrict__ cache_v, int u, int W, int L, int D,
-                                                 int H) {
+                                                 const E* __restrict__ cache_v, const RowGroup& rg, int W,
+                                                 int L, int D, int H) {
   using V = Vec<E>;
   using VT = typename V::T;
   const int csize = static_cast<int>(cluster.num_blocks());
@@ -259,9 +281,10 @@ __device__ __forceinline__ void cached_attention(cg::cluster_group& cluster, con
   const float scale = 1.0f / sqrtf(static_cast<float>(dk));
   float* sc = scratch + warp * (2 * lp);        // this warp's scores,
   int* rows = reinterpret_cast<int*>(sc + lp);  // and the cache row of every column
-  for (int item = wg; item < W * H; item += wtotal) {
+  const int u = rg.u;
+  for (int item = wg; item < rg.n * H; item += wtotal) {
     const int w = item / H, hh = item % H;
-    const int r = u * W + w;
+    const int r = static_cast<int>(rg.row0(W)) + w;
     const int np = min(max(pos[r], 0), L);  // past columns
     const E* qh = qs + w * D + hh * dk;
     float m = -INFINITY;
@@ -314,16 +337,17 @@ __device__ __forceinline__ void cached_attention(cg::cluster_group& cluster, con
   }
 }
 
-// Launch `kernel(p)` on Bu clusters of `cluster` blocks of kThreads threads
-// with `smem` bytes of dynamic shared memory; returns the cudaError_t.
+// Launch `kernel(p)` on `clusters` clusters of `cluster` blocks of kThreads
+// threads with `smem` bytes of dynamic shared memory; returns the
+// cudaError_t.
 template <typename Params>
-int launch_clusters(void (*kernel)(const Params), const Params& p, int Bu, int cluster, size_t smem,
+int launch_clusters(void (*kernel)(const Params), const Params& p, int clusters, int cluster, size_t smem,
                     cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(Bu * cluster));
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * cluster));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -339,7 +363,12 @@ int launch_clusters(void (*kernel)(const Params), const Params& p, int Bu, int c
   return static_cast<int>(cudaGetLastError());
 }
 
-// the row padding WP of a beam width W: 4, 12 or 16
+// the row padding WP of a row group of W rows: 4, 12 or 16 (W above 16
+// takes groups of 16; the wrapper picks a narrower group where a block's
+// shared memory needs it)
 inline int padded_width(int W) { return W <= 4 ? 4 : W <= 12 ? 12 : 16; }
+
+// clusters of an utterance of W rows in groups of WP rows
+inline int row_groups(int W, int WP) { return (W + WP - 1) / WP; }
 
 }  // namespace beam_step

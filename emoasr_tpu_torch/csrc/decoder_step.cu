@@ -45,10 +45,13 @@
 // computes on the CUDA cores in f32 (bf16 values widen exactly).
 //
 // Design (its helpers shared with csrc/lm_step.cu, K6, in csrc/beam_step.cuh):
-// rows of different utterances are independent, so one thread-block
-// CLUSTER of C blocks (C in 1, 2, 4, 8) owns one utterance.  Every block of
-// the cluster keeps the utterance's W rows (padded to WP) of every activation
-// in its own shared memory.  Each phase splits its work over the cluster's
+// beam rows are independent within a layer step (each reads its own or its
+// ancestors' cache columns l < pos, which no launch writes, and the
+// utterance's encoder K/V), so one thread-block CLUSTER of C blocks (C in
+// 1, 2, 4, 8) owns one row group: up to WP (4, 12 or 16, the wrapper's
+// choice) of an utterance's W rows, ceil(W / WP) clusters an utterance.
+// Every block of the cluster keeps the group's rows (padded to WP) of every
+// activation in its own shared memory.  Each phase splits its work over the cluster's
 // blocks (dense products by ranges of output columns, self-attention by
 // (beam, head), cross-attention by head); a block writes what it computed
 // into the same place of every block's shared memory (distributed shared
@@ -131,9 +134,11 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params<
   cg::cluster_group cluster = cg::this_cluster();
   const int csize = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const int u = blockIdx.x / csize;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int W = p.W, L = p.L, T = p.T, D = p.D, F = p.F, H = p.H;
+  const RowGroup rg(blockIdx.x / csize, W, WP);
+  const int u = rg.u, Wg = rg.n;  // the utterance, and the group's rows
+  const size_t row0 = rg.row0(W) * D;  // the group's rows in device memory
   const int dk = D / H;
   const float scale = 1.0f / sqrtf(static_cast<float>(dk));
   const Layout lay(WP, D, F, H, L, T, sizeof(E));
@@ -146,7 +151,7 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params<
   E* att = hn;
 
   for (int i = threadIdx.x; i < WP * D; i += kThreads)
-    xs[i] = i < W * D ? p.h[static_cast<size_t>(u) * W * D + i] : from_float<E>(0.f);
+    xs[i] = i < Wg * D ? p.h[row0 + i] : from_float<E>(0.f);
   __syncthreads();
 
   // ---- self-attention (cached, one new position per row) ----
@@ -155,10 +160,9 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params<
   int gd0, gd1, gf0, gf1;  // the output groups this block owns, of D and of F columns
   owned(D, rank, csize, gd0, gd1);
   owned(F, rank, csize, gf0, gf1);
-  const size_t row0 = static_cast<size_t>(u) * W * D;  // the utterance's rows in device memory
-  dense<WP, E>(hn, D, p.w[WQ], p.w[BQ], D, gd0, gd1, qs, kPlain, nullptr, nullptr, W);
-  dense<WP, E>(hn, D, p.w[WK], p.w[BK], D, gd0, gd1, kn, kPlain, nullptr, p.k_new + row0, W);
-  dense<WP, E>(hn, D, p.w[WV], p.w[BV], D, gd0, gd1, vn, kPlain, nullptr, p.v_new + row0, W);
+  dense<WP, E>(hn, D, p.w[WQ], p.w[BQ], D, gd0, gd1, qs, kPlain, nullptr, nullptr, Wg);
+  dense<WP, E>(hn, D, p.w[WK], p.w[BK], D, gd0, gd1, kn, kPlain, nullptr, p.k_new + row0, Wg);
+  dense<WP, E>(hn, D, p.w[WV], p.w[BV], D, gd0, gd1, vn, kPlain, nullptr, p.v_new + row0, Wg);
   __syncthreads();
   share<WP>(cluster, qs, D, rank, csize);
   share<WP>(cluster, kn, D, rank, csize);
@@ -166,9 +170,9 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params<
   cluster.sync();
 
   cached_attention<INDIRECT>(cluster, qs, kn, vn, att, scratch, lay.lp, p.pos, p.anc, p.cache_k, p.cache_v,
-                             u, W, L, D, H);
+                             rg, W, L, D, H);
   cluster.sync();
-  dense<WP, E>(att, D, p.w[WO], p.w[BO], D, gd0, gd1, xs, kResidual, xs, nullptr, W);
+  dense<WP, E>(att, D, p.w[WO], p.w[BO], D, gd0, gd1, xs, kResidual, xs, nullptr, Wg);
   __syncthreads();
   share<WP>(cluster, xs, D, rank, csize);
   cluster.sync();
@@ -176,7 +180,7 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params<
   // ---- cross-attention: the W beams share one read of the encoder K/V ----
   layer_norm(xs, hn, p.w[LN2_S], p.w[LN2_B], D, WP, warp, kWarps);
   __syncthreads();
-  dense<WP, E>(hn, D, p.w[CWQ], p.w[CBQ], D, gd0, gd1, qs, kPlain, nullptr, nullptr, W);
+  dense<WP, E>(hn, D, p.w[CWQ], p.w[CBQ], D, gd0, gd1, qs, kPlain, nullptr, nullptr, Wg);
   __syncthreads();
   share<WP>(cluster, qs, D, rank, csize);
   cluster.sync();
@@ -206,7 +210,7 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params<
         }
       }
       __syncthreads();
-      for (int w = warp; w < W; w += kWarps) {  // softmax, a warp per beam; p rounded to E
+      for (int w = warp; w < Wg; w += kWarps) {  // softmax, a warp per beam; p rounded to E
         float* row = scx + w * lay.tp;
         float m = -INFINITY;
         for (int t = lane; t < elen; t += 32) m = fmaxf(m, row[t]);
@@ -240,7 +244,7 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params<
         }
       }
       __syncthreads();
-      for (int i = threadIdx.x; i < W * dk; i += kThreads) {  // the head's output, rounded to E
+      for (int i = threadIdx.x; i < Wg * dk; i += kThreads) {  // the head's output, rounded to E
         const int w = i / dk, d = i % dk;
         float o = 0.f;
         for (int s = 0; s < lay.slices; ++s) o += part[(s * WP + w) * dk + d];
@@ -250,7 +254,7 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params<
     }
   }
   cluster.sync();
-  dense<WP, E>(att, D, p.w[CWO], p.w[CBO], D, gd0, gd1, xs, kResidual, xs, nullptr, W);
+  dense<WP, E>(att, D, p.w[CWO], p.w[CBO], D, gd0, gd1, xs, kResidual, xs, nullptr, Wg);
   __syncthreads();
   share<WP>(cluster, xs, D, rank, csize);
   cluster.sync();
@@ -259,28 +263,30 @@ __global__ void __launch_bounds__(kThreads, 1) decoder_step_kernel(const Params<
   layer_norm(xs, hn, p.w[LN3_S], p.w[LN3_B], D, WP, warp, kWarps);
   __syncthreads();
   E* ff = reinterpret_cast<E*>(scratch);  // (WP, F)
-  dense<WP, E>(hn, D, p.w[W1], p.w[B1], F, gf0, gf1, ff, kRelu, nullptr, nullptr, W);
+  dense<WP, E>(hn, D, p.w[W1], p.w[B1], F, gf0, gf1, ff, kRelu, nullptr, nullptr, Wg);
   __syncthreads();
   share<WP>(cluster, ff, F, rank, csize);
   cluster.sync();
-  dense<WP, E>(ff, F, p.w[W2], p.w[B2], D, gd0, gd1, nullptr, kResidual, xs, p.y + row0, W);
+  dense<WP, E>(ff, F, p.w[W2], p.w[B2], D, gd0, gd1, nullptr, kResidual, xs, p.y + row0, Wg);
   __syncthreads();
 }
 
 template <int WP, bool INDIRECT, typename E>
 int launch_wp(const Params<E>& p, int Bu, int cluster, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(Layout(WP, p.D, p.F, p.H, p.L, p.T, sizeof(E)).total);
-  return launch_clusters(decoder_step_kernel<WP, INDIRECT, E>, p, Bu, cluster, smem, stream);
+  return launch_clusters(decoder_step_kernel<WP, INDIRECT, E>, p, Bu * row_groups(p.W, WP), cluster, smem,
+                         stream);
 }
 
 template <bool INDIRECT, typename E>
 int launch(const void* h, const void* cache_k, const void* cache_v, const void* pos,
            const void* anc, const void* cross_k, const void* cross_v, const void* elens,
            const void* const* weights, void* y, void* k_new, void* v_new, int Bu, int W, int L,
-           int T, int D, int F, int H, int cluster, void* stream) {
+           int T, int D, int F, int H, int group, int cluster, void* stream) {
   constexpr int NV = Vec<E>::N;
-  if (Bu < 1 || W < 1 || W > kMaxW || H < 1 || D % H != 0 || (D / H) % NV != 0 || F % NV != 0
-      || L < 1 || T < 1 || cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) != 0)
+  if (Bu < 1 || W < 1 || (group != 4 && group != 12 && group != 16) || group > padded_width(W) || H < 1
+      || D % H != 0 || (D / H) % NV != 0 || F % NV != 0 || L < 1 || T < 1 || cluster < 1
+      || cluster > kMaxCluster || (cluster & (cluster - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Params<E> p;
   p.h = static_cast<const E*>(h);
@@ -297,8 +303,8 @@ int launch(const void* h, const void* cache_k, const void* cache_v, const void* 
   p.v_new = static_cast<E*>(v_new);
   p.W = W; p.L = L; p.T = T; p.D = D; p.F = F; p.H = H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (W <= 4) return launch_wp<4, INDIRECT, E>(p, Bu, cluster, st);
-  if (W <= 12) return launch_wp<12, INDIRECT, E>(p, Bu, cluster, st);
+  if (group == 4) return launch_wp<4, INDIRECT, E>(p, Bu, cluster, st);
+  if (group == 12) return launch_wp<12, INDIRECT, E>(p, Bu, cluster, st);
   return launch_wp<16, INDIRECT, E>(p, Bu, cluster, st);
 }
 
@@ -306,24 +312,26 @@ int launch(const void* h, const void* cache_k, const void* cache_v, const void* 
 
 extern "C" {
 
-// shared memory one block needs, in bytes, for elements of `es` bytes (the
-// wrapper holds it against the card's limit before it launches)
+// shared memory one block needs, in bytes, for row groups of up to W rows
+// and elements of `es` bytes (the wrapper picks the widest group that the
+// card's limit takes)
 int emo_decoder_step_smem_bytes(int W, int L, int T, int D, int F, int H, int es) {
   return Layout(padded_width(W), D, F, H, L, T, es).total;
 }
 
 // `weights`: host array of the 22 device pointers in WEIGHT_NAMES order, the
 // 2-D ones as contiguous (out, in) rows, all of the activations' type;
-// `cluster`: blocks per utterance
+// `group`: the rows of a row group (4, 12 or 16, at most W rounded up to
+// one of them); `cluster`: blocks per row group
 #if EMO_DECODER_STEP_INDIRECT
 #define EMO_STEP_ARGS                                                                            \
   const void *h, const void *cache_k, const void *cache_v, const void *pos, const void *anc,     \
       const void *cross_k, const void *cross_v, const void *elens, const void *const *weights,   \
       void *y, void *k_new, void *v_new, int Bu, int W, int L, int T, int D, int F, int H,        \
-      int cluster, void *stream
+      int group, int cluster, void *stream
 #define EMO_STEP_CALL(E)                                                                         \
   launch<true, E>(h, cache_k, cache_v, pos, anc, cross_k, cross_v, elens, weights, y, k_new,     \
-                  v_new, Bu, W, L, T, D, F, H, cluster, stream)
+                  v_new, Bu, W, L, T, D, F, H, group, cluster, stream)
 int emo_decoder_step_indirect_f32(EMO_STEP_ARGS) { return EMO_STEP_CALL(float); }
 int emo_decoder_step_indirect_bf16(EMO_STEP_ARGS) { return EMO_STEP_CALL(__nv_bfloat16); }
 #else
@@ -331,10 +339,10 @@ int emo_decoder_step_indirect_bf16(EMO_STEP_ARGS) { return EMO_STEP_CALL(__nv_bf
   const void *h, const void *cache_k, const void *cache_v, const void *pos,                      \
       const void *cross_k, const void *cross_v, const void *elens, const void *const *weights,   \
       void *y, void *k_new, void *v_new, int Bu, int W, int L, int T, int D, int F, int H,        \
-      int cluster, void *stream
+      int group, int cluster, void *stream
 #define EMO_STEP_CALL(E)                                                                         \
   launch<false, E>(h, cache_k, cache_v, pos, nullptr, cross_k, cross_v, elens, weights, y,       \
-                   k_new, v_new, Bu, W, L, T, D, F, H, cluster, stream)
+                   k_new, v_new, Bu, W, L, T, D, F, H, group, cluster, stream)
 int emo_decoder_step_f32(EMO_STEP_ARGS) { return EMO_STEP_CALL(float); }
 int emo_decoder_step_bf16(EMO_STEP_ARGS) { return EMO_STEP_CALL(__nv_bfloat16); }
 #endif

@@ -39,7 +39,9 @@
 //
 // Design: that of csrc/decoder_step.cu (K5), with the helpers the two share
 // in csrc/beam_step.cuh.  One thread-block CLUSTER of C blocks (C in 1, 2, 4,
-// 8) owns one utterance; every block keeps the W rows (padded to WP) of the
+// 8) owns one row group of an utterance (up to WP = 4, 12 or 16 of its W
+// rows, ceil(W / WP) clusters an utterance: the rows do not interact within
+// a layer step); every block keeps the group's rows (padded to WP) of the
 // activations in its shared memory; the dense products split their output
 // columns over the cluster, the attention its (beam, head) items, and a
 // block writes what it computed into every block's shared memory
@@ -124,10 +126,12 @@ __global__ void __launch_bounds__(kThreads, 1) lm_step_kernel(const Params<E> p)
   cg::cluster_group cluster = cg::this_cluster();
   const int csize = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const int u = blockIdx.x / csize;
   const int warp = threadIdx.x >> 5;
   const int wg = rank * kWarps + warp, wtotal = csize * kWarps;  // warp of the cluster
   const int W = p.W, L = p.L, D = p.D, F = p.F, H = p.H;
+  const RowGroup rg(blockIdx.x / csize, W, WP);
+  const int Wg = rg.n;                 // the group's rows
+  const size_t row0 = rg.row0(W) * D;  // the group's rows in device memory
   const Layout lay(WP, D, F, L, sizeof(E));
   E* xs = reinterpret_cast<E*>(smem);  // residual stream
   E* att = xs + WP * D;                // attention output, then the second residual sum
@@ -138,7 +142,7 @@ __global__ void __launch_bounds__(kThreads, 1) lm_step_kernel(const Params<E> p)
   E* ff = qs;
 
   for (int i = threadIdx.x; i < WP * D; i += kThreads) {
-    xs[i] = i < W * D ? p.h[static_cast<size_t>(u) * W * D + i] : from_float<E>(0.f);
+    xs[i] = i < Wg * D ? p.h[row0 + i] : from_float<E>(0.f);
     att[i] = from_float<E>(0.f);
   }
   __syncthreads();
@@ -148,10 +152,9 @@ __global__ void __launch_bounds__(kThreads, 1) lm_step_kernel(const Params<E> p)
   int gd0, gd1, gf0, gf1;  // the output groups this block owns, of D and of F columns
   owned(D, rank, csize, gd0, gd1);
   owned(F, rank, csize, gf0, gf1);
-  const size_t row0 = static_cast<size_t>(u) * W * D;  // the utterance's rows in device memory
-  dense<WP, E>(xs, D, p.w[WQ], p.w[BQ], D, gd0, gd1, qs, kPlain, nullptr, nullptr, W);
-  dense<WP, E>(xs, D, p.w[WK], p.w[BK], D, gd0, gd1, kn, kPlain, nullptr, p.k_new + row0, W);
-  dense<WP, E>(xs, D, p.w[WV], p.w[BV], D, gd0, gd1, vn, kPlain, nullptr, p.v_new + row0, W);
+  dense<WP, E>(xs, D, p.w[WQ], p.w[BQ], D, gd0, gd1, qs, kPlain, nullptr, nullptr, Wg);
+  dense<WP, E>(xs, D, p.w[WK], p.w[BK], D, gd0, gd1, kn, kPlain, nullptr, p.k_new + row0, Wg);
+  dense<WP, E>(xs, D, p.w[WV], p.w[BV], D, gd0, gd1, vn, kPlain, nullptr, p.v_new + row0, Wg);
   __syncthreads();
   share<WP>(cluster, qs, D, rank, csize);
   share<WP>(cluster, kn, D, rank, csize);
@@ -159,20 +162,20 @@ __global__ void __launch_bounds__(kThreads, 1) lm_step_kernel(const Params<E> p)
   cluster.sync();
 
   // ---- self-attention over the ancestor-indirect cache: a warp per (beam, head) ----
-  cached_attention<true>(cluster, qs, kn, vn, att, scratch, lay.lp, p.pos, p.anc, p.cache_k, p.cache_v, u, W,
+  cached_attention<true>(cluster, qs, kn, vn, att, scratch, lay.lp, p.pos, p.anc, p.cache_k, p.cache_v, rg, W,
                          L, D, H);
   cluster.sync();
 
   // ---- out projection, residual, LayerNorm ----
-  dense<WP, E>(att, D, p.w[WO], p.w[BO], D, gd0, gd1, xs, kResidual, xs, nullptr, W);
+  dense<WP, E>(att, D, p.w[WO], p.w[BO], D, gd0, gd1, xs, kResidual, xs, nullptr, Wg);
   __syncthreads();
   share<WP>(cluster, xs, D, rank, csize);
   cluster.sync();
-  layer_norm(xs, xs, p.w[LN1_S], p.w[LN1_B], D, W, warp, kWarps);  // every block, its own copy
+  layer_norm(xs, xs, p.w[LN1_S], p.w[LN1_B], D, Wg, warp, kWarps);  // every block, its own copy
   __syncthreads();
 
   // ---- feed-forward (gelu), residual, LayerNorm ----
-  dense<WP, E>(xs, D, p.w[WI], p.w[BI], F, gf0, gf1, ff, kPlain, nullptr, nullptr, W);
+  dense<WP, E>(xs, D, p.w[WI], p.w[BI], F, gf0, gf1, ff, kPlain, nullptr, nullptr, Wg);
   __syncthreads();
   {  // exact gelu in f32 on the columns this block owns, rounded to E (a pass
      // of its own keeps the polynomial out of the products' epilogue, which
@@ -187,26 +190,27 @@ __global__ void __launch_bounds__(kThreads, 1) lm_step_kernel(const Params<E> p)
   __syncthreads();
   share<WP>(cluster, ff, F, rank, csize);
   cluster.sync();
-  dense<WP, E>(ff, F, p.w[WO2], p.w[BO2], D, gd0, gd1, att, kResidual, xs, nullptr, W);
+  dense<WP, E>(ff, F, p.w[WO2], p.w[BO2], D, gd0, gd1, att, kResidual, xs, nullptr, Wg);
   __syncthreads();
   share<WP>(cluster, att, D, rank, csize);
   cluster.sync();
-  layer_norm(att, p.y + row0, p.w[LN2_S], p.w[LN2_B], D, W, wg, wtotal);  // a row per warp of the cluster
+  layer_norm(att, p.y + row0, p.w[LN2_S], p.w[LN2_B], D, Wg, wg, wtotal);  // a row per warp of the cluster
 }
 
 template <int WP, typename E>
 int launch_wp(const Params<E>& p, int Bu, int cluster, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(Layout(WP, p.D, p.F, p.L, sizeof(E)).total);
-  return launch_clusters(lm_step_kernel<WP, E>, p, Bu, cluster, smem, stream);
+  return launch_clusters(lm_step_kernel<WP, E>, p, Bu * row_groups(p.W, WP), cluster, smem, stream);
 }
 
 template <typename E>
 int launch(const void* h, const void* cache_k, const void* cache_v, const void* pos, const void* anc,
            const void* const* weights, void* y, void* k_new, void* v_new, int Bu, int W, int L, int D,
-           int F, int H, int cluster, void* stream) {
+           int F, int H, int group, int cluster, void* stream) {
   constexpr int NV = Vec<E>::N;
-  if (Bu < 1 || W < 1 || W > kMaxW || H < 1 || D % H != 0 || (D / H) % NV != 0 || F % NV != 0
-      || L < 1 || cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) != 0)
+  if (Bu < 1 || W < 1 || (group != 4 && group != 12 && group != 16) || group > padded_width(W) || H < 1
+      || D % H != 0 || (D / H) % NV != 0 || F % NV != 0 || L < 1 || cluster < 1
+      || cluster > kMaxCluster || (cluster & (cluster - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Params<E> p;
   p.h = static_cast<const E*>(h);
@@ -220,8 +224,8 @@ int launch(const void* h, const void* cache_k, const void* cache_v, const void* 
   p.v_new = static_cast<E*>(v_new);
   p.W = W; p.L = L; p.D = D; p.F = F; p.H = H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (W <= 4) return launch_wp<4, E>(p, Bu, cluster, st);
-  if (W <= 12) return launch_wp<12, E>(p, Bu, cluster, st);
+  if (group == 4) return launch_wp<4, E>(p, Bu, cluster, st);
+  if (group == 12) return launch_wp<12, E>(p, Bu, cluster, st);
   return launch_wp<16, E>(p, Bu, cluster, st);
 }
 
@@ -229,29 +233,31 @@ int launch(const void* h, const void* cache_k, const void* cache_v, const void* 
 
 extern "C" {
 
-// shared memory one block needs, in bytes, for elements of `es` bytes (the
-// wrapper holds it against the card's limit before it launches)
+// shared memory one block needs, in bytes, for row groups of up to W rows
+// and elements of `es` bytes (the wrapper picks the widest group that the
+// card's limit takes)
 int emo_lm_step_smem_bytes(int W, int L, int D, int F, int es) {
   return Layout(padded_width(W), D, F, L, es).total;
 }
 
 // `weights`: host array of the 16 device pointers in WEIGHT_NAMES order, the
 // 2-D ones as contiguous (out, in) rows, all of the activations' type;
-// `cluster`: blocks per utterance
+// `group`: the rows of a row group (4, 12 or 16, at most W rounded up to
+// one of them); `cluster`: blocks per row group
 int emo_lm_step_indirect_f32(const void* h, const void* cache_k, const void* cache_v,
                              const void* pos, const void* anc, const void* const* weights, void* y,
                              void* k_new, void* v_new, int Bu, int W, int L, int D, int F, int H,
-                             int cluster, void* stream) {
+                             int group, int cluster, void* stream) {
   return launch<float>(h, cache_k, cache_v, pos, anc, weights, y, k_new, v_new, Bu, W, L, D, F, H,
-                       cluster, stream);
+                       group, cluster, stream);
 }
 
 int emo_lm_step_indirect_bf16(const void* h, const void* cache_k, const void* cache_v,
                               const void* pos, const void* anc, const void* const* weights, void* y,
                               void* k_new, void* v_new, int Bu, int W, int L, int D, int F, int H,
-                              int cluster, void* stream) {
+                              int group, int cluster, void* stream) {
   return launch<__nv_bfloat16>(h, cache_k, cache_v, pos, anc, weights, y, k_new, v_new, Bu, W, L,
-                               D, F, H, cluster, stream);
+                               D, F, H, group, cluster, stream);
 }
 
 const char* emo_error_string(int err) {

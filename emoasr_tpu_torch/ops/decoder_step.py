@@ -35,13 +35,15 @@ softmax and LayerNorm statistics are f32.
 
 For a CUDA tensor the functions launch `csrc/decoder_step.cu`; for a CPU
 tensor they take the plain versions.  On the card: float32 or bfloat16,
-all of one dtype (`TypeError` otherwise), W <= 16, D, d_k and F multiples
-of four (eight in bfloat16), and the shared memory one block needs (five
-(W', D) activations plus the largest of the FF hidden layer (W', F), one
-head's cross-attention scores (W', T) in f32 and the warps' f32
-self-attention scratch 16 (L + 1), with W' = W rounded up to 4, 12 or 16)
-within 227 KB; anything else raises `ValueError`.  Decode-only: no
-dropout, no gradient.
+all of one dtype (`TypeError` otherwise), D, d_k and F multiples of four
+(eight in bfloat16), and the shared memory one block needs within 227 KB
+(five (W', D) activations plus the largest of the FF hidden layer (W', F),
+one head's cross-attention scores (W', T) in f32 and the warps' f32
+self-attention scratch 16 (L + 1)); anything else raises `ValueError`.
+W' is the row group (`group_width`): an utterance's W beam rows go to
+ceil(W / W') clusters of blocks, W' the widest of 16, 12 and 4, at most W
+rounded up to one of them, whose shared memory fits; any W >= 1 is taken.
+Decode-only: no dropout, no gradient.
 """
 
 from __future__ import annotations
@@ -73,19 +75,19 @@ VEC = {torch.float32: 4, torch.bfloat16: 8}
 # one source, two libraries (nvcc compiles the variants side by side)
 KERNEL = CudaKernel(
     "decoder_step.cu",
-    {**{f"emo_decoder_step_{s}": [P] * 11 + [I] * 8 + [P] for s in SUFFIX.values()},
+    {**{f"emo_decoder_step_{s}": [P] * 11 + [I] * 9 + [P] for s in SUFFIX.values()},
      "emo_decoder_step_smem_bytes": [I] * 7},
     defines=["EMO_DECODER_STEP_INDIRECT=0"],
 )
 KERNEL_INDIRECT = CudaKernel(
     "decoder_step.cu",
-    {**{f"emo_decoder_step_indirect_{s}": [P] * 12 + [I] * 8 + [P] for s in SUFFIX.values()},
+    {**{f"emo_decoder_step_indirect_{s}": [P] * 12 + [I] * 9 + [P] for s in SUFFIX.values()},
      "emo_decoder_step_smem_bytes": [I] * 7},
     defines=["EMO_DECODER_STEP_INDIRECT=1"], name="decoder_step_indirect",
 )
 
-MAX_W = 16
 MAX_SMEM_BYTES = 232448  # what one block may use on sm_90
+GROUP_WIDTHS = (16, 12, 4)  # the kernels' row-group instances, widest first
 
 
 def _layer_norm(x, scale, bias):
@@ -218,19 +220,38 @@ class PackedWeights:
 
 
 _SM_COUNT: Dict[int, int] = {}
-_SMEM_BYTES: Dict[Tuple[int, ...], int] = {}
+_GROUPS: Dict[Tuple, Tuple[int, int]] = {}
 
 
-def _pick_cluster(Bu: int, device: torch.device) -> int:
-    """Blocks per utterance (a thread-block cluster): the largest of 8, 4, 2, 1
-    that keeps every cluster of the launch on the card at once."""
+def _pick_cluster(groups: int, device: torch.device) -> int:
+    """Blocks per row group (a thread-block cluster): the largest of 8, 4, 2,
+    1 that keeps every cluster of the launch on the card at once."""
     sms = _SM_COUNT.get(device.index)
     if sms is None:
         sms = _SM_COUNT[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
     for c in (8, 4, 2):
-        if Bu * c <= sms:
+        if groups * c <= sms:
             return c
     return 1
+
+
+def padded_width(W: int) -> int:
+    """The row padding of a group of W rows (`beam_step.cuh::padded_width`)."""
+    return 4 if W <= 4 else 12 if W <= 12 else 16
+
+
+def group_width(W: int, smem_bytes, what: str, shape: str) -> Tuple[int, int]:
+    """(W', shared memory a block): the widest row group W' of
+    `GROUP_WIDTHS`, at most `padded_width(W)`, whose `smem_bytes(W')` fits
+    one block; raises `ValueError` where even groups of 4 do not."""
+    need = 0
+    for wp in GROUP_WIDTHS:
+        if wp <= padded_width(W):
+            need = smem_bytes(wp)
+            if need <= MAX_SMEM_BYTES:
+                return wp, need
+    raise ValueError(f"{what}: {shape} need {need} bytes of shared memory a block even in row groups of "
+                     f"{GROUP_WIDTHS[-1]}, the card allows {MAX_SMEM_BYTES}")
 
 
 def _launch(kernel, name, h, cache_k, cache_v, pos, anc, cross_k, cross_v, elens, weights, W):
@@ -253,9 +274,8 @@ def _launch(kernel, name, h, cache_k, cache_v, pos, anc, cross_k, cross_v, elens
     if pack.dtype != dt:
         raise TypeError(f"{what}: weights are {pack.dtype}, h is {dt}")
     vec = VEC[dt]
-    if W > MAX_W or D % vec or dk % vec or F % vec:
-        raise ValueError(f"{what}: needs W <= {MAX_W} and D, d_k, F multiples of {vec} in {dt}; "
-                         f"got W={W}, D={D}, d_k={dk}, F={F}")
+    if D % vec or dk % vec or F % vec:
+        raise ValueError(f"{what}: needs D, d_k, F multiples of {vec} in {dt}; got D={D}, d_k={dk}, F={F}")
     want_cache = (N, L, H, dk) if anc is None else (Bu, W, L, H, dk)
     if cache_k.shape != want_cache or cache_v.shape != want_cache:
         raise ValueError(f"{what}: caches must be {want_cache}, got {tuple(cache_k.shape)}, {tuple(cache_v.shape)}")
@@ -269,13 +289,13 @@ def _launch(kernel, name, h, cache_k, cache_v, pos, anc, cross_k, cross_v, elens
             raise TypeError(f"{what}: {n} is {t.dtype} on {t.device}, want {dt} on {dev}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{what}: {n} must be contiguous and 16-byte aligned")
-    shape_key = (W, L, T, D, F, H, h.element_size())
-    smem = _SMEM_BYTES.get(shape_key)
-    if smem is None:
-        smem = _SMEM_BYTES[shape_key] = kernel.lib().emo_decoder_step_smem_bytes(*shape_key)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{what}: W={W}, D={D}, F={F}, T={T}, L={L} in {dt} need {smem} bytes of "
-                         f"shared memory a block, the card allows {MAX_SMEM_BYTES}")
+    key = (kernel.name, W, L, T, D, F, H, h.element_size())
+    group = _GROUPS.get(key)
+    if group is None:
+        group = _GROUPS[key] = group_width(
+            W, lambda wp: kernel.lib().emo_decoder_step_smem_bytes(wp, L, T, D, F, H, h.element_size()),
+            what, f"W={W}, D={D}, F={F}, T={T}, L={L} in {dt}")
+    wp = group[0]
     # int32 inputs pass through as they are; anything else is converted
     pos32 = pos.to(device=dev, dtype=torch.int32).contiguous()
     elens32 = elens.to(device=dev, dtype=torch.int32).contiguous()
@@ -286,7 +306,7 @@ def _launch(kernel, name, h, cache_k, cache_v, pos, anc, cross_k, cross_v, elens
         args.append(anc32.data_ptr())
     args += [cross_k.data_ptr(), cross_v.data_ptr(), elens32.data_ptr(), pack.ptrs,
              out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-             Bu, W, L, T, D, F, H, _pick_cluster(Bu, dev)]
+             Bu, W, L, T, D, F, H, wp, _pick_cluster(Bu * -(-W // wp), dev)]
     name = f"{name}_{SUFFIX[dt]}"
     if torch.cuda.current_device() == dev.index:
         kernel.launch(name, *args, torch.cuda.current_stream(dev).cuda_stream)

@@ -38,12 +38,13 @@ gelu (`erf_f32` stays f32).
 For a CUDA tensor `fused_bert_layer_step_indirect` launches
 `csrc/lm_step.cu`; for a CPU tensor it takes the plain version.  On the
 card: float32 or bfloat16, all of one dtype (`TypeError` otherwise),
-W <= 16, D, d_k and F multiples of four (eight in bfloat16), and the shared
-memory one block needs (two (W', D) activations plus the larger of three
-(W', D) activations with the warps' f32 attention scratch 8 x 2 (L + 4)
-and the FF hidden layer (W', F), with W' = W rounded up to 4, 12 or 16)
-within 227 KB; anything else raises `ValueError`.  Decode-only: no
-dropout, no gradient.
+D, d_k and F multiples of four (eight in bfloat16), and the shared memory
+one block needs within 227 KB (two (W', D) activations plus the larger of
+three (W', D) activations with the warps' f32 attention scratch 8 x 2
+(L + 4) and the FF hidden layer (W', F)); anything else raises
+`ValueError`.  W' is the row group (`decoder_step.group_width`): the W
+beam rows of an utterance go to ceil(W / W') clusters, so any W >= 1 is
+taken.  Decode-only: no dropout, no gradient.
 """
 
 from __future__ import annotations
@@ -54,8 +55,6 @@ import torch
 
 from emoasr_tpu_torch.ops.cuda_lib import I, P, CudaKernel
 from emoasr_tpu_torch.ops.decoder_step import (
-    MAX_SMEM_BYTES,
-    MAX_W,
     SUFFIX,
     VEC,
     PackedWeights,
@@ -63,6 +62,7 @@ from emoasr_tpu_torch.ops.decoder_step import (
     _layer_norm,
     _pick_cluster,
     cached_self_attention,
+    group_width,
 )
 
 WEIGHT_NAMES = (
@@ -76,7 +76,7 @@ WHAT = "LM-step kernel"
 
 KERNEL = CudaKernel(
     "lm_step.cu",
-    {**{f"emo_lm_step_indirect_{s}": [P] * 9 + [I] * 7 + [P] for s in SUFFIX.values()},
+    {**{f"emo_lm_step_indirect_{s}": [P] * 9 + [I] * 8 + [P] for s in SUFFIX.values()},
      "emo_lm_step_smem_bytes": [I] * 5},
 )
 
@@ -140,7 +140,7 @@ def pack_weights(weights: Dict[str, torch.Tensor]) -> PackedWeights:
     return PackedWeights(weights, WEIGHT_NAMES, FF_NAMES, WHAT)
 
 
-_SMEM_BYTES: Dict[Tuple[int, ...], int] = {}
+_GROUPS: Dict[Tuple[int, ...], Tuple[int, int]] = {}
 
 
 def _launch(h, cache_k, cache_v, pos, anc, weights):
@@ -164,28 +164,27 @@ def _launch(h, cache_k, cache_v, pos, anc, weights):
     if pack.dtype != dt:
         raise TypeError(f"{WHAT}: weights are {pack.dtype}, h is {dt}")
     vec = VEC[dt]
-    if W > MAX_W or D % vec or dk % vec or F % vec:
-        raise ValueError(f"{WHAT}: needs W <= {MAX_W} and D, d_k, F multiples of {vec} in {dt}; "
-                         f"got W={W}, D={D}, d_k={dk}, F={F}")
+    if D % vec or dk % vec or F % vec:
+        raise ValueError(f"{WHAT}: needs D, d_k, F multiples of {vec} in {dt}; got D={D}, d_k={dk}, F={F}")
     for n, t in (("h", h), ("cache_k", cache_k), ("cache_v", cache_v)):
         if t.dtype != dt or t.device != dev:
             raise TypeError(f"{WHAT}: {n} is {t.dtype} on {t.device}, want {dt} on {dev}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{WHAT}: {n} must be contiguous and 16-byte aligned")
-    shape_key = (W, L, D, F, h.element_size())
-    smem = _SMEM_BYTES.get(shape_key)
-    if smem is None:
-        smem = _SMEM_BYTES[shape_key] = KERNEL.lib().emo_lm_step_smem_bytes(*shape_key)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{WHAT}: W={W}, D={D}, F={F}, L={L} in {dt} need {smem} bytes of shared "
-                         f"memory a block, the card allows {MAX_SMEM_BYTES}")
+    key = (W, L, D, F, h.element_size())
+    group = _GROUPS.get(key)
+    if group is None:
+        group = _GROUPS[key] = group_width(
+            W, lambda wp: KERNEL.lib().emo_lm_step_smem_bytes(wp, L, D, F, h.element_size()), WHAT,
+            f"W={W}, D={D}, F={F}, L={L} in {dt}")
+    wp = group[0]
     # int32 inputs pass through as they are; anything else is converted
     pos32 = pos.to(device=dev, dtype=torch.int32).contiguous()
     anc32 = anc.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty((3, N, D), dtype=dt, device=dev)
     args = [h.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), pos32.data_ptr(), anc32.data_ptr(),
             pack.ptrs, out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            Bu, W, L, D, F, H, _pick_cluster(Bu, dev)]
+            Bu, W, L, D, F, H, wp, _pick_cluster(Bu * -(-W // wp), dev)]
     name = f"emo_lm_step_indirect_{SUFFIX[dt]}"
     if torch.cuda.current_device() == dev.index:
         KERNEL.launch(name, *args, torch.cuda.current_stream(dev).cuda_stream)

@@ -10,20 +10,26 @@ backward is the exact reverse recurrence from them and returns d x_proj,
 d w_hh (summed in float32 over time and batch in a fixed order), d h0 and
 d c0.
 
-For CUDA tensors `lstm_scan_fused` launches `csrc/lstm_scan.cu`; for
-CPU tensors both directions take the plain versions `lstm_fwd_plain` and
-`lstm_bwd_plain`, which do the kernels' arithmetic a step at a time.  The
-kernels take H <= `MAX_H` (w_hh in registers up to H = 512, in shared
-memory above) and an `x_proj` of float32 or bfloat16 (others
-raise `TypeError`), which is the storage dtype: as in the TPU kernel,
-h0 and c0 are cast to it, w_hh and the carried h and c are float32, and
-ys, h_T, c_T and the residuals `gates` and `hcprev` are stored rounded to
-it; the backward recomputes from those rounded residuals, sums d w_hh in
-float32 from the unrounded d pre and rounds d x_proj, d h0 and d c0.
+For CUDA tensors `lstm_scan_fused` launches `csrc/lstm_scan.cu` (its
+products on the tensor cores, float32 operands as two bf16 terms; d w_hh
+by a second kernel after the recurrence); for CPU tensors both directions
+take the plain versions `lstm_fwd_plain` and `lstm_bwd_plain`, which do the
+kernels' arithmetic a step at a time in float32.  The kernels take any
+B, T >= 1, 1 <= H <= `MAX_H` and an `x_proj` of float32 or bfloat16 (others
+raise `TypeError`), which is the storage dtype: as in the TPU kernel, h0
+and c0 are cast to it, w_hh and the carried h and c are float32, and ys,
+h_T, c_T and the residuals `gates` and `hcprev` are stored rounded to it;
+the backward recomputes from those rounded residuals, sums d w_hh in
+float32 from the unrounded d pre and rounds d x_proj, d h0 and d c0.  A
+w_hh given in bfloat16 is one bf16 term on the tensor cores (the same sums
+as two terms whose second is zero).  `launch_geometry` says how the
+kernels are laid out on the card; a shape whose geometry does not fit
+raises `ValueError`.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -34,16 +40,86 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNEL = CudaKernel(
     "lstm_scan.cu",
     {
-        **{f"emo_lstm_fwd_{s}": [P] * 11 + [I] * 3 + [P] for s in _SUFFIX.values()},
-        **{f"emo_lstm_bwd_{s}": [P] * 12 + [I] * 3 + [P] for s in _SUFFIX.values()},
+        **{f"emo_lstm_fwd_{s}": [P] * 11 + [I] * 6 + [P] for s in _SUFFIX.values()},
+        **{f"emo_lstm_bwd_{s}": [P] * 12 + [I] * 5 + [P] for s in _SUFFIX.values()},
+        "emo_lstm_smem_bytes": [I] * 6,
     },
 )
 
-# Above H = 512 a block keeps its 8 units' rows (forward) or columns
-# (backward) of w_hh in shared memory, one block per SM; the cooperative
-# grid of ceil(H / 8) blocks must be co-resident on the card's SMs (132 on
-# the H100: H <= 1056), and the kernels are instanced up to H = 1024.
+# The kernels' geometry, mirrored from csrc/lstm_scan.cu (`SmemPlan`): one
+# block of 256 threads (8 warps) an SM; a block owns `units` hidden units
+# (forward 4 while H <= 512, one m16 tile of gate rows, else 8; backward 8)
+# and the grid of ceil(H / units) blocks must be co-resident (132 SMs on the
+# H100); K (H forward, 4H backward, each gate padded to Hp, a multiple of
+# 128) splits over the warps, 16 columns a k-step; each warp streams its K
+# slice of h_{t-1} (forward) or d pre_t (backward) through a ring of
+# `stages` slots of CHUNK k-steps.
 MAX_H = 1024
+TERMS = 2  # bf16 terms of a float32 operand of the kernels' products (three leading cross products)
+THREADS, WARPS = 256, 8
+MAX_SMEM = 232448  # what one block may use on sm_90
+MAX_STAGES = 8
+CHUNK = {"fwd": 1, "bwd": 4}
+BWD_UNITS = 8
+PAD = 8  # floats after each staged row
+DW_TILE = 64  # the d w_hh kernel's square output tile
+DW_SMEM = 2 * 2 * 32 * (DW_TILE + 8) * 2  # its static bf16 planes of d pre and h_{t-1}
+
+
+def padded_h(H: int) -> int:
+    return -(-H // 128) * 128
+
+
+def _tile_rows(B: int) -> int:
+    return 16 if B <= 16 else 32
+
+
+def smem_bytes(kind: str, B: int, H: int, units: int, stages: int, w_terms: int) -> int:
+    """Shared memory of one block of kind "fwd" or "bwd" (`SmemPlan`): the
+    second bf16 term of its w_hh fragments (w_terms 2), the warps' partial
+    sums, two floats a cell, and the warps' rings."""
+    Hp = padded_h(H)
+    ksteps, n = (Hp // 128, 4 * units) if kind == "fwd" else (Hp // 32, BWD_UNITS)
+    w1 = WARPS * ksteps * (n // 8) * 32 * 8 if w_terms == 2 else 0
+    rows = _tile_rows(B)
+    part = WARPS * rows * (n + 8) * 4
+    cells = 2 * B * units * 4
+    slots = WARPS * stages * min(B, rows) * (16 * CHUNK[kind] + PAD) * 4
+    return w1 + part + cells + slots
+
+
+def launch_geometry(B: int, T: int, H: int, dtype=torch.float32, w_dtype=None) -> dict:
+    """How the kernels run (B, T, H) with x_proj of `dtype` and w_hh of
+    `w_dtype` (default `dtype`): for "fwd" and "bwd" the blocks (one an
+    SM, co-resident), units a block, ring stages (as many as fit, at most
+    one a chunk of the warp's K slice), tile rows, shared memory a block,
+    and where w_hh's terms live (the first in registers, `w_registers` a
+    thread, the second in shared memory); the cluster size (1: no clusters);
+    the d w_hh kernel's grid; the f32 scratch shapes.  Raises `ValueError`
+    where it does not fit."""
+    if B < 1 or T < 1 or not 1 <= H <= MAX_H:
+        raise ValueError(f"lstm kernel: B={B}, T={T}, H={H}; needs B, T >= 1 and 1 <= H <= {MAX_H}")
+    w_terms = 1 if (dtype if w_dtype is None else w_dtype) == torch.bfloat16 else TERMS
+    Hp = padded_h(H)
+    geo = {"Hp": Hp, "w_terms": w_terms, "threads": THREADS, "cluster": 1}
+    for kind, units in (("fwd", 4 if Hp <= 512 else 8), ("bwd", BWD_UNITS)):
+        ksteps, n = (Hp // 128, 4 * units) if kind == "fwd" else (Hp // 32, BWD_UNITS)
+        chunks = ksteps // CHUNK[kind]
+        fits = [s for s in range(1, min(chunks, MAX_STAGES) + 1)
+                if smem_bytes(kind, B, H, units, s, w_terms) <= MAX_SMEM]
+        if not fits:
+            raise ValueError(f"lstm kernel: B={B}, H={H} need {smem_bytes(kind, B, H, units, 1, w_terms)} "
+                             f"bytes of shared memory a block ({kind}), the card allows {MAX_SMEM}")
+        stages = fits[-1]
+        geo[kind] = {
+            "blocks": math.ceil(H / units), "units": units, "stages": stages, "tile_rows": _tile_rows(B),
+            "smem": smem_bytes(kind, B, H, units, stages, w_terms),
+            "w_registers": ksteps * (n // 8) * 2,
+            "w_smem": smem_bytes(kind, B, H, units, stages, w_terms) - smem_bytes(kind, B, H, units, stages, 1),
+        }
+    geo["dw"] = {"grid": (4 * Hp // DW_TILE, Hp // DW_TILE), "threads": THREADS, "smem": DW_SMEM}
+    geo["scratch"] = {"hbuf": (2, B, Hp), "dpre": (T, B, 4 * Hp)}
+    return geo
 
 
 def lstm_fwd_plain(x_proj, w_hh, h0, c0):
@@ -93,13 +169,25 @@ def lstm_bwd_plain(gates, hcprev, dys, dhT, dcT, w_hh):
     return dxp, dw, dh_c.to(dt), dc_c.to(dt)
 
 
+def _padding_zeroed(shape: tuple, H: int, dev) -> torch.Tensor:
+    """A scratch of 4-byte words whose last dimension holds gates of Hp
+    columns each: the kernels write every column below H before they read
+    it, so only columns H..Hp-1 of each gate are zeroed (none where
+    H % 128 == 0)."""
+    buf = torch.empty(shape, dtype=torch.float32, device=dev)
+    Hp = padded_h(H)
+    if H < Hp:
+        buf.view(*shape[:-1], shape[-1] // Hp, Hp)[..., H:].zero_()
+    return buf
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
 class _LSTMScan(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x_proj, w_hh, h0, c0):
+    def forward(ctx, x_proj, w_hh, h0, c0, w_dtype, geo):
         if x_proj.device.type == "cpu":
             ys, hT, cT, gates, hcprev = lstm_fwd_plain(x_proj, w_hh, h0, c0)
         else:
@@ -109,17 +197,19 @@ class _LSTMScan(torch.autograd.Function):
             gates = torch.empty((T, B, H4), dtype=dt, device=dev)
             hcprev = torch.empty((T, B, 2 * H), dtype=dt, device=dev)
             hT, cT = (torch.empty((B, H), dtype=dt, device=dev) for _ in range(2))
-            hbuf = torch.empty((2, B, H), dtype=torch.float32, device=dev)  # the f32 h carry
+            hbuf = _padding_zeroed(geo["scratch"]["hbuf"], H, dev)  # the f32 h carry
             bar = torch.zeros(1, dtype=torch.int32, device=dev)  # grid barrier counter
             h0s, c0s = h0.to(dt).contiguous(), c0.to(dt).contiguous()
             with torch.cuda.device(dev):
                 KERNEL.launch(
                     f"emo_lstm_fwd_{_SUFFIX[dt]}", x_proj.data_ptr(), w_hh.data_ptr(), h0s.data_ptr(),
                     c0s.data_ptr(), ys.data_ptr(), gates.data_ptr(), hcprev.data_ptr(), hT.data_ptr(),
-                    cT.data_ptr(), hbuf.data_ptr(), bar.data_ptr(), B, T, H, _stream(x_proj),
+                    cT.data_ptr(), hbuf.data_ptr(), bar.data_ptr(), B, T, H, geo["fwd"]["units"],
+                    geo["fwd"]["stages"], geo["w_terms"], _stream(x_proj),
                 )
         ctx.save_for_backward(w_hh, gates, hcprev)
-        ctx.dtypes = (h0.dtype, c0.dtype)
+        ctx.dtypes = (h0.dtype, c0.dtype, w_dtype)
+        ctx.geo = geo
         return ys, hT, cT
 
     @staticmethod
@@ -133,20 +223,23 @@ class _LSTMScan(torch.autograd.Function):
         if dev.type == "cpu":
             dxp, dw, dh0, dc0 = lstm_bwd_plain(gates, hcprev, dys, dhT, dcT, w_hh)
         else:
+            geo = ctx.geo
             dys, dhT, dcT = (g.to(dt).contiguous() for g in (dys, dhT, dcT))
             dxp = torch.empty((B, T, H4), dtype=dt, device=dev)
             dw = torch.empty((H4, H), dtype=torch.float32, device=dev)
             dh0, dc0 = (torch.empty((B, H), dtype=dt, device=dev) for _ in range(2))
-            dpre = torch.empty((2, B, H4), dtype=torch.float32, device=dev)  # f32 d pre, shared
+            # d pre of every step, split into two bf16 terms by the cells that compute
+            # it: the broadcast buffer, then d w_hh's operand
+            dpre = _padding_zeroed(geo["scratch"]["dpre"], H, dev)
             bar = torch.zeros(1, dtype=torch.int32, device=dev)
             with torch.cuda.device(dev):
                 KERNEL.launch(
                     f"emo_lstm_bwd_{_SUFFIX[dt]}", gates.data_ptr(), hcprev.data_ptr(), dys.data_ptr(),
-                    dhT.data_ptr(), dcT.data_ptr(), w_hh.float().contiguous().data_ptr(), dxp.data_ptr(),
-                    dw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), dpre.data_ptr(), bar.data_ptr(),
-                    B, T, H, _stream(gates),
+                    dhT.data_ptr(), dcT.data_ptr(), w_hh.data_ptr(), dxp.data_ptr(), dw.data_ptr(),
+                    dh0.data_ptr(), dc0.data_ptr(), dpre.data_ptr(), bar.data_ptr(), B, T, H,
+                    geo["bwd"]["stages"], geo["w_terms"], _stream(gates),
                 )
-        return dxp, dw.to(w_hh.dtype), dh0.to(ctx.dtypes[0]), dc0.to(ctx.dtypes[1])
+        return dxp, dw.to(ctx.dtypes[2]), dh0.to(ctx.dtypes[0]), dc0.to(ctx.dtypes[1]), None, None
 
 
 def lstm_scan_fused(
@@ -170,11 +263,14 @@ def lstm_scan_fused(
                 f"lstm kernel: shapes disagree: x_proj {tuple(x_proj.shape)}, w_hh {tuple(w_hh.shape)}, "
                 f"h0 {tuple(h0.shape)}, c0 {tuple(c0.shape)}"
             )
-        if not 1 <= H <= MAX_H or min(B, T) < 1:
-            raise ValueError(f"lstm kernel: B={B}, T={T}, H={H}; needs B, T >= 1 and 1 <= H <= {MAX_H}")
+        geo = launch_geometry(B, T, H, x_proj.dtype, w_hh.dtype)  # raises where the shape does not fit
         x_proj, h0, c0 = (t.contiguous() for t in (x_proj, h0, c0))
-        w_hh = w_hh.float().contiguous()
-    elif x_proj.device.type != "cpu":
+    elif x_proj.device.type == "cpu":
+        geo = None
+    else:
         raise ValueError(f"lstm kernel: unsupported device {x_proj.device}")
-    ys, hT, cT = _LSTMScan.apply(x_proj, w_hh, h0, c0)
+    w_dtype = w_hh.dtype
+    if x_proj.device.type == "cuda":
+        w_hh = w_hh.float().contiguous()
+    ys, hT, cT = _LSTMScan.apply(x_proj, w_hh, h0, c0, w_dtype, geo)
     return ys, (hT, cT)

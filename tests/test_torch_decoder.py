@@ -279,6 +279,39 @@ def test_layer_step_indirect_plain_matches_jax_kernel_and_dense_route():
     assert ds.KERNEL_INDIRECT.launches == 0
 
 
+@pytest.mark.parametrize("W", [17, 20, 33])
+def test_layer_steps_plain_match_jax_kernels_at_wide_beams(W):
+    """Beams wider than the CUDA kernels' row group of 16, which the JAX
+    kernels take: `decoder_layer_step_plain` and its indirect variant ==
+    the JAX `fused_decoder_layer_step[_indirect]` (interpret mode)."""
+    params, inp, (H, D, F, Bu, W, Lmax, T, N, dk) = _layer_case(W, D=32, F=64, Bu=2, W=W, Lmax=8, T=21)
+    jlayer = JaxDecoderLayer(H, D, F, 0.0, 0.0)
+    jvars = {"params": params}
+    jcross = jlayer.apply(jvars, jnp.asarray(inp["memory"]), method=JaxDecoderLayer.compute_cross_kv)
+    jw = jlayer.apply(jvars, method=JaxDecoderLayer._decode_step_weights)
+    pos = inp["pos"].reshape(N)
+    ck, cv = inp["ck"].reshape(N, Lmax, H, dk), inp["cv"].reshape(N, Lmax, H, dk)
+    ref = jdsp.fused_decoder_layer_step(
+        jnp.asarray(inp["h"]), jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(pos), jcross[0], jcross[1],
+        jnp.asarray(inp["elens"]), jw, beam_width=W)
+    ref_ind = jdsp.fused_decoder_layer_step_indirect(
+        jnp.asarray(inp["h"]), jnp.asarray(inp["ck"]), jnp.asarray(inp["cv"]), jnp.asarray(inp["pos"]),
+        jnp.asarray(inp["anc"]), jcross[0], jcross[1], jnp.asarray(inp["elens"]), jw, beam_width=W)
+    layer = _port_layer(params, H, D, F)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    with torch.no_grad():
+        cross = layer.compute_cross_kv(t["memory"])
+        wt = layer._decode_step_weights()
+        got = ds.fused_decoder_layer_step(t["h"], torch.from_numpy(ck), torch.from_numpy(cv),
+                                          torch.from_numpy(pos).long(), cross[0], cross[1], t["elens"], wt,
+                                          beam_width=W)
+        got_ind = ds.fused_decoder_layer_step_indirect(t["h"], t["ck"], t["cv"], t["pos"].long(), t["anc"],
+                                                       cross[0], cross[1], t["elens"], wt, beam_width=W)
+    for a, b in zip((*got, *got_ind), (*ref, *ref_ind)):
+        _close(a.numpy(), b)
+    assert ds.KERNEL.launches == 0 and ds.KERNEL_INDIRECT.launches == 0
+
+
 @pytest.mark.parametrize("route", ["direct", "indirect"])
 def test_fused_step_without_elens_raises(route):
     """A caller that asks for the fused step and leaves out `elens` (or the

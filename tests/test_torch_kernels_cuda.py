@@ -20,7 +20,8 @@ one of the largest, beside `check_decoder_step`; the RNN-T joint in both
 dtypes, at every width and at the edges of its tiling (`check_rnnt_joint_
 edges`), each launched twice with bit-identical outputs: RNNT_JOINT_TOL;
 the LSTM above H = 512: the tolerances of its narrower check, beside
-`check_lstm_wide`).
+`check_lstm_wide`; every LSTM case twice, bit-identical; the beam steps
+at W = 17 and 33, and rows 0-15 of W = 20 equal to W = 16 bit for bit).
 """
 
 import pytest
@@ -111,8 +112,16 @@ def test_decoder_step_kernels_match_plain(cuda_dev):
 
     before = (decoder_step.KERNEL.launches, decoder_step.KERNEL_INDIRECT.launches)
     chip_smoke.check_decoder_step(*cuda_dev)
-    assert decoder_step.KERNEL.launches - before[0] == 8  # four cases: direct, and direct on gathered caches
-    assert decoder_step.KERNEL_INDIRECT.launches - before[1] == 4
+    n = len(chip_smoke.DEC_STEP_CASES)  # W up to 33: direct, and direct on gathered caches
+    assert decoder_step.KERNEL.launches - before[0] == 2 * n
+    assert decoder_step.KERNEL_INDIRECT.launches - before[1] == n
+
+
+def test_beam_rows_do_not_depend_on_their_group(cuda_dev):
+    """K5 (both variants) and K6 at W = 20, groups of 16 and 4: beams 0-15
+    equal a W = 16 launch bit for bit, in both dtypes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        chip_smoke.check_beam_groups(*cuda_dev, dtype)
 
 
 def test_decoder_step_rejects_what_it_does_not_take(cuda_dev):
@@ -143,16 +152,22 @@ def test_decoder_step_rejects_what_it_does_not_take(cuda_dev):
         ds.fused_decoder_layer_step(**args(c), beam_width=4)
     with pytest.raises(ValueError):  # a strided cache
         ds.fused_decoder_layer_step(**args(c, cache_k=c["cache_k"].reshape(6, 6, 2, 16).transpose(1, 2)), beam_width=3)
-    wide = chip_smoke.decoder_step_case(dev, gen, 1, 17, 4, 5, 2, 32, 64)
-    with pytest.raises(ValueError):  # W > 16
+    # W = 17 (two row groups) and a layer too wide for a group of 16 in
+    # shared memory (groups of 4), which both raised before: now their plain
+    # versions' results
+    for W, shape in ((17, (1, 17, 4, 5, 2, 32, 64)), (16, (1, 16, 4, 5, 4, 512, 4096))):
+        c = chip_smoke.decoder_step_case(dev, gen, *shape)
+        ins = (c["h"], c["cache_k"], c["cache_v"], c["pos"], c["anc"], c["cross_k"], c["cross_v"], c["elens"],
+               c["weights"])
+        got = ds.fused_decoder_layer_step_indirect(*ins, beam_width=W)
+        want = ds.decoder_layer_step_indirect_plain(*ins, W)
+        for name, a, b in zip(("y", "k_new", "v_new"), got, want):
+            chip_smoke._require_close(f"decoder step W={W} {shape} {name}", a, b, chip_smoke.DEC_STEP_TOL, 0.0)
+    huge = chip_smoke.decoder_step_case(dev, gen, 1, 4, 4, 5, 4, 512, 16384)
+    with pytest.raises(ValueError, match="shared memory"):  # (4, F) f32 alone is 256 KB
         ds.fused_decoder_layer_step_indirect(
-            wide["h"], wide["cache_k"], wide["cache_v"], wide["pos"], wide["anc"], wide["cross_k"],
-            wide["cross_v"], wide["elens"], wide["weights"], beam_width=17)
-    big = chip_smoke.decoder_step_case(dev, gen, 1, 16, 4, 5, 4, 512, 4096)
-    with pytest.raises(ValueError, match="shared memory"):
-        ds.fused_decoder_layer_step_indirect(
-            big["h"], big["cache_k"], big["cache_v"], big["pos"], big["anc"], big["cross_k"],
-            big["cross_v"], big["elens"], big["weights"], beam_width=16)
+            huge["h"], huge["cache_k"], huge["cache_v"], huge["pos"], huge["anc"], huge["cross_k"],
+            huge["cross_v"], huge["elens"], huge["weights"], beam_width=4)
 
 
 def test_decoder_step_bf16_kernels_match_plain(cuda_dev):
@@ -160,9 +175,10 @@ def test_decoder_step_bf16_kernels_match_plain(cuda_dev):
 
     before = (dict(decoder_step.KERNEL.counts), dict(decoder_step.KERNEL_INDIRECT.counts))
     chip_smoke.check_decoder_step(*cuda_dev, torch.bfloat16)
-    assert decoder_step.KERNEL.counts["emo_decoder_step_bf16"] - before[0]["emo_decoder_step_bf16"] == 8
+    n = len(chip_smoke.DEC_STEP_CASES)
+    assert decoder_step.KERNEL.counts["emo_decoder_step_bf16"] - before[0]["emo_decoder_step_bf16"] == 2 * n
     assert (decoder_step.KERNEL_INDIRECT.counts["emo_decoder_step_indirect_bf16"]
-            - before[1]["emo_decoder_step_indirect_bf16"]) == 4
+            - before[1]["emo_decoder_step_indirect_bf16"]) == n
     assert decoder_step.KERNEL.counts["emo_decoder_step_f32"] == before[0]["emo_decoder_step_f32"]
 
 
@@ -171,7 +187,8 @@ def test_lm_step_kernel_matches_plain(cuda_dev):
 
     before = lm_step.KERNEL.launches
     chip_smoke.check_lm_step(*cuda_dev)
-    assert lm_step.KERNEL.launches - before == 8  # four cases: the step, and the step on gathered caches
+    # W up to 33: the step, and the step on gathered caches
+    assert lm_step.KERNEL.launches - before == 2 * len(chip_smoke.LM_STEP_CASES)
 
 
 def test_lm_step_rejects_what_it_does_not_take(cuda_dev):
@@ -200,14 +217,19 @@ def test_lm_step_rejects_what_it_does_not_take(cuda_dev):
         lm_step.fused_bert_layer_step_indirect(**args(c, anc=c["anc"][:, :, :5]))
     with pytest.raises(ValueError):  # a strided cache
         lm_step.fused_bert_layer_step_indirect(**args(c, cache_k=c["cache_k"].transpose(2, 3).contiguous().transpose(2, 3)))
-    wide = chip_smoke.lm_step_case(dev, gen, 1, 17, 4, 2, 32, 64)
-    with pytest.raises(ValueError):  # W > 16
-        lm_step.fused_bert_layer_step_indirect(wide["h"], wide["cache_k"], wide["cache_v"], wide["pos"],
-                                               wide["anc"], wide["weights"])
-    big = chip_smoke.lm_step_case(dev, gen, 1, 16, 4, 8, 512, 4096)
-    with pytest.raises(ValueError, match="shared memory"):
-        lm_step.fused_bert_layer_step_indirect(big["h"], big["cache_k"], big["cache_v"], big["pos"],
-                                               big["anc"], big["weights"])
+    # W = 17 (two row groups) and a layer too wide for a group of 16 in
+    # shared memory (groups of 4), which both raised before: now their plain
+    # versions' results
+    for shape in ((1, 17, 4, 2, 32, 64), (1, 16, 4, 8, 512, 4096)):
+        c = chip_smoke.lm_step_case(dev, gen, *shape)
+        ins = (c["h"], c["cache_k"], c["cache_v"], c["pos"], c["anc"], c["weights"])
+        for name, a, b in zip(("y", "k_new", "v_new"), lm_step.fused_bert_layer_step_indirect(*ins),
+                              lm_step.bert_layer_step_indirect_plain(*ins)):
+            chip_smoke._require_close(f"LM step {shape} {name}", a, b, chip_smoke.LM_STEP_TOL, 0.0)
+    huge = chip_smoke.lm_step_case(dev, gen, 1, 4, 4, 8, 512, 16384)
+    with pytest.raises(ValueError, match="shared memory"):  # (4, F) f32 alone is 256 KB
+        lm_step.fused_bert_layer_step_indirect(huge["h"], huge["cache_k"], huge["cache_v"], huge["pos"],
+                                               huge["anc"], huge["weights"])
 
 
 def test_lm_step_bf16_kernel_matches_plain(cuda_dev):
@@ -215,7 +237,8 @@ def test_lm_step_bf16_kernel_matches_plain(cuda_dev):
 
     before = dict(lm_step.KERNEL.counts)
     chip_smoke.check_lm_step(*cuda_dev, torch.bfloat16)
-    assert lm_step.KERNEL.counts["emo_lm_step_indirect_bf16"] - before["emo_lm_step_indirect_bf16"] == 8
+    n = len(chip_smoke.LM_STEP_CASES)
+    assert lm_step.KERNEL.counts["emo_lm_step_indirect_bf16"] - before["emo_lm_step_indirect_bf16"] == 2 * n
     assert lm_step.KERNEL.counts["emo_lm_step_indirect_f32"] == before["emo_lm_step_indirect_f32"]
 
 
@@ -330,8 +353,24 @@ def test_lstm_kernels_match_plain(cuda_dev):
 
     before = dict(lstm_scan.KERNEL.counts)
     chip_smoke.check_lstm(*cuda_dev)
-    for name in ("emo_lstm_fwd_f32", "emo_lstm_bwd_f32"):
-        assert lstm_scan.KERNEL.counts[name] - before[name] == 5  # five shapes
+    for name in ("emo_lstm_fwd_f32", "emo_lstm_bwd_f32"):  # every shape twice (bit-identical)
+        assert lstm_scan.KERNEL.counts[name] - before[name] == 2 * len(chip_smoke.LSTM_CASES)
+
+
+def test_lstm_geometry_matches_the_kernel(cuda_dev):
+    """`ops/lstm_scan.py::smem_bytes` (which `launch_geometry` sizes the
+    launches by) equals the library's own account (`emo_lstm_smem_bytes`)
+    for both kinds, both w_hh term counts and a range of B, H and stages."""
+    from emoasr_tpu_torch.ops import lstm_scan
+
+    lib = lstm_scan.KERNEL.lib()
+    for B in (1, 16, 17, 18, 50):
+        for H in (1, 40, 136, 512, 640, 1024):
+            for w_terms in (1, 2):
+                for stages in (1, 3, 8):
+                    for kind, units in (("fwd", 4 if H <= 512 else 8), ("fwd", 8), ("bwd", 8)):
+                        want = lstm_scan.smem_bytes(kind, B, H, units, stages, w_terms)
+                        assert lib.emo_lstm_smem_bytes(int(kind == "bwd"), B, H, units, stages, w_terms) == want
 
 
 def test_rnnt_kernels_reject_what_they_do_not_take(cuda_dev):
@@ -390,14 +429,14 @@ def test_rnnt_joint_wide_matches_plain(cuda_dev):
 
 
 def test_lstm_wide_matches_plain(cuda_dev):
-    """K8 at H = 1024 and 640 (w_hh in shared memory), forward and
+    """K8 at H = 1024 and 640 (eight units a block), forward and
     backward, f32 and bf16."""
     from emoasr_tpu_torch.ops import lstm_scan
 
     before = dict(lstm_scan.KERNEL.counts)
     chip_smoke.check_lstm_wide(*cuda_dev)
     for name in ("emo_lstm_fwd_f32", "emo_lstm_bwd_f32", "emo_lstm_fwd_bf16", "emo_lstm_bwd_bf16"):
-        assert lstm_scan.KERNEL.counts[name] - before[name] == 2  # two shapes
+        assert lstm_scan.KERNEL.counts[name] - before[name] == 2 * len(chip_smoke.LSTM_WIDE_CASES)
 
 
 def test_ctc_head_bf16_and_wide_match_plain(cuda_dev):
@@ -510,5 +549,5 @@ def test_lstm_bf16_matches_plain(cuda_dev):
 
     before = dict(lstm_scan.KERNEL.counts)
     chip_smoke.check_lstm_bf16(*cuda_dev)
-    for name in ("emo_lstm_fwd_bf16", "emo_lstm_bwd_bf16"):
-        assert lstm_scan.KERNEL.counts[name] - before[name] == 3  # three shapes
+    for name in ("emo_lstm_fwd_bf16", "emo_lstm_bwd_bf16"):  # every shape twice (bit-identical)
+        assert lstm_scan.KERNEL.counts[name] - before[name] == 2 * len(chip_smoke.LSTM_BF16_CASES)

@@ -91,6 +91,9 @@ CASES = [
     (2, 4, 9, 2, 32, 64),
     (3, 1, 6, 4, 32, 48),  # W = 1, Bu not a multiple of anything
     (2, 10, 12, 2, 16, 40),  # W = 10, as the L3-3 beam
+    (2, 17, 7, 2, 16, 40),  # beams wider than the CUDA kernel's row group of 16
+    (1, 20, 6, 2, 16, 40),
+    (2, 33, 6, 2, 16, 40),
 ]
 
 
