@@ -193,10 +193,12 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 # ---------------------------------------------------------------- kernels
 
-# the sources whose kernels run on the tensor cores: their registers, spills
-# and shared memory (`nvcc -Xptxas -v`) and their count of tensor-core
-# instructions (`cuobjdump -sass`) are reported in phase 2
-TENSOR_CORE_SOURCES = ("attention.cu", "ctc_head.cu", "rnnt_joint.cu", "lstm_scan.cu")
+# the sources whose kernels run on the tensor cores, with their defines (K5's
+# source builds its indirect variant here, the main path's): their
+# registers, spills and shared memory (`nvcc -Xptxas -v`) and their count of
+# tensor-core instructions (`cuobjdump -sass`) are reported in phase 2
+TENSOR_CORE_SOURCES = (("attention.cu", ()), ("ctc_head.cu", ()), ("rnnt_joint.cu", ()), ("lstm_scan.cu", ()),
+                       ("decoder_step.cu", ("EMO_DECODER_STEP_INDIRECT=1",)), ("lm_step.cu", ()))
 
 
 def start_resource_builds(out_dir: str) -> dict:
@@ -206,9 +208,10 @@ def start_resource_builds(out_dir: str) -> dict:
 
     os.makedirs(out_dir, exist_ok=True)
     jobs = {}
-    for src in TENSOR_CORE_SOURCES:
+    for src, defines in TENSOR_CORE_SOURCES:
         lib = os.path.join(out_dir, src + ".so")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", lib, os.path.join(CSRC_DIR, src)]
+        cmd = [find_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-Xptxas", "-v", "-o", lib,
+               os.path.join(CSRC_DIR, src)]
         jobs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     return jobs
 
@@ -264,9 +267,32 @@ def _short_kernel_name(mangled: str) -> str:
     return f"{name}<{', '.join(args)}>" if args else name
 
 
+CALLEES = ("5dense", "16cached_attention", "15cross_attention")  # K5's and K6's device functions, not inlined
+
+
+def _callee(mangled: str):
+    """(name, template arguments) of a device function the kernels call
+    (`CALLEES`), else None."""
+    for c in CALLEES:
+        i = mangled.find(c + "I")
+        if i >= 0:
+            return (c.lstrip("0123456789"), tuple(_template_args(mangled[i + len(c):])))
+    return None
+
+
+def _calls(kernel_args: list, callee_args: tuple) -> bool:
+    """Whether a kernel of these template arguments calls the callee of
+    these: the same element type (the last argument) and, where the callee
+    has a row group (`dense<WP, E>`), the same one (the first)."""
+    return (bool(kernel_args) and bool(callee_args) and kernel_args[-1] == callee_args[-1]
+            and (len(callee_args) < 2 or callee_args[0] in ("0", "1") or kernel_args[0] == callee_args[0]))
+
+
 def kernel_resources(jobs: dict) -> dict:
     """Registers, spill stores and loads (bytes), static shared memory and
-    HMMA / HGMMA instructions of every kernel of the sources of `jobs`."""
+    HMMA / HGMMA instructions of every kernel of the sources of `jobs`; a
+    kernel's spills and HMMA include those of the device functions it calls
+    that are not inlined (`CALLEES`, matched by `_calls`)."""
     import re
 
     from emoasr_tpu_torch.ops.cuda_lib import find_nvcc
@@ -275,7 +301,7 @@ def kernel_resources(jobs: dict) -> dict:
     for src, (proc, lib) in jobs.items():
         log, _ = proc.communicate()
         require(proc.returncode == 0, f"nvcc -Xptxas -v {src} failed:\n{log[-3000:]}")
-        cur = None
+        cur, props, callees = None, None, {}
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
@@ -283,13 +309,17 @@ def kernel_resources(jobs: dict) -> dict:
                 res[cur] = {"source": src, "registers": 0, "spill_stores": 0, "spill_loads": 0, "smem": 0,
                             "mma_instructions": 0}
                 continue
-            if cur is None:
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                props = _callee(m.group(1)) or cur
                 continue
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if m:
-                res[cur]["spill_stores"], res[cur]["spill_loads"] = int(m.group(1)), int(m.group(2))
+            if m and props is not None:
+                entry = callees.setdefault(props, {"spill_stores": 0, "spill_loads": 0, "mma_instructions": 0}) \
+                    if isinstance(props, tuple) else res[props]
+                entry["spill_stores"], entry["spill_loads"] = int(m.group(1)), int(m.group(2))
             m = re.search(r"Used (\d+) registers", line)
-            if m:
+            if m and cur is not None:
                 res[cur]["registers"] = int(m.group(1))
                 sm = re.search(r"(\d+) bytes smem", line)
                 res[cur]["smem"] = int(sm.group(1)) if sm else 0
@@ -298,9 +328,20 @@ def kernel_resources(jobs: dict) -> dict:
         cur = None
         for line in sass.splitlines():
             if "Function :" in line:
-                cur = _short_kernel_name(line.split("Function :")[1].strip())
-            elif cur in res and re.search(r"\bH(G)?MMA\b", line):
-                res[cur]["mma_instructions"] += 1
+                mangled = line.split("Function :")[1].strip()
+                cur = _callee(mangled) or _short_kernel_name(mangled)
+                if isinstance(cur, tuple):
+                    callees.setdefault(cur, {"spill_stores": 0, "spill_loads": 0, "mma_instructions": 0})
+            elif re.search(r"\bH(G)?MMA\b", line):
+                entry = callees.get(cur) if isinstance(cur, tuple) else res.get(cur)
+                if entry is not None:
+                    entry["mma_instructions"] += 1
+        for (_, cargs), c in callees.items():  # into the kernels of this source that call them
+            for name, r in res.items():
+                args = name[name.find("<") + 1:-1].split(", ") if "<" in name else []
+                if r["source"] == src and _calls(args, cargs):
+                    for k in ("spill_stores", "spill_loads", "mma_instructions"):
+                        r[k] += c[k]
     return res
 
 
@@ -981,7 +1022,9 @@ DEC_STEP_TOL = 1e-4
 # widths, many utterances, and beams wider than a row group of 16 (W = 17:
 # groups of 16 and 1; W = 33: three groups), among them W = 17 at the
 # largest and the smallest L3 bucket (Bu 18 and 50: on 132 SMs clusters of
-# 2 and 1 blocks a row group, as the beam-17 decode runs them)
+# 2 and 1 blocks a row group, as the beam-17 decode runs them), and an
+# encoder output longer than the cross-attention's window of frames (512 in
+# float32, 1024 in bf16: three windows and two)
 DEC_STEP_CASES = (
     ("Bu=18 W=10 L=258 T=399 D=256 F=2048", (18, 10, 258, 399, 4, 256, 2048)),
     ("Bu=18 W=17 L=258 T=399 D=256 F=2048", (18, 17, 258, 399, 4, 256, 2048)),
@@ -991,7 +1034,19 @@ DEC_STEP_CASES = (
     ("Bu=140 W=3 L=16 T=21 D=128 F=256 H=8", (140, 3, 16, 21, 8, 128, 256)),
     ("Bu=4 W=17 L=20 T=37 D=256 F=2048", (4, 17, 20, 37, 4, 256, 2048)),
     ("Bu=2 W=33 L=12 T=30 D=256 F=2048", (2, 33, 12, 30, 4, 256, 2048)),
+    ("Bu=2 W=10 L=20 T=1100 D=256 F=2048", (2, 10, 20, 1100, 4, 256, 2048)),
 )
+# float32 only (bf16 takes widths of multiples of 8): D, d_k and F 4 past a
+# multiple of 8, in clusters of 8 blocks, so that a block's output columns
+# end halfway through a 16-byte word of the planes it copies to the others
+DEC_STEP_CASES_F32 = (
+    ("Bu=3 W=5 L=9 T=30 D=100 F=100 H=5", (3, 5, 9, 30, 5, 100, 100)),
+)
+
+
+def dec_step_cases(dtype) -> tuple:
+    """The K5 cases `check_decoder_step` runs in `dtype`."""
+    return DEC_STEP_CASES + (DEC_STEP_CASES_F32 if dtype == torch.float32 else ())
 
 
 def decoder_step_case(dev, gen, Bu: int, W: int, L: int, T: int, H: int = 4, D: int = 256, F: int = 2048,
@@ -1029,14 +1084,14 @@ def decoder_step_case(dev, gen, Bu: int, W: int, L: int, T: int, H: int = 4, D: 
                 anc=anc, cross_k=randn(Bu, T, H, dk), cross_v=randn(Bu, T, H, dk), elens=elens, weights=wt)
 
 
-def _row_groups(groups: dict, key: tuple, Bu: int, W: int, dev) -> str:
-    """How a K5 / K6 launch laid out its rows: the row group the wrapper
-    chose for `key` (its `_GROUPS` cache) and the blocks a group's cluster."""
-    from emoasr_tpu_torch.ops.decoder_step import _pick_cluster
+def _row_groups(kernel, kind: str, Bu: int, W: int, D: int, F: int, H: int, L: int, T: int, dtype, dev) -> str:
+    """How a launch of `kernel` (K5 or K5 indirect, `kind` "decoder"; K6,
+    "lm") lays out its rows: the row group, the groups and the blocks a
+    group's cluster on this card."""
+    from emoasr_tpu_torch.ops.decoder_step import device_geometry
 
-    wp = groups[key][0]
-    n = Bu * -(-W // wp)
-    return f"{n} row groups of up to {wp}, clusters of {_pick_cluster(n, dev)}"
+    g = device_geometry(kernel, kind, Bu, W, D, F, H, L, T, dtype, dev, kind)
+    return f"{g['groups']} row groups of up to {g['group']}, clusters of {g['cluster']}"
 
 
 def _step_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
@@ -1049,7 +1104,8 @@ def _step_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) ->
 
 def check_decoder_step(dev, gen, dtype=torch.float32) -> dict:
     """K5 and K5 indirect against their plain versions (y, k_new, v_new),
-    and K5 indirect against K5 on caches gathered by `anc`, in `dtype`.  In
+    each launched twice (bit-identical), and K5 indirect against K5 on
+    caches gathered by `anc`, in `dtype`.  In
     bf16 each output entry is a float32 sum of exact products rounded once,
     as in the plain version, but upstream of it a dense product or a
     softmax may have rounded the other way: one bf16 step of each entry
@@ -1059,7 +1115,7 @@ def check_decoder_step(dev, gen, dtype=torch.float32) -> dict:
 
     sfx = "" if dtype == torch.float32 else "_bf16"
     worst = {"direct": 0.0, "indirect": 0.0, "direct wide": 0.0, "indirect wide": 0.0}
-    for name, (Bu, W, L, T, H, D, F) in DEC_STEP_CASES:
+    for name, (Bu, W, L, T, H, D, F) in dec_step_cases(dtype):
         c = _cast_case(decoder_step_case(dev, gen, Bu, W, L, T, H, D, F), dtype)
         dk = D // H
         flat = lambda x: x.reshape(Bu * W, L, H, dk)
@@ -1067,26 +1123,27 @@ def check_decoder_step(dev, gen, dtype=torch.float32) -> dict:
         gk, gv = torch.gather(c["cache_k"], 1, idx), torch.gather(c["cache_v"], 1, idx)
         tail = (c["cross_k"], c["cross_v"], c["elens"], c["weights"])
         out = {
-            "direct": ds.fused_decoder_layer_step(c["h"], flat(c["cache_k"]), flat(c["cache_v"]),
-                                                  c["pos"].reshape(-1), *tail, beam_width=W),
+            "direct": _twice(lambda: ds.fused_decoder_layer_step(c["h"], flat(c["cache_k"]), flat(c["cache_v"]),
+                                                                 c["pos"].reshape(-1), *tail, beam_width=W)),
             "direct plain": ds.decoder_layer_step_plain(c["h"], flat(c["cache_k"]), flat(c["cache_v"]),
                                                         c["pos"].reshape(-1), *tail, W),
-            "indirect": ds.fused_decoder_layer_step_indirect(c["h"], c["cache_k"], c["cache_v"], c["pos"],
-                                                             c["anc"], *tail, beam_width=W),
+            "indirect": _twice(lambda: ds.fused_decoder_layer_step_indirect(
+                c["h"], c["cache_k"], c["cache_v"], c["pos"], c["anc"], *tail, beam_width=W)),
             "indirect plain": ds.decoder_layer_step_indirect_plain(c["h"], c["cache_k"], c["cache_v"],
                                                                    c["pos"], c["anc"], *tail, W),
             "direct on gathered caches": ds.fused_decoder_layer_step(
                 c["h"], flat(gk).contiguous(), flat(gv).contiguous(), c["pos"].reshape(-1), *tail, beam_width=W),
         }
         torch.cuda.synchronize()
-        layout = _row_groups(ds._GROUPS, (ds.KERNEL.name, W, L, T, D, F, H, c["h"].element_size()), Bu, W, dev)
+        layout = {kind: _row_groups(kernel, "decoder", Bu, W, D, F, H, L, T, dtype, dev)
+                  for kind, kernel in (("direct", ds.KERNEL), ("indirect", ds.KERNEL_INDIRECT))}
         for kind, other in (("direct", "direct plain"), ("indirect", "indirect plain"),
                             ("indirect", "direct on gathered caches")):
             errs = [_step_close(f"decoder step {dtype} {name} {kind} vs {other}: {what}", a, b, DEC_STEP_TOL)
                     for what, a, b in zip(("y", "k_new", "v_new"), out[kind], out[other])]
             key = kind + (" wide" if W > 16 else "")
             worst[key] = max(worst[key], *errs)
-            print(f"  decoder step {dtype} {name} ({layout}): {kind} vs {other}: y {errs[0]:.2e} k_new {errs[1]:.2e} "
+            print(f"  decoder step {dtype} {name} ({layout[kind]}): {kind} vs {other}: y {errs[0]:.2e} k_new {errs[1]:.2e} "
                   f"v_new {errs[2]:.2e} (tol {DEC_STEP_TOL if dtype == torch.float32 else 'one bf16 step + one of the largest'})")
     return {"decoder_step" + sfx: worst["direct"], "decoder_step_indirect" + sfx: worst["indirect"],
             "decoder_step_wide" + sfx: worst["direct wide"],
@@ -1216,9 +1273,10 @@ def time_decoder_step(dev, gen, Bu: int, W: int, L: int, T: int, pos: int, lens:
     c = _cast_case(decoder_step_case(dev, gen, Bu, W, L, T, H, D, F, pos=pos), dtype)
     c["elens"] = lens.to(dev)
     layer = TransformerDecoderLayer(H, D, F).to(dev, dtype).eval()
-    wt = layer._decode_step_weights()
+    pack = layer._packed_step_weights()  # as the decoder's steps pass them: checked and laid out once
     flat = lambda x: x.reshape(N, L, H, dk)
-    tail = (c["cross_k"], c["cross_v"], c["elens"], wt)
+    tail = (c["cross_k"], c["cross_v"], c["elens"], pack)
+    plain_tail = (c["cross_k"], c["cross_v"], c["elens"], pack.source)
     h3 = c["h"][:, None]
     memory_mask = make_pad_mask(c["elens"], T)[:, None, None, :]
     flat_pos = c["pos"].reshape(-1)
@@ -1229,7 +1287,7 @@ def time_decoder_step(dev, gen, Bu: int, W: int, L: int, T: int, pos: int, lens:
     with torch.no_grad():
         direct = {
             "ms": cuda_time_ms(lambda: ds.fused_decoder_layer_step(c["h"], ck, cv, flat_pos, *tail, beam_width=W)),
-            "plain_ms": cuda_time_ms(lambda: ds.decoder_layer_step_plain(c["h"], ck, cv, flat_pos, *tail, W)),
+            "plain_ms": cuda_time_ms(lambda: ds.decoder_layer_step_plain(c["h"], ck, cv, flat_pos, *plain_tail, W)),
             "dense_route_ms": cuda_time_ms(lambda: layer.decode_step(
                 h3, ck, cv, flat_pos, self_mask, memory_mask, cross_kv, beam_width=W)),
         }
@@ -1237,7 +1295,7 @@ def time_decoder_step(dev, gen, Bu: int, W: int, L: int, T: int, pos: int, lens:
             "ms": cuda_time_ms(lambda: ds.fused_decoder_layer_step_indirect(
                 c["h"], ick, icv, c["pos"], c["anc"], *tail, beam_width=W)),
             "plain_ms": cuda_time_ms(lambda: ds.decoder_layer_step_indirect_plain(
-                c["h"], ick, icv, c["pos"], c["anc"], *tail, W)),
+                c["h"], ick, icv, c["pos"], c["anc"], *plain_tail, W)),
             "dense_route_ms": cuda_time_ms(lambda: layer.decode_step_indirect(
                 h3, ick, icv, c["pos"], c["anc"], memory_mask, cross_kv, W)),
         }
@@ -1249,12 +1307,18 @@ def time_decoder_step(dev, gen, Bu: int, W: int, L: int, T: int, pos: int, lens:
     io = es * (n_weights + 4 * N * D + 2 * frames * D + 2 * past * D) + 4 * (N + Bu)
     ops = 2.0 * N * (6 * D * D + 2 * D * F) + 4.0 * D * (past + N) + 4.0 * W * D * frames
     for row, extra in ((direct, 0), (indirect, 4 * past)):
-        row.update(_bound(io + extra, ops, dtype))
+        row.update(_bound(io + extra, ops, dtype, _beam_step_products(dtype)))
         row["library_ms"] = None
         row["shape"] = (f"h ({N},{D}), caches ({Bu},{W},{L},{H},{dk}) at pos {pos}, encoder K/V "
                         f"({Bu},{T},{H},{dk}), F {F}, {dtype}")
     sfx = "" if dtype == torch.float32 else "_bf16"
     return {"decoder_step" + sfx: direct, "decoder_step_indirect" + sfx: indirect}
+
+
+def _beam_step_products(dtype) -> int:
+    """bf16 tensor-core products per f32 product of K5's and K6's float32
+    launchers (two terms a side, three products), 0 in bf16."""
+    return 3 if dtype == torch.float32 else 0
 
 
 def _cast_case(c: dict, dtype) -> dict:
@@ -1283,6 +1347,15 @@ LM_STEP_CASES = (
     ("Bu=3 W=17 L=20 D=512 F=2048 H=8", (3, 17, 20, 8, 512, 2048)),
     ("Bu=2 W=33 L=12 D=512 F=2048 H=8", (2, 33, 12, 8, 512, 2048)),
 )
+# float32 only, as DEC_STEP_CASES_F32
+LM_STEP_CASES_F32 = (
+    ("Bu=3 W=5 L=9 D=100 F=100 H=5", (3, 5, 9, 5, 100, 100)),
+)
+
+
+def lm_step_cases(dtype) -> tuple:
+    """The K6 cases `check_lm_step` runs in `dtype`."""
+    return LM_STEP_CASES + (LM_STEP_CASES_F32 if dtype == torch.float32 else ())
 
 
 def lm_step_case(dev, gen, Bu: int, W: int, L: int, H: int = 8, D: int = 512, F: int = 2048, pos=None):
@@ -1317,14 +1390,15 @@ def lm_step_case(dev, gen, Bu: int, W: int, L: int, H: int = 8, D: int = 512, F:
 
 
 def check_lm_step(dev, gen, dtype=torch.float32) -> dict:
-    """K6 against its plain version (y, k_new, v_new), and against itself on
+    """K6 against its plain version (y, k_new, v_new), launched twice
+    (bit-identical), and against itself on
     caches gathered by `anc` under the identity table, in `dtype` (bf16 held
     as `check_decoder_step` holds it): the largest errors at W <= 16 and at
     W > 16."""
     from emoasr_tpu_torch.ops import lm_step
 
     worst = {"narrow": 0.0, "wide": 0.0}
-    for name, (Bu, W, L, H, D, F) in LM_STEP_CASES:
+    for name, (Bu, W, L, H, D, F) in lm_step_cases(dtype):
         c = _cast_case(lm_step_case(dev, gen, Bu, W, L, H, D, F), dtype)
         dk = D // H
         idx = c["anc"][:, :, :, None, None].expand(Bu, W, L, H, dk)
@@ -1332,13 +1406,13 @@ def check_lm_step(dev, gen, dtype=torch.float32) -> dict:
         ident = torch.arange(W, device=dev)[None, :, None].expand(Bu, W, L).contiguous()
         args = (c["h"], c["cache_k"], c["cache_v"], c["pos"], c["anc"], c["weights"])
         out = {
-            "kernel": lm_step.fused_bert_layer_step_indirect(*args),
+            "kernel": _twice(lambda: lm_step.fused_bert_layer_step_indirect(*args)),
             "plain": lm_step.bert_layer_step_indirect_plain(*args),
             "kernel on gathered caches": lm_step.fused_bert_layer_step_indirect(
                 c["h"], gk.contiguous(), gv.contiguous(), c["pos"], ident, c["weights"]),
         }
         torch.cuda.synchronize()
-        layout = _row_groups(lm_step._GROUPS, (W, L, D, F, c["h"].element_size()), Bu, W, dev)
+        layout = _row_groups(lm_step.KERNEL, "lm", Bu, W, D, F, H, L, 1, dtype, dev)
         for other, tol in (("plain", LM_STEP_TOL), ("kernel on gathered caches", LM_GATHER_TOL)):
             errs = [_step_close(f"LM step {dtype} {name} kernel vs {other}: {what}", a, b, tol)
                     for what, a, b in zip(("y", "k_new", "v_new"), out["kernel"], out[other])]
@@ -1381,7 +1455,7 @@ def time_lm_step(dev, gen, Bu: int, W: int, L: int, pos: int, dtype=torch.float3
     # in the storage dtype; pos and its anc row int32
     io = es * (n_weights + 2 * past * D + 4 * N * D) + 4 * (N + past)
     ops = 2.0 * N * (4 * D * D + 2 * D * F) + 4.0 * D * (past + N)
-    row.update(_bound(io, ops, dtype))
+    row.update(_bound(io, ops, dtype, _beam_step_products(dtype)))
     row["library_ms"] = None
     row["shape"] = f"h ({Bu},{W},{D}), caches ({Bu},{W},{L},{H},{dk}) at pos {pos}, F {F}, {dtype}"
     return {"lm_step_indirect" + ("" if dtype == torch.float32 else "_bf16"): row}

@@ -22,41 +22,39 @@
 // polynomial (clamp to [-4, 4], a ratio of an odd and an even polynomial),
 // the polynomial the TPU kernel inlines.
 //
-// Types: h, the caches, the weights and the outputs share one storage type,
-// float32 or bfloat16 (the TPU kernel's `adt`), and so do the activations in
-// shared memory.  Every sum is f32; the TPU kernel's rounding points are
-// kept: every dense product rounds once to adt after its f32 bias, the
-// probabilities and each head's output are rounded, each residual add
-// (h + dense(.), x + dense(.)) is an add in adt before its LayerNorm (f32
-// statistics, output rounded), and dense(x, wi) is rounded, widened to f32
-// for the gelu (erf_f32 stays f32) and the gelu's output rounded again.
+// Types: h, the caches, the bias and LayerNorm vectors and the outputs share
+// one storage type, float32 or bfloat16 (the TPU kernel's `adt`), and so do
+// the activations in shared memory; the weight matrices come as bf16 terms
+// of that type (two for float32, one for bf16;
+// ops/decoder_step.py::pack_fragments).  Every sum is f32; the TPU kernel's
+// rounding points are kept: every dense product rounds once to adt after its
+// f32 bias, the probabilities and each head's output are rounded, each
+// residual add (h + dense(.), x + dense(.)) is an add in adt before its
+// LayerNorm (f32 statistics, output rounded), and dense(x, wi) is rounded,
+// widened to f32 for the gelu (erf_f32 stays f32) and the gelu's output
+// rounded again.  In float32 a product's operands are split into two bf16
+// terms each (three products, csrc/beam_step.cuh).
 //
 // What bounds it on this card: at the L3-3 shapes (Bu = 18, W = 10, D = 512,
 // F = 2048, pos ~ 64) the step reads 12.6 MB of weights and ~47 MB of live
 // cache for ~1.1 GFLOP; bytes and operations weigh about the same (in bf16
-// the bytes halve).  This version computes on the CUDA cores in f32 (bf16
-// values widen exactly).
+// the bytes halve); what holds it is latency, some eight phases in series.
 //
 // Design: that of csrc/decoder_step.cu (K5), with the helpers the two share
-// in csrc/beam_step.cuh.  One thread-block CLUSTER of C blocks (C in 1, 2, 4,
-// 8) owns one row group of an utterance (up to WP = 4, 12 or 16 of its W
-// rows, ceil(W / WP) clusters an utterance: the rows do not interact within
-// a layer step); every block keeps the group's rows (padded to WP) of the
-// activations in its shared memory; the dense products split their output
-// columns over the cluster, the attention its (beam, head) items, and a
-// block writes what it computed into every block's shared memory
-// (distributed shared memory) before a cluster barrier ends the phase.  The
-// weights stream from L2 in nn.Linear's (out, in) layout.  What differs
-// from K5: post-norm (a LayerNorm after each residual, which every block
-// computes for itself on its full copy of the rows), gelu in place of relu,
-// no cross-attention, and the shared memory.  At D = 512 and F = 2048, K5's
-// layout (five (WP, D) rows and the (WP, F) hidden layer beside them) would
-// need 216 KB at WP = 12 and 288 KB at WP = 16 in f32.  Here only two (WP,
-// D) buffers live through the whole step (the residual stream and the
-// attention output); the queries, the new keys and values and the attention
-// scratch are dead once the attention is done, and the FF hidden layer
-// reuses their room: 144 KB at WP = 12 and 192 KB at WP = 16 in f32, half
-// the activations' share of that in bf16.  The loops over the cache stop at `pos`.  Sum orders
+// in csrc/beam_step.cuh: row groups of up to WP consecutive rows, a
+// thread-block cluster a group, the dense products on the tensor cores over
+// each block's share of the output columns, the self-attention a warp of the
+// cluster per (row, head), and a block writes what it computed into every
+// block's shared memory (distributed shared memory) before a cluster barrier
+// ends the phase.  What differs from K5: post-norm (a LayerNorm after each
+// residual, which every block computes for itself on its full copy of the
+// rows), gelu in place of relu (in the FF product's epilogue), no
+// cross-attention, and the shared memory: only the residual stream (WP, D)
+// and the A planes of D columns live through the whole step (the planes'
+// room holds FF2's output at the end); the queries, the new keys and values
+// and the attention scratch are dead once the attention is done, and the FF
+// hidden layer's A planes reuse their room; the products' partial sums have
+// a room of their own.  The loops over the cache stop at `pos`.  Sum orders
 // are fixed (no atomics).
 
 #include "beam_step.cuh"
@@ -64,27 +62,6 @@
 namespace {
 
 using namespace beam_step;
-
-// XLA's float32 erf (ErfImpl32: clamp to [-4, 4], a ratio of an odd and an
-// even polynomial), the polynomial the TPU LM-step kernel inlines
-__device__ __forceinline__ float erf_f32(float x) {
-  x = fminf(fmaxf(x, -4.0f), 4.0f);
-  const float x2 = x * x;
-  float p = -2.72614225801306e-10f;
-  p = p * x2 + 2.77068142495902e-08f;
-  p = p * x2 + -2.10102402082508e-06f;
-  p = p * x2 + -5.69250639462346e-05f;
-  p = p * x2 + -7.34990630326855e-04f;
-  p = p * x2 + -2.95459980854025e-03f;
-  p = p * x2 + -1.60960333262415e-02f;
-  p = p * x;
-  float q = -1.45660718464996e-05f;
-  q = q * x2 + -2.13374055278905e-04f;
-  q = q * x2 + -1.68282697438203e-03f;
-  q = q * x2 + -7.37332916720468e-03f;
-  q = q * x2 + -1.42647390514189e-02f;
-  return p / q;
-}
 
 // the weights, in the order of ops/lm_step.py::WEIGHT_NAMES
 enum {
@@ -98,25 +75,31 @@ struct Params {
   const E* cache_v;
   const int* pos;        // (N,)
   const int* anc;        // (Bu, W, L)
-  const E* w[kNumWeights];  // 2-D weights as (out, in) rows
+  const void* w[kNumWeights];  // vectors of E; matrices as packed bf16 fragments
   E* y;                  // (N, D)
   E* k_new;              // (N, D)
   E* v_new;              // (N, D)
-  int W, L, D, F, H;
+  int N, W, L, D, F, H;
 };
 
-// shared memory, in bytes: the residual stream and the attention output,
-// (WP, D) elements of es bytes each, then one region that holds the queries,
+constexpr int kPartBytes = 16384;  // the products' partial sums
+
+// shared memory, in bytes: the residual stream (WP, D) of es-byte elements;
+// the A planes of D columns and their zero row (FF2's output rows at the
+// end); the products' partial sums; and one region that holds the queries,
 // the new keys and values and the warps' attention scratch (f32) during the
-// attention, and the FF hidden layer (WP, F) after it
+// attention, the out product's partial sums, and the FF hidden layer's A
+// planes after it
 struct Layout {
-  int act, lp, region, total;
+  int act, pa, lp, region, total;
   __host__ __device__ Layout(int WP, int D, int F, int L, int es) {
+    const int terms = es == 4 ? 2 : 1;
     act = WP * D * es;
+    pa = planes_bytes(D, terms, WP) > act ? planes_bytes(D, terms, WP) : act;
     lp = (L + 4) / 4 * 4;
     const int attention = 3 * act + kWarps * 2 * lp * 4;  // q, k_new, v_new; scores and cache rows
-    region = WP * F * es > attention ? WP * F * es : attention;
-    total = 2 * act + region;
+    region = planes_bytes(F, terms, WP) > attention ? planes_bytes(F, terms, WP) : attention;
+    total = act + pa + kPartBytes + region;
   }
 };
 
@@ -129,78 +112,87 @@ __global__ void __launch_bounds__(kThreads, 1) lm_step_kernel(const Params<E> p)
   const int warp = threadIdx.x >> 5;
   const int wg = rank * kWarps + warp, wtotal = csize * kWarps;  // warp of the cluster
   const int W = p.W, L = p.L, D = p.D, F = p.F, H = p.H;
-  const RowGroup rg(blockIdx.x / csize, W, WP);
-  const int Wg = rg.n;                 // the group's rows
-  const size_t row0 = rg.row0(W) * D;  // the group's rows in device memory
+  const RowGroup rg(blockIdx.x / csize, p.N, WP);
+  const int Wg = rg.n;                                     // the group's rows
+  const size_t row0 = static_cast<size_t>(rg.r0) * D;      // the group's rows in device memory
   const Layout lay(WP, D, F, L, sizeof(E));
-  E* xs = reinterpret_cast<E*>(smem);  // residual stream
-  E* att = xs + WP * D;                // attention output, then the second residual sum
-  E* qs = att + WP * D;                // queries       } the attention's room,
-  E* kn = qs + WP * D;                 // k_new         } then the FF hidden
-  E* vn = kn + WP * D;                 // v_new         } layer (WP, F)
-  float* scratch = reinterpret_cast<float*>(smem + 5 * lay.act);
-  E* ff = qs;
+  E* xs = reinterpret_cast<E*>(smem);                      // residual stream
+  bf16* pa = reinterpret_cast<bf16*>(smem + lay.act);      // A planes: h, the attention output, LN1's output
+  E* out2 = reinterpret_cast<E*>(pa);                      // then FF2's output rows
+  float* parts = reinterpret_cast<float*>(smem + lay.act + lay.pa);
+  unsigned char* region = smem + lay.act + lay.pa + kPartBytes;
+  E* qs = reinterpret_cast<E*>(region);                    // queries       } the attention's room,
+  E* kn = qs + WP * D;                                     // k_new         } then the FF hidden
+  E* vn = kn + WP * D;                                     // v_new         } layer's A planes
+  float* scratch = reinterpret_cast<float*>(region + 3 * lay.act);
+  bf16* pf = reinterpret_cast<bf16*>(region);
+  const int lda = plane_ld(D), ldf = plane_ld(F), plane_a = WP * lda, plane_f = WP * ldf;
+  const auto wt = [&](int i) { return reinterpret_cast<const uint4*>(p.w[i]); };
+  const auto vec = [&](int i) { return reinterpret_cast<const E*>(p.w[i]); };
 
-  for (int i = threadIdx.x; i < WP * D; i += kThreads) {
-    xs[i] = i < Wg * D ? p.h[row0 + i] : from_float<E>(0.f);
-    att[i] = from_float<E>(0.f);
-  }
+  for (int i = threadIdx.x; i < lay.pa / 16; i += kThreads) reinterpret_cast<uint4*>(pa)[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
+  for (int i = threadIdx.x; i < WP * D / 2; i += kThreads) {  // the rows, and their A planes
+    const int w = (2 * i) / D, d = (2 * i) % D;
+    float v[2] = {0.f, 0.f};
+    if (w < Wg) {
+      v[0] = to_float(p.h[row0 + 2 * i]);
+      v[1] = to_float(p.h[row0 + 2 * i + 1]);
+    }
+    store2(xs + 2 * i, v[0], v[1]);
+    put_planes<E, 2>(pa + w * lda + d, plane_a, v);
+  }
   cluster.sync();  // every block of the cluster runs before any remote store
 
   // ---- Q/K/V projections ----
-  int gd0, gd1, gf0, gf1;  // the output groups this block owns, of D and of F columns
-  owned(D, rank, csize, gd0, gd1);
-  owned(F, rank, csize, gf0, gf1);
-  dense<WP, E>(xs, D, p.w[WQ], p.w[BQ], D, gd0, gd1, qs, kPlain, nullptr, nullptr, Wg);
-  dense<WP, E>(xs, D, p.w[WK], p.w[BK], D, gd0, gd1, kn, kPlain, nullptr, p.k_new + row0, Wg);
-  dense<WP, E>(xs, D, p.w[WV], p.w[BV], D, gd0, gd1, vn, kPlain, nullptr, p.v_new + row0, Wg);
-  __syncthreads();
-  share<WP>(cluster, qs, D, rank, csize);
-  share<WP>(cluster, kn, D, rank, csize);
-  share<WP>(cluster, vn, D, rank, csize);
+  // as one product (the packed (3 D, D) weight), its partial sums in the region's room beyond q, k_new, v_new
+  // where that is the larger; parts 1 and 2 also to device memory
+  const bool tail = lay.region - 3 * lay.act > kPartBytes;
+  dense<WP, E>(kPlain, pa, D, wt(WQ), vec(BQ), 3 * D, D, tail ? scratch : parts,
+               tail ? lay.region - 3 * lay.act : kPartBytes, qs, nullptr, nullptr, p.k_new + row0, p.v_new - p.k_new,
+               1, Wg);
   cluster.sync();
 
-  // ---- self-attention over the ancestor-indirect cache: a warp per (beam, head) ----
-  cached_attention<true>(cluster, qs, kn, vn, att, scratch, lay.lp, p.pos, p.anc, p.cache_k, p.cache_v, rg, W,
-                         L, D, H);
+  // ---- self-attention over the ancestor-indirect cache: a warp per (row, head) ----
+  cached_attention<true>(cluster, qs, kn, vn, pa, lda, plane_a, scratch, lay.lp, p.pos, p.anc, p.cache_k, p.cache_v, rg,
+                         W, L, D, H);
   cluster.sync();
 
   // ---- out projection, residual, LayerNorm ----
-  dense<WP, E>(att, D, p.w[WO], p.w[BO], D, gd0, gd1, xs, kResidual, xs, nullptr, Wg);
-  __syncthreads();
-  share<WP>(cluster, xs, D, rank, csize);
+  dense<WP, E>(kResidual, pa, D, wt(WO), vec(BO), D, D, reinterpret_cast<float*>(region), lay.region, xs, nullptr, xs,
+               nullptr, 0, 0, Wg);  // the attention's room is free
+  LnVecs ln = ln_vectors(vec(LN1_S), vec(LN1_B), D);  // the LayerNorm's vectors read before the barrier
   cluster.sync();
-  layer_norm(xs, xs, p.w[LN1_S], p.w[LN1_B], D, Wg, warp, kWarps);  // every block, its own copy
+  layer_norm(ln, xs, xs, pa, lda, plane_a, vec(LN1_S), vec(LN1_B), D, WP, warp, kWarps);  // every block, its own copy
+  zero_padding(pf, Terms<E>::N * WP, F, ldf);
   __syncthreads();
 
   // ---- feed-forward (gelu), residual, LayerNorm ----
-  dense<WP, E>(xs, D, p.w[WI], p.w[BI], F, gf0, gf1, ff, kPlain, nullptr, nullptr, Wg);
-  __syncthreads();
-  {  // exact gelu in f32 on the columns this block owns, rounded to E (a pass
-     // of its own keeps the polynomial out of the products' epilogue, which
-     // K5 shares)
-    const int c0 = gf0 * kGroup, n = min(gf1 * kGroup, F) - c0;
-    for (int i = threadIdx.x; i < WP * n; i += kThreads) {
-      E& e = ff[(i / n) * F + c0 + i % n];
-      const float v = to_float(e);
-      e = from_float<E>(0.5f * v * (1.0f + erf_f32(v * 0.7071067811865476f)));
-    }
-  }
-  __syncthreads();
-  share<WP>(cluster, ff, F, rank, csize);
+  dense<WP, E>(kGelu, pa, D, wt(WI), vec(BI), F, F, parts, kPartBytes, nullptr, pf, nullptr, nullptr, 0, 0, Wg);
   cluster.sync();
-  dense<WP, E>(ff, F, p.w[WO2], p.w[BO2], D, gd0, gd1, att, kResidual, xs, nullptr, Wg);
-  __syncthreads();
-  share<WP>(cluster, att, D, rank, csize);
+  dense<WP, E>(kResidual, pf, F, wt(WO2), vec(BO2), D, D, parts, kPartBytes, out2, nullptr, xs, nullptr, 0, 0, Wg);
+  ln = ln_vectors(vec(LN2_S), vec(LN2_B), D);
   cluster.sync();
-  layer_norm(att, p.y + row0, p.w[LN2_S], p.w[LN2_B], D, Wg, wg, wtotal);  // a row per warp of the cluster
+  layer_norm(ln, out2, p.y + row0, static_cast<bf16*>(nullptr), 0, 0, vec(LN2_S), vec(LN2_B), D, Wg, wg,
+             wtotal);  // a row per warp of the cluster
 }
 
 template <int WP, typename E>
-int launch_wp(const Params<E>& p, int Bu, int cluster, cudaStream_t stream) {
+int launch_wp(const Params<E>& p, int cluster, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(Layout(WP, p.D, p.F, p.L, sizeof(E)).total);
-  return launch_clusters(lm_step_kernel<WP, E>, p, Bu * row_groups(p.W, WP), cluster, smem, stream);
+  return launch_clusters(lm_step_kernel<WP, E>, p, row_groups(p.N, WP), cluster, smem, stream);
+}
+
+template <int WP, typename E>
+int max_clusters_wp(int cluster, int L, int D, int F) {
+  return max_clusters(lm_step_kernel<WP, E>, cluster, static_cast<size_t>(Layout(WP, D, F, L, sizeof(E)).total));
+}
+
+template <typename E>
+int max_clusters_of(int group, int cluster, int L, int D, int F) {
+  if (group == 4) return max_clusters_wp<4, E>(cluster, L, D, F);
+  if (group == 12) return max_clusters_wp<12, E>(cluster, L, D, F);
+  return max_clusters_wp<16, E>(cluster, L, D, F);
 }
 
 template <typename E>
@@ -208,9 +200,8 @@ int launch(const void* h, const void* cache_k, const void* cache_v, const void* 
            const void* const* weights, void* y, void* k_new, void* v_new, int Bu, int W, int L, int D,
            int F, int H, int group, int cluster, void* stream) {
   constexpr int NV = Vec<E>::N;
-  if (Bu < 1 || W < 1 || (group != 4 && group != 12 && group != 16) || group > padded_width(W) || H < 1
-      || D % H != 0 || (D / H) % NV != 0 || F % NV != 0 || L < 1 || cluster < 1
-      || cluster > kMaxCluster || (cluster & (cluster - 1)) != 0)
+  if (Bu < 1 || W < 1 || (group != 4 && group != 12 && group != 16) || H < 1 || D % H != 0 || (D / H) % NV != 0 || F % NV != 0 || L < 1 || cluster < 1
+      || cluster > kMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
   Params<E> p;
   p.h = static_cast<const E*>(h);
@@ -218,32 +209,37 @@ int launch(const void* h, const void* cache_k, const void* cache_v, const void* 
   p.cache_v = static_cast<const E*>(cache_v);
   p.pos = static_cast<const int*>(pos);
   p.anc = static_cast<const int*>(anc);
-  for (int i = 0; i < kNumWeights; ++i) p.w[i] = static_cast<const E*>(weights[i]);
+  for (int i = 0; i < kNumWeights; ++i) p.w[i] = weights[i];
   p.y = static_cast<E*>(y);
   p.k_new = static_cast<E*>(k_new);
   p.v_new = static_cast<E*>(v_new);
-  p.W = W; p.L = L; p.D = D; p.F = F; p.H = H;
+  p.N = Bu * W; p.W = W; p.L = L; p.D = D; p.F = F; p.H = H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (group == 4) return launch_wp<4, E>(p, Bu, cluster, st);
-  if (group == 12) return launch_wp<12, E>(p, Bu, cluster, st);
-  return launch_wp<16, E>(p, Bu, cluster, st);
+  if (group == 4) return launch_wp<4, E>(p, cluster, st);
+  if (group == 12) return launch_wp<12, E>(p, cluster, st);
+  return launch_wp<16, E>(p, cluster, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// shared memory one block needs, in bytes, for row groups of up to W rows
-// and elements of `es` bytes (the wrapper picks the widest group that the
-// card's limit takes)
-int emo_lm_step_smem_bytes(int W, int L, int D, int F, int es) {
-  return Layout(padded_width(W), D, F, L, es).total;
+// shared memory one block needs, in bytes, for row groups of `group` rows
+// and elements of `es` bytes (ops/decoder_step.py::smem_bytes mirrors it)
+int emo_lm_step_smem_bytes(int group, int L, int D, int F, int es) {
+  return Layout(group, D, F, L, es).total;
 }
 
-// `weights`: host array of the 16 device pointers in WEIGHT_NAMES order, the
-// 2-D ones as contiguous (out, in) rows, all of the activations' type;
-// `group`: the rows of a row group (4, 12 or 16, at most W rounded up to
-// one of them); `cluster`: blocks per row group
+// clusters of `cluster` blocks the card holds at once for row groups of
+// `group` rows and elements of `es` bytes (or -1)
+int emo_lm_step_max_clusters(int group, int cluster, int L, int D, int F, int es) {
+  return es == 4 ? max_clusters_of<float>(group, cluster, L, D, F) : max_clusters_of<__nv_bfloat16>(group, cluster, L, D, F);
+}
+
+// `weights`: host array of the 16 device pointers in WEIGHT_NAMES order: the
+// vectors in the activations' type, the matrices as
+// ops/decoder_step.py::pack_fragments lays them out; `group`: the rows of a
+// row group (4, 12 or 16); `cluster`: blocks per row group
 int emo_lm_step_indirect_f32(const void* h, const void* cache_k, const void* cache_v,
                              const void* pos, const void* anc, const void* const* weights, void* y,
                              void* k_new, void* v_new, int Bu, int W, int L, int D, int F, int H,

@@ -21,9 +21,10 @@ share that utterance's encoder K/V, masked by `elens`.
 
 `weights` maps `WEIGHT_NAMES` to tensors shaped as the JAX package's: 2-D
 kernels (in, out), 1-D biases and scales.  A `.t()` view of an `nn.Linear`
-weight is such a kernel, and the CUDA kernel reads it in place (it wants
-(out, in) rows); a kernel stored (in, out) contiguously is copied to that
-layout.  `PackedWeights(weights)` does that check and layout once; a caller
+weight is such a kernel.  The CUDA kernel runs its products on the tensor
+cores and reads each kernel split into bf16 terms (two for float32, one
+for bfloat16) in the order of its B fragments (`pack_fragments`);
+`PackedWeights(weights)` does that check and layout once, and a caller
 that steps many times passes it in place of the dict.
 
 Types: h, the caches, the encoder K/V and the weights share one dtype,
@@ -37,20 +38,22 @@ For a CUDA tensor the functions launch `csrc/decoder_step.cu`; for a CPU
 tensor they take the plain versions.  On the card: float32 or bfloat16,
 all of one dtype (`TypeError` otherwise), D, d_k and F multiples of four
 (eight in bfloat16), and the shared memory one block needs within 227 KB
-(five (W', D) activations plus the largest of the FF hidden layer (W', F),
-one head's cross-attention scores (W', T) in f32 and the warps' f32
-self-attention scratch 16 (L + 1)); anything else raises `ValueError`.
-W' is the row group (`group_width`): an utterance's W beam rows go to
-ceil(W / W') clusters of blocks, W' the widest of 16, 12 and 4, at most W
-rounded up to one of them, whose shared memory fits; any W >= 1 is taken.
-Decode-only: no dropout, no gradient.
+(`smem_bytes`: four (W', D) activations, the bf16 planes of the products'
+A operands of D and of F columns, and the attention's scratch, which holds
+one window of encoder frames, `cross_window`, whatever T');
+anything else raises `ValueError`.  W' is the row group: the N = Bu W rows
+go in groups of W' consecutive rows (so a group may hold several
+utterances' rows), a cluster of blocks a group, W' the widest of 16, 12
+and 4 (at most N rounded up to one of them) whose shared memory fits
+(`launch_geometry`); any W >= 1 is taken.  Decode-only: no dropout, no
+gradient.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Tuple, Union
+from typing import Callable, Dict, Tuple, Union
 
 import torch
 
@@ -76,18 +79,145 @@ VEC = {torch.float32: 4, torch.bfloat16: 8}
 KERNEL = CudaKernel(
     "decoder_step.cu",
     {**{f"emo_decoder_step_{s}": [P] * 11 + [I] * 9 + [P] for s in SUFFIX.values()},
-     "emo_decoder_step_smem_bytes": [I] * 7},
+     "emo_decoder_step_smem_bytes": [I] * 7, "emo_decoder_step_max_clusters": [I] * 8},
     defines=["EMO_DECODER_STEP_INDIRECT=0"],
 )
 KERNEL_INDIRECT = CudaKernel(
     "decoder_step.cu",
     {**{f"emo_decoder_step_indirect_{s}": [P] * 12 + [I] * 9 + [P] for s in SUFFIX.values()},
-     "emo_decoder_step_smem_bytes": [I] * 7},
+     "emo_decoder_step_smem_bytes": [I] * 7, "emo_decoder_step_max_clusters": [I] * 8},
     defines=["EMO_DECODER_STEP_INDIRECT=1"], name="decoder_step_indirect",
 )
 
 MAX_SMEM_BYTES = 232448  # what one block may use on sm_90
 GROUP_WIDTHS = (16, 12, 4)  # the kernels' row-group instances, widest first
+
+# mirrored from csrc/beam_step.cuh (the products' tiling), decoder_step.cu and
+# lm_step.cu (their shared-memory layouts)
+WARPS = 8
+THREADS = 32 * WARPS
+MAX_SLICES = 4
+LM_PART_BYTES = 16384  # lm_step.cu kPartBytes
+
+
+def n_terms(dtype: torch.dtype) -> int:
+    """bf16 terms of a product operand: two for float32, one for bfloat16."""
+    return 2 if dtype == torch.float32 else 1
+
+
+def ksteps(K: int) -> int:
+    return -(-K // 16)
+
+
+def slices(K: int) -> int:
+    """The fixed slices of K a product sums separately and adds in order."""
+    return max(1, min(MAX_SLICES, ksteps(K) // 4))
+
+
+def ksteps_padded(K: int) -> int:
+    return -(-ksteps(K) // slices(K)) * slices(K)
+
+
+def plane_ld(K: int) -> int:
+    """bf16 elements a row of an A plane of K columns."""
+    return 16 * ksteps_padded(K) + 8
+
+
+def planes_bytes(K: int, terms: int, group: int) -> int:
+    """An operand's A planes: `group` rows of K columns a term, then a zero row."""
+    return (terms * group + 1) * plane_ld(K) * 2
+
+
+def cross_window(T: int, es: int) -> Tuple[int, int]:
+    """K5's cross-attention over T encoder frames (decoder_step.cu
+    `CrossLayout`): (frames a window, frames a chunk).  A window is T
+    padded to 16, at most 512 frames in float32 (es 4) and 1024 in bf16; a
+    chunk at most half of that."""
+    most = 256 if es == 4 else 512
+    tw = min(-(-T // 16) * 16, 2 * most)
+    return tw, min(tw, most)
+
+
+def cross_bytes(dk: int, T: int, es: int) -> int:
+    """K5's cross-attention scratch (decoder_step.cu `CrossLayout`): a
+    window's scores (16 rows of its frames, at most T padded to 4, f32), the
+    planes of its p (16 rows of the window, plus 8) and of the queries (16
+    rows of d_k padded to 16, plus 8), and the planes of a chunk of frames
+    of keys or values."""
+    terms = 2 if es == 4 else 1
+    dkp = -(-dk // 16) * 16
+    tw, tc = cross_window(T, es)
+    return (16 * min((T + 3) // 4 * 4, tw) * 4 + terms * 16 * (tw + 8) * 2 + terms * 16 * (dkp + 8) * 2
+            + terms * tc * (dkp + 8) * 2)
+
+
+def smem_bytes(kind: str, group: int, D: int, F: int, H: int, L: int, T: int, es: int) -> int:
+    """Shared memory one block of K5 (`kind` "decoder") or K6 ("lm") needs
+    for row groups of `group` rows and elements of `es` bytes (the sources'
+    `Layout`, which `emo_*_smem_bytes` export)."""
+    terms = 2 if es == 4 else 1
+    act, lp = group * D * es, (L + 4) // 4 * 4
+    if kind == "lm":
+        pa = max(planes_bytes(D, terms, group), act)
+        region = max(planes_bytes(F, terms, group), 3 * act + WARPS * 2 * lp * 4)
+        return act + pa + LM_PART_BYTES + region
+    qkv = max(3 * act, slices(F) * 1024)
+    cross = cross_bytes(D // H, T, es)
+    region = max(planes_bytes(F, terms, group), slices(D) * 1024, WARPS * 2 * lp * 4, cross)
+    return act + qkv + planes_bytes(D, terms, group) + region
+
+
+def padded_width(N: int) -> int:
+    """The widest row group N rows need: 4, 12 or 16."""
+    return 4 if N <= 4 else 12 if N <= 12 else 16
+
+
+def launch_geometry(kind: str, Bu: int, W: int, D: int, F: int, H: int, L: int, T: int, dtype: torch.dtype,
+                    holds: Callable[[int, int], int], what: str = "decoder-step kernel") -> Dict[str, int]:
+    """How K5 ("decoder") or K6 ("lm") lays out a launch of N = Bu W rows:
+    the widest row group of `GROUP_WIDTHS` ("group": consecutive rows, so
+    that a group may hold several utterances' rows or part of one), at most
+    `padded_width(N)`, whose shared memory fits a block, the groups, the
+    blocks a group's cluster (the most, up to 8, for which
+    `holds(group, cluster)`, the clusters the card keeps at once, is at
+    least the groups; `device_geometry` asks the card), the blocks, the
+    shared memory and the threads of a block.  Raises `ValueError` where
+    even buffers of 4 rows do not fit."""
+    es, N = torch.tensor([], dtype=dtype).element_size(), Bu * W
+    need = 0
+    for width in GROUP_WIDTHS:
+        if width <= padded_width(N):
+            need = smem_bytes(kind, width, D, F, H, L, T, es)
+            if need <= MAX_SMEM_BYTES:
+                group, smem, groups = width, need, -(-N // width)
+                cluster = next((c for c in range(8, 1, -1) if holds(group, c) >= groups), 1)
+                return {"group": group, "groups": groups, "cluster": cluster,
+                        "blocks": groups * cluster, "smem": smem, "threads": THREADS}
+    shape = f"W={W}, D={D}, F={F}, L={L}" + (f", T={T}" if kind == "decoder" else "")
+    raise ValueError(f"{what}: {shape} in {dtype} need {need} bytes of shared memory a block even in row groups "
+                     f"of {GROUP_WIDTHS[-1]}, the card allows {MAX_SMEM_BYTES}")
+
+
+def pack_fragments(w: torch.Tensor, terms: int) -> torch.Tensor:
+    """A weight as (out, in) rows, (N, K), as the products read it: split
+    into `terms` bf16 terms (hi = bf16(w), lo = bf16(w - hi)), padded with
+    zeros to whole groups of 16 output columns and `ksteps_padded(K)`
+    k-steps of 16, and laid out as the B fragments of mma.m16n8k16: for
+    each column group and k-step, per term, lane g * 4 + c of a warp holds
+    16 bytes, the words b0 (k 2c, 2c + 1) and b1 (k 2c + 8, 2c + 9) of
+    column 8 j + g for the n8 tiles j = 0, 1.  Returns a (groups, k-steps,
+    terms, 8, 4, 2, 2, 2) bf16 tensor."""
+    N, K = w.shape
+    groups, ksp = -(-N // 16), ksteps_padded(K)
+    x = torch.zeros(groups * 16, ksp * 16, dtype=torch.float32, device=w.device)
+    x[:N, :K] = w.float()
+    planes = []
+    for _ in range(terms):
+        t = x.to(torch.bfloat16)
+        planes.append(t)
+        x = x - t.float()
+    f = torch.stack(planes).view(terms, groups, 2, 8, ksp, 2, 4, 2)  # (term, group, j, g, k-step, half, c, pair)
+    return f.permute(1, 4, 0, 3, 6, 2, 5, 7).contiguous()
 
 
 def _layer_norm(x, scale, bias):
@@ -182,16 +312,22 @@ def decoder_layer_step_indirect_plain(h, cache_k, cache_v, pos, anc, cross_k, cr
                        elens.to(h.device), weights, int(beam_width))
 
 
+QKV = (("wq", "wk", "wv"), ("bq", "bk", "bv"))  # the projections the kernels run as one product
+
+
 class PackedWeights:
-    """A layer's weights checked once and held as the kernel reads them
-    (2-D ones as contiguous (out, in) rows), with the host array of their
-    device pointers.  Build one per layer and pass it as `weights` where
-    the step runs many times; `source` keeps the dict for the plain
-    versions.  `names` orders the weights as the kernel takes them; `ff`
-    names the feed-forward's first kernel, its bias and its second kernel
-    (shapes (D, F), (F,), (F, D)); every other kernel is (D, D), every other
-    vector (D,).  On the card all are of one dtype, float32 or bfloat16
-    (`dtype`), which the step's activations must share."""
+    """A layer's weights checked once and held as the kernel reads them,
+    with the host array of their device pointers.  Build one per layer and
+    pass it as `weights` where the step runs many times; `source` keeps the
+    dict for the plain versions.  `names` orders the weights as the kernel
+    takes them; `ff` names the feed-forward's first kernel, its bias and its
+    second kernel (shapes (D, F), (F,), (F, D)); every other kernel is
+    (D, D), every other vector (D,).  On the card all are of one dtype,
+    float32 or bfloat16 (`dtype`), which the step's activations must share;
+    the kernels are laid out by `pack_fragments`, the vectors kept
+    contiguous, and the query, key and value projections (`QKV`) packed as
+    one (3 D, D) kernel with one (3 D,) bias, which the pointers of all three
+    name."""
 
     def __init__(self, weights: Dict[str, torch.Tensor], names=WEIGHT_NAMES, ff=("w1", "b1", "w2"),
                  what: str = "decoder-step kernel"):
@@ -200,58 +336,61 @@ class PackedWeights:
         D, F = self.D, self.F
         self.device = weights[ff[0]].device
         self.dtype = weights[ff[0]].dtype
-        self.tensors = []
         shapes = {ff[0]: (F, D), ff[1]: (F,), ff[2]: (D, F)}
+        rows = {}
         for n in names:
             w = weights[n].detach()
             if w.dim() == 2:
                 w = w.t()  # (out, in) rows
-            w = w.contiguous()
             if tuple(w.shape) != shapes.get(n, (D, D) if w.dim() == 2 else (D,)):
                 raise ValueError(f"{what}: weight {n} is {tuple(weights[n].shape)}")
-            if self.device.type == "cuda":
-                if self.dtype not in SUFFIX or w.dtype != self.dtype or w.device != self.device:
-                    raise TypeError(f"{what}: {n} is {w.dtype} on {w.device}, want float32 or bfloat16 "
-                                    f"(all weights of one dtype) on {self.device}")
-                if w.data_ptr() % 16:
+            if self.device.type == "cuda" and (self.dtype not in SUFFIX or w.dtype != self.dtype
+                                               or w.device != self.device):
+                raise TypeError(f"{what}: {n} is {w.dtype} on {w.device}, want float32 or bfloat16 "
+                                f"(all weights of one dtype) on {self.device}")
+            rows[n] = w
+        self.tensors = {}
+        if self.device.type == "cuda":
+            for fused in QKV:
+                cat = torch.cat([rows[n] for n in fused])
+                for n in fused:
+                    rows[n] = cat
+            for n in names:
+                w = rows[n]
+                if w.data_ptr() not in self.tensors:
+                    self.tensors[w.data_ptr()] = pack_fragments(w, n_terms(self.dtype)) if w.dim() == 2 else w.contiguous()
+                rows[n] = self.tensors[w.data_ptr()]
+                if rows[n].data_ptr() % 16:
                     raise ValueError(f"{what}: {n} must be 16-byte aligned")
-            self.tensors.append(w)
-        self.ptrs = (ctypes.c_void_p * len(self.tensors))(*[w.data_ptr() for w in self.tensors])
+        self.ptrs = (ctypes.c_void_p * len(names))(*[rows[n].data_ptr() for n in names])
 
 
-_SM_COUNT: Dict[int, int] = {}
-_GROUPS: Dict[Tuple, Tuple[int, int]] = {}
+_GEOMETRY: Dict[Tuple, Dict[str, int]] = {}
 
 
-def _pick_cluster(groups: int, device: torch.device) -> int:
-    """Blocks per row group (a thread-block cluster): the largest of 8, 4, 2,
-    1 that keeps every cluster of the launch on the card at once."""
-    sms = _SM_COUNT.get(device.index)
-    if sms is None:
-        sms = _SM_COUNT[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
-    for c in (8, 4, 2):
-        if groups * c <= sms:
-            return c
-    return 1
+def device_geometry(kernel: CudaKernel, kind: str, Bu: int, W: int, D: int, F: int, H: int, L: int, T: int,
+                    dtype: torch.dtype, device: torch.device, what: str) -> Dict[str, int]:
+    """`launch_geometry` for `kernel`, the library that launches (K5 or K5
+    indirect, `kind` "decoder"; K6, "lm"), on `device`, which says how many
+    clusters of each size it keeps at once (`emo_*_max_clusters`); cached by
+    library and shape.  Raises `RuntimeError` where the card cannot say."""
+    key = (kernel.name, kind, Bu, W, D, F, H, L, T, dtype, device.index)
+    geo = _GEOMETRY.get(key)
+    if geo is None:
+        es = torch.tensor([], dtype=dtype).element_size()
 
+        def holds(group: int, c: int) -> int:
+            lib = kernel.lib()
+            n = (lib.emo_decoder_step_max_clusters(group, c, L, T, D, F, H, es) if kind == "decoder"
+                 else lib.emo_lm_step_max_clusters(group, c, L, D, F, es))
+            if n < 0:
+                raise RuntimeError(f"{what}: the card does not say how many clusters of {c} blocks "
+                                   f"(row groups of {group}) it holds at once")
+            return n
 
-def padded_width(W: int) -> int:
-    """The row padding of a group of W rows (`beam_step.cuh::padded_width`)."""
-    return 4 if W <= 4 else 12 if W <= 12 else 16
-
-
-def group_width(W: int, smem_bytes, what: str, shape: str) -> Tuple[int, int]:
-    """(W', shared memory a block): the widest row group W' of
-    `GROUP_WIDTHS`, at most `padded_width(W)`, whose `smem_bytes(W')` fits
-    one block; raises `ValueError` where even groups of 4 do not."""
-    need = 0
-    for wp in GROUP_WIDTHS:
-        if wp <= padded_width(W):
-            need = smem_bytes(wp)
-            if need <= MAX_SMEM_BYTES:
-                return wp, need
-    raise ValueError(f"{what}: {shape} need {need} bytes of shared memory a block even in row groups of "
-                     f"{GROUP_WIDTHS[-1]}, the card allows {MAX_SMEM_BYTES}")
+        with torch.cuda.device(device):
+            geo = _GEOMETRY[key] = launch_geometry(kind, Bu, W, D, F, H, L, T, dtype, holds, what)
+    return geo
 
 
 def _launch(kernel, name, h, cache_k, cache_v, pos, anc, cross_k, cross_v, elens, weights, W):
@@ -289,13 +428,7 @@ def _launch(kernel, name, h, cache_k, cache_v, pos, anc, cross_k, cross_v, elens
             raise TypeError(f"{what}: {n} is {t.dtype} on {t.device}, want {dt} on {dev}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{what}: {n} must be contiguous and 16-byte aligned")
-    key = (kernel.name, W, L, T, D, F, H, h.element_size())
-    group = _GROUPS.get(key)
-    if group is None:
-        group = _GROUPS[key] = group_width(
-            W, lambda wp: kernel.lib().emo_decoder_step_smem_bytes(wp, L, T, D, F, H, h.element_size()),
-            what, f"W={W}, D={D}, F={F}, T={T}, L={L} in {dt}")
-    wp = group[0]
+    geo = device_geometry(kernel, "decoder", Bu, W, D, F, H, L, T, dt, dev, what)
     # int32 inputs pass through as they are; anything else is converted
     pos32 = pos.to(device=dev, dtype=torch.int32).contiguous()
     elens32 = elens.to(device=dev, dtype=torch.int32).contiguous()
@@ -306,7 +439,7 @@ def _launch(kernel, name, h, cache_k, cache_v, pos, anc, cross_k, cross_v, elens
         args.append(anc32.data_ptr())
     args += [cross_k.data_ptr(), cross_v.data_ptr(), elens32.data_ptr(), pack.ptrs,
              out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-             Bu, W, L, T, D, F, H, wp, _pick_cluster(Bu * -(-W // wp), dev)]
+             Bu, W, L, T, D, F, H, geo["group"], geo["cluster"]]
     name = f"{name}_{SUFFIX[dt]}"
     if torch.cuda.current_device() == dev.index:
         kernel.launch(name, *args, torch.cuda.current_stream(dev).cuda_stream)

@@ -25,8 +25,9 @@ the CUDA kernel computes.
 `weights` maps `WEIGHT_NAMES` to tensors shaped as the JAX package's: 2-D
 kernels (in, out), 1-D biases and scales.  A `.t()` view of an `nn.Linear`
 weight is such a kernel.  `PackedWeights` (`ops/decoder_step.py`) checks
-and lays them out once; a caller that steps many times passes it in place
-of the dict.
+them and lays them out once for the products on the tensor cores (bf16
+terms in fragment order, `pack_fragments`); a caller that steps many times
+passes it in place of the dict.
 
 Types: h, the caches and the weights share one dtype, float32 or bfloat16
 (the JAX kernel's `adt`), and so do the outputs.  In bf16 the step rounds
@@ -39,12 +40,13 @@ For a CUDA tensor `fused_bert_layer_step_indirect` launches
 `csrc/lm_step.cu`; for a CPU tensor it takes the plain version.  On the
 card: float32 or bfloat16, all of one dtype (`TypeError` otherwise),
 D, d_k and F multiples of four (eight in bfloat16), and the shared memory
-one block needs within 227 KB (two (W', D) activations plus the larger of
-three (W', D) activations with the warps' f32 attention scratch 8 x 2
-(L + 4) and the FF hidden layer (W', F)); anything else raises
-`ValueError`.  W' is the row group (`decoder_step.group_width`): the W
-beam rows of an utterance go to ceil(W / W') clusters, so any W >= 1 is
-taken.  Decode-only: no dropout, no gradient.
+one block needs within 227 KB (`decoder_step.smem_bytes`: the residual
+stream (W', D), the bf16 A planes of D columns, the products' partial sums,
+and the larger of three (W', D) activations with the warps' f32 attention
+scratch and the A planes of the FF hidden layer); anything else raises
+`ValueError`.  W' is the row group (`decoder_step.launch_geometry`): the
+N = Bu W rows go in groups of W' consecutive rows, a cluster of blocks a
+group, so any W >= 1 is taken.  Decode-only: no dropout, no gradient.
 """
 
 from __future__ import annotations
@@ -60,9 +62,8 @@ from emoasr_tpu_torch.ops.decoder_step import (
     PackedWeights,
     _dense,
     _layer_norm,
-    _pick_cluster,
     cached_self_attention,
-    group_width,
+    device_geometry,
 )
 
 WEIGHT_NAMES = (
@@ -77,7 +78,7 @@ WHAT = "LM-step kernel"
 KERNEL = CudaKernel(
     "lm_step.cu",
     {**{f"emo_lm_step_indirect_{s}": [P] * 9 + [I] * 8 + [P] for s in SUFFIX.values()},
-     "emo_lm_step_smem_bytes": [I] * 5},
+     "emo_lm_step_smem_bytes": [I] * 5, "emo_lm_step_max_clusters": [I] * 6},
 )
 
 # XLA's float32 erf (ErfImpl32), as `emoasr_tpu/ops/lm_step_pallas.py`
@@ -140,9 +141,6 @@ def pack_weights(weights: Dict[str, torch.Tensor]) -> PackedWeights:
     return PackedWeights(weights, WEIGHT_NAMES, FF_NAMES, WHAT)
 
 
-_GROUPS: Dict[Tuple[int, ...], Tuple[int, int]] = {}
-
-
 def _launch(h, cache_k, cache_v, pos, anc, weights):
     Bu, W, L, H, dk = cache_k.shape
     D, N = H * dk, Bu * W
@@ -171,20 +169,14 @@ def _launch(h, cache_k, cache_v, pos, anc, weights):
             raise TypeError(f"{WHAT}: {n} is {t.dtype} on {t.device}, want {dt} on {dev}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{WHAT}: {n} must be contiguous and 16-byte aligned")
-    key = (W, L, D, F, h.element_size())
-    group = _GROUPS.get(key)
-    if group is None:
-        group = _GROUPS[key] = group_width(
-            W, lambda wp: KERNEL.lib().emo_lm_step_smem_bytes(wp, L, D, F, h.element_size()), WHAT,
-            f"W={W}, D={D}, F={F}, L={L} in {dt}")
-    wp = group[0]
+    geo = device_geometry(KERNEL, "lm", Bu, W, D, F, H, L, 1, dt, dev, WHAT)
     # int32 inputs pass through as they are; anything else is converted
     pos32 = pos.to(device=dev, dtype=torch.int32).contiguous()
     anc32 = anc.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty((3, N, D), dtype=dt, device=dev)
     args = [h.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), pos32.data_ptr(), anc32.data_ptr(),
             pack.ptrs, out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            Bu, W, L, D, F, H, wp, _pick_cluster(Bu * -(-W // wp), dev)]
+            Bu, W, L, D, F, H, geo["group"], geo["cluster"]]
     name = f"emo_lm_step_indirect_{SUFFIX[dt]}"
     if torch.cuda.current_device() == dev.index:
         KERNEL.launch(name, *args, torch.cuda.current_stream(dev).cuda_stream)

@@ -21,7 +21,9 @@ dtypes, at every width and at the edges of its tiling (`check_rnnt_joint_
 edges`), each launched twice with bit-identical outputs: RNNT_JOINT_TOL;
 the LSTM above H = 512: the tolerances of its narrower check, beside
 `check_lstm_wide`; every LSTM case twice, bit-identical; the beam steps
-at W = 17 and 33, and rows 0-15 of W = 20 equal to W = 16 bit for bit).
+at W = 17 and 33, each launched twice (bit-identical), rows 0-15 of W = 20
+equal to W = 16 bit for bit, and their launch geometry against the
+libraries' and the card's own accounts).
 """
 
 import pytest
@@ -112,9 +114,10 @@ def test_decoder_step_kernels_match_plain(cuda_dev):
 
     before = (decoder_step.KERNEL.launches, decoder_step.KERNEL_INDIRECT.launches)
     chip_smoke.check_decoder_step(*cuda_dev)
-    n = len(chip_smoke.DEC_STEP_CASES)  # W up to 33: direct, and direct on gathered caches
-    assert decoder_step.KERNEL.launches - before[0] == 2 * n
-    assert decoder_step.KERNEL_INDIRECT.launches - before[1] == n
+    # W up to 33: direct (twice, bit-identical), and direct on gathered caches; indirect twice
+    n = len(chip_smoke.dec_step_cases(torch.float32))
+    assert decoder_step.KERNEL.launches - before[0] == 3 * n
+    assert decoder_step.KERNEL_INDIRECT.launches - before[1] == 2 * n
 
 
 def test_beam_rows_do_not_depend_on_their_group(cuda_dev):
@@ -122,6 +125,38 @@ def test_beam_rows_do_not_depend_on_their_group(cuda_dev):
     equal a W = 16 launch bit for bit, in both dtypes."""
     for dtype in (torch.float32, torch.bfloat16):
         chip_smoke.check_beam_groups(*cuda_dev, dtype)
+
+
+def test_beam_step_geometry_matches_the_kernels(cuda_dev):
+    """K5's and K6's shared memory as `decoder_step.smem_bytes` accounts it
+    equals the libraries' own (`emo_*_smem_bytes`, their `Layout`s) for
+    every row group at the shipped shapes, narrow ones and an encoder output
+    longer than the cross-attention's window, in both dtypes;
+    and the card keeps every cluster of the launches that
+    `device_geometry` plans for the L3 buckets at once."""
+    from emoasr_tpu_torch.ops import decoder_step as ds
+    from emoasr_tpu_torch.ops import lm_step
+
+    dev = cuda_dev[0]
+    for es in (4, 2):
+        for group in ds.GROUP_WIDTHS:
+            for D, F, H, L, T in ((256, 2048, 4, 258, 399), (64, 96, 2, 9, 50), (128, 256, 8, 16, 21),
+                                  (256, 2048, 4, 258, 1100), (100, 100, 5, 9, 30)):
+                assert ds.smem_bytes("decoder", group, D, F, H, L, T, es) == \
+                    ds.KERNEL_INDIRECT.lib().emo_decoder_step_smem_bytes(group, L, T, D, F, H, es)
+            for D, F, L in ((512, 2048, 256), (64, 96, 9)):
+                assert ds.smem_bytes("lm", group, D, F, 8, L, 1, es) == lm_step.KERNEL.lib().emo_lm_step_smem_bytes(
+                    group, L, D, F, es)
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dtype).element_size()
+        for Bu, W in ((18, 10), (18, 17), (18, 33), (50, 17)):
+            for kernel in (ds.KERNEL, ds.KERNEL_INDIRECT):
+                g = ds.device_geometry(kernel, "decoder", Bu, W, 256, 2048, 4, 258, 399, dtype, dev, "test")
+                assert kernel.lib().emo_decoder_step_max_clusters(
+                    g["group"], g["cluster"], 258, 399, 256, 2048, 4, es) >= g["groups"] or g["cluster"] == 1
+            g = ds.device_geometry(lm_step.KERNEL, "lm", Bu, W, 512, 2048, 8, 256, 1, dtype, dev, "test")
+            assert lm_step.KERNEL.lib().emo_lm_step_max_clusters(
+                g["group"], g["cluster"], 256, 512, 2048, es) >= g["groups"] or g["cluster"] == 1
 
 
 def test_decoder_step_rejects_what_it_does_not_take(cuda_dev):
@@ -175,10 +210,10 @@ def test_decoder_step_bf16_kernels_match_plain(cuda_dev):
 
     before = (dict(decoder_step.KERNEL.counts), dict(decoder_step.KERNEL_INDIRECT.counts))
     chip_smoke.check_decoder_step(*cuda_dev, torch.bfloat16)
-    n = len(chip_smoke.DEC_STEP_CASES)
-    assert decoder_step.KERNEL.counts["emo_decoder_step_bf16"] - before[0]["emo_decoder_step_bf16"] == 2 * n
+    n = len(chip_smoke.dec_step_cases(torch.bfloat16))
+    assert decoder_step.KERNEL.counts["emo_decoder_step_bf16"] - before[0]["emo_decoder_step_bf16"] == 3 * n
     assert (decoder_step.KERNEL_INDIRECT.counts["emo_decoder_step_indirect_bf16"]
-            - before[1]["emo_decoder_step_indirect_bf16"]) == n
+            - before[1]["emo_decoder_step_indirect_bf16"]) == 2 * n
     assert decoder_step.KERNEL.counts["emo_decoder_step_f32"] == before[0]["emo_decoder_step_f32"]
 
 
@@ -187,8 +222,8 @@ def test_lm_step_kernel_matches_plain(cuda_dev):
 
     before = lm_step.KERNEL.launches
     chip_smoke.check_lm_step(*cuda_dev)
-    # W up to 33: the step, and the step on gathered caches
-    assert lm_step.KERNEL.launches - before == 2 * len(chip_smoke.LM_STEP_CASES)
+    # W up to 33: the step (twice, bit-identical), and the step on gathered caches
+    assert lm_step.KERNEL.launches - before == 3 * len(chip_smoke.lm_step_cases(torch.float32))
 
 
 def test_lm_step_rejects_what_it_does_not_take(cuda_dev):
@@ -237,8 +272,8 @@ def test_lm_step_bf16_kernel_matches_plain(cuda_dev):
 
     before = dict(lm_step.KERNEL.counts)
     chip_smoke.check_lm_step(*cuda_dev, torch.bfloat16)
-    n = len(chip_smoke.LM_STEP_CASES)
-    assert lm_step.KERNEL.counts["emo_lm_step_indirect_bf16"] - before["emo_lm_step_indirect_bf16"] == 2 * n
+    n = len(chip_smoke.lm_step_cases(torch.bfloat16))
+    assert lm_step.KERNEL.counts["emo_lm_step_indirect_bf16"] - before["emo_lm_step_indirect_bf16"] == 3 * n
     assert lm_step.KERNEL.counts["emo_lm_step_indirect_f32"] == before["emo_lm_step_indirect_f32"]
 
 
