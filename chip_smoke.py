@@ -8,11 +8,15 @@ Phases (any failed check raises, so the script exits non-zero):
 1. Device: require CUDA, print the card's name and power limit, set the
    port's TF32 switch for float32 and say what it found.
 2. Build: compile every CUDA kernel from `emoasr_tpu_torch/csrc/`, one nvcc
-   per source, all at once; beside them the tensor-core sources once more
-   with `-Xptxas -v`, for each kernel's registers, spills, shared memory
-   and count of tensor-core (HMMA / HGMMA) instructions.
+   per source, all at once (and K2's latency-floor variant); beside them
+   the sources once more with `-Xptxas -v`, for each kernel's registers,
+   spills, shared memory and count of tensor-core (HMMA / HGMMA)
+   instructions.
 3. Kernels against their plain PyTorch versions on the card, forward and
-   backward, each with its stated tolerance (top-k exact; attention forward
+   backward, each with its stated tolerance (top-k exact, every case twice
+   and bit-identical, at the main paths' shapes, ties, -inf rows, rows
+   whose top entries crowd a few threads, and V = MAX_V; the CTC lattice
+   also at S = 1025 and S = MAX_S; attention forward
    f32 1e-5, bf16 2e-2, with and without the score bias; attention backward,
    CTC head, CTC lattice, the decoder layer step, direct and indirect, the
    LM layer step, the RNN-T joint and the LSTM recurrence: see the
@@ -110,7 +114,9 @@ Phases (any failed check raises, so the script exits non-zero):
    that splits its operands into bf16 terms held to that many tensor-core
    products; K8 in both storage types as three or two), K4's forward also
    with dropout (training's), K7 at J = 1024 and K8 at H = 1024 beside the
-   chunked route and cuDNN, and K5 and K6 at W = 33; one
+   chunked route and cuDNN, K5 and K6 at W = 33, K3 at every shape class
+   the beams launch (with its launches by class over the main paths) and
+   K2 beside its latency floor (`tools/k2_parts.py`'s `chain_only`); one
    JSON line describing each kernel, the `nvidia-smi` line, and last the
    `{"ok": true, "device": ...}` line.
 
@@ -193,22 +199,23 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 # ---------------------------------------------------------------- kernels
 
-# the sources whose kernels run on the tensor cores, with their defines (K5's
-# source builds its indirect variant here, the main path's): their
-# registers, spills and shared memory (`nvcc -Xptxas -v`) and their count of
-# tensor-core instructions (`cuobjdump -sass`) are reported in phase 2
-TENSOR_CORE_SOURCES = (("attention.cu", ()), ("ctc_head.cu", ()), ("rnnt_joint.cu", ()), ("lstm_scan.cu", ()),
-                       ("decoder_step.cu", ("EMO_DECODER_STEP_INDIRECT=1",)), ("lm_step.cu", ()))
+# the kernels' sources with their defines (K5's source builds its indirect
+# variant here, the main path's): their registers, spills and shared memory
+# (`nvcc -Xptxas -v`) and their count of tensor-core instructions
+# (`cuobjdump -sass`; none in K2 and K3) are reported in phase 2
+RESOURCE_SOURCES = (("attention.cu", ()), ("ctc_head.cu", ()), ("rnnt_joint.cu", ()), ("lstm_scan.cu", ()),
+                    ("decoder_step.cu", ("EMO_DECODER_STEP_INDIRECT=1",)), ("lm_step.cu", ()), ("topk.cu", ()),
+                    ("ctc_lattice.cu", ()))
 
 
 def start_resource_builds(out_dir: str) -> dict:
-    """One `nvcc -Xptxas -v` per tensor-core source, started (not awaited)
-    beside the kernels' own build."""
+    """One `nvcc -Xptxas -v` per source of RESOURCE_SOURCES, started (not
+    awaited) beside the kernels' own build."""
     from emoasr_tpu_torch.ops.cuda_lib import CSRC_DIR, NVCC_FLAGS, find_nvcc
 
     os.makedirs(out_dir, exist_ok=True)
     jobs = {}
-    for src, defines in TENSOR_CORE_SOURCES:
+    for src, defines in RESOURCE_SOURCES:
         lib = os.path.join(out_dir, src + ".so")
         cmd = [find_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-Xptxas", "-v", "-o", lib,
                os.path.join(CSRC_DIR, src)]
@@ -346,15 +353,27 @@ def kernel_resources(jobs: dict) -> dict:
 
 
 def topk_cases(dev, gen):
-    """(name, x, k) inputs: random rows, ties, and rows of -inf."""
+    """(name, x, k) inputs: random rows, ties, rows of -inf, the main paths'
+    shapes (the CTC beam's (B, V) k = 8, the attention pre-selection's
+    (B, W, V) k = 15 at V = 10000 and CSJ's 10872, the ALSD expansion's
+    (B, W, V - 1) k = 10, the W = 17 pool's (B, W^2) k = 17), rows whose top
+    entries crowd the fewest threads (each thread's entries share one value
+    band: the most entries pass the kernel's threshold), and V = MAX_V."""
+    from emoasr_tpu_torch.ops.topk import MAX_V
+
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def log_probs(*shape, dtype=torch.float32):
+        return torch.log_softmax(randn(*shape), -1).to(dtype)
 
     ties = torch.randint(-3, 3, (64, 10000), generator=gen, device=dev).float()
     inf = torch.full((6, 10000), float("-inf"), device=dev)
     inf[1, 7777] = 1.0
     inf[2, 5000:] = randn(5000)
     inf[3, ::97] = 0.5
+    i = torch.arange(10000, device=dev, dtype=torch.float32)
+    crowded = ((i % 1024) // 4 + i * 1e-6).expand(4, -1).contiguous()  # thread t of a block owns band t
     return [
         ("f32 (128,10000) k=8", randn(128, 10000), 8),
         ("f32 (7,1000) k=10", randn(7, 1000), 10),
@@ -365,21 +384,37 @@ def topk_cases(dev, gen):
         ("f32 ties (64,10000) k=16", ties, 16),
         ("bf16 ties (64,10000) k=8", ties.to(torch.bfloat16), 8),
         ("f32 -inf rows (6,10000) k=12", inf, 12),
+        ("f32 (18,10000) k=8", log_probs(18, 10000), 8),
+        ("bf16 (18,10000) k=8", log_probs(18, 10000, dtype=torch.bfloat16), 8),
+        ("f32 (18,10,10872) k=15", log_probs(18, 10, 10872), 15),
+        ("f32 (18,10,999) k=10", log_probs(18, 10, 999), 10),
+        ("bf16 (18,10,999) k=10", log_probs(18, 10, 999, dtype=torch.bfloat16), 10),
+        ("f32 (18,289) k=17", randn(18, 289), 17),
+        ("f32 crowded (4,10000) k=32", crowded, 32),
+        ("f32 crowded (4,10000) k=1", crowded, 1),
+        (f"f32 (3,{MAX_V}) k=32", randn(3, MAX_V), 32),
+        (f"bf16 (2,{MAX_V}) k=15", randn(2, MAX_V, dtype=torch.bfloat16), 15),
+        ("f32 (1,256) k=32", randn(1, 256), 32),
+        ("bf16 (5,257) k=1", randn(5, 257, dtype=torch.bfloat16), 1),
     ]
 
 
 def check_topk(dev, gen) -> float:
-    """Kernel == plain version, values and indices, on every case."""
-    from emoasr_tpu_torch.ops.topk import topk_lastdim_kernel, topk_plain
+    """Kernel == plain version, values and indices, on every case; each
+    case launched twice, bit-identical."""
+    from emoasr_tpu_torch.ops.topk import launch_geometry, topk_lastdim_kernel, topk_plain
 
     for name, x, k in topk_cases(dev, gen):
         v1, i1 = topk_lastdim_kernel(x, k)
+        v2, i2 = topk_lastdim_kernel(x, k)
         v0, i0 = topk_plain(x, k)
         torch.cuda.synchronize()
         require(v1.dtype == x.dtype and i1.dtype == torch.int32, f"topk {name}: dtypes {v1.dtype} {i1.dtype}")
         require(torch.equal(i1, i0), f"topk {name}: indices differ from the plain version")
         require(torch.equal(v1, v0), f"topk {name}: values differ from the plain version")
-        print(f"  top-k {name}: exact")
+        require(torch.equal(i1, i2) and torch.equal(v1, v2), f"topk {name}: two launches differ")
+        geo = launch_geometry(x.numel() // x.shape[-1], x.shape[-1], k, x.dtype)
+        print(f"  top-k {name}: exact, twice bit-identical ({geo['parts']} blocks a row, {geo['keys']} keys a thread)")
     return 0.0
 
 
@@ -486,18 +521,27 @@ def check_attention(dev, gen) -> dict:
     return {"attention_fwd": worst[torch.float32], "attention_fwd_bf16": worst[torch.bfloat16]}
 
 
-def time_topk(dev, gen, shape: tuple, k: int) -> dict:
-    """K3 over the last axis of float32 log-probabilities of `shape`."""
+# K3's shape classes on the main paths, (shape, k): the attention beam's
+# pre-selection (B, W, V) k = 1.5 W (first: the `kernels` line's own row),
+# the CTC beam's (B, V) k = 8, CSJ's vocabulary, the ALSD expansion's
+# (B, W, V - 1) k = W, the W = 17 pool's (B, W^2) k = W and the W = 17
+# pre-selection
+TOPK_SHAPES = (((18, 10, 10000), 15), ((18, 10000), 8), ((18, 10, 10872), 15), ((18, 10, 999), 10),
+               ((18, 289), 17), ((18, 17, 10000), 25))
+
+
+def time_topk(dev, gen, shape: tuple, k: int, dtype=torch.float32) -> dict:
+    """K3 over the last axis of log-probabilities of `shape` in `dtype`."""
     from emoasr_tpu_torch.ops.topk import topk_lastdim_kernel, topk_plain
 
-    x = torch.log_softmax(torch.randn(*shape, generator=gen, device=dev), -1)
+    x = torch.log_softmax(torch.randn(*shape, generator=gen, device=dev), -1).to(dtype)
     esize, V = x.element_size(), shape[-1]
     rows = x.numel() // V
     bytes_moved = rows * V * esize + rows * k * (esize + 4)
-    ops = rows * V * k  # one compare per entry per round
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_FLOPS[x.dtype]
+    ops = rows * V  # one compare an entry: the least a selection does
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_FLOPS[torch.float32]
     return {
-        "shape": f"({','.join(map(str, shape))}) k={k} {x.dtype}",
+        "shape": f"({','.join(map(str, shape))}) k={k} {str(x.dtype).replace('torch.', '')}",
         "ms": cuda_time_ms(lambda: topk_lastdim_kernel(x, k)),
         "plain_ms": cuda_time_ms(lambda: topk_plain(x, k)),
         "library_ms": cuda_time_ms(lambda: torch.topk(x, k, dim=-1)),
@@ -646,27 +690,41 @@ def lattice_case(dev, gen, B: int, T: int, U: int, V: int):
     return lp_path, allow2f, initf, finalf, xlens
 
 
+def lattice_cases() -> tuple:
+    """(name, (B, T, U, V)) of `check_ctc_lattice`: L1's largest bucket, two
+    narrow lattices, one of several warps a chain and the widest the kernels
+    take (S = MAX_S: 2 U + 1 states and one dead state after them)."""
+    from emoasr_tpu_torch.ops.ctc_lattice import MAX_S
+
+    U_max = (MAX_S - 1) // 2
+    return (("(399,18,257)", (18, 399, 128, 64)), ("(50,5,21)", (5, 50, 10, 7)), ("(9,4,1)", (4, 9, 0, 5)),
+            ("(1100,5,1025)", (5, 1100, 512, 64)), (f"({2 * U_max + 80},3,{MAX_S})", (3, 2 * U_max + 80, U_max, 64)))
+
+
 def check_ctc_lattice(dev, gen) -> dict:
     from emoasr_tpu_torch.ops.common import LOG_0
-    from emoasr_tpu_torch.ops.ctc_lattice import ctc_ll_from_path, ctc_ll_plain
+    from emoasr_tpu_torch.ops.ctc_lattice import MAX_S, ctc_ll_from_path, ctc_ll_plain, launch_geometry
 
     worst = {"ll": 0.0, "grad": 0.0}
-    for name, (B, T, U, V) in (("(399,18,257)", (18, 399, 128, 64)), ("(50,5,21)", (5, 50, 10, 7)),
-                               ("(9,4,1)", (4, 9, 0, 5))):
+    for name, (B, T, U, V) in lattice_cases():
         lp_path, allow2f, initf, finalf, xlens = lattice_case(dev, gen, B, T, max(U, 1), V)
         if U == 0:  # S = 1: blank only
             lp_path, allow2f, initf, finalf = (x[..., :1].contiguous() for x in (lp_path, allow2f, initf, finalf))
             finalf.fill_(1.0)
+        if 2 * U + 1 == MAX_S - 1:  # one dead state more: neither initial, final nor a skip target
+            lp_path = torch.cat([lp_path, lp_path[..., -1:]], -1).transpose(0, 1).contiguous().transpose(0, 1)
+            allow2f, initf, finalf = (torch.cat([m, torch.zeros_like(m[:, :1])], 1) for m in (allow2f, initf, finalf))
         g = torch.randn(B, generator=gen, device=dev)
         outs = []
-        for fn, x in ((ctc_ll_from_path, lp_path), (ctc_ll_plain, lp_path.clone()),
+        for fn, x in ((ctc_ll_from_path, lp_path), (ctc_ll_from_path, lp_path), (ctc_ll_plain, lp_path.clone()),
                       (ctc_ll_plain, lp_path.double())):
             x = x.detach().requires_grad_(True)
             ll = fn(x, allow2f, initf, finalf, xlens)
             (grad,) = torch.autograd.grad(ll, x, g.to(ll.dtype))
             outs.append((ll.detach(), grad))
         torch.cuda.synchronize()
-        (ll1, g1), (ll32, g32), (ll0, g0) = outs
+        (ll1, g1), (ll2, g2), (ll32, g32), (ll0, g0) = outs
+        require(torch.equal(ll1, ll2) and torch.equal(g1, g2), f"lattice {name}: two launches differ")
         ok = ll0 > LOG_0 / 2  # rows with a feasible alignment
         require(torch.equal(ok, ll1 > LOG_0 / 2), f"lattice {name}: feasible rows differ from the plain version's")
         if U > 0:
@@ -677,8 +735,10 @@ def check_ctc_lattice(dev, gen) -> dict:
         e_ll = _require_close(f"lattice {name} ll", ll1[ok], ll0[ok], *LATTICE_TOL["ll"])
         e_g = _require_close(f"lattice {name} grad", g1, g0, *LATTICE_TOL["grad"])
         worst = {"ll": max(worst["ll"], e_ll), "grad": max(worst["grad"], e_g)}
+        geo = launch_geometry(lp_path.shape[2])
         print(f"  ctc lattice {name}: ll err {e_ll:.3e}, grad err {e_g:.3e} against the float64 plain version "
-              f"(its float32 run: {_max_err(ll32[ok], ll0[ok]):.3e}, {_max_err(g32, g0):.3e})")
+              f"(its float32 run: {_max_err(ll32[ok], ll0[ok]):.3e}, {_max_err(g32, g0):.3e}); twice bit-identical; "
+              f"{int(ok.sum())} of {B} rows feasible; {geo['warps']} warps x {geo['spl']} states a thread")
     return worst
 
 
@@ -2078,12 +2138,36 @@ def time_ctc_head(dev, gen, B: int, T: int, H: int, V: int, U: int, dtype=torch.
     return rows
 
 
-def time_ctc_lattice(dev, gen, B: int, T: int, U: int, V: int) -> dict:
+def lattice_floor_kernel():
+    """K2's `chain_only` variant (`tools/k2_parts.py`): each step's
+    dependence alone, the latency floor of the shipped geometry; built from
+    this tree's source beside the kernels."""
+    import importlib.util
+
+    from emoasr_tpu_torch.ops import ctc_lattice, cuda_lib
+
+    spec = importlib.util.spec_from_file_location("k2_parts", os.path.join(REPO, "tools", "k2_parts.py"))
+    k2_parts = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(k2_parts)
+    with open(os.path.join(cuda_lib.CSRC_DIR, "ctc_lattice.cu")) as f:
+        text = k2_parts.variant_sources(f.read())["chain_only"]
+    out_dir = os.path.join(REPO, "build", "chip_smoke_floor")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "ctc_lattice_chain_only.cu")
+    with open(path, "w") as f:
+        f.write(text)
+    return cuda_lib.CudaKernel(os.path.relpath(path, cuda_lib.CSRC_DIR), ctc_lattice.KERNEL.signatures,
+                               name="ctc_lattice_chain_only")
+
+
+def time_ctc_lattice(dev, gen, B: int, T: int, U: int, V: int, floor_kernel=None) -> dict:
     """alpha and beta kernels at the training shapes, beside the plain loop
     and `F.ctc_loss` (which takes dense (T, B, V) log-probabilities: another
-    interface, timed as a yardstick only)."""
+    interface, timed as a yardstick only), and beside `floor_kernel`'s
+    launches of the same shapes (`floor_ms`): the chain's latency floor."""
     import torch.nn.functional as F
 
+    from emoasr_tpu_torch.ops import ctc_lattice
     from emoasr_tpu_torch.ops.ctc_lattice import ctc_ll_from_path, ctc_ll_plain
 
     lp = torch.log_softmax(torch.randn(T, B, V, generator=gen, device=dev), -1)
@@ -2112,8 +2196,26 @@ def time_ctc_lattice(dev, gen, B: int, T: int, U: int, V: int) -> dict:
     steps = int(xlens.sum().item())  # live (t, b) pairs: the loops end at xlens
     rows["ctc_alpha"].update(_bound(4 * (2 * steps * S + 3 * B * S + 2 * B), 12.0 * steps * S))
     rows["ctc_beta_grad"].update(_bound(4 * (2 * steps * S + T * B * S + 2 * B * S + 3 * B), 14.0 * steps * S))
+    geo = ctc_lattice.launch_geometry(S)
+    if floor_kernel is not None:
+        masks = [m.float().contiguous() for m in (allow2f, initf, finalf)]
+        xl = xlens.int().contiguous()
+        alpha, grad = torch.empty(T, B, S, device=dev, dtype=torch.float64), torch.empty_like(lp_path)
+        ll, ll64 = torch.empty(B, device=dev), torch.empty(B, device=dev, dtype=torch.float64)
+        stream = torch.cuda.current_stream().cuda_stream
+        st = (lp_path.stride(0), lp_path.stride(1), geo["spl"], geo["warps"], stream)
+        fwd = (lp_path.data_ptr(), *(m.data_ptr() for m in masks), xl.data_ptr(), alpha.data_ptr(), ll.data_ptr(),
+               ll64.data_ptr(), T, B, S, *st)
+        rows["ctc_alpha"]["floor_ms"] = cuda_time_ms(lambda: floor_kernel.launch("emo_ctc_alpha_f32", *fwd),
+                                                     iters=20, warmup=1)
+        # the shipped forward's alpha and ll, so that the floor's backward has the same live rows
+        ctc_lattice.KERNEL.launch("emo_ctc_alpha_f32", *fwd)
+        rows["ctc_beta_grad"]["floor_ms"] = cuda_time_ms(lambda: floor_kernel.launch(
+            "emo_ctc_beta_grad_f32", lp_path.data_ptr(), masks[0].data_ptr(), masks[2].data_ptr(), xl.data_ptr(),
+            alpha.data_ptr(), ll64.data_ptr(), g.data_ptr(), grad.data_ptr(), T, B, S, *st),
+            iters=20, warmup=1)
     for r in rows.values():
-        r["shape"] = f"({T},{B},{S}) float32, {T - 1} dependent steps"
+        r["shape"] = f"({T},{B},{S}) float32, {T - 1} dependent steps, {geo['warps']} warps x {geo['spl']} states"
     return rows
 
 
@@ -2155,6 +2257,15 @@ def time_attention_backward(dev, gen, B: int, T: int, H: int, D: int, lens: torc
 
 # ---------------------------------------------------------------- main paths
 
+class Launches(dict):
+    """Launch counts by launcher; `topk_shapes`: K3's launches by shape
+    class, (V, k, dtype)."""
+
+    def __init__(self, counts: dict, topk_shapes: dict):
+        super().__init__(counts)
+        self.topk_shapes = topk_shapes
+
+
 # the kernels' launchers, by the name each has on the `kernels` line
 def launch_counts() -> dict:
     from emoasr_tpu_torch.ops import (attention, ctc_head, ctc_lattice, decoder_step, lm_step, lstm_scan,
@@ -2192,7 +2303,7 @@ def launch_counts() -> dict:
         "decoder_step_indirect_bf16": decoder_step.KERNEL_INDIRECT.counts["emo_decoder_step_indirect_bf16"],
         "lm_step_indirect_bf16": lm_step.KERNEL.counts["emo_lm_step_indirect_bf16"],
     }
-    return counts
+    return Launches(counts, topk_shapes=dict(topk.SHAPE_LAUNCHES))
 
 
 BF16_KEYS = ("attention_fwd_bf16", "attention_bwd_bf16", "attention_bias_fwd_bf16", "attention_bias_bwd_bf16",
@@ -2211,8 +2322,11 @@ def all_kernels() -> list:
 
 
 def reset_launch_counts() -> None:
+    from emoasr_tpu_torch.ops import topk
+
     for kernel in all_kernels():
         kernel.reset_counts()
+    topk.SHAPE_LAUNCHES.clear()
 
 
 def write_vocab(root: str, vocab_size: int) -> str:
@@ -4000,11 +4114,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels = all_kernels()
     jobs = start_resource_builds(os.path.join(REPO, "build", "chip_smoke_resources"))
-    build_all(kernels)
+    floor = lattice_floor_kernel()
+    build_all(kernels + [floor])
     resources = kernel_resources(jobs)
     print(f"[2/14] built {', '.join(k.name for k in kernels)} from "
           f"{', '.join(sorted({k.source for k in kernels}))} in {time.perf_counter() - t0:.1f} s")
-    print("  the tensor-core kernels (nvcc -Xptxas -v, cuobjdump -sass): registers, spill stores / loads (bytes), "
+    print("  the kernels (nvcc -Xptxas -v, cuobjdump -sass): registers, spill stores / loads (bytes), "
           "static shared memory (bytes), HMMA + HGMMA instructions")
     for name, r in resources.items():
         print(f"    {r['source']} {name}: {r['registers']} registers, spills {r['spill_stores']} / {r['spill_loads']}, "
@@ -4127,12 +4242,14 @@ def main(argv=None) -> int:
     lens = torch.linspace(T2 // 4, T2, B, device=dev).round().int()
     # K3 at the attention beam's pre-selection (B, W, V) with k = 1.5 W, and
     # beside it at the CTC beam's (B, V) with k = 8
-    times = {"topk": {**time_topk(dev, gen, (B, 10, 10000), 15),
-                      "ctc_beam_shape": time_topk(dev, gen, (B, 10000), 8)},
+    topk_shapes = [{**time_topk(dev, gen, shape, k, dt), "class": [shape[-1], k, str(dt).replace("torch.", "")]}
+                   for shape, k in TOPK_SHAPES for dt in (torch.float32, torch.bfloat16)]
+    times = {"topk": {**topk_shapes[0], "shapes": topk_shapes},
              "attention_fwd": time_attention(dev, gen, B, T2, 4, 64, lens),
              "attention_bwd": time_attention_backward(dev, gen, B, T2, 4, 64, lens)}
     times.update(time_ctc_head(dev, gen, B, T2, 256, 10000, big.max_ylen))
-    times.update(time_ctc_lattice(dev, gen, B, T2, big.max_ylen, 10000))
+    times.update(time_ctc_lattice(dev, gen, B, T2, big.max_ylen, 10000, floor))
+    wide_lattice = time_ctc_lattice(dev, gen, B, 1100, 512, 10000, floor)  # S = 1025: 17 warps of two states
     times.update(time_attention_bias(dev, gen, B, T2, 4, 64, lens))
     times.update(time_decoder_step(dev, gen, B, 10, 258, T2, 64, lens))
     times.update(time_lm_step(dev, gen, B, 10, 256, 64))
@@ -4188,10 +4305,28 @@ def main(argv=None) -> int:
             "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"],
-            **{k: t[k] for k in ("ops_at", "dense_route_ms", "ctc_beam_shape", "dropout_ms", "plain_dropout_ms",
-                                 "library_dropout_ms") if k in t},
+            **{k: t[k] for k in ("ops_at", "dense_route_ms", "shapes", "floor_ms", "s1025", "dropout_ms",
+                                 "plain_dropout_ms", "library_dropout_ms") if k in t},
         }
 
+    # K3 by shape class over the main paths (a call is one launch of one grid)
+    by_class = {}
+    for p in paths:
+        for cls, n in getattr(p, "topk_shapes", {}).items():
+            by_class[cls] = by_class.get(cls, 0) + n
+    require(sum(by_class.values()) == sum(p["topk"] for p in paths),
+            "K3's launches by shape class do not add up to its launches")
+    print("  K3 launches on the main paths by shape class (V, k, dtype): " +
+          ", ".join(f"{cls}: {n}" for cls, n in sorted(by_class.items(), key=lambda kv: -kv[1])))
+    for r in topk_shapes:
+        r["launches"] = by_class.get(tuple(r["class"]), 0)
+        print(f"    top-k {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by {r['bound_by']}, plain "
+              f"{r['plain_ms']:.4f}, torch.topk {r['library_ms']:.4f}), {r['launches']} launches of its class")
+    for name in ("ctc_alpha", "ctc_beta_grad"):
+        times[name]["s1025"] = wide_lattice[name]
+        for t in (times[name], wide_lattice[name]):
+            print(f"    {name} {t['shape']}: {t['ms']:.4f} ms, chain_only floor {t['floor_ms']:.4f} ms "
+                  f"({t['ms'] / t['floor_ms']:.2f}x), bound {t['bound_ms']:.4f} by {t['bound_by']}")
     rows = []
     for name, src, rep in KERNEL_ROWS:
         launches = sum(p[name] for p in paths)

@@ -5,7 +5,9 @@ card, run them without the JAX test configuration:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-The cases and tolerances are those of `chip_smoke.py` (top-k exact;
+The cases and tolerances are those of `chip_smoke.py` (top-k exact, every
+case twice, bit-identical; the CTC lattice within LATTICE_TOL, every case
+twice, bit-identical;
 attention forward f32 within 1e-5, bf16 within 2e-2, with and without the
 score bias, and both dtypes' launchers at the edge cases of their tiling
 (`k4_edge_cases`: the f32 ones forward and backward, bias none, f32 and
@@ -51,7 +53,31 @@ def test_topk_kernel_matches_plain(cuda_dev):
 
     before = topk.KERNEL.launches
     chip_smoke.check_topk(*cuda_dev)
-    assert topk.KERNEL.launches - before == len(chip_smoke.topk_cases(*cuda_dev))
+    # every case twice (bit-identical)
+    assert topk.KERNEL.launches - before == 2 * len(chip_smoke.topk_cases(*cuda_dev))
+
+
+def test_topk_kernel_refuses_what_it_cannot_take(cuda_dev):
+    """k above 32 or V, V above MAX_V, other dtypes, a strided row: raised
+    by the wrapper; a geometry the source cannot take: refused by the
+    launcher, never launched."""
+    from emoasr_tpu_torch.ops import topk
+
+    dev, _ = cuda_dev
+    x = torch.randn(2, 300, device=dev)
+    for bad in ((x, 33), (x[:, :20], 21), (x.half(), 4), (x[:, ::2], 4),
+                (torch.randn(1, topk.MAX_V + 1, device=dev), 4)):
+        with pytest.raises((ValueError, TypeError)):
+            topk.topk_lastdim_kernel(*bad)
+    vals, idx = torch.empty(2, 4, device=dev), torch.empty(2, 4, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for parts, wpt in ((16, 1), (1, 9), (1, 0)):
+        with pytest.raises(RuntimeError):
+            topk.KERNEL.launch("emo_topk_f32", x.data_ptr(), vals.data_ptr(), idx.data_ptr(), 2, 300, 4, parts, wpt,
+                               stream)
+    with pytest.raises(RuntimeError):  # bf16 takes at most 4 words a thread
+        topk.KERNEL.launch("emo_topk_bf16", x.bfloat16().data_ptr(), vals.data_ptr(), idx.data_ptr(), 2, 300, 4, 1, 5,
+                           stream)
 
 
 def test_attention_kernel_matches_plain(cuda_dev):
@@ -333,8 +359,31 @@ def test_ctc_lattice_kernels_match_plain(cuda_dev):
 
     before = dict(ctc_lattice.KERNEL.counts)
     chip_smoke.check_ctc_lattice(*cuda_dev)
-    assert ctc_lattice.KERNEL.counts["emo_ctc_alpha_f32"] - before["emo_ctc_alpha_f32"] == 3
-    assert ctc_lattice.KERNEL.counts["emo_ctc_beta_grad_f32"] - before["emo_ctc_beta_grad_f32"] == 3
+    n = 2 * len(chip_smoke.lattice_cases())  # every case twice (bit-identical)
+    assert ctc_lattice.KERNEL.counts["emo_ctc_alpha_f32"] - before["emo_ctc_alpha_f32"] == n
+    assert ctc_lattice.KERNEL.counts["emo_ctc_beta_grad_f32"] - before["emo_ctc_beta_grad_f32"] == n
+
+
+def test_ctc_lattice_launcher_refuses_a_geometry_it_cannot_take(cuda_dev):
+    """States a thread outside 1..8, too few warps for S, or more threads
+    than the launch bounds: refused, never launched; and the latency-floor
+    variant `chip_smoke.py` times builds from this tree's source."""
+    from emoasr_tpu_torch.ops import ctc_lattice
+
+    dev, _ = cuda_dev
+    T, B, S = 4, 1, 257
+    lp, m = torch.zeros(T, B, S, device=dev), torch.ones(B, S, device=dev)
+    xl = torch.full((B,), T, dtype=torch.int32, device=dev)
+    alpha, ll = torch.empty(T, B, S, dtype=torch.float64, device=dev), torch.empty(B, device=dev)
+    ll64 = torch.empty(B, dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for spl, warps in ((9, 1), (0, 9), (2, 4), (3, 27), (8, 31)):
+        with pytest.raises(RuntimeError):
+            ctc_lattice.KERNEL.launch("emo_ctc_alpha_f32", lp.data_ptr(), m.data_ptr(), m.data_ptr(), m.data_ptr(),
+                                      xl.data_ptr(), alpha.data_ptr(), ll.data_ptr(), ll64.data_ptr(), T, B, S,
+                                      B * S, S, spl, warps, stream)
+    floor = chip_smoke.lattice_floor_kernel()
+    floor.lib()
 
 
 def test_ctc_head_kernels_match_plain(cuda_dev):
