@@ -36,7 +36,8 @@ Phases (any failed check raises, so the script exits non-zero):
    J = 1024, 1500 and 2048 and the LSTM at H = 640 and 1024, in f32 and
    bf16.  Every LSTM case (T up to 256, B = 1 to 50) runs twice,
    bit-identical; the beam steps also at W = 17 and 33, and rows 0-15 of a
-   W = 20 launch equal a W = 16 launch bit for bit, in both dtypes.
+   W = 20 launch equal a W = 16 launch bit for bit, in both dtypes; K8 at
+   the RNN LM's three bucket shapes (`LSTM_RNNLM_CASES`).
 4. Training at the full width of the L1 CTC(Transformer) model (12 x 256,
    4 heads, FF 2048, V = 10000, SpecAugment and dropout on,
    `enc_fused_attn: true`, random initial weights from `--seed`): one epoch
@@ -85,7 +86,7 @@ Phases (any failed check raises, so the script exits non-zero):
    five L4 buckets through the train CLI, with K7 = K8 forward = K8
    backward launches = micro-steps; one micro-step against the CPU; where
    one largest-bucket micro-step's time goes; then the trainer's
-   `model.ep1` through the eval CLI over an 80-utterance corpus, greedy and
+   `model.ep1` through the eval CLI over the 40-utterance corpus, greedy and
    with the ALSD beam at width 10 (K8 launched no time: the prediction
    network steps one token at a time), and one batch's greedy and top-1
    beam hypotheses equal on the card and the CPU.
@@ -97,7 +98,7 @@ Phases (any failed check raises, so the script exits non-zero):
    bf16; a greedy bf16 decode of its `model.ep1` through the eval CLI.
 12. The same for L4 (K4 with its bias, K7 and K8 through their bf16
    launchers).
-13. bf16 beam decoding of the 80-utterance corpus at full width: L1 beam 8,
+13. bf16 beam decoding of the 40-utterance corpus at full width: L1 beam 8,
    L3-1 beam 10 with joint CTC 0.3 (`dec_step_mode: fused_indirect`, then
    `fused`: K5's bf16 launches = 6 x beam steps; then the dense `indirect`
    route) and L4 ALSD beam 10 through the eval CLI on bf16 copies of the
@@ -108,7 +109,28 @@ Phases (any failed check raises, so the script exits non-zero):
    one L3-1 and one L3-3 batch on the card against the CPU's plain bf16
    path (within twice the CPU's own bf16-vs-f32 distance, plus one bf16
    step of the largest score).
-14. Every kernel timed at the largest bucket beside its plain version and
+14. L3-1 training (slice 3c): `configs/libri/l3_1_ctc_joint.yaml` at full
+   width (label smoothing 0.1, aux CTC 0.3, SpecAugment and dropout on,
+   `enc_fused_attn: true`) through the train CLI, 5 micro-steps up to the
+   (18, 1600) bucket, each launching K1 and K2 once and K4 with its bias
+   once a Conformer layer; one micro-step (loss_att, loss_ctc, loss_total,
+   every gradient) against the CPU within STEP_TOL; its `model.ep1` through
+   the eval CLI (beam 10, joint CTC 0.3, `fused_indirect`: K3, K4, K5);
+   two bf16 micro-steps, one held against f32 (loss within 2 %, gradient
+   cosine >= 0.99).
+15. LM training (slice 6a): `configs/lm/libri_{rnn,transformer,bert}.yaml`
+   at full width through `train_lm` over a sharded synthetic corpus that
+   fills the (11, 256), (23, 128) and (46, 64) buckets (6 steps each); the
+   RNN LM's steps launch K8 forward and backward in both layers (counted
+   by shape); one RNN LM step against the CPU.
+16. PPL: the PPL CLI on the three checkpoints, each equal to the CPU's on
+   the same batches (PPL_RTOL); BERT's chunked pseudo-PPL at the (11, 256)
+   bucket within PLL_PEAK_BYTES of device memory.
+17. RNN-LM shallow fusion at 0.5: the L1 CTC beam 8 and the trained L3-1
+   attention beam 10 through the eval CLI (`--lm_conf`, `--lm_path`), the
+   L4 ALSD beam 10 in Python (an RNN LM over L4's 1000 tokens from the
+   seed); one short batch's top-1 hypotheses card against CPU each.
+18. Every kernel timed at the largest bucket beside its plain version and
    one library call (for K5 and K6 the dense route), the bf16 launchers in
    bf16 (bounds at the bf16 rate, library calls in bf16; an f32 launcher
    that splits its operands into bf16 terms held to that many tensor-core
@@ -116,7 +138,8 @@ Phases (any failed check raises, so the script exits non-zero):
    with dropout (training's), K7 at J = 1024 and K8 at H = 1024 beside the
    chunked route and cuDNN, K5 and K6 at W = 33, K3 at every shape class
    the beams launch (with its launches by class over the main paths) and
-   K2 beside its latency floor (`tools/k2_parts.py`'s `chain_only`); one
+   K2 beside its latency floor (`tools/k2_parts.py`'s `chain_only`), K8
+   at the RNN LM's three bucket shapes beside cuDNN; one
    JSON line describing each kernel, the `nvidia-smi` line, and last the
    `{"ok": true, "device": ...}` line.
 
@@ -2322,11 +2345,12 @@ def all_kernels() -> list:
 
 
 def reset_launch_counts() -> None:
-    from emoasr_tpu_torch.ops import topk
+    from emoasr_tpu_torch.ops import lstm_scan, topk
 
     for kernel in all_kernels():
         kernel.reset_counts()
     topk.SHAPE_LAUNCHES.clear()
+    lstm_scan.SHAPE_LAUNCHES.clear()
 
 
 def write_vocab(root: str, vocab_size: int) -> str:
@@ -2514,15 +2538,20 @@ def _require_f32_masters(state, checkpoint: dict) -> None:
 STEP_TOL = {"loss": 1e-4, "grad": 5e-3, "grad_floor": 1e-5, "column_atol": 1e-7}
 
 
-def check_micro_step(tr: dict, dev, want_used: dict) -> dict:
-    """Loss and gradients of one micro-step at full width, 4 rows of the
-    400-frame bucket, dropout and SpecAugment off: the card (kernels, each
-    launched as often as `want_used` says) against the CPU (plain
-    versions), on the trainer's checkpoint."""
+def check_micro_step(tr: dict, dev, want_used: dict, heads=None) -> dict:
+    """Loss (and each loss term) and gradients of one micro-step at full
+    width, 4 rows of the 400-frame bucket, dropout and SpecAugment off: the
+    card (kernels, each launched as often as `want_used` says) against the
+    CPU (plain versions), on the trainer's checkpoint.  `heads`: the
+    vocabulary-sized output layers, held by vocabulary column, with a
+    function of the batch giving the columns on its paths (by default the
+    CTC or RNN-T head, `decoder.output`, whose paths are the labels and
+    blank)."""
     from emoasr_tpu_torch.data.asr_dataset import ASRDataset
     from emoasr_tpu_torch.eval.test_asr import load_asr_model
 
     cfg = tr["cfg"]
+    heads = heads or (("decoder.output", lambda b: np.append(b["ys"][:4].reshape(-1), cfg.blank_id)),)
     ds = ASRDataset(cfg, tr["train_tsv"], phase="train")
     batcher = ds.make_batcher(shuffle=False)
     bi, idx = next(b for b in batcher if batcher.buckets[b[0]].max_xlen == 400)
@@ -2532,17 +2561,19 @@ def check_micro_step(tr: dict, dev, want_used: dict) -> dict:
         model = load_asr_model(tr["ckpt"], cfg).to(d).eval()
         t = {k: torch.from_numpy(v).to(d) for k, v in batch.items() if isinstance(v, np.ndarray)}
         before = launch_counts()
-        loss, _ = model(t["xs"], t["xlens"], t["ys"], t["ylens"], t["ys_in"])
+        loss, loss_dict = model(t["xs"], t["xlens"], t["ys"], t["ylens"], t["ys_in"], t["ys_out"])
         params = dict(model.named_parameters())
         grads = torch.autograd.grad(loss, list(params.values()))
         used = {k: launch_counts()[k] - before[k] for k in before}
         if name == "cuda":
             require(all(used[k] == n for k, n in want_used.items()),
                     f"the micro-step check did not go through the kernels: {used}, want {want_used}")
-        res[name] = (loss.item(), {k: g.cpu() for k, g in zip(params, grads)})
-    (l1, g1), (l0, g0) = res["cuda"], res["cpu"]
-    require(np.isfinite(l1) and abs(l1 - l0) <= STEP_TOL["loss"] * abs(l0),
-            f"micro-step loss: card {l1}, CPU {l0}")
+        res[name] = ({k: v.item() for k, v in loss_dict.items()}, {k: g.cpu() for k, g in zip(params, grads)})
+    (d1, g1), (d0, g0) = res["cuda"], res["cpu"]
+    l1, l0 = d1["loss_total"], d0["loss_total"]
+    for k in d0:
+        require(np.isfinite(d1[k]) and abs(d1[k] - d0[k]) <= STEP_TOL["loss"] * abs(d0[k]),
+                f"micro-step {k}: card {d1[k]}, CPU {d0[k]}")
     worst, worst_name = 0.0, "none: every error is below the floor"
     floor = STEP_TOL["grad_floor"] * max(g.abs().max().item() for g in g0.values())
     for k in g0:
@@ -2551,18 +2582,25 @@ def check_micro_step(tr: dict, dev, want_used: dict) -> dict:
         if rel > worst:
             worst, worst_name = rel, k
         require(rel <= STEP_TOL["grad"], f"micro-step gradient of {k}: card vs CPU {rel:.3e} of its largest entry")
-    _, rel_w = _require_close_by_column("micro-step gradient of decoder.output.weight", g1["decoder.output.weight"],
-                                        g0["decoder.output.weight"], 0, STEP_TOL["column_atol"], STEP_TOL["grad"])
-    on_path = torch.cat([torch.from_numpy(batch["ys"][:4]).reshape(-1), torch.tensor([cfg.blank_id])])
-    rel_b = _require_close_by_group("micro-step gradient of decoder.output.bias", g1["decoder.output.bias"],
-                                    g0["decoder.output.bias"], _vocab_groups(cfg.vocab_size, on_path),
-                                    STEP_TOL["column_atol"], STEP_TOL["grad"])
-    print(f"  one micro-step {tuple(batch['xs'].shape)} card vs CPU plain: loss {l1:.4f} vs {l0:.4f}, "
+    by_head = {}
+    for head, on_path_of in heads:
+        _, rel_w = _require_close_by_column(f"micro-step gradient of {head}.weight", g1[f"{head}.weight"],
+                                            g0[f"{head}.weight"], 0, STEP_TOL["column_atol"], STEP_TOL["grad"])
+        on_path = torch.from_numpy(np.unique(on_path_of(batch)).astype(np.int64))
+        rel_b = _require_close_by_group(f"micro-step gradient of {head}.bias", g1[f"{head}.bias"],
+                                        g0[f"{head}.bias"], _vocab_groups(cfg.vocab_size, on_path),
+                                        STEP_TOL["column_atol"], STEP_TOL["grad"])
+        by_head[head] = (rel_w, rel_b)
+    terms = ", ".join(f"{k} {d1[k]:.4f} vs {d0[k]:.4f}" for k in d0)
+    print(f"  one micro-step {tuple(batch['xs'].shape)} card vs CPU plain: {terms}; "
           f"worst gradient {worst:.2e} of its largest entry ({worst_name}; tol {STEP_TOL['grad']}, floor {floor:.2e}); "
-          f"the output layer's weight by vocabulary column {rel_w:.2e} of the column's largest entry, its bias by "
-          f"group {rel_b:.2e}")
-    return {"loss_card": l1, "loss_cpu": l0, "worst_grad_rel_err": worst, "grad_floor": floor,
-            "output_weight_column_rel_err": rel_w, "output_bias_group_rel_err": rel_b}
+          + "; ".join(f"{h}: weight by vocabulary column {w:.2e} of the column's largest entry, bias by group {b:.2e}"
+                      for h, (w, b) in by_head.items()))
+    rel_w, rel_b = by_head[heads[0][0]]
+    return {"loss_card": l1, "loss_cpu": l0, "loss_terms_card": d1, "loss_terms_cpu": d0,
+            "worst_grad_rel_err": worst, "grad_floor": floor,
+            "output_weight_column_rel_err": rel_w, "output_bias_group_rel_err": rel_b,
+            "heads": {h: {"weight_column_rel_err": w, "bias_group_rel_err": b} for h, (w, b) in by_head.items()}}
 
 
 def time_micro_step(tr: dict, dev, card: str) -> dict:
@@ -2599,7 +2637,7 @@ def time_micro_step(tr: dict, dev, card: str) -> dict:
         with compute_params(model, dt):
             eouts, elens, inter = model.encoder(xs, t["xlens"])
             t1 = tick()
-            loss, _, _ = model.decoder(eouts, elens, inter, t["ys"], t["ylens"])
+            loss, _, _ = model.decoder(eouts, elens, inter, t["ys"], t["ylens"], t["ys_in"], t["ys_out"])
         t2 = tick()
         grads = torch.autograd.grad(loss, params)
         t3 = tick()
@@ -2608,11 +2646,13 @@ def time_micro_step(tr: dict, dev, card: str) -> dict:
             p.grad = g
         opt.step()
         t4 = tick()
+    head_phase = ("attention decoder + label smoothing + aux CTC head and lattice" if cfg.decoder_type == "transformer"
+                  else "CTC head + lattice")
     split = {"batch": list(t["xs"].shape), "compute_dtype": cfg.compute_dtype, "encoder_fwd_ms": (t1 - t0) * 1e3,
              "ctc_fwd_ms": (t2 - t1) * 1e3, "backward_ms": (t3 - t2) * 1e3, "clip_adam_ms": (t4 - t3) * 1e3}
     print(f"  one {tuple(t['xs'].shape)} {cfg.compute_dtype} micro-step on {card}: encoder forward "
           f"{split['encoder_fwd_ms']:.2f} ms, "
-          f"CTC head + lattice forward {split['ctc_fwd_ms']:.2f} ms, backward {split['backward_ms']:.2f} ms, "
+          f"{head_phase} forward {split['ctc_fwd_ms']:.2f} ms, backward {split['backward_ms']:.2f} ms, "
           f"clip + Adam {split['clip_adam_ms']:.2f} ms")
     return split
 
@@ -3573,7 +3613,7 @@ def _shared_prefix(a: dict, b: dict) -> float:
 
 
 def decode_bf16(args, root: str, tr: dict, mp: dict, l3: dict, l33: dict, l4: dict, dev, card: str) -> dict:
-    """Phase 13: the 80-utterance corpus decoded in bf16 at full width.  L1
+    """Phase 13: the 40-utterance corpus decoded in bf16 at full width.  L1
     beam 8, L3-1 (`fused_indirect`, `fused`, and the dense `indirect` route)
     and L4 ALSD beam 10 through the eval CLI on bf16 copies of the earlier
     phases' yamls and checkpoints; L3-3 through `build_decode_fn` and
@@ -4024,6 +4064,580 @@ def decode_l4(args, tr: dict, dev, card: str) -> dict:
     return {"runs": runs, "n_utts": n_utts, "batches": len(batches), "frames": frames}
 
 
+# ---------------------------------------------------------------- slices 3c and 6a
+#
+# Training of the attention family (L3-1) and of the Transformer, BERT and RNN
+# LMs, their perplexity, and RNN-LM shallow fusion in the three beams.
+
+LM_CONFS = {t: os.path.join(REPO, "configs", "lm", f"libri_{t}.yaml") for t in ("rnn", "transformer", "bert")}
+# the RNN LM's (B, T, H) at its three buckets (L = 256: L/4, L/2, L tokens;
+# min(90, 3000 // t) rows), input 512, in each of its two layers
+LSTM_RNNLM_CASES = (((11, 256, 512), True), ((23, 128, 512), True), ((46, 64, 512), True))
+# the PPL on the card against the CPU's on the same batches: sums of some
+# 10^4 f32 log-probabilities in other orders
+PPL_RTOL = 1e-4
+# BERT's pseudo-PPL: the (11, 256) batch's (B L, L, V) float32 logits would
+# take 28.8 GB; the chunked form must stay far below that
+PLL_PEAK_BYTES = 8 << 30
+
+
+def _launch_deltas(module, factory: str):
+    """Patch `module.<factory>` (a factory of train steps) so that every step it
+    builds records the launch counts of each call; returns (the list the
+    deltas go to, a function that undoes the patch)."""
+    deltas, orig = [], getattr(module, factory)
+
+    def counting(*a, **kw):
+        step = orig(*a, **kw)
+
+        def wrapped(*sa, **skw):
+            before = launch_counts()
+            out = step(*sa, **skw)
+            after = launch_counts()
+            deltas.append({k: after[k] - before[k] for k in before})
+            return out
+
+        return wrapped
+
+    setattr(module, factory, counting)
+    return deltas, lambda: setattr(module, factory, orig)
+
+
+def _zero_launches(**want) -> dict:
+    return {**{k: 0 for k in launch_counts()}, **want}
+
+
+def train_l3_1(args, root: str, card: str, test_tsv: str, wav_s: float, compute_dtype: str = "float32",
+               per_bucket=(1, 1, 1, 1, 1)) -> dict:
+    """The L3-1 model (Conformer 12 x 256, Transformer decoder 6 x 256, FF
+    2048, V = 10000, aux CTC 0.3, label smoothing 0.1) at full width through
+    the train CLI: SpecAugment and dropout on, `enc_fused_attn: true`, one
+    epoch over `per_bucket` batches of the five buckets up to (18, 1600)
+    (by default 5 micro-steps: one optimizer update at accum_grad 5), in
+    `compute_dtype`.  Every micro-step launches K1 (forward, both
+    gradients) and K2 (alpha, beta) once for the aux CTC loss and K4 with
+    its score bias (forward, backward) once a Conformer layer."""
+    import yaml
+
+    from emoasr_tpu_torch.config import load_config
+    from emoasr_tpu_torch.models.asr import ASR
+    from emoasr_tpu_torch.train import loop
+    from emoasr_tpu_torch.train.checkpoint import load_state_dict
+
+    with open(L3_1_CONF) as f:
+        conf = yaml.safe_load(f)
+    sub = os.path.join(root, "l3_1_train" if compute_dtype == "float32" else f"l3_1_train_{compute_dtype}")
+    os.makedirs(sub)
+    per_bucket = list(per_bucket)
+    lengths, buckets = train_lengths(load_config(L3_1_CONF), per_bucket)
+    train_tsv, _ = write_corpus(sub, "train", lengths, conf["vocab_size"], conf["feat_dim"], args.seed + 5)
+    conf.update(vocab_path=write_vocab(sub, conf["vocab_size"]), train_path=train_tsv, test_path=test_tsv,
+                dev_path=None, enc_fused_attn=True, dec_step_mode="fused_indirect", num_epochs=1, save_step=1,
+                log_step=1, seed=args.seed, compute_dtype=compute_dtype)
+    conf_path = os.path.join(sub, "l3_1_ctc_joint.yaml")
+    with open(conf_path, "w") as f:
+        yaml.safe_dump(conf, f)
+    cfg = load_config(conf_path)
+    require((cfg.encoder_type, cfg.pos_encode_type, cfg.enc_num_layers, cfg.enc_hidden_size,
+             cfg.enc_num_attention_heads, cfg.enc_intermediate_size, cfg.conv_kernel_size, cfg.decoder_type,
+             cfg.dec_num_layers, cfg.dec_hidden_size, cfg.dec_intermediate_size, cfg.vocab_size, cfg.mtl_ctc_weight,
+             cfg.lsm_prob, cfg.accum_grad, cfg.spec_augment, cfg.dropout_enc_rate, cfg.dropout_dec_rate,
+             cfg.compute_dtype)
+            == ("conformer", "rel", 12, 256, 4, 1024, 31, "transformer", 6, 256, 2048, 10000, 0.3, 0.1, 5, True, 0.1,
+                0.1, compute_dtype), "the L3-1 config is not at full width")
+    n_steps, n_enc = sum(per_bucket), cfg.enc_num_layers
+    sfx = "" if compute_dtype == "float32" else "_bf16"
+    per_step = _zero_launches(**{f"ctc_head_fwd{sfx}": 1, f"ctc_head_grad_e{sfx}": 1, f"ctc_head_grad_w{sfx}": 1,
+                                 "ctc_alpha": 1, "ctc_beta_grad": 1, f"attention_fwd{sfx}": n_enc,
+                                 f"attention_bwd{sfx}": n_enc, f"attention_bias_fwd{sfx}": n_enc,
+                                 f"attention_bias_bwd{sfx}": n_enc})
+    reset_launch_counts()
+    deltas, undo = _launch_deltas(loop, "make_train_step")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = loop.main(["-conf", conf_path])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        undo()
+    launches = launch_counts()
+    losses, _, epoch_s = read_train_log(conf_path)
+    require(state.step == n_steps and len(losses) == n_steps and all(np.isfinite(losses)),
+            f"L3-1 training: {state.step} micro-steps, losses {losses}")
+    require(state.skipped == 0 and state.mini_step == n_steps % cfg.accum_grad,
+            f"L3-1 training: {state.skipped} skipped, {state.mini_step} micro-steps open")
+    require(len(deltas) == n_steps and all(d == per_step for d in deltas),
+            f"L3-1 training: launches by micro-step {deltas}, want each {per_step}")
+    ckpt = os.path.join(os.path.splitext(conf_path)[0], "checkpoints", "model.ep1")
+    torch.manual_seed(cfg.seed)
+    init, trained = ASR(cfg).state_dict(), load_state_dict(ckpt)
+    changed = [k for k in init if not torch.equal(init[k], trained[k])]
+    if n_steps >= cfg.accum_grad:
+        require(len(changed) >= 0.9 * len(init) and all(k in changed for k in (
+            "decoder.output.weight", "decoder.ctc.output.weight", "decoder.embed.weight",
+            "decoder.transformers.5.feed_forward.w1.weight", "encoder.conv.conv.0.weight")),
+            f"only {len(changed)} of {len(init)} parameter tensors changed in training")
+    else:  # no update yet: only the BatchNorm statistics moved, the accumulation is open
+        require(changed and all(".batch_norm." in k and "running" in k or "num_batches" in k for k in changed),
+                f"L3-1 training without an update changed {changed}")
+    for k, v in trained.items():
+        require(bool(torch.isfinite(v).all()), f"trained parameter {k} is not finite")
+    if n_steps >= cfg.accum_grad:
+        _require_f32_masters(state, trained)
+    else:  # no Adam moment yet: the masters, the open accumulation and the checkpoint
+        require(all(p.dtype == torch.float32 for p in state.model.parameters())
+                and all(g.dtype == torch.float32 for g in state.acc_grads)
+                and all(v.dtype == torch.float32 for v in trained.values() if v.is_floating_point()),
+                "a master, an accumulated gradient or a checkpoint tensor is not float32")
+    epoch = epoch_s[0] if epoch_s else float("nan")
+    print(f"  trained {n_steps} {compute_dtype} micro-steps ({len(lengths)} utts, buckets x{per_bucket}) in {dt:.2f} s "
+          f"(the epoch loop {epoch:.2f} s: {n_steps / epoch:.2f} micro-steps/s, first call, warm-up included) on "
+          f"{card}; loss {losses[0]:.2f} -> {losses[-1]:.2f}, {len(changed)}/{len(init)} tensors changed; every "
+          f"micro-step launched {({k: n for k, n in per_step.items() if n})}")
+    return {"conf_path": conf_path, "cfg": cfg, "ckpt": ckpt, "test_tsv": test_tsv, "train_tsv": train_tsv,
+            "wav_s": wav_s, "launches": launches, "seconds": dt, "epoch_seconds": epoch, "micro_steps": n_steps,
+            "micro_steps_per_s": n_steps / epoch, "utt_per_s": len(lengths) / epoch, "losses": losses,
+            "buckets": buckets, "per_step_launches": {k: n for k, n in per_step.items() if n}}
+
+
+def l3_1_heads(cfg):
+    """The L3-1 micro-step check's vocabulary-sized layers: the attention
+    output (on the paths: the labels and eos) and the aux CTC head (the
+    labels and blank)."""
+    return (("decoder.output", lambda b: np.append(b["ys_out"][:4].reshape(-1), cfg.eos_id)),
+            ("decoder.ctc.output", lambda b: np.append(b["ys"][:4].reshape(-1), cfg.blank_id)))
+
+
+def _att_beam_launches(launches: dict, cfg, n_batches: int, tag: str) -> int:
+    """Checks an attention-beam decode's launches (K4 with its bias once a
+    layer a batch, K5 indirect 6 a beam step, one K3 a step); returns the
+    beam steps."""
+    steps = launches["decoder_step_indirect"] // cfg.dec_num_layers
+    n_attn = cfg.enc_num_layers * n_batches
+    require(launches["attention_fwd"] == launches["attention_bias_fwd"] == n_attn, f"{tag}: launches {launches}")
+    require(steps >= n_batches and launches["decoder_step_indirect"] == steps * cfg.dec_num_layers
+            and launches["decoder_step"] == 0 and launches["topk"] == steps, f"{tag}: launches {launches}")
+    return steps
+
+
+def decode_trained_l3_1(tr: dict, card: str, lm: dict = None) -> dict:
+    """The L3-1 trainer's `model.ep1` through the eval CLI: beam 10, joint
+    CTC 0.3, length weight 2, `dec_step_mode: fused_indirect` (the yaml's);
+    with `lm` (`train_lms`'s RNN LM) fused at 0.5 through `--lm_conf` and
+    `--lm_path`."""
+    import pandas as pd
+
+    from emoasr_tpu_torch.data.asr_dataset import ASRDataset
+    from emoasr_tpu_torch.eval import test_asr
+
+    cfg, conf_path = tr["cfg"], tr["conf_path"]
+    batcher = ASRDataset(cfg, tr["test_tsv"], phase="test").make_batcher()
+    n_batches, n_utts = len(batcher), sum(len(i) for _, i in batcher)
+    argv = ["-conf", conf_path, "-ep", "1"]
+    name = "result_test_beam10_len2.0_ctc0.3_lm0.00_ep1.tsv"
+    if lm is not None:
+        argv += ["--lm_weight", "0.5", "--lm_conf", lm["conf_path"], "--lm_path", lm["ckpt"]]
+        name = "result_test_beam10_len2.0_ctc0.3_lm0.50rnn_ep1.tsv"
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _LogCapture("force-finalized") as cap:
+        out = test_asr.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    tag = "L3-1 (trained)" + (" + RNN LM" if lm else "")
+    require(out is not None and out[3].startswith("WER:"), f"{tag}: CLI returned {out}")
+    df = pd.read_table(os.path.join(os.path.splitext(conf_path)[0], "results", name), comment="#")
+    require(len(df) == n_utts and int(df["token_id"].notna().sum()) == n_utts, f"{tag}: {len(df)} rows")
+    steps = _att_beam_launches(launches, cfg, n_batches, tag)
+    if lm is not None:  # the RNN LM's one-token steps take the scan
+        require(launches["lstm_fwd"] == launches["lstm_bwd"] == 0, f"{tag}: K8 launched: {launches}")
+    forced = int(cap.lines[0].split()[0]) if cap.lines else 0
+    print(f"  {tag}, beam 10, joint CTC 0.3, fused_indirect: {out[3]}; {n_utts} utts in {dt:.3f} s, RTF "
+          f"{dt / tr['wav_s']:.5f} (first call) on {card}; {steps} beam steps, {forced} hypotheses force-finalized; "
+          f"launches topk {launches['topk']}, decoder_step_indirect {launches['decoder_step_indirect']}, attention "
+          f"with bias {launches['attention_bias_fwd']}")
+    return {"launches": launches, "seconds": dt, "rtf": dt / tr["wav_s"], "beam_steps": steps,
+            "forced_finalisations": forced, "n_utts": n_utts}
+
+
+def write_lm_corpus(root: str, vocab_size: int, seed: int):
+    """A sharded synthetic text corpus (`train/` of two files) whose rows
+    fill one batch of each LM bucket a shard for every LM type (11 rows of
+    200-254 tokens, 23 of 100-126, 46 of 40-62: with the causal shift or
+    the RNN LM's sos/eos framing, the (11, 256), (23, 128) and (46, 64)
+    buckets), and a test file: 11 rows of 129-139 tokens (the (11, 256)
+    bucket), 3 of 70-100 and 3 of 20-60.  Token ids 3..V-2 (V-1 is BERT's
+    mask)."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+
+    def rows(spec, tag):
+        out = []
+        for n, lo, hi in spec:
+            for _ in range(n):
+                L = int(rng.integers(lo, hi + 1))
+                out.append(dict(utt_id=f"{tag}{len(out)}", token_id=" ".join(map(str, rng.integers(3, vocab_size - 1, L))),
+                                ylen=L))
+        return pd.DataFrame(out)
+
+    train_dir = os.path.join(root, "train")
+    os.makedirs(train_dir)
+    n_rows = 0
+    for shard in ("a", "b"):
+        df = rows(((11, 200, 254), (23, 100, 126), (46, 40, 62)), shard)
+        df.to_csv(os.path.join(train_dir, f"{shard}.tsv"), sep="\t", index=False)
+        n_rows += len(df)
+    test_tsv = os.path.join(root, "test.tsv")
+    rows(((11, 129, 139), (3, 70, 100), (3, 20, 60)), "t").to_csv(test_tsv, sep="\t", index=False)
+    return train_dir, test_tsv, n_rows
+
+
+def _read_lm_log(conf_path: str):
+    import re
+
+    with open(os.path.join(os.path.splitext(conf_path)[0], "log", "train.log")) as f:
+        return [float(m.group(1)) for m in re.finditer(r"step \d+ loss_total: (\S+) lr:", f.read())]
+
+
+def train_lms(args, root: str, card: str) -> dict:
+    """`configs/lm/libri_{rnn,transformer,bert}.yaml` at full width (RNN 2 x
+    512 LSTM, embedding 512; Transformer and BERT 4 x 512, 8 heads, FF 2048;
+    V = 10000, max_seq_len 256, batch_size 90, dropout on, AdamW) through
+    `train_lm` over the sharded corpus: one epoch, 6 steps (one batch of
+    each bucket a shard), `train_size` set to 90 x 6 so that the lindecay
+    schedule spans this run.  The RNN LM's steps launch K8 forward and
+    backward twice each (two layers); the others launch no kernel."""
+    import yaml
+
+    from emoasr_tpu_torch.config import load_config
+    from emoasr_tpu_torch.models.lm.lm import LM
+    from emoasr_tpu_torch.ops import lstm_scan
+    from emoasr_tpu_torch.train import train_lm
+    from emoasr_tpu_torch.train.checkpoint import load_state_dict
+
+    sub = os.path.join(root, "lm")
+    os.makedirs(sub)
+    train_dir, test_tsv, n_rows = write_lm_corpus(sub, 10000, args.seed + 6)
+    out = {}
+    for t, path in LM_CONFS.items():
+        with open(path) as f:
+            conf = yaml.safe_load(f)
+        n_steps = 6
+        conf.update(train_path=train_dir, test_path=test_tsv, vocab_path=None, train_size=90 * n_steps, num_epochs=1,
+                    save_step=1, log_step=1, seed=args.seed)
+        conf_path = os.path.join(sub, f"libri_{t}.yaml")
+        with open(conf_path, "w") as f:
+            yaml.safe_dump(conf, f)
+        cfg = load_config(conf_path)
+        width = (cfg.lm_type, cfg.vocab_size, cfg.hidden_size, cfg.num_layers, cfg.max_seq_len, cfg.batch_size)
+        require(width == {"rnn": ("rnn", 10000, 512, 2, 256, 90), "transformer": ("transformer", 10000, 512, 4, 256, 90),
+                          "bert": ("bert", 10000, 512, 4, 256, 90)}[t]
+                and (t != "rnn" or (cfg.embedding_size, cfg.dropout_rate, cfg.add_sos_eos) == (512, 0.2, True)),
+                f"the {t} LM config is not at full width: {width}")
+        per_step = _zero_launches(**({"lstm_fwd": cfg.num_layers, "lstm_bwd": cfg.num_layers} if t == "rnn" else {}))
+        reset_launch_counts()
+        deltas, undo = _launch_deltas(train_lm, "make_lm_train_step")
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = train_lm.main(["-conf", conf_path])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            undo()
+        launches = launch_counts()
+        k8_shapes = dict(lstm_scan.SHAPE_LAUNCHES)
+        losses = _read_lm_log(conf_path)
+        require(state.step == n_steps and len(losses) == n_steps and all(np.isfinite(losses)) and state.skipped == 0,
+                f"{t} LM training: {state.step} steps, losses {losses}, {state.skipped} skipped")
+        require(len(deltas) == n_steps and all(d == per_step for d in deltas),
+                f"{t} LM training: launches by step {deltas}, want each {per_step}")
+        if t == "rnn":  # every bucket's shape, in both layers, forward and backward
+            want_shapes = {(kind, B, T, 512, "f32"): 2 * cfg.num_layers  # one batch a shard, each layer
+                           for kind in ("fwd", "bwd") for (B, T, _), _ in LSTM_RNNLM_CASES}
+            require(k8_shapes == want_shapes, f"RNN LM training: K8 launches by shape {k8_shapes}, want {want_shapes}")
+        ckpt = os.path.join(os.path.splitext(conf_path)[0], "checkpoints", "model.ep1")
+        torch.manual_seed(cfg.seed)
+        init, trained = LM(cfg).state_dict(), load_state_dict(ckpt)
+        changed = [k for k in init if not torch.equal(init[k], trained[k])]
+        require(len(changed) >= 0.9 * len(init) and all(bool(torch.isfinite(v).all()) for v in trained.values()),
+                f"{t} LM: {len(changed)} of {len(init)} tensors changed")
+        _require_f32_masters(state, trained)
+        print(f"  {t} LM: {n_steps} steps over {n_rows} rows in 2 shards in {dt:.2f} s (first call) on {card}; loss "
+              f"{losses[0]:.3f} -> {losses[-1]:.3f}; {len(changed)}/{len(init)} tensors changed; launches a step "
+              f"{({k: n for k, n in per_step.items() if n}) or 'none'}"
+              + (f"; K8 by shape {k8_shapes}" if t == "rnn" else ""))
+        out[t] = {"conf_path": conf_path, "cfg": cfg, "ckpt": ckpt, "test_tsv": test_tsv, "train_dir": train_dir,
+                  "launches": launches, "seconds": dt, "steps": n_steps, "losses": losses,
+                  "k8_by_shape": {"/".join(map(str, k)): n for k, n in k8_shapes.items()}}
+    return out
+
+
+def check_rnn_lm_step(lm: dict, dev) -> dict:
+    """One RNN LM step on the card (K8 forward and backward, twice each)
+    against the CPU (the plain scan), on the trainer's checkpoint, 8 rows
+    of the (46, 64) bucket, dropout off: the loss within STEP_TOL and every
+    gradient within STEP_TOL of its largest entry (the output layer by
+    vocabulary column, its bias by group)."""
+    from emoasr_tpu_torch.data.lm_dataset import LMDataset
+    from emoasr_tpu_torch.models.lm.lm import LM, load_lm_state_dict
+    from emoasr_tpu_torch.train.checkpoint import load_state_dict
+
+    cfg = lm["cfg"]
+    ds = LMDataset(cfg, os.path.join(lm["train_dir"], "a.tsv"), phase="train", seed=cfg.seed)
+    batch = next(b for b in ds.batches(ds.make_batcher(shuffle=False)) if b["ys_in"].shape[1] == 64)
+    batch = {k: v[:8] for k, v in batch.items() if isinstance(v, np.ndarray)}
+    res = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        model = LM(cfg)
+        load_lm_state_dict(model, load_state_dict(lm["ckpt"]))
+        model = model.to(d).eval()
+        t = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        before = launch_counts()
+        loss, _ = model(t["ys_in"], t["ylens"], t["labels"])
+        params = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss, list(params.values()))
+        used = {k: launch_counts()[k] - before[k] for k in before}
+        if name == "cuda":
+            require(used["lstm_fwd"] == used["lstm_bwd"] == cfg.num_layers,
+                    f"the RNN LM step check did not go through K8: {used}")
+        res[name] = (loss.item(), {k: g.cpu() for k, g in zip(params, grads)})
+    (l1, g1), (l0, g0) = res["cuda"], res["cpu"]
+    require(np.isfinite(l1) and abs(l1 - l0) <= STEP_TOL["loss"] * abs(l0), f"RNN LM step loss: card {l1}, CPU {l0}")
+    floor = STEP_TOL["grad_floor"] * max(g.abs().max().item() for g in g0.values())
+    worst = 0.0
+    for k in g0:
+        rel = max(_max_err(g1[k], g0[k]) - floor, 0.0) / max(g0[k].abs().max().item(), 1e-30)
+        worst = max(worst, rel)
+        require(rel <= STEP_TOL["grad"], f"RNN LM step gradient of {k}: card vs CPU {rel:.3e} of its largest entry")
+    _, rel_w = _require_close_by_column("RNN LM step gradient of lm.output.weight", g1["lm.output.weight"],
+                                        g0["lm.output.weight"], 0, STEP_TOL["column_atol"], STEP_TOL["grad"])
+    labels = torch.from_numpy(batch["labels"])
+    rel_b = _require_close_by_group("RNN LM step gradient of lm.output.bias", g1["lm.output.bias"], g0["lm.output.bias"],
+                                    _vocab_groups(cfg.vocab_size, labels[labels >= 0]), STEP_TOL["column_atol"],
+                                    STEP_TOL["grad"])
+    print(f"  one RNN LM step {tuple(batch['ys_in'].shape)} card (K8) vs CPU plain: loss {l1:.5f} vs {l0:.5f}; worst "
+          f"gradient {worst:.2e} of its largest entry (tol {STEP_TOL['grad']}); the output layer by vocabulary column "
+          f"{rel_w:.2e}, its bias by group {rel_b:.2e}")
+    return {"loss_card": l1, "loss_cpu": l0, "worst_grad_rel_err": worst, "output_weight_column_rel_err": rel_w,
+            "output_bias_group_rel_err": rel_b}
+
+
+def time_rnn_lm_step(lm: dict, dev, card: str) -> dict:
+    """Where one RNN LM step of the largest bucket, (11, 256), spends its
+    time (host clock around synchronised phases, dropout on; the last of
+    three): embedding + the two LSTM layers (K8 forward), the output layer
+    and the loss, the backward (K8 backward twice), clip + AdamW."""
+    from emoasr_tpu_torch.data.lm_dataset import LMDataset
+    from emoasr_tpu_torch.models.lm.lm import LM, load_lm_state_dict
+    from emoasr_tpu_torch.models.lm.bert import mlm_loss
+    from emoasr_tpu_torch.train.checkpoint import load_state_dict
+    from emoasr_tpu_torch.train.optim import build_optimizer, clip_by_global_norm_
+
+    cfg = lm["cfg"]
+    ds = LMDataset(cfg, os.path.join(lm["train_dir"], "a.tsv"), phase="train", seed=cfg.seed)
+    batch = next(b for b in ds.batches(ds.make_batcher(shuffle=False)) if b["ys_in"].shape[1] == 256)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in batch.items() if isinstance(v, np.ndarray)}
+    model = LM(cfg)
+    load_lm_state_dict(model, load_state_dict(lm["ckpt"]))
+    model = model.to(dev).train()
+    rnn = model.lm
+    opt = build_optimizer(cfg, model, use_adamw=True)
+    for g in opt.param_groups:
+        g["lr"] = 1e-9
+    params = list(model.parameters())
+
+    def tick():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    for _ in range(3):
+        t0 = tick()
+        out, _ = rnn.rnns(rnn.dropout(rnn.embed(t["ys_in"].long())))
+        t1 = tick()
+        loss = mlm_loss(rnn.output(rnn.dropout(out)), t["labels"])
+        t2 = tick()
+        grads = torch.autograd.grad(loss, params)
+        t3 = tick()
+        clip_by_global_norm_(grads, cfg.clip_grad_norm)
+        for p, g in zip(params, grads):
+            p.grad = g
+        opt.step()
+        t4 = tick()
+    split = {"batch": list(t["ys_in"].shape), "embed_lstm_fwd_ms": (t1 - t0) * 1e3,
+             "output_loss_fwd_ms": (t2 - t1) * 1e3, "backward_ms": (t3 - t2) * 1e3, "clip_adamw_ms": (t4 - t3) * 1e3}
+    print(f"  one {tuple(t['ys_in'].shape)} RNN LM step on {card}: embedding + 2 LSTM layers (K8) "
+          f"{split['embed_lstm_fwd_ms']:.2f} ms, output layer + loss {split['output_loss_fwd_ms']:.2f} ms, backward "
+          f"{split['backward_ms']:.2f} ms, clip + AdamW {split['clip_adamw_ms']:.2f} ms")
+    return split
+
+
+def lm_ppl(lms: dict, dev, card: str) -> dict:
+    """The PPL CLI on each trained LM over the test file (BERT:
+    pseudo-PPL, the (11, 256) batch included) on the card, then
+    `evaluate_ppl` on the CPU over the same batches: equal within PPL_RTOL;
+    BERT's peak device memory far below the (B L, L, V) logits'."""
+    from emoasr_tpu_torch.data.lm_dataset import LMDataset
+    from emoasr_tpu_torch.eval import test_ppl
+    from emoasr_tpu_torch.models.lm.lm import LM, load_lm_state_dict
+    from emoasr_tpu_torch.train.checkpoint import load_state_dict
+
+    out = {}
+    for t, lm in lms.items():
+        cfg = lm["cfg"]
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        cnt, ppl = test_ppl.main(["-conf", lm["conf_path"], "-ep", "1"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = launch_counts()
+        model = LM(cfg)
+        load_lm_state_dict(model, load_state_dict(lm["ckpt"]))
+        t1 = time.perf_counter()
+        cnt0, ppl0 = test_ppl.evaluate_ppl(cfg, model, LMDataset(cfg, lm["test_tsv"], phase="test"))
+        cpu_s = time.perf_counter() - t1
+        require(cnt == cnt0 > 0 and np.isfinite(ppl) and abs(ppl - ppl0) <= PPL_RTOL * ppl0,
+                f"{t} LM PPL: card {cnt} tokens {ppl}, CPU {cnt0} tokens {ppl0}")
+        if t == "bert":
+            require(peak < PLL_PEAK_BYTES, f"BERT pseudo-PPL peak device memory {peak} bytes")
+        if t == "rnn":  # the forward over each test batch, in both layers
+            require(launches["lstm_fwd"] == 3 * cfg.num_layers and launches["lstm_bwd"] == 0,
+                    f"RNN LM PPL: K8 launches {launches}")
+        kind = "pseudo-PPL" if t == "bert" else "PPL"
+        print(f"  {t} LM {kind} over {cnt} tokens: {ppl:.6f} on the card ({dt:.2f} s, peak device memory "
+              f"{peak / 2 ** 30:.2f} GiB) vs {ppl0:.6f} on the CPU ({cpu_s:.2f} s): rel err "
+              f"{abs(ppl - ppl0) / ppl0:.2e} (tol {PPL_RTOL}); {card}")
+        out[t] = {"tokens": cnt, "ppl_card": ppl, "ppl_cpu": ppl0, "seconds": dt, "cpu_seconds": cpu_s,
+                  "peak_device_bytes": peak, "launches": launches}
+    return out
+
+
+def _short_batch(cfg, tsv: str, n: int = 3):
+    """The first `n` utterances of the shortest bucket of `tsv` that holds
+    `n`, collated."""
+    from emoasr_tpu_torch.data.asr_dataset import ASRDataset
+
+    ds = ASRDataset(cfg, tsv, phase="test")
+    batcher = ds.make_batcher()
+    bi, idx = min((b for b in batcher if len(b[1]) >= n), key=lambda b: batcher.buckets[b[0]].max_xlen)
+    return ds.collate(idx[:n], batcher.buckets[bi].max_xlen, batcher.buckets[bi].max_ylen)
+
+
+def _top1_card_vs_cpu(tag: str, cfg, ckpt: str, lm_of, batch, dev, beam: int, share: float, **kw) -> dict:
+    """`build_decode_fn` with the LM fusion `lm_of(device)` at `beam` on the
+    card and on the CPU: the top-1 hypotheses of `batch` equal for at least
+    `share` of its utterances."""
+    from emoasr_tpu_torch.eval.decode import build_decode_fn
+    from emoasr_tpu_torch.eval.test_asr import load_asr_model
+
+    hyps = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        fn = build_decode_fn(load_asr_model(ckpt, cfg), cfg, beam, lm=lm_of(d), device=d, **kw)
+        h, hl, _ = fn(batch["xs"], batch["xlens"])
+        h, hl = h.cpu(), hl.cpu()
+        hyps[name] = [(h[b, : hl[b]] if h.dim() == 2 else h[b, 0, : hl[b, 0]]).tolist()
+                      for b in range(len(batch["utt_ids"]))]
+    same = sum(a == b for a, b in zip(hyps["cuda"], hyps["cpu"])) / len(hyps["cpu"])
+    require(same >= share, f"{tag}: top-1 hypotheses card vs CPU equal for {same:.2f} (want {share}): "
+            f"{hyps['cuda']} vs {hyps['cpu']}")
+    print(f"  {tag}: one {tuple(batch['xs'].shape)} batch, top-1 hypotheses card vs CPU equal for {same:.2f} "
+          f"(required {share}; lengths {[len(x) for x in hyps['cpu']]})")
+    return {"same_top1": same, "lengths": [len(x) for x in hyps["cpu"]]}
+
+
+def rnn_lm_fusion(args, rnn: dict, l1: dict, l3: dict, l4: dict, dev, card: str) -> dict:
+    """The trained RNN LM fused at 0.5: into the L1 CTC prefix beam (beam
+    8) and the L3-1 attention beam (beam 10, joint CTC 0.3) through the eval
+    CLI, and, in Python, into the L4 ALSD beam (beam 10) with a 2 x 512 RNN
+    LM over L4's vocabulary of 1000 (libri_rnn.yaml's widths, weights from
+    the seed).  K8 is launched no time (one-token LSTM steps take the
+    scan); one short batch's top-1 hypotheses on the card against the CPU:
+    all equal for L1 and L4 (as the L4 decode check holds them), HYP_SHARE
+    for L3-1 (as the L3-1 decode check: near-flat scores)."""
+    import dataclasses
+
+    import pandas as pd
+
+    from emoasr_tpu_torch.eval import test_asr
+    from emoasr_tpu_torch.models.lm.lm import LM
+    from emoasr_tpu_torch.search.common import make_lm_fusion
+
+    lm_model = test_asr.load_lm(rnn["conf_path"], rnn["ckpt"])[0]
+    fusion_of = lambda d: make_lm_fusion(lm_model.to(d), 0.5)  # noqa: E731
+    out = {}
+    # L1: the CTC prefix beam through the CLI, then one batch card vs CPU
+    conf_path, cfg = l1["conf_path"], l1["cfg"]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = test_asr.main(["-conf", conf_path, "-ep", "1", "--beam_width", "8", "--lm_weight", "0.5",
+                         "--lm_conf", rnn["conf_path"], "--lm_path", rnn["ckpt"]])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    require(res is not None and res[3].startswith("WER:"), f"L1 + RNN LM: CLI returned {res}")
+    df = pd.read_table(os.path.join(os.path.splitext(conf_path)[0], "results",
+                                    "result_test_beam8_len0.0_ctc0.0_lm0.50rnn_ep1.tsv"), comment="#")
+    require(len(df) == args.n_utts and launches["topk"] > 0 and launches["lstm_fwd"] == 0,
+            f"L1 + RNN LM: {len(df)} rows, launches {launches}")
+    print(f"  L1 CTC beam 8 + RNN LM 0.5 through the eval CLI: {res[3]}; {len(df)} utts in {dt:.3f} s, RTF "
+          f"{dt / l1['wav_s']:.5f} (first call) on {card}; launches topk {launches['topk']}, lstm_fwd 0")
+    out["l1_ctc_beam8"] = {"launches": launches, "seconds": dt, "rtf": dt / l1["wav_s"],
+                           **_top1_card_vs_cpu("L1 CTC beam 8 + RNN LM", cfg, l1["ckpt"], fusion_of,
+                                               _short_batch(cfg, l1["test_tsv"]), dev, 8, 1.0)}
+    # L3-1: the attention beam through the CLI, then one batch card vs CPU
+    run = decode_trained_l3_1(l3, card, lm=rnn)
+    cfg = l3["cfg"]
+    out["l3_1_beam10"] = {**run, **_top1_card_vs_cpu(
+        "L3-1 beam 10 + joint CTC 0.3 + RNN LM", cfg, l3["ckpt"], fusion_of, _short_batch(cfg, l3["test_tsv"]), dev,
+        cfg.beam_width, HYP_SHARE, len_weight=cfg.len_weight, decode_ctc_weight=cfg.decode_ctc_weight, top1=True)}
+    # L4: ALSD in Python with an RNN LM over its vocabulary
+    cfg4 = l4["cfg"]
+    lm4_cfg = dataclasses.replace(rnn["cfg"], vocab_size=cfg4.vocab_size)
+    torch.manual_seed(args.seed)
+    lm4 = LM(lm4_cfg).eval()
+    batch = _short_batch(cfg4, l4["test_tsv"])
+    reset_launch_counts()
+    res4 = _top1_card_vs_cpu("L4 ALSD beam 10 + RNN LM (V = 1000, seed weights)", cfg4, l4["ckpt"],
+                             lambda d: make_lm_fusion(lm4.to(d), 0.5), batch, dev, cfg4.beam_width, 1.0)
+    launches = launch_counts()
+    require(launches["topk"] > 0 and launches["lstm_fwd"] == launches["lstm_bwd"] == 0,
+            f"L4 ALSD + RNN LM: launches {launches}")
+    out["l4_alsd10"] = {"launches": launches, **res4}
+    return out
+
+
+def check_lstm_rnnlm(dev, gen) -> dict:
+    """K8 forward and backward at the RNN LM's three bucket shapes
+    (`LSTM_RNNLM_CASES`, zero initial state as the LM starts), against the
+    plain versions, each launched twice (bit-identical)."""
+    from emoasr_tpu_torch.ops.lstm_scan import lstm_bwd_plain, lstm_fwd_plain
+
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for shape, zero in LSTM_RNNLM_CASES:
+        x_proj, w_hh, h0, c0, cots = lstm_case(dev, gen, *shape, zero_state=zero)
+        tag = f"lstm (RNN LM) {shape}"
+        (ys, hT, cT), grads = lstm_twice(tag, [x_proj, w_hh, h0, c0], cots)
+        with torch.no_grad():
+            p_ys, p_h, p_c, gates, hcprev = lstm_fwd_plain(x_proj, w_hh, h0, c0)
+            p_grads = lstm_bwd_plain(gates, hcprev, *cots, w_hh)
+        torch.cuda.synchronize()
+        fwd = [_require_close(f"{tag} {w}", a, b, LSTM_FWD_TOL, 0.0)
+               for w, a, b in zip(("ys", "h_T", "c_T"), (ys, hT, cT), (p_ys, p_h, p_c))]
+        bwd = [_require_close(f"{tag} {w}", a, b, *LSTM_BWD_TOL)
+               for w, a, b in zip(("d x_proj", "d w_hh", "d h0", "d c0"), grads, p_grads)]
+        worst = {"fwd": max(worst["fwd"], *fwd), "bwd": max(worst["bwd"], *bwd)}
+        print(f"  {tag}: forward {max(fwd):.2e}, backward {max(bwd):.2e}; twice, bit-identical")
+    return worst
+
+
 KERNEL_ROWS = (
     # name, source, file:line of the TPU kernel it replaces
     ("topk", "emoasr_tpu_torch/csrc/topk.cu", "emoasr_tpu/ops/topk_pallas.py:64"),
@@ -4089,7 +4703,7 @@ WIDE_ROWS = (
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--n_utts", type=int, default=80, help="utterances of the decode corpus")
+    ap.add_argument("--n_utts", type=int, default=40, help="utterances of the decode corpus")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -4103,7 +4717,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
-    print(f"[1/14] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    print(f"[1/18] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     found = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     set_matmul_precision("float32")
     print(f"  TF32 found (matmul, cudnn) = {found}; the port's switch for float32 sets "
@@ -4117,7 +4731,7 @@ def main(argv=None) -> int:
     floor = lattice_floor_kernel()
     build_all(kernels + [floor])
     resources = kernel_resources(jobs)
-    print(f"[2/14] built {', '.join(k.name for k in kernels)} from "
+    print(f"[2/18] built {', '.join(k.name for k in kernels)} from "
           f"{', '.join(sorted({k.source for k in kernels}))} in {time.perf_counter() - t0:.1f} s")
     print("  the kernels (nvcc -Xptxas -v, cuobjdump -sass): registers, spill stores / loads (bytes), "
           "static shared memory (bytes), HMMA + HGMMA instructions")
@@ -4126,7 +4740,7 @@ def main(argv=None) -> int:
               f"smem {r['smem']}, {r['mma_instructions']} HMMA")
 
     # 3. kernels against their plain versions
-    print("[3/14] kernels against their plain versions on the card, forward and backward")
+    print("[3/18] kernels against their plain versions on the card, forward and backward")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     errs = {"topk": check_topk(dev, gen), **check_attention(dev, gen),
@@ -4143,6 +4757,7 @@ def main(argv=None) -> int:
     errs.update(check_rnnt_joint(dev, gen))
     lstm = check_lstm(dev, gen)
     errs.update(lstm_fwd=lstm["fwd"], lstm_bwd=lstm["bwd"])
+    lstm_rnnlm = check_lstm_rnnlm(dev, gen)
     print("  the bf16 parts (and K1 at H > 256): kernels against their plain versions")
     errs.update(check_ctc_head_bf16(dev, gen))
     errs.update(check_attention_backward_bf16(dev, gen))
@@ -4161,7 +4776,7 @@ def main(argv=None) -> int:
     root = tempfile.mkdtemp(dir=scratch_root)
     try:
         # 4. training at full width, then one micro-step against the CPU
-        print("[4/14] main path: L1 CTC(Transformer) training through the train CLI")
+        print("[4/18] main path: L1 CTC(Transformer) training through the train CLI")
         tr = train_full_width(args, root, card)
         n_layers = tr["cfg"].enc_num_layers
         step_check = check_micro_step(tr, dev, {
@@ -4170,27 +4785,27 @@ def main(argv=None) -> int:
         step_split = time_micro_step(tr, dev, card)
 
         # 5. learning on the card
-        print("[5/14] learning on the card: the small overfit corpus, train CLI then eval CLI")
+        print("[5/18] learning on the card: the small overfit corpus, train CLI then eval CLI")
         overfit = overfit_on_card(args, root)
 
         # 6. decode the trainer's checkpoint
-        print("[6/14] main path: decode of the trainer's model.ep1 through the eval CLI")
+        print("[6/18] main path: decode of the trainer's model.ep1 through the eval CLI")
         mp = decode_path(args, tr, dev, card)
 
         # 7. the Conformer's attention with its bias, forward and backward
-        print("[7/14] main path: L2 CTC(Conformer) training, two micro-steps through the train CLI")
+        print("[7/18] main path: L2 CTC(Conformer) training, two micro-steps through the train CLI")
         l2 = train_conformer_steps(args, root, card)
 
         # 8. the slice's path: L3-1 joint-CTC beam decode
-        print("[8/14] main path: L3-1 Conformer + attention decoder, beam 10 with joint CTC, through the eval CLI")
+        print("[8/18] main path: L3-1 Conformer + attention decoder, beam 10 with joint CTC, through the eval CLI")
         l3 = decode_l3_1(args, root, tr["test_tsv"], tr["wav_s"], dev, card)
 
         # 9. the slice's path: L3-3, the same with Transformer-LM shallow fusion
-        print("[9/14] main path: L3-3, L3-1 with Transformer-LM shallow fusion 0.5, through the eval CLI")
+        print("[9/18] main path: L3-3, L3-1 with Transformer-LM shallow fusion 0.5, through the eval CLI")
         l33 = decode_l3_3(args, root, tr, dev, card)
 
         # 10. the slice's path: L4 RNN-T(Conformer) training, then greedy and ALSD decoding
-        print("[10/14] main path: L4 RNN-T(Conformer) training through the train CLI, then its model.ep1 "
+        print("[10/18] main path: L4 RNN-T(Conformer) training through the train CLI, then its model.ep1 "
               "greedily and with the ALSD beam through the eval CLI")
         l4 = train_l4(args, root, card)
         n_layers = l4["cfg"].enc_num_layers
@@ -4203,7 +4818,7 @@ def main(argv=None) -> int:
                 "an entry point left TF32 on for a float32 model")
 
         # 11. the slice's path: L1 trained in bf16, then its model.ep1 greedily
-        print("[11/14] main path: L1 CTC(Transformer) training with compute_dtype bfloat16 through the train CLI, "
+        print("[11/18] main path: L1 CTC(Transformer) training with compute_dtype bfloat16 through the train CLI, "
               "then its model.ep1 greedily through the eval CLI")
         l1b_root = os.path.join(root, "l1_bfloat16")
         os.makedirs(l1b_root)
@@ -4217,7 +4832,7 @@ def main(argv=None) -> int:
         l1b_dec = decode_greedy_bf16(l1b, card, ("attention_fwd_bf16",))
 
         # 12. the slice's path: L4 trained in bf16, then its model.ep1 greedily
-        print("[12/14] main path: L4 RNN-T(Conformer) training with compute_dtype bfloat16 through the train CLI, "
+        print("[12/18] main path: L4 RNN-T(Conformer) training with compute_dtype bfloat16 through the train CLI, "
               "then its model.ep1 greedily through the eval CLI")
         l4b = train_l4(args, root, card, "bfloat16", per_bucket=(1, 1, 1, 1, 1))
         n_layers = l4b["cfg"].enc_num_layers
@@ -4229,9 +4844,47 @@ def main(argv=None) -> int:
         l4b_dec = decode_greedy_bf16(l4b, card, ("attention_fwd_bf16", "attention_bias_fwd_bf16"))
 
         # 13. the slice's path: bf16 beam decoding of L1, L3-1, L3-3 and L4
-        print("[13/14] main path: bf16 beam decoding at full width: L1 beam 8, L3-1 (K5 bf16, both variants), "
+        print("[13/18] main path: bf16 beam decoding at full width: L1 beam 8, L3-1 (K5 bf16, both variants), "
               "L3-3 with the LM in bf16 (K6 bf16 and the dense route), L4 ALSD beam 10")
         b16 = decode_bf16(args, root, tr, mp, l3, l33, {**l4, "batches": l4_dec["batches"]}, dev, card)
+
+        # 14. slice 3c: L3-1 training, its micro-step against the CPU, its model.ep1 decoded; then in bf16
+        print("[14/18] main path: L3-1 (Conformer + attention decoder, aux CTC 0.3, label smoothing 0.1) training "
+              "through the train CLI, then its model.ep1 through the eval CLI (beam 10, joint CTC 0.3); two bf16 "
+              "micro-steps")
+        n_l3_test = 20
+        l3_test, l3_wav = write_corpus(root, "test_l3_train", [200 + (1400 * i) // (n_l3_test - 1)
+                                                                for i in range(n_l3_test)], 10000, 80, args.seed + 7)
+        l3t = train_l3_1(args, root, card, l3_test, l3_wav)
+        n_layers = l3t["cfg"].enc_num_layers
+        l3t_step = check_micro_step(l3t, dev, {
+            "ctc_head_fwd": 1, "ctc_head_grad_e": 1, "ctc_head_grad_w": 1, "ctc_alpha": 1, "ctc_beta_grad": 1,
+            "attention_fwd": n_layers, "attention_bwd": n_layers, "attention_bias_fwd": n_layers,
+            "attention_bias_bwd": n_layers}, heads=l3_1_heads(l3t["cfg"]))
+        l3t_split = time_micro_step(l3t, dev, card)
+        l3t_dec = decode_trained_l3_1(l3t, card)
+        l3b = train_l3_1(args, root, card, l3_test, l3_wav, "bfloat16", per_bucket=(0, 1, 0, 0, 1))
+        l3b_step = check_bf16_micro_step(l3b, dev, {
+            "ctc_head_fwd_bf16": 1, "ctc_head_grad_e_bf16": 1, "ctc_head_grad_w_bf16": 1, "ctc_alpha": 1,
+            "ctc_beta_grad": 1, "attention_fwd_bf16": n_layers, "attention_bwd_bf16": n_layers,
+            "attention_bias_fwd_bf16": n_layers, "attention_bias_bwd_bf16": n_layers, "ctc_head_fwd": 0,
+            "attention_fwd": 0, "attention_bwd": 0})
+
+        # 15. slice 6a: the three LMs trained through train_lm; one RNN LM step against the CPU
+        print("[15/18] main path: the RNN (K8), Transformer and BERT LMs trained through train_lm over a sharded "
+              "corpus that fills every bucket")
+        lms = train_lms(args, root, card)
+        rnn_step = {**check_rnn_lm_step(lms["rnn"], dev), **time_rnn_lm_step(lms["rnn"], dev, card)}
+
+        # 16. slice 6a: PPL and BERT's pseudo-PPL through the PPL CLI, against the CPU
+        print("[16/18] main path: PPL of the three checkpoints through the PPL CLI (BERT: chunked pseudo-PPL at the "
+              "(11, 256) bucket), against the CPU")
+        ppl = lm_ppl(lms, dev, card)
+
+        # 17. slice 6a: RNN-LM shallow fusion in the three beams
+        print("[17/18] main path: RNN-LM shallow fusion 0.5 into the L1 CTC beam and the L3-1 attention beam "
+              "through the eval CLI, and into the L4 ALSD beam in Python")
+        fusion = rnn_lm_fusion(args, lms["rnn"], tr, l3t, l4, dev, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     set_matmul_precision("float32")  # the bf16 entry points turned TF32 on for their float32 remainder
@@ -4281,14 +4934,24 @@ def main(argv=None) -> int:
         times["lm_step_indirect_w33" + sfx] = time_lm_step(dev, gen, B, 33, 256, 64, dt)["lm_step_indirect" + sfx]
         for k in ("decoder_step", "decoder_step_indirect", "lm_step_indirect"):
             errs[f"{k}_w33{sfx}"] = errs[f"{k}_wide{sfx}"]
-    print(f"[14/14] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
+    rnnlm_k8 = {}
+    for (B_, T_, H_), _ in LSTM_RNNLM_CASES:  # the RNN LM's buckets, cuDNN's nn.LSTM(512, 512) beside
+        r = time_lstm(dev, gen, B_, T_, H_, 512)
+        for kind in ("fwd", "bwd"):
+            rnnlm_k8.setdefault(kind, []).append({
+                **r[f"lstm_{kind}"], "launches": lms["rnn"]["k8_by_shape"].get(f"{kind}/{B_}/{T_}/{H_}/f32", 0),
+                "max_abs_err": lstm_rnnlm[kind]})
+    times["lstm_fwd"]["rnnlm_shapes"], times["lstm_bwd"]["rnnlm_shapes"] = rnnlm_k8["fwd"], rnnlm_k8["bwd"]
+    print(f"[18/18] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
           f"decoder step W = 10, pos = 64; L4: B = {l4_big.batch_size}, T' = {l4_T}, U+1 = {l4_big.max_ylen + 1}) "
           f"on {smi}")
 
     paths = [tr["launches"], l2["launches"], l4["launches"], l1b["launches"], l4b["launches"],
              l1b_dec["launches"], l4b_dec["launches"]] + [
         r["launches"] for r in (*mp["runs"].values(), *l3["runs"].values(), *l33["runs"].values(),
-                                *l4_dec["runs"].values(), *b16["runs"].values())]
+                                *l4_dec["runs"].values(), *b16["runs"].values(),
+                                *lms.values(), *ppl.values(), *fusion.values())] + [
+        l3t["launches"], l3b["launches"], l3t_dec["launches"]]
     ms = lambda x: "none" if x is None else f"{x:.4f}"
 
     def row_of(name, src, rep, launches):
@@ -4306,7 +4969,7 @@ def main(argv=None) -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"],
             **{k: t[k] for k in ("ops_at", "dense_route_ms", "shapes", "floor_ms", "s1025", "dropout_ms",
-                                 "plain_dropout_ms", "library_dropout_ms") if k in t},
+                                 "plain_dropout_ms", "library_dropout_ms", "rnnlm_shapes") if k in t},
         }
 
     # K3 by shape class over the main paths (a call is one launch of one grid)
@@ -4322,6 +4985,11 @@ def main(argv=None) -> int:
         r["launches"] = by_class.get(tuple(r["class"]), 0)
         print(f"    top-k {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by {r['bound_by']}, plain "
               f"{r['plain_ms']:.4f}, torch.topk {r['library_ms']:.4f}), {r['launches']} launches of its class")
+    for kind in ("fwd", "bwd"):
+        for r in rnnlm_k8[kind]:
+            print(f"    lstm_{kind} (RNN LM) {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']}, plain {r['plain_ms']:.4f}, cuDNN nn.LSTM {r['library_ms']:.4f}), "
+                  f"{r['launches']} launches in the RNN LM's training")
     for name in ("ctc_alpha", "ctc_beta_grad"):
         times[name]["s1025"] = wide_lattice[name]
         for t in (times[name], wide_lattice[name]):
@@ -4366,6 +5034,14 @@ def main(argv=None) -> int:
         "l4_bf16_micro_step": {**l4b_split, **l4b_step},
         "l4_bf16_greedy_decode": l4b_dec,
         "bf16_beam_decode": b16,
+        "l3_1_train": {k: l3t[k] for k in ("micro_steps", "seconds", "epoch_seconds", "micro_steps_per_s",
+                                           "utt_per_s", "launches", "losses", "per_step_launches")},
+        "l3_1_micro_step": {**l3t_split, **l3t_step}, "l3_1_trained_decode": l3t_dec,
+        "l3_1_bf16_train": {k: l3b[k] for k in ("micro_steps", "seconds", "launches", "losses", "per_step_launches")},
+        "l3_1_bf16_micro_step": l3b_step,
+        "lm_train": {t: {k: v[k] for k in ("seconds", "steps", "losses", "launches", "k8_by_shape")}
+                     for t, v in lms.items()},
+        "rnn_lm_step": rnn_step, "lm_ppl": ppl, "rnn_lm_fusion": fusion,
         "wide_widths": wide,
         "kernel_resources": resources,
         "card": smi, "total_seconds": time.perf_counter() - t_start,

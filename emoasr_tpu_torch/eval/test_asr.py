@@ -8,8 +8,10 @@ decoder (parity target emoASR
 stamped into the TSV, `test_main` returning
 (lm_weight, len_weight, wer, wer_info), `--runtime` RTF mode using
 utt-id-embedded start/end times, `--nbest` output, checkpoint averaging for
-epoch ranges, Transformer-LM shallow fusion (`--lm_weight`, `--lm_conf`,
-`--lm_ep`, `--lm_tag`, or the yaml's `lm_weight`, `lm_conf`, `lm_path`).
+epoch ranges, Transformer- or RNN-LM shallow fusion (`--lm_weight`,
+`--lm_conf`, `--lm_ep` or `--lm_path`, `--lm_tag`, or the yaml's
+`lm_weight`, `lm_conf`, `lm_path`) into the CTC prefix beam, the attention
+beam and the ALSD beam.
 Checkpoints are reference-layout torch `state_dict` files.
 
 Runs on the card unless `--cpu` is given:
@@ -84,8 +86,9 @@ def load_asr_model(model_path: str, cfg: ExpConfig) -> ASR:
 def load_lm(lm_conf: str, lm_path: str):
     """(`LM` on the CPU in eval mode with the weights of the torch
     `state_dict` file `lm_path`, its config).  The file's keys may carry the
-    facade's `lm.` prefix or not; an `lm_type` other than `transformer`
-    raises `NotImplementedError` before the file is read."""
+    facade's `lm.` prefix or not; an `lm_type` other than `transformer`,
+    `bert` or `rnn` raises `NotImplementedError` before the file is read
+    (JAX `eval/test_asr.py:105-118`)."""
     lm_cfg = load_config(lm_conf)
     lm_model = LM(lm_cfg)
     load_lm_state_dict(lm_model, ckpt.load_state_dict(lm_path))
@@ -265,14 +268,14 @@ def test_main(args, lm_weight=None, len_weight=None):
     logging.info(f"***** {' '.join(sys.argv)}")
 
     setup_key = (args.conf, str(args.ep), beam_width, decode_ctc_weight, args.lm_conf, args.lm_ep,
-                 has_lm, top1, str(device))
+                 args.lm_path, has_lm, top1, str(device))
     cached = _SETUP_CACHE.get(setup_key)
     if cached is None:
         lm_fusion, lm_tag = None, ""
         if has_lm:
             lm_conf = args.lm_conf or rel_to_abs_path(cfg.lm_conf)
             lm_path = (get_model_path(lm_conf, args.lm_ep) if args.lm_ep is not None
-                       else rel_to_abs_path(cfg.lm_path))
+                       else args.lm_path or rel_to_abs_path(cfg.lm_path))
             logging.info(f"LM: {lm_path} on {device}")
             lm_model, lm_cfg = load_lm(lm_conf, lm_path)
             lm_fusion = make_lm_fusion(lm_model.to(device), lm_weight)
@@ -399,6 +402,8 @@ def build_argparser():
     parser.add_argument("--lm_weight", type=float, default=None)
     parser.add_argument("--lm_conf", type=str, default=None)
     parser.add_argument("--lm_ep", type=str, default=None)
+    parser.add_argument("--lm_path", type=str, default=None,
+                        help="the LM's state_dict file (default: --lm_ep's, else the yaml's lm_path)")
     parser.add_argument("--lm_tag", type=str, default=None)
     return parser
 

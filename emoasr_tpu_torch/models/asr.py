@@ -4,9 +4,8 @@
 Parity target: emoASR `asr/modeling/asr.py:21-101`: `forward` (loss),
 greedy `decode`, `forced_align`; the submodule names `encoder` and
 `decoder` are the reference checkpoint's prefixes.  Ported so far: the
-Transformer and Conformer encoders with the CTC decoder and the RNN-T
-decoder (training and decoding), and with the attention decoder (decoding
-only: its losses come with the slice that trains it).  Dropout is on in
+Transformer and Conformer encoders with the CTC decoder, the RNN-T decoder
+and the attention decoder (training and decoding).  Dropout is on in
 `train()` mode and off in `eval()` mode (the JAX package's `deterministic`
 flag).
 """
@@ -43,12 +42,7 @@ class ASR(nn.Module):
     def forward(self, xs, xlens, ys, ylens, ys_in=None, ys_out=None,
                 soft_labels=None, ps=None, plens=None):
         """-> (loss, loss_dict) (`asr.py:56-74`); the RNN-T decoder reads
-        the eos-led `ys_in`."""
-        if self.cfg.decoder_type == "transformer":
-            raise NotImplementedError(
-                "training the attention decoder (its label-smoothing loss, "
-                "models/criteria.py) comes with slice 3c (ROADMAP.md §1)"
-            )
+        the eos-led `ys_in`, the attention decoder `ys_in` and `ys_out`."""
         eouts, elens, eouts_inter = self.encoder(xs, xlens)
         loss, loss_dict, _ = self.decoder(
             eouts, elens, eouts_inter, ys, ylens, ys_in, ys_out, soft_labels, ps, plens,

@@ -1,5 +1,5 @@
 """Attention (Transformer) decoder with auxiliary CTC (PyTorch port of
-`emoasr_tpu/models/decoders/transformer.py`, without its losses).
+`emoasr_tpu/models/decoders/transformer.py`).
 
 Parity target: emoASR `asr/modeling/decoders/transformer.py:25-159`: embed +
 PE, N pre-norm decoder layers, final LayerNorm eps=1e-12, linear output;
@@ -9,9 +9,11 @@ returns the last position's logits.  The incremental steps
 in `emoasr_tpu_torch/search/attention_beam.py`; they write into the caches
 they are given, in place.
 
-The label-smoothing / distillation losses and the CMLM mode raise
-`NotImplementedError` until the slice that trains this family
-(ROADMAP.md §1).
+The training loss is the label-smoothed cross-entropy over `ylens + 1`
+positions (`models/criteria.py`) plus `mtl_ctc_weight` times the auxiliary
+CTC loss (`CTCDecoder`, which runs the CTC head and lattice kernels).  The
+distillation branch and the CMLM mode raise `NotImplementedError` until
+slice 7 (ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from torch import nn
 
 from emoasr_tpu_torch.config import ExpConfig
+from emoasr_tpu_torch.models.criteria import SLICE_7, label_smoothing_loss
 from emoasr_tpu_torch.models.decoders.ctc import CTCDecoder
 from emoasr_tpu_torch.models.layers import (
     PositionalEncoder,
@@ -40,9 +43,7 @@ class TransformerDecoder(nn.Module):
     def __init__(self, cfg: ExpConfig, cmlm: bool = False):
         super().__init__()
         if cmlm:
-            raise NotImplementedError(
-                "the CMLM decoder mode comes with the PC-MLM slice (ROADMAP.md §1, slice 7)"
-            )
+            raise NotImplementedError(f"the CMLM decoder mode comes with slice 7 {SLICE_7}")
         self.cfg = cfg
         self.embed = nn.Embedding(cfg.vocab_size, cfg.dec_hidden_size)
         self.pe = PositionalEncoder(cfg.dec_hidden_size, cfg.dropout_dec_rate)
@@ -150,13 +151,11 @@ class TransformerDecoder(nn.Module):
 
     def forward(self, eouts, elens, eouts_inter=None, ys=None, ylens=None, ys_in=None,
                 ys_out=None, soft_labels=None, ps=None, plens=None):
-        """Without `ys_out`: the teacher-forced logits (B, L, V)."""
-        if ys_out is not None:
-            raise NotImplementedError(
-                "the attention decoder's losses (label smoothing, distillation; "
-                "models/criteria.py) come with the slice that trains this family "
-                "(ROADMAP.md §1, slice 3c)"
-            )
+        """Without `ys_out`: the teacher-forced logits (B, L, V).  With it:
+        (loss, loss_dict, logits), `loss_dict` holding `loss_att`,
+        `loss_ctc` (with an auxiliary CTC head) and `loss_total`
+        (transformer.py:190-236)."""
+        cfg = self.cfg
         L = ys_in.shape[1]
         emask = make_pad_mask(elens, eouts.shape[1])[:, None, None, :]
         ymask = (
@@ -164,7 +163,24 @@ class TransformerDecoder(nn.Module):
             & make_causal_mask(L, ys_in.device)[None, None, :, :]
         )
         h = self._decode_stack(ys_in, ymask, eouts, emask)
-        return self.output(self.norm(h))
+        logits = self.output(self.norm(h))
+        if ys_out is None:
+            return logits
+        if cfg.kd_weight > 0 and soft_labels is not None:
+            raise NotImplementedError(
+                f"the attention decoder's distillation loss (kd_weight with soft labels) comes with slice 7 {SLICE_7}"
+            )
+        loss_att = label_smoothing_loss(
+            logits, ys_out, ylens + 1, lsm_prob=cfg.lsm_prob,
+            normalize_length=cfg.loss_normalize_length, normalize_batch=cfg.loss_normalize_batch,
+        )
+        loss, loss_dict = loss_att, {"loss_att": loss_att}
+        if cfg.mtl_ctc_weight > 0:
+            loss_ctc, _, _ = self.ctc(eouts, elens, ys=ys, ylens=ylens)
+            loss = loss + cfg.mtl_ctc_weight * loss_ctc
+            loss_dict["loss_ctc"] = loss_ctc
+        loss_dict["loss_total"] = loss
+        return loss, loss_dict, logits
 
     def forward_one_step(self, ys_in, ylens_in, eouts, emask=None, cross_kvs=None):
         """Logits for the position `ylens_in-1` of each prefix: the full

@@ -40,7 +40,7 @@ class TransformerEncoder(nn.Module):
         else:
             raise NotImplementedError(
                 f"input_layer={cfg.input_layer!r}: conv2d and linear are ported; "
-                "embed comes with the LM slices (ROADMAP.md §1)"
+                "embed comes with slice 6b (ROADMAP.md §1: the phone-to-word LMs)"
             )
         PE = PositionalEncoder if self.pos_encode_type == "abs" else RelPositionalEncoder
         self.pe = PE(cfg.enc_hidden_size, cfg.dropout_enc_rate)

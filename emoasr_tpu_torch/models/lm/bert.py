@@ -1,6 +1,6 @@
-"""BERT-style post-norm Transformer stack with a causal switch, and the
-BERT-MLM head (PyTorch port of the parts of `emoasr_tpu/models/lm/bert.py`
-that a causal Transformer LM uses).
+"""BERT-style post-norm Transformer stack with a causal switch, the BERT-MLM
+head and the masked-LM loss (PyTorch port of the parts of
+`emoasr_tpu/models/lm/bert.py` that the Transformer and BERT LMs use).
 
 Module and parameter names are emoASR's torch `state_dict` names (its
 vendored HuggingFace `BertForMaskedLM`): `embeddings.{word_embeddings,
@@ -12,7 +12,10 @@ LayerNorm}`, and the head's `predictions.{transform.dense,
 transform.LayerNorm, decoder, bias}`.
 
 Semantics kept from the JAX package: embeddings = word + learned position +
-token type 0, LayerNorm eps 1e-12, dropout; post-norm layers
+token type 0, LayerNorm eps 1e-12, dropout (0.1, on in `train()` mode: the
+embeddings' output, the attention probabilities, and each layer's two
+sublayer outputs before their residual sums, as in the JAX stack); post-norm
+layers
 LN(x + attn), LN(x + FF(gelu exact)); attention scores filled with -1e9 at
 masked keys before an f32 softmax; the head is dense + gelu + LN and an
 untied vocabulary projection.
@@ -305,3 +308,17 @@ class BertMLMHead(nn.Module):
         t = self.predictions.transform
         h = t.LayerNorm(F.gelu(t.dense(h)))
         return self.predictions.decoder(h)
+
+
+IGNORE_ID = -100
+
+
+def mlm_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_id: int = IGNORE_ID) -> torch.Tensor:
+    """Mean cross-entropy over the labels that are not `ignore_id`
+    (bert.py:389-396, torch `CrossEntropyLoss`'s default), 0 where there
+    is none."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    valid = labels != ignore_id
+    tgt = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    ce = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    return torch.where(valid, ce, torch.zeros_like(ce)).sum() / valid.sum().clamp(min=1)

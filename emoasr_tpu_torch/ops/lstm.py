@@ -6,8 +6,10 @@ Replaces cuDNN `nn.LSTM` in emoASR's prediction network
 (`asr/modeling/encoders/rnn.py:43-50`).  The input projection x @ W_ih^T
 for all time steps is one matrix product; the recurrence carries only the
 (B, H) state.  Gate order is torch's (i, f, g, o) and the weights keep
-`nn.LSTM`'s (4H, in) layout and `*_l0` names, so emoASR checkpoints load
-as they are.
+`nn.LSTM`'s (4H, in) layout and `*_l{k}` names, so emoASR checkpoints load
+as they are: `StackedLSTM` is the RNN-T prediction network's `ModuleList`
+of one-layer LSTMs (`rnns.{i}.weight_ih_l0`), `MultiLayerLSTM` the RNN LM's
+one multi-layer `nn.LSTM` (`rnns.weight_ih_l{k}`).
 
 `lstm_scan` dispatches as the JAX package does on a TPU: a CUDA tensor
 with at least `_PALLAS_MIN_STEPS` steps goes to the fused recurrence
@@ -150,5 +152,35 @@ class StackedLSTM(nn.ModuleList):
             h, (hn, cn) = layer(h, st)
             new_states.append(torch.stack([hn, cn]))
             if li < n - 1:
+                h = F.dropout(h, self.dropout_rate, self.training)
+        return h, torch.stack(new_states)
+
+
+class MultiLayerLSTM(nn.Module):
+    """One multi-layer unidirectional LSTM with `nn.LSTM(num_layers=N)`'s
+    parameter names (layer k: `weight_ih_l{k}`, `weight_hh_l{k}`,
+    `bias_ih_l{k}`, `bias_hh_l{k}`), the RNN LM's `rnns`
+    (`lm/modeling/rnn.py:13-86`): each layer through `lstm_scan`, states
+    threaded per layer, dropout between layers (the JAX package's
+    `StackedLSTM` with layers named `layer{k}`)."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int, dropout_rate: float = 0.0):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.dropout_rate = dropout_rate
+        for k in range(num_layers):
+            _lstm_params(self, input_size if k == 0 else hidden_size, hidden_size, f"_l{k}")
+
+    def forward(self, xs: torch.Tensor, states: Optional[torch.Tensor] = None):
+        """xs (B, T, in), states (layers, 2, B, H) or None -> (ys (B, T, H),
+        new states (layers, 2, B, H))."""
+        new_states = []
+        h = xs
+        for k in range(self.num_layers):
+            st = None if states is None else (states[k, 0], states[k, 1])
+            h, (hn, cn) = _run(self, f"_l{k}", h, st)
+            new_states.append(torch.stack([hn, cn]))
+            if k < self.num_layers - 1:
                 h = F.dropout(h, self.dropout_rate, self.training)
         return h, torch.stack(new_states)

@@ -30,6 +30,7 @@ raises `ValueError`.
 from __future__ import annotations
 
 import math
+from collections import Counter
 from typing import Tuple
 
 import torch
@@ -45,6 +46,10 @@ KERNEL = CudaKernel(
         "emo_lstm_smem_bytes": [I] * 6,
     },
 )
+
+# launches by shape class (("fwd" | "bwd", B, T, H, dtype) of the call), for
+# the reports; `KERNEL.counts` counts the same launches
+SHAPE_LAUNCHES: Counter = Counter()
 
 # The kernels' geometry, mirrored from csrc/lstm_scan.cu (`SmemPlan`): one
 # block of 256 threads (8 warps) an SM; a block owns `units` hidden units
@@ -207,6 +212,7 @@ class _LSTMScan(torch.autograd.Function):
                     cT.data_ptr(), hbuf.data_ptr(), bar.data_ptr(), B, T, H, geo["fwd"]["units"],
                     geo["fwd"]["stages"], geo["w_terms"], _stream(x_proj),
                 )
+            SHAPE_LAUNCHES[("fwd", B, T, H, _SUFFIX[dt])] += 1
         ctx.save_for_backward(w_hh, gates, hcprev)
         ctx.dtypes = (h0.dtype, c0.dtype, w_dtype)
         ctx.geo = geo
@@ -239,6 +245,7 @@ class _LSTMScan(torch.autograd.Function):
                     dh0.data_ptr(), dc0.data_ptr(), dpre.data_ptr(), bar.data_ptr(), B, T, H,
                     geo["bwd"]["stages"], geo["w_terms"], _stream(gates),
                 )
+            SHAPE_LAUNCHES[("bwd", B, T, H, _SUFFIX[dt])] += 1
         return dxp, dw.to(ctx.dtypes[2]), dh0.to(ctx.dtypes[0]), dc0.to(ctx.dtypes[1]), None, None
 
 

@@ -130,10 +130,17 @@ LM_FUSION_MODES = ("auto", "stateless", "cached", "indirect")
 
 def make_lm_fusion(lm_model, weight: float, max_len: Optional[int] = None,
                    mode: str = "auto") -> LMFusion:
-    """An LMFusion around a Transformer LM (`models/lm/lm.py`, the facade or
-    the inner module), on the device and in the dtype of its parameters.
+    """An LMFusion around a Transformer or RNN LM (`models/lm/lm.py`, the
+    facade or the inner module), on the device and in the dtype of its
+    parameters.
 
-    Three modes, all exact (equivalence pinned in tests/test_torch_lm_fusion.py):
+    RNN LM (`search/common.py:249-279` of the JAX package): the beams carry
+    its states as (B, W, layers, 2, H), (layers, 2, B W, H) to the LM; each
+    step is one `predict` from every beam's last token (`init_states` from
+    `zero_states`); the one-token LSTM steps take the plain scan, as in JAX.
+
+    Transformer LM, three modes, all exact (equivalence pinned in
+    tests/test_torch_lm_fusion.py):
 
     - "stateless": re-encode the full prefix each beam step.
     - "cached": per-layer KV caches, O(1) work per step, kept batch-major
@@ -146,14 +153,20 @@ def make_lm_fusion(lm_model, weight: float, max_len: Optional[int] = None,
       attention beam takes: no per-step cache gather.
 
     "auto" selects "indirect".  Positions are clamped to the cache:
-    min(max(lens - 1, 0), Lc - 1).  Other LM types wait for slice 6.
+    min(max(lens - 1, 0), Lc - 1).  A masked LM (BERT) has no next-token
+    distribution to fuse; the other LM types wait for slice 6b.
     """
     if mode not in LM_FUSION_MODES:
         raise ValueError(f"LM fusion mode {mode!r}: one of {LM_FUSION_MODES}")
     lm_type = getattr(getattr(lm_model, "cfg", None), "lm_type", None)
+    if lm_type == "rnn":
+        return _rnn_lm_fusion(lm_model, weight)
+    if lm_type == "bert":
+        raise ValueError("a masked LM (lm_type 'bert') has no next-token distribution for shallow fusion")
     if lm_type != "transformer":
         raise NotImplementedError(
-            f"LM fusion for lm_type={lm_type!r} comes with the LM package (ROADMAP.md §1, slice 6)"
+            f"LM fusion for lm_type={lm_type!r} comes with the LM package's second half "
+            "(ROADMAP.md §1, slice 6b)"
         )
     if mode == "auto":
         mode = "indirect"
@@ -216,3 +229,19 @@ def make_lm_fusion(lm_model, weight: float, max_len: Optional[int] = None,
 
     return LMFusion(predict_beams_cached, init_states_cached, weight,
                     state_pad_axis=2, state_max_len=max_len, indirect=indirect)
+
+
+def _rnn_lm_fusion(lm_model, weight: float) -> LMFusion:
+    """The RNN LM's stateful fusion: states (B, W, layers, 2, H)."""
+
+    def predict_beams(hyps, lens, states):
+        B, W, L = hyps.shape
+        st = states.reshape((B * W,) + states.shape[2:]).permute(1, 2, 0, 3)  # (layers, 2, B W, H)
+        logp, new = lm_model.predict(hyps.reshape(B * W, L), lens.reshape(B * W), st)
+        return logp.reshape(B, W, -1), new.permute(2, 0, 1, 3).reshape((B, W) + new.shape[:2] + new.shape[3:])
+
+    def init_states(B, W, init_len=None):
+        st = lm_model.zero_states(B * W)  # (layers, 2, B W, H)
+        return st.permute(2, 0, 1, 3).reshape((B, W) + st.shape[:2] + st.shape[3:])
+
+    return LMFusion(predict_beams, init_states, weight)

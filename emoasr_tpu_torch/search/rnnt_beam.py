@@ -17,6 +17,11 @@ pool's selection take the lower index among equal scores, as `lax.top_k`
 does.  Within one round, extensions of distinct parents cannot collide, so
 only the blank pool is merged, by the double hash of `search/common.py`
 (first occurrence canonical).
+
+LM shallow fusion (an `LMFusion`, `search/common.py`; JAX
+`search/rnnt_beam.py:121-171`): each round's label candidates add the LM
+weight times the LM's log-probs; a beam's LM state advances only with the
+label it emits, and the blank pool keeps each beam's pre-round state.
 """
 
 from __future__ import annotations
@@ -25,7 +30,14 @@ from typing import Callable, NamedTuple, Tuple
 
 import torch
 
-from emoasr_tpu_torch.search.common import DEAD, gather_beams, hash_extend, hash_init, topk_lastdim
+from emoasr_tpu_torch.search.common import (
+    DEAD,
+    gather_beams,
+    hash_extend,
+    hash_init,
+    topk_lastdim,
+    tree_map,
+)
 
 NUM_EXPANDS = 3
 
@@ -37,6 +49,7 @@ class _Beams(NamedTuple):
     dstates: torch.Tensor  # (B, W, layers, 2, H): the state for hyp[:-1]
     h1: torch.Tensor
     h2: torch.Tensor
+    lm_states: object  # the fusion LM's states with (B, W, ...) leaves, or None
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -63,12 +76,8 @@ def rnnt_beam_search(
     recurrency_fn(tokens (N, 1), dstates (layers, 2, N, H)) -> (douts
     (N, D), new dstates); joint_fn(eouts_t (N, E), douts (N, D)) -> logits
     (N, V).  Returns (hyps (B, W, Lmax) with the leading eos, lens (B, W),
-    scores (B, W)), best first."""
-    if lm is not None:
-        raise NotImplementedError(
-            "LM shallow fusion in the RNN-T beam comes with the LM package slice "
-            "(ROADMAP.md §1, slice 6); no shipped RNN-T configuration fuses an LM"
-        )
+    scores (B, W)), best first.  `lm` (LMFusion) adds shallow fusion on
+    the label expansions."""
     B, T, E = eouts.shape
     dev = eouts.device
     W = beam_width
@@ -85,6 +94,7 @@ def rnnt_beam_search(
     beams = _Beams(
         hyps=hyps0, lens=torch.ones((B, W), dtype=torch.long, device=dev), scores=scores0,
         dstates=eouts.new_zeros((B, W, num_layers, 2, dec_hidden)), h1=h1, h2=h2,
+        lm_states=lm.init_states(B, W) if lm is not None else None,
     )
     b_idx = torch.arange(B, device=dev)[:, None]
     w_idx = torch.arange(W, device=dev)[None, :]
@@ -107,6 +117,7 @@ def rnnt_beam_search(
         a_dstates = eouts.new_zeros((B, A, num_layers, 2, dec_hidden))
         a_h1 = torch.zeros((B, A), dtype=torch.long, device=dev)
         a_h2 = torch.zeros((B, A), dtype=torch.long, device=dev)
+        a_lm_states = tree_map(lambda x: torch.cat([x] * NUM_EXPANDS, dim=1), beams.lm_states)
 
         cur = beams
         for v_round in range(NUM_EXPANDS):
@@ -124,12 +135,20 @@ def rnnt_beam_search(
             a_dstates[:, sl] = cur.dstates
             a_h1[:, sl] = cur.h1
             a_h2[:, sl] = cur.h2
+            if a_lm_states is not None:
+                tree_map(lambda a, c: a[:, sl].copy_(c), a_lm_states, cur.lm_states)
 
             # label expansion (the last round has none); the reference's
             # top-k runs over vocab[1:], so it assumes blank_id == 0
             # (rnn_transducer.py:301-303)
             if v_round < NUM_EXPANDS - 1:
-                top_sc, top_v = topk_lastdim(sa[:, :, 1:].contiguous(), K)  # (B, W, K)
+                sa_nb = sa[:, :, 1:]
+                lm_new_states = None
+                if lm is not None:
+                    # the states advance only where a label is emitted
+                    lm_logp, lm_new_states = lm.predict_beams(cur.hyps, cur.lens, cur.lm_states)
+                    sa_nb = sa_nb + lm.weight * lm_logp[:, :, 1:]
+                top_sc, top_v = topk_lastdim(sa_nb.contiguous(), K)  # (B, W, K)
                 top_v = top_v + 1
                 ok = alive[:, :, None] & (cur.lens[:, :, None] < Lmax - 1)
                 cand = torch.where(ok, cur.scores[:, :, None] + top_sc, torch.full_like(top_sc, DEAD))
@@ -143,7 +162,9 @@ def rnnt_beam_search(
                 new_hyps[b_idx, w_idx, pos] = torch.where(sel_sc > DEAD / 2, tok, kept)
                 nh1, nh2 = hash_extend((_take(cur.h1, parent), _take(cur.h2, parent)), tok)
                 cur = _Beams(hyps=new_hyps, lens=new_lens, scores=sel_sc,
-                             dstates=gather_beams(new_dstates, parent), h1=nh1, h2=nh2)
+                             dstates=gather_beams(new_dstates, parent), h1=nh1, h2=nh2,
+                             lm_states=cur.lm_states if lm_new_states is None else
+                             tree_map(lambda x: gather_beams(x, parent), lm_new_states))
 
         # merge the pool (first occurrence canonical) and prune
         valid = a_scores > DEAD / 2
@@ -156,10 +177,11 @@ def rnnt_beam_search(
         merged = torch.where(valid & is_canon, merged, torch.full_like(merged, DEAD))
         top_sc, top_idx = topk_lastdim(merged, W)
         new = _Beams(hyps=gather_beams(a_hyps, top_idx), lens=_take(a_lens, top_idx), scores=top_sc,
-                     dstates=gather_beams(a_dstates, top_idx), h1=_take(a_h1, top_idx), h2=_take(a_h2, top_idx))
-        beams = _Beams(*[
-            torch.where(active_b.reshape((B,) + (1,) * (n.dim() - 1)), n, o) for n, o in zip(new, beams)
-        ])
+                     dstates=gather_beams(a_dstates, top_idx), h1=_take(a_h1, top_idx), h2=_take(a_h2, top_idx),
+                     lm_states=tree_map(lambda x: gather_beams(x, top_idx), a_lm_states))
+        beams = _Beams(*[tree_map(
+            lambda n, o: torch.where(active_b.reshape((B,) + (1,) * (n.dim() - 1)), n, o), nf, of)
+            for nf, of in zip(new, beams)])
 
     order = torch.argsort(-beams.scores, dim=1, stable=True)
     return (gather_beams(beams.hyps, order), _take(beams.lens, order).to(torch.int32),

@@ -11,6 +11,10 @@
   `model_path` loads a `model.ep{N}`.
 - post-hoc weight averaging over epoch ranges "91-100" or lists "1+2+5"
   (`utils/average_checkpoints.py:16-52`), triggered lazily at test time.
+
+The LM trainer (`train/train_lm.py`) writes and resumes through the same
+functions: `model.ep{N}` holds the `LM` facade's `state_dict` (`lm.` keys),
+`optim.ep{N}` its AdamW state with both parameter groups.
 """
 
 from __future__ import annotations

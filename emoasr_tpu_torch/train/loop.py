@@ -29,11 +29,13 @@ import torch
 
 from emoasr_tpu_torch.config import ExpConfig, load_config
 from emoasr_tpu_torch.data.asr_dataset import ASRDataset
+from emoasr_tpu_torch.eval.decode import build_decode_fn
 from emoasr_tpu_torch.eval.wer import compute_wers
 from emoasr_tpu_torch.models.asr import ASR
 from emoasr_tpu_torch.train import checkpoint as ckpt
 from emoasr_tpu_torch.train.optim import build_optimizer
 from emoasr_tpu_torch.train.step import TrainState, make_train_step, preprocess
+from emoasr_tpu_torch.utils.converters import strip_eos
 from emoasr_tpu_torch.utils.device import resolve_device, set_matmul_precision
 from emoasr_tpu_torch.utils.log import setup_logging
 from emoasr_tpu_torch.utils.paths import get_log_save_paths, get_resume_paths
@@ -114,22 +116,32 @@ def prefetch_to_device(batch_iter, device: torch.device, depth: int = 3) -> Iter
 @torch.no_grad()
 def greedy_valid_wer(cfg: ExpConfig, model: ASR, dataset: ASRDataset, vocab=None) -> float:
     """Per-epoch greedy WER on the dev set (train_asr.py:146-184); the
-    model is switched to `eval()` and back.  Under a half `compute_dtype`
-    a cast copy decodes, as the JAX package's validation decodes the cast
-    variables."""
+    model is switched to `eval()` and back.  CTC and RNN-T decoders decode
+    greedily; the attention decoder runs a width-1 beam
+    (`eval/decode.py::build_decode_fn(..., beam_width=1)`, as the reference
+    decodes with beam_width=1).  Under a half `compute_dtype` a cast copy
+    decodes, as the JAX package's validation decodes the cast variables."""
     device = next(model.parameters()).device
     was_training = model.training
     model.eval()
     decoder = cast_floating(copy.deepcopy(model), dtype_of(cfg)) if is_half(cfg) else model
+    beam = cfg.decoder_type == "transformer"
+    decode_fn = build_decode_fn(decoder, cfg, beam_width=1, device=device) if beam else None
     hyps_all, refs_all = [], []
     try:
         for batch in dataset.batches():
-            xs = torch.from_numpy(batch["xs"]).to(device, dtype_of(cfg))
-            xlens = torch.from_numpy(batch["xlens"]).to(device, torch.int64)
-            hyps, hyp_lens, _, _ = decoder.decode_greedy(*preprocess(cfg, xs, xlens))
+            if beam:
+                hyps, hyp_lens, _ = decode_fn(batch["xs"], batch["xlens"])
+                hyps, hyp_lens = hyps[:, 0], hyp_lens[:, 0]
+            else:
+                xs = torch.from_numpy(batch["xs"]).to(device, dtype_of(cfg))
+                xlens = torch.from_numpy(batch["xlens"]).to(device, torch.int64)
+                hyps, hyp_lens, _, _ = decoder.decode_greedy(*preprocess(cfg, xs, xlens))
             hyps, hyp_lens = hyps.cpu().numpy(), hyp_lens.cpu().numpy()
             for b in range(len(batch["utt_ids"])):
                 hyp_ids = hyps[b, : hyp_lens[b]].tolist()
+                if beam:  # beam hypotheses carry their framing eos tokens
+                    hyp_ids = strip_eos(hyp_ids, cfg.eos_id)
                 ref_ids = batch["ys"][b, : batch["ylens"][b]].tolist()
                 if vocab is not None:
                     hyps_all.append(vocab.ids2words(hyp_ids))

@@ -6,8 +6,10 @@ Parity target: emoASR `asr/optimizers.py`:
 - `epdecay`: linear warmup to base, then constant; multiplied by
   `lr_decay_rate` at each epoch >= `lr_decay_start_epoch` (:52-56, 88-97)
 - `lindecay`: linear warmup then linear decay to 0 over total steps (:65-77)
-- ASR uses torch Adam with *coupled* L2 weight_decay.  (The LM path's AdamW
-  with bias/LayerNorm excluded from decay comes with the LM slices.)
+- ASR uses torch Adam with *coupled* L2 weight_decay; the LM trainer uses
+  AdamW, the decay decoupled from Adam, with biases, LayerNorm / BatchNorm
+  weights and the relative-position biases excluded from it
+  (`lm/train_lm.py:188-195`, `optimizers.py:128-137`).
 - NaN/inf grads skip the step (train_asr.py:83-90); grad clipping by global
   norm; gradient accumulation (`accum_grad`) are in `train/step.py`.
 
@@ -17,9 +19,10 @@ set on the optimizer at each update.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Union
 
 import torch
+from torch import nn
 
 from emoasr_tpu_torch.config import ExpConfig
 
@@ -74,15 +77,49 @@ def make_lr_fn(cfg: ExpConfig, num_total_steps: Optional[int] = None) -> Callabl
     return lr
 
 
-def build_optimizer(cfg: ExpConfig, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
+def nodecay_mask(model: nn.Module) -> Dict[str, bool]:
+    """By parameter name: True where weight decay applies.  The reference
+    exempts every parameter whose name contains "bias" and the LayerNorms'
+    weights (optimizers.py:128-137): here `*.bias`, the LSTMs' `bias_ih_l*`
+    and `bias_hh_l*`, LayerNorm and BatchNorm weights, and the Conformer's
+    `pos_bias_u` / `pos_bias_v`.  (The JAX package's mask, by flax leaf
+    name, misses the LSTM biases, which flax names `bias_ih` / `bias_hh`;
+    ROADMAP.md §3.)"""
+    norms = {id(m.weight) for m in model.modules()
+             if isinstance(m, (nn.LayerNorm, nn.BatchNorm1d, nn.BatchNorm2d)) and m.weight is not None}
+    mask = {}
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        exempt = leaf == "bias" or leaf.startswith(("bias_ih", "bias_hh")) or leaf in ("pos_bias_u", "pos_bias_v")
+        mask[name] = not (exempt or id(p) in norms)
+    return mask
+
+
+def build_optimizer(cfg: ExpConfig, params: Union[nn.Module, Iterable[torch.nn.Parameter]],
+                    use_adamw: bool = False) -> torch.optim.Optimizer:
     """torch Adam (b1 0.9, b2 0.999, eps 1e-8) with coupled L2: the decay
     term joins the gradient before the moment updates, after the clip
-    (`train/step.py` clips the accumulated gradient first).  Its `lr` is set
-    at every update from `make_lr_fn`."""
-    return torch.optim.Adam(
-        list(params), lr=0.0, betas=(0.9, 0.999), eps=1e-8,
-        weight_decay=float(cfg.weight_decay or 0.0),
-    )
+    (`train/step.py` clips the accumulated gradient first).
+
+    `use_adamw` (the LM trainer; `params` is then the model): AdamW with
+    two parameter groups, `nodecay_mask`'s exempt parameters at weight
+    decay 0, the update p - lr (adam(g) + wd p), as the JAX package's
+    clip -> scale_by_adam -> add_decayed_weights(mask) -> -lr.  The `lr` of
+    every group is set at every update from `make_lr_fn`."""
+    kw = dict(lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+    if not use_adamw:
+        if isinstance(params, nn.Module):
+            params = params.parameters()
+        return torch.optim.Adam(list(params), weight_decay=float(cfg.weight_decay or 0.0), **kw)
+    if not isinstance(params, nn.Module):
+        raise TypeError("build_optimizer(use_adamw=True) takes the model, for its parameters' names")
+    mask = nodecay_mask(params)
+    named = [(n, p) for n, p in params.named_parameters() if p.requires_grad]
+    groups = [
+        {"params": [p for n, p in named if mask[n]], "weight_decay": float(cfg.weight_decay or 0.0)},
+        {"params": [p for n, p in named if not mask[n]], "weight_decay": 0.0},
+    ]
+    return torch.optim.AdamW([g for g in groups if g["params"]], **kw)
 
 
 def grads_finite(grads) -> torch.Tensor:

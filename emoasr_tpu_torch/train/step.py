@@ -87,8 +87,10 @@ def compute_loss(model, cfg: ExpConfig, batch: Dict, generator=None, train: bool
     return torch.func.functional_call(model, cast_params_for_compute(model, dtype_of(cfg)), args)
 
 
-def make_train_step(cfg: ExpConfig, num_total_steps: Optional[int] = None) -> Callable:
-    """Build the train step.
+def make_train_step(cfg: ExpConfig, num_total_steps: Optional[int] = None,
+                    loss_fn: Callable = compute_loss) -> Callable:
+    """Build the train step (of an ASR model; the LM trainer passes its own
+    `loss_fn(model, cfg, batch, generator, train)`).
 
     Returns step_fn(state, batch, generator=None) -> metrics.  `batch`:
     dict of tensors on the model's device with xs/xlens/ys/ylens (+ys_in,
@@ -112,7 +114,7 @@ def make_train_step(cfg: ExpConfig, num_total_steps: Optional[int] = None) -> Ca
     def step_fn(state: TrainState, batch: Dict, generator=None) -> Dict:
         model, params = state.model, state.params
         model.train()
-        loss, loss_dict = compute_loss(model, cfg, batch, generator, True)
+        loss, loss_dict = loss_fn(model, cfg, batch, generator, True)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
         finite = bool(grads_finite(grads))

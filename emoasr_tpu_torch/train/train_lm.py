@@ -1,0 +1,160 @@
+"""LM training loop + CLI (PyTorch port of `emoasr_tpu/train/train_lm.py`
+for the Transformer, BERT and RNN LMs).
+
+Parity target: emoASR `lm/train_lm.py:40-327`: the ASR trainer's skeleton
+with AdamW and its no-decay parameter group (:188-195), total steps from
+`train_size` for `lindecay` and `warmup_proportion` (:183-186), sharded
+train directories whose files are shuffled every epoch (:217-253),
+`model.ep{N}` / `optim.ep{N}` every `save_step` epochs, and `--resume`.
+
+The step is `train/step.py::make_train_step` with the LM's loss: gradient
+accumulation, clip by global norm, and a non-finite micro-step that moves
+neither the weights nor the moments nor the open accumulation (the step
+counter still advances), as the JAX step does.  Dropout (the BERT stack's
+0.1, the RNN LM's `dropout_rate`) is on in training.  The phone-to-word and
+discriminator (`*-disc`) types raise, naming slice 6b.
+
+Usage: `python -m emoasr_tpu_torch.train.train_lm -conf lm.yaml [--resume] [--cpu]`
+(on the GPU unless `--cpu` is given).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from emoasr_tpu_torch.config import ExpConfig, load_config
+from emoasr_tpu_torch.data.lm_dataset import LMDataset
+from emoasr_tpu_torch.models.lm.lm import LM, LM_TYPES_6B, SLICE_6B, load_lm_state_dict
+from emoasr_tpu_torch.train import checkpoint as ckpt
+from emoasr_tpu_torch.train.loop import prefetch_to_device
+from emoasr_tpu_torch.train.optim import build_optimizer
+from emoasr_tpu_torch.train.step import TrainState, make_train_step
+from emoasr_tpu_torch.utils.device import resolve_device, set_matmul_precision
+from emoasr_tpu_torch.utils.log import setup_logging
+from emoasr_tpu_torch.utils.paths import get_log_save_paths, get_resume_paths
+from emoasr_tpu_torch.utils.precision import cast_params_for_compute, dtype_of, is_half
+
+LM_TYPES = ("transformer", "bert", "rnn")
+
+
+def lm_loss(model: LM, cfg: ExpConfig, batch: Dict, generator=None, train: bool = True):
+    """(loss, loss_dict) of one LM batch (`ys_in`, `ylens`, `labels`), the
+    forward in `cfg.compute_dtype` on a cast copy of the float32 masters
+    under a half policy (as `train/step.py::compute_loss`)."""
+    args = (batch["ys_in"], batch["ylens"], batch.get("labels"))
+    if not is_half(cfg):
+        return model(*args)
+    return torch.func.functional_call(model, cast_params_for_compute(model, dtype_of(cfg)), args)
+
+
+def check_lm_type(cfg: ExpConfig) -> None:
+    if cfg.lm_type in LM_TYPES_6B:
+        raise NotImplementedError(f"training lm_type={cfg.lm_type!r} comes with slice 6b {SLICE_6B}")
+    if cfg.lm_type not in LM_TYPES:
+        raise ValueError(f"lm_type={cfg.lm_type!r}: one of {LM_TYPES + LM_TYPES_6B}")
+
+
+def make_lm_train_step(cfg: ExpConfig, num_total_steps: Optional[int] = None):
+    """step_fn(state, batch) -> metrics (`train_lm.py:41-108`)."""
+    check_lm_type(cfg)
+    return make_train_step(cfg, num_total_steps, loss_fn=lm_loss)
+
+
+def _train_files(cfg: ExpConfig, epoch: int):
+    """A sharded `train_path` directory: its files, shuffled each epoch by
+    `default_rng(seed + epoch)` (:217-253); a file: itself."""
+    path = cfg.train_path
+    if os.path.isdir(path):
+        files = sorted(os.path.join(path, f) for f in os.listdir(path) if not f.startswith("."))
+        np.random.default_rng(cfg.seed + epoch).shuffle(files)
+        return files
+    return [path]
+
+
+def num_total_steps_of(cfg: ExpConfig) -> Optional[int]:
+    """Optimizer steps of the whole run from `train_size` (:183-186)."""
+    if cfg.train_size is None:
+        return None
+    return cfg.train_size // cfg.batch_size * cfg.num_epochs // cfg.accum_grad
+
+
+def train(conf_path: str, resume: bool = False, cfg: Optional[ExpConfig] = None, device=None) -> TrainState:
+    """Run LM training on `device` (the card when None; "cpu" must be asked
+    for)."""
+    cfg = cfg or load_config(conf_path)
+    check_lm_type(cfg)
+    device = resolve_device(device)
+    set_matmul_precision(cfg.compute_dtype)
+    log_dir, save_fmt, optim_save_fmt = get_log_save_paths(conf_path)
+    setup_logging(os.path.join(log_dir, "train.log"))
+    logging.info(f"config: {conf_path} on {device}")
+
+    num_total_steps = num_total_steps_of(cfg)
+    if num_total_steps is not None:
+        logging.info(f"total steps: {num_total_steps}")
+
+    torch.manual_seed(cfg.seed)  # the initial weights and every dropout draw
+    model = LM(cfg).to(device)
+    logging.info(f"LM model #parameters: {sum(p.numel() for p in model.parameters())}")
+    state = TrainState(model=model, optimizer=build_optimizer(cfg, model, use_adamw=True))
+
+    model_path, optim_path, start_epoch = cfg.model_path, cfg.optim_path, cfg.startep
+    if resume:
+        r_model, r_optim, r_ep = get_resume_paths(conf_path)
+        model_path, optim_path, start_epoch = r_model or model_path, r_optim or optim_path, r_ep or start_epoch
+    if model_path:
+        load_lm_state_dict(model, ckpt.load_state_dict(model_path))
+        logging.info(f"model loaded: {model_path}")
+    if optim_path:
+        ckpt.load_optim(optim_path, state)
+        logging.info(f"optim loaded: {optim_path}")
+
+    step_fn = make_lm_train_step(cfg, num_total_steps)
+    for epoch in range(start_epoch, cfg.num_epochs):
+        t0 = time.time()
+        n_steps = 0
+        accum: Dict[str, torch.Tensor] = {}
+        for path in _train_files(cfg, epoch):
+            dataset = LMDataset(cfg, path, phase="train", seed=cfg.seed + epoch)
+            for batch in prefetch_to_device(dataset.batches(seed=cfg.seed + epoch), device):
+                metrics = step_fn(state, batch)
+                lr = metrics.pop("lr")
+                metrics.pop("grad_finite")
+                n_steps += 1
+                for k, v in metrics.items():  # the sums stay on the device between log steps
+                    accum[k] = accum[k] + v if k in accum else v
+                if n_steps % cfg.log_step == 0:
+                    loss_str = " ".join(f"{k}: {float(v) / cfg.log_step:.3f}" for k, v in accum.items())
+                    logging.info(f"epoch {epoch + 1} step {n_steps} {loss_str} lr: {lr:.6f}")
+                    accum = {}
+        logging.info(f"epoch {epoch + 1} done in {time.time() - t0:.1f}s "
+                     f"({n_steps} steps, skipped {state.skipped})")
+        if (epoch + 1) % cfg.save_step == 0:
+            ckpt.save_model(save_fmt.format(epoch + 1), model)
+            ckpt.save_optim(optim_save_fmt.format(epoch + 1), state)
+            logging.info(f"checkpoint saved: {save_fmt.format(epoch + 1)}")
+    return state
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-conf", type=str, required=True)
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--cpu", action="store_true", help="run on the CPU (the default is the GPU)")
+    return parser
+
+
+def main(argv=None) -> TrainState:
+    args = build_argparser().parse_args(argv)
+    return train(args.conf, resume=args.resume, device="cpu" if args.cpu else None)
+
+
+if __name__ == "__main__":
+    main()

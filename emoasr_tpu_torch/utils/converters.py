@@ -13,3 +13,7 @@ def str2ints(s: str) -> List[int]:
 
 def ints2str(ints: Sequence[int]) -> str:
     return " ".join(map(str, ints))
+
+
+def strip_eos(tokens: Sequence[int], eos_id: int) -> List[int]:
+    return [t for t in tokens if t != eos_id]

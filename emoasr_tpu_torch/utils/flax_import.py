@@ -6,7 +6,7 @@
 CTC decoder with its optional phone head, Transformer decoder or RNN-T
 decoder, each with its optional auxiliary CTC head), and
 `lm_state_dict(params, lm_cfg)` that of `torch_import.py::bert_masked_lm`
-for the Transformer LM.  It takes the flax parameter tree (and, for a
+and `rnnlm` for the Transformer, BERT and RNN LMs.  It takes the flax parameter tree (and, for a
 Conformer, the flax `batch_stats` collection) as nested dicts of numpy
 arrays and needs neither JAX nor flax.  A flax gradient tree has the
 parameters' structure, so it maps the same way and gradients can be
@@ -188,28 +188,46 @@ def _bert_layer(sd: SD, p: str, layer: Mapping) -> None:
     _layer_norm(sd, f"{p}.output.LayerNorm", layer["output_norm"])
 
 
-def lm_state_dict(params: Mapping, lm_cfg) -> SD:
-    """flax `TransformerLM` params (`{"stack": ..., "head": ...}`, or the
-    `LM` facade's `{"lm": {...}}`) -> the port's `TransformerLM` `state_dict`
-    (`transformer.bert.*`, `transformer.cls.*`; the head's bias under both
-    names the port's module gives it, `predictions.bias` and
-    `predictions.decoder.bias`)."""
-    if lm_cfg.lm_type != "transformer":
-        raise NotImplementedError(
-            f"lm_type={lm_cfg.lm_type!r} is not ported yet (ROADMAP.md §1, slice 6)"
-        )
-    params = params.get("lm", params)
+def _bert_lm_state_dict(params: Mapping, num_layers: int, top: str) -> SD:
     stack, head = params["stack"], params["head"]
-    p = "transformer.bert."
+    p = f"{top}bert."
     sd: SD = {}
     for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
         sd[f"{p}embeddings.{name}.weight"] = _t(stack[name]["embedding"])
     _layer_norm(sd, f"{p}embeddings.LayerNorm", stack["emb_norm"])
-    for i in range(lm_cfg.num_layers):
+    for i in range(num_layers):
         _bert_layer(sd, f"{p}encoder.layer.{i}", stack[f"layers_{i}"])
-    c = "transformer.cls.predictions."
+    c = f"{top}cls.predictions."
     _dense(sd, f"{c}transform.dense", head["transform_dense"])
     _layer_norm(sd, f"{c}transform.LayerNorm", head["transform_norm"])
     _dense(sd, f"{c}decoder", head["decoder"])
     sd[f"{c}bias"] = sd[f"{c}decoder.bias"]
     return sd
+
+
+def lm_state_dict(params: Mapping, lm_cfg) -> SD:
+    """flax LM params (the inner module's tree, or the `LM` facade's
+    `{"lm": {...}}`) -> the port's inner LM `state_dict`, in emoASR's names:
+
+    - `transformer`: `transformer.bert.*`, `transformer.cls.*`;
+    - `bert`: `bert.bert.*`, `bert.cls.*` (the MLM head's bias under both
+      names the port's module gives it, `predictions.bias` and
+      `predictions.decoder.bias`);
+    - `rnn`: `embed.weight`, `rnns.{weight,bias}_{ih,hh}_l{k}` (one
+      multi-layer `nn.LSTM`; flax's `rnns/layer{k}`), `output.*`."""
+    params = params.get("lm", params)
+    t = lm_cfg.lm_type
+    if t in ("transformer", "bert"):
+        return _bert_lm_state_dict(params, lm_cfg.num_layers, f"{t}.")
+    if t == "rnn":
+        sd: SD = {"embed.weight": _t(params["embed"]["embedding"])}
+        for k in range(lm_cfg.num_layers):
+            layer = params["rnns"][f"layer{k}"]
+            for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                sd[f"rnns.{name}_l{k}"] = _t(layer[name])
+        _dense(sd, "output", params["output"])
+        return sd
+    raise NotImplementedError(
+        f"lm_type={t!r} is not ported yet (ROADMAP.md §1, slice 6b: ELECTRA, P-ELECTRA and the "
+        "phone-to-word LMs)"
+    )

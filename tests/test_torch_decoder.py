@@ -59,8 +59,12 @@ def test_decoder_matches_recorded_emoasr_outputs():
     for b, n in enumerate(fx["ylens"] + 1):  # valid positions
         np.testing.assert_allclose(logits[b, :n].numpy(), fx["logits"][b, :n], rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(one.numpy(), fx["logits_one"], rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="slice 3c"):  # the losses are not ported
-        dec(t["eouts"], t["elens"], None, t["ys"], t["ylens"], t["ys_in"], t["ys_in"])
+    # with ys_out: the label-smoothed loss and the same logits (the loss is
+    # held against JAX in tests/test_torch_att_train.py)
+    with torch.no_grad():
+        loss, loss_dict, out = dec(t["eouts"], t["elens"], None, t["ys"], t["ylens"], t["ys_in"], t["ys_in"])
+    assert torch.equal(out, logits) and set(loss_dict) == {"loss_att", "loss_total"}
+    assert torch.isfinite(loss) and loss.item() > 0
 
 
 def _decoder_pair(weights):
@@ -339,8 +343,10 @@ def test_asr_builds_the_attention_model_and_refuses_to_train_it(weights):
     model = port_model(L3_SMALL, params, stats)
     assert isinstance(model, ASR) and isinstance(model.decoder, TransformerDecoder)
     x = torch.zeros(1, 40, 20)
-    with pytest.raises(NotImplementedError, match="slice 3c"):
-        model(x, torch.tensor([40]), torch.ones(1, 2, dtype=torch.long), torch.tensor([2]))
+    with pytest.raises(NotImplementedError, match="slice 7"):  # it trains, but not by distillation yet
+        port_model(dict(L3_SMALL, kd_weight=0.5), params, stats)(
+            x, torch.tensor([40]), torch.ones(1, 2, dtype=torch.long), torch.tensor([2]),
+            torch.full((1, 3), 2), torch.full((1, 3), 2), soft_labels=torch.zeros(1))
     with pytest.raises(NotImplementedError, match="greedy"):
         model.decode_greedy(x, torch.tensor([40]))
     with pytest.raises(NotImplementedError, match="CMLM"):

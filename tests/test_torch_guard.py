@@ -85,10 +85,10 @@ def test_entry_points_raise_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
     from emoasr_tpu_torch.config import config_from_dict
-    from emoasr_tpu_torch.eval import test_asr
+    from emoasr_tpu_torch.eval import test_asr, test_ppl
     from emoasr_tpu_torch.eval.decode import build_decode_fn
     from emoasr_tpu_torch.models.asr import ASR
-    from emoasr_tpu_torch.train import loop
+    from emoasr_tpu_torch.train import loop, train_lm
     from emoasr_tpu_torch.utils.device import resolve_device
 
     cfg = config_from_dict(dict(
@@ -134,19 +134,30 @@ def test_entry_points_raise_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         loop.train(str(conf))
     assert not os.path.exists(tmp_path / "exp")  # it raised before it wrote anything
+    for lm_type in ("transformer", "bert", "rnn"):  # the LM trainer and the PPL CLI
+        lm_conf = tmp_path / f"{lm_type}.yaml"
+        lm_conf.write_text(f"lm_type: {lm_type}\nvocab_size: 10\n")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train_lm.main(["-conf", str(lm_conf)])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            test_ppl.main(["-conf", str(lm_conf), "-ep", "1"])
+        assert not os.path.exists(tmp_path / lm_type)
 
 
 def test_lm_fusion_raises_and_names_its_slice(tmp_path):
-    """Shallow fusion takes the Transformer LM; every other `lm_type` waits
-    for slice 6 and says so, from the LM facade, the fusion adapter, the
-    weight importer and the CLI (before it reads any checkpoint).  Without
-    an LM, `with_weights` has no LM term to weigh."""
+    """Shallow fusion takes the Transformer and RNN LMs and refuses BERT
+    (a masked LM has no next-token distribution); ELECTRA, P-ELECTRA and the
+    phone-to-word LMs wait for slice 6b and say so, from the LM facade, the
+    fusion adapter, the weight importer, the LM trainer and the eval CLI
+    (before it reads any checkpoint).  Without an LM, `with_weights` has no
+    LM term to weigh."""
     from emoasr_tpu_torch.config import config_from_dict
     from emoasr_tpu_torch.eval import test_asr
     from emoasr_tpu_torch.eval.decode import build_decode_fn
     from emoasr_tpu_torch.models.asr import ASR
     from emoasr_tpu_torch.models.lm.lm import LM
     from emoasr_tpu_torch.search.common import make_lm_fusion
+    from emoasr_tpu_torch.train import train_lm
     from emoasr_tpu_torch.utils.flax_import import lm_state_dict
 
     cfg = config_from_dict(dict(
@@ -155,20 +166,26 @@ def test_lm_fusion_raises_and_names_its_slice(tmp_path):
     ))
     fn = build_decode_fn(ASR(cfg), cfg, beam_width=2, device="cpu")
     assert callable(fn.with_weights(None, 0.5)) and callable(fn.with_weights(0.3, None))
-    for lm_type in ("rnn", "bert"):
+    bert = config_from_dict(dict(lm_type="bert", vocab_size=10, hidden_size=16, num_layers=1,
+                                 num_attention_heads=2, intermediate_size=32))
+    with pytest.raises(ValueError, match="masked LM"):
+        make_lm_fusion(LM(bert), 0.5)
+    for lm_type in ("electra", "ptransformer"):
         lm_cfg = config_from_dict(dict(lm_type=lm_type, vocab_size=10, hidden_size=16, num_layers=1,
                                        num_attention_heads=2, intermediate_size=32))
-        with pytest.raises(NotImplementedError, match="slice 6"):
+        with pytest.raises(NotImplementedError, match="slice 6b"):
             LM(lm_cfg)
-        with pytest.raises(NotImplementedError, match="slice 6"):
+        with pytest.raises(NotImplementedError, match="slice 6b"):
             make_lm_fusion(_WithCfg(lm_cfg), 0.5)
-        with pytest.raises(NotImplementedError, match="slice 6"):
+        with pytest.raises(NotImplementedError, match="slice 6b"):
             lm_state_dict({}, lm_cfg)
         lm_conf = tmp_path / f"{lm_type}.yaml"
         lm_conf.write_text(f"lm_type: {lm_type}\nvocab_size: 10\n")
+        with pytest.raises(NotImplementedError, match="slice 6b"):
+            train_lm.main(["-conf", str(lm_conf), "--cpu"])
         conf = tmp_path / "exp.yaml"
         conf.write_text(f"feat_dim: 20\nlm_weight: 0.3\nlm_conf: {lm_conf}\nlm_path: nowhere\n")
-        with pytest.raises(NotImplementedError, match="slice 6"):
+        with pytest.raises(NotImplementedError, match="slice 6b"):
             test_asr.main(["-conf", str(conf), "-ep", "1", "--cpu"])
     with pytest.raises(ValueError, match="dec_step_mode"):
         bad = config_from_dict(dict(feat_dim=20, vocab_size=10, dec_step_mode="quick"))
@@ -185,10 +202,10 @@ class _WithCfg(torch.nn.Module):
 
 def test_every_entry_point_sets_the_tf32_switches(tmp_path, monkeypatch):
     """One function sets both switches (off for float32, on for a half
-    compute dtype), and the eval CLI and the train CLI call it before they
+    compute dtype), and the eval CLIs and the train CLIs call it before they
     build a model."""
-    from emoasr_tpu_torch.eval import test_asr
-    from emoasr_tpu_torch.train import loop
+    from emoasr_tpu_torch.eval import test_asr, test_ppl
+    from emoasr_tpu_torch.train import loop, train_lm
     from emoasr_tpu_torch.utils import device
 
     try:
@@ -207,8 +224,12 @@ def test_every_entry_point_sets_the_tf32_switches(tmp_path, monkeypatch):
 
     conf = tmp_path / "exp.yaml"
     conf.write_text("feat_dim: 20\ncompute_dtype: float32\n")
+    lm_conf = tmp_path / "lm.yaml"
+    lm_conf.write_text("lm_type: rnn\nvocab_size: 10\ncompute_dtype: float32\n")
     for mod, argv in ((test_asr, ["-conf", str(conf), "-ep", "1", "--cpu"]),
-                      (loop, ["-conf", str(conf), "--cpu"])):
+                      (loop, ["-conf", str(conf), "--cpu"]),
+                      (train_lm, ["-conf", str(lm_conf), "--cpu"]),
+                      (test_ppl, ["-conf", str(lm_conf), "-ep", "1", "--cpu"])):
         monkeypatch.setattr(mod, "set_matmul_precision", spy)
         with pytest.raises(Called, match="float32"):
             mod.main(argv)

@@ -22,12 +22,15 @@ one of the largest, beside `check_decoder_step`; the RNN-T joint in both
 dtypes, at every width and at the edges of its tiling (`check_rnnt_joint_
 edges`), each launched twice with bit-identical outputs: RNNT_JOINT_TOL;
 the LSTM above H = 512: the tolerances of its narrower check, beside
-`check_lstm_wide`; every LSTM case twice, bit-identical; the beam steps
+`check_lstm_wide`; every LSTM case twice, bit-identical, the RNN LM's
+three bucket shapes included, and the RNN LM's layers through it against
+the CPU's plain scan; the beam steps
 at W = 17 and 33, each launched twice (bit-identical), rows 0-15 of W = 20
 equal to W = 16 bit for bit, and their launch geometry against the
 libraries' and the card's own accounts).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -521,6 +524,59 @@ def test_lstm_wide_matches_plain(cuda_dev):
     chip_smoke.check_lstm_wide(*cuda_dev)
     for name in ("emo_lstm_fwd_f32", "emo_lstm_bwd_f32", "emo_lstm_fwd_bf16", "emo_lstm_bwd_bf16"):
         assert lstm_scan.KERNEL.counts[name] - before[name] == 2 * len(chip_smoke.LSTM_WIDE_CASES)
+
+
+def test_lstm_at_the_rnn_lm_shapes_matches_plain(cuda_dev):
+    """K8 at the RNN LM's buckets, (B, T, H) = (11, 256, 512), (23, 128,
+    512) and (46, 64, 512), forward and backward, each twice
+    (bit-identical), counted by shape."""
+    from emoasr_tpu_torch.ops import lstm_scan
+
+    before, shapes = dict(lstm_scan.KERNEL.counts), dict(lstm_scan.SHAPE_LAUNCHES)
+    chip_smoke.check_lstm_rnnlm(*cuda_dev)
+    for name in ("emo_lstm_fwd_f32", "emo_lstm_bwd_f32"):
+        assert lstm_scan.KERNEL.counts[name] - before[name] == 2 * len(chip_smoke.LSTM_RNNLM_CASES)
+    for (B, T, H), _ in chip_smoke.LSTM_RNNLM_CASES:
+        for kind in ("fwd", "bwd"):
+            key = (kind, B, T, H, "f32")
+            assert lstm_scan.SHAPE_LAUNCHES[key] - shapes.get(key, 0) == 2
+
+
+def test_rnn_lm_runs_its_layers_through_the_lstm_kernel(cuda_dev):
+    """The RNN LM's two-layer LSTM (`ops/lstm.py::MultiLayerLSTM`) on the
+    card: one K8 launch a layer forward and backward for T >= 8, none for
+    the one-token `predict`; logits, states and gradients as the CPU's
+    plain scan (LSTM_FWD_TOL; gradients 1e-4 of their largest entry)."""
+    from emoasr_tpu_torch.config import config_from_dict
+    from emoasr_tpu_torch.models.lm.lm import LM
+    from emoasr_tpu_torch.ops import lstm_scan
+
+    dev, _ = cuda_dev
+    cfg = config_from_dict(dict(lm_type="rnn", vocab_size=300, embedding_size=64, hidden_size=128, num_layers=2,
+                                dropout_rate=0.0))
+    torch.manual_seed(0)
+    cpu = LM(cfg).eval()
+    card = LM(cfg).to(dev).eval()
+    card.load_state_dict(cpu.state_dict())
+    ys = torch.randint(3, 300, (5, 40))
+    labels = torch.randint(3, 300, (5, 40))
+    before = dict(lstm_scan.KERNEL.counts)
+    out = {}
+    for name, m, d in (("cuda", card, dev), ("cpu", cpu, "cpu")):
+        loss, _ = m(ys.to(d), None, labels.to(d))
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        out[name] = (loss.item(), [g.cpu() for g in grads])
+    for name in ("emo_lstm_fwd_f32", "emo_lstm_bwd_f32"):
+        assert lstm_scan.KERNEL.counts[name] - before[name] == 2
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-4 * b.abs().max().item() + 1e-7)
+    with torch.no_grad():
+        lp1, st1 = card.predict(ys.to(dev), torch.full((5,), 40, device=dev), card.zero_states(5))
+        lp0, st0 = cpu.predict(ys, torch.full((5,), 40), cpu.zero_states(5))
+    assert lstm_scan.KERNEL.counts["emo_lstm_fwd_f32"] - before["emo_lstm_fwd_f32"] == 2  # predict: the scan
+    np.testing.assert_allclose(lp1.cpu().numpy(), lp0.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(st1.cpu().numpy(), st0.numpy(), rtol=0, atol=1e-5)
 
 
 def test_ctc_head_bf16_and_wide_match_plain(cuda_dev):

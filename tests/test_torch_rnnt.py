@@ -11,7 +11,8 @@ CPU (the train step of the whole model: `test_torch_rnnt_train.py`).
   alignments exact.
 - The ALSD beam at widths 1 and 4: hyps and lengths exact, scores within
   1e-4 (logsumexp merges in two frameworks).
-- What is not ported yet raises and names its slice.
+- What is not ported yet raises and names its slice (LM fusion in the ALSD
+  beam is ported: tests/test_torch_lm_types.py).
 
 Sizes: 2 Conformer layers, d=32, 4 heads; embedding 16, LSTM 2 x 24 (the
 scan: below 8 steps, and on the CPU), joint 20, V=29.  Tolerances: loss
@@ -219,7 +220,5 @@ def test_unported_branches_raise_and_name_their_slice(weights):
         model(b["xs"], b["xlens"], b["ys"], b["ylens"], b["ys_in"], b["ys_out"], soft_labels=torch.zeros(1))
     with pytest.raises(NotImplementedError, match="slice 7"):
         model.forced_align(b["xs"], b["xlens"], b["ys"], b["ylens"])
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        rnnt_beam_search(torch.zeros(1, 2, 32), torch.tensor([2]), None, None, 2, 24, 2, V, lm=object())
     with pytest.raises(ValueError, match="rnnt_joint_mode"):
         ASR(config_from_dict(dict(RNNT_SMALL, rnnt_joint_mode="fast")))
