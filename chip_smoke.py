@@ -130,7 +130,28 @@ Phases (any failed check raises, so the script exits non-zero):
    attention beam 10 through the eval CLI (`--lm_conf`, `--lm_path`), the
    L4 ALSD beam 10 in Python (an RNN LM over L4's 1000 tokens from the
    seed); one short batch's top-1 hypotheses card against CPU each.
-18. Every kernel timed at the largest bucket beside its plain version and
+18. ELECTRA (slice 6b): `configs/lm/ted2_electra.yaml` at full width
+   (generator and discriminator 12 x 256, V = 9798) through `train_lm`, 6
+   steps over a sharded corpus that fills its three buckets, then
+   `electra-disc` on error labels, 6 steps; one step of each against the
+   CPU (ELECTRA's on one `generated` drawn on the card).  No kernel.
+19. P-ELECTRA (`ted2_pelectra.yaml`) and the deletable PC-MLM
+   (`del_pc_mlm.yaml`, TextAugment, Poisson mask insertion) at full width
+   with `enc_fused_attn: true`, 4 steps each: every step launches K4
+   forward and backward (dropout 0.1) once a phone-encoder layer; one step
+   of each against the CPU; the PC-MLM's pseudo-PPL through the PPL CLI at
+   the phone encoder's largest bucket (39, 512) within PLL_PEAK_BYTES, and
+   against the CPU on three rows; one `pctc` step (K1, K2, K4).
+20. Error correction (slice 7a): `configs/csj/asr_hie_phone.yaml` through
+   the train CLI (2 micro-steps: K1 and K2 for the word and the phone
+   head, K4), its phone hypotheses through `test_asr --decode_phone`, and
+   `correct` with the PC-MLM checkpoint (mask_th 0.9, lm_weight 0.5) over
+   20 utterances on the card and the CPU: the corrected TSVs equal row for
+   row; the RTF.
+21. N-best rescoring (slice 7a): the L1 beam-8 n-best through the
+   rescoring CLI with the Transformer, BERT and ELECTRA LMs; `score_lm`
+   against the CPU (SCORE_RTOL) and the same best hypotheses.
+22. Every kernel timed at the largest bucket beside its plain version and
    one library call (for K5 and K6 the dense route), the bf16 launchers in
    bf16 (bounds at the bf16 rate, library calls in bf16; an f32 launcher
    that splits its operands into bf16 terms held to that many tensor-core
@@ -139,7 +160,8 @@ Phases (any failed check raises, so the script exits non-zero):
    chunked route and cuDNN, K5 and K6 at W = 33, K3 at every shape class
    the beams launch (with its launches by class over the main paths) and
    K2 beside its latency floor (`tools/k2_parts.py`'s `chain_only`), K8
-   at the RNN LM's three bucket shapes beside cuDNN; one
+   at the RNN LM's three bucket shapes beside cuDNN, K4 at the phone
+   encoder's largest bucket in both dtypes beside SDPA; one
    JSON line describing each kernel, the `nvidia-smi` line, and last the
    `{"ok": true, "device": ...}` line.
 
@@ -4300,7 +4322,7 @@ def _read_lm_log(conf_path: str):
     import re
 
     with open(os.path.join(os.path.splitext(conf_path)[0], "log", "train.log")) as f:
-        return [float(m.group(1)) for m in re.finditer(r"step \d+ loss_total: (\S+) lr:", f.read())]
+        return [float(m.group(1)) for m in re.finditer(r"step \d+ [^\n]*?loss_total: (\S+) ", f.read())]
 
 
 def train_lms(args, root: str, card: str) -> dict:
@@ -4638,6 +4660,560 @@ def check_lstm_rnnlm(dev, gen) -> dict:
     return worst
 
 
+# ------------------------------------------------ slices 6b and 7a: the rest
+# of the LM package, N-best rescoring and error correction
+
+ELECTRA_CONF = os.path.join(REPO, "configs", "lm", "ted2_electra.yaml")
+PELECTRA_CONF = os.path.join(REPO, "configs", "lm", "ted2_pelectra.yaml")
+PC_MLM_CONF = os.path.join(REPO, "configs", "csj", "del_pc_mlm.yaml")
+HIE_PHONE_CONF = os.path.join(REPO, "configs", "csj", "asr_hie_phone.yaml")
+# the phone encoder's largest bucket: del_pc_mlm's (L, 2L) = (256 words, 512
+# phones), min(100, 10000 // 256, 20000 // 512) = 39 rows; 4 heads of 64
+PHONE_BUCKET = (39, 512, 4, 64)
+# ELECTRA / P-ELECTRA steps card against CPU: the generator's loss, the
+# discriminator's BCE (times 50) and their sum over 24 (16) layers of f32
+# sums in other orders; the tolerances of the ASR micro-steps (STEP_TOL)
+SCORE_RTOL = 1e-5
+
+
+def _write_conf(path: str, base: str, **over) -> str:
+    import yaml
+
+    with open(base) as f:
+        conf = yaml.safe_load(f)
+    conf.update(over)
+    with open(path, "w") as f:
+        yaml.safe_dump(conf, f)
+    return path
+
+
+def write_p2w_corpus(path: str, spec, vocab_size: int, n_phones: int, seed: int, error_labels: bool = False):
+    """A P2W TSV: rows of word ids 3..V-2 (V-1 is the mask) with their phone
+    sequence, each word spelled by a fixed 3-4 phones out of 3..n_phones-1,
+    `spec` = ((rows, fewest words, most words), ...); with `error_labels`,
+    an `error_label` column (one C/S/I a word)."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    spell = [rng.integers(3, n_phones, size=int(rng.integers(3, 5))) for _ in range(vocab_size)]
+    rows = []
+    for n, lo, hi in spec:
+        for _ in range(n):
+            words = rng.integers(3, vocab_size - 1, size=int(rng.integers(lo, hi + 1)))
+            phones = np.concatenate([spell[w] for w in words])
+            row = dict(utt_id=f"p{len(rows)}-{len(rows) * 10000}-{len(rows) * 10000 + 250 * len(words)}",
+                       token_id=" ".join(map(str, words)), phone_token_id=" ".join(map(str, phones)),
+                       ylen=len(words), plen=len(phones))
+            if error_labels:
+                row["error_label"] = " ".join(rng.choice(["C", "C", "C", "S", "I"], len(words)))
+            rows.append(row)
+    pd.DataFrame(rows).to_csv(path, sep="\t", index=False)
+    return path, len(rows)
+
+
+def _train_lm_cli(tag: str, conf_path: str, n_steps: int, per_step: dict, card: str) -> dict:
+    """`train_lm` on the card; every step's launches must be `per_step`."""
+    from emoasr_tpu_torch.config import load_config
+    from emoasr_tpu_torch.train import train_lm
+    from emoasr_tpu_torch.train.checkpoint import load_state_dict
+
+    cfg = load_config(conf_path)
+    reset_launch_counts()
+    deltas, undo = _launch_deltas(train_lm, "make_lm_train_step")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = train_lm.main(["-conf", conf_path])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        undo()
+    launches = launch_counts()
+    losses = _read_lm_log(conf_path)
+    require(state.step == n_steps and len(losses) == n_steps and all(np.isfinite(losses)) and state.skipped == 0,
+            f"{tag} training: {state.step} steps, losses {losses}, {state.skipped} skipped")
+    require(len(deltas) == n_steps and all(d == per_step for d in deltas),
+            f"{tag} training: launches by step {deltas}, want each {per_step}")
+    ckpt = os.path.join(os.path.splitext(conf_path)[0], "checkpoints", "model.ep1")
+    trained = load_state_dict(ckpt)
+    require(all(bool(torch.isfinite(v).all()) for v in trained.values()), f"{tag}: a trained tensor is not finite")
+    _require_f32_masters(state, trained)
+    print(f"  {tag}: {n_steps} steps in {dt:.2f} s (first call) on {card}; loss {losses[0]:.3f} -> {losses[-1]:.3f}; "
+          f"launches a step {({k: n for k, n in per_step.items() if n}) or 'none'}")
+    return {"conf_path": conf_path, "cfg": cfg, "ckpt": ckpt, "launches": launches, "seconds": dt,
+            "steps": n_steps, "losses": losses, "state": state}
+
+
+def _lm_pair(cfg, ckpt: str, dev):
+    """The LM of `ckpt` on the card and on the CPU, in eval mode."""
+    from emoasr_tpu_torch.models.lm.lm import LM, load_lm_state_dict
+    from emoasr_tpu_torch.train.checkpoint import load_state_dict
+
+    out = []
+    for d in (dev, torch.device("cpu")):
+        m = LM(cfg)
+        load_lm_state_dict(m, load_state_dict(ckpt))
+        out.append(m.to(d).eval())
+    return out
+
+
+def check_lm_step_vs_cpu(tag: str, cfg, ckpt: str, batch: dict, dev, want_used: dict) -> dict:
+    """One step of the LM of `ckpt` on the card against the CPU, dropout
+    off: ELECTRA and P-ELECTRA around one `generated` drawn on the card (the
+    generator's sample at the masked positions) and given to both sides;
+    the loss terms within STEP_TOL["loss"], every gradient within
+    STEP_TOL["grad"] of its largest entry plus STEP_TOL["grad_floor"] of the
+    model's largest; `want_used` the card's launches."""
+    from emoasr_tpu_torch.models.lm.bert import mlm_loss
+    from emoasr_tpu_torch.models.lm.lm import ELECTRAModel, PELECTRAModel
+
+    t = {k: torch.from_numpy(v) for k, v in batch.items() if isinstance(v, np.ndarray)}
+    generated = None
+    res = {}
+    for name, model in zip(("cuda", "cpu"), _lm_pair(cfg, ckpt, dev)):
+        d = next(model.parameters()).device
+        b = {k: v.to(d) for k, v in t.items()}
+        before = launch_counts()
+        inner = model.lm
+        if "error_labels" in b:
+            loss, ld = model(b["ys_in"], b["ylens"], error_labels=b["error_labels"])
+        elif isinstance(inner, (ELECTRAModel, PELECTRAModel)):
+            if isinstance(inner, ELECTRAModel):
+                glogits = inner.generator_logits(b["ys_in"], b["ylens"])
+                gloss = mlm_loss(glogits, b["labels"])
+            else:
+                gloss, _, glogits = inner.gmodel(b["ys_in"], b["ylens"], b["labels"], b["ps"], b["plens"],
+                                                 return_logits=True)
+            if generated is None:
+                g = torch.Generator(device=d)
+                g.manual_seed(7)
+                generated = inner.sample_replacements(glogits, b["ys_in"], b["labels"], g).cpu()
+            loss, ld = inner.joint(gloss, b["ys_in"], b["ylens"], b["labels"], generated.to(d))
+        else:
+            loss, ld = model(b["ys_in"], b["ylens"], b.get("labels"), b.get("ps"), b.get("plens"))
+        params = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        used = {k: launch_counts()[k] - before[k] for k in before}
+        if name == "cuda":
+            require(all(used[k] == n for k, n in want_used.items()), f"{tag} step check launches {used}, want {want_used}")
+        res[name] = ({k: float(v.detach()) for k, v in ld.items()},
+                     {k: (torch.zeros_like(p) if g is None else g).cpu() for (k, p), g in zip(params.items(), grads)})
+    (l1, g1), (l0, g0) = res["cuda"], res["cpu"]
+    for k in l0:
+        require(np.isfinite(l1[k]) and abs(l1[k] - l0[k]) <= STEP_TOL["loss"] * max(abs(l0[k]), 1e-6),
+                f"{tag} step {k}: card {l1[k]}, CPU {l0[k]}")
+    floor = STEP_TOL["grad_floor"] * max(g.abs().max().item() for g in g0.values())
+    worst = 0.0
+    for k in g0:
+        rel = max(_max_err(g1[k], g0[k]) - floor, 0.0) / max(g0[k].abs().max().item(), 1e-30)
+        worst = max(worst, rel)
+        require(rel <= STEP_TOL["grad"], f"{tag} step gradient of {k}: card vs CPU {rel:.3e} of its largest entry")
+    print(f"  one {tag} step {tuple(batch['ys_in'].shape)} card vs CPU{' (the same generated ids)' if generated is not None else ''}: "
+          + ", ".join(f"{k} {l1[k]:.6f} vs {l0[k]:.6f}" for k in l0 if k.startswith("loss"))
+          + f"; worst gradient {worst:.2e} of its largest entry (tol {STEP_TOL['grad']}, past "
+          f"{STEP_TOL['grad_floor']} of the model's largest)")
+    return {"losses_card": l1, "losses_cpu": l0, "worst_grad_rel_err": worst}
+
+
+def _first_batch(dataset, rows: int, width: int = None):
+    """The first `rows` rows of the first batch (of `width` tokens, when
+    given), collated by `dataset` in manifest order."""
+    for b in dataset.batches(dataset.make_batcher(shuffle=False)):
+        if width is None or b["ys_in"].shape[1] == width:
+            return {k: (v[:rows] if isinstance(v, np.ndarray) else v) for k, v in b.items()}
+    raise AssertionError("no batch of that width")
+
+
+def train_electra(args, root: str, card: str, dev) -> dict:
+    """`configs/lm/ted2_electra.yaml` at full width (generator and
+    discriminator 12 x 256, 4 heads, FF 1024, V = 9798, max_seq_len 256,
+    batch 90, 35 masks a row, AdamW, lindecay) through `train_lm` over a
+    sharded corpus that fills each of its three buckets once a shard (6
+    steps, `train_size` 90 x 6); one step against the CPU; then
+    `electra-disc` on an error-label corpus, 6 steps.  No kernel: the BERT
+    stacks are plain PyTorch, as the JAX ones are."""
+    import pandas as pd
+
+    from emoasr_tpu_torch.data.lm_dataset import LMDataset
+
+    sub = os.path.join(root, "electra")
+    os.makedirs(sub)
+    train_dir, test_tsv, n_rows = write_lm_corpus(sub, 9798, args.seed + 11)
+    disc_dir = os.path.join(sub, "train_disc")
+    os.makedirs(disc_dir)
+    rng = np.random.default_rng(args.seed + 12)
+    for f in sorted(os.listdir(train_dir)):
+        df = pd.read_table(os.path.join(train_dir, f))
+        df["error_label"] = [" ".join(rng.choice(["C", "C", "C", "S", "I"], n)) for n in df["ylen"]]
+        df.to_csv(os.path.join(disc_dir, f), sep="\t", index=False)
+    out = {}
+    for t, data in (("electra", train_dir), ("electra-disc", disc_dir)):
+        conf_path = _write_conf(os.path.join(sub, f"ted2_{t}.yaml"), ELECTRA_CONF, lm_type=t, train_path=data,
+                                test_path=test_tsv, vocab_path=None, train_size=90 * 6, num_epochs=1, save_step=1,
+                                log_step=1, seed=args.seed)
+        from emoasr_tpu_torch.config import load_config
+
+        cfg = load_config(conf_path)
+        width = (cfg.vocab_size, cfg.gen_hidden_size, cfg.gen_num_layers, cfg.disc_hidden_size, cfg.disc_num_layers,
+                 cfg.gen_intermediate_size, cfg.max_seq_len, cfg.batch_size, cfg.num_to_mask, cfg.electra_disc_weight)
+        require(width == (9798, 256, 12, 256, 12, 1024, 256, 90, 35, 50), f"the ELECTRA config is not at full width: {width}")
+        out[t] = _train_lm_cli(f"{t} (ted2_electra.yaml)", conf_path, 6, _zero_launches(), card)
+    cfg = out["electra"]["cfg"]
+    batch = _first_batch(LMDataset(cfg, os.path.join(train_dir, "a.tsv"), phase="train", seed=1), 4, 64)
+    out["electra"]["step_check"] = check_lm_step_vs_cpu("ELECTRA", cfg, out["electra"]["ckpt"], batch, dev, {})
+    cfg = out["electra-disc"]["cfg"]
+    batch = _first_batch(LMDataset(cfg, os.path.join(disc_dir, "a.tsv"), phase="train", seed=1), 4, 64)
+    out["electra-disc"]["step_check"] = check_lm_step_vs_cpu("electra-disc", cfg, out["electra-disc"]["ckpt"],
+                                                             batch, dev, {})
+    return out
+
+
+# the P2W corpora: with del_pc_mlm's insertion headroom (y 1.2 + 4) rows of
+# 40-60 words (3-4 phones a word: at most 240 phones) take the (128, 256)
+# bucket and rows of 100-120 words (300-480 phones) the (256, 512) one
+P2W_SMALL, P2W_BIG = (40, 60), (100, 120)
+
+
+def train_p2w(args, root: str, card: str, dev) -> dict:
+    """P-ELECTRA (`ted2_pelectra.yaml`: a P2W generator, phone encoder and
+    CMLM decoder 4 x 256, FF 1024, and a 12 x 256 discriminator, V = 9798,
+    45 phones, TextAugment, batch 100) and the deletable PC-MLM
+    (`del_pc_mlm.yaml`: 4 + 4 x 256, V = 10872, TextAugment 0.4, mask
+    insertion Poisson 0.2, buckets of up to 20000 phones) at full width,
+    `enc_fused_attn: true`, through `train_lm`: every step launches K4
+    forward and backward (dropout 0.1) once a phone-encoder layer.  One
+    step of each against the CPU; then one `pctc` step (K1, K2) and the
+    pseudo-PPL of the PC-MLM checkpoint."""
+    from emoasr_tpu_torch.config import load_config
+    from emoasr_tpu_torch.data.lm_dataset import P2WDataset
+
+    sub = os.path.join(root, "p2w")
+    os.makedirs(sub)
+    out = {}
+    # P-ELECTRA: its buckets hold 23 and 11 rows (max_ylens_batch 3000)
+    pel_tsv, _ = write_p2w_corpus(os.path.join(sub, "pelectra_train.tsv"),
+                                  ((46, *P2W_SMALL), (22, *P2W_BIG)), 9798, 44, args.seed + 13)
+    conf_path = _write_conf(os.path.join(sub, "ted2_pelectra.yaml"), PELECTRA_CONF, train_path=pel_tsv,
+                            test_path=pel_tsv, dev_path=None, vocab_path=None, phone_vocab_path=None,
+                            enc_fused_attn=True, train_size=100 * 4, num_epochs=1, save_step=1, log_step=1,
+                            seed=args.seed)
+    cfg = load_config(conf_path)
+    width = (cfg.lm_type, cfg.vocab_size, cfg.src_vocab_size, cfg.enc_hidden_size, cfg.enc_num_layers,
+             cfg.dec_num_layers, cfg.disc_num_layers, cfg.batch_size, cfg.text_augment, cfg.dropout_enc_rate)
+    require(width == ("pelectra", 9798, 45, 256, 4, 4, 12, 100, True, 0.1), f"P-ELECTRA config: {width}")
+    n_enc = cfg.enc_num_layers
+    per_step = _zero_launches(attention_fwd=n_enc, attention_bwd=n_enc)
+    out["pelectra"] = _train_lm_cli("pelectra (ted2_pelectra.yaml)", conf_path, 4, per_step, card)
+    batch = _first_batch(P2WDataset(cfg, pel_tsv, phase="train", seed=1), 3, 128)
+    out["pelectra"]["step_check"] = check_lm_step_vs_cpu(
+        "P-ELECTRA", cfg, out["pelectra"]["ckpt"], batch, dev, {"attention_fwd": n_enc, "attention_bwd": n_enc})
+
+    # the deletable PC-MLM: buckets of 78 and 39 rows, two batches each; its
+    # noam schedule keeps the shipped `train_size`, so these steps take the
+    # first LRs of its 154-step warm-up, as a run of the config does
+    pc_tsv, _ = write_p2w_corpus(os.path.join(sub, "pc_mlm_train.tsv"), ((156, *P2W_SMALL), (78, *P2W_BIG)),
+                                 10872, 43, args.seed + 14)
+    test_tsv, n_test = write_p2w_corpus(os.path.join(sub, "pc_mlm_test.tsv"), ((39, *P2W_BIG), (3, 20, 40)),
+                                        10872, 43, args.seed + 15)
+    conf_path = _write_conf(os.path.join(sub, "del_pc_mlm.yaml"), PC_MLM_CONF, train_path=pc_tsv,
+                            test_path=test_tsv, dev_path=None, vocab_path=None, enc_fused_attn=True,
+                            num_epochs=1, save_step=1, log_step=1, seed=args.seed)
+    cfg = load_config(conf_path)
+    width = (cfg.lm_type, cfg.vocab_size, cfg.src_vocab_size, cfg.enc_hidden_size, cfg.enc_num_layers,
+             cfg.dec_num_layers, cfg.max_plens_batch, cfg.max_ylens_batch, cfg.mask_insert_poisson_lam,
+             cfg.textaug_max_mask_prob)
+    require(width == ("pbert", 10872, 45, 256, 4, 4, 20000, 10000, 0.2, 0.4), f"PC-MLM config: {width}")
+    out["pbert"] = _train_lm_cli("pbert (del_pc_mlm.yaml)", conf_path, 4, per_step, card)
+    batch = _first_batch(P2WDataset(cfg, pc_tsv, phase="train", seed=1), 3, 128)
+    out["pbert"]["step_check"] = check_lm_step_vs_cpu(
+        "PC-MLM", cfg, out["pbert"]["ckpt"], batch, dev, {"attention_fwd": n_enc, "attention_bwd": n_enc})
+    out["pbert"]["ppl"] = p2w_ppl(out["pbert"], test_tsv, n_test, dev, card)
+
+    # pctc: the P2W CTC decoder over the phone encoder, one step of the big bucket
+    ctc_tsv, _ = write_p2w_corpus(os.path.join(sub, "pctc_train.tsv"), ((39, *P2W_BIG),), 10872, 43, args.seed + 16)
+    conf_path = _write_conf(os.path.join(sub, "del_pc_mlm_pctc.yaml"), PC_MLM_CONF, lm_type="pctc",
+                            train_path=ctc_tsv, test_path=None, dev_path=None, vocab_path=None, enc_fused_attn=True,
+                            num_epochs=1, save_step=1, log_step=1, seed=args.seed)
+    out["pctc"] = _train_lm_cli("pctc (del_pc_mlm.yaml widths)", conf_path, 1, _zero_launches(
+        attention_fwd=n_enc, attention_bwd=n_enc, ctc_head_fwd=1, ctc_head_grad_e=1, ctc_head_grad_w=1, ctc_alpha=1,
+        ctc_beta_grad=1), card)
+    return out
+
+
+def p2w_ppl(pc: dict, test_tsv: str, n_test: int, dev, card: str) -> dict:
+    """The PC-MLM's pseudo-PPL through the PPL CLI on the card over a test
+    file that fills the phone encoder's largest bucket (39 rows of 100-120
+    words, up to 480 phones) and three short rows, peak device memory under
+    PLL_PEAK_BYTES; then `evaluate_ppl` on the card and on the CPU over the
+    three short rows: equal within PPL_RTOL."""
+    import pandas as pd
+
+    from emoasr_tpu_torch.data.lm_dataset import P2WDataset
+    from emoasr_tpu_torch.eval import test_ppl
+
+    cfg = pc["cfg"]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cnt, ppl = test_ppl.main(["-conf", pc["conf_path"], "-ep", "1"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = launch_counts()
+    batches = list(P2WDataset(cfg, test_tsv, phase="test").batches(
+        P2WDataset(cfg, test_tsv, phase="test").make_batcher(shuffle=False, drop_tail=False)))
+    shapes = [tuple(b["ps"].shape) for b in batches]
+    require(np.isfinite(ppl) and cnt > 0 and peak < PLL_PEAK_BYTES and (39, 512) in shapes,
+            f"PC-MLM pseudo-PPL: {cnt} tokens, {ppl}, peak {peak} bytes, batches {shapes}")
+    require(launches["attention_fwd"] == cfg.enc_num_layers * len(batches) and launches["attention_bwd"] == 0,
+            f"PC-MLM pseudo-PPL: the phones are encoded once a batch; launches {launches}")
+    small = os.path.join(os.path.dirname(test_tsv), "pc_mlm_test_small.tsv")
+    pd.read_table(test_tsv).iloc[-3:].to_csv(small, sep="\t", index=False)
+    gpu, cpu = _lm_pair(cfg, pc["ckpt"], dev)
+    c1, p1 = test_ppl.evaluate_ppl(cfg, gpu, P2WDataset(cfg, small, phase="test"))
+    t1 = time.perf_counter()
+    c0, p0 = test_ppl.evaluate_ppl(cfg, cpu, P2WDataset(cfg, small, phase="test"))
+    cpu_s = time.perf_counter() - t1
+    require(c1 == c0 > 0 and abs(p1 - p0) <= PPL_RTOL * p0, f"PC-MLM pseudo-PPL card {c1} {p1}, CPU {c0} {p0}")
+    print(f"  PC-MLM pseudo-PPL over {cnt} tokens ({n_test} rows, batches {shapes}): {ppl:.4f} on the card in "
+          f"{dt:.2f} s, peak device memory {peak / 2 ** 30:.3f} GiB (limit {PLL_PEAK_BYTES / 2 ** 30:.0f}); three rows "
+          f"card {p1:.6f} vs CPU {p0:.6f} ({cpu_s:.2f} s): rel err {abs(p1 - p0) / p0:.2e} (tol {PPL_RTOL}); {card}")
+    return {"tokens": cnt, "ppl_card": ppl, "seconds": dt, "peak_device_bytes": peak, "batches": shapes,
+            "small_ppl_card": p1, "small_ppl_cpu": p0, "launches": launches}
+
+
+def write_phone_corpus(root: str, name: str, lengths, vocab_size: int, n_phones: int, feat_dim: int, seed: int):
+    """`write_corpus` with the phone columns: 5-10 words an utterance, each
+    spelled by 1-2 phones out of 3..n_phones-1 (short enough for CTC on
+    T / 4 frames)."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, f"feats_{name}"))
+    rows, frames = [], 0
+    for i, T in enumerate(lengths):
+        words = rng.integers(3, vocab_size, size=int(rng.integers(5, 11)))
+        phones = rng.integers(3, n_phones, size=int(rng.integers(len(words), 2 * len(words) + 1)))
+        path = os.path.join(root, f"feats_{name}", f"utt{i}.npy")
+        np.save(path, rng.standard_normal(size=(T, feat_dim), dtype=np.float32))
+        start = i * 100000
+        rows.append(dict(feat_path=path, utt_id=f"spk{i % 7}-utt{i}-{start}-{start + T * 10}",
+                         token_id=" ".join(map(str, words)), text=" ".join(f"w{t}" for t in words),
+                         phone_token_id=" ".join(map(str, phones)), phone_text=" ".join(f"p{t}" for t in phones),
+                         xlen=T, ylen=len(words)))
+        frames += T
+    tsv = os.path.join(root, f"{name}.tsv")
+    pd.DataFrame(rows).to_csv(tsv, sep="\t", index=False)
+    return tsv, frames * 0.010
+
+
+def correction(args, root: str, pc: dict, dev, card: str) -> dict:
+    """`configs/csj/asr_hie_phone.yaml` (Transformer 12 x 256, FF 2048, CTC
+    over V = 10872 and a hierarchical phone CTC over 43 phones from layer 6,
+    SpecAugment, `enc_fused_attn: true`) through the train CLI: two
+    micro-steps of its (200, 48) bucket, each launching K1 and K2 twice
+    (the word and the phone head) and K4 forward and backward once a layer.
+    Then its `model.ep1` through `test_asr --decode_phone` (greedy) and
+    through `correct` with the PC-MLM checkpoint at mask_th 0.9 and
+    lm_weight 0.5 over 20 utterances, on the card and on the CPU: the
+    corrected TSVs equal row for row; the RTF (`--runtime`)."""
+    import pandas as pd
+
+    from emoasr_tpu_torch.config import load_config
+    from emoasr_tpu_torch.eval import correct, test_asr
+    from emoasr_tpu_torch.train import loop
+
+    sub = os.path.join(root, "correction")
+    os.makedirs(sub)
+    cfg0 = load_config(HIE_PHONE_CONF)
+    lengths, _ = train_lengths(cfg0, (2, 0, 0, 0, 0))
+    train_tsv, _ = write_phone_corpus(sub, "train", lengths, cfg0.vocab_size, cfg0.phone_vocab_size, 80, args.seed + 17)
+    n_test = 20
+    test_tsv, wav_s = write_phone_corpus(sub, "test", [200 + (200 * i) // (n_test - 1) for i in range(n_test)],
+                                         cfg0.vocab_size, cfg0.phone_vocab_size, 80, args.seed + 18)
+    pvocab = os.path.join(sub, "vocab_phone.txt")
+    with open(pvocab, "w", encoding="utf-8") as f:
+        f.write("\n".join(["<blank> 0", "<unk> 1", "<eos> 2"] + [f"p{i} {i}" for i in range(3, 43)]) + "\n")
+    conf_path = _write_conf(os.path.join(sub, "asr_hie_phone.yaml"), HIE_PHONE_CONF, train_path=train_tsv,
+                            test_path=test_tsv, dev_path=None, vocab_path=write_vocab(sub, cfg0.vocab_size),
+                            phone_vocab_path=pvocab, enc_fused_attn=True, num_epochs=1, save_step=1, log_step=1,
+                            seed=args.seed)
+    cfg = load_config(conf_path)
+    width = (cfg.enc_num_layers, cfg.enc_hidden_size, cfg.enc_intermediate_size, cfg.vocab_size, cfg.phone_vocab_size,
+             cfg.hie_mtl_phone, cfg.inter_ctc_layer_id, cfg.mtl_phone_ctc_weight, cfg.spec_augment)
+    require(width == (12, 256, 2048, 10872, 43, True, 6, 0.3, True), f"asr_hie_phone config: {width}")
+    n = cfg.enc_num_layers
+    per_step = _zero_launches(ctc_head_fwd=2, ctc_head_grad_e=2, ctc_head_grad_w=2, ctc_alpha=2, ctc_beta_grad=2,
+                              attention_fwd=n, attention_bwd=n)
+    reset_launch_counts()
+    deltas, undo = _launch_deltas(loop, "make_train_step")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = loop.main(["-conf", conf_path])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        undo()
+    train_launches = launch_counts()
+    losses, _, _ = read_train_log(conf_path)
+    require(state.step == 2 and len(losses) == 2 and all(np.isfinite(losses)) and state.skipped == 0,
+            f"asr_hie_phone training: {state.step} micro-steps, losses {losses}")
+    require(deltas == [per_step, per_step], f"asr_hie_phone launches by micro-step {deltas}, want each {per_step}")
+    print(f"  asr_hie_phone: 2 micro-steps in {dt:.2f} s (first call) on {card}; losses {losses}; launches a "
+          f"micro-step {({k: v for k, v in per_step.items() if v})}")
+
+    # the phone hypotheses through the eval CLI
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = test_asr.main(["-conf", conf_path, "-ep", "1", "--beam_width", "0", "--decode_phone"])
+    torch.cuda.synchronize()
+    dt_phone = time.perf_counter() - t0
+    phone_launches = launch_counts()
+    res = os.path.join(sub, "asr_hie_phone", "results", "result_test_beam0_len0.0_ctc0.0_lm0.00_ep1_phone.tsv")
+    df = pd.read_table(res, comment="#")
+    require(out[3].startswith("PER") and len(df) == n_test and df["reftext"].str.startswith("p").all(),
+            f"decode_phone: {out}, {len(df)} rows")
+    require(phone_launches["attention_fwd"] > 0 and phone_launches["ctc_head_fwd"] == 0,
+            f"decode_phone launches {phone_launches}")
+    print(f"  test_asr --decode_phone (greedy): {out[3]}; {n_test} utts in {dt_phone:.2f} s (first call), "
+          f"RTF {dt_phone / wav_s:.5f}; launches attention_fwd {phone_launches['attention_fwd']}")
+
+    # correction with the PC-MLM, card then CPU
+    argv = ["-conf", conf_path, "-ep", "1", "--lm_conf", pc["conf_path"], "--lm_ep", "1", "--mask_th", "0.9",
+            "--lm_weight", "0.5"]
+    out_tsv = os.path.join(sub, "asr_hie_phone", "results", "result_correct_test_th0.90_lm0.50_ep1.tsv")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wer, info = correct.main(argv)
+    torch.cuda.synchronize()
+    dt_corr = time.perf_counter() - t0
+    corr_launches = launch_counts()
+    card_df = pd.read_table(out_tsv, comment="#")
+    shutil.move(out_tsv, out_tsv + ".card")
+    t0 = time.perf_counter()
+    cpu_wer, cpu_info = correct.main(argv + ["--cpu"])
+    cpu_s = time.perf_counter() - t0
+    cpu_df = pd.read_table(out_tsv, comment="#")
+    same = (card_df.fillna("").values == cpu_df.fillna("").values).all(axis=1)
+    require(len(card_df) == n_test and same.all() and info == cpu_info,
+            f"correction card vs CPU: {int(same.sum())} of {len(card_df)} rows equal; {info} vs {cpu_info}")
+    # the phone encoder (4 layers) once a batch, the ASR encoder once a batch
+    require(corr_launches["attention_fwd"] > 0 and corr_launches["attention_bwd"] == 0,
+            f"correction launches {corr_launches}")
+    rtfs = correct.main(argv + ["--runtime", "--runtime_num_samples", str(n_test), "--runtime_num_repeats", "2"])
+    print(f"  correct (PC-MLM, mask_th 0.9, lm_weight 0.5): {info}; {n_test} utts in {dt_corr:.2f} s (first call) on "
+          f"{card}, the CPU's TSV equal row for row ({cpu_s:.2f} s on the CPU); RTF by --runtime {rtfs}; launches "
+          f"attention_fwd {corr_launches['attention_fwd']}")
+    return {"train_launches": train_launches, "train_seconds": dt, "losses": losses,
+            "decode_phone": {"per": out[3], "seconds": dt_phone, "rtf": dt_phone / wav_s, "launches": phone_launches},
+            "correct": {"wer": info, "seconds": dt_corr, "cpu_seconds": cpu_s, "rtf_runtime": rtfs,
+                        "rows_equal": int(same.sum()), "launches": corr_launches},
+            "launches": train_launches, "decode_launches": phone_launches, "correct_launches": corr_launches}
+
+
+def rescoring(args, root: str, tr: dict, lms: dict, dev, card: str) -> dict:
+    """The L1 trainer's `model.ep1` through the eval CLI with `--nbest`
+    (beam 8) over the test corpus, then `rescore` on the card with the
+    trained Transformer and BERT LMs (`libri_*.yaml`) and ELECTRA at
+    `ted2_electra.yaml`'s widths over the L1 vocabulary (V = 10000, the
+    n-best's; weights from the seed): each LM's scoring time; then
+    `score_lm` on the CPU over the first three utterances' hypotheses:
+    within SCORE_RTOL of the card's, and the same best hypotheses."""
+    import pandas as pd
+
+    from emoasr_tpu_torch.config import load_config
+    from emoasr_tpu_torch.eval import rescore, test_asr
+    from emoasr_tpu_torch.models.lm.lm import LM
+    from emoasr_tpu_torch.train.checkpoint import save_model
+
+    sub = os.path.join(root, "rescore")
+    os.makedirs(sub)
+    t0 = time.perf_counter()
+    test_asr.main(["-conf", tr["conf_path"], "-ep", "1", "--beam_width", "8", "--nbest"])
+    nb_s = time.perf_counter() - t0
+    nbest = os.path.join(os.path.splitext(tr["conf_path"])[0], "results",
+                         "result_test_beam8_len0.0_ctc0.0_lm0.00_ep1_nbest.tsv")
+    df = pd.read_table(nbest).dropna()
+    require(len(df) >= args.n_utts and df["utt_id"].nunique() == args.n_utts, f"n-best: {len(df)} rows")
+    e_conf = _write_conf(os.path.join(sub, "ted2_electra_v10000.yaml"), ELECTRA_CONF, vocab_size=10000,
+                         mask_id=9999, vocab_path=None, train_path=None, seed=args.seed)
+    torch.manual_seed(args.seed)
+    save_model(os.path.join(sub, "ted2_electra_v10000", "checkpoints", "model.ep1"), LM(load_config(e_conf)))
+    confs = {"transformer": lms["transformer"]["conf_path"], "bert": lms["bert"]["conf_path"], "electra": e_conf}
+    first = df["utt_id"].unique()[:3]
+    few = df[df["utt_id"].isin(first)]
+    out = {}
+    for t, conf in confs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wer, lm_w, len_w = rescore.main([nbest, "-ref", tr["test_tsv"], "-lm_conf", conf, "-lm_ep", "1",
+                                         "--lm_tag", t])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        scored = pd.read_table(nbest.replace(".tsv", f"_{t}.tsv"))
+        cfg = load_config(conf)
+        gpu, cpu = _lm_pair(cfg, os.path.join(os.path.splitext(conf)[0], "checkpoints", "model.ep1"), dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        card_few = rescore.score_lm(few, gpu, max_len=cfg.max_seq_len)
+        torch.cuda.synchronize()
+        few_s = time.perf_counter() - t1
+        cpu_few = rescore.score_lm(few, cpu, max_len=cfg.max_seq_len)
+        a, b = card_few["score_lm"].to_numpy(), cpu_few["score_lm"].to_numpy()
+        rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-6)))
+        full = scored["score_lm"].to_numpy()[df["utt_id"].isin(first).to_numpy()]  # the CLI keeps the rows' order
+        rel_full = float(np.max(np.abs(full - b) / np.maximum(np.abs(b), 1e-6)))
+        ref = pd.read_table(tr["test_tsv"])
+        pick = lambda s: rescore.rescore(s, ref, 0.5, 0.5)[2]["token_id"].tolist()  # noqa: E731
+        require(rel <= SCORE_RTOL and rel_full <= SCORE_RTOL and pick(card_few) == pick(cpu_few),
+                f"{t} score_lm card vs CPU rel err {rel:.2e} (whole n-best's padding {rel_full:.2e}); best "
+                f"{pick(card_few)} vs {pick(cpu_few)}")
+        print(f"  rescore with {t} ({cfg.lm_type}): {len(df)} hypotheses of {args.n_utts} utts scored and the "
+              f"grid searched in {dt:.2f} s (first call) on {card}; best WER {wer:.2f} at lm {lm_w:.2f} len "
+              f"{len_w:.2f}; score_lm of {len(few)} hypotheses card ({few_s * 1e3:.1f} ms) vs CPU: rel err {rel:.2e} "
+              f"(whole n-best's padding {rel_full:.2e}; tol {SCORE_RTOL}), the same best hypotheses")
+        out[t] = {"seconds": dt, "few_seconds": few_s, "rel_err": rel, "rel_err_padding": rel_full, "best_wer": wer,
+                  "n_hyps": len(df)}
+    out["nbest_seconds"] = nb_s
+    return out
+
+
+def check_attention_phone(dev, gen) -> dict:
+    """K4 at the phone encoder's largest bucket, PHONE_BUCKET, in float32
+    and bf16, forward and backward with dropout 0.1, each launched twice
+    (bit-identical), against the plain version on the kernel's own keep
+    mask."""
+    from emoasr_tpu_torch.ops.attention import attention_bwd_plain, attention_plain, dropout_keep_mask
+
+    B, T, H, D = PHONE_BUCKET
+    lens = torch.randint(T // 4, T + 1, (B,), generator=gen, device=dev)
+    lens[0], lens[1] = T, 1
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, d_out = (torch.randn(B, T, H, D, generator=gen, device=dev).to(dtype) for _ in range(4))
+        scale, seed = 1.0 / D ** 0.5, 24680
+        mask = dropout_keep_mask(B, T, H, DROPOUT_RATE, seed, dev, dtype)
+        got = _twice(lambda: _attention_grads(q, k, v, d_out, lens, scale, DROPOUT_RATE, seed))
+        want = (attention_plain(q, k, v, lens, scale, DROPOUT_RATE, dropout_mask=mask),
+                *attention_bwd_plain(q, k, v, d_out, lens, scale, DROPOUT_RATE, None, mask)[:3])
+        tag = f"attention fwd+bwd {dtype} {PHONE_BUCKET} (the phone encoder) dropout {DROPOUT_RATE}"
+        if dtype == torch.float32:
+            errs = _hold_attention_grads(tag, got, want, lens)
+        else:
+            err_o = _max_err(got[0], want[0])
+            require(err_o <= ATTN_TOL[dtype], f"{tag} out: max |kernel - plain| = {err_o} > {ATTN_TOL[dtype]}")
+            errs = [err_o] + [_require_close_bf16(f"{tag} {w}", a, b) for w, a, b in zip(("dq", "dk", "dv"), got[1:],
+                                                                                          want[1:])]
+        worst[dtype] = errs
+        print(f"  {tag}: out {errs[0]:.2e}, dq dk dv {max(errs[1:]):.2e}; two launches bit-identical")
+    return {"fwd": worst[torch.float32][0], "bwd": max(worst[torch.float32][1:]),
+            "fwd_bf16": worst[torch.bfloat16][0], "bwd_bf16": max(worst[torch.bfloat16][1:])}
+
+
 KERNEL_ROWS = (
     # name, source, file:line of the TPU kernel it replaces
     ("topk", "emoasr_tpu_torch/csrc/topk.cu", "emoasr_tpu/ops/topk_pallas.py:64"),
@@ -4717,7 +5293,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
-    print(f"[1/18] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    print(f"[1/22] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     found = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     set_matmul_precision("float32")
     print(f"  TF32 found (matmul, cudnn) = {found}; the port's switch for float32 sets "
@@ -4731,7 +5307,7 @@ def main(argv=None) -> int:
     floor = lattice_floor_kernel()
     build_all(kernels + [floor])
     resources = kernel_resources(jobs)
-    print(f"[2/18] built {', '.join(k.name for k in kernels)} from "
+    print(f"[2/22] built {', '.join(k.name for k in kernels)} from "
           f"{', '.join(sorted({k.source for k in kernels}))} in {time.perf_counter() - t0:.1f} s")
     print("  the kernels (nvcc -Xptxas -v, cuobjdump -sass): registers, spill stores / loads (bytes), "
           "static shared memory (bytes), HMMA + HGMMA instructions")
@@ -4740,7 +5316,7 @@ def main(argv=None) -> int:
               f"smem {r['smem']}, {r['mma_instructions']} HMMA")
 
     # 3. kernels against their plain versions
-    print("[3/18] kernels against their plain versions on the card, forward and backward")
+    print("[3/22] kernels against their plain versions on the card, forward and backward")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     errs = {"topk": check_topk(dev, gen), **check_attention(dev, gen),
@@ -4758,6 +5334,7 @@ def main(argv=None) -> int:
     lstm = check_lstm(dev, gen)
     errs.update(lstm_fwd=lstm["fwd"], lstm_bwd=lstm["bwd"])
     lstm_rnnlm = check_lstm_rnnlm(dev, gen)
+    attn_phone = check_attention_phone(dev, gen)
     print("  the bf16 parts (and K1 at H > 256): kernels against their plain versions")
     errs.update(check_ctc_head_bf16(dev, gen))
     errs.update(check_attention_backward_bf16(dev, gen))
@@ -4776,7 +5353,7 @@ def main(argv=None) -> int:
     root = tempfile.mkdtemp(dir=scratch_root)
     try:
         # 4. training at full width, then one micro-step against the CPU
-        print("[4/18] main path: L1 CTC(Transformer) training through the train CLI")
+        print("[4/22] main path: L1 CTC(Transformer) training through the train CLI")
         tr = train_full_width(args, root, card)
         n_layers = tr["cfg"].enc_num_layers
         step_check = check_micro_step(tr, dev, {
@@ -4785,27 +5362,27 @@ def main(argv=None) -> int:
         step_split = time_micro_step(tr, dev, card)
 
         # 5. learning on the card
-        print("[5/18] learning on the card: the small overfit corpus, train CLI then eval CLI")
+        print("[5/22] learning on the card: the small overfit corpus, train CLI then eval CLI")
         overfit = overfit_on_card(args, root)
 
         # 6. decode the trainer's checkpoint
-        print("[6/18] main path: decode of the trainer's model.ep1 through the eval CLI")
+        print("[6/22] main path: decode of the trainer's model.ep1 through the eval CLI")
         mp = decode_path(args, tr, dev, card)
 
         # 7. the Conformer's attention with its bias, forward and backward
-        print("[7/18] main path: L2 CTC(Conformer) training, two micro-steps through the train CLI")
+        print("[7/22] main path: L2 CTC(Conformer) training, two micro-steps through the train CLI")
         l2 = train_conformer_steps(args, root, card)
 
         # 8. the slice's path: L3-1 joint-CTC beam decode
-        print("[8/18] main path: L3-1 Conformer + attention decoder, beam 10 with joint CTC, through the eval CLI")
+        print("[8/22] main path: L3-1 Conformer + attention decoder, beam 10 with joint CTC, through the eval CLI")
         l3 = decode_l3_1(args, root, tr["test_tsv"], tr["wav_s"], dev, card)
 
         # 9. the slice's path: L3-3, the same with Transformer-LM shallow fusion
-        print("[9/18] main path: L3-3, L3-1 with Transformer-LM shallow fusion 0.5, through the eval CLI")
+        print("[9/22] main path: L3-3, L3-1 with Transformer-LM shallow fusion 0.5, through the eval CLI")
         l33 = decode_l3_3(args, root, tr, dev, card)
 
         # 10. the slice's path: L4 RNN-T(Conformer) training, then greedy and ALSD decoding
-        print("[10/18] main path: L4 RNN-T(Conformer) training through the train CLI, then its model.ep1 "
+        print("[10/22] main path: L4 RNN-T(Conformer) training through the train CLI, then its model.ep1 "
               "greedily and with the ALSD beam through the eval CLI")
         l4 = train_l4(args, root, card)
         n_layers = l4["cfg"].enc_num_layers
@@ -4818,7 +5395,7 @@ def main(argv=None) -> int:
                 "an entry point left TF32 on for a float32 model")
 
         # 11. the slice's path: L1 trained in bf16, then its model.ep1 greedily
-        print("[11/18] main path: L1 CTC(Transformer) training with compute_dtype bfloat16 through the train CLI, "
+        print("[11/22] main path: L1 CTC(Transformer) training with compute_dtype bfloat16 through the train CLI, "
               "then its model.ep1 greedily through the eval CLI")
         l1b_root = os.path.join(root, "l1_bfloat16")
         os.makedirs(l1b_root)
@@ -4832,7 +5409,7 @@ def main(argv=None) -> int:
         l1b_dec = decode_greedy_bf16(l1b, card, ("attention_fwd_bf16",))
 
         # 12. the slice's path: L4 trained in bf16, then its model.ep1 greedily
-        print("[12/18] main path: L4 RNN-T(Conformer) training with compute_dtype bfloat16 through the train CLI, "
+        print("[12/22] main path: L4 RNN-T(Conformer) training with compute_dtype bfloat16 through the train CLI, "
               "then its model.ep1 greedily through the eval CLI")
         l4b = train_l4(args, root, card, "bfloat16", per_bucket=(1, 1, 1, 1, 1))
         n_layers = l4b["cfg"].enc_num_layers
@@ -4844,12 +5421,12 @@ def main(argv=None) -> int:
         l4b_dec = decode_greedy_bf16(l4b, card, ("attention_fwd_bf16", "attention_bias_fwd_bf16"))
 
         # 13. the slice's path: bf16 beam decoding of L1, L3-1, L3-3 and L4
-        print("[13/18] main path: bf16 beam decoding at full width: L1 beam 8, L3-1 (K5 bf16, both variants), "
+        print("[13/22] main path: bf16 beam decoding at full width: L1 beam 8, L3-1 (K5 bf16, both variants), "
               "L3-3 with the LM in bf16 (K6 bf16 and the dense route), L4 ALSD beam 10")
         b16 = decode_bf16(args, root, tr, mp, l3, l33, {**l4, "batches": l4_dec["batches"]}, dev, card)
 
         # 14. slice 3c: L3-1 training, its micro-step against the CPU, its model.ep1 decoded; then in bf16
-        print("[14/18] main path: L3-1 (Conformer + attention decoder, aux CTC 0.3, label smoothing 0.1) training "
+        print("[14/22] main path: L3-1 (Conformer + attention decoder, aux CTC 0.3, label smoothing 0.1) training "
               "through the train CLI, then its model.ep1 through the eval CLI (beam 10, joint CTC 0.3); two bf16 "
               "micro-steps")
         n_l3_test = 20
@@ -4871,20 +5448,42 @@ def main(argv=None) -> int:
             "attention_fwd": 0, "attention_bwd": 0})
 
         # 15. slice 6a: the three LMs trained through train_lm; one RNN LM step against the CPU
-        print("[15/18] main path: the RNN (K8), Transformer and BERT LMs trained through train_lm over a sharded "
+        print("[15/22] main path: the RNN (K8), Transformer and BERT LMs trained through train_lm over a sharded "
               "corpus that fills every bucket")
         lms = train_lms(args, root, card)
         rnn_step = {**check_rnn_lm_step(lms["rnn"], dev), **time_rnn_lm_step(lms["rnn"], dev, card)}
 
         # 16. slice 6a: PPL and BERT's pseudo-PPL through the PPL CLI, against the CPU
-        print("[16/18] main path: PPL of the three checkpoints through the PPL CLI (BERT: chunked pseudo-PPL at the "
+        print("[16/22] main path: PPL of the three checkpoints through the PPL CLI (BERT: chunked pseudo-PPL at the "
               "(11, 256) bucket), against the CPU")
         ppl = lm_ppl(lms, dev, card)
 
         # 17. slice 6a: RNN-LM shallow fusion in the three beams
-        print("[17/18] main path: RNN-LM shallow fusion 0.5 into the L1 CTC beam and the L3-1 attention beam "
+        print("[17/22] main path: RNN-LM shallow fusion 0.5 into the L1 CTC beam and the L3-1 attention beam "
               "through the eval CLI, and into the L4 ALSD beam in Python")
         fusion = rnn_lm_fusion(args, lms["rnn"], tr, l3t, l4, dev, card)
+
+        # 18. slice 6b: ELECTRA and electra-disc through train_lm; one step each against the CPU
+        print("[18/22] main path: ELECTRA (ted2_electra.yaml, 12 + 12 x 256, V 9798) and electra-disc trained "
+              "through train_lm; one step each against the CPU on the same generated ids")
+        electra = train_electra(args, root, card, dev)
+
+        # 19. slice 6b: P-ELECTRA, the deletable PC-MLM and pctc (K4 in the phone encoder, K1 and K2)
+        print("[19/22] main path: P-ELECTRA (ted2_pelectra.yaml) and the deletable PC-MLM (del_pc_mlm.yaml) "
+              "trained through train_lm with the fused phone-encoder attention (K4 with dropout); one step each "
+              "against the CPU; the PC-MLM's pseudo-PPL through the PPL CLI; one pctc step (K1, K2)")
+        p2w = train_p2w(args, root, card, dev)
+
+        # 20. slice 7a: error correction with the PC-MLM
+        print("[20/22] main path: asr_hie_phone.yaml trained through the train CLI (K1, K2, K4), its phone "
+              "hypotheses through test_asr --decode_phone, and correction with the PC-MLM through the correction "
+              "CLI, against the CPU")
+        corr = correction(args, root, p2w["pbert"], dev, card)
+
+        # 21. slice 7a: N-best rescoring of the L1 beam's n-best
+        print("[21/22] main path: the L1 beam-8 n-best through the rescoring CLI with the Transformer, BERT and "
+              "ELECTRA LMs, score_lm against the CPU")
+        resc = rescoring(args, root, tr, lms, dev, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     set_matmul_precision("float32")  # the bf16 entry points turned TF32 on for their float32 remainder
@@ -4942,7 +5541,22 @@ def main(argv=None) -> int:
                 **r[f"lstm_{kind}"], "launches": lms["rnn"]["k8_by_shape"].get(f"{kind}/{B_}/{T_}/{H_}/f32", 0),
                 "max_abs_err": lstm_rnnlm[kind]})
     times["lstm_fwd"]["rnnlm_shapes"], times["lstm_bwd"]["rnnlm_shapes"] = rnnlm_k8["fwd"], rnnlm_k8["bwd"]
-    print(f"[18/18] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
+    # K4 at the phone encoder's largest bucket (P-ELECTRA, PC-MLM, pctc; phone lengths of half to all of the
+    # bucket), SDPA beside; launches: the P2W steps' and the PC-MLM pseudo-PPL's
+    pB, pT, pH, pD = PHONE_BUCKET
+    plens = torch.linspace(pT // 2, pT, pB, device=dev).round().int()
+    p2w_paths = [p2w[t]["launches"] for t in ("pelectra", "pbert", "pctc")] + [p2w["pbert"]["ppl"]["launches"]]
+    for dt, sfx in ((torch.float32, ""), (bf, "_bf16")):
+        fwd, bwd = time_attention(dev, gen, pB, pT, pH, pD, plens, dt), time_attention_backward(dev, gen, pB, pT, pH,
+                                                                                                 pD, plens, dt)
+        for kind, r in (("fwd", fwd), ("bwd", bwd)):
+            r.update(launches=sum(p[f"attention_{kind}{sfx}"] for p in p2w_paths),
+                     max_abs_err=attn_phone[f"{kind}{sfx}"])
+            times[f"attention_{kind}{sfx}"]["phone_shapes"] = [r]
+            print(f"    attention_{kind}{sfx} (the phone encoder) {r['shape']}: {r['ms']:.4f} ms (bound "
+                  f"{r['bound_ms']:.4f} by {r['bound_by']}, plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}), "
+                  f"{r['launches']} launches in the P2W steps and the pseudo-PPL")
+    print(f"[22/22] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
           f"decoder step W = 10, pos = 64; L4: B = {l4_big.batch_size}, T' = {l4_T}, U+1 = {l4_big.max_ylen + 1}) "
           f"on {smi}")
 
@@ -4951,7 +5565,9 @@ def main(argv=None) -> int:
         r["launches"] for r in (*mp["runs"].values(), *l3["runs"].values(), *l33["runs"].values(),
                                 *l4_dec["runs"].values(), *b16["runs"].values(),
                                 *lms.values(), *ppl.values(), *fusion.values())] + [
-        l3t["launches"], l3b["launches"], l3t_dec["launches"]]
+        l3t["launches"], l3b["launches"], l3t_dec["launches"],
+        *(v["launches"] for v in electra.values()), *(p2w[t]["launches"] for t in ("pelectra", "pbert", "pctc")),
+        p2w["pbert"]["ppl"]["launches"], corr["launches"], corr["decode_launches"], corr["correct_launches"]]
     ms = lambda x: "none" if x is None else f"{x:.4f}"
 
     def row_of(name, src, rep, launches):
@@ -4969,7 +5585,7 @@ def main(argv=None) -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"],
             **{k: t[k] for k in ("ops_at", "dense_route_ms", "shapes", "floor_ms", "s1025", "dropout_ms",
-                                 "plain_dropout_ms", "library_dropout_ms", "rnnlm_shapes") if k in t},
+                                 "plain_dropout_ms", "library_dropout_ms", "rnnlm_shapes", "phone_shapes") if k in t},
         }
 
     # K3 by shape class over the main paths (a call is one launch of one grid)
@@ -5042,6 +5658,12 @@ def main(argv=None) -> int:
         "lm_train": {t: {k: v[k] for k in ("seconds", "steps", "losses", "launches", "k8_by_shape")}
                      for t, v in lms.items()},
         "rnn_lm_step": rnn_step, "lm_ppl": ppl, "rnn_lm_fusion": fusion,
+        "electra_train": {t: {k: v[k] for k in ("seconds", "steps", "losses", "launches", "step_check")}
+                          for t, v in electra.items()},
+        "p2w_train": {t: {k: v[k] for k in ("seconds", "steps", "losses", "launches", "step_check", "ppl") if k in v}
+                      for t, v in p2w.items()},
+        "correction": {k: corr[k] for k in ("train_seconds", "losses", "decode_phone", "correct")},
+        "rescoring": resc,
         "wide_widths": wide,
         "kernel_resources": resources,
         "card": smi, "total_seconds": time.perf_counter() - t_start,

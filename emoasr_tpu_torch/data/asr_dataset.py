@@ -27,10 +27,12 @@ from emoasr_tpu_torch.utils.converters import str2ints
 
 
 class ASRDataset:
-    def __init__(self, cfg: ExpConfig, data_path: str, phase: str = "train"):
+    def __init__(self, cfg: ExpConfig, data_path: str, phase: str = "train", decode_phone: bool = False):
+        """`decode_phone` reads the phone columns at test time too (the
+        eval CLI's `--decode_phone`, error correction with phones)."""
         self.cfg = cfg
         self.phase = phase
-        self.use_phone = phase == "train" and cfg.mtl_phone_ctc_weight > 0
+        self.use_phone = (phase == "train" and cfg.mtl_phone_ctc_weight > 0) or decode_phone
         cols = ["feat_path", "utt_id", "token_id", "text", "xlen", "ylen"]
         if self.use_phone:
             cols += ["phone_token_id", "phone_text"]

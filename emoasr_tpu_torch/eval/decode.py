@@ -55,6 +55,7 @@ def build_decode_fn(
     lm: Optional[LMFusion] = None,
     top1: bool = False,
     device=None,
+    decode_phone: bool = False,
 ) -> Callable:
     """Returns fn(xs, xlens) -> (hyps, hyp_lens, scores), tensors on the
     model's device.
@@ -75,6 +76,9 @@ def build_decode_fn(
     `top1=True` (every eval mode except --nbest) lets the beam stop a row as
     soon as its stored best is provably unbeatable (exact for the returned
     hypothesis, see `attention_beam_search`).
+
+    `decode_phone` decodes a CTC model's phone head (greedy or the prefix
+    beam), from the intermediate layer when `hie_mtl_phone`.
 
     RNN-T decoder: greedy for `beam_width <= 1` or `decode_ctc_weight == 1`
     (as the JAX package chooses), else the ALSD beam with hypotheses of at
@@ -103,14 +107,17 @@ def build_decode_fn(
         @torch.no_grad()
         def decode_greedy(xs, xlens):
             xs, xlens = inputs(xs, xlens)
-            hyps, hyp_lens, _, _ = model.decode_greedy(xs, xlens)
+            hyps, hyp_lens, _, _ = model.decode_greedy(xs, xlens, decode_phone)
             return hyps, hyp_lens, torch.zeros(hyp_lens.shape, dtype=torch.float32, device=dev)
 
         @torch.no_grad()
         def decode_ctc_beam(xs, xlens):
             xs, xlens = inputs(xs, xlens)
-            eouts, elens, _ = model.encode(xs, xlens)
-            lp = torch.log_softmax(model.decoder.logits(eouts).float(), dim=-1)
+            eouts, elens, eouts_inter = model.encode(xs, xlens)
+            if decode_phone and cfg.hie_mtl_phone:
+                eouts = eouts_inter
+            head = model.decoder.phone_logits if decode_phone else model.decoder.logits
+            lp = torch.log_softmax(head(eouts).float(), dim=-1)
             return ctc_beam_search(
                 lp, elens, beam_width, cfg.blank_id, cfg.eos_id, lw, lm=lm_t,
             )

@@ -11,7 +11,9 @@ utt-id-embedded start/end times, `--nbest` output, checkpoint averaging for
 epoch ranges, Transformer- or RNN-LM shallow fusion (`--lm_weight`,
 `--lm_conf`, `--lm_ep` or `--lm_path`, `--lm_tag`, or the yaml's
 `lm_weight`, `lm_conf`, `lm_path`) into the CTC prefix beam, the attention
-beam and the ALSD beam.
+beam and the ALSD beam (an ELECTRA LM through its stateless `predict`), and
+`--decode_phone` (a CTC model's phone head, the hierarchical one from the
+intermediate layer: the phone TSV against `phone_vocab_path`, its PER).
 Checkpoints are reference-layout torch `state_dict` files.
 
 Runs on the card unless `--cpu` is given:
@@ -42,7 +44,7 @@ from emoasr_tpu_torch.eval.decode import build_decode_fn
 from emoasr_tpu_torch.eval.wer import compute_wers_df, wer_info_line
 from emoasr_tpu_torch.models.asr import ASR
 from emoasr_tpu_torch.models.lm.lm import LM, load_lm_state_dict
-from emoasr_tpu_torch.search.common import make_lm_fusion
+from emoasr_tpu_torch.search.common import check_lm_fusion_type, make_lm_fusion
 from emoasr_tpu_torch.train import checkpoint as ckpt
 from emoasr_tpu_torch.utils.converters import ints2str
 from emoasr_tpu_torch.utils.device import resolve_device, set_matmul_precision
@@ -85,10 +87,9 @@ def load_asr_model(model_path: str, cfg: ExpConfig) -> ASR:
 
 def load_lm(lm_conf: str, lm_path: str):
     """(`LM` on the CPU in eval mode with the weights of the torch
-    `state_dict` file `lm_path`, its config).  The file's keys may carry the
-    facade's `lm.` prefix or not; an `lm_type` other than `transformer`,
-    `bert` or `rnn` raises `NotImplementedError` before the file is read
-    (JAX `eval/test_asr.py:105-118`)."""
+    `state_dict` file `lm_path`, its config), for every LM type.  The file's
+    keys may carry the facade's `lm.` prefix or not (JAX
+    `eval/test_asr.py:90-118`)."""
     lm_cfg = load_config(lm_conf)
     lm_model = LM(lm_cfg)
     load_lm_state_dict(lm_model, ckpt.load_state_dict(lm_path))
@@ -105,6 +106,7 @@ def _postproc_batch(
     nbest: bool,
     sample_utt_id: Optional[str],
     max_utts: int = -1,
+    decode_phone: bool = False,
 ) -> tuple:
     """Host post-processing for one decoded batch -> (result rows,
     utterances consumed).  Row b of the outputs belongs to
@@ -121,7 +123,7 @@ def _postproc_batch(
     n_forced = 0
     count_forced = cfg.decoder_type == "transformer"
     eos = cfg.eos_id
-    texts = batch["texts"]
+    texts = batch["ptexts"] if decode_phone else batch["texts"]
     multi = hyps.ndim == 3  # beam outputs (B, W, L)
     if multi:
         valid = scores > -1e29  # (B, W) DEAD-filtered, beams best-first
@@ -170,6 +172,7 @@ def decode_dataset(
     nbest: bool = False,
     num_samples: int = -1,
     sample_utt_id: Optional[str] = None,
+    decode_phone: bool = False,
 ) -> List[list]:
     """Decode bucket batch after bucket batch -> result rows.
 
@@ -219,6 +222,7 @@ def decode_dataset(
             new, n_utts, n_forced = _postproc_batch(
                 cfg, batch, hyps, hyp_lens, scores, vocab, nbest, sample_utt_id,
                 max_utts=(num_samples - n_done) if num_samples > 0 else -1,
+                decode_phone=decode_phone,
             )
             rows.extend(new)
             n_done += n_utts
@@ -268,7 +272,7 @@ def test_main(args, lm_weight=None, len_weight=None):
     logging.info(f"***** {' '.join(sys.argv)}")
 
     setup_key = (args.conf, str(args.ep), beam_width, decode_ctc_weight, args.lm_conf, args.lm_ep,
-                 args.lm_path, has_lm, top1, str(device))
+                 args.lm_path, has_lm, top1, str(device), args.decode_phone)
     cached = _SETUP_CACHE.get(setup_key)
     if cached is None:
         lm_fusion, lm_tag = None, ""
@@ -277,6 +281,7 @@ def test_main(args, lm_weight=None, len_weight=None):
             lm_path = (get_model_path(lm_conf, args.lm_ep) if args.lm_ep is not None
                        else args.lm_path or rel_to_abs_path(cfg.lm_path))
             logging.info(f"LM: {lm_path} on {device}")
+            check_lm_fusion_type(load_config(lm_conf).lm_type)  # before the checkpoint is read
             lm_model, lm_cfg = load_lm(lm_conf, lm_path)
             lm_fusion = make_lm_fusion(lm_model.to(device), lm_weight)
             lm_tag = lm_cfg.lm_type if args.lm_tag is None else args.lm_tag
@@ -290,7 +295,7 @@ def test_main(args, lm_weight=None, len_weight=None):
         # has no second score to weigh
         base_decode_fn = build_decode_fn(
             model, cfg, beam_width, len_weight, decode_ctc_weight, lm=lm_fusion, top1=top1,
-            device=device,
+            device=device, decode_phone=args.decode_phone,
         )
         cached = (base_decode_fn, lm_tag)
         _SETUP_CACHE.clear()  # hold at most one setup
@@ -307,8 +312,8 @@ def test_main(args, lm_weight=None, len_weight=None):
     if data_path is None:
         data_path = cfg.test_path
     logging.info(f"test data: {data_path}")
-    dataset = ASRDataset(cfg, rel_to_abs_path(data_path), phase="test")
-    vocab = Vocab(rel_to_abs_path(cfg.vocab_path))
+    dataset = ASRDataset(cfg, rel_to_abs_path(data_path), phase="test", decode_phone=args.decode_phone)
+    vocab = Vocab(rel_to_abs_path(cfg.phone_vocab_path if args.decode_phone else cfg.vocab_path))
 
     if args.runtime:
         runtimes, rtfs = [], []
@@ -318,7 +323,7 @@ def test_main(args, lm_weight=None, len_weight=None):
             results = decode_dataset(
                 cfg, dataset, decode_fn, vocab, nbest=args.nbest,
                 num_samples=args.runtime_num_samples,
-                sample_utt_id=args.utt_id,
+                sample_utt_id=args.utt_id, decode_phone=args.decode_phone,
             )
             runtime = time.time() - t0
             runtime_utt = runtime / max(len(results), 1)
@@ -345,6 +350,7 @@ def test_main(args, lm_weight=None, len_weight=None):
 
     results = decode_dataset(
         cfg, dataset, decode_fn, vocab, nbest=args.nbest, sample_utt_id=args.utt_id,
+        decode_phone=args.decode_phone,
     )
     if args.utt_id is not None:
         for r in results:
@@ -359,6 +365,8 @@ def test_main(args, lm_weight=None, len_weight=None):
         f"result_{data_tag}_beam{beam_width:d}_len{len_weight:.1f}"
         f"_ctc{decode_ctc_weight:.1f}_lm{lm_weight:.2f}{lm_tag}_ep{args.ep}.tsv"
     )
+    if args.decode_phone:
+        result_file = result_file.replace(".tsv", "_phone.tsv")
     if args.nbest:
         result_file = result_file.replace(".tsv", "_nbest.tsv")
     result_path = os.path.join(results_dir, result_file)
@@ -374,7 +382,7 @@ def test_main(args, lm_weight=None, len_weight=None):
     df = pd.DataFrame(results, columns=["utt_id", "token_id", "text", "reftext"])
     df.to_csv(result_path, sep="\t", index=False)
     wer, wer_dict = compute_wers_df(df)
-    wer_info = wer_info_line(wer, wer_dict)
+    wer_info = wer_info_line(wer, wer_dict).replace("WER", "PER" if args.decode_phone else "WER", 1)
     logging.info(wer_info)
     insert_comment(result_path, wer_info)
     return lm_weight, len_weight, wer, wer_info
@@ -405,6 +413,8 @@ def build_argparser():
     parser.add_argument("--lm_path", type=str, default=None,
                         help="the LM's state_dict file (default: --lm_ep's, else the yaml's lm_path)")
     parser.add_argument("--lm_tag", type=str, default=None)
+    parser.add_argument("--decode_phone", action="store_true",
+                        help="decode the phone head (CTC models trained with phone CTC)")
     return parser
 
 

@@ -49,30 +49,27 @@ class ASR(nn.Module):
         )
         return loss, loss_dict
 
-    def set_dropout_generator(self, generator: torch.Generator) -> None:
-        """Draw the fused attention's dropout seeds from `generator` (the
-        other dropout layers keep PyTorch's global generator)."""
-        for m in self.modules():
-            if hasattr(m, "dropout_generator"):
-                m.dropout_generator = generator
-
     def encode(self, xs, xlens):
         """-> (eouts, elens, eouts_inter)."""
         return self.encoder(xs, xlens)
 
-    def decode_greedy(self, xs, xlens):
+    def decode_greedy(self, xs, xlens, decode_phone: bool = False):
         """Batched greedy decode -> (hyps, hyp_lens, logits, aligns)
         (`asr.py:70-95` + `ctc.py:176-201` / `rnn_transducer.py:194-240`;
-        logits None for the RNN-T decoder)."""
+        logits None for the RNN-T decoder).  `decode_phone` decodes a CTC
+        model's phone head, from the intermediate layer's output when the
+        phone CTC is hierarchical (`hie_mtl_phone`)."""
         if self.cfg.decoder_type not in ("ctc", "rnn_transducer"):
             raise NotImplementedError(
                 f"greedy decode for {self.cfg.decoder_type}; use emoasr_tpu_torch.search"
             )
-        eouts, elens, _ = self.encoder(xs, xlens)
+        eouts, elens, eouts_inter = self.encoder(xs, xlens)
         if self.cfg.decoder_type == "rnn_transducer":
             hyps, hyp_lens, aligns = self.decoder.greedy(eouts, elens)
             return hyps, hyp_lens, None, aligns
-        return self.decoder.greedy(eouts, elens)
+        if decode_phone and self.cfg.hie_mtl_phone:
+            eouts = eouts_inter
+        return self.decoder.greedy(eouts, elens, decode_phone)
 
     @torch.no_grad()
     def forced_align(self, xs, xlens, ys, ylens):
@@ -81,7 +78,7 @@ class ASR(nn.Module):
         if self.cfg.decoder_type == "rnn_transducer":
             raise NotImplementedError(
                 "RNN-T forced alignment (ops/rnnt.py::rnnt_forced_align) comes with the "
-                "distillation slice (ROADMAP.md §1, slice 7)"
+                "distillation slice (ROADMAP.md §1, slice 7b)"
             )
         if self.cfg.decoder_type != "ctc":
             raise NotImplementedError(f"forced_align for decoder_type={self.cfg.decoder_type}")

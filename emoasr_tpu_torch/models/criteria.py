@@ -1,5 +1,5 @@
-"""Training criteria (PyTorch port of the label-smoothing part of
-`emoasr_tpu/models/criteria.py`).
+"""Training criteria (PyTorch port of the label-smoothing and masked-LM parts
+of `emoasr_tpu/models/criteria.py`).
 
 Parity target: emoASR `asr/criteria.py:5-46`: the masked cross-entropy
 against a label-smoothed target, (1 - p) on the label and p / (V - 1) on
@@ -12,14 +12,19 @@ so no one-hot of (B, L, V) is made.  It sums the same terms as the JAX
 package's one-hot product, in another order (float32, within a few ulps of
 the loss; tests/test_torch_criteria.py).
 
-The distillation losses and the CMLM loss come with slice 7 (ROADMAP.md §1).
+`masked_lm_loss` (emoASR `lm/criteria.py:5-18`, the CMLM decoder's loss) is
+the mean cross-entropy over the labels that are not -100, taken as a gather
+of the log-probabilities at the labels, not as the JAX package's one-hot
+product.
+
+The distillation losses come with slice 7b (ROADMAP.md §1).
 """
 
 from __future__ import annotations
 
 import torch
 
-SLICE_7 = "(ROADMAP.md §1, slice 7: post-hoc tools and distillation)"
+SLICE_7 = "(ROADMAP.md §1, slice 7b: distillation)"
 
 
 def label_smoothing_loss(
@@ -48,8 +53,18 @@ def label_smoothing_loss(
 
 
 def distill_loss(*args, **kwargs):
-    raise NotImplementedError(f"the soft-label distillation loss comes with slice 7 {SLICE_7}")
+    raise NotImplementedError(f"the soft-label distillation loss comes with {SLICE_7}")
 
 
-def masked_lm_loss(*args, **kwargs):
-    raise NotImplementedError(f"the CMLM decoder's masked-LM loss comes with slice 7 {SLICE_7}")
+IGNORE_ID = -100
+
+
+def masked_lm_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_id: int = IGNORE_ID) -> torch.Tensor:
+    """Mean cross-entropy over the positions whose label is not
+    `ignore_id` (criteria.py:80-91, torch `CrossEntropyLoss`'s default), 0
+    where there is none."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    valid = labels != ignore_id
+    tgt = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    ce = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    return torch.where(valid, ce, torch.zeros_like(ce)).sum() / valid.sum().clamp(min=1)

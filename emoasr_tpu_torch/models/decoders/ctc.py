@@ -62,6 +62,9 @@ class CTCDecoder(nn.Module):
     def logits(self, eouts: torch.Tensor) -> torch.Tensor:
         return self.output(eouts)
 
+    def phone_logits(self, eouts: torch.Tensor) -> torch.Tensor:
+        return self.phone_output(eouts)
+
     def _ctc(self, head: nn.Linear, eouts, labels, elens, label_lens) -> torch.Tensor:
         if USE_FUSED_HEAD:
             return ctc_loss_fused_head(
@@ -90,7 +93,7 @@ class CTCDecoder(nn.Module):
         if (cfg.kd_weight > 0 or cfg.inter_kd_weight > 0) and soft_labels is not None:
             raise NotImplementedError(
                 "CTC alignment distillation (kd_weight / inter_kd_weight with soft "
-                "labels) comes with the distillation slice (ROADMAP.md §1, slice 7)"
+                "labels) comes with the distillation slice (ROADMAP.md §1, slice 7b)"
             )
 
         loss_dict = {}
@@ -113,12 +116,13 @@ class CTCDecoder(nn.Module):
         loss_dict["loss_total"] = loss
         return loss, loss_dict, None
 
-    def greedy(self, eouts: torch.Tensor, elens: torch.Tensor):
-        """Batched greedy decode: returns (hyps, hyp_lens, logits, aligns).
+    def greedy(self, eouts: torch.Tensor, elens: torch.Tensor, decode_phone: bool = False):
+        """Batched greedy decode: returns (hyps, hyp_lens, logits, aligns),
+        over the phone head with `decode_phone`.
 
         `torch.argmax` returns the first maximal index, as `jnp.argmax`
         does, so equal logits resolve to the lowest token id."""
-        logits = self.output(eouts)
+        logits = self.phone_output(eouts) if decode_phone else self.output(eouts)
         best_paths = torch.argmax(logits, dim=-1)
         T = best_paths.shape[1]
         aligns = torch.where(

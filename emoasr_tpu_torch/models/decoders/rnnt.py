@@ -20,7 +20,7 @@ Parity target: emoASR `asr/modeling/decoders/rnn_transducer.py`:
 
 The distillation losses (:127-141) need soft labels that only the
 distillation tooling produces: they raise `NotImplementedError` until that
-slice (ROADMAP.md §1, slice 7).  The ALSD beam search (:242-325) is in
+slice (ROADMAP.md §1, slice 7b).  The ALSD beam search (:242-325) is in
 `emoasr_tpu_torch/search/rnnt_beam.py`.
 """
 
@@ -86,7 +86,7 @@ class RNNTDecoder(nn.Module):
         if cfg.kd_weight > 0 and soft_labels is not None:
             raise NotImplementedError(
                 "RNN-T distillation (kd_weight with soft labels) comes with the distillation "
-                "slice (ROADMAP.md §1, slice 7)"
+                "slice (ROADMAP.md §1, slice 7b)"
             )
         loss_dict = {}
         douts, _ = self.recurrency(ys_in)  # (B, U+1, H)

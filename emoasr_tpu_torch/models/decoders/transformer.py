@@ -10,10 +10,11 @@ in `emoasr_tpu_torch/search/attention_beam.py`; they write into the caches
 they are given, in place.
 
 The training loss is the label-smoothed cross-entropy over `ylens + 1`
-positions (`models/criteria.py`) plus `mtl_ctc_weight` times the auxiliary
-CTC loss (`CTCDecoder`, which runs the CTC head and lattice kernels).  The
-distillation branch and the CMLM mode raise `NotImplementedError` until
-slice 7 (ROADMAP.md §1).
+positions (`models/criteria.py`), in CMLM mode the masked-LM loss over the
+labels that are not -100, plus `mtl_ctc_weight` times the auxiliary CTC
+loss (`CTCDecoder`, which runs the CTC head and lattice kernels).  The
+distillation branch raises `NotImplementedError` until slice 7b
+(ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 from torch import nn
 
 from emoasr_tpu_torch.config import ExpConfig
-from emoasr_tpu_torch.models.criteria import SLICE_7, label_smoothing_loss
+from emoasr_tpu_torch.models.criteria import SLICE_7, label_smoothing_loss, masked_lm_loss
 from emoasr_tpu_torch.models.decoders.ctc import CTCDecoder
 from emoasr_tpu_torch.models.layers import (
     PositionalEncoder,
@@ -42,9 +43,8 @@ Caches = List[Tuple[torch.Tensor, torch.Tensor]]
 class TransformerDecoder(nn.Module):
     def __init__(self, cfg: ExpConfig, cmlm: bool = False):
         super().__init__()
-        if cmlm:
-            raise NotImplementedError(f"the CMLM decoder mode comes with slice 7 {SLICE_7}")
         self.cfg = cfg
+        self.cmlm = cmlm
         self.embed = nn.Embedding(cfg.vocab_size, cfg.dec_hidden_size)
         self.pe = PositionalEncoder(cfg.dec_hidden_size, cfg.dropout_dec_rate)
         self.transformers = nn.ModuleList(
@@ -158,22 +158,28 @@ class TransformerDecoder(nn.Module):
         cfg = self.cfg
         L = ys_in.shape[1]
         emask = make_pad_mask(elens, eouts.shape[1])[:, None, None, :]
-        ymask = (
-            make_pad_mask(ylens + 1, L)[:, None, None, :]
-            & make_causal_mask(L, ys_in.device)[None, None, :, :]
-        )
+        if self.cmlm:
+            ymask = make_pad_mask(ylens, L)[:, None, None, :]
+        else:
+            ymask = (
+                make_pad_mask(ylens + 1, L)[:, None, None, :]
+                & make_causal_mask(L, ys_in.device)[None, None, :, :]
+            )
         h = self._decode_stack(ys_in, ymask, eouts, emask)
         logits = self.output(self.norm(h))
         if ys_out is None:
             return logits
         if cfg.kd_weight > 0 and soft_labels is not None:
             raise NotImplementedError(
-                f"the attention decoder's distillation loss (kd_weight with soft labels) comes with slice 7 {SLICE_7}"
+                f"the attention decoder's distillation loss (kd_weight with soft labels) comes with {SLICE_7}"
             )
-        loss_att = label_smoothing_loss(
-            logits, ys_out, ylens + 1, lsm_prob=cfg.lsm_prob,
-            normalize_length=cfg.loss_normalize_length, normalize_batch=cfg.loss_normalize_batch,
-        )
+        if self.cmlm:
+            loss_att = masked_lm_loss(logits, ys_out)
+        else:
+            loss_att = label_smoothing_loss(
+                logits, ys_out, ylens + 1, lsm_prob=cfg.lsm_prob,
+                normalize_length=cfg.loss_normalize_length, normalize_batch=cfg.loss_normalize_batch,
+            )
         loss, loss_dict = loss_att, {"loss_att": loss_att}
         if cfg.mtl_ctc_weight > 0:
             loss_ctc, _, _ = self.ctc(eouts, elens, ys=ys, ylens=ylens)

@@ -2,7 +2,8 @@
 `emoasr_tpu/models/encoders.py::TransformerEncoder`).
 
 Parity target: emoASR `asr/modeling/encoders/transformer.py:16-113`:
-conv2d or linear input layer, absolute or relative positional encoding, N
+conv2d, embed (the phone encoder of the phone-to-word LMs) or linear input
+layer, absolute or relative positional encoding, N
 pre-norm encoder layers, final LayerNorm eps=1e-12, optional intermediate tap
 for inter-CTC / hierarchical phone CTC.  `cfg.enc_fused_attn` sends every
 layer's attention through the fused kernel (ops/attention.py); in a
@@ -35,13 +36,12 @@ class TransformerEncoder(nn.Module):
         self.pos_encode_type = cfg.pos_encode_type if is_conformer else "abs"
         if cfg.input_layer == "conv2d":
             self.conv = Conv2dSubsampler(cfg.input_size, cfg.enc_hidden_size)
+        elif cfg.input_layer == "embed":
+            self.embed = nn.Embedding(cfg.src_vocab_size, cfg.enc_hidden_size)
         elif cfg.input_layer == "linear":
             self.linear = nn.Linear(cfg.input_size, cfg.enc_hidden_size)
         else:
-            raise NotImplementedError(
-                f"input_layer={cfg.input_layer!r}: conv2d and linear are ported; "
-                "embed comes with slice 6b (ROADMAP.md §1: the phone-to-word LMs)"
-            )
+            raise ValueError(cfg.input_layer)
         PE = PositionalEncoder if self.pos_encode_type == "abs" else RelPositionalEncoder
         self.pe = PE(cfg.enc_hidden_size, cfg.dropout_enc_rate)
         kw = dict(
@@ -59,10 +59,13 @@ class TransformerEncoder(nn.Module):
         self.norm = nn.LayerNorm(cfg.enc_hidden_size, eps=1e-12)
 
     def forward(self, xs, xlens):
-        """(B, T, F), (B,) -> (eouts (B, T', D), elens (B,), eouts_inter)."""
+        """(B, T, F) features (or (B, T) token ids with the embed input
+        layer), (B,) -> (eouts (B, T', D), elens (B,), eouts_inter)."""
         cfg = self.cfg
         if cfg.input_layer == "conv2d":
             xs, elens = self.conv(xs, xlens)
+        elif cfg.input_layer == "embed":
+            xs, elens = self.embed(xs.long()), xlens
         else:
             xs, elens = self.linear(xs), xlens
         mask = make_pad_mask(elens, xs.shape[1])[:, None, None, :]  # (B,1,1,T)

@@ -63,6 +63,15 @@ def make_pad_mask(lens: torch.Tensor, maxlen: int) -> torch.Tensor:
     return torch.arange(maxlen, device=lens.device)[None, :] < lens[:, None]
 
 
+def set_dropout_generator(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw the fused attention's dropout seeds of every layer of `model`
+    from `generator` (the other dropout layers keep PyTorch's global
+    generator)."""
+    for m in model.modules():
+        if hasattr(m, "dropout_generator"):
+            m.dropout_generator = generator
+
+
 def make_causal_mask(length: int, device=None) -> torch.Tensor:
     return torch.tril(torch.ones((length, length), dtype=torch.bool, device=device))
 

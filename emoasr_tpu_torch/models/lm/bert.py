@@ -1,6 +1,6 @@
 """BERT-style post-norm Transformer stack with a causal switch, the BERT-MLM
-head and the masked-LM loss (PyTorch port of the parts of
-`emoasr_tpu/models/lm/bert.py` that the Transformer and BERT LMs use).
+head, the ELECTRA generator and discriminator heads, the masked-LM loss and
+the discriminator's BCE (PyTorch port of `emoasr_tpu/models/lm/bert.py`).
 
 Module and parameter names are emoASR's torch `state_dict` names (its
 vendored HuggingFace `BertForMaskedLM`): `embeddings.{word_embeddings,
@@ -9,7 +9,11 @@ position_embeddings, token_type_embeddings, LayerNorm}`,
 `encoder.layer.{i}.attention.output.{dense,LayerNorm}`,
 `encoder.layer.{i}.intermediate.dense`, `encoder.layer.{i}.output.{dense,
 LayerNorm}`, and the head's `predictions.{transform.dense,
-transform.LayerNorm, decoder, bias}`.
+transform.LayerNorm, decoder, bias}`; ELECTRA (its vendored
+`ElectraForMaskedLM` / `ElectraForPreTraining`) adds the stack's
+`embeddings_project` (embedding size -> hidden size), the generator's
+`generator_predictions.{dense, LayerNorm}` and `generator_lm_head`, and the
+discriminator's `discriminator_predictions.{dense, dense_prediction}`.
 
 Semantics kept from the JAX package: embeddings = word + learned position +
 token type 0, LayerNorm eps 1e-12, dropout (0.1, on in `train()` mode: the
@@ -36,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from emoasr_tpu_torch.models.criteria import masked_lm_loss
 from emoasr_tpu_torch.models.layers import (
     NEG_INF,
     _write_cache,
@@ -209,6 +214,9 @@ class BertLayer(nn.Module):
 
 
 class BertEmbeddings(nn.Module):
+    """word + learned position + token type 0, LayerNorm, dropout; at the
+    stack's `embedding_size` (ELECTRA) when it is given."""
+
     def __init__(self, vocab_size: int, hidden_size: int, max_seq_len: int,
                  type_vocab_size: int = 2, dropout_rate: float = 0.1):
         super().__init__()
@@ -225,24 +233,35 @@ class BertEmbeddings(nn.Module):
 
 
 class BertStack(nn.Module):
-    """Embeddings + N post-norm layers; `causal` makes it a left-to-right LM."""
+    """Embeddings + N post-norm layers; `causal` makes it a left-to-right LM.
+    An `embedding_size` other than `hidden_size` (ELECTRA) adds the
+    projection `embeddings_project` after the embeddings."""
 
     def __init__(self, vocab_size: int, hidden_size: int, num_layers: int, num_heads: int,
                  intermediate_size: int, max_seq_len: int = 512, type_vocab_size: int = 2,
-                 dropout_rate: float = 0.1, attn_dropout_rate: float = 0.1):
+                 dropout_rate: float = 0.1, attn_dropout_rate: float = 0.1,
+                 embedding_size: Optional[int] = None):
         super().__init__()
         self.num_heads = num_heads
         self.hidden_size = hidden_size
-        self.embeddings = BertEmbeddings(vocab_size, hidden_size, max_seq_len, type_vocab_size,
-                                         dropout_rate)
+        E = embedding_size or hidden_size
+        self.embeddings = BertEmbeddings(vocab_size, E, max_seq_len, type_vocab_size, dropout_rate)
+        if E != hidden_size:
+            self.embeddings_project = nn.Linear(E, hidden_size)
         self.encoder = _Holder(layer=nn.ModuleList(
             BertLayer(num_heads, hidden_size, intermediate_size, dropout_rate, attn_dropout_rate)
             for _ in range(num_layers)
         ))
 
+    def _embed(self, ys, positions):
+        h = self.embeddings(ys, positions)
+        if hasattr(self, "embeddings_project"):
+            h = self.embeddings_project(h)
+        return h
+
     def forward(self, ys, ylens: Optional[torch.Tensor] = None, causal: bool = False):
         B, L = ys.shape
-        h = self.embeddings(ys, torch.arange(L, device=ys.device)[None, :])
+        h = self._embed(ys, torch.arange(L, device=ys.device)[None, :])
         mask = None
         if ylens is not None:
             mask = make_pad_mask(ylens.to(ys.device), L)[:, None, None, :]
@@ -270,7 +289,7 @@ class BertStack(nn.Module):
         full causal forward's hidden at `pos`; the caches are written in
         place."""
         pos = pos.long()
-        h = self.embeddings(tokens[:, None], pos[:, None])[:, 0]
+        h = self._embed(tokens[:, None], pos[:, None])[:, 0]
         index = cache_write_index(pos, caches[0][0].shape[1])
         for i, layer in enumerate(self.encoder.layer):
             h, _, _ = layer.step(h, caches[i][0], caches[i][1], pos, index)
@@ -280,7 +299,7 @@ class BertStack(nn.Module):
         """`step` over (B, W) beams with physical-slot caches and the
         ancestor table (see BertSelfAttention.step_indirect); every layer
         runs as one fused kernel launch when `FUSED_INDIRECT_STEP` says so."""
-        h = self.embeddings(tokens[..., None], pos[..., None])[..., 0, :]
+        h = self._embed(tokens[..., None], pos[..., None])[..., 0, :]
         fused = bool(FUSED_INDIRECT_STEP)  # None, auto, is the dense route
         index = cache_write_index(pos.reshape(-1), caches[0][0].shape[2])
         step_pos = pos.to(torch.int32) if fused else pos.long()  # as the kernel reads it
@@ -310,15 +329,50 @@ class BertMLMHead(nn.Module):
         return self.predictions.decoder(h)
 
 
-IGNORE_ID = -100
+class ElectraGeneratorHead(nn.Module):
+    """dense (hidden -> embedding size) + gelu + LN, then the vocabulary
+    projection (bert.py:367-376; `generator_predictions.{dense, LayerNorm}`,
+    `generator_lm_head`).  The generator model hangs its stack on the same
+    module as `electra`, so that its names are the reference's."""
+
+    def __init__(self, hidden_size: int, embedding_size: int, vocab_size: int):
+        super().__init__()
+        self.generator_predictions = _Holder(dense=nn.Linear(hidden_size, embedding_size),
+                                             LayerNorm=nn.LayerNorm(embedding_size, eps=LN_EPS))
+        self.generator_lm_head = nn.Linear(embedding_size, vocab_size)
+
+    def forward(self, h):
+        p = self.generator_predictions
+        return self.generator_lm_head(p.LayerNorm(F.gelu(p.dense(h))))
 
 
-def mlm_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_id: int = IGNORE_ID) -> torch.Tensor:
-    """Mean cross-entropy over the labels that are not `ignore_id`
-    (bert.py:389-396, torch `CrossEntropyLoss`'s default), 0 where there
-    is none."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    valid = labels != ignore_id
-    tgt = torch.where(valid, labels, torch.zeros_like(labels)).long()
-    ce = -torch.gather(logp, -1, tgt[..., None])[..., 0]
-    return torch.where(valid, ce, torch.zeros_like(ce)).sum() / valid.sum().clamp(min=1)
+class ElectraDiscriminatorHead(nn.Module):
+    """dense + gelu, then one logit a position (bert.py:379-386;
+    `discriminator_predictions.{dense, dense_prediction}`).  The
+    discriminator model hangs its stack on the same module as `electra`."""
+
+    def __init__(self, hidden_size: int):
+        super().__init__()
+        self.discriminator_predictions = _Holder(dense=nn.Linear(hidden_size, hidden_size),
+                                                 dense_prediction=nn.Linear(hidden_size, 1))
+
+    def forward(self, h):
+        p = self.discriminator_predictions
+        return p.dense_prediction(F.gelu(p.dense(h)))[..., 0]
+
+
+# the masked-LM loss under its name in the JAX package's bert.py (:389-396)
+mlm_loss = masked_lm_loss
+
+
+def disc_bce_loss(logits: torch.Tensor, labels: torch.Tensor, ylens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """BCE with logits over the positions before `ylens` (bert.py:399-410,
+    emoASR `modeling_electra.py:527-535`), their mean; the mean over every
+    position without `ylens`."""
+    x = logits.float()
+    lab = labels.float()
+    bce = -(lab * F.logsigmoid(x) + (1.0 - lab) * F.logsigmoid(-x))
+    if ylens is None:
+        return bce.mean()
+    valid = make_pad_mask(ylens.to(x.device), x.shape[1])
+    return torch.where(valid, bce, torch.zeros_like(bce)).sum() / valid.sum().clamp(min=1)

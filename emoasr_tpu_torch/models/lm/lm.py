@@ -1,8 +1,8 @@
-"""Language models with a unified facade (PyTorch port of the Transformer,
-BERT and RNN LMs of `emoasr_tpu/models/lm/lm.py`).
+"""Language models with a unified facade (PyTorch port of
+`emoasr_tpu/models/lm/lm.py`).
 
-Parity targets: emoASR `lm/modeling/{transformer,bert,rnn}.py` and the `LM`
-facade (`lm/modeling/lm.py:22-66`):
+Parity targets: emoASR `lm/modeling/{transformer,bert,rnn,electra,p2w}.py`
+and the `LM` facade (`lm/modeling/lm.py:22-66`):
 
 - `TransformerLM`: a BERT stack with a causal mask under `transformer.`
   (`transformer.bert.*`, `transformer.cls.predictions.*`); its stateless
@@ -17,26 +17,56 @@ facade (`lm/modeling/lm.py:22-66`):
   through `ops/lstm.py::lstm_scan`, K8 on the card for 8 steps or more),
   dropout, output projection; a one-token stateful `predict` from each
   row's last valid token; `score` with the Transformer LM's semantics.
+- `ELECTRAModel` (`gmodel.*`, `dmodel.*`, electra.py:33-133): a generator
+  (masked LM) and a discriminator, each a BERT stack with an embedding
+  projection; training samples the generator at the masked positions
+  (`sample_categorical`, from the `torch.Generator` the caller passes in),
+  detaches the sample, and adds `electra_disc_weight` times the
+  discriminator's BCE on "replaced" to the generator's loss; `score` is
+  minus the sum of the discriminator's sigmoid over the valid positions;
+  `predict` is the generator's log-probs at each row's last position.
+- `P2W` (`encoder.*`, `decoder.*`, p2w.py:20-107): a phone encoder (the
+  Transformer encoder with the `embed` input layer, K4 with
+  `enc_fused_attn`) and a word decoder: autoregressive (`ptransformer`,
+  `ylens - 1` into the decoder), CMLM (`pbert`, pad-only mask, masked-LM
+  loss) or CTC (`pctc`, with greedy decoding).
+- `PELECTRAModel` (`gmodel.encoder.*`, `gmodel.decoder.*`, `dmodel.*`,
+  electra.py:136-233): a CMLM P2W generator and a BERT discriminator.
 
-Training (`labels` given) returns (loss, {"loss_total": loss}), the mean
-cross-entropy over the labels that are not -100 (`bert.py::mlm_loss`).
-ELECTRA, P-ELECTRA and the phone-to-word types raise `NotImplementedError`
-until slice 6b (ROADMAP.md §1).
+Training (`labels` given) returns (loss, loss_dict); the `*-disc` types
+train the discriminator alone on ASR error labels (`forward_disc`).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from emoasr_tpu_torch.config import ExpConfig
-from emoasr_tpu_torch.models.lm.bert import BertMLMHead, BertStack, _Holder, mlm_loss
+from emoasr_tpu_torch.models.decoders.ctc import CTCDecoder
+from emoasr_tpu_torch.models.decoders.transformer import TransformerDecoder
+from emoasr_tpu_torch.models.encoders import TransformerEncoder
+from emoasr_tpu_torch.models.layers import make_pad_mask
+from emoasr_tpu_torch.models.lm.bert import (
+    BertMLMHead,
+    BertStack,
+    ElectraDiscriminatorHead,
+    ElectraGeneratorHead,
+    _Holder,
+    disc_bce_loss,
+    mlm_loss,
+)
 from emoasr_tpu_torch.ops.lstm import MultiLayerLSTM
 
-SLICE_6B = "(ROADMAP.md §1, slice 6b: ELECTRA, P-ELECTRA and the phone-to-word LMs)"
-LM_TYPES_6B = ("electra", "electra-disc", "pelectra", "pelectra-disc", "ptransformer", "pbert", "pctc")
+ELECTRA_TYPES = ("electra", "electra-disc")
+PELECTRA_TYPES = ("pelectra", "pelectra-disc")
+P2W_TYPES = ("ptransformer", "pbert", "pctc")
+DISC_TYPES = ("electra-disc", "pelectra-disc")
+# the types whose batches carry phones (`ps`, `plens`)
+PHONE_TYPES = P2W_TYPES + PELECTRA_TYPES
+LM_TYPES = ("transformer", "bert", "rnn") + ELECTRA_TYPES + PELECTRA_TYPES + P2W_TYPES
 
 # reference checkpoint entries an LM of this package does not use
 POOLER = "bert.pooler."
@@ -227,6 +257,214 @@ class RNNLM(nn.Module):
         return _next_token_score(torch.log_softmax(self.logits(ys)[0].float(), dim=-1), ys, ylens)
 
 
+
+def _gather_last(h: torch.Tensor, ylens: torch.Tensor) -> torch.Tensor:
+    """(B, L, D), (B,) -> (B, D) at position ylen - 1."""
+    idx = (ylens.to(h.device).long() - 1)[:, None, None].expand(-1, 1, h.shape[-1])
+    return torch.gather(h, 1, idx)[:, 0]
+
+
+def sample_categorical(logits: torch.Tensor, generator: Optional[torch.Generator] = None,
+                       temp: float = 1.0) -> torch.Tensor:
+    """One draw from softmax(logits / temp) over the last axis, by the
+    Gumbel-max rule from `generator`'s uniforms (electra.py:20-30; temp 0
+    is the argmax)."""
+    if temp == 0.0:
+        return torch.argmax(logits, dim=-1)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+    return torch.argmax(logits.float() / temp + gumbel, dim=-1)
+
+
+def _electra_stack(cfg: ExpConfig, part: str) -> BertStack:
+    g = lambda k: getattr(cfg, f"{part}_{k}")  # noqa: E731
+    return BertStack(
+        vocab_size=cfg.vocab_size, hidden_size=g("hidden_size"), num_layers=g("num_layers"),
+        num_heads=g("num_attention_heads"), intermediate_size=g("intermediate_size"),
+        max_seq_len=cfg.max_seq_len, embedding_size=g("embedding_size"),
+    )
+
+
+def _electra_discriminator(cfg: ExpConfig) -> ElectraDiscriminatorHead:
+    """`dmodel`: the head, with the discriminator's stack as `electra`."""
+    dmodel = ElectraDiscriminatorHead(cfg.disc_hidden_size)
+    dmodel.electra = _electra_stack(cfg, "disc")
+    return dmodel
+
+
+class _Discriminated(nn.Module):
+    """What ELECTRA and P-ELECTRA share: the discriminator (`dmodel`), its
+    joint loss with a generator's, the `*-disc` training and `score`."""
+
+    def discriminator(self, ys, ylens):
+        """(B, L) logits: "this token was replaced"."""
+        return self.dmodel(self.dmodel.electra(ys, ylens, causal=False))
+
+    def joint(self, gloss, ys, ylens, labels, generated):
+        """(loss, loss_dict) of one ELECTRA step given the generator's loss
+        and the (detached) tokens it produced (electra.py:71-113): a token
+        counts as replaced where `generated` differs from the original."""
+        masked = labels != -100
+        original = torch.where(masked, labels, ys)
+        replaced = (generated != original).long()
+        dloss = disc_bce_loss(self.discriminator(generated, ylens), replaced, ylens)
+        loss = gloss + self.cfg.electra_disc_weight * dloss
+        B = ys.shape[0]
+        return loss, {
+            "loss_total": loss,
+            "loss_gen": gloss,
+            "loss_disc": dloss,
+            "num_replaced": replaced.sum() / B,
+            "num_masked": masked.sum() / B,
+        }
+
+    def sample_replacements(self, glogits, ys, labels, generator=None):
+        """The generator's draws at the masked positions, `ys` elsewhere,
+        detached (the JAX package's `stop_gradient`)."""
+        with torch.no_grad():
+            masked = labels != -100
+            sample = sample_categorical(glogits.detach(), generator)
+            return torch.where(masked, sample, ys.long())
+
+    def forward_disc(self, ys, ylens=None, error_labels=None):
+        """Discriminator-only training on ASR error labels ("*-disc")."""
+        loss = disc_bce_loss(self.discriminator(ys, ylens), error_labels, ylens)
+        return loss, {"loss_total": loss}
+
+    def zero_states(self, bs: int):
+        return None
+
+    def score(self, ys, ylens):
+        """-sum sigmoid(discriminator logits) over the valid positions (B,)
+        (electra.py:116-132)."""
+        probs = torch.sigmoid(self.discriminator(ys, ylens).float())
+        valid = make_pad_mask(ylens.to(ys.device), ys.shape[1])
+        return -torch.where(valid, probs, torch.zeros_like(probs)).sum(dim=1)
+
+
+class ELECTRAModel(_Discriminated):
+    def __init__(self, cfg: ExpConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.gmodel = ElectraGeneratorHead(cfg.gen_hidden_size, cfg.gen_embedding_size or cfg.gen_hidden_size,
+                                           cfg.vocab_size)
+        self.gmodel.electra = _electra_stack(cfg, "gen")
+        self.dmodel = _electra_discriminator(cfg)
+
+    def generator_logits(self, ys, ylens):
+        return self.gmodel(self.gmodel.electra(ys, ylens, causal=False))
+
+    def forward(self, ys, ylens=None, labels=None, ps=None, plens=None, generator=None):
+        """Joint generator + discriminator training (electra.py:71-113);
+        `generator` draws the replacements."""
+        glogits = self.generator_logits(ys, ylens)
+        gloss = mlm_loss(glogits, labels)
+        return self.joint(gloss, ys, ylens, labels, self.sample_replacements(glogits, ys, labels, generator))
+
+    def predict(self, ys, ylens, states=None):
+        """The generator's log-probs at each row's last position (B, V); the
+        head is position-wise, so it runs there only."""
+        h = _gather_last(self.gmodel.electra(ys, ylens, causal=False), ylens)
+        return torch.log_softmax(self.gmodel(h).float(), dim=-1), states
+
+
+class P2W(nn.Module):
+    """Phone-to-word model (PC-MLM family): a phone encoder and a word
+    decoder of type `decoder_type` (transformer | bert | ctc; from
+    `lm_type` when None)."""
+
+    def __init__(self, cfg: ExpConfig, decoder_type: Optional[str] = None):
+        super().__init__()
+        self.cfg = cfg
+        dt = decoder_type or {"ptransformer": "transformer", "pbert": "bert", "pctc": "ctc"}[cfg.lm_type]
+        self.decoder_type = dt
+        self.encoder = TransformerEncoder(cfg.replace(input_layer="embed"))
+        if dt == "transformer":
+            self.decoder = TransformerDecoder(cfg)
+        elif dt == "bert":
+            self.decoder = TransformerDecoder(cfg, cmlm=True)
+        elif dt == "ctc":
+            self.decoder = CTCDecoder(cfg)
+        else:
+            raise ValueError(dt)
+
+    def forward(self, ys=None, ylens=None, labels=None, ps=None, plens=None, return_logits: bool = False):
+        """The logits without `labels` (the CTC decoder: always its loss),
+        else (loss, loss_dict[, logits]).  The autoregressive decoder gets
+        `ylens - 1`: it builds its causal mask over `ylens + 1`
+        (p2w.py:85-87)."""
+        eouts, elens, _ = self.encoder(ps, plens)
+        if self.decoder_type == "ctc":
+            loss, loss_dict, logits = self.decoder(eouts, elens, ys=ys, ylens=ylens)
+            return (loss, loss_dict, logits) if return_logits else (loss, loss_dict)
+        dec_ylens = ylens - 1 if self.decoder_type == "transformer" else ylens
+        if labels is None:
+            return self.decoder(eouts, elens, None, ys, dec_ylens, ys_in=ys, ys_out=None)
+        loss, loss_dict, logits = self.decoder(eouts, elens, None, ys, dec_ylens, ys_in=ys, ys_out=labels)
+        return (loss, loss_dict, logits) if return_logits else (loss, loss_dict)
+
+    def predict(self, ys, ylens, ps=None, plens=None):
+        """Fill-in log-probs conditioned on phones (B, L, V) (for error
+        correction)."""
+        eouts, elens, _ = self.encoder(ps, plens)
+        logits = self.decoder(eouts, elens, None, ys, ylens, ys_in=ys, ys_out=None)
+        return torch.log_softmax(logits.float(), dim=-1), None
+
+    def decode_greedy(self, ps, plens):
+        """The cascade's phone -> word path (p2w.py:101-107), CTC only."""
+        if self.decoder_type != "ctc":
+            raise NotImplementedError("P2W greedy decoding is the CTC decoder's (lm_type 'pctc')")
+        eouts, elens, _ = self.encoder(ps, plens)
+        hyps, hyp_lens, _, _ = self.decoder.greedy(eouts, elens)
+        return hyps, hyp_lens
+
+
+class PELECTRAModel(_Discriminated):
+    """Phone-conditioned ELECTRA: a CMLM P2W generator, a BERT
+    discriminator."""
+
+    def __init__(self, cfg: ExpConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.gmodel = P2W(cfg, decoder_type="bert")
+        self.dmodel = _electra_discriminator(cfg)
+
+    def forward(self, ys, ylens=None, labels=None, ps=None, plens=None, generator=None):
+        gloss, _, glogits = self.gmodel(ys, ylens, labels, ps, plens, return_logits=True)
+        return self.joint(gloss, ys, ylens, labels, self.sample_replacements(glogits, ys, labels, generator))
+
+
+def p2w_pseudo_log_likelihood(model: P2W, ys: torch.Tensor, ylens: torch.Tensor, ps: torch.Tensor,
+                              plens: torch.Tensor, mask_id: int) -> torch.Tensor:
+    """(B, L) log p(ys[b, p] | ys[b] with position p masked, phones ps[b]),
+    0 at p >= ylens[b]: the JAX package's `test_ppl._masked_nll` for a CMLM
+    P2W (`pbert`), which repeats the phones L times into one (B L, L) batch.
+
+    The phones are encoded once an utterance; the masked copies of the
+    valid positions go through the decoder in chunks of about
+    PLL_CHUNK_TOKENS word tokens, each over its utterance's encoder output,
+    and the output layer runs at each copy's masked position only."""
+    B, L = ys.shape
+    dev = ys.device
+    ylens = ylens.to(dev).long()
+    eouts, elens, _ = model.encoder(ps, plens)
+    emask = make_pad_mask(elens.to(dev), eouts.shape[1])[:, None, None, :]
+    dec = model.decoder
+    out = torch.zeros((B, L), dtype=torch.float32, device=dev)
+    b_idx, p_idx = torch.nonzero(torch.arange(L, device=dev)[None, :] < ylens[:, None], as_tuple=True)
+    per_chunk = max(1, PLL_CHUNK_TOKENS // L)
+    for i in range(0, b_idx.numel(), per_chunk):
+        b, p = b_idx[i:i + per_chunk], p_idx[i:i + per_chunk]
+        n = torch.arange(b.numel(), device=dev)
+        masked = ys[b].clone()
+        masked[n, p] = mask_id
+        ymask = make_pad_mask(ylens[b], L)[:, None, None, :]
+        h = dec._decode_stack(masked, ymask, eouts[b], emask[b])
+        logp = torch.log_softmax(dec.output(dec.norm(h[n, p])).float(), dim=-1)
+        out[b, p] = logp[n, ys[b, p].long()]
+    return out
+
+
 class LM(nn.Module):
     """Dispatching facade (lm/modeling/lm.py:22-66); the submodule `lm`
     gives reference checkpoints their `lm.` prefix."""
@@ -241,13 +479,26 @@ class LM(nn.Module):
             self.lm = BERTMaskedLM(cfg)
         elif t == "rnn":
             self.lm = RNNLM(cfg)
-        elif t in LM_TYPES_6B:
-            raise NotImplementedError(f"lm_type={t!r} is not ported yet {SLICE_6B}")
+        elif t in ELECTRA_TYPES:
+            self.lm = ELECTRAModel(cfg)
+        elif t in PELECTRA_TYPES:
+            self.lm = PELECTRAModel(cfg)
+        elif t in P2W_TYPES:
+            self.lm = P2W(cfg)
         else:
             raise ValueError(t)
 
-    def forward(self, ys, ylens=None, labels=None, ps=None, plens=None):
+    def forward(self, ys, ylens=None, labels=None, ps=None, plens=None, generator=None, error_labels=None):
+        """`generator` draws ELECTRA's and P-ELECTRA's replacements (the
+        other types draw nothing); with `error_labels`, `forward_disc`."""
+        if error_labels is not None:
+            return self.forward_disc(ys, ylens, error_labels)
+        if isinstance(self.lm, _Discriminated):
+            return self.lm(ys, ylens, labels, ps, plens, generator=generator)
         return self.lm(ys, ylens, labels, ps, plens)
+
+    def forward_disc(self, ys, ylens=None, error_labels=None):
+        return self.lm.forward_disc(ys, ylens, error_labels)
 
     def zero_states(self, bs: int):
         return self.lm.zero_states(bs)

@@ -40,7 +40,7 @@ accumulates in float32 and is rounded once; the gradients of h_dec, w and
 b add up over the time chunks in bf16.
 
 `rnnt_forced_align` waits for the distillation slice (ROADMAP.md §1,
-slice 7).
+slice 7b).
 """
 
 from __future__ import annotations

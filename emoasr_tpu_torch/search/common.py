@@ -19,6 +19,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from emoasr_tpu_torch.models.lm.lm import PHONE_TYPES
 from emoasr_tpu_torch.ops.topk import topk_lastdim_kernel, topk_plain
 
 DEAD = -1e30  # score of dead/pruned beam slots
@@ -128,11 +129,23 @@ class LMFusion(NamedTuple):
 LM_FUSION_MODES = ("auto", "stateless", "cached", "indirect")
 
 
+def check_lm_fusion_type(lm_type: Optional[str]) -> None:
+    """Refuse, with a `ValueError` that names the type, an LM that shallow
+    fusion cannot take."""
+    if lm_type == "bert":
+        raise ValueError("a masked LM (lm_type 'bert') has no next-token distribution for shallow fusion")
+    if lm_type in PHONE_TYPES:
+        raise ValueError(f"lm_type {lm_type!r} is conditioned on phones, which a beam does not have: "
+                         "no shallow fusion")
+    if lm_type not in ("transformer", "rnn", "electra", "electra-disc"):
+        raise ValueError(f"lm_type={lm_type!r}")
+
+
 def make_lm_fusion(lm_model, weight: float, max_len: Optional[int] = None,
                    mode: str = "auto") -> LMFusion:
-    """An LMFusion around a Transformer or RNN LM (`models/lm/lm.py`, the
-    facade or the inner module), on the device and in the dtype of its
-    parameters.
+    """An LMFusion around a Transformer, RNN or ELECTRA LM
+    (`models/lm/lm.py`, the facade or the inner module), on the device and
+    in the dtype of its parameters.
 
     RNN LM (`search/common.py:249-279` of the JAX package): the beams carry
     its states as (B, W, layers, 2, H), (layers, 2, B W, H) to the LM; each
@@ -153,21 +166,24 @@ def make_lm_fusion(lm_model, weight: float, max_len: Optional[int] = None,
       attention beam takes: no per-step cache gather.
 
     "auto" selects "indirect".  Positions are clamped to the cache:
-    min(max(lens - 1, 0), Lc - 1).  A masked LM (BERT) has no next-token
-    distribution to fuse; the other LM types wait for slice 6b.
+    min(max(lens - 1, 0), Lc - 1).
+
+    ELECTRA (`electra`, `electra-disc`) fuses by the stateless route, its
+    `predict` being the generator's log-probs at each prefix's last
+    position, as the JAX package's stateless route calls the facade's
+    `predict` (`search/common.py:250-260`).  Refused with a `ValueError`: a
+    masked LM (BERT) has no next-token distribution; the phone-conditioned
+    types need phones that a beam does not have (the JAX adapter passes
+    its states as the phones and fails; P-ELECTRA has no `predict`).
     """
     if mode not in LM_FUSION_MODES:
         raise ValueError(f"LM fusion mode {mode!r}: one of {LM_FUSION_MODES}")
     lm_type = getattr(getattr(lm_model, "cfg", None), "lm_type", None)
+    check_lm_fusion_type(lm_type)
     if lm_type == "rnn":
         return _rnn_lm_fusion(lm_model, weight)
-    if lm_type == "bert":
-        raise ValueError("a masked LM (lm_type 'bert') has no next-token distribution for shallow fusion")
-    if lm_type != "transformer":
-        raise NotImplementedError(
-            f"LM fusion for lm_type={lm_type!r} comes with the LM package's second half "
-            "(ROADMAP.md §1, slice 6b)"
-        )
+    if lm_type in ("electra", "electra-disc"):
+        mode = "stateless"
     if mode == "auto":
         mode = "indirect"
     param = next(p for p in lm_model.parameters() if p.is_floating_point())

@@ -32,6 +32,7 @@ from emoasr_tpu_torch.data.asr_dataset import ASRDataset
 from emoasr_tpu_torch.eval.decode import build_decode_fn
 from emoasr_tpu_torch.eval.wer import compute_wers
 from emoasr_tpu_torch.models.asr import ASR
+from emoasr_tpu_torch.models.layers import set_dropout_generator
 from emoasr_tpu_torch.train import checkpoint as ckpt
 from emoasr_tpu_torch.train.optim import build_optimizer
 from emoasr_tpu_torch.train.step import TrainState, make_train_step, preprocess
@@ -185,7 +186,7 @@ def train(conf_path: str, resume: bool = False, cfg: Optional[ExpConfig] = None,
     sa_gen.manual_seed(cfg.seed)
     do_gen = torch.Generator()
     do_gen.manual_seed(cfg.seed)
-    model.set_dropout_generator(do_gen)
+    set_dropout_generator(model, do_gen)
     num_params = sum(p.numel() for p in model.parameters())
     logging.info(f"ASR model #parameters: {num_params}")
 

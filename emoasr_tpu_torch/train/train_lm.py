@@ -1,18 +1,24 @@
-"""LM training loop + CLI (PyTorch port of `emoasr_tpu/train/train_lm.py`
-for the Transformer, BERT and RNN LMs).
+"""LM / P2W training loop + CLI (PyTorch port of `emoasr_tpu/train/train_lm.py`).
 
 Parity target: emoASR `lm/train_lm.py:40-327`: the ASR trainer's skeleton
 with AdamW and its no-decay parameter group (:188-195), total steps from
 `train_size` for `lindecay` and `warmup_proportion` (:183-186), sharded
 train directories whose files are shuffled every epoch (:217-253),
-`model.ep{N}` / `optim.ep{N}` every `save_step` epochs, and `--resume`.
+`model.ep{N}` / `optim.ep{N}` every `save_step` epochs, and `--resume`;
+P2W batches (`P2WDataset`: `ps`, `plens`) for the phone-conditioned types
+(:165-168), and discriminator-only training (`forward_disc` on the
+`error_labels` column) for the `*-disc` types.
 
 The step is `train/step.py::make_train_step` with the LM's loss: gradient
 accumulation, clip by global norm, and a non-finite micro-step that moves
 neither the weights nor the moments nor the open accumulation (the step
 counter still advances), as the JAX step does.  Dropout (the BERT stack's
-0.1, the RNN LM's `dropout_rate`) is on in training.  The phone-to-word and
-discriminator (`*-disc`) types raise, naming slice 6b.
+0.1, the RNN LM's `dropout_rate`, the P2W encoder's and decoder's rates) is
+on in training; `nn.Dropout` draws from PyTorch's global generator, the
+fused attention's dropout seeds (a P2W phone encoder with `enc_fused_attn`)
+from a generator of their own, and ELECTRA's and P-ELECTRA's replacements
+from a sampling generator that the step is given; all three are seeded from
+`seed`.
 
 Usage: `python -m emoasr_tpu_torch.train.train_lm -conf lm.yaml [--resume] [--cpu]`
 (on the GPU unless `--cpu` is given).
@@ -30,8 +36,9 @@ import numpy as np
 import torch
 
 from emoasr_tpu_torch.config import ExpConfig, load_config
-from emoasr_tpu_torch.data.lm_dataset import LMDataset
-from emoasr_tpu_torch.models.lm.lm import LM, LM_TYPES_6B, SLICE_6B, load_lm_state_dict
+from emoasr_tpu_torch.data.lm_dataset import LMDataset, P2WDataset
+from emoasr_tpu_torch.models.layers import set_dropout_generator
+from emoasr_tpu_torch.models.lm.lm import DISC_TYPES, LM, LM_TYPES, PHONE_TYPES, load_lm_state_dict
 from emoasr_tpu_torch.train import checkpoint as ckpt
 from emoasr_tpu_torch.train.loop import prefetch_to_device
 from emoasr_tpu_torch.train.optim import build_optimizer
@@ -41,28 +48,41 @@ from emoasr_tpu_torch.utils.log import setup_logging
 from emoasr_tpu_torch.utils.paths import get_log_save_paths, get_resume_paths
 from emoasr_tpu_torch.utils.precision import cast_params_for_compute, dtype_of, is_half
 
-LM_TYPES = ("transformer", "bert", "rnn")
+def is_p2w(cfg: ExpConfig) -> bool:
+    return cfg.lm_type in ("ptransformer", "pbert", "pctc")
 
 
 def lm_loss(model: LM, cfg: ExpConfig, batch: Dict, generator=None, train: bool = True):
-    """(loss, loss_dict) of one LM batch (`ys_in`, `ylens`, `labels`), the
-    forward in `cfg.compute_dtype` on a cast copy of the float32 masters
-    under a half policy (as `train/step.py::compute_loss`)."""
-    args = (batch["ys_in"], batch["ylens"], batch.get("labels"))
+    """(loss, loss_dict) of one LM batch (`ys_in`, `ylens`, and `labels`,
+    `ps`, `plens` or, for the `*-disc` types, `error_labels`), the forward
+    in `cfg.compute_dtype` on a cast copy of the float32 masters under a
+    half policy (as `train/step.py::compute_loss`); `generator` draws
+    ELECTRA's and P-ELECTRA's replacements."""
+    if cfg.lm_type in DISC_TYPES:
+        args, kw = (batch["ys_in"], batch["ylens"]), {"error_labels": batch["error_labels"]}
+    else:
+        args = (batch["ys_in"], batch["ylens"], batch.get("labels"), batch.get("ps"), batch.get("plens"))
+        kw = {"generator": generator}
     if not is_half(cfg):
-        return model(*args)
-    return torch.func.functional_call(model, cast_params_for_compute(model, dtype_of(cfg)), args)
+        return model(*args, **kw)
+    return torch.func.functional_call(model, cast_params_for_compute(model, dtype_of(cfg)), args, kw)
 
 
 def check_lm_type(cfg: ExpConfig) -> None:
-    if cfg.lm_type in LM_TYPES_6B:
-        raise NotImplementedError(f"training lm_type={cfg.lm_type!r} comes with slice 6b {SLICE_6B}")
     if cfg.lm_type not in LM_TYPES:
-        raise ValueError(f"lm_type={cfg.lm_type!r}: one of {LM_TYPES + LM_TYPES_6B}")
+        raise ValueError(f"lm_type={cfg.lm_type!r}: one of {LM_TYPES}")
+
+
+def make_dataset(cfg: ExpConfig, path: str, phase: str, seed: int = 0):
+    """`P2WDataset` for the phone-conditioned types, else `LMDataset`."""
+    if cfg.lm_type in PHONE_TYPES and cfg.lm_type != "pelectra-disc":
+        return P2WDataset(cfg, path, phase=phase, seed=seed)
+    return LMDataset(cfg, path, phase=phase, seed=seed)
 
 
 def make_lm_train_step(cfg: ExpConfig, num_total_steps: Optional[int] = None):
-    """step_fn(state, batch) -> metrics (`train_lm.py:41-108`)."""
+    """step_fn(state, batch, generator=None) -> metrics
+    (`train_lm.py:41-108`); `generator` draws ELECTRA's replacements."""
     check_lm_type(cfg)
     return make_train_step(cfg, num_total_steps, loss_fn=lm_loss)
 
@@ -100,8 +120,13 @@ def train(conf_path: str, resume: bool = False, cfg: Optional[ExpConfig] = None,
     if num_total_steps is not None:
         logging.info(f"total steps: {num_total_steps}")
 
-    torch.manual_seed(cfg.seed)  # the initial weights and every dropout draw
+    torch.manual_seed(cfg.seed)  # the initial weights and `nn.Dropout`'s draws
     model = LM(cfg).to(device)
+    sample_gen = torch.Generator(device=device)
+    sample_gen.manual_seed(cfg.seed)
+    do_gen = torch.Generator()
+    do_gen.manual_seed(cfg.seed)
+    set_dropout_generator(model, do_gen)  # a P2W phone encoder's fused attention
     logging.info(f"LM model #parameters: {sum(p.numel() for p in model.parameters())}")
     state = TrainState(model=model, optimizer=build_optimizer(cfg, model, use_adamw=True))
 
@@ -122,9 +147,9 @@ def train(conf_path: str, resume: bool = False, cfg: Optional[ExpConfig] = None,
         n_steps = 0
         accum: Dict[str, torch.Tensor] = {}
         for path in _train_files(cfg, epoch):
-            dataset = LMDataset(cfg, path, phase="train", seed=cfg.seed + epoch)
+            dataset = make_dataset(cfg, path, "train", cfg.seed + epoch)
             for batch in prefetch_to_device(dataset.batches(seed=cfg.seed + epoch), device):
-                metrics = step_fn(state, batch)
+                metrics = step_fn(state, batch, sample_gen)
                 lr = metrics.pop("lr")
                 metrics.pop("grad_finite")
                 n_steps += 1

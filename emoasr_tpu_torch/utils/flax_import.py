@@ -2,11 +2,12 @@
 
 `asr_state_dict(params, cfg, batch_stats)` is the inverse of
 `emoasr_tpu/utils/torch_import.py::asr_model` for the models ported so far
-(Transformer or Conformer encoder with the conv2d or linear input layer;
+(Transformer or Conformer encoder with the conv2d, embed or linear input layer;
 CTC decoder with its optional phone head, Transformer decoder or RNN-T
 decoder, each with its optional auxiliary CTC head), and
-`lm_state_dict(params, lm_cfg)` that of `torch_import.py::bert_masked_lm`
-and `rnnlm` for the Transformer, BERT and RNN LMs.  It takes the flax parameter tree (and, for a
+`lm_state_dict(params, lm_cfg)` that of `torch_import.py::bert_masked_lm`,
+`rnnlm` and `electra_model` and of the encoder and decoder importers that
+the phone-to-word models reuse, for every LM type.  It takes the flax parameter tree (and, for a
 Conformer, the flax `batch_stats` collection) as nested dicts of numpy
 arrays and needs neither JAX nor flax.  A flax gradient tree has the
 parameters' structure, so it maps the same way and gradients can be
@@ -99,6 +100,8 @@ def transformer_encoder_state_dict(enc: Mapping, num_layers: int, prefix: str = 
         _conv2d(sd, f"{prefix}conv.conv.0", conv["conv1"])
         _conv2d(sd, f"{prefix}conv.conv.2", conv["conv2"])
         _dense(sd, f"{prefix}conv.output", conv["output"])
+    elif "embed" in enc:
+        sd[f"{prefix}embed.weight"] = _t(enc["embed"]["embedding"])
     else:
         _dense(sd, f"{prefix}linear", enc["linear"])
     for i in range(num_layers):
@@ -157,7 +160,7 @@ def rnnt_decoder_state_dict(dec: Mapping, num_layers: int, prefix: str = "") -> 
 def asr_state_dict(params: Mapping, cfg, batch_stats: Optional[Mapping] = None) -> SD:
     """flax `{"encoder": ..., "decoder": ...}` (+ the `batch_stats`
     collection of a Conformer) -> port `state_dict`."""
-    if cfg.encoder_type not in ("transformer", "conformer") or cfg.input_layer not in ("conv2d", "linear"):
+    if cfg.encoder_type not in ("transformer", "conformer"):
         raise NotImplementedError(
             f"encoder {cfg.encoder_type}/{cfg.input_layer} is not ported yet (ROADMAP.md §1)"
         )
@@ -188,15 +191,20 @@ def _bert_layer(sd: SD, p: str, layer: Mapping) -> None:
     _layer_norm(sd, f"{p}.output.LayerNorm", layer["output_norm"])
 
 
-def _bert_lm_state_dict(params: Mapping, num_layers: int, top: str) -> SD:
-    stack, head = params["stack"], params["head"]
-    p = f"{top}bert."
-    sd: SD = {}
+def _bert_stack(sd: SD, p: str, stack: Mapping, num_layers: int) -> None:
     for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
         sd[f"{p}embeddings.{name}.weight"] = _t(stack[name]["embedding"])
     _layer_norm(sd, f"{p}embeddings.LayerNorm", stack["emb_norm"])
+    if "embeddings_project" in stack:
+        _dense(sd, f"{p}embeddings_project", stack["embeddings_project"])
     for i in range(num_layers):
         _bert_layer(sd, f"{p}encoder.layer.{i}", stack[f"layers_{i}"])
+
+
+def _bert_lm_state_dict(params: Mapping, num_layers: int, top: str) -> SD:
+    stack, head = params["stack"], params["head"]
+    sd: SD = {}
+    _bert_stack(sd, f"{top}bert.", stack, num_layers)
     c = f"{top}cls.predictions."
     _dense(sd, f"{c}transform.dense", head["transform_dense"])
     _layer_norm(sd, f"{c}transform.LayerNorm", head["transform_norm"])
@@ -214,11 +222,33 @@ def lm_state_dict(params: Mapping, lm_cfg) -> SD:
       names the port's module gives it, `predictions.bias` and
       `predictions.decoder.bias`);
     - `rnn`: `embed.weight`, `rnns.{weight,bias}_{ih,hh}_l{k}` (one
-      multi-layer `nn.LSTM`; flax's `rnns/layer{k}`), `output.*`."""
+      multi-layer `nn.LSTM`; flax's `rnns/layer{k}`), `output.*`;
+    - `electra`, `electra-disc`: `gmodel.electra.*`,
+      `gmodel.generator_predictions.{dense,LayerNorm}.*`,
+      `gmodel.generator_lm_head.*`, `dmodel.electra.*`,
+      `dmodel.discriminator_predictions.{dense,dense_prediction}.*`;
+    - `ptransformer`, `pbert`, `pctc`: `encoder.*` (the embed input layer)
+      and `decoder.*`, as an ASR model's;
+    - `pelectra`, `pelectra-disc`: the P2W generator under `gmodel.` and
+      the discriminator under `dmodel.`."""
     params = params.get("lm", params)
     t = lm_cfg.lm_type
     if t in ("transformer", "bert"):
         return _bert_lm_state_dict(params, lm_cfg.num_layers, f"{t}.")
+    if t in ("electra", "electra-disc"):
+        sd = {}
+        _bert_stack(sd, "gmodel.electra.", params["gstack"], lm_cfg.gen_num_layers)
+        _dense(sd, "gmodel.generator_predictions.dense", params["ghead"]["dense"])
+        _layer_norm(sd, "gmodel.generator_predictions.LayerNorm", params["ghead"]["norm"])
+        _dense(sd, "gmodel.generator_lm_head", params["ghead"]["lm_head"])
+        sd.update(_discriminator_state_dict(params, lm_cfg))
+        return sd
+    if t in ("ptransformer", "pbert", "pctc"):
+        return _p2w_state_dict(params, lm_cfg, t)
+    if t in ("pelectra", "pelectra-disc"):
+        sd = {f"gmodel.{k}": v for k, v in _p2w_state_dict(params["gmodel"], lm_cfg, "pbert").items()}
+        sd.update(_discriminator_state_dict(params, lm_cfg))
+        return sd
     if t == "rnn":
         sd: SD = {"embed.weight": _t(params["embed"]["embedding"])}
         for k in range(lm_cfg.num_layers):
@@ -227,7 +257,21 @@ def lm_state_dict(params: Mapping, lm_cfg) -> SD:
                 sd[f"rnns.{name}_l{k}"] = _t(layer[name])
         _dense(sd, "output", params["output"])
         return sd
-    raise NotImplementedError(
-        f"lm_type={t!r} is not ported yet (ROADMAP.md §1, slice 6b: ELECTRA, P-ELECTRA and the "
-        "phone-to-word LMs)"
-    )
+    raise ValueError(f"lm_type={t!r}")
+
+
+def _discriminator_state_dict(params: Mapping, lm_cfg) -> SD:
+    sd: SD = {}
+    _bert_stack(sd, "dmodel.electra.", params["dstack"], lm_cfg.disc_num_layers)
+    _dense(sd, "dmodel.discriminator_predictions.dense", params["dhead"]["dense"])
+    _dense(sd, "dmodel.discriminator_predictions.dense_prediction", params["dhead"]["dense_prediction"])
+    return sd
+
+
+def _p2w_state_dict(params: Mapping, lm_cfg, lm_type: str) -> SD:
+    sd = transformer_encoder_state_dict(params["encoder"], lm_cfg.enc_num_layers, "encoder.")
+    if lm_type == "pctc":
+        sd.update(ctc_decoder_state_dict(params["decoder"], "decoder."))
+    else:
+        sd.update(transformer_decoder_state_dict(params["decoder"], lm_cfg.dec_num_layers, "decoder."))
+    return sd

@@ -58,7 +58,10 @@ def test_imports_no_jax_and_nothing_of_the_jax_package():
                 "emoasr_tpu_torch.ops.lm_step", "emoasr_tpu_torch.models.lm.bert",
                 "emoasr_tpu_torch.models.lm.lm", "emoasr_tpu_torch.ops.lstm", "emoasr_tpu_torch.ops.lstm_scan",
                 "emoasr_tpu_torch.ops.rnnt", "emoasr_tpu_torch.ops.rnnt_joint",
-                "emoasr_tpu_torch.models.decoders.rnnt", "emoasr_tpu_torch.search.rnnt_beam"):
+                "emoasr_tpu_torch.models.decoders.rnnt", "emoasr_tpu_torch.search.rnnt_beam",
+                "emoasr_tpu_torch.eval.rescore", "emoasr_tpu_torch.eval.correct",
+                "emoasr_tpu_torch.data.lm_dataset", "emoasr_tpu_torch.eval.test_ppl",
+                "emoasr_tpu_torch.train.train_lm"):
         assert mod in res["modules"]
 
 
@@ -142,23 +145,34 @@ def test_entry_points_raise_without_cuda(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             test_ppl.main(["-conf", str(lm_conf), "-ep", "1"])
         assert not os.path.exists(tmp_path / lm_type)
+    from emoasr_tpu_torch.eval import correct, rescore
+    for lm_type in ("pbert", "electra"):  # the LM trainer, rescoring and correction
+        lm_conf = tmp_path / f"{lm_type}.yaml"
+        lm_conf.write_text(f"lm_type: {lm_type}\nvocab_size: 10\n")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train_lm.main(["-conf", str(lm_conf)])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            rescore.main(["nbest.tsv", "-ref", "ref.tsv", "-lm_conf", str(lm_conf), "-lm_ep", "1"])
+        assert not os.path.exists(tmp_path / lm_type)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        correct.main(["-conf", str(conf), "-ep", "1", "--lm_conf", str(tmp_path / "pbert.yaml"), "--lm_ep", "1"])
 
 
 def test_lm_fusion_raises_and_names_its_slice(tmp_path):
-    """Shallow fusion takes the Transformer and RNN LMs and refuses BERT
-    (a masked LM has no next-token distribution); ELECTRA, P-ELECTRA and the
-    phone-to-word LMs wait for slice 6b and say so, from the LM facade, the
-    fusion adapter, the weight importer, the LM trainer and the eval CLI
-    (before it reads any checkpoint).  Without an LM, `with_weights` has no
-    LM term to weigh."""
+    """Shallow fusion takes the Transformer, RNN and ELECTRA LMs and refuses
+    BERT (a masked LM has no next-token distribution) and the
+    phone-conditioned types (a beam has no phones), naming the type, from
+    the fusion adapter and from the eval CLI before it reads any
+    checkpoint; the PPL CLI, the rescoring CLI and the correction CLI
+    refuse the types they cannot take the same way.  Every LM type builds
+    and has a weight import.  Without an LM, `with_weights` has no LM term
+    to weigh."""
     from emoasr_tpu_torch.config import config_from_dict
-    from emoasr_tpu_torch.eval import test_asr
+    from emoasr_tpu_torch.eval import correct, rescore, test_asr, test_ppl
     from emoasr_tpu_torch.eval.decode import build_decode_fn
     from emoasr_tpu_torch.models.asr import ASR
-    from emoasr_tpu_torch.models.lm.lm import LM
+    from emoasr_tpu_torch.models.lm.lm import LM, LM_TYPES
     from emoasr_tpu_torch.search.common import make_lm_fusion
-    from emoasr_tpu_torch.train import train_lm
-    from emoasr_tpu_torch.utils.flax_import import lm_state_dict
 
     cfg = config_from_dict(dict(
         feat_dim=20, enc_hidden_size=16, enc_num_attention_heads=2,
@@ -170,23 +184,38 @@ def test_lm_fusion_raises_and_names_its_slice(tmp_path):
                                  num_attention_heads=2, intermediate_size=32))
     with pytest.raises(ValueError, match="masked LM"):
         make_lm_fusion(LM(bert), 0.5)
-    for lm_type in ("electra", "ptransformer"):
-        lm_cfg = config_from_dict(dict(lm_type=lm_type, vocab_size=10, hidden_size=16, num_layers=1,
-                                       num_attention_heads=2, intermediate_size=32))
-        with pytest.raises(NotImplementedError, match="slice 6b"):
-            LM(lm_cfg)
-        with pytest.raises(NotImplementedError, match="slice 6b"):
-            make_lm_fusion(_WithCfg(lm_cfg), 0.5)
-        with pytest.raises(NotImplementedError, match="slice 6b"):
-            lm_state_dict({}, lm_cfg)
+    sizes = dict(vocab_size=10, hidden_size=16, num_layers=1, num_attention_heads=2, intermediate_size=32,
+                 src_vocab_size=8, enc_hidden_size=16, enc_num_attention_heads=2, enc_num_layers=1,
+                 enc_intermediate_size=32, dec_hidden_size=16, dec_num_attention_heads=2, dec_num_layers=1,
+                 dec_intermediate_size=32, gen_hidden_size=16, gen_num_attention_heads=2, gen_num_layers=1,
+                 gen_intermediate_size=32, disc_hidden_size=16, disc_num_attention_heads=2, disc_num_layers=1,
+                 disc_intermediate_size=32)
+    for lm_type in LM_TYPES:
+        assert LM(config_from_dict(dict(sizes, lm_type=lm_type))).lm.state_dict()
+    assert make_lm_fusion(LM(config_from_dict(dict(sizes, lm_type="electra"))), 0.5).init_states(1, 2) is None
+    for lm_type in ("ptransformer", "pbert", "pctc", "pelectra", "pelectra-disc"):
+        with pytest.raises(ValueError, match=lm_type):
+            make_lm_fusion(_WithCfg(config_from_dict(dict(sizes, lm_type=lm_type))), 0.5)
         lm_conf = tmp_path / f"{lm_type}.yaml"
         lm_conf.write_text(f"lm_type: {lm_type}\nvocab_size: 10\n")
-        with pytest.raises(NotImplementedError, match="slice 6b"):
-            train_lm.main(["-conf", str(lm_conf), "--cpu"])
         conf = tmp_path / "exp.yaml"
         conf.write_text(f"feat_dim: 20\nlm_weight: 0.3\nlm_conf: {lm_conf}\nlm_path: nowhere\n")
-        with pytest.raises(NotImplementedError, match="slice 6b"):
+        with pytest.raises(ValueError, match=lm_type):
             test_asr.main(["-conf", str(conf), "-ep", "1", "--cpu"])
+    for lm_type in ("electra", "electra-disc", "pelectra", "pelectra-disc", "pctc"):
+        lm_conf = tmp_path / f"{lm_type}.yaml"
+        lm_conf.write_text(f"lm_type: {lm_type}\nvocab_size: 10\n")
+        with pytest.raises(ValueError, match=lm_type):
+            test_ppl.main(["-conf", str(lm_conf), "-ep", "1", "--cpu"])
+    for lm_type in ("electra", "pelectra", "ptransformer"):
+        lm_conf = tmp_path / f"{lm_type}.yaml"
+        with pytest.raises(ValueError, match=lm_type):
+            correct.main(["-conf", str(tmp_path / "exp.yaml"), "-ep", "1", "--lm_conf", str(lm_conf),
+                          "--lm_ep", "1", "--cpu"])
+    for lm_type in ("ptransformer", "pbert", "pctc"):
+        lm_conf = tmp_path / f"{lm_type}.yaml"
+        with pytest.raises(ValueError, match=lm_type):
+            rescore.main(["nowhere.tsv", "-ref", "nowhere.tsv", "-lm_conf", str(lm_conf), "-lm_ep", "1", "--cpu"])
     with pytest.raises(ValueError, match="dec_step_mode"):
         bad = config_from_dict(dict(feat_dim=20, vocab_size=10, dec_step_mode="quick"))
         build_decode_fn(ASR(bad), bad, device="cpu")

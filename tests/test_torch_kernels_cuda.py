@@ -27,7 +27,10 @@ three bucket shapes included, and the RNN LM's layers through it against
 the CPU's plain scan; the beam steps
 at W = 17 and 33, each launched twice (bit-identical), rows 0-15 of W = 20
 equal to W = 16 bit for bit, and their launch geometry against the
-libraries' and the card's own accounts).
+libraries' and the card's own accounts; K4 at the phone encoder's
+largest bucket in both dtypes, forward and backward with dropout, twice
+and bit-identical, and the phone-to-word pseudo-log-likelihood on the card
+against the CPU: beside `check_attention_phone` and PPL_RTOL).
 """
 
 import numpy as np
@@ -691,3 +694,54 @@ def test_lstm_bf16_matches_plain(cuda_dev):
     chip_smoke.check_lstm_bf16(*cuda_dev)
     for name in ("emo_lstm_fwd_bf16", "emo_lstm_bwd_bf16"):  # every shape twice (bit-identical)
         assert lstm_scan.KERNEL.counts[name] - before[name] == 2 * len(chip_smoke.LSTM_BF16_CASES)
+
+
+def test_attention_at_the_phone_encoder_bucket_matches_plain(cuda_dev):
+    """K4 at the phone encoder's largest bucket, (39, 512, 4, 64), in both
+    dtypes, forward and backward with dropout 0.1, each launched twice
+    (bit-identical), against the plain version on the kernel's keep mask."""
+    from emoasr_tpu_torch.ops import attention
+
+    before = dict(attention.KERNEL.counts)
+    errs = chip_smoke.check_attention_phone(*cuda_dev)
+    assert errs["fwd"] <= chip_smoke.ATTN_TOL[torch.float32] and errs["bwd"] <= chip_smoke.ATTN_BWD_TOL
+    for name in ("emo_attention_fwd_f32", "emo_attention_bwd_f32", "emo_attention_fwd_bf16",
+                 "emo_attention_bwd_bf16"):
+        assert attention.KERNEL.counts[name] - before[name] == 2
+
+
+def test_p2w_pseudo_log_likelihood_on_the_card_matches_the_cpu(cuda_dev):
+    """`pbert`'s chunked pseudo-log-likelihood on the card (the phone
+    encoder's attention by K4, chunks of a few copies) against the CPU's
+    plain path: each position within 1e-4, the sum within PPL_RTOL."""
+    from emoasr_tpu_torch.config import config_from_dict
+    from emoasr_tpu_torch.models.lm import lm as lm_mod
+    from emoasr_tpu_torch.ops import attention
+
+    dev, _ = cuda_dev
+    cfg = config_from_dict(dict(lm_type="pbert", vocab_size=500, src_vocab_size=45, enc_hidden_size=128,
+                                enc_num_attention_heads=2, enc_num_layers=2, enc_intermediate_size=256,
+                                dec_hidden_size=128, dec_num_attention_heads=2, dec_num_layers=2,
+                                dec_intermediate_size=256, mask_id=499, eos_id=2, max_seq_len=64,
+                                enc_fused_attn=True))
+    torch.manual_seed(0)
+    cpu = lm_mod.LM(cfg).eval()
+    card = lm_mod.LM(cfg).to(dev).eval()
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    ys = torch.from_numpy(rng.integers(3, 498, (4, 40)))
+    ylens = torch.tensor([40, 31, 17, 5])
+    ps = torch.from_numpy(rng.integers(3, 43, (4, 150)))
+    plens = torch.tensor([150, 120, 70, 20])
+    before = attention.KERNEL.counts["emo_attention_fwd_f32"]
+    old = lm_mod.PLL_CHUNK_TOKENS
+    lm_mod.PLL_CHUNK_TOKENS = 40 * 7  # 7 copies a chunk
+    try:
+        with torch.no_grad():
+            got = lm_mod.p2w_pseudo_log_likelihood(card.lm, ys.to(dev), ylens.to(dev), ps.to(dev), plens.to(dev), 499)
+            want = lm_mod.p2w_pseudo_log_likelihood(cpu.lm, ys, ylens, ps, plens, 499)
+    finally:
+        lm_mod.PLL_CHUNK_TOKENS = old
+    assert attention.KERNEL.counts["emo_attention_fwd_f32"] - before == cfg.enc_num_layers  # the phones once
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got.sum().item(), want.sum().item(), rtol=chip_smoke.PPL_RTOL)
