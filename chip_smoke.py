@@ -124,8 +124,10 @@ Phases (any failed check raises, so the script exits non-zero):
    RNN LM's steps launch K8 forward and backward in both layers (counted
    by shape); one RNN LM step against the CPU.
 16. PPL: the PPL CLI on the three checkpoints, each equal to the CPU's on
-   the same batches (PPL_RTOL); BERT's chunked pseudo-PPL at the (11, 256)
-   bucket within PLL_PEAK_BYTES of device memory.
+   the same batches (PPL_RTOL; BERT's equal to `evaluate_ppl` on the card,
+   which is held to the CPU's over the rows below the (11, 256) bucket);
+   BERT's chunked pseudo-PPL at the (11, 256) bucket within PLL_PEAK_BYTES
+   of device memory.
 17. RNN-LM shallow fusion at 0.5: the L1 CTC beam 8 and the trained L3-1
    attention beam 10 through the eval CLI (`--lm_conf`, `--lm_path`), the
    L4 ALSD beam 10 in Python (an RNN LM over L4's 1000 tokens from the
@@ -151,7 +153,29 @@ Phases (any failed check raises, so the script exits non-zero):
 21. N-best rescoring (slice 7a): the L1 beam-8 n-best through the
    rescoring CLI with the Transformer, BERT and ELECTRA LMs; `score_lm`
    against the CPU (SCORE_RTOL) and the same best hypotheses.
-22. Every kernel timed at the largest bucket beside its plain version and
+22. Soft labels (slice 7b): the trained libri Transformer LM (causal, every
+   position) and BERT (a pre-masked row a position) over a distillation
+   corpus of L1's buckets through `make_label make` (K3 once a chunk of 128
+   rows, at (N, 10000) k = 8), each pickle held to the CPU's (KD_PROB_TOL;
+   ids where the CPU's k / k + 1 gap exceeds the measured logit error),
+   K3 exactly against its plain version on the chunks' logits, `make_label
+   eval`; a seed Transformer LM at libri widths with V = 1000 labels L4's.
+23. Distillation micro-steps through the train step (`ASRDataset(
+   kd_label_path=...)`, dropout and SpecAugment on), copies of the shipped
+   yamls with `kd_weight: 0.5`: L1 alignment KD (all, then mid; K2, K4;
+   up to (18, 1600)), L3 soft labels with <eos> (K1, K2, K4 with its bias),
+   L4 word and align KD over the full (18, 399, 129, 1000) joint (K8, K4;
+   peak device memory under KD_PEAK_BYTES); one micro-step of each (L4's
+   in both kd_types) against the CPU within STEP_TOL, `loss_kd` finite
+   and nonzero.
+24. RNN-T forced alignment of a batch through `ASR.forced_align` on the L4
+   `model.ep1`, card against CPU: the walks equal wherever the CPU's
+   margin exceeds the measured alpha + beta error.
+25. `analysis ctc_prob` (card against CPU, ANALYSIS_PROB_TOL), the fusion
+   grid (2 x 2) on L1's CTC beam 8 with the Transformer LM, each point's
+   TSV equal to the eval CLI's and the best pair the lowest WER's, and
+   `align_hyps` on the n-best.
+26. Every kernel timed at the largest bucket beside its plain version and
    one library call (for K5 and K6 the dense route), the bf16 launchers in
    bf16 (bounds at the bf16 rate, library calls in bf16; an f32 launcher
    that splits its operands into bf16 terms held to that many tensor-core
@@ -161,7 +185,8 @@ Phases (any failed check raises, so the script exits non-zero):
    the beams launch (with its launches by class over the main paths) and
    K2 beside its latency floor (`tools/k2_parts.py`'s `chain_only`), K8
    at the RNN LM's three bucket shapes beside cuDNN, K4 at the phone
-   encoder's largest bucket in both dtypes beside SDPA; one
+   encoder's largest bucket in both dtypes beside SDPA, K3 at make_label's
+   class beside torch.topk (its own row); one
    JSON line describing each kernel, the `nvidia-smi` line, and last the
    `{"ok": true, "device": ...}` line.
 
@@ -401,7 +426,8 @@ def topk_cases(dev, gen):
     """(name, x, k) inputs: random rows, ties, rows of -inf, the main paths'
     shapes (the CTC beam's (B, V) k = 8, the attention pre-selection's
     (B, W, V) k = 15 at V = 10000 and CSJ's 10872, the ALSD expansion's
-    (B, W, V - 1) k = 10, the W = 17 pool's (B, W^2) k = 17), rows whose top
+    (B, W, V - 1) k = 10, the W = 17 pool's (B, W^2) k = 17, make_label's
+    (N, V) logits k = 8 at V = 10000 and 1000), rows whose top
     entries crowd the fewest threads (each thread's entries share one value
     band: the most entries pass the kernel's threshold), and V = MAX_V."""
     from emoasr_tpu_torch.ops.topk import MAX_V
@@ -439,6 +465,10 @@ def topk_cases(dev, gen):
         ("f32 crowded (4,10000) k=1", crowded, 1),
         (f"f32 (3,{MAX_V}) k=32", randn(3, MAX_V), 32),
         (f"bf16 (2,{MAX_V}) k=15", randn(2, MAX_V, dtype=torch.bfloat16), 15),
+        # make_label: (N, V) LM logits, N a chunk's labelled positions, k = 8
+        ("f32 make_label (1423,10000) k=8", 3 * randn(1423, 10000), 8),
+        ("f32 make_label (128,10000) k=8", 3 * randn(128, 10000), 8),
+        ("f32 make_label (1390,1000) k=8", 3 * randn(1390, 1000), 8),
         ("f32 (1,256) k=32", randn(1, 256), 32),
         ("bf16 (5,257) k=1", randn(5, 257, dtype=torch.bfloat16), 1),
     ]
@@ -2564,7 +2594,8 @@ def check_micro_step(tr: dict, dev, want_used: dict, heads=None) -> dict:
     """Loss (and each loss term) and gradients of one micro-step at full
     width, 4 rows of the 400-frame bucket, dropout and SpecAugment off: the
     card (kernels, each launched as often as `want_used` says) against the
-    CPU (plain versions), on the trainer's checkpoint.  `heads`: the
+    CPU (plain versions), on the trainer's checkpoint (with its soft labels
+    where `tr` names a `kd_label_path`).  `heads`: the
     vocabulary-sized output layers, held by vocabulary column, with a
     function of the batch giving the columns on its paths (by default the
     CTC or RNN-T head, `decoder.output`, whose paths are the labels and
@@ -2574,7 +2605,7 @@ def check_micro_step(tr: dict, dev, want_used: dict, heads=None) -> dict:
 
     cfg = tr["cfg"]
     heads = heads or (("decoder.output", lambda b: np.append(b["ys"][:4].reshape(-1), cfg.blank_id)),)
-    ds = ASRDataset(cfg, tr["train_tsv"], phase="train")
+    ds = ASRDataset(cfg, tr["train_tsv"], phase="train", kd_label_path=tr.get("kd_label_path"))
     batcher = ds.make_batcher(shuffle=False)
     bi, idx = next(b for b in batcher if batcher.buckets[b[0]].max_xlen == 400)
     batch = ds.collate(idx[:4], 400, batcher.buckets[bi].max_ylen)
@@ -2583,7 +2614,8 @@ def check_micro_step(tr: dict, dev, want_used: dict, heads=None) -> dict:
         model = load_asr_model(tr["ckpt"], cfg).to(d).eval()
         t = {k: torch.from_numpy(v).to(d) for k, v in batch.items() if isinstance(v, np.ndarray)}
         before = launch_counts()
-        loss, loss_dict = model(t["xs"], t["xlens"], t["ys"], t["ylens"], t["ys_in"], t["ys_out"])
+        loss, loss_dict = model(t["xs"], t["xlens"], t["ys"], t["ylens"], t["ys_in"], t["ys_out"],
+                                t.get("soft_labels"))
         params = dict(model.named_parameters())
         grads = torch.autograd.grad(loss, list(params.values()))
         used = {k: launch_counts()[k] - before[k] for k in before}
@@ -2851,7 +2883,7 @@ def overfit_on_card(args, root: str) -> dict:
             and launches["attention_bwd"] == 240, f"overfit run did not train through the kernels: {launches}")
     require(out is not None and out[2] < 15.0, f"overfit on the card: {out}")
     print(f"  overfit corpus (32 utts, 60 epochs, 240 micro-steps) on the card: {out[3]} in {dt:.1f} s")
-    return {"wer": out[2], "seconds": dt}
+    return {"wer": out[2], "seconds": dt, "conf_path": conf_path, "ep": "60", "tsv": tsv, "vocab_size": V}
 
 
 def run_cli(conf: str, beam: int, n_utts: int, wav_s: float, card: str) -> dict:
@@ -4101,6 +4133,9 @@ PPL_RTOL = 1e-4
 # BERT's pseudo-PPL: the (11, 256) batch's (B L, L, V) float32 logits would
 # take 28.8 GB; the chunked form must stay far below that
 PLL_PEAK_BYTES = 8 << 30
+# rows of the (11, 256) bucket that BERT's pseudo-PPL keeps in its check
+# against the CPU (each some 130 masked copies of 256 tokens on the CPU)
+BERT_PLL_LONG_ROWS = 3
 
 
 def _launch_deltas(module, factory: str):
@@ -4501,8 +4536,18 @@ def time_rnn_lm_step(lm: dict, dev, card: str) -> dict:
 def lm_ppl(lms: dict, dev, card: str) -> dict:
     """The PPL CLI on each trained LM over the test file (BERT:
     pseudo-PPL, the (11, 256) batch included) on the card, then
-    `evaluate_ppl` on the CPU over the same batches: equal within PPL_RTOL;
-    BERT's peak device memory far below the (B L, L, V) logits'."""
+    `evaluate_ppl` on the CPU: equal within PPL_RTOL; BERT's peak device
+    memory far below the (B L, L, V) logits'.  The RNN and Transformer LMs
+    are held over the whole file.  BERT's CPU pseudo-PPL over the whole
+    file took 53 s of a run (NVIDIA H100 80GB HBM3, 700.00 W: the CPU
+    beside it), so BERT is held in two links: the CLI's value equal to
+    `evaluate_ppl` on the card over the whole file, and `evaluate_ppl` on
+    the card against the CPU over the shorter buckets' rows and
+    BERT_PLL_LONG_ROWS rows of the (11, 256) bucket, which still make a
+    batch 256 tokens wide (a cut of depth: the CPU's cost goes with the
+    masked copies, one a valid token)."""
+    import pandas as pd
+
     from emoasr_tpu_torch.data.lm_dataset import LMDataset
     from emoasr_tpu_torch.eval import test_ppl
     from emoasr_tpu_torch.models.lm.lm import LM, load_lm_state_dict
@@ -4522,22 +4567,41 @@ def lm_ppl(lms: dict, dev, card: str) -> dict:
         launches = launch_counts()
         model = LM(cfg)
         load_lm_state_dict(model, load_state_dict(lm["ckpt"]))
+        tsv, cnt_c, ppl_c, note = lm["test_tsv"], cnt, ppl, ""
+        if t == "bert":
+            cnt1, ppl1 = test_ppl.evaluate_ppl(cfg, model.to(dev), LMDataset(cfg, tsv, phase="test"))
+            require(cnt1 == cnt and abs(ppl1 - ppl) <= 1e-6 * ppl,  # one program on one card: the same sums
+                    f"BERT pseudo-PPL: the CLI {cnt} tokens {ppl}, evaluate_ppl on the card {cnt1} tokens {ppl1}")
+            rows = pd.read_table(tsv)
+            long = rows["ylen"] >= 128  # the rows of the (11, 256) bucket
+            tsv = os.path.join(os.path.dirname(tsv), "test_checked.tsv")
+            pd.concat([rows[long].iloc[:BERT_PLL_LONG_ROWS], rows[~long]]).to_csv(tsv, sep="\t", index=False)
+            shapes = [tuple(b["ys_in"].shape) for b in LMDataset(cfg, tsv, phase="test").batches(
+                LMDataset(cfg, tsv, phase="test").make_batcher(shuffle=False, drop_tail=False))]
+            require((BERT_PLL_LONG_ROWS, 256) in shapes, f"BERT pseudo-PPL CPU check: batches {shapes}")
+            t1 = time.perf_counter()
+            cnt_c, ppl_c = test_ppl.evaluate_ppl(cfg, model, LMDataset(cfg, tsv, phase="test"))
+            torch.cuda.synchronize()
+            note = (f"; the CLI = evaluate_ppl on the card over the whole file ({ppl1:.6f}); card vs CPU over "
+                    f"batches {shapes} ({time.perf_counter() - t1:.2f} s on {next(model.parameters()).device})")
+            model = model.cpu()
         t1 = time.perf_counter()
-        cnt0, ppl0 = test_ppl.evaluate_ppl(cfg, model, LMDataset(cfg, lm["test_tsv"], phase="test"))
+        cnt0, ppl0 = test_ppl.evaluate_ppl(cfg, model, LMDataset(cfg, tsv, phase="test"))
         cpu_s = time.perf_counter() - t1
-        require(cnt == cnt0 > 0 and np.isfinite(ppl) and abs(ppl - ppl0) <= PPL_RTOL * ppl0,
-                f"{t} LM PPL: card {cnt} tokens {ppl}, CPU {cnt0} tokens {ppl0}")
+        require(cnt_c == cnt0 > 0 and np.isfinite(ppl) and abs(ppl_c - ppl0) <= PPL_RTOL * ppl0,
+                f"{t} LM PPL: card {cnt_c} tokens {ppl_c}, CPU {cnt0} tokens {ppl0}")
         if t == "bert":
             require(peak < PLL_PEAK_BYTES, f"BERT pseudo-PPL peak device memory {peak} bytes")
         if t == "rnn":  # the forward over each test batch, in both layers
             require(launches["lstm_fwd"] == 3 * cfg.num_layers and launches["lstm_bwd"] == 0,
                     f"RNN LM PPL: K8 launches {launches}")
         kind = "pseudo-PPL" if t == "bert" else "PPL"
-        print(f"  {t} LM {kind} over {cnt} tokens: {ppl:.6f} on the card ({dt:.2f} s, peak device memory "
-              f"{peak / 2 ** 30:.2f} GiB) vs {ppl0:.6f} on the CPU ({cpu_s:.2f} s): rel err "
-              f"{abs(ppl - ppl0) / ppl0:.2e} (tol {PPL_RTOL}); {card}")
-        out[t] = {"tokens": cnt, "ppl_card": ppl, "ppl_cpu": ppl0, "seconds": dt, "cpu_seconds": cpu_s,
-                  "peak_device_bytes": peak, "launches": launches}
+        print(f"  {t} LM {kind} CLI over {cnt} tokens: {ppl:.6f} on the card ({dt:.2f} s, peak device memory "
+              f"{peak / 2 ** 30:.2f} GiB){note}: {ppl_c:.6f} over {cnt_c} tokens vs {ppl0:.6f} on the CPU "
+              f"({cpu_s:.2f} s): rel err {abs(ppl_c - ppl0) / ppl0:.2e} (tol {PPL_RTOL}); {card}")
+        out[t] = {"tokens": cnt, "ppl_card": ppl, "checked_tokens": cnt_c, "checked_ppl_card": ppl_c,
+                  "ppl_cpu": ppl0, "seconds": dt, "cpu_seconds": cpu_s, "peak_device_bytes": peak,
+                  "launches": launches}
     return out
 
 
@@ -5214,6 +5278,560 @@ def check_attention_phone(dev, gen) -> dict:
             "fwd_bf16": worst[torch.bfloat16][0], "bwd_bf16": max(worst[torch.bfloat16][1:])}
 
 
+# ---------------------------------------------------------------- slice 7b: distillation and the analysis tools
+
+# soft labels, card against CPU: the probabilities (a float32 softmax of 8
+# logits at temperature 3) within KD_PROB_TOL; the ids equal wherever the
+# CPU's gap between the k-th and the (k+1)-th logit exceeds the measured
+# card-vs-CPU logit error (the ranks within the top k too, where every gap
+# above them does); every position's probabilities sum to 1 within it
+KD_PROB_TOL = 1e-5
+KD_TOPK = 8
+# the L4 distillation micro-step's device memory: the full (18, 399, 129,
+# 1000) joint is 3.7 GB a float32 tensor
+KD_PEAK_BYTES = 60 << 30
+# `analysis ctc_prob`: the per-frame probabilities, card against CPU
+ANALYSIS_PROB_TOL = 1e-5
+# the overfit model's grid: a seed-weight LM's output bias of one token
+# raised so far that LM weight 0.5 costs WER where weight 0 scores 0 (a
+# CPU rehearsal of the grid: WER 0 and 9.5 at a raise of 10 and of 30):
+# the grid's points then differ
+GRID_LM_BIAS = 30.0
+
+
+def _capture_topk_rows():
+    """Patch `make_label._topk_temp` so that every (N, V) logits tensor it
+    takes is kept (a chunk's rows); returns (the list, a function that
+    undoes the patch)."""
+    from emoasr_tpu_torch.eval import make_label
+
+    rows, orig = [], make_label._topk_temp
+
+    def keep(x, topk, temp):
+        rows.append(x.detach().clone())
+        return orig(x, topk, temp)
+
+    make_label._topk_temp = keep
+    return rows, lambda: setattr(make_label, "_topk_temp", orig)
+
+
+def _label_rows_tsv(path: str, corpus_tsv: str, bert: bool, mask_id: int = 9999) -> int:
+    """The rows `make_label` reads for a training corpus: a causal LM labels
+    every position of each utterance (start_pos 0: position 0 takes its
+    hard label), BERT one pre-masked row for each position, in order."""
+    import pandas as pd
+
+    rows = []
+    for r in pd.read_table(corpus_tsv).itertuples():
+        ids = r.token_id.split()
+        if not bert:
+            rows.append(dict(utt_id=r.utt_id, token_id=r.token_id, start_pos=0, end_pos=len(ids)))
+            continue
+        for p in range(len(ids)):
+            rows.append(dict(utt_id=r.utt_id, token_id=" ".join(ids[:p] + [str(mask_id)] + ids[p + 1:]),
+                             mask_pos=p))
+    pd.DataFrame(rows).to_csv(path, sep="\t", index=False)
+    return len(rows)
+
+
+def _flat_labels(labels: dict) -> list:
+    return [lab for utt in labels for lab in labels[utt]]
+
+
+def make_soft_labels(tag: str, lm_conf: str, data_tsv: str, ref_tsv: str, pkl: str, dev, card: str,
+                     cpu_check: bool = True) -> dict:
+    """`make_label make` on the card through the CLI, K3 launched once a
+    chunk; with `cpu_check` the same labels made on the CPU from the same
+    checkpoint, held to the card's (see KD_PROB_TOL), K3's make_label class
+    exactly against its plain version on the chunks' logits, and `make_label
+    eval` of the pickle against `ref_tsv`."""
+    import io
+    import pickle
+
+    import pandas as pd
+
+    from emoasr_tpu_torch.config import load_config
+    from emoasr_tpu_torch.eval import make_label
+    from emoasr_tpu_torch.eval.test_asr import load_lm
+    from emoasr_tpu_torch.ops.topk import topk_lastdim_kernel, topk_plain
+
+    ckpt = os.path.join(os.path.splitext(lm_conf)[0], "checkpoints", "model.ep1")
+    lm_cfg = load_config(lm_conf)
+    n_rows = len(pd.read_table(data_tsv))
+    n_chunks = -(-n_rows // make_label.BATCH_SIZE)
+    card_rows, undo = _capture_topk_rows()
+    reset_launch_counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):  # a warning for every hard label
+            labels = make_label.cli(["make", "-lm_conf", lm_conf, "-lm_ep", "1", "-data", data_tsv, "-save_path", pkl])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        undo()
+    launches = launch_counts()
+    require(launches["topk"] == n_chunks == len(card_rows), f"{tag} make_label: K3 launched {launches['topk']} "
+            f"times for {n_chunks} chunks ({len(card_rows)} with positions to label)")
+    require(all(n == 0 for k, n in launches.items() if k != "topk"), f"{tag} make_label: launches {launches}")
+    flat = _flat_labels(labels)
+    n_soft = sum(len(r) for r in card_rows)
+    require(len(flat) - n_soft == (0 if lm_cfg.lm_type == "bert" else len(labels)),
+            f"{tag} make_label: {n_soft} top-k labels of {len(flat)} positions")
+    sums = np.array([sum(p for _, p in lab) for lab in flat])
+    sum_err = float(np.abs(sums - 1).max())
+    require(sum_err <= KD_PROB_TOL, f"{tag} make_label: a position's probabilities sum to 1 + {sum_err:.2e}")
+    with open(pkl, "rb") as f:
+        require(pickle.load(f) == labels, f"{tag} make_label: the pickle is not what the CLI returned")
+    shape_n = max(len(r) for r in card_rows)
+    out = {"seconds": dt, "rows": n_rows, "chunks": n_chunks, "positions": len(flat), "launches": launches,
+           "max_n": shape_n, "V": lm_cfg.vocab_size, "sum_err": sum_err, "pkl": pkl}
+    print(f"  {tag} ({lm_cfg.lm_type}, V = {lm_cfg.vocab_size}): make_label over {n_rows} rows, {len(flat)} "
+          f"positions in {n_chunks} chunks in {dt:.2f} s on {card} (first call); K3 {launches['topk']} launches, "
+          f"the largest ({shape_n}, {lm_cfg.vocab_size}) k = {KD_TOPK}; every position's probabilities sum to 1 "
+          f"within {sum_err:.1e}")
+    if not cpu_check:
+        return out
+
+    # the CPU's labels from the same checkpoint, and its logits rows
+    cpu_lm, _ = load_lm(lm_conf, ckpt)
+    cpu_rows, undo = _capture_topk_rows()
+    fn = make_label.make_bert_label if lm_cfg.lm_type == "bert" else make_label.make_lm_label
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            want = fn(pd.read_table(data_tsv).dropna(), cpu_lm, pkl + ".cpu", topk=KD_TOPK, temp=3.0,
+                      add_sos_eos=lm_cfg.add_sos_eos, eos_id=lm_cfg.eos_id, max_seq_len=lm_cfg.max_seq_len)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        undo()
+    require(len(cpu_rows) == len(card_rows) and all(c.shape == w.shape for c, w in zip(card_rows, cpu_rows)),
+            f"{tag} make_label: the card's and the CPU's chunks differ")
+    logit_err = max(_max_err(c.cpu(), w) for c, w in zip(card_rows, cpu_rows))
+    vals = torch.cat([torch.topk(w, KD_TOPK + 1, dim=-1).values for w in cpu_rows])  # CPU logits, descending
+    gaps = vals[:, :-1] - vals[:, 1:]  # gap i: between ranks i and i + 1
+    boundary = gaps[:, -1] > logit_err  # the top-k set is decided
+    ranked = (gaps > logit_err).all(dim=1)  # and so is every rank in it
+    want_flat = _flat_labels(want)
+    hard = {i for i, lab in enumerate(flat) if len(lab) == 1 and lab[0][1] == 1.0}
+    require(want.keys() == labels.keys() and len(want_flat) == len(flat)
+            and all(flat[i] == want_flat[i] for i in hard), f"{tag} make_label: the pickles differ in shape")
+    got_soft = [lab for i, lab in enumerate(flat) if i not in hard]
+    want_soft = [lab for i, lab in enumerate(want_flat) if i not in hard]
+    require(len(got_soft) == len(vals), f"{tag}: {len(got_soft)} top-k labels, {len(vals)} logits rows")
+    prob_err = 0.0
+    for i, (g, w) in enumerate(zip(got_soft, want_soft)):
+        prob_err = max(prob_err, max(abs(a[1] - b[1]) for a, b in zip(g, w)))
+        gi, wi = [v for v, _ in g], [v for v, _ in w]
+        require(not bool(boundary[i]) or sorted(gi) == sorted(wi), f"{tag} make_label position {i}: top-k ids {gi} "
+                f"on the card, {wi} on the CPU (gap {float(gaps[i, -1]):.2e}, the logit error {logit_err:.2e})")
+        require(not bool(ranked[i]) or gi == wi, f"{tag} make_label position {i}: ranks {gi} vs {wi}")
+    require(prob_err <= KD_PROB_TOL, f"{tag} make_label: probabilities card vs CPU {prob_err:.2e}")
+    # K3 at the make_label class, exactly against its plain version (launched after the count was read)
+    for r in card_rows:
+        v1, i1 = topk_lastdim_kernel(r, KD_TOPK)
+        v2, i2 = topk_lastdim_kernel(r, KD_TOPK)
+        v0, i0 = topk_plain(r, KD_TOPK)
+        require(torch.equal(v1, v0) and torch.equal(i1, i0) and torch.equal(v1, v2) and torch.equal(i1, i2),
+                f"{tag}: K3 at ({len(r)}, {r.shape[-1]}) k = {KD_TOPK} differs from its plain version")
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        acc1, acck, cnt = make_label.cli(["eval", pkl, "-ref", ref_tsv])
+    exempt_set, exempt_rank = int((~boundary).sum()), int((~ranked).sum())
+    print(f"  {tag}: the CPU's labels ({cpu_s:.2f} s) against the card's: probabilities within {prob_err:.1e} (tol "
+          f"{KD_PROB_TOL}); the card-vs-CPU logit error {logit_err:.2e}; top-k sets equal at {len(vals) - exempt_set} "
+          f"of {len(vals)} positions ({exempt_set} exempted: the gap between ranks k and k + 1 within that error), "
+          f"ranks at {len(vals) - exempt_rank} ({exempt_rank} exempted); K3 on the chunks' logits exact against its "
+          f"plain version, twice bit-identical; make_label eval: {' '.join(buf.getvalue().split())}")
+    out.update(cpu_seconds=cpu_s, prob_err=prob_err, logit_err=logit_err, exempt_set=exempt_set,
+               exempt_rank=exempt_rank, accuracy=[acc1, acck, cnt], k3_err=0.0)
+    return out
+
+
+def soft_label_phase(args, root: str, lms: dict, dev, card: str) -> dict:
+    """Phase 22: the distillation corpora (L1's and L3's over V = 10000, L4's
+    over 1000, written as the train CLI's corpora are: one batch of the 400
+    and of the 1600-frame bucket) and their soft labels through `make_label
+    make` on the card: the trained Transformer LM (causal) and BERT (one
+    pre-masked row a position) over the first, each held to the CPU's; then
+    a Transformer LM at `libri_transformer.yaml`'s widths with V = 1000
+    (the only change: no shipped LM has L4's vocabulary; weights from the
+    seed) over L4's corpus."""
+    from emoasr_tpu_torch.config import load_config
+    from emoasr_tpu_torch.models.lm.lm import LM
+    from emoasr_tpu_torch.train.checkpoint import save_model
+
+    sub = os.path.join(root, "kd")
+    os.makedirs(sub)
+    per_bucket = (0, 1, 0, 0, 1)
+    lengths, _ = train_lengths(load_config(L1_CONF), per_bucket)
+    corpus, _ = write_corpus(sub, "train_v10000", lengths, 10000, 80, args.seed + 11)
+    lengths4, _ = train_lengths(load_config(L4_CONF), per_bucket)
+    corpus4, _ = write_corpus(sub, "train_v1000", lengths4, 1000, 80, args.seed + 12)
+    t0 = time.perf_counter()
+    out = {"corpus": corpus, "corpus_v1000": corpus4}
+    for t in ("transformer", "bert"):
+        data = os.path.join(sub, f"rows_{t}.tsv")
+        _label_rows_tsv(data, corpus, bert=t == "bert")
+        out[t] = make_soft_labels(f"libri {t} LM", lms[t]["conf_path"], data, corpus,
+                                  os.path.join(sub, f"soft_{t}.pkl"), dev, card)
+    lm4 = _write_conf(os.path.join(sub, "libri_transformer_v1000.yaml"), LM_CONF, vocab_size=1000, mask_id=999,
+                      vocab_path=None, train_path=None, seed=args.seed)
+    torch.manual_seed(args.seed)
+    save_model(os.path.join(sub, "libri_transformer_v1000", "checkpoints", "model.ep1"), LM(load_config(lm4)))
+    data4 = os.path.join(sub, "rows_v1000.tsv")
+    _label_rows_tsv(data4, corpus4, bert=False)
+    out["v1000"] = make_soft_labels("libri transformer LM at V = 1000 (seed weights)", lm4, data4, corpus4,
+                                    os.path.join(sub, "soft_v1000.pkl"), dev, card, cpu_check=False)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  the soft-label phase took {out['seconds']:.1f} s on {card}")
+    return out
+
+
+def _set_kd_cfg(model, cfg) -> None:
+    """Give the model and every submodule that keeps a config `cfg` (the
+    decoders read kd_type and kd_ctc_position from theirs)."""
+    for m in model.modules():
+        if hasattr(m, "cfg"):
+            m.cfg = cfg
+
+
+def kd_micro_steps(tag: str, cfg, ckpt: str, tsv: str, pkl: str, steps, dev, card: str, want_step: dict) -> dict:
+    """Micro-steps on the card through the port's train step from `ckpt`,
+    over `ASRDataset(kd_label_path=pkl)`: `steps` lists (the bucket's
+    max_xlen, that step's config); dropout and SpecAugment on; each step
+    launches `want_step`; `loss_kd` finite and nonzero."""
+    from emoasr_tpu_torch.data.asr_dataset import ASRDataset
+    from emoasr_tpu_torch.eval.test_asr import load_asr_model
+    from emoasr_tpu_torch.models.layers import set_dropout_generator
+    from emoasr_tpu_torch.train.optim import build_optimizer
+    from emoasr_tpu_torch.train.step import TrainState, make_train_step
+    from emoasr_tpu_torch.utils.device import set_matmul_precision
+
+    set_matmul_precision(cfg.compute_dtype)
+    ds = ASRDataset(cfg, tsv, phase="train", kd_label_path=pkl)
+    batcher = ds.make_batcher(shuffle=False)
+    by_len = {batcher.buckets[bi].max_xlen: (bi, idx) for bi, idx in batcher}
+    torch.manual_seed(cfg.seed)
+    model = load_asr_model(ckpt, cfg).to(dev)
+    set_dropout_generator(model, torch.Generator().manual_seed(cfg.seed))
+    state = TrainState(model=model, optimizer=build_optimizer(cfg, model.parameters()))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, per_step, shapes = [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for max_xlen, step_cfg in steps:
+        bi, idx = by_len[max_xlen]
+        b = batcher.buckets[bi]
+        batch = ds.collate(idx, b.max_xlen, b.max_ylen, pad_to_batch=b.batch_size)
+        t = {k: torch.from_numpy(v).to(dev) for k, v in batch.items() if isinstance(v, np.ndarray)}
+        _set_kd_cfg(state.model, step_cfg)
+        before = launch_counts()
+        m = make_train_step(step_cfg)(state, t, gen)
+        after = launch_counts()
+        per_step.append({k: after[k] - before[k] for k in before})
+        losses.append({k: v.item() for k, v in m.items() if k.startswith("loss")})
+        shapes.append((tuple(batch["xs"].shape), tuple(batch["soft_labels"].shape)))
+        require(m["grad_finite"] and np.isfinite(losses[-1]["loss_kd"]) and losses[-1]["loss_kd"] != 0.0,
+                f"{tag} distillation micro-step {len(losses)}: {losses[-1]}")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = launch_counts()
+    want = _zero_launches(**want_step)
+    require(all(d == want for d in per_step), f"{tag} distillation micro-steps: launches by step {per_step}, want "
+            f"each {want}")
+    print(f"  {tag}: {len(steps)} distillation micro-steps (batches {[s[0] for s in shapes]}, soft labels "
+          f"{[s[1] for s in shapes]}) in {dt:.2f} s on {card} (first call), peak device memory {peak / 2**30:.2f} "
+          f"GiB; losses {[{k: round(v, 4) for k, v in l.items()} for l in losses]}; launches a step "
+          f"{({k: n for k, n in want_step.items() if n})}")
+    return {"seconds": dt, "peak_bytes": peak, "losses": losses, "launches": launches, "shapes": shapes}
+
+
+def kd_phase(args, root: str, tr: dict, l4: dict, soft: dict, dev, card: str) -> dict:
+    """Phase 23: the distillation routes at full width, each a copy of its
+    shipped yaml with `kd_weight: 0.5` and `enc_fused_attn: true`, nothing
+    else changed: L1 (alignment KD: the dense logits, K2 through the dense
+    CTC loss, the forced alignment; `kd_ctc_position` all, one step at mid;
+    from the trainer's `model.ep1`), L3 (`l3_transformer_conformer.yaml`,
+    BERT's soft labels with <eos>: K1 and K2 in the aux CTC, K4 with its
+    bias; seed weights) and L4 (the full joint: K8 and K4, not K7;
+    `kd_type` word and align at the (18, 399, 129) bucket; from the
+    trainer's `model.ep1`); one micro-step of each against the CPU
+    (`check_micro_step`, L4's in both kd_types)."""
+    import dataclasses
+
+    from emoasr_tpu_torch.config import load_config
+    from emoasr_tpu_torch.models.asr import ASR
+    from emoasr_tpu_torch.train.checkpoint import save_model
+
+    sub = os.path.join(root, "kd_steps")
+    os.makedirs(sub)
+    vocab = write_vocab(sub, 10000)
+    out = {}
+    t_phase = time.perf_counter()
+
+    # L1: alignment KD
+    c1 = _write_conf(os.path.join(sub, "l1_kd.yaml"), L1_CONF, kd_weight=0.5, enc_fused_attn=True, vocab_path=vocab,
+                     train_path=soft["corpus"], dev_path=None, seed=args.seed)
+    cfg1 = load_config(c1)
+    n1 = cfg1.enc_num_layers
+    mid = dataclasses.replace(cfg1, kd_ctc_position="mid")
+    l1_step = {"ctc_alpha": 1, "ctc_beta_grad": 1, "attention_fwd": n1, "attention_bwd": n1}
+    out["l1"] = kd_micro_steps("L1 + kd_weight 0.5", cfg1, tr["ckpt"], soft["corpus"], soft["transformer"]["pkl"],
+                               [(400, cfg1), (1600, cfg1), (400, mid)], dev, card, l1_step)
+    out["l1"]["step_check"] = check_micro_step({"cfg": cfg1, "ckpt": tr["ckpt"], "train_tsv": soft["corpus"],
+                                                "kd_label_path": soft["transformer"]["pkl"]}, dev, l1_step)
+
+    # L3: soft-label distillation of the attention decoder, the aux CTC on its kernels
+    c3 = _write_conf(os.path.join(sub, "l3_kd.yaml"), L3_3_CONF, kd_weight=0.5, enc_fused_attn=True,
+                     vocab_path=vocab, train_path=soft["corpus"], dev_path=None, seed=args.seed)
+    cfg3 = load_config(c3)
+    ck3 = os.path.join(sub, "l3_kd", "checkpoints", "model.ep0")
+    torch.manual_seed(cfg3.seed)
+    save_model(ck3, ASR(cfg3))
+    n3 = cfg3.enc_num_layers
+    l3_step = {"ctc_head_fwd": 1, "ctc_head_grad_e": 1, "ctc_head_grad_w": 1, "ctc_alpha": 1, "ctc_beta_grad": 1,
+               "attention_fwd": n3, "attention_bwd": n3, "attention_bias_fwd": n3, "attention_bias_bwd": n3}
+    out["l3"] = kd_micro_steps("L3 + kd_weight 0.5", cfg3, ck3, soft["corpus"], soft["bert"]["pkl"],
+                               [(400, cfg3), (1600, cfg3)], dev, card, l3_step)
+    out["l3"]["step_check"] = check_micro_step({"cfg": cfg3, "ckpt": ck3, "train_tsv": soft["corpus"],
+                                                "kd_label_path": soft["bert"]["pkl"]}, dev, l3_step,
+                                               heads=l3_1_heads(cfg3))
+
+    # L4: word and align KD over the full joint
+    c4 = _write_conf(os.path.join(sub, "l4_kd.yaml"), l4["conf_path"], kd_weight=0.5, train_path=soft["corpus_v1000"])
+    cfg4 = load_config(c4)
+    require((cfg4.rnnt_joint_mode, cfg4.vocab_size, cfg4.joint_hidden_size, cfg4.kd_type, cfg4.enc_fused_attn)
+            == ("pallas", 1000, 512, "word", True), f"the L4 KD config: {cfg4}")
+    align = dataclasses.replace(cfg4, kd_type="align")
+    n4 = cfg4.enc_num_layers
+    l4_step = {"lstm_fwd": 1, "lstm_bwd": 1, "attention_fwd": n4, "attention_bwd": n4, "attention_bias_fwd": n4,
+               "attention_bias_bwd": n4}
+    out["l4"] = kd_micro_steps("L4 + kd_weight 0.5", cfg4, l4["ckpt"], soft["corpus_v1000"], soft["v1000"]["pkl"],
+                               [(1600, cfg4), (1600, align)], dev, card, l4_step)
+    require(out["l4"]["peak_bytes"] < KD_PEAK_BYTES,
+            f"L4 distillation: peak device memory {out['l4']['peak_bytes']} bytes, limit {KD_PEAK_BYTES}")
+    for kd_type, c in (("word", cfg4), ("align", align)):
+        out["l4"][f"step_check_{kd_type}"] = check_micro_step(
+            {"cfg": c, "ckpt": l4["ckpt"], "train_tsv": soft["corpus_v1000"], "kd_label_path": soft["v1000"]["pkl"]},
+            dev, l4_step)
+    for k in ("l1", "l3", "l4"):
+        for key, chk in out[k].items():
+            if key.startswith("step_check"):
+                d1 = chk["loss_terms_card"]
+                require(np.isfinite(d1["loss_kd"]) and d1["loss_kd"] != 0.0, f"{k} {key}: loss_kd {d1['loss_kd']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  the distillation micro-steps and their checks took {out['seconds']:.1f} s on {card}")
+    return out
+
+
+def _walk_steps(fb: np.ndarray, xlen: int, ylen: int) -> list:
+    """The forced alignment's walk over one utterance's alpha + beta (the
+    rule of `ops/rnnt.py::rnnt_align_walk`): (t, u, advanced, margin) at
+    every decision."""
+    t = u = 0
+    steps = []
+    while t + 1 < xlen and u < ylen:
+        a, b = fb[t + 1, u], fb[t, u + 1]
+        steps.append((t, u, bool(a > b), float(abs(a - b))))
+        t, u = (t + 1, u) if a > b else (t, u + 1)
+    return steps
+
+
+def forced_align_phase(l4: dict, dev, card: str) -> dict:
+    """Phase 24: `ASR.forced_align` (RNN-T) on the trainer's L4 `model.ep1`,
+    one batch (8 rows of the 400-frame bucket), card against CPU: the walks
+    equal at every decision whose margin on the CPU exceeds the measured
+    card-vs-CPU error of alpha + beta, each row compared up to its first
+    decision within that error (after it the walks may part)."""
+    from emoasr_tpu_torch.data.asr_dataset import ASRDataset
+    from emoasr_tpu_torch.eval.test_asr import load_asr_model
+    from emoasr_tpu_torch.ops.rnnt import rnnt_fwd_bwd
+
+    cfg = l4["cfg"]
+    ds = ASRDataset(cfg, l4["train_tsv"], phase="train")
+    batcher = ds.make_batcher(shuffle=False)
+    bi, idx = next(b for b in batcher if batcher.buckets[b[0]].max_xlen == 400)
+    batch = ds.collate(idx[:8], 400, batcher.buckets[bi].max_ylen)
+    res = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        model = load_asr_model(l4["ckpt"], cfg).to(d).eval()
+        t = {k: torch.from_numpy(v).to(d) for k, v in batch.items() if isinstance(v, np.ndarray)}
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aligns = model.forced_align(t["xs"], t["xlens"], t["ys"], t["ylens"]).cpu()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = launch_counts()
+        with torch.no_grad():
+            eouts, elens, _ = model.encode(t["xs"], t["xlens"])
+            lp = torch.log_softmax(model.decoder.joint(eouts, model.decoder.recurrency(t["ys_in"])[0]).float(), -1)
+            fb = rnnt_fwd_bwd(lp, elens, t["ys"], t["ylens"]).cpu().numpy()
+        res[name] = (aligns.numpy(), fb, elens.cpu().numpy(), dt, launches)
+    (a1, fb1, el, dt, launches), (a0, fb0, el0, cpu_dt, _) = res["cuda"], res["cpu"]
+    require(np.array_equal(el, el0), "forced alignment: the encoder lengths differ")
+    n_enc = cfg.enc_num_layers
+    require(launches["lstm_fwd"] == 1 and launches["attention_bias_fwd"] == n_enc and launches["rnnt_joint"] == 0,
+            f"forced alignment launches {launches}")
+    ylens = batch["ylens"]
+    valid = (np.arange(fb0.shape[1])[None, :, None] < el[:, None, None]) & (
+        np.arange(fb0.shape[2])[None, None, :] <= ylens[:, None, None])
+    fb_err = float(np.abs(fb1 - fb0)[valid].max())
+    decisions = exempt = 0
+    for b in range(len(ylens)):
+        s1, s0 = _walk_steps(fb1[b], int(el[b]), int(ylens[b])), _walk_steps(fb0[b], int(el[b]), int(ylens[b]))
+        for x1, x0 in zip(s1, s0):
+            if x0[3] <= fb_err:  # a near-tie: this row's walks are compared no further
+                exempt += 1
+                break
+            require(x1[:3] == x0[:3], f"forced alignment row {b}: the card's walk {x1} vs the CPU's {x0}")
+            decisions += 1
+        else:
+            require(np.array_equal(a1[b], a0[b]), f"forced alignment row {b}: {a1[b]} vs {a0[b]}")
+    print(f"  RNN-T forced alignment of {tuple(batch['xs'].shape)} (U up to {int(ylens.max())}) through "
+          f"ASR.forced_align: {dt * 1e3:.1f} ms on {card} (CPU {cpu_dt * 1e3:.0f} ms); alpha + beta card vs CPU "
+          f"{fb_err:.2e}; {decisions} walk decisions equal, {exempt} exempted (margin within that error); launches "
+          f"{({k: n for k, n in launches.items() if n})}")
+    return {"seconds": dt, "cpu_seconds": cpu_dt, "fwd_bwd_err": fb_err, "decisions": decisions, "exempt": exempt,
+            "launches": launches, "same_aligns": bool(np.array_equal(a1, a0))}
+
+
+def _grid_against_cli(tag: str, conf: str, ep: str, data: str, lm_conf: str, k3: bool) -> dict:
+    """The fusion grid (lm 0 and 0.5 x len 0 and 1) of `conf`'s CTC beam 8
+    with the LM `lm_conf` (`model.ep1`) over `data` on the card, then the
+    eval CLI at each of its points: each point's TSV equal to the CLI's;
+    K4 launched, and K3 where `k3` (the beam's top-k takes it from V =
+    TOPK_KERNEL_MIN_V on).  Returns the grid's best tuple and the CLI's (wer, lm, len, info) a
+    point, in the grid's order."""
+    import pandas as pd
+
+    from emoasr_tpu_torch.eval import fusion_grid, test_asr
+
+    base = ["-conf", conf, "-ep", ep, "--beam_width", "8", "--data", data, "--lm_conf", lm_conf, "--lm_ep", "1"]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best = fusion_grid.main(fusion_grid.parse_args(base + ["--lm_min", "0", "--lm_max", "0.5", "--lm_step", "0.5",
+                                                           "--len_min", "0", "--len_max", "1", "--save_dir", "grid"]))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    require((launches["topk"] > 0) == k3 and launches["attention_fwd"] > 0, f"{tag} fusion grid launches {launches}")
+    res = os.path.join(os.path.splitext(conf)[0], "results")
+    wers = []
+    for lm_w in (0.0, 0.5):
+        for len_w in (0.0, 1.0):
+            r = test_asr.main(base + ["--lm_weight", str(lm_w), "--len_weight", str(len_w), "--save_dir", "cli"])
+            name = f"result_test_beam8_len{len_w:.1f}_ctc0.0_lm{lm_w:.2f}{'transformer' if lm_w else ''}_ep{ep}.tsv"
+            got, want = (pd.read_table(os.path.join(res, d, name), comment="#") for d in ("grid", "cli"))
+            require(got.equals(want), f"{tag} fusion grid point ({lm_w}, {len_w}): its TSV differs from the eval "
+                                      f"CLI's")
+            wers.append((r[2], r[0], r[1], r[3]))
+    return {"best": best, "wers": wers, "seconds": dt, "launches": launches, "res": res}
+
+
+def analysis_phase(root: str, tr: dict, lms: dict, overfit: dict, seed: int, card: str) -> dict:
+    """Phase 25: `analysis ctc_prob` on L1's `model.ep1` (card against CPU
+    within ANALYSIS_PROB_TOL; K4 in the encoder); the fusion grid (lm 0 and
+    0.5 x len 0 and 1) on L1's CTC beam 8 with the trained Transformer LM
+    over four test utterances, each point's TSV equal to the eval CLI's at
+    the same weights on the card (every point's WER is 100 or more on this
+    one-epoch model, so the grid keeps its start tuple there and its pick
+    is tested on the next grid); the same grid on phase 5's overfit model
+    (WER below 15) with a Transformer LM at `libri_transformer.yaml`'s
+    widths over its vocabulary (V = 12, weights from the seed, the output
+    bias of token 3 raised by GRID_LM_BIAS) over eight of its utterances:
+    each point's TSV equal to the CLI's, and the best pair the first of the
+    lowest WERs, which must be below 100 and differ between the points
+    (so a pick of the highest, or of the last of equal ones, fails);
+    `align_hyps` on the rescoring phase's n-best."""
+    import io
+
+    import pandas as pd
+
+    from emoasr_tpu_torch.config import load_config
+    from emoasr_tpu_torch.eval import align_hyps, analysis
+    from emoasr_tpu_torch.models.lm.lm import LM
+    from emoasr_tpu_torch.train.checkpoint import save_model
+
+    sub = os.path.join(root, "analysis")
+    os.makedirs(sub)
+    out = {}
+    t_phase = time.perf_counter()
+    test = pd.read_table(tr["test_tsv"])
+    utt = test["utt_id"].iloc[0]
+    probs, first = {}, ""
+    for name in ("cuda", "cpu"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            probs[name] = analysis.main(["ctc_prob", "-conf", tr["conf_path"], "-ep", "1", "-utt_id", utt]
+                                        + (["--cpu"] if name == "cpu" else []))
+        out[f"ctc_prob_{name}_seconds"] = time.perf_counter() - t0
+        if name == "cuda":
+            out["ctc_prob_launches"] = launch_counts()
+            first = buf.getvalue().splitlines()[0]
+    err = _max_err(torch.from_numpy(probs["cuda"]), torch.from_numpy(probs["cpu"]))
+    require(err <= ANALYSIS_PROB_TOL, f"analysis ctc_prob: card vs CPU {err:.2e}")
+    require(out["ctc_prob_launches"]["attention_fwd"] == tr["cfg"].enc_num_layers,
+            f"analysis ctc_prob launches {out['ctc_prob_launches']}")
+    print(f"  analysis ctc_prob of {utt} ({probs['cuda'].shape[0]} frames): {out['ctc_prob_cuda_seconds']:.2f} s on "
+          f"{card}, card vs CPU {err:.1e} (tol {ANALYSIS_PROB_TOL}); its first line: {first}")
+    out["ctc_prob_err"] = err
+
+    data = os.path.join(sub, "test4.tsv")
+    test.iloc[:4].to_csv(data, sep="\t", index=False)
+    l1 = _grid_against_cli("L1", tr["conf_path"], "1", data, lms["transformer"]["conf_path"], True)
+    print(f"  fusion grid (2 x 2) of L1 beam 8 + the Transformer LM over 4 utterances: {l1['seconds']:.2f} s on "
+          f"{card}; WERs {[round(w[0], 2) for w in l1['wers']]}, each point's TSV equal to the eval CLI's; the grid "
+          f"returns {tuple(l1['best'][:3])} (no point below WER 100); K3 {l1['launches']['topk']} launches")
+
+    lm_conf = _write_conf(os.path.join(sub, "libri_transformer_v12.yaml"), LM_CONF, vocab_size=overfit["vocab_size"],
+                          mask_id=overfit["vocab_size"] - 1, vocab_path=None, train_path=None, seed=seed)
+    torch.manual_seed(seed)
+    lm = LM(load_config(lm_conf))
+    with torch.no_grad():  # a prior that pulls the beam toward token 3 where the LM weighs in
+        lm.state_dict()["lm.transformer.cls.predictions.bias"][3] += GRID_LM_BIAS
+    save_model(os.path.join(sub, "libri_transformer_v12", "checkpoints", "model.ep1"), lm)
+    data = os.path.join(sub, "overfit8.tsv")
+    pd.read_table(overfit["tsv"]).iloc[:8].to_csv(data, sep="\t", index=False)
+    ov = _grid_against_cli("overfit", overfit["conf_path"], overfit["ep"], data, lm_conf, False)
+    low = min(w[0] for w in ov["wers"])
+    want_best = next(w for w in ov["wers"] if w[0] == low)
+    require(low < 100.0 and len({w[0] for w in ov["wers"]}) > 1 and tuple(ov["best"]) == tuple(want_best),
+            f"overfit fusion grid best {ov['best']}, the eval CLI's points give {want_best}")
+    print(f"  fusion grid (2 x 2) of the overfit model's beam 8 + a seed-weight Transformer LM at V = "
+          f"{overfit['vocab_size']} (token 3's bias +{GRID_LM_BIAS}) over 8 utterances: {ov['seconds']:.2f} s on {card}; WERs "
+          f"{[round(w[0], 2) for w in ov['wers']]}, each point's TSV equal to the eval CLI's; best "
+          f"{tuple(ov['best'][:3])}, the first of the lowest (its top-k over V = {overfit['vocab_size']} is the "
+          f"stable sort's, not K3's)")
+    out.update(grid_wers=[w[0] for w in l1["wers"]], grid_best=list(l1["best"][:3]), grid_seconds=l1["seconds"],
+               launches=l1["launches"], overfit_grid_wers=[w[0] for w in ov["wers"]],
+               overfit_grid_best=list(ov["best"][:3]), overfit_grid_seconds=ov["seconds"],
+               overfit_launches=ov["launches"])
+    res = l1["res"]
+
+    nbest = os.path.join(res, "result_test_beam8_len0.0_ctc0.0_lm0.00_ep1_nbest.tsv")
+    t0 = time.perf_counter()
+    aligned = align_hyps.main(align_hyps.build_argparser().parse_args([nbest, "-ref", tr["test_tsv"]]))
+    out["align_seconds"] = time.perf_counter() - t0
+    df = pd.read_table(aligned)
+    n_hyp = len(pd.read_table(nbest).dropna())
+    require(0 < len(df) <= n_hyp and all(len(str(a).split()) == len(str(h).split())
+                                         for a, h in zip(df["error_label"], df["token_id"])),
+            f"align_hyps: {len(df)} rows of {n_hyp} hypotheses")
+    labels = " ".join(df["error_label"].astype(str)).split()
+    counts = {c: labels.count(c) for c in "CSID"}
+    print(f"  align_hyps (SID) on the L1 beam-8 n-best: {len(df)} of {n_hyp} hypotheses labelled in "
+          f"{out['align_seconds']:.2f} s, labels {counts}")
+    out.update(align_rows=len(df), align_labels=counts, seconds=time.perf_counter() - t_phase)
+    return out
+
+
 KERNEL_ROWS = (
     # name, source, file:line of the TPU kernel it replaces
     ("topk", "emoasr_tpu_torch/csrc/topk.cu", "emoasr_tpu/ops/topk_pallas.py:64"),
@@ -5290,10 +5908,16 @@ def main(argv=None) -> int:
 
     # 1. device
     t_start = time.perf_counter()
+
+    def phase(header: str) -> None:
+        """Print a phase's header with the seconds the run has taken so far."""
+        num, rest = header.split("]", 1)
+        print(f"{num}] (at {time.perf_counter() - t_start:.0f} s){rest}")
+
     dev = torch.device("cuda", 0)
     card = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
-    print(f"[1/22] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    phase(f"[1/26] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     found = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     set_matmul_precision("float32")
     print(f"  TF32 found (matmul, cudnn) = {found}; the port's switch for float32 sets "
@@ -5307,7 +5931,7 @@ def main(argv=None) -> int:
     floor = lattice_floor_kernel()
     build_all(kernels + [floor])
     resources = kernel_resources(jobs)
-    print(f"[2/22] built {', '.join(k.name for k in kernels)} from "
+    phase(f"[2/26] built {', '.join(k.name for k in kernels)} from "
           f"{', '.join(sorted({k.source for k in kernels}))} in {time.perf_counter() - t0:.1f} s")
     print("  the kernels (nvcc -Xptxas -v, cuobjdump -sass): registers, spill stores / loads (bytes), "
           "static shared memory (bytes), HMMA + HGMMA instructions")
@@ -5316,7 +5940,7 @@ def main(argv=None) -> int:
               f"smem {r['smem']}, {r['mma_instructions']} HMMA")
 
     # 3. kernels against their plain versions
-    print("[3/22] kernels against their plain versions on the card, forward and backward")
+    phase("[3/26] kernels against their plain versions on the card, forward and backward")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     errs = {"topk": check_topk(dev, gen), **check_attention(dev, gen),
@@ -5353,7 +5977,7 @@ def main(argv=None) -> int:
     root = tempfile.mkdtemp(dir=scratch_root)
     try:
         # 4. training at full width, then one micro-step against the CPU
-        print("[4/22] main path: L1 CTC(Transformer) training through the train CLI")
+        phase("[4/26] main path: L1 CTC(Transformer) training through the train CLI")
         tr = train_full_width(args, root, card)
         n_layers = tr["cfg"].enc_num_layers
         step_check = check_micro_step(tr, dev, {
@@ -5362,27 +5986,27 @@ def main(argv=None) -> int:
         step_split = time_micro_step(tr, dev, card)
 
         # 5. learning on the card
-        print("[5/22] learning on the card: the small overfit corpus, train CLI then eval CLI")
+        phase("[5/26] learning on the card: the small overfit corpus, train CLI then eval CLI")
         overfit = overfit_on_card(args, root)
 
         # 6. decode the trainer's checkpoint
-        print("[6/22] main path: decode of the trainer's model.ep1 through the eval CLI")
+        phase("[6/26] main path: decode of the trainer's model.ep1 through the eval CLI")
         mp = decode_path(args, tr, dev, card)
 
         # 7. the Conformer's attention with its bias, forward and backward
-        print("[7/22] main path: L2 CTC(Conformer) training, two micro-steps through the train CLI")
+        phase("[7/26] main path: L2 CTC(Conformer) training, two micro-steps through the train CLI")
         l2 = train_conformer_steps(args, root, card)
 
         # 8. the slice's path: L3-1 joint-CTC beam decode
-        print("[8/22] main path: L3-1 Conformer + attention decoder, beam 10 with joint CTC, through the eval CLI")
+        phase("[8/26] main path: L3-1 Conformer + attention decoder, beam 10 with joint CTC, through the eval CLI")
         l3 = decode_l3_1(args, root, tr["test_tsv"], tr["wav_s"], dev, card)
 
         # 9. the slice's path: L3-3, the same with Transformer-LM shallow fusion
-        print("[9/22] main path: L3-3, L3-1 with Transformer-LM shallow fusion 0.5, through the eval CLI")
+        phase("[9/26] main path: L3-3, L3-1 with Transformer-LM shallow fusion 0.5, through the eval CLI")
         l33 = decode_l3_3(args, root, tr, dev, card)
 
         # 10. the slice's path: L4 RNN-T(Conformer) training, then greedy and ALSD decoding
-        print("[10/22] main path: L4 RNN-T(Conformer) training through the train CLI, then its model.ep1 "
+        phase("[10/26] main path: L4 RNN-T(Conformer) training through the train CLI, then its model.ep1 "
               "greedily and with the ALSD beam through the eval CLI")
         l4 = train_l4(args, root, card)
         n_layers = l4["cfg"].enc_num_layers
@@ -5395,7 +6019,7 @@ def main(argv=None) -> int:
                 "an entry point left TF32 on for a float32 model")
 
         # 11. the slice's path: L1 trained in bf16, then its model.ep1 greedily
-        print("[11/22] main path: L1 CTC(Transformer) training with compute_dtype bfloat16 through the train CLI, "
+        phase("[11/26] main path: L1 CTC(Transformer) training with compute_dtype bfloat16 through the train CLI, "
               "then its model.ep1 greedily through the eval CLI")
         l1b_root = os.path.join(root, "l1_bfloat16")
         os.makedirs(l1b_root)
@@ -5409,7 +6033,7 @@ def main(argv=None) -> int:
         l1b_dec = decode_greedy_bf16(l1b, card, ("attention_fwd_bf16",))
 
         # 12. the slice's path: L4 trained in bf16, then its model.ep1 greedily
-        print("[12/22] main path: L4 RNN-T(Conformer) training with compute_dtype bfloat16 through the train CLI, "
+        phase("[12/26] main path: L4 RNN-T(Conformer) training with compute_dtype bfloat16 through the train CLI, "
               "then its model.ep1 greedily through the eval CLI")
         l4b = train_l4(args, root, card, "bfloat16", per_bucket=(1, 1, 1, 1, 1))
         n_layers = l4b["cfg"].enc_num_layers
@@ -5421,12 +6045,12 @@ def main(argv=None) -> int:
         l4b_dec = decode_greedy_bf16(l4b, card, ("attention_fwd_bf16", "attention_bias_fwd_bf16"))
 
         # 13. the slice's path: bf16 beam decoding of L1, L3-1, L3-3 and L4
-        print("[13/22] main path: bf16 beam decoding at full width: L1 beam 8, L3-1 (K5 bf16, both variants), "
+        phase("[13/26] main path: bf16 beam decoding at full width: L1 beam 8, L3-1 (K5 bf16, both variants), "
               "L3-3 with the LM in bf16 (K6 bf16 and the dense route), L4 ALSD beam 10")
         b16 = decode_bf16(args, root, tr, mp, l3, l33, {**l4, "batches": l4_dec["batches"]}, dev, card)
 
         # 14. slice 3c: L3-1 training, its micro-step against the CPU, its model.ep1 decoded; then in bf16
-        print("[14/22] main path: L3-1 (Conformer + attention decoder, aux CTC 0.3, label smoothing 0.1) training "
+        phase("[14/26] main path: L3-1 (Conformer + attention decoder, aux CTC 0.3, label smoothing 0.1) training "
               "through the train CLI, then its model.ep1 through the eval CLI (beam 10, joint CTC 0.3); two bf16 "
               "micro-steps")
         n_l3_test = 20
@@ -5448,42 +6072,63 @@ def main(argv=None) -> int:
             "attention_fwd": 0, "attention_bwd": 0})
 
         # 15. slice 6a: the three LMs trained through train_lm; one RNN LM step against the CPU
-        print("[15/22] main path: the RNN (K8), Transformer and BERT LMs trained through train_lm over a sharded "
+        phase("[15/26] main path: the RNN (K8), Transformer and BERT LMs trained through train_lm over a sharded "
               "corpus that fills every bucket")
         lms = train_lms(args, root, card)
         rnn_step = {**check_rnn_lm_step(lms["rnn"], dev), **time_rnn_lm_step(lms["rnn"], dev, card)}
 
         # 16. slice 6a: PPL and BERT's pseudo-PPL through the PPL CLI, against the CPU
-        print("[16/22] main path: PPL of the three checkpoints through the PPL CLI (BERT: chunked pseudo-PPL at the "
+        phase("[16/26] main path: PPL of the three checkpoints through the PPL CLI (BERT: chunked pseudo-PPL at the "
               "(11, 256) bucket), against the CPU")
         ppl = lm_ppl(lms, dev, card)
 
         # 17. slice 6a: RNN-LM shallow fusion in the three beams
-        print("[17/22] main path: RNN-LM shallow fusion 0.5 into the L1 CTC beam and the L3-1 attention beam "
+        phase("[17/26] main path: RNN-LM shallow fusion 0.5 into the L1 CTC beam and the L3-1 attention beam "
               "through the eval CLI, and into the L4 ALSD beam in Python")
         fusion = rnn_lm_fusion(args, lms["rnn"], tr, l3t, l4, dev, card)
 
         # 18. slice 6b: ELECTRA and electra-disc through train_lm; one step each against the CPU
-        print("[18/22] main path: ELECTRA (ted2_electra.yaml, 12 + 12 x 256, V 9798) and electra-disc trained "
+        phase("[18/26] main path: ELECTRA (ted2_electra.yaml, 12 + 12 x 256, V 9798) and electra-disc trained "
               "through train_lm; one step each against the CPU on the same generated ids")
         electra = train_electra(args, root, card, dev)
 
         # 19. slice 6b: P-ELECTRA, the deletable PC-MLM and pctc (K4 in the phone encoder, K1 and K2)
-        print("[19/22] main path: P-ELECTRA (ted2_pelectra.yaml) and the deletable PC-MLM (del_pc_mlm.yaml) "
+        phase("[19/26] main path: P-ELECTRA (ted2_pelectra.yaml) and the deletable PC-MLM (del_pc_mlm.yaml) "
               "trained through train_lm with the fused phone-encoder attention (K4 with dropout); one step each "
               "against the CPU; the PC-MLM's pseudo-PPL through the PPL CLI; one pctc step (K1, K2)")
         p2w = train_p2w(args, root, card, dev)
 
         # 20. slice 7a: error correction with the PC-MLM
-        print("[20/22] main path: asr_hie_phone.yaml trained through the train CLI (K1, K2, K4), its phone "
+        phase("[20/26] main path: asr_hie_phone.yaml trained through the train CLI (K1, K2, K4), its phone "
               "hypotheses through test_asr --decode_phone, and correction with the PC-MLM through the correction "
               "CLI, against the CPU")
         corr = correction(args, root, p2w["pbert"], dev, card)
 
         # 21. slice 7a: N-best rescoring of the L1 beam's n-best
-        print("[21/22] main path: the L1 beam-8 n-best through the rescoring CLI with the Transformer, BERT and "
+        phase("[21/26] main path: the L1 beam-8 n-best through the rescoring CLI with the Transformer, BERT and "
               "ELECTRA LMs, score_lm against the CPU")
         resc = rescoring(args, root, tr, lms, dev, card)
+
+        # 22. slice 7b: soft labels from the LMs through make_label (K3)
+        phase("[22/26] main path: soft labels from the trained libri Transformer LM and BERT through make_label "
+              "(K3 once a chunk), each held to the CPU's; the V = 1000 LM's for L4")
+        soft = soft_label_phase(args, root, lms, dev, card)
+
+        # 23. slice 7b: the distillation routes of L1, L3 and L4
+        phase("[23/26] main path: distillation micro-steps through the train step: L1 alignment KD (K2, K4), L3 "
+              "soft labels (K1, K2, K4 with its bias), L4 word and align KD over the full joint (K8, K4); one "
+              "micro-step of each against the CPU")
+        kd = kd_phase(args, root, tr, l4, soft, dev, card)
+
+        # 24. slice 7b: RNN-T forced alignment
+        phase("[24/26] main path: RNN-T forced alignment of the L4 model.ep1 through ASR.forced_align (K4, K8), "
+              "card against CPU")
+        fa = forced_align_phase(l4, dev, card)
+
+        # 25. slice 7b: the analysis tools
+        phase("[25/26] main path: analysis ctc_prob (K4), the fusion grid on L1's CTC beam with the Transformer "
+              "LM (K3, K4) and align_hyps on the n-best")
+        ana = analysis_phase(root, tr, lms, overfit, args.seed, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     set_matmul_precision("float32")  # the bf16 entry points turned TF32 on for their float32 remainder
@@ -5496,6 +6141,12 @@ def main(argv=None) -> int:
     # beside it at the CTC beam's (B, V) with k = 8
     topk_shapes = [{**time_topk(dev, gen, shape, k, dt), "class": [shape[-1], k, str(dt).replace("torch.", "")]}
                    for shape, k in TOPK_SHAPES for dt in (torch.float32, torch.bfloat16)]
+    # K3 at make_label's class: (N, V) logits, N a chunk's labelled positions (the largest chunk of phase 22)
+    ml_launches = {10000: sum(soft[t]["launches"]["topk"] for t in ("transformer", "bert")),
+                   1000: soft["v1000"]["launches"]["topk"]}
+    make_label_k3 = [{**time_topk(dev, gen, (soft[t]["max_n"], soft[t]["V"]), KD_TOPK),
+                      "class": [soft[t]["V"], KD_TOPK, "float32"], "launches": ml_launches[soft[t]["V"]]}
+                     for t in ("transformer", "v1000")]
     times = {"topk": {**topk_shapes[0], "shapes": topk_shapes},
              "attention_fwd": time_attention(dev, gen, B, T2, 4, 64, lens),
              "attention_bwd": time_attention_backward(dev, gen, B, T2, 4, 64, lens)}
@@ -5556,7 +6207,7 @@ def main(argv=None) -> int:
             print(f"    attention_{kind}{sfx} (the phone encoder) {r['shape']}: {r['ms']:.4f} ms (bound "
                   f"{r['bound_ms']:.4f} by {r['bound_by']}, plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}), "
                   f"{r['launches']} launches in the P2W steps and the pseudo-PPL")
-    print(f"[22/22] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
+    phase(f"[26/26] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
           f"decoder step W = 10, pos = 64; L4: B = {l4_big.batch_size}, T' = {l4_T}, U+1 = {l4_big.max_ylen + 1}) "
           f"on {smi}")
 
@@ -5567,7 +6218,9 @@ def main(argv=None) -> int:
                                 *lms.values(), *ppl.values(), *fusion.values())] + [
         l3t["launches"], l3b["launches"], l3t_dec["launches"],
         *(v["launches"] for v in electra.values()), *(p2w[t]["launches"] for t in ("pelectra", "pbert", "pctc")),
-        p2w["pbert"]["ppl"]["launches"], corr["launches"], corr["decode_launches"], corr["correct_launches"]]
+        p2w["pbert"]["ppl"]["launches"], corr["launches"], corr["decode_launches"], corr["correct_launches"],
+        *(soft[t]["launches"] for t in ("transformer", "bert", "v1000")), *(kd[k]["launches"] for k in ("l1", "l3", "l4")),
+        fa["launches"], ana["ctc_prob_launches"], ana["launches"], ana["overfit_launches"]]
     ms = lambda x: "none" if x is None else f"{x:.4f}"
 
     def row_of(name, src, rep, launches):
@@ -5597,8 +6250,9 @@ def main(argv=None) -> int:
             "K3's launches by shape class do not add up to its launches")
     print("  K3 launches on the main paths by shape class (V, k, dtype): " +
           ", ".join(f"{cls}: {n}" for cls, n in sorted(by_class.items(), key=lambda kv: -kv[1])))
-    for r in topk_shapes:
-        r["launches"] = by_class.get(tuple(r["class"]), 0)
+    for r in topk_shapes:  # make_label's launches have their own row
+        r["launches"] = by_class.get(tuple(r["class"]), 0) - sum(
+            m["launches"] for m in make_label_k3 if m["class"] == r["class"])
         print(f"    top-k {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by {r['bound_by']}, plain "
               f"{r['plain_ms']:.4f}, torch.topk {r['library_ms']:.4f}), {r['launches']} launches of its class")
     for kind in ("fwd", "bwd"):
@@ -5616,12 +6270,22 @@ def main(argv=None) -> int:
         launches = sum(p[name] for p in paths)
         require(launches > 0, f"kernel {name} was launched no time on the main paths")
         rows.append(row_of(name, src, rep, launches))
+    # K3 at make_label's class (phase 22), its own row; the V = 1000 labels beside it
+    for r in make_label_k3:
+        require(r["launches"] > 0, f"K3 at make_label's class {r['class']} was launched no time")
+        print(f"  topk_make_label {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by {r['bound_by']}, "
+              f"plain {r['plain_ms']:.4f}, torch.topk {r['library_ms']:.4f}), {r['launches']} launches in make_label")
+    ml = make_label_k3[0]
+    rows.append({"name": "topk_make_label", "route": "cuda", "source": "emoasr_tpu_torch/csrc/topk.cu",
+                 "replaces": "emoasr_tpu/ops/topk_pallas.py:64", "launches": ml["launches"], "max_abs_err": 0.0,
+                 **{k: ml[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+                 "shapes": make_label_k3})
     print("  the same launchers at shapes no main path runs (J = 1024, H = 1024, CSJ's V = 4000, W = 33):")
     wide = [row_of(name, src, rep, 0) for name, src, rep in WIDE_ROWS]
     print(json.dumps({
         "train": {k: tr[k] for k in ("micro_steps", "seconds", "epoch_seconds", "micro_steps_per_s",
                                      "utt_per_s", "launches", "losses")},
-        "micro_step": {**step_split, **step_check}, "overfit": overfit,
+        "micro_step": {**step_split, **step_check}, "overfit": {k: overfit[k] for k in ("wer", "seconds")},
         "decode": {
             f"beam{b}": {k: r[k] for k in ("seconds", "utt_per_s", "rtf", "launches")}
             for b, r in mp["runs"].items()
@@ -5664,6 +6328,10 @@ def main(argv=None) -> int:
                       for t, v in p2w.items()},
         "correction": {k: corr[k] for k in ("train_seconds", "losses", "decode_phone", "correct")},
         "rescoring": resc,
+        "soft_labels": {t: {k: v for k, v in soft[t].items() if k != "launches"} for t in ("transformer", "bert", "v1000")},
+        "distillation": {k: {key: v for key, v in kd[k].items() if key != "launches"} for k in ("l1", "l3", "l4")},
+        "forced_align": {k: v for k, v in fa.items() if k != "launches"},
+        "analysis": {k: v for k, v in ana.items() if not k.endswith("launches")},
         "wide_widths": wide,
         "kernel_resources": resources,
         "card": smi, "total_seconds": time.perf_counter() - t_start,

@@ -133,7 +133,7 @@ class ExpConfig:
     kd_weight: float = 0.0
     kd_type: str = "word"  # word | align (RNN-T)
     kd_ctc_soft_label_weight: float = 1.0
-    kd_ctc_position: str = "all"  # all | left | middle | right
+    kd_ctc_position: str = "all"  # all | left | mid | right ("middle" raises, as in JAX)
     reduce_main_loss_kd: bool = False
     distill_temperature: float = 1.0
 

@@ -12,6 +12,8 @@ optional C++ batch loader (features load with numpy).
 
 from __future__ import annotations
 
+import logging
+import pickle
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
@@ -23,13 +25,37 @@ from emoasr_tpu_torch.data.batching import (
     derive_buckets,
     pad_to,
 )
-from emoasr_tpu_torch.utils.converters import str2ints
+from emoasr_tpu_torch.utils.converters import get_utt_id_nosp, str2ints
+
+
+def create_soft_label(data_kd_utt, ylen: int, vocab_size: int, lsm_prob: float, add_eos: bool,
+                      eos_id: int = 2) -> np.ndarray:
+    """Expand top-k (v, p) pairs into a dense (ylen[+1], V) soft-label
+    matrix (datasets.py:248-263): each row p (1 - lsm_prob) at its top-k
+    entries and lsm_prob / (V - k) everywhere else; with `add_eos` a last
+    row for <eos>."""
+    L = ylen + 1 if add_eos else ylen
+    soft = np.zeros((L, vocab_size), np.float32)
+    for i, topk in enumerate(data_kd_utt):
+        if i >= L:
+            break
+        soft[i, :] = lsm_prob / (vocab_size - len(topk))
+        for v, prob in topk:
+            soft[i, int(v)] = float(prob) * (1 - lsm_prob)
+    if add_eos:
+        soft[-1, :] = lsm_prob / (vocab_size - 1)
+        soft[-1, eos_id] = 1.0 * (1 - lsm_prob)
+    return soft
 
 
 class ASRDataset:
-    def __init__(self, cfg: ExpConfig, data_path: str, phase: str = "train", decode_phone: bool = False):
+    def __init__(self, cfg: ExpConfig, data_path: str, phase: str = "train", decode_phone: bool = False,
+                 kd_label_path: Optional[str] = None):
         """`decode_phone` reads the phone columns at test time too (the
-        eval CLI's `--decode_phone`, error correction with phones)."""
+        eval CLI's `--decode_phone`, error correction with phones).
+        `kd_label_path`: the soft labels' pickle, read in the train phase
+        when `kd_weight` or `inter_kd_weight` is set; each example then
+        carries `soft_label` and each batch `soft_labels`."""
         self.cfg = cfg
         self.phase = phase
         self.use_phone = (phase == "train" and cfg.mtl_phone_ctc_weight > 0) or decode_phone
@@ -37,6 +63,12 @@ class ASRDataset:
         if self.use_phone:
             cols += ["phone_token_id", "phone_text"]
         self.data = pd.read_table(data_path)[cols]
+        self.data_kd = None
+        if phase == "train" and (cfg.kd_weight > 0 or cfg.inter_kd_weight > 0) and kd_label_path:
+            with open(kd_label_path, "rb") as f:
+                self.data_kd = pickle.load(f)
+            logging.info(f"kd labels: {kd_label_path}")
+        self.add_eos = cfg.decoder_type in ("transformer", "las")
 
     def __len__(self) -> int:
         return len(self.data)
@@ -60,6 +92,13 @@ class ASRDataset:
             ex["p"] = p
             ex["plen"] = len(p)
             ex["ptext"] = row["phone_text"]
+        if self.data_kd is not None:
+            utt_nosp = get_utt_id_nosp(row["utt_id"])
+            kd_utt = self.data_kd.get(utt_nosp, [])
+            if not kd_utt:
+                logging.warning(f"soft label: {utt_nosp} not found")
+            ex["soft_label"] = create_soft_label(kd_utt, len(y), cfg.vocab_size, cfg.lsm_prob,
+                                                 add_eos=self.add_eos, eos_id=cfg.eos_id)
         return ex
 
     # ---- batching ----
@@ -133,6 +172,9 @@ class ASRDataset:
             batch["ps"] = pad_to([e["p"] for e in exs], max_plen, peos).astype(np.int32)
             batch["plens"] = np.asarray([e["plen"] for e in exs], np.int32)
             batch["ptexts"] = [e["ptext"] for e in exs]
+        if self.data_kd is not None:
+            batch["soft_labels"] = pad_to([e["soft_label"] for e in exs], max_ylen + 1 if self.add_eos else max_ylen,
+                                          0.0)
         return batch
 
     def batches(self, batcher: Optional[BucketBatcher] = None, seed: int = 0) -> Iterator[Dict]:

@@ -2,7 +2,7 @@
 `emoasr_tpu/models/asr.py`).
 
 Parity target: emoASR `asr/modeling/asr.py:21-101`: `forward` (loss),
-greedy `decode`, `forced_align`; the submodule names `encoder` and
+greedy `decode`, `forced_align` (CTC and RNN-T); the submodule names `encoder` and
 `decoder` are the reference checkpoint's prefixes.  Ported so far: the
 Transformer and Conformer encoders with the CTC decoder, the RNN-T decoder
 and the attention decoder (training and decoding).  Dropout is on in
@@ -21,6 +21,7 @@ from emoasr_tpu_torch.models.decoders.rnnt import RNNTDecoder
 from emoasr_tpu_torch.models.decoders.transformer import TransformerDecoder
 from emoasr_tpu_torch.models.encoders import build_encoder
 from emoasr_tpu_torch.ops.ctc import ctc_forced_align
+from emoasr_tpu_torch.ops.rnnt import rnnt_forced_align
 
 
 class ASR(nn.Module):
@@ -72,16 +73,20 @@ class ASR(nn.Module):
         return self.decoder.greedy(eouts, elens, decode_phone)
 
     @torch.no_grad()
-    def forced_align(self, xs, xlens, ys, ylens):
-        """(B, T') frame alignment of the reference labels (CTC branch of
-        `asr.py:101-116`)."""
-        if self.cfg.decoder_type == "rnn_transducer":
-            raise NotImplementedError(
-                "RNN-T forced alignment (ops/rnnt.py::rnnt_forced_align) comes with the "
-                "distillation slice (ROADMAP.md §1, slice 7b)"
-            )
-        if self.cfg.decoder_type != "ctc":
-            raise NotImplementedError(f"forced_align for decoder_type={self.cfg.decoder_type}")
+    def forced_align(self, xs, xlens, ys, ylens, ys_in=None):
+        """Forced alignment of the reference labels (`asr.py:101-127`): a
+        CTC model's (B, T') frame alignment, an RNN-T model's (B, U)
+        emission frames (`ys_in`: the eos-led labels, made from `ys` when
+        not given)."""
+        cfg = self.cfg
+        if cfg.decoder_type not in ("ctc", "rnn_transducer"):
+            raise NotImplementedError(f"forced_align for decoder_type={cfg.decoder_type}")
         eouts, elens, _ = self.encoder(xs, xlens)
-        log_probs = torch.log_softmax(self.decoder.logits(eouts).float(), dim=-1)
-        return ctc_forced_align(log_probs, elens, ys, ylens, self.cfg.blank_id)
+        if cfg.decoder_type == "ctc":
+            log_probs = torch.log_softmax(self.decoder.logits(eouts).float(), dim=-1)
+            return ctc_forced_align(log_probs, elens, ys, ylens, cfg.blank_id)
+        if ys_in is None:
+            ys_in = torch.cat([torch.full_like(ys[:, :1], cfg.eos_id), ys], dim=1)
+        douts, _ = self.decoder.recurrency(ys_in)
+        log_probs = torch.log_softmax(self.decoder.joint(eouts, douts).float(), dim=-1)
+        return rnnt_forced_align(log_probs, elens, ys, ylens, cfg.blank_id)

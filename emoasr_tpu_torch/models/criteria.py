@@ -1,5 +1,5 @@
-"""Training criteria (PyTorch port of the label-smoothing and masked-LM parts
-of `emoasr_tpu/models/criteria.py`).
+"""Training criteria (PyTorch port of `emoasr_tpu/models/criteria.py`):
+label smoothing, the masked-LM loss and the five distillation losses.
 
 Parity target: emoASR `asr/criteria.py:5-46`: the masked cross-entropy
 against a label-smoothed target, (1 - p) on the label and p / (V - 1) on
@@ -17,14 +17,32 @@ the mean cross-entropy over the labels that are not -100, taken as a gather
 of the log-probabilities at the labels, not as the JAX package's one-hot
 product.
 
-The distillation losses come with slice 7b (ROADMAP.md §1).
+The distillation losses (emoASR `asr/criteria.py:49-288`) are masked
+batched reductions, as in the JAX package.  Their hard (label-smoothed
+one-hot) targets are taken in the closed form above, by a gather at the
+label; the soft targets are dense (B, L, V) tensors and are multiplied
+in.  `rnnt_align_distill_loss` sums over every label position, the JAX
+package's intended semantics (emoASR keeps only the last one).
+`rnnt_word_distill_loss` also takes soft labels of U rows, as the dataset
+makes them for a transducer (the JAX function wants U + 1; the row it
+lacks is never read).
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
-SLICE_7 = "(ROADMAP.md §1, slice 7b: distillation)"
+
+def _lsm_target(logp: torch.Tensor, ys: torch.Tensor, lsm_prob: float) -> torch.Tensor:
+    """sum_v logp[..., v] onehot_lsm(ys)[..., v] in closed form: (1 - p)
+    logp[y] + p / (V - 1) (sum_v logp[v] - logp[y])."""
+    V = logp.shape[-1]
+    at_y = torch.gather(logp, -1, ys.long().clamp(0, V - 1)[..., None])[..., 0]
+    if lsm_prob == 0.0:
+        return at_y
+    return (1.0 - lsm_prob) * at_y + (lsm_prob / (V - 1)) * (logp.sum(-1) - at_y)
 
 
 def label_smoothing_loss(
@@ -39,8 +57,7 @@ def label_smoothing_loss(
     positions at or past `ylens` do not count."""
     B, L, V = logits.shape
     logp = torch.log_softmax(logits.float(), dim=-1)
-    at_y = torch.gather(logp, -1, ys.long().clamp(0, V - 1)[..., None])[..., 0]
-    target = at_y if lsm_prob == 0.0 else (1.0 - lsm_prob) * at_y + (lsm_prob / (V - 1)) * (logp.sum(-1) - at_y)
+    target = _lsm_target(logp, ys, lsm_prob)
     mask = torch.arange(L, device=logits.device)[None, :] < ylens.to(logits.device)[:, None]
     per_pos = torch.where(mask, target, torch.zeros((), device=logits.device))
     per_b = per_pos.sum(dim=1)
@@ -52,8 +69,36 @@ def label_smoothing_loss(
     return loss
 
 
-def distill_loss(*args, **kwargs):
-    raise NotImplementedError(f"the soft-label distillation loss comes with {SLICE_7}")
+def distill_loss(
+    logits: torch.Tensor,
+    ys: torch.Tensor,
+    soft_labels: torch.Tensor,
+    ylens: torch.Tensor,
+    soft_label_weight: float,
+    lsm_prob: float = 0.0,
+    normalize_length: bool = False,
+    normalize_batch: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Soft/hard label interpolation KD (criteria.py:49-100) -> (loss,
+    loss_soft, loss_hard): the masked cross-entropy against the soft labels
+    and against the label-smoothed labels, mixed by `soft_label_weight`."""
+    B, L, V = logits.shape
+    dev = logits.device
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ylens = ylens.to(dev)
+    mask = torch.arange(L, device=dev)[None, :] < ylens[:, None]
+
+    def masked_sum(per_pos):
+        per_b = torch.where(mask, per_pos, torch.zeros((), device=dev)).sum(dim=1)
+        if normalize_length:
+            per_b = per_b / ylens.clamp(min=1)
+        return per_b
+
+    soft_b = masked_sum((logp * soft_labels[:, :L].to(dev, logp.dtype)).sum(-1))
+    hard_b = masked_sum(_lsm_target(logp, ys.to(dev), lsm_prob))
+    loss_b = soft_label_weight * soft_b + (1.0 - soft_label_weight) * hard_b
+    denom = B if normalize_batch else 1
+    return -loss_b.sum() / denom, -soft_b.sum() / denom, -hard_b.sum() / denom
 
 
 IGNORE_ID = -100
@@ -68,3 +113,161 @@ def masked_lm_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_id: int = 
     tgt = torch.where(valid, labels, torch.zeros_like(labels)).long()
     ce = -torch.gather(logp, -1, tgt[..., None])[..., 0]
     return torch.where(valid, ce, torch.zeros_like(ce)).sum() / valid.sum().clamp(min=1)
+
+
+# ---------------------------------------------------------------- alignment-based distillation
+
+
+def frame_to_label_mapping(
+    aligns: torch.Tensor,
+    xlens: torch.Tensor,
+    ylens: torch.Tensor,
+    blank_id: int = 0,
+    position: str = "all",
+) -> torch.Tensor:
+    """Map each frame to a label index (or -1), batched
+    (`CTCAlignDistillLoss._frame_to_label_mapping`, criteria.py:176-215):
+    label segments are runs of one non-blank token, delimited by any change
+    (blanks break runs); `position` picks the frames of each segment that
+    carry its label: all, left, mid or right.  aligns (B, T) -> (B, T) int32."""
+    B, T = aligns.shape
+    dev = aligns.device
+    t_idx = torch.arange(T, device=dev)[None, :]
+    valid = t_idx < xlens.to(dev)[:, None]
+    nonblank = (aligns != blank_id) & valid
+    prev = torch.cat([aligns.new_full((B, 1), -1), aligns[:, :-1]], dim=1)
+    new_tok = nonblank & ((t_idx == 0) | (aligns != prev))
+    label_id = torch.cumsum(new_tok.to(torch.int64), dim=1) - 1  # (B, T)
+    minus1 = torch.full_like(label_id, -1)
+    if position == "all":
+        return torch.where(nonblank, label_id, minus1).to(torch.int32)
+    if position not in ("left", "mid", "right"):
+        raise ValueError(position)
+
+    U = T  # at most T segments; column U collects the frames of no segment
+    seg = torch.where(nonblank, label_id, torch.full_like(label_id, U))
+    t_b = t_idx.expand(B, T)
+    left = torch.full((B, U + 1), T, dtype=torch.int64, device=dev).scatter_reduce(
+        1, seg, torch.where(nonblank, t_b, torch.full_like(t_b, T)), reduce="amin")[:, :U]
+    right = torch.full((B, U + 1), -1, dtype=torch.int64, device=dev).scatter_reduce(
+        1, seg, torch.where(nonblank, t_b, torch.full_like(t_b, -1)), reduce="amax")[:, :U]
+    pick = {"left": left, "right": right}.get(position)
+    if pick is None:
+        pick = torch.div(left + right, 2, rounding_mode="floor")
+
+    # the label index onto the picked frame of each segment
+    num_seg = torch.where(nonblank, label_id + 1, torch.zeros_like(label_id)).amax(dim=1)  # (B,)
+    u_idx = torch.arange(U, device=dev)[None, :].expand(B, U)
+    seg_valid = u_idx < num_seg[:, None]
+    out = torch.full((B, T + 1), -1, dtype=torch.int64, device=dev)
+    out.scatter_(1, torch.where(seg_valid, pick, torch.full_like(pick, T)),
+                 torch.where(seg_valid, u_idx, torch.full_like(u_idx, -1)))
+    return out[:, :T].to(torch.int32)
+
+
+def ctc_align_distill_loss(
+    logits: torch.Tensor,
+    ys: torch.Tensor,
+    soft_labels: torch.Tensor,
+    aligns: torch.Tensor,
+    xlens: torch.Tensor,
+    ylens: torch.Tensor,
+    blank_id: int = 0,
+    soft_label_weight: float = 1.0,
+    position: str = "all",
+    lsm_prob: float = 0.0,
+    normalize_length: bool = True,
+    normalize_batch: bool = True,
+) -> torch.Tensor:
+    """Frame-level KD through a CTC forced alignment (criteria.py:103-174):
+    each frame that `frame_to_label_mapping` gives a label takes that
+    label's soft row (and its label-smoothed one-hot) as its target."""
+    B, T, V = logits.shape
+    dev = logits.device
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    xlens = xlens.to(dev)
+    label_map = frame_to_label_mapping(aligns, xlens, ylens, blank_id, position).long()
+    exists = (label_map >= 0) & (torch.arange(T, device=dev)[None, :] < xlens[:, None])
+    zero = torch.zeros((), device=dev)
+    denom = exists.sum(dim=1).clamp(min=1) if normalize_length else 1
+
+    loss_b = torch.zeros(B, device=dev)
+    if soft_label_weight > 0:
+        table = soft_labels.to(dev, logp.dtype)
+        lm = label_map.clamp(0, table.shape[1] - 1)
+        tgt = torch.gather(table, 1, lm[:, :, None].expand(B, T, V))  # (B, T, V): each frame's row
+        s = torch.where(exists, (tgt * logp).sum(-1), zero).sum(dim=1)
+        loss_b = loss_b + soft_label_weight * (s / denom if normalize_length else s)
+    if soft_label_weight < 1:
+        ys = ys.to(dev).long()
+        y_t = torch.gather(ys, 1, label_map.clamp(0, ys.shape[1] - 1))  # (B, T): each frame's label
+        h = torch.where(exists, _lsm_target(logp, y_t, lsm_prob), zero).sum(dim=1)
+        loss_b = loss_b + (1 - soft_label_weight) * (h / denom if normalize_length else h)
+    loss = -loss_b.sum()
+    if normalize_batch:
+        loss = loss / B
+    return loss
+
+
+def rnnt_word_distill_loss(
+    logits: torch.Tensor,
+    soft_labels: torch.Tensor,
+    xlens: torch.Tensor,
+    ylens: torch.Tensor,
+    normalize_length: bool = True,
+    normalize_batch: bool = True,
+    log_probs: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Word-level RNN-T KD: the soft cross-entropy of row u's soft label
+    summed over the (t < xlen, u < ylen) grid (criteria.py:218-250).
+    `soft_labels` (B, U or U+1, V): row U is never read.  `log_probs`, the
+    float32 log-softmax of `logits` where the caller has it already (the
+    decoder's RNN-T loss does), saves a second (B, T, U+1, V) tensor."""
+    B, T, U1, V = logits.shape
+    dev = logits.device
+    logp = torch.log_softmax(logits.float(), dim=-1) if log_probs is None else log_probs
+    xlens, ylens = xlens.to(dev), ylens.to(dev)
+    soft = soft_labels[:, :U1].to(dev, logp.dtype)
+    if soft.shape[1] < U1:
+        soft = torch.cat([soft, soft.new_zeros((B, U1 - soft.shape[1], V))], dim=1)
+    tmask = torch.arange(T, device=dev)[None, :] < xlens[:, None]
+    umask = torch.arange(U1, device=dev)[None, :] < ylens[:, None]
+    grid = tmask[:, :, None] & umask[:, None, :]
+    per_cell = (logp * soft[:, None]).sum(-1)  # (B, T, U1)
+    per = torch.where(grid, per_cell, torch.zeros((), device=dev)).sum(dim=(1, 2))
+    if normalize_length:
+        per = per / (xlens * ylens).clamp(min=1)
+    loss = -per.sum()
+    if normalize_batch:
+        loss = loss / B
+    return loss
+
+
+def rnnt_align_distill_loss(
+    logits: torch.Tensor,
+    soft_labels: torch.Tensor,
+    aligns: torch.Tensor,
+    xlens: torch.Tensor,
+    ylens: torch.Tensor,
+    normalize_length: bool = True,
+    normalize_batch: bool = True,
+) -> torch.Tensor:
+    """Alignment-level RNN-T KD: the soft cross-entropy at the aligned cells
+    (aligns[u], u), summed over every u < ylen (see the module note)."""
+    B, T, U1, V = logits.shape
+    U = U1 - 1
+    dev = logits.device
+    ylens = ylens.to(dev)
+    al = aligns[:, :U].to(dev).long().clamp(0, T - 1)  # (B, U)
+    u_idx = torch.arange(U, device=dev)[None, :].expand(B, U)
+    # the log-softmax of the U aligned cells only: (B, U, V)
+    lp_u = torch.log_softmax(logits[torch.arange(B, device=dev)[:, None], al, u_idx].float(), dim=-1)
+    umask = u_idx < ylens[:, None]
+    per_u = (lp_u * soft_labels[:, :U].to(dev, lp_u.dtype)).sum(-1)
+    per = torch.where(umask, per_u, torch.zeros((), device=dev)).sum(dim=1)
+    if normalize_length:
+        per = per / ylens.clamp(min=1)
+    loss = -per.sum()
+    if normalize_batch:
+        loss = loss / B
+    return loss

@@ -3,10 +3,13 @@
 
 Parity target: emoASR `asr/modeling/decoders/ctc.py:26-201`: linear head,
 CTC loss normalised by B, phone-CTC MTL (optionally hierarchical from the
-intermediate layer), inter-CTC MTL.  The alignment-distillation branches
-need soft labels that only the distillation tooling produces; they raise
-`NotImplementedError` until that slice (ROADMAP.md).  The prefix beam
-search is in `emoasr_tpu_torch/search/ctc_beam.py`.
+intermediate layer), inter-CTC MTL, alignment distillation (`kd_weight`,
+`inter_kd_weight` with soft labels, `models/criteria.py::
+ctc_align_distill_loss`).  A distillation branch takes the dense route, as
+the JAX package does: the (B, T, V) logits, the CTC loss from them (the
+lattice kernel on the card) and the forced alignment of their
+log-probabilities, no gradient through it.  The prefix beam search is in
+`emoasr_tpu_torch/search/ctc_beam.py`.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 from torch import nn
 
 from emoasr_tpu_torch.config import ExpConfig
-from emoasr_tpu_torch.ops.ctc import ctc_loss_fn, ctc_loss_fused_head
+from emoasr_tpu_torch.models.criteria import ctc_align_distill_loss
+from emoasr_tpu_torch.ops.ctc import ctc_forced_align, ctc_loss_fn, ctc_loss_fused_head
 
 # Route the loss through the fused head (ops/ctc_head.py: no (B, T, V)
 # logits); False takes the dense route (logits, logsumexp, gather), for
@@ -86,20 +90,30 @@ class CTCDecoder(nn.Module):
         plens: Optional[torch.Tensor] = None,
     ):
         """Without `ys`: the logits.  With `ys`: (loss, loss_dict, logits),
-        `logits` None since no route of the ported losses keeps them."""
+        `logits` the (B, T, V) head output on the distillation route (the
+        only route that makes it), else None."""
         cfg = self.cfg
         if ys is None:
             return self.output(eouts)
-        if (cfg.kd_weight > 0 or cfg.inter_kd_weight > 0) and soft_labels is not None:
-            raise NotImplementedError(
-                "CTC alignment distillation (kd_weight / inter_kd_weight with soft "
-                "labels) comes with the distillation slice (ROADMAP.md §1, slice 7b)"
-            )
 
         loss_dict = {}
-        loss_ctc = self._ctc(self.output, eouts, ys, elens, ylens)
+        use_kd = cfg.kd_weight > 0 and soft_labels is not None
+        logits = None
+        if use_kd:
+            logits = self.output(eouts)
+            loss_ctc = ctc_loss_fn(logits, ys, elens, ylens, cfg.blank_id)
+        else:
+            loss_ctc = self._ctc(self.output, eouts, ys, elens, ylens)
         loss = loss_ctc
         loss_dict["loss_ctc"] = loss_ctc
+
+        if use_kd:
+            loss_kd = self._align_kd(logits, ys, soft_labels, elens, ylens)
+            loss_dict["loss_kd"] = loss_kd
+            if cfg.reduce_main_loss_kd:
+                loss = (1 - cfg.kd_weight) * loss + cfg.kd_weight * loss_kd
+            else:
+                loss = loss + cfg.kd_weight * loss_kd
 
         if cfg.mtl_phone_ctc_weight > 0:
             src = eouts_inter if cfg.hie_mtl_phone else eouts
@@ -109,12 +123,36 @@ class CTCDecoder(nn.Module):
             loss_dict[key] = loss_phone
 
         if cfg.mtl_inter_ctc_weight > 0:
-            loss_inter = self._ctc(self.output, eouts_inter, ys, elens, ylens)
-            loss_dict["loss_inter_ctc"] = loss_inter
-            loss = loss + cfg.mtl_inter_ctc_weight * loss_inter
+            if cfg.inter_kd_weight > 0 and soft_labels is not None:
+                logits_inter = self.output(eouts_inter)
+                loss_inter = ctc_loss_fn(logits_inter, ys, elens, ylens, cfg.blank_id)
+                loss_dict["loss_inter_ctc"] = loss_inter
+                loss_inter_kd = self._align_kd(logits_inter, ys, soft_labels, elens, ylens)
+                loss_dict["loss_inter_kd"] = loss_inter_kd
+                if cfg.reduce_main_loss_kd:
+                    loss = loss + cfg.mtl_inter_ctc_weight * (
+                        (1 - cfg.inter_kd_weight) * loss_inter + cfg.inter_kd_weight * loss_inter_kd)
+                else:
+                    loss = loss + cfg.inter_kd_weight * loss_inter_kd
+            else:
+                loss_inter = self._ctc(self.output, eouts_inter, ys, elens, ylens)
+                loss_dict["loss_inter_ctc"] = loss_inter
+                loss = loss + cfg.mtl_inter_ctc_weight * loss_inter
 
         loss_dict["loss_total"] = loss
-        return loss, loss_dict, None
+        return loss, loss_dict, logits
+
+    def _align_kd(self, logits, ys, soft_labels, elens, ylens) -> torch.Tensor:
+        """The alignment-distillation loss of one head's logits: the forced
+        alignment of their log-probabilities (no gradient), then
+        `ctc_align_distill_loss` (ctc.py:115-131)."""
+        cfg = self.cfg
+        aligns = ctc_forced_align(torch.log_softmax(logits.detach().float(), dim=-1), elens, ys, ylens,
+                                  cfg.blank_id)
+        return ctc_align_distill_loss(
+            logits, ys, soft_labels, aligns, elens, ylens, blank_id=cfg.blank_id,
+            soft_label_weight=cfg.kd_ctc_soft_label_weight, position=cfg.kd_ctc_position, lsm_prob=cfg.lsm_prob,
+        )
 
     def greedy(self, eouts: torch.Tensor, elens: torch.Tensor, decode_phone: bool = False):
         """Batched greedy decode: returns (hyps, hyp_lens, logits, aligns),

@@ -18,10 +18,14 @@ Parity target: emoASR `asr/modeling/decoders/rnn_transducer.py`:
 - greedy decoding: time-synchronous, emit until blank, at most
   `max_decode_ylen` labels (:194-240), for the whole batch at once.
 
-The distillation losses (:127-141) need soft labels that only the
-distillation tooling produces: they raise `NotImplementedError` until that
-slice (ROADMAP.md §1, slice 7b).  The ALSD beam search (:242-325) is in
-`emoasr_tpu_torch/search/rnnt_beam.py`.
+- distillation (:127-141) with `kd_weight` and soft labels: `kd_type`
+  `word` (the soft cross-entropy over the whole (T, U) grid) or `align`
+  (at the cells of the forced alignment, `ops/rnnt.py::rnnt_forced_align`,
+  no gradient through it).  Either needs the joint's log-probabilities at
+  every cell, so distillation switches the joint to `full`, whatever the
+  yaml's mode (JAX `rnnt.py:94-95`): K7 does not run on that route.
+
+The ALSD beam search (:242-325) is in `emoasr_tpu_torch/search/rnnt_beam.py`.
 """
 
 from __future__ import annotations
@@ -32,9 +36,10 @@ import torch
 from torch import nn
 
 from emoasr_tpu_torch.config import ExpConfig
+from emoasr_tpu_torch.models.criteria import rnnt_align_distill_loss, rnnt_word_distill_loss
 from emoasr_tpu_torch.models.decoders.ctc import CTCDecoder
 from emoasr_tpu_torch.ops.lstm import StackedLSTM
-from emoasr_tpu_torch.ops.rnnt import rnnt_alpha_rowscan, rnnt_gathered_from_joint, rnnt_loss
+from emoasr_tpu_torch.ops.rnnt import rnnt_alpha_rowscan, rnnt_forced_align, rnnt_gathered_from_joint, rnnt_loss
 from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather
 
 JOINT_MODES = ("full", "chunked", "pallas")
@@ -81,17 +86,13 @@ class RNNTDecoder(nn.Module):
                 soft_labels=None, ps=None, plens=None):
         """-> (loss, loss_dict, logits): `ys_in` (B, U+1) is the eos-led
         label sequence (data/asr_dataset.py); `logits` is the joint output
-        in the `full` mode, else None."""
+        in the `full` mode (and on the distillation route), else None."""
         cfg = self.cfg
-        if cfg.kd_weight > 0 and soft_labels is not None:
-            raise NotImplementedError(
-                "RNN-T distillation (kd_weight with soft labels) comes with the distillation "
-                "slice (ROADMAP.md §1, slice 7b)"
-            )
         loss_dict = {}
         douts, _ = self.recurrency(ys_in)  # (B, U+1, H)
+        use_kd = cfg.kd_weight > 0 and soft_labels is not None
         logits = None
-        if cfg.rnnt_joint_mode == "full":
+        if use_kd or cfg.rnnt_joint_mode == "full":
             logits = self.joint(eouts, douts)
             log_probs = torch.log_softmax(logits.float(), dim=-1)
             loss_rnnt = rnnt_loss(log_probs, ys, elens, ylens, cfg.blank_id, reduction="mean")
@@ -107,6 +108,17 @@ class RNNTDecoder(nn.Module):
             loss_ctc, _, _ = self.ctc(eouts, elens, ys=ys, ylens=ylens)
             loss = loss + cfg.mtl_ctc_weight * loss_ctc
             loss_dict["loss_ctc"] = loss_ctc
+        if use_kd:
+            if cfg.kd_type == "word":
+                loss_kd = rnnt_word_distill_loss(logits, soft_labels, elens, ylens, log_probs=log_probs)
+            else:  # align
+                aligns = rnnt_forced_align(log_probs.detach(), elens, ys, ylens, cfg.blank_id)
+                loss_kd = rnnt_align_distill_loss(logits, soft_labels, aligns, elens, ylens)
+            loss_dict["loss_kd"] = loss_kd
+            if cfg.reduce_main_loss_kd:
+                loss = (1 - cfg.kd_weight) * loss + cfg.kd_weight * loss_kd
+            else:
+                loss = loss + cfg.kd_weight * loss_kd
         loss_dict["loss_total"] = loss
         return loss, loss_dict, logits
 

@@ -12,9 +12,10 @@ they are given, in place.
 The training loss is the label-smoothed cross-entropy over `ylens + 1`
 positions (`models/criteria.py`), in CMLM mode the masked-LM loss over the
 labels that are not -100, plus `mtl_ctc_weight` times the auxiliary CTC
-loss (`CTCDecoder`, which runs the CTC head and lattice kernels).  The
-distillation branch raises `NotImplementedError` until slice 7b
-(ROADMAP.md §1).
+loss (`CTCDecoder`, which runs the CTC head and lattice kernels).  With
+`kd_weight` and soft labels the attention loss is `distill_loss`'s mix of
+the soft and the label-smoothed targets (`loss_kd`, `loss_att`); the
+auxiliary CTC gets no soft labels and stays on its kernels.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 from torch import nn
 
 from emoasr_tpu_torch.config import ExpConfig
-from emoasr_tpu_torch.models.criteria import SLICE_7, label_smoothing_loss, masked_lm_loss
+from emoasr_tpu_torch.models.criteria import distill_loss, label_smoothing_loss, masked_lm_loss
 from emoasr_tpu_torch.models.decoders.ctc import CTCDecoder
 from emoasr_tpu_torch.models.layers import (
     PositionalEncoder,
@@ -153,8 +154,8 @@ class TransformerDecoder(nn.Module):
                 ys_out=None, soft_labels=None, ps=None, plens=None):
         """Without `ys_out`: the teacher-forced logits (B, L, V).  With it:
         (loss, loss_dict, logits), `loss_dict` holding `loss_att`,
-        `loss_ctc` (with an auxiliary CTC head) and `loss_total`
-        (transformer.py:190-236)."""
+        `loss_kd` (with `kd_weight` and soft labels), `loss_ctc` (with an
+        auxiliary CTC head) and `loss_total` (transformer.py:190-236)."""
         cfg = self.cfg
         L = ys_in.shape[1]
         emask = make_pad_mask(elens, eouts.shape[1])[:, None, None, :]
@@ -170,17 +171,22 @@ class TransformerDecoder(nn.Module):
         if ys_out is None:
             return logits
         if cfg.kd_weight > 0 and soft_labels is not None:
-            raise NotImplementedError(
-                f"the attention decoder's distillation loss (kd_weight with soft labels) comes with {SLICE_7}"
-            )
-        if self.cmlm:
-            loss_att = masked_lm_loss(logits, ys_out)
-        else:
-            loss_att = label_smoothing_loss(
-                logits, ys_out, ylens + 1, lsm_prob=cfg.lsm_prob,
+            # soft labels of L = U + 1 rows (the last one <eos>'s), mixed with
+            # the label-smoothed targets by kd_weight (transformer.py:205-215)
+            loss, loss_kd, loss_att = distill_loss(
+                logits, ys_out, soft_labels, ylens + 1, soft_label_weight=cfg.kd_weight, lsm_prob=cfg.lsm_prob,
                 normalize_length=cfg.loss_normalize_length, normalize_batch=cfg.loss_normalize_batch,
             )
-        loss, loss_dict = loss_att, {"loss_att": loss_att}
+            loss_dict = {"loss_kd": loss_kd, "loss_att": loss_att}
+        else:
+            if self.cmlm:
+                loss_att = masked_lm_loss(logits, ys_out)
+            else:
+                loss_att = label_smoothing_loss(
+                    logits, ys_out, ylens + 1, lsm_prob=cfg.lsm_prob,
+                    normalize_length=cfg.loss_normalize_length, normalize_batch=cfg.loss_normalize_batch,
+                )
+            loss, loss_dict = loss_att, {"loss_att": loss_att}
         if cfg.mtl_ctc_weight > 0:
             loss_ctc, _, _ = self.ctc(eouts, elens, ys=ys, ylens=ylens)
             loss = loss + cfg.mtl_ctc_weight * loss_ctc

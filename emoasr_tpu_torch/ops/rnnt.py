@@ -39,8 +39,12 @@ tanh's VJP is (d z + d z z)(1 - z) in bf16; every sum over cells
 accumulates in float32 and is rounded once; the gradients of h_dec, w and
 b add up over the time chunks in bf16.
 
-`rnnt_forced_align` waits for the distillation slice (ROADMAP.md §1,
-slice 7b).
+`rnnt_forced_align` (emoASR `rnnt_aligner.py:159-198`) builds the whole
+alpha lattice from the same closed-form rows, and beta as an alpha of the
+emissions flipped by each utterance's lengths (the JAX package's
+construction), both in float64, then walks from (0, 0) towards the larger
+of alpha + beta at (t + 1, u) and (t, u + 1): T + U steps on the device,
+one read-back by the caller at the end.
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ from typing import Tuple
 
 import torch
 
-from emoasr_tpu_torch.ops.common import LOG_0
+from emoasr_tpu_torch.ops.common import LOG_0, flip_by_length
 from emoasr_tpu_torch.search.ctc_prefix_score import log_linear_scan
 
 TIME_CHUNK = 32  # frames of the joint output held at once (the JAX package's)
@@ -117,6 +121,93 @@ def rnnt_loss(
     `full` mode).  The JAX package's `rnnt_loss` scans anti-diagonals; the
     lattice is the same, so this is the row scan."""
     return rnnt_loss_rowscan(log_probs, labels, xlens, ylens, blank_id, reduction)
+
+
+# ---------------------------------------------------------------- forced alignment
+
+
+def _alpha_lattice(lp_blank: torch.Tensor, lp_label: torch.Tensor) -> torch.Tensor:
+    """The whole (B, T, U+1) alpha lattice in float64, every row of every
+    utterance (no length masking: the walk reads only cells inside each
+    utterance's lengths, which depend only on cells inside them)."""
+    B, T, U1 = lp_blank.shape
+    dev = lp_blank.device
+    a = torch.cat([torch.zeros((B, T, 1), dtype=torch.float64, device=dev), lp_label.double()], dim=2)
+    b = torch.full((B, U1), LOG_0, dtype=torch.float64, device=dev)
+    b[:, 0] = 0.0
+    blank64 = lp_blank.double()
+    rows = [log_linear_scan(a[:, 0], b)]
+    for t in range(1, T):
+        rows.append(log_linear_scan(a[:, t], rows[-1] + blank64[:, t - 1]))
+    return torch.stack(rows, dim=1)
+
+
+def _flip_axis2(x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """Reverse the valid prefix of axis 2 per batch element (mod wrap)."""
+    L = x.shape[2]
+    idx = (lens[:, None] - 1 - torch.arange(L, device=x.device)[None, :]) % L
+    return torch.gather(x, 2, idx[:, None, :].expand(x.shape).long())
+
+
+@torch.no_grad()
+def rnnt_fwd_bwd(log_probs: torch.Tensor, xlens: torch.Tensor, labels: torch.Tensor, ylens: torch.Tensor,
+                 blank_id: int = 0) -> torch.Tensor:
+    """alpha + beta (B, T, U+1), float64, of log-softmaxed joint outputs
+    (B, T, U+1, V): the log-probability of the paths through each cell
+    (`rnnt_aligner.py:159-188`), exact inside each utterance's lengths."""
+    B, T, U1, _ = log_probs.shape
+    dev = log_probs.device
+    xlens, ylens = xlens.to(dev).long(), ylens.to(dev).long()
+    lp_blank, lp_label = _gather_blank_label(log_probs.float(), labels.to(dev), blank_id)
+    alpha = _alpha_lattice(lp_blank, lp_label)
+
+    # beta[t, u] = LSE(beta[t+1, u] + blank[t, u], beta[t, u+1] + label[t, u]),
+    # beta[X-1, Y] = blank[X-1, Y]: under the flip t' = X-1-t, u' = Y-u an
+    # alpha recursion whose edge into (t', u') carries the emission of the
+    # flipped cell itself, so the blank emissions go in one frame earlier
+    Bf = _flip_axis2(flip_by_length(lp_blank, xlens), ylens + 1)
+    lb_gen = torch.cat([Bf[:, 1:], Bf.new_full((B, 1, U1), LOG_0)], dim=1)
+    ll_gen = _flip_axis2(flip_by_length(lp_label, xlens), ylens)
+    beta = _flip_axis2(flip_by_length(_alpha_lattice(lb_gen, ll_gen), xlens), ylens + 1)
+    last = torch.gather(lp_blank, 1, (xlens - 1)[:, None, None].expand(B, 1, U1))[:, 0]
+    term = torch.gather(last, 1, ylens[:, None]).double()  # (B, 1): blank[X-1, Y], beta's own init
+    return alpha + beta + term[:, :, None]
+
+
+@torch.no_grad()
+def rnnt_align_walk(fwd_bwd: torch.Tensor, xlens: torch.Tensor, ylens: torch.Tensor):
+    """The greedy walk over `rnnt_fwd_bwd`'s cells (rnnt_aligner.py:189-196):
+    from (0, 0), advance t where fwd_bwd[t + 1, u] > fwd_bwd[t, u + 1],
+    else emit label u at frame t; T + U steps on the device.  -> aligns
+    (B, U) int32, 0 past ylens."""
+    B, T, U1 = fwd_bwd.shape
+    U = U1 - 1
+    dev = fwd_bwd.device
+    xlens, ylens = xlens.to(dev).long(), ylens.to(dev).long()
+    rows = torch.arange(B, device=dev)
+    t = torch.zeros(B, dtype=torch.long, device=dev)
+    u = torch.zeros(B, dtype=torch.long, device=dev)
+    aligns = torch.zeros((B, U + 1), dtype=torch.long, device=dev)  # column U takes the no-emit writes
+    for _ in range(T + U):
+        go = (t + 1 < xlens) & (u < ylens)
+        fb_t1u = fwd_bwd[rows, (t + 1).clamp(max=T - 1), u]
+        fb_tu1 = fwd_bwd[rows, t, (u + 1).clamp(max=U1 - 1)]
+        advance_t = go & (fb_t1u > fb_tu1)
+        emit = go & ~advance_t
+        aligns[rows, torch.where(emit, u, torch.full_like(u, U))] = t
+        t = torch.where(advance_t, t + 1, t)
+        u = torch.where(emit, u + 1, u)
+    return aligns[:, :U].to(torch.int32)
+
+
+def rnnt_forced_align(log_probs: torch.Tensor, xlens: torch.Tensor, labels: torch.Tensor, ylens: torch.Tensor,
+                      blank_id: int = 0) -> torch.Tensor:
+    """Emission frame of each reference label by forward-backward and a
+    greedy walk (`RNNTForcedAligner.__call__`, rnnt_aligner.py:159-198).
+    log_probs (B, T, U+1, V) log-softmaxed joint outputs -> (B, U) int32
+    (0 past ylens)."""
+    fwd_bwd = rnnt_fwd_bwd(log_probs, xlens, labels, ylens, blank_id)
+    return rnnt_align_walk(fwd_bwd, xlens, ylens)
 
 
 # ---------------------------------------------------------------- the joint, chunked

@@ -47,7 +47,7 @@ from emoasr_tpu.train.step import make_train_step as jax_make_train_step
 from emoasr_tpu_torch.config import config_from_dict
 from emoasr_tpu_torch.data.asr_dataset import ASRDataset
 from emoasr_tpu_torch.eval import test_asr as port_cli
-from emoasr_tpu_torch.models.criteria import label_smoothing_loss
+from emoasr_tpu_torch.models.criteria import distill_loss, label_smoothing_loss
 from emoasr_tpu_torch.models.decoders import ctc as ctc_dec
 from emoasr_tpu_torch.ops import attention, ctc_head, ctc_lattice
 from emoasr_tpu_torch.train import loop, optim
@@ -125,7 +125,8 @@ def test_decoder_loss_matches_jax(weights, monkeypatch, fused_head):
         return JaxDecoder(jax_config(L3_TRAIN)).apply(
             {"params": p}, e, jnp.asarray(elens), None, jb["ys"], jb["ylens"], jb["ys_in"], jb["ys_out"])[:2]
 
-    (jl, jdict), (jg, jge) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(params["decoder"], jnp.asarray(eouts))
+    (jl, jdict), (jg, jge) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))(
+        params["decoder"], jnp.asarray(eouts))
     dec = port_model(L3_TRAIN, params, stats).decoder
     e = T_(eouts).requires_grad_()
     t = {k: T_(v) for k, v in b.items()}
@@ -155,7 +156,7 @@ def test_asr_loss_and_gradients_match_jax(weights, fused):
             {"params": p, "batch_stats": stats}, jb["xs"], jb["xlens"], jb["ys"], jb["ylens"], jb["ys_in"],
             jb["ys_out"], deterministic=True)
 
-    (jl, jdict), jgrads = jax.value_and_grad(jloss, has_aux=True)(params)
+    (jl, jdict), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
     model = port_model(conf, params, stats)
     t = {k: T_(v) for k, v in b.items()}
     loss, loss_dict = model(t["xs"], t["xlens"], t["ys"], t["ylens"], t["ys_in"], t["ys_out"])
@@ -343,7 +344,19 @@ def test_train_cli_then_eval_clis_agree(tmp_path):
 
 def test_distillation_branch_raises_and_names_its_slice(weights):
     params, stats = weights
+    """Slice 7b ported the distillation branch: with soft labels the
+    attention loss is `distill_loss` of the logits (its JAX parity is in
+    test_torch_kd.py), without them the label-smoothed loss."""
     model = port_model(dict(L3_TRAIN, kd_weight=0.5), params, stats)
     t = {k: T_(v) for k, v in l3_batch(0).items()}
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        model(t["xs"], t["xlens"], t["ys"], t["ylens"], t["ys_in"], t["ys_out"], soft_labels=torch.zeros(1))
+    soft = torch.softmax(torch.randn(3, 6, V, generator=torch.Generator().manual_seed(0)), -1)
+    loss, loss_dict = model(t["xs"], t["xlens"], t["ys"], t["ylens"], t["ys_in"], t["ys_out"], soft_labels=soft)
+    assert set(loss_dict) == {"loss_kd", "loss_att", "loss_ctc", "loss_total"}
+    with torch.no_grad():
+        eouts, elens, _ = model.encode(t["xs"], t["xlens"])
+        logits = model.decoder(eouts, elens, None, t["ys"], t["ylens"], t["ys_in"])
+        want = distill_loss(logits, t["ys_out"], soft, t["ylens"] + 1, 0.5, lsm_prob=0.1)
+    for got, w in zip((loss - 0.3 * loss_dict["loss_ctc"], loss_dict["loss_kd"], loss_dict["loss_att"]), want):
+        np.testing.assert_allclose(got.item(), w.item(), rtol=1e-6)
+    _, plain = model(t["xs"], t["xlens"], t["ys"], t["ylens"], t["ys_in"], t["ys_out"])
+    assert set(plain) == {"loss_att", "loss_ctc", "loss_total"}

@@ -254,7 +254,7 @@ def test_conformer_encoder_gradients(weights, fused):
         vm = (jnp.arange(e.shape[1])[None, :] < el[:, None])[:, :, None]
         return (jnp.where(vm, e, 0.0) * wgt).sum()
 
-    gj = jax.grad(loss_j)(params["encoder"])
+    gj = jax.jit(jax.grad(loss_j))(params["encoder"])
     want = asr_state_dict({"encoder": gj, "decoder": params["decoder"]}, config_from_dict(conf))
     model = port_model(conf, params, stats)
     e, el, _ = model.encode(torch.from_numpy(xs), torch.from_numpy(xlens).long())
@@ -286,7 +286,7 @@ def test_attention_with_bias_matches_jax_kernel():
         o = jax_fused_attention(q, k, v, jnp.asarray(lens), jnp.zeros((), jnp.int32), scale=scale, bias=bias)
         return (jnp.where(vm, o, 0.0) * w).sum(), o
 
-    (v1, o1), g1 = jax.value_and_grad(jfn, argnums=(0, 1, 2, 3), has_aux=True)(
+    (v1, o1), g1 = jax.jit(jax.value_and_grad(jfn, argnums=(0, 1, 2, 3), has_aux=True))(
         *(jnp.asarray(x) for x in (q, k, v, bias)))
     tq, tk, tv, tb = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v, bias))
     o0 = attention.fused_self_attention(tq, tk, tv, torch.from_numpy(lens), scale=scale, bias=tb)
@@ -344,7 +344,7 @@ def test_ctc_conformer_train_mode_loss_and_gradients_match_jax(weights, fused):
             mutable=["batch_stats"], rngs={"dropout": jax.random.PRNGKey(0)})
         return loss, mut
 
-    (jl, mut), jgrads = jax.value_and_grad(jloss, has_aux=True)(p)
+    (jl, mut), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(p)
     cfg = config_from_dict(conf)
     model = ASR(cfg)
     model.load_state_dict(asr_state_dict(p, cfg, stats))

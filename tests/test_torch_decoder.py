@@ -343,10 +343,11 @@ def test_asr_builds_the_attention_model_and_refuses_to_train_it(weights):
     model = port_model(L3_SMALL, params, stats)
     assert isinstance(model, ASR) and isinstance(model.decoder, TransformerDecoder)
     x = torch.zeros(1, 40, 20)
-    with pytest.raises(NotImplementedError, match="slice 7"):  # it trains, but not by distillation yet
-        port_model(dict(L3_SMALL, kd_weight=0.5), params, stats)(
-            x, torch.tensor([40]), torch.ones(1, 2, dtype=torch.long), torch.tensor([2]),
-            torch.full((1, 3), 2), torch.full((1, 3), 2), soft_labels=torch.zeros(1))
+    # it trains, by distillation too since slice 7b (parity: test_torch_kd.py)
+    _, loss_dict = port_model(dict(L3_SMALL, kd_weight=0.5), params, stats)(
+        x, torch.tensor([40]), torch.ones(1, 2, dtype=torch.long), torch.tensor([2]),
+        torch.full((1, 3), 2), torch.full((1, 3), 2), soft_labels=torch.full((1, 3, 50), 0.02))
+    assert "loss_kd" in loss_dict and torch.isfinite(loss_dict["loss_total"])
     with pytest.raises(NotImplementedError, match="greedy"):
         model.decode_greedy(x, torch.tensor([40]))
     cmlm = TransformerDecoder(config_from_dict(L3_SMALL), cmlm=True)  # P2W's pbert decoder builds

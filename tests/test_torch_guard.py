@@ -5,6 +5,8 @@
 - The entry points run on the GPU unless asked for the CPU, and raise where
   there is no GPU instead of falling back.
 - CPU tensors take the kernels' plain versions; the launch counters stay 0.
+
+The PyTorch thread count of an xdist run is set in `test_torch_threads.py`.
 """
 
 import json
@@ -82,6 +84,25 @@ def test_port_sources_name_no_jax_import():
                     ):
                         offenders.append(f"{path}:{n}: {s}")
     assert offenders == []
+
+
+def test_distillation_and_analysis_entry_points_raise_without_cuda(tmp_path):
+    """`make_label make`, `analysis ctc_prob` and the fusion grid run on the
+    GPU unless `--cpu` is given, and raise where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from emoasr_tpu_torch.eval import analysis, fusion_grid, make_label
+
+    conf, lm = tmp_path / "exp.yaml", tmp_path / "lm.yaml"
+    conf.write_text("feat_dim: 20\n")
+    lm.write_text("lm_type: transformer\n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_label.cli(["make", "-lm_conf", str(lm), "-lm_ep", "1", "-data", str(tmp_path / "rows.tsv"),
+                        "-save_path", str(tmp_path / "soft.pkl")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        analysis.main(["ctc_prob", "-conf", str(conf), "-ep", "1", "-utt_id", "u0"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fusion_grid.main(fusion_grid.parse_args(["-conf", str(conf), "-ep", "1", "--lm_max", "0"]))
 
 
 def test_entry_points_raise_without_cuda(tmp_path):

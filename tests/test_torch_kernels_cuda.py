@@ -6,7 +6,8 @@ card, run them without the JAX test configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 The cases and tolerances are those of `chip_smoke.py` (top-k exact, every
-case twice, bit-identical; the CTC lattice within LATTICE_TOL, every case
+case twice, bit-identical, make_label's (N, V) k = 8 class also through
+its temperature softmax against the CPU within 1e-6; the CTC lattice within LATTICE_TOL, every case
 twice, bit-identical;
 attention forward f32 within 1e-5, bf16 within 2e-2, with and without the
 score bias, and both dtypes' launchers at the edge cases of their tiling
@@ -61,6 +62,27 @@ def test_topk_kernel_matches_plain(cuda_dev):
     chip_smoke.check_topk(*cuda_dev)
     # every case twice (bit-identical)
     assert topk.KERNEL.launches - before == 2 * len(chip_smoke.topk_cases(*cuda_dev))
+
+
+@pytest.mark.parametrize("N,V", [(1, 10000), (128, 10000), (1423, 10000), (4096, 10000), (1390, 1000)])
+def test_topk_at_the_make_label_class_matches_plain(cuda_dev, N, V):
+    """K3 at make_label's class, (N, V) LM logits with k = 8, as
+    `eval/make_label.py::_topk_temp` launches it: the ids equal the plain
+    version's on the CPU exactly, the temperature softmax of the 8 values
+    within 1e-6; one launch a call, twice bit-identical."""
+    from emoasr_tpu_torch.eval.make_label import _topk_temp
+    from emoasr_tpu_torch.ops import topk
+
+    dev, gen = cuda_dev
+    x = 3 * torch.randn(N, V, generator=gen, device=dev)
+    before = topk.KERNEL.launches
+    got, again = _topk_temp(x, 8, 3.0), _topk_temp(x, 8, 3.0)
+    assert topk.KERNEL.launches - before == 2
+    want = _topk_temp(x.cpu(), 8, 3.0)
+    assert got.shape == (N, 2, 8) and np.array_equal(got, again)
+    np.testing.assert_array_equal(got[:, 0], want[:, 0])
+    np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got[:, 1].sum(-1), 1.0, rtol=0, atol=1e-6)
 
 
 def test_topk_kernel_refuses_what_it_cannot_take(cuda_dev):

@@ -132,7 +132,7 @@ def test_decoder_loss_and_gradients_match_jax(weights, mode, mtl):
             {"params": p}, e, jnp.asarray(elens), None, *(jnp.asarray(b[k]) for k in ("ys", "ylens", "ys_in", "ys_out")),
             deterministic=True)[:2]
 
-    (jl, jdict), (jg, jge) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(dec, jnp.asarray(eouts))
+    (jl, jdict), (jg, jge) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))(dec, jnp.asarray(eouts))
     cfg = config_from_dict(conf)
     model = RNNTDecoder(cfg)
     sd = asr_state_dict({"encoder": params["encoder"], "decoder": dec}, cfg)
@@ -214,11 +214,17 @@ def test_alsd_beam_matches_jax(weights, beam):
 
 def test_unported_branches_raise_and_name_their_slice(weights):
     params, stats = weights
+    """Slice 7b ported the distillation branch and the forced alignment:
+    they run now (their parity is in test_torch_kd.py); an unknown joint
+    mode is still refused."""
     model = port_model(dict(RNNT_SMALL, mtl_ctc_weight=0.3, kd_weight=0.5), params, stats)
     b = {k: T_(v) for k, v in _batch(0).items()}
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        model(b["xs"], b["xlens"], b["ys"], b["ylens"], b["ys_in"], b["ys_out"], soft_labels=torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        model.forced_align(b["xs"], b["xlens"], b["ys"], b["ylens"])
+    soft = torch.full((3, 5, V), 1.0 / V)
+    loss, loss_dict = model(b["xs"], b["xlens"], b["ys"], b["ylens"], b["ys_in"], b["ys_out"], soft_labels=soft)
+    assert set(loss_dict) == {"loss_rnnt", "loss_ctc", "loss_kd", "loss_total"} and torch.isfinite(loss)
+    aligns = model.forced_align(b["xs"], b["xlens"], b["ys"], b["ylens"])
+    assert aligns.shape == (3, 5) and aligns.dtype == torch.int32
+    assert (aligns[2] == 0).all() and (aligns[1, 3:] == 0).all()  # past ylens (5, 3, 0): 0
+    assert (aligns[0, 1:] >= aligns[0, :-1]).all() and (aligns[1, 1:3] >= aligns[1, :2]).all()  # frames ascend
     with pytest.raises(ValueError, match="rnnt_joint_mode"):
         ASR(config_from_dict(dict(RNNT_SMALL, rnnt_joint_mode="fast")))

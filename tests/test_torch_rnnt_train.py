@@ -53,7 +53,7 @@ def test_model_loss_and_gradients_match_jax(weights):
         return JaxASR(jcfg).apply({"params": p, "batch_stats": stats}, *(jnp.asarray(b[k]) for k in (
             "xs", "xlens", "ys", "ylens", "ys_in", "ys_out")), deterministic=True)
 
-    (jl, jdict), jgrads = jax.value_and_grad(jloss, has_aux=True)(params)
+    (jl, jdict), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
     model = port_model(conf, params, stats).eval()
     t = {k: T_(v) for k, v in b.items()}
     loss, loss_dict = model(t["xs"], t["xlens"], t["ys"], t["ylens"], t["ys_in"], t["ys_out"])

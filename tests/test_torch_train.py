@@ -237,7 +237,7 @@ def test_loss_and_gradients_match_jax(fused, mtl):
             {"params": p}, jb["xs"], jb["xlens"], jb["ys"], jb["ylens"], jb["ys_in"], jb["ys_out"],
             None, jb.get("ps"), jb.get("plens"), deterministic=True)
 
-    (jl, jdict), jgrads = jax.value_and_grad(jloss, has_aux=True)(params)
+    (jl, jdict), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
 
     cfg, state = _port_state(conf, params)
     tb = _to_torch(batch)
