@@ -37,7 +37,8 @@ Phases (any failed check raises, so the script exits non-zero):
    bf16.  Every LSTM case (T up to 256, B = 1 to 50) runs twice,
    bit-identical; the beam steps also at W = 17 and 33, and rows 0-15 of a
    W = 20 launch equal a W = 16 launch bit for bit, in both dtypes; K8 at
-   the RNN LM's three bucket shapes (`LSTM_RNNLM_CASES`).
+   the RNN LM's three bucket shapes (`LSTM_RNNLM_CASES`) and the RNN
+   encoder's (`LSTM_RNN_ENCODER_CASES`), K3 at the LAS beam's classes.
 4. Training at the full width of the L1 CTC(Transformer) model (12 x 256,
    4 heads, FF 2048, V = 10000, SpecAugment and dropout on,
    `enc_fused_attn: true`, random initial weights from `--seed`): one epoch
@@ -175,7 +176,30 @@ Phases (any failed check raises, so the script exits non-zero):
    grid (2 x 2) on L1's CTC beam 8 with the Transformer LM, each point's
    TSV equal to the eval CLI's and the best pair the lowest WER's, and
    `align_hyps` on the n-best.
-26. Every kernel timed at the largest bucket beside its plain version and
+26. LAS(Transformer) (slice 5; no shipped yaml builds it: the decoder keys
+   the JAX package benchmarked, `tools/bench_decode.py:112-119`, on L1's
+   encoder, `enc_fused_attn: true`): two micro-steps through the train CLI
+   up to the (18, 1600) bucket (K4 with dropout, forward and backward), one
+   against the CPU within STEP_TOL; the same widths overfitted on phase 5's
+   labels (80-dim features) through the train CLI, then its checkpoint
+   through the eval CLI greedily, with beam 4 and `len_weight` 1.0 (K3 on
+   the (B, 4, 10000) pre-selection and the (B, 16) pool) and with phase
+   15's libri Transformer LM at 0.5 (K6); at least half of the hypotheses
+   end at <eos> before the 64-step cap; one batch of each mode card against
+   CPU; width 1 equal to greedy on the card.
+27. CTC(RNN) (slice 5): L1 with `encoder_type: rnn` (12 biLSTM layers of
+   256, directions summed): two micro-steps through the train CLI (K8 at
+   (46, 99, 256) and (18, 399, 256), 24 launches each way a micro-step, K1,
+   K2), one against the CPU; the checkpoint over phase 6's corpus through
+   the eval CLI, greedy and CTC beam 8 (K8 forward, K3); one short batch
+   of each card against CPU.
+28. The front end, prep and native paths (slice 8a): 40 synthetic wavs of
+   1-16 s through the prep CLI (`wav_to_feats` on the card, `norm_feats`,
+   `prep_tsv`, `sort_bylen`), each feature file within FBANK_TOL of the
+   CPU's fbank; the manifest through the eval CLI with phase 5's model; the
+   native WER equal to the Python path's, native-collated batches
+   bit-equal to the `np.load` path's.
+29. Every kernel timed at the largest bucket beside its plain version and
    one library call (for K5 and K6 the dense route), the bf16 launchers in
    bf16 (bounds at the bf16 rate, library calls in bf16; an f32 launcher
    that splits its operands into bf16 terms held to that many tensor-core
@@ -186,7 +210,8 @@ Phases (any failed check raises, so the script exits non-zero):
    K2 beside its latency floor (`tools/k2_parts.py`'s `chain_only`), K8
    at the RNN LM's three bucket shapes beside cuDNN, K4 at the phone
    encoder's largest bucket in both dtypes beside SDPA, K3 at make_label's
-   class beside torch.topk (its own row); one
+   class beside torch.topk (its own row), K8 at the RNN encoder's largest
+   bucket beside cuDNN's one-direction `nn.LSTM(256, 256)`; one
    JSON line describing each kernel, the `nvidia-smi` line, and last the
    `{"ok": true, "device": ...}` line.
 
@@ -426,8 +451,9 @@ def topk_cases(dev, gen):
     """(name, x, k) inputs: random rows, ties, rows of -inf, the main paths'
     shapes (the CTC beam's (B, V) k = 8, the attention pre-selection's
     (B, W, V) k = 15 at V = 10000 and CSJ's 10872, the ALSD expansion's
-    (B, W, V - 1) k = 10, the W = 17 pool's (B, W^2) k = 17, make_label's
-    (N, V) logits k = 8 at V = 10000 and 1000), rows whose top
+    (B, W, V - 1) k = 10, the W = 17 pool's (B, W^2) k = 17, the LAS
+    beam's (B, 4, V) and (B, 16) k = 4, make_label's (N, V) logits k = 8
+    at V = 10000 and 1000), rows whose top
     entries crowd the fewest threads (each thread's entries share one value
     band: the most entries pass the kernel's threshold), and V = MAX_V."""
     from emoasr_tpu_torch.ops.topk import MAX_V
@@ -461,6 +487,11 @@ def topk_cases(dev, gen):
         ("f32 (18,10,999) k=10", log_probs(18, 10, 999), 10),
         ("bf16 (18,10,999) k=10", log_probs(18, 10, 999, dtype=torch.bfloat16), 10),
         ("f32 (18,289) k=17", randn(18, 289), 17),
+        # the LAS beam: the (B, W, V) pre-selection and the (B, W W) pool at W = 4,
+        # the pool of the first step all DEAD but its first W entries
+        ("f32 (18,4,10000) k=4", log_probs(18, 4, 10000), 4),
+        ("f32 (18,16) k=4", randn(18, 16), 4),
+        ("f32 DEAD pool (18,16) k=4", torch.cat([randn(18, 4), torch.full((18, 12), -1e30, device=dev)], 1), 4),
         ("f32 crowded (4,10000) k=32", crowded, 32),
         ("f32 crowded (4,10000) k=1", crowded, 1),
         (f"f32 (3,{MAX_V}) k=32", randn(3, MAX_V), 32),
@@ -602,7 +633,7 @@ def check_attention(dev, gen) -> dict:
 # (B, W, V - 1) k = W, the W = 17 pool's (B, W^2) k = W and the W = 17
 # pre-selection
 TOPK_SHAPES = (((18, 10, 10000), 15), ((18, 10000), 8), ((18, 10, 10872), 15), ((18, 10, 999), 10),
-               ((18, 289), 17), ((18, 17, 10000), 25))
+               ((18, 289), 17), ((18, 17, 10000), 25), ((18, 4, 10000), 4), ((18, 16), 4))
 
 
 def time_topk(dev, gen, shape: tuple, k: int, dtype=torch.float32) -> dict:
@@ -1726,6 +1757,30 @@ def check_lstm(dev, gen) -> dict:
     return worst
 
 
+def check_lstm_cases(dev, gen, cases, what: str) -> dict:
+    """K8 forward and backward at `cases` ((B, T, H), zero initial state),
+    against the plain versions, each launched twice (bit-identical)."""
+    from emoasr_tpu_torch.ops.lstm_scan import lstm_bwd_plain, lstm_fwd_plain
+
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for shape, zero in cases:
+        x_proj, w_hh, h0, c0, cots = lstm_case(dev, gen, *shape, zero_state=zero)
+        tag = f"lstm ({what}) {shape}"
+        (ys, hT, cT), grads = lstm_twice(tag, [x_proj, w_hh, h0, c0], cots)
+        with torch.no_grad():
+            p_ys, p_h, p_c, gates, hcprev = lstm_fwd_plain(x_proj, w_hh, h0, c0)
+            p_grads = lstm_bwd_plain(gates, hcprev, *cots, w_hh)
+        torch.cuda.synchronize()
+        fwd = [_require_close(f"{tag} {w}", a, b, LSTM_FWD_TOL, 0.0)
+               for w, a, b in zip(("ys", "h_T", "c_T"), (ys, hT, cT), (p_ys, p_h, p_c))]
+        bwd = [_require_close(f"{tag} {w}", a, b, *LSTM_BWD_TOL)
+               for w, a, b in zip(("d x_proj", "d w_hh", "d h0", "d c0"), grads, p_grads)]
+        worst = {"fwd": max(worst["fwd"], *fwd), "bwd": max(worst["bwd"], *bwd)}
+        print(f"  {tag}: forward {max(fwd):.2e}, backward {max(bwd):.2e}; twice, bit-identical")
+    return worst
+
+
+
 # ---------------------------------------------------------------- bf16 parts
 #
 # A bf16 output of a kernel and of its plain version is one float32 sum of
@@ -2700,8 +2755,8 @@ def time_micro_step(tr: dict, dev, card: str) -> dict:
             p.grad = g
         opt.step()
         t4 = tick()
-    head_phase = ("attention decoder + label smoothing + aux CTC head and lattice" if cfg.decoder_type == "transformer"
-                  else "CTC head + lattice")
+    head_phase = {"transformer": "attention decoder + label smoothing + aux CTC head and lattice",
+                  "las": "LAS decoder (a step a label) + label smoothing"}.get(cfg.decoder_type, "CTC head + lattice")
     split = {"batch": list(t["xs"].shape), "compute_dtype": cfg.compute_dtype, "encoder_fwd_ms": (t1 - t0) * 1e3,
              "ctc_fwd_ms": (t2 - t1) * 1e3, "backward_ms": (t3 - t2) * 1e3, "clip_adam_ms": (t4 - t3) * 1e3}
     print(f"  one {tuple(t['xs'].shape)} {cfg.compute_dtype} micro-step on {card}: encoder forward "
@@ -4700,30 +4755,6 @@ def rnn_lm_fusion(args, rnn: dict, l1: dict, l3: dict, l4: dict, dev, card: str)
     return out
 
 
-def check_lstm_rnnlm(dev, gen) -> dict:
-    """K8 forward and backward at the RNN LM's three bucket shapes
-    (`LSTM_RNNLM_CASES`, zero initial state as the LM starts), against the
-    plain versions, each launched twice (bit-identical)."""
-    from emoasr_tpu_torch.ops.lstm_scan import lstm_bwd_plain, lstm_fwd_plain
-
-    worst = {"fwd": 0.0, "bwd": 0.0}
-    for shape, zero in LSTM_RNNLM_CASES:
-        x_proj, w_hh, h0, c0, cots = lstm_case(dev, gen, *shape, zero_state=zero)
-        tag = f"lstm (RNN LM) {shape}"
-        (ys, hT, cT), grads = lstm_twice(tag, [x_proj, w_hh, h0, c0], cots)
-        with torch.no_grad():
-            p_ys, p_h, p_c, gates, hcprev = lstm_fwd_plain(x_proj, w_hh, h0, c0)
-            p_grads = lstm_bwd_plain(gates, hcprev, *cots, w_hh)
-        torch.cuda.synchronize()
-        fwd = [_require_close(f"{tag} {w}", a, b, LSTM_FWD_TOL, 0.0)
-               for w, a, b in zip(("ys", "h_T", "c_T"), (ys, hT, cT), (p_ys, p_h, p_c))]
-        bwd = [_require_close(f"{tag} {w}", a, b, *LSTM_BWD_TOL)
-               for w, a, b in zip(("d x_proj", "d w_hh", "d h0", "d c0"), grads, p_grads)]
-        worst = {"fwd": max(worst["fwd"], *fwd), "bwd": max(worst["bwd"], *bwd)}
-        print(f"  {tag}: forward {max(fwd):.2e}, backward {max(bwd):.2e}; twice, bit-identical")
-    return worst
-
-
 # ------------------------------------------------ slices 6b and 7a: the rest
 # of the LM package, N-best rescoring and error correction
 
@@ -5832,6 +5863,394 @@ def analysis_phase(root: str, tr: dict, lms: dict, overfit: dict, seed: int, car
     return out
 
 
+# ------------------------------------------------ slices 8a and 5: the RNN
+# encoder (K8 over T' frames), the LAS decoder and its beam (K3, K4, K6), the
+# fbank front end, the prep CLI and the native host paths
+
+# No shipped yaml builds a LAS decoder or an RNN encoder.  LAS(Transformer)
+# takes the decoder keys the JAX package benchmarked (tools/bench_decode.py:
+# 112-119) on the L1 encoder; CTC(RNN) is L1 with `encoder_type: rnn`.
+LAS_DECODER = dict(decoder_type="las", dec_hidden_size=256, dec_num_layers=1, dec_intermediate_size=256,
+                   embedding_size=128, vocab_size=10000, max_decode_ylen=64, dropout_dec_rate=0.0)
+LAS_BEAM, LAS_LEN_WEIGHT, LAS_LM_WEIGHT = 4, 1.0, 0.5
+# the overfit LAS's hypotheses that end at <eos> before the 64-step cap, at
+# least; its top-1 hypotheses card vs CPU equal, at least
+EOS_SHARE = 0.5
+LAS_HYP_SHARE = 0.75
+# the overfit run: epochs over the 32 utterances (4 micro-steps an epoch)
+LAS_OVERFIT_EPOCHS = 60
+# K8 at the RNN encoder's shapes (B, T', H): the largest bucket, the (46, 400)
+# bucket of the training phase and the (50, 200) bucket of the decode corpus
+LSTM_RNN_ENCODER_CASES = (((18, 399, 256), True), ((46, 99, 256), True), ((50, 49, 256), True))
+FBANK_TOL = 3e-4  # card against CPU; tests/test_frontend_golden.py holds the JAX fbank to it
+N_WAVS = 40
+
+
+def train_two_steps(args, root: str, name: str, card: str, want_step: dict, **over) -> dict:
+    """L1's yaml with `over` at full width through the train CLI: two
+    micro-steps, one batch of the (46, 400) and one of the (18, 1600)
+    bucket, SpecAugment and dropout on, `enc_fused_attn: true`; every
+    micro-step launches what `want_step` says.  -> the run's record, as
+    `check_micro_step` takes it."""
+    import yaml
+
+    from emoasr_tpu_torch.config import load_config
+    from emoasr_tpu_torch.ops import lstm_scan
+    from emoasr_tpu_torch.train import loop
+
+    with open(L1_CONF) as f:
+        conf = yaml.safe_load(f)
+    lengths, buckets = train_lengths(load_config(L1_CONF), [0, 1, 0, 0, 1])
+    sub = os.path.join(root, name)
+    os.makedirs(sub)
+    train_tsv, _ = write_corpus(sub, "train", lengths, conf["vocab_size"], conf["feat_dim"], args.seed + 8)
+    conf.update(over)
+    conf.update(vocab_path=write_vocab(sub, conf["vocab_size"]), train_path=train_tsv, test_path=train_tsv,
+                dev_path=None, enc_fused_attn=True, num_epochs=1, save_step=1, log_step=1, seed=args.seed)
+    conf_path = os.path.join(sub, f"{name}.yaml")
+    with open(conf_path, "w") as f:
+        yaml.safe_dump(conf, f)
+    cfg = load_config(conf_path)
+    require((cfg.enc_num_layers, cfg.enc_hidden_size, cfg.vocab_size, cfg.spec_augment, cfg.dropout_enc_rate)
+            == (12, 256, 10000, True, 0.1), f"the {name} config is not at full width with its dropout")
+    reset_launch_counts()
+    deltas, undo = _launch_deltas(loop, "make_train_step")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = loop.main(["-conf", conf_path])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        undo()
+    launches, k8_shapes = launch_counts(), dict(lstm_scan.SHAPE_LAUNCHES)
+    losses, _, _ = read_train_log(conf_path)
+    require(state.step == 2 and state.skipped == 0 and len(losses) == 2 and all(np.isfinite(losses)),
+            f"{name} training: {state.step} micro-steps, {state.skipped} skipped, losses {losses}")
+    want = _zero_launches(**want_step)
+    require(len(deltas) == 2 and all(d == want for d in deltas), f"{name} training: launches by step {deltas}, want {want}")
+    ckpt = os.path.join(sub, name, "checkpoints", "model.ep1")
+    print(f"  {name}: 2 micro-steps ({len(lengths)} utts, the (46, 400) and (18, 1600) buckets) in {dt:.2f} s "
+          f"(first call) on {card}: losses {losses[0]:.2f}, {losses[1]:.2f}; launches a micro-step "
+          f"{({k: n for k, n in want_step.items() if n})}" + (f"; K8 by shape {k8_shapes}" if k8_shapes else ""))
+    return {"conf_path": conf_path, "cfg": cfg, "ckpt": ckpt, "train_tsv": train_tsv, "launches": launches,
+            "seconds": dt, "losses": losses, "buckets": buckets, "k8_shapes": k8_shapes}
+
+
+def write_las_overfit_corpus(root: str, overfit_tsv: str) -> str:
+    """Phase 5's 32 utterances (their labels) as 80-dim features for the
+    conv2d input layer: one active channel per label, 24 frames each."""
+    import pandas as pd
+
+    os.makedirs(os.path.join(root, "feats"))
+    rng = np.random.default_rng(1)
+    rows = []
+    for i, r in enumerate(pd.read_table(overfit_tsv).itertuples()):
+        toks = [int(t) for t in r.token_id.split()]
+        x = rng.normal(size=(24 * len(toks), 80)).astype(np.float32) * 0.05
+        for u, tok in enumerate(toks):
+            x[24 * u:24 * (u + 1), (7 * tok) % 80] = 2.0
+        path = os.path.join(root, "feats", f"u{i}.npy")
+        np.save(path, x)
+        rows.append(dict(feat_path=path, utt_id=r.utt_id, token_id=r.token_id, text=r.text, xlen=len(x),
+                         ylen=len(toks)))
+    tsv = os.path.join(root, "las_overfit.tsv")
+    pd.DataFrame(rows).to_csv(tsv, sep="\t", index=False)
+    return tsv
+
+
+def _cli_rows(conf: str, result: str):
+    import pandas as pd
+
+    return pd.read_table(os.path.join(os.path.splitext(conf)[0], "results", result), comment="#")
+
+
+def las_phase(args, root: str, lms: dict, overfit: dict, dev, card: str) -> dict:
+    """LAS(Transformer) at full width (L1's encoder 12 x 256, the LAS
+    decoder 1 x 256, embedding 128, intermediate 256, V = 10000, at most 64
+    labels): two micro-steps through the train CLI (K4 with dropout,
+    forward and backward) and one against the CPU; then the same widths
+    overfitted on phase 5's labels (80-dim features, dropout and
+    SpecAugment off) through the train CLI, and its `model.ep{N}` through
+    the eval CLI: greedy, beam 4 with `len_weight` 1.0 (K3 on the (B, 4,
+    10000) pre-selection and the (B, 16) pool), beam 4 with phase 15's
+    libri Transformer LM at 0.5 (K6); one batch of each against the CPU;
+    width 1 against greedy on the card."""
+    import pandas as pd
+
+    from emoasr_tpu_torch.config import load_config
+    from emoasr_tpu_torch.eval import test_asr
+    from emoasr_tpu_torch.eval.decode import build_decode_fn
+    from emoasr_tpu_torch.eval.test_asr import load_asr_model, load_lm
+    from emoasr_tpu_torch.models.lm import bert as bert_mod
+    from emoasr_tpu_torch.search.common import make_lm_fusion
+    from emoasr_tpu_torch.train import loop
+    from emoasr_tpu_torch.train.step import preprocess
+
+    t_phase = time.perf_counter()
+    n_layers = 12
+    tr = train_two_steps(args, root, "las", card, {"attention_fwd": n_layers, "attention_bwd": n_layers},
+                         encoder_type="transformer", **LAS_DECODER)
+    cfg = tr["cfg"]
+    require((cfg.decoder_type, cfg.dec_hidden_size, cfg.dec_num_layers, cfg.dec_intermediate_size, cfg.embedding_size,
+             cfg.max_decode_ylen, cfg.enc_num_attention_heads, cfg.enc_intermediate_size)
+            == ("las", 256, 1, 256, 128, 64, 4, 2048), "the LAS(Trf) config is not the benchmarked one")
+    step = check_micro_step(tr, dev, {"attention_fwd": n_layers, "attention_bwd": n_layers}, heads=(
+        ("decoder.output", lambda b: np.append(b["ys_out"][:4].reshape(-1), cfg.eos_id)),))
+    split = time_micro_step(tr, dev, card)
+
+    # overfit the same widths on phase 5's labels
+    sub = os.path.join(root, "las_overfit")
+    os.makedirs(sub)
+    tsv = write_las_overfit_corpus(sub, overfit["tsv"])
+    conf = _write_conf(os.path.join(sub, "las_overfit.yaml"), tr["conf_path"], train_path=tsv, test_path=tsv,
+                       dev_path=None, batch_size=8, accum_grad=1, spec_augment=False, dropout_enc_rate=0.0,
+                       dropout_attn_rate=0.0, learning_rate=1.0, num_warmup_steps=100,
+                       num_epochs=LAS_OVERFIT_EPOCHS, save_step=LAS_OVERFIT_EPOCHS, log_step=4)
+    ocfg = load_config(conf)
+    ep = str(LAS_OVERFIT_EPOCHS)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = loop.main(["-conf", conf])
+    torch.cuda.synchronize()
+    t_overfit = time.perf_counter() - t0
+    losses, _, _ = read_train_log(conf)
+    n_steps = 4 * LAS_OVERFIT_EPOCHS
+    require(state.step == n_steps and state.skipped == 0 and all(np.isfinite(losses)),
+            f"LAS overfit: {state.step} micro-steps, {state.skipped} skipped")
+    overfit_launches = launch_counts()
+    require(overfit_launches["attention_bwd"] == n_layers * n_steps, "the LAS overfit did not train through K4")
+    print(f"  LAS overfit: {n_steps} micro-steps over 32 utts in {t_overfit:.1f} s on {card} "
+          f"({1e3 * t_overfit / n_steps:.1f} ms a micro-step, first call); loss {losses[0]:.2f} -> {losses[-1]:.2f}")
+
+    lm = lms["transformer"]
+    modes = {"greedy": ["--beam_width", "0"],
+             "beam4": ["--beam_width", str(LAS_BEAM), "--len_weight", str(LAS_LEN_WEIGHT)],
+             "beam4_lm": ["--beam_width", str(LAS_BEAM), "--len_weight", str(LAS_LEN_WEIGHT), "--lm_weight",
+                          str(LAS_LM_WEIGHT), "--lm_conf", lm["conf_path"], "--lm_path", lm["ckpt"]]}
+    results = {"greedy": "result_test_beam0_len0.0_ctc0.0_lm0.00_ep{ep}.tsv",
+               "beam4": f"result_test_beam{LAS_BEAM}_len{LAS_LEN_WEIGHT:.1f}_ctc0.0_lm0.00_ep{{ep}}.tsv",
+               "beam4_lm": f"result_test_beam{LAS_BEAM}_len{LAS_LEN_WEIGHT:.1f}_ctc0.0_lm{LAS_LM_WEIGHT:.2f}"
+                           "transformer_ep{ep}.tsv"}
+    n_utts, n_batches, runs = 32, 4, {}
+    audio_s = 0.010 * int(pd.read_table(tsv)["xlen"].sum())
+    pre, pool = (10000, LAS_BEAM, "float32"), (LAS_BEAM * LAS_BEAM, LAS_BEAM, "float32")
+    for mode, argv in modes.items():
+        test_asr._SETUP_CACHE.clear()
+        bert_mod.FUSED_INDIRECT_STEP = mode == "beam4_lm"
+        reset_launch_counts()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = test_asr.main(["-conf", conf, "-ep", ep] + argv)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            bert_mod.FUSED_INDIRECT_STEP = None
+        launches = launch_counts()
+        df = _cli_rows(conf, results[mode].format(ep=ep))
+        require(out is not None and out[3].startswith("WER:") and len(df) == n_utts, f"LAS {mode}: CLI returned {out}")
+        require(launches["attention_fwd"] == n_layers * n_batches and launches["lstm_fwd"] == 0,
+                f"LAS {mode}: launches {launches}")
+        steps = launches.topk_shapes.get(pre, 0)
+        if mode == "greedy":
+            require(launches["topk"] == 0, f"LAS greedy launched top-k: {launches}")
+            lens = [len(str(t).split()) if isinstance(t, str) else 0 for t in df["token_id"]]
+            ended = float(np.mean([n < cfg.max_decode_ylen for n in lens]))
+        else:
+            ended = float(df["token_id"].notna().mean())
+            require(steps >= n_batches and launches.topk_shapes.get(pool, 0) == steps
+                    and launches["topk"] == 2 * steps, f"LAS {mode}: K3 by class {launches.topk_shapes}")
+        require(launches["lm_step_indirect"] == (4 * steps if mode == "beam4_lm" else 0),
+                f"LAS {mode}: K6 launches {launches['lm_step_indirect']} for {steps} beam steps")
+        require(ended >= EOS_SHARE, f"LAS {mode}: {ended:.2f} of the hypotheses end at <eos> (want {EOS_SHARE})")
+        print(f"  LAS {mode}: {out[3]}; {ended:.2f} of {n_utts} hypotheses end at <eos>; {n_utts} utts in {dt:.3f} s "
+              f"(RTF {dt / audio_s:.5f}, first call) on {card}; K3 pre-selection {steps}, pool "
+              f"{launches.topk_shapes.get(pool, 0)}, K6 {launches['lm_step_indirect']}, K4 {launches['attention_fwd']}")
+        runs[mode] = {"launches": launches, "seconds": dt, "rtf": dt / audio_s, "wer": out[2], "eos_share": ended,
+                      "beam_steps": steps}
+
+    # one batch of 8 against the CPU in each mode, then width 1 against greedy on the card
+    ckpt = os.path.join(os.path.splitext(conf)[0], "checkpoints", f"model.ep{ep}")
+    batch = _short_batch(ocfg, tsv, 8)
+    lm_of = lambda d: make_lm_fusion(load_lm(lm["conf_path"], lm["ckpt"])[0].to(d), LAS_LM_WEIGHT)
+    same = {"greedy": _top1_card_vs_cpu("LAS greedy", ocfg, ckpt, lambda d: None, batch, dev, 0, LAS_HYP_SHARE),
+            "beam4": _top1_card_vs_cpu("LAS beam 4", ocfg, ckpt, lambda d: None, batch, dev, LAS_BEAM, LAS_HYP_SHARE,
+                                       len_weight=LAS_LEN_WEIGHT)}
+    bert_mod.FUSED_INDIRECT_STEP = True
+    try:
+        same["beam4_lm"] = _top1_card_vs_cpu("LAS beam 4 + LM (K6)", ocfg, ckpt, lm_of, batch, dev, LAS_BEAM,
+                                             LAS_HYP_SHARE, len_weight=LAS_LEN_WEIGHT)
+    finally:
+        bert_mod.FUSED_INDIRECT_STEP = None
+    model = load_asr_model(ckpt, ocfg)
+    g, gl, _ = build_decode_fn(model, ocfg, 0, device=dev)(batch["xs"], batch["xlens"])
+    with torch.no_grad():  # the beam at width 1 (build_decode_fn takes greedy for widths up to 1, as JAX does)
+        eouts, elens, _ = model.encode(*preprocess(ocfg, torch.from_numpy(batch["xs"]).to(dev),
+                                                   torch.from_numpy(batch["xlens"]).long().to(dev)))
+        b, bl, bs = model.decoder.decode_beam(eouts, elens, 1)
+    g, gl, b, bl, bs = (x.cpu() for x in (g, gl, b, bl, bs))
+    for r in range(len(batch["utt_ids"])):
+        if bs[r, 0] > -1e29:  # the beam ended: its labels between the framing eos are greedy's
+            require(b[r, 0, 1:bl[r, 0] - 1].tolist() == g[r, :gl[r]].tolist(), f"LAS width 1 row {r} is not greedy")
+        else:  # no result: greedy ran to the cap or emitted eos first
+            require(int(gl[r]) in (0, cfg.max_decode_ylen), f"LAS width 1 row {r}: no result, greedy {int(gl[r])}")
+    print(f"  LAS width 1 on the card equals greedy on all {len(batch['utt_ids'])} rows "
+          f"({int((bs[:, 0] > -1e29).sum())} ended); the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"train": tr, "step_check": step, "step_split": split, "overfit_seconds": t_overfit,
+            "overfit_launches": overfit_launches, "overfit_losses": [losses[0], losses[-1]],
+            "greedy_wer": runs["greedy"]["wer"], "runs": runs, "same_top1_card_vs_cpu": same,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def ctc_rnn_phase(args, root: str, tr: dict, dev, card: str) -> dict:
+    """CTC(RNN): L1 with `encoder_type: rnn` (conv2d, 12 biLSTM layers of
+    256 a direction, directions summed, V = 10000) through the train CLI,
+    two micro-steps (K8 forward and backward once a direction a layer, K1,
+    K2) and one against the CPU; the `model.ep1` through the eval CLI over
+    phase 6's 40-utterance corpus, greedy and with the CTC prefix beam 8
+    (K8 forward, K3); one short batch of each card against CPU."""
+    from emoasr_tpu_torch.data.asr_dataset import ASRDataset
+    from emoasr_tpu_torch.ops import lstm_scan
+
+    t_phase = time.perf_counter()
+    per_step = {"lstm_fwd": 24, "lstm_bwd": 24, "ctc_head_fwd": 1, "ctc_head_grad_e": 1, "ctc_head_grad_w": 1,
+                "ctc_alpha": 1, "ctc_beta_grad": 1}
+    rt = train_two_steps(args, root, "ctc_rnn", card, per_step, encoder_type="rnn")
+    cfg = rt["cfg"]
+    require((cfg.encoder_type, cfg.input_layer, cfg.enc_hidden_sum_fwd_bwd) == ("rnn", "conv2d", True),
+            "the CTC(RNN) config is not L1's with an RNN encoder")
+    want_shapes = {(kind, B, T, 256, "f32"): 24 for kind in ("fwd", "bwd") for B, T in ((46, 99), (18, 399))}
+    require(rt["k8_shapes"] == want_shapes, f"CTC(RNN) training: K8 by shape {rt['k8_shapes']}, want {want_shapes}")
+    step = check_micro_step(rt, dev, per_step)
+    split = time_micro_step(rt, dev, card)
+    conf = _write_conf(os.path.join(root, "ctc_rnn", "ctc_rnn_test.yaml"), rt["conf_path"], test_path=tr["test_tsv"])
+    os.makedirs(os.path.join(root, "ctc_rnn", "ctc_rnn_test", "checkpoints"))
+    shutil.copy(rt["ckpt"], os.path.join(root, "ctc_rnn", "ctc_rnn_test", "checkpoints", "model.ep1"))
+    runs, k8_decode = {}, {}
+    n_batches = len(list(ASRDataset(cfg, tr["test_tsv"], phase="test").make_batcher()))
+    for beam in (0, 8):
+        r = run_cli(conf, beam, args.n_utts, tr["wav_s"], card)
+        require(r["launches"]["lstm_fwd"] == 24 * n_batches and r["launches"]["lstm_bwd"] == 0,
+                f"CTC(RNN) beam {beam}: K8 launches {r['launches']}")
+        require((r["launches"]["topk"] > 0) == (beam > 1), f"CTC(RNN) beam {beam}: top-k launches {r['launches']}")
+        for k, n in lstm_scan.SHAPE_LAUNCHES.items():
+            k8_decode[k] = k8_decode.get(k, 0) + n
+        runs[beam] = r
+    batch = _short_batch(cfg, tr["test_tsv"], 3)
+    same = {beam: _top1_card_vs_cpu(f"CTC(RNN) beam {beam}", cfg, rt["ckpt"], lambda d: None, batch, dev, beam,
+                                    HYP_SHARE) for beam in (0, 8)}
+    print(f"  CTC(RNN): K8 by shape in the decodes {k8_decode}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"train": rt, "step_check": step, "step_split": split, "runs": runs, "same_top1_card_vs_cpu": same, "k8_decode": k8_decode,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def write_wavs(root: str, n: int, seed: int):
+    """`n` 16 kHz PCM16 wavs of 1-16 s: two or three tones and noise, from
+    `seed`; -> (the wav TSV with labels of phase 5's vocabulary, seconds of
+    audio)."""
+    import wave
+
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "wavs"))
+    rows, total = [], 0.0
+    for i in range(n):
+        secs = 1.0 + 15.0 * i / max(n - 1, 1)
+        t = np.arange(int(secs * 16000)) / 16000.0
+        x = sum(rng.uniform(1000, 6000) * np.sin(2 * np.pi * rng.uniform(100, 4000) * t + rng.uniform(0, 6.3))
+                for _ in range(int(rng.integers(2, 4))))
+        pcm = np.clip(x + rng.normal(size=t.shape) * 300, -32768, 32767).astype(np.int16)
+        path = os.path.join(root, "wavs", f"utt{i}.wav")
+        with wave.open(path, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(pcm.tobytes())
+        toks = rng.integers(3, 12, size=int(rng.integers(2, 8)))
+        start = i * 100000
+        rows.append(dict(utt_id=f"spk{i % 5}-wav{i}-{start}-{start + int(secs * 1000)}", wav_path=path,
+                         text=" ".join(f"w{t}" for t in toks), token_id=" ".join(map(str, toks))))
+        total += secs
+    tsv = os.path.join(root, "wavs.tsv")
+    pd.DataFrame(rows).to_csv(tsv, sep="\t", index=False)
+    return tsv, total
+
+
+def frontend_phase(args, root: str, overfit: dict, card: str) -> dict:
+    """Slice 8a: 40 synthetic wavs through the prep CLI (`wav_to_feats` on
+    the card, `norm_feats`, `prep_tsv`, `sort_bylen`), every feature file
+    against the CPU's fbank; the eval CLI decodes the manifest with phase
+    5's model (plumbing: the features are real fbank, that model's are
+    not); the native WER equal to the Python path's and native-collated
+    batches bit-equal to the `np.load` path's."""
+    import pandas as pd
+
+    from emoasr_tpu_torch.config import load_config
+    from emoasr_tpu_torch.corpora import prep
+    from emoasr_tpu_torch.data.asr_dataset import ASRDataset
+    from emoasr_tpu_torch.eval import test_asr
+    from emoasr_tpu_torch.eval.wer import compute_wers
+    from emoasr_tpu_torch.frontend.fbank import load_wav, log_mel_fbank
+
+    t_phase = time.perf_counter()
+    sub = os.path.join(root, "frontend")
+    os.makedirs(sub)
+    tsv, audio_s = write_wavs(sub, N_WAVS, args.seed + 9)
+    wavs = list(pd.read_table(tsv)["wav_path"])
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prep.main(["wav_to_feats", tsv])
+    torch.cuda.synchronize()
+    t_feats = time.perf_counter() - t0
+    prep.main(["norm_feats", tsv, tsv.replace(".tsv", "_norm.pkl")])
+    prep.main(["prep_tsv", tsv])
+    prep.main(["sort_bylen", tsv])
+    manifest = tsv.replace(".tsv", "_sorted.tsv")
+    df = pd.read_table(manifest)
+    require(len(df) == N_WAVS and list(df["xlen"]) == sorted(df["xlen"]), f"the sorted manifest: {len(df)} rows")
+    worst, t_cpu = 0.0, 0.0
+    for wav in wavs:
+        t0 = time.perf_counter()
+        want, n = log_mel_fbank(torch.from_numpy(load_wav(wav))[None])
+        t_cpu += time.perf_counter() - t0
+        got = np.load(wav.replace(".wav", ".npy"))
+        require(got.shape == (int(n[0]), 80), f"{wav}: features {got.shape}, CPU {int(n[0])} frames")
+        worst = max(worst, _require_close(f"fbank {wav}", torch.from_numpy(got), want[0, :int(n[0])], FBANK_TOL, 0.0))
+    print(f"  wav_to_feats: {N_WAVS} wavs, {audio_s:.1f} s of audio in {t_feats:.2f} s on {card} (the CPU's fbank "
+          f"{t_cpu:.2f} s); card vs CPU max abs err {worst:.2e} (tol {FBANK_TOL}); norm_feats, prep_tsv, sort_bylen")
+
+    # the manifest through the eval CLI with phase 5's model (its first 16 feature columns)
+    conf = _write_conf(os.path.join(sub, "decode.yaml"), overfit["conf_path"], test_path=manifest,
+                       buckets=[[400, 8], [800, 8], [1600, 8]], max_xlens_batch=12800)
+    os.makedirs(os.path.join(sub, "decode", "checkpoints"))
+    shutil.copy(os.path.join(os.path.splitext(overfit["conf_path"])[0], "checkpoints", f"model.ep{overfit['ep']}"),
+                os.path.join(sub, "decode", "checkpoints", f"model.ep{overfit['ep']}"))
+    out = test_asr.main(["-conf", conf, "-ep", overfit["ep"], "--beam_width", "0"])
+    launches = launch_counts()
+    rows = _cli_rows(conf, f"result_test_beam0_len0.0_ctc0.0_lm0.00_ep{overfit['ep']}.tsv")
+    require(out is not None and len(rows) == N_WAVS and launches["attention_fwd"] > 0,
+            f"the fbank manifest through the eval CLI: {out}, {len(rows)} rows, launches {launches}")
+    hyps = [str(t).split() if isinstance(t, str) else [] for t in rows["text"]]
+    refs = [t.split() for t in rows["reftext"]]
+    native_wer, python_wer = compute_wers(hyps, refs), compute_wers(hyps, refs, native=False)
+    require(native_wer == python_wer, f"native WER {native_wer} != Python {python_wer}")
+    cfg = load_config(conf)
+    got, want = (list(ASRDataset(cfg, manifest, "test", native_loader=n).batches()) for n in (True, False))
+    require(len(got) == len(want) > 1 and all(
+        all(np.array_equal(g[k], w[k]) and g[k].dtype == w[k].dtype if isinstance(g[k], np.ndarray) else g[k] == w[k]
+            for k in g) for g, w in zip(got, want)), "native-collated batches differ from the np.load path's")
+    print(f"  the manifest through the eval CLI with phase 5's model: {out[3]}; native WER {native_wer[0]:.2f} = "
+          f"Python's; {len(got)} native-collated batches bit-equal to np.load's; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "wavs": N_WAVS, "audio_seconds": audio_s, "feats_seconds": t_feats,
+            "cpu_fbank_seconds": t_cpu, "fbank_max_abs_err": worst, "wer": out[2], "native_wer": native_wer[0],
+            "seconds": time.perf_counter() - t_phase}
+
+
 KERNEL_ROWS = (
     # name, source, file:line of the TPU kernel it replaces
     ("topk", "emoasr_tpu_torch/csrc/topk.cu", "emoasr_tpu/ops/topk_pallas.py:64"),
@@ -5917,7 +6336,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
-    phase(f"[1/26] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    phase(f"[1/29] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     found = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     set_matmul_precision("float32")
     print(f"  TF32 found (matmul, cudnn) = {found}; the port's switch for float32 sets "
@@ -5931,7 +6350,7 @@ def main(argv=None) -> int:
     floor = lattice_floor_kernel()
     build_all(kernels + [floor])
     resources = kernel_resources(jobs)
-    phase(f"[2/26] built {', '.join(k.name for k in kernels)} from "
+    phase(f"[2/29] built {', '.join(k.name for k in kernels)} from "
           f"{', '.join(sorted({k.source for k in kernels}))} in {time.perf_counter() - t0:.1f} s")
     print("  the kernels (nvcc -Xptxas -v, cuobjdump -sass): registers, spill stores / loads (bytes), "
           "static shared memory (bytes), HMMA + HGMMA instructions")
@@ -5940,7 +6359,7 @@ def main(argv=None) -> int:
               f"smem {r['smem']}, {r['mma_instructions']} HMMA")
 
     # 3. kernels against their plain versions
-    phase("[3/26] kernels against their plain versions on the card, forward and backward")
+    phase("[3/29] kernels against their plain versions on the card, forward and backward")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     errs = {"topk": check_topk(dev, gen), **check_attention(dev, gen),
@@ -5957,7 +6376,8 @@ def main(argv=None) -> int:
     errs.update(check_rnnt_joint(dev, gen))
     lstm = check_lstm(dev, gen)
     errs.update(lstm_fwd=lstm["fwd"], lstm_bwd=lstm["bwd"])
-    lstm_rnnlm = check_lstm_rnnlm(dev, gen)
+    lstm_rnnlm = check_lstm_cases(dev, gen, LSTM_RNNLM_CASES, "RNN LM")
+    lstm_rnn_enc = check_lstm_cases(dev, gen, LSTM_RNN_ENCODER_CASES, "RNN encoder")
     attn_phone = check_attention_phone(dev, gen)
     print("  the bf16 parts (and K1 at H > 256): kernels against their plain versions")
     errs.update(check_ctc_head_bf16(dev, gen))
@@ -5977,7 +6397,7 @@ def main(argv=None) -> int:
     root = tempfile.mkdtemp(dir=scratch_root)
     try:
         # 4. training at full width, then one micro-step against the CPU
-        phase("[4/26] main path: L1 CTC(Transformer) training through the train CLI")
+        phase("[4/29] main path: L1 CTC(Transformer) training through the train CLI")
         tr = train_full_width(args, root, card)
         n_layers = tr["cfg"].enc_num_layers
         step_check = check_micro_step(tr, dev, {
@@ -5986,27 +6406,27 @@ def main(argv=None) -> int:
         step_split = time_micro_step(tr, dev, card)
 
         # 5. learning on the card
-        phase("[5/26] learning on the card: the small overfit corpus, train CLI then eval CLI")
+        phase("[5/29] learning on the card: the small overfit corpus, train CLI then eval CLI")
         overfit = overfit_on_card(args, root)
 
         # 6. decode the trainer's checkpoint
-        phase("[6/26] main path: decode of the trainer's model.ep1 through the eval CLI")
+        phase("[6/29] main path: decode of the trainer's model.ep1 through the eval CLI")
         mp = decode_path(args, tr, dev, card)
 
         # 7. the Conformer's attention with its bias, forward and backward
-        phase("[7/26] main path: L2 CTC(Conformer) training, two micro-steps through the train CLI")
+        phase("[7/29] main path: L2 CTC(Conformer) training, two micro-steps through the train CLI")
         l2 = train_conformer_steps(args, root, card)
 
         # 8. the slice's path: L3-1 joint-CTC beam decode
-        phase("[8/26] main path: L3-1 Conformer + attention decoder, beam 10 with joint CTC, through the eval CLI")
+        phase("[8/29] main path: L3-1 Conformer + attention decoder, beam 10 with joint CTC, through the eval CLI")
         l3 = decode_l3_1(args, root, tr["test_tsv"], tr["wav_s"], dev, card)
 
         # 9. the slice's path: L3-3, the same with Transformer-LM shallow fusion
-        phase("[9/26] main path: L3-3, L3-1 with Transformer-LM shallow fusion 0.5, through the eval CLI")
+        phase("[9/29] main path: L3-3, L3-1 with Transformer-LM shallow fusion 0.5, through the eval CLI")
         l33 = decode_l3_3(args, root, tr, dev, card)
 
         # 10. the slice's path: L4 RNN-T(Conformer) training, then greedy and ALSD decoding
-        phase("[10/26] main path: L4 RNN-T(Conformer) training through the train CLI, then its model.ep1 "
+        phase("[10/29] main path: L4 RNN-T(Conformer) training through the train CLI, then its model.ep1 "
               "greedily and with the ALSD beam through the eval CLI")
         l4 = train_l4(args, root, card)
         n_layers = l4["cfg"].enc_num_layers
@@ -6019,7 +6439,7 @@ def main(argv=None) -> int:
                 "an entry point left TF32 on for a float32 model")
 
         # 11. the slice's path: L1 trained in bf16, then its model.ep1 greedily
-        phase("[11/26] main path: L1 CTC(Transformer) training with compute_dtype bfloat16 through the train CLI, "
+        phase("[11/29] main path: L1 CTC(Transformer) training with compute_dtype bfloat16 through the train CLI, "
               "then its model.ep1 greedily through the eval CLI")
         l1b_root = os.path.join(root, "l1_bfloat16")
         os.makedirs(l1b_root)
@@ -6033,7 +6453,7 @@ def main(argv=None) -> int:
         l1b_dec = decode_greedy_bf16(l1b, card, ("attention_fwd_bf16",))
 
         # 12. the slice's path: L4 trained in bf16, then its model.ep1 greedily
-        phase("[12/26] main path: L4 RNN-T(Conformer) training with compute_dtype bfloat16 through the train CLI, "
+        phase("[12/29] main path: L4 RNN-T(Conformer) training with compute_dtype bfloat16 through the train CLI, "
               "then its model.ep1 greedily through the eval CLI")
         l4b = train_l4(args, root, card, "bfloat16", per_bucket=(1, 1, 1, 1, 1))
         n_layers = l4b["cfg"].enc_num_layers
@@ -6045,12 +6465,12 @@ def main(argv=None) -> int:
         l4b_dec = decode_greedy_bf16(l4b, card, ("attention_fwd_bf16", "attention_bias_fwd_bf16"))
 
         # 13. the slice's path: bf16 beam decoding of L1, L3-1, L3-3 and L4
-        phase("[13/26] main path: bf16 beam decoding at full width: L1 beam 8, L3-1 (K5 bf16, both variants), "
+        phase("[13/29] main path: bf16 beam decoding at full width: L1 beam 8, L3-1 (K5 bf16, both variants), "
               "L3-3 with the LM in bf16 (K6 bf16 and the dense route), L4 ALSD beam 10")
         b16 = decode_bf16(args, root, tr, mp, l3, l33, {**l4, "batches": l4_dec["batches"]}, dev, card)
 
         # 14. slice 3c: L3-1 training, its micro-step against the CPU, its model.ep1 decoded; then in bf16
-        phase("[14/26] main path: L3-1 (Conformer + attention decoder, aux CTC 0.3, label smoothing 0.1) training "
+        phase("[14/29] main path: L3-1 (Conformer + attention decoder, aux CTC 0.3, label smoothing 0.1) training "
               "through the train CLI, then its model.ep1 through the eval CLI (beam 10, joint CTC 0.3); two bf16 "
               "micro-steps")
         n_l3_test = 20
@@ -6072,63 +6492,79 @@ def main(argv=None) -> int:
             "attention_fwd": 0, "attention_bwd": 0})
 
         # 15. slice 6a: the three LMs trained through train_lm; one RNN LM step against the CPU
-        phase("[15/26] main path: the RNN (K8), Transformer and BERT LMs trained through train_lm over a sharded "
+        phase("[15/29] main path: the RNN (K8), Transformer and BERT LMs trained through train_lm over a sharded "
               "corpus that fills every bucket")
         lms = train_lms(args, root, card)
         rnn_step = {**check_rnn_lm_step(lms["rnn"], dev), **time_rnn_lm_step(lms["rnn"], dev, card)}
 
         # 16. slice 6a: PPL and BERT's pseudo-PPL through the PPL CLI, against the CPU
-        phase("[16/26] main path: PPL of the three checkpoints through the PPL CLI (BERT: chunked pseudo-PPL at the "
+        phase("[16/29] main path: PPL of the three checkpoints through the PPL CLI (BERT: chunked pseudo-PPL at the "
               "(11, 256) bucket), against the CPU")
         ppl = lm_ppl(lms, dev, card)
 
         # 17. slice 6a: RNN-LM shallow fusion in the three beams
-        phase("[17/26] main path: RNN-LM shallow fusion 0.5 into the L1 CTC beam and the L3-1 attention beam "
+        phase("[17/29] main path: RNN-LM shallow fusion 0.5 into the L1 CTC beam and the L3-1 attention beam "
               "through the eval CLI, and into the L4 ALSD beam in Python")
         fusion = rnn_lm_fusion(args, lms["rnn"], tr, l3t, l4, dev, card)
 
         # 18. slice 6b: ELECTRA and electra-disc through train_lm; one step each against the CPU
-        phase("[18/26] main path: ELECTRA (ted2_electra.yaml, 12 + 12 x 256, V 9798) and electra-disc trained "
+        phase("[18/29] main path: ELECTRA (ted2_electra.yaml, 12 + 12 x 256, V 9798) and electra-disc trained "
               "through train_lm; one step each against the CPU on the same generated ids")
         electra = train_electra(args, root, card, dev)
 
         # 19. slice 6b: P-ELECTRA, the deletable PC-MLM and pctc (K4 in the phone encoder, K1 and K2)
-        phase("[19/26] main path: P-ELECTRA (ted2_pelectra.yaml) and the deletable PC-MLM (del_pc_mlm.yaml) "
+        phase("[19/29] main path: P-ELECTRA (ted2_pelectra.yaml) and the deletable PC-MLM (del_pc_mlm.yaml) "
               "trained through train_lm with the fused phone-encoder attention (K4 with dropout); one step each "
               "against the CPU; the PC-MLM's pseudo-PPL through the PPL CLI; one pctc step (K1, K2)")
         p2w = train_p2w(args, root, card, dev)
 
         # 20. slice 7a: error correction with the PC-MLM
-        phase("[20/26] main path: asr_hie_phone.yaml trained through the train CLI (K1, K2, K4), its phone "
+        phase("[20/29] main path: asr_hie_phone.yaml trained through the train CLI (K1, K2, K4), its phone "
               "hypotheses through test_asr --decode_phone, and correction with the PC-MLM through the correction "
               "CLI, against the CPU")
         corr = correction(args, root, p2w["pbert"], dev, card)
 
         # 21. slice 7a: N-best rescoring of the L1 beam's n-best
-        phase("[21/26] main path: the L1 beam-8 n-best through the rescoring CLI with the Transformer, BERT and "
+        phase("[21/29] main path: the L1 beam-8 n-best through the rescoring CLI with the Transformer, BERT and "
               "ELECTRA LMs, score_lm against the CPU")
         resc = rescoring(args, root, tr, lms, dev, card)
 
         # 22. slice 7b: soft labels from the LMs through make_label (K3)
-        phase("[22/26] main path: soft labels from the trained libri Transformer LM and BERT through make_label "
+        phase("[22/29] main path: soft labels from the trained libri Transformer LM and BERT through make_label "
               "(K3 once a chunk), each held to the CPU's; the V = 1000 LM's for L4")
         soft = soft_label_phase(args, root, lms, dev, card)
 
         # 23. slice 7b: the distillation routes of L1, L3 and L4
-        phase("[23/26] main path: distillation micro-steps through the train step: L1 alignment KD (K2, K4), L3 "
+        phase("[23/29] main path: distillation micro-steps through the train step: L1 alignment KD (K2, K4), L3 "
               "soft labels (K1, K2, K4 with its bias), L4 word and align KD over the full joint (K8, K4); one "
               "micro-step of each against the CPU")
         kd = kd_phase(args, root, tr, l4, soft, dev, card)
 
         # 24. slice 7b: RNN-T forced alignment
-        phase("[24/26] main path: RNN-T forced alignment of the L4 model.ep1 through ASR.forced_align (K4, K8), "
+        phase("[24/29] main path: RNN-T forced alignment of the L4 model.ep1 through ASR.forced_align (K4, K8), "
               "card against CPU")
         fa = forced_align_phase(l4, dev, card)
 
         # 25. slice 7b: the analysis tools
-        phase("[25/26] main path: analysis ctc_prob (K4), the fusion grid on L1's CTC beam with the Transformer "
+        phase("[25/29] main path: analysis ctc_prob (K4), the fusion grid on L1's CTC beam with the Transformer "
               "LM (K3, K4) and align_hyps on the n-best")
         ana = analysis_phase(root, tr, lms, overfit, args.seed, card)
+
+        # 26. slice 5: LAS(Transformer)
+        phase("[26/29] main path: LAS(Transformer) at the benchmarked widths: two micro-steps through the train CLI "
+              "(K4 with dropout) and one against the CPU; the same widths overfitted on phase 5's labels, then "
+              "greedy, beam 4 (K3) and beam 4 with the libri Transformer LM at 0.5 (K6) through the eval CLI")
+        las = las_phase(args, root, lms, overfit, dev, card)
+
+        # 27. slice 5: CTC(RNN)
+        phase("[27/29] main path: CTC(RNN), L1 with 12 biLSTM layers: two micro-steps through the train CLI (K8 at "
+              "(18, 399, 256), K1, K2) and one against the CPU; greedy and CTC beam 8 through the eval CLI")
+        ctc_rnn = ctc_rnn_phase(args, root, tr, dev, card)
+
+        # 28. slice 8a: the front end, the prep CLI and the native paths
+        phase("[28/29] main path: 40 wavs through the prep CLI (fbank on the card), the manifest through the eval CLI; "
+              "the native WER and loader against their Python paths")
+        front = frontend_phase(args, root, overfit, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     set_matmul_precision("float32")  # the bf16 entry points turned TF32 on for their float32 remainder
@@ -6192,6 +6628,16 @@ def main(argv=None) -> int:
                 **r[f"lstm_{kind}"], "launches": lms["rnn"]["k8_by_shape"].get(f"{kind}/{B_}/{T_}/{H_}/f32", 0),
                 "max_abs_err": lstm_rnnlm[kind]})
     times["lstm_fwd"]["rnnlm_shapes"], times["lstm_bwd"]["rnnlm_shapes"] = rnnlm_k8["fwd"], rnnlm_k8["bwd"]
+    # K8 at the RNN encoder's largest bucket, cuDNN's one-direction nn.LSTM(256, 256) beside (K8 runs one
+    # direction a launch); launches: phase 27's, training and decodes
+    (B_, T_, H_), _ = LSTM_RNN_ENCODER_CASES[0]
+    r = time_lstm(dev, gen, B_, T_, H_, H_)
+    k8_rnn = {k: ctc_rnn["train"]["k8_shapes"].get(k, 0) + ctc_rnn["k8_decode"].get(k, 0)
+              for k in set(ctc_rnn["train"]["k8_shapes"]) | set(ctc_rnn["k8_decode"])}
+    for kind in ("fwd", "bwd"):
+        times[f"lstm_{kind}"]["rnn_encoder_shapes"] = [{
+            **r[f"lstm_{kind}"], "launches": k8_rnn.get((kind, B_, T_, H_, "f32"), 0),
+            "max_abs_err": lstm_rnn_enc[kind]}]
     # K4 at the phone encoder's largest bucket (P-ELECTRA, PC-MLM, pctc; phone lengths of half to all of the
     # bucket), SDPA beside; launches: the P2W steps' and the PC-MLM pseudo-PPL's
     pB, pT, pH, pD = PHONE_BUCKET
@@ -6207,7 +6653,7 @@ def main(argv=None) -> int:
             print(f"    attention_{kind}{sfx} (the phone encoder) {r['shape']}: {r['ms']:.4f} ms (bound "
                   f"{r['bound_ms']:.4f} by {r['bound_by']}, plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}), "
                   f"{r['launches']} launches in the P2W steps and the pseudo-PPL")
-    phase(f"[26/26] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
+    phase(f"[29/29] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
           f"decoder step W = 10, pos = 64; L4: B = {l4_big.batch_size}, T' = {l4_T}, U+1 = {l4_big.max_ylen + 1}) "
           f"on {smi}")
 
@@ -6220,7 +6666,9 @@ def main(argv=None) -> int:
         *(v["launches"] for v in electra.values()), *(p2w[t]["launches"] for t in ("pelectra", "pbert", "pctc")),
         p2w["pbert"]["ppl"]["launches"], corr["launches"], corr["decode_launches"], corr["correct_launches"],
         *(soft[t]["launches"] for t in ("transformer", "bert", "v1000")), *(kd[k]["launches"] for k in ("l1", "l3", "l4")),
-        fa["launches"], ana["ctc_prob_launches"], ana["launches"], ana["overfit_launches"]]
+        fa["launches"], ana["ctc_prob_launches"], ana["launches"], ana["overfit_launches"],
+        las["train"]["launches"], las["overfit_launches"], *(r["launches"] for r in las["runs"].values()),
+        ctc_rnn["train"]["launches"], *(r["launches"] for r in ctc_rnn["runs"].values()), front["launches"]]
     ms = lambda x: "none" if x is None else f"{x:.4f}"
 
     def row_of(name, src, rep, launches):
@@ -6238,7 +6686,8 @@ def main(argv=None) -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"],
             **{k: t[k] for k in ("ops_at", "dense_route_ms", "shapes", "floor_ms", "s1025", "dropout_ms",
-                                 "plain_dropout_ms", "library_dropout_ms", "rnnlm_shapes", "phone_shapes") if k in t},
+                                 "plain_dropout_ms", "library_dropout_ms", "rnnlm_shapes", "phone_shapes",
+                                 "rnn_encoder_shapes") if k in t},
         }
 
     # K3 by shape class over the main paths (a call is one launch of one grid)
@@ -6260,6 +6709,11 @@ def main(argv=None) -> int:
             print(f"    lstm_{kind} (RNN LM) {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by "
                   f"{r['bound_by']}, plain {r['plain_ms']:.4f}, cuDNN nn.LSTM {r['library_ms']:.4f}), "
                   f"{r['launches']} launches in the RNN LM's training")
+        for r in times[f"lstm_{kind}"]["rnn_encoder_shapes"]:
+            require(r["launches"] > 0, f"K8 {kind} at the RNN encoder's largest bucket was launched no time")
+            print(f"    lstm_{kind} (RNN encoder) {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']}, plain {r['plain_ms']:.4f}, cuDNN nn.LSTM(256, 256) {r['library_ms']:.4f}), "
+                  f"{r['launches']} launches in phase 27")
     for name in ("ctc_alpha", "ctc_beta_grad"):
         times[name]["s1025"] = wide_lattice[name]
         for t in (times[name], wide_lattice[name]):
@@ -6332,6 +6786,15 @@ def main(argv=None) -> int:
         "distillation": {k: {key: v for key, v in kd[k].items() if key != "launches"} for k in ("l1", "l3", "l4")},
         "forced_align": {k: v for k, v in fa.items() if k != "launches"},
         "analysis": {k: v for k, v in ana.items() if not k.endswith("launches")},
+        "las": {"train": {k: las["train"][k] for k in ("seconds", "losses", "launches")},
+                "micro_step": {**las["step_split"], **las["step_check"]}, "overfit_seconds": las["overfit_seconds"],
+                "overfit_losses": las["overfit_losses"], "greedy_wer": las["greedy_wer"],
+                "runs": las["runs"], "same_top1_card_vs_cpu": las["same_top1_card_vs_cpu"], "seconds": las["seconds"]},
+        "ctc_rnn": {"train": {k: ctc_rnn["train"][k] for k in ("seconds", "losses", "launches")},
+                    "k8_by_shape": {"/".join(map(str, k)): n for k, n in k8_rnn.items()},
+                    "micro_step": {**ctc_rnn["step_split"], **ctc_rnn["step_check"]}, "runs": ctc_rnn["runs"],
+                    "same_top1_card_vs_cpu": ctc_rnn["same_top1_card_vs_cpu"], "seconds": ctc_rnn["seconds"]},
+        "frontend": {k: v for k, v in front.items() if k != "launches"},
         "wide_widths": wide,
         "kernel_resources": resources,
         "card": smi, "total_seconds": time.perf_counter() - t_start,

@@ -4,10 +4,12 @@ Copy of `emoasr_tpu/data/asr_dataset.py` (the port keeps its own copies of
 the JAX package's JAX-free modules).  Same manifest contract (columns
 `feat_path, utt_id, token_id, text, xlen, ylen[, phone_token_id,
 phone_text]`), <sos>/<eos> framing in collate (ys_in/ys_out padded with
-eos), same bucket batching (batching.py).  SpecAugment is not applied here:
-it runs on the device in the train step.  Not carried: the distillation
-soft labels (they come with the distillation slice) and the JAX package's
-optional C++ batch loader (features load with numpy).
+eos), same bucket batching (batching.py), the distillation soft labels.
+SpecAugment is not applied here: it runs on the device in the train step.
+Collate loads a batch's features with the native multithreaded .npy loader
+(`emoasr_tpu_torch/native`, built with g++ at first use; a failed build
+raises); `native_loader=False` takes the per-utterance `np.load` path, the
+plain version the tests hold the native one against.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import pandas as pd
 
+from emoasr_tpu_torch import native
 from emoasr_tpu_torch.config import ExpConfig
 from emoasr_tpu_torch.data.batching import (
     BucketBatcher,
@@ -50,13 +53,15 @@ def create_soft_label(data_kd_utt, ylen: int, vocab_size: int, lsm_prob: float, 
 
 class ASRDataset:
     def __init__(self, cfg: ExpConfig, data_path: str, phase: str = "train", decode_phone: bool = False,
-                 kd_label_path: Optional[str] = None):
+                 kd_label_path: Optional[str] = None, native_loader: bool = True):
         """`decode_phone` reads the phone columns at test time too (the
         eval CLI's `--decode_phone`, error correction with phones).
         `kd_label_path`: the soft labels' pickle, read in the train phase
         when `kd_weight` or `inter_kd_weight` is set; each example then
-        carries `soft_label` and each batch `soft_labels`."""
+        carries `soft_label` and each batch `soft_labels`.  `native_loader`
+        picks collate's feature loader (see the module's docstring)."""
         self.cfg = cfg
+        self.native_loader = native_loader
         self.phase = phase
         self.use_phone = (phase == "train" and cfg.mtl_phone_ctc_weight > 0) or decode_phone
         cols = ["feat_path", "utt_id", "token_id", "text", "xlen", "ylen"]
@@ -73,20 +78,15 @@ class ASRDataset:
     def __len__(self) -> int:
         return len(self.data)
 
-    def __getitem__(self, idx: int) -> Dict:
+    def __getitem__(self, idx: int, load_x: bool = True) -> Dict:
         cfg = self.cfg
         row = self.data.iloc[idx]
-        x = np.load(row["feat_path"])[:, : cfg.feat_dim].astype(np.float32)
-        # frame stacking happens after collate (train/step.py::preprocess)
         y = np.asarray(str2ints(row["token_id"]), np.int32)
-        ex = {
-            "utt_id": row["utt_id"],
-            "text": row["text"],
-            "x": x,
-            "xlen": x.shape[0],
-            "y": y,
-            "ylen": len(y),
-        }
+        ex = {"utt_id": row["utt_id"], "text": row["text"], "y": y, "ylen": len(y)}
+        if load_x:
+            # frame stacking happens after collate (train/step.py::preprocess)
+            ex["x"] = np.load(row["feat_path"])[:, : cfg.feat_dim].astype(np.float32)
+            ex["xlen"] = ex["x"].shape[0]
         if self.use_phone:
             p = np.asarray(str2ints(row["phone_token_id"]), np.int32)
             ex["p"] = p
@@ -144,7 +144,13 @@ class ASRDataset:
         if pad_to_batch is not None and n_valid < pad_to_batch:
             indices = list(indices) + [indices[0]] * (pad_to_batch - n_valid)
         cfg = self.cfg
-        exs = [self[i] for i in indices]
+        exs = [self.__getitem__(i, load_x=not self.native_loader) for i in indices]
+        if self.native_loader:
+            xs, xlens = native.load_feat_batch_native(
+                [self.data.iloc[i]["feat_path"] for i in indices], max_xlen, cfg.feat_dim)
+        else:
+            xs = pad_to([e["x"] for e in exs], max_xlen, 0.0)
+            xlens = [e["xlen"] for e in exs]
         B, eos = len(exs), cfg.eos_id
         # <sos>/<eos> framing (datasets.py:158-176)
         ys_in = np.full((B, max_ylen + 1), eos, np.int32)
@@ -157,8 +163,8 @@ class ASRDataset:
             "utt_ids": [e["utt_id"] for e in exs[:n_valid]],
             "texts": [e["text"] for e in exs[:n_valid]],
             "n_valid": n_valid,
-            "xs": pad_to([e["x"] for e in exs], max_xlen, 0.0),
-            "xlens": np.asarray([e["xlen"] for e in exs], np.int32),
+            "xs": xs,
+            "xlens": np.asarray(xlens, np.int32),
             "ys": pad_to([e["y"] for e in exs], max_ylen, eos).astype(np.int32),
             "ylens": np.asarray([e["ylen"] for e in exs], np.int32),
             "ys_in": ys_in,

@@ -1,10 +1,11 @@
-"""Batched decoding front-end (PyTorch port of the CTC and attention-decoder
-branches of `emoasr_tpu/eval/decode.py::build_decode_fn`).
+"""Batched decoding front-end (PyTorch port of
+`emoasr_tpu/eval/decode.py::build_decode_fn`).
 
 One call decodes a whole padded bucket batch: greedy or the CTC prefix beam
 search for a CTC model, greedy or the ALSD beam search for an RNN-T model,
-the joint-CTC attention beam search for a Transformer decoder; the CTC and
-attention beams take LM shallow fusion (an `LMFusion`, search/common.py).
+the joint-CTC attention beam search for a Transformer decoder, greedy or
+the LAS beam (`search/las_beam.py`) for a LAS decoder; every beam takes LM
+shallow fusion (an `LMFusion`, search/common.py).
 The JAX package's packing and coalescing helpers worked around a remote
 transport and are not carried.
 """
@@ -82,11 +83,12 @@ def build_decode_fn(
 
     RNN-T decoder: greedy for `beam_width <= 1` or `decode_ctc_weight == 1`
     (as the JAX package chooses), else the ALSD beam with hypotheses of at
-    most `max_decode_ylen` labels after the leading eos."""
-    if cfg.decoder_type not in ("ctc", "transformer", "rnn_transducer"):
-        raise NotImplementedError(
-            f"decode for decoder_type={cfg.decoder_type!r} is not ported yet (ROADMAP.md §1)"
-        )
+    most `max_decode_ylen` labels after the leading eos.
+
+    LAS decoder: greedy for `beam_width <= 1`, else the LAS beam (JAX
+    `decode.py:429-443`)."""
+    if cfg.decoder_type not in ("ctc", "transformer", "rnn_transducer", "las"):
+        raise ValueError(f"decoder_type={cfg.decoder_type!r}")
     if cfg.dec_step_mode not in DEC_STEP_MODES:
         raise ValueError(f"dec_step_mode={cfg.dec_step_mode!r}: one of {DEC_STEP_MODES}")
     # the attention decoder has no greedy path (the reference also runs its
@@ -216,8 +218,16 @@ def build_decode_fn(
                 lm=lm_t,
             )
 
+        @torch.no_grad()
+        def decode_las_beam(xs, xlens):
+            xs, xlens = inputs(xs, xlens)
+            eouts, elens, _ = model.encode(xs, xlens)
+            return model.decoder.decode_beam(eouts, elens, beam_width, lw, lm=lm_t)
+
         if cfg.decoder_type == "transformer":
             fn = decode_att_beam
+        elif cfg.decoder_type == "las":
+            fn = decode_greedy if beam_width <= 1 else decode_las_beam
         elif cfg.decoder_type == "rnn_transducer":
             greedy = beam_width <= 1 or decode_ctc_weight == 1
             fn = decode_greedy if greedy else decode_rnnt_beam

@@ -5,8 +5,11 @@ edit-distance DP, same backtrace priority (C > I > S > D) so the S/I/D
 breakdown matches exactly, same `<dummy>` substitution for empty hypotheses,
 same corpus aggregation (summed S+I+D over summed ref lengths).
 
-Copy of `emoasr_tpu/eval/wer.py` without its optional C++ path: the DP
-rows are numpy-vectorized and every corpus is scored in Python.
+Copy of `emoasr_tpu/eval/wer.py`: the DP rows are numpy-vectorized, and
+`compute_wers` scores a corpus with the native edit distance
+(`emoasr_tpu_torch/native`, built with g++ at first use; a failed build
+raises); its Python path, the plain version the tests hold the native one
+against, is taken only when asked (`native=False`).
 """
 
 from __future__ import annotations
@@ -14,6 +17,9 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from emoasr_tpu_torch import native as _native
+
 
 def _edit_distance_matrix(ref: Sequence, hyp: Sequence) -> np.ndarray:
     R, H = len(ref), len(hyp)
@@ -89,13 +95,31 @@ def compute_wer(hyp: List, ref: List, cer: bool = False) -> Tuple[float, Dict]:
     }
 
 
-def compute_wers(hyps: List[List], refs: List[List], cer: bool = False):
-    """Corpus WER: aggregate S/I/D over utterances (metrics.py:108-135)."""
+def _intern_tokens(seqs: List[List]) -> List[List[int]]:
+    """Map arbitrary token sequences to int ids for the native kernel."""
+    table: Dict = {}
+    return [[table.setdefault(t, len(table)) for t in s] for s in seqs]
+
+
+def compute_wers(hyps: List[List], refs: List[List], cer: bool = False, native: bool = True):
+    """Corpus WER: aggregate S/I/D over utterances (metrics.py:108-135), by
+    the native edit distance, or by `compute_wer` with `native=False`."""
     tot = {"n_sub": 0, "n_ins": 0, "n_del": 0, "n_ref": 0}
-    for hyp, ref in zip(hyps, refs):
-        _, wd = compute_wer(hyp, ref, cer=cer)
-        for k in tot:
-            tot[k] += wd[k]
+    if native:
+        # <dummy> substitution before the cer split, as compute_wer does it
+        hyps = [h if len(h) else ["<dummy>"] for h in hyps]
+        if cer:
+            hyps = [list("".join(map(str, h))) for h in hyps]
+            refs = [list("".join(map(str, r))) for r in refs]
+        interned = _intern_tokens([*hyps, *refs])
+        counts = _native.edit_distance_native(interned[:len(hyps)], interned[len(hyps):])
+        for j, k in enumerate(("n_sub", "n_ins", "n_del", "n_ref")):
+            tot[k] = int(counts[:, j].sum())
+    else:
+        for hyp, ref in zip(hyps, refs):
+            _, wd = compute_wer(hyp, ref, cer=cer)
+            for k in tot:
+                tot[k] += wd[k]
     wer = (tot["n_sub"] + tot["n_ins"] + tot["n_del"]) / tot["n_ref"] * 100
     tot["wer"] = wer
     return wer, tot

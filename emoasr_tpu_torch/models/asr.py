@@ -3,9 +3,9 @@
 
 Parity target: emoASR `asr/modeling/asr.py:21-101`: `forward` (loss),
 greedy `decode`, `forced_align` (CTC and RNN-T); the submodule names `encoder` and
-`decoder` are the reference checkpoint's prefixes.  Ported so far: the
-Transformer and Conformer encoders with the CTC decoder, the RNN-T decoder
-and the attention decoder (training and decoding).  Dropout is on in
+`decoder` are the reference checkpoint's prefixes.  Every encoder
+(Transformer, Conformer, RNN) and decoder (CTC, RNN-T, Transformer, LAS)
+of the JAX package is ported, for training and decoding.  Dropout is on in
 `train()` mode and off in `eval()` mode (the JAX package's `deterministic`
 flag).
 """
@@ -17,6 +17,7 @@ from torch import nn
 
 from emoasr_tpu_torch.config import ExpConfig
 from emoasr_tpu_torch.models.decoders.ctc import CTCDecoder
+from emoasr_tpu_torch.models.decoders.las import LASDecoder
 from emoasr_tpu_torch.models.decoders.rnnt import RNNTDecoder
 from emoasr_tpu_torch.models.decoders.transformer import TransformerDecoder
 from emoasr_tpu_torch.models.encoders import build_encoder
@@ -35,10 +36,10 @@ class ASR(nn.Module):
             self.decoder = RNNTDecoder(cfg)
         elif cfg.decoder_type == "transformer":
             self.decoder = TransformerDecoder(cfg)
+        elif cfg.decoder_type == "las":
+            self.decoder = LASDecoder(cfg)
         else:
-            raise NotImplementedError(
-                f"decoder_type={cfg.decoder_type!r}: LAS comes with slice 5 (ROADMAP.md §1)"
-            )
+            raise ValueError(cfg.decoder_type)
 
     def forward(self, xs, xlens, ys, ylens, ys_in=None, ys_out=None,
                 soft_labels=None, ps=None, plens=None):
@@ -56,11 +57,12 @@ class ASR(nn.Module):
 
     def decode_greedy(self, xs, xlens, decode_phone: bool = False):
         """Batched greedy decode -> (hyps, hyp_lens, logits, aligns)
-        (`asr.py:70-95` + `ctc.py:176-201` / `rnn_transducer.py:194-240`;
-        logits None for the RNN-T decoder).  `decode_phone` decodes a CTC
-        model's phone head, from the intermediate layer's output when the
-        phone CTC is hierarchical (`hie_mtl_phone`)."""
-        if self.cfg.decoder_type not in ("ctc", "rnn_transducer"):
+        (`asr.py:70-95` + `ctc.py:176-201` / `rnn_transducer.py:194-240` /
+        `las.py:175-280`; logits None for the RNN-T and LAS decoders,
+        aligns None for LAS).  `decode_phone` decodes a CTC model's phone
+        head, from the intermediate layer's output when the phone CTC is
+        hierarchical (`hie_mtl_phone`)."""
+        if self.cfg.decoder_type not in ("ctc", "rnn_transducer", "las"):
             raise NotImplementedError(
                 f"greedy decode for {self.cfg.decoder_type}; use emoasr_tpu_torch.search"
             )
@@ -68,6 +70,9 @@ class ASR(nn.Module):
         if self.cfg.decoder_type == "rnn_transducer":
             hyps, hyp_lens, aligns = self.decoder.greedy(eouts, elens)
             return hyps, hyp_lens, None, aligns
+        if self.cfg.decoder_type == "las":
+            hyps, hyp_lens = self.decoder.decode_greedy(eouts, elens)
+            return hyps, hyp_lens, None, None
         if decode_phone and self.cfg.hie_mtl_phone:
             eouts = eouts_inter
         return self.decoder.greedy(eouts, elens, decode_phone)

@@ -1,5 +1,5 @@
-"""Transformer and Conformer encoders (PyTorch port of
-`emoasr_tpu/models/encoders.py::TransformerEncoder`).
+"""Transformer, Conformer and RNN encoders (PyTorch port of
+`emoasr_tpu/models/encoders.py`).
 
 Parity target: emoASR `asr/modeling/encoders/transformer.py:16-113`:
 conv2d, embed (the phone encoder of the phone-to-word LMs) or linear input
@@ -9,10 +9,18 @@ for inter-CTC / hierarchical phone CTC.  `cfg.enc_fused_attn` sends every
 layer's attention through the fused kernel (ops/attention.py); in a
 Conformer layer with relative positions the kernel takes the shifted
 position term as its score bias.
+
+`RNNEncoder` (emoASR `asr/modeling/encoders/rnn.py:14-81`): the conv2d (or
+no) input layer, then `enc_num_layers` one-layer bidirectional LSTMs
+(`ops/lstm.py::BiLSTM`: each direction through `lstm_scan`, the LSTM kernel
+on the card for 8 frames or more), the directions summed or concatenated
+(`enc_hidden_sum_fwd_bwd`), dropout after every layer; outputs past each
+length are zero.
 """
 
 from __future__ import annotations
 
+import torch.nn.functional as F
 from torch import nn
 
 from emoasr_tpu_torch.config import ExpConfig
@@ -24,6 +32,7 @@ from emoasr_tpu_torch.models.layers import (
     TransformerEncoderLayer,
     make_pad_mask,
 )
+from emoasr_tpu_torch.ops.lstm import BiLSTM
 
 
 class TransformerEncoder(nn.Module):
@@ -89,10 +98,51 @@ class TransformerEncoder(nn.Module):
         return self.norm(xs), elens, eouts_inter
 
 
+class RNNEncoder(nn.Module):
+    """Stacked one-layer biLSTMs (`rnns.{i}.*_l0`, `*_l0_reverse`), the
+    directions summed or concatenated."""
+
+    def __init__(self, cfg: ExpConfig):
+        super().__init__()
+        self.cfg = cfg
+        if cfg.input_layer == "conv2d":
+            self.conv = Conv2dSubsampler(cfg.input_size, cfg.enc_hidden_size)
+            in_size = cfg.enc_hidden_size
+        elif cfg.input_layer == "none":
+            in_size = cfg.input_size
+        else:
+            raise ValueError(f"the RNN encoder's input_layer is conv2d or none, not {cfg.input_layer!r}")
+        if cfg.enc_hidden_sum_fwd_bwd:
+            self.hidden = cfg.enc_hidden_size
+        else:
+            if cfg.enc_hidden_size % 2:
+                raise ValueError(f"enc_hidden_size={cfg.enc_hidden_size} must be even to concatenate directions")
+            self.hidden = cfg.enc_hidden_size // 2
+        layers = []
+        for _ in range(cfg.enc_num_layers):
+            layers.append(BiLSTM(in_size, self.hidden))
+            in_size = self.hidden if cfg.enc_hidden_sum_fwd_bwd else 2 * self.hidden
+        self.rnns = nn.ModuleList(layers)
+
+    def forward(self, xs, xlens):
+        """(B, T, F), (B,) -> (eouts (B, T', D), elens (B,), None)."""
+        cfg = self.cfg
+        if cfg.input_layer == "conv2d":
+            xs, elens = self.conv(xs, xlens)
+        else:
+            elens = xlens
+        H = self.hidden
+        for rnn in self.rnns:
+            out = rnn(xs, elens)
+            xs = out[..., :H] + out[..., H:] if cfg.enc_hidden_sum_fwd_bwd else out
+            xs = F.dropout(xs, cfg.dropout_enc_rate, self.training)
+        return xs, elens, None
+
+
 def build_encoder(cfg: ExpConfig) -> nn.Module:
     """Encoder factory (`asr/modeling/asr.py:29-34`)."""
+    if cfg.encoder_type == "rnn":
+        return RNNEncoder(cfg)
     if cfg.encoder_type in ("transformer", "conformer"):
         return TransformerEncoder(cfg, is_conformer=cfg.encoder_type == "conformer")
-    raise NotImplementedError(
-        f"encoder_type={cfg.encoder_type!r}: the RNN encoder comes with slice 5 (ROADMAP.md §1)"
-    )
+    raise ValueError(cfg.encoder_type)

@@ -117,8 +117,9 @@ def prefetch_to_device(batch_iter, device: torch.device, depth: int = 3) -> Iter
 @torch.no_grad()
 def greedy_valid_wer(cfg: ExpConfig, model: ASR, dataset: ASRDataset, vocab=None) -> float:
     """Per-epoch greedy WER on the dev set (train_asr.py:146-184); the
-    model is switched to `eval()` and back.  CTC and RNN-T decoders decode
-    greedily; the attention decoder runs a width-1 beam
+    model is switched to `eval()` and back.  CTC, RNN-T and LAS decoders
+    decode greedily (batched, JAX `loop.py:111`); the attention decoder runs
+    a width-1 beam
     (`eval/decode.py::build_decode_fn(..., beam_width=1)`, as the reference
     decodes with beam_width=1).  Under a half `compute_dtype` a cast copy
     decodes, as the JAX package's validation decodes the cast variables."""

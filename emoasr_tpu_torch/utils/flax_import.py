@@ -1,10 +1,11 @@
 """Carry the JAX package's flax parameters into the port's `state_dict`.
 
 `asr_state_dict(params, cfg, batch_stats)` is the inverse of
-`emoasr_tpu/utils/torch_import.py::asr_model` for the models ported so far
-(Transformer or Conformer encoder with the conv2d, embed or linear input layer;
-CTC decoder with its optional phone head, Transformer decoder or RNN-T
-decoder, each with its optional auxiliary CTC head), and
+`emoasr_tpu/utils/torch_import.py::asr_model` for every ASR model
+(Transformer or Conformer encoder with the conv2d, embed or linear input
+layer, or the RNN encoder with the conv2d one; CTC decoder with its
+optional phone head, Transformer, RNN-T or LAS decoder, each with its
+optional auxiliary CTC head), and
 `lm_state_dict(params, lm_cfg)` that of `torch_import.py::bert_masked_lm`,
 `rnnlm` and `electra_model` and of the encoder and decoder importers that
 the phone-to-word models reuse, for every LM type.  It takes the flax parameter tree (and, for a
@@ -157,27 +158,67 @@ def rnnt_decoder_state_dict(dec: Mapping, num_layers: int, prefix: str = "") -> 
     return sd
 
 
+def rnn_encoder_state_dict(enc: Mapping, num_layers: int, prefix: str = "") -> SD:
+    """The RNN encoder (inverse of `torch_import.py::rnn_encoder`): the
+    conv2d subsampler and `rnns_{i}/{fwd,bwd}` -> `rnns.{i}.*_l0` and
+    `rnns.{i}.*_l0_reverse`."""
+    sd: SD = {}
+    if "conv" in enc:
+        conv = enc["conv"]
+        _conv2d(sd, f"{prefix}conv.conv.0", conv["conv1"])
+        _conv2d(sd, f"{prefix}conv.conv.2", conv["conv2"])
+        _dense(sd, f"{prefix}conv.output", conv["output"])
+    for i in range(num_layers):
+        for direction, suffix in (("fwd", "_l0"), ("bwd", "_l0_reverse")):
+            layer = enc[f"rnns_{i}"][direction]
+            for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                sd[f"{prefix}rnns.{i}.{name}{suffix}"] = _t(layer[name])
+    return sd
+
+
+def las_decoder_state_dict(dec: Mapping, num_layers: int, prefix: str = "") -> SD:
+    """The LAS decoder (inverse of `torch_import.py::las_decoder`): raw
+    `w_*_kernel` (in, out) -> `score.w_*.weight`, `attn_conv_kernel`
+    (k, 1, C) -> `score.conv.weight` (C, 1, k), `cell{i}_*` -> `rnns.{i}.*`
+    (`nn.LSTMCell`'s names), `output` an `ExplicitDense`."""
+    sd: SD = {f"{prefix}embed.weight": _t(dec["embed"]["embedding"])}
+    for i in range(num_layers):
+        for name, torch_name in zip(("w_ih", "w_hh", "b_ih", "b_hh"), ("weight_ih", "weight_hh", "bias_ih", "bias_hh")):
+            sd[f"{prefix}rnns.{i}.{torch_name}"] = _t(dec[f"cell{i}_{name}"])
+    for name in ("key", "query", "conv", "score"):
+        sd[f"{prefix}score.w_{name}.weight"] = _t(np.asarray(dec[f"w_{name}_kernel"]).T)
+        sd[f"{prefix}score.w_{name}.bias"] = _t(dec[f"w_{name}_bias"])
+    sd[f"{prefix}score.conv.weight"] = _t(np.asarray(dec["attn_conv_kernel"]).transpose(2, 1, 0))
+    sd[f"{prefix}intermed.weight"] = _t(np.asarray(dec["intermed_kernel"]).T)
+    sd[f"{prefix}intermed.bias"] = _t(dec["intermed_bias"])
+    _dense(sd, f"{prefix}output", dec["output"])
+    if "ctc" in dec:
+        sd.update(ctc_decoder_state_dict(dec["ctc"], f"{prefix}ctc."))
+    return sd
+
+
 def asr_state_dict(params: Mapping, cfg, batch_stats: Optional[Mapping] = None) -> SD:
     """flax `{"encoder": ..., "decoder": ...}` (+ the `batch_stats`
     collection of a Conformer) -> port `state_dict`."""
-    if cfg.encoder_type not in ("transformer", "conformer"):
-        raise NotImplementedError(
-            f"encoder {cfg.encoder_type}/{cfg.input_layer} is not ported yet (ROADMAP.md §1)"
+    if cfg.encoder_type == "rnn":
+        sd = rnn_encoder_state_dict(params["encoder"], cfg.enc_num_layers, "encoder.")
+    elif cfg.encoder_type in ("transformer", "conformer"):
+        sd = transformer_encoder_state_dict(
+            params["encoder"], cfg.enc_num_layers, "encoder.",
+            None if batch_stats is None else batch_stats.get("encoder"),
         )
-    sd = transformer_encoder_state_dict(
-        params["encoder"], cfg.enc_num_layers, "encoder.",
-        None if batch_stats is None else batch_stats.get("encoder"),
-    )
+    else:
+        raise ValueError(cfg.encoder_type)
     if cfg.decoder_type == "ctc":
         sd.update(ctc_decoder_state_dict(params["decoder"], "decoder."))
     elif cfg.decoder_type == "transformer":
         sd.update(transformer_decoder_state_dict(params["decoder"], cfg.dec_num_layers, "decoder."))
     elif cfg.decoder_type == "rnn_transducer":
         sd.update(rnnt_decoder_state_dict(params["decoder"], cfg.dec_num_layers, "decoder."))
+    elif cfg.decoder_type == "las":
+        sd.update(las_decoder_state_dict(params["decoder"], cfg.dec_num_layers, "decoder."))
     else:
-        raise NotImplementedError(
-            f"decoder_type={cfg.decoder_type!r} is not ported yet (ROADMAP.md §1)"
-        )
+        raise ValueError(cfg.decoder_type)
     return sd
 
 

@@ -63,7 +63,9 @@ def test_imports_no_jax_and_nothing_of_the_jax_package():
                 "emoasr_tpu_torch.models.decoders.rnnt", "emoasr_tpu_torch.search.rnnt_beam",
                 "emoasr_tpu_torch.eval.rescore", "emoasr_tpu_torch.eval.correct",
                 "emoasr_tpu_torch.data.lm_dataset", "emoasr_tpu_torch.eval.test_ppl",
-                "emoasr_tpu_torch.train.train_lm"):
+                "emoasr_tpu_torch.train.train_lm", "emoasr_tpu_torch.frontend.fbank",
+                "emoasr_tpu_torch.corpora.prep", "emoasr_tpu_torch.native",
+                "emoasr_tpu_torch.models.decoders.las", "emoasr_tpu_torch.search.las_beam"):
         assert mod in res["modules"]
 
 
@@ -177,6 +179,31 @@ def test_entry_points_raise_without_cuda(tmp_path):
         assert not os.path.exists(tmp_path / lm_type)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         correct.main(["-conf", str(conf), "-ep", "1", "--lm_conf", str(tmp_path / "pbert.yaml"), "--lm_ep", "1"])
+
+
+def test_rnn_las_and_prep_entry_points_raise_without_cuda(tmp_path):
+    """The LAS and RNN-encoder models' decode functions, greedy and beam,
+    and the prep CLI's fbank stage run on the GPU unless asked for the CPU;
+    here they raise before they read or write anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from emoasr_tpu_torch.config import config_from_dict
+    from emoasr_tpu_torch.corpora import prep
+    from emoasr_tpu_torch.eval.decode import build_decode_fn
+    from emoasr_tpu_torch.models.asr import ASR
+
+    small = dict(feat_dim=20, enc_hidden_size=16, enc_num_attention_heads=2, enc_num_layers=1,
+                 enc_intermediate_size=32, vocab_size=10, dec_hidden_size=16, dec_num_layers=1,
+                 dec_intermediate_size=16)
+    for over in (dict(decoder_type="las"), dict(encoder_type="rnn"), dict(encoder_type="rnn", decoder_type="las")):
+        cfg = config_from_dict(dict(small, **over))
+        for beam in (0, 3):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                build_decode_fn(ASR(cfg), cfg, beam_width=beam)
+    (tmp_path / "wavs.tsv").write_text("wav_path\nnowhere.wav\n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        prep.main(["wav_to_feats", str(tmp_path / "wavs.tsv")])
+    assert sorted(os.listdir(tmp_path)) == ["wavs.tsv"]
 
 
 def test_lm_fusion_raises_and_names_its_slice(tmp_path):

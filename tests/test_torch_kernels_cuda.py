@@ -558,7 +558,7 @@ def test_lstm_at_the_rnn_lm_shapes_matches_plain(cuda_dev):
     from emoasr_tpu_torch.ops import lstm_scan
 
     before, shapes = dict(lstm_scan.KERNEL.counts), dict(lstm_scan.SHAPE_LAUNCHES)
-    chip_smoke.check_lstm_rnnlm(*cuda_dev)
+    chip_smoke.check_lstm_cases(*cuda_dev, chip_smoke.LSTM_RNNLM_CASES, "RNN LM")
     for name in ("emo_lstm_fwd_f32", "emo_lstm_bwd_f32"):
         assert lstm_scan.KERNEL.counts[name] - before[name] == 2 * len(chip_smoke.LSTM_RNNLM_CASES)
     for (B, T, H), _ in chip_smoke.LSTM_RNNLM_CASES:
@@ -767,3 +767,94 @@ def test_p2w_pseudo_log_likelihood_on_the_card_matches_the_cpu(cuda_dev):
     assert attention.KERNEL.counts["emo_attention_fwd_f32"] - before == cfg.enc_num_layers  # the phones once
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-4)
     np.testing.assert_allclose(got.sum().item(), want.sum().item(), rtol=chip_smoke.PPL_RTOL)
+
+
+def test_lstm_at_the_rnn_encoder_shapes_matches_plain(cuda_dev):
+    """K8 at the RNN encoder's shapes, (B, T', H) = (18, 399, 256), (46,
+    99, 256) and (50, 49, 256), forward and backward, each twice
+    (bit-identical), counted by shape."""
+    from emoasr_tpu_torch.ops import lstm_scan
+
+    before, shapes = dict(lstm_scan.KERNEL.counts), dict(lstm_scan.SHAPE_LAUNCHES)
+    chip_smoke.check_lstm_cases(*cuda_dev, chip_smoke.LSTM_RNN_ENCODER_CASES, "RNN encoder")
+    for name in ("emo_lstm_fwd_f32", "emo_lstm_bwd_f32"):
+        assert lstm_scan.KERNEL.counts[name] - before[name] == 2 * len(chip_smoke.LSTM_RNN_ENCODER_CASES)
+    for (B, T, H), _ in chip_smoke.LSTM_RNN_ENCODER_CASES:
+        for kind in ("fwd", "bwd"):
+            key = (kind, B, T, H, "f32")
+            assert lstm_scan.SHAPE_LAUNCHES[key] - shapes.get(key, 0) == 2
+
+
+def test_rnn_encoder_runs_each_direction_through_the_lstm_kernel(cuda_dev):
+    """The RNN encoder (2 biLSTM layers of 64, directions summed) on the
+    card: one K8 launch a direction a layer forward and backward; outputs
+    zero past each length; outputs and gradients as the CPU's plain scan
+    (LSTM_FWD_TOL; gradients 1e-4 of their largest entry + 1e-6)."""
+    from emoasr_tpu_torch.config import config_from_dict
+    from emoasr_tpu_torch.models.encoders import RNNEncoder
+    from emoasr_tpu_torch.ops import lstm_scan
+
+    dev, gen = cuda_dev
+    torch.manual_seed(0)
+    enc = RNNEncoder(config_from_dict(dict(encoder_type="rnn", feat_dim=20, enc_hidden_size=64, enc_num_layers=2,
+                                           dropout_enc_rate=0.0))).eval()
+    xs = torch.randn(3, 90, 20, generator=torch.Generator().manual_seed(1))
+    xlens = torch.tensor([90, 61, 40])
+    wsum = torch.randn(3, 21, 64, generator=torch.Generator().manual_seed(2))
+    res = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        enc = enc.to(d)
+        before = dict(lstm_scan.KERNEL.counts)
+        eouts, elens, _ = enc(xs.to(d), xlens.to(d))
+        grads = torch.autograd.grad((eouts * wsum.to(d)).sum(), list(enc.parameters()))
+        used = {k: lstm_scan.KERNEL.counts[k] - before[k] for k in before}
+        assert used["emo_lstm_fwd_f32"] == used["emo_lstm_bwd_f32"] == (4 if name == "cuda" else 0)
+        res[name] = (eouts.detach().cpu(), elens.cpu(), [g.cpu() for g in grads])
+    (e1, l1, g1), (e0, l0, g0) = res["cuda"], res["cpu"]
+    assert torch.equal(l1, l0)
+    for b, n in enumerate(l0.tolist()):
+        assert not e1[b, n:].any()
+    chip_smoke._require_close("RNN encoder eouts", e1, e0, chip_smoke.LSTM_FWD_TOL, 0.0)
+    for a, b in zip(g1, g0):
+        chip_smoke._require_close("RNN encoder gradient", a, b, 1e-6, 1e-4)
+
+
+def test_las_beam_selects_by_the_topk_kernel(cuda_dev):
+    """The LAS beam (W = 4, V = 300) on the card: K3 twice a step, the
+    (B, 4, V) pre-selection and the (B, 16) pool; hypotheses and lengths
+    equal to the CPU's, scores within 1e-4; width 1 equal to greedy on
+    every row it ends."""
+    from emoasr_tpu_torch.config import config_from_dict
+    from emoasr_tpu_torch.models.decoders.las import LASDecoder
+    from emoasr_tpu_torch.ops import topk
+
+    dev, _ = cuda_dev
+    cfg = config_from_dict(dict(decoder_type="las", vocab_size=300, dec_hidden_size=64, dec_num_layers=2,
+                                dec_intermediate_size=64, embedding_size=32, enc_hidden_size=48, max_decode_ylen=12))
+    torch.manual_seed(0)
+    dec = LASDecoder(cfg).eval()
+    with torch.no_grad():  # logits spread apart, and hypotheses of 1-4 labels end within the cap
+        dec.output.weight.mul_(8.0)
+        dec.output.bias[2] += 2.0
+    eouts = torch.randn(5, 23, 48, generator=torch.Generator().manual_seed(3))
+    elens = torch.tensor([23, 20, 15, 9, 4])
+    out = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        dec = dec.to(d)
+        before, shapes = topk.KERNEL.launches, dict(topk.SHAPE_LAUNCHES)
+        out[name] = [x.cpu() for x in dec.decode_beam(eouts.to(d), elens.to(d), 4, 1.0)]
+        steps = topk.SHAPE_LAUNCHES[(300, 4, "float32")] - shapes.get((300, 4, "float32"), 0)
+        assert topk.KERNEL.launches - before == (2 * steps if name == "cuda" else 0)
+        if name == "cuda":
+            assert steps >= 1 and topk.SHAPE_LAUNCHES[(16, 4, "float32")] - shapes.get((16, 4, "float32"), 0) == steps
+        out[name + "1"] = [x.cpu() for x in dec.decode_beam(eouts.to(d), elens.to(d), 1)]
+        out[name + "g"] = [x.cpu() for x in dec.decode_greedy(eouts.to(d), elens.to(d))]
+    (h1, l1, s1), (h0, l0, s0) = out["cuda"], out["cpu"]
+    assert torch.equal(h1, h0) and torch.equal(l1, l0) and bool((s1[:, 0] > -1e29).any())
+    live = s0 > -1e29
+    assert torch.equal(s1 > -1e29, live)
+    assert (s1[live] - s0[live]).abs().max().item() <= 1e-4
+    (b, bl, bs), (g, gl) = out["cuda1"], out["cudag"]
+    for r in range(5):
+        if bs[r, 0] > -1e29:
+            assert b[r, 0, 1:bl[r, 0] - 1].tolist() == g[r, :gl[r]].tolist()
