@@ -112,10 +112,12 @@ Phases (any failed check raises, so the script exits non-zero):
    step of the largest score).
 14. L3-1 training (slice 3c): `configs/libri/l3_1_ctc_joint.yaml` at full
    width (label smoothing 0.1, aux CTC 0.3, SpecAugment and dropout on,
-   `enc_fused_attn: true`) through the train CLI, 5 micro-steps up to the
-   (18, 1600) bucket, each launching K1 and K2 once and K4 with its bias
-   once a Conformer layer; one micro-step (loss_att, loss_ctc, loss_total,
-   every gradient) against the CPU within STEP_TOL; its `model.ep1` through
+   `enc_fused_attn: true`; a copy with a warm-up of UPDATE_WARMUP steps, so
+   that its one update shows) through the train CLI, 5 micro-steps up to
+   the (18, 1600) bucket, each launching K1 and K2 once and K4 with its
+   bias once a Conformer layer; one micro-step (loss_att, loss_ctc,
+   loss_total, every gradient) against the CPU within STEP_TOL; one update
+   of its `model.ep1` card against CPU (`updates_close`); its `model.ep1` through
    the eval CLI (beam 10, joint CTC 0.3, `fused_indirect`: K3, K4, K5);
    two bf16 micro-steps, one held against f32 (loss within 2 %, gradient
    cosine >= 0.99).
@@ -132,7 +134,10 @@ Phases (any failed check raises, so the script exits non-zero):
 17. RNN-LM shallow fusion at 0.5: the L1 CTC beam 8 and the trained L3-1
    attention beam 10 through the eval CLI (`--lm_conf`, `--lm_path`), the
    L4 ALSD beam 10 in Python (an RNN LM over L4's 1000 tokens from the
-   seed); one short batch's top-1 hypotheses card against CPU each.
+   seed, token ALSD_LM_TOKEN's bias raised by GRID_LM_BIAS, on a copy of
+   L4's checkpoint whose logit of that token is raised until it beats
+   blank at every frame: no top-1 hypothesis empty); one short batch's
+   top-1 hypotheses card against CPU each.
 18. ELECTRA (slice 6b): `configs/lm/ted2_electra.yaml` at full width
    (generator and discriminator 12 x 256, V = 9798) through `train_lm`, 6
    steps over a sharded corpus that fills its three buckets, then
@@ -199,7 +204,29 @@ Phases (any failed check raises, so the script exits non-zero):
    CPU's fbank; the manifest through the eval CLI with phase 5's model; the
    native WER equal to the Python path's, native-collated batches
    bit-equal to the `np.load` path's.
-29. Every kernel timed at the largest bucket beside its plain version and
+29. Data and tensor parallelism (slice 8b, `emoasr_tpu_torch/parallel/`),
+   the L1 train CLI on a copy with a warm-up of UPDATE_WARMUP steps (one
+   update, accum_grad 2, over two batches of the (18, 1600) bucket, dropout
+   and SpecAugment on, then rank 0's greedy validation on phase 6's
+   corpus): (a) `torchrun --standalone --nproc_per_node 1` (NCCL, a world
+   of one) equal bit for bit to a plain `python -m` run (losses, LRs, dev
+   WER, `model.ep1` but the conv2d subsampler's tensors, CUDNN_NONDET,
+   held by `updates_close`); (b) `torchrun --nproc_per_node 2` over gloo on the
+   one card (asked for by name), mesh `(2,)` (9 + 9 rows a rank): the
+   logged losses (STEP_TOL), the LRs and the dev WER equal to the plain
+   run's, its `model.ep1` held to it by `updates_close` (PAR_PARAM_TOL);
+   the first micro-step through the rank programs (`parallel/ranks.py`):
+   the loss (STEP_TOL) and the summed micro-gradient (PAR_GRAD_TOL)
+   against one process on the card, each rank launching K1 and K2 once and
+   K4 once a layer, and K4's keep mask of a rank's rows (and heads) equal
+   to its block of the one-process mask (`dropout_keep_mask` with offsets;
+   offsets (0, 0, H) draw the old bits); (c) the same on `(1, 2)`: 2 heads
+   and FF 1024 a rank, rank 0 validating a gathered whole copy; (d) the
+   eval CLI with `--dp` on two ranks (gloo) over phase 6's corpus with beam
+   8: its rows against phase 6's TSV (at least HYP_SHARE equal) and one
+   batch's encoder output split over the ranks against one process
+   (PAR_ENC_TOL).
+30. Every kernel timed at the largest bucket beside its plain version and
    one library call (for K5 and K6 the dense route), the bf16 launchers in
    bf16 (bounds at the bf16 rate, library calls in bf16; an f32 launcher
    that splits its operands into bf16 terms held to that many tensor-core
@@ -4219,6 +4246,16 @@ def _zero_launches(**want) -> dict:
     return {**{k: 0 for k in launch_counts()}, **want}
 
 
+# biases whose true gradient is zero: the attention's key bias (a constant
+# on every key, which the softmax removes) and the convolution bias before a
+# BatchNorm (which the batch mean removes)
+INERT_BIASES = ("linear_k.bias", "depthwise_conv.bias")
+# the noam warm-up of the copies whose update is held against a reference
+# (L3-1's, phase 29's L1): the first update at 5 x 256^-0.5 x 50^-1.5 =
+# 8.8e-4 (the shipped 25000 steps give 7.9e-08, an update that does not show)
+UPDATE_WARMUP = 50
+
+
 def train_l3_1(args, root: str, card: str, test_tsv: str, wav_s: float, compute_dtype: str = "float32",
                per_bucket=(1, 1, 1, 1, 1)) -> dict:
     """The L3-1 model (Conformer 12 x 256, Transformer decoder 6 x 256, FF
@@ -4245,7 +4282,7 @@ def train_l3_1(args, root: str, card: str, test_tsv: str, wav_s: float, compute_
     train_tsv, _ = write_corpus(sub, "train", lengths, conf["vocab_size"], conf["feat_dim"], args.seed + 5)
     conf.update(vocab_path=write_vocab(sub, conf["vocab_size"]), train_path=train_tsv, test_path=test_tsv,
                 dev_path=None, enc_fused_attn=True, dec_step_mode="fused_indirect", num_epochs=1, save_step=1,
-                log_step=1, seed=args.seed, compute_dtype=compute_dtype)
+                log_step=1, seed=args.seed, compute_dtype=compute_dtype, num_warmup_steps=UPDATE_WARMUP)
     conf_path = os.path.join(sub, "l3_1_ctc_joint.yaml")
     with open(conf_path, "w") as f:
         yaml.safe_dump(conf, f)
@@ -4311,6 +4348,100 @@ def train_l3_1(args, root: str, card: str, test_tsv: str, wav_s: float, compute_
             "wav_s": wav_s, "launches": launches, "seconds": dt, "epoch_seconds": epoch, "micro_steps": n_steps,
             "micro_steps_per_s": n_steps / epoch, "utt_per_s": len(lengths) / epoch, "losses": losses,
             "buckets": buckets, "per_step_launches": {k: n for k, n in per_step.items() if n}}
+
+
+def check_l3_1_update(tr: dict, dev) -> dict:
+    """One optimizer update of the trained L3-1 model (4 rows of the
+    400-frame bucket, dropout and SpecAugment off, accum_grad 1, the copy's
+    warm-up LR) through the train step on the card and on the CPU: the
+    parameters after it within PAR_PARAM_TOL LRs of each other everywhere
+    and within 2 % of the LR on all but 1 % of each tensor's entries, and
+    the update shows.  Adam's first step moves an entry by about the LR, in
+    the sign of its gradient: where the true gradient is zero (the biases in
+    INERT_BIASES: a constant on every key, or before a BatchNorm) rounding
+    noise decides that sign, so those are held to the first bound only, and
+    so is an entry whose gradient on the CPU is no larger than the card's
+    and the CPU's gradients differ there (`updates_close`'s `noise`)."""
+    from emoasr_tpu_torch.data.asr_dataset import ASRDataset
+    from emoasr_tpu_torch.eval.test_asr import load_asr_model
+    from emoasr_tpu_torch.train.optim import build_optimizer
+    from emoasr_tpu_torch.train.step import TrainState, make_train_step
+
+    cfg = tr["cfg"].replace(accum_grad=1, dropout_enc_rate=0.0, dropout_dec_rate=0.0, dropout_attn_rate=0.0,
+                            spec_augment=False)
+    ds = ASRDataset(cfg, tr["train_tsv"], phase="train")
+    batcher = ds.make_batcher(shuffle=False)
+    bi, idx = next(b for b in batcher if batcher.buckets[b[0]].max_xlen == 400)
+    batch = ds.collate(idx[:4], 400, batcher.buckets[bi].max_ylen)
+    after, grads, lr = {}, {}, None
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        model = load_asr_model(tr["ckpt"], cfg).to(d)
+        before = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+        state = TrainState(model=model, optimizer=build_optimizer(cfg, model.parameters()))
+        m = make_train_step(cfg)(state, {k: torch.from_numpy(v).to(d) for k, v in batch.items()
+                                        if isinstance(v, np.ndarray)})
+        require(m["grad_finite"] and state.step == 1, f"L3-1 update on {name}: {m}")
+        lr = m["lr"]
+        after[name] = {k: v.detach().cpu() for k, v in model.named_parameters()}
+        grads[name] = first_step_grads(state.optimizer.state_dict(), optimizer_order(model, state.optimizer))
+    moved, worst, worst_share, n_noise = updates_close("L3-1 update, card vs CPU", after["cuda"], after["cpu"],
+                                                       before, lr, gradient_noise(grads["cuda"], grads["cpu"]))
+    print(f"  one L3-1 update (LR {lr:.3e}, 4 x 400 frames) card vs CPU: parameters within {worst:.3e} "
+          f"({worst / lr:.3f} LR; at most {worst_share:.4f} of a tensor's entries beyond 2 % of the LR, {n_noise} "
+          f"entries' gradients within the two devices' difference of zero), largest move {moved:.3e}")
+    return {"lr": lr, "param_max_abs_err": worst, "share_beyond_2pct_lr": worst_share, "largest_move": moved,
+            "noise_entries": n_noise}
+
+
+def optimizer_order(model, optimizer) -> list:
+    """The parameter names of an optimizer's state_dict indices."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return [names[id(p)] for g in optimizer.param_groups for p in g["params"]]
+
+
+def first_step_grads(opt_sd: dict, order: list) -> dict:
+    """The gradients (the decay term included) that Adam's first step took,
+    by name: the first moment, which starts at zero, over 1 - beta1."""
+    return {order[i]: opt_sd["state"][i]["exp_avg"].detach().double().cpu() / (1.0 - g["betas"][0])
+            for g in opt_sd["param_groups"] for i in g["params"]}
+
+
+# an entry's first-step gradient may be rounding noise only below this share
+# of its tensor's largest: a gradient that is wrong throughout marks nothing
+GRAD_NOISE_REL = 1e-3
+
+
+def gradient_noise(got: dict, want: dict) -> dict:
+    """Per entry, whether `want`'s gradient is no larger than the two runs'
+    difference there and below GRAD_NOISE_REL of its tensor's largest:
+    rounding noise decides the sign of Adam's first step there."""
+    return {k: (w.abs() <= (got[k] - w).abs()) & (w.abs() <= GRAD_NOISE_REL * w.abs().max()) for k, w in want.items()}
+
+
+def updates_close(tag: str, got: dict, want: dict, before: dict, lr: float, noise: dict) -> tuple:
+    """Parameters after one Adam update (`got` against `want`, both from
+    `before`): within PAR_PARAM_TOL LRs everywhere, and within 2 % of the LR
+    on all but 1 % of each tensor's entries, except the INERT_BIASES and the
+    entries that `noise` (`gradient_noise` of the two runs' first-step
+    gradients) marks (see `check_l3_1_update`); the update showed (an entry
+    of `want` moved by at least half the LR).  Returns (largest move,
+    largest gap, largest share beyond 2 % of the LR, entries marked)."""
+    keys = [k for k in want if want[k].is_floating_point()]
+    require(set(got) == set(want), f"{tag}: the tensors differ")
+    moved = max((want[k].double() - before[k].double()).abs().max().item() for k in keys)
+    require(moved >= 0.5 * lr, f"{tag}: the parameters moved {moved:.3e} at LR {lr:.3e}")
+    worst, worst_share, marked = 0.0, 0.0, 0
+    for k in keys:
+        diff = (got[k].double() - want[k].double()).abs()
+        beyond = diff > 0.02 * lr
+        if k in noise:
+            beyond &= ~noise[k].reshape(beyond.shape)
+            marked += int(noise[k].sum())
+        share = 0.0 if k.endswith(INERT_BIASES) else beyond.double().mean().item()
+        require(diff.max().item() <= PAR_PARAM_TOL * lr and share <= 0.01,
+                f"{tag}, {k}: {diff.max().item():.3e} (LR {lr:.3e}), {share:.4f} of its entries beyond 2 % of the LR")
+        worst, worst_share = max(worst, diff.max().item()), max(worst_share, share)
+    return moved, worst, worst_share, marked
 
 
 def l3_1_heads(cfg):
@@ -4739,20 +4870,56 @@ def rnn_lm_fusion(args, rnn: dict, l1: dict, l3: dict, l4: dict, dev, card: str)
     out["l3_1_beam10"] = {**run, **_top1_card_vs_cpu(
         "L3-1 beam 10 + joint CTC 0.3 + RNN LM", cfg, l3["ckpt"], fusion_of, _short_batch(cfg, l3["test_tsv"]), dev,
         cfg.beam_width, HYP_SHARE, len_weight=cfg.len_weight, decode_ctc_weight=cfg.decode_ctc_weight, top1=True)}
-    # L4: ALSD in Python with an RNN LM over its vocabulary
+    # L4: ALSD in Python with an RNN LM over its vocabulary, on a copy of the checkpoint that emits labels
     cfg4 = l4["cfg"]
     lm4_cfg = dataclasses.replace(rnn["cfg"], vocab_size=cfg4.vocab_size)
     torch.manual_seed(args.seed)
     lm4 = LM(lm4_cfg).eval()
+    with torch.no_grad():  # a prior that pulls the labels toward one token
+        lm4.state_dict()["lm.output.bias"][ALSD_LM_TOKEN] += GRID_LM_BIAS
     batch = _short_batch(cfg4, l4["test_tsv"])
+    ckpt4, shift = _emitting_copy(cfg4, l4["ckpt"], batch, ALSD_LM_TOKEN)
     reset_launch_counts()
-    res4 = _top1_card_vs_cpu("L4 ALSD beam 10 + RNN LM (V = 1000, seed weights)", cfg4, l4["ckpt"],
+    res4 = _top1_card_vs_cpu(f"L4 ALSD beam 10 + RNN LM (V = 1000, seed weights, token {ALSD_LM_TOKEN}'s bias "
+                             f"+{GRID_LM_BIAS}, and in the ASR's copy +{shift:.2f})", cfg4, ckpt4,
                              lambda d: make_lm_fusion(lm4.to(d), 0.5), batch, dev, cfg4.beam_width, 1.0)
     launches = launch_counts()
     require(launches["topk"] > 0 and launches["lstm_fwd"] == launches["lstm_bwd"] == 0,
             f"L4 ALSD + RNN LM: launches {launches}")
-    out["l4_alsd10"] = {"launches": launches, **res4}
+    require(min(res4["lengths"]) > 1, f"L4 ALSD + RNN LM: an empty top-1 hypothesis, lengths {res4['lengths']} "
+            "(the leading eos included)")
+    out["l4_alsd10"] = {"launches": launches, "blank_shift": shift, **res4}
     return out
+
+
+# the RNN LM's token whose output bias the ALSD check raises (GRID_LM_BIAS)
+ALSD_LM_TOKEN = 3
+
+
+def _emitting_copy(cfg, ckpt: str, batch, token: int) -> tuple:
+    """(path, shift): a copy of an RNN-T checkpoint whose logit of `token`
+    is raised by `shift`, 5 nats past the largest margin of blank over it at
+    `batch`'s frames from the empty hypothesis, so that the copy emits it
+    (the 10-step L4 model emits no label, and shallow fusion only adds
+    log-probabilities: no LM makes a model that never emits emit)."""
+    from emoasr_tpu_torch.eval.test_asr import load_asr_model
+    from emoasr_tpu_torch.train.checkpoint import load_state_dict, save_state_dict
+    from emoasr_tpu_torch.train.step import preprocess
+
+    model = load_asr_model(ckpt, cfg).eval()
+    xs, xlens = torch.from_numpy(batch["xs"]), torch.from_numpy(batch["xlens"]).long()
+    with torch.no_grad():
+        eouts, elens, _ = model.encode(*preprocess(cfg, xs, xlens))
+        douts, _ = model.decoder.recurrency(torch.full((xs.shape[0], 1), cfg.eos_id, dtype=torch.long))
+        logp = torch.log_softmax(model.decoder.joint(eouts, douts).float(), dim=-1)[:, :, 0]  # (B, T', V)
+    margin = logp[..., cfg.blank_id] - logp[..., token]
+    valid = torch.arange(margin.shape[1])[None, :] < elens[:, None]
+    shift = float(margin[valid].max()) + 5.0
+    sd = load_state_dict(ckpt)
+    sd["decoder.output.bias"][token] += shift
+    path = ckpt + ".emitting"
+    save_state_dict(sd, path)
+    return path, shift
 
 
 # ------------------------------------------------ slices 6b and 7a: the rest
@@ -6313,6 +6480,266 @@ WIDE_ROWS = (
 )
 
 
+# ------------------------------------------------ slice 8b: data and tensor parallelism
+
+# parameters after one update, ranks against one process: Adam's first step
+# moves an entry by at most the LR, and flips it where the two gradients'
+# signs differ in rounding noise (the key biases' true gradient is zero);
+# see `updates_close`
+PAR_PARAM_TOL = 2.0  # times the update's LR
+# the summed micro-gradient, ranks against one process, of each tensor's
+# largest entry beyond STEP_TOL's floor: the ranks sum the one-process
+# rows in another order (measured 0.0); the ranks' conv2d in TF32 gave 9.5e-4
+PAR_GRAD_TOL = 1e-5
+PAR_ENC_TOL = 1e-5  # one batch's encoder output, rows split over two ranks against one process
+# the conv2d subsampler's parameters: the weight and bias gradients of its
+# cuDNN backward are not reproducible run to run (two plain runs' gradients
+# of the first convolution differ by up to 2.9e-06, their `model.ep1` in the
+# last bits), so (a) holds them to `updates_close` and every other tensor
+# bit for bit
+CUDNN_NONDET = ("encoder.conv.",)
+PAR_TIMEOUT = 600  # seconds for the phase's processes, which run side by side
+
+
+def _start(argv: list, log: str, env=None) -> tuple:
+    """`python argv...` from the checkout in the background, output to `log`."""
+    run_env = dict(os.environ, PYTHONPATH=REPO, **(env or {}))
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        run_env.pop(k, None)
+    out = open(log, "w")
+    return subprocess.Popen([sys.executable, *argv], cwd=REPO, env=run_env, stdout=out,
+                            stderr=subprocess.STDOUT), out, log
+
+
+def _finish(run: tuple, what: str, deadline: float) -> str:
+    proc, out, log = run
+    try:
+        rc = proc.wait(timeout=max(deadline - time.time(), 1))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    out.close()
+    with open(log) as f:
+        text = f.read()
+    require(rc == 0, f"{what}: exit {rc}:\n{text[-4000:]}")
+    return text
+
+
+def _par_grads(tag: str, got: dict, want: dict) -> dict:
+    """A rank's first micro-step against one process's: the loss terms
+    (STEP_TOL) and the summed micro-gradient (PAR_GRAD_TOL of each tensor's
+    largest entry beyond STEP_TOL's floor; also the gap without the floor,
+    but for the INERT_BIASES, whose gradient is rounding noise)."""
+    for k, b in want["metrics"][0].items():
+        a = got["metrics"][0][k]
+        if k.startswith("loss"):
+            require(np.isfinite(a) and abs(a - b) <= STEP_TOL["loss"] * abs(b), f"{tag} {k}: ranks {a}, one process {b}")
+    g1, g0 = got["grads"], want["grads"]
+    require(set(g1) == set(g0), f"{tag}: the gradients' tensors differ")
+    floor = STEP_TOL["grad_floor"] * max(g.abs().max().item() for g in g0.values())
+    worst = raw = 0.0
+    for k in g0:
+        err, top = _max_err(g1[k], g0[k]), max(g0[k].abs().max().item(), 1e-30)
+        rel = max(err - floor, 0.0) / top
+        require(rel <= PAR_GRAD_TOL, f"{tag} gradient of {k}: ranks vs one process {rel:.3e} of its largest entry")
+        worst, raw = max(worst, rel), raw if k.endswith(INERT_BIASES) else max(raw, err / top)
+    return {"loss_total": got["metrics"][0]["loss_total"], "worst_grad_rel_err": worst, "worst_grad_rel_err_raw": raw}
+
+
+def _train_log(conf_path: str) -> str:
+    with open(os.path.join(os.path.splitext(conf_path)[0], "log", "train.log")) as f:
+        return f.read()
+
+
+def _dev_wer(conf_path: str) -> float:
+    import re
+
+    found = re.findall(r"dev WER \(greedy\): (\S+)", _train_log(conf_path))
+    require(len(found) == 1, f"{conf_path}: {len(found)} dev WER lines")
+    return float(found[0])
+
+
+def parallel_phase(args, root: str, tr: dict, dev, card: str) -> dict:
+    """Phase 29 (see the module note): the train CLI under torchrun on NCCL
+    (a world of one) and on (2,) and (1, 2) over gloo on the one card, each
+    against the plain CLI; the summed micro-gradient of L1 steps on (2,)
+    and (1, 2) through the rank programs, the keep masks of K4's blocks,
+    and the eval CLI's --dp, each against one process."""
+    import pandas as pd
+    import yaml
+
+    from emoasr_tpu_torch.data.asr_dataset import ASRDataset
+    from emoasr_tpu_torch.models.asr import ASR
+    from emoasr_tpu_torch.ops.attention import dropout_keep_mask
+    from emoasr_tpu_torch.parallel import ranks
+    from emoasr_tpu_torch.train.checkpoint import load_state_dict
+    from emoasr_tpu_torch.train.optim import build_optimizer, make_lr_fn
+
+    t_phase = time.perf_counter()
+    sub = os.path.join(root, "parallel")
+    os.makedirs(sub)
+    cfg = tr["cfg"]
+    with open(tr["conf_path"]) as f:
+        conf = yaml.safe_load(f)
+    lengths, _ = train_lengths(cfg, (0, 0, 0, 0, 2))  # two batches of the (18, 1600) bucket
+    train_tsv, _ = write_corpus(sub, "train", lengths, cfg.vocab_size, cfg.feat_dim, args.seed + 29)
+    # one update (accum_grad 2) at a visible LR, then rank 0's greedy validation on phase 6's corpus
+    run_conf = dict(conf, train_path=train_tsv, accum_grad=2, num_warmup_steps=UPDATE_WARMUP, dev_path=tr["test_tsv"])
+    meshes = {"plain": None, "torchrun": None, "data": ([-1], ["data"]), "model": ([1, 2], ["data", "model"])}
+    confs = {}
+    for name, mesh in meshes.items():
+        confs[name] = os.path.join(sub, f"{name}.yaml")
+        with open(confs[name], "w") as f:
+            yaml.safe_dump(dict(run_conf, **({} if mesh is None else dict(mesh_shape=mesh[0], mesh_axes=mesh[1]))), f)
+    ds = ASRDataset(cfg, train_tsv, phase="train")
+    batcher = ds.make_batcher(shuffle=False)
+    batches = [{k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.int32 else v)
+                for k, v in ds.collate(idx, batcher.buckets[bi].max_xlen, batcher.buckets[bi].max_ylen).items()
+                if isinstance(v, np.ndarray)} for bi, idx in batcher]
+    require(len(batches) == 2 and all(b["xs"].shape[0] == 18 for b in batches), "two batches of 18 rows")
+    sd = load_state_dict(tr["ckpt"])
+    step_conf = dict(conf, accum_grad=2)  # one micro-step: the summed micro-gradient, no update
+    jobs = [dict(program="train_steps", mesh_shape=shape, mesh_axes=axes, backend="gloo", device="cuda",
+                 conf=step_conf, batches=batches[:1], state_dict=sd)
+            for shape, axes in (((2,), ("data",)), ((1, 2), ("data", "model")))]
+    jobs.append(dict(program="encode", mesh_shape=(2,), mesh_axes=("data",), backend="gloo", device="cuda",
+                     conf=conf, state_dict=sd, xs=batches[0]["xs"], xlens=batches[0]["xlens"]))
+    gloo = {"EMOASR_DIST_BACKEND": "gloo"}
+    torchrun = ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node"]
+    train_cli = ["-m", "emoasr_tpu_torch.train.loop", "-conf"]
+    deadline = time.time() + PAR_TIMEOUT
+    runs = {
+        "plain": _start([*train_cli, confs["plain"]], os.path.join(sub, "plain.log")),
+        "torchrun": _start([*torchrun, "1", *train_cli, confs["torchrun"]], os.path.join(sub, "torchrun.log")),
+        "data": _start([*torchrun, "2", *train_cli, confs["data"]], os.path.join(sub, "data.log"), gloo),
+        "model": _start([*torchrun, "2", *train_cli, confs["model"]], os.path.join(sub, "model.log"), gloo),
+        "dp": _start([*torchrun, "2", "-m", "emoasr_tpu_torch.eval.test_asr", "-conf", tr["conf_path"], "-ep", "1",
+                      "--beam_width", "8", "--dp", "--save_dir", "dp"], os.path.join(sub, "dp.log"), gloo),
+    }
+    two = ranks.Launch(2, os.path.join(sub, "ranks"), jobs)
+
+    # meanwhile, in this process: the one-process references on the card and K4's blocks
+    one = ranks.train_steps(None, step_conf, batches[:1], sd, device="cuda")
+    one_enc = ranks.encode(None, conf, sd, batches[0]["xs"], batches[0]["xlens"], device="cuda")
+    T2 = one_enc[0].shape[1]
+    B, H = 18, cfg.enc_num_attention_heads
+    rate, seed = cfg.dropout_attn_rate, 0x5EED_0F_8B
+    full = dropout_keep_mask(B, T2, H, rate, seed, dev)
+    require(torch.equal(dropout_keep_mask(B, T2, H, rate, seed, dev, block=(0, B, 0, H)), full),
+            "K4's keep mask with offsets (0, 0, H) is not the mask without them")
+    for r in range(2):
+        require(torch.equal(dropout_keep_mask(B // 2, T2, H, rate, seed, dev, block=(r * B // 2, B, 0, H)),
+                            full[r * B // 2:(r + 1) * B // 2]), f"K4's keep mask of rank {r}'s rows")
+        require(torch.equal(dropout_keep_mask(B, T2, H // 2, rate, seed, dev, block=(0, B, r * H // 2, H)),
+                            full[:, r * H // 2:(r + 1) * H // 2]), f"K4's keep mask of rank {r}'s heads")
+    print(f"  K4's keep mask ({B}, {H}, {T2}, {T2}), rate {rate}: offsets (0, 0, {H}) draw the old bits; each "
+          f"rank's rows (9 + 9) and heads (2 + 2) draw their block of the one-process mask")
+    torch.manual_seed(cfg.seed)
+    seed_model = ASR(cfg)
+    init = seed_model.state_dict()  # the trainers' seed weights
+    order = optimizer_order(seed_model, build_optimizer(cfg, seed_model.parameters()))
+
+    res = two.wait(PAR_TIMEOUT)
+    for k, r in runs.items():
+        _finish(r, k, deadline)
+
+    # (a) torchrun, NCCL in a world of one, against the plain run: bit for bit
+    require("over nccl" in _train_log(confs["torchrun"]), "the torchrun trainer did not run over NCCL")
+    logs = {n: read_train_log(confs[n]) for n in meshes}
+    ck = {n: load_state_dict(os.path.join(os.path.splitext(confs[n])[0], "checkpoints", "model.ep1")) for n in meshes}
+    grads = {n: first_step_grads(torch.load(os.path.join(os.path.splitext(confs[n])[0], "checkpoints", "optim.ep1"),
+                                            map_location="cpu", weights_only=False)["optimizer"], order) for n in meshes}
+    wer = {n: _dev_wer(confs[n]) for n in meshes}
+    require(logs["plain"][:2] == logs["torchrun"][:2] and len(logs["plain"][0]) == 2 and wer["torchrun"] == wer["plain"],
+            f"torchrun's losses / LRs / dev WER {logs['torchrun'][:2]} {wer['torchrun']} differ from the plain run's "
+            f"{logs['plain'][:2]} {wer['plain']}")
+    require(ck["plain"].keys() == ck["torchrun"].keys(), "torchrun's model.ep1 holds other tensors")
+    differ = [k for k in ck["plain"] if not k.startswith(CUDNN_NONDET) and not torch.equal(ck["plain"][k],
+                                                                                           ck["torchrun"][k])]
+    require(not differ, f"torchrun's model.ep1 is not the plain run's bit for bit: {differ}")
+    lr = make_lr_fn(cfg.replace(num_warmup_steps=UPDATE_WARMUP))(1)  # the one update's
+    require(logs["plain"][1][-1] == round(lr, 6), f"the plain run's logged LR {logs['plain'][1]}, the update's {lr}")
+    conv = [k for k in ck["plain"] if k.startswith(CUDNN_NONDET)]
+    _, conv_gap, _, _ = updates_close("torchrun's model.ep1 vs the plain run's, the conv2d subsampler",
+                                      {k: ck["torchrun"][k] for k in conv}, {k: ck["plain"][k] for k in conv}, init,
+                                      lr, gradient_noise(grads["torchrun"], grads["plain"]))
+    print(f"  (a) torchrun --nproc_per_node 1 (NCCL, a world of one) of the train CLI: losses {logs['torchrun'][0]}, "
+          f"LR {lr:.4e}, dev WER {wer['torchrun']}, model.ep1 equal to the plain run's bit for bit on "
+          f"{len(ck['plain']) - len(conv)} of {len(ck['plain'])} tensors, the conv2d subsampler's {len(conv)} (cuDNN's "
+          f"backward) within {conv_gap:.3e}")
+
+    # (b), (c): the train CLI on two ranks over gloo against the plain run; the
+    # rank programs' summed micro-gradient against one process
+    out = {"keep_mask_blocks": True, "torchrun_world1_bit_equal_but_conv": True, "torchrun_world1_conv_gap": conv_gap,
+           "lr": lr, "dev_wer": wer["plain"]}
+    n_layers = cfg.enc_num_layers
+    want = {"attention": {"emo_attention_fwd_f32": n_layers, "emo_attention_bwd_f32": n_layers},
+            "ctc_head": {"emo_ctc_head_fwd_f32": 1, "emo_ctc_head_grad_e_f32": 1, "emo_ctc_head_grad_w_f32": 1},
+            "ctc_lattice": {"emo_ctc_alpha_f32": 1, "emo_ctc_beta_grad_f32": 1}}
+    launches = {}
+    for j, (tag, shape, described) in enumerate((("data", "(2,)", "mesh (2,) ('data',)"),
+                                                 ("model", "(1, 2)", "mesh (1, 2) ('data', 'model')"))):
+        text = _train_log(confs[tag])
+        require(f"{described}: rank 0 of 2" in text and "over gloo" in text, f"the {shape} trainer's mesh: {text[:2000]}")
+        losses, lrs, _ = logs[tag]
+        require(len(losses) == 2 and lrs == logs["plain"][1] and all(
+            abs(a - b) <= STEP_TOL["loss"] * abs(b) for a, b in zip(losses, logs["plain"][0])),
+            f"{shape} train CLI: losses {losses}, LRs {lrs} against the plain run's {logs['plain'][:2]}")
+        require(wer[tag] == wer["plain"], f"{shape} train CLI: rank 0's dev WER {wer[tag]}, the plain run's {wer['plain']}")
+        moved, perr, share, n_noise = updates_close(f"{shape} train CLI's model.ep1 vs the plain run's", ck[tag],
+                                                    ck["plain"], init, lr, gradient_noise(grads[tag], grads["plain"]))
+        for r in range(2):
+            got = res[r][j]["launches"]
+            require(all(got[k][n] == c for k, w in want.items() for n, c in w.items()),
+                    f"{shape} rank {r}: launches {got}, want {want}")
+            for k in ("attention", "ctc_head", "ctc_lattice", "topk"):
+                for n, c in got[k].items():
+                    launches[(k, n)] = launches.get((k, n), 0) + c
+            require(res[r][j]["skipped"] == 0, f"{shape} rank {r} skipped a micro-step")
+        out[tag] = {**_par_grads(f"{shape} micro-step", res[0][j], one), "cli_losses": losses,
+                    "param_max_abs_err": perr, "share_beyond_2pct_lr": share, "largest_move": moved,
+                    "noise_entries": n_noise}
+        print(f"  ({'b' if tag == 'data' else 'c'}) {shape} over gloo on the one card, dropout and SpecAugment on: the "
+              f"train CLI's losses {losses} vs {logs['plain'][0]}, dev WER {wer[tag]}, model.ep1 within {perr:.3e} "
+              f"({perr / lr:.3f} LR; at most {share:.4f} of a tensor's entries beyond 2 % of the LR, {n_noise} entries' "
+              f"gradients within the two runs' difference of zero; largest move "
+              f"{moved:.3e}); one micro-step through the rank programs: loss {out[tag]['loss_total']} vs "
+              f"{one['metrics'][0]['loss_total']}, worst gradient {out[tag]['worst_grad_rel_err']:.2e} of its largest "
+              f"entry beyond the floor (tol {PAR_GRAD_TOL}; {out[tag]['worst_grad_rel_err_raw']:.2e} without it, the "
+              f"{INERT_BIASES} aside); each "
+              f"rank launched {want}")
+
+    # (d): --dp over phase 6's corpus against phase 6's TSV, and one batch's encoder output
+    name = "result_test_beam8_len0.0_ctc0.0_lm0.00_ep1.tsv"
+    res_dir = os.path.join(os.path.splitext(tr["conf_path"])[0], "results")
+    dp = pd.read_table(os.path.join(res_dir, "dp", name), comment="#")
+    ref = pd.read_table(os.path.join(res_dir, name), comment="#")
+    require(list(dp["utt_id"]) == list(ref["utt_id"]) and len(dp) == args.n_utts,
+            f"--dp wrote {len(dp)} rows, not phase 6's {len(ref)} in its order")
+    same = float((dp["token_id"].fillna("").astype(str) == ref["token_id"].fillna("").astype(str)).mean())
+    require(same >= HYP_SHARE, f"--dp rows equal to phase 6's: {same:.2f} < {HYP_SHARE}")
+    enc = res[0][2]
+    require(res[1][2] is None and torch.equal(enc[1], one_enc[1]), "--dp encoder lengths")
+    enc_err = max((enc[0][b, :n] - one_enc[0][b, :n]).abs().max().item() for b, n in enumerate(one_enc[1].tolist()))
+    require(enc_err <= PAR_ENC_TOL, f"encoder output, rows over two ranks vs one process: {enc_err:.3e}")
+    print(f"  (d) the eval CLI with --dp on two ranks (gloo) over phase 6's {len(dp)} utts, beam 8: "
+          f"{int(round(same * len(dp)))} of {len(dp)} rows equal to phase 6's (required {HYP_SHARE}); "
+          f"one (18, {T2}) batch's encoder output over 9 + 9 rows vs one process: {enc_err:.2e} (tol {PAR_ENC_TOL})")
+    dt = time.perf_counter() - t_phase
+    print(f"  phase 29: {dt:.1f} s on {card}")
+    counts = {"attention_fwd": launches[("attention", "emo_attention_fwd_f32")],
+              "attention_bwd": launches[("attention", "emo_attention_bwd_f32")],
+              "ctc_head_fwd": launches[("ctc_head", "emo_ctc_head_fwd_f32")],
+              "ctc_head_grad_e": launches[("ctc_head", "emo_ctc_head_grad_e_f32")],
+              "ctc_head_grad_w": launches[("ctc_head", "emo_ctc_head_grad_w_f32")],
+              "ctc_alpha": launches[("ctc_lattice", "emo_ctc_alpha_f32")],
+              "ctc_beta_grad": launches[("ctc_lattice", "emo_ctc_beta_grad_f32")],
+              "topk": launches[("topk", "all")]}
+    return {**out, "dp_same_rows": same, "dp_encoder_max_abs_err": enc_err, "seconds": dt,
+            "launches": Launches({**_zero_launches(), **counts}, topk_shapes={})}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6336,7 +6763,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
-    phase(f"[1/29] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    phase(f"[1/30] device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     found = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     set_matmul_precision("float32")
     print(f"  TF32 found (matmul, cudnn) = {found}; the port's switch for float32 sets "
@@ -6350,7 +6777,7 @@ def main(argv=None) -> int:
     floor = lattice_floor_kernel()
     build_all(kernels + [floor])
     resources = kernel_resources(jobs)
-    phase(f"[2/29] built {', '.join(k.name for k in kernels)} from "
+    phase(f"[2/30] built {', '.join(k.name for k in kernels)} from "
           f"{', '.join(sorted({k.source for k in kernels}))} in {time.perf_counter() - t0:.1f} s")
     print("  the kernels (nvcc -Xptxas -v, cuobjdump -sass): registers, spill stores / loads (bytes), "
           "static shared memory (bytes), HMMA + HGMMA instructions")
@@ -6359,7 +6786,7 @@ def main(argv=None) -> int:
               f"smem {r['smem']}, {r['mma_instructions']} HMMA")
 
     # 3. kernels against their plain versions
-    phase("[3/29] kernels against their plain versions on the card, forward and backward")
+    phase("[3/30] kernels against their plain versions on the card, forward and backward")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     errs = {"topk": check_topk(dev, gen), **check_attention(dev, gen),
@@ -6397,7 +6824,7 @@ def main(argv=None) -> int:
     root = tempfile.mkdtemp(dir=scratch_root)
     try:
         # 4. training at full width, then one micro-step against the CPU
-        phase("[4/29] main path: L1 CTC(Transformer) training through the train CLI")
+        phase("[4/30] main path: L1 CTC(Transformer) training through the train CLI")
         tr = train_full_width(args, root, card)
         n_layers = tr["cfg"].enc_num_layers
         step_check = check_micro_step(tr, dev, {
@@ -6406,27 +6833,27 @@ def main(argv=None) -> int:
         step_split = time_micro_step(tr, dev, card)
 
         # 5. learning on the card
-        phase("[5/29] learning on the card: the small overfit corpus, train CLI then eval CLI")
+        phase("[5/30] learning on the card: the small overfit corpus, train CLI then eval CLI")
         overfit = overfit_on_card(args, root)
 
         # 6. decode the trainer's checkpoint
-        phase("[6/29] main path: decode of the trainer's model.ep1 through the eval CLI")
+        phase("[6/30] main path: decode of the trainer's model.ep1 through the eval CLI")
         mp = decode_path(args, tr, dev, card)
 
         # 7. the Conformer's attention with its bias, forward and backward
-        phase("[7/29] main path: L2 CTC(Conformer) training, two micro-steps through the train CLI")
+        phase("[7/30] main path: L2 CTC(Conformer) training, two micro-steps through the train CLI")
         l2 = train_conformer_steps(args, root, card)
 
         # 8. the slice's path: L3-1 joint-CTC beam decode
-        phase("[8/29] main path: L3-1 Conformer + attention decoder, beam 10 with joint CTC, through the eval CLI")
+        phase("[8/30] main path: L3-1 Conformer + attention decoder, beam 10 with joint CTC, through the eval CLI")
         l3 = decode_l3_1(args, root, tr["test_tsv"], tr["wav_s"], dev, card)
 
         # 9. the slice's path: L3-3, the same with Transformer-LM shallow fusion
-        phase("[9/29] main path: L3-3, L3-1 with Transformer-LM shallow fusion 0.5, through the eval CLI")
+        phase("[9/30] main path: L3-3, L3-1 with Transformer-LM shallow fusion 0.5, through the eval CLI")
         l33 = decode_l3_3(args, root, tr, dev, card)
 
         # 10. the slice's path: L4 RNN-T(Conformer) training, then greedy and ALSD decoding
-        phase("[10/29] main path: L4 RNN-T(Conformer) training through the train CLI, then its model.ep1 "
+        phase("[10/30] main path: L4 RNN-T(Conformer) training through the train CLI, then its model.ep1 "
               "greedily and with the ALSD beam through the eval CLI")
         l4 = train_l4(args, root, card)
         n_layers = l4["cfg"].enc_num_layers
@@ -6439,7 +6866,7 @@ def main(argv=None) -> int:
                 "an entry point left TF32 on for a float32 model")
 
         # 11. the slice's path: L1 trained in bf16, then its model.ep1 greedily
-        phase("[11/29] main path: L1 CTC(Transformer) training with compute_dtype bfloat16 through the train CLI, "
+        phase("[11/30] main path: L1 CTC(Transformer) training with compute_dtype bfloat16 through the train CLI, "
               "then its model.ep1 greedily through the eval CLI")
         l1b_root = os.path.join(root, "l1_bfloat16")
         os.makedirs(l1b_root)
@@ -6453,7 +6880,7 @@ def main(argv=None) -> int:
         l1b_dec = decode_greedy_bf16(l1b, card, ("attention_fwd_bf16",))
 
         # 12. the slice's path: L4 trained in bf16, then its model.ep1 greedily
-        phase("[12/29] main path: L4 RNN-T(Conformer) training with compute_dtype bfloat16 through the train CLI, "
+        phase("[12/30] main path: L4 RNN-T(Conformer) training with compute_dtype bfloat16 through the train CLI, "
               "then its model.ep1 greedily through the eval CLI")
         l4b = train_l4(args, root, card, "bfloat16", per_bucket=(1, 1, 1, 1, 1))
         n_layers = l4b["cfg"].enc_num_layers
@@ -6465,12 +6892,12 @@ def main(argv=None) -> int:
         l4b_dec = decode_greedy_bf16(l4b, card, ("attention_fwd_bf16", "attention_bias_fwd_bf16"))
 
         # 13. the slice's path: bf16 beam decoding of L1, L3-1, L3-3 and L4
-        phase("[13/29] main path: bf16 beam decoding at full width: L1 beam 8, L3-1 (K5 bf16, both variants), "
+        phase("[13/30] main path: bf16 beam decoding at full width: L1 beam 8, L3-1 (K5 bf16, both variants), "
               "L3-3 with the LM in bf16 (K6 bf16 and the dense route), L4 ALSD beam 10")
         b16 = decode_bf16(args, root, tr, mp, l3, l33, {**l4, "batches": l4_dec["batches"]}, dev, card)
 
         # 14. slice 3c: L3-1 training, its micro-step against the CPU, its model.ep1 decoded; then in bf16
-        phase("[14/29] main path: L3-1 (Conformer + attention decoder, aux CTC 0.3, label smoothing 0.1) training "
+        phase("[14/30] main path: L3-1 (Conformer + attention decoder, aux CTC 0.3, label smoothing 0.1) training "
               "through the train CLI, then its model.ep1 through the eval CLI (beam 10, joint CTC 0.3); two bf16 "
               "micro-steps")
         n_l3_test = 20
@@ -6483,6 +6910,7 @@ def main(argv=None) -> int:
             "attention_fwd": n_layers, "attention_bwd": n_layers, "attention_bias_fwd": n_layers,
             "attention_bias_bwd": n_layers}, heads=l3_1_heads(l3t["cfg"]))
         l3t_split = time_micro_step(l3t, dev, card)
+        l3t_update = check_l3_1_update(l3t, dev)
         l3t_dec = decode_trained_l3_1(l3t, card)
         l3b = train_l3_1(args, root, card, l3_test, l3_wav, "bfloat16", per_bucket=(0, 1, 0, 0, 1))
         l3b_step = check_bf16_micro_step(l3b, dev, {
@@ -6492,79 +6920,84 @@ def main(argv=None) -> int:
             "attention_fwd": 0, "attention_bwd": 0})
 
         # 15. slice 6a: the three LMs trained through train_lm; one RNN LM step against the CPU
-        phase("[15/29] main path: the RNN (K8), Transformer and BERT LMs trained through train_lm over a sharded "
+        phase("[15/30] main path: the RNN (K8), Transformer and BERT LMs trained through train_lm over a sharded "
               "corpus that fills every bucket")
         lms = train_lms(args, root, card)
         rnn_step = {**check_rnn_lm_step(lms["rnn"], dev), **time_rnn_lm_step(lms["rnn"], dev, card)}
 
         # 16. slice 6a: PPL and BERT's pseudo-PPL through the PPL CLI, against the CPU
-        phase("[16/29] main path: PPL of the three checkpoints through the PPL CLI (BERT: chunked pseudo-PPL at the "
+        phase("[16/30] main path: PPL of the three checkpoints through the PPL CLI (BERT: chunked pseudo-PPL at the "
               "(11, 256) bucket), against the CPU")
         ppl = lm_ppl(lms, dev, card)
 
         # 17. slice 6a: RNN-LM shallow fusion in the three beams
-        phase("[17/29] main path: RNN-LM shallow fusion 0.5 into the L1 CTC beam and the L3-1 attention beam "
+        phase("[17/30] main path: RNN-LM shallow fusion 0.5 into the L1 CTC beam and the L3-1 attention beam "
               "through the eval CLI, and into the L4 ALSD beam in Python")
         fusion = rnn_lm_fusion(args, lms["rnn"], tr, l3t, l4, dev, card)
 
         # 18. slice 6b: ELECTRA and electra-disc through train_lm; one step each against the CPU
-        phase("[18/29] main path: ELECTRA (ted2_electra.yaml, 12 + 12 x 256, V 9798) and electra-disc trained "
+        phase("[18/30] main path: ELECTRA (ted2_electra.yaml, 12 + 12 x 256, V 9798) and electra-disc trained "
               "through train_lm; one step each against the CPU on the same generated ids")
         electra = train_electra(args, root, card, dev)
 
         # 19. slice 6b: P-ELECTRA, the deletable PC-MLM and pctc (K4 in the phone encoder, K1 and K2)
-        phase("[19/29] main path: P-ELECTRA (ted2_pelectra.yaml) and the deletable PC-MLM (del_pc_mlm.yaml) "
+        phase("[19/30] main path: P-ELECTRA (ted2_pelectra.yaml) and the deletable PC-MLM (del_pc_mlm.yaml) "
               "trained through train_lm with the fused phone-encoder attention (K4 with dropout); one step each "
               "against the CPU; the PC-MLM's pseudo-PPL through the PPL CLI; one pctc step (K1, K2)")
         p2w = train_p2w(args, root, card, dev)
 
         # 20. slice 7a: error correction with the PC-MLM
-        phase("[20/29] main path: asr_hie_phone.yaml trained through the train CLI (K1, K2, K4), its phone "
+        phase("[20/30] main path: asr_hie_phone.yaml trained through the train CLI (K1, K2, K4), its phone "
               "hypotheses through test_asr --decode_phone, and correction with the PC-MLM through the correction "
               "CLI, against the CPU")
         corr = correction(args, root, p2w["pbert"], dev, card)
 
         # 21. slice 7a: N-best rescoring of the L1 beam's n-best
-        phase("[21/29] main path: the L1 beam-8 n-best through the rescoring CLI with the Transformer, BERT and "
+        phase("[21/30] main path: the L1 beam-8 n-best through the rescoring CLI with the Transformer, BERT and "
               "ELECTRA LMs, score_lm against the CPU")
         resc = rescoring(args, root, tr, lms, dev, card)
 
         # 22. slice 7b: soft labels from the LMs through make_label (K3)
-        phase("[22/29] main path: soft labels from the trained libri Transformer LM and BERT through make_label "
+        phase("[22/30] main path: soft labels from the trained libri Transformer LM and BERT through make_label "
               "(K3 once a chunk), each held to the CPU's; the V = 1000 LM's for L4")
         soft = soft_label_phase(args, root, lms, dev, card)
 
         # 23. slice 7b: the distillation routes of L1, L3 and L4
-        phase("[23/29] main path: distillation micro-steps through the train step: L1 alignment KD (K2, K4), L3 "
+        phase("[23/30] main path: distillation micro-steps through the train step: L1 alignment KD (K2, K4), L3 "
               "soft labels (K1, K2, K4 with its bias), L4 word and align KD over the full joint (K8, K4); one "
               "micro-step of each against the CPU")
         kd = kd_phase(args, root, tr, l4, soft, dev, card)
 
         # 24. slice 7b: RNN-T forced alignment
-        phase("[24/29] main path: RNN-T forced alignment of the L4 model.ep1 through ASR.forced_align (K4, K8), "
+        phase("[24/30] main path: RNN-T forced alignment of the L4 model.ep1 through ASR.forced_align (K4, K8), "
               "card against CPU")
         fa = forced_align_phase(l4, dev, card)
 
         # 25. slice 7b: the analysis tools
-        phase("[25/29] main path: analysis ctc_prob (K4), the fusion grid on L1's CTC beam with the Transformer "
+        phase("[25/30] main path: analysis ctc_prob (K4), the fusion grid on L1's CTC beam with the Transformer "
               "LM (K3, K4) and align_hyps on the n-best")
         ana = analysis_phase(root, tr, lms, overfit, args.seed, card)
 
         # 26. slice 5: LAS(Transformer)
-        phase("[26/29] main path: LAS(Transformer) at the benchmarked widths: two micro-steps through the train CLI "
+        phase("[26/30] main path: LAS(Transformer) at the benchmarked widths: two micro-steps through the train CLI "
               "(K4 with dropout) and one against the CPU; the same widths overfitted on phase 5's labels, then "
               "greedy, beam 4 (K3) and beam 4 with the libri Transformer LM at 0.5 (K6) through the eval CLI")
         las = las_phase(args, root, lms, overfit, dev, card)
 
         # 27. slice 5: CTC(RNN)
-        phase("[27/29] main path: CTC(RNN), L1 with 12 biLSTM layers: two micro-steps through the train CLI (K8 at "
+        phase("[27/30] main path: CTC(RNN), L1 with 12 biLSTM layers: two micro-steps through the train CLI (K8 at "
               "(18, 399, 256), K1, K2) and one against the CPU; greedy and CTC beam 8 through the eval CLI")
         ctc_rnn = ctc_rnn_phase(args, root, tr, dev, card)
 
         # 28. slice 8a: the front end, the prep CLI and the native paths
-        phase("[28/29] main path: 40 wavs through the prep CLI (fbank on the card), the manifest through the eval CLI; "
+        phase("[28/30] main path: 40 wavs through the prep CLI (fbank on the card), the manifest through the eval CLI; "
               "the native WER and loader against their Python paths")
         front = frontend_phase(args, root, overfit, card)
+
+        # 29. slice 8b: data and tensor parallelism
+        phase("[29/30] main path: data and tensor parallelism: torchrun (NCCL, a world of one) of the train CLI, "
+              "and the train CLI on (2,) and (1, 2) over gloo on the one card, the eval CLI's --dp on two ranks")
+        par = parallel_phase(args, root, tr, dev, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     set_matmul_precision("float32")  # the bf16 entry points turned TF32 on for their float32 remainder
@@ -6653,7 +7086,7 @@ def main(argv=None) -> int:
             print(f"    attention_{kind}{sfx} (the phone encoder) {r['shape']}: {r['ms']:.4f} ms (bound "
                   f"{r['bound_ms']:.4f} by {r['bound_by']}, plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}), "
                   f"{r['launches']} launches in the P2W steps and the pseudo-PPL")
-    phase(f"[29/29] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
+    phase(f"[30/30] kernels timed at the largest bucket (B = {B}, T' = {T2}, S = {2 * big.max_ylen + 1}; "
           f"decoder step W = 10, pos = 64; L4: B = {l4_big.batch_size}, T' = {l4_T}, U+1 = {l4_big.max_ylen + 1}) "
           f"on {smi}")
 
@@ -6668,7 +7101,8 @@ def main(argv=None) -> int:
         *(soft[t]["launches"] for t in ("transformer", "bert", "v1000")), *(kd[k]["launches"] for k in ("l1", "l3", "l4")),
         fa["launches"], ana["ctc_prob_launches"], ana["launches"], ana["overfit_launches"],
         las["train"]["launches"], las["overfit_launches"], *(r["launches"] for r in las["runs"].values()),
-        ctc_rnn["train"]["launches"], *(r["launches"] for r in ctc_rnn["runs"].values()), front["launches"]]
+        ctc_rnn["train"]["launches"], *(r["launches"] for r in ctc_rnn["runs"].values()), front["launches"],
+        par["launches"]]
     ms = lambda x: "none" if x is None else f"{x:.4f}"
 
     def row_of(name, src, rep, launches):
@@ -6770,7 +7204,7 @@ def main(argv=None) -> int:
         "bf16_beam_decode": b16,
         "l3_1_train": {k: l3t[k] for k in ("micro_steps", "seconds", "epoch_seconds", "micro_steps_per_s",
                                            "utt_per_s", "launches", "losses", "per_step_launches")},
-        "l3_1_micro_step": {**l3t_split, **l3t_step}, "l3_1_trained_decode": l3t_dec,
+        "l3_1_micro_step": {**l3t_split, **l3t_step}, "l3_1_update": l3t_update, "l3_1_trained_decode": l3t_dec,
         "l3_1_bf16_train": {k: l3b[k] for k in ("micro_steps", "seconds", "launches", "losses", "per_step_launches")},
         "l3_1_bf16_micro_step": l3b_step,
         "lm_train": {t: {k: v[k] for k in ("seconds", "steps", "losses", "launches", "k8_by_shape")}
@@ -6795,6 +7229,7 @@ def main(argv=None) -> int:
                     "micro_step": {**ctc_rnn["step_split"], **ctc_rnn["step_check"]}, "runs": ctc_rnn["runs"],
                     "same_top1_card_vs_cpu": ctc_rnn["same_top1_card_vs_cpu"], "seconds": ctc_rnn["seconds"]},
         "frontend": {k: v for k, v in front.items() if k != "launches"},
+        "parallel": {k: v for k, v in par.items() if k != "launches"},
         "wide_widths": wide,
         "kernel_resources": resources,
         "card": smi, "total_seconds": time.perf_counter() - t_start,

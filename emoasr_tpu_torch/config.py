@@ -9,7 +9,8 @@ stays the on-disk format; unknown keys raise instead of being silently kept.
 
 Copy of `emoasr_tpu/config.py`: the port reads the same YAML files, so it
 keeps the same fields (some of them name JAX-side options that the port
-ignores, such as `rng_impl` and `mesh_shape`).
+ignores, such as `rng_impl`; `mesh_shape` / `mesh_axes` lay out the ranks
+that `torchrun` starts, `parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -225,7 +226,7 @@ class ExpConfig:
     # (exact); with dropout active it falls back to an equivalent
     # pure-JAX path (same distribution, different realized bits).
     enc_fused_attn: bool = False
-    mesh_shape: Tuple[int, ...] = (-1,)  # data-parallel axis; -1 = all devices
+    mesh_shape: Tuple[int, ...] = (-1,)  # data-parallel axis; -1 = all ranks (parallel/mesh.py)
     mesh_axes: Tuple[str, ...] = ("data",)
 
     def replace(self, **kw) -> "ExpConfig":

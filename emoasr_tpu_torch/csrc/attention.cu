@@ -103,8 +103,12 @@
 //  * dropout, one map for both dtypes: a thread holds rows r and r + 8 and
 //    columns 2c, 2c + 1 of each n8 tile of a score accumulator, so one
 //    Philox4x32-10 block, counter (8 (query / 16) + query % 8, key / 2,
-//    b * H + h, 1), gives the four words of queries (q, q + 8) at keys
-//    (2k, 2k + 1): x, y, z, w in the accumulator's order.
+//    b key_stride + h + key_offset, 1), gives the four words of queries
+//    (q, q + 8) at keys (2k, 2k + 1): x, y, z, w in the accumulator's
+//    order.  key_stride = H and key_offset = 0 key row b, head h as
+//    themselves; a rank that holds rows b0.. and heads h0.. of a batch of
+//    Hg heads passes key_stride = Hg and key_offset = b0 Hg + h0, and draws
+//    the bits that the whole batch draws there.
 //    `emo_attention_keep_mask` exports the map.
 //  * any T, any lens (0 included), D <= 128 (bf16: D % 8 == 0), zero-padded
 //    to a multiple of 16 in shared memory; two instances, D <= 64 and
@@ -442,7 +446,8 @@ __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
            const int* __restrict__ lens, bf16* __restrict__ out, float* __restrict__ lse_out,
            const void* __restrict__ bias, int bias_kind, int T_len, int H, int D, float scale,
-           uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep) {
+           uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep, int key_stride,
+           int key_offset) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = row_ld(D), nk = depth_pad(D) / 16, tile = kBQ * ld;
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
@@ -453,6 +458,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   const size_t row_stride = static_cast<size_t>(H) * D;
   const size_t base = static_cast<size_t>(b) * T_len * row_stride + static_cast<size_t>(h) * D;
   const size_t head = static_cast<size_t>(b) * H + h;
+  const int dkey = b * key_stride + h + key_offset;  // the dropout bits' (row, head)
   const int len = min(max(lens[b], 0), T_len);
   const int m0 = warp * 16, qrow = q0 + m0 + g;
 
@@ -515,7 +521,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
     for (int j = 0; j < 8; ++j) {
       uint4 words = make_uint4(~0u, ~0u, ~0u, ~0u);
       if (threshold != 0u)
-        words = keep_words(seed_lo, seed_hi, static_cast<int>(head), (q0 + m0) >> 4, g, (k0 + 8 * j) / 2 + c);
+        words = keep_words(seed_lo, seed_hi, dkey, (q0 + m0) >> 4, g, (k0 + 8 * j) / 2 + c);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = expf(s[j][i] - m[i >> 1]) / l[i >> 1] * inv_keep;  // exp(-inf) = 0 past len
@@ -540,7 +546,8 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
               const bf16* __restrict__ d_o, const int* __restrict__ lens, const float* __restrict__ lse,
               bf16* __restrict__ dq, float* __restrict__ delta, const void* __restrict__ bias, int bias_kind,
               void* __restrict__ d_bias, int T_len, int H, int D, float scale, uint32_t seed_lo,
-              uint32_t seed_hi, uint32_t threshold, float inv_keep) {
+              uint32_t seed_hi, uint32_t threshold, float inv_keep, int key_stride,
+              int key_offset) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = row_ld(D), nk = depth_pad(D) / 16, tile = kBQ * ld;
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
@@ -552,6 +559,7 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
   const size_t row_stride = static_cast<size_t>(H) * D;
   const size_t base = static_cast<size_t>(b) * T_len * row_stride + static_cast<size_t>(h) * D;
   const size_t head = static_cast<size_t>(b) * H + h;
+  const int dkey = b * key_stride + h + key_offset;  // the dropout bits' (row, head)
   const int len = min(max(lens[b], 0), T_len);
   const int m0 = warp * 16, qrow = q0 + m0 + g, q16 = (q0 + m0) >> 4;
   const int n_kt = (len + kBK - 1) / kBK;
@@ -600,7 +608,7 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
       scores<KD>(s, qs, kb, ld, nk, m0, lane);
       finish_scores(s, GlobalBias{bias, bias_kind, T_len, qrow, k0, len, head}, k0, len, scale, c);
       scores<KD>(dp, dos, vs + (kt & 1) * tile, ld, nk, m0, lane);  // dPd = dO V^T
-      probs(s, dp, kf, lse_r, static_cast<int>(head), q16, g, c, k0, seed_lo, seed_hi, threshold, inv_keep);
+      probs(s, dp, kf, lse_r, dkey, q16, g, c, k0, seed_lo, seed_hi, threshold, inv_keep);
       if (sweep == 0) {
 #pragma unroll
         for (int j = 0; j < 8; ++j)
@@ -640,7 +648,8 @@ bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
                const bf16* __restrict__ d_o, const int* __restrict__ lens, const float* __restrict__ lse,
                const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
                const void* __restrict__ bias, int bias_kind, int T_len, int H, int D, float scale,
-               uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep) {
+               uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep, int key_stride,
+               int key_offset) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = row_ld(D), nk = depth_pad(D) / 16, tile = kBQ * ld;
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // the block's own keys
@@ -654,6 +663,7 @@ bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
   const size_t row_stride = static_cast<size_t>(H) * D;
   const size_t base = static_cast<size_t>(b) * T_len * row_stride + static_cast<size_t>(h) * D;
   const size_t head = static_cast<size_t>(b) * H + h;
+  const int dkey = b * key_stride + h + key_offset;  // the dropout bits' (row, head)
   const int len = min(max(lens[b], 0), T_len);
   const int m0 = warp * 16;
 
@@ -694,7 +704,7 @@ bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
     scores<KD>(s, qb, ks, ld, nk, m0, lane);
     finish_scores(s, GlobalBias{bias, bias_kind, T_len, qrow, k0, len, head}, k0, len, scale, c);
     scores<KD>(dp, dob, vs, ld, nk, m0, lane);
-    probs(s, dp, kf, lse_r, static_cast<int>(head), (t0 + m0) >> 4, g, c, k0, seed_lo, seed_hi, threshold,
+    probs(s, dp, kf, lse_r, dkey, (t0 + m0) >> 4, g, c, k0, seed_lo, seed_hi, threshold,
           inv_keep);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -1131,7 +1141,8 @@ __global__ void __launch_bounds__(kThreads)
 fwd_f32_split_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                      const int* __restrict__ lens, float* __restrict__ out, float* __restrict__ lse_out,
                      const void* __restrict__ bias, int bias_kind, int T_len, int H, int D, float scale,
-                     uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep) {
+                     uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep, int key_stride,
+                     int key_offset) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = row_ld(D), nk = depth_pad(D) / 16;
   const size_t tile = Planes::tile_bytes(D);
@@ -1145,6 +1156,7 @@ fwd_f32_split_kernel(const float* __restrict__ q, const float* __restrict__ k, c
   const size_t row_stride = static_cast<size_t>(H) * D;
   const size_t base = static_cast<size_t>(b) * T_len * row_stride + static_cast<size_t>(h) * D;
   const size_t head = static_cast<size_t>(b) * H + h;
+  const int dkey = b * key_stride + h + key_offset;  // the dropout bits' (row, head)
   const int len = min(max(lens[b], 0), T_len);
   const int m0 = warp * 16, qrow = q0 + m0 + g;
 
@@ -1179,7 +1191,7 @@ fwd_f32_split_kernel(const float* __restrict__ q, const float* __restrict__ k, c
     __syncthreads();
     scores_split<KD, Planes, Planes>(s, qs, ld, ks, ld, nk, m0, lane);
     finish_scores(s, staged_bias(bs, m0 + g, bias, bias_kind, head, T_len, q0, k0, qs), k0, len, scale, c);
-    softmax_step<KD>(s, m, l, acc, static_cast<int>(head), (q0 + m0) >> 4, g, c, k0, seed_lo, seed_hi, threshold,
+    softmax_step<KD>(s, m, l, acc, dkey, (q0 + m0) >> 4, g, c, k0, seed_lo, seed_hi, threshold,
                      inv_keep);
     times_rows_split<KD, Planes>(acc, s, vs, ld, nk, lane);
     __syncthreads();  // the planes and the bias tile are consumed
@@ -1198,7 +1210,8 @@ template <int KD>
 __global__ void __launch_bounds__(kThreads)
 fwd_f32_kernel(Operands ops, const int* __restrict__ lens, float* __restrict__ out, float* __restrict__ lse_out,
                const void* __restrict__ bias, int bias_kind, int T_len, int H, int D, float scale,
-               uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep) {
+               uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep, int key_stride,
+               int key_offset) {
   using Op = Rows32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = Op::ld(D), nk = depth_pad(D) / 16;
@@ -1213,6 +1226,7 @@ fwd_f32_kernel(Operands ops, const int* __restrict__ lens, float* __restrict__ o
   const size_t row_stride = static_cast<size_t>(H) * D;
   const size_t base = static_cast<size_t>(b) * T_len * row_stride + static_cast<size_t>(h) * D;
   const size_t head = static_cast<size_t>(b) * H + h;
+  const int dkey = b * key_stride + h + key_offset;  // the dropout bits' (row, head)
   const int len = min(max(lens[b], 0), T_len);
   const int m0 = warp * 16, qrow = q0 + m0 + g;
 
@@ -1243,7 +1257,7 @@ fwd_f32_kernel(Operands ops, const int* __restrict__ lens, float* __restrict__ o
     __syncthreads();
     scores_split<KD, Op, Op>(s, qs, ld, ks, ld, nk, m0, lane);
     finish_scores(s, staged_bias(bs, m0 + g, bias, bias_kind, head, T_len, q0, k0, qs), k0, len, scale, c);
-    softmax_step<KD>(s, m, l, acc, static_cast<int>(head), (q0 + m0) >> 4, g, c, k0, seed_lo, seed_hi, threshold,
+    softmax_step<KD>(s, m, l, acc, dkey, (q0 + m0) >> 4, g, c, k0, seed_lo, seed_hi, threshold,
                      inv_keep);
     times_rows_split<KD, Op>(acc, s, vs, ld, nk, lane);
     __syncthreads();  // the tiles are consumed
@@ -1259,7 +1273,8 @@ __global__ void __launch_bounds__(kThreads)
 bwd_dq_f32_kernel(Operands ops, const float* __restrict__ o, const int* __restrict__ lens,
                   const float* __restrict__ lse, float* __restrict__ dq, float* __restrict__ delta,
                   const void* __restrict__ bias, int bias_kind, void* __restrict__ d_bias, int T_len, int H, int D,
-                  float scale, uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep) {
+                  float scale, uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep, int key_stride,
+                  int key_offset) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = Op::ld(D), ldo = Own::ld(D), nk = depth_pad(D) / 16;
   const size_t tile = Op::tile_bytes(D);
@@ -1274,6 +1289,7 @@ bwd_dq_f32_kernel(Operands ops, const float* __restrict__ o, const int* __restri
   const size_t row_stride = static_cast<size_t>(H) * D;
   const size_t base = static_cast<size_t>(b) * T_len * row_stride + static_cast<size_t>(h) * D;
   const size_t head = static_cast<size_t>(b) * H + h;
+  const int dkey = b * key_stride + h + key_offset;  // the dropout bits' (row, head)
   const int len = min(max(lens[b], 0), T_len);
   const int m0 = warp * 16, qrow = q0 + m0 + g, q16 = (q0 + m0) >> 4;
   const int n_kt = cdiv(len, kBK);
@@ -1328,7 +1344,7 @@ bwd_dq_f32_kernel(Operands ops, const float* __restrict__ o, const int* __restri
     scores_split<KD, Own, Op>(s, qs, ldo, ks, ld, nk, m0, lane);
     finish_scores(s, staged_bias(bs, m0 + g, bias, bias_kind, head, T_len, q0, k0, qs), k0, len, scale, c);
     scores_split<KD, Own, Op>(dp, dos, ldo, vs, ld, nk, m0, lane);  // dPd = dO V^T
-    probs(s, dp, kf, lse_r, static_cast<int>(head), q16, g, c, k0, seed_lo, seed_hi, threshold, inv_keep);
+    probs(s, dp, kf, lse_r, dkey, q16, g, c, k0, seed_lo, seed_hi, threshold, inv_keep);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -1360,7 +1376,8 @@ __global__ void __launch_bounds__(kThreads)
 bwd_dkv_f32_kernel(Operands ops, const int* __restrict__ lens, const float* __restrict__ lse,
                    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
                    const void* __restrict__ bias, int bias_kind, int T_len, int H, int D, float scale,
-                   uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep) {
+                   uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep, int key_stride,
+                   int key_offset) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = Op::ld(D), ldo = Own::ld(D), nk = depth_pad(D) / 16;
   const size_t tile = Op::tile_bytes(D);
@@ -1378,6 +1395,7 @@ bwd_dkv_f32_kernel(Operands ops, const int* __restrict__ lens, const float* __re
   const size_t row_stride = static_cast<size_t>(H) * D;
   const size_t base = static_cast<size_t>(b) * T_len * row_stride + static_cast<size_t>(h) * D;
   const size_t head = static_cast<size_t>(b) * H + h;
+  const int dkey = b * key_stride + h + key_offset;  // the dropout bits' (row, head)
   const int len = min(max(lens[b], 0), T_len);
   const int m0 = warp * 16, key0 = k0 + m0 + g;  // the thread's keys key0, key0 + 8
 
@@ -1421,7 +1439,7 @@ bwd_dkv_f32_kernel(Operands ops, const int* __restrict__ lens, const float* __re
       uint32_t ma = 0, mb = 0;
 #pragma unroll
       for (int p = 0; p < 8; ++p) {
-        const uint4 w = keep_words(seed_lo, seed_hi, static_cast<int>(head), (t0 >> 4) + (lane >> 3), lane & 7,
+        const uint4 w = keep_words(seed_lo, seed_hi, dkey, (t0 >> 4) + (lane >> 3), lane & 7,
                                    (k0 + m0) / 2 + p);
         ma |= (static_cast<uint32_t>(w.x >= threshold) | static_cast<uint32_t>(w.y >= threshold) << 1) << (2 * p);
         mb |= (static_cast<uint32_t>(w.z >= threshold) | static_cast<uint32_t>(w.w >= threshold) << 1) << (2 * p);
@@ -1460,7 +1478,7 @@ bwd_dkv_f32_kernel(Operands ops, const int* __restrict__ lens, const float* __re
 // the keep bits of the dropout, one byte per (b, h, query, key): one thread
 // per Philox block, four elements
 __global__ void keep_mask_kernel(uint8_t* __restrict__ out, int BH, int T_len, uint32_t seed_lo,
-                                 uint32_t seed_hi, uint32_t threshold) {
+                                 uint32_t seed_hi, uint32_t threshold, int H, int key_stride, int key_offset) {
   const int groups = (T_len + 15) / 16 * 8, pairs = (T_len + 1) / 2;
   const size_t n = static_cast<size_t>(BH) * groups * pairs;
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -1468,7 +1486,7 @@ __global__ void keep_mask_kernel(uint8_t* __restrict__ out, int BH, int T_len, u
   const int kp = static_cast<int>(idx % pairs);
   const int grp = static_cast<int>((idx / pairs) % groups);
   const int bh = static_cast<int>(idx / pairs / groups);
-  const uint4 words = keep_words(seed_lo, seed_hi, bh, grp / 8, grp % 8, kp);
+  const uint4 words = keep_words(seed_lo, seed_hi, bh / H * key_stride + bh % H + key_offset, grp / 8, grp % 8, kp);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = (grp / 8) * 16 + grp % 8 + 8 * (i >> 1), key = 2 * kp + (i & 1);
@@ -1486,7 +1504,8 @@ inline size_t dkv_smem(int D) {
 template <int KD>
 int launch_fwd(const void* q, const void* k, const void* v, const void* lens, void* out, void* lse,
                const void* bias, int bias_kind, int B, int T_len, int H, int D, float scale,
-               uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep, void* stream) {
+               uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep, int key_stride,
+               int key_offset, void* stream) {
   const size_t smem = fwd_smem(D);
   const cudaError_t err = cudaFuncSetAttribute(fwd_kernel<KD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
@@ -1495,7 +1514,7 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* lens, vo
   fwd_kernel<KD><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(lens), static_cast<bf16*>(out), static_cast<float*>(lse), bias, bias_kind,
-      T_len, H, D, scale, seed_lo, seed_hi, threshold, inv_keep);
+      T_len, H, D, scale, seed_lo, seed_hi, threshold, inv_keep, key_stride, key_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1503,7 +1522,7 @@ template <int KD>
 int launch_bwd(const void* q, const void* k, const void* v, const void* d_o, const void* lens,
                const void* lse, void* dq, void* dk, void* dv, void* delta, const void* bias, int bias_kind,
                void* d_bias, int B, int T_len, int H, int D, float scale, uint32_t seed_lo,
-               uint32_t seed_hi, uint32_t threshold, float inv_keep, void* stream) {
+               uint32_t seed_hi, uint32_t threshold, float inv_keep, int key_stride, int key_offset, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(bwd_dq_kernel<KD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(dq_smem(D)));
   if (err == cudaSuccess)
@@ -1516,14 +1535,14 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* d_o, con
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(d_o), static_cast<const int*>(lens), static_cast<const float*>(lse),
       static_cast<bf16*>(dq), static_cast<float*>(delta), bias, bias_kind, d_bias, T_len, H, D, scale,
-      seed_lo, seed_hi, threshold, inv_keep);
+      seed_lo, seed_hi, threshold, inv_keep, key_stride, key_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   bwd_dkv_kernel<KD><<<grid, kThreads, dkv_smem(D), st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(d_o), static_cast<const int*>(lens), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), bias, bias_kind,
-      T_len, H, D, scale, seed_lo, seed_hi, threshold, inv_keep);
+      T_len, H, D, scale, seed_lo, seed_hi, threshold, inv_keep, key_stride, key_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1556,7 +1575,7 @@ cudaError_t split_operands(Operands& ops, void* planes, int n, int B, int T_len,
 template <int KD>
 int launch_fwd_f32(Operands ops, const void* lens, void* out, void* lse, const void* bias, int bias_kind, int B,
                    int T_len, int H, int D, float scale, uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold,
-                   float inv_keep, void* stream) {
+                   float inv_keep, int key_stride, int key_offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   size_t smem;
   const cudaError_t err = set_smem<Rows32>(fwd_f32_kernel<KD>, kFwd, D, bias_kind != kBiasNone, &smem);
@@ -1564,13 +1583,14 @@ int launch_fwd_f32(Operands ops, const void* lens, void* out, void* lse, const v
   const dim3 grid(cdiv(T_len, kBQ), H, B);
   fwd_f32_kernel<KD><<<grid, kThreads, smem, st>>>(
       ops, static_cast<const int*>(lens), static_cast<float*>(out), static_cast<float*>(lse), bias, bias_kind, T_len,
-      H, D, scale, seed_lo, seed_hi, threshold, inv_keep);
+      H, D, scale, seed_lo, seed_hi, threshold, inv_keep, key_stride, key_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_fwd_f32_split(const void* q, const void* k, const void* v, const void* lens, void* out, void* lse,
                          const void* bias, int bias_kind, int B, int T_len, int H, int D, float scale,
-                         uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep, void* stream) {
+                         uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep, int key_stride,
+                         int key_offset, void* stream) {
   size_t smem;
   const cudaError_t err = set_smem<Planes>(fwd_f32_split_kernel<4>, kFwd, D, bias_kind != kBiasNone, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1578,7 +1598,7 @@ int launch_fwd_f32_split(const void* q, const void* k, const void* v, const void
   fwd_f32_split_kernel<4><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(lens), static_cast<float*>(out), static_cast<float*>(lse), bias, bias_kind, T_len, H, D,
-      scale, seed_lo, seed_hi, threshold, inv_keep);
+      scale, seed_lo, seed_hi, threshold, inv_keep, key_stride, key_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1586,7 +1606,7 @@ template <int KD, class Op, class Own>
 int launch_bwd_f32(Operands ops, void* planes, const void* o, const void* lens, const void* lse, void* dq, void* dk,
                    void* dv, void* delta, const void* bias, int bias_kind, void* d_bias, int B, int T_len, int H, int D,
                    float scale, uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold, float inv_keep,
-                   void* stream) {
+                   int key_stride, int key_offset, void* stream) {
   const bool with_bias = bias_kind != kBiasNone;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   size_t smem_dq, smem_dkv;
@@ -1598,13 +1618,13 @@ int launch_bwd_f32(Operands ops, void* planes, const void* o, const void* lens, 
   bwd_dq_f32_kernel<KD, Op, Own><<<grid, kThreads, smem_dq, st>>>(
       ops, static_cast<const float*>(o), static_cast<const int*>(lens), static_cast<const float*>(lse),
       static_cast<float*>(dq), static_cast<float*>(delta), bias, bias_kind, d_bias, T_len, H, D, scale, seed_lo,
-      seed_hi, threshold, inv_keep);
+      seed_hi, threshold, inv_keep, key_stride, key_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   bwd_dkv_f32_kernel<KD, Op, Own><<<grid, kThreads, smem_dkv, st>>>(
       ops, static_cast<const int*>(lens), static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dk), static_cast<float*>(dv), bias, bias_kind, T_len, H, D, scale, seed_lo, seed_hi,
-      threshold, inv_keep);
+      threshold, inv_keep, key_stride, key_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1632,26 +1652,26 @@ extern "C" {
 int emo_attention_fwd_f32(const void* q, const void* k, const void* v, const void* lens,
                           void* out, void* lse, const void* bias, int bias_kind, int B, int T,
                           int H, int D, float scale, uint32_t seed_lo, uint32_t seed_hi,
-                          uint32_t threshold, float inv_keep, void* stream) {
+                          uint32_t threshold, float inv_keep, int key_stride, int key_offset, void* stream) {
   if (tc::bad_args(D, bias_kind, bias, false)) return static_cast<int>(cudaErrorInvalidValue);
   if (D <= 64)
     return tc::launch_fwd_f32_split(q, k, v, lens, out, lse, bias, bias_kind, B, T, H, D, scale, seed_lo, seed_hi,
-                                    threshold, inv_keep, stream);
+                                    threshold, inv_keep, key_stride, key_offset, stream);
   const tc::Operands ops{{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
                           nullptr},
                          nullptr, 0};
   return tc::launch_fwd_f32<8>(ops, lens, out, lse, bias, bias_kind, B, T, H, D, scale, seed_lo, seed_hi,
-                                           threshold, inv_keep, stream);
+                                           threshold, inv_keep, key_stride, key_offset, stream);
 }
 
 int emo_attention_fwd_bf16(const void* q, const void* k, const void* v, const void* lens,
                            void* out, void* lse, const void* bias, int bias_kind, int B, int T,
                            int H, int D, float scale, uint32_t seed_lo, uint32_t seed_hi,
-                           uint32_t threshold, float inv_keep, void* stream) {
+                           uint32_t threshold, float inv_keep, int key_stride, int key_offset, void* stream) {
   if (tc::bad_args(D, bias_kind, bias, true)) return static_cast<int>(cudaErrorInvalidValue);
   return (D <= 64 ? tc::launch_fwd<4> : tc::launch_fwd<8>)(q, k, v, lens, out, lse, bias, bias_kind, B, T,
                                                             H, D, scale, seed_lo, seed_hi, threshold,
-                                                            inv_keep, stream);
+                                                            inv_keep, key_stride, key_offset, stream);
 }
 
 // both backward passes; `delta` is (B, H, T) f32 scratch; `d_bias` is
@@ -1664,14 +1684,14 @@ int emo_attention_bwd_f32(const void* q, const void* k, const void* v, const voi
                           void* dv, void* delta, void* planes, const void* bias, int bias_kind, void* d_bias,
                           int B, int T, int H, int D, float scale,
                           uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold,
-                          float inv_keep, void* stream) {
+                          float inv_keep, int key_stride, int key_offset, void* stream) {
   if (tc::bad_args(D, bias_kind, bias, false)) return static_cast<int>(cudaErrorInvalidValue);
   const tc::Operands ops{{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
                           static_cast<const float*>(d_o)},
                          nullptr, 0};
   return (D <= 64 ? tc::launch_bwd_f32<4, tc::Planes, tc::RowsA32> : tc::launch_bwd_f32<8, tc::Rows32, tc::Rows32>)(
       ops, planes, o, lens, lse, dq, dk, dv, delta, bias, bias_kind, d_bias, B, T, H, D, scale, seed_lo, seed_hi,
-      threshold, inv_keep, stream);
+      threshold, inv_keep, key_stride, key_offset, stream);
 }
 
 // as the f32 launcher, without `planes`; `o` is not read (bf16 sums delta
@@ -1681,12 +1701,12 @@ int emo_attention_bwd_bf16(const void* q, const void* k, const void* v, const vo
                            void* dk, void* dv, void* delta, const void* bias, int bias_kind,
                            void* d_bias, int B, int T, int H, int D, float scale,
                            uint32_t seed_lo, uint32_t seed_hi, uint32_t threshold,
-                           float inv_keep, void* stream) {
+                           float inv_keep, int key_stride, int key_offset, void* stream) {
   if (tc::bad_args(D, bias_kind, bias, true)) return static_cast<int>(cudaErrorInvalidValue);
   return (D <= 64 ? tc::launch_bwd<4> : tc::launch_bwd<8>)(q, k, v, d_o, lens, lse, dq, dk, dv, delta,
                                                             bias, bias_kind, d_bias, B, T, H, D, scale,
                                                             seed_lo, seed_hi, threshold, inv_keep,
-                                                            stream);
+                                                            key_stride, key_offset, stream);
 }
 
 // dynamic shared memory of an f32 kernel: kind 0 forward, 1 backward pass
@@ -1697,13 +1717,13 @@ int emo_attention_smem_bytes(int kind, int D, int with_bias) {
 
 // the launchers' keep bits for `seed`, one map for both dtypes
 int emo_attention_keep_mask(void* out, int B, int T, int H, uint32_t seed_lo, uint32_t seed_hi,
-                            uint32_t threshold, void* stream) {
+                            uint32_t threshold, int key_stride, int key_offset, void* stream) {
   const size_t n = static_cast<size_t>(B) * H * ((T + 15) / 16 * 8) * ((T + 1) / 2);
   if (n == 0) return 0;
   const int threads = 256;
   tc::keep_mask_kernel<<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0,
                          static_cast<cudaStream_t>(stream)>>>(static_cast<uint8_t*>(out), B * H, T, seed_lo,
-                                                              seed_hi, threshold);
+                                                              seed_hi, threshold, H, key_stride, key_offset);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,6 +21,13 @@ Runs on the card unless `--cpu` is given:
     python -m emoasr_tpu_torch.eval.test_asr -conf <yaml> -ep <N> --beam_width 8
     python -m emoasr_tpu_torch.eval.test_asr -conf <l3 yaml> -ep <N> \
         --lm_weight 0.5 --lm_conf <lm yaml> --lm_ep <M>
+
+`--dp` under `torchrun` (`python -m torch.distributed.run --standalone
+--nproc_per_node N -m emoasr_tpu_torch.eval.test_asr ... --dp`) splits the
+rows of every batch over the N ranks (JAX `test_asr.py:438-451`); a batch
+that does not divide is decoded whole by rank 0 (JAX replicates it,
+`:361-363`), and rank 0 gathers the rows and writes the TSV a single
+process writes.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from emoasr_tpu_torch.eval.decode import build_decode_fn
 from emoasr_tpu_torch.eval.wer import compute_wers_df, wer_info_line
 from emoasr_tpu_torch.models.asr import ASR
 from emoasr_tpu_torch.models.lm.lm import LM, load_lm_state_dict
+from emoasr_tpu_torch.parallel import mesh as pmesh
 from emoasr_tpu_torch.search.common import check_lm_fusion_type, make_lm_fusion
 from emoasr_tpu_torch.train import checkpoint as ckpt
 from emoasr_tpu_torch.utils.converters import ints2str
@@ -173,6 +181,7 @@ def decode_dataset(
     num_samples: int = -1,
     sample_utt_id: Optional[str] = None,
     decode_phone: bool = False,
+    mesh: Optional[pmesh.Mesh] = None,
 ) -> List[list]:
     """Decode bucket batch after bucket batch -> result rows.
 
@@ -180,7 +189,9 @@ def decode_dataset(
     the main thread decodes the current one; each batch's outputs are
     paired with that batch's own `utt_ids`.  `num_samples > 0` stops after
     that many utterances.  The count of force-finalized hypotheses is
-    logged."""
+    logged.  On a `mesh` each rank decodes its rows of a batch (rank 0 the
+    whole of a batch that does not divide) and rank 0 returns every row;
+    the other ranks return []."""
     rows: List[list] = []
     n_forced_total = 0
     q: "queue.Queue" = queue.Queue(maxsize=2)
@@ -216,17 +227,17 @@ def decode_dataset(
                 if err:
                     raise err[0]
                 break
-            hyps, hyp_lens, scores = (
-                t.cpu().numpy() for t in decode_fn(batch["xs"], batch["xlens"])
-            )
-            new, n_utts, n_forced = _postproc_batch(
-                cfg, batch, hyps, hyp_lens, scores, vocab, nbest, sample_utt_id,
-                max_utts=(num_samples - n_done) if num_samples > 0 else -1,
-                decode_phone=decode_phone,
-            )
-            rows.extend(new)
+            max_utts = (num_samples - n_done) if num_samples > 0 else -1
+            outs = _decode_rows(decode_fn, batch, mesh)
+            if outs is not None:
+                new, n_utts, n_forced = _postproc_batch(
+                    cfg, batch, *outs, vocab, nbest, sample_utt_id, max_utts=max_utts, decode_phone=decode_phone,
+                )
+                rows.extend(new)
+                n_forced_total += n_forced
+            else:  # what rank 0 counts: every row up to max_utts without an utt_id filter
+                n_utts = len(batch["utt_ids"]) if max_utts < 0 else min(len(batch["utt_ids"]), max_utts)
             n_done += n_utts
-            n_forced_total += n_forced
             if num_samples > 0 and sample_utt_id is None and n_done >= num_samples:
                 break
     finally:
@@ -242,6 +253,32 @@ def decode_dataset(
     return rows
 
 
+def _decode_rows(decode_fn, batch: dict, mesh: Optional[pmesh.Mesh]):
+    """(hyps, hyp_lens, scores) of the whole batch as numpy arrays, on
+    rank 0 (None on the others): each rank decodes its rows and rank 0
+    gathers them; a batch the data axis does not divide is rank 0's."""
+    n = batch["xs"].shape[0]
+    if mesh is None or n % mesh.data_size:
+        if mesh is not None and not mesh.is_main:
+            return None
+        return tuple(t.cpu().numpy() for t in decode_fn(batch["xs"], batch["xlens"]))
+    rows = pmesh.row_slice(mesh, n)
+    mine = tuple(t.cpu().numpy() for t in decode_fn(batch["xs"][rows], batch["xlens"][rows]))
+    parts = pmesh.gather_rows(mesh, mine)
+    if parts is None:
+        return None
+    return tuple(_concat_padded([p[i] for p in parts]) for i in range(len(mine)))
+
+
+def _concat_padded(arrays: List[np.ndarray]) -> np.ndarray:
+    """Concatenate along the rows, padding the last axis to the longest
+    (a rank's beam hypotheses may be shorter; the pad is never read)."""
+    width = max(a.shape[-1] for a in arrays) if arrays[0].ndim > 1 else None
+    if width is not None:
+        arrays = [np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, width - a.shape[-1])]) for a in arrays]
+    return np.concatenate(arrays, axis=0)
+
+
 # the model, LM and decode function of the last call, reused by a call with
 # the same setup (a grid over lm_weight and len_weight); at most one entry
 _SETUP_CACHE: dict = {}
@@ -250,6 +287,9 @@ _SETUP_CACHE: dict = {}
 def test_main(args, lm_weight=None, len_weight=None):
     cfg = load_config(args.conf)
     device = resolve_device("cpu" if args.cpu else None)
+    mesh = _dp_mesh(args, device)
+    if mesh is not None:
+        device = mesh.device
     set_matmul_precision(cfg.compute_dtype)
     beam_width = args.beam_width if args.beam_width is not None else cfg.beam_width
     if len_weight is None:
@@ -268,7 +308,8 @@ def test_main(args, lm_weight=None, len_weight=None):
     # a row once its stored best is provably unbeatable
     top1 = not args.nbest
 
-    setup_logging(None, logging.DEBUG if args.debug else logging.INFO)
+    main = mesh is None or mesh.is_main
+    setup_logging(None, (logging.DEBUG if args.debug else logging.INFO) if main else logging.WARNING)
     logging.info(f"***** {' '.join(sys.argv)}")
 
     setup_key = (args.conf, str(args.ep), beam_width, decode_ctc_weight, args.lm_conf, args.lm_ep,
@@ -323,7 +364,7 @@ def test_main(args, lm_weight=None, len_weight=None):
             results = decode_dataset(
                 cfg, dataset, decode_fn, vocab, nbest=args.nbest,
                 num_samples=args.runtime_num_samples,
-                sample_utt_id=args.utt_id, decode_phone=args.decode_phone,
+                sample_utt_id=args.utt_id, decode_phone=args.decode_phone, mesh=mesh,
             )
             runtime = time.time() - t0
             runtime_utt = runtime / max(len(results), 1)
@@ -350,8 +391,10 @@ def test_main(args, lm_weight=None, len_weight=None):
 
     results = decode_dataset(
         cfg, dataset, decode_fn, vocab, nbest=args.nbest, sample_utt_id=args.utt_id,
-        decode_phone=args.decode_phone,
+        decode_phone=args.decode_phone, mesh=mesh,
     )
+    if not main:  # rank 0 writes
+        return None
     if args.utt_id is not None:
         for r in results:
             logging.info(r)
@@ -388,6 +431,22 @@ def test_main(args, lm_weight=None, len_weight=None):
     return lm_weight, len_weight, wer, wer_info
 
 
+def _dp_mesh(args, device) -> Optional[pmesh.Mesh]:
+    """`--dp` under torchrun: every rank on the data axis (JAX
+    `test_asr.py:438-451`); None in a single process.  Ranks without
+    `--dp` would each decode and write the whole set: refused."""
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if not getattr(args, "dp", False):
+        if world > 1:
+            raise ValueError(f"started on {world} ranks without --dp: pass --dp to split the batches over them")
+        return None
+    if "WORLD_SIZE" not in os.environ:
+        return None
+    if pmesh.active() is not None:  # a grid's later calls
+        return pmesh.active()
+    return pmesh.make_mesh((world,), (pmesh.DATA,), device=device)
+
+
 def build_argparser():
     parser = argparse.ArgumentParser()
     parser.add_argument("-conf", type=str, required=True)
@@ -415,11 +474,16 @@ def build_argparser():
     parser.add_argument("--lm_tag", type=str, default=None)
     parser.add_argument("--decode_phone", action="store_true",
                         help="decode the phone head (CTC models trained with phone CTC)")
+    parser.add_argument("--dp", action="store_true",
+                        help="split every batch's rows over the ranks that torchrun started")
     return parser
 
 
 def main(argv=None):
-    return test_main(build_argparser().parse_args(argv))
+    try:
+        return test_main(build_argparser().parse_args(argv))
+    finally:
+        pmesh.shutdown()
 
 
 if __name__ == "__main__":

@@ -34,6 +34,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from emoasr_tpu_torch.parallel.mesh import global_rows, global_sum
+
 
 def _lsm_target(logp: torch.Tensor, ys: torch.Tensor, lsm_prob: float) -> torch.Tensor:
     """sum_v logp[..., v] onehot_lsm(ys)[..., v] in closed form: (1 - p)
@@ -65,7 +67,7 @@ def label_smoothing_loss(
         per_b = per_b / ylens.to(logits.device).clamp(min=1)
     loss = -per_b.sum()
     if normalize_batch:
-        loss = loss / B
+        loss = loss / global_rows(B)
     return loss
 
 
@@ -97,7 +99,7 @@ def distill_loss(
     soft_b = masked_sum((logp * soft_labels[:, :L].to(dev, logp.dtype)).sum(-1))
     hard_b = masked_sum(_lsm_target(logp, ys.to(dev), lsm_prob))
     loss_b = soft_label_weight * soft_b + (1.0 - soft_label_weight) * hard_b
-    denom = B if normalize_batch else 1
+    denom = global_rows(B) if normalize_batch else 1
     return -loss_b.sum() / denom, -soft_b.sum() / denom, -hard_b.sum() / denom
 
 
@@ -112,7 +114,7 @@ def masked_lm_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_id: int = 
     valid = labels != ignore_id
     tgt = torch.where(valid, labels, torch.zeros_like(labels)).long()
     ce = -torch.gather(logp, -1, tgt[..., None])[..., 0]
-    return torch.where(valid, ce, torch.zeros_like(ce)).sum() / valid.sum().clamp(min=1)
+    return torch.where(valid, ce, torch.zeros_like(ce)).sum() / global_sum(valid.sum()).clamp(min=1)
 
 
 # ---------------------------------------------------------------- alignment-based distillation
@@ -205,7 +207,7 @@ def ctc_align_distill_loss(
         loss_b = loss_b + (1 - soft_label_weight) * (h / denom if normalize_length else h)
     loss = -loss_b.sum()
     if normalize_batch:
-        loss = loss / B
+        loss = loss / global_rows(B)
     return loss
 
 
@@ -239,7 +241,7 @@ def rnnt_word_distill_loss(
         per = per / (xlens * ylens).clamp(min=1)
     loss = -per.sum()
     if normalize_batch:
-        loss = loss / B
+        loss = loss / global_rows(B)
     return loss
 
 
@@ -269,5 +271,5 @@ def rnnt_align_distill_loss(
         per = per / ylens.clamp(min=1)
     loss = -per.sum()
     if normalize_batch:
-        loss = loss / B
+        loss = loss / global_rows(B)
     return loss

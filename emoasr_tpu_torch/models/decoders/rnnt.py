@@ -41,6 +41,7 @@ from emoasr_tpu_torch.models.decoders.ctc import CTCDecoder
 from emoasr_tpu_torch.ops.lstm import StackedLSTM
 from emoasr_tpu_torch.ops.rnnt import rnnt_alpha_rowscan, rnnt_forced_align, rnnt_gathered_from_joint, rnnt_loss
 from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather
+from emoasr_tpu_torch.parallel.mesh import batch_mean
 
 JOINT_MODES = ("full", "chunked", "pallas")
 
@@ -101,7 +102,7 @@ class RNNTDecoder(nn.Module):
             w_out, b_out = self.output.weight.t(), self.output.bias  # (J, V): read in place
             gather = fused_joint_gather if cfg.rnnt_joint_mode == "pallas" else rnnt_gathered_from_joint
             lp_blank, lp_label = gather(h_enc, h_dec, w_out, b_out, ys, cfg.blank_id)
-            loss_rnnt = -torch.mean(rnnt_alpha_rowscan(lp_blank, lp_label, elens, ylens))
+            loss_rnnt = -batch_mean(rnnt_alpha_rowscan(lp_blank, lp_label, elens, ylens))
         loss = loss_rnnt
         loss_dict["loss_rnnt"] = loss_rnnt
         if cfg.mtl_ctc_weight > 0:

@@ -20,7 +20,6 @@ length are zero.
 
 from __future__ import annotations
 
-import torch.nn.functional as F
 from torch import nn
 
 from emoasr_tpu_torch.config import ExpConfig
@@ -33,6 +32,7 @@ from emoasr_tpu_torch.models.layers import (
     make_pad_mask,
 )
 from emoasr_tpu_torch.ops.lstm import BiLSTM
+from emoasr_tpu_torch.parallel.mesh import dropout
 
 
 class TransformerEncoder(nn.Module):
@@ -135,7 +135,7 @@ class RNNEncoder(nn.Module):
         for rnn in self.rnns:
             out = rnn(xs, elens)
             xs = out[..., :H] + out[..., H:] if cfg.enc_hidden_sum_fwd_bwd else out
-            xs = F.dropout(xs, cfg.dropout_enc_rate, self.training)
+            xs = dropout(xs, cfg.dropout_enc_rate, self.training)
         return xs, elens, None
 
 

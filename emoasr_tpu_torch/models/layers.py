@@ -35,6 +35,7 @@ from emoasr_tpu_torch.ops.decoder_step import (
     fused_decoder_layer_step,
     fused_decoder_layer_step_indirect,
 )
+from emoasr_tpu_torch.parallel.mesh import batch_stats, dropout, rows_block
 
 NEG_INF = -1e9  # mask fill for attention scores (float32-safe)
 # The Conformer block's inner LayerNorms.  The JAX package builds them as
@@ -111,8 +112,9 @@ class RelPositionalEncoder(nn.Module):
         pe = torch.zeros((2 * T - 1, self.hidden_size), dtype=torch.float32, device=dev)
         pe[:, 0::2] = torch.sin(pos * div)
         pe[:, 1::2] = torch.cos(pos * div)
-        pe = pe.to(xs.dtype)[None]  # (1, 2T-1, D)
-        return self.dropout(xs * math.sqrt(self.hidden_size)), self.dropout(pe)
+        pe = pe.to(xs.dtype)[None]  # (1, 2T-1, D), shared by the batch's rows: one draw on every rank
+        xs = self.dropout(xs * math.sqrt(self.hidden_size))
+        return xs, dropout(pe, self.dropout.p, self.training, shared=True)
 
 
 class MultiHeadAttention(nn.Module):
@@ -122,7 +124,13 @@ class MultiHeadAttention(nn.Module):
     `fused` and `lens` given, the score pipeline runs in the fused kernel
     (ops/attention.py), masking keys by `lens` (which must agree with
     `mask`); in training it draws one fresh dropout seed per call from
-    `dropout_generator` (PyTorch's global CPU generator when None)."""
+    `dropout_generator` (PyTorch's global CPU generator when None).
+
+    On a mesh (`parallel/tensor.py`) the module may hold a block of the
+    heads, `tp_heads = (first head, all heads)`; the fused kernel's dropout
+    then keys each element by its row and head in the global batch."""
+
+    tp_heads: Optional[Tuple[int, int]] = None
 
     def __init__(self, num_heads: int, hidden_size: int, dropout_rate: float = 0.0,
                  fused: bool = False, kv_size: Optional[int] = None):
@@ -161,6 +169,14 @@ class MultiHeadAttention(nn.Module):
         B, Tq = out.shape[0], out.shape[1]
         return self.linear_out(out.reshape(B, Tq, self.hidden_size))
 
+    def _dropout_block(self, B: int) -> Optional[Tuple[int, int, int, int]]:
+        """The fused kernel's `block`: this rank's rows and heads in the
+        global batch; None in a single process."""
+        rows = rows_block(B)
+        if rows is None and self.tp_heads is None:
+            return None
+        return (*(rows or (0, B)), *(self.tp_heads or (0, self.num_heads)))
+
     def forward(self, q_in, k_in, v_in, mask=None, lens: Optional[torch.Tensor] = None):
         q, k, v = self._qkv(q_in, k_in, v_in)
         if self.fused and lens is not None:
@@ -170,6 +186,7 @@ class MultiHeadAttention(nn.Module):
                 dropout_rate=self.dropout_rate,
                 deterministic=not self.training,
                 generator=self.dropout_generator,
+                block=self._dropout_block(q.shape[0]),
             )
             B, Tq = out.shape[0], out.shape[1]
             return self.linear_out(out.reshape(B, Tq, self.hidden_size))
@@ -234,6 +251,7 @@ class RelMultiHeadAttention(MultiHeadAttention):
                 deterministic=not self.training,
                 bias=matrix_bd,
                 generator=self.dropout_generator,
+                block=self._dropout_block(B),
             )
             return self.linear_out(out.reshape(B, out.shape[1], self.hidden_size))
         matrix_ac = torch.einsum("bqhd,bkhd->bhqk", q + bias_u[None, None], k)
@@ -476,7 +494,9 @@ class ConvModule(nn.Module):
     would feed it the unbiased one), so that a checkpoint written after
     training holds the statistics the JAX trainer would write.  Under the
     bf16 training policy the statistics stay float32 buffers: the batch's
-    are taken in float32 and the running update goes into them."""
+    are taken in float32 and the running update goes into them.  On a mesh
+    that splits the batch the statistics are the global batch's (as GSPMD
+    computes them): two all-reduces over the data group, differentiable."""
 
     def __init__(self, channels: int, kernel_size: int = 31):
         super().__init__()
@@ -504,12 +524,17 @@ class ConvModule(nn.Module):
             # once, as flax promotes x - mean to the statistics' float32
             return F.batch_norm(h.float(), bn.running_mean.float(), bn.running_var.float(), bn.weight.float(),
                                 bn.bias.float(), False, 0.0, bn.eps).to(h.dtype)
+        stats = batch_stats(h, (0, 2))  # the global batch's, on a mesh that splits it
         with torch.no_grad():
-            var, mean = torch.var_mean(h.float(), dim=(0, 2), unbiased=False)
-            bn.running_mean.lerp_(mean.to(bn.running_mean.dtype), bn.momentum)
-            bn.running_var.lerp_(var.to(bn.running_var.dtype), bn.momentum)
+            var, mean = torch.var_mean(h.float(), dim=(0, 2), unbiased=False) if stats is None else stats[::-1]
+            bn.running_mean.lerp_(mean.detach().to(bn.running_mean.dtype), bn.momentum)
+            bn.running_var.lerp_(var.detach().to(bn.running_var.dtype), bn.momentum)
             bn.num_batches_tracked += 1
-        return F.batch_norm(h, None, None, bn.weight, bn.bias, True, bn.momentum, bn.eps)
+        if stats is None:
+            return F.batch_norm(h, None, None, bn.weight, bn.bias, True, bn.momentum, bn.eps)
+        mean, var = stats
+        hn = (h.float() - mean[None, :, None]) * torch.rsqrt(var + bn.eps)[None, :, None]
+        return (hn * bn.weight[None, :, None] + bn.bias[None, :, None]).to(h.dtype)
 
 
 class ConformerEncoderLayer(nn.Module):

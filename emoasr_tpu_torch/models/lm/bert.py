@@ -49,6 +49,7 @@ from emoasr_tpu_torch.models.layers import (
     make_pad_mask,
 )
 from emoasr_tpu_torch.ops.lm_step import fused_bert_layer_step_indirect, pack_weights
+from emoasr_tpu_torch.parallel.mesh import batch_mean, global_sum
 
 # fused indirect-step dispatch: None = auto, True/False = forced.  Auto is
 # the dense route, as in the JAX package (whose chip measurement found the
@@ -373,6 +374,6 @@ def disc_bce_loss(logits: torch.Tensor, labels: torch.Tensor, ylens: Optional[to
     lab = labels.float()
     bce = -(lab * F.logsigmoid(x) + (1.0 - lab) * F.logsigmoid(-x))
     if ylens is None:
-        return bce.mean()
+        return batch_mean(bce)
     valid = make_pad_mask(ylens.to(x.device), x.shape[1])
-    return torch.where(valid, bce, torch.zeros_like(bce)).sum() / valid.sum().clamp(min=1)
+    return torch.where(valid, bce, torch.zeros_like(bce)).sum() / global_sum(valid.sum()).clamp(min=1)

@@ -59,6 +59,7 @@ from emoasr_tpu_torch.models.lm.bert import (
     mlm_loss,
 )
 from emoasr_tpu_torch.ops.lstm import MultiLayerLSTM
+from emoasr_tpu_torch.parallel.mesh import global_rows, rows_block
 
 ELECTRA_TYPES = ("electra", "electra-disc")
 PELECTRA_TYPES = ("pelectra", "pelectra-disc")
@@ -268,10 +269,13 @@ def sample_categorical(logits: torch.Tensor, generator: Optional[torch.Generator
                        temp: float = 1.0) -> torch.Tensor:
     """One draw from softmax(logits / temp) over the last axis, by the
     Gumbel-max rule from `generator`'s uniforms (electra.py:20-30; temp 0
-    is the argmax)."""
+    is the argmax).  On a mesh that splits the batch the whole batch's
+    uniforms are drawn and this rank's rows kept."""
     if temp == 0.0:
         return torch.argmax(logits, dim=-1)
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    first, total = rows_block(logits.shape[0]) or (0, logits.shape[0])
+    u = torch.rand((total,) + tuple(logits.shape[1:]), generator=generator,
+                   device=logits.device)[first:first + logits.shape[0]]
     gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
     return torch.argmax(logits.float() / temp + gumbel, dim=-1)
 
@@ -314,8 +318,8 @@ class _Discriminated(nn.Module):
             "loss_total": loss,
             "loss_gen": gloss,
             "loss_disc": dloss,
-            "num_replaced": replaced.sum() / B,
-            "num_masked": masked.sum() / B,
+            "num_replaced": replaced.sum() / global_rows(B),
+            "num_masked": masked.sum() / global_rows(B),
         }
 
     def sample_replacements(self, glogits, ys, labels, generator=None):

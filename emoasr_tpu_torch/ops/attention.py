@@ -35,6 +35,13 @@ those of any other framework; one seed draws the same bits in both dtypes
 (one map of the generator's words onto the elements a thread holds in a
 score accumulator), which `dropout_keep_mask` exports so that the kernel
 can be held against the plain version with the same mask.
+
+`block=(row0, rows, head0, heads)` says that the call's (B, H) are rows
+row0.. of a batch of `rows` and heads head0.. of `heads` (a rank's share
+under data and tensor parallelism, `parallel/mesh.py`): the kernels then
+key each element by its place in that batch, and the CPU path draws the
+whole batch's mask and keeps the call's block, so that the call drops what
+the whole batch's call drops there.  None is (0, B, 0, H).
 """
 
 from __future__ import annotations
@@ -48,11 +55,13 @@ from emoasr_tpu_torch.ops.cuda_lib import F, I, P, U, CudaKernel, aligned16
 
 NEG_INF = -1e9  # matches models/layers.py
 
-_FWD_SIG = [P] * 7 + [I] * 5 + [F, U, U, U, F, P]
-_BWD_SIG = [P] * 12 + [I, P, I, I, I, I, F, U, U, U, F, P]
+# each launcher ends with the dropout's seed, threshold, scale and the key
+# of its (row, head) blocks (`_key_args`), then the stream
+_FWD_SIG = [P] * 7 + [I] * 5 + [F, U, U, U, F, I, I, P]
+_BWD_SIG = [P] * 12 + [I, P, I, I, I, I, F, U, U, U, F, I, I, P]
 # the float32 backward also takes a bf16 scratch for its operands' split
 # (`launch_geometry`)
-_BWD_F32_SIG = [P] * 13 + [I, P] + [I] * 4 + [F, U, U, U, F, P]
+_BWD_F32_SIG = [P] * 13 + [I, P] + [I] * 4 + [F, U, U, U, F, I, I, P]
 KERNEL = CudaKernel(
     "attention.cu",
     {
@@ -60,7 +69,7 @@ KERNEL = CudaKernel(
         "emo_attention_fwd_bf16": _FWD_SIG,
         "emo_attention_bwd_f32": _BWD_F32_SIG,
         "emo_attention_bwd_bf16": _BWD_SIG,
-        "emo_attention_keep_mask": [P, I, I, I, U, U, U, P],
+        "emo_attention_keep_mask": [P, I, I, I, U, U, U, I, I, P],
         "emo_attention_smem_bytes": [I, I, I],
     },
 )
@@ -236,6 +245,30 @@ def _dropout_args(rate: float, seed: int) -> Tuple[int, int, int, float]:
     return seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF, threshold, 1.0 / (1.0 - rate)
 
 
+def _key_args(B: int, H: int, block: Optional[Tuple[int, int, int, int]]) -> Tuple[int, int]:
+    """(key_stride, key_offset) of the launchers: element (b, h) draws the
+    bits of row row0 + b, head head0 + h of the whole batch."""
+    if block is None:
+        return H, 0
+    row0, rows, head0, heads = block
+    if row0 < 0 or head0 < 0 or row0 + B > rows or head0 + H > heads:
+        raise ValueError(f"attention kernel: block {block} does not hold a ({B}, {H}) share")
+    return heads, row0 * heads + head0
+
+
+def block_keep_mask(shape, rate: float, generator: Optional[torch.Generator], device,
+                    block: Optional[Tuple[int, int, int, int]] = None) -> torch.Tensor:
+    """The CPU path's keep mask (B, H, T, T): drawn from `generator` for the
+    whole batch of `block` and cut to the call's rows and heads."""
+    B, H, T, _ = shape
+    if block is None:
+        return torch.rand(shape, generator=generator, device=device) >= rate
+    _key_args(B, H, block)
+    row0, rows, head0, heads = block
+    u = torch.rand((rows, heads, T, T), generator=generator, device=device)
+    return u[row0:row0 + B, head0:head0 + H] >= rate
+
+
 def draw_seed(generator: Optional[torch.Generator] = None) -> int:
     """One fresh 62-bit dropout seed from `generator` (PyTorch's global CPU
     generator when None)."""
@@ -244,17 +277,21 @@ def draw_seed(generator: Optional[torch.Generator] = None) -> int:
 
 
 def dropout_keep_mask(B: int, T: int, H: int, rate: float, seed: int,
-                      device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """The keep mask (B, H, T, T) bool that the kernels apply for `seed`:
-    one map for both dtypes, so `dtype` does not change it."""
+                      device: torch.device, dtype: torch.dtype = torch.float32,
+                      block: Optional[Tuple[int, int, int, int]] = None) -> torch.Tensor:
+    """The keep mask (B, H, T, T) bool that the kernels apply for `seed`
+    (and `block`, see the module note): one map for both dtypes, so `dtype`
+    does not change it."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError("dropout_keep_mask: the kernel's bits exist on the card only")
     lo, hi, threshold, _ = _dropout_args(rate, seed)
+    key_stride, key_offset = _key_args(B, H, block)
     out = torch.empty((B, H, T, T), dtype=torch.uint8, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        KERNEL.launch("emo_attention_keep_mask", out.data_ptr(), B, T, H, lo, hi, threshold, stream)
+        KERNEL.launch("emo_attention_keep_mask", out.data_ptr(), B, T, H, lo, hi, threshold,
+                      key_stride, key_offset, stream)
     return out.bool()
 
 
@@ -262,17 +299,19 @@ def _bias_args(bias: Optional[torch.Tensor]) -> Tuple[Optional[int], int]:
     return (None, 0) if bias is None else (bias.data_ptr(), _BIAS_KINDS[bias.dtype])
 
 
-def _launch_fwd(q, k, v, lens32, scale, rate, seed, want_lse, bias=None):
+def _launch_fwd(q, k, v, lens32, scale, rate, seed, want_lse, bias=None, block=None):
     B, T, H, D = q.shape
     out = torch.empty_like(v)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if want_lse else None
     lo, hi, threshold, inv_keep = _dropout_args(rate, seed)
+    key_stride, key_offset = _key_args(B, H, block)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         KERNEL.launch(
             _LAUNCHERS[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             lens32.data_ptr(), out.data_ptr(), lse.data_ptr() if want_lse else None,
-            *_bias_args(bias), B, T, H, D, float(scale), lo, hi, threshold, inv_keep, stream,
+            *_bias_args(bias), B, T, H, D, float(scale), lo, hi, threshold, inv_keep,
+            key_stride, key_offset, stream,
         )
         KERNEL.counts["bias_fwd" + _BIAS_COUNT[q.dtype]] += bias is not None
     return out, lse
@@ -283,10 +322,10 @@ class _FusedAttention(torch.autograd.Function):
     the rows' log-sum-exp, and regenerates the dropout bits from the seed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, lens32, scale, rate, seed, bias):
-        out, lse = _launch_fwd(q, k, v, lens32, scale, rate, seed, want_lse=True, bias=bias)
+    def forward(ctx, q, k, v, lens32, scale, rate, seed, bias, block):
+        out, lse = _launch_fwd(q, k, v, lens32, scale, rate, seed, want_lse=True, bias=bias, block=block)
         ctx.save_for_backward(q, k, v, out, lse, lens32, bias)
-        ctx.scale, ctx.rate, ctx.seed = scale, rate, seed
+        ctx.scale, ctx.rate, ctx.seed, ctx.block = scale, rate, seed, block
         return out
 
     @staticmethod
@@ -307,6 +346,7 @@ class _FusedAttention(torch.autograd.Function):
         if bias is not None and ctx.needs_input_grad[7]:
             d_bias = torch.empty_like(bias)
         lo, hi, threshold, inv_keep = _dropout_args(ctx.rate, ctx.seed)
+        key_stride, key_offset = _key_args(B, H, ctx.block)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             KERNEL.launch(
@@ -314,10 +354,10 @@ class _FusedAttention(torch.autograd.Function):
                 out.data_ptr(), d_out.data_ptr(), lens32.data_ptr(), lse.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), *planes,
                 *_bias_args(bias), None if d_bias is None else d_bias.data_ptr(),
-                B, T, H, D, float(ctx.scale), lo, hi, threshold, inv_keep, stream,
+                B, T, H, D, float(ctx.scale), lo, hi, threshold, inv_keep, key_stride, key_offset, stream,
             )
             KERNEL.counts["bias_bwd" + _BIAS_COUNT[q.dtype]] += bias is not None
-        return dq, dk, dv, None, None, None, None, d_bias
+        return dq, dk, dv, None, None, None, None, d_bias, None
 
 
 def fused_self_attention(
@@ -333,12 +373,14 @@ def fused_self_attention(
     dropout_mask: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     seed: Optional[int] = None,
+    block: Optional[Tuple[int, int, int, int]] = None,
 ) -> torch.Tensor:
     """Masked self-attention, (B, T, H, D) -> (B, T, H, D) in v.dtype.
 
     With dropout on, a CPU tensor takes `dropout_mask` or draws one from
-    `generator`; a CUDA tensor takes `seed` or draws one from `generator`
-    (see `draw_seed`) and refuses a `dropout_mask`."""
+    `generator` (`block_keep_mask`); a CUDA tensor takes `seed` or draws one
+    from `generator` (see `draw_seed`) and refuses a `dropout_mask`.
+    `block`: the call's rows and heads in a larger batch (module note)."""
     rate = 0.0 if deterministic else float(dropout_rate)
     needs_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (q, k, v, bias)
@@ -346,7 +388,7 @@ def fused_self_attention(
     if q.device.type == "cpu":
         if rate > 0.0 and dropout_mask is None:
             B, T, H = q.shape[:3]
-            dropout_mask = torch.rand((B, H, T, T), generator=generator, device=q.device) >= rate
+            dropout_mask = block_keep_mask((B, H, T, T), rate, generator, q.device, block)
         if needs_grad:
             return _PlainAttention.apply(q, k, v, lens, float(scale), rate, bias, dropout_mask)
         return attention_plain(q, k, v, lens, scale, rate, bias=bias, dropout_mask=dropout_mask)
@@ -389,5 +431,5 @@ def fused_self_attention(
         seed = draw_seed(generator)
     seed = int(seed or 0)
     if needs_grad:
-        return _FusedAttention.apply(q, k, v, lens32, float(scale), rate, seed, bias)
-    return _launch_fwd(q, k, v, lens32, scale, rate, seed, want_lse=False, bias=bias)[0]
+        return _FusedAttention.apply(q, k, v, lens32, float(scale), rate, seed, bias, block)
+    return _launch_fwd(q, k, v, lens32, scale, rate, seed, want_lse=False, bias=bias, block=block)[0]

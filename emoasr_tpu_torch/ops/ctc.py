@@ -23,6 +23,7 @@ import torch
 from emoasr_tpu_torch.ops.common import LOG_0, flip_by_length, logaddexp3
 from emoasr_tpu_torch.ops.ctc_head import fused_ctc_head
 from emoasr_tpu_torch.ops.ctc_lattice import ctc_ll_from_path
+from emoasr_tpu_torch.parallel.mesh import global_rows
 
 
 def _extend_with_blanks(labels: torch.Tensor, blank_id: int) -> torch.Tensor:
@@ -83,7 +84,7 @@ def ctc_loss_fn(logits, labels, xlens, ylens, blank_id: int = 0) -> torch.Tensor
     lse = torch.logsumexp(logits, dim=-1)  # (B, T)
     idx = z.long()[:, None, :].expand(-1, logits.shape[1], -1)
     lp_path = (torch.gather(logits, 2, idx) - lse[:, :, None]).transpose(0, 1)
-    return _nll_from_path(lp_path, allow2f, initf, finalf, xlens).sum() / logits.shape[0]
+    return _nll_from_path(lp_path, allow2f, initf, finalf, xlens).sum() / global_rows(logits.shape[0])
 
 
 def ctc_loss_fused_head(eouts, w, b, labels, xlens, ylens, blank_id: int = 0) -> torch.Tensor:
@@ -95,7 +96,7 @@ def ctc_loss_fused_head(eouts, w, b, labels, xlens, ylens, blank_id: int = 0) ->
     z, allow2f, initf, finalf = _path_masks(labels, ylens, blank_id)
     lse, xs = fused_ctc_head(eouts, w, b, z)
     lp_path = (xs - lse[:, :, None]).transpose(0, 1)  # (T, B, S) view, read in place
-    return _nll_from_path(lp_path, allow2f, initf, finalf, xlens).sum() / eouts.shape[0]
+    return _nll_from_path(lp_path, allow2f, initf, finalf, xlens).sum() / global_rows(eouts.shape[0])
 
 
 # ---------------------------------------------------------------------------

@@ -28,10 +28,10 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from emoasr_tpu_torch.ops.lstm_scan import lstm_scan_fused
+from emoasr_tpu_torch.parallel.mesh import dropout
 
 _PALLAS_MIN_STEPS = 8  # the JAX package's threshold for the fused kernel
 
@@ -152,7 +152,7 @@ class StackedLSTM(nn.ModuleList):
             h, (hn, cn) = layer(h, st)
             new_states.append(torch.stack([hn, cn]))
             if li < n - 1:
-                h = F.dropout(h, self.dropout_rate, self.training)
+                h = dropout(h, self.dropout_rate, self.training)
         return h, torch.stack(new_states)
 
 
@@ -182,5 +182,5 @@ class MultiLayerLSTM(nn.Module):
             h, (hn, cn) = _run(self, f"_l{k}", h, st)
             new_states.append(torch.stack([hn, cn]))
             if k < self.num_layers - 1:
-                h = F.dropout(h, self.dropout_rate, self.training)
+                h = dropout(h, self.dropout_rate, self.training)
         return h, torch.stack(new_states)

@@ -54,6 +54,7 @@ from typing import Tuple
 import torch
 
 from emoasr_tpu_torch.ops.common import LOG_0, flip_by_length
+from emoasr_tpu_torch.parallel.mesh import batch_mean
 from emoasr_tpu_torch.search.ctc_prefix_score import log_linear_scan
 
 TIME_CHUNK = 32  # frames of the joint output held at once (the JAX package's)
@@ -98,7 +99,7 @@ def rnnt_alpha_rowscan(
 
 def _reduce(nll: torch.Tensor, reduction: str) -> torch.Tensor:
     if reduction == "mean":
-        return nll.mean()
+        return batch_mean(nll)
     if reduction == "sum":
         return nll.sum()
     return nll

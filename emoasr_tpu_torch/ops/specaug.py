@@ -15,7 +15,7 @@ by the same modulo construction).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -56,14 +56,19 @@ def draw_masks(
     num_masks_time: int = 2,
     max_mask_time_ratio: Optional[float] = None,
     num_masks_time_ratio: Optional[float] = None,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> MaskDraws:
-    """Draw every sample's mask parameters on `xlens`'s device."""
+    """Draw every sample's mask parameters on `xlens`'s device.  `rows =
+    (first, total)`: the B samples are rows first.. of a batch of `total`
+    (a rank's share, `parallel/mesh.py::rows_block`); the whole batch's
+    bits are drawn and the rows' kept."""
     dev = xlens.device
     B = xlens.shape[0]
     xlens = xlens.long()
+    first, total = rows or (0, B)
 
     def bits(high: int) -> torch.Tensor:
-        return torch.randint(0, high, (B, MAX_MASKS), generator=generator, device=dev)
+        return torch.randint(0, high, (total, MAX_MASKS), generator=generator, device=dev)[first:first + B]
 
     fw = bits(max(max_mask_freq, 1))
     fs = bits(2 ** 30) % torch.clamp(num_freq - fw, min=1)
@@ -112,10 +117,12 @@ def spec_augment(
     max_mask_time_ratio: Optional[float] = None,
     num_masks_time_ratio: Optional[float] = None,
     replace_with_zero: bool = True,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
-    """Masked copy of xs (B, T, F).  Time masks never start beyond xlens."""
+    """Masked copy of xs (B, T, F).  Time masks never start beyond xlens.
+    `rows` as in `draw_masks`."""
     draws = draw_masks(
         generator, xlens, xs.shape[2], max_mask_freq, num_masks_freq, max_mask_time,
-        num_masks_time, max_mask_time_ratio, num_masks_time_ratio,
+        num_masks_time, max_mask_time_ratio, num_masks_time_ratio, rows,
     )
     return apply_masks(xs, xlens, draws, replace_with_zero)

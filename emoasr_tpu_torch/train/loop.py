@@ -9,8 +9,18 @@ Usage: `python -m emoasr_tpu_torch.train.loop -conf exp.yaml [--resume] [--cpu]`
 
 It runs on the GPU unless `--cpu` is given.  The yaml's `compute_dtype`
 picks the precision (`bfloat16`: the forward in bf16 on float32 masters,
-`train/step.py`); checkpoints hold the float32 masters either way.  A profiler switch and
-multi-device training are not ported yet (ROADMAP.md).
+`train/step.py`); checkpoints hold the float32 masters either way.
+
+Started by `torchrun` (`python -m torch.distributed.run --standalone
+--nproc_per_node N -m emoasr_tpu_torch.train.loop -conf exp.yaml [--cpu]`)
+it trains on the mesh of the yaml's `mesh_shape` / `mesh_axes` over the N
+ranks (`parallel/mesh.py`; JAX `loop.py:176`): each rank builds the model
+from the one seed, keeps its tensor-parallel shares
+(`parallel/tensor.py`), takes its rows of every batch and draws what one
+process draws for them; rank 0 alone logs, validates and writes the
+checkpoints, in the single-process format.  A bucket batch that the data
+axis does not divide raises, as the JAX loop's `device_put` does.  A
+profiler switch is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -22,7 +32,7 @@ import os
 import queue
 import threading
 import time
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,6 +43,9 @@ from emoasr_tpu_torch.eval.decode import build_decode_fn
 from emoasr_tpu_torch.eval.wer import compute_wers
 from emoasr_tpu_torch.models.asr import ASR
 from emoasr_tpu_torch.models.layers import set_dropout_generator
+from emoasr_tpu_torch.models.lm.lm import LM, load_lm_state_dict
+from emoasr_tpu_torch.parallel import mesh as pmesh
+from emoasr_tpu_torch.parallel.tensor import prepare_model_
 from emoasr_tpu_torch.train import checkpoint as ckpt
 from emoasr_tpu_torch.train.optim import build_optimizer
 from emoasr_tpu_torch.train.step import TrainState, make_train_step, preprocess
@@ -48,9 +61,11 @@ def array_only(batch: Dict) -> Dict:
     return {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
 
 
-def prefetch_to_device(batch_iter, device: torch.device, depth: int = 3) -> Iterator[Dict]:
+def prefetch_to_device(batch_iter, device: torch.device, depth: int = 3,
+                       mesh: Optional[pmesh.Mesh] = None) -> Iterator[Dict]:
     """Producer-thread pipeline: collate and the host-to-device copy run
-    ahead of the training step.
+    ahead of the training step.  On a `mesh` only this rank's rows of each
+    batch are copied (`parallel/mesh.py::shard_batch`).
 
     The reference gets this from DataLoader(num_workers=2)
     (`asr/train_asr.py:248-257`); here a thread collates (numpy and file
@@ -73,7 +88,7 @@ def prefetch_to_device(batch_iter, device: torch.device, depth: int = 3) -> Iter
         return False
 
     def to_device(batch: Dict):
-        host = {k: torch.from_numpy(v) for k, v in array_only(batch).items()}
+        host = {k: torch.from_numpy(v) for k, v in pmesh.shard_batch(mesh, array_only(batch)).items()}
         if not on_card:
             return host, None, None
         host = {k: v.pin_memory() for k, v in host.items()}
@@ -164,10 +179,19 @@ def train(conf_path: str, resume: bool = False, cfg: Optional[ExpConfig] = None,
     saved on early stop), for bounded demo runs."""
     cfg = cfg or load_config(conf_path)
     device = resolve_device(device)
+    mesh = pmesh.mesh_from_env(cfg, device)  # None unless started by torchrun
+    if mesh is not None:
+        device = mesh.device
+    main = mesh is None or mesh.is_main
     set_matmul_precision(cfg.compute_dtype)
     log_dir, save_fmt, optim_save_fmt = get_log_save_paths(conf_path)
-    setup_logging(os.path.join(log_dir, "train.log"))
+    if main:
+        setup_logging(os.path.join(log_dir, "train.log"))
+    else:
+        setup_logging(None, logging.WARNING)
     logging.info(f"config: {conf_path} on {device}")
+    if mesh is not None:
+        logging.info(pmesh.describe(mesh))
 
     dataset = ASRDataset(cfg, cfg.train_path, phase="train")
     dev_dataset = ASRDataset(cfg, cfg.dev_path, phase="valid") if cfg.dev_path else None
@@ -178,21 +202,6 @@ def train(conf_path: str, resume: bool = False, cfg: Optional[ExpConfig] = None,
     if cfg.lr_schedule_type == "lindecay" or cfg.warmup_proportion is not None:
         num_total_steps = steps_per_epoch * cfg.num_epochs // cfg.accum_grad
 
-    # one seed for everything random: the initial weights and `nn.Dropout`
-    # draw from PyTorch's global generators; SpecAugment and the fused
-    # attention's dropout seeds from explicit generators
-    torch.manual_seed(cfg.seed)
-    model = ASR(cfg).to(device)
-    sa_gen = torch.Generator(device=device)
-    sa_gen.manual_seed(cfg.seed)
-    do_gen = torch.Generator()
-    do_gen.manual_seed(cfg.seed)
-    set_dropout_generator(model, do_gen)
-    num_params = sum(p.numel() for p in model.parameters())
-    logging.info(f"ASR model #parameters: {num_params}")
-
-    state = TrainState(model=model, optimizer=build_optimizer(cfg, model.parameters()))
-
     # resume / warm start (paths.py:81-129, train_asr.py:215-227)
     model_path, optim_path, start_epoch = cfg.model_path, cfg.optim_path, cfg.startep
     if resume:
@@ -200,12 +209,8 @@ def train(conf_path: str, resume: bool = False, cfg: Optional[ExpConfig] = None,
         model_path, optim_path, start_epoch = (
             r_model or model_path, r_optim or optim_path, r_ep or start_epoch
         )
-    if model_path:
-        ckpt.load_model(model_path, model)
-        logging.info(f"model loaded: {model_path}")
-    if optim_path:
-        ckpt.load_optim(optim_path, state)
-        logging.info(f"optim loaded: {optim_path}")
+    state, sa_gen = build_train_state(cfg, device, mesh, model_path, optim_path)
+    model = state.model
 
     train_step = make_train_step(cfg, num_total_steps)
 
@@ -216,7 +221,7 @@ def train(conf_path: str, resume: bool = False, cfg: Optional[ExpConfig] = None,
         accum: Dict[str, torch.Tensor] = {}
         n_acc = 0
         lr = 0.0
-        for i, batch in enumerate(prefetch_to_device(dataset.batches(batcher), device)):
+        for i, batch in enumerate(prefetch_to_device(dataset.batches(batcher), device, mesh=mesh)):
             if max_steps is not None and state.step >= max_steps:
                 stopped_early = True
                 break
@@ -250,20 +255,74 @@ def train(conf_path: str, resume: bool = False, cfg: Optional[ExpConfig] = None,
             f"skipped steps: {state.skipped}"
         )
 
-        # per-epoch greedy WER validation (train_asr.py:146-184)
+        # per-epoch greedy WER validation (train_asr.py:146-184), on rank 0
         if dev_dataset is not None:
-            wer = greedy_valid_wer(cfg, model, dev_dataset, vocab)
-            logging.info(f"epoch {epoch + 1} dev WER (greedy): {wer:.2f}")
+            valid_model = _whole_model(cfg, model, mesh)
+            if main:
+                wer = greedy_valid_wer(cfg, valid_model, dev_dataset, vocab)
+                logging.info(f"epoch {epoch + 1} dev WER (greedy): {wer:.2f}")
+            pmesh.barrier(mesh)
 
         if (epoch + 1) % cfg.save_step == 0 or stopped_early:
-            ckpt.save_model(save_fmt.format(epoch + 1), model)
-            ckpt.save_optim(optim_save_fmt.format(epoch + 1), state)
+            ckpt.save_checkpoint(mesh, save_fmt.format(epoch + 1), optim_save_fmt.format(epoch + 1), state)
             logging.info(f"checkpoint saved: {save_fmt.format(epoch + 1)}")
         if stopped_early:
             logging.info(f"stopping at max_steps={max_steps}")
             break
 
     return state
+
+
+def build_train_state(cfg: ExpConfig, device: torch.device, mesh: Optional[pmesh.Mesh] = None,
+                      weights: Union[str, Dict, None] = None, optim_path: Optional[str] = None,
+                      lm: bool = False) -> Tuple[TrainState, torch.Generator]:
+    """The trainers' set-up: the precision switches, then one seed for
+    everything random (the initial weights and `nn.Dropout` draw from
+    PyTorch's global generators, the fused attention's dropout from a
+    generator of its own), the ASR model (or the LM, `lm`) on `device`,
+    warm-started from `weights` (a `model.ep{N}` path or a state dict),
+    its tensor-parallel shares on `mesh`, and a `TrainState` whose
+    optimizer (AdamW for the LMs) takes them, its moments read from
+    `optim_path`.  Also returns SpecAugment's (ASR) or the sampling (LM)
+    generator, seeded alike on `device`.  (The CLIs set the switches
+    earlier, before they touch the data; the rank programs get them here.)"""
+    set_matmul_precision(cfg.compute_dtype)
+    torch.manual_seed(cfg.seed)
+    model = (LM(cfg) if lm else ASR(cfg)).to(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cfg.seed)
+    do_gen = torch.Generator()
+    do_gen.manual_seed(cfg.seed)
+    set_dropout_generator(model, do_gen)
+    logging.info(f"{'LM' if lm else 'ASR'} model #parameters: {sum(p.numel() for p in model.parameters())}")
+    if weights:  # a path ("" in a yaml: none) or a state dict
+        sd = ckpt.load_state_dict(weights) if isinstance(weights, str) else weights
+        load_lm_state_dict(model, sd) if lm else model.load_state_dict(sd)
+        if isinstance(weights, str):
+            logging.info(f"model loaded: {weights}")
+    prepare_model_(model, mesh)  # a rank's shares, before the optimizer takes them
+    state = TrainState(model=model, optimizer=build_optimizer(cfg, model, use_adamw=True) if lm
+                       else build_optimizer(cfg, model.parameters()))
+    if optim_path:
+        ckpt.load_optim(optim_path, state, mesh)
+        logging.info(f"optim loaded: {optim_path}")
+    return state, gen
+
+
+def _whole_model(cfg: ExpConfig, model: ASR, mesh: Optional[pmesh.Mesh]) -> Optional[ASR]:
+    """The model as rank 0 decodes it: itself, or under tensor parallelism
+    a whole copy of the gathered shares (a collective: every rank calls
+    this; None on the other ranks).  The copy is built without touching the
+    generators that the ranks share."""
+    if mesh is None or not getattr(model, "tp_plan", None):
+        return model
+    sd = ckpt.full_state_dict(model, mesh)
+    if not mesh.is_main:
+        return None
+    with torch.random.fork_rng(devices=[]):
+        whole = ASR(cfg)
+    whole.load_state_dict(sd)
+    return whole.to(next(model.parameters()).device)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -277,7 +336,10 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> TrainState:
     args = build_argparser().parse_args(argv)
-    return train(args.conf, resume=args.resume, device="cpu" if args.cpu else None)
+    try:
+        return train(args.conf, resume=args.resume, device="cpu" if args.cpu else None)
+    finally:
+        pmesh.shutdown()
 
 
 if __name__ == "__main__":

@@ -137,12 +137,27 @@ def finite_or_zero(grads):
     return [torch.where(finite, g, torch.zeros_like(g)) for g in grads], finite
 
 
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+def sharded_norm(grads, sharded, group) -> torch.Tensor:
+    """The global L2 norm of gradients of which those flagged in `sharded`
+    are a rank's shares over the model group `group` (tensor parallelism):
+    their squares are summed over the group, the whole ones' counted once."""
+    grads = list(grads)
+    sq = [torch.zeros((), dtype=torch.float32, device=grads[0].device) for _ in range(2)]
+    for g, part in zip(grads, sharded):
+        sq[int(bool(part))] = sq[int(bool(part))] + g.float().square().sum()
+    torch.distributed.all_reduce(sq[1], group=group)
+    return (sq[0] + sq[1]).sqrt()
+
+
+def clip_by_global_norm_(grads, max_norm: float, sharded=None, group=None) -> torch.Tensor:
     """Scale `grads` in place so that their global L2 norm is at most
     `max_norm` (g * max_norm / norm when the norm is not below it); returns
-    the norm before clipping."""
+    the norm before clipping.  `sharded`/`group`: the norm of `sharded_norm`."""
     grads = list(grads)
-    norm = torch.stack(torch._foreach_norm(grads)).norm()
+    if sharded is None:
+        norm = torch.stack(torch._foreach_norm(grads)).norm()
+    else:
+        norm = sharded_norm(grads, sharded, group)
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         g.mul_(scale)

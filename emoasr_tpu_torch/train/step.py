@@ -15,6 +15,15 @@ Under a half `compute_dtype` the step follows the JAX package's policy
 batch is cast; the forward runs on a bf16 copy of the float32 master
 parameters through `torch.func.functional_call`, so the gradients come back
 float32; accumulation, clip, NaN-skip and Adam stay float32 on the masters.
+
+On a mesh (`parallel/mesh.py`, the model laid out by
+`parallel/tensor.py::prepare_model_`) each rank takes its rows of the
+global batch; its loss is its share of the global loss (the losses divide
+by the global batch's counts), the micro-gradients are summed over the
+data group in one all-reduce before the finiteness test, so every rank
+skips the same micro-steps, the clip's norm counts each tensor-parallel
+share once, Adam runs on each rank's shares, and the logged loss terms are
+the global ones.  Without a mesh the step is the single-process one.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import torch
 
 from emoasr_tpu_torch.config import ExpConfig
 from emoasr_tpu_torch.ops.specaug import spec_augment
+from emoasr_tpu_torch.parallel import mesh as pmesh
 from emoasr_tpu_torch.train.optim import clip_by_global_norm_, grads_finite, make_lr_fn
 from emoasr_tpu_torch.utils.precision import (
     cast_batch_for_compute,
@@ -65,6 +75,7 @@ def preprocess(cfg: ExpConfig, xs: torch.Tensor, xlens: torch.Tensor,
             max_mask_time_ratio=cfg.max_mask_time_ratio,
             num_masks_time_ratio=cfg.num_masks_time_ratio,
             replace_with_zero=cfg.replace_with_zero,
+            rows=pmesh.rows_block(xs.shape[0]),
         )
     n = cfg.num_framestacks
     if n > 1:
@@ -110,6 +121,9 @@ def make_train_step(cfg: ExpConfig, num_total_steps: Optional[int] = None,
     the gradients on stays float32 (see the module note)."""
     lr_fn = make_lr_fn(cfg, num_total_steps)
     accum = max(int(cfg.accum_grad), 1)
+    mesh = pmesh.active()
+    if mesh is not None and mesh.world == 1:
+        mesh = None  # a world of one: the single-process step
 
     def step_fn(state: TrainState, batch: Dict, generator=None) -> Dict:
         model, params = state.model, state.params
@@ -117,7 +131,18 @@ def make_train_step(cfg: ExpConfig, num_total_steps: Optional[int] = None,
         loss, loss_dict = loss_fn(model, cfg, batch, generator, True)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
-        finite = bool(grads_finite(grads))
+        clip_kw = {}
+        if mesh is None:
+            finite = bool(grads_finite(grads))
+        else:
+            grads = [g.contiguous() for g in grads]  # summed in place
+            if mesh.data_size > 1:
+                pmesh.all_reduce_flat_(grads, mesh.data_group)
+            finite = _finite_on_every_rank(grads, mesh)
+            if mesh.model_size > 1:
+                plan = getattr(model, "tp_plan", {})
+                clip_kw = dict(sharded=[n in plan for n, p in model.named_parameters() if p.requires_grad],
+                               group=mesh.model_group)
 
         state.step += 1
         # the scheduler counts optimizer updates, one per accum_grad micro-steps
@@ -133,7 +158,7 @@ def make_train_step(cfg: ExpConfig, num_total_steps: Optional[int] = None,
                 if accum > 1:
                     torch._foreach_div_(state.acc_grads, float(accum))
                 if cfg.clip_grad_norm and cfg.clip_grad_norm > 0:
-                    clip_by_global_norm_(state.acc_grads, float(cfg.clip_grad_norm))
+                    clip_by_global_norm_(state.acc_grads, float(cfg.clip_grad_norm), **clip_kw)
                 for p, g in zip(params, state.acc_grads):
                     p.grad = g
                 for group in state.optimizer.param_groups:
@@ -146,12 +171,21 @@ def make_train_step(cfg: ExpConfig, num_total_steps: Optional[int] = None,
         else:
             state.skipped += 1
 
-        metrics = {k: v.detach() for k, v in loss_dict.items()}
+        metrics = pmesh.reduce_metrics(mesh, {k: v.detach() for k, v in loss_dict.items()})
         metrics["lr"] = lr
         metrics["grad_finite"] = finite
         return metrics
 
     return step_fn
+
+
+def _finite_on_every_rank(grads, mesh) -> bool:
+    """The summed micro-gradient is finite on every rank of the model group
+    (each holds other tensor-parallel shares)."""
+    bad = (~grads_finite(grads)).float()
+    if mesh.model_size > 1:
+        torch.distributed.all_reduce(bad, group=mesh.model_group)
+    return not bool(bad)
 
 
 def make_eval_loss_step(cfg: ExpConfig) -> Callable:

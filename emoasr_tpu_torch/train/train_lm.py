@@ -21,7 +21,10 @@ from a sampling generator that the step is given; all three are seeded from
 `seed`.
 
 Usage: `python -m emoasr_tpu_torch.train.train_lm -conf lm.yaml [--resume] [--cpu]`
-(on the GPU unless `--cpu` is given).
+(on the GPU unless `--cpu` is given).  Started by `torchrun` it trains on
+the yaml's mesh, as `train/loop.py` does (JAX `train_lm.py:95-107`): BERT's
+query/key/value and intermediate products column-parallel, its attention
+output and per-layer output row-parallel (`parallel/tensor.py`).
 """
 
 from __future__ import annotations
@@ -37,11 +40,10 @@ import torch
 
 from emoasr_tpu_torch.config import ExpConfig, load_config
 from emoasr_tpu_torch.data.lm_dataset import LMDataset, P2WDataset
-from emoasr_tpu_torch.models.layers import set_dropout_generator
-from emoasr_tpu_torch.models.lm.lm import DISC_TYPES, LM, LM_TYPES, PHONE_TYPES, load_lm_state_dict
+from emoasr_tpu_torch.models.lm.lm import DISC_TYPES, LM, LM_TYPES, PHONE_TYPES
+from emoasr_tpu_torch.parallel import mesh as pmesh
 from emoasr_tpu_torch.train import checkpoint as ckpt
-from emoasr_tpu_torch.train.loop import prefetch_to_device
-from emoasr_tpu_torch.train.optim import build_optimizer
+from emoasr_tpu_torch.train.loop import build_train_state, prefetch_to_device
 from emoasr_tpu_torch.train.step import TrainState, make_train_step
 from emoasr_tpu_torch.utils.device import resolve_device, set_matmul_precision
 from emoasr_tpu_torch.utils.log import setup_logging
@@ -111,35 +113,30 @@ def train(conf_path: str, resume: bool = False, cfg: Optional[ExpConfig] = None,
     cfg = cfg or load_config(conf_path)
     check_lm_type(cfg)
     device = resolve_device(device)
+    mesh = pmesh.mesh_from_env(cfg, device)  # None unless started by torchrun
+    if mesh is not None:
+        device = mesh.device
     set_matmul_precision(cfg.compute_dtype)
     log_dir, save_fmt, optim_save_fmt = get_log_save_paths(conf_path)
-    setup_logging(os.path.join(log_dir, "train.log"))
+    if mesh is None or mesh.is_main:
+        setup_logging(os.path.join(log_dir, "train.log"))
+    else:
+        setup_logging(None, logging.WARNING)
     logging.info(f"config: {conf_path} on {device}")
+    if mesh is not None:
+        logging.info(pmesh.describe(mesh))
 
     num_total_steps = num_total_steps_of(cfg)
     if num_total_steps is not None:
         logging.info(f"total steps: {num_total_steps}")
 
-    torch.manual_seed(cfg.seed)  # the initial weights and `nn.Dropout`'s draws
-    model = LM(cfg).to(device)
-    sample_gen = torch.Generator(device=device)
-    sample_gen.manual_seed(cfg.seed)
-    do_gen = torch.Generator()
-    do_gen.manual_seed(cfg.seed)
-    set_dropout_generator(model, do_gen)  # a P2W phone encoder's fused attention
-    logging.info(f"LM model #parameters: {sum(p.numel() for p in model.parameters())}")
-    state = TrainState(model=model, optimizer=build_optimizer(cfg, model, use_adamw=True))
-
     model_path, optim_path, start_epoch = cfg.model_path, cfg.optim_path, cfg.startep
     if resume:
         r_model, r_optim, r_ep = get_resume_paths(conf_path)
         model_path, optim_path, start_epoch = r_model or model_path, r_optim or optim_path, r_ep or start_epoch
-    if model_path:
-        load_lm_state_dict(model, ckpt.load_state_dict(model_path))
-        logging.info(f"model loaded: {model_path}")
-    if optim_path:
-        ckpt.load_optim(optim_path, state)
-        logging.info(f"optim loaded: {optim_path}")
+    # the sampling generator: ELECTRA's replacements; a P2W phone encoder's
+    # fused attention draws from the model's dropout generator
+    state, sample_gen = build_train_state(cfg, device, mesh, model_path, optim_path, lm=True)
 
     step_fn = make_lm_train_step(cfg, num_total_steps)
     for epoch in range(start_epoch, cfg.num_epochs):
@@ -148,7 +145,7 @@ def train(conf_path: str, resume: bool = False, cfg: Optional[ExpConfig] = None,
         accum: Dict[str, torch.Tensor] = {}
         for path in _train_files(cfg, epoch):
             dataset = make_dataset(cfg, path, "train", cfg.seed + epoch)
-            for batch in prefetch_to_device(dataset.batches(seed=cfg.seed + epoch), device):
+            for batch in prefetch_to_device(dataset.batches(seed=cfg.seed + epoch), device, mesh=mesh):
                 metrics = step_fn(state, batch, sample_gen)
                 lr = metrics.pop("lr")
                 metrics.pop("grad_finite")
@@ -162,8 +159,7 @@ def train(conf_path: str, resume: bool = False, cfg: Optional[ExpConfig] = None,
         logging.info(f"epoch {epoch + 1} done in {time.time() - t0:.1f}s "
                      f"({n_steps} steps, skipped {state.skipped})")
         if (epoch + 1) % cfg.save_step == 0:
-            ckpt.save_model(save_fmt.format(epoch + 1), model)
-            ckpt.save_optim(optim_save_fmt.format(epoch + 1), state)
+            ckpt.save_checkpoint(mesh, save_fmt.format(epoch + 1), optim_save_fmt.format(epoch + 1), state)
             logging.info(f"checkpoint saved: {save_fmt.format(epoch + 1)}")
     return state
 
@@ -178,7 +174,10 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> TrainState:
     args = build_argparser().parse_args(argv)
-    return train(args.conf, resume=args.resume, device="cpu" if args.cpu else None)
+    try:
+        return train(args.conf, resume=args.resume, device="cpu" if args.cpu else None)
+    finally:
+        pmesh.shutdown()
 
 
 if __name__ == "__main__":

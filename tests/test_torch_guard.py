@@ -181,6 +181,49 @@ def test_entry_points_raise_without_cuda(tmp_path):
         correct.main(["-conf", str(conf), "-ep", "1", "--lm_conf", str(tmp_path / "pbert.yaml"), "--lm_ep", "1"])
 
 
+def test_parallel_entry_points_raise_without_cuda(tmp_path, monkeypatch):
+    """The eval CLI's `--dp`, the trainers started by torchrun and the rank
+    programs of `parallel/ranks.py` (in the calling process and as a rank
+    of a launch) run on the GPU unless `--cpu` / `device="cpu"` is given:
+    here they raise before they join a process group or write anything; a
+    rank that shares a card over NCCL is refused by name."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from emoasr_tpu_torch.eval import test_asr
+    from emoasr_tpu_torch.parallel import mesh, ranks
+    from emoasr_tpu_torch.train import loop, train_lm
+
+    conf = tmp_path / "exp.yaml"
+    conf.write_text("feat_dim: 20\n")
+    lm_conf = tmp_path / "bert.yaml"
+    lm_conf.write_text("lm_type: bert\nvocab_size: 10\n")
+    for env in ({}, {"WORLD_SIZE": "2", "RANK": "0", "LOCAL_RANK": "0"}):
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            test_asr.main(["-conf", str(conf), "-ep", "1", "--dp"])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            loop.main(["-conf", str(conf)])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train_lm.main(["-conf", str(lm_conf)])
+    for program in (ranks.train_steps, ranks.decode, ranks.encode):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            program(None, conf={}, batches=[]) if program is ranks.train_steps else program(
+                None, conf={}, state_dict={}, xs=None, xlens=None)
+    work = tmp_path / "ranks"
+    work.mkdir()
+    torch.save([dict(program="decode", mesh_shape=(1,), mesh_axes=("data",))], work / "jobs.pt")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ranks._main(str(work), 0, 1)
+    assert not torch.distributed.is_initialized() and mesh.active() is None
+    assert sorted(os.listdir(work)) == ["jobs.pt"]
+    assert not os.path.exists(tmp_path / "exp") and not os.path.exists(tmp_path / "bert")
+    with pytest.raises(RuntimeError, match="NCCL refuses two ranks on one device"):
+        mesh.pick_backend(torch.device("cuda"), None, local_world=2)
+    with pytest.raises(ValueError, match="the CPU runs gloo"):
+        mesh.pick_backend(torch.device("cpu"), "nccl")
+
+
 def test_rnn_las_and_prep_entry_points_raise_without_cuda(tmp_path):
     """The LAS and RNN-encoder models' decode functions, greedy and beam,
     and the prep CLI's fbank stage run on the GPU unless asked for the CPU;

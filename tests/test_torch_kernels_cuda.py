@@ -379,7 +379,7 @@ def test_attention_geometry_matches_the_kernel(cuda_dev):
     with pytest.raises(RuntimeError):  # no scratch for the planes
         attention.KERNEL.launch("emo_attention_bwd_f32", *[x.data_ptr()] * 5, lens.data_ptr(), stats.data_ptr(),
                                 *[x.clone().data_ptr() for _ in range(3)], stats.clone().data_ptr(), None, None, 0,
-                                None, 1, 8, 1, 16, 0.25, 0, 0, 0, 1.0, torch.cuda.current_stream().cuda_stream)
+                                None, 1, 8, 1, 16, 0.25, 0, 0, 0, 1.0, 1, 0, torch.cuda.current_stream().cuda_stream)
 
 
 def test_ctc_lattice_kernels_match_plain(cuda_dev):
