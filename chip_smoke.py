@@ -39,10 +39,21 @@ Phases (any failed check raises, so the script exits non-zero):
    W = 20 launch equal a W = 16 launch bit for bit, in both dtypes; K8 at
    the RNN LM's three bucket shapes (`LSTM_RNNLM_CASES`) and the RNN
    encoder's (`LSTM_RNN_ENCODER_CASES`), K3 at the LAS beam's classes.
+   The vocabulary split (`check_vocab_shards`): K1 on each rank's half of
+   L1's head (18, 399, 256) x (256, 5000 of 10000) with the path labels
+   shifted (about half outside the block: xs exactly 0 there), forward and
+   both gradients, twice bit-identical; K7's vocabulary-split launcher
+   with the column offset at (18, 399, 129), J = 512, on ranks 0 and 1 of
+   V = 1000, f32 and bf16, against its plain version (0 exactly where
+   another rank owns the column), twice bit-identical, the two ranks
+   combined against the whole launch; K7 without the offset bit-identical
+   to the source before it (K7_WHOLE_SHA256).
 4. Training at the full width of the L1 CTC(Transformer) model (12 x 256,
    4 heads, FF 2048, V = 10000, SpecAugment and dropout on,
    `enc_fused_attn: true`, random initial weights from `--seed`): one epoch
-   of 11 micro-steps over the five L1 buckets through the port's train CLI.
+   of 13 micro-steps over the five L1 buckets through the port's train CLI
+   with `--profile` (its trace of batches 8-12 names K1's, K2's and K4's
+   kernels).
    Finite losses, no skipped step, the noam LR, changed weights, and the
    launch counts of every training kernel are checked; then one micro-step's
    loss and gradients on the card are held against the CPU's plain path,
@@ -225,7 +236,18 @@ Phases (any failed check raises, so the script exits non-zero):
    eval CLI with `--dp` on two ranks (gloo) over phase 6's corpus with beam
    8: its rows against phase 6's TSV (at least HYP_SHARE equal) and one
    batch's encoder output split over the ranks against one process
-   (PAR_ENC_TOL).
+   (PAR_ENC_TOL).  Then the vocabulary split (slice 8c), at the shipped
+   configs' full width on `(1, 2)` over gloo through the rank programs,
+   each against the same job on one rank (a world of one): one micro-step
+   of L3-1 (label smoothing, the aux CTC: K1 on 5000 columns a rank;
+   it writes `model.ep1` on the mesh, which a one-process port model loads
+   with the one-rank run's eval loss) and of L4 (K7's split launcher once a
+   rank), one step of the RNN LM and of BERT: the loss (STEP_TOL), the
+   summed micro-gradient (PAR_GRAD_TOL), the same loss terms on both ranks,
+   half of every vocabulary table and head a rank, and each rank's peak
+   device memory beside the one-rank run's; and the eval CLI with
+   `--profile` over phase 6's corpus (its trace names K3's and K4's
+   kernels).
 30. Every kernel timed at the largest bucket beside its plain version and
    one library call (for K5 and K6 the dense route), the bf16 launchers in
    bf16 (bounds at the bf16 rate, library calls in bf16; an f32 launcher
@@ -238,7 +260,9 @@ Phases (any failed check raises, so the script exits non-zero):
    at the RNN LM's three bucket shapes beside cuDNN, K4 at the phone
    encoder's largest bucket in both dtypes beside SDPA, K3 at make_label's
    class beside torch.topk (its own row), K8 at the RNN encoder's largest
-   bucket beside cuDNN's one-direction `nn.LSTM(256, 256)`; one
+   bucket beside cuDNN's one-direction `nn.LSTM(256, 256)`, K7's
+   vocabulary-split launcher on a rank's 500 of L4's 1000 columns beside
+   the chunked route on the same block (its own row), K1 at V = 5000; one
    JSON line describing each kernel, the `nvidia-smi` line, and last the
    `{"ok": true, "device": ...}` line.
 
@@ -914,16 +938,25 @@ HEAD_SWEEP_V = (37, 1000, 10000, 10872)
 HEAD_SWEEP_H = (144, 256, 512, 600)
 
 
-def check_head_case(dev, gen, name: str, shape: tuple, dtype, transposed: bool = True) -> dict:
+def check_head_case(dev, gen, name: str, shape: tuple, dtype, transposed: bool = True, block=None) -> dict:
     """K1 against `ctc_head_plain` at one shape (B, T, H, V, U) in `dtype`,
     both cotangents, w as a linear layer's `.t()` (`transposed`) or as a
     contiguous (H, V); the kernels run twice and must give bit-identical
-    outputs.  Largest errors by kernel."""
+    outputs.  `block=(r, m)`: rank r's V / m columns of a model axis of m,
+    with the whole vocabulary's path labels shifted by the block's first
+    column, as `fused_ctc_head_shard` launches it (a label outside the block
+    selects nothing: its xs is exactly 0).  Largest errors by kernel."""
     from emoasr_tpu_torch.ops.ctc_head import ctc_head_plain, fused_ctc_head
 
     e, weight, bias, z, g_lse, g_xs, valid = head_case(dev, gen, *shape)
     e, weight, bias = e.to(dtype), weight.to(dtype), bias.to(dtype)
-    groups = _vocab_groups(shape[3], z)
+    V = shape[3]
+    if block is not None:
+        per = V // block[1]
+        v0 = block[0] * per
+        weight, bias, z, V = weight[v0:v0 + per], bias[v0:v0 + per], z - v0, per
+    outside = (z < 0) | (z >= V)
+    groups = _vocab_groups(V, z[~outside])
     worst = {"fwd": 0.0, "grad_e": 0.0, "grad_w": 0.0, "grad_w_rel": 0.0}
     col = 0 if transposed else 1
     for cot, g_lse_ in (("independent cotangents", g_lse), ("g_lse = -sum g_xs", -g_xs.sum(-1))):
@@ -939,6 +972,8 @@ def check_head_case(dev, gen, name: str, shape: tuple, dtype, transposed: bool =
         require(all(torch.equal(a, c) for a, c in zip(res[0], res[1])),
                 f"{tag} two launches on the same inputs differ")
         require(res[0][0].dtype == res[0][1].dtype == torch.float32, f"{tag} lse / xs are not float32")
+        require(not res[0][1].masked_select(outside[:, None, :].expand_as(res[0][1])).any(),
+                f"{tag} xs of a label outside the columns is not exactly 0")
         fwd = [_require_close(f"{tag} {what}", a, c, *HEAD_TOL) for what, a, c in zip(("lse", "xs"), res[0], res[2])]
         if dtype == torch.float32:
             e_e = _require_close(f"{tag} d e", res[0][2], res[2][2], *HEAD_TOL)
@@ -2459,6 +2494,11 @@ def launch_counts() -> dict:
         "decoder_step_bf16": decoder_step.KERNEL.counts["emo_decoder_step_bf16"],
         "decoder_step_indirect_bf16": decoder_step.KERNEL_INDIRECT.counts["emo_decoder_step_indirect_bf16"],
         "lm_step_indirect_bf16": lm_step.KERNEL.counts["emo_lm_step_indirect_bf16"],
+        # the vocabulary split: K7's launcher with the column offset; K1 at V = 5000 is its usual
+        # launcher, counted on phase 29's (1, 2) rank programs (`vocab_phase_finish`)
+        "rnnt_joint_shard": rnnt_joint.KERNEL.counts["emo_rnnt_joint_shard_f32"],
+        "rnnt_joint_shard_bf16": rnnt_joint.KERNEL.counts["emo_rnnt_joint_shard_bf16"],
+        "ctc_head_fwd_v5000": 0, "ctc_head_grad_e_v5000": 0, "ctc_head_grad_w_v5000": 0,
     }
     return Launches(counts, topk_shapes=dict(topk.SHAPE_LAUNCHES))
 
@@ -2553,12 +2593,14 @@ def read_train_log(conf_path: str):
 
 
 def train_full_width(args, root: str, card: str, compute_dtype: str = "float32",
-                     per_bucket=(2, 2, 2, 2, 3)) -> dict:
+                     per_bucket=(2, 2, 2, 2, 3), profile: bool = False) -> dict:
     """Train the L1 model at full width through the port's train CLI:
     SpecAugment and dropout on, one epoch over all five buckets (by
     default 11 micro-steps: two optimizer updates at accum_grad 5 and one
     open micro-step), in `compute_dtype` (bfloat16: the forward on a bf16
-    copy of the float32 masters, K1 and K4 through their bf16 launchers)."""
+    copy of the float32 masters, K1 and K4 through their bf16 launchers).
+    `profile`: with `--profile` (batches 8-12 traced; the trace must name
+    K1's, K2's and K4's kernels)."""
     import yaml
 
     from emoasr_tpu_torch.config import load_config
@@ -2591,13 +2633,20 @@ def train_full_width(args, root: str, card: str, compute_dtype: str = "float32",
             "the L1 config is not at full width with SpecAugment and dropout on")
     n_steps, n_utts = sum(per_bucket), len(lengths)
 
+    prof = os.path.join(root, "train_trace")
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state = loop.main(["-conf", conf_path])
+    state = loop.main(["-conf", conf_path] + (["--profile", prof] if profile else []))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = launch_counts()
+    traced = None
+    if profile:
+        traced = require_traced(os.path.join(prof, "train_steps.pt.trace.json"), "the train CLI's --profile",
+                                {"K1": "ctc_head_fwd_kernel", "K2": "ctc_alpha_kernel", "K4 fwd": "fwd_f32",
+                                 "K4 bwd": "bwd_dq"})
+        print(f"  --profile: batches 8-12 of the epoch traced, kernel events {traced}")
 
     losses, lrs, epoch_s = read_train_log(conf_path)
     require(state.step == n_steps and len(losses) == n_steps,
@@ -2615,7 +2664,7 @@ def train_full_width(args, root: str, card: str, compute_dtype: str = "float32",
             "attention_fwd": cfg.enc_num_layers * n_steps, "attention_bwd": cfg.enc_num_layers * n_steps,
             "topk": 0, "attention_bias_fwd": 0, "attention_bias_bwd": 0, "decoder_step": 0,
             "decoder_step_indirect": 0, "lm_step_indirect": 0, "rnnt_joint": 0, "lstm_fwd": 0, "lstm_bwd": 0,
-            **{k: 0 for k in BF16_KEYS}}
+            **{k: 0 for k in BF16_KEYS}, **{k: 0 for k in SHARD_KEYS}}
     if half:  # the same kernels, launched through their bf16 launchers
         for k in ("ctc_head_fwd", "ctc_head_grad_e", "ctc_head_grad_w", "attention_fwd", "attention_bwd"):
             want[f"{k}_bf16"], want[k] = want[k], 0
@@ -2642,7 +2691,7 @@ def train_full_width(args, root: str, card: str, compute_dtype: str = "float32",
     return {"conf_path": conf_path, "cfg": cfg, "ckpt": ckpt, "test_tsv": test_tsv, "train_tsv": train_tsv,
             "wav_s": wav_s, "launches": launches, "seconds": dt, "epoch_seconds": epoch,
             "micro_steps": n_steps, "micro_steps_per_s": n_steps / epoch, "utt_per_s": n_utts / epoch,
-            "losses": losses, "buckets": buckets}
+            "losses": losses, "buckets": buckets, "trace_kernels": traced}
 
 
 def _require_f32_masters(state, checkpoint: dict) -> None:
@@ -6452,6 +6501,12 @@ KERNEL_ROWS = (
     ("decoder_step_indirect_bf16", "emoasr_tpu_torch/csrc/decoder_step.cu",
      "emoasr_tpu/ops/decoder_step_pallas.py:347"),
     ("lm_step_indirect_bf16", "emoasr_tpu_torch/csrc/lm_step.cu", "emoasr_tpu/ops/lm_step_pallas.py:85"),
+    # the vocabulary split (phase 29's (1, 2) runs): K7's launcher with the column offset, and K1 on
+    # a rank's 5000 of L1's and L3-1's 10000 columns
+    ("rnnt_joint_shard", "emoasr_tpu_torch/csrc/rnnt_joint.cu", "emoasr_tpu/ops/rnnt_pallas.py:51"),
+    ("ctc_head_fwd_v5000", "emoasr_tpu_torch/csrc/ctc_head.cu", "emoasr_tpu/ops/ctc_head_pallas.py:48"),
+    ("ctc_head_grad_e_v5000", "emoasr_tpu_torch/csrc/ctc_head.cu", "emoasr_tpu/ops/ctc_head_pallas.py:100"),
+    ("ctc_head_grad_w_v5000", "emoasr_tpu_torch/csrc/ctc_head.cu", "emoasr_tpu/ops/ctc_head_pallas.py:144"),
 )
 
 # the same launchers at shapes no main path of this script runs: the widths
@@ -6477,6 +6532,8 @@ WIDE_ROWS = (
     ("decoder_step_indirect_w33_bf16", "emoasr_tpu_torch/csrc/decoder_step.cu",
      "emoasr_tpu/ops/decoder_step_pallas.py:347"),
     ("lm_step_indirect_w33_bf16", "emoasr_tpu_torch/csrc/lm_step.cu", "emoasr_tpu/ops/lm_step_pallas.py:85"),
+    # K7's launcher with the column offset in bf16 (no bf16 run splits the vocabulary)
+    ("rnnt_joint_shard_bf16", "emoasr_tpu_torch/csrc/rnnt_joint.cu", "emoasr_tpu/ops/rnnt_pallas.py:51"),
 )
 
 
@@ -6740,6 +6797,323 @@ def parallel_phase(args, root: str, tr: dict, dev, card: str) -> dict:
             "launches": Launches({**_zero_launches(), **counts}, topk_shapes={})}
 
 
+# ------------------------------------------------ slice 8c: the vocabulary split
+
+# K7's whole-vocabulary launch (no column offset) on `k7_digest_inputs`, the
+# SHA-256 of its outputs' bytes (lp_blank, then lp_label) by dtype as the
+# source before the offset computes them: `python tools/k7_offset_bits.py
+# --csrc <that source's csrc/>` (NVIDIA H100 80GB HBM3, CUDA 12.x's nvcc)
+K7_WHOLE_SHA256 = {"float32": "683d53ff1407d5dbc95f3bc9259be3c1e83654a71bde91096ce78abcf3ac531d",
+                   "bfloat16": "9b1b72f54a135268ef60ef01178df50bc69393b7077fe8cd2fc51a0d0a06d35d"}
+# the vocabulary-split runs of phase 29: a model axis of 2 over gloo on the one card, the jobs
+# in two groups of two (a launch of ranks and a one-rank launch each, side by side)
+VOCAB_RANKS = 2
+VOCAB_GROUPS = (("l3_1", "rnn_lm"), ("l4", "bert_lm"))
+# the launchers of the vocabulary split, on the `kernels` line as rows of their own: K7 with the
+# column offset, and K1 at V = 5000 (a rank's half of L1's and L3-1's 10000 columns), whose
+# launches are counted on phase 29's (1, 2) runs
+SHARD_KEYS = ("rnnt_joint_shard", "rnnt_joint_shard_bf16", "ctc_head_fwd_v5000", "ctc_head_grad_e_v5000",
+              "ctc_head_grad_w_v5000")
+
+
+def k7_digest_inputs(dev, dtype):
+    """L4's largest bucket, (18, 399, 129), J = 512, V = 1000, from numpy's
+    generator (the same bits on every machine); w as `weight.t()`."""
+    rng = np.random.default_rng(19)
+    B, T, U1, J, V = 18, 399, 129, 512, 1000
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(dev, dtype)
+
+    h_enc, h_dec, weight, bias = normal(B, T, J), normal(B, U1, J), normal(V, J, scale=J ** -0.5), normal(V, scale=0.1)
+    labels = torch.from_numpy(rng.integers(1, V, (B, U1 - 1))).to(dev)
+    return h_enc, h_dec, weight.t(), bias, labels
+
+
+def k7_whole_digests(dev) -> dict:
+    """SHA-256 of K7's whole-vocabulary outputs on `k7_digest_inputs`, by dtype."""
+    import hashlib
+
+    from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        with torch.no_grad():
+            lpb, lpl = fused_joint_gather(*k7_digest_inputs(dev, dtype), 0)
+        h = hashlib.sha256(lpb.cpu().numpy().tobytes())
+        h.update(lpl.cpu().numpy().tobytes())
+        out[str(dtype).replace("torch.", "")] = h.hexdigest()
+    return out
+
+
+def check_rnnt_joint_shard(dev, gen) -> dict:
+    """K7's vocabulary-split launcher at L4's largest bucket, (18, 399,
+    129), J = 512, on ranks 0 and 1 of a model axis of 2 (500 of 1000
+    columns each, the blank on rank 0), in f32 and bf16, against
+    `rnnt_joint_plain(..., v0)`: the block's lse and the owned blank and
+    label logits (RNNT_JOINT_TOL; exactly 0 where the block does not own
+    the column), twice bit-identical; the two ranks' outputs combined as
+    `joint_gather_shard` combines them against the whole launch."""
+    from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather, joint_parts_shard, rnnt_joint_plain
+
+    h_enc, h_dec, weight, bias, labels = rnnt_joint_case(dev, gen, 18, 399, 129, 512, 1000)
+    per = 1000 // VOCAB_RANKS
+    worst = {}
+    for dtype, key in ((torch.float32, "rnnt_joint_shard"), (torch.bfloat16, "rnnt_joint_shard_bf16")):
+        he, hd, wt, b = (x.to(dtype) for x in (h_enc, h_dec, weight, bias))
+        parts, errs = [], []
+        for r in range(VOCAB_RANKS):
+            v0 = r * per
+            args = (he, hd, wt[v0:v0 + per].t(), b[v0:v0 + per], labels, 0, v0)
+            with torch.no_grad():
+                got, again, want = joint_parts_shard(*args), joint_parts_shard(*args), rnnt_joint_plain(*args)
+            torch.cuda.synchronize()
+            tag = f"rnnt joint {str(dtype).replace('torch.', '')} rank {r} of {VOCAB_RANKS} (v0 = {v0}, {per} columns)"
+            require(all(a.dtype == torch.float32 for a in got), f"{tag}: outputs are not float32")
+            require(all(torch.equal(a, c) for a, c in zip(got, again)), f"{tag}: two launches differ")
+            own = ((labels >= v0) & (labels < v0 + per))[:, None, :].expand_as(got[2])
+            require(not got[2].masked_select(~own).any() and (r == 0 or not got[1].any()),
+                    f"{tag}: a logit of a column another rank owns is not exactly 0")
+            errs += [_require_close(f"{tag} {what}", a, c, RNNT_JOINT_TOL, 0.0)
+                     for what, a, c in zip(("lse", "blank", "label"), got, want)]
+            parts.append(got)
+        lse = torch.logsumexp(torch.stack([p[0] for p in parts]), 0)
+        with torch.no_grad():
+            whole = fused_joint_gather(he, hd, wt.t(), b, labels, 0)
+        comb = (sum(p[1] for p in parts) - lse, sum(p[2] for p in parts) - lse[:, :, :-1])
+        errs += [_require_close(f"rnnt joint {dtype} two ranks combined vs the whole launch {what}", a, c,
+                                RNNT_JOINT_TOL, 0.0) for what, a, c in zip(("lp_blank", "lp_label"), comb, whole)]
+        worst[key] = max(errs)
+        print(f"  rnnt joint {dtype}, ranks 0 and 1 of {VOCAB_RANKS} (18,399,129) J=512 V={per} of 1000: lse, blank, "
+              f"label within {worst[key]:.2e} of rnnt_joint_plain with the offset and, combined, of the whole launch "
+              f"(tol {RNNT_JOINT_TOL}); not owned: exactly 0; twice, bit-identical")
+    return worst
+
+
+def check_vocab_shards(dev, gen) -> dict:
+    """Phase 3's checks of the vocabulary split: K1 on each rank's half of
+    L1's head, (18, 399, 256) x (256, 5000 of 10000), S = 257, about half the
+    path labels outside the block; K7 with the column offset
+    (`check_rnnt_joint_shard`); K7 without it bit-identical to the source
+    before the offset (K7_WHOLE_SHA256)."""
+    worst = {}
+    for r in range(VOCAB_RANKS):
+        worst = _merge_worst(worst, check_head_case(
+            dev, gen, f"rank {r} of {VOCAB_RANKS}, (18,399,256)x(256,5000 of 10000) S=257", (18, 399, 256, 10000, 128),
+            torch.float32, block=(r, VOCAB_RANKS)))
+    errs = {"ctc_head_fwd_v5000": worst["fwd"], "ctc_head_grad_e_v5000": worst["grad_e"],
+            "ctc_head_grad_w_v5000": worst["grad_w"]}
+    errs.update(check_rnnt_joint_shard(dev, gen))
+    got = k7_whole_digests(dev)
+    require(got == K7_WHOLE_SHA256, f"K7 without the offset: SHA-256 {got}, the source before it {K7_WHOLE_SHA256}")
+    print(f"  K7 without the offset (f32, bf16) at (18,399,129) J=512 V=1000: the outputs' SHA-256 equal to the "
+          f"source's before the offset ({got['float32'][:12]}..., {got['bfloat16'][:12]}...)")
+    return errs
+
+
+def trace_kernels(path: str) -> list:
+    """The names of the CUDA kernels in a Chrome trace of `torch.profiler`."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+
+
+def require_traced(path: str, what: str, kernels: dict) -> dict:
+    """`kernels`: {label: a substring of the kernel's name}; each named by
+    some kernel event of the trace at `path`.  Their event counts."""
+    require(os.path.exists(path), f"{what}: no trace at {path}")
+    names = trace_kernels(path)
+    counts = {label: sum(sub in n for n in names) for label, sub in kernels.items()}
+    require(all(counts.values()), f"{what}: the trace's {len(names)} kernel events name {counts}")
+    return counts
+
+
+def _lm_rows(cfg, tsv: str, rows: int):
+    """The first batch of `rows` rows and the longest bucket an LM dataset
+    makes of `tsv`, without shuffling."""
+    from emoasr_tpu_torch.data.lm_dataset import LMDataset
+
+    ds = LMDataset(cfg, tsv, phase="train", seed=cfg.seed)
+    batches = list(ds.batches(ds.make_batcher(shuffle=False)))
+    batch = max(batches, key=lambda b: b["ys_in"].shape[0] * b["ys_in"].shape[1])
+    return {k: torch.from_numpy(v[:rows]) for k, v in batch.items() if isinstance(v, np.ndarray)}
+
+
+def _asr_rows(cfg, tsv: str):
+    """One batch of the largest bucket of an ASR corpus, without shuffling."""
+    from emoasr_tpu_torch.data.asr_dataset import ASRDataset
+
+    ds = ASRDataset(cfg, tsv, phase="train")
+    batcher = ds.make_batcher(shuffle=False)
+    top = max(range(len(batcher.buckets)), key=lambda i: batcher.buckets[i].max_xlen)
+    bi, idx = next(b for b in batcher if b[0] == top)
+    batch = ds.collate(idx, batcher.buckets[bi].max_xlen, batcher.buckets[bi].max_ylen)
+    return {k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.int32 else v)
+            for k, v in batch.items() if isinstance(v, np.ndarray)}
+
+
+def vocab_phase_start(args, root: str, tr: dict, l3t: dict, l4: dict, lms: dict) -> dict:
+    """Start phase 29's vocabulary-split runs (after the rest of the
+    phase: beside its eight processes the card ran out of memory): one
+    micro-step of L3-1 and of L4 and one step of the RNN LM and BERT, each
+    at full width on `(1, VOCAB_RANKS)` over gloo through the rank
+    programs, and the same jobs on one rank (a world of one: the
+    one-process path) as the reference; the L3-1 job writes `model.ep1` on
+    the mesh.  Also the eval CLI with `--profile` over phase 6's corpus."""
+    import yaml
+
+    from emoasr_tpu_torch.parallel import ranks
+    from emoasr_tpu_torch.train.checkpoint import load_state_dict
+
+    sub = os.path.join(root, "vocab_parallel")
+    os.makedirs(sub)
+
+    def conf_of(path, **over):
+        with open(path) as f:
+            return dict(yaml.safe_load(f), **over)
+
+    l3_batch = _asr_rows(l3t["cfg"], l3t["train_tsv"])
+    jobs = {
+        "l3_1": dict(conf=conf_of(l3t["conf_path"], accum_grad=2), batches=[l3_batch],
+                     state_dict=load_state_dict(l3t["ckpt"]), eval_batch=l3_batch),
+        "l4": dict(conf=conf_of(l4["conf_path"], accum_grad=2), batches=[_asr_rows(l4["cfg"], l4["train_tsv"])],
+                   state_dict=load_state_dict(l4["ckpt"])),
+    }
+    for t in ("rnn", "bert"):
+        lm = lms[t]
+        jobs[f"{t}_lm"] = dict(conf=conf_of(lm["conf_path"], accum_grad=2), lm=True, num_total_steps=100,
+                               batches=[_lm_rows(lm["cfg"], os.path.join(lm["train_dir"], "a.tsv"), 90)],
+                               state_dict=load_state_dict(lm["ckpt"]))
+    save = os.path.join(sub, "l3_1_ckpt")
+    mesh = dict(mesh_shape=(1, VOCAB_RANKS), mesh_axes=("data", "model"), backend="gloo", device="cuda")
+    one = dict(mesh_shape=(1,), mesh_axes=("data",), backend="gloo", device="cuda")
+    split = {n: dict(program="train_steps", **mesh, **job, **({"save_dir": save} if n == "l3_1" else {}))
+             for n, job in jobs.items()}
+    ref = {n: dict(program="train_steps", **one, **job) for n, job in jobs.items()}
+    prof = os.path.join(sub, "eval_trace")
+    # two groups of jobs a launch, side by side: four rank processes and two one-rank ones
+    launches = [(group, ranks.Launch(VOCAB_RANKS, os.path.join(sub, f"ranks{g}"), [split[n] for n in group]),
+                 ranks.Launch(1, os.path.join(sub, f"one{g}"), [ref[n] for n in group]))
+                for g, group in enumerate(VOCAB_GROUPS)]
+    return {"names": list(jobs), "save": save, "prof": prof, "t0": time.perf_counter(), "cfgs": {
+                "l3_1": l3t["cfg"], "l4": l4["cfg"], "rnn_lm": lms["rnn"]["cfg"], "bert_lm": lms["bert"]["cfg"]},
+            "state_dict": jobs["l3_1"]["state_dict"], "eval_batch": l3_batch, "launches": launches,
+            "eval": _start(["-m", "emoasr_tpu_torch.eval.test_asr", "-conf", tr["conf_path"], "-ep", "1",
+                            "--beam_width", "8", "--profile", prof, "--save_dir", "profile"],
+                           os.path.join(sub, "eval_profile.log"))}
+
+
+def vocab_phase_finish(vp: dict, dev, card: str) -> dict:
+    """Phase 29's vocabulary-split checks: each job's loss (STEP_TOL) and
+    summed micro-gradient (PAR_GRAD_TOL) against the one-rank run, the same
+    loss terms on both ranks, each rank holding half of every vocabulary
+    table and head, K7's vocabulary-split launcher (L4) and K1 (L3-1's aux
+    CTC) once a rank; the mesh's `model.ep1` gathered back into the weights
+    it started from, loaded by a one-process port model, whose eval loss is
+    the mesh's; each rank's peak device memory beside the one-process
+    run's; the eval CLI's trace naming K3's and K4's kernels."""
+    from emoasr_tpu_torch.models.asr import ASR
+    from emoasr_tpu_torch.train.checkpoint import load_state_dict
+    from emoasr_tpu_torch.train.step import compute_loss
+
+    res, ref = {}, {}  # by job: every rank's results, the one-rank run's
+    for group, split, one in vp["launches"]:
+        got, want = split.wait(PAR_TIMEOUT), one.wait(PAR_TIMEOUT)
+        for j, name in enumerate(group):
+            res[name], ref[name] = [got[r][j] for r in range(VOCAB_RANKS)], want[0][j]
+    _finish(vp["eval"], "the eval CLI with --profile", time.time() + PAR_TIMEOUT)
+    gib = 2.0 ** 30
+    out, shard_launches, v5000 = {}, 0, {"fwd": 0, "grad_e": 0, "grad_w": 0}
+    heads = {"l3_1": ("decoder.embed.weight", "decoder.output.weight", "decoder.ctc.output.weight"),
+             "l4": ("decoder.embed.weight", "decoder.output.weight", "decoder.output.bias"),
+             "rnn_lm": ("lm.embed.weight", "lm.output.weight"),
+             "bert_lm": ("lm.bert.bert.embeddings.word_embeddings.weight",
+                         "lm.bert.bert.embeddings.position_embeddings.weight")}
+    for name in vp["names"]:
+        one, got = ref[name], res[name]
+        tag = f"{name} on (1, {VOCAB_RANKS})"
+        grads = _par_grads(tag, got[0], one)
+        require(all(g["metrics"] == got[0]["metrics"] for g in got), f"{tag}: the ranks' loss terms differ")
+        for r, g in enumerate(got):
+            require(all(g["shapes"][k][0] * VOCAB_RANKS == one["shapes"][k][0] for k in heads[name]),
+                    f"{tag} rank {r}: {[(k, g['shapes'][k]) for k in heads[name]]} is not its share of "
+                    f"{[one['shapes'][k] for k in heads[name]]}")
+            n = g["launches"]
+            if name == "l4":
+                require(n["rnnt_joint"]["emo_rnnt_joint_shard_f32"] == 1 and n["rnnt_joint"]["emo_rnnt_joint_f32"] == 0
+                        and n["lstm_scan"]["emo_lstm_fwd_f32"] >= 1, f"{tag} rank {r}: launches {n}")
+                shard_launches += 1
+            if name == "l3_1":
+                require(n["ctc_head"]["emo_ctc_head_fwd_f32"] == 1, f"{tag} rank {r}: launches {n}")
+                for k in v5000:
+                    v5000[k] += n["ctc_head"][f"emo_ctc_head_{k}_f32"]
+        peaks = [g["peak_bytes"] / gib for g in got]
+        out[name] = {**grads, "peak_gib_ranks": peaks, "peak_gib_one": one["peak_bytes"] / gib}
+        print(f"  {tag} over gloo, one micro-step at full width: loss {grads['loss_total']} vs one process "
+              f"{one['metrics'][0]['loss_total']}; worst gradient {grads['worst_grad_rel_err']:.2e} of its largest entry "
+              f"beyond the floor (tol {PAR_GRAD_TOL}); the ranks' loss terms equal; half of each of {len(heads[name])} "
+              f"vocabulary tables and heads a rank; peak device memory {', '.join(f'{p:.2f}' for p in peaks)} GiB a "
+              f"rank vs {one['peak_bytes'] / gib:.2f} GiB in one process")
+    # the L3-1 mesh's model.ep1: the gathered shares are the weights it started from (no update
+    # yet); the BatchNorm statistics moved with the micro-step's batch
+    path = os.path.join(vp["save"], "model.ep1")
+    ck = load_state_dict(path)
+    cfg = vp["cfgs"]["l3_1"]
+    model = ASR(cfg)
+    params = [n for n, _ in model.named_parameters()]
+    stats = [k for k in ck if k.endswith(("running_mean", "running_var"))]
+    require(res["l3_1"][0]["roundtrip"] == 0.0 and ck.keys() == vp["state_dict"].keys()
+            and all(torch.equal(ck[k], vp["state_dict"][k]) for k in params) and stats
+            and all(bool(torch.isfinite(ck[k]).all()) and not torch.equal(ck[k], vp["state_dict"][k]) for k in stats),
+            "the (1, 2) L3-1 model.ep1: its parameters are not its starting weights, or its BatchNorm statistics "
+            "did not move")
+    model.load_state_dict(ck)
+    model = model.to(dev).eval()
+    with torch.no_grad():
+        _, loss = compute_loss(model, cfg, {k: v.to(dev) for k, v in vp["eval_batch"].items()}, None, False)
+    mesh_loss, one_loss = res["l3_1"][0]["eval_loss"]["loss_total"], ref["l3_1"]["eval_loss"]["loss_total"]
+    require(all(abs(x - one_loss) <= STEP_TOL["loss"] * abs(one_loss) for x in (mesh_loss, float(loss["loss_total"]))),
+            f"L3-1 eval loss: mesh {mesh_loss}, its model.ep1 in one process {float(loss['loss_total'])}, "
+            f"the one-rank run {one_loss}")
+    print(f"  the (1, {VOCAB_RANKS}) L3-1 model.ep1 (gathered shares): {len(params)} parameters its starting weights "
+          f"bit for bit, {len(stats)} BatchNorm statistics moved, read back onto the mesh exactly; loaded by a "
+          f"one-process port model: eval loss {float(loss['loss_total'])}, the mesh's {mesh_loss}, the one-rank "
+          f"run's {one_loss}")
+    traced = require_traced(os.path.join(vp["prof"], "decode_dataset.pt.trace.json"), "the eval CLI's --profile",
+                            {"K3": "topk_kernel", "K4": "fwd_f32"})
+    print(f"  the eval CLI with --profile (beam 8 over phase 6's corpus): kernel events K3 {traced['K3']}, "
+          f"K4 {traced['K4']}")
+    dt = time.perf_counter() - vp["t0"]
+    print(f"  phase 29's vocabulary-split runs: {dt:.1f} s from their start on {card}")
+    counts = {"rnnt_joint_shard": shard_launches, **{f"ctc_head_{k}_v5000": n for k, n in v5000.items()}}
+    return {**out, "eval_trace_kernels": traced, "seconds": dt, "l3_1_eval_loss": float(loss["loss_total"]),
+            "launches": Launches({**_zero_launches(), **counts}, topk_shapes={})}
+
+
+def time_rnnt_joint_shard(dev, gen, B: int, T: int, U1: int, J: int, V: int, dtype=torch.float32) -> dict:
+    """K7's vocabulary-split launcher on rank 1's half (V / 2 columns from
+    V / 2, the blank on the other rank) beside its plain version; the
+    library route is the chunked route's forward on the same block."""
+    from emoasr_tpu_torch.ops.rnnt import joint_parts_plain
+    from emoasr_tpu_torch.ops.rnnt_joint import joint_parts_shard, rnnt_joint_plain
+
+    h_enc, h_dec, weight, bias, labels = (x.to(dtype) if x.is_floating_point() else x
+                                          for x in rnnt_joint_case(dev, gen, B, T, U1, J, V))
+    per = V // VOCAB_RANKS
+    w, b = weight[per:2 * per].t(), bias[per:2 * per]
+    row = {}
+    with torch.no_grad():
+        for key, fn, iters in (("ms", lambda: joint_parts_shard(h_enc, h_dec, w, b, labels, 0, per), 10),
+                               ("plain_ms", lambda: rnnt_joint_plain(h_enc, h_dec, w, b, labels, 0, per), 3),
+                               ("library_ms", lambda: joint_parts_plain(h_enc, h_dec, w, b, labels - per, -per), 3)):
+            row[key] = cuda_time_ms(fn, iters=iters, warmup=1)
+    U, es = U1 - 1, h_enc.element_size()
+    row.update(_bound(es * (B * T * J + B * U1 * J + J * per + per) + 4 * (B * U + 2 * B * T * U1 + B * T * U),
+                      2.0 * B * T * U1 * J * per, dtype, 3 if dtype == torch.float32 else 0))
+    row["shape"] = f"h_enc ({B},{T},{J}), h_dec ({B},{U1},{J}), w ({J},{per} of {V}), {dtype}"
+    return {"rnnt_joint_shard" + ("" if dtype == torch.float32 else "_bf16"): row}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6818,14 +7192,17 @@ def main(argv=None) -> int:
     errs.update(check_rnnt_joint_wide(dev, gen))
     errs.update(check_rnnt_joint_edges(dev, gen))
     errs.update(check_lstm_wide(dev, gen))
+    print("  the vocabulary split: K1 on a rank's half of L1's head, K7 with the column offset, K7 without it")
+    errs.update(check_vocab_shards(dev, gen))
 
     scratch_root = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(scratch_root, exist_ok=True)
     root = tempfile.mkdtemp(dir=scratch_root)
     try:
         # 4. training at full width, then one micro-step against the CPU
-        phase("[4/30] main path: L1 CTC(Transformer) training through the train CLI")
-        tr = train_full_width(args, root, card)
+        phase("[4/30] main path: L1 CTC(Transformer) training through the train CLI, 13 micro-steps, "
+              "--profile over batches 8-12")
+        tr = train_full_width(args, root, card, per_bucket=(3, 3, 2, 2, 3), profile=True)
         n_layers = tr["cfg"].enc_num_layers
         step_check = check_micro_step(tr, dev, {
             "ctc_head_fwd": 1, "ctc_head_grad_e": 1, "ctc_head_grad_w": 1, "ctc_alpha": 1, "ctc_beta_grad": 1,
@@ -6996,8 +7373,14 @@ def main(argv=None) -> int:
 
         # 29. slice 8b: data and tensor parallelism
         phase("[29/30] main path: data and tensor parallelism: torchrun (NCCL, a world of one) of the train CLI, "
-              "and the train CLI on (2,) and (1, 2) over gloo on the one card, the eval CLI's --dp on two ranks")
+              "and the train CLI on (2,) and (1, 2) over gloo on the one card, the eval CLI's --dp on two ranks; "
+              "the vocabulary split: L3-1, L4, the RNN LM and BERT on (1, 2) against one rank; the eval CLI's "
+              "--profile")
+        t29 = time.perf_counter()
+        torch.cuda.empty_cache()  # the phase's processes share the card: return this process's cached blocks
         par = parallel_phase(args, root, tr, dev, card)
+        vocab = vocab_phase_finish(vocab_phase_start(args, root, tr, l3t, l4, lms), dev, card)
+        print(f"  phase 29 with the vocabulary-split runs: {time.perf_counter() - t29:.1f} s on {card}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     set_matmul_precision("float32")  # the bf16 entry points turned TF32 on for their float32 remainder
@@ -7053,6 +7436,12 @@ def main(argv=None) -> int:
         times["lm_step_indirect_w33" + sfx] = time_lm_step(dev, gen, B, 33, 256, 64, dt)["lm_step_indirect" + sfx]
         for k in ("decoder_step", "decoder_step_indirect", "lm_step_indirect"):
             errs[f"{k}_w33{sfx}"] = errs[f"{k}_wide{sfx}"]
+    # the vocabulary split: K7's launcher with the column offset on a rank's 500 of L4's 1000 columns
+    # (beside the whole-V K7 row and the chunked route on the same block), K1 at V = 5000
+    times.update(time_rnnt_joint_shard(dev, gen, l4_big.batch_size, l4_T, l4_big.max_ylen + 1, 512, 1000))
+    times.update(time_rnnt_joint_shard(dev, gen, l4_big.batch_size, l4_T, l4_big.max_ylen + 1, 512, 1000, bf))
+    for k, r in time_ctc_head(dev, gen, B, T2, 256, 5000, big.max_ylen).items():
+        times[f"{k}_v5000"] = r
     rnnlm_k8 = {}
     for (B_, T_, H_), _ in LSTM_RNNLM_CASES:  # the RNN LM's buckets, cuDNN's nn.LSTM(512, 512) beside
         r = time_lstm(dev, gen, B_, T_, H_, 512)
@@ -7102,7 +7491,7 @@ def main(argv=None) -> int:
         fa["launches"], ana["ctc_prob_launches"], ana["launches"], ana["overfit_launches"],
         las["train"]["launches"], las["overfit_launches"], *(r["launches"] for r in las["runs"].values()),
         ctc_rnn["train"]["launches"], *(r["launches"] for r in ctc_rnn["runs"].values()), front["launches"],
-        par["launches"]]
+        par["launches"], vocab["launches"]]
     ms = lambda x: "none" if x is None else f"{x:.4f}"
 
     def row_of(name, src, rep, launches):
@@ -7172,7 +7561,7 @@ def main(argv=None) -> int:
     wide = [row_of(name, src, rep, 0) for name, src, rep in WIDE_ROWS]
     print(json.dumps({
         "train": {k: tr[k] for k in ("micro_steps", "seconds", "epoch_seconds", "micro_steps_per_s",
-                                     "utt_per_s", "launches", "losses")},
+                                     "utt_per_s", "launches", "losses", "trace_kernels")},
         "micro_step": {**step_split, **step_check}, "overfit": {k: overfit[k] for k in ("wer", "seconds")},
         "decode": {
             f"beam{b}": {k: r[k] for k in ("seconds", "utt_per_s", "rtf", "launches")}
@@ -7230,6 +7619,7 @@ def main(argv=None) -> int:
                     "same_top1_card_vs_cpu": ctc_rnn["same_top1_card_vs_cpu"], "seconds": ctc_rnn["seconds"]},
         "frontend": {k: v for k, v in front.items() if k != "launches"},
         "parallel": {k: v for k, v in par.items() if k != "launches"},
+        "vocab_parallel": {k: v for k, v in vocab.items() if k != "launches"},
         "wide_widths": wide,
         "kernel_resources": resources,
         "card": smi, "total_seconds": time.perf_counter() - t_start,

@@ -16,6 +16,16 @@
 //   lp_label[b, t, u] = logits[labels[b, u]] - lse    (B, T, U), u < U only
 // A label outside [0, V) selects nothing: its logit counts as 0.
 //
+// Vocabulary-split launch (emo_rnnt_joint_shard_*; a model rank's block of
+// V columns from v0 of the whole vocabulary, parallel/vocab.py): w and bias
+// are the block, the blank and the labels are ids of the whole vocabulary
+// and select column id - v0 where that lies in [0, V), nothing elsewhere.
+// The kernel then writes, per cell, the block's float32 lse to lse_out and
+// the selected blank and label logits themselves (0 where the block does
+// not own the column) to lp_blank / lp_label; the wrapper combines the
+// ranks' blocks.  The arithmetic is the same: v0 = 0 without lse_out is
+// the whole-vocabulary launch, bit for bit.
+//
 // Types: he and hd share one type, float32 or bfloat16 (the wrapper casts
 // hd and w to he's, as the TPU kernel does); bias is f32; lse and both
 // outputs are f32.  bf16: z is formed in bf16 (the sum rounded, then the
@@ -236,7 +246,7 @@ __global__ void __launch_bounds__(Geo<E, BM>::kThreads)
 rnnt_joint_kernel(const E* __restrict__ he, const E* __restrict__ hd, const bf16* __restrict__ w,
                   size_t w_plane, int ldw, const float* __restrict__ bias, const int* __restrict__ labels,
                   float* __restrict__ lpb, float* __restrict__ lpl, int T, int U1, int J, int V, int blank,
-                  int stages, bool vec) {
+                  int v0, float* __restrict__ lse_out, int stages, bool vec) {
   using G = Geo<E, BM>;
   constexpr int TERMS = G::TERMS, MT = G::MT, NTHR = G::kThreads, kBK = G::BK, kLDW = G::LDW;
   constexpr int kStagePlane = G::kStagePlane;
@@ -286,7 +296,7 @@ rnnt_joint_kernel(const E* __restrict__ he, const E* __restrict__ hd, const bf16
   if (threadIdx.x < BM) blank_s[threadIdx.x] = label_s[threadIdx.x] = 0.f;
 
   // the label column of each of the thread's cells (rows g and g + 8 of each
-  // m16 tile), -1 for none: u = U, past the end, or outside [0, V)
+  // m16 tile), -1 for none: u = U, past the end, or outside [v0, v0 + V)
   int lab[MT][2];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -295,7 +305,7 @@ rnnt_joint_kernel(const E* __restrict__ he, const E* __restrict__ hd, const bf16
       const int m = m0 + row0 + 16 * mt + g + 8 * hr;
       int l = -1;
       if (m < M && m % U1 < U) {
-        l = labels[static_cast<size_t>(b) * U + m % U1];
+        l = labels[static_cast<size_t>(b) * U + m % U1] - v0;
         if (l < 0 || l >= V) l = -1;
       }
       lab[mt][hr] = l;
@@ -425,8 +435,14 @@ rnnt_joint_kernel(const E* __restrict__ he, const E* __restrict__ hd, const bf16
       for (int q = 0; q < kWN; ++q) l += part_l[q * BM + r] * expf(part_m[q * BM + r] - mx);
       const float lse = mx + logf(l);
       const int t = m / U1, u = m - t * U1;
-      lpb[static_cast<size_t>(b) * M + m] = blank_s[r] - lse;
-      if (u < U) lpl[(static_cast<size_t>(b) * T + t) * U + u] = label_s[r] - lse;
+      if (lse_out != nullptr) {  // a block of the vocabulary: its lse and the owned logits
+        lse_out[static_cast<size_t>(b) * M + m] = lse;
+        lpb[static_cast<size_t>(b) * M + m] = blank_s[r];
+        if (u < U) lpl[(static_cast<size_t>(b) * T + t) * U + u] = label_s[r];
+      } else {
+        lpb[static_cast<size_t>(b) * M + m] = blank_s[r] - lse;
+        if (u < U) lpl[(static_cast<size_t>(b) * T + t) * U + u] = label_s[r] - lse;
+      }
     }
   }
 }
@@ -447,14 +463,14 @@ __global__ void split_w_kernel(const float* __restrict__ w, long long sk, long l
 template <typename E, int BM>
 cudaError_t launch_bm(const E* he, const E* hd, const bf16* w, size_t w_plane, int ldw, const float* bias,
                       const int* labels, float* lpb, float* lpl, int B, int T, int U1, int J, int V, int blank,
-                      int stages, bool vec, cudaStream_t st) {
+                      int v0, float* lse_out, int stages, bool vec, cudaStream_t st) {
   const size_t smem = smem_bytes(Terms<E>::value, BM, stages, J);
   cudaError_t err = cudaFuncSetAttribute(rnnt_joint_kernel<E, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(cdiv(T * U1, BM)), B);
   rnnt_joint_kernel<E, BM><<<grid, Geo<E, BM>::kThreads, smem, st>>>(he, hd, w, w_plane, ldw, bias, labels, lpb, lpl,
-                                                                 T, U1, J, V, blank, stages, vec);
+                                                                 T, U1, J, V, blank, v0, lse_out, stages, vec);
   return cudaGetLastError();
 }
 
@@ -462,10 +478,12 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 template <typename E>
 int launch(const void* he_, const void* hd_, const void* w, const void* bias_, const void* labels_, void* lpb_,
-           void* lpl_, void* planes, int B, int T, int U1, int J, int V, int blank, long long w_sk, long long w_sv,
-           int bm, int stages, void* stream) {
+           void* lpl_, void* planes, int B, int T, int U1, int J, int V, int blank, int v0, void* lse_,
+           long long w_sk, long long w_sv, int bm, int stages, void* stream) {
   constexpr int TERMS = Terms<E>::value;
-  const bool bad = B < 1 || T < 1 || U1 < 1 || J < 1 || J > kMaxJ || V < 1 || blank < 0 || blank >= V ||
+  // the whole vocabulary holds the blank; a block (lse_ given) may not
+  const bool blank_bad = lse_ == nullptr ? (v0 != 0 || blank < 0 || blank >= V) : (v0 < 0 || blank < 0);
+  const bool bad = B < 1 || T < 1 || U1 < 1 || J < 1 || J > kMaxJ || V < 1 || blank_bad ||
                    static_cast<long long>(T) * U1 > (1LL << 31) - 256 || stages < kMinStages || stages > kMaxStages ||
                    (bm != 64 && bm != 32 && bm != 16 && (bm != 128 || TERMS != 1)) ||
                    smem_bytes(TERMS, bm, stages, J) > kMaxSmem;
@@ -495,18 +513,24 @@ int launch(const void* he_, const void* hd_, const void* w, const void* bias_, c
   const int* labels = static_cast<const int*>(labels_);
   float* lpb = static_cast<float*>(lpb_);
   float* lpl = static_cast<float*>(lpl_);
+  float* lse_out = static_cast<float*>(lse_);
+  const int blank_col = blank - v0 < V ? blank - v0 : -1;  // negative: not in this block
   cudaError_t err;
   if constexpr (TERMS == 1) {  // f32 takes at most 64 cells: 128 would hold twice the registers
     if (bm == 128)
       return static_cast<int>(
-          launch_bm<E, 128>(he, hd, wp, w_plane, ldw, bias, labels, lpb, lpl, B, T, U1, J, V, blank, stages, vec, st));
+          launch_bm<E, 128>(he, hd, wp, w_plane, ldw, bias, labels, lpb, lpl, B, T, U1, J, V, blank_col, v0,
+                            lse_out, stages, vec, st));
   }
   if (bm == 64)
-    err = launch_bm<E, 64>(he, hd, wp, w_plane, ldw, bias, labels, lpb, lpl, B, T, U1, J, V, blank, stages, vec, st);
+    err = launch_bm<E, 64>(he, hd, wp, w_plane, ldw, bias, labels, lpb, lpl, B, T, U1, J, V, blank_col, v0,
+                            lse_out, stages, vec, st);
   else if (bm == 32)
-    err = launch_bm<E, 32>(he, hd, wp, w_plane, ldw, bias, labels, lpb, lpl, B, T, U1, J, V, blank, stages, vec, st);
+    err = launch_bm<E, 32>(he, hd, wp, w_plane, ldw, bias, labels, lpb, lpl, B, T, U1, J, V, blank_col, v0,
+                            lse_out, stages, vec, st);
   else
-    err = launch_bm<E, 16>(he, hd, wp, w_plane, ldw, bias, labels, lpb, lpl, B, T, U1, J, V, blank, stages, vec, st);
+    err = launch_bm<E, 16>(he, hd, wp, w_plane, ldw, bias, labels, lpb, lpl, B, T, U1, J, V, blank_col, v0,
+                            lse_out, stages, vec, st);
   return static_cast<int>(err);
 }
 
@@ -523,15 +547,35 @@ extern "C" {
 int emo_rnnt_joint_f32(const void* he, const void* hd, const void* w, const void* bias, const void* labels,
                        void* lpb, void* lpl, void* planes, int B, int T, int U1, int J, int V, int blank,
                        long long w_sk, long long w_sv, int bm, int stages, void* stream) {
-  return launch<float>(he, hd, w, bias, labels, lpb, lpl, planes, B, T, U1, J, V, blank, w_sk, w_sv, bm, stages,
-                       stream);
+  return launch<float>(he, hd, w, bias, labels, lpb, lpl, planes, B, T, U1, J, V, blank, 0, nullptr, w_sk, w_sv,
+                       bm, stages, stream);
 }
 
 int emo_rnnt_joint_bf16(const void* he, const void* hd, const void* w, const void* bias, const void* labels,
                         void* lpb, void* lpl, void* planes, int B, int T, int U1, int J, int V, int blank,
                         long long w_sk, long long w_sv, int bm, int stages, void* stream) {
-  return launch<bf16>(he, hd, w, bias, labels, lpb, lpl, planes, B, T, U1, J, V, blank, w_sk, w_sv, bm, stages,
-                      stream);
+  return launch<bf16>(he, hd, w, bias, labels, lpb, lpl, planes, B, T, U1, J, V, blank, 0, nullptr, w_sk, w_sv,
+                      bm, stages, stream);
+}
+
+// A model rank's block of V columns from column v0 of the whole vocabulary
+// (w, bias: the block; blank, labels: ids of the whole vocabulary): lse
+// (B, T, U1) f32 gets the block's log-sum-exp, lpb and lpl the owned blank
+// and label logits (0 elsewhere), not log-probabilities.
+int emo_rnnt_joint_shard_f32(const void* he, const void* hd, const void* w, const void* bias, const void* labels,
+                             void* lpb, void* lpl, void* planes, int B, int T, int U1, int J, int V, int blank,
+                             int v0, void* lse, long long w_sk, long long w_sv, int bm, int stages, void* stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float>(he, hd, w, bias, labels, lpb, lpl, planes, B, T, U1, J, V, blank, v0, lse, w_sk, w_sv, bm,
+                       stages, stream);
+}
+
+int emo_rnnt_joint_shard_bf16(const void* he, const void* hd, const void* w, const void* bias, const void* labels,
+                              void* lpb, void* lpl, void* planes, int B, int T, int U1, int J, int V, int blank,
+                              int v0, void* lse, long long w_sk, long long w_sv, int bm, int stages, void* stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<bf16>(he, hd, w, bias, labels, lpb, lpl, planes, B, T, U1, J, V, blank, v0, lse, w_sk, w_sv, bm,
+                      stages, stream);
 }
 
 // the dynamic shared memory of a block of bm cells with `stages` stages at

@@ -10,6 +10,11 @@ point is the lowest WER, the first of equal ones.
     python -m emoasr_tpu_torch.eval.fusion_grid -conf <yaml> -ep <N> --beam_width 8 \\
         --lm_conf <lm yaml> --lm_ep <M> [--lm_min 0 --lm_max 1 --lm_step 0.1] \\
         [--len_min 0 --len_max 5 --len_step 1] [--cpu]
+
+With `--dp` under torchrun (`python -m torch.distributed.run --standalone
+--nproc_per_node N -m emoasr_tpu_torch.eval.fusion_grid ... --dp`) every
+rank decodes its rows of each grid point (the eval CLI's `--dp`, JAX
+`fusion_grid.py:80`) and rank 0 alone logs the grid and its best point.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import os
 import numpy as np
 
 from emoasr_tpu_torch.eval.test_asr import get_eval_path, test_main
+from emoasr_tpu_torch.parallel import mesh as pmesh
 from emoasr_tpu_torch.utils.log import setup_logging
 from emoasr_tpu_torch.utils.paths import get_results_dir
 
@@ -33,7 +39,10 @@ def main(args):
     data_path = get_eval_path(args.data)
     data_tag = args.data if args.data_tag == "test" and data_path != args.data else args.data_tag
     log_file = f"test_fusion_grid_{data_tag}_ctc{args.decode_ctc_weight}_ep{args.ep}.log"
-    setup_logging(os.path.join(log_dir, log_file))
+    if int(os.environ.get("RANK", 0)) == 0:
+        setup_logging(os.path.join(log_dir, log_file))
+    else:
+        setup_logging(None, logging.WARNING)
 
     lm_cands = np.arange(args.lm_min, args.lm_max + EPS, args.lm_step)
     len_cands = np.arange(args.len_min, args.len_max + EPS, args.len_step)
@@ -75,6 +84,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         help="the LM's state_dict file (default: --lm_ep's, else the yaml's lm_path)")
     parser.add_argument("--lm_tag", type=str, default=None)
     parser.add_argument("--cpu", action="store_true", help="run on the CPU (the default is the GPU)")
+    parser.add_argument("--dp", action="store_true",
+                        help="split every batch's rows over the ranks that torchrun started")
     return parser
 
 
@@ -88,4 +99,7 @@ def parse_args(argv=None):
 
 
 if __name__ == "__main__":
-    main(parse_args())
+    try:
+        main(parse_args())
+    finally:
+        pmesh.shutdown()

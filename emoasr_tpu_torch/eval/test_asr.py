@@ -27,12 +27,15 @@ Runs on the card unless `--cpu` is given:
 rows of every batch over the N ranks (JAX `test_asr.py:438-451`); a batch
 that does not divide is decoded whole by rank 0 (JAX replicates it,
 `:361-363`), and rank 0 gathers the rows and writes the TSV a single
-process writes.
+process writes.  `--profile DIR` writes a `torch.profiler` trace of
+`decode_dataset` (`utils/profile.py`; JAX `test_asr.py:561-570`), rank 0's
+under torchrun.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import queue
@@ -63,6 +66,7 @@ from emoasr_tpu_torch.utils.paths import (
     get_results_dir,
     rel_to_abs_path,
 )
+from emoasr_tpu_torch.utils.profile import trace
 from emoasr_tpu_torch.utils.vocab import Vocab
 
 EVAL_TAGS = {
@@ -389,10 +393,12 @@ def test_main(args, lm_weight=None, len_weight=None):
         )
         return runtimes, rtfs, n_decoded
 
-    results = decode_dataset(
-        cfg, dataset, decode_fn, vocab, nbest=args.nbest, sample_utt_id=args.utt_id,
-        decode_phone=args.decode_phone, mesh=mesh,
-    )
+    profile_dir = getattr(args, "profile", None) if main else None
+    with trace(profile_dir, "decode_dataset", device) if profile_dir else contextlib.nullcontext():
+        results = decode_dataset(
+            cfg, dataset, decode_fn, vocab, nbest=args.nbest, sample_utt_id=args.utt_id,
+            decode_phone=args.decode_phone, mesh=mesh,
+        )
     if not main:  # rank 0 writes
         return None
     if args.utt_id is not None:
@@ -476,6 +482,8 @@ def build_argparser():
                         help="decode the phone head (CTC models trained with phone CTC)")
     parser.add_argument("--dp", action="store_true",
                         help="split every batch's rows over the ranks that torchrun started")
+    parser.add_argument("--profile", type=str, default=None,
+                        help="write a torch.profiler trace of the decoding to this directory")
     return parser
 
 

@@ -26,6 +26,12 @@ package's intended semantics (emoASR keeps only the last one).
 `rnnt_word_distill_loss` also takes soft labels of U rows, as the dataset
 makes them for a transducer (the JAX function wants U + 1; the row it
 lacks is never read).
+
+Every loss here also takes logits split over the model axis (`shard`:
+this rank's columns, `parallel/vocab.py`): the same closed forms from the
+whole vocabulary's normaliser, label logit and sums, which the model ranks
+combine; a soft target is whole on every rank (data) and meets the rank's
+columns only.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from emoasr_tpu_torch.parallel import vocab
 from emoasr_tpu_torch.parallel.mesh import global_rows, global_sum
 
 
@@ -54,12 +61,15 @@ def label_smoothing_loss(
     lsm_prob: float = 0.0,
     normalize_length: bool = False,
     normalize_batch: bool = True,
+    shard: Optional[vocab.VocabShard] = None,
 ) -> torch.Tensor:
     """Masked cross-entropy with label smoothing (criteria.py:18-46);
     positions at or past `ylens` do not count."""
-    B, L, V = logits.shape
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    target = _lsm_target(logp, ys, lsm_prob)
+    B, L = logits.shape[:2]
+    if shard is None:
+        target = _lsm_target(torch.log_softmax(logits.float(), dim=-1), ys, lsm_prob)
+    else:
+        target = vocab.lsm_target(logits, ys.to(logits.device), lsm_prob, shard)
     mask = torch.arange(L, device=logits.device)[None, :] < ylens.to(logits.device)[:, None]
     per_pos = torch.where(mask, target, torch.zeros((), device=logits.device))
     per_b = per_pos.sum(dim=1)
@@ -80,13 +90,13 @@ def distill_loss(
     lsm_prob: float = 0.0,
     normalize_length: bool = False,
     normalize_batch: bool = True,
+    shard: Optional[vocab.VocabShard] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Soft/hard label interpolation KD (criteria.py:49-100) -> (loss,
     loss_soft, loss_hard): the masked cross-entropy against the soft labels
     and against the label-smoothed labels, mixed by `soft_label_weight`."""
-    B, L, V = logits.shape
+    B, L = logits.shape[:2]
     dev = logits.device
-    logp = torch.log_softmax(logits.float(), dim=-1)
     ylens = ylens.to(dev)
     mask = torch.arange(L, device=dev)[None, :] < ylens[:, None]
 
@@ -96,8 +106,15 @@ def distill_loss(
             per_b = per_b / ylens.clamp(min=1)
         return per_b
 
-    soft_b = masked_sum((logp * soft_labels[:, :L].to(dev, logp.dtype)).sum(-1))
-    hard_b = masked_sum(_lsm_target(logp, ys.to(dev), lsm_prob))
+    soft = soft_labels[:, :L].to(dev, torch.float32)
+    if shard is None:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        soft_b = masked_sum((logp * soft).sum(-1))
+        hard_b = masked_sum(_lsm_target(logp, ys.to(dev), lsm_prob))
+    else:  # sum_v q_v logp_v = sum_v q_v logit_v - lse sum_v q_v
+        lse = vocab.log_normaliser(logits, shard)
+        soft_b = masked_sum(vocab.soft_dot(logits, soft, shard) - lse * soft.sum(-1))
+        hard_b = masked_sum(vocab.lsm_target(logits, ys.to(dev), lsm_prob, shard, lse))
     loss_b = soft_label_weight * soft_b + (1.0 - soft_label_weight) * hard_b
     denom = global_rows(B) if normalize_batch else 1
     return -loss_b.sum() / denom, -soft_b.sum() / denom, -hard_b.sum() / denom
@@ -106,14 +123,17 @@ def distill_loss(
 IGNORE_ID = -100
 
 
-def masked_lm_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_id: int = IGNORE_ID) -> torch.Tensor:
+def masked_lm_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_id: int = IGNORE_ID,
+                   shard: Optional[vocab.VocabShard] = None) -> torch.Tensor:
     """Mean cross-entropy over the positions whose label is not
     `ignore_id` (criteria.py:80-91, torch `CrossEntropyLoss`'s default), 0
     where there is none."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
     valid = labels != ignore_id
     tgt = torch.where(valid, labels, torch.zeros_like(labels)).long()
-    ce = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    if shard is None:
+        ce = -torch.gather(torch.log_softmax(logits.float(), dim=-1), -1, tgt[..., None])[..., 0]
+    else:
+        ce = -vocab.log_prob_at(logits, tgt, shard)
     return torch.where(valid, ce, torch.zeros_like(ce)).sum() / global_sum(valid.sum()).clamp(min=1)
 
 
@@ -180,13 +200,19 @@ def ctc_align_distill_loss(
     lsm_prob: float = 0.0,
     normalize_length: bool = True,
     normalize_batch: bool = True,
+    shard: Optional[vocab.VocabShard] = None,
 ) -> torch.Tensor:
     """Frame-level KD through a CTC forced alignment (criteria.py:103-174):
     each frame that `frame_to_label_mapping` gives a label takes that
     label's soft row (and its label-smoothed one-hot) as its target."""
-    B, T, V = logits.shape
+    B, T = logits.shape[:2]
     dev = logits.device
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    if shard is None:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        V = logp.shape[-1]
+    else:
+        lse = vocab.log_normaliser(logits, shard)
+        logp, V = vocab.log_softmax_shard(logits, shard), shard.total  # the rank's columns
     xlens = xlens.to(dev)
     label_map = frame_to_label_mapping(aligns, xlens, ylens, blank_id, position).long()
     exists = (label_map >= 0) & (torch.arange(T, device=dev)[None, :] < xlens[:, None])
@@ -198,12 +224,15 @@ def ctc_align_distill_loss(
         table = soft_labels.to(dev, logp.dtype)
         lm = label_map.clamp(0, table.shape[1] - 1)
         tgt = torch.gather(table, 1, lm[:, :, None].expand(B, T, V))  # (B, T, V): each frame's row
-        s = torch.where(exists, (tgt * logp).sum(-1), zero).sum(dim=1)
+        dot = (tgt * logp).sum(-1) if shard is None else vocab.soft_dot(logp, tgt, shard)
+        s = torch.where(exists, dot, zero).sum(dim=1)
         loss_b = loss_b + soft_label_weight * (s / denom if normalize_length else s)
     if soft_label_weight < 1:
         ys = ys.to(dev).long()
         y_t = torch.gather(ys, 1, label_map.clamp(0, ys.shape[1] - 1))  # (B, T): each frame's label
-        h = torch.where(exists, _lsm_target(logp, y_t, lsm_prob), zero).sum(dim=1)
+        target = (_lsm_target(logp, y_t, lsm_prob) if shard is None
+                  else vocab.lsm_target(logits, y_t, lsm_prob, shard, lse))
+        h = torch.where(exists, target, zero).sum(dim=1)
         loss_b = loss_b + (1 - soft_label_weight) * (h / denom if normalize_length else h)
     loss = -loss_b.sum()
     if normalize_batch:
@@ -219,15 +248,22 @@ def rnnt_word_distill_loss(
     normalize_length: bool = True,
     normalize_batch: bool = True,
     log_probs: Optional[torch.Tensor] = None,
+    shard: Optional[vocab.VocabShard] = None,
 ) -> torch.Tensor:
     """Word-level RNN-T KD: the soft cross-entropy of row u's soft label
     summed over the (t < xlen, u < ylen) grid (criteria.py:218-250).
     `soft_labels` (B, U or U+1, V): row U is never read.  `log_probs`, the
     float32 log-softmax of `logits` where the caller has it already (the
     decoder's RNN-T loss does), saves a second (B, T, U+1, V) tensor."""
-    B, T, U1, V = logits.shape
+    B, T, U1 = logits.shape[:3]
+    V = soft_labels.shape[-1]
     dev = logits.device
-    logp = torch.log_softmax(logits.float(), dim=-1) if log_probs is None else log_probs
+    if log_probs is not None:
+        logp = log_probs
+    elif shard is None:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+    else:
+        logp = vocab.log_softmax_shard(logits, shard)
     xlens, ylens = xlens.to(dev), ylens.to(dev)
     soft = soft_labels[:, :U1].to(dev, logp.dtype)
     if soft.shape[1] < U1:
@@ -235,7 +271,10 @@ def rnnt_word_distill_loss(
     tmask = torch.arange(T, device=dev)[None, :] < xlens[:, None]
     umask = torch.arange(U1, device=dev)[None, :] < ylens[:, None]
     grid = tmask[:, :, None] & umask[:, None, :]
-    per_cell = (logp * soft[:, None]).sum(-1)  # (B, T, U1)
+    if shard is None:
+        per_cell = (logp * soft[:, None]).sum(-1)  # (B, T, U1)
+    else:
+        per_cell = vocab.soft_dot(logp, soft[:, None].expand(B, T, U1, V), shard)
     per = torch.where(grid, per_cell, torch.zeros((), device=dev)).sum(dim=(1, 2))
     if normalize_length:
         per = per / (xlens * ylens).clamp(min=1)
@@ -253,19 +292,24 @@ def rnnt_align_distill_loss(
     ylens: torch.Tensor,
     normalize_length: bool = True,
     normalize_batch: bool = True,
+    shard: Optional[vocab.VocabShard] = None,
 ) -> torch.Tensor:
     """Alignment-level RNN-T KD: the soft cross-entropy at the aligned cells
     (aligns[u], u), summed over every u < ylen (see the module note)."""
-    B, T, U1, V = logits.shape
+    B, T, U1 = logits.shape[:3]
     U = U1 - 1
     dev = logits.device
     ylens = ylens.to(dev)
     al = aligns[:, :U].to(dev).long().clamp(0, T - 1)  # (B, U)
     u_idx = torch.arange(U, device=dev)[None, :].expand(B, U)
     # the log-softmax of the U aligned cells only: (B, U, V)
-    lp_u = torch.log_softmax(logits[torch.arange(B, device=dev)[:, None], al, u_idx].float(), dim=-1)
+    cells = logits[torch.arange(B, device=dev)[:, None], al, u_idx]
     umask = u_idx < ylens[:, None]
-    per_u = (lp_u * soft_labels[:, :U].to(dev, lp_u.dtype)).sum(-1)
+    soft = soft_labels[:, :U].to(dev, torch.float32)
+    if shard is None:
+        per_u = (torch.log_softmax(cells.float(), dim=-1) * soft).sum(-1)
+    else:
+        per_u = vocab.soft_dot(vocab.log_softmax_shard(cells, shard), soft, shard)
     per = torch.where(umask, per_u, torch.zeros((), device=dev)).sum(dim=1)
     if normalize_length:
         per = per / ylens.clamp(min=1)

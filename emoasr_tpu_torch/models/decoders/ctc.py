@@ -10,6 +10,11 @@ the JAX package does: the (B, T, V) logits, the CTC loss from them (the
 lattice kernel on the card) and the forced alignment of their
 log-probabilities, no gradient through it.  The prefix beam search is in
 `emoasr_tpu_torch/search/ctc_beam.py`.
+
+With the head split over the model axis (`parallel/tensor.py`) the losses
+run on the rank's vocabulary columns (`ops/ctc.py`: K1 on the rank's
+block; the distillation route's dense logits, forced alignment and
+`ctc_align_distill_loss` on the rank's (B, T, V / m) columns).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from torch import nn
 from emoasr_tpu_torch.config import ExpConfig
 from emoasr_tpu_torch.models.criteria import ctc_align_distill_loss
 from emoasr_tpu_torch.ops.ctc import ctc_forced_align, ctc_loss_fn, ctc_loss_fused_head
+from emoasr_tpu_torch.parallel.vocab import log_normaliser, vocab_shard
 
 # Route the loss through the fused head (ops/ctc_head.py: no (B, T, V)
 # logits); False takes the dense route (logits, logsumexp, gather), for
@@ -70,11 +76,12 @@ class CTCDecoder(nn.Module):
         return self.phone_output(eouts)
 
     def _ctc(self, head: nn.Linear, eouts, labels, elens, label_lens) -> torch.Tensor:
+        shard = vocab_shard(head)
         if USE_FUSED_HEAD:
             return ctc_loss_fused_head(
-                eouts, head.weight.t(), head.bias, labels, elens, label_lens, self.cfg.blank_id
+                eouts, head.weight.t(), head.bias, labels, elens, label_lens, self.cfg.blank_id, shard
             )
-        return ctc_loss_fn(head(eouts), labels, elens, label_lens, self.cfg.blank_id)
+        return ctc_loss_fn(head(eouts), labels, elens, label_lens, self.cfg.blank_id, shard)
 
     def forward(
         self,
@@ -98,10 +105,11 @@ class CTCDecoder(nn.Module):
 
         loss_dict = {}
         use_kd = cfg.kd_weight > 0 and soft_labels is not None
+        shard = vocab_shard(self.output)
         logits = None
         if use_kd:
             logits = self.output(eouts)
-            loss_ctc = ctc_loss_fn(logits, ys, elens, ylens, cfg.blank_id)
+            loss_ctc = ctc_loss_fn(logits, ys, elens, ylens, cfg.blank_id, shard)
         else:
             loss_ctc = self._ctc(self.output, eouts, ys, elens, ylens)
         loss = loss_ctc
@@ -125,7 +133,7 @@ class CTCDecoder(nn.Module):
         if cfg.mtl_inter_ctc_weight > 0:
             if cfg.inter_kd_weight > 0 and soft_labels is not None:
                 logits_inter = self.output(eouts_inter)
-                loss_inter = ctc_loss_fn(logits_inter, ys, elens, ylens, cfg.blank_id)
+                loss_inter = ctc_loss_fn(logits_inter, ys, elens, ylens, cfg.blank_id, shard)
                 loss_dict["loss_inter_ctc"] = loss_inter
                 loss_inter_kd = self._align_kd(logits_inter, ys, soft_labels, elens, ylens)
                 loss_dict["loss_inter_kd"] = loss_inter_kd
@@ -147,11 +155,17 @@ class CTCDecoder(nn.Module):
         alignment of their log-probabilities (no gradient), then
         `ctc_align_distill_loss` (ctc.py:115-131)."""
         cfg = self.cfg
-        aligns = ctc_forced_align(torch.log_softmax(logits.detach().float(), dim=-1), elens, ys, ylens,
-                                  cfg.blank_id)
+        shard = vocab_shard(self.output)
+        lp = logits.detach().float()
+        if shard is None:
+            lp = torch.log_softmax(lp, dim=-1)
+        else:  # the rank's columns of the log-probabilities
+            lp = lp - log_normaliser(lp, shard)[..., None]
+        aligns = ctc_forced_align(lp, elens, ys, ylens, cfg.blank_id, shard)
         return ctc_align_distill_loss(
             logits, ys, soft_labels, aligns, elens, ylens, blank_id=cfg.blank_id,
             soft_label_weight=cfg.kd_ctc_soft_label_weight, position=cfg.kd_ctc_position, lsm_prob=cfg.lsm_prob,
+            shard=shard,
         )
 
     def greedy(self, eouts: torch.Tensor, elens: torch.Tensor, decode_phone: bool = False):

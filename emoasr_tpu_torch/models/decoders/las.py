@@ -19,6 +19,8 @@ JAX package runs them in a `lax.scan` outside any Pallas kernel, and the
 201-tap convolution is `F.conv1d` (JAX: `lax.conv_general_dilated`).
 Parameter names are emoASR's: `embed`, `rnns.{i}` (`nn.LSTMCell`),
 `score.{w_key,w_query,w_conv,w_score,conv}`, `intermed`, `output`, `ctc`.
+With `embed` and `output` split over the model axis (`parallel/tensor.py`)
+the losses take the rank's vocabulary columns (`parallel/vocab.py`).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from torch import nn
 from emoasr_tpu_torch.config import ExpConfig
 from emoasr_tpu_torch.models.criteria import distill_loss, label_smoothing_loss
 from emoasr_tpu_torch.models.decoders.ctc import CTCDecoder
+from emoasr_tpu_torch.parallel.vocab import vocab_shard
 from emoasr_tpu_torch.models.layers import NEG_INF, make_pad_mask
 from emoasr_tpu_torch.search.las_beam import las_beam_search
 
@@ -179,16 +182,18 @@ class LASDecoder(nn.Module):
         logits = self.teacher_forced_logits(eouts, elens, ys_in)
         if ys_out is None:
             return logits
+        shard = vocab_shard(self.output)  # the rank's columns of split logits
         if cfg.kd_weight > 0 and soft_labels is not None:
             loss, loss_kd, loss_att = distill_loss(
                 logits, ys_out, soft_labels, ylens + 1, soft_label_weight=cfg.kd_weight, lsm_prob=cfg.lsm_prob,
-                normalize_length=cfg.loss_normalize_length, normalize_batch=cfg.loss_normalize_batch,
+                normalize_length=cfg.loss_normalize_length, normalize_batch=cfg.loss_normalize_batch, shard=shard,
             )
             loss_dict = {"loss_kd": loss_kd, "loss_att": loss_att}
         else:
             loss = label_smoothing_loss(
                 logits, ys_out, ylens + 1, lsm_prob=cfg.lsm_prob,
                 normalize_length=cfg.loss_normalize_length, normalize_batch=cfg.loss_normalize_batch,
+                shard=shard,
             )
             loss_dict = {"loss_att": loss}
         if cfg.mtl_ctc_weight > 0:

@@ -24,6 +24,12 @@ Parity target: emoASR `asr/modeling/decoders/rnn_transducer.py`:
   no gradient through it).  Either needs the joint's log-probabilities at
   every cell, so distillation switches the joint to `full`, whatever the
   yaml's mode (JAX `rnnt.py:94-95`): K7 does not run on that route.
+- with the embedding and the output layer split over the model axis
+  (`parallel/tensor.py`), the `pallas` and `chunked` joints run on the
+  rank's vocabulary columns (`ops/rnnt_joint.py::joint_gather_shard`: K7
+  with a column offset on the card); the `full` joint (and distillation)
+  holds the rank's (B, T, U+1, V / m) columns, normalised over the whole
+  vocabulary.
 
 The ALSD beam search (:242-325) is in `emoasr_tpu_torch/search/rnnt_beam.py`.
 """
@@ -40,8 +46,9 @@ from emoasr_tpu_torch.models.criteria import rnnt_align_distill_loss, rnnt_word_
 from emoasr_tpu_torch.models.decoders.ctc import CTCDecoder
 from emoasr_tpu_torch.ops.lstm import StackedLSTM
 from emoasr_tpu_torch.ops.rnnt import rnnt_alpha_rowscan, rnnt_forced_align, rnnt_gathered_from_joint, rnnt_loss
-from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather
-from emoasr_tpu_torch.parallel.mesh import batch_mean
+from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather, joint_gather_shard
+from emoasr_tpu_torch.parallel.mesh import batch_mean, copy_to_model
+from emoasr_tpu_torch.parallel.vocab import log_softmax_shard, vocab_shard
 
 JOINT_MODES = ("full", "chunked", "pallas")
 
@@ -92,16 +99,25 @@ class RNNTDecoder(nn.Module):
         loss_dict = {}
         douts, _ = self.recurrency(ys_in)  # (B, U+1, H)
         use_kd = cfg.kd_weight > 0 and soft_labels is not None
+        shard = vocab_shard(self.output)
         logits = None
         if use_kd or cfg.rnnt_joint_mode == "full":
             logits = self.joint(eouts, douts)
-            log_probs = torch.log_softmax(logits.float(), dim=-1)
-            loss_rnnt = rnnt_loss(log_probs, ys, elens, ylens, cfg.blank_id, reduction="mean")
+            if shard is None:
+                log_probs = torch.log_softmax(logits.float(), dim=-1)
+            else:  # the rank's columns, normalised over the whole vocabulary
+                log_probs = log_softmax_shard(logits, shard)
+            loss_rnnt = rnnt_loss(log_probs, ys, elens, ylens, cfg.blank_id, reduction="mean", shard=shard)
         else:
             h_enc, h_dec = self.w_enc(eouts), self.w_dec(douts)
             w_out, b_out = self.output.weight.t(), self.output.bias  # (J, V): read in place
-            gather = fused_joint_gather if cfg.rnnt_joint_mode == "pallas" else rnnt_gathered_from_joint
-            lp_blank, lp_label = gather(h_enc, h_dec, w_out, b_out, ys, cfg.blank_id)
+            if shard is not None:  # the rank's columns; h_enc's and h_dec's gradients summed over the group
+                h_enc, h_dec = copy_to_model(h_enc, shard.group), copy_to_model(h_dec, shard.group)
+                lp_blank, lp_label = joint_gather_shard(h_enc, h_dec, w_out, b_out, ys, cfg.blank_id, shard,
+                                                        cfg.rnnt_joint_mode)
+            else:
+                gather = fused_joint_gather if cfg.rnnt_joint_mode == "pallas" else rnnt_gathered_from_joint
+                lp_blank, lp_label = gather(h_enc, h_dec, w_out, b_out, ys, cfg.blank_id)
             loss_rnnt = -batch_mean(rnnt_alpha_rowscan(lp_blank, lp_label, elens, ylens))
         loss = loss_rnnt
         loss_dict["loss_rnnt"] = loss_rnnt
@@ -111,10 +127,10 @@ class RNNTDecoder(nn.Module):
             loss_dict["loss_ctc"] = loss_ctc
         if use_kd:
             if cfg.kd_type == "word":
-                loss_kd = rnnt_word_distill_loss(logits, soft_labels, elens, ylens, log_probs=log_probs)
+                loss_kd = rnnt_word_distill_loss(logits, soft_labels, elens, ylens, log_probs=log_probs, shard=shard)
             else:  # align
-                aligns = rnnt_forced_align(log_probs.detach(), elens, ys, ylens, cfg.blank_id)
-                loss_kd = rnnt_align_distill_loss(logits, soft_labels, aligns, elens, ylens)
+                aligns = rnnt_forced_align(log_probs.detach(), elens, ys, ylens, cfg.blank_id, shard)
+                loss_kd = rnnt_align_distill_loss(logits, soft_labels, aligns, elens, ylens, shard=shard)
             loss_dict["loss_kd"] = loss_kd
             if cfg.reduce_main_loss_kd:
                 loss = (1 - cfg.kd_weight) * loss + cfg.kd_weight * loss_kd

@@ -15,7 +15,10 @@ labels that are not -100, plus `mtl_ctc_weight` times the auxiliary CTC
 loss (`CTCDecoder`, which runs the CTC head and lattice kernels).  With
 `kd_weight` and soft labels the attention loss is `distill_loss`'s mix of
 the soft and the label-smoothed targets (`loss_kd`, `loss_att`); the
-auxiliary CTC gets no soft labels and stays on its kernels.
+auxiliary CTC gets no soft labels and stays on its kernels.  With the
+embedding and head split over the model axis (`parallel/tensor.py`) the
+logits are the rank's vocabulary columns, and every loss takes them as
+they are (`parallel/vocab.py`).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from torch import nn
 from emoasr_tpu_torch.config import ExpConfig
 from emoasr_tpu_torch.models.criteria import distill_loss, label_smoothing_loss, masked_lm_loss
 from emoasr_tpu_torch.models.decoders.ctc import CTCDecoder
+from emoasr_tpu_torch.parallel.vocab import vocab_shard
 from emoasr_tpu_torch.models.layers import (
     PositionalEncoder,
     TransformerDecoderLayer,
@@ -170,21 +174,23 @@ class TransformerDecoder(nn.Module):
         logits = self.output(self.norm(h))
         if ys_out is None:
             return logits
+        shard = vocab_shard(self.output)  # the rank's columns of split logits
         if cfg.kd_weight > 0 and soft_labels is not None:
             # soft labels of L = U + 1 rows (the last one <eos>'s), mixed with
             # the label-smoothed targets by kd_weight (transformer.py:205-215)
             loss, loss_kd, loss_att = distill_loss(
                 logits, ys_out, soft_labels, ylens + 1, soft_label_weight=cfg.kd_weight, lsm_prob=cfg.lsm_prob,
-                normalize_length=cfg.loss_normalize_length, normalize_batch=cfg.loss_normalize_batch,
+                normalize_length=cfg.loss_normalize_length, normalize_batch=cfg.loss_normalize_batch, shard=shard,
             )
             loss_dict = {"loss_kd": loss_kd, "loss_att": loss_att}
         else:
             if self.cmlm:
-                loss_att = masked_lm_loss(logits, ys_out)
+                loss_att = masked_lm_loss(logits, ys_out, shard=shard)
             else:
                 loss_att = label_smoothing_loss(
                     logits, ys_out, ylens + 1, lsm_prob=cfg.lsm_prob,
                     normalize_length=cfg.loss_normalize_length, normalize_batch=cfg.loss_normalize_batch,
+                    shard=shard,
                 )
             loss, loss_dict = loss_att, {"loss_att": loss_att}
         if cfg.mtl_ctc_weight > 0:

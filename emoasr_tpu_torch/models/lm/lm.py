@@ -59,7 +59,8 @@ from emoasr_tpu_torch.models.lm.bert import (
     mlm_loss,
 )
 from emoasr_tpu_torch.ops.lstm import MultiLayerLSTM
-from emoasr_tpu_torch.parallel.mesh import global_rows, rows_block
+from emoasr_tpu_torch.parallel.mesh import gather_model, global_rows, rows_block
+from emoasr_tpu_torch.parallel.vocab import vocab_shard
 
 ELECTRA_TYPES = ("electra", "electra-disc")
 PELECTRA_TYPES = ("pelectra", "pelectra-disc")
@@ -98,10 +99,10 @@ def _next_token_score(logp: torch.Tensor, ys: torch.Tensor, ylens: torch.Tensor)
     return torch.where(valid, tok_lp, torch.zeros_like(tok_lp)).sum(dim=1)
 
 
-def _loss_or_logits(logits, labels):
+def _loss_or_logits(logits, labels, shard=None):
     if labels is None:
         return logits
-    loss = mlm_loss(logits, labels)
+    loss = mlm_loss(logits, labels, shard=shard)
     return loss, {"loss_total": loss}
 
 
@@ -236,7 +237,7 @@ class RNNLM(nn.Module):
         return self.output(self.dropout(out)), new_states
 
     def forward(self, ys, ylens=None, labels=None, ps=None, plens=None):
-        return _loss_or_logits(self.logits(ys)[0], labels)
+        return _loss_or_logits(self.logits(ys)[0], labels, vocab_shard(self.output))
 
     def zero_states(self, bs: int):
         w = self.output.weight
@@ -266,18 +267,32 @@ def _gather_last(h: torch.Tensor, ylens: torch.Tensor) -> torch.Tensor:
 
 
 def sample_categorical(logits: torch.Tensor, generator: Optional[torch.Generator] = None,
-                       temp: float = 1.0) -> torch.Tensor:
+                       temp: float = 1.0, shard=None) -> torch.Tensor:
     """One draw from softmax(logits / temp) over the last axis, by the
     Gumbel-max rule from `generator`'s uniforms (electra.py:20-30; temp 0
     is the argmax).  On a mesh that splits the batch the whole batch's
-    uniforms are drawn and this rank's rows kept."""
+    uniforms are drawn and this rank's rows kept; under a vocabulary
+    `shard` (logits: the rank's columns) the whole vocabulary's, the rank's
+    columns kept, and the ranks' best columns compared (the first of equal
+    ones, as `torch.argmax` takes it)."""
     if temp == 0.0:
-        return torch.argmax(logits, dim=-1)
-    first, total = rows_block(logits.shape[0]) or (0, logits.shape[0])
-    u = torch.rand((total,) + tuple(logits.shape[1:]), generator=generator,
-                   device=logits.device)[first:first + logits.shape[0]]
-    gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
-    return torch.argmax(logits.float() / temp + gumbel, dim=-1)
+        scores = logits
+    else:
+        first, total = rows_block(logits.shape[0]) or (0, logits.shape[0])
+        V = logits.shape[-1] if shard is None else shard.total
+        u = torch.rand((total,) + tuple(logits.shape[1:-1]) + (V,), generator=generator,
+                       device=logits.device)[first:first + logits.shape[0]]
+        if shard is not None:
+            u = u[..., shard.v0:shard.v0 + shard.local]
+        gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+        scores = logits.float() / temp + gumbel
+    best = torch.argmax(scores, dim=-1)
+    if shard is None:
+        return best
+    top = torch.gather(scores, -1, best[..., None])[..., 0]
+    tops = gather_model(top.float(), shard.group, shard.rank, shard.size)
+    cols = gather_model((best + shard.v0).float(), shard.group, shard.rank, shard.size)
+    return torch.gather(cols, 0, torch.argmax(tops, dim=0)[None])[0].long()
 
 
 def _electra_stack(cfg: ExpConfig, part: str) -> BertStack:
@@ -322,12 +337,14 @@ class _Discriminated(nn.Module):
             "num_masked": masked.sum() / global_rows(B),
         }
 
-    def sample_replacements(self, glogits, ys, labels, generator=None):
+    def sample_replacements(self, glogits, ys, labels, generator=None, shard=None):
         """The generator's draws at the masked positions, `ys` elsewhere,
-        detached (the JAX package's `stop_gradient`)."""
+        detached (the JAX package's `stop_gradient`); `shard`: glogits are
+        the rank's columns of a vocabulary-split head."""
         with torch.no_grad():
             masked = labels != -100
-            sample = sample_categorical(glogits.detach(), generator)
+            sample = (sample_categorical(glogits.detach(), generator) if shard is None
+                      else sample_categorical(glogits.detach(), generator, shard=shard))
             return torch.where(masked, sample, ys.long())
 
     def forward_disc(self, ys, ylens=None, error_labels=None):
@@ -435,7 +452,8 @@ class PELECTRAModel(_Discriminated):
 
     def forward(self, ys, ylens=None, labels=None, ps=None, plens=None, generator=None):
         gloss, _, glogits = self.gmodel(ys, ylens, labels, ps, plens, return_logits=True)
-        return self.joint(gloss, ys, ylens, labels, self.sample_replacements(glogits, ys, labels, generator))
+        return self.joint(gloss, ys, ylens, labels, self.sample_replacements(
+            glogits, ys, labels, generator, vocab_shard(self.gmodel.decoder.output)))
 
 
 def p2w_pseudo_log_likelihood(model: P2W, ys: torch.Tensor, ylens: torch.Tensor, ps: torch.Tensor,

@@ -21,8 +21,9 @@ from typing import Tuple
 import torch
 
 from emoasr_tpu_torch.ops.common import LOG_0, flip_by_length, logaddexp3
-from emoasr_tpu_torch.ops.ctc_head import fused_ctc_head
+from emoasr_tpu_torch.ops.ctc_head import fused_ctc_head, fused_ctc_head_shard
 from emoasr_tpu_torch.ops.ctc_lattice import ctc_ll_from_path
+from emoasr_tpu_torch.parallel import vocab
 from emoasr_tpu_torch.parallel.mesh import global_rows
 
 
@@ -75,26 +76,32 @@ def ctc_loss(log_probs, labels, xlens, ylens, blank_id: int = 0,
     return _nll_from_path(lp_path, allow2f, initf, finalf, xlens, zero_infinity)
 
 
-def ctc_loss_fn(logits, labels, xlens, ylens, blank_id: int = 0) -> torch.Tensor:
+def ctc_loss_fn(logits, labels, xlens, ylens, blank_id: int = 0, shard=None) -> torch.Tensor:
     """Reference-reduction CTC loss from raw logits: sum over the batch / B
     (`asr/modeling/decoders/ctc.py:109-114`).  The dense route: the (B, T, V)
-    logits exist, the lattice is the same kernel."""
+    logits exist (a rank's (B, T, V / m) under a vocabulary `shard`), the
+    lattice is the same kernel."""
     logits = logits.float()
     z, allow2f, initf, finalf = _path_masks(labels, ylens, blank_id)
-    lse = torch.logsumexp(logits, dim=-1)  # (B, T)
     idx = z.long()[:, None, :].expand(-1, logits.shape[1], -1)
-    lp_path = (torch.gather(logits, 2, idx) - lse[:, :, None]).transpose(0, 1)
+    if shard is None:
+        lse = torch.logsumexp(logits, dim=-1)  # (B, T)
+        xs = torch.gather(logits, 2, idx)
+    else:
+        lse, xs = vocab.log_normaliser(logits, shard), vocab.logit_at(logits, idx, shard)
+    lp_path = (xs - lse[:, :, None]).transpose(0, 1)
     return _nll_from_path(lp_path, allow2f, initf, finalf, xlens).sum() / global_rows(logits.shape[0])
 
 
-def ctc_loss_fused_head(eouts, w, b, labels, xlens, ylens, blank_id: int = 0) -> torch.Tensor:
+def ctc_loss_fused_head(eouts, w, b, labels, xlens, ylens, blank_id: int = 0, shard=None) -> torch.Tensor:
     """`ctc_loss_fn` without ever materialising the (B, T, V) logits.
 
     eouts: (B, T, H) encoder output; w: (H, V) and b: (V,) the raw head
-    weights.  Only (B, T) and (B, T, S) tensors are written.  Equal to
+    weights (a rank's (H, V / m) and (V / m,) under a vocabulary `shard`).
+    Only (B, T) and (B, T, S) tensors are written.  Equal to
     `ctc_loss_fn(eouts @ w + b, ...)` up to the products' sum order."""
     z, allow2f, initf, finalf = _path_masks(labels, ylens, blank_id)
-    lse, xs = fused_ctc_head(eouts, w, b, z)
+    lse, xs = fused_ctc_head(eouts, w, b, z) if shard is None else fused_ctc_head_shard(eouts, w, b, z, shard)
     lp_path = (xs - lse[:, :, None]).transpose(0, 1)  # (T, B, S) view, read in place
     return _nll_from_path(lp_path, allow2f, initf, finalf, xlens).sum() / global_rows(eouts.shape[0])
 
@@ -131,14 +138,16 @@ def _pre_emission_scan(lp_path, allow2, path_lens):
 
 
 @torch.no_grad()
-def ctc_forced_align(log_probs, xlens, labels, ylens, blank_id: int = 0) -> torch.Tensor:
+def ctc_forced_align(log_probs, xlens, labels, ylens, blank_id: int = 0, shard=None) -> torch.Tensor:
     """Best CTC path via forward-backward posteriors + greedy constrained
-    walk (`CTCForcedAligner.__call__`, `ctc_aligner.py:150-221`).
+    walk (`CTCForcedAligner.__call__`, `ctc_aligner.py:150-221`).  Under a
+    vocabulary `shard`, `log_probs` holds the rank's columns of the
+    log-probabilities, and each path column comes from its owner.
 
     Returns (B, T) int32 frame-level alignment (blank or token id); frames
     beyond xlens are 0-filled like the reference's zeros init."""
     log_probs = log_probs.float()
-    B, T, V = log_probs.shape
+    B, T = log_probs.shape[:2]
     dev = log_probs.device
     S = 2 * labels.shape[1] + 1
     xlens, ylens = xlens.long(), ylens.long()
@@ -152,7 +161,9 @@ def ctc_forced_align(log_probs, xlens, labels, ylens, blank_id: int = 0) -> torc
     path_lens = 2 * ylens + 1
 
     def gather_path(lp, zz):
-        return torch.gather(lp, 2, zz[:, None, :].expand(-1, T, -1)).transpose(0, 1)
+        idx = zz[:, None, :].expand(-1, T, -1)
+        got = torch.gather(lp, 2, idx) if shard is None else vocab.logit_at(lp, idx, shard)
+        return got.transpose(0, 1)
 
     lp_path = gather_path(log_probs, z)  # (T, B, S)
     pre_alpha = _pre_emission_scan(lp_path, allow2, path_lens)

@@ -27,6 +27,16 @@ three bf16 terms and the six leading cross products are summed in float32
 rows, between blocks (`launch_geometry`); a second launch of the same
 launcher sums the partials in a fixed order, so two calls give
 bit-identical outputs.
+
+Under a model axis that splits the vocabulary (`parallel/tensor.py`),
+`fused_ctc_head_shard` runs the same kernels on a rank's (H, V / m) block
+with the path labels shifted by its first column: a label outside the
+block is none of its columns (no logit, no cotangent), so each rank's xs
+holds the logits of the labels it owns and 0 elsewhere.  The ranks'
+partial lse are combined by a log-sum-exp in rank order and their xs by an
+exact sum (`parallel/mesh.py`), the gradient of a partial lse is g_lse
+exp(lse_r - lse), and the encoder output's gradient is summed over the
+model group.  No rank holds the (B, T, V) logits or the whole head.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from emoasr_tpu_torch.ops.cuda_lib import I, P, CudaKernel, aligned16
+from emoasr_tpu_torch.parallel.mesh import copy_to_model, model_logsumexp, reduce_from_model
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNEL = CudaKernel(
@@ -215,3 +226,12 @@ def fused_ctc_head(eouts, w, b, z) -> Tuple[torch.Tensor, torch.Tensor]:
     if H % 8:  # the kernels stage rows in 16-byte words: zero columns add nothing
         eouts, wt = F.pad(eouts, (0, 8 - H % 8)), F.pad(wt, (0, 8 - H % 8))
     return _FusedCTCHead.apply(aligned16(eouts), aligned16(wt), b.contiguous(), z32)
+
+
+def fused_ctc_head_shard(eouts, w, b, z, shard) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`fused_ctc_head` of a vocabulary split over the model group: w (H,
+    V / m) and b (V / m,) the rank's columns from `shard.v0`, z the whole
+    vocabulary's path labels; -> the whole head's (lse, xs), the same bits on
+    every model rank (see the module note)."""
+    lse_r, xs_r = fused_ctc_head(copy_to_model(eouts, shard.group), w, b, z - shard.v0)
+    return model_logsumexp(lse_r, shard.group, shard.rank, shard.size), reduce_from_model(xs_r, shard.group)

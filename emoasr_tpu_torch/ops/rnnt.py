@@ -54,6 +54,7 @@ from typing import Tuple
 import torch
 
 from emoasr_tpu_torch.ops.common import LOG_0, flip_by_length
+from emoasr_tpu_torch.parallel import vocab
 from emoasr_tpu_torch.parallel.mesh import batch_mean
 from emoasr_tpu_torch.search.ctc_prefix_score import log_linear_scan
 
@@ -61,11 +62,17 @@ TIME_CHUNK = 32  # frames of the joint output held at once (the JAX package's)
 
 
 def _gather_blank_label(
-    log_probs: torch.Tensor, labels: torch.Tensor, blank_id: int
+    log_probs: torch.Tensor, labels: torch.Tensor, blank_id: int, shard=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, T, U+1, V) -> blank (B, T, U+1) and label (B, T, U) emissions."""
-    B, T = log_probs.shape[:2]
+    """(B, T, U+1, V) -> blank (B, T, U+1) and label (B, T, U) emissions;
+    under a vocabulary `shard`, from the rank's (B, T, U+1, V / m) columns,
+    each taken from its owner."""
+    B, T, U1 = log_probs.shape[:3]
     U = labels.shape[1]
+    if shard is not None:
+        blank = torch.full((B, T, U1), blank_id, dtype=torch.long, device=log_probs.device)
+        idx = labels.long()[:, None, :].expand(B, T, U)
+        return vocab.logit_at(log_probs, blank, shard), vocab.logit_at(log_probs[:, :, :U], idx, shard)
     lp_blank = log_probs[..., blank_id]
     idx = labels.long()[:, None, :, None].expand(B, T, U, 1)
     lp_label = torch.gather(log_probs[:, :, :U, :], 3, idx)[..., 0]
@@ -107,21 +114,22 @@ def _reduce(nll: torch.Tensor, reduction: str) -> torch.Tensor:
 
 def rnnt_loss_rowscan(
     log_probs: torch.Tensor, labels: torch.Tensor, xlens: torch.Tensor, ylens: torch.Tensor,
-    blank_id: int = 0, reduction: str = "mean",
+    blank_id: int = 0, reduction: str = "mean", shard=None,
 ) -> torch.Tensor:
-    """RNN-T loss of log-softmaxed joint outputs (B, T, U+1, V)."""
-    lp_blank, lp_label = _gather_blank_label(log_probs.float(), labels, blank_id)
+    """RNN-T loss of log-softmaxed joint outputs (B, T, U+1, V) (a rank's
+    columns under a vocabulary `shard`)."""
+    lp_blank, lp_label = _gather_blank_label(log_probs.float(), labels, blank_id, shard)
     return _reduce(-rnnt_alpha_rowscan(lp_blank, lp_label, xlens, ylens), reduction)
 
 
 def rnnt_loss(
     log_probs: torch.Tensor, labels: torch.Tensor, xlens: torch.Tensor, ylens: torch.Tensor,
-    blank_id: int = 0, reduction: str = "mean",
+    blank_id: int = 0, reduction: str = "mean", shard=None,
 ) -> torch.Tensor:
     """RNN-T loss matching `warp_rnnt.rnnt_loss(average_frames=False)` (the
     `full` mode).  The JAX package's `rnnt_loss` scans anti-diagonals; the
     lattice is the same, so this is the row scan."""
-    return rnnt_loss_rowscan(log_probs, labels, xlens, ylens, blank_id, reduction)
+    return rnnt_loss_rowscan(log_probs, labels, xlens, ylens, blank_id, reduction, shard)
 
 
 # ---------------------------------------------------------------- forced alignment
@@ -152,14 +160,14 @@ def _flip_axis2(x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def rnnt_fwd_bwd(log_probs: torch.Tensor, xlens: torch.Tensor, labels: torch.Tensor, ylens: torch.Tensor,
-                 blank_id: int = 0) -> torch.Tensor:
+                 blank_id: int = 0, shard=None) -> torch.Tensor:
     """alpha + beta (B, T, U+1), float64, of log-softmaxed joint outputs
     (B, T, U+1, V): the log-probability of the paths through each cell
     (`rnnt_aligner.py:159-188`), exact inside each utterance's lengths."""
     B, T, U1, _ = log_probs.shape
     dev = log_probs.device
     xlens, ylens = xlens.to(dev).long(), ylens.to(dev).long()
-    lp_blank, lp_label = _gather_blank_label(log_probs.float(), labels.to(dev), blank_id)
+    lp_blank, lp_label = _gather_blank_label(log_probs.float(), labels.to(dev), blank_id, shard)
     alpha = _alpha_lattice(lp_blank, lp_label)
 
     # beta[t, u] = LSE(beta[t+1, u] + blank[t, u], beta[t, u+1] + label[t, u]),
@@ -202,12 +210,12 @@ def rnnt_align_walk(fwd_bwd: torch.Tensor, xlens: torch.Tensor, ylens: torch.Ten
 
 
 def rnnt_forced_align(log_probs: torch.Tensor, xlens: torch.Tensor, labels: torch.Tensor, ylens: torch.Tensor,
-                      blank_id: int = 0) -> torch.Tensor:
+                      blank_id: int = 0, shard=None) -> torch.Tensor:
     """Emission frame of each reference label by forward-backward and a
     greedy walk (`RNNTForcedAligner.__call__`, rnnt_aligner.py:159-198).
-    log_probs (B, T, U+1, V) log-softmaxed joint outputs -> (B, U) int32
-    (0 past ylens)."""
-    fwd_bwd = rnnt_fwd_bwd(log_probs, xlens, labels, ylens, blank_id)
+    log_probs (B, T, U+1, V) log-softmaxed joint outputs (a rank's columns
+    under a vocabulary `shard`) -> (B, U) int32 (0 past ylens)."""
+    fwd_bwd = rnnt_fwd_bwd(log_probs, xlens, labels, ylens, blank_id, shard)
     return rnnt_align_walk(fwd_bwd, xlens, ylens)
 
 
@@ -227,23 +235,40 @@ def _label_rows(w_out: torch.Tensor, b_out: torch.Tensor, labels: torch.Tensor):
 
 def joint_chunk(h_enc_c, h_dec, w_out, b_out, w_lab, b_lab, ok, blank_id: int):
     """One time chunk: (B, c, J) x (B, U+1, J) -> z (B, c, U+1, J), logits
-    (B, c, U+1, V), lse, lp_blank (B, c, U+1) and lp_label (B, c, U).  z is
-    in the activations' dtype, the logits in w_out's (float32 weights take
-    z's values exactly: the fused kernel's arithmetic); lse and the two
-    log-probabilities are float32."""
+    (B, c, U+1, V), lse, the blank logit (B, c, U+1) and the label logit
+    (B, c, U).  z is in the activations' dtype, the logits in w_out's
+    (float32 weights take z's values exactly: the fused kernel's
+    arithmetic); lse and the two selected logits are float32, 0 for a blank
+    or label outside [0, V)."""
     U = w_lab.shape[1]
     z = torch.tanh(h_enc_c[:, :, None, :] + h_dec[:, None, :, :])
     zw = z.to(w_out.dtype)
     logits = torch.matmul(zw, w_out) + b_out
     lse = torch.logsumexp(logits.float(), dim=-1)
-    lpb = logits[..., blank_id].float() - lse
+    if 0 <= blank_id < logits.shape[-1]:
+        blank = logits[..., blank_id].float()
+    else:
+        blank = torch.zeros_like(lse)
     lab_logit = (torch.einsum("bcuj,buj->bcu", zw[:, :, :U], w_lab) + b_lab[:, None, :]).float()
-    lpl = torch.where(ok[:, None, :], lab_logit, torch.zeros_like(lab_logit)) - lse[:, :, :U]
-    return z, logits, lse, lpb, lpl
+    return z, logits, lse, blank, torch.where(ok[:, None, :], lab_logit, torch.zeros_like(lab_logit))
 
 
 def _chunks(T: int, time_chunk: int):
     return [(s, min(s + time_chunk, T)) for s in range(0, T, time_chunk)]
+
+
+def joint_parts_plain(h_enc, h_dec, w_out, b_out, labels, blank_id: int = 0,
+                      time_chunk: int = TIME_CHUNK) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(lse, blank logit (B, T, U+1), label logit (B, T, U)) of w_out's
+    columns, float32, a time chunk at a time; a blank or label outside
+    [0, V) selects nothing (0)."""
+    w_lab, b_lab, ok = _label_rows(w_out, b_out, labels)
+    parts = [[], [], []]
+    for s, e in _chunks(h_enc.shape[1], time_chunk):
+        _, _, *chunk = joint_chunk(h_enc[:, s:e], h_dec, w_out, b_out, w_lab, b_lab, ok, blank_id)
+        for acc, x in zip(parts, chunk):
+            acc.append(x)
+    return tuple(torch.cat(p, dim=1) for p in parts)
 
 
 def joint_gather_plain(h_enc, h_dec, w_out, b_out, labels, blank_id: int = 0,
@@ -251,20 +276,21 @@ def joint_gather_plain(h_enc, h_dec, w_out, b_out, labels, blank_id: int = 0,
     """(lp_blank (B, T, U+1), lp_label (B, T, U)) from the joint
     activations, a time chunk at a time (no autograd graph is kept by the
     callers that need one: see `rnnt_gathered_from_joint`)."""
-    w_lab, b_lab, ok = _label_rows(w_out, b_out, labels)
-    lpb, lpl = [], []
-    for s, e in _chunks(h_enc.shape[1], time_chunk):
-        _, _, _, b_c, l_c = joint_chunk(h_enc[:, s:e], h_dec, w_out, b_out, w_lab, b_lab, ok, blank_id)
-        lpb.append(b_c)
-        lpl.append(l_c)
-    return torch.cat(lpb, dim=1), torch.cat(lpl, dim=1)
+    lse, blank, label = joint_parts_plain(h_enc, h_dec, w_out, b_out, labels, blank_id, time_chunk)
+    return blank - lse, label - lse[:, :, :label.shape[2]]
 
 
 def joint_gather_backward(h_enc, h_dec, w_out, b_out, labels, g_blank, g_label, blank_id: int = 0,
-                          time_chunk: int = TIME_CHUNK):
+                          time_chunk: int = TIME_CHUNK, lse=None):
     """Gradients of (lp_blank, lp_label) with cotangents (g_blank, g_label)
     to (h_enc, h_dec, w_out, b_out), a recomputed time chunk at a time, in
     the chunked route's dtype with its rounding (see the module note).
+
+    `lse` (B, T, U+1): the whole vocabulary's normaliser when w_out and
+    b_out are a model rank's block of columns (`ops/rnnt_joint.py::
+    joint_gather_shard`; labels and blank then in the block's ids): p is
+    taken against it, every label's cotangent reaches it, and only the
+    blank and labels in the block add their columns' terms.
 
     With p = softmax(logits): the logits take -(g_blank + g_label) p, the
     blank logit g_blank and the label logit g_label; d z = their products
@@ -277,22 +303,30 @@ def joint_gather_backward(h_enc, h_dec, w_out, b_out, labels, g_blank, g_label, 
     U = U1 - 1
     w_lab, b_lab, ok = _label_rows(w_out, b_out, labels)
     g_blank = g_blank.float()
-    g_label = torch.where(ok[:, None, :], g_label.float(), torch.zeros_like(g_label, dtype=torch.float32))
+    g_norm = g_label.float()
+    g_label = torch.where(ok[:, None, :], g_norm, torch.zeros_like(g_label, dtype=torch.float32))
+    if lse is None:  # the whole vocabulary: a label outside it takes no cotangent at all
+        g_norm = g_label
     dt = w_out.dtype
     gpb, gpl = g_blank.to(dt), g_label.to(dt)  # cotangents of the rounded blank and label logits
-    w_blank = w_out[:, blank_id]
+    has_blank = 0 <= blank_id < V
+    w_blank = w_out[:, blank_id if has_blank else 0]
     d_enc = torch.empty_like(h_enc)
     d_dec = torch.zeros_like(h_dec)
     d_w = torch.zeros_like(w_out)
     d_b = torch.zeros_like(b_out)
-    d_w_blank, d_b_blank = torch.zeros_like(w_blank), torch.zeros_like(b_out[blank_id])
+    d_w_blank, d_b_blank = torch.zeros_like(w_blank), torch.zeros_like(b_out[0])
     d_w_lab, d_b_lab = torch.zeros_like(w_lab), torch.zeros_like(b_lab)
     for s, e in _chunks(T, time_chunk):
-        z, logits, lse, _, _ = joint_chunk(h_enc[:, s:e], h_dec, w_out, b_out, w_lab, b_lab, ok, blank_id)
+        z, logits, lse_c, _, _ = joint_chunk(h_enc[:, s:e], h_dec, w_out, b_out, w_lab, b_lab, ok, blank_id)
+        if lse is not None:
+            lse_c = lse[:, s:e]
         gb, gl = gpb[:, s:e], gpl[:, s:e]
-        g_lse = -(g_blank[:, s:e] + torch.cat([g_label[:, s:e], torch.zeros_like(g_blank[:, s:e, :1])], dim=2))
-        g_logits = torch.exp(logits.float() - lse[..., None]).mul_(g_lse[..., None]).to(dt)
-        dz = torch.matmul(g_logits, w_out.t()) + gb[..., None] * w_blank
+        g_lse = -(g_blank[:, s:e] + torch.cat([g_norm[:, s:e], torch.zeros_like(g_blank[:, s:e, :1])], dim=2))
+        g_logits = torch.exp(logits.float() - lse_c[..., None]).mul_(g_lse[..., None]).to(dt)
+        dz = torch.matmul(g_logits, w_out.t())
+        if has_blank:
+            dz = dz + gb[..., None] * w_blank
         dz[:, :, :U] += gl[..., None] * w_lab[:, None]
         d_pre = (dz + dz * z) * (1.0 - z)
         d_enc[:, s:e] = d_pre.sum(dim=2)
@@ -304,8 +338,9 @@ def joint_gather_backward(h_enc, h_dec, w_out, b_out, labels, g_blank, g_label, 
         d_b_blank += gb.sum()
         d_w_lab += torch.einsum("bcuj,bcu->buj", zw[:, :, :U], gl)
         d_b_lab += gl.sum(dim=1)
-    d_w[:, blank_id] += d_w_blank
-    d_b[blank_id] += d_b_blank
+    if has_blank:
+        d_w[:, blank_id] += d_w_blank
+        d_b[blank_id] += d_b_blank
     onehot = torch.nn.functional.one_hot(torch.where(ok, labels.long(), torch.zeros_like(labels, dtype=torch.long)),
                                          V).reshape(-1, V).float()  # (B U, V)
     d_w += (d_w_lab.reshape(-1, J).float().t() @ onehot).to(dt)

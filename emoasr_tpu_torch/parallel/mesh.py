@@ -18,7 +18,12 @@ hand:
 - Collectives: one flattened all-reduce of a micro-step's gradients over
   the data group; the two Megatron conjugate operators (`copy_to_model`:
   identity forward, all-reduce backward; `reduce_from_model`: the reverse);
-  a differentiable all-reduce for the Conformer's BatchNorm statistics.
+  a differentiable all-reduce for the Conformer's BatchNorm statistics;
+  for vocabulary-split logits (`parallel/vocab.py`) the log-sum-exp of the
+  ranks' partial normalisers and a sum of partials, both gathered and
+  combined in rank order (`model_logsumexp`, `model_sum_in_order`); the
+  values that one rank owns and the others hold as 0 are summed by
+  `reduce_from_model` (exact, so the same bits on every rank).
   Every collective is an `all_reduce` or a `broadcast`, the two that gloo
   takes for CUDA tensors, besides `all_gather_object` for decoded rows.
 
@@ -288,6 +293,16 @@ def reduce_metrics(mesh: Optional[Mesh], metrics: Dict[str, torch.Tensor]) -> Di
     return {k: flat[i] for i, k in enumerate(keys)}
 
 
+def all_reduce_(t: torch.Tensor, group) -> None:
+    """`dist.all_reduce(t)` over `group` in place; a group object that
+    carries its own `all_reduce` (threads of one process standing for the
+    model ranks, as the CPU tests emulate them) is asked instead."""
+    if hasattr(group, "all_reduce"):
+        group.all_reduce(t)
+    else:
+        dist.all_reduce(t, group=group)
+
+
 class _CopyToModel(torch.autograd.Function):
     """Identity forward; the gradient summed over the model group (the
     input of a column-parallel product: each rank's share of its gradient)."""
@@ -300,7 +315,7 @@ class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        all_reduce_(g, ctx.group)
         return g, None
 
 
@@ -311,7 +326,7 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         y = x.contiguous().clone()
-        dist.all_reduce(y, group=group)
+        all_reduce_(y, group)
         return y
 
     @staticmethod
@@ -326,14 +341,78 @@ class _AllReduceSum(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         y = x.contiguous().clone()
-        dist.all_reduce(y, group=group)
+        all_reduce_(y, group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        all_reduce_(g, ctx.group)
         return g, None
+
+
+def gather_model(x: torch.Tensor, group, rank: int, size: int) -> torch.Tensor:
+    """Every model rank's `x`, stacked in rank order, (size, *x.shape), on
+    every rank (no gradient): one all-reduce of the zero-padded stack, which
+    is exact (each entry has one non-zero term) and takes the CUDA tensors
+    that gloo takes."""
+    parts = x.new_zeros((size,) + tuple(x.shape))
+    parts[rank].copy_(x)
+    all_reduce_(parts, group)
+    return parts
+
+
+def lse_in_order(parts: torch.Tensor) -> torch.Tensor:
+    """logsumexp over dimension 0, the exponentials summed in index order."""
+    mx = parts.max(dim=0).values
+    s = torch.exp(parts[0] - mx)
+    for p in parts[1:]:
+        s = s + torch.exp(p - mx)
+    return mx + torch.log(s)
+
+
+class _ModelLogSumExp(torch.autograd.Function):
+    """The log-sum-exp of the model ranks' partial log-sum-exps (the vocabulary
+    normaliser of split logits): gathered, then combined in rank order, so
+    every rank holds the same bits.  Backward: this rank's share of the
+    gradient, g exp(x - out), with no collective (what follows is
+    replicated over the model group)."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank, size):
+        out = lse_in_order(gather_model(x.contiguous(), group, rank, size))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g * torch.exp(x - out), None, None, None
+
+
+class _ModelSumInOrder(torch.autograd.Function):
+    """The sum of the model ranks' partials, gathered and added in rank
+    order (the same bits on every rank); backward: identity."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank, size):
+        parts = gather_model(x.contiguous(), group, rank, size)
+        out = parts[0].clone()
+        for p in parts[1:]:
+            out = out + p
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+def model_logsumexp(x: torch.Tensor, group, rank: int, size: int) -> torch.Tensor:
+    return _ModelLogSumExp.apply(x, group, rank, size)
+
+
+def model_sum_in_order(x: torch.Tensor, group, rank: int, size: int) -> torch.Tensor:
+    return _ModelSumInOrder.apply(x, group, rank, size)
 
 
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:

@@ -24,8 +24,9 @@ Programs:
   its rows; returns the global loss terms of every micro-step, the summed
   micro-gradient after the first one and its norm as the clip counts it,
   the whole `state_dict` after every update, the skip count, the kernels'
-  launches, an eval loss, and on request a checkpoint written and read
-  back on the mesh.
+  launches, the shapes of the rank's parameters, its peak device memory
+  (on the card), an eval loss, and on request a checkpoint written and
+  read back on the mesh.
 - `decode`: a model's beam or greedy decode of one batch with its rows
   split over every rank (the eval CLI's `--dp`), gathered on rank 0.
 - `encode`: the encoder output of one batch's rows, gathered on rank 0.
@@ -103,18 +104,22 @@ def _device(mesh, device) -> torch.device:
     return mesh.device if mesh is not None else resolve_device(device)
 
 
-def _kernel_counts() -> Dict[str, Dict[str, int]]:
-    """The launches of this slice's kernels (K4, K1, K2, K3) by launcher."""
-    from emoasr_tpu_torch.ops import attention, ctc_head, ctc_lattice, topk
+def _kernels():
+    """The kernels a rank's training or decoding step runs: K4, K1, K2, K3,
+    K7, K8."""
+    from emoasr_tpu_torch.ops import attention, ctc_head, ctc_lattice, lstm_scan, rnnt_joint, topk
 
-    return {k.name: {"all": k.launches, **k.counts}
-            for k in (attention.KERNEL, ctc_head.KERNEL, ctc_lattice.KERNEL, topk.KERNEL)}
+    return (attention.KERNEL, ctc_head.KERNEL, ctc_lattice.KERNEL, topk.KERNEL, rnnt_joint.KERNEL,
+            lstm_scan.KERNEL)
+
+
+def _kernel_counts() -> Dict[str, Dict[str, int]]:
+    """Their launches by launcher."""
+    return {k.name: {"all": k.launches, **k.counts} for k in _kernels()}
 
 
 def _reset_counts() -> None:
-    from emoasr_tpu_torch.ops import attention, ctc_head, ctc_lattice, topk
-
-    for k in (attention.KERNEL, ctc_head.KERNEL, ctc_lattice.KERNEL, topk.KERNEL):
+    for k in _kernels():
         k.reset_counts()
 
 
@@ -151,6 +156,8 @@ def train_steps(mesh, conf: Dict, batches: List[Dict], state_dict=None, lm: bool
     plan = getattr(model, "tp_plan", {})
     names = [n for n, p in model.named_parameters() if p.requires_grad]
     out: Dict = {"metrics": [], "params": [], "grads": None}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     _reset_counts()
     for i, batch in enumerate(batches):
         m = step(state, _to(pmesh.shard_batch(mesh, batch), dev), gen)
@@ -166,6 +173,8 @@ def train_steps(mesh, conf: Dict, batches: List[Dict], state_dict=None, lm: bool
             out["params"].append(_cpu(ckpt.full_state_dict(model, mesh)))
     out["launches"] = _kernel_counts()
     out["skipped"], out["step"] = state.skipped, state.step
+    out["shapes"] = {n: tuple(p.shape) for n, p in model.named_parameters()}  # this rank's shares
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     if eval_batch is not None:
         loss = make_eval_loss_step(cfg)(state, _to(pmesh.shard_batch(mesh, eval_batch), dev))
         out["eval_loss"] = {k: float(v) for k, v in pmesh.reduce_metrics(mesh, loss).items()}

@@ -21,9 +21,18 @@ conjugate collectives of `parallel/mesh.py` join the shares:
   axis, a feed-forward only where its inner width does (JAX splits any
   dimension that divides; a split inside a head is layout to GSPMD but not
   a set of local heads);
-- embedding tables and output heads stay whole on every rank (JAX splits
-  the vocabulary: the fused CTC head, K1, would need a log-sum-exp across
-  ranks), as does everything unmatched (LayerNorms, convolutions, LSTMs).
+- vocabulary-parallel, as JAX splits the vocabulary (`_tp_spec:82-97`):
+  every `nn.Embedding` whose first dimension divides (the decoders' and
+  LMs' `embed`, the phone encoder's `embed`, BERT's word, position and
+  token-type tables) keeps its block of rows, looked up where a rank owns
+  the id and summed over the model group (`VocabParallelEmbedding`); every
+  vocabulary head (an `nn.Linear` named `output` outside the convolution
+  front end: `decoder.output`, `decoder.ctc.output`, the RNN LM's
+  `output`) keeps its block of output columns and returns their logits
+  (`VocabParallelHead`), which only the vocabulary-parallel losses read
+  (`parallel/vocab.py`; K1 and K7 on a rank's columns); the BERT and
+  Transformer LM heads (`decoder`) stay whole, as in JAX;
+- everything unmatched (LayerNorms, convolutions, LSTMs) stays whole.
 
 `tp_plan(model, m)` names each split parameter and its dimension, on the
 port's `state_dict` names; `prepare_model_(model, mesh)` applies it in
@@ -38,7 +47,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from emoasr_tpu_torch.models.layers import MultiHeadAttention, PositionwiseFeedForward, RelMultiHeadAttention
+from emoasr_tpu_torch.models.layers import (
+    Conv2dSubsampler,
+    MultiHeadAttention,
+    PositionwiseFeedForward,
+    RelMultiHeadAttention,
+)
 from emoasr_tpu_torch.models.lm.bert import BertLayer
 from emoasr_tpu_torch.parallel.mesh import (
     Dropout,
@@ -47,6 +61,7 @@ from emoasr_tpu_torch.parallel.mesh import (
     copy_to_model,
     reduce_from_model,
 )
+from emoasr_tpu_torch.parallel.vocab import VocabShard
 
 COLUMN, ROW = 0, 1  # the dimension of `nn.Linear.weight` that each kind splits
 
@@ -70,6 +85,44 @@ class RowParallelLinear(nn.Linear):
     def forward(self, x):
         y = reduce_from_model(F.linear(x, self.weight), self.tp_group)
         return y if self.bias is None else y + self.bias
+
+
+class VocabParallelEmbedding(nn.Embedding):
+    """A block of the table's rows (ids [v0, v0 + V / m)): the rows of the
+    ids this rank owns, zeros for the others, summed over the model group
+    (exact: one rank contributes each row); the gradient reaches the owned
+    rows only."""
+
+    vocab_shard: VocabShard = None
+
+    def forward(self, ids):
+        sh = self.vocab_shard
+        local = ids - sh.v0
+        own = (local >= 0) & (local < sh.local)
+        rows = F.embedding(torch.where(own, local, torch.zeros_like(local)), self.weight)
+        return reduce_from_model(torch.where(own[..., None], rows, torch.zeros_like(rows)), sh.group)
+
+
+class VocabParallelHead(nn.Linear):
+    """A block of the vocabulary's columns: the (..., V / m) logits of the
+    rank's columns; the input's gradient is summed over the model group."""
+
+    vocab_shard: VocabShard = None
+
+    def forward(self, x):
+        return F.linear(copy_to_model(x, self.vocab_shard.group), self.weight, self.bias)
+
+
+def _vocab_modules(model: nn.Module, m: int):
+    """(name, module) of every embedding table and vocabulary head whose
+    vocabulary divides over a model axis of `m`."""
+    convs = {n for n, mod in model.named_modules() if isinstance(mod, Conv2dSubsampler)}
+    for name, mod in model.named_modules():
+        if isinstance(mod, nn.Embedding) and mod.num_embeddings % m == 0:
+            yield name, mod
+        elif (type(mod) is nn.Linear and name.rsplit(".", 1)[-1] == "output"
+              and name.rpartition(".")[0] not in convs and mod.out_features % m == 0):
+            yield name, mod
 
 
 def _linear(prefix: str, kind: int, bias: bool = True) -> Dict[str, int]:
@@ -126,6 +179,10 @@ def tp_plan(model: nn.Module, m: int) -> Dict[str, int]:
         if kind == "attn" and isinstance(mod, RelMultiHeadAttention):
             plan[_join(name, "pos_bias_u")] = 0
             plan[_join(name, "pos_bias_v")] = 0
+    for name, mod in _vocab_modules(model, m):
+        plan[_join(name, "weight")] = 0
+        if getattr(mod, "bias", None) is not None:
+            plan[_join(name, "bias")] = 0
     return plan
 
 
@@ -181,6 +238,17 @@ def prepare_model_(model: nn.Module, mesh: Optional[Mesh]) -> Dict[str, int]:
         elif kind == "ff":  # the dropout on its (B, T, F / m) inner activations
             inner = mod.w1.out_features
             splits[id(mod.dropout)] = (-1, mesh.model_rank * inner, inner * m)
+    for _, mod in list(_vocab_modules(model, m)) if m > 1 else []:
+        _set_share(mod, "weight", 0, mesh)
+        if isinstance(mod, nn.Embedding):
+            mod.__class__ = VocabParallelEmbedding
+            mod.num_embeddings = mod.weight.shape[0]
+        else:
+            if mod.bias is not None:
+                _set_share(mod, "bias", 0, mesh)
+            mod.__class__ = VocabParallelHead
+            mod.out_features = mod.weight.shape[0]
+        mod.vocab_shard = VocabShard(mesh.model_group, mesh.model_rank, m, mod.weight.shape[0])
     for parent in list(model.modules()):
         for child_name, child in list(parent.named_children()):
             if type(child) is nn.Dropout:

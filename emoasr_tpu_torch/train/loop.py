@@ -19,8 +19,12 @@ from the one seed, keeps its tensor-parallel shares
 (`parallel/tensor.py`), takes its rows of every batch and draws what one
 process draws for them; rank 0 alone logs, validates and writes the
 checkpoints, in the single-process format.  A bucket batch that the data
-axis does not divide raises, as the JAX loop's `device_put` does.  A
-profiler switch is not ported yet (ROADMAP.md).
+axis does not divide raises, as the JAX loop's `device_put` does.
+
+`--profile DIR` traces batches 8-12 of the first epoch (`utils/profile.py`;
+JAX `loop.py:233-242`), stopped once the step's outputs are on the host; a
+first epoch of fewer than 13 batches stops the trace at its end (the JAX
+loop leaves it running).  Under torchrun only rank 0 traces.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from emoasr_tpu_torch.utils.device import resolve_device, set_matmul_precision
 from emoasr_tpu_torch.utils.log import setup_logging
 from emoasr_tpu_torch.utils.paths import get_log_save_paths, get_resume_paths
 from emoasr_tpu_torch.utils.precision import cast_floating, dtype_of, is_half
+from emoasr_tpu_torch.utils.profile import TRAIN_FIRST, TRAIN_LAST, Trace
 from emoasr_tpu_torch.utils.vocab import Vocab
 
 
@@ -173,10 +178,11 @@ def greedy_valid_wer(cfg: ExpConfig, model: ASR, dataset: ASRDataset, vocab=None
 
 
 def train(conf_path: str, resume: bool = False, cfg: Optional[ExpConfig] = None,
-          max_steps: Optional[int] = None, device=None) -> TrainState:
+          max_steps: Optional[int] = None, device=None, profile_dir: Optional[str] = None) -> TrainState:
     """Run the training loop on `device` (the card when None; "cpu" must be
     asked for); `max_steps` bounds the run in micro-steps (a checkpoint is
-    saved on early stop), for bounded demo runs."""
+    saved on early stop), for bounded demo runs; `profile_dir` traces
+    batches 8-12 of the first epoch there (see the module note)."""
     cfg = cfg or load_config(conf_path)
     device = resolve_device(device)
     mesh = pmesh.mesh_from_env(cfg, device)  # None unless started by torchrun
@@ -221,11 +227,17 @@ def train(conf_path: str, resume: bool = False, cfg: Optional[ExpConfig] = None,
         accum: Dict[str, torch.Tensor] = {}
         n_acc = 0
         lr = 0.0
+        trace = None
         for i, batch in enumerate(prefetch_to_device(dataset.batches(batcher), device, mesh=mesh)):
             if max_steps is not None and state.step >= max_steps:
                 stopped_early = True
                 break
+            if profile_dir and main and epoch == start_epoch and i == TRAIN_FIRST:
+                trace = Trace(profile_dir, "train_steps", device).start()
             metrics = train_step(state, batch, sa_gen)
+            if trace is not None and i == TRAIN_LAST:
+                trace.stop()
+                trace = None
             lr = metrics.pop("lr")
             metrics.pop("grad_finite")
             # the loss sums stay on the device between log steps
@@ -238,6 +250,9 @@ def train(conf_path: str, resume: bool = False, cfg: Optional[ExpConfig] = None,
                     f"epoch {epoch + 1} step {i + 1}/{steps_per_epoch} {loss_str} lr: {lr:.6f}"
                 )
                 accum, n_acc = {}, 0
+
+        if trace is not None:  # a first epoch of fewer than 13 batches
+            trace.stop()
 
         # epdecay epoch update (optimizers.py:88-97)
         if (
@@ -331,13 +346,15 @@ def build_argparser() -> argparse.ArgumentParser:
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU (the default is the GPU)")
+    parser.add_argument("--profile", type=str, default=None,
+                        help="trace batches 8-12 of the first epoch to this directory")
     return parser
 
 
 def main(argv=None) -> TrainState:
     args = build_argparser().parse_args(argv)
     try:
-        return train(args.conf, resume=args.resume, device="cpu" if args.cpu else None)
+        return train(args.conf, resume=args.resume, device="cpu" if args.cpu else None, profile_dir=args.profile)
     finally:
         pmesh.shutdown()
 

@@ -224,6 +224,46 @@ def test_parallel_entry_points_raise_without_cuda(tmp_path, monkeypatch):
         mesh.pick_backend(torch.device("cpu"), "nccl")
 
 
+def test_vocab_split_profile_and_grid_entry_points_raise_without_cuda(tmp_path, monkeypatch):
+    """The rank programs on a mesh that splits the vocabulary (RNN-T, LAS,
+    the RNN LM on (1, 2)), `--profile` of the train and eval CLIs and
+    `fusion_grid --dp` (alone and as a torchrun rank) run on the GPU unless
+    asked for the CPU: here they raise before they trace or join a process
+    group."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from emoasr_tpu_torch.eval import fusion_grid, test_asr
+    from emoasr_tpu_torch.parallel import mesh, ranks
+    from emoasr_tpu_torch.train import loop
+
+    conf = tmp_path / "exp.yaml"
+    conf.write_text("feat_dim: 20\n")
+    tp = dict(program="train_steps", mesh_shape=(1, 2), mesh_axes=("data", "model"), batches=[])
+    jobs = [dict(tp, conf=dict(decoder_type="rnn_transducer", vocab_size=20)),
+            dict(tp, conf=dict(decoder_type="las", vocab_size=20)),
+            dict(tp, conf=dict(lm_type="rnn", vocab_size=30), lm=True)]
+    for j, job in enumerate(jobs):
+        work = tmp_path / f"ranks{j}"
+        work.mkdir()
+        torch.save([job], work / "jobs.pt")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ranks._main(str(work), 0, 2)
+        assert sorted(os.listdir(work)) == ["jobs.pt"]
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ranks.train_steps(None, conf=job["conf"], batches=[], lm=job.get("lm", False))
+    prof = tmp_path / "prof"
+    for env in ({}, {"WORLD_SIZE": "2", "RANK": "0", "LOCAL_RANK": "0"}):
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            loop.main(["-conf", str(conf), "--profile", str(prof)])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            test_asr.main(["-conf", str(conf), "-ep", "1", "--profile", str(prof)] + (["--dp"] if env else []))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fusion_grid.main(fusion_grid.parse_args(["-conf", str(conf), "-ep", "1", "--dp"]))
+    assert not prof.exists() and not torch.distributed.is_initialized() and mesh.active() is None
+
+
 def test_rnn_las_and_prep_entry_points_raise_without_cuda(tmp_path):
     """The LAS and RNN-encoder models' decode functions, greedy and beam,
     and the prep CLI's fbank stage run on the GPU unless asked for the CPU;

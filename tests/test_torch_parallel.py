@@ -10,9 +10,9 @@ virtual CPU devices.  The weights are the port's from seed 0, carried into
 the JAX package by its own torch importer (`utils/torch_import.py`).
 
 - `tp_plan` splits the matrices that JAX `_tp_spec` splits, along the same
-  axes (through `flax_import`'s name map), apart from the embeddings and
-  output heads, which the port keeps whole, and the Conformer's
-  `pos_bias_u/v`, which it splits with their heads.
+  axes (through `flax_import`'s name map), the vocabulary tables and
+  heads included, on the flagship, RNN-T, LAS and the three LM trees, apart
+  from the Conformer's `pos_bias_u/v`, which it splits with their heads.
 - `__graft_entry__._flagship_cfg(tiny=True)` (Conformer + Transformer
   decoder + CTC 0.3, label smoothing 0.1, BatchNorm), B = 8, T = 64, U = 8
   with the batch's halves holding different token counts, dropout and
@@ -339,15 +339,11 @@ def test_mesh_shapes_and_batches_as_jax_takes_them():
         shard_batch(mesh, {"xs": np.zeros((3, 2))})
 
 
-def test_tp_plan_splits_what_the_jax_specs_split():
-    """Each split matrix of the flagship under a model axis of 2, by port
-    name and dimension, against JAX `param_partition_specs` mapped through
-    `asr_state_dict` (a leaf that varies along its split axis only)."""
-    jcfg = graft._flagship_cfg(tiny=True)
-    b = graft._example_batch(jcfg, B=2, T=64, U=8)
-    shapes = jax.eval_shape(lambda: JaxASR(jcfg).init(jax.random.PRNGKey(0), b["xs"], b["xlens"], b["ys"],
-                                                      b["ylens"], b["ys_in"], b["ys_out"]))
-    specs = param_partition_specs(shapes["params"], jax_make_mesh((4, 2), ("data", "model")))
+def _jax_split_dims(params, to_sd) -> dict:
+    """{port name: the dimension JAX `param_partition_specs` splits over a
+    model axis of 2}, through the port's name map `to_sd` (a marker leaf
+    that varies along its split axis only)."""
+    specs = param_partition_specs(params, jax_make_mesh((4, 2), ("data", "model")))
 
     def marker(x, s):
         axes = [i for i, a in enumerate(s.spec) if a == "model"]
@@ -357,23 +353,72 @@ def test_tp_plan_splits_what_the_jax_specs_split():
         shape[axes[0]] = x.shape[axes[0]]
         return np.broadcast_to(np.arange(x.shape[axes[0]], dtype=np.float32).reshape(shape) + 1, x.shape).copy()
 
-    marks = jax.tree_util.tree_map(marker, shapes["params"], specs)
-    conf = _as_dict(jcfg)
-    sd = asr_state_dict(marks, config_from_dict(conf))
     want = {}
-    for name, t in sd.items():
+    for name, t in to_sd(jax.tree_util.tree_map(marker, params, specs)).items():
         varying = [d for d in range(t.dim()) if t.shape[d] > 1 and not torch.all(t == t.narrow(d, 0, 1))]
         if t.abs().sum() > 0:
             assert len(varying) == 1, name
             want[name] = varying[0]
+    return want
+
+
+def _asr_shapes(jcfg):
+    b = graft._example_batch(jcfg, B=2, T=64, U=8)
+    return jax.eval_shape(lambda: JaxASR(jcfg).init(jax.random.PRNGKey(0), b["xs"], b["xlens"], b["ys"],
+                                                    b["ylens"], b["ys_in"], b["ys_out"]))["params"]
+
+
+def test_tp_plan_splits_what_the_jax_specs_split():
+    """Each split matrix of the flagship under a model axis of 2, by port
+    name and dimension, against JAX `param_partition_specs` mapped through
+    `asr_state_dict`, vocabulary tables and heads included; the
+    Conformer's `pos_bias_u/v`, which the port splits with their heads,
+    aside."""
+    jcfg = graft._flagship_cfg(tiny=True)
+    conf = _as_dict(jcfg)
+    want = _jax_split_dims(_asr_shapes(jcfg), lambda t: asr_state_dict(t, config_from_dict(conf)))
     plan = tp_plan(ASR(config_from_dict(conf)), 2)
     heads = {"decoder.output.weight", "decoder.output.bias", "decoder.ctc.output.weight",
              "decoder.ctc.output.bias", "decoder.embed.weight"}
     pos_bias = {k for k in plan if k.endswith(("pos_bias_u", "pos_bias_v"))}
-    assert heads <= set(want) and not heads & set(plan)
+    assert heads <= set(want) and heads <= set(plan)
     assert len(pos_bias) == 2 * jcfg.enc_num_layers and not pos_bias & set(want)
-    assert {k: v for k, v in want.items() if k not in heads} == {k: v for k, v in plan.items() if k not in pos_bias}
+    assert want == {k: v for k, v in plan.items() if k not in pos_bias}
     assert "encoder.transformers.0.feed_forward.w1.weight" in plan and not any("conv" in k for k in plan)
+
+
+LAS = dict(RNNT, decoder_type="las", dec_hidden_size=24, dec_num_layers=1, dec_intermediate_size=28,
+           embedding_size=16, max_decode_ylen=16, lsm_prob=0.1)
+RNN_LM = dict(lm_type="rnn", vocab_size=30, hidden_size=24, num_layers=2, embedding_size=16, dropout_rate=0.0,
+              batch_size=8, learning_rate=3e-3, lr_schedule_type="lindecay", warmup_proportion=0.1,
+              weight_decay=0.01, accum_grad=2)
+TRF_LM = dict(BERT, lm_type="transformer")
+TREES = {"rnnt": (RNNT, False, ["decoder.embed.weight", "decoder.output.weight", "decoder.ctc.output.bias"]),
+         "las": (LAS, False, ["decoder.embed.weight", "decoder.output.bias", "decoder.ctc.output.weight"]),
+         "transformer_lm": (TRF_LM, True, ["lm.transformer.bert.embeddings.word_embeddings.weight",
+                                          "lm.transformer.bert.embeddings.token_type_embeddings.weight"]),
+         "bert": (BERT, True, ["lm.bert.bert.embeddings.position_embeddings.weight"]),
+         "rnn_lm": (RNN_LM, True, ["lm.embed.weight", "lm.output.weight", "lm.output.bias"])}
+
+
+@pytest.mark.parametrize("tree", list(TREES))
+def test_tp_plan_equals_the_jax_specs_on_every_tree(tree):
+    """The RNN-T, LAS and three LM trees: the port's plan at a model axis of
+    2 is JAX `param_partition_specs`, name for name (the vocabulary tables
+    and heads named here among them; the LM heads named `decoder` whole)."""
+    conf, lm, split = TREES[tree]
+    jcfg, cfg = _jax_config(conf), config_from_dict(conf)
+    if lm:
+        ys = jnp.zeros((2, 8), jnp.int32)
+        shapes = jax.eval_shape(lambda: JaxLM(jcfg).init(jax.random.PRNGKey(0), ys, jnp.full((2,), 8, jnp.int32)))
+        want = _jax_split_dims(shapes["params"], lambda t: {"lm." + k: v for k, v in lm_state_dict(t, cfg).items()})
+        plan = tp_plan(LM(cfg), 2)
+    else:
+        want = _jax_split_dims(_asr_shapes(jcfg), lambda t: asr_state_dict(t, cfg))
+        plan = tp_plan(ASR(cfg), 2)
+    plan = {k: v for k, v in plan.items() if not k.endswith(("pos_bias_u", "pos_bias_v"))}
+    assert set(split) <= set(plan) and not any(k.endswith("cls.predictions.decoder.weight") for k in plan)
+    assert plan == want
 
 
 @pytest.mark.parametrize("mesh", ["flag_data", "flag_tp", "flag"])
