@@ -1,0 +1,11 @@
+"""Share of the padded frames of the batches collated in the program's
+`decode.collate` spans that no utterance fills: 100 * (1 - real / padded),
+over the traced stretch."""
+
+from harness import program_spans
+
+UNIT, LAYER, MOVES = "%", "decoding loop", "decode_audio_s_per_s"
+
+
+def read(ctx):
+    return program_spans.pad_share(ctx, "decode.collate")

@@ -56,8 +56,7 @@ Phases (any failed check raises, so the script exits non-zero):
    kernels).
    Finite losses, no skipped step, the noam LR, changed weights, and the
    launch counts of every training kernel are checked; then one micro-step's
-   loss and gradients on the card are held against the CPU's plain path,
-   and one micro-step's phases are timed.
+   loss and gradients on the card are held against the CPU's plain path.
 5. Learning on the card: a small corpus is overfitted through the train CLI
    and decoded by the eval CLI (WER < 15).
 6. Decoding: a synthetic test corpus over the L1 buckets is decoded with the
@@ -96,18 +95,17 @@ Phases (any failed check raises, so the script exits non-zero):
    `rnnt_joint_mode: pallas`, `enc_fused_attn: true`, SpecAugment and
    dropout on, weights from `--seed`): one epoch of 10 micro-steps over the
    five L4 buckets through the train CLI, with K7 = K8 forward = K8
-   backward launches = micro-steps; one micro-step against the CPU; where
-   one largest-bucket micro-step's time goes; then the trainer's
-   `model.ep1` through the eval CLI over the 40-utterance corpus, greedy and
-   with the ALSD beam at width 10 (K8 launched no time: the prediction
-   network steps one token at a time), and one batch's greedy and top-1
-   beam hypotheses equal on the card and the CPU.
+   backward launches = micro-steps; one micro-step against the CPU; then
+   the trainer's `model.ep1` through the eval CLI over the 40-utterance
+   corpus, greedy and with the ALSD beam at width 10 (K8 launched no time:
+   the prediction network steps one token at a time), and one batch's
+   greedy and top-1 beam hypotheses equal on the card and the CPU.
 11. L1 trained with `compute_dtype: bfloat16` through the train CLI (5
    micro-steps, one per bucket): K1 and K4 through their bf16 launchers,
    float32 masters, Adam moments and checkpoint; one micro-step of the
    trainer's checkpoint in bf16 against float32 on the same batch (loss
-   within 2 %, gradient cosine >= 0.99); the largest bucket's phases in
-   bf16; a greedy bf16 decode of its `model.ep1` through the eval CLI.
+   within 2 %, gradient cosine >= 0.99); a greedy bf16 decode of its
+   `model.ep1` through the eval CLI.
 12. The same for L4 (K4 with its bias, K7 and K8 through their bf16
    launchers).
 13. bf16 beam decoding of the 40-utterance corpus at full width: L1 beam 8,
@@ -2788,83 +2786,6 @@ def check_micro_step(tr: dict, dev, want_used: dict, heads=None) -> dict:
             "heads": {h: {"weight_column_rel_err": w, "bias_group_rel_err": b} for h, (w, b) in by_head.items()}}
 
 
-def time_micro_step(tr: dict, dev, card: str) -> dict:
-    """Where one micro-step of the largest bucket spends its time (host
-    clock around synchronised phases, dropout on; the last of three), in
-    the trainer's compute dtype (bf16: the casts of the masters are in the
-    encoder's phase)."""
-    from emoasr_tpu_torch.utils.precision import dtype_of
-
-    from emoasr_tpu_torch.data.asr_dataset import ASRDataset
-    from emoasr_tpu_torch.eval.test_asr import load_asr_model
-    from emoasr_tpu_torch.train.optim import build_optimizer, clip_by_global_norm_
-
-    cfg = tr["cfg"]
-    big = max(tr["buckets"], key=lambda b: b.max_xlen)
-    ds = ASRDataset(cfg, tr["train_tsv"], phase="train")
-    bi, idx = next(b for b in ds.make_batcher(shuffle=False) if b[0] == len(tr["buckets"]) - 1)
-    batch = ds.collate(idx, big.max_xlen, big.max_ylen)
-    t = {k: torch.from_numpy(v).to(dev) for k, v in batch.items() if isinstance(v, np.ndarray)}
-    model = load_asr_model(tr["ckpt"], cfg).to(dev).train()
-    params = list(model.parameters())
-    opt = build_optimizer(cfg, params)
-    for g in opt.param_groups:
-        g["lr"] = 1e-7
-
-    def tick():
-        torch.cuda.synchronize()
-        return time.perf_counter()
-
-    dt = dtype_of(cfg)
-    xs = t["xs"].to(dt)
-    for _ in range(3):
-        t0 = tick()
-        with compute_params(model, dt):
-            eouts, elens, inter = model.encoder(xs, t["xlens"])
-            t1 = tick()
-            loss, _, _ = model.decoder(eouts, elens, inter, t["ys"], t["ylens"], t["ys_in"], t["ys_out"])
-        t2 = tick()
-        grads = torch.autograd.grad(loss, params)
-        t3 = tick()
-        clip_by_global_norm_(grads, cfg.clip_grad_norm)
-        for p, g in zip(params, grads):
-            p.grad = g
-        opt.step()
-        t4 = tick()
-    head_phase = {"transformer": "attention decoder + label smoothing + aux CTC head and lattice",
-                  "las": "LAS decoder (a step a label) + label smoothing"}.get(cfg.decoder_type, "CTC head + lattice")
-    split = {"batch": list(t["xs"].shape), "compute_dtype": cfg.compute_dtype, "encoder_fwd_ms": (t1 - t0) * 1e3,
-             "ctc_fwd_ms": (t2 - t1) * 1e3, "backward_ms": (t3 - t2) * 1e3, "clip_adam_ms": (t4 - t3) * 1e3}
-    print(f"  one {tuple(t['xs'].shape)} {cfg.compute_dtype} micro-step on {card}: encoder forward "
-          f"{split['encoder_fwd_ms']:.2f} ms, "
-          f"{head_phase} forward {split['ctc_fwd_ms']:.2f} ms, backward {split['backward_ms']:.2f} ms, "
-          f"clip + Adam {split['clip_adam_ms']:.2f} ms")
-    return split
-
-
-@contextlib.contextmanager
-def compute_params(model, dtype: torch.dtype):
-    """Inside, every floating parameter of `model` reads as its cast to
-    `dtype`, recorded by autograd (so gradients reach the float32 masters),
-    as the train step's forward sees them under a half `compute_dtype`;
-    float32 leaves the model as it is.  The casts are made on entry."""
-    if dtype == torch.float32:
-        yield
-        return
-    params = [(m, n, p) for m in model.modules() for n, p in list(m._parameters.items())
-              if p is not None and p.is_floating_point()]
-    casts = {id(p): p.to(dtype) for _, _, p in params}
-    try:
-        for m, n, p in params:
-            del m._parameters[n]
-            setattr(m, n, casts[id(p)])
-        yield
-    finally:
-        for m, n, p in params:
-            delattr(m, n)
-            m._parameters[n] = p
-
-
 # bf16 against f32 on the card: one micro-step of the bf16 trainer's
 # model.ep1 (float32 masters) on one batch, dropout and SpecAugment off, once
 # with compute_dtype bfloat16 and once float32.  The loss within 2 % (the
@@ -4092,95 +4013,6 @@ def train_l4(args, root: str, card: str, compute_dtype: str = "float32", per_buc
             "wav_s": wav_s, "launches": launches, "seconds": dt, "epoch_seconds": epoch, "micro_steps": n_steps,
             "micro_steps_per_s": n_steps / epoch, "utt_per_s": len(lengths) / epoch, "losses": losses,
             "buckets": buckets}
-
-
-def time_l4_micro_step(tr: dict, dev, card: str) -> dict:
-    """Where one L4 micro-step of the largest bucket spends its time (host
-    clock around synchronised phases, dropout on; the last of three):
-    encoder, prediction network (K8), joint (K7), lattice, backward, clip +
-    Adam; then three parts of the backward alone (the lattice's autograd,
-    the chunked joint backward, K8's backward)."""
-    from emoasr_tpu_torch.data.asr_dataset import ASRDataset
-    from emoasr_tpu_torch.eval.test_asr import load_asr_model
-    from emoasr_tpu_torch.ops.lstm_scan import lstm_scan_fused
-    from emoasr_tpu_torch.ops.rnnt import joint_gather_backward, rnnt_alpha_rowscan
-    from emoasr_tpu_torch.ops.rnnt_joint import fused_joint_gather
-    from emoasr_tpu_torch.train.optim import build_optimizer, clip_by_global_norm_
-    from emoasr_tpu_torch.utils.precision import dtype_of
-
-    cfg = tr["cfg"]
-    big = max(tr["buckets"], key=lambda b: b.max_xlen)
-    ds = ASRDataset(cfg, tr["train_tsv"], phase="train")
-    bi, idx = next(b for b in ds.make_batcher(shuffle=False) if b[0] == len(tr["buckets"]) - 1)
-    batch = ds.collate(idx, big.max_xlen, big.max_ylen)
-    t = {k: torch.from_numpy(v).to(dev) for k, v in batch.items() if isinstance(v, np.ndarray)}
-    dt = dtype_of(cfg)
-    t["xs"] = t["xs"].to(dt)
-    model = load_asr_model(tr["ckpt"], cfg).to(dev).train()
-    dec = model.decoder
-    params = list(model.parameters())
-    opt = build_optimizer(cfg, params)
-    for g in opt.param_groups:
-        g["lr"] = 1e-7
-
-    def tick():
-        torch.cuda.synchronize()
-        return time.perf_counter()
-
-    for _ in range(3):
-        t0 = tick()
-        casts = compute_params(model, dt)
-        casts.__enter__()
-        eouts, elens, _ = model.encoder(t["xs"], t["xlens"])
-        t1 = tick()
-        douts, _ = dec.recurrency(t["ys_in"])
-        t2 = tick()
-        lp_blank, lp_label = fused_joint_gather(dec.w_enc(eouts), dec.w_dec(douts), dec.output.weight.t(),
-                                                dec.output.bias, t["ys"], cfg.blank_id)
-        t3 = tick()
-        loss = -torch.mean(rnnt_alpha_rowscan(lp_blank, lp_label, elens, t["ylens"]))
-        t4 = tick()
-        grads = torch.autograd.grad(loss, params)
-        t5 = tick()
-        clip_by_global_norm_(grads, cfg.clip_grad_norm)
-        for p, g in zip(params, grads):
-            p.grad = g
-        opt.step()
-        t6 = tick()
-        # three parts of the backward, each alone: the lattice's autograd,
-        # the chunked joint backward, and K8's backward
-        lb, ll = lp_blank.detach().requires_grad_(True), lp_label.detach().requires_grad_(True)
-        lat = -torch.mean(rnnt_alpha_rowscan(lb, ll, elens, t["ylens"]))
-        t7 = tick()
-        g_blank, g_label = torch.autograd.grad(lat, (lb, ll))
-        t8 = tick()
-        joint_gather_backward(dec.w_enc(eouts).detach(), dec.w_dec(douts).detach(), dec.output.weight.t().detach(),
-                              dec.output.bias.detach(), t["ys"], g_blank, g_label, cfg.blank_id)
-        t9 = tick()
-        rnn = dec.rnns[0]
-        x_proj = torch.nn.functional.linear(dec.embed(t["ys_in"]), rnn.weight_ih_l0,
-                                            rnn.bias_ih_l0 + rnn.bias_hh_l0).detach().requires_grad_(True)
-        zeros = x_proj.new_zeros((x_proj.shape[0], rnn.hidden_size))
-        w_hh = rnn.weight_hh_l0.detach().requires_grad_(True)
-        ys_k8, _ = lstm_scan_fused(x_proj, w_hh, zeros, zeros)
-        t10 = tick()
-        torch.autograd.grad(ys_k8, (x_proj, w_hh), torch.ones_like(ys_k8))
-        t11 = tick()
-        casts.__exit__(None, None, None)
-    split = {"batch": list(t["xs"].shape), "labels": list(t["ys_in"].shape), "frames": int(eouts.shape[1]),
-             "compute_dtype": cfg.compute_dtype,
-             "encoder_fwd_ms": (t1 - t0) * 1e3, "prediction_net_ms": (t2 - t1) * 1e3,
-             "joint_ms": (t3 - t2) * 1e3, "lattice_ms": (t4 - t3) * 1e3, "backward_ms": (t5 - t4) * 1e3,
-             "clip_adam_ms": (t6 - t5) * 1e3, "lattice_backward_ms": (t8 - t7) * 1e3,
-             "joint_backward_ms": (t9 - t8) * 1e3, "lstm_backward_ms": (t11 - t10) * 1e3}
-    print(f"  one L4 {tuple(t['xs'].shape)} {cfg.compute_dtype} micro-step (U+1 = {t['ys_in'].shape[1]}, "
-          f"T' = {split['frames']}) on "
-          f"{card}: encoder {split['encoder_fwd_ms']:.2f} ms, prediction network {split['prediction_net_ms']:.2f}, "
-          f"joint {split['joint_ms']:.2f}, lattice {split['lattice_ms']:.2f}, backward {split['backward_ms']:.2f} "
-          f"(alone: the lattice's {split['lattice_backward_ms']:.2f}, the chunked joint's "
-          f"{split['joint_backward_ms']:.2f}, K8's {split['lstm_backward_ms']:.2f}), clip + Adam "
-          f"{split['clip_adam_ms']:.2f}")
-    return split
 
 
 def decode_l4(args, tr: dict, dev, card: str) -> dict:
@@ -6213,7 +6045,6 @@ def las_phase(args, root: str, lms: dict, overfit: dict, dev, card: str) -> dict
             == ("las", 256, 1, 256, 128, 64, 4, 2048), "the LAS(Trf) config is not the benchmarked one")
     step = check_micro_step(tr, dev, {"attention_fwd": n_layers, "attention_bwd": n_layers}, heads=(
         ("decoder.output", lambda b: np.append(b["ys_out"][:4].reshape(-1), cfg.eos_id)),))
-    split = time_micro_step(tr, dev, card)
 
     # overfit the same widths on phase 5's labels
     sub = os.path.join(root, "las_overfit")
@@ -6314,7 +6145,7 @@ def las_phase(args, root: str, lms: dict, overfit: dict, dev, card: str) -> dict
             require(int(gl[r]) in (0, cfg.max_decode_ylen), f"LAS width 1 row {r}: no result, greedy {int(gl[r])}")
     print(f"  LAS width 1 on the card equals greedy on all {len(batch['utt_ids'])} rows "
           f"({int((bs[:, 0] > -1e29).sum())} ended); the phase took {time.perf_counter() - t_phase:.1f} s")
-    return {"train": tr, "step_check": step, "step_split": split, "overfit_seconds": t_overfit,
+    return {"train": tr, "step_check": step, "overfit_seconds": t_overfit,
             "overfit_launches": overfit_launches, "overfit_losses": [losses[0], losses[-1]],
             "greedy_wer": runs["greedy"]["wer"], "runs": runs, "same_top1_card_vs_cpu": same,
             "seconds": time.perf_counter() - t_phase}
@@ -6340,7 +6171,6 @@ def ctc_rnn_phase(args, root: str, tr: dict, dev, card: str) -> dict:
     want_shapes = {(kind, B, T, 256, "f32"): 24 for kind in ("fwd", "bwd") for B, T in ((46, 99), (18, 399))}
     require(rt["k8_shapes"] == want_shapes, f"CTC(RNN) training: K8 by shape {rt['k8_shapes']}, want {want_shapes}")
     step = check_micro_step(rt, dev, per_step)
-    split = time_micro_step(rt, dev, card)
     conf = _write_conf(os.path.join(root, "ctc_rnn", "ctc_rnn_test.yaml"), rt["conf_path"], test_path=tr["test_tsv"])
     os.makedirs(os.path.join(root, "ctc_rnn", "ctc_rnn_test", "checkpoints"))
     shutil.copy(rt["ckpt"], os.path.join(root, "ctc_rnn", "ctc_rnn_test", "checkpoints", "model.ep1"))
@@ -6358,7 +6188,7 @@ def ctc_rnn_phase(args, root: str, tr: dict, dev, card: str) -> dict:
     same = {beam: _top1_card_vs_cpu(f"CTC(RNN) beam {beam}", cfg, rt["ckpt"], lambda d: None, batch, dev, beam,
                                     HYP_SHARE) for beam in (0, 8)}
     print(f"  CTC(RNN): K8 by shape in the decodes {k8_decode}; the phase took {time.perf_counter() - t_phase:.1f} s")
-    return {"train": rt, "step_check": step, "step_split": split, "runs": runs, "same_top1_card_vs_cpu": same, "k8_decode": k8_decode,
+    return {"train": rt, "step_check": step, "runs": runs, "same_top1_card_vs_cpu": same, "k8_decode": k8_decode,
             "seconds": time.perf_counter() - t_phase}
 
 
@@ -7207,7 +7037,6 @@ def main(argv=None) -> int:
         step_check = check_micro_step(tr, dev, {
             "ctc_head_fwd": 1, "ctc_head_grad_e": 1, "ctc_head_grad_w": 1, "ctc_alpha": 1, "ctc_beta_grad": 1,
             "attention_fwd": n_layers, "attention_bwd": n_layers})
-        step_split = time_micro_step(tr, dev, card)
 
         # 5. learning on the card
         phase("[5/30] learning on the card: the small overfit corpus, train CLI then eval CLI")
@@ -7237,7 +7066,6 @@ def main(argv=None) -> int:
         l4_step = check_micro_step(l4, dev, {
             "rnnt_joint": 1, "lstm_fwd": 1, "lstm_bwd": 1, "attention_fwd": n_layers, "attention_bwd": n_layers,
             "attention_bias_fwd": n_layers, "attention_bias_bwd": n_layers})
-        l4_split = time_l4_micro_step(l4, dev, card)
         l4_dec = decode_l4(args, l4, dev, card)
         require((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (False, False),
                 "an entry point left TF32 on for a float32 model")
@@ -7253,7 +7081,6 @@ def main(argv=None) -> int:
             "ctc_head_fwd_bf16": 1, "ctc_head_grad_e_bf16": 1, "ctc_head_grad_w_bf16": 1, "ctc_alpha": 1,
             "ctc_beta_grad": 1, "attention_fwd_bf16": n_layers, "attention_bwd_bf16": n_layers, "ctc_head_fwd": 0,
             "attention_fwd": 0, "attention_bwd": 0})
-        l1b_split = time_micro_step(l1b, dev, card)
         l1b_dec = decode_greedy_bf16(l1b, card, ("attention_fwd_bf16",))
 
         # 12. the slice's path: L4 trained in bf16, then its model.ep1 greedily
@@ -7265,7 +7092,6 @@ def main(argv=None) -> int:
             "rnnt_joint_bf16": 1, "lstm_fwd_bf16": 1, "lstm_bwd_bf16": 1, "attention_fwd_bf16": n_layers,
             "attention_bwd_bf16": n_layers, "attention_bias_fwd_bf16": n_layers, "attention_bias_bwd_bf16": n_layers,
             "rnnt_joint": 0, "lstm_fwd": 0, "lstm_bwd": 0, "attention_fwd": 0, "attention_bwd": 0})
-        l4b_split = time_l4_micro_step(l4b, dev, card)
         l4b_dec = decode_greedy_bf16(l4b, card, ("attention_fwd_bf16", "attention_bias_fwd_bf16"))
 
         # 13. the slice's path: bf16 beam decoding of L1, L3-1, L3-3 and L4
@@ -7286,7 +7112,6 @@ def main(argv=None) -> int:
             "ctc_head_fwd": 1, "ctc_head_grad_e": 1, "ctc_head_grad_w": 1, "ctc_alpha": 1, "ctc_beta_grad": 1,
             "attention_fwd": n_layers, "attention_bwd": n_layers, "attention_bias_fwd": n_layers,
             "attention_bias_bwd": n_layers}, heads=l3_1_heads(l3t["cfg"]))
-        l3t_split = time_micro_step(l3t, dev, card)
         l3t_update = check_l3_1_update(l3t, dev)
         l3t_dec = decode_trained_l3_1(l3t, card)
         l3b = train_l3_1(args, root, card, l3_test, l3_wav, "bfloat16", per_bucket=(0, 1, 0, 0, 1))
@@ -7562,7 +7387,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "train": {k: tr[k] for k in ("micro_steps", "seconds", "epoch_seconds", "micro_steps_per_s",
                                      "utt_per_s", "launches", "losses", "trace_kernels")},
-        "micro_step": {**step_split, **step_check}, "overfit": {k: overfit[k] for k in ("wer", "seconds")},
+        "micro_step": step_check, "overfit": {k: overfit[k] for k in ("wer", "seconds")},
         "decode": {
             f"beam{b}": {k: r[k] for k in ("seconds", "utt_per_s", "rtf", "launches")}
             for b, r in mp["runs"].items()
@@ -7580,20 +7405,20 @@ def main(argv=None) -> int:
                         "ctc_beam_lm": l33["ctc_beam_lm"]},
         "l4_train": {k: l4[k] for k in ("micro_steps", "seconds", "epoch_seconds", "micro_steps_per_s",
                                         "utt_per_s", "launches", "losses")},
-        "l4_micro_step": {**l4_split, **l4_step},
+        "l4_micro_step": l4_step,
         "l4_decode": {**l4_dec["runs"], "n_utts": l4_dec["n_utts"], "batches": l4_dec["batches"]},
         "l1_bf16_train": {k: l1b[k] for k in ("micro_steps", "seconds", "epoch_seconds", "micro_steps_per_s",
                                               "utt_per_s", "launches", "losses")},
-        "l1_bf16_micro_step": {**l1b_split, **l1b_step},
+        "l1_bf16_micro_step": l1b_step,
         "l1_bf16_greedy_decode": l1b_dec,
         "l4_bf16_train": {k: l4b[k] for k in ("micro_steps", "seconds", "epoch_seconds", "micro_steps_per_s",
                                               "utt_per_s", "launches", "losses")},
-        "l4_bf16_micro_step": {**l4b_split, **l4b_step},
+        "l4_bf16_micro_step": l4b_step,
         "l4_bf16_greedy_decode": l4b_dec,
         "bf16_beam_decode": b16,
         "l3_1_train": {k: l3t[k] for k in ("micro_steps", "seconds", "epoch_seconds", "micro_steps_per_s",
                                            "utt_per_s", "launches", "losses", "per_step_launches")},
-        "l3_1_micro_step": {**l3t_split, **l3t_step}, "l3_1_update": l3t_update, "l3_1_trained_decode": l3t_dec,
+        "l3_1_micro_step": l3t_step, "l3_1_update": l3t_update, "l3_1_trained_decode": l3t_dec,
         "l3_1_bf16_train": {k: l3b[k] for k in ("micro_steps", "seconds", "launches", "losses", "per_step_launches")},
         "l3_1_bf16_micro_step": l3b_step,
         "lm_train": {t: {k: v[k] for k in ("seconds", "steps", "losses", "launches", "k8_by_shape")}
@@ -7610,12 +7435,12 @@ def main(argv=None) -> int:
         "forced_align": {k: v for k, v in fa.items() if k != "launches"},
         "analysis": {k: v for k, v in ana.items() if not k.endswith("launches")},
         "las": {"train": {k: las["train"][k] for k in ("seconds", "losses", "launches")},
-                "micro_step": {**las["step_split"], **las["step_check"]}, "overfit_seconds": las["overfit_seconds"],
+                "micro_step": las["step_check"], "overfit_seconds": las["overfit_seconds"],
                 "overfit_losses": las["overfit_losses"], "greedy_wer": las["greedy_wer"],
                 "runs": las["runs"], "same_top1_card_vs_cpu": las["same_top1_card_vs_cpu"], "seconds": las["seconds"]},
         "ctc_rnn": {"train": {k: ctc_rnn["train"][k] for k in ("seconds", "losses", "launches")},
                     "k8_by_shape": {"/".join(map(str, k)): n for k, n in k8_rnn.items()},
-                    "micro_step": {**ctc_rnn["step_split"], **ctc_rnn["step_check"]}, "runs": ctc_rnn["runs"],
+                    "micro_step": ctc_rnn["step_check"], "runs": ctc_rnn["runs"],
                     "same_top1_card_vs_cpu": ctc_rnn["same_top1_card_vs_cpu"], "seconds": ctc_rnn["seconds"]},
         "frontend": {k: v for k, v in front.items() if k != "launches"},
         "parallel": {k: v for k, v in par.items() if k != "launches"},

@@ -29,6 +29,7 @@ from emoasr_tpu_torch.data.batching import (
     pad_to,
 )
 from emoasr_tpu_torch.utils.converters import get_utt_id_nosp, str2ints
+from emoasr_tpu_torch.utils.profile import count
 
 
 def create_soft_label(data_kd_utt, ylen: int, vocab_size: int, lsm_prob: float, add_eos: bool,
@@ -170,6 +171,8 @@ class ASRDataset:
             "ys_in": ys_in,
             "ys_out": ys_out,
         }
+        count("frames.real", int(batch["xlens"][:n_valid].sum()))
+        count("frames.padded", B * max_xlen)
         if self.use_phone:
             peos = cfg.phone_eos_id if cfg.phone_eos_id is not None else eos
             # phone sequences are much longer than token sequences: pad to

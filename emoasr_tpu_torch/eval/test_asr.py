@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import logging
 import os
 import queue
@@ -66,7 +67,7 @@ from emoasr_tpu_torch.utils.paths import (
     get_results_dir,
     rel_to_abs_path,
 )
-from emoasr_tpu_torch.utils.profile import trace
+from emoasr_tpu_torch.utils.profile import span, trace
 from emoasr_tpu_torch.utils.vocab import Vocab
 
 EVAL_TAGS = {
@@ -212,9 +213,12 @@ def decode_dataset(
         return False
 
     def producer():
+        batches = dataset.batches()
         try:
-            for batch in dataset.batches():
-                if not put(batch):
+            while True:
+                with span("decode.collate"):  # the batch's frames counted in `ASRDataset.collate`
+                    batch = next(batches, None)
+                if batch is None or not put(batch):
                     return
         except BaseException as e:  # noqa: BLE001 — re-raised in the consumer
             err.append(e)
@@ -225,8 +229,9 @@ def decode_dataset(
     thread.start()
     n_done = 0
     try:
-        while True:
-            batch = q.get()
+        for i in itertools.count():
+            with span("decode.wait", key=i):
+                batch = q.get()
             if batch is None:
                 if err:
                     raise err[0]
@@ -234,9 +239,11 @@ def decode_dataset(
             max_utts = (num_samples - n_done) if num_samples > 0 else -1
             outs = _decode_rows(decode_fn, batch, mesh)
             if outs is not None:
-                new, n_utts, n_forced = _postproc_batch(
-                    cfg, batch, *outs, vocab, nbest, sample_utt_id, max_utts=max_utts, decode_phone=decode_phone,
-                )
+                with span("decode.postproc", key=i):
+                    new, n_utts, n_forced = _postproc_batch(
+                        cfg, batch, *outs, vocab, nbest, sample_utt_id, max_utts=max_utts,
+                        decode_phone=decode_phone,
+                    )
                 rows.extend(new)
                 n_forced_total += n_forced
             else:  # what rank 0 counts: every row up to max_utts without an utt_id filter

@@ -57,6 +57,7 @@ from emoasr_tpu_torch.ops.common import LOG_0, flip_by_length
 from emoasr_tpu_torch.parallel import vocab
 from emoasr_tpu_torch.parallel.mesh import batch_mean
 from emoasr_tpu_torch.search.ctc_prefix_score import log_linear_scan
+from emoasr_tpu_torch.utils.profile import span
 
 TIME_CHUNK = 32  # frames of the joint output held at once (the JAX package's)
 
@@ -84,24 +85,25 @@ def rnnt_alpha_rowscan(
 ) -> torch.Tensor:
     """Per-utterance log-likelihood (B,) of the lattice, a row at a time
     (see the module note)."""
-    lp_blank = lp_blank.float()
-    B, T, U1 = lp_blank.shape
-    dev = lp_blank.device
-    xlens = xlens.to(dev).long()
-    ylens = ylens.to(dev).long()
-    # a[:, t, u]: label emission into u (from u - 1); column 0 is no edge
-    a = torch.cat([torch.zeros((B, T, 1), dtype=torch.float64, device=dev), lp_label.double()], dim=2)
-    b = torch.full((B, U1), LOG_0, dtype=torch.float64, device=dev)
-    b[:, 0] = 0.0
-    alpha = log_linear_scan(a[:, 0], b)  # row 0: the label chain from alpha[0, 0] = 0
-    blank64 = lp_blank.double()
-    for t in range(1, T):
-        new = log_linear_scan(a[:, t], alpha + blank64[:, t - 1])
-        alpha = torch.where((t < xlens)[:, None], new, alpha)
-    final = torch.gather(alpha, 1, ylens[:, None])[:, 0]
-    last = torch.gather(lp_blank, 1, (xlens - 1)[:, None, None].expand(B, 1, U1))[:, 0]
-    term = torch.gather(last, 1, ylens[:, None])[:, 0]
-    return final.float() + term
+    with span("rnnt.lattice"):
+        lp_blank = lp_blank.float()
+        B, T, U1 = lp_blank.shape
+        dev = lp_blank.device
+        xlens = xlens.to(dev).long()
+        ylens = ylens.to(dev).long()
+        # a[:, t, u]: label emission into u (from u - 1); column 0 is no edge
+        a = torch.cat([torch.zeros((B, T, 1), dtype=torch.float64, device=dev), lp_label.double()], dim=2)
+        b = torch.full((B, U1), LOG_0, dtype=torch.float64, device=dev)
+        b[:, 0] = 0.0
+        alpha = log_linear_scan(a[:, 0], b)  # row 0: the label chain from alpha[0, 0] = 0
+        blank64 = lp_blank.double()
+        for t in range(1, T):
+            new = log_linear_scan(a[:, t], alpha + blank64[:, t - 1])
+            alpha = torch.where((t < xlens)[:, None], new, alpha)
+        final = torch.gather(alpha, 1, ylens[:, None])[:, 0]
+        last = torch.gather(lp_blank, 1, (xlens - 1)[:, None, None].expand(B, 1, U1))[:, 0]
+        term = torch.gather(last, 1, ylens[:, None])[:, 0]
+        return final.float() + term
 
 
 def _reduce(nll: torch.Tensor, reduction: str) -> torch.Tensor:

@@ -58,7 +58,7 @@ from emoasr_tpu_torch.utils.device import resolve_device, set_matmul_precision
 from emoasr_tpu_torch.utils.log import setup_logging
 from emoasr_tpu_torch.utils.paths import get_log_save_paths, get_resume_paths
 from emoasr_tpu_torch.utils.precision import cast_floating, dtype_of, is_half
-from emoasr_tpu_torch.utils.profile import TRAIN_FIRST, TRAIN_LAST, Trace
+from emoasr_tpu_torch.utils.profile import TRAIN_FIRST, TRAIN_LAST, Trace, span
 from emoasr_tpu_torch.utils.vocab import Vocab
 
 
@@ -104,9 +104,15 @@ def prefetch_to_device(batch_iter, device: torch.device, depth: int = 3,
         return dev, done, host  # `host` stays alive until the copy is done
 
     def producer():
+        batches = iter(batch_iter)
         try:
-            for batch in batch_iter:
-                if not put(to_device(batch)):
+            while True:
+                with span("feed.collate"):  # the batch's frames counted in `ASRDataset.collate`
+                    batch = next(batches, None)
+                    if batch is None:
+                        return
+                    item = to_device(batch)
+                if not put(item):
                     return
         except Exception as e:  # noqa: BLE001 - re-raised in the consumer
             err.append(e)
@@ -117,18 +123,19 @@ def prefetch_to_device(batch_iter, device: torch.device, depth: int = 3,
     thread.start()
     try:
         while True:
-            item = q.get()
-            if item is None:
-                if err:
-                    raise err[0]
-                break
-            batch, done, _host = item
-            if done is not None:
-                cur = torch.cuda.current_stream(device)
-                cur.wait_event(done)
-                for t in batch.values():
-                    t.record_stream(cur)
+            with span("feed.wait"):
+                item = q.get()
+                if item is None:
+                    break
+                batch, done, _host = item
+                if done is not None:
+                    cur = torch.cuda.current_stream(device)
+                    cur.wait_event(done)
+                    for t in batch.values():
+                        t.record_stream(cur)
             yield batch
+        if err:
+            raise err[0]
     finally:
         stop.set()
         thread.join(timeout=10)

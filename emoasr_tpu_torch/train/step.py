@@ -43,6 +43,7 @@ from emoasr_tpu_torch.utils.precision import (
     dtype_of,
     is_half,
 )
+from emoasr_tpu_torch.utils.profile import span
 
 
 @dataclass
@@ -126,10 +127,16 @@ def make_train_step(cfg: ExpConfig, num_total_steps: Optional[int] = None,
         mesh = None  # a world of one: the single-process step
 
     def step_fn(state: TrainState, batch: Dict, generator=None) -> Dict:
+        with span("train.micro_step", key=state.step + 1):
+            return micro_step(state, batch, generator)
+
+    def micro_step(state: TrainState, batch: Dict, generator) -> Dict:
         model, params = state.model, state.params
         model.train()
-        loss, loss_dict = loss_fn(model, cfg, batch, generator, True)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with span("train.forward"):
+            loss, loss_dict = loss_fn(model, cfg, batch, generator, True)
+        with span("train.backward"):  # autograd launches the backward's kernels from its device thread
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
         clip_kw = {}
         if mesh is None:
@@ -155,18 +162,19 @@ def make_train_step(cfg: ExpConfig, num_total_steps: Optional[int] = None,
             torch._foreach_add_(state.acc_grads, grads)
             state.mini_step += 1
             if state.mini_step == accum:
-                if accum > 1:
-                    torch._foreach_div_(state.acc_grads, float(accum))
-                if cfg.clip_grad_norm and cfg.clip_grad_norm > 0:
-                    clip_by_global_norm_(state.acc_grads, float(cfg.clip_grad_norm), **clip_kw)
-                for p, g in zip(params, state.acc_grads):
-                    p.grad = g
-                for group in state.optimizer.param_groups:
-                    group["lr"] = lr
-                state.optimizer.step()
-                for p in params:
-                    p.grad = None
-                torch._foreach_zero_(state.acc_grads)
+                with span("train.update"):
+                    if accum > 1:
+                        torch._foreach_div_(state.acc_grads, float(accum))
+                    if cfg.clip_grad_norm and cfg.clip_grad_norm > 0:
+                        clip_by_global_norm_(state.acc_grads, float(cfg.clip_grad_norm), **clip_kw)
+                    for p, g in zip(params, state.acc_grads):
+                        p.grad = g
+                    for group in state.optimizer.param_groups:
+                        group["lr"] = lr
+                    state.optimizer.step()
+                    for p in params:
+                        p.grad = None
+                    torch._foreach_zero_(state.acc_grads)
                 state.mini_step = 0
         else:
             state.skipped += 1

@@ -5,9 +5,10 @@ eval CLIs (`utils/profile.py`) and `fusion_grid --dp`.
   `tests/test_torch_train_cli.py`: a first epoch of 16 batches is traced
   over batches 8-12 (five optimizer steps in the trace), one of 10 batches
   from batch 8 to the epoch's end (two), and the Chrome trace names aten
-  operators.
+  operators and the program's spans (`train.update` once an optimizer
+  step, `train.forward`, `train.backward`, `feed.wait`, ...).
 - The eval CLI with `--profile DIR`: a trace of `decode_dataset` that names
-  aten operators.
+  aten operators and the decoding loop's spans.
 - `fusion_grid --dp` under a two-rank `torchrun` over gloo (each rank 3 of
   a batch's 6 rows): the grid's log lines, its best point and every point's
   TSV equal the one-process grid's.
@@ -45,9 +46,13 @@ def test_train_cli_profile_traces_the_first_epochs_batches_8_to_12(tmp_path, bat
     names = _events(out / "train_steps.pt.trace.json")
     assert any(n.startswith("aten::") for n in names)
     assert sum(n.startswith("Optimizer.step#") for n in names) == steps
+    assert sum(n == "train.update" for n in names) == steps
+    assert {"train.micro_step", "train.forward", "train.backward", "feed.wait"} <= set(names)
     port_cli._SETUP_CACHE.clear()
     port_cli.main(["-conf", str(conf), "-ep", "1", "--beam_width", "0", "--cpu", "--profile", str(out)])
-    assert any(n.startswith("aten::") for n in _events(out / "decode_dataset.pt.trace.json"))
+    names = _events(out / "decode_dataset.pt.trace.json")
+    assert any(n.startswith("aten::") for n in names)
+    assert {"decode.wait", "decode.postproc"} <= set(names)
 
 
 def _grid_lines(text):
